@@ -1,0 +1,171 @@
+"""Port parity: mxnet_tpu_torch.parallel.flash_attention against the JAX
+package's flash attention, on the CPU.
+
+The same numpy inputs go through the JAX function (its jnp composition,
+and the Pallas kernels in interpret mode) and through the port's plain
+PyTorch version, which is what the port's wrappers run on a CPU tensor.
+fp32 tolerances: rtol=1e-5, atol=1e-6 against jnp (both are the same
+formula; only summation order differs), rtol=atol=2e-5 against
+interpret-mode Pallas (blocked online softmax, as tests/
+test_flash_attention.py already holds it). Rows that attend to no key at
+all (segment id 0) hold unspecified values in every version and are
+left out of the comparison.
+
+The CUDA kernels themselves run only on a card: chip_smoke.py holds them
+to the plain version there, at the serving shapes."""
+import importlib
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch import MXNetError
+
+# the modules themselves (mxnet_tpu.parallel exports a same-named function)
+jfa = importlib.import_module("mxnet_tpu.parallel.flash_attention")
+tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+
+JNP_TOL = dict(rtol=1e-5, atol=1e-6)
+PALLAS_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(seed, B, Tq, Tk, H, D):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, Tq, H, D).astype(np.float32)
+    k = rs.randn(B, Tk, H, D).astype(np.float32)
+    v = rs.randn(B, Tk, H, D).astype(np.float32)
+    return q, k, v
+
+
+def _segments(seed, B, T):
+    """Packed-row segment ids: 1-based runs, a zero (pad) tail."""
+    rs = np.random.RandomState(seed)
+    seg = np.zeros((B, T), np.int32)
+    for b in range(B):
+        pos, sid = 0, 1
+        end = T - rs.randint(0, T // 4)
+        while pos < end:
+            n = min(rs.randint(1, T // 2), end - pos)
+            seg[b, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return seg
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+CASES = [
+    # (B, Tq, Tk, H, D, causal, segments)
+    (2, 64, 64, 2, 16, True, False),
+    (1, 100, 100, 2, 8, True, False),       # ragged T, D = 8
+    (2, 37, 53, 3, 16, False, False),       # cross-length, non-causal
+    (2, 96, 96, 2, 16, False, True),        # packed segments
+    (1, 130, 130, 2, 16, True, True),       # causal + segments, ragged
+]
+
+
+@pytest.mark.parametrize("case", CASES,
+                         ids=["causal", "ragged_d8", "cross", "seg",
+                              "causal_seg"])
+def test_flash_attention_matches_jax(case):
+    B, Tq, Tk, H, D, causal, segmented = case
+    q, k, v = _qkv(sum(case[:5]), B, Tq, Tk, H, D)
+    seg = _segments(7, B, Tq) if segmented else None
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              segment_ids=None if seg is None
+                              else _t(seg)).numpy()
+    want = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        segment_ids=None if seg is None else jnp.asarray(seg)))
+    live = np.ones((B, Tq), bool) if seg is None else seg > 0
+    np.testing.assert_allclose(got[live], want[live], **JNP_TOL)
+    pallas = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        segment_ids=None if seg is None else jnp.asarray(seg),
+        force_pallas=True))
+    np.testing.assert_allclose(got[live], pallas[live], **PALLAS_TOL)
+
+
+@pytest.mark.parametrize("T,D", [(48, 16), (128, 8), (200, 16)])
+def test_flash_decode_matches_jax(T, D):
+    B, H = 3, 2
+    rs = np.random.RandomState(T + D)
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    k = rs.randn(B, T, H, D).astype(np.float32)
+    v = rs.randn(B, T, H, D).astype(np.float32)
+    lengths = rs.randint(1, T + 1, size=B).astype(np.int32)
+    lengths[0] = 1                            # a single live key
+    got = tfa.flash_decode(_t(q), _t(k), _t(v), _t(lengths)).numpy()
+    want = np.asarray(jfa.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v),
+                                       jnp.asarray(lengths)))
+    np.testing.assert_allclose(got, want, **JNP_TOL)
+    bk = 64 if T % 64 == 0 else 16            # the kernel's block must
+    pallas = np.asarray(jfa.flash_decode(     # tile T
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths), force_pallas=True, block_k=bk))
+    np.testing.assert_allclose(got, pallas, **PALLAS_TOL)
+
+
+def test_flash_decode_q8_plain_matches_jax():
+    rs = np.random.RandomState(5)
+    B, T, H, D = 2, 64, 2, 8
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    k = rs.randint(-127, 128, size=(B, T, H, D)).astype(np.int8)
+    v = rs.randint(-127, 128, size=(B, T, H, D)).astype(np.int8)
+    ks = rs.uniform(0.005, 0.02, size=(B, T)).astype(np.float32)
+    vs = rs.uniform(0.005, 0.02, size=(B, T)).astype(np.float32)
+    lengths = np.asarray([37, 64], np.int32)
+    got = tfa.flash_decode(_t(q), _t(k), _t(v), _t(lengths),
+                           k_scale=_t(ks), v_scale=_t(vs)).numpy()
+    want = np.asarray(jfa.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs)))
+    np.testing.assert_allclose(got, want, **JNP_TOL)
+    with pytest.raises(ValueError, match="BOTH"):
+        tfa.flash_decode(_t(q), _t(k), _t(v), _t(lengths), k_scale=_t(ks))
+
+
+def test_same_value_errors_as_jax():
+    q, k, v = (_t(x) for x in _qkv(0, 1, 4, 6, 2, 8))
+    with pytest.raises(ValueError, match="self-attention"):
+        tfa.flash_attention(q, k, v,
+                            segment_ids=torch.ones((1, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="single query"):
+        tfa.flash_decode(q, k, v, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="impl"):
+        tfa.flash_attention(q, q, q, impl="fast")
+
+
+def test_wrappers_route_by_device():
+    """A CPU tensor takes the plain version; a CUDA tensor the kernel
+    (never the plain version unless impl="plain"); any other device
+    raises. Launch counts move only on the kernel route."""
+    cpu = torch.zeros(1)
+    fake_cuda = types.SimpleNamespace(device=torch.device("cuda", 0))
+    assert tfa._use_kernel(cpu, None) is False
+    assert tfa._use_kernel(fake_cuda, None) is True
+    assert tfa._use_kernel(fake_cuda, "plain") is False
+    with pytest.raises(MXNetError, match="no attention kernel"):
+        tfa._use_kernel(torch.zeros(1, device="meta"), None)
+    tfa.reset_launches()
+    q, k, v = (_t(x) for x in _qkv(1, 1, 8, 8, 2, 8))
+    tfa.flash_attention(q, k, v, causal=True)
+    tfa.flash_decode(q[:, :1], k, v, torch.full((1,), 8))
+    assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0}
+
+
+def test_q8_decode_kernel_not_ported_raises_on_cuda(monkeypatch):
+    """The int8 decode kernel waits for a later slice: on the kernel
+    route a quantized call raises instead of silently dequantizing."""
+    monkeypatch.setattr(tfa, "_use_kernel", lambda x, impl: True)
+    q = torch.zeros(1, 1, 1, 8)
+    k = torch.zeros(1, 4, 1, 8, dtype=torch.int8)
+    s = torch.ones(1, 4)
+    with pytest.raises(NotImplementedError, match="_decode_kernel_q8"):
+        tfa.flash_decode(q, k, k, torch.ones(1, dtype=torch.int32),
+                         k_scale=s, v_scale=s)
