@@ -7,28 +7,51 @@ no result, anywhere else. Phases (any failure exits non-zero):
 
 1. device — CUDA present, capability >= (9, 0); prints the card's
    ``nvidia-smi`` name and power limit;
-2. build — both attention kernels from ``mxnet_tpu_torch/parallel/csrc``
-   (one nvcc per source, started together);
-3. kernels vs plain — each kernel against its plain PyTorch version on
-   the card at the serving path's shapes (fp32, TF32 off, tolerance
-   rtol = atol = 1e-5), with the device time (CUDA-graph replay) and
-   per-call time (CUDA events) of the kernel, the plain version and torch's
-   scaled_dot_product_attention (a yardstick only), and each kernel's
-   bound from its bytes and flops;
-4. model — ToyDecoderLM at GPT-2-small width (12 layers, 12 heads x 64,
+2. build — the four attention kernels from
+   ``mxnet_tpu_torch/parallel/csrc`` (one nvcc per source, started
+   together), with their ptxas register and spill lines;
+3. kernels vs plain — the forward and decode kernels against their plain
+   PyTorch versions on the card at the serving path's shapes (fp32, TF32
+   off, tolerance rtol = atol = 1e-5), with the device time (CUDA-graph
+   replay) and per-call time (CUDA events) of the kernel, the plain
+   version and torch's scaled_dot_product_attention (a yardstick only),
+   and each kernel's bound from its bytes and flops;
+4. training-shape kernels vs plain — the forward kernel at the LM's
+   B8 T1024 causal (rtol = atol = 1e-5), then the dK/dV and dQ kernels
+   against their plain versions and against torch autograd of dense
+   attention (rtol = atol = 1e-4) at B8 T1024 causal, a packed causal
+   batch and non-causal cross-attention, timed the same way, with the
+   backward of scaled_dot_product_attention as the yardstick; a probe
+   shows the backward comparison fails on a one-ulp LSE nudge and on a
+   zeroed tile; flash_attention on CUDA tensors returns a tensor with a
+   grad_fn whose gradients reach q, k and v;
+5. model — ToyDecoderLM at GPT-2-small width (12 layers, 12 heads x 64,
    d_ff 3072, vocab 50257, 1024 positions; random weights from seed 0):
    prefill logits and 16 stepwise decode logits, kernels vs plain;
-5. server — the main path: DecodeServer serves 16 streamed requests
-   (one consumed through tokens(), one cancelled midway); every stream
-   equals a server-free greedy loop over the same model; then a short
-   run over an int8 KV pool. Kernel launch counts are zeroed just
-   before this phase and read just after it;
-6. step profile — where one steady decode step's time goes (kernel
-   classes, device idle share), from the profiler.
+6. server — the first slice's main path: DecodeServer serves 16
+   streamed requests (one consumed through tokens(), one cancelled
+   midway); every stream equals a server-free greedy loop over the same
+   model; then a short run over an int8 KV pool. Kernel launch counts
+   are zeroed just before this phase and read just after it;
+7. step profile — where one steady decode step's time goes (kernel
+   classes, device idle share), from the profiler;
+8. training — the second slice's main path: a Gluon decoder LM at the
+   same width (``gluon_lm``) on gpu(0), batch 8 x 1024 random tokens,
+   next-token SoftmaxCrossEntropyLoss, Adam (lr 1e-3). One
+   record/backward against a twin with dense attention and the same
+   weights (every gradient and the loss must agree), and again with the
+   twin reusing the kernel route's ReLU masks, then 20 Trainer
+   steps on one fixed batch (the loss must fall; launch counts zeroed
+   just before and read just after: 12 per step for each of flash_fwd,
+   flash_bwd_dkdv and flash_bwd_dq), then ms per step, tokens/s and the
+   device idle share from the profiler.
 
-It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
+path (``path``: server or training; ``launches`` from that path's run,
+times at the shape it gives the kernel), and, last, ``{"ok": true,
 "device": {...}}``.
 """
+import gc
 import json
 import os
 import statistics
@@ -52,8 +75,35 @@ GPT2_SMALL = dict(vocab=50257, n_layers=12, n_heads=12, head_dim=64,
                   d_ff=3072, max_len=1024)
 FWD_SRC = "mxnet_tpu_torch/parallel/csrc/flash_fwd.cu"
 DEC_SRC = "mxnet_tpu_torch/parallel/csrc/flash_decode.cu"
+BWD_SRC = {"flash_bwd_dkdv": "mxnet_tpu_torch/parallel/csrc/flash_bwd_dkdv.cu",
+           "flash_bwd_dq": "mxnet_tpu_torch/parallel/csrc/flash_bwd_dq.cu"}
 FWD_TPU = "mxnet_tpu/parallel/flash_attention.py:83"
 DEC_TPU = "mxnet_tpu/parallel/flash_attention.py:516"
+BWD_TPU = {"flash_bwd_dkdv": "mxnet_tpu/parallel/flash_attention.py:137",
+           "flash_bwd_dq": "mxnet_tpu/parallel/flash_attention.py:187"}
+# backward kernels vs plain: fp32 sums over up to 1024 rows in another
+# order than the plain einsums
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+# flops per live (q, k) pair and head, per D: dK/dV (S, dP, dV, dK) and
+# dQ (S, dP, dQ)
+BWD_FLOPS = {"flash_bwd_dkdv": 8, "flash_bwd_dq": 6}
+# the training check, max|diff| / max|grad| per parameter, kernel route
+# vs the dense-attention twin. The two softmax algorithms differ by ~1e-7
+# in fp32; where that flips a ReLU pre-activation across zero, one
+# token's term (about 1% of max |grad|) enters or leaves a row of that
+# layer's ffn1 weight gradient. So the ffn1 weights get GRAD_RTOL_RELU
+# (a few flips), every other parameter GRAD_RTOL (7x the largest
+# reading, 1.3e-3), and a second pass of the twin that reuses the kernel
+# route's ReLU masks, which takes the flips out, holds every parameter
+# to GRAD_RTOL_SHARED. Per-sample losses within LOSS_ATOL.
+GRAD_RTOL = 1e-2
+GRAD_RTOL_RELU = 5e-2
+GRAD_RTOL_SHARED = 1e-3
+LOSS_ATOL = 1e-4
+TRAIN_BATCH = 8
+# the kernels each main path runs
+SERVER_KERNELS = ("flash_fwd", "flash_decode")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def fail(msg):
@@ -110,6 +160,23 @@ def timed(fn):
     return device_ms(fn), call_ms(fn)
 
 
+def stream_ms(fn, iters=10):
+    """Time per call of ``iters`` calls issued back to back between two
+    CUDA events, after a warm-up call: device time when the device is
+    the bottleneck (used where a call runs torch autograd, which a CUDA
+    graph capture does not take)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def report(name, what, ms, plain_ms, lib_ms, bound, bound_by):
     print("  %-30s %s | device ms: kernel %.4f plain %.4f sdpa %.4f |"
           " per-call ms: kernel %.4f plain %.4f sdpa %.4f | bound %.2f us"
@@ -117,11 +184,11 @@ def report(name, what, ms, plain_ms, lib_ms, bound, bound_by):
                      plain_ms[1], lib_ms[1], bound * 1e3, bound_by))
 
 
-def close(got, want):
-    """(max abs error, within TOL) over finite reference entries."""
+def close(got, want, tol=TOL):
+    """(max abs error, within tol) over finite reference entries."""
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all()) and bool(
-        (err <= TOL["atol"] + TOL["rtol"] * want.abs()).all())
+        (err <= tol["atol"] + tol["rtol"] * want.abs()).all())
     return float(err.max()), ok
 
 
@@ -157,34 +224,44 @@ def phase_build():
                     print("  %s: %s" % (name, ln.strip()))
 
 
+def segment_plane(B, T, seed, dev):
+    """(B, T) int32 packed-row segment ids: four segments, then a pad
+    tail of 16 positions (id 0)."""
+    rs = np.random.RandomState(seed)
+    cuts = np.sort(rs.choice(np.arange(1, T - 16), 3, replace=False))
+    ids = np.zeros(T, np.int32)
+    for i, (a, b) in enumerate(zip([0] + list(cuts), list(cuts) + [T - 16])):
+        ids[a:b] = i + 1
+    return torch.from_numpy(np.tile(ids, (B, 1))).to(dev)
+
+
+def live_mask(B, Tq, Tk, causal, seg, dev):
+    """(B, Tq, Tk) bool: the (q, k) pairs the masks let through."""
+    qp = torch.arange(Tq, device=dev)[:, None]
+    kp = torch.arange(Tk, device=dev)[None, :]
+    live = torch.ones(Tq, Tk, dtype=torch.bool, device=dev)
+    if causal:
+        live &= qp >= kp
+    live = live.expand(B, Tq, Tk)
+    if seg is not None:
+        live = live & (seg[:, :, None] == seg[:, None, :]) \
+            & (seg[:, :, None] > 0)
+    return live
+
+
 def fwd_case(tfa, B, T, H, D, causal, segmented, seed):
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
                for _ in range(3))
-    seg = None
-    if segmented:
-        rs = np.random.RandomState(seed)
-        cuts = np.sort(rs.choice(np.arange(1, T - 16), 3, replace=False))
-        ids = np.zeros(T, np.int32)
-        for i, (a, b) in enumerate(zip([0] + list(cuts),
-                                       list(cuts) + [T - 16])):
-            ids[a:b] = i + 1                   # last 16 positions: pad
-        seg = torch.from_numpy(np.tile(ids, (B, 1))).to(dev)
+    seg = segment_plane(B, T, seed, dev) if segmented else None
     got, lse = tfa._fwd_cuda(q, k, v, seg, D ** -0.5, causal)
     want = tfa.flash_attention(q, k, v, causal=causal, segment_ids=seg,
                                impl="plain")
-    # live pairs: the rows and keys the mask lets through
-    pos = torch.arange(T, device=dev)
-    live = torch.ones(T, T, dtype=torch.bool, device=dev)
-    if causal:
-        live &= pos[:, None] >= pos[None, :]
-    rows = torch.ones(B, T, dtype=torch.bool, device=dev)
-    if seg is not None:
-        live = live & (seg[:, :, None] == seg[:, None, :]) \
-            & (seg[:, :, None] > 0)
-        rows = seg > 0                          # rows with a live key
-    live = live.expand(B, T, T)
+    live = live_mask(B, T, T, causal, seg, dev)
+    # rows with a live key
+    rows = seg > 0 if seg is not None else \
+        torch.ones(B, T, dtype=torch.bool, device=dev)
     err, ok = close(got[rows], want[rows])
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
     s = torch.where(live[:, None], s, -1e30)
@@ -250,6 +327,163 @@ def decode_case(tfa, B, T, H, D, seed):
         fail("flash_decode disagrees with the plain version")
     return dict(err=err, ms=ms[0], plain_ms=plain_ms[0],
                 library_ms=lib_ms[0], bound_ms=bound, bound_by="bytes")
+
+
+def probe_comparison(tfa, args, got, want):
+    """Shows that the backward comparison can fail where it reads 0:
+    the plain versions with the LSE of one (b, h) nudged one ulp up must
+    differ from the kernels, and a dK with one 64-key tile zeroed must
+    fail the tolerance."""
+    q, k, v, do, lse, dcap, seg, scale, causal = args
+    nudged = lse.clone()
+    nudged[0, 0] = torch.nextafter(nudged[0, 0],
+                                   torch.full_like(nudged[0, 0], np.inf))
+    nargs = (q, k, v, do, nudged, dcap, seg, scale, causal)
+    kern = got["flash_bwd_dkdv"] + got["flash_bwd_dq"]
+    plain = tfa._torch_bwd_dkdv(*nargs) + (tfa._torch_bwd_dq(*nargs),)
+    errs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    bad = kern[0].clone()
+    bad[0, 64:128, 0] = 0.0
+    tile_err, tile_ok = close(bad, want["flash_bwd_dkdv"][0], BWD_TOL)
+    print("  comparison probe: plain with one (b, h) LSE row one ulp up vs"
+          " the kernels: max abs err dk %.3g dv %.3g dq %.3g (must be > 0);"
+          " dK with keys 64-127 of (b0, h0) zeroed: err %.3g, check %s"
+          % (errs[0], errs[1], errs[2], tile_err,
+             "passes" if tile_ok else "fails (as it must)"))
+    if min(errs) == 0.0 or tile_ok:
+        fail("the backward comparison cannot see a planted difference")
+
+
+def bwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed, probe=False):
+    """Both backward kernels against their plain versions on one input,
+    with a zero cotangent on rows that attend to nothing (a masked
+    loss), and the backward of scaled_dot_product_attention as the
+    yardstick; with ``probe``, also :func:`probe_comparison`. Returns
+    {kernel name: record}."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, do = (torch.randn(B, Tq, H, D, generator=g).to(dev) for _ in range(2))
+    k, v = (torch.randn(B, Tk, H, D, generator=g).to(dev) for _ in range(2))
+    seg = segment_plane(B, Tq, seed, dev) if segmented else None
+    scale = D ** -0.5
+    if seg is not None:
+        do[seg == 0] = 0.0
+    o, lse = tfa._fwd_cuda(q, k, v, seg, scale, causal)
+    dcap = torch.sum(do * o, dim=-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, dcap, seg, scale, causal)
+    got = {"flash_bwd_dkdv": tfa._bwd_cuda("flash_bwd_dkdv", *args),
+           "flash_bwd_dq": (tfa._bwd_cuda("flash_bwd_dq", *args),)}
+    torch.cuda.synchronize()
+    want = {"flash_bwd_dkdv": tfa._torch_bwd_dkdv(*args),
+            "flash_bwd_dq": (tfa._torch_bwd_dq(*args),)}
+    plain = {"flash_bwd_dkdv": lambda: tfa._torch_bwd_dkdv(*args),
+             "flash_bwd_dq": lambda: tfa._torch_bwd_dq(*args)}
+    # the yardstick: SDPA's backward (dq, dk and dv in one call)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    live = live_mask(B, Tq, Tk, causal, seg, dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if seg is None:
+        out = sdpa(qt, kt, vt, is_causal=causal)
+    else:
+        out = sdpa(qt, kt, vt, attn_mask=live[:, None])
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = stream_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    pairs = int(live.sum()) * H
+    name = "bwd B%d Tq%d Tk%d H%d D%d %s%s" % (
+        B, Tq, Tk, H, D, "causal" if causal else "full",
+        " seg" if segmented else "")
+    # an independent reference: torch autograd of the dense attention
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    dense = torch.autograd.grad(tfa.flash_attention(
+        *leaves, causal=causal, segment_ids=seg, impl="plain"), leaves, do)
+    del leaves
+    kernel_grads = (got["flash_bwd_dq"][0],) + got["flash_bwd_dkdv"]
+    dense_errs = [close(a, b, BWD_TOL) for a, b in zip(kernel_grads, dense)]
+    print("  %-14s %-34s dq/dk/dv vs torch autograd of dense attention:"
+          " max abs err %.3g" % ("both", name,
+                                 max(e for e, _ in dense_errs)))
+    if not all(ok for _, ok in dense_errs):
+        fail("backward kernels disagree with dense autograd: %s" % name)
+    if probe:
+        probe_comparison(tfa, args, got, want)
+    rec = {}
+    for kname in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        errs = [close(a, b, BWD_TOL) for a, b in zip(got[kname],
+                                                     want[kname])]
+        err = max(e for e, _ in errs)
+        flops = BWD_FLOPS[kname] * D * pairs
+        qd, kd = B * Tq * H * D, B * Tk * H * D
+        if kname == "flash_bwd_dkdv":     # q, do, k, v, lse, D in; dk, dv out
+            nbytes = 4.0 * (2 * qd + 4 * kd + 2 * B * H * Tq)
+        else:                              # q, do, k, v, lse, D in; dq out
+            nbytes = 4.0 * (3 * qd + 2 * kd + 2 * B * H * Tq)
+        if seg is not None:
+            nbytes += 4.0 * B * Tq
+        bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        bound_by = "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32_FLOPS \
+            else "operations"
+        ms = timed(lambda kn=kname: tfa._bwd_cuda(kn, *args))
+        plain_ms = timed(plain[kname])
+        print("  %-14s %-34s err %.3g | device ms: kernel %.4f plain %.4f |"
+              " per-call ms: kernel %.4f plain %.4f | sdpa bwd (dq, dk, dv)"
+              " %.4f ms | bound %.2f us (%s)"
+              % (kname, name, err, ms[0], plain_ms[0], ms[1], plain_ms[1],
+                 lib_ms, bound * 1e3, bound_by))
+        if not all(ok for _, ok in errs):
+            fail("%s disagrees with the plain version: %s" % (kname, name))
+        rec[kname] = dict(err=err, ms=ms[0], plain_ms=plain_ms[0],
+                          library_ms=lib_ms, bound_ms=bound,
+                          bound_by=bound_by)
+    return rec
+
+
+def check_flash_grad(tfa):
+    """flash_attention on CUDA tensors that require grad returns a tensor
+    with a grad_fn, and the gradients that reach q, k and v equal torch
+    autograd of the plain version."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q, k, v, do = (torch.randn(2, 200, 4, 32, generator=g).to(dev)
+                   for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=True)
+    if out.grad_fn is None:
+        fail("flash_attention on CUDA returned a tensor with no grad_fn")
+    got = torch.autograd.grad(out, leaves, do)
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(
+        tfa.flash_attention(*ref, causal=True, impl="plain"), ref, do)
+    errs = [close(a, b, BWD_TOL) for a, b in zip(got, want)]
+    print("flash_attention on CUDA: grad_fn %s; dq/dk/dv vs torch autograd"
+          " of the plain version: max abs err %.3g"
+          % (type(out.grad_fn).__name__, max(e for e, _ in errs)))
+    if not all(ok for _, ok in errs):
+        fail("flash_attention gradients disagree with the plain version")
+
+
+def phase_bwd_kernels(tfa):
+    """The training shapes: the forward kernel at the LM's B8 T1024
+    causal, then both backward kernels there, on a packed causal batch
+    and on non-causal cross-attention. Returns the forward's record, the
+    backward kernels' main-shape records and the largest error of each
+    backward kernel."""
+    H, D = 12, 64
+    print("forward kernel vs plain at the training shape (rtol = atol ="
+          " %g):" % TOL["rtol"])
+    fwd = fwd_case(tfa, TRAIN_BATCH, GPT2_SMALL["max_len"], H, D, True,
+                   False, seed=10)
+    print("backward kernels vs plain (fp32, TF32 off, rtol = atol = %g):"
+          % BWD_TOL["rtol"])
+    main = bwd_case(tfa, TRAIN_BATCH, 1024, 1024, H, D, True, False,
+                    seed=11, probe=True)
+    seg = bwd_case(tfa, 2, 256, 256, H, D, True, True, seed=12)
+    cross = bwd_case(tfa, 2, 128, 320, H, D, False, False, seed=13)
+    errs = {kn: max(c[kn]["err"] for c in (main, seg, cross))
+            for kn in main}
+    check_flash_grad(tfa)
+    return fwd, main, errs
 
 
 def phase_kernels(tfa):
@@ -375,7 +609,7 @@ def phase_server(model, params, tfa):
     if st["completed"] != 15 or st["cancelled"] != 1 or st["errors"]:
         fail("server counters: %s" % {k: st[k] for k in
                                       ("completed", "cancelled", "errors")})
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in SERVER_KERNELS) < 1:
         fail("a kernel of the path never launched: %s" % launches)
     # every stream against the server-free greedy loop
     T = srv._max_pages * cfg["page_size"]
@@ -449,6 +683,254 @@ def phase_step_profile(model, params, steps=5):
               % (us / 1e3 / steps, count // steps, key[:70]))
 
 
+def gluon_lm(mx):
+    """The training model, a user script of the port's Gluon: the pre-LN
+    decoder of ToyDecoderLM.prefill composed from Embedding, LayerNorm,
+    MeshMultiHeadAttention and Dense blocks."""
+    nn = mx.gluon.nn
+
+    class DecoderLayer(mx.gluon.HybridBlock):
+        def __init__(self, units, heads, d_ff, impl, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.ln1 = nn.LayerNorm()
+                self.attn = mx.gluon.contrib.nn.MeshMultiHeadAttention(
+                    units, heads, causal=True, use_bias=False, impl=impl)
+                self.ln2 = nn.LayerNorm()
+                self.ffn1 = nn.Dense(d_ff, activation="relu", use_bias=False,
+                                     flatten=False)
+                self.ffn2 = nn.Dense(units, use_bias=False, flatten=False)
+            self.relu_masks = None    # a list: keeps each pass's ReLU mask
+
+        def hybrid_forward(self, F, x):
+            h = x + self.attn(self.ln1(x))
+            a = self.ffn1(self.ln2(h))
+            if self.relu_masks is not None:
+                self.relu_masks.append(a > 0)
+            return h + self.ffn2(a)
+
+    class DecoderLM(mx.gluon.HybridBlock):
+        def __init__(self, vocab, units, heads, layers, d_ff, max_len,
+                     impl="auto", **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.embed = nn.Embedding(vocab, units)
+                self.pos = nn.Embedding(max_len, units)
+                self.layers = nn.HybridSequential()
+                with self.layers.name_scope():
+                    for _ in range(layers):
+                        self.layers.add(DecoderLayer(units, heads, d_ff,
+                                                     impl))
+                self.ln_f = nn.LayerNorm()
+                self.head = nn.Dense(vocab, use_bias=False, flatten=False)
+
+        def hybrid_forward(self, F, tokens, positions):
+            h = self.embed(tokens) + self.pos(positions)
+            return self.head(self.ln_f(self.layers(h)))
+
+    return DecoderLM
+
+
+def shared_relu(mx):
+    """A ReLU block that applies a given 0/1 mask instead of its input's
+    sign, and counts the positions where the two disagree (``flips``)."""
+
+    class SharedReLU(mx.gluon.nn.Activation):
+        def __init__(self, mask, **kwargs):
+            super().__init__("relu", **kwargs)
+            self.mask, self.flips = mask, 0
+
+        def hybrid_forward(self, F, x):
+            self.flips = int(((x > 0) != self.mask).sum().asscalar())
+            return x * self.mask
+
+    return SharedReLU
+
+
+def grad_ratios(src, twin):
+    """max|diff| / max|grad| per parameter: ``src``'s gradients (by
+    structural name) against ``twin``'s."""
+    out = {}
+    for name, p in twin._collect_params_with_prefix().items():
+        gd, gk = p.grad()._data, src[name].grad()._data
+        out[name] = float((gk - gd).abs().max()
+                          / gd.abs().max().clamp_min(1e-30))
+    return out
+
+
+def print_groups(ratios):
+    for group, keys in (("attention", ("attn.",)),
+                        ("ffn1", ("ffn1.",)), ("ffn2", ("ffn2.",)),
+                        ("other", ())):
+        names = [n for n in ratios if any(k in n for k in keys)] if keys \
+            else [n for n in ratios if "attn." not in n and "ffn" not in n]
+        top = sorted(names, key=lambda n: -ratios[n])[:3]
+        print("    %-9s worst: %s" % (group, ", ".join(
+            "%s %.3g" % (n, ratios[n]) for n in top)))
+
+
+def check_against_dense(mx, net, twin, ctx, step_loss):
+    """One record/backward on the kernel route ``net`` and on ``twin``
+    (dense attention, given ``net``'s weights), then again on the twin
+    with the kernel route's ReLU masks; fails unless every gradient and
+    per-sample loss agrees within its tolerance."""
+    twin.initialize(mx.init.Xavier(), ctx=ctx)
+    src = net._collect_params_with_prefix()
+    for name, p in twin._collect_params_with_prefix().items():
+        p.set_data(src[name].data())
+    layers = [net.layers[i] for i in range(len(net.layers))]
+    for layer in layers:
+        layer.relu_masks = []
+    loss_k = step_loss(net)
+    masks = [layer.relu_masks[0] for layer in layers]
+    for layer in layers:
+        layer.relu_masks = None
+    loss_d = step_loss(twin)
+    ratios = grad_ratios(src, twin)
+    tol = {n: GRAD_RTOL_RELU if n.endswith("ffn1.weight") else GRAD_RTOL
+           for n in ratios}
+    loss_err = float(np.abs(loss_k - loss_d).max())
+    print("  gradients, kernels vs dense attention, max|diff| / max|grad|"
+          " per parameter: worst %.3g, median %.3g (tolerance %g, ffn1"
+          " weights %g); loss %.6f vs %.6f, max per-sample diff %.3g"
+          " (tolerance %g)"
+          % (max(ratios.values()), statistics.median(ratios.values()),
+             GRAD_RTOL, GRAD_RTOL_RELU, float(loss_k.mean()),
+             float(loss_d.mean()), loss_err, LOSS_ATOL))
+    print_groups(ratios)
+    SharedReLU = shared_relu(mx)
+    twin_layers = [twin.layers[i] for i in range(len(twin.layers))]
+    for layer, mask in zip(twin_layers, masks):
+        layer.ffn1.act = SharedReLU(mask)
+    loss_s = step_loss(twin)
+    shared = grad_ratios(src, twin)
+    flips = [layer.ffn1.act.flips for layer in twin_layers]
+    shared_loss_err = float(np.abs(loss_k - loss_s).max())
+    print("  the twin again with the kernel route's ReLU masks: %d of %d"
+          " ReLU pre-activations flipped sign between the routes (per"
+          " layer: %s); gradients worst %.3g, median %.3g (tolerance %g);"
+          " max per-sample loss diff %.3g"
+          % (sum(flips), len(flips) * masks[0].size, flips,
+             max(shared.values()), statistics.median(shared.values()),
+             GRAD_RTOL_SHARED, shared_loss_err))
+    print_groups(shared)
+    if any(ratios[n] > tol[n] for n in ratios) or loss_err > LOSS_ATOL:
+        fail("training gradients or loss: kernels vs dense attention")
+    if max(shared.values()) > GRAD_RTOL_SHARED \
+            or shared_loss_err > LOSS_ATOL:
+        fail("training gradients or loss: kernels vs dense attention with"
+             " shared ReLU masks")
+
+
+def phase_training(tfa, card, steps=20, prof_steps=3):
+    """The second slice's main path: Gluon training of the LM at
+    GPT-2-small width on gpu(0). (a) one record/backward against a twin
+    with dense attention and the same weights, then again with the twin
+    reusing the kernel route's ReLU masks; (b) `steps` Adam steps on one
+    fixed batch, launch counts zeroed just before and read just after;
+    (c) the step's time and device idle share. Returns the launches."""
+    import mxnet_tpu_torch as mx
+    cfg = dict(vocab=GPT2_SMALL["vocab"], layers=GPT2_SMALL["n_layers"],
+               heads=GPT2_SMALL["n_heads"],
+               units=GPT2_SMALL["n_heads"] * GPT2_SMALL["head_dim"],
+               d_ff=GPT2_SMALL["d_ff"], max_len=GPT2_SMALL["max_len"])
+    B, T = TRAIN_BATCH, GPT2_SMALL["max_len"]
+    ctx = mx.gpu(0)
+    seq = np.random.RandomState(0).randint(0, cfg["vocab"], size=(B, T + 1))
+    tokens = mx.nd.array(seq[:, :T].astype(np.float32), ctx=ctx)
+    labels = mx.nd.array(seq[:, 1:].astype(np.float32), ctx=ctx)
+    positions = mx.nd.array(np.arange(T, dtype=np.float32), ctx=ctx)
+    DecoderLM = gluon_lm(mx)
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = DecoderLM(**cfg)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():          # deferred shapes, from a short input
+        net(tokens[:1, :16], positions[:16])
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    torch.cuda.synchronize()
+    print("training: GPT-2-small-width Gluon LM, %.1fM parameters, batch"
+          " %d x %d tokens, init %.1f s"
+          % (n_params / 1e6, B, T, time.perf_counter() - t0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step_loss(m):
+        with mx.autograd.record():
+            loss = loss_fn(m(tokens, positions), labels)
+        loss.backward()
+        return loss.asnumpy()
+
+    # (a) the kernel route against a dense-attention twin
+    check_against_dense(mx, net, DecoderLM(impl="dense", **cfg), ctx,
+                        step_loss)
+    gc.collect()                          # a block and its scope: a cycle
+    torch.cuda.empty_cache()
+
+    # (b) Adam steps on one fixed batch: the main path
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()                  # the main path starts here
+    curve, step_ms = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        loss = step_loss(net)
+        trainer.step(B)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        curve.append(float(loss.mean()))
+    launches = dict(tfa.launches)         # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("  Adam loss curve (%d steps, lr 1e-3): %s"
+          % (steps, " ".join("%.4f" % x for x in curve)))
+    print("  launches in %d steps: %s" % (steps, launches))
+    if not all(np.isfinite(curve)) or not curve[-1] < curve[0]:
+        fail("the training loss did not fall: %s" % curve)
+    for kname in TRAIN_KERNELS:
+        if launches[kname] != cfg["layers"] * steps:
+            fail("%s launched %d times in %d steps, want %d per step"
+                 % (kname, launches[kname], steps, cfg["layers"]))
+
+    # (c) where a step's time goes
+    ms = statistics.median(step_ms[1:])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(prof_steps):
+            step_loss(net)
+            trainer.step(B)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / prof_steps
+    classes = {"attention fwd": ("fwd_kernel",),
+               "attention bwd": ("dkdv_kernel", "dq_kernel"),
+               "matmul": ("gemm", "cutlass", "sm90_", "ampere_"),
+               "softmax/log_softmax": ("softmax",),
+               "layer norm": ("layer_norm", "layernorm")}
+    by_class, kernels = {}, []
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        kernels.append((us, e.key, e.count))
+        name = e.key.lower()
+        cls = next((c for c, keys in classes.items()
+                    if any(k in name for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / prof_steps
+    busy = sum(by_class.values())
+    print("  train step (%s): %.1f ms per step (median of steps 2-%d),"
+          " %.0f tokens/s; peak memory %.1f GB; profiled %d steps: wall"
+          " %.1f ms, device busy %.1f ms, idle share %.3f"
+          % (card, ms, steps, B * T / ms * 1e3, peak_gb, prof_steps, wall,
+             busy, 1 - busy / wall if wall else float("nan")))
+    for cls, cms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print("    %-20s %.2f ms/step" % (cls, cms))
+    for us, key, count in sorted(kernels, reverse=True)[:8]:
+        print("    top: %.2f ms/step in %d calls/step  %s"
+              % (us / 1e3 / prof_steps, count // prof_steps, key[:70]))
+    return launches
+
+
 def phase_server_int8(model, params):
     from mxnet_tpu_torch.serving import DecodeServer
     os.environ["MXNET_KV_DTYPE"] = "int8"
@@ -474,6 +956,15 @@ def phase_server_int8(model, params):
           % st["tokens_per_sec"])
 
 
+def kernel_row(name, source, replaces, path, shape, launches, rec, err):
+    """One entry of the ``{"kernels": [...]}`` line."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                path=path, shape=shape, launches=launches[name],
+                max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                library_ms=rec["library_ms"], ok=True)
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -487,6 +978,7 @@ def main():
           " = GPU time per call from CUDA-graph replays, per-call ms ="
           " median CUDA-event time of one eager call; %s):" % card)
     fwd, fwd_err, dec = phase_kernels(tfa)
+    train_fwd, bwd, bwd_errs = phase_bwd_kernels(tfa)
     t0 = time.perf_counter()
     model_k = ToyDecoderLM(**GPT2_SMALL)
     model_p = ToyDecoderLM(impl="plain", **GPT2_SMALL)
@@ -498,19 +990,24 @@ def main():
     launches, _st = phase_server(model_k, params, tfa)
     phase_server_int8(model_k, params)
     phase_step_profile(model_k, params)
+    del model_k, model_p, params
+    torch.cuda.empty_cache()
+    train_launches = phase_training(tfa, card)
+    # one row per kernel and main path: launches from that path's run,
+    # times at the shape that path gives the kernel
+    train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
+                                              GPT2_SMALL["max_len"])
     kernels = [
-        dict(name="flash_fwd", route="cuda", source=FWD_SRC,
-             replaces=FWD_TPU, launches=launches["flash_fwd"],
-             max_abs_err=fwd_err, ms=fwd["ms"], plain_ms=fwd["plain_ms"],
-             bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
-             library_ms=fwd["library_ms"], ok=True),
-        dict(name="flash_decode", route="cuda", source=DEC_SRC,
-             replaces=DEC_TPU, launches=launches["flash_decode"],
-             max_abs_err=dec["err"], ms=dec["ms"],
-             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
-             bound_by=dec["bound_by"], library_ms=dec["library_ms"],
-             ok=True),
-    ]
+        kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "server",
+                   "B1 T512 H12 D64 causal", launches, fwd, fwd_err),
+        kernel_row("flash_decode", DEC_SRC, DEC_TPU, "server",
+                   "B8 T576 H12 D64", launches, dec, dec["err"]),
+        kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "training", train_shape,
+                   train_launches, train_fwd, train_fwd["err"]),
+    ] + [kernel_row(kname, BWD_SRC[kname], BWD_TPU[kname], "training",
+                    train_shape, train_launches, bwd[kname],
+                    bwd_errs[kname])
+         for kname in ("flash_bwd_dkdv", "flash_bwd_dq")]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))

@@ -3,17 +3,45 @@
 The port runs beside the JAX package and mirrors its module paths, so
 each module here has a counterpart of the same name under
 ``mxnet_tpu/``. It imports ``torch`` and ``numpy``, never ``jax`` and
-nothing of ``mxnet_tpu``. Entry points run on ``cuda:0`` unless the
-caller passes ``device="cpu"``; the attention kernels on the main path
-are CUDA C++ written for Hopper (``parallel/csrc``), built with ``nvcc``
-at first use.
+nothing of ``mxnet_tpu``. Entry points run on the CUDA device
+(``gpu(0)``) unless the caller asks for the CPU (``ctx=mx.cpu()``,
+``with mx.cpu():``, ``MXNET_DEFAULT_CONTEXT=cpu``, or ``device="cpu"``
+on the serving path); the attention kernels are CUDA C++ written for
+Hopper (``parallel/csrc``), built with ``nvcc`` at first use.
 
-This slice ports the token path of the LM server:
-``serving.DecodeServer`` over ``serving.ToyDecoderLM``, with the paged
-KV pool (``serving.kvcache``) and the prefill/decode attention kernels
-(``parallel.flash_attention``). ``ROADMAP.md`` lists what waits for
-later slices.
+Two slices are ported:
+
+- the token path of the LM server: ``serving.DecodeServer`` over
+  ``serving.ToyDecoderLM``, with the paged KV pool (``serving.kvcache``)
+  and the prefill/decode attention kernels (``parallel.flash_attention``);
+- Gluon training: ``nd``/ops/``autograd``, ``gluon`` blocks, losses and
+  ``Trainer`` with SGD and Adam, and ``MeshMultiHeadAttention`` over the
+  flash kernels, forward and backward.
+
+Typical use mirrors MXNet::
+
+    import mxnet_tpu_torch as mx
+    net = mx.gluon.nn.Dense(10)
+    net.initialize(mx.init.Xavier())          # on gpu(0)
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(batch_size)
+
+``ROADMAP.md`` lists what waits for later slices.
 """
 from .base import MXNetError
+from .context import Context, cpu, gpu, current_context, num_gpus
+from . import ndarray
+from . import ndarray as nd
+from .ndarray import NDArray
+from . import random
+from . import autograd
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import gluon
 
-__all__ = ["MXNetError"]
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "nd", "ndarray", "NDArray", "random", "autograd",
+           "init", "initializer", "optimizer", "gluon"]

@@ -1,0 +1,202 @@
+"""Imperative autograd (counterpart of ``mxnet_tpu/autograd.py``) on
+torch autograd.
+
+Inside :func:`record`, ops run with torch's gradient recording on, so
+their outputs carry a torch graph back to the marked variables (torch
+leaves that require grad, made by ``attach_grad`` or
+:func:`mark_variables`). Outside it they run under ``no_grad`` and build
+nothing. :func:`backward` walks the heads' graph to its leaves,
+differentiates with ``torch.autograd.grad`` and applies MXNet's
+``grad_req``: ``'write'`` replaces a variable's gradient, ``'add'`` adds
+to it (torch itself would accumulate). A head that is not a scalar gets
+a head gradient of ones, as in MXNet.
+
+The JAX package replays its tape as one compiled program; torch keeps
+the graph it recorded, so ``train_mode`` of :func:`backward` only
+exists for API parity: the forward already ran in the recorded mode.
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "set_recording", "set_training", "mark_variables",
+           "backward", "grad"]
+
+_state = threading.local()
+
+
+def _st():
+    if not hasattr(_state, "recording"):
+        _state.recording = False
+        _state.training = False
+    return _state
+
+
+def is_recording():
+    return _st().recording
+
+
+def is_training():
+    return _st().training
+
+
+def set_recording(is_record):
+    prev = _st().recording
+    _st().recording = bool(is_record)
+    return prev
+
+
+def set_training(train_mode_):
+    prev = _st().training
+    _st().training = bool(train_mode_)
+    return prev
+
+
+class _RecordingStateScope:
+    def __init__(self, is_record, train_mode_):
+        self._enter_is_record = is_record
+        self._enter_train_mode = train_mode_
+        self._prev_is_record = None
+        self._prev_train_mode = None
+
+    def __enter__(self):
+        if self._enter_is_record is not None:
+            self._prev_is_record = set_recording(self._enter_is_record)
+        if self._enter_train_mode is not None:
+            self._prev_train_mode = set_training(self._enter_train_mode)
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._enter_is_record is not None:
+            set_recording(self._prev_is_record)
+        if self._enter_train_mode is not None:
+            set_training(self._prev_train_mode)
+
+
+def record(train_mode=True):
+    """Scope that records ops for autograd (reference: autograd.py:122)."""
+    return _RecordingStateScope(True, train_mode)
+
+
+def pause(train_mode=False):
+    return _RecordingStateScope(False, train_mode)
+
+
+def train_mode():
+    return _RecordingStateScope(None, True)
+
+
+def predict_mode():
+    return _RecordingStateScope(None, False)
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each NDArray a variable: its tensor becomes a torch leaf
+    that requires grad, with ``gradients[i]`` as its gradient buffer
+    (reference: autograd.py:197)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, g, req in zip(variables, gradients, grad_reqs):
+        var._data = var._data.detach().requires_grad_(req != "null")
+        var._data._mx_owner = weakref.ref(var)
+        var.grad = g if req != "null" else None
+        var._grad_req = req
+        var._fresh_grad = False
+
+
+def _variables(roots):
+    """The marked variables (NDArrays) that ``roots``' graph reaches."""
+    found, seen = [], set()
+    stack = []
+    for r in roots:
+        if r.grad_fn is not None:
+            stack.append(r.grad_fn)
+        elif r.requires_grad:
+            found.append(r)
+    nodes = []          # keeps visited nodes alive while ids are compared
+    while stack:
+        fn = stack.pop()
+        if id(fn) in seen:
+            continue
+        seen.add(id(fn))
+        nodes.append(fn)
+        leaf = getattr(fn, "variable", None)
+        if leaf is not None:
+            found.append(leaf)
+        stack.extend(nxt for nxt, _ in fn.next_functions if nxt is not None)
+    out = []
+    for leaf in found:
+        ref = getattr(leaf, "_mx_owner", None)
+        owner = ref() if ref is not None else None
+        if owner is not None and owner._data is leaf \
+                and owner.grad is not None:
+            out.append(owner)
+    return out
+
+
+def _head_grads(heads, head_grads):
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    return [torch.ones_like(h._data) if g is None else g._data
+            for h, g in zip(heads, head_grads)]
+
+
+def _roots(heads):
+    roots = [h._data for h in heads]
+    if not any(r.requires_grad for r in roots):
+        raise MXNetError("cannot call backward: no ops were recorded "
+                         "(use autograd.record())")
+    return roots
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Differentiate ``heads`` and write (or add) the gradients into
+    every variable they reach (reference: autograd.py:243)."""
+    heads = list(heads)
+    roots = _roots(heads)
+    variables = _variables(roots)
+    if not variables:
+        return
+    grads = torch.autograd.grad(roots, [v._data for v in variables],
+                                _head_grads(heads, head_grads),
+                                retain_graph=retain_graph, allow_unused=True)
+    for var, g in zip(variables, grads):
+        if g is None:
+            continue
+        if var._grad_req == "add":
+            var.grad._data = var.grad._data + g
+        else:
+            var.grad._data = g
+        var._fresh_grad = True
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables``, as new
+    NDArrays (reference: autograd.py:270). With ``create_graph=True``
+    they are differentiable again inside ``record()``."""
+    from .ndarray.ndarray import NDArray
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    single = isinstance(variables, NDArray)
+    if single:
+        variables = [variables]
+    if isinstance(head_grads, NDArray):
+        head_grads = [head_grads]
+    heads = list(heads)
+    with torch.set_grad_enabled(create_graph and is_recording()):
+        grads = torch.autograd.grad(
+            _roots(heads), [v._data for v in variables],
+            _head_grads(heads, head_grads), retain_graph=retain_graph,
+            create_graph=create_graph, allow_unused=True)
+    if any(g is None for g in grads):
+        raise MXNetError("one of the variables does not participate in "
+                         "the computation of heads")
+    out = [NDArray(g) for g in grads]
+    return out[0] if single else out

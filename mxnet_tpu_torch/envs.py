@@ -63,6 +63,10 @@ def registry():
     return dict(_REGISTRY)
 
 
+_G = "core"
+declare("MXNET_DEFAULT_CONTEXT", "str", "",
+        "Override the default device context: cpu / gpu.", _G)
+
 _G = "fault"
 declare("MXNET_FAULT_PLAN", "str", "",
         "Deterministic fault-injection plan, e.g. "

@@ -1,0 +1,7 @@
+"""NDArray namespace (``mx.nd``): the array type, its creation functions
+and one generated function per registered op (``nd.FullyConnected``,
+``nd._contrib_flash_attention``, ...)."""
+from .ndarray import NDArray, invoke_nd, array, zeros, ones, full
+from .register import install_ops as _install_ops
+
+_install_ops(globals())

@@ -1,0 +1,437 @@
+"""NDArray — the user-visible array type (counterpart of
+``mxnet_tpu/ndarray/ndarray.py``).
+
+An :class:`NDArray` is a mutable handle over ONE ``torch.Tensor``
+(``_data``); its context is the tensor's device. Every operator runs
+through the op registry (:func:`invoke_nd`) with torch's gradient
+recording switched on only inside ``autograd.record()``: outside it no
+graph is built, even over parameters that require gradients (at GPT-2
+width a graph kept alive by the parameters would cost gigabytes).
+
+``attach_grad`` turns the handle's tensor into a torch leaf that
+requires grad; ``autograd.backward`` then writes (``grad_req='write'``)
+or adds (``'add'``) the leaf's gradient into the handle's ``grad``
+NDArray. In-place writes (``x[:] = v``) copy into the tensor without
+recording.
+"""
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import torch
+
+from ..base import MXNetError, integer_types, numeric_types
+from ..context import Context, context_of, current_context
+from .. import ops as _ops
+
+__all__ = ["NDArray", "invoke_nd", "array", "zeros", "ones", "full",
+           "torch_dtype", "numpy_dtype"]
+
+_TORCH_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int8": torch.int8, "uint8": torch.uint8, "int32": torch.int32,
+    "int64": torch.int64, "bool": torch.bool,
+}
+_NUMPY_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+def torch_dtype(dtype):
+    """A numpy dtype, its name or a torch dtype, as a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    try:
+        return _TORCH_DTYPES[name]
+    except KeyError:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype (bfloat16 has none: its name)."""
+    name = _NUMPY_NAMES[dtype]
+    return name if name == "bfloat16" else np.dtype(name)
+
+
+def _canonical(dtype):
+    """MXNet's array() defaults: float64 → float32, int64 → int32."""
+    dtype = np.dtype(dtype)
+    return {np.dtype(np.float64): np.dtype(np.float32),
+            np.dtype(np.int64): np.dtype(np.int32)}.get(dtype, dtype)
+
+
+class NDArray:
+    """Multi-dimensional array on a device."""
+
+    __array_priority__ = 1000.0
+
+    def __init__(self, data):
+        self._data = data          # torch.Tensor
+        self.grad = None           # NDArray or None
+        self._grad_req = "null"
+        self._fresh_grad = False
+
+    # -- basic properties ------------------------------------------------
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def size(self):
+        return self._data.numel()
+
+    @property
+    def ndim(self):
+        return self._data.dim()
+
+    @property
+    def dtype(self):
+        return numpy_dtype(self._data.dtype)
+
+    @property
+    def context(self):
+        return context_of(self._data.device)
+
+    ctx = context
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    # -- host transfer ---------------------------------------------------
+    def wait_to_read(self):
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    def asnumpy(self):
+        """A copy on the host (never a view of a CPU tensor)."""
+        return self._data.detach().to("cpu", copy=True).numpy()
+
+    def asscalar(self):
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self._data.detach().reshape(()).item()
+
+    def item(self):
+        return self.asscalar()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __bool__(self):
+        if self.size == 0:
+            return False
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("The truth value of an NDArray with multiple "
+                         "elements is ambiguous.")
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __repr__(self):
+        return "\n%s\n<NDArray %s @%s>" % (
+            str(self.asnumpy()), "x".join(str(s) for s in self.shape),
+            self.context)
+
+    # -- conversion ------------------------------------------------------
+    def astype(self, dtype, copy=True):
+        if not copy and self._data.dtype == torch_dtype(dtype):
+            return self
+        return invoke_nd("Cast", [self], {"dtype": np.dtype(dtype).name
+                                          if not isinstance(dtype, str)
+                                          else dtype})
+
+    def copy(self):
+        return invoke_nd("_copy", [self], {})
+
+    def copyto(self, other):
+        if isinstance(other, NDArray):
+            if other is not self:
+                with torch.no_grad():
+                    other._data.copy_(self._data)
+            return other
+        if isinstance(other, Context):
+            return NDArray(self._data.detach().to(other.torch_device(),
+                                                  copy=True))
+        raise TypeError("copyto does not support type " + str(type(other)))
+
+    def as_in_context(self, context):
+        if self.context == context:
+            return self
+        return self.copyto(context)
+
+    as_in_ctx = as_in_context
+
+    # -- mutation --------------------------------------------------------
+    def _set_data(self, new_data):
+        if self.grad is not None:       # a marked variable stays a leaf
+            new_data = new_data.detach().requires_grad_(True)
+            new_data._mx_owner = weakref.ref(self)
+        self._data = new_data
+
+    def __setitem__(self, key, value):
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, numeric_types):
+            value = torch.as_tensor(np.asarray(value),
+                                    device=self._data.device)
+        with torch.no_grad():
+            self._data[_clean_index(key)] = value
+
+    def __getitem__(self, key):
+        from .. import autograd
+        with torch.set_grad_enabled(autograd.is_recording()):
+            return NDArray(self._data[_clean_index(key)])
+
+    # -- autograd --------------------------------------------------------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Make this array a variable: a torch leaf whose gradient
+        ``autograd.backward`` writes (or adds) into :attr:`grad`."""
+        from .. import autograd
+        autograd.mark_variables([self], [zeros(self.shape, ctx=self.context,
+                                               dtype=self.dtype)],
+                                grad_req)
+
+    def detach(self):
+        return NDArray(self._data.detach())
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    # -- named methods (the subset the slice uses) -----------------------
+    def reshape(self, *shape, **kwargs):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        if not shape:
+            shape = kwargs.get("shape", None)
+        return invoke_nd("Reshape", [self],
+                         {"shape": tuple(shape),
+                          "reverse": kwargs.get("reverse", False)})
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        from .. import autograd
+        with torch.set_grad_enabled(autograd.is_recording()):
+            data = self._data.permute(*axes) if axes else self._data.permute(
+                *reversed(range(self.ndim)))
+        return NDArray(data)
+
+    def sum(self, axis=None, keepdims=False, exclude=False):
+        return invoke_nd("sum", [self], {"axis": axis, "keepdims": keepdims,
+                                         "exclude": exclude})
+
+    def mean(self, axis=None, keepdims=False, exclude=False):
+        return invoke_nd("mean", [self], {"axis": axis, "keepdims": keepdims,
+                                          "exclude": exclude})
+
+    def max(self, axis=None, keepdims=False):
+        return invoke_nd("max", [self], {"axis": axis, "keepdims": keepdims})
+
+    def min(self, axis=None, keepdims=False):
+        return invoke_nd("min", [self], {"axis": axis, "keepdims": keepdims})
+
+    def abs(self):
+        return invoke_nd("abs", [self], {})
+
+    def square(self):
+        return invoke_nd("square", [self], {})
+
+    def sqrt(self):
+        return invoke_nd("sqrt", [self], {})
+
+    def exp(self):
+        return invoke_nd("exp", [self], {})
+
+    def log(self):
+        return invoke_nd("log", [self], {})
+
+    def relu(self):
+        return invoke_nd("relu", [self], {})
+
+    def softmax(self, axis=-1):
+        return invoke_nd("softmax", [self], {"axis": axis})
+
+    def log_softmax(self, axis=-1):
+        return invoke_nd("log_softmax", [self], {"axis": axis})
+
+    def pick(self, index, axis=-1, keepdims=False):
+        return invoke_nd("pick", [self, _as_nd(index, self.context)],
+                         {"axis": axis, "keepdims": keepdims})
+
+    def zeros_like(self):
+        return invoke_nd("zeros_like", [self], {})
+
+    def ones_like(self):
+        return invoke_nd("ones_like", [self], {})
+
+    # -- arithmetic and comparison operators -------------------------------
+    def _binary(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, NDArray):
+            return invoke_nd(op, [other, self] if reverse else [self, other],
+                             {})
+        if isinstance(other, numeric_types):
+            name = _RSCALAR.get(scalar_op, scalar_op) if reverse \
+                else scalar_op
+            return invoke_nd(name, [self], {"scalar": other})
+        if isinstance(other, np.ndarray):
+            return self._binary(array(other, ctx=self.context), op,
+                                scalar_op, reverse)
+        raise TypeError("type %s not supported" % str(type(other)))
+
+    def __add__(self, other):
+        return self._binary(other, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binary(other, "broadcast_sub", "_minus_scalar", True)
+
+    def __mul__(self, other):
+        return self._binary(other, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "broadcast_div", "_div_scalar", True)
+
+    def __pow__(self, other):
+        return self._binary(other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binary(other, "broadcast_power", "_power_scalar", True)
+
+    def __iadd__(self, other):
+        self._set_data(self.__add__(other)._data)
+        return self
+
+    def __isub__(self, other):
+        self._set_data(self.__sub__(other)._data)
+        return self
+
+    def __imul__(self, other):
+        self._set_data(self.__mul__(other)._data)
+        return self
+
+    def __itruediv__(self, other):
+        self._set_data(self.__truediv__(other)._data)
+        return self
+
+    def __neg__(self):
+        return invoke_nd("negative", [self], {})
+
+    def __abs__(self):
+        return invoke_nd("abs", [self], {})
+
+    def __eq__(self, other):
+        if other is None:
+            return False
+        return self._binary(other, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        if other is None:
+            return True
+        return self._binary(other, "broadcast_not_equal",
+                            "_not_equal_scalar")
+
+    def __gt__(self, other):
+        return self._binary(other, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binary(other, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binary(other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binary(other, "broadcast_lesser_equal",
+                            "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+
+_RSCALAR = {"_minus_scalar": "_rminus_scalar", "_div_scalar": "_rdiv_scalar",
+            "_power_scalar": "_rpower_scalar"}
+
+
+def _clean_index(key):
+    if isinstance(key, NDArray):
+        return key._data.to(torch.long)
+    if isinstance(key, tuple):
+        return tuple(_clean_index(k) for k in key)
+    return key
+
+
+def _as_nd(x, ctx=None):
+    return x if isinstance(x, NDArray) else array(x, ctx=ctx)
+
+
+def invoke_nd(op_name, inputs, attrs, out=None):
+    """Run a registered op on NDArrays (the ``Imperative::Invoke``
+    role): gradients are recorded only inside ``autograd.record()``."""
+    from .. import autograd
+    op = _ops.get_op(op_name) if isinstance(op_name, str) else op_name
+    attrs = {k: v for k, v in attrs.items() if v is not None or k == "axis"}
+    with torch.set_grad_enabled(autograd.is_recording()):
+        outputs = _ops.invoke(op, [i._data for i in inputs], attrs)
+    out_nds = [NDArray(o) for o in outputs]
+    if out is not None:
+        for o, nd in zip(out if isinstance(out, (list, tuple)) else [out],
+                         out_nds):
+            o._set_data(nd._data)
+        return out
+    return out_nds[0] if len(out_nds) == 1 else out_nds
+
+
+# ---------------------------------------------------------------------------
+# creation
+# ---------------------------------------------------------------------------
+
+def array(source_array, ctx=None, dtype=None):
+    """An NDArray from a list, numpy array or NDArray. Python lists
+    default to float32; float64 demotes to float32 and int64 to int32,
+    as in the JAX package."""
+    ctx = ctx or current_context()
+    was_np = isinstance(source_array, (np.ndarray, np.generic, NDArray))
+    src = source_array.asnumpy() if isinstance(source_array, NDArray) \
+        else np.asarray(source_array)
+    if dtype is None:
+        dtype = _canonical(src.dtype) if was_np else np.float32
+    data = torch.from_numpy(np.array(src, dtype=np.dtype(dtype), copy=True))
+    return NDArray(data.to(ctx.torch_device()))
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, integer_types) else tuple(shape)
+
+
+def full(shape, val, ctx=None, dtype=None):
+    ctx = ctx or current_context()
+    return NDArray(torch.full(_shape(shape), val,
+                              dtype=torch_dtype(dtype or "float32"),
+                              device=ctx.torch_device()))
+
+
+def zeros(shape, ctx=None, dtype=None):
+    return full(shape, 0, ctx=ctx, dtype=dtype)
+
+
+def ones(shape, ctx=None, dtype=None):
+    return full(shape, 1, ctx=ctx, dtype=dtype)

@@ -1,0 +1,90 @@
+"""Shape operators (counterpart of ``mxnet_tpu/ops/matrix.py``): Reshape
+with MXNet's special codes (0 copies a dim, -1 infers one, -2 copies the
+rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left)."""
+from __future__ import annotations
+
+from .registry import register
+
+_D = ("data",)
+
+
+def infer_reshape(src_shape, target, reverse=False):
+    """Resolve an MXNet reshape spec against a concrete input shape."""
+    src, tgt = list(src_shape), list(target)
+    if reverse:
+        out = _infer_reshape_fwd(src[::-1], _reverse_neg4(tgt[::-1]))
+        return tuple(out[::-1])
+    return tuple(_infer_reshape_fwd(src, tgt))
+
+
+def _reverse_neg4(tgt):
+    # after list reversal "-4 a b" reads "b a -4"; rewrite to "-4 b a"
+    out, i = [], 0
+    while i < len(tgt):
+        if i + 2 < len(tgt) and tgt[i + 2] == -4:
+            out.extend([-4, tgt[i], tgt[i + 1]])
+            i += 3
+        else:
+            out.append(tgt[i])
+            i += 1
+    return out
+
+
+def _infer_reshape_fwd(src, tgt):
+    out, src_idx, inf_idx, i = [], 0, -1, 0
+    while i < len(tgt):
+        t = tgt[i]
+        if t > 0:
+            out.append(int(t))
+            src_idx += 1
+        elif t == 0:
+            out.append(src[src_idx])
+            src_idx += 1
+        elif t == -1:
+            inf_idx = len(out)
+            out.append(-1)
+            src_idx += 1
+        elif t == -2:
+            out.extend(src[src_idx:])
+            src_idx = len(src)
+        elif t == -3:
+            out.append(src[src_idx] * src[src_idx + 1])
+            src_idx += 2
+        elif t == -4:
+            d1, d2 = int(tgt[i + 1]), int(tgt[i + 2])
+            s = src[src_idx]
+            if d1 == -1 and d2 == -1:
+                raise ValueError("reshape: -4 with two -1s")
+            if d1 == -1:
+                d1 = s // d2
+            if d2 == -1:
+                d2 = s // d1
+            out.extend([d1, d2])
+            src_idx += 1
+            i += 2
+        else:
+            raise ValueError("reshape: invalid code %d" % t)
+        i += 1
+    if inf_idx >= 0:
+        known, total = 1, 1
+        for v in out:
+            if v != -1:
+                known *= v
+        for v in src:
+            total *= v
+        out[inf_idx] = total // known
+    return out
+
+
+def _reshape(attrs, x):
+    shape = attrs.get("shape", None)
+    if shape is None or shape == ():
+        return x.reshape(-1)
+    if isinstance(shape, int):
+        shape = (shape,)
+    return x.reshape(infer_reshape(x.shape, shape,
+                                   bool(attrs.get("reverse", False))))
+
+
+register("Reshape", _reshape, arg_names=_D,
+         defaults={"shape": None, "reverse": False}, aliases=("reshape",))

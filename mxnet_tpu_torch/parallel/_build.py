@@ -8,8 +8,8 @@ a plain C interface, loaded with :mod:`ctypes`:
 
 The libraries land in ``mxnet_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name that carries the first 16 hex digits of the
-source's SHA-256, so an edited source rebuilds and an unchanged one
-loads at once. ``ptxas`` register and shared-memory reports are kept
+SHA-256 of the source and the shared headers (:data:`HEADERS`), so an
+edited source or header rebuilds and an unchanged one loads at once. ``ptxas`` register and shared-memory reports are kept
 beside each library (``<lib>.log``). A build runs at the first launch of
 a kernel (or in :func:`build_all`, which starts one ``nvcc`` per source
 at once); a failed build raises :class:`~mxnet_tpu_torch.MXNetError`
@@ -36,7 +36,11 @@ _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(os.path.dirname(_HERE), "_build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
+           "flash_bwd_dkdv": "flash_bwd_dkdv.cu",
+           "flash_bwd_dq": "flash_bwd_dq.cu"}
+# headers under csrc/ that every source includes
+HEADERS = ("flash_common.cuh",)
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -63,9 +67,12 @@ def _nvcc():
 
 def _lib_path(name):
     src = os.path.join(_CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(_OUT, "lib%s-%s.so" % (name, digest))
+    digest = hashlib.sha256()
+    for path in [src] + [os.path.join(_CSRC, h) for h in HEADERS]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return src, os.path.join(_OUT, "lib%s-%s.so" % (name,
+                                                     digest.hexdigest()[:16]))
 
 
 def log_path(name):
@@ -129,16 +136,22 @@ def _declare(lib, name):
     if name == "flash_fwd":
         fn = lib.mxt_flash_fwd
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
-    else:
+    elif name == "flash_decode":
         fn = lib.mxt_flash_decode
         fn.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    elif name == "flash_bwd_dkdv":
+        fn = lib.mxt_flash_bwd_dkdv
+        fn.argtypes = [p] * 9 + [i, i, i, i, i, f, i, p]
+    else:
+        fn = lib.mxt_flash_bwd_dq
+        fn.argtypes = [p] * 8 + [i, i, i, i, i, f, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def library(name):
-    """The C entry point of kernel ``name`` (``flash_fwd`` or
-    ``flash_decode``), building its library first if needed."""
+    """The C entry point of kernel ``name`` (a key of :data:`SOURCES`),
+    building its library first if needed."""
     fn = _libs.get(name)
     if fn is not None:
         return fn

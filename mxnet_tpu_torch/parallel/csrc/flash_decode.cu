@@ -32,28 +32,16 @@
 // The grid is B*H blocks, one per row; splitting T across blocks
 // (flash-decoding) is left for a later version.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int kThreads = 128;
 constexpr int kBK = 128;           // keys per tile (one per thread)
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;
-
-// Asynchronous 4-byte global -> shared copy (sm_80+). With `pred` false it
-// reads nothing and writes a zero, so ragged tiles need no second path.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 size_t smem_bytes(int D) {
   return sizeof(float) *

@@ -4,9 +4,10 @@
 // Replaces the TPU kernel `_fwd_kernel` (with `_mask_scores`) of
 // mxnet_tpu/parallel/flash_attention.py, which `_pallas_forward` launches.
 // It computes, per (batch, head), O = softmax(scale * Q K^T + mask) V and the
-// per-row LSE = m + log(l) (kept for the backward pass of a later slice).
-// Masks: keys at or beyond Tk, the causal triangle (q_pos >= k_pos), and for
-// packed batches every cross-segment pair plus segment id 0. A masked score
+// per-row LSE = m + log(l), which the backward kernels read.
+// Masks (`live_pair` in flash_common.cuh): keys at or beyond Tk, the causal
+// triangle (q_pos >= k_pos), and for packed batches every cross-segment pair
+// plus segment id 0. A masked score
 // is -1e30, as in the reference, so its softmax weight is an exact zero.
 //
 // What bounds it on an H100: the causal pass does about 2*T^2*D flops per
@@ -33,10 +34,11 @@
 // Inputs use the JAX (B, T, H, D) layout directly; segment ids are one
 // (B, T) plane indexed by b = bh / H, with no per-head copy.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int kBQ = 64;            // query rows per block
 constexpr int kBK = 64;            // keys per tile
@@ -44,19 +46,6 @@ constexpr int kThreads = 128;
 constexpr int kRows = kBQ / 8;     // query rows per thread
 constexpr int kCols = kBK / 16;    // score columns per thread
 constexpr float kNeg = -1e30f;     // the reference's masked score
-
-// Asynchronous 4-byte global -> shared copy (sm_80+). With `pred` false it
-// reads nothing and writes a zero, so ragged tiles need no second path.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 size_t smem_bytes(int D) {
   const int ld = D + 1;
@@ -145,8 +134,8 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int c = cg + 16 * j, kp = k0 + c;
-        bool live = kp < Tk && (!causal || qp >= kp);
-        if (seg != nullptr) live = live && qseg[i] > 0 && qseg[i] == kseg[c];
+        const bool live = live_pair(qp, kp, Tk, causal, seg != nullptr,
+                                    qseg[i], kseg[c]);
         s[i][j] = live ? s[i][j] * scale : kNeg;
         mx = fmaxf(mx, s[i][j]);
       }

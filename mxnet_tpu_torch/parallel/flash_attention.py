@@ -1,12 +1,17 @@
-"""Fused (flash) attention for the serving path: hand-written CUDA
-kernels for Hopper (counterpart of ``mxnet_tpu/parallel/flash_attention.py``).
+"""Fused (flash) attention: hand-written CUDA kernels for Hopper
+(counterpart of ``mxnet_tpu/parallel/flash_attention.py``).
 
 Two public functions keep the JAX package's signatures and its
 ``(B, T, H, D)`` layout:
 
-- :func:`flash_attention` — prefill attention (causal, optionally
-  segment-blocked for packed batches); on a CUDA tensor it launches
-  ``csrc/flash_fwd.cu``, the counterpart of the TPU ``_fwd_kernel``;
+- :func:`flash_attention` — attention for prefill and training (causal,
+  optionally segment-blocked for packed batches); on a CUDA tensor it
+  runs :class:`_Flash`, a ``torch.autograd.Function`` (the counterpart
+  of the JAX ``custom_vjp``) whose forward launches ``csrc/flash_fwd.cu``
+  (the TPU ``_fwd_kernel``) and whose backward launches
+  ``csrc/flash_bwd_dkdv.cu`` and ``csrc/flash_bwd_dq.cu``
+  (``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel``), recomputing the
+  probabilities from the forward's row LSE;
 - :func:`flash_decode` — one query row per sequence against a gathered
   KV cache with per-row valid lengths; on a CUDA tensor it launches
   ``csrc/flash_decode.cu``, the counterpart of ``_decode_kernel``.
@@ -21,9 +26,18 @@ version on any device; it exists for the tests and ``chip_smoke.py``,
 which hold each kernel against it on the card. On a CUDA tensor the
 wrappers launch the kernel or raise: there is no fallback.
 
+Each backward kernel has its plain version too (:func:`_torch_bwd_dkdv`,
+:func:`_torch_bwd_dq`): the same LSE-recompute arithmetic in PyTorch.
+``_Flash`` runs with them when it is applied with ``kernel=False``,
+which is how the CPU tests reach the LSE-recompute backward. A masked
+(q, k) pair gets an exact-zero probability in the backward, so a row
+that attends to nothing (segment id 0) contributes no gradient; the
+JAX kernels give such rows weights that depend on the tiling, so the
+two agree where a masked loss puts a zero cotangent on those rows.
+
 The int8 in-kernel-dequantizing decode kernel (``_decode_kernel_q8``)
-and the backward kernels are not ported yet: ``flash_decode`` with
-``k_scale``/``v_scale`` on a CUDA tensor raises NotImplementedError.
+is not ported yet: ``flash_decode`` with ``k_scale``/``v_scale`` on a
+CUDA tensor raises NotImplementedError.
 
 Each wrapper counts its kernel launches in :data:`launches`.
 """
@@ -41,7 +55,8 @@ __all__ = ["flash_attention", "flash_decode", "launches",
 _NEG = -1e30
 
 # kernel name -> launches since the last reset_launches()
-launches = {"flash_fwd": 0, "flash_decode": 0}
+launches = {"flash_fwd": 0, "flash_decode": 0, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
 
 
 def reset_launches():
@@ -68,6 +83,63 @@ def _torch_reference(q, k, v, scale, causal, segment_ids=None):
     p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True)).to(q.dtype)
     p = p / torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _live_pairs(Tq, Tk, causal, seg, device):
+    """``(B or 1, 1, Tq, Tk)`` bool: the (q, k) pairs the masks let
+    through — the causal triangle (top-left aligned) and, for packed
+    batches, same nonzero segment. The kernels' rule is ``live_pair`` in
+    ``csrc/flash_common.cuh``."""
+    live = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        live = torch.tril(live)
+    live = live[None, None]
+    if seg is not None:
+        seg = torch.as_tensor(seg, device=device)
+        live = live & ((seg[:, :, None] == seg[:, None, :])
+                       & (seg[:, :, None] > 0))[:, None]
+    return live
+
+
+def _torch_fwd_lse(q, k, v, seg, scale, causal):
+    """The plain forward of :class:`_Flash`: ``(o, lse (B, H, Tq))``, with
+    ``o`` from :func:`_torch_reference` and the row LSE over the masked
+    scores (``-1e30`` masking, as the kernel's)."""
+    o = _torch_reference(q, k, v, scale, causal, segment_ids=seg)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = torch.where(_live_pairs(q.shape[1], k.shape[1], causal, seg,
+                                q.device), s, _NEG)
+    return o, torch.logsumexp(s, dim=-1).to(torch.float32)
+
+
+def _torch_bwd_p(q, k, lse, seg, scale, causal):
+    """``P = exp(scale * Q K^T - LSE)``, exact zero on masked pairs: the
+    probabilities both backward kernels recompute."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    live = _live_pairs(q.shape[1], k.shape[1], causal, seg, q.device)
+    s = torch.where(live, s, _NEG)
+    return torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+
+
+def _torch_bwd_ds(q, k, v, do, lse, dcap, seg, scale, causal):
+    p = _torch_bwd_p(q, k, lse, seg, scale, causal)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    return p, p * (dp - dcap[..., None]) * scale
+
+
+def _torch_bwd_dkdv(q, k, v, do, lse, dcap, seg, scale, causal):
+    """The plain version of ``flash_bwd_dkdv.cu``: ``(dk, dv)``, both
+    ``(B, Tk, H, D)``, from ``lse``/``dcap`` ``(B, H, Tq)``."""
+    p, ds = _torch_bwd_ds(q, k, v, do, lse, dcap, seg, scale, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return dk, dv
+
+
+def _torch_bwd_dq(q, k, v, do, lse, dcap, seg, scale, causal):
+    """The plain version of ``flash_bwd_dq.cu``: ``dq (B, Tq, H, D)``."""
+    _, ds = _torch_bwd_ds(q, k, v, do, lse, dcap, seg, scale, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k)
 
 
 def _torch_decode(q, k, v, lengths, scale):
@@ -113,6 +185,17 @@ def _raise_on(rc, name):
                          % (name, rc))
 
 
+def _seg_plane(seg, B, Tq, device):
+    """``segment_ids`` as a contiguous ``(B, Tq)`` int32 tensor, or None."""
+    if seg is None:
+        return None
+    seg = torch.as_tensor(seg, device=device).to(torch.int32).contiguous()
+    if tuple(seg.shape) != (B, Tq):
+        raise ValueError("flash_attention: segment_ids shape %s, want %s"
+                         % (tuple(seg.shape), (B, Tq)))
+    return seg
+
+
 def _fwd_cuda(q, k, v, seg, scale, causal):
     """Launch ``flash_fwd.cu``: returns ``(o (B, Tq, H, D), lse (B, H,
     Tq) float32)``."""
@@ -124,12 +207,7 @@ def _fwd_cuda(q, k, v, seg, scale, causal):
         raise MXNetError("flash_attention: the kernel takes head_dim "
                          "<= 128, got %d" % D)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if seg is not None:
-        seg = torch.as_tensor(seg, device=q.device).to(
-            torch.int32).contiguous()
-        if tuple(seg.shape) != (B, Tq):
-            raise ValueError("flash_attention: segment_ids shape %s, "
-                             "want %s" % (tuple(seg.shape), (B, Tq)))
+    seg = _seg_plane(seg, B, Tq, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -144,6 +222,89 @@ def _fwd_cuda(q, k, v, seg, scale, causal):
     _raise_on(rc, "flash_fwd")
     launches["flash_fwd"] += 1
     return o, lse
+
+
+def _bwd_cuda(name, q, k, v, do, lse, dcap, seg, scale, causal):
+    """Launch ``flash_bwd_dkdv.cu`` (``name="flash_bwd_dkdv"``, returns
+    ``(dk, dv)``) or ``flash_bwd_dq.cu`` (``"flash_bwd_dq"``, returns
+    ``dq``). ``lse`` and ``dcap`` are ``(B, H, Tq)`` float32."""
+    from . import _build
+    _check_cuda(name, q.device, q=q, k=k, v=v, do=do, lse=lse, dcap=dcap)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if D > 128:
+        raise MXNetError("%s: the kernel takes head_dim <= 128, got %d"
+                         % (name, D))
+    if tuple(do.shape) != tuple(q.shape) or tuple(lse.shape) != (B, H, Tq) \
+            or tuple(dcap.shape) != (B, H, Tq):
+        raise ValueError("%s: do %s, lse %s, dcap %s do not match q %s"
+                         % (name, tuple(do.shape), tuple(lse.shape),
+                            tuple(dcap.shape), tuple(q.shape)))
+    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    lse, dcap = lse.contiguous(), dcap.contiguous()
+    seg = _seg_plane(seg, B, Tq, q.device)
+    seg_ptr = None if seg is None else seg.data_ptr()
+    fn = _build.library(name)
+    dev = torch.cuda.device(q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if name == "flash_bwd_dkdv":
+        out = (torch.empty_like(k), torch.empty_like(v))
+        if out[0].numel() == 0:
+            return out
+        with dev:
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), dcap.data_ptr(), seg_ptr,
+                    out[0].data_ptr(), out[1].data_ptr(), B, H, Tq, Tk, D,
+                    float(scale), int(bool(causal)), stream)
+    else:
+        out = torch.empty_like(q)
+        if out.numel() == 0:
+            return out
+        with dev:
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), dcap.data_ptr(), seg_ptr,
+                    out.data_ptr(), B, H, Tq, Tk, D, float(scale),
+                    int(bool(causal)), stream)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
+class _Flash(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the JAX
+    ``custom_vjp`` ``_flash``: the forward keeps the row LSE, the
+    backward computes ``D = rowsum(dO * O)`` and recomputes the
+    probabilities from it in the dK/dV kernel, then the dQ kernel.
+    ``kernel=False`` runs the same steps through the plain versions.
+    ``segment_ids`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, scale, causal, kernel):
+        seg = _seg_plane(seg, q.shape[0], q.shape[1], q.device)
+        if kernel:
+            o, lse = _fwd_cuda(q, k, v, seg, scale, causal)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        else:
+            o, lse = _torch_fwd_lse(q, k, v, seg, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse, seg)
+        ctx.scale, ctx.causal, ctx.kernel = scale, causal, kernel
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse, seg = ctx.saved_tensors
+        do = do.contiguous()
+        # D = rowsum(dO * O), laid out (B, H, Tq) like the LSE
+        dcap = torch.sum(do * o, dim=-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, do, lse, dcap, seg, ctx.scale, ctx.causal)
+        if ctx.kernel:
+            dk, dv = _bwd_cuda("flash_bwd_dkdv", *args)
+            dq = _bwd_cuda("flash_bwd_dq", *args)
+        else:
+            dk, dv = _torch_bwd_dkdv(*args)
+            dq = _torch_bwd_dq(*args)
+        return dq, dk, dv, None, None, None, None
 
 
 def _decode_cuda(q, k, v, lengths, scale):
@@ -219,7 +380,10 @@ def flash_decode(q, k, v, lengths, scale=None, k_scale=None,
 
 def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
                     impl=None):
-    """Attention over ``(B, T, H, D)`` tensors, for ANY sequence length.
+    """Attention over ``(B, T, H, D)`` tensors, for ANY sequence length,
+    differentiable on every device: on a CUDA tensor through the kernels
+    of :class:`_Flash`, on a CPU tensor through torch autograd of the
+    plain version.
 
     ``segment_ids`` (``(B, T)`` int, 1-based per sample, 0 = pad) turns
     on segment-blocked attention for PACKED batches: a position attends
@@ -234,6 +398,6 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
             "(q and k sequence lengths %d vs %d differ)"
             % (q.shape[1], k.shape[1]))
     if _use_kernel(q, impl):
-        return _fwd_cuda(q, k, v, segment_ids, scale, causal)[0]
+        return _Flash.apply(q, k, v, segment_ids, scale, causal, True)
     return _torch_reference(q, k, v, scale, causal,
                             segment_ids=segment_ids)

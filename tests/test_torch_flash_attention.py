@@ -156,7 +156,8 @@ def test_wrappers_route_by_device():
     q, k, v = (_t(x) for x in _qkv(1, 1, 8, 8, 2, 8))
     tfa.flash_attention(q, k, v, causal=True)
     tfa.flash_decode(q[:, :1], k, v, torch.full((1,), 8))
-    assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0}
+    assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0,
+                            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 
 def test_q8_decode_kernel_not_ported_raises_on_cuda(monkeypatch):

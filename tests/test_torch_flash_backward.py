@@ -1,0 +1,166 @@
+"""Port parity: the flash-attention backward of mxnet_tpu_torch against the
+JAX package's, on the CPU.
+
+The same numpy inputs and cotangents go through ``jax.vjp`` of the JAX
+``flash_attention(force_pallas=True)`` (its backward kernels
+``_bwd_dkdv_kernel``/``_bwd_dq_kernel`` in Pallas interpret mode) and
+``jax.grad`` of ``_jnp_reference``, and through the port's
+``_Flash`` autograd Function run with the plain versions of its backward
+kernels (the LSE-recompute arithmetic of ``flash_bwd_dkdv.cu`` and
+``flash_bwd_dq.cu``), and through torch autograd of the plain forward,
+which is what ``flash_attention`` runs on a CPU tensor. Tolerance
+rtol = atol = 2e-5 (interpret-mode Pallas, ROADMAP rule 5). Packed
+batches put a zero cotangent on the pad rows (segment id 0), as a masked
+loss does: the rows that attend to nothing have tile-dependent weights
+in the JAX kernels.
+
+The CUDA kernels run only on a card: chip_smoke.py holds them to these
+plain versions there."""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch import MXNetError
+
+jfa = importlib.import_module("mxnet_tpu.parallel.flash_attention")
+tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+CASES = {
+    # name: (B, Tq, Tk, H, D, causal, segmented)
+    "causal": (2, 64, 64, 2, 16, True, False),
+    "full": (2, 48, 48, 2, 8, False, False),
+    "ragged_T200": (1, 200, 200, 2, 16, True, False),
+    "cross_Tq_ne_Tk": (2, 40, 72, 2, 8, False, False),
+    "causal_Tq_lt_Tk": (1, 24, 40, 2, 8, True, False),
+    "segments": (2, 96, 96, 2, 16, True, True),
+}
+
+
+def _inputs(case, seed):
+    B, Tq, Tk, H, D, causal, segmented = case
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, Tq, H, D).astype(np.float32)
+    k = rs.randn(B, Tk, H, D).astype(np.float32)
+    v = rs.randn(B, Tk, H, D).astype(np.float32)
+    g = rs.randn(B, Tq, H, D).astype(np.float32)
+    seg = None
+    if segmented:
+        seg = np.zeros((B, Tq), np.int32)
+        for b in range(B):
+            cut = rs.randint(8, Tq // 2)
+            seg[b, :cut] = 1
+            seg[b, cut:Tq - 7 - b] = 2          # a pad tail of 7 + b
+        g[seg == 0] = 0.0                       # the masked loss
+    return q, k, v, g, seg
+
+
+def _jax_grads(q, k, v, g, seg, causal, pallas):
+    segj = None if seg is None else jnp.asarray(seg)
+    D = q.shape[-1]
+
+    def f(a, b, c):
+        if pallas:
+            return jfa.flash_attention(a, b, c, causal=causal,
+                                       force_pallas=True, block_q=128,
+                                       block_k=128, segment_ids=segj)
+        return jfa._jnp_reference(a, b, c, 1.0 / np.sqrt(D), causal,
+                                  segment_ids=segj)
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+def _torch_grads(q, k, v, g, seg, causal, via_function):
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    segt = None if seg is None else torch.from_numpy(seg)
+    if via_function:
+        out = tfa._Flash.apply(*leaves, segt, q.shape[-1] ** -0.5, causal,
+                               False)
+    else:
+        out = tfa.flash_attention(*leaves, causal=causal, segment_ids=segt)
+    out.backward(torch.from_numpy(g))
+    return [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_lse_recompute_backward_matches_jax_pallas(name):
+    """The port's Function with the plain backward kernels against the
+    Pallas backward kernels in interpret mode, and against jax.grad of
+    the jnp reference."""
+    case = CASES[name]
+    q, k, v, g, seg = _inputs(case, seed=len(name))
+    got = _torch_grads(q, k, v, g, seg, case[5], via_function=True)
+    pallas = _jax_grads(q, k, v, g, seg, case[5], pallas=True)
+    dense = _jax_grads(q, k, v, g, seg, case[5], pallas=False)
+    for which, a, b, c in zip("qkv", got, pallas, dense):
+        np.testing.assert_allclose(a, b, err_msg="d" + which, **TOL)
+        np.testing.assert_allclose(a, c, err_msg="d" + which, **TOL)
+
+
+@pytest.mark.parametrize("name", ["causal", "cross_Tq_ne_Tk", "segments"])
+def test_flash_attention_cpu_gradient_matches_jax(name):
+    """On a CPU tensor flash_attention is differentiable through torch
+    autograd of the plain version."""
+    case = CASES[name]
+    q, k, v, g, seg = _inputs(case, seed=len(name) + 1)
+    got = _torch_grads(q, k, v, g, seg, case[5], via_function=False)
+    want = _jax_grads(q, k, v, g, seg, case[5], pallas=False)
+    for which, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a, b, err_msg="d" + which, **TOL)
+
+
+def test_plain_kernel_versions_match_function_outputs():
+    """The plain dK/dV and dQ versions, called the way the kernels are
+    (lse and D laid out (B, H, Tq)), give the Function's gradients; the
+    forward's LSE is the log-sum-exp of the masked scores."""
+    q, k, v, g, seg = _inputs(CASES["segments"], seed=3)
+    qt, kt, vt, gt = (torch.from_numpy(x) for x in (q, k, v, g))
+    segt = torch.from_numpy(seg)
+    scale = q.shape[-1] ** -0.5
+    o, lse = tfa._torch_fwd_lse(qt, kt, vt, segt, scale, True)
+    assert lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    dcap = torch.sum(gt * o, dim=-1).permute(0, 2, 1)
+    dk, dv = tfa._torch_bwd_dkdv(qt, kt, vt, gt, lse, dcap, segt, scale,
+                                 True)
+    dq = tfa._torch_bwd_dq(qt, kt, vt, gt, lse, dcap, segt, scale, True)
+    want = _torch_grads(q, k, v, g, seg, True, via_function=True)
+    for a, b in zip((dq, dk, dv), want):
+        np.testing.assert_array_equal(a.numpy(), b)
+    # pad rows attend to nothing: their probabilities are exact zeros
+    p = tfa._torch_bwd_p(qt, kt, lse, segt, scale, True)
+    assert float(p.permute(0, 2, 1, 3)[segt == 0].abs().max()) == 0.0
+
+
+def test_segment_ids_get_no_gradient_and_launch_counts_stay():
+    tfa.reset_launches()
+    q, k, v, g, seg = _inputs(CASES["segments"], seed=4)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    segt = torch.from_numpy(seg.astype(np.float32)).requires_grad_(True)
+    out = tfa._Flash.apply(*leaves, segt, 0.25, True, False)
+    out.backward(torch.from_numpy(g))
+    assert segt.grad is None
+    assert all(x.grad is not None for x in leaves)
+    assert set(tfa.launches) == {"flash_fwd", "flash_decode",
+                                 "flash_bwd_dkdv", "flash_bwd_dq"}
+    assert all(n == 0 for n in tfa.launches.values())
+
+
+def test_backward_kernel_wrapper_checks_before_launch():
+    """The CUDA wrapper refuses what the kernels do not take, before it
+    builds or launches anything."""
+    q = torch.zeros(1, 4, 1, 8)
+    lse = torch.zeros(1, 1, 4)
+    with pytest.raises(MXNetError, match="float32"):
+        tfa._check_cuda("flash_bwd_dq", q.device, q=q.double())
+    with pytest.raises(MXNetError, match="head_dim"):
+        big = torch.zeros(1, 4, 1, 136)
+        tfa._bwd_cuda("flash_bwd_dq", big, big, big, big, lse, lse, None,
+                      1.0, True)
+    with pytest.raises(ValueError, match="do not match"):
+        tfa._bwd_cuda("flash_bwd_dkdv", q, q, q, q, lse[:, :, :3],
+                      lse, None, 1.0, True)
