@@ -7,7 +7,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
 
 1. device — CUDA present, capability >= (9, 0); prints the card's
    ``nvidia-smi`` name and power limit;
-2. build — the four attention kernels from
+2. build — the five attention kernels from
    ``mxnet_tpu_torch/parallel/csrc`` (one nvcc per source, started
    together), with their ptxas register and spill lines;
 3. kernels vs plain — the forward and decode kernels against their plain
@@ -33,9 +33,31 @@ no result, anywhere else. Phases (any failure exits non-zero):
    midway); every stream equals a server-free greedy loop over the same
    model; then a short run over an int8 KV pool. Kernel launch counts
    are zeroed just before this phase and read just after it;
-7. step profile — where one steady decode step's time goes (kernel
+7. int8 decode — the third slice's ``flash_decode(k_scale=, v_scale=)``
+   on ``flash_decode_q8.cu``: at B8 T576 H12 D64 on a cache quantized
+   page by page as the int8 pool does it (raw int8 pages, each page's
+   scale repeated over its 16 slots) and at the JAX test's B2 T128 H2
+   D8, the kernel against its plain version and against
+   ``flash_decode.cu`` on the dequantized cache (rtol = atol = 1e-5,
+   and whether the two are bit-identical), and garbage past each row's
+   length (random bytes, NaN scales) must leave its output
+   bit-identical; then, on phase 6's int8 pool, one decode step's
+   calls (one per layer) over the raw pages of live requests, launch
+   counts zeroed just before and read just after, held the same way;
+8. rtc — ``mx.rtc.CudaModule`` compiles three CUDA C kernels (axpy and
+   scale_rows of tests/test_rtc.py, and row_sum, a shared-memory
+   reduction with 256-thread blocks) with NVRTC and launches them on
+   gpu(0) arrays, held to torch (rtol = atol = 1e-6 for axpy and
+   scale_rows, 1e-5 for row_sum); in-out arrays of another dtype or
+   layout are written back, a launch above 48 KB of shared memory
+   works, a broken source raises with the compiler's log, and a CPU
+   context raises. Compile seconds (cold and from the disk cache), host
+   microseconds per launch, and axpy's device time at 2^26 floats
+   against torch.add and its bound. Launch counts are zeroed just before
+   the three kernels' run and read just after;
+9. step profile — where one steady decode step's time goes (kernel
    classes, device idle share), from the profiler;
-8. training — the second slice's main path: a Gluon decoder LM at the
+10. training — the second slice's main path: a Gluon decoder LM at the
    same width (``gluon_lm``) on gpu(0), batch 8 x 1024 random tokens,
    next-token SoftmaxCrossEntropyLoss, Adam (lr 1e-3). One
    record/backward against a twin with dense attention and the same
@@ -47,9 +69,9 @@ no result, anywhere else. Phases (any failure exits non-zero):
    device idle share from the profiler.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
-path (``path``: server or training; ``launches`` from that path's run,
-times at the shape it gives the kernel), and, last, ``{"ok": true,
-"device": {...}}``.
+path (``path``: server, training, int8 decode or rtc; ``launches`` from
+that path's run, times at the shape it gives the kernel), and, last,
+``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -101,9 +123,51 @@ GRAD_RTOL_RELU = 5e-2
 GRAD_RTOL_SHARED = 1e-3
 LOSS_ATOL = 1e-4
 TRAIN_BATCH = 8
+Q8_SRC = "mxnet_tpu_torch/parallel/csrc/flash_decode_q8.cu"
+Q8_TPU = "mxnet_tpu/parallel/flash_attention.py:528"
+RTC_SRC = "mxnet_tpu_torch/rtc.py"
+RTC_TPU = "mxnet_tpu/rtc.py:105"
+# the int8 pool's page size
+PAGE = 16
+# rtc kernels vs torch: axpy may contract to one FMA (one ulp), row_sum
+# adds in another order than torch.sum
+RTC_TOL = dict(rtol=1e-6, atol=1e-6)
+ROWSUM_TOL = dict(rtol=1e-5, atol=1e-5)
 # the kernels each main path runs
 SERVER_KERNELS = ("flash_fwd", "flash_decode")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+# user kernels for mx.rtc: tests/test_rtc.py's two in CUDA C, and a
+# shared-memory reduction
+RTC_KERNELS = r"""
+extern "C" __global__ void axpy(float alpha, const float *x, float *y) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    y[i] += alpha * x[i];
+}
+
+// out[row, :] = x[row, :] * (row + 1): one block per row, one thread per
+// column
+extern "C" __global__ void scale_rows(const float *x, float *out) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    out[i] = x[i] * (float)(blockIdx.x + 1);
+}
+
+// out[row] = sum of x[row, 0:n]: one block per row, blockDim.x strided
+// partial sums added by a tree in dynamic shared memory (blockDim.x
+// floats, a power of two)
+extern "C" __global__ void row_sum(const float *x, float *out, int n) {
+    extern __shared__ float part[];
+    const float *r = x + (long)blockIdx.x * n;
+    float s = 0.f;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) s += r[j];
+    part[threadIdx.x] = s;
+    __syncthreads();
+    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+        if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+"""
 
 
 def fail(msg):
@@ -954,6 +1018,347 @@ def phase_server_int8(model, params):
         fail("int8 pool run did not complete")
     print("server int8 pool: 4/4 requests complete, tokens/s %.1f"
           % st["tokens_per_sec"])
+    return srv._pool
+
+
+def q8_pool_cache(B, T, H, D, lens, seed):
+    """A seeded fp32 K and V cache stored the way the int8 pool stores
+    it: each row quantized page by page (``scatter_prefill_q8``, pages of
+    16 slots, rows up to its length), then gathered raw (int8 pages, each
+    page's scale repeated over its slots) and dequantized
+    (``gather_pages_q8``). Returns (k8, v8, k_scale, v_scale, k_deq,
+    v_deq)."""
+    from mxnet_tpu_torch.serving import kvcache
+    dev = torch.device("cuda", 0)
+    M = T // PAGE
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = torch.arange(1, B * M + 1, device=dev).reshape(B, M)
+    out = []
+    for _ in range(2):
+        seq = torch.randn(B, T, H, D, generator=g).to(dev)
+        pages = torch.zeros(1, B * M + 1, PAGE, H, D, dtype=torch.int8,
+                            device=dev)
+        scales = torch.zeros(1, B * M + 1, device=dev)
+        for b in range(B):
+            kvcache.scatter_prefill_q8(pages, scales, table[b], seq[b][None],
+                                       int(lens[b]))
+        out += [kvcache.gather_pages(pages, table)[0],
+                torch.repeat_interleave(scales[:, table], PAGE,
+                                        dim=-1)[0].contiguous(),
+                kvcache.gather_pages_q8(pages, scales, table)[0]]
+    k8, ks, kd, v8, vs, vd = out
+    return k8, v8, ks, vs, kd, vd
+
+
+def q8_hold(tfa, what, q, k8, v8, ks, vs, kd, vd, lens, seed):
+    """The int8 kernel on one input: (i) against its plain version, (ii)
+    against flash_decode.cu on the dequantized cache, (iii) with random
+    bytes and NaN scales past each row's length, which must leave its
+    output bit-identical. Returns (output, error vs plain, error vs the
+    fp32 kernel)."""
+    scale = q.shape[-1] ** -0.5
+    got = tfa.flash_decode(q, k8, v8, lens, k_scale=ks, v_scale=vs)
+    want = tfa.flash_decode(q, k8, v8, lens, k_scale=ks, v_scale=vs,
+                            impl="plain")
+    err, ok = close(got, want)
+    fp32 = tfa._decode_cuda(q, kd, vd, lens, scale)
+    err32, ok32 = close(got, fp32)
+    same = torch.equal(got, fp32)
+    B, T = ks.shape
+    tail = torch.arange(T, device=q.device)[None, :] >= lens[:, None].long()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    gk, gv = k8.clone(), v8.clone()
+    for t in (gk, gv):
+        noise = torch.randint(-128, 128, t.shape, generator=g,
+                              dtype=torch.int8).to(q.device)
+        t[tail] = noise[tail]
+    nan = float("nan")
+    dirty = tfa.flash_decode(q, gk, gv, lens, k_scale=ks.masked_fill(tail, nan),
+                             v_scale=vs.masked_fill(tail, nan))
+    clean_tail = torch.equal(dirty, got)
+    torch.cuda.synchronize()
+    print("  %-34s vs plain err %.3g; vs flash_decode.cu on the dequantized"
+          " cache err %.3g, bit-identical %s; garbage tail (%d positions,"
+          " NaN scales) leaves the output bit-identical: %s"
+          % (what, err, err32, same, int(tail.sum()), clean_tail))
+    if not ok:
+        fail("flash_decode_q8 disagrees with the plain version: %s" % what)
+    if not ok32:
+        fail("flash_decode_q8 disagrees with flash_decode.cu on the"
+             " dequantized cache: %s" % what)
+    if not clean_tail:
+        fail("flash_decode_q8 read past a row's length: %s" % what)
+    return got, err, err32
+
+
+def phase_q8_decode(tfa):
+    """The int8 kernel at decode_case's shape on a pool-built cache, and
+    at the JAX test's shape on random int8 and scales; times at the
+    first. Returns the record of the first and the largest error vs the
+    plain version."""
+    dev = torch.device("cuda", 0)
+    B, T, H, D = 8, 576, 12, 64
+    print("int8 decode kernel (flash_decode_q8.cu) vs plain and vs"
+          " flash_decode.cu (rtol = atol = %g):" % TOL["rtol"])
+    lens_np = np.random.RandomState(9).randint(1, T + 1, size=B)
+    lens_np[0], lens_np[-1] = 1, T                # decode_case's lengths
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    q = torch.randn(B, 1, H, D, generator=g).to(dev)
+    k8, v8, ks, vs, kd, vd = q8_pool_cache(B, T, H, D, lens_np, seed=22)
+    _, err, _ = q8_hold(tfa, "B8 T576 H12 D64 pool pages", q, k8, v8, ks,
+                        vs, kd, vd, lens, seed=23)
+    # the JAX test's inputs (tests/test_kv_int8.py): B2 T128 H2 D8 (int8
+    # rows staged 4 bytes at a time); and D7 (one byte at a time)
+    err_small = 0.0
+    for (sB, sT, sH, sD), slens, what in (
+            ((2, 128, 2, 8), [37, 128], "B2 T128 H2 D8 (JAX test inputs)"),
+            ((3, 100, 3, 7), [1, 50, 100], "B3 T100 H3 D7")):
+        rs = np.random.RandomState(5)
+        sq = torch.from_numpy(rs.randn(sB, 1, sH, sD).astype(np.float32))
+        sk, sv = (torch.from_numpy(rs.randint(-127, 128, size=(
+            sB, sT, sH, sD)).astype(np.int8)) for _ in range(2))
+        sks, svs = (torch.from_numpy(rs.uniform(0.005, 0.02, size=(
+            sB, sT)).astype(np.float32)) for _ in range(2))
+        sq, sk, sv, sks, svs = (t.to(dev) for t in (sq, sk, sv, sks, svs))
+        slens = torch.tensor(slens, dtype=torch.int32, device=dev)
+        sdeq = [t.float() * sc[:, :, None, None]
+                for t, sc in ((sk, sks), (sv, svs))]
+        _, e, _ = q8_hold(tfa, what, sq, sk, sv, sks, svs, sdeq[0], sdeq[1],
+                          slens, seed=24)
+        err_small = max(err_small, e)
+    live = int(lens_np.sum())
+    nbytes = 2.0 * live * H * D + 2 * 4.0 * live + 2 * 4.0 * B * H * D \
+        + 4.0 * B                 # int8 K, V; their scales; q, o; lengths
+    flops = 6.0 * D * live * H    # dequantizing multiplies, q.k, p.v
+    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32_FLOPS \
+        else "operations"
+    ms = timed(lambda: tfa.flash_decode(q, k8, v8, lens, k_scale=ks,
+                                        v_scale=vs))
+    plain_ms = timed(lambda: tfa.flash_decode(q, k8, v8, lens, k_scale=ks,
+                                              v_scale=vs, impl="plain"))
+    fp32_ms = timed(lambda: tfa._decode_cuda(q, kd, vd, lens, D ** -0.5))
+    qt = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+
+    def deq_sdpa():                # a yardstick only: no single call
+        kf = (k8.float() * ks[:, :, None, None]).transpose(1, 2)
+        vf = (v8.float() * vs[:, :, None, None]).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kf, vf, attn_mask=mask)
+    yard_ms = timed(deq_sdpa)
+    fp32_bytes = 4.0 * H * (2 * live * D + 2 * B * D) + 4.0 * B
+    print("  %-34s device ms: kernel %.4f plain %.4f | flash_decode.cu on"
+          " the dequantized cache %.4f (bound %.2f us) | dequantize + sdpa"
+          " %.4f (yardstick) | per-call ms: kernel %.4f plain %.4f | bound"
+          " %.2f us (%s, %.3f MB)"
+          % ("B8 T576 H12 D64 (%d live keys)" % live, ms[0], plain_ms[0],
+             fp32_ms[0], fp32_bytes / PEAK_BYTES * 1e6, yard_ms[0], ms[1],
+             plain_ms[1], bound * 1e3, bound_by, nbytes / 1e6))
+    return dict(err=max(err, err_small), ms=ms[0], plain_ms=plain_ms[0],
+                library_ms=None, bound_ms=bound, bound_by=bound_by)
+
+
+def phase_q8_pool(tfa, model, params, pool):
+    """The int8 kernel's main path: on phase 6's int8 pool, a server
+    admits 4 requests and runs a few decode steps; then one decode
+    step's calls, ``flash_decode(k_scale=, v_scale=)`` for each layer
+    over the live requests' raw pages and scales, with launch counts
+    zeroed just before and read just after; then each layer held as in
+    phase 7. Returns the launches and the largest error vs plain."""
+    from mxnet_tpu_torch.serving import DecodeServer, kvcache
+    dev = torch.device("cuda", 0)
+    srv = DecodeServer(model, params, pool=pool, seq_ladder=[64, 128],
+                       max_new_tokens=32, window=8, start=False)
+    rs = np.random.RandomState(4)
+    reqs = [srv.submit(rs.randint(0, model.vocab, size=30 + 25 * i),
+                       max_new_tokens=32) for i in range(4)]
+    try:
+        while srv.stats()["active"] < len(reqs):
+            srv._tick()                   # prefills (one per tick)
+        for _ in range(5):
+            srv._tick()
+        torch.cuda.synchronize()
+        rows = [r for r in reqs if r.state == "active"]
+        table = torch.zeros(len(rows), srv._max_pages, dtype=torch.long)
+        lens = []
+        for i, r in enumerate(rows):
+            table[i, :len(r.pages)] = torch.tensor(r.pages)
+            lens.append(len(r.prompt) + len(r.generated) - 1)
+        table = table.to(dev)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        k8, v8 = (kvcache.gather_pages(t, table) for t in (pool.k, pool.v))
+        ks, vs = (torch.repeat_interleave(s[:, table], PAGE, dim=-1)
+                  .contiguous() for s in (pool.k_scale, pool.v_scale))
+        kd, vd = (kvcache.gather_pages_q8(t, s, table) for t, s in
+                  ((pool.k, pool.k_scale), (pool.v, pool.v_scale)))
+    finally:
+        for r in reqs:
+            r.cancel()
+        srv.stop(drain=False)
+    L, n, T, H, D = k8.shape
+    g = torch.Generator(device="cpu").manual_seed(25)
+    q = torch.randn(L, n, 1, H, D, generator=g).to(dev)
+    tfa.reset_launches()                  # the main path starts here
+    outs = [tfa.flash_decode(q[i], k8[i], v8[i], lens, k_scale=ks[i],
+                             v_scale=vs[i]) for i in range(L)]
+    torch.cuda.synchronize()
+    launches = dict(tfa.launches)         # ... and ends here
+    print("int8 pool of the server: %d live requests, lengths %s, %d layers"
+          " x %d cached positions; launches %s"
+          % (n, lens.tolist(), L, T, launches))
+    if launches["flash_decode_q8"] != L:
+        fail("flash_decode_q8 launched %d times in %d layers"
+             % (launches["flash_decode_q8"], L))
+    if launches["flash_decode"]:
+        fail("an int8 call went through the fp32 decode kernel")
+    err = 0.0
+    for i in (0, L - 1):
+        got, e, _ = q8_hold(tfa, "layer %d of the server's pool" % i, q[i],
+                            k8[i], v8[i], ks[i], vs[i], kd[i], vd[i], lens,
+                            seed=26 + i)
+        if not torch.equal(got, outs[i]):
+            fail("flash_decode_q8 is not deterministic on layer %d" % i)
+        err = max(err, e)
+    return launches, err
+
+
+def phase_rtc(card):
+    """The rtc path: mx.rtc compiles RTC_KERNELS and launches each on
+    gpu(0) arrays (launch counts zeroed just before, read just after),
+    held to torch; then write-back, shared memory above 48 KB, a broken
+    source, a CPU context, and the times. Returns the rtc record and the
+    launches."""
+    import mxnet_tpu_torch as mx
+    dev = torch.device("cuda", 0)
+    ctx = mx.gpu(0)
+    g = torch.Generator(device="cpu").manual_seed(31)
+    n = 1 << 26
+    x = mx.nd.NDArray(torch.randn(n, generator=g).to(dev))
+    y = mx.nd.NDArray(torch.randn(n, generator=g).to(dev))
+    rows, cols = 4096, 1024
+    xs = mx.nd.NDArray(torch.randn(rows, cols, generator=g).to(dev))
+    outs = mx.nd.zeros((rows, cols), ctx=ctx)
+    xr = mx.nd.NDArray(torch.rand(4096, 4096, generator=g).to(dev))
+    sums = mx.nd.zeros((4096,), ctx=ctx)
+    alpha = 0.5
+    y0 = y._data.clone()
+    y_ptr = y._data.data_ptr()
+
+    mx.rtc.reset_launches()               # the rtc path starts here
+    mod = mx.rtc.CudaModule(RTC_KERNELS)
+    axpy = mod.get_kernel("axpy", "float alpha, const float *x, float *y")
+    scale_rows = mod.get_kernel("scale_rows", "const float *x, float *out")
+    row_sum = mod.get_kernel("row_sum", "const float *x, float *out, int n")
+    axpy.launch((alpha, x, y), ctx, (n // 256, 1, 1), (256, 1, 1))
+    scale_rows.launch((xs, outs), ctx, (rows, 1, 1), (cols, 1, 1))
+    row_sum.launch((xr, sums, 4096), ctx, (4096, 1, 1), (256, 1, 1),
+                   shared_mem=256 * 4)
+    torch.cuda.synchronize()
+    launches = dict(mx.rtc.launches)      # ... and ends here
+    cold = (mod.compile_seconds, mod.from_cache)
+    errs = {}
+    for name, got, want, tol in (
+            ("axpy", y._data, torch.add(y0, x._data, alpha=alpha), RTC_TOL),
+            ("scale_rows", outs._data, xs._data * torch.arange(
+                1, rows + 1, device=dev, dtype=torch.float32)[:, None],
+             RTC_TOL),
+            ("row_sum", sums._data, xr._data.sum(dim=1), ROWSUM_TOL)):
+        errs[name], ok = close(got, want, tol)
+        if not ok:
+            fail("rtc kernel %s disagrees with torch (err %g)"
+                 % (name, errs[name]))
+    if y._data.data_ptr() != y_ptr:
+        fail("rtc: a contiguous float32 in-out array was not written in"
+             " place")
+    print("rtc: 3 kernels compiled by NVRTC in %.3f s (from the disk cache:"
+          " %s), launched on %s: max abs err vs torch axpy %.3g, scale_rows"
+          " %.3g, row_sum %.3g; launches %s"
+          % (cold[0], cold[1], ctx, errs["axpy"], errs["scale_rows"],
+             errs["row_sum"], launches))
+    if launches["rtc"] != 3:
+        fail("rtc launched %d kernels, want 3" % launches["rtc"])
+
+    # a second module of the same source loads the cubin from the disk
+    mod2 = mx.rtc.CudaModule(RTC_KERNELS)
+    ax2 = mod2.get_kernel("axpy", "float alpha, const float *x, float *y")
+    small = 1 << 12
+    xh = mx.nd.NDArray(torch.randn(small, generator=g).to(dev).half())
+    y64 = mx.nd.NDArray(torch.randn(small, generator=g,
+                                    dtype=torch.float64).to(dev))
+    y64_0 = y64._data.clone()
+    ax2.launch((2.0, xh, y64), ctx, (small // 256, 1, 1), (256, 1, 1))
+    want = (y64_0.float() + 2.0 * xh._data.float()).double()
+    wb_err, wb_ok = close(y64._data, want, RTC_TOL)
+    if not (mod2.from_cache and wb_ok and y64._data.dtype == torch.float64):
+        fail("rtc: cache load %s, float16 input / float64 in-out write-back"
+             " err %g (dtype %s)" % (mod2.from_cache, wb_err,
+                                     y64._data.dtype))
+    # a non-contiguous in-out array, and more than 48 KB of shared memory
+    out_t = mx.nd.NDArray(torch.zeros(cols, 256, device=dev).t())
+    scale_rows.launch((xs[:256], out_t), ctx, (256, 1, 1), (cols, 1, 1))
+    part = mx.nd.zeros((256,), ctx=ctx)
+    row_sum.launch((xr[:256], part, 4096), ctx, (256, 1, 1), (256, 1, 1),
+                   shared_mem=64 * 1024)
+    nc_err, nc_ok = close(out_t._data, outs._data[:256], RTC_TOL)
+    sm_err, sm_ok = close(part._data, sums._data[:256], ROWSUM_TOL)
+    torch.cuda.synchronize()
+    print("  from the disk cache: %.3f s; float16 input + float64 in-out"
+          " array written back (err %.3g, dtype %s); non-contiguous in-out"
+          " (err %.3g); row_sum with 64 KB of shared memory (err %.3g)"
+          % (mod2.compile_seconds, wb_err, str(y64._data.dtype), nc_err,
+             sm_err))
+    if not (nc_ok and sm_ok):
+        fail("rtc: non-contiguous write-back or large shared memory")
+
+    # errors: a broken source carries the compiler's log; a CPU context
+    broken = mx.rtc.CudaModule(
+        'extern "C" __global__ void broken(float *x) '
+        '{ x[0] = undefined_name; }')
+    try:
+        broken.get_kernel("broken", "float *x").launch(
+            (part,), ctx, (1, 1, 1), (1, 1, 1))
+        fail("rtc: a broken source compiled")
+    except mx.MXNetError as exc:
+        if "undefined_name" not in str(exc):
+            fail("rtc: the compile error lacks the compiler's log: %s" % exc)
+        print("  broken source raises MXNetError with the log: %s"
+              % str(exc).strip().splitlines()[-1][:100])
+    try:
+        axpy.launch((alpha, x, y), mx.cpu(), (1, 1, 1), (1, 1, 1))
+        fail("rtc: a launch on mx.cpu() did not raise")
+    except mx.MXNetError as exc:
+        print("  mx.cpu() launch raises MXNetError: %s" % exc)
+
+    # times: host cost of a launch, axpy on the card
+    xs_small = mx.nd.NDArray(torch.randn(1024, device=dev))
+    ys_small = mx.nd.NDArray(torch.randn(1024, device=dev))
+    for _ in range(10):
+        axpy.launch((alpha, xs_small, ys_small), ctx, (4, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        axpy.launch((alpha, xs_small, ys_small), ctx, (4, 1, 1), (256, 1, 1))
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    ms = stream_ms(lambda: axpy.launch((alpha, x, y), ctx, (n // 256, 1, 1),
+                                       (256, 1, 1)), iters=20)
+    plain_ms = stream_ms(lambda: y._data + alpha * x._data, iters=20)
+    lib_ms = stream_ms(lambda: torch.add(y._data, x._data, alpha=alpha),
+                       iters=20)
+    nbytes = 3 * 4.0 * n
+    flops = 2.0 * n
+    bound = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
+    print("  host %.1f us per launch (%d launches of a 1024-float axpy);"
+          " axpy 2^26 floats, device ms per call (20 back to back): kernel"
+          " %.4f, y + a * x %.4f, torch.add %.4f | bound %.4f ms (bytes)"
+          " (%s)" % (host_us, reps, ms, plain_ms, lib_ms, bound, card))
+    rec = dict(err=errs["axpy"], ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
+    return rec, launches
 
 
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
@@ -988,7 +1393,11 @@ def main():
              time.perf_counter() - t0))
     phase_model(model_k, model_p, params)
     launches, _st = phase_server(model_k, params, tfa)
-    phase_server_int8(model_k, params)
+    pool8 = phase_server_int8(model_k, params)
+    q8 = phase_q8_decode(tfa)
+    q8_launches, q8_pool_err = phase_q8_pool(tfa, model_k, params, pool8)
+    del pool8
+    rtc, rtc_launches = phase_rtc(card)
     phase_step_profile(model_k, params)
     del model_k, model_p, params
     torch.cuda.empty_cache()
@@ -1007,7 +1416,13 @@ def main():
     ] + [kernel_row(kname, BWD_SRC[kname], BWD_TPU[kname], "training",
                     train_shape, train_launches, bwd[kname],
                     bwd_errs[kname])
-         for kname in ("flash_bwd_dkdv", "flash_bwd_dq")]
+         for kname in ("flash_bwd_dkdv", "flash_bwd_dq")] + [
+        kernel_row("flash_decode_q8", Q8_SRC, Q8_TPU, "int8 decode",
+                   "B8 T576 H12 D64 int8", q8_launches, q8,
+                   max(q8["err"], q8_pool_err)),
+        kernel_row("rtc", RTC_SRC, RTC_TPU, "rtc", "axpy 2^26 float32",
+                   rtc_launches, rtc, rtc["err"]),
+    ]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,7 @@ nothing of ``mxnet_tpu``. Entry points run on the CUDA device
 on the serving path); the attention kernels are CUDA C++ written for
 Hopper (``parallel/csrc``), built with ``nvcc`` at first use.
 
-Two slices are ported:
+Three slices are ported:
 
 - the token path of the LM server: ``serving.DecodeServer`` over
   ``serving.ToyDecoderLM``, with the paged KV pool (``serving.kvcache``)
@@ -17,6 +17,10 @@ Two slices are ported:
 - Gluon training: ``nd``/ops/``autograd``, ``gluon`` blocks, losses and
   ``Trainer`` with SGD and Adam, and ``MeshMultiHeadAttention`` over the
   flash kernels, forward and backward.
+- the last two TPU kernels: the int8-cache decode attention
+  (``flash_decode(k_scale=, v_scale=)`` on ``parallel/csrc/
+  flash_decode_q8.cu``) and runtime compilation of user CUDA C kernels
+  (``rtc.CudaModule``, NVRTC).
 
 Typical use mirrors MXNet::
 
@@ -41,7 +45,8 @@ from . import initializer
 from . import initializer as init
 from . import optimizer
 from . import gluon
+from . import rtc
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "nd", "ndarray", "NDArray", "random", "autograd",
-           "init", "initializer", "optimizer", "gluon"]
+           "init", "initializer", "optimizer", "gluon", "rtc"]

@@ -1,7 +1,11 @@
 """Fused attention on the registered-op surface (counterpart of
 ``mxnet_tpu/ops/attention.py``): ``_contrib_flash_attention`` over
 ``(B, T, H, D)`` inputs, with an optional 4th ``segment_ids`` input
-(``(B, T)``, packed batches).
+(``(B, T)``, packed batches), and ``_contrib_decode_attention``, one
+decode step of cached-KV attention (``impl`` auto|flash: the decode
+kernel on a CUDA tensor, the plain version on a CPU tensor; dense: the
+plain version on any device; ``block_k`` is the TPU kernel's key block,
+accepted and unused).
 
 ``impl``:
 
@@ -42,6 +46,34 @@ def _attention(attrs, query, key, value, segment_ids=None):
     return flash_attention(query, key, value, causal=causal, scale=scale,
                            segment_ids=segment_ids,
                            impl="plain" if impl == "dense" else None)
+
+
+def _decode_attention(attrs, query, key_cache, value_cache, lengths):
+    from ..parallel.flash_attention import flash_decode
+    scale = float(attrs.get("scale", 0.0)) or \
+        1.0 / math.sqrt(query.shape[-1])
+    impl = str(attrs.get("impl", "auto"))
+    if impl not in ("auto", "flash", "dense"):
+        raise ValueError(
+            "_contrib_decode_attention: unknown impl %r (auto|flash|dense)"
+            % impl)
+    return flash_decode(query, key_cache, value_cache, lengths, scale=scale,
+                        impl="plain" if impl == "dense" else None)
+
+
+register("_contrib_decode_attention", _decode_attention,
+         arg_names=("query", "key_cache", "value_cache", "lengths"),
+         defaults={"scale": 0.0, "impl": "auto", "block_k": 128},
+         attr_docs={"scale": "score scale; 0 = 1/sqrt(head_dim)",
+                    "impl": "auto|flash|dense (auto and flash: the "
+                            "decode kernel on a CUDA tensor)",
+                    "block_k": "the TPU kernel's key block; accepted, "
+                               "unused"},
+         description="One autoregressive decode step of cached-KV "
+                     "attention: query (B, 1, H, D) against a gathered "
+                     "KV cache (B, T, H, D) with per-row valid-key "
+                     "counts (B,) — positions beyond a row's length "
+                     "carry exact-zero weight.")
 
 
 register("_contrib_flash_attention", _attention,

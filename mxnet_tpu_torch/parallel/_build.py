@@ -37,6 +37,7 @@ _OUT = os.path.join(os.path.dirname(_HERE), "_build")
 
 # kernel name -> source file under csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
+           "flash_decode_q8": "flash_decode_q8.cu",
            "flash_bwd_dkdv": "flash_bwd_dkdv.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu"}
 # headers under csrc/ that every source includes
@@ -139,6 +140,9 @@ def _declare(lib, name):
     elif name == "flash_decode":
         fn = lib.mxt_flash_decode
         fn.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    elif name == "flash_decode_q8":
+        fn = lib.mxt_flash_decode_q8
+        fn.argtypes = [p] * 7 + [i, i, i, i, f, p]
     elif name == "flash_bwd_dkdv":
         fn = lib.mxt_flash_bwd_dkdv
         fn.argtypes = [p] * 9 + [i, i, i, i, i, f, i, p]

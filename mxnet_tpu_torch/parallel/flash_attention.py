@@ -14,10 +14,14 @@ Two public functions keep the JAX package's signatures and its
   probabilities from the forward's row LSE;
 - :func:`flash_decode` — one query row per sequence against a gathered
   KV cache with per-row valid lengths; on a CUDA tensor it launches
-  ``csrc/flash_decode.cu``, the counterpart of ``_decode_kernel``.
+  ``csrc/flash_decode.cu``, the counterpart of ``_decode_kernel``, or,
+  for an int8 cache with per-position scales, ``csrc/flash_decode_q8.cu``,
+  the counterpart of ``_decode_kernel_q8``, which dequantizes K and V
+  while it stages them.
 
 On a CPU tensor each runs its plain PyTorch version
-(:func:`_torch_reference` / :func:`_torch_decode`), which mirrors the
+(:func:`_torch_reference` / :func:`_torch_decode` /
+:func:`_torch_decode_q8`), which mirrors the
 JAX package's ``_jnp_reference`` / ``_jnp_decode`` exactly: masked
 scores are ``-1e30`` (an exact-zero softmax weight), the denominator is
 floored at ``1e-30``, segment id 0 attends to nothing, and int8 K/V with
@@ -35,10 +39,6 @@ that attends to nothing (segment id 0) contributes no gradient; the
 JAX kernels give such rows weights that depend on the tiling, so the
 two agree where a masked loss puts a zero cotangent on those rows.
 
-The int8 in-kernel-dequantizing decode kernel (``_decode_kernel_q8``)
-is not ported yet: ``flash_decode`` with ``k_scale``/``v_scale`` on a
-CUDA tensor raises NotImplementedError.
-
 Each wrapper counts its kernel launches in :data:`launches`.
 """
 from __future__ import annotations
@@ -55,8 +55,8 @@ __all__ = ["flash_attention", "flash_decode", "launches",
 _NEG = -1e30
 
 # kernel name -> launches since the last reset_launches()
-launches = {"flash_fwd": 0, "flash_decode": 0, "flash_bwd_dkdv": 0,
-            "flash_bwd_dq": 0}
+launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_q8": 0,
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 
 def reset_launches():
@@ -154,6 +154,17 @@ def _torch_decode(q, k, v, lengths, scale):
     p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True)).to(q.dtype)
     p = p / torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _torch_decode_q8(q, k, v, k_scale, v_scale, lengths, scale):
+    """The plain int8-cache decode attention: K and V dequantized up front
+    (``int8 -> float32 x`` the position's scale, as ``gather_pages_q8``
+    does), then :func:`_torch_decode`."""
+    k = k.to(torch.float32) * torch.as_tensor(
+        k_scale, device=k.device).to(torch.float32)[:, :, None, None]
+    v = v.to(torch.float32) * torch.as_tensor(
+        v_scale, device=v.device).to(torch.float32)[:, :, None, None]
+    return _torch_decode(q, k.to(q.dtype), v.to(q.dtype), lengths, scale)
 
 
 def _use_kernel(x, impl):
@@ -307,6 +318,16 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _decode_lengths(lengths, B, device):
+    """``lengths`` as a contiguous ``(B,)`` int32 tensor on ``device``."""
+    lens = torch.as_tensor(lengths, device=device).to(
+        torch.int32).contiguous()
+    if tuple(lens.shape) != (B,):
+        raise ValueError("flash_decode: lengths shape %s, want (%d,)"
+                         % (tuple(lens.shape), B))
+    return lens
+
+
 def _decode_cuda(q, k, v, lengths, scale):
     """Launch ``flash_decode.cu``: returns ``(B, 1, H, D)``."""
     from . import _build
@@ -317,11 +338,7 @@ def _decode_cuda(q, k, v, lengths, scale):
         raise MXNetError("flash_decode: the kernel takes head_dim "
                          "<= 128, got %d" % D)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lens = torch.as_tensor(lengths, device=q.device).to(
-        torch.int32).contiguous()
-    if tuple(lens.shape) != (B,):
-        raise ValueError("flash_decode: lengths shape %s, want (%d,)"
-                         % (tuple(lens.shape), B))
+    lens = _decode_lengths(lengths, B, q.device)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
@@ -332,6 +349,51 @@ def _decode_cuda(q, k, v, lengths, scale):
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode")
     launches["flash_decode"] += 1
+    return o
+
+
+def _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths, scale):
+    """Launch ``flash_decode_q8.cu`` on int8 ``k``/``v`` ``(B, T, H, D)``
+    and float32 ``k_scale``/``v_scale`` ``(B, T)``: returns ``(B, 1, H,
+    D)`` float32."""
+    from . import _build
+    _check_cuda("flash_decode", q.device, q=q)
+    B, _, H, D = q.shape
+    T = k.shape[1]
+    k_scale = torch.as_tensor(k_scale, device=q.device)
+    v_scale = torch.as_tensor(v_scale, device=q.device)
+    _check_cuda("flash_decode", q.device, k_scale=k_scale, v_scale=v_scale)
+    for key, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise MXNetError("flash_decode: %s is on %s, q on %s"
+                             % (key, t.device, q.device))
+        if t.dtype != torch.int8:
+            raise MXNetError("flash_decode: the quantized kernel takes an "
+                             "int8 cache, %s is %s" % (key, t.dtype))
+        if tuple(t.shape) != (B, T, H, D):
+            raise ValueError("flash_decode: %s shape %s, want %s"
+                             % (key, tuple(t.shape), (B, T, H, D)))
+    for key, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(t.shape) != (B, T):
+            raise ValueError("flash_decode: %s shape %s, want %s"
+                             % (key, tuple(t.shape), (B, T)))
+    if D > 128:
+        raise MXNetError("flash_decode: the kernel takes head_dim "
+                         "<= 128, got %d" % D)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
+    lens = _decode_lengths(lengths, B, q.device)
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    fn = _build.library("flash_decode_q8")
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
+                o.data_ptr(), B, H, T, D, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_decode_q8")
+    launches["flash_decode_q8"] += 1
     return o
 
 
@@ -349,9 +411,12 @@ def flash_decode(q, k, v, lengths, scale=None, k_scale=None,
       exact-zero weight, so the cache's garbage tail never leaks in.
 
     **Quantized caches**: int8 ``k``/``v`` plus ``k_scale``/``v_scale``
-    (``(B, T)`` float32 per-position scales) are dequantized up front on
-    the plain path; on a CUDA tensor this raises NotImplementedError
-    until the in-kernel dequantizing kernel is ported."""
+    (``(B, T)`` float32 per-position scales: a paged pool's per-page
+    scales repeated over each page's slots) go to ``flash_decode_q8.cu``
+    on a CUDA tensor, which dequantizes while it stages each tile, so
+    the cache crosses device memory at a quarter of the float32 bytes;
+    the plain path dequantizes up front. Both scales must be given
+    together."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] != 1:
         raise ValueError(
@@ -365,14 +430,9 @@ def flash_decode(q, k, v, lengths, scale=None, k_scale=None,
     kernel = _use_kernel(q, impl)
     if quant:
         if kernel:
-            raise NotImplementedError(
-                "flash_decode: the int8 decode kernel (the TPU's "
-                "_decode_kernel_q8) is not ported yet — dequantize the "
-                "cache first, as the decode server does")
-        k = k.to(torch.float32) * torch.as_tensor(
-            k_scale, device=k.device).to(torch.float32)[:, :, None, None]
-        v = v.to(torch.float32) * torch.as_tensor(
-            v_scale, device=v.device).to(torch.float32)[:, :, None, None]
+            return _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths,
+                                   scale)
+        return _torch_decode_q8(q, k, v, k_scale, v_scale, lengths, scale)
     if kernel:
         return _decode_cuda(q, k, v, lengths, scale)
     return _torch_decode(q, k.to(q.dtype), v.to(q.dtype), lengths, scale)

@@ -156,17 +156,127 @@ def test_wrappers_route_by_device():
     q, k, v = (_t(x) for x in _qkv(1, 1, 8, 8, 2, 8))
     tfa.flash_attention(q, k, v, causal=True)
     tfa.flash_decode(q[:, :1], k, v, torch.full((1,), 8))
+    s = torch.ones(1, 8)
+    tfa.flash_decode(q[:, :1], k.to(torch.int8), v.to(torch.int8),
+                     torch.full((1,), 8), k_scale=s, v_scale=s)
     assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0,
-                            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+                            "flash_decode_q8": 0, "flash_bwd_dkdv": 0,
+                            "flash_bwd_dq": 0}
 
 
-def test_q8_decode_kernel_not_ported_raises_on_cuda(monkeypatch):
-    """The int8 decode kernel waits for a later slice: on the kernel
-    route a quantized call raises instead of silently dequantizing."""
+def test_q8_decode_routes_int8_cache_to_its_kernel(monkeypatch):
+    """On the kernel route a quantized call reaches ``_decode_q8_cuda``
+    with the int8 cache and its (B, T) scales as given: nothing is
+    dequantized in torch first, and the fp32 kernel is not called."""
+    calls = []
     monkeypatch.setattr(tfa, "_use_kernel", lambda x, impl: True)
-    q = torch.zeros(1, 1, 1, 8)
-    k = torch.zeros(1, 4, 1, 8, dtype=torch.int8)
-    s = torch.ones(1, 4)
-    with pytest.raises(NotImplementedError, match="_decode_kernel_q8"):
-        tfa.flash_decode(q, k, k, torch.ones(1, dtype=torch.int32),
-                         k_scale=s, v_scale=s)
+    monkeypatch.setattr(tfa, "_decode_q8_cuda",
+                        lambda *a: calls.append(a) or a[0])
+    monkeypatch.setattr(tfa, "_decode_cuda", lambda *a: pytest.fail(
+        "the fp32 decode kernel was called for an int8 cache"))
+    B, T, H, D = 2, 16, 3, 8
+    q = torch.zeros(B, 1, H, D)
+    k = torch.ones(B, T, H, D, dtype=torch.int8)
+    v = torch.full((B, T, H, D), 2, dtype=torch.int8)
+    ks, vs = torch.full((B, T), 0.5), torch.full((B, T), 0.25)
+    lens = torch.tensor([3, 16], dtype=torch.int32)
+    tfa.flash_decode(q, k, v, lens, k_scale=ks, v_scale=vs)
+    (args,) = calls
+    assert args[0] is q and args[1] is k and args[2] is v
+    assert args[1].dtype == args[2].dtype == torch.int8
+    assert args[3] is ks and args[4] is vs
+    assert tuple(args[3].shape) == tuple(args[4].shape) == (B, T)
+    assert args[5] is lens and args[6] == pytest.approx(D ** -0.5)
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("float_cache", MXNetError, "int8 cache"),
+    ("int8_query", MXNetError, "float32"),
+    ("float64_scale", MXNetError, "float32"),
+    ("scale_per_head", ValueError, "k_scale shape"),
+    ("cache_shape", ValueError, "v shape"),
+    ("cache_device", MXNetError, "k is on meta"),
+    ("head_dim_256", MXNetError, "head_dim <= 128"),
+])
+def test_q8_kernel_wrapper_checks_inputs_before_launch(case, exc, match):
+    """``_decode_q8_cuda`` takes an int8 (B, T, H, D) cache with float32
+    (B, T) scales on q's device and D <= 128, and raises on anything
+    else before it builds or launches the kernel."""
+    B, T, H, D = 2, 16, 3, 256 if case == "head_dim_256" else 8
+    q = torch.zeros(B, 1, H, D)
+    k = torch.zeros(B, T, H, D, dtype=torch.int8)
+    v = torch.zeros(B, T, H, D, dtype=torch.int8)
+    ks, vs = torch.ones(B, T), torch.ones(B, T)
+    if case == "float_cache":
+        k = k.float()
+    elif case == "int8_query":
+        q = q.to(torch.int8)
+    elif case == "float64_scale":
+        vs = vs.double()
+    elif case == "scale_per_head":
+        ks = torch.ones(B * H, T)
+    elif case == "cache_shape":
+        v = v[:, :, :2]
+    elif case == "cache_device":
+        k = k.to("meta")
+    before = dict(tfa.launches)
+    with pytest.raises(exc, match=match):
+        tfa._decode_q8_cuda(q, k, v, ks, vs, torch.full((B,), T), 0.5)
+    assert tfa.launches == before
+
+
+def _q8_inputs(seed, B, T, H, D):
+    """tests/test_kv_int8.py's int8 decode inputs."""
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    k = rs.randint(-127, 128, size=(B, T, H, D)).astype(np.int8)
+    v = rs.randint(-127, 128, size=(B, T, H, D)).astype(np.int8)
+    ks = rs.uniform(0.005, 0.02, size=(B, T)).astype(np.float32)
+    vs = rs.uniform(0.005, 0.02, size=(B, T)).astype(np.float32)
+    return q, k, v, ks, vs
+
+
+def _q8_against_pallas(q, k, v, ks, vs, lengths):
+    got = tfa.flash_decode(_t(q), _t(k), _t(v), _t(lengths),
+                           k_scale=_t(ks), v_scale=_t(vs)).numpy()
+    want = np.asarray(jfa.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), force_pallas=True, block_k=64))
+    # the JAX test's tolerance for the q8 Pallas kernel
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+def test_q8_plain_matches_jax_q8_pallas_kernel():
+    """The plain int8 decode against ``_decode_kernel_q8`` in interpret
+    mode, at tests/test_kv_int8.py's inputs."""
+    q, k, v, ks, vs = _q8_inputs(5, 2, 128, 2, 8)
+    _q8_against_pallas(q, k, v, ks, vs, np.asarray([37, 128], np.int32))
+
+
+def test_q8_plain_matches_jax_q8_pallas_kernel_on_pool_pages():
+    """The same on a cache the way the int8 pool builds it: each row's
+    fp32 K/V quantized page by page (page size 16) by
+    ``scatter_prefill_q8``, the raw int8 pages gathered, and each page's
+    scale repeated over its slots."""
+    from mxnet_tpu_torch.serving import kvcache
+    B, T, H, D, S = 2, 128, 2, 8, 16
+    M = T // S
+    rs = np.random.RandomState(11)
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    lengths = np.asarray([53, 128], np.int32)
+    table = torch.arange(1, B * M + 1).reshape(B, M)
+    caches = []
+    for _ in range(2):
+        seq = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32))
+        pages = torch.zeros(1, B * M + 1, S, H, D, dtype=torch.int8)
+        scales = torch.zeros(1, B * M + 1)
+        for b in range(B):
+            kvcache.scatter_prefill_q8(pages, scales, table[b], seq[b][None],
+                                       int(lengths[b]))
+        raw = kvcache.gather_pages(pages, table)[0]
+        expanded = torch.repeat_interleave(scales[:, table], S, dim=-1)[0]
+        assert raw.dtype == torch.int8 and expanded.shape == (B, T)
+        caches.append((raw.numpy(), expanded.numpy()))
+    (k, ks), (v, vs) = caches
+    _q8_against_pallas(q, k, v, ks, vs, lengths)

@@ -146,7 +146,8 @@ def test_segment_ids_get_no_gradient_and_launch_counts_stay():
     assert segt.grad is None
     assert all(x.grad is not None for x in leaves)
     assert set(tfa.launches) == {"flash_fwd", "flash_decode",
-                                 "flash_bwd_dkdv", "flash_bwd_dq"}
+                                 "flash_decode_q8", "flash_bwd_dkdv",
+                                 "flash_bwd_dq"}
     assert all(n == 0 for n in tfa.launches.values())
 
 

@@ -28,6 +28,17 @@ def _port_on_cpu(monkeypatch):
     monkeypatch.setenv("MXNET_DEFAULT_CONTEXT", "cpu")
 
 
+@pytest.fixture(autouse=True)
+def _fresh_names():
+    """Blocks built here take their names from fresh counters, so the
+    process-wide ones, which tests in other files may read (block
+    names such as ``meshmultiheadattention0_``), do not move."""
+    from mxnet_tpu.name import NameManager as JaxNames
+    from mxnet_tpu_torch.name import NameManager as PortNames
+    with JaxNames(), PortNames():
+        yield
+
+
 def _rand(seed, *shape):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
 
@@ -163,6 +174,27 @@ def test_flash_attention_op_matches(impl, causal, seg):
     np.testing.assert_allclose(got[live], want[live], rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("impl", ["dense", "auto"])
+def test_decode_attention_op_matches(impl):
+    rs = np.random.RandomState(12)
+    B, T, H, D = 3, 40, 2, 8
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    k, v = (rs.randn(B, T, H, D).astype(np.float32) for _ in range(2))
+    lengths = np.array([1, 17, 40], np.int32)
+
+    def run(mx):
+        return mx.nd._contrib_decode_attention(
+            mx.nd.array(q), mx.nd.array(k), mx.nd.array(v),
+            mx.nd.array(lengths), impl=impl, block_k=64)
+    got, want = _both(run)
+    assert got.shape == want.shape == (B, 1, H, D)
+    np.testing.assert_allclose(got, want, **TOL)
+    with pytest.raises(ValueError, match="auto|flash|dense"):
+        tmx.nd._contrib_decode_attention(
+            tmx.nd.array(q), tmx.nd.array(k), tmx.nd.array(v),
+            tmx.nd.array(lengths), impl="ring")
+
+
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_sequence_parallel_impls_raise(impl):
     x = tmx.nd.ones((1, 4, 2, 8))
@@ -178,7 +210,8 @@ def test_op_attribute_checks_match_jax_registry():
     unported = {"_contrib_flash_attention": {"mesh_axis", "block_q",
                                              "block_k"}}
     for name in ("FullyConnected", "LayerNorm", "Embedding", "pick",
-                 "Reshape", "_contrib_flash_attention", "softmax", "mean"):
+                 "Reshape", "_contrib_flash_attention",
+                 "_contrib_decode_attention", "softmax", "mean"):
         jdef = jreg.get_op(name).defaults
         skip = unported.get(name, set())
         assert skip <= set(jdef)
@@ -349,6 +382,12 @@ def _batch(seed, B=3, T=40):
 
 
 def _jax_lm():
+    # fixed weights: Adam divides by sqrt(v) + eps, so where a gradient is
+    # near eps one ulp between the packages moves an update by up to the
+    # learning rate; over fresh random weights each run, that put one
+    # element past the tolerance now and then (MXNET_TEST_SEED=1164404816).
+    # The JAX package's initializers draw from numpy's global generator.
+    np.random.seed(0)
     net = lm_classes(jmx)(**TINY)
     net.initialize(jmx.init.Xavier())
     tokens, _, positions = _batch(0)
