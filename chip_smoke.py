@@ -9,7 +9,9 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ``nvidia-smi`` name and power limit;
 2. build — the five attention kernels from
    ``mxnet_tpu_torch/parallel/csrc`` (one nvcc per source, started
-   together), with their ptxas register and spill lines;
+   together), with their ptxas register and spill lines, and the count
+   of tensor-core instructions (``HMMA``/``HGMMA`` in ``cuobjdump
+   -sass``) in each backward library, which must not be 0;
 3. kernels vs plain — the forward and decode kernels against their plain
    PyTorch versions on the card at the serving path's shapes (fp32, TF32
    off, tolerance rtol = atol = 1e-5), with the device time (CUDA-graph
@@ -18,13 +20,18 @@ no result, anywhere else. Phases (any failure exits non-zero):
    and each kernel's bound from its bytes and flops;
 4. training-shape kernels vs plain — the forward kernel at the LM's
    B8 T1024 causal (rtol = atol = 1e-5), then the dK/dV and dQ kernels
-   against their plain versions and against torch autograd of dense
-   attention (rtol = atol = 1e-4) at B8 T1024 causal, a packed causal
-   batch and non-causal cross-attention, timed the same way, with the
-   backward of scaled_dot_product_attention as the yardstick; a probe
-   shows the backward comparison fails on a one-ulp LSE nudge and on a
-   zeroed tile; flash_attention on CUDA tensors returns a tensor with a
-   grad_fn whose gradients reach q, k and v;
+   (3xTF32 on the tensor cores) against their plain versions and
+   against torch autograd of dense attention (rtol = atol = 1e-4) at
+   B8 T1024 causal, a packed causal batch, non-causal cross-attention,
+   D = 30 (4-byte staging) with Tq < Tk and D = 128 with Tq > Tk, timed
+   the same way, with the backward of
+   scaled_dot_product_attention as the yardstick and both bounds (3xTF32
+   on the tensor cores, fp32 on the CUDA cores); two launches on one
+   input must be bit-identical, and a dK with a zeroed tile must fail
+   the comparison; at B2 T256 each kernel's error against a float64
+   dense autograd, beside the fp32 plain version's own; flash_attention
+   on CUDA tensors returns a tensor with a grad_fn whose gradients reach
+   q, k and v;
 5. model — ToyDecoderLM at GPT-2-small width (12 layers, 12 heads x 64,
    d_ff 3072, vocab 50257, 1024 positions; random weights from seed 0):
    prefill logits and 16 stepwise decode logits, kernels vs plain;
@@ -76,6 +83,7 @@ that path's run, times at the shape it gives the kernel), and, last,
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -84,9 +92,14 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, HBM3
+# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, TF32 on the
+# tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# the backward kernels take each fp32 product as three TF32 products
+# (3xTF32: hi*hi + hi*lo + lo*hi)
+TF32_PASSES = 3
 TOL = dict(rtol=1e-5, atol=1e-5)
 # logits tolerance of the 12-layer model, kernels vs plain: attention
 # rounding (~1e-7 relative) is carried through 12 residual layers into
@@ -103,8 +116,9 @@ FWD_TPU = "mxnet_tpu/parallel/flash_attention.py:83"
 DEC_TPU = "mxnet_tpu/parallel/flash_attention.py:516"
 BWD_TPU = {"flash_bwd_dkdv": "mxnet_tpu/parallel/flash_attention.py:137",
            "flash_bwd_dq": "mxnet_tpu/parallel/flash_attention.py:187"}
-# backward kernels vs plain: fp32 sums over up to 1024 rows in another
-# order than the plain einsums
+# backward kernels vs plain: 3xTF32 products (~2^-22 relative each, a
+# scratch emulation put them 1e-6 to 3e-6 off fp32) summed over up to
+# 1024 rows in another order than the plain einsums
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 # flops per live (q, k) pair and head, per D: dK/dV (S, dP, dV, dK) and
 # dQ (S, dP, dQ)
@@ -286,6 +300,19 @@ def phase_build():
             for ln in f:
                 if "registers" in ln or "spill" in ln:
                     print("  %s: %s" % (name, ln.strip()))
+    # the backward kernels' contractions must run on the tensor cores
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for name in BWD_SRC:
+        sass = subprocess.run([cuobjdump, "-sass", libs[name]],
+                              capture_output=True, text=True, timeout=120)
+        if sass.returncode != 0:
+            fail("cuobjdump -sass %s: %s" % (libs[name], sass.stderr))
+        hmma = len(re.findall(r"\bHMMA\b", sass.stdout))
+        hgmma = len(re.findall(r"\bHGMMA\b", sass.stdout))
+        print("  %s: tensor-core instructions in the SASS: HMMA %d, HGMMA %d"
+              % (name, hmma, hgmma))
+        if hmma + hgmma == 0:
+            fail("%s has no tensor-core instruction" % name)
 
 
 def segment_plane(B, T, seed, dev):
@@ -394,28 +421,59 @@ def decode_case(tfa, B, T, H, D, seed):
 
 
 def probe_comparison(tfa, args, got, want):
-    """Shows that the backward comparison can fail where it reads 0:
-    the plain versions with the LSE of one (b, h) nudged one ulp up must
-    differ from the kernels, and a dK with one 64-key tile zeroed must
-    fail the tolerance."""
-    q, k, v, do, lse, dcap, seg, scale, causal = args
-    nudged = lse.clone()
-    nudged[0, 0] = torch.nextafter(nudged[0, 0],
-                                   torch.full_like(nudged[0, 0], np.inf))
-    nargs = (q, k, v, do, nudged, dcap, seg, scale, causal)
-    kern = got["flash_bwd_dkdv"] + got["flash_bwd_dq"]
-    plain = tfa._torch_bwd_dkdv(*nargs) + (tfa._torch_bwd_dq(*nargs),)
-    errs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
-    bad = kern[0].clone()
+    """Two launches of each backward kernel on one input must give
+    bit-identical outputs (no atomics: each block sums in a fixed
+    order), and the comparison must fail on a dK with one 64-key tile
+    zeroed."""
+    again = {"flash_bwd_dkdv": tfa._bwd_cuda("flash_bwd_dkdv", *args),
+             "flash_bwd_dq": (tfa._bwd_cuda("flash_bwd_dq", *args),)}
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for kn in got
+               for a, b in zip(got[kn], again[kn]))
+    bad = got["flash_bwd_dkdv"][0].clone()
     bad[0, 64:128, 0] = 0.0
     tile_err, tile_ok = close(bad, want["flash_bwd_dkdv"][0], BWD_TOL)
-    print("  comparison probe: plain with one (b, h) LSE row one ulp up vs"
-          " the kernels: max abs err dk %.3g dv %.3g dq %.3g (must be > 0);"
-          " dK with keys 64-127 of (b0, h0) zeroed: err %.3g, check %s"
-          % (errs[0], errs[1], errs[2], tile_err,
-             "passes" if tile_ok else "fails (as it must)"))
-    if min(errs) == 0.0 or tile_ok:
+    print("  determinism: a second launch of each kernel on the same input"
+          " gives bit-identical dk, dv, dq: %s; dK with keys 64-127 of"
+          " (b0, h0) zeroed: err %.3g, check %s"
+          % (same, tile_err, "passes" if tile_ok else "fails (as it must)"))
+    if not same:
+        fail("the backward kernels are not deterministic")
+    if tile_ok:
         fail("the backward comparison cannot see a planted difference")
+
+
+def f64_case(tfa, B=2, T=256, H=12, D=64):
+    """Each backward kernel's error against torch autograd of dense
+    attention in float64, beside the fp32 plain version's own float64
+    error, on one causal input (B2 T256)."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(14)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dev)
+                   for _ in range(4))
+    scale = D ** -0.5
+    o, lse = tfa._fwd_cuda(q, k, v, None, scale, True)
+    dcap = torch.sum(do * o, dim=-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, dcap, None, scale, True)
+    kern = tfa._bwd_cuda("flash_bwd_dkdv", *args) \
+        + (tfa._bwd_cuda("flash_bwd_dq", *args),)
+    plain = tfa._torch_bwd_dkdv(*args) + (tfa._torch_bwd_dq(*args),)
+    leaves = [x.double().requires_grad_(True) for x in (q, k, v)]
+    dq, dk, dv = torch.autograd.grad(tfa.flash_attention(
+        *leaves, causal=True, scale=scale, impl="plain"), leaves,
+        do.double())
+    ref = (dk, dv, dq)
+    errs = {}
+    for what, outs in (("kernels", kern), ("fp32 plain", plain)):
+        errs[what] = [float((a.double() - r).abs().max())
+                      for a, r in zip(outs, ref)]
+    print("  vs float64 dense autograd at B%d T%d H%d D%d causal, max abs err"
+          " dk/dv/dq: kernels %s; fp32 plain versions %s (max |grad| %.3g)"
+          % (B, T, H, D, "/".join("%.3g" % e for e in errs["kernels"]),
+             "/".join("%.3g" % e for e in errs["fp32 plain"]),
+             max(float(r.abs().max()) for r in ref)))
+    if not all(e <= BWD_TOL["atol"] for e in errs["kernels"]):
+        fail("backward kernels disagree with float64 dense autograd")
 
 
 def bwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed, probe=False):
@@ -485,21 +543,26 @@ def bwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed, probe=False):
             nbytes = 4.0 * (3 * qd + 2 * kd + 2 * B * H * Tq)
         if seg is not None:
             nbytes += 4.0 * B * Tq
-        bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        bound_by = "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32_FLOPS \
-            else "operations"
+        # the bound: 3xTF32 on the tensor cores (what the kernels run);
+        # beside it the same flops in fp32 on the CUDA cores
+        tc_s = TF32_PASSES * flops / PEAK_TF32_FLOPS
+        bound = max(tc_s, nbytes / PEAK_BYTES) * 1e3
+        bound_fp32 = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        bound_by = "bytes" if nbytes / PEAK_BYTES > tc_s else "operations"
         ms = timed(lambda kn=kname: tfa._bwd_cuda(kn, *args))
         plain_ms = timed(plain[kname])
         print("  %-14s %-34s err %.3g | device ms: kernel %.4f plain %.4f |"
               " per-call ms: kernel %.4f plain %.4f | sdpa bwd (dq, dk, dv)"
-              " %.4f ms | bound %.2f us (%s)"
+              " %.4f ms | bound %.2f us 3xTF32 (%s), %.2f us fp32 CUDA"
+              " cores | %.1f GFLOP, %.1f MB"
               % (kname, name, err, ms[0], plain_ms[0], ms[1], plain_ms[1],
-                 lib_ms, bound * 1e3, bound_by))
+                 lib_ms, bound * 1e3, bound_by, bound_fp32 * 1e3,
+                 flops / 1e9, nbytes / 1e6))
         if not all(ok for _, ok in errs):
             fail("%s disagrees with the plain version: %s" % (kname, name))
         rec[kname] = dict(err=err, ms=ms[0], plain_ms=plain_ms[0],
                           library_ms=lib_ms, bound_ms=bound,
-                          bound_by=bound_by)
+                          bound_by=bound_by, bound_fp32_ms=bound_fp32)
     return rec
 
 
@@ -538,14 +601,25 @@ def phase_bwd_kernels(tfa):
           " %g):" % TOL["rtol"])
     fwd = fwd_case(tfa, TRAIN_BATCH, GPT2_SMALL["max_len"], H, D, True,
                    False, seed=10)
-    print("backward kernels vs plain (fp32, TF32 off, rtol = atol = %g):"
-          % BWD_TOL["rtol"])
+    print("backward kernels (3xTF32 tensor cores) vs plain (fp32, TF32 off,"
+          " rtol = atol = %g):" % BWD_TOL["rtol"])
     main = bwd_case(tfa, TRAIN_BATCH, 1024, 1024, H, D, True, False,
                     seed=11, probe=True)
     seg = bwd_case(tfa, 2, 256, 256, H, D, True, True, seed=12)
     cross = bwd_case(tfa, 2, 128, 320, H, D, False, False, seed=13)
-    errs = {kn: max(c[kn]["err"] for c in (main, seg, cross))
+    # the other staging paths and causal alignments: D = 30 (4-byte
+    # granules, padded columns) with Tq < Tk, D = 128 with Tq > Tk
+    odd = bwd_case(tfa, 1, 100, 150, 3, 30, True, False, seed=15)
+    wide = bwd_case(tfa, 1, 160, 96, 2, 128, True, False, seed=16)
+    errs = {kn: max(c[kn]["err"] for c in (main, seg, cross, odd, wide))
             for kn in main}
+    print("  both kernels at %s: %.4f ms, sdpa backward %.4f ms; bounds"
+          " %.4f ms 3xTF32, %.4f ms fp32 CUDA cores"
+          % ("B8 T1024 causal", sum(main[kn]["ms"] for kn in main),
+             main["flash_bwd_dkdv"]["library_ms"],
+             sum(main[kn]["bound_ms"] for kn in main),
+             sum(main[kn]["bound_fp32_ms"] for kn in main)))
+    f64_case(tfa)
     check_flash_grad(tfa)
     return fwd, main, errs
 

@@ -15,7 +15,11 @@ loss does: the rows that attend to nothing have tile-dependent weights
 in the JAX kernels.
 
 The CUDA kernels run only on a card: chip_smoke.py holds them to these
-plain versions there."""
+plain versions there. Here the precision of their route is held: every
+contraction of the backward taken in TF32 parts, rounded bit by bit as
+the kernels round them (3xTF32: hi*hi + hi*lo + lo*hi), stays within the
+card's tolerance of the plain fp32 versions, and one TF32 pass does
+not."""
 import importlib
 
 import jax
@@ -30,6 +34,9 @@ jfa = importlib.import_module("mxnet_tpu.parallel.flash_attention")
 tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+# chip_smoke.py's tolerance for the backward kernels against the plain
+# versions
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 CASES = {
     # name: (B, Tq, Tk, H, D, causal, segmented)
@@ -165,3 +172,77 @@ def test_backward_kernel_wrapper_checks_before_launch():
     with pytest.raises(ValueError, match="do not match"):
         tfa._bwd_cuda("flash_bwd_dkdv", q, q, q, q, lse[:, :, :3],
                       lse, None, 1.0, True)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: ``cvt.rna.tf32.f32``, and the kernels' ``to_tf32``
+    (``(bits + 0x1000) & 0xffffe000``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """``a @ b`` from TF32 parts, summed in float32: ``hi*hi + hi*lo +
+    lo*hi`` with ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (passes=3, the
+    kernels' 3xTF32), or ``hi*hi`` alone (passes=1)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if passes == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = out + (ah @ bl + al @ bh)
+    return out
+
+
+def _tf32_backward(q, k, v, do, lse, dcap, scale, passes):
+    """The backward kernels' arithmetic (causal, no segments) with its
+    five contractions S, dP, dV, dK and dQ in TF32 parts: ``(dk, dv,
+    dq)``."""
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
+    s = _mm_tf32(qh, kh.transpose(-1, -2), passes) * scale
+    live = tfa._live_pairs(q.shape[1], k.shape[1], True, None, q.device)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    dp = _mm_tf32(doh, vh.transpose(-1, -2), passes)
+    ds = p * (dp - dcap[..., None]) * scale
+    dv = _mm_tf32(p.transpose(-1, -2), doh, passes)
+    dk = _mm_tf32(ds.transpose(-1, -2), qh, passes)
+    dq = _mm_tf32(ds, kh, passes)
+    return tuple(x.permute(0, 2, 1, 3) for x in (dk, dv, dq))
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0
+    x = torch.tensor([one + 2.0 ** -11, -(one + 2.0 ** -11),
+                      one + 2.0 ** -12, one + 3 * 2.0 ** -12,
+                      one + 2.0 ** -10, 0.0, 2.0 ** -130])
+    want = torch.tensor([one + 2.0 ** -10, -(one + 2.0 ** -10), one,
+                         one + 2.0 ** -10, one + 2.0 ** -10, 0.0,
+                         2.0 ** -130])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tf32_parts_hold_the_backward_to_fp32(passes):
+    """At B1 H2 T1024 D64 causal, the backward with every contraction in
+    3xTF32 stays within BWD_TOL of the plain fp32 dK/dV and dQ versions
+    (the scratch emulation that chose the route read ~1e-6); with one
+    TF32 pass it is ~1e-3 off and fails it."""
+    B, T, H, D = 1, 1024, 2, 64
+    rs = np.random.RandomState(41)
+    q, k, v, do = (torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32))
+                   for _ in range(4))
+    scale = D ** -0.5
+    o, lse = tfa._torch_fwd_lse(q, k, v, None, scale, True)
+    dcap = torch.sum(do * o, dim=-1).permute(0, 2, 1)
+    args = (q, k, v, do, lse, dcap, None, scale, True)
+    want = tfa._torch_bwd_dkdv(*args) + (tfa._torch_bwd_dq(*args),)
+    got = _tf32_backward(q, k, v, do, lse, dcap, scale, passes)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    within = [bool(torch.allclose(a, b, **BWD_TOL))
+              for a, b in zip(got, want)]
+    if passes == 3:
+        assert all(within), errs
+        assert max(errs) < 1e-5, errs
+    else:
+        assert not any(within), errs
+        assert min(errs) > 5e-4, errs
