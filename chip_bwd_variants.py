@@ -66,13 +66,15 @@ VARIANTS = {
 }
 
 
-def start_builds(build, name):
-    """Copy the sources with variant ``name``'s edits and start nvcc for
-    both kernels; returns {kernel: (process, library path)}."""
-    d = os.path.join(OUT, name)
+def start_builds(build, name, variants=VARIANTS, kernels=KERNELS, out=OUT):
+    """Copy the sources into ``out`` with the edits of ``variants[name]``
+    and start nvcc for each of ``kernels``; returns {kernel: (process,
+    library path)}. scratch/fwd_variants.py builds the forward's variants
+    with it."""
+    d = os.path.join(out, name.split()[0])
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(CSRC, d)
-    for fname, old, new in VARIANTS[name]:
+    for fname, old, new in variants[name]:
         path = os.path.join(d, fname)
         with open(path) as f:
             text = f.read()
@@ -82,7 +84,7 @@ def start_builds(build, name):
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     jobs = {}
-    for kname in KERNELS:
+    for kname in kernels:
         lib = os.path.join(d, "lib%s.so" % kname)
         cmd = [build._nvcc()] + build._FLAGS + [
             "-o", lib, os.path.join(d, build.SOURCES[kname])]
@@ -92,21 +94,27 @@ def start_builds(build, name):
     return jobs
 
 
-def finish_builds(build, name, jobs):
-    """Wait for variant ``name``'s builds: {kernel: C entry point}."""
+def finish_builds(build, name, jobs, instances=(("", "kernelILi8E"),),
+                  declare=None):
+    """Wait for variant ``name``'s builds and print ptxas's registers and
+    spill stores of each of ``instances`` ((label, start of the mangled
+    name) pairs; by default the D = 64 instance, NT = 8). Returns
+    {kernel: C entry point}, each from ``declare(library path, kernel)``,
+    by default the port's own declaration."""
     fns = {}
     for kname, (proc, lib) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             chip_smoke.fail("variant %s: nvcc failed for %s:\n%s"
                             % (name, kname, log[-4000:]))
-        # ptxas reports the D = 64 instance (NT = 8) by its mangled name
-        block = log[log.index("kernelILi8E"):]
-        regs = re.search(r"Used (\d+) registers", block).group(1)
-        spill = re.search(r"(\d+) bytes spill stores", block).group(1)
-        print("  %-12s %-15s D = 64: %s registers, %s bytes spill stores"
-              % (name, kname, regs, spill))
-        fns[kname] = build._declare(ctypes.CDLL(lib), kname)
+        for label, mangled in instances:
+            block = log[log.index(mangled):]
+            regs = re.search(r"Used (\d+) registers", block).group(1)
+            spill = re.search(r"(\d+) bytes spill stores", block).group(1)
+            print("  %-12s %-15s D = 64%s: %s registers, %s bytes spill"
+                  " stores" % (name, kname, label, regs, spill))
+        fns[kname] = build._declare(ctypes.CDLL(lib), kname) \
+            if declare is None else declare(lib, kname)
     return fns
 
 

@@ -11,27 +11,38 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ``mxnet_tpu_torch/parallel/csrc`` (one nvcc per source, started
    together), with their ptxas register and spill lines, and the count
    of tensor-core instructions (``HMMA``/``HGMMA`` in ``cuobjdump
-   -sass``) in each backward library, which must not be 0;
-3. kernels vs plain — the forward and decode kernels against their plain
-   PyTorch versions on the card at the serving path's shapes (fp32, TF32
-   off, tolerance rtol = atol = 1e-5), with the device time (CUDA-graph
-   replay) and per-call time (CUDA events) of the kernel, the plain
-   version and torch's scaled_dot_product_attention (a yardstick only),
-   and each kernel's bound from its bytes and flops;
+   -sass``) in the forward and each backward library, which must not
+   be 0;
+3. kernels vs plain — the forward kernel (3xTF32 on the tensor cores)
+   at the server's one-prompt prefill, B1 at every rung of its ladder
+   (T 64, 128, 256, 512) and at T 300, and the decode kernel, against
+   their plain PyTorch versions on the card (fp32, TF32 off, forward O
+   and LSE and decode within rtol = atol = 1e-5), with the
+   device time (CUDA-graph replay) and per-call time (CUDA events) of
+   the kernel, the plain version and torch's
+   scaled_dot_product_attention (a yardstick only), and each kernel's
+   bound from its bytes and flops; the forward at each of its two
+   block shapes (S = 1 or 4 warps on a row group, forced through
+   ``mxt_flash_fwd_split``), each held to the plain version and timed,
+   beside the host's choice;
 4. training-shape kernels vs plain — the forward kernel at the LM's
-   B8 T1024 causal (rtol = atol = 1e-5), then the dK/dV and dQ kernels
-   (3xTF32 on the tensor cores) against their plain versions and
-   against torch autograd of dense attention (rtol = atol = 1e-4) at
-   B8 T1024 causal, a packed causal batch, non-causal cross-attention,
-   D = 30 (4-byte staging) with Tq < Tk and D = 128 with Tq > Tk, timed
-   the same way, with the backward of
-   scaled_dot_product_attention as the yardstick and both bounds (3xTF32
-   on the tensor cores, fp32 on the CUDA cores); two launches on one
-   input must be bit-identical, and a dK with a zeroed tile must fail
-   the comparison; at B2 T256 each kernel's error against a float64
-   dense autograd, beside the fp32 plain version's own; flash_attention
-   on CUDA tensors returns a tensor with a grad_fn whose gradients reach
-   q, k and v;
+   B8 T1024 causal, a packed causal batch (B2 T256), non-causal
+   cross-attention (Tq 128, Tk 320), D = 30 (4-byte staging) with Tq <
+   Tk and D = 128 with Tq > Tk, at both block shapes (rtol = atol =
+   1e-5; rows with no live key must carry the plain version's LSE), each
+   shape timed at B8 T1024; two launches bit-identical; at B2 T256 its O
+   and LSE against float64 dense attention, at most FWD_F64_RATIO times
+   the fp32 plain version's own error. Then the
+   dK/dV and dQ kernels (3xTF32 on the tensor cores) against their plain
+   versions and against torch autograd of dense attention (rtol = atol
+   = 1e-4) at the same five shapes, timed the same way, with the
+   backward of scaled_dot_product_attention as the yardstick and both
+   bounds (3xTF32 on the tensor cores, fp32 on the CUDA cores); two
+   launches on one input must be bit-identical, and a dK with a zeroed
+   tile must fail the comparison; at B2 T256 each kernel's error against
+   a float64 dense autograd, beside the fp32 plain version's own;
+   flash_attention on CUDA tensors returns a tensor with a grad_fn whose
+   gradients reach q, k and v;
 5. model — ToyDecoderLM at GPT-2-small width (12 layers, 12 heads x 64,
    d_ff 3072, vocab 50257, 1024 positions; random weights from seed 0):
    prefill logits and 16 stepwise decode logits, kernels vs plain;
@@ -80,6 +91,7 @@ path (``path``: server, training, int8 decode or rtc; ``launches`` from
 that path's run, times at the shape it gives the kernel), and, last,
 ``{"ok": true, "device": {...}}``.
 """
+import ctypes
 import gc
 import json
 import os
@@ -97,10 +109,18 @@ import torch
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-# the backward kernels take each fp32 product as three TF32 products
-# (3xTF32: hi*hi + hi*lo + lo*hi)
+# the attention forward and backward kernels take each fp32 product as
+# three TF32 products (3xTF32: hi*hi + hi*lo + lo*hi)
 TF32_PASSES = 3
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the forward's float64 check (B2 T256): the kernel's error against
+# float64 dense attention may be at most this many times the fp32 plain
+# version's own (3xTF32 products, summed in another order)
+FWD_F64_RATIO = 4.0
+# flash_fwd.cu's block shapes: S warps share each 16-row group of a
+# block's query tile (64- or 16-row blocks). mxt_flash_fwd, which the port
+# calls, picks one from the grid; mxt_flash_fwd_split forces one
+FWD_SPLITS = (1, 4)
 # logits tolerance of the 12-layer model, kernels vs plain: attention
 # rounding (~1e-7 relative) is carried through 12 residual layers into
 # logits of magnitude up to ~30
@@ -298,11 +318,19 @@ def phase_build():
     for name in libs:
         with open(_build.log_path(name)) as f:
             for ln in f:
-                if "registers" in ln or "spill" in ln:
+                # ptxas names each kernel instance, then its resources
+                entry = re.search(r"Compiling entry function .*?((?:fwd|dkdv|"
+                                  r"dq|decode_q8|decode)_kernel)(?:I((?:Li"
+                                  r"\d+E)+)E)?", ln)
+                if entry:
+                    print("  %s: %s<%s>" % (name, entry.group(1), ", ".join(
+                        re.findall(r"\d+", entry.group(2) or ""))))
+                elif "registers" in ln or "spill" in ln:
                     print("  %s: %s" % (name, ln.strip()))
-    # the backward kernels' contractions must run on the tensor cores
+    # the forward and backward kernels' contractions must run on the tensor
+    # cores
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for name in BWD_SRC:
+    for name in ("flash_fwd",) + tuple(BWD_SRC):
         sass = subprocess.run([cuobjdump, "-sass", libs[name]],
                               capture_output=True, text=True, timeout=120)
         if sass.returncode != 0:
@@ -313,6 +341,43 @@ def phase_build():
               % (name, hmma, hgmma))
         if hmma + hgmma == 0:
             fail("%s has no tensor-core instruction" % name)
+
+
+def fwd_split_entry(path):
+    """``mxt_flash_fwd_split`` of the flash_fwd library at ``path``:
+    ``mxt_flash_fwd``'s arguments, then S before the stream."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = ctypes.CDLL(path).mxt_flash_fwd_split
+    fn.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
+    fn.restype = i
+    return fn
+
+
+_fwd_split_fn = []
+
+
+def fwd_forced(q, k, v, seg, scale, causal, split, fn=None):
+    """One call of flash_fwd.cu at block shape ``split`` (``fn``, an
+    ``mxt_flash_fwd_split``, else the port's built library's) on
+    contiguous inputs, as ``_fwd_cuda`` makes it but counting no launch:
+    (o, lse)."""
+    if fn is None:
+        if not _fwd_split_fn:
+            from mxnet_tpu_torch.parallel import _build
+            _fwd_split_fn.append(fwd_split_entry(
+                _build.build_all()["flash_fwd"]))
+        fn = _fwd_split_fn[0]
+    B, Tq, H, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, Tq, device=q.device)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if seg is None else seg.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, H, Tq, k.shape[1], D, float(scale),
+            int(causal), split, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail("flash_fwd at S = %d: launch failed with cudaError %d"
+             % (split, rc))
+    return o, lse
 
 
 def segment_plane(B, T, seed, dev):
@@ -340,29 +405,62 @@ def live_mask(B, Tq, Tk, causal, seg, dev):
     return live
 
 
-def fwd_case(tfa, B, T, H, D, causal, segmented, seed):
+def fwd_bounds(B, Tq, Tk, H, D, live, segmented):
+    """(3xTF32 bound ms, fp32 bound ms, bound_by, flops, bytes) of the
+    forward: 4*D flops per live pair and head (S = Q K^T and P V); q, k
+    and v read, o and the LSE written, and the segment plane read."""
+    flops = 4.0 * D * int(live.sum()) * H
+    nbytes = 4.0 * (2 * B * Tq * H * D + 2 * B * Tk * H * D + B * H * Tq)
+    if segmented:
+        nbytes += 4.0 * B * Tq
+    tc_s = TF32_PASSES * flops / PEAK_TF32_FLOPS
+    bound = max(tc_s, nbytes / PEAK_BYTES) * 1e3
+    bound_fp32 = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "bytes" if nbytes / PEAK_BYTES > tc_s else "operations"
+    return bound, bound_fp32, bound_by, flops, nbytes
+
+
+def fwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed,
+             time_splits=False):
+    """The forward kernel on one input: O and LSE against the plain
+    version (``_torch_fwd_lse``) on the rows with a live key, and the LSE
+    of rows with none equal to the plain version's, at the host's block
+    shape and at each forced one (``FWD_SPLITS``); a second
+    launch must be bit-identical; the host's choice is read off as the
+    forced shape whose output it equals. Times the host's choice (and,
+    with ``time_splits``, every shape) beside the plain version and
+    SDPA."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
-               for _ in range(3))
-    seg = segment_plane(B, T, seed, dev) if segmented else None
-    got, lse = tfa._fwd_cuda(q, k, v, seg, D ** -0.5, causal)
-    want = tfa.flash_attention(q, k, v, causal=causal, segment_ids=seg,
-                               impl="plain")
-    live = live_mask(B, T, T, causal, seg, dev)
-    # rows with a live key
-    rows = seg > 0 if seg is not None else \
-        torch.ones(B, T, dtype=torch.bool, device=dev)
-    err, ok = close(got[rows], want[rows])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
-    s = torch.where(live[:, None], s, -1e30)
-    lse_err, lse_ok = close(lse.permute(0, 2, 1)[rows],
-                            torch.logsumexp(s, -1).permute(0, 2, 1)[rows])
-    pairs = int(live.sum()) * H
-    flops = 4.0 * D * pairs
-    nbytes = 4.0 * B * H * (4 * T * D + T)      # q, k, v in; o, lse out
-    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    ms = timed(lambda: tfa._fwd_cuda(q, k, v, seg, D ** -0.5, causal))
+    q = torch.randn(B, Tq, H, D, generator=g).to(dev)
+    k, v = (torch.randn(B, Tk, H, D, generator=g).to(dev) for _ in range(2))
+    seg = segment_plane(B, Tq, seed, dev) if segmented else None
+    scale = D ** -0.5
+    want, want_lse = tfa._torch_fwd_lse(q, k, v, seg, scale, causal)
+    live = live_mask(B, Tq, Tk, causal, seg, dev)
+    rows = live.any(-1)                   # (B, Tq): rows with a live key
+    want_rows = want_lse.permute(0, 2, 1)
+    outs, errs = {}, []
+    for split in (None,) + FWD_SPLITS:
+        got, lse = tfa._fwd_cuda(q, k, v, seg, scale, causal) \
+            if split is None else \
+            fwd_forced(q, k, v, seg, scale, causal, split)
+        outs[split] = (got, lse)
+        err, ok = close(got[rows], want[rows], TOL)
+        lse_rows = lse.permute(0, 2, 1)
+        lse_err, lse_ok = close(lse_rows[rows], want_rows[rows], TOL)
+        # rows that attend to nothing (segment id 0): the plain version's
+        # LSE exactly, which the backward's P recompute reads
+        dead_ok = torch.equal(lse_rows[~rows], want_rows[~rows])
+        errs.append((split, err, lse_err, ok and lse_ok and dead_ok))
+    again = tfa._fwd_cuda(q, k, v, seg, scale, causal)
+    same = all(torch.equal(a, b) for a, b in zip(again, outs[None]))
+    choice = next((s for s in FWD_SPLITS
+                   if all(torch.equal(a, b)
+                          for a, b in zip(outs[s], outs[None]))), None)
+    bound, bound_fp32, bound_by, flops, nbytes = fwd_bounds(
+        B, Tq, Tk, H, D, live, segmented)
+    ms = timed(lambda: tfa._fwd_cuda(q, k, v, seg, scale, causal))
     plain_ms = timed(lambda: tfa.flash_attention(
         q, k, v, causal=causal, segment_ids=seg, impl="plain"))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -373,17 +471,71 @@ def fwd_case(tfa, B, T, H, D, causal, segmented, seed):
         mask = live[:, None]
         lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)    # noqa: E731
     lib_ms = timed(lib)
-    name = "fwd B%d T%d H%d D%d %s%s" % (
-        B, T, H, D, "causal" if causal else "full",
+    split_ms = {s: device_ms(lambda s=s: fwd_forced(
+        q, k, v, seg, scale, causal, s)) for s in FWD_SPLITS} \
+        if time_splits else {}
+    name = "fwd B%d Tq%d Tk%d H%d D%d %s%s" % (
+        B, Tq, Tk, H, D, "causal" if causal else "full",
         " seg" if segmented else "")
-    bound_by = "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32_FLOPS \
-        else "operations"
-    report(name, "err %.3g lse_err %.3g" % (err, lse_err), ms, plain_ms,
-           lib_ms, bound, bound_by)
-    if not (ok and lse_ok):
+    err = max(e for _, e, _, _ in errs)
+    lse_err = max(e for _, _, e, _ in errs)
+    print("  %-34s err %.3g lse_err %.3g | device ms: kernel %.4f plain %.4f"
+          " sdpa %.4f | per-call ms: kernel %.4f plain %.4f sdpa %.4f |"
+          " bound %.2f us 3xTF32 (%s) [%.2f us fp32 CUDA cores] | %.2f"
+          " GFLOP, %.1f MB" % (name, err, lse_err, ms[0], plain_ms[0],
+                              lib_ms[0], ms[1], plain_ms[1], lib_ms[1],
+                              bound * 1e3, bound_by, bound_fp32 * 1e3,
+                              flops / 1e9, nbytes / 1e6))
+    print("    block shapes (S warps a row group), err O/LSE: %s; %d rows"
+          " with no live key, LSE equal to plain: %s; host's choice S ="
+          " %s; second launch bit-identical: %s%s" % (
+              ", ".join("S=%s %.3g/%.3g" % ("host" if sp is None else sp,
+                                            e, le)
+                        for sp, e, le, _ in errs), int((~rows).sum()),
+              all(ok for _, _, _, ok in errs), choice, same,
+              "" if not split_ms else "; device ms " + ", ".join(
+                  "S=%d %.4f" % kv for kv in split_ms.items())))
+    if not all(ok for _, _, _, ok in errs):
         fail("flash_fwd disagrees with the plain version: %s" % name)
-    return dict(err=err, ms=ms[0], plain_ms=plain_ms[0],
-                library_ms=lib_ms[0], bound_ms=bound, bound_by=bound_by)
+    if not same or choice is None:
+        fail("flash_fwd: a second launch differs, or the host's launch"
+             " equals no block shape: %s" % name)
+    return dict(err=max(err, lse_err), ms=ms[0], plain_ms=plain_ms[0],
+                library_ms=lib_ms[0], bound_ms=bound, bound_by=bound_by,
+                bound_fp32_ms=bound_fp32, split_ms=split_ms, choice=choice)
+
+
+def fwd_f64_case(tfa, B=2, T=256, H=12, D=64):
+    """The forward kernel's O and LSE against float64 dense attention,
+    beside the fp32 plain version's own float64 error, on one causal
+    input (B2 T256): the kernel's may be at most ``FWD_F64_RATIO`` times
+    the plain version's."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(14)
+    q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
+               for _ in range(3))
+    scale = D ** -0.5
+    kern = tfa._fwd_cuda(q, k, v, None, scale, True)
+    plain = tfa._torch_fwd_lse(q, k, v, None, scale, True)
+    q64, k64, v64 = (x.double() for x in (q, k, v))
+    o64 = tfa._torch_reference(q64, k64, v64, scale, True)
+    s64 = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * scale
+    s64 = torch.where(live_mask(1, T, T, True, None, dev)[:, None], s64,
+                      -1e30)
+    ref = (o64, torch.logsumexp(s64, -1))
+    errs = {what: [float((a.double() - r).abs().max())
+                   for a, r in zip(outs, ref)]
+            for what, outs in (("kernel", kern), ("fp32 plain", plain))}
+    ratio = [a / b for a, b in zip(errs["kernel"], errs["fp32 plain"])]
+    print("  forward vs float64 dense attention at B%d T%d H%d D%d causal,"
+          " max abs err O/LSE: kernel %s; fp32 plain version %s; ratio %s"
+          " (at most %g)"
+          % (B, T, H, D, "/".join("%.3g" % e for e in errs["kernel"]),
+             "/".join("%.3g" % e for e in errs["fp32 plain"]),
+             "/".join("%.2f" % r for r in ratio), FWD_F64_RATIO))
+    if not all(e <= TOL["atol"] for e in errs["kernel"]) \
+            or not all(r <= FWD_F64_RATIO for r in ratio):
+        fail("flash_fwd disagrees with float64 dense attention")
 
 
 def decode_case(tfa, B, T, H, D, seed):
@@ -592,15 +744,23 @@ def check_flash_grad(tfa):
 
 def phase_bwd_kernels(tfa):
     """The training shapes: the forward kernel at the LM's B8 T1024
-    causal, then both backward kernels there, on a packed causal batch
-    and on non-causal cross-attention. Returns the forward's record, the
-    backward kernels' main-shape records and the largest error of each
-    backward kernel."""
+    causal, on a packed causal batch, on non-causal cross-attention and
+    at D = 30 and D = 128, and against float64; then both backward
+    kernels at the same shapes. Returns the forward's main-shape record
+    (its error the largest of these cases), the backward kernels'
+    main-shape records and the largest error of each backward kernel."""
     H, D = 12, 64
-    print("forward kernel vs plain at the training shape (rtol = atol ="
-          " %g):" % TOL["rtol"])
-    fwd = fwd_case(tfa, TRAIN_BATCH, GPT2_SMALL["max_len"], H, D, True,
-                   False, seed=10)
+    print("forward kernel (3xTF32 tensor cores) vs plain (fp32, TF32 off,"
+          " O and LSE, rtol = atol = %g):" % TOL["rtol"])
+    T = GPT2_SMALL["max_len"]
+    fwd = fwd_case(tfa, TRAIN_BATCH, T, T, H, D, True, False, seed=10,
+                   time_splits=True)
+    others = [fwd_case(tfa, 2, 256, 256, H, D, True, True, seed=7),
+              fwd_case(tfa, 2, 128, 320, H, D, False, False, seed=13),
+              fwd_case(tfa, 1, 100, 150, 3, 30, True, False, seed=15),
+              fwd_case(tfa, 1, 160, 96, 2, 128, True, False, seed=16)]
+    fwd["err"] = max([fwd["err"]] + [c["err"] for c in others])
+    fwd_f64_case(tfa)
     print("backward kernels (3xTF32 tensor cores) vs plain (fp32, TF32 off,"
           " rtol = atol = %g):" % BWD_TOL["rtol"])
     main = bwd_case(tfa, TRAIN_BATCH, 1024, 1024, H, D, True, False,
@@ -625,16 +785,19 @@ def phase_bwd_kernels(tfa):
 
 
 def phase_kernels(tfa):
+    """The server's shapes: the forward at one prompt (B1) at every rung
+    of the server's ladder and at a ragged T 300, each block shape timed;
+    the decode kernel. Returns the forward's T512 record (its error the
+    largest of the rungs), and the decode record."""
     H, D = 12, 64
-    fwd = {}
-    for T in (128, 300, 512):
-        fwd[T] = fwd_case(tfa, 1, T, H, D, True, False, seed=T)
-    seg = fwd_case(tfa, 2, 256, H, D, True, True, seed=7)
-    full = fwd_case(tfa, 1, 256, H, D, False, False, seed=8)
+    print("forward kernel (3xTF32 tensor cores) at the server's prefill"
+          " rungs vs plain (O and LSE, rtol = atol = %g):" % TOL["rtol"])
+    fwd = {T: fwd_case(tfa, 1, T, T, H, D, True, False, seed=T,
+                       time_splits=True) for T in (64, 128, 256, 300, 512)}
+    print("decode kernel vs plain (rtol = atol = %g):" % TOL["rtol"])
     dec = decode_case(tfa, 8, 576, H, D, seed=9)
-    fwd_err = max([c["err"] for c in fwd.values()]
-                  + [seg["err"], full["err"]])
-    return fwd[512], fwd_err, dec
+    rec = dict(fwd[512], err=max(c["err"] for c in fwd.values()))
+    return rec, dec
 
 
 def top2_margin(logits):
@@ -1453,10 +1616,10 @@ def main():
     tfa = importlib.import_module(
         "mxnet_tpu_torch.parallel.flash_attention")
     phase_build()
-    print("kernels vs plain (fp32, TF32 off, rtol = atol = 1e-5; device ms"
-          " = GPU time per call from CUDA-graph replays, per-call ms ="
-          " median CUDA-event time of one eager call; %s):" % card)
-    fwd, fwd_err, dec = phase_kernels(tfa)
+    print("kernels vs plain (fp32, TF32 off; device ms = GPU time per call"
+          " from CUDA-graph replays, per-call ms = median CUDA-event time of"
+          " one eager call; %s):" % card)
+    fwd, dec = phase_kernels(tfa)
     train_fwd, bwd, bwd_errs = phase_bwd_kernels(tfa)
     t0 = time.perf_counter()
     model_k = ToyDecoderLM(**GPT2_SMALL)
@@ -1482,7 +1645,7 @@ def main():
                                               GPT2_SMALL["max_len"])
     kernels = [
         kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "server",
-                   "B1 T512 H12 D64 causal", launches, fwd, fwd_err),
+                   "B1 T512 H12 D64 causal", launches, fwd, fwd["err"]),
         kernel_row("flash_decode", DEC_SRC, DEC_TPU, "server",
                    "B8 T576 H12 D64", launches, dec, dec["err"]),
         kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "training", train_shape,

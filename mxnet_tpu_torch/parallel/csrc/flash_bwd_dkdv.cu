@@ -23,7 +23,7 @@
 // 495 TFLOP/s; the same flops in fp32 on the CUDA cores would take 0.385 ms
 // at 67 TFLOP/s, and the bytes 0.045 ms at 3.35 TB/s.
 //
-// Route: mma.sync.m16n8k8 TF32 with fp32 accumulation, 3xTF32 (flash::bwd in
+// Route: mma.sync.m16n8k8 TF32 with fp32 accumulation, 3xTF32 (flash::tc in
 // flash_common.cuh): each operand is split into hi = tf32(x) and
 // lo = tf32(x - hi) and a product is lo*hi + hi*lo + hi*hi, which keeps
 // fp32's accuracy (one TF32 pass would be ~1e-3 off). Design, against what
@@ -64,6 +64,7 @@
 namespace {
 
 using namespace flash;
+using namespace flash::tc;
 using namespace flash::bwd;
 
 template <int NT>

@@ -21,7 +21,7 @@
 // 3xTF32 0.117 ms at 495 TFLOP/s; the same flops in fp32 on the CUDA cores
 // would take 0.289 ms at 67 TFLOP/s, and the bytes 0.038 ms at 3.35 TB/s.
 //
-// Route: mma.sync.m16n8k8 TF32 with fp32 accumulation, 3xTF32 (flash::bwd in
+// Route: mma.sync.m16n8k8 TF32 with fp32 accumulation, 3xTF32 (flash::tc in
 // flash_common.cuh, as flash_bwd_dkdv.cu). Design, against what held the
 // first, CUDA-core version back:
 //   - all three contractions run on the tensor cores. One block owns one
@@ -56,6 +56,7 @@
 namespace {
 
 using namespace flash;
+using namespace flash::tc;
 using namespace flash::bwd;
 
 template <int NT>

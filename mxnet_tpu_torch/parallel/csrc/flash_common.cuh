@@ -1,10 +1,13 @@
 // flash_common.cuh: what the flash-attention kernels share — the cp.async
-// staging, the mask rule, for the two decode kernels (flash_decode.cu,
+// staging and the mask rule; for the two decode kernels (flash_decode.cu,
 // flash_decode_q8.cu) their tile shape and the streaming-softmax step over a
-// staged tile, and for the two backward kernels (flash_bwd_dkdv.cu,
-// flash_bwd_dq.cu) their tile shape, 16-byte staging, the 3xTF32 tensor-core
-// product and the P/dS step. Each kernel source includes it; _build.py hashes
-// it into every library's name, so an edit here rebuilds them all.
+// staged tile; for the forward (flash_fwd.cu) and the two backward kernels
+// (flash_bwd_dkdv.cu, flash_bwd_dq.cu) the tensor-core tiles (namespace tc:
+// padded rows, 16-byte staging, the 3xTF32 mma.sync product and its fragment
+// loads, the hand-over of an accumulator as the next product's A operand);
+// and the backward's tile shape and P/dS step. Each kernel source includes
+// it; _build.py hashes it into every library's name, so an edit here rebuilds
+// them all.
 
 #pragma once
 
@@ -137,19 +140,14 @@ __device__ __forceinline__ void finish(const Tiles& s, int D, float l,
 
 }  // namespace decode
 
-namespace bwd {
+namespace tc {
 
-// Both backward kernels: four warps; warp w owns rows 16w..16w+15 of the
-// block's own 64-row tile (keys in dK/dV, queries in dQ) and walks the other
-// operand in tiles of kWalk rows. D is padded with zeros to 8 * NT
-// columns (NT 8-wide column tiles), and every staged row holds 8 * NT + 4
-// floats: 16-byte copies stay aligned, and since the row length is 4 mod 8
-// words, the fragment loads below hit 32 different banks.
+// The tensor-core kernels (forward and backward): blocks of four warps, each
+// warp owning 16 rows of the block's own tile. D is padded with zeros to
+// 8 * NT columns (NT 8-wide column tiles), and every staged row holds
+// 8 * NT + 4 floats: 16-byte copies stay aligned, and since the row length is
+// 4 mod 8 words, the fragment loads below hit 32 different banks.
 constexpr int kThreads = 128;
-constexpr int kRows = 64;
-// 32 rows a walked tile: 64 left the dK/dV kernel at 255 registers, and the
-// shorter tile also shortens each tensor-core sum (see tile_sum)
-constexpr int kWalk = 32;
 
 template <int NT>
 __host__ __device__ constexpr int row_floats() { return 8 * NT + 4; }
@@ -274,6 +272,20 @@ __device__ __forceinline__ void tile_sum(float (&acc)[NT][4],
     for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
 }
 
+// The forward's online-softmax form: acc = alpha * acc + part in fp32 (one
+// rounding), alpha[0] for row g of each fragment (elements 0, 1) and alpha[1]
+// for row g + 8 (elements 2, 3).
+template <int NT>
+__device__ __forceinline__ void tile_sum(float (&acc)[NT][4],
+                                         const float (&part)[NT][4],
+                                         const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], part[n][e]);
+}
+
 // Lane coordinates of the mma fragments: group g = lane / 4, t = lane % 4.
 __device__ __forceinline__ int lane_g() { return (threadIdx.x >> 2) & 7; }
 __device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
@@ -325,6 +337,18 @@ __device__ __forceinline__ FragA acc_to_a(const float (&c)[4]) {
   split(c[3], a.hi[3], a.lo[3]);
   return a;
 }
+
+}  // namespace tc
+
+namespace bwd {
+
+// Both backward kernels: warp w owns rows 16w..16w+15 of the block's own
+// 64-row tile (keys in dK/dV, queries in dQ) and walks the other operand in
+// tiles of kWalk rows.
+constexpr int kRows = 64;
+// 32 rows a walked tile: 64 left the dK/dV kernel at 255 registers, and the
+// shorter tile also shortens each tensor-core sum (see tile_sum)
+constexpr int kWalk = 32;
 
 // P = exp(scale * S - LSE) on a live pair and an exact zero on a masked one;
 // dS = P * (dP - Dr) * scale. Returns (P, dS).

@@ -16,11 +16,13 @@ in the JAX kernels.
 
 The CUDA kernels run only on a card: chip_smoke.py holds them to these
 plain versions there. Here the precision of their route is held: every
-contraction of the backward taken in TF32 parts, rounded bit by bit as
-the kernels round them (3xTF32: hi*hi + hi*lo + lo*hi), stays within the
-card's tolerance of the plain fp32 versions, and one TF32 pass does
-not."""
+contraction of the backward, and S and P V of the forward (P V summed
+per walked tile, as the forward kernel sums it), taken in TF32 parts,
+rounded bit by bit as the kernels round them (3xTF32: hi*hi + hi*lo +
+lo*hi), stays within the card's tolerance of the plain fp32 versions, and
+one TF32 pass does not."""
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -34,9 +36,10 @@ jfa = importlib.import_module("mxnet_tpu.parallel.flash_attention")
 tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-# chip_smoke.py's tolerance for the backward kernels against the plain
-# versions
+# chip_smoke.py's tolerances against the plain versions: BWD_TOL for the
+# backward kernels, TOL (here FWD_TOL) for the forward kernel
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 
 CASES = {
     # name: (B, Tq, Tk, H, D, causal, segmented)
@@ -246,3 +249,54 @@ def test_tf32_parts_hold_the_backward_to_fp32(passes):
     else:
         assert not any(within), errs
         assert min(errs) > 5e-4, errs
+
+
+def _tf32_forward(q, k, v, scale, passes, walk=32):
+    """The forward kernel's arithmetic (causal, no segments) with S and
+    P V in TF32 parts: each walked tile of ``walk`` keys has its P V
+    summed on its own and added to the running O rescaled by alpha, as
+    the kernel's online softmax does. ``(o (B, Tq, H, D), lse (B, H,
+    Tq))``."""
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    Tq, Tk = q.shape[1], k.shape[1]
+    s = _mm_tf32(qh, kh.transpose(-1, -2), passes) * scale
+    live = tfa._live_pairs(Tq, Tk, True, None, q.device)
+    s = torch.where(live, s, tfa._NEG)
+    m = torch.full(s.shape[:-1], -math.inf)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(qh.shape)
+    for k0 in range(0, Tk, walk):
+        tile = s[..., k0:k0 + walk]
+        mnew = torch.maximum(m, tile.amax(-1))
+        alpha = torch.exp(m - mnew)
+        p = torch.exp(tile - mnew[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _mm_tf32(
+            p, vh[..., k0:k0 + walk, :], passes)
+        m = mnew
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.permute(0, 2, 1, 3), m + torch.log(l.clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tf32_parts_hold_the_forward_to_fp32(passes):
+    """At B1 H2 T1024 D64 causal, the forward with S and P V in 3xTF32,
+    summed per walked tile, stays within FWD_TOL of the plain fp32
+    version's O and LSE; with one TF32 pass both are ~1e-3 off and fail
+    it."""
+    B, T, H, D = 1, 1024, 2, 64
+    rs = np.random.RandomState(42)
+    q, k, v = (torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32))
+               for _ in range(3))
+    scale = D ** -0.5
+    want = tfa._torch_fwd_lse(q, k, v, None, scale, True)
+    got = _tf32_forward(q, k, v, scale, passes)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    within = [bool(torch.allclose(a, b, **FWD_TOL))
+              for a, b in zip(got, want)]
+    if passes == 3:
+        assert all(within), errs
+        assert max(errs) < 5e-6, errs
+    else:
+        assert not any(within), errs
+        assert min(errs) > 1e-4, errs
