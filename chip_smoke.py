@@ -9,13 +9,16 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ``nvidia-smi`` name and power limit;
 2. build — the five attention kernels from
    ``mxnet_tpu_torch/parallel/csrc`` (one nvcc per source, started
-   together), with their ptxas register and spill lines, and the count
-   of tensor-core instructions (``HMMA``/``HGMMA`` in ``cuobjdump
-   -sass``) in the forward and each backward library, which must not
-   be 0;
+   together), with the ptxas register and spill lines of every kernel
+   instance (the decode libraries: one kernel a width), and the count
+   of tensor-core instructions
+   (``HMMA``/``HGMMA`` in ``cuobjdump -sass``) in the forward and each
+   backward library, which must not be 0;
 3. kernels vs plain — the forward kernel (3xTF32 on the tensor cores)
    at the server's one-prompt prefill, B1 at every rung of its ladder
-   (T 64, 128, 256, 512) and at T 300, and the decode kernel, against
+   (T 64, 128, 256, 512) and at T 300, and the decode kernel over the
+   server's window (B8 T576 H12 D64) at random lengths and with one
+   live stream (lengths 576, 1, ..., 1), against
    their plain PyTorch versions on the card (fp32, TF32 off, forward O
    and LSE and decode within rtol = atol = 1e-5), with the
    device time (CUDA-graph replay) and per-call time (CUDA events) of
@@ -24,7 +27,10 @@ no result, anywhere else. Phases (any failure exits non-zero):
    bound from its bytes and flops; the forward at each of its two
    block shapes (S = 1 or 4 warps on a row group, forced through
    ``mxt_flash_fwd_split``), each held to the plain version and timed,
-   beside the host's choice;
+   beside the host's choice; the decode kernel's splits of the cache
+   (the host's choice), a second launch bit-identical, NaN past each
+   length changing nothing, and one call's device time with a cold L2
+   (``cold_ms``) beside the warm one;
 4. training-shape kernels vs plain — the forward kernel at the LM's
    B8 T1024 causal, a packed causal batch (B2 T256), non-causal
    cross-attention (Tq 128, Tk 320), D = 30 (4-byte staging) with Tq <
@@ -59,7 +65,8 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ``flash_decode.cu`` on the dequantized cache (rtol = atol = 1e-5,
    and whether the two are bit-identical), and garbage past each row's
    length (random bytes, NaN scales) must leave its output
-   bit-identical; then, on phase 6's int8 pool, one decode step's
+   bit-identical; the host's splits and cold-L2 times of both decode
+   kernels at B8 T576; then, on phase 6's int8 pool, one decode step's
    calls (one per layer) over the raw pages of live requests, launch
    counts zeroed just before and read just after, held the same way;
 8. rtc — ``mx.rtc.CudaModule`` compiles three CUDA C kernels (axpy and
@@ -113,6 +120,10 @@ PEAK_BYTES = 3.35e12
 # three TF32 products (3xTF32: hi*hi + hi*lo + lo*hi)
 TF32_PASSES = 3
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the scratch buffer written before each cold-L2 timing (L2: 50 MB), and
+# the spin (~0.5 ms at the H100's clock) that hides the call's host work
+COLD_FLUSH_BYTES = 128 << 20
+SPIN_CYCLES = 1 << 20
 # the forward's float64 check (B2 T256): the kernel's error against
 # float64 dense attention may be at most this many times the fp32 plain
 # version's own (3xTF32 products, summed in another order)
@@ -226,6 +237,20 @@ def call_ms(fn, iters=20, warm=3):
     return statistics.median(times)
 
 
+def events_ms(fn, before=None):
+    """CUDA-event time of ``fn()``, after ``before()`` (queued ahead of
+    the start event)."""
+    if before is not None:
+        before()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def device_ms(fn, iters=20, reps=5):
     """Device time of the GPU work one call launches, without host
     gaps: ``iters`` calls captured in one CUDA graph, the graph replayed
@@ -241,16 +266,34 @@ def device_ms(fn, iters=20, reps=5):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    return statistics.median(events_ms(graph.replay) / iters
+                             for _ in range(reps))
+
+
+def cold_ms(fn, reps=20):
+    """(cold, warm) device ms of ONE call: the median over ``reps``
+    CUDA-event timings of one eager call, cold each after COLD_FLUSH_BYTES
+    of a scratch buffer are written (more than twice the 50 MB L2: none
+    of the call's inputs is left there), warm each right after another
+    call. A spin kernel (``torch.cuda._sleep``, ~0.5 ms, no memory
+    traffic) runs ahead of the start event each time, so the call's host
+    work is queued before its timing starts. A decode layer's gathered
+    cache (28 MB at B8 T576) is otherwise partly held in L2 from one
+    graph replay to the next, which flatters a kernel bound by its
+    bytes."""
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, device="cuda")
+
+    def after(first):
+        first()
+        torch.cuda._sleep(SPIN_CYCLES)
+    fn()
+    cold = statistics.median(
+        events_ms(fn, lambda i=i: after(lambda: flush.fill_(float(i))))
+        for i in range(reps))
+    warm = statistics.median(events_ms(fn, lambda: after(fn))
+                             for _ in range(reps))
+    del flush
+    return cold, warm
 
 
 def timed(fn):
@@ -538,23 +581,45 @@ def fwd_f64_case(tfa, B=2, T=256, H=12, D=64):
         fail("flash_fwd disagrees with float64 dense attention")
 
 
-def decode_case(tfa, B, T, H, D, seed):
+def decode_splits(name, B, H, T, D):
+    """The host's number of splits of the cache for a call of decode
+    kernel ``name`` (flash_decode or flash_decode_q8) on these shapes."""
+    from mxnet_tpu_torch.parallel import _build
+    return _build.library(name).splits(B, H, T, D)
+
+
+def decode_case(tfa, B, T, H, D, seed, lens_np=None):
+    """The fp32 decode kernel on one input, at random lengths from 1 to T
+    (rows 0 and B-1 at 1 and T) or at ``lens_np``: against its plain
+    version (and, twice launched, against itself; with NaN past each
+    length, bit-identical), timed warm from CUDA-graph replays and cold
+    after an L2 flush, beside SDPA and its bound."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn(B, 1, H, D, generator=g).to(dev)
     k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
             for _ in range(2))
-    lens_np = np.random.RandomState(seed).randint(1, T + 1, size=B)
-    lens_np[0], lens_np[-1] = 1, T
+    if lens_np is None:
+        lens_np = np.random.RandomState(seed).randint(1, T + 1, size=B)
+        lens_np[0], lens_np[-1] = 1, T
+    lens_np = np.asarray(lens_np)
     lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
     got = tfa._decode_cuda(q, k, v, lens, D ** -0.5)
     want = tfa.flash_decode(q, k, v, lens, impl="plain")
     err, ok = close(got, want)
+    tail = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+    dirty = tfa._decode_cuda(q, k.masked_fill(tail[:, :, None, None],
+                                              float("nan")),
+                             v.masked_fill(tail[:, :, None, None],
+                                           float("nan")), lens, D ** -0.5)
+    same = torch.equal(tfa._decode_cuda(q, k, v, lens, D ** -0.5), got)
+    clean_tail = torch.equal(dirty, got)
     live = int(lens_np.sum())
     flops = 4.0 * D * live * H
     nbytes = 4.0 * H * (2 * live * D + 2 * B * D) + 4.0 * B
     bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
     ms = timed(lambda: tfa._decode_cuda(q, k, v, lens, D ** -0.5))
+    cold = cold_ms(lambda: tfa._decode_cuda(q, k, v, lens, D ** -0.5))
     plain_ms = timed(lambda: tfa.flash_decode(q, k, v, lens,
                                               impl="plain"))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -563,13 +628,23 @@ def decode_case(tfa, B, T, H, D, seed):
     lib_ms = timed(lambda: torch.nn.functional
                    .scaled_dot_product_attention(qt, kt, vt,
                                                  attn_mask=mask))
+    splits = decode_splits("flash_decode", B, H, T, D)
     report("decode B%d T%d H%d D%d" % (B, T, H, D),
            "err %.3g live keys %d" % (err, live), ms, plain_ms, lib_ms,
            bound, "bytes")
+    print("  %-30s splits %d (%d blocks); one call, device ms: cold L2 %.4f,"
+          " warm %.4f; second launch bit-identical %s; NaN past each length"
+          " leaves the output bit-identical: %s"
+          % ("", splits, B * H * splits, cold[0], cold[1], same, clean_tail))
     if not ok:
         fail("flash_decode disagrees with the plain version")
+    if not same:
+        fail("flash_decode is not deterministic")
+    if not clean_tail:
+        fail("flash_decode read past a row's length")
     return dict(err=err, ms=ms[0], plain_ms=plain_ms[0],
-                library_ms=lib_ms[0], bound_ms=bound, bound_by="bytes")
+                library_ms=lib_ms[0], bound_ms=bound, bound_by="bytes",
+                cold_ms=cold[0], splits=splits)
 
 
 def probe_comparison(tfa, args, got, want):
@@ -787,8 +862,10 @@ def phase_bwd_kernels(tfa):
 def phase_kernels(tfa):
     """The server's shapes: the forward at one prompt (B1) at every rung
     of the server's ladder and at a ragged T 300, each block shape timed;
-    the decode kernel. Returns the forward's T512 record (its error the
-    largest of the rungs), and the decode record."""
+    the decode kernel over the window of 8 at random lengths and with one
+    live stream (one row at T, seven at 1). Returns the forward's T512
+    record (its error the largest of the rungs), and the decode record
+    at random lengths (its error the larger of the two)."""
     H, D = 12, 64
     print("forward kernel (3xTF32 tensor cores) at the server's prefill"
           " rungs vs plain (O and LSE, rtol = atol = %g):" % TOL["rtol"])
@@ -796,8 +873,10 @@ def phase_kernels(tfa):
                        time_splits=True) for T in (64, 128, 256, 300, 512)}
     print("decode kernel vs plain (rtol = atol = %g):" % TOL["rtol"])
     dec = decode_case(tfa, 8, 576, H, D, seed=9)
+    one = decode_case(tfa, 8, 576, H, D, seed=19,
+                      lens_np=[576] + [1] * 7)
     rec = dict(fwd[512], err=max(c["err"] for c in fwd.values()))
-    return rec, dec
+    return rec, dict(dec, err=max(dec["err"], one["err"]))
 
 
 def top2_margin(logits):
@@ -1373,9 +1452,13 @@ def phase_q8_decode(tfa):
         else "operations"
     ms = timed(lambda: tfa.flash_decode(q, k8, v8, lens, k_scale=ks,
                                         v_scale=vs))
+    cold = cold_ms(lambda: tfa.flash_decode(q, k8, v8, lens, k_scale=ks,
+                                            v_scale=vs))
     plain_ms = timed(lambda: tfa.flash_decode(q, k8, v8, lens, k_scale=ks,
                                               v_scale=vs, impl="plain"))
     fp32_ms = timed(lambda: tfa._decode_cuda(q, kd, vd, lens, D ** -0.5))
+    fp32_cold = cold_ms(lambda: tfa._decode_cuda(q, kd, vd, lens,
+                                                 D ** -0.5))
     qt = q.transpose(1, 2).contiguous()
     mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
@@ -1387,6 +1470,7 @@ def phase_q8_decode(tfa):
             qt, kf, vf, attn_mask=mask)
     yard_ms = timed(deq_sdpa)
     fp32_bytes = 4.0 * H * (2 * live * D + 2 * B * D) + 4.0 * B
+    splits = decode_splits("flash_decode_q8", B, H, T, D)
     print("  %-34s device ms: kernel %.4f plain %.4f | flash_decode.cu on"
           " the dequantized cache %.4f (bound %.2f us) | dequantize + sdpa"
           " %.4f (yardstick) | per-call ms: kernel %.4f plain %.4f | bound"
@@ -1394,8 +1478,14 @@ def phase_q8_decode(tfa):
           % ("B8 T576 H12 D64 (%d live keys)" % live, ms[0], plain_ms[0],
              fp32_ms[0], fp32_bytes / PEAK_BYTES * 1e6, yard_ms[0], ms[1],
              plain_ms[1], bound * 1e3, bound_by, nbytes / 1e6))
+    print("  %-34s splits %d (%d blocks); one call, device ms: cold L2 %.4f,"
+          " warm %.4f | flash_decode.cu on the dequantized cache: cold L2"
+          " %.4f, warm %.4f"
+          % ("", splits, B * H * splits, cold[0], cold[1], fp32_cold[0],
+             fp32_cold[1]))
     return dict(err=max(err, err_small), ms=ms[0], plain_ms=plain_ms[0],
-                library_ms=None, bound_ms=bound, bound_by=bound_by)
+                library_ms=None, bound_ms=bound, bound_by=bound_by,
+                cold_ms=cold[0], splits=splits)
 
 
 def phase_q8_pool(tfa, model, params, pool):
@@ -1599,12 +1689,16 @@ def phase_rtc(card):
 
 
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
-    """One entry of the ``{"kernels": [...]}`` line."""
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                path=path, shape=shape, launches=launches[name],
-                max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
-                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-                library_ms=rec["library_ms"], ok=True)
+    """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
+    also carry their cold-L2 time of one call and the host's splits."""
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               path=path, shape=shape, launches=launches[name],
+               max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+               bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+               library_ms=rec["library_ms"], ok=True)
+    row.update((key, rec[key]) for key in ("cold_ms", "splits")
+               if key in rec)
+    return row
 
 
 def main():

@@ -132,17 +132,22 @@ def build_all():
 
 
 def _declare(lib, name):
-    """The ctypes signature of kernel ``name``'s C entry point."""
+    """The ctypes signature of kernel ``name``'s C entry point; a decode
+    kernel's also carries, as ``.splits``, the host's choice of splits
+    of the cache for its shapes ``(B, H, T, D)``, which the entry point
+    takes when it is given 0 splits."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_fwd":
         fn = lib.mxt_flash_fwd
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
     elif name == "flash_decode":
         fn = lib.mxt_flash_decode
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+        fn.argtypes = [p] * 5 + [i, i, i, i, f, i, p]
+        fn.splits = lib.mxt_flash_decode_splits
     elif name == "flash_decode_q8":
         fn = lib.mxt_flash_decode_q8
-        fn.argtypes = [p] * 7 + [i, i, i, i, f, p]
+        fn.argtypes = [p] * 7 + [i, i, i, i, f, i, p]
+        fn.splits = lib.mxt_flash_decode_q8_splits
     elif name == "flash_bwd_dkdv":
         fn = lib.mxt_flash_bwd_dkdv
         fn.argtypes = [p] * 9 + [i, i, i, i, i, f, i, p]
@@ -150,6 +155,10 @@ def _declare(lib, name):
         fn = lib.mxt_flash_bwd_dq
         fn.argtypes = [p] * 8 + [i, i, i, i, i, f, i, p]
     fn.restype = ctypes.c_int
+    splits = getattr(fn, "splits", None)
+    if splits is not None:       # the decode kernels: (B, H, T, D) -> S
+        splits.argtypes = [i, i, i, i]
+        splits.restype = ctypes.c_int
     return fn
 
 

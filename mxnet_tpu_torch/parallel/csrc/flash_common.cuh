@@ -1,13 +1,14 @@
 // flash_common.cuh: what the flash-attention kernels share — the cp.async
 // staging and the mask rule; for the two decode kernels (flash_decode.cu,
-// flash_decode_q8.cu) their tile shape and the streaming-softmax step over a
-// staged tile; for the forward (flash_fwd.cu) and the two backward kernels
-// (flash_bwd_dkdv.cu, flash_bwd_dq.cu) the tensor-core tiles (namespace tc:
-// padded rows, 16-byte staging, the 3xTF32 mma.sync product and its fragment
-// loads, the hand-over of an accumulator as the next product's A operand);
-// and the backward's tile shape and P/dS step. Each kernel source includes
-// it; _build.py hashes it into every library's name, so an edit here rebuilds
-// them all.
+// flash_decode_q8.cu) the host's split of the cache, the lane groups'
+// online-softmax step over one stage of keys, and the merges in a fixed
+// order within a block and across a cluster of blocks; for the forward
+// (flash_fwd.cu) and the two backward kernels (flash_bwd_dkdv.cu,
+// flash_bwd_dq.cu) the tensor-core tiles (namespace tc: padded rows, 16-byte
+// staging, the 3xTF32 mma.sync product and its fragment loads, the hand-over
+// of an accumulator as the next product's A operand); and the backward's
+// tile shape and P/dS step. Each kernel source includes it; _build.py hashes
+// it into every library's name, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -17,17 +18,67 @@
 
 namespace flash {
 
-// Asynchronous 4-byte global -> shared copy (sm_80+). With `pred` false it
-// reads nothing and writes a zero, so ragged tiles need no second path.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+// Asynchronous global -> shared copies (sm_80+): 4 bytes through L1, 16
+// bytes through L2 only. With `pred` false they read nothing and write
+// zeros, so ragged tiles need no second path.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(pred ? 4 : 0));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Thread block clusters (sm_90): launch_clusters starts `grid` blocks of
+// kernel in clusters of `cluster` consecutive blocks, which the card
+// schedules together; a cluster's blocks meet at cluster_sync(), after which
+// each sees what the others wrote to their shared memory before it, through
+// peer(): the same shared-memory address in another block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ const float* peer(const float* p, int rank) {
+  const float* q;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(q) : "l"(p), "r"(rank));
+  return q;
+}
+
+template <class... Params, class... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Params...), int grid,
+                                   int cluster, int block, size_t smem,
+                                   cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // The mask of every kernel (the TPU's `_mask_scores`; `_live_pairs` in
@@ -43,98 +94,203 @@ __device__ __forceinline__ bool live_pair(int qp, int kp, int Tk, int causal,
 
 namespace decode {
 
+// The two decode kernels (flash_decode.cu, flash_decode_q8.cu) cut each
+// (batch, head) row's cached positions into S chunks, one block of kThreads
+// threads a chunk, the row's S blocks one cluster, and merge the chunks'
+// partial softmax states across the cluster. In a block, lane groups of L
+// lanes each take one key at a time: lane i of a group holds columns
+// 4i..4i+3 of q, of the key and of the group's running P V sum, so a key
+// row is 4 L floats wide (L = lanes(D), 4 L >= D). One stage of the ring of
+// staged keys gives every group kBatch keys.
 constexpr int kThreads = 128;
-constexpr int kBK = 128;           // keys per tile (one per thread)
 constexpr int kWarps = kThreads / 32;
-constexpr float kNeg = -1e30f;
+constexpr int kBatch = 4;
+constexpr int kStages = 2;
+// The grid the host aims at: this many blocks for each SM; and the most
+// splits a row: a row's splits form one cluster, of at most 8 blocks on
+// every Hopper card.
+constexpr int kBlocksPerSM = 4;
+constexpr int kMaxSplits = 8;
 
-// Dynamic shared memory of a decode block, in the order `Tiles` carves it: the
-// K tile (kBK rows padded to D+1 floats, so thread t reading key row t is free
-// of bank conflicts), the V tile (kBK x D), the query row, the tile's
-// probabilities, one slot per warp for block reductions, and the P V partial
-// sums.
-inline size_t smem_bytes(int D) {
-  return sizeof(float) *
-         (size_t)(kBK * (D + 1) + kBK * D + D + kBK + kWarps + kThreads);
+// Lanes a key row: the least power of two L >= 4 with 4 L >= D (D <= 128).
+__host__ __device__ constexpr int lanes(int D) {
+  return D <= 16 ? 4 : D <= 32 ? 8 : D <= 64 ? 16 : 32;
 }
 
-struct Tiles {
-  float *ks, *vs, *qs, *ps, *wred, *part;
+// Keys in one stage: kBatch for each of the block's kThreads / L groups.
+__host__ __device__ constexpr int tile_keys(int L) {
+  return kThreads / L * kBatch;
+}
+
+// Keys a chunk: T cut into S parts.
+inline int chunk_keys(int T, int S) { return ((T > 1 ? T : 1) + S - 1) / S; }
+
+// The host's number of splits for BH rows of T cached positions, from the
+// shapes alone (the lengths are on the device, and the entry points do not
+// synchronise): enough blocks for kBlocksPerSM on each SM of the current
+// device, but no chunk shorter than one stage, and at most kMaxSplits.
+inline int pick_splits(int BH, int T, int D) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  const int tk = tile_keys(lanes(D));
+  const int most = (T + tk - 1) / tk;
+  const int want = BH > 0 ? (kBlocksPerSM * sms + BH - 1) / BH : 1;
+  int S = want < most ? want : most;
+  S = S < kMaxSplits ? S : kMaxSplits;
+  const int chunk = chunk_keys(T, S > 1 ? S : 1);
+  return T > chunk ? (T + chunk - 1) / chunk : 1;
+}
+
+// A lane group's online softmax over the keys it has taken: the largest
+// score m and l = sum exp(score - m), the same in every lane of the group,
+// and this lane's 4 columns of sum exp(score - m) v. No key: m = -inf, l = 0.
+struct State {
+  float m = -INFINITY, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
 };
 
-__device__ __forceinline__ Tiles carve(float* smem, int D) {
-  Tiles t;
-  t.ks = smem;
-  t.vs = t.ks + kBK * (D + 1);
-  t.qs = t.vs + kBK * D;
-  t.ps = t.qs + D;
-  t.wred = t.ps + kBK;
-  t.part = t.wred + kWarps;
-  return t;
+// Folds (mo, lo, acco) into (m, l, acc), both rescaled to the larger max. A
+// side that holds the max keeps weight 1, so two empty sides stay empty (and
+// never take exp(-inf + inf)); an empty side gets weight 0 beside a live one.
+__device__ __forceinline__ void merge(float& m, float& l, float (&acc)[4],
+                                      float mo, float lo,
+                                      const float (&acco)[4]) {
+  const float mn = fmaxf(m, mo);
+  const float a = m == mn ? 1.f : expf(m - mn);
+  const float b = mo == mn ? 1.f : expf(mo - mn);
+  l = fmaf(l, a, lo * b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = fmaf(acc[i], a, acco[i] * b);
+  m = mn;
 }
 
-// Block-wide max (op = 0) or sum (op = 1) of one value per thread; every
-// thread gets the result. `wred` holds one slot per warp.
-__device__ __forceinline__ float block_reduce(float x, float* wred, int op) {
+// One stage of the online softmax for the calling lane's group g: its keys
+// are the stage's rows g, g + G, ..., g + (kBatch - 1) G (G groups in the
+// block), those below nk live; `Tile` (F32Tile of flash_decode.cu, Q8Tile
+// of flash_decode_q8.cu) gives a row's 4 values at the lane's columns as
+// fp32. A score q.k is summed over the group's lanes by a shuffle
+// butterfly (every lane of the warp takes part, so all lanes of a group get
+// the same sum); the group's state is rescaled once for the batch. Both
+// kernels run exactly this on the same fp32 values, so they give
+// bit-identical outputs.
+template <int L, class Tile>
+__device__ __forceinline__ void tile_step(const Tile& t, int nk,
+                                          const float (&q)[4], float scale,
+                                          State& st) {
+  constexpr int G = kThreads / L;
+  const int g = (int)threadIdx.x / L;
+  const int c = 4 * ((int)threadIdx.x % L);
+  float s[kBatch];
+  float mx = -INFINITY;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, off);
-    x = op == 0 ? fmaxf(x, y) : x + y;
-  }
-  __syncthreads();  // earlier readers of wred are done
-  if ((threadIdx.x & 31) == 0) wred[threadIdx.x >> 5] = x;
-  __syncthreads();
-  x = wred[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) x = op == 0 ? fmaxf(x, wred[w]) : x + wred[w];
-  return x;
-}
-
-// One tile of the online softmax, after its first `nk` K and V rows are staged
-// in fp32: thread t scores key t; the running max m and sum l are kept
-// (identical) in every thread; for P V, thread t owns output column t % D and
-// every (kThreads / D)-th key of the tile and rescales its partial sum `acc`
-// by the same alpha. Both decode kernels run exactly this arithmetic, so
-// equal staged values give bit-identical outputs.
-__device__ __forceinline__ void tile_step(const Tiles& s, int nk, int D,
-                                          float scale, float& m, float& l,
-                                          float& acc) {
-  const int tid = threadIdx.x, ld = D + 1;
-  const int groups = kThreads / D;
-  const int gd = tid % D, gg = tid / D;
-  float sc = kNeg;
-  if (tid < nk) {
+  for (int j = 0; j < kBatch; ++j) {
+    const int r = g + j * G;
     float dot = 0.f;
-    for (int d = 0; d < D; ++d) dot = fmaf(s.qs[d], s.ks[tid * ld + d], dot);
-    sc = dot * scale;
+    if (r < nk) {
+      const float4 k = t.key(r, c);
+      dot = fmaf(q[0], k.x, dot);
+      dot = fmaf(q[1], k.y, dot);
+      dot = fmaf(q[2], k.z, dot);
+      dot = fmaf(q[3], k.w, dot);
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    s[j] = dot * scale;
+    if (r < nk) mx = fmaxf(mx, s[j]);
   }
-  const float mnew = fmaxf(m, block_reduce(sc, s.wred, 0));
-  const float alpha = expf(m - mnew);  // 0 on the first tile
-  const float p = (tid < nk) ? expf(sc - mnew) : 0.f;
-  s.ps[tid] = p;
-  l = l * alpha + block_reduce(p, s.wred, 1);  // syncs: ps is complete
-  m = mnew;
-  if (gg < groups) {
-    float a = 0.f;
-    for (int c = gg; c < nk; c += groups) a = fmaf(s.ps[c], s.vs[c * D + gd], a);
-    acc = acc * alpha + a;
+  if (mx == -INFINITY) return;  // no live key in the group's batch
+  const float mn = fmaxf(st.m, mx);
+  const float alpha = expf(st.m - mn);  // 0 on the group's first live batch
+  st.l *= alpha;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) st.acc[i] *= alpha;
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    const int r = g + j * G;
+    if (r < nk) {
+      const float p = expf(s[j] - mn);
+      st.l += p;
+      const float4 v = t.val(r, c);
+      st.acc[0] = fmaf(p, v.x, st.acc[0]);
+      st.acc[1] = fmaf(p, v.y, st.acc[1]);
+      st.acc[2] = fmaf(p, v.z, st.acc[2]);
+      st.acc[3] = fmaf(p, v.w, st.acc[3]);
+    }
   }
+  st.m = mn;
 }
 
-// Adds the P V partial sums of the key groups and writes o = acc / l for the
-// block's row (D floats at `o_row`).
-__device__ __forceinline__ void finish(const Tiles& s, int D, float l,
-                                       float acc, float* o_row) {
-  const int tid = threadIdx.x;
-  const int groups = kThreads / D;
-  const int gd = tid % D, gg = tid / D;
+// Shared memory for finish: kWarps slots of (m, l, 4 L columns).
+__host__ __device__ constexpr int merge_floats(int L) {
+  return kWarps * (2 + 4 * L);
+}
+
+// The end of a block of split `split` (of S, the block's rank in its
+// cluster) of row bh: its lane groups' states merged, and the row's splits
+// merged, into o_row = acc / max(l, 1e-30). Every merge runs in a fixed
+// order, so two calls on one input are bit-identical: the groups of each
+// warp by a shuffle butterfly; warps 1, 2, 3 into warp 0 in turn, through
+// `red` (merge_floats(L) floats of shared memory; warp 0's slot then holds
+// the block's state); with S > 1, the cluster's other blocks into the
+// block of split 0 in split order, read from their slots across the
+// cluster. A block with no live key takes part with m = -inf, l = 0, which
+// drops out of every merge (a row with no live key gets o = 0).
+template <int L>
+__device__ __forceinline__ void finish(State& st, float* red, int D, int S,
+                                       int split, float* o_row) {
+#pragma unroll
+  for (int off = L; off < 32; off <<= 1) {
+    float ao[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ao[i] = __shfl_xor_sync(0xffffffffu, st.acc[i], off);
+    const float mo = __shfl_xor_sync(0xffffffffu, st.m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, st.l, off);
+    merge(st.m, st.l, st.acc, mo, lo, ao);
+  }
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool lead = w == 0 && lane < L;  // holds the block's state
+  if (w > 0 && lane < L) {
+    float* slot = red + w * (2 + 4 * L);
+    slot[0] = st.m;
+    slot[1] = st.l;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) slot[2 + 4 * lane + i] = st.acc[i];
+  }
   __syncthreads();
-  if (gg < groups) s.part[gg * D + gd] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float t = 0.f;
-    for (int g = 0; g < groups; ++g) t += s.part[g * D + tid];
-    o_row[tid] = t / fmaxf(l, 1e-30f);
+  if (lead) {
+    for (int v = 1; v < kWarps; ++v) {
+      const float* slot = red + v * (2 + 4 * L);
+      const float ao[4] = {slot[2 + 4 * lane], slot[3 + 4 * lane],
+                           slot[4 + 4 * lane], slot[5 + 4 * lane]};
+      merge(st.m, st.l, st.acc, slot[0], slot[1], ao);
+    }
+  }
+  if (S > 1) {
+    if (lead) {  // warp 0's slot, which no warp wrote: the block's state
+      red[0] = st.m;
+      red[1] = st.l;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[2 + 4 * lane + i] = st.acc[i];
+    }
+    cluster_sync();  // every block's state is in its slot
+    if (lead && split == 0)
+      for (int r = 1; r < S; ++r) {
+        const float* slot = peer(red, r);
+        const float ao[4] = {slot[2 + 4 * lane], slot[3 + 4 * lane],
+                             slot[4 + 4 * lane], slot[5 + 4 * lane]};
+        merge(st.m, st.l, st.acc, slot[0], slot[1], ao);
+      }
+    cluster_sync();  // no block leaves while split 0 reads its slot
+  }
+  if (lead && split == 0) {
+    const int c = 4 * lane;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < D) o_row[c + i] = st.acc[i] / fmaxf(st.l, 1e-30f);
   }
 }
 
@@ -151,25 +307,6 @@ constexpr int kThreads = 128;
 
 template <int NT>
 __host__ __device__ constexpr int row_floats() { return 8 * NT + 4; }
-
-// Asynchronous 16-byte global -> shared copy, L2 only; with `pred` false it
-// reads nothing and writes zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's committed copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Starts the copy of ROWS rows of one (b, h) plane of a (B, T, H, D) operand
 // into a tile with rows of row_floats<NT>() floats: tile row r is position

@@ -344,8 +344,9 @@ def _decode_cuda(q, k, v, lengths, scale):
         return o
     fn = _build.library("flash_decode")
     with torch.cuda.device(q.device):
+        # 0 splits: the kernel's host code splits the cache itself
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                o.data_ptr(), B, H, T, D, float(scale),
+                o.data_ptr(), B, H, T, D, float(scale), 0,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode")
     launches["flash_decode"] += 1
@@ -390,7 +391,7 @@ def _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths, scale):
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
-                o.data_ptr(), B, H, T, D, float(scale),
+                o.data_ptr(), B, H, T, D, float(scale), 0,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode_q8")
     launches["flash_decode_q8"] += 1

@@ -1,18 +1,22 @@
 // emu.h: runs a CUDA kernel source of mxnet_tpu_torch/parallel/csrc on the
 // CPU, for tests/test_torch_kernel_emulation.py. It stands in for
-// cuda_runtime.h: every CUDA thread of a block is a std::thread, blocks run
-// one after another, __syncthreads is a block-wide std::barrier, and a
-// warp's shuffles and mma.sync.m16n8k8 (TF32 inputs, fp32 sums) exchange
-// their lanes' values through a warp-wide one. Shared memory starts as NaNs,
-// so a read of a slot nothing wrote shows. The test rewrites the sources'
-// inline PTX (cp.async, mma.sync), their dynamic shared memory and their
-// <<<...>>> launches into calls of what is here.
+// cuda_runtime.h: every CUDA thread of a block is a std::thread, clusters of
+// blocks run one after another (the blocks of a cluster at once; a block
+// alone is a cluster of one), __syncthreads is a block-wide std::barrier, a
+// cluster barrier a cluster-wide one, and a warp's shuffles and
+// mma.sync.m16n8k8 (TF32 inputs, fp32 sums) exchange their lanes' values
+// through a warp-wide one. Shared memory starts as NaNs, so a read of a slot
+// nothing wrote shows. The test rewrites the sources' inline PTX (cp.async,
+// mma.sync, the cluster barrier and the mapping of a peer block's shared
+// memory), their dynamic shared memory and their <<<...>>> and cluster
+// launches into calls of what is here.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -53,6 +57,12 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+// a read through the read-only cache: a plain read here
+template <class T>
+T __ldg(const T* p) { return *p; }
 inline unsigned __float_as_uint(float f) {
   unsigned u;
   std::memcpy(&u, &f, 4);
@@ -77,12 +87,29 @@ struct EmuBlock {
   EmuWarp w[32];
   explicit EmuBlock(int n) : bar(n) {}
 };
-inline EmuBlock* emu_block = nullptr;
-inline float4* emu_smem = nullptr;
+struct EmuCluster {
+  std::barrier<> bar;
+  std::vector<float4*> smem;  // each block's shared memory, by rank
+  explicit EmuCluster(int n) : bar(n) {}
+};
+inline thread_local EmuBlock* emu_block = nullptr;
+inline thread_local EmuCluster* emu_cluster = nullptr;
+inline thread_local float4* emu_smem = nullptr;
 inline thread_local unsigned emu_exchanges = 0;
 inline EmuWarp& emu_warp() { return emu_block->w[threadIdx.x >> 5]; }
 
 inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
+inline void emu_cluster_sync() { emu_cluster->bar.arrive_and_wait(); }
+
+// `p` in the calling block's shared memory, at the same offset in the
+// shared memory of the cluster's block `rank`
+template <class T>
+T* emu_peer(T* p, int rank) {
+  const char* base = reinterpret_cast<const char*>(emu_smem);
+  const long off = reinterpret_cast<const char*>(p) - base;
+  return reinterpret_cast<T*>(
+      reinterpret_cast<char*>(emu_cluster->smem[rank]) + off);
+}
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   EmuWarp& W = emu_warp();
@@ -116,25 +143,41 @@ inline void emu_mma(float (&d)[4], const uint32_t (&a)[4],
   }
 }
 
+// Runs `grid` blocks of `kernel` in clusters of `cluster` consecutive
+// blocks.
 template <class K, class... A>
-void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, A... args) {
+void emu_launch_cluster(K kernel, dim3 grid, int cluster, dim3 block,
+                        size_t smem, A... args) {
   gridDim = grid;
   blockDim = block;
-  std::vector<float4> buf(smem / sizeof(float4) + 1);
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::fill(buf.begin(), buf.end(), float4{NAN, NAN, NAN, NAN});
-      EmuBlock blk(block.x);
-      emu_block = &blk;
-      emu_smem = buf.data();
-      std::vector<std::thread> threads;
+  const unsigned nb = grid.x * grid.y;
+  std::vector<std::vector<float4>> bufs(cluster);
+  for (unsigned c0 = 0; c0 < nb; c0 += cluster) {
+    EmuCluster cl(cluster * block.x);
+    std::vector<std::unique_ptr<EmuBlock>> blocks;
+    for (int r = 0; r < cluster; ++r) {
+      bufs[r].assign(smem / sizeof(float4) + 1, float4{NAN, NAN, NAN, NAN});
+      cl.smem.push_back(bufs[r].data());
+      blocks.emplace_back(new EmuBlock(block.x));
+    }
+    std::vector<std::thread> threads;
+    for (int r = 0; r < cluster; ++r)
       for (unsigned t = 0; t < block.x; ++t)
-        threads.emplace_back([&, t] {
+        threads.emplace_back([&, r, t] {
+          const unsigned id = c0 + r;
           threadIdx = dim3(t);
+          blockIdx = dim3(id % grid.x, id / grid.x);
+          emu_block = blocks[r].get();
+          emu_cluster = &cl;
+          emu_smem = bufs[r].data();
           emu_exchanges = 0;
-          blockIdx = dim3(bx, by);
           kernel(args...);
         });
-      for (auto& th : threads) th.join();
-    }
+    for (auto& th : threads) th.join();
+  }
+}
+
+template <class K, class... A>
+void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, A... args) {
+  emu_launch_cluster(kernel, grid, 1, block, smem, args...);
 }

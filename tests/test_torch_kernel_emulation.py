@@ -1,19 +1,33 @@
-"""The forward attention kernel's CUDA source, run on the CPU.
+"""The attention kernels' CUDA sources, run on the CPU.
 
 This machine has no nvcc and no card: ``chip_smoke.py`` runs the kernels
-on the H100. Here ``mxnet_tpu_torch/parallel/csrc/flash_fwd.cu`` itself
-is compiled by g++ against ``tests/kernel_emu/emu.h``, which runs each
-CUDA thread of a block as a std::thread and emulates the warp's shuffles
-and ``mma.sync`` TF32 products (inline PTX, ``cp.async`` and the
+on the H100. Here the sources of ``mxnet_tpu_torch/parallel/csrc``
+themselves are compiled by g++ against ``tests/kernel_emu/emu.h``, which
+runs each CUDA thread of a block as a std::thread and emulates the warp's
+shuffles and ``mma.sync`` TF32 products (inline PTX, ``cp.async`` and the
 ``<<<...>>>`` launches are rewritten into its calls; the arithmetic, the
-fragment layouts, the masks, the staging indices and the merge of the
-warps' partial softmax are the source's own). Every block shape (S = 1
-or 4 warps on a row group, and the host's choice) is held to the port's
-plain version (O and LSE, within chip_smoke.py's TOL for the kernel on
-the card; the emulated tensor cores sum in IEEE order, the card's round
-toward zero) and O to the JAX
+fragment layouts, the masks, the staging indices and the merges of
+partial softmax states are the sources' own).
+
+``flash_fwd.cu``: every block shape (S = 1 or 4 warps on a row group, and
+the host's choice) is held to the port's plain version (O and LSE, within
+chip_smoke.py's TOL for the kernel on the card; the emulated tensor cores
+sum in IEEE order, the card's round toward zero) and O to the JAX
 package's ``_jnp_reference``; rows with no live key must carry the plain
-version's LSE, and two calls must be bit-identical."""
+version's LSE, and two calls must be bit-identical.
+
+``flash_decode.cu`` and ``flash_decode_q8.cu`` (a row's splits one
+cluster of blocks, run at once, which merge through each other's shared
+memory): at B3 H2 with T split
+unevenly into chunks, D 7, 8, 64 and 128, and lengths of 1, one chunk, one
+chunk + 1 and T, on the host's split of the cache and on forced ones
+(one split a row; more splits than chunks), each held to the port's plain
+version and to JAX's ``_jnp_decode`` (rtol = atol = 1e-5); a row of
+length 0 must get o = 0; garbage and NaN past each length (K and V, and
+the int8 kernel's scales) must leave the output bit-identical, two calls
+must be bit-identical, and the int8 kernel must equal the fp32 kernel on
+the dequantized cache bit for bit. The host's choice of splits is
+checked at small and large B * H."""
 import ctypes
 import importlib
 import os
@@ -54,24 +68,31 @@ def _replace_body(text, signature, body):
     return text[:start] + "{\n" + body + text[end:]
 
 
-def _emulated_sources(out):
-    """flash_common.cuh and flash_fwd.cu rewritten for emu.h into
-    ``out``; returns the path of the kernel's C++ file."""
+def _emulated_sources(out, name):
+    """flash_common.cuh and kernel ``name``'s source rewritten for emu.h
+    into ``out``; returns the path of the kernel's C++ file."""
     with open(os.path.join(_build._CSRC, "flash_common.cuh")) as f:
         common = f.read().replace("#include <cuda_runtime.h>",
                                   '#include "emu.h"')
     for signature, body in (
-            ("void cp_async4(", "  *dst = pred ? *src : 0.f;"),
-            ("void cp_async_wait_all(", ""),
+            ("void cp_async4(",
+             "  if (pred) std::memcpy(dst, src, 4);\n"
+             "  else std::memset(dst, 0, 4);"),
             ("void cp_async16(",
-             "  for (int i = 0; i < 4; ++i) dst[i] = pred ? src[i] : 0.f;"),
+             "  if (pred) std::memcpy(dst, src, 16);\n"
+             "  else std::memset(dst, 0, 16);"),
             ("void cp_async_commit(", ""),
             ("void cp_async_wait(", ""),
+            ("void cluster_sync(", "  emu_cluster_sync();"),
+            ("const float* peer(", "  return emu_peer(p, rank);"),
+            ("cudaError_t launch_clusters(",
+             "  emu_launch_cluster(kernel, grid, cluster, block, smem,"
+             " args...);\n  return cudaSuccess;"),
             ("void mma_tf32(", "  emu_mma(d, a, b);")):
         common = _replace_body(common, signature, body)
     with open(os.path.join(out, "flash_common.cuh"), "w") as f:
         f.write(common)
-    with open(os.path.join(_build._CSRC, "flash_fwd.cu")) as f:
+    with open(os.path.join(_build._CSRC, _build.SOURCES[name])) as f:
         src = f.read()
     src = src.replace("extern __shared__ float4 smem4[];",
                       "float4* smem4 = emu_smem;")
@@ -81,10 +102,26 @@ def _emulated_sources(out):
                  lambda m: "emu_launch(%s, %s, " % (
                      m.group(1), ",".join(m.group(2).split(",")[:3])),
                  src, flags=re.S)
-    path = os.path.join(out, "flash_fwd.cpp")
+    path = os.path.join(out, name + ".cpp")
     with open(path, "w") as f:
         f.write(src)
     return path
+
+
+def _emulated_library(tmp_path_factory, name):
+    """Kernel ``name``'s source built by g++ under emu.h, loaded."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to build the kernel emulation")
+    out = str(tmp_path_factory.mktemp(name + "_emu"))
+    cpp = _emulated_sources(out, name)
+    lib = os.path.join(out, "lib%s_emu.so" % name)
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-shared",
+         "-fPIC", "-pthread", "-w", "-I", out, "-I", EMU, "-o", lib, cpp],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return ctypes.CDLL(lib)
 
 
 @pytest.fixture(scope="module")
@@ -92,18 +129,7 @@ def fwd_lib(tmp_path_factory):
     """The emulated kernel's library: its ``mxt_flash_fwd_split``,
     which forces the block shape, and ``mxt_flash_fwd``, declared as the
     port declares the card's, with the kernel's own choice."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no g++ to build the kernel emulation")
-    out = str(tmp_path_factory.mktemp("flash_fwd_emu"))
-    cpp = _emulated_sources(out)
-    lib = os.path.join(out, "libflash_fwd_emu.so")
-    proc = subprocess.run(
-        [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w",
-         "-I", out, "-I", EMU, "-o", lib, cpp],
-        capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    dll = ctypes.CDLL(lib)
+    dll = _emulated_library(tmp_path_factory, "flash_fwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.mxt_flash_fwd_split.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
     dll.mxt_flash_fwd_split.restype = i
@@ -169,3 +195,163 @@ def test_flash_fwd_source_matches_plain_and_jax(fwd_lib, name, split):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, causal,
         segment_ids=None if seg is None else jnp.asarray(seg)))
     np.testing.assert_allclose(o[rows], ref[rows], **FWD_TOL)
+
+
+# --- the decode pair -------------------------------------------------------
+
+DEC_TOL = dict(rtol=1e-5, atol=1e-5)
+DEC_CASES = {
+    # name: (B, T, H, D); T splits into chunks of uneven length
+    "D7_T301": (3, 301, 2, 7),       # 4-byte fp32 copies, int8 bytes
+    "D8_T301": (3, 301, 2, 8),       # 16-byte fp32 copies, int8 words
+    "D64_T101": (3, 101, 2, 64),     # the model's width: int8 int4s
+    "D128_T101": (3, 101, 2, 128),
+}
+# the three rows' lengths: 1, one chunk, one chunk + 1, T
+DEC_LENGTHS = {"short": lambda T, c: [1, c, c + 1],
+               "full": lambda T, c: [T, c + 1, 1]}
+
+
+def _chunk(T, S):
+    """A split's positions (``decode::chunk_keys``): T cut into S parts."""
+    return -(-max(T, 1) // S)
+
+
+@pytest.fixture(scope="module")
+def decode_libs(tmp_path_factory):
+    """The two decode kernels' emulated entry points, declared as the port
+    declares the card's (with ``.splits``, the host's choice)."""
+    return {name: _build._declare(_emulated_library(tmp_path_factory, name),
+                                  name)
+            for name in ("flash_decode", "flash_decode_q8")}
+
+
+def _decode(fn, q, k, v, lens, scale, S=None, ks=None, vs=None):
+    """(o, S) of one call at S splits, by default the host's (the entry
+    point's own choice, as the port calls it); the int8 kernel when
+    ``ks`` is given. The output starts as NaNs."""
+    B, _, H, D = q.shape
+    T = k.shape[1]
+    o = np.full_like(q, np.nan)
+    scales = () if ks is None else (ks.ctypes.data, vs.ctypes.data)
+    rc = fn(q.ctypes.data, k.ctypes.data, v.ctypes.data, *scales,
+            lens.ctypes.data, o.ctypes.data, B, H, T, D, scale,
+            0 if S is None else S, None)
+    assert rc == 0
+    return o, fn.splits(B, H, T, D) if S is None else S
+
+
+def _decode_inputs(B, T, H, D, seed):
+    """fp32 q, K, V and int8 K, V with (B, T) scales, as
+    tests/test_kv_int8.py makes them."""
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    k, v = (rs.randn(B, T, H, D).astype(np.float32) for _ in range(2))
+    k8, v8 = (rs.randint(-127, 128, size=(B, T, H, D)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rs.uniform(0.005, 0.02, size=(B, T)).astype(np.float32)
+              for _ in range(2))
+    return q, k, v, k8, v8, ks, vs
+
+
+def _garbage_tail(lens, seed, *arrays):
+    """Copies of (B, T, ...) arrays with every position at or beyond its
+    row's length overwritten: NaN in float arrays, random bytes in int8."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for a in arrays:
+        a = a.copy()
+        for b, n in enumerate(lens):
+            if a.dtype == np.int8:
+                a[b, n:] = rs.randint(-128, 128, size=a[b, n:].shape)
+            else:
+                a[b, n:] = np.nan
+        out.append(a)
+    return out
+
+
+def _hold_decode(fns, q, k, v, k8, v8, ks, vs, lens, S=None):
+    """Both kernels on one input, with every check of the module's
+    docstring; returns the splits the call used."""
+    scale = q.shape[-1] ** -0.5
+    fp32, q8 = fns["flash_decode"], fns["flash_decode_q8"]
+    # a row with no live key: the kernels write 0, where the plain version
+    # and JAX average V over the whole (garbage) cache
+    live = lens > 0
+    o, S = _decode(fp32, q, k, v, lens, scale, S)
+    np.testing.assert_array_equal(o[~live], 0.0)
+    np.testing.assert_array_equal(_decode(fp32, q, k, v, lens, scale, S)[0],
+                                  o)
+    want = tfa._torch_decode(*(torch.from_numpy(x) for x in (q, k, v)),
+                             torch.from_numpy(lens), scale).numpy()
+    np.testing.assert_allclose(o[live], want[live], **DEC_TOL)
+    ref = np.asarray(jfa._jnp_decode(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(lens),
+                                     scale))
+    np.testing.assert_allclose(o[live], ref[live], **DEC_TOL)
+    gk, gv = _garbage_tail(lens, 1, k, v)
+    np.testing.assert_array_equal(_decode(fp32, q, gk, gv, lens, scale, S)[0],
+                                  o)
+
+    o8, _ = _decode(q8, q, k8, v8, lens, scale, S, ks, vs)
+    np.testing.assert_array_equal(
+        _decode(q8, q, k8, v8, lens, scale, S, ks, vs)[0], o8)
+    want8 = tfa._torch_decode_q8(
+        *(torch.from_numpy(x) for x in (q, k8, v8, ks, vs, lens)),
+        scale).numpy()
+    np.testing.assert_allclose(o8[live], want8[live], **DEC_TOL)
+    ref8 = np.asarray(jfa.flash_decode(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(lens),
+        scale=scale, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    np.testing.assert_allclose(o8[live], ref8[live], **DEC_TOL)
+    # the fp32 kernel on the dequantized cache: one fp32 multiply an element
+    kd = k8.astype(np.float32) * ks[:, :, None, None]
+    vd = v8.astype(np.float32) * vs[:, :, None, None]
+    np.testing.assert_array_equal(_decode(fp32, q, kd, vd, lens, scale, S)[0],
+                                  o8)
+    gk8, gv8, gks, gvs = _garbage_tail(lens, 2, k8, v8, ks, vs)
+    np.testing.assert_array_equal(
+        _decode(q8, q, gk8, gv8, lens, scale, S, gks, gvs)[0], o8)
+    return S
+
+
+@pytest.mark.parametrize("lengths", sorted(DEC_LENGTHS))
+@pytest.mark.parametrize("name", sorted(DEC_CASES))
+def test_decode_sources_match_plain_and_jax(decode_libs, name, lengths):
+    """The host's split: more than one chunk a row, the last one short."""
+    B, T, H, D = DEC_CASES[name]
+    S = decode_libs["flash_decode"].splits(B, H, T, D)
+    chunk = _chunk(T, S)
+    assert S == -(-T // chunk) > 1 and T % chunk
+    assert decode_libs["flash_decode_q8"].splits(B, H, T, D) == S
+    lens = np.array(DEC_LENGTHS[lengths](T, chunk), np.int32)
+    data = _decode_inputs(B, T, H, D, seed=len(name) + len(lengths))
+    assert _hold_decode(decode_libs, *data, lens) == S
+
+
+@pytest.mark.parametrize("splits", [1, 8])
+def test_decode_sources_at_forced_splits(decode_libs, splits):
+    """One split a row (each block writes o itself, as at a large B * H),
+    and the most, 8 (the host takes 4 here); a row of length 0 among
+    them, and one whose last four splits are empty."""
+    B, T, H, D = 3, 100, 2, 64
+    lens = np.array([0, 40, T], np.int32)
+    data = _decode_inputs(B, T, H, D, seed=splits)
+    assert _hold_decode(decode_libs, *data, lens, S=splits) == splits
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((3, 2, 100, 64), 4),         # small B * H: as many as the stages allow
+    ((1, 12, 576, 64), 8),        # one stream of the server: the most
+    ((8, 12, 576, 64), 6),        # the server's window: 576 blocks
+    ((8, 12, 576, 128), 6),
+    ((44, 12, 576, 64), 1),       # 528 rows fill 4 blocks an SM alone
+    ((64, 12, 1024, 64), 1),
+    ((8, 12, 20, 64), 1),         # one stage
+    ((1, 2, 1024, 128), 8),       # at most kMaxSplits, one cluster
+])
+def test_decode_host_splits(decode_libs, shape, want):
+    """``decode::pick_splits`` on the emulator's 132 SMs, the same for
+    both kernels."""
+    for fn in decode_libs.values():
+        assert fn.splits(*shape) == want
