@@ -69,17 +69,23 @@ no result, anywhere else. Phases (any failure exits non-zero):
    kernels at B8 T576; then, on phase 6's int8 pool, one decode step's
    calls (one per layer) over the raw pages of live requests, launch
    counts zeroed just before and read just after, held the same way;
-8. rtc — ``mx.rtc.CudaModule`` compiles three CUDA C kernels (axpy and
-   scale_rows of tests/test_rtc.py, and row_sum, a shared-memory
-   reduction with 256-thread blocks) with NVRTC and launches them on
-   gpu(0) arrays, held to torch (rtol = atol = 1e-6 for axpy and
-   scale_rows, 1e-5 for row_sum); in-out arrays of another dtype or
+8. rtc — ``mx.rtc.CudaModule`` compiles four CUDA C kernels (axpy and
+   scale_rows of tests/test_rtc.py, row_sum, a shared-memory reduction
+   with 256-thread blocks, and axpy_v4, an axpy with 16-byte loads and
+   stores) with NVRTC and launches each once on gpu(0) arrays (launch
+   counts zeroed just before and read just after: 4, one each), held
+   to torch (rtol = atol = 1e-6 for the axpys and scale_rows, 1e-5 for
+   row_sum); axpy_v4's ragged tail; in-out arrays of another dtype or
    layout are written back, a launch above 48 KB of shared memory
-   works, a broken source raises with the compiler's log, and a CPU
-   context raises. Compile seconds (cold and from the disk cache), host
-   microseconds per launch, and axpy's device time at 2^26 floats
-   against torch.add and its bound. Launch counts are zeroed just before
-   the three kernels' run and read just after;
+   works, a launch from a fresh thread works, a broken source raises
+   with the compiler's log, and a CPU context raises. NVRTC's SASS
+   against ``nvcc -O3``'s for the same source, kernel by kernel. Compile
+   seconds (cold and from the disk cache); host microseconds per launch,
+   stage by stage and whole, beside cuLaunchKernel alone and torch.add;
+   each kernel's device time from CUDA-graph replays (as phases 3-4;
+   a replay must equal the eager launch bit for bit), the eager stream's
+   time beside it, the plain expression's, one PyTorch call's and the
+   bound;
 9. step profile — where one steady decode step's time goes (kernel
    classes, device idle share), from the profiler;
 10. training — the second slice's main path: a Gluon decoder LM at the
@@ -106,6 +112,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -178,11 +185,13 @@ PAGE = 16
 # adds in another order than torch.sum
 RTC_TOL = dict(rtol=1e-6, atol=1e-6)
 ROWSUM_TOL = dict(rtol=1e-5, atol=1e-5)
+# launches in each host-time loop of phase 8
+RTC_REPS = 2000
 # the kernels each main path runs
 SERVER_KERNELS = ("flash_fwd", "flash_decode")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
-# user kernels for mx.rtc: tests/test_rtc.py's two in CUDA C, and a
-# shared-memory reduction
+# user kernels for mx.rtc: tests/test_rtc.py's two in CUDA C, a
+# shared-memory reduction, and an axpy written for this card
 RTC_KERNELS = r"""
 extern "C" __global__ void axpy(float alpha, const float *x, float *y) {
     long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -211,6 +220,27 @@ extern "C" __global__ void row_sum(const float *x, float *out, int n) {
         __syncthreads();
     }
     if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+
+// axpy written for this card: y[0:n] += alpha * x[0:n] four floats a
+// thread through 16-byte float4 loads and stores (x and y 16-byte
+// aligned, as torch allocates them), a grid-stride loop, the last n % 4
+// floats one a thread
+extern "C" __global__ void axpy_v4(float alpha, const float *x, float *y,
+                                   int n) {
+    const float4 *x4 = reinterpret_cast<const float4 *>(x);
+    float4 *y4 = reinterpret_cast<float4 *>(y);
+    long n4 = n / 4, stride = (long)gridDim.x * blockDim.x;
+    long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    for (long i = t; i < n4; i += stride) {
+        float4 a = x4[i], b = y4[i];
+        b.x += alpha * a.x;
+        b.y += alpha * a.y;
+        b.z += alpha * a.z;
+        b.w += alpha * a.w;
+        y4[i] = b;
+    }
+    if (t < n - 4 * n4) y[4 * n4 + t] += alpha * x[4 * n4 + t];
 }
 """
 
@@ -1552,19 +1582,266 @@ def phase_q8_pool(tfa, model, params, pool):
     return launches, err
 
 
-def phase_rtc(card):
-    """The rtc path: mx.rtc compiles RTC_KERNELS and launches each on
-    gpu(0) arrays (launch counts zeroed just before, read just after),
-    held to torch; then write-back, shared memory above 48 KB, a broken
-    source, a CPU context, and the times. Returns the rtc record and the
-    launches."""
+def host_us(loop, reps):
+    """Host microseconds per call of ``loop()``, which makes ``reps``
+    calls, on the host's clock (the card is synchronised before and
+    after, outside the timing)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    loop()
+    dt = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return dt / reps / 1e3
+
+
+def rtc_floors(rtc, fn, alpha, x, y, reps=RTC_REPS):
+    """Two floors under an rtc launch of the axpy ``fn`` on the 1024
+    floats ``x``, ``y`` (torch tensors), host µs per call over ``reps``
+    calls: cuLaunchKernel alone through ctypes with a prebuilt argument
+    array, and torch.add(y, x, alpha=)."""
+    cu = rtc._cuda()
+    cu.cuCtxGetCurrent.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    cu.cuCtxGetCurrent.restype = ctypes.c_int
+    vals = [ctypes.c_float(alpha), ctypes.c_void_p(x.data_ptr()),
+            ctypes.c_void_p(y.data_ptr())]
+    params = (ctypes.c_void_p * 3)(*[ctypes.addressof(v) for v in vals])
+    stream = torch.cuda.current_stream(0).cuda_stream
+    grid = x.numel() // 256
+    cur = ctypes.c_void_p()
+    cu.cuCtxGetCurrent(ctypes.byref(cur))
+    if not cur.value:
+        fail("rtc: no CUDA context is current on the main thread")
+    rcs = set()
+
+    def raw():
+        for _ in range(reps):
+            rcs.add(cu.cuLaunchKernel(fn, grid, 1, 1, 256, 1, 1, 0, stream,
+                                      params, None))
+
+    def add():
+        for _ in range(reps):
+            torch.add(y, x, alpha=alpha)
+    raw()
+    add()
+    out = dict(raw_launch_us=host_us(raw, reps),
+               library_host_us=host_us(add, reps))
+    if rcs != {0}:
+        fail("rtc: cuLaunchKernel returned %s" % sorted(rcs))
+    return out
+
+
+def sass_kernels(cubin):
+    """{kernel: [instruction, ...]} of ``cuobjdump -sass cubin``, NOPs
+    left out."""
+    from mxnet_tpu_torch.parallel import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail("cuobjdump -sass %s: %s" % (cubin, out.stderr))
+    kernels, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+([^;]*);", line)
+        if m and name and not m.group(1).strip().startswith("NOP"):
+            kernels[name].append(m.group(1).strip())
+    return kernels
+
+
+def rtc_sass(mod, arch):
+    """NVRTC's cubin of RTC_KERNELS (from ``mod``'s disk cache) against
+    ``nvcc -O3 -gencode arch=compute_90a,code=sm_90a -cubin`` of the same
+    source, kernel by kernel: instruction count, global loads and stores
+    by width, and whether the instruction streams are identical."""
     import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import _build
+    nvrtc_cubin = os.path.join(mx.rtc._OUT, "%s-%s.cubin"
+                               % (mod._key[:16], arch))
+    src = os.path.join(mx.rtc._OUT, "sass_check.cu")
+    nvcc_cubin = os.path.join(mx.rtc._OUT, "sass_check.cubin")
+    with open(src, "w") as f:
+        f.write(RTC_KERNELS)
+    cc = subprocess.run([_build._nvcc(), "-cubin", "-O3", "-gencode",
+                         "arch=compute_90a,code=sm_90a", "-o", nvcc_cubin,
+                         src], capture_output=True, text=True, timeout=300)
+    if cc.returncode != 0:
+        fail("nvcc -cubin of RTC_KERNELS: %s" % cc.stderr)
+    got, want = sass_kernels(nvrtc_cubin), sass_kernels(nvcc_cubin)
+    lib = mx.rtc._nvrtc()
+    major, minor = ctypes.c_int(), ctypes.c_int()
+    lib.nvrtcVersion(ctypes.byref(major), ctypes.byref(minor))
+    nvcc_version = subprocess.run([_build._nvcc(), "--version"],
+                                  capture_output=True, text=True,
+                                  timeout=60).stdout.strip().splitlines()
+    print("  NVRTC %d.%d against %s" % (major.value, minor.value,
+                                        nvcc_version[-1]))
+    out = {}
+    for name in sorted(want):
+        a, b = got.get(name, []), want[name]
+        mem = [sorted(i.split()[0] for i in ins
+                      if re.match(r"(LDG|STG)\b", i)) for ins in (a, b)]
+        diff = [(i, p, q) for i, (p, q) in enumerate(zip(a, b)) if p != q]
+        # the same instructions on other registers
+        renamed = [re.sub(r"\bU?R\d+\b", "R", i) for i in a] == \
+            [re.sub(r"\bU?R\d+\b", "R", i) for i in b]
+        same_ops = sorted(i.split()[0] for i in a) == \
+            sorted(i.split()[0] for i in b)
+        out[name] = dict(nvrtc=len(a), nvcc=len(b), identical=a == b,
+                         identical_but_registers=renamed,
+                         same_opcodes=same_ops, mem_nvrtc=mem[0],
+                         mem_nvcc=mem[1], differing=len(diff))
+        print("  SASS %-10s NVRTC %d instructions %s | nvcc -O3 %d %s |"
+              " identical: %s, but for register names: %s, the same"
+              " opcodes: %s%s" % (
+                  name, len(a), " ".join(mem[0]), len(b), " ".join(mem[1]),
+                  a == b, renamed, same_ops,
+                  "".join("\n    %d: %s | %s" % d for d in diff[:4])))
+    return out
+
+
+def rtc_stream_pinned(mx):
+    """Whether the stream handle mx.rtc launches on
+    (``torch._C._cuda_getCurrentRawStream``) equals the public
+    ``torch.cuda.current_stream(0).cuda_stream`` on the default stream, on
+    a side stream and inside a CUDA-graph capture."""
+    def same():
+        return mx.rtc._raw_stream(0) == \
+            torch.cuda.current_stream(0).cuda_stream
+    side = torch.cuda.Stream()
+    got = [same()]
+    with torch.cuda.stream(side):
+        got.append(same())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got.append(same())
+        torch.zeros(1, device="cuda").add_(1)   # a capture holds a node
+    return got
+
+
+def rtc_breakdown(k, args, ctx, grid_dims, block_dims, reps=RTC_REPS):
+    """Mean ns per launch of each stage of ``CudaKernel.launch`` over
+    ``reps`` launches of kernel ``k``: its calls, in its order, with a
+    clock read between stages."""
+    import mxnet_tpu_torch as mx
+    rtc = mx.rtc
+    ns = time.perf_counter_ns
+    cu = rtc._libs["cuda"]
+    stages = ("checks", "device check + plan lookup", "stream lookup",
+              "marshalling", "context check", "cuLaunchKernel",
+              "count + write-back")
+    acc = [0] * len(stages)
+    for _ in range(reps):
+        t0 = ns()
+        grid, block, smem = k._check(args, grid_dims, block_dims, 0)
+        c = ctx if ctx is not None else mx.current_context()
+        if c.device_type != "gpu":
+            fail("rtc: not a GPU context")
+        index = c.device_id
+        t1 = ns()
+        plan = k._plans.get(index)
+        for i in k._arrays:
+            if args[i]._data.get_device() != index:
+                fail("rtc: argument %d on another device" % i)
+        t2 = ns()
+        stream = rtc._raw_stream(index)
+        t3 = ns()
+        with plan.lock:
+            temps, writeback = plan.pack(args)
+            t4 = ns()
+            cu.cuCtxGetCurrent(plan.cur_ref)
+            if plan.cur.value != plan.ctx:
+                fail("rtc: the primary context is not current on the main"
+                     " thread")
+            t5 = ns()
+            rc = cu.cuLaunchKernel(plan.fn, grid[0], grid[1], grid[2],
+                                   block[0], block[1], block[2], smem,
+                                   stream, plan.params, None)
+            t6 = ns()
+        t7 = ns()
+        if rc:
+            fail("rtc: cuLaunchKernel returned %d" % rc)
+        rtc.launches["rtc"] += 1
+        if writeback:
+            with torch.no_grad():
+                for arr, t in writeback:
+                    arr._data.copy_(t)
+        del temps
+        t8 = ns()
+        for n, d in enumerate((t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                               (t5 - t4) + (t7 - t6), t6 - t5, t8 - t7)):
+            acc[n] += d
+    return {st: a / reps for st, a in zip(stages, acc)}
+
+
+def replay_equals_eager(launch, out, init):
+    """Whether one launch captured in a CUDA graph and replayed writes
+    ``out`` bit for bit as the same launch made eagerly, both from
+    ``out = init``."""
+    out.copy_(init)
+    launch()
+    torch.cuda.synchronize()
+    eager = out.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    out.copy_(init)
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(out, eager)
+
+
+def fresh_thread_launch(mx, k, ctx):
+    """An axpy launch from a new thread that has never used CUDA: whether
+    a context was current there before the launch, and the error of its
+    result."""
+    rtc = mx.rtc
+    x = mx.nd.NDArray(torch.randn(1024, device="cuda"))
+    y = mx.nd.NDArray(torch.randn(1024, device="cuda"))
+    want = torch.add(y._data, x._data, alpha=2.0)
+    seen = {}
+
+    def work():
+        cur = ctypes.c_void_p()
+        rtc._libs["cuda"].cuCtxGetCurrent(ctypes.byref(cur))
+        seen["current"] = bool(cur.value)
+        try:
+            k.launch((2.0, x, y), ctx, (4, 1, 1), (256, 1, 1))
+        except mx.MXNetError as exc:
+            seen["error"] = exc
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    if t.is_alive() or "error" in seen:
+        fail("rtc: a launch from a fresh thread failed: %s"
+             % seen.get("error", "it hung"))
+    torch.cuda.synchronize()
+    err, ok = close(y._data, want, RTC_TOL)
+    if not ok:
+        fail("rtc: the fresh thread's launch disagrees (err %g)" % err)
+    return seen["current"], err
+
+
+def phase_rtc(card):
+    """The rtc path: mx.rtc compiles RTC_KERNELS and launches each of the
+    four on gpu(0) arrays (launch counts zeroed just before, read just
+    after), held to torch; then write-back, shared memory above 48 KB, a
+    launch from a fresh thread, a broken source, a CPU context, graph
+    replays against eager launches, the SASS against nvcc's, the host
+    cost of a launch stage by stage, and each kernel's device time.
+    Returns one record per kernel and the path's launch counts."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     ctx = mx.gpu(0)
     g = torch.Generator(device="cpu").manual_seed(31)
     n = 1 << 26
     x = mx.nd.NDArray(torch.randn(n, generator=g).to(dev))
     y = mx.nd.NDArray(torch.randn(n, generator=g).to(dev))
+    y4 = mx.nd.NDArray(y._data.clone())
     rows, cols = 4096, 1024
     xs = mx.nd.NDArray(torch.randn(rows, cols, generator=g).to(dev))
     outs = mx.nd.zeros((rows, cols), ctx=ctx)
@@ -1573,26 +1850,41 @@ def phase_rtc(card):
     alpha = 0.5
     y0 = y._data.clone()
     y_ptr = y._data.data_ptr()
+    v4_grid = (n // 4 + 255) // 256
+    calls = {}
 
     mx.rtc.reset_launches()               # the rtc path starts here
     mod = mx.rtc.CudaModule(RTC_KERNELS)
     axpy = mod.get_kernel("axpy", "float alpha, const float *x, float *y")
     scale_rows = mod.get_kernel("scale_rows", "const float *x, float *out")
     row_sum = mod.get_kernel("row_sum", "const float *x, float *out, int n")
-    axpy.launch((alpha, x, y), ctx, (n // 256, 1, 1), (256, 1, 1))
-    scale_rows.launch((xs, outs), ctx, (rows, 1, 1), (cols, 1, 1))
-    row_sum.launch((xr, sums, 4096), ctx, (4096, 1, 1), (256, 1, 1),
-                   shared_mem=256 * 4)
+    axpy_v4 = mod.get_kernel("axpy_v4",
+                             "float alpha, const float *x, float *y, int n")
+    for name, launch in (
+            ("axpy", lambda: axpy.launch((alpha, x, y), ctx,
+                                         (n // 256, 1, 1), (256, 1, 1))),
+            ("scale_rows", lambda: scale_rows.launch(
+                (xs, outs), ctx, (rows, 1, 1), (cols, 1, 1))),
+            ("row_sum", lambda: row_sum.launch(
+                (xr, sums, 4096), ctx, (4096, 1, 1), (256, 1, 1),
+                shared_mem=256 * 4)),
+            ("axpy_v4", lambda: axpy_v4.launch(
+                (alpha, x, y4, n), ctx, (v4_grid, 1, 1), (256, 1, 1)))):
+        before = mx.rtc.launches["rtc"]
+        launch()
+        calls[name] = mx.rtc.launches["rtc"] - before
     torch.cuda.synchronize()
     launches = dict(mx.rtc.launches)      # ... and ends here
     cold = (mod.compile_seconds, mod.from_cache)
     errs = {}
+    want_axpy = torch.add(y0, x._data, alpha=alpha)
     for name, got, want, tol in (
-            ("axpy", y._data, torch.add(y0, x._data, alpha=alpha), RTC_TOL),
+            ("axpy", y._data, want_axpy, RTC_TOL),
             ("scale_rows", outs._data, xs._data * torch.arange(
                 1, rows + 1, device=dev, dtype=torch.float32)[:, None],
              RTC_TOL),
-            ("row_sum", sums._data, xr._data.sum(dim=1), ROWSUM_TOL)):
+            ("row_sum", sums._data, xr._data.sum(dim=1), ROWSUM_TOL),
+            ("axpy_v4", y4._data, want_axpy, RTC_TOL)):
         errs[name], ok = close(got, want, tol)
         if not ok:
             fail("rtc kernel %s disagrees with torch (err %g)"
@@ -1600,13 +1892,25 @@ def phase_rtc(card):
     if y._data.data_ptr() != y_ptr:
         fail("rtc: a contiguous float32 in-out array was not written in"
              " place")
-    print("rtc: 3 kernels compiled by NVRTC in %.3f s (from the disk cache:"
+    print("rtc: 4 kernels compiled by NVRTC in %.3f s (from the disk cache:"
           " %s), launched on %s: max abs err vs torch axpy %.3g, scale_rows"
-          " %.3g, row_sum %.3g; launches %s"
+          " %.3g, row_sum %.3g, axpy_v4 %.3g; launches %s (%s)"
           % (cold[0], cold[1], ctx, errs["axpy"], errs["scale_rows"],
-             errs["row_sum"], launches))
-    if launches["rtc"] != 3:
-        fail("rtc launched %d kernels, want 3" % launches["rtc"])
+             errs["row_sum"], errs["axpy_v4"], launches, calls))
+    # four kernels, one launch each
+    if launches["rtc"] != 4 or set(calls.values()) != {1}:
+        fail("rtc launched %d kernels (%s), want 4, one each"
+             % (launches["rtc"], calls))
+    # axpy_v4's ragged tail: n % 4 floats one a thread
+    nr = (1 << 20) + 3
+    xt = mx.nd.NDArray(torch.randn(nr, generator=g).to(dev))
+    yt = mx.nd.NDArray(torch.randn(nr, generator=g).to(dev))
+    want_t = torch.add(yt._data, xt._data, alpha=alpha)
+    axpy_v4.launch((alpha, xt, yt, nr), ctx, (1024, 1, 1), (256, 1, 1))
+    tail_err, tail_ok = close(yt._data, want_t, RTC_TOL)
+    if not tail_ok:
+        fail("rtc: axpy_v4 at %d floats (a ragged tail, a grid-stride loop)"
+             " err %g" % (nr, tail_err))
 
     # a second module of the same source loads the cubin from the disk
     mod2 = mx.rtc.CudaModule(RTC_KERNELS)
@@ -1634,11 +1938,15 @@ def phase_rtc(card):
     torch.cuda.synchronize()
     print("  from the disk cache: %.3f s; float16 input + float64 in-out"
           " array written back (err %.3g, dtype %s); non-contiguous in-out"
-          " (err %.3g); row_sum with 64 KB of shared memory (err %.3g)"
+          " (err %.3g); row_sum with 64 KB of shared memory (err %.3g);"
+          " axpy_v4 at %d floats (err %.3g)"
           % (mod2.compile_seconds, wb_err, str(y64._data.dtype), nc_err,
-             sm_err))
+             sm_err, nr, tail_err))
     if not (nc_ok and sm_ok):
         fail("rtc: non-contiguous write-back or large shared memory")
+    was_current, th_err = fresh_thread_launch(mx, axpy, ctx)
+    print("  a launch from a fresh thread (a context current there before:"
+          " %s) agrees (err %.3g)" % (was_current, th_err))
 
     # errors: a broken source carries the compiler's log; a CPU context
     broken = mx.rtc.CudaModule(
@@ -1659,33 +1967,101 @@ def phase_rtc(card):
     except mx.MXNetError as exc:
         print("  mx.cpu() launch raises MXNetError: %s" % exc)
 
-    # times: host cost of a launch, axpy on the card
+    # the private stream call the launch uses, against the public one
+    pinned = rtc_stream_pinned(mx)
+    print("  the launch's stream equals torch.cuda.current_stream() on the"
+          " default stream, a side stream, in a capture: %s" % pinned)
+    if not all(pinned):
+        fail("rtc: _cuda_getCurrentRawStream differs from current_stream")
+    # NVRTC's code against nvcc's
+    sass = rtc_sass(mod, mx.rtc._arch(0))
+
+    # host cost of a launch: stage by stage, whole, and two floors
     xs_small = mx.nd.NDArray(torch.randn(1024, device=dev))
     ys_small = mx.nd.NDArray(torch.randn(1024, device=dev))
-    for _ in range(10):
-        axpy.launch((alpha, xs_small, ys_small), ctx, (4, 1, 1), (256, 1, 1))
-    torch.cuda.synchronize()
-    reps = 2000
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        axpy.launch((alpha, xs_small, ys_small), ctx, (4, 1, 1), (256, 1, 1))
-    host_us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    ms = stream_ms(lambda: axpy.launch((alpha, x, y), ctx, (n // 256, 1, 1),
-                                       (256, 1, 1)), iters=20)
-    plain_ms = stream_ms(lambda: y._data + alpha * x._data, iters=20)
-    lib_ms = stream_ms(lambda: torch.add(y._data, x._data, alpha=alpha),
-                       iters=20)
-    nbytes = 3 * 4.0 * n
-    flops = 2.0 * n
-    bound = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
-    print("  host %.1f us per launch (%d launches of a 1024-float axpy);"
-          " axpy 2^26 floats, device ms per call (20 back to back): kernel"
-          " %.4f, y + a * x %.4f, torch.add %.4f | bound %.4f ms (bytes)"
-          " (%s)" % (host_us, reps, ms, plain_ms, lib_ms, bound, card))
-    rec = dict(err=errs["axpy"], ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
-    return rec, launches
+    small_args = (alpha, xs_small, ys_small)
+
+    def host_loop():
+        for _ in range(RTC_REPS):
+            axpy.launch(small_args, ctx, (4, 1, 1), (256, 1, 1))
+    host_loop()
+    stages = {st: v / 1e3 for st, v in rtc_breakdown(
+        axpy, small_args, ctx, (4, 1, 1), (256, 1, 1)).items()}
+    host = host_us(host_loop, RTC_REPS)
+    floors = rtc_floors(mx.rtc, mod._function(0, "axpy"), alpha,
+                        xs_small._data, ys_small._data)
+    print("  host %.2f us per launch (%d launches of a 1024-float axpy);"
+          " stages: %s (sum %.2f); cuLaunchKernel alone %.2f us, torch.add"
+          " %.2f us per call (%s)"
+          % (host, RTC_REPS, ", ".join("%s %.2f" % kv
+                                        for kv in stages.items()),
+             sum(stages.values()), floors["raw_launch_us"],
+             floors["library_host_us"], card))
+
+    # device time of each kernel: graph replays (as rows 1-5), the
+    # eager stream beside it, the plain expression and one PyTorch call
+    r = torch.arange(1, rows + 1, device=dev, dtype=torch.float32)
+    cases = {
+        "axpy": (lambda: axpy.launch((alpha, x, y), ctx, (n // 256, 1, 1),
+                                     (256, 1, 1)),
+                 lambda: y._data + alpha * x._data,
+                 lambda: torch.add(y._data, x._data, alpha=alpha),
+                 3 * 4.0 * n, 2.0 * n, y._data, y0, "axpy 2^26 float32"),
+        "scale_rows": (
+            lambda: scale_rows.launch((xs, outs), ctx, (rows, 1, 1),
+                                      (cols, 1, 1)),
+            lambda: xs._data * torch.arange(1, rows + 1, device=dev,
+                                            dtype=torch.float32)[:, None],
+            lambda: xs._data * r[:, None],
+            2 * 4.0 * rows * cols, 1.0 * rows * cols, outs._data,
+            torch.zeros_like(outs._data), "scale_rows 4096 x 1024 float32"),
+        "row_sum": (
+            lambda: row_sum.launch((xr, sums, 4096), ctx, (4096, 1, 1),
+                                   (256, 1, 1), shared_mem=256 * 4),
+            # the kernel's order: 256 strided partial sums a row, then
+            # those added
+            lambda: xr._data.view(4096, 16, 256).sum(dim=1).sum(dim=1),
+            lambda: xr._data.sum(dim=1),
+            4.0 * (4096 * 4096 + 4096), 4096.0 * 4096, sums._data,
+            torch.zeros_like(sums._data), "row_sum 4096 x 4096 float32"),
+        "axpy_v4": (
+            lambda: axpy_v4.launch((alpha, x, y4, n), ctx, (v4_grid, 1, 1),
+                                   (256, 1, 1)),
+            lambda: y4._data + alpha * x._data,
+            lambda: torch.add(y4._data, x._data, alpha=alpha),
+            3 * 4.0 * n, 2.0 * n, y4._data, y0, "axpy_v4 2^26 float32"),
+    }
+    recs = {}
+    for name, (launch, plain, lib, nbytes, flops, out, init,
+               shape) in cases.items():
+        same = replay_equals_eager(launch, out, init)
+        if not same:
+            fail("rtc: %s replayed from a CUDA graph differs from its eager"
+                 " launch" % name)
+        ms = device_ms(launch)
+        eager_ms = stream_ms(launch, iters=20)
+        plain_ms = device_ms(plain)
+        lib_ms = device_ms(lib)
+        bound = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
+        bound_by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FP32_FLOPS \
+            else "operations"
+        recs[name] = dict(err=errs[name], ms=ms, stream_ms=eager_ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, bound_by=bound_by, shape=shape,
+                          launches=calls[name], graph_equals_eager=same,
+                          sass_identical_to_nvcc=sass[name]["identical"],
+                          sass_identical_but_registers=sass[name][
+                              "identical_but_registers"])
+        print("  %-10s device ms (20 in one CUDA graph): kernel %.4f (20 on"
+              " the stream: %.4f), plain %.4f, library %.4f | bound %.4f ms"
+              " (%s) | graph replay == eager: %s (%s)"
+              % (name, ms, eager_ms, plain_ms, lib_ms, bound, bound_by, same,
+                 card))
+    recs["axpy"].update(host_us=host, library_host_us=floors[
+        "library_host_us"], raw_launch_us=floors["raw_launch_us"],
+        host_stages_us=stages)
+    print("  rtc phase: %.1f s" % (time.perf_counter() - t_phase))
+    return recs, launches
 
 
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
@@ -1698,6 +2074,19 @@ def kernel_row(name, source, replaces, path, shape, launches, rec, err):
                library_ms=rec["library_ms"], ok=True)
     row.update((key, rec[key]) for key in ("cold_ms", "splits")
                if key in rec)
+    return row
+
+
+def rtc_row(name, rec, launches):
+    """One entry of the ``{"kernels": [...]}`` line for an rtc kernel. The
+    axpy row (``rtc``) carries the wrapper's count over the rtc path and
+    the host times; each other row the count's rise at its own launch."""
+    row = dict(name="rtc" if name == "axpy" else "rtc:" + name,
+               route="cuda", source=RTC_SRC, replaces=RTC_TPU, path="rtc",
+               launches=launches["rtc"] if name == "axpy"
+               else rec["launches"], max_abs_err=rec["err"], ok=True)
+    row.update((key, val) for key, val in rec.items()
+               if key not in ("err", "launches"))
     return row
 
 
@@ -1751,9 +2140,7 @@ def main():
         kernel_row("flash_decode_q8", Q8_SRC, Q8_TPU, "int8 decode",
                    "B8 T576 H12 D64 int8", q8_launches, q8,
                    max(q8["err"], q8_pool_err)),
-        kernel_row("rtc", RTC_SRC, RTC_TPU, "rtc", "axpy 2^26 float32",
-                   rtc_launches, rtc, rtc["err"]),
-    ]
+    ] + [rtc_row(name, rtc[name], rtc_launches) for name in rtc]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))

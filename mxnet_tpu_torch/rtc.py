@@ -43,6 +43,18 @@ no counterpart here.
   into a temporary; a non-const array is in-out: a contiguous array of
   the signature's dtype is written in place, any other goes through a
   temporary that is written back into it in its own dtype.
+- **The launch plan**: a kernel's first launch on a device builds its
+  plan once (the CUfunction, one ctypes slot per signature argument, the
+  ``void*[]`` array pointing at them). Every launch then makes its checks,
+  writes the data pointers and scalars into the slots in place (a half
+  or bfloat16 scalar rounded to nearest even, as torch rounds it), reads
+  torch's current stream and calls ``cuLaunchKernel`` once. The device's
+  primary context is pushed only on a thread where it is not current.
+- **CUDA graphs**: a launch of contiguous arrays of the signature's
+  dtypes allocates nothing and never synchronises, so it can be captured
+  in a CUDA graph (``torch.cuda.graph``) once it has launched eagerly on
+  that device (the first launch compiles and loads). A replay of the
+  graph does not tick :data:`launches`.
 - **GPU only**: a CPU context, or an array on another device than the
   context's, raises MXNetError. There is no CPU runner and no fallback.
 
@@ -50,6 +62,7 @@ no counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import ctypes.util
 import glob
@@ -63,6 +76,8 @@ import time
 import torch
 
 from .base import MXNetError
+from .context import current_context
+from .ndarray import NDArray
 
 __all__ = ["CudaModule", "CudaKernel", "launches", "reset_launches"]
 
@@ -107,6 +122,13 @@ _DEFAULT_SMEM = 48 * 1024
 _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
 _OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build",
                     "rtc")
+
+# torch's current stream of a device as the driver's handle: the call
+# under torch.cuda.current_stream(index).cuda_stream, without building a
+# Stream object (0.1-0.2 µs against 2.1-3.7 on the host of an NVIDIA H100
+# 80GB HBM3 at 700.00 W: PERF.md); chip_smoke.py holds it to the public
+# value. Absent where torch has no CUDA, where no launch gets this far.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 # kernel name -> launches since the last reset_launches()
 launches = {"rtc": 0}
@@ -214,6 +236,7 @@ def _cuda():
                                              ctypes.c_int]
     lib.cuCtxPushCurrent_v2.argtypes = [p]
     lib.cuCtxPopCurrent_v2.argtypes = [ctypes.POINTER(p)]
+    lib.cuCtxGetCurrent.argtypes = [ctypes.POINTER(p)]
     lib.cuModuleLoadData.argtypes = [ctypes.POINTER(p), ctypes.c_char_p]
     lib.cuModuleGetFunction.argtypes = [ctypes.POINTER(p), p,
                                         ctypes.c_char_p]
@@ -223,7 +246,7 @@ def _cuda():
                                    ctypes.POINTER(ctypes.c_char_p)]
     for fn in ("cuInit", "cuDeviceGet", "cuDevicePrimaryCtxRetain",
                "cuCtxPushCurrent_v2", "cuCtxPopCurrent_v2",
-               "cuModuleLoadData", "cuModuleGetFunction",
+               "cuCtxGetCurrent", "cuModuleLoadData", "cuModuleGetFunction",
                "cuFuncSetAttribute", "cuLaunchKernel", "cuGetErrorName"):
         getattr(lib, fn).restype = ctypes.c_int       # CUresult
     _libs["cuda"] = lib
@@ -244,36 +267,40 @@ def _cu_check(rc, what):
                          % (what, (name.value or b"?").decode(), rc))
 
 
-class _Context:
-    """The device's primary context (the one torch's runtime uses) made
-    current on this thread for the duration of a ``with``."""
+_primary_ctx = {}          # device index -> primary context handle
 
-    _ctx = {}
 
-    def __init__(self, index):
-        self.index = index
+def _primary(index):
+    """The handle of device ``index``'s primary context (the one torch's
+    runtime uses), retained at the first call."""
+    ctx = _primary_ctx.get(index)
+    if ctx is None:
+        with _lock:
+            ctx = _primary_ctx.get(index)
+            if ctx is None:
+                cu = _cuda()
+                _cu_check(cu.cuInit(0), "cuInit")
+                dev = ctypes.c_int()
+                _cu_check(cu.cuDeviceGet(ctypes.byref(dev), index),
+                          "cuDeviceGet")
+                handle = ctypes.c_void_p()
+                _cu_check(cu.cuDevicePrimaryCtxRetain(
+                    ctypes.byref(handle), dev), "cuDevicePrimaryCtxRetain")
+                ctx = _primary_ctx[index] = handle.value
+    return ctx
 
-    def __enter__(self):
-        cu = _cuda()
-        ctx = _Context._ctx.get(self.index)
-        if ctx is None:
-            with _lock:
-                ctx = _Context._ctx.get(self.index)
-                if ctx is None:
-                    _cu_check(cu.cuInit(0), "cuInit")
-                    dev = ctypes.c_int()
-                    _cu_check(cu.cuDeviceGet(ctypes.byref(dev), self.index),
-                              "cuDeviceGet")
-                    ctx = ctypes.c_void_p()
-                    _cu_check(cu.cuDevicePrimaryCtxRetain(
-                        ctypes.byref(ctx), dev), "cuDevicePrimaryCtxRetain")
-                    _Context._ctx[self.index] = ctx
-        _cu_check(cu.cuCtxPushCurrent_v2(ctx), "cuCtxPushCurrent")
-        return self
 
-    def __exit__(self, *exc):
-        _cuda().cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
-        return False
+@contextlib.contextmanager
+def _pushed(index):
+    """Device ``index``'s primary context pushed on this thread for a
+    ``with`` (loading a module, looking up a function: off the launch
+    path, which pushes it only where it is not current)."""
+    cu = _cuda()
+    _cu_check(cu.cuCtxPushCurrent_v2(_primary(index)), "cuCtxPushCurrent")
+    try:
+        yield
+    finally:
+        cu.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
 
 
 def _compile(source, options, names, name):
@@ -399,7 +426,7 @@ class CudaModule:
         fn = funcs.get(name)
         if fn is None:
             fn = ctypes.c_void_p()
-            with _Context(index):
+            with _pushed(index):
                 _cu_check(_cuda().cuModuleGetFunction(
                     ctypes.byref(fn), module,
                     self._lowered[name].encode()),
@@ -432,7 +459,7 @@ class CudaModule:
                 os.replace(tmp, path + ext)
             self.from_cache = False
         module = ctypes.c_void_p()
-        with _Context(index):
+        with _pushed(index):
             _cu_check(_cuda().cuModuleLoadData(ctypes.byref(module), cubin),
                       "cuModuleLoadData")
         self.compile_seconds = time.perf_counter() - t0
@@ -449,98 +476,220 @@ class CudaKernel:
         self._is_ndarray = is_ndarray
         self._is_const = is_const
         self._dtypes = dtypes
+        # per argument: array?, const?, dtype, the scalar's encoder
+        self._spec = tuple(zip(is_ndarray, is_const, dtypes,
+                               (_ENCODE[dt] for dt in dtypes)))
+        self._arrays = tuple(i for i, nd in enumerate(is_ndarray) if nd)
+        self._writable = any(nd and not c
+                             for nd, c in zip(is_ndarray, is_const))
+        self._plans = {}           # device index -> _Plan
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch the kernel on ``ctx`` (a GPU context). Arrays marked
         const are inputs; other arrays are in-out and receive the
         kernel's writes (reference: CudaKernel.launch)."""
-        from .context import current_context
-        from .ndarray import NDArray
+        grid, block, shared_mem = self._check(args, grid_dims, block_dims,
+                                              shared_mem)
+        ctx = ctx if ctx is not None else current_context()
+        if ctx.device_type != "gpu":
+            raise MXNetError(
+                "mx.rtc kernels run on a GPU context, got %s (there is "
+                "no CPU runner)" % ctx)
+        index = ctx.device_id
+        plan = self._plans.get(index)
+        if plan is None:
+            ctx.torch_device()     # raises where the device is not visible
+        for i in self._arrays:
+            if args[i]._data.get_device() != index:
+                raise MXNetError("argument %d of %s is on %s, the launch "
+                                 "context is %s" % (i, self._name,
+                                                    args[i].context, ctx))
+        if plan is None:
+            plan = self._plan(index)
+        stream = _raw_stream(index)
+        # temporaries stay referenced until the launch is enqueued: the
+        # allocator would otherwise hand a freed one's memory to the next
+        temps, writeback = plan.launch(args, grid, block, shared_mem, stream,
+                                       self._name)
+        launches["rtc"] += 1
+        if writeback:
+            with torch.no_grad():
+                for arr, t in writeback:
+                    arr._data.copy_(t)
+        del temps            # freed in stream order, after the kernel
 
+    def _check(self, args, grid_dims, block_dims, shared_mem):
+        """The checks that come before the device's, in the JAX package's
+        order; returns the grid, the block and the shared memory as
+        ints."""
         if len(grid_dims) != 3 or len(block_dims) != 3:
             raise ValueError(
                 "grid_dims/block_dims must be tuples of 3 integers")
-        grid = tuple(int(g) for g in grid_dims)
-        block = tuple(int(b) for b in block_dims)
+        grid = (int(grid_dims[0]), int(grid_dims[1]), int(grid_dims[2]))
+        block = (int(block_dims[0]), int(block_dims[1]), int(block_dims[2]))
         if min(grid + block) < 1:
             raise MXNetError("grid_dims %s and block_dims %s must be >= 1"
                              % (grid, block))
-        if block[0] * block[1] * block[2] > _MAX_THREADS or any(
-                b > m for b, m in zip(block, _MAX_BLOCK)):
+        if block[0] * block[1] * block[2] > _MAX_THREADS \
+                or block[0] > _MAX_BLOCK[0] or block[1] > _MAX_BLOCK[1] \
+                or block[2] > _MAX_BLOCK[2]:
             raise MXNetError(
                 "block_dims %s: a block holds at most %d threads, at most "
                 "%s along x, y, z" % (block, _MAX_THREADS, _MAX_BLOCK))
         shared_mem = int(shared_mem)
         if shared_mem < 0:
             raise MXNetError("shared_mem must be >= 0, got %d" % shared_mem)
-        if len(args) != len(self._dtypes):
+        if len(args) != len(self._spec):
             raise MXNetError(
                 "CudaKernel(%s) expects %d arguments but got %d"
-                % (self._name, len(self._dtypes), len(args)))
-        for i, (arg, is_nd) in enumerate(zip(args, self._is_ndarray)):
-            if is_nd and not isinstance(arg, NDArray):
+                % (self._name, len(self._spec), len(args)))
+        for i in self._arrays:
+            if not isinstance(args[i], NDArray):
                 raise MXNetError("argument %d of %s must be an NDArray"
                                  % (i, self._name))
-        if not any(nd and not c for nd, c in zip(self._is_ndarray,
-                                                  self._is_const)):
+        if not self._writable:
             raise MXNetError(
                 "kernel %s has no writable (non-const) array argument"
                 % self._name)
+        return grid, block, shared_mem
 
-        ctx = ctx if ctx is not None else current_context()
-        if ctx.device_type != "gpu":
-            raise MXNetError(
-                "mx.rtc kernels run on a GPU context, got %s (there is "
-                "no CPU runner)" % ctx)
-        dev = ctx.torch_device()
-        # temporaries stay referenced until the launch is enqueued: the
-        # allocator would otherwise hand a freed one's memory to the next
-        values, temps, writeback = [], [], []
-        for i, (arg, is_nd, const, dt) in enumerate(
-                zip(args, self._is_ndarray, self._is_const, self._dtypes)):
-            if not is_nd:
-                values.append(_scalar(arg, dt))
-                continue
-            t = arg._data
-            if t.device != dev:
-                raise MXNetError("argument %d of %s is on %s, the launch "
-                                 "context is %s" % (i, self._name,
-                                                    arg.context, ctx))
-            if t.dtype != dt or not t.is_contiguous():
+    def _plan(self, index):
+        """The launch plan on device ``index``, built at the first launch
+        there (compiling or reading the disk cache, and loading)."""
+        fn = self._module._function(index, self._name)
+        ctx = _primary(index)
+        with _lock:
+            plan = self._plans.get(index)
+            if plan is None:
+                plan = self._plans[index] = _Plan(self._spec, fn, ctx)
+        return plan
+
+
+class _Plan:
+    """What every launch of one kernel on one device shares, built once:
+    the CUfunction, one ctypes slot per argument of the argument's C type
+    (an array's as ``c_void_p``), the ``void*[]`` array that points at
+    the slots, the primary context, and the dynamic shared memory the
+    function has been allowed. A launch writes its arguments into the
+    slots in place and hands the driver the same array each time, under
+    the plan's lock: the driver reads the slots inside cuLaunchKernel,
+    which releases the interpreter lock."""
+
+    def __init__(self, spec, fn=None, ctx=None):
+        self.fn = fn
+        self.slots = [ctypes.c_void_p() if nd else _CTYPES[dt]()
+                      for nd, _, dt, _ in spec]
+        self.params = (ctypes.c_void_p * max(1, len(self.slots)))(
+            *[ctypes.addressof(s) for s in self.slots])
+        # (slot, argument index, encoder) of each scalar, (slot, argument
+        # index, const?, dtype) of each array
+        self.scalars = [(self.slots[i], i, encode)
+                        for i, (nd, _, _, encode) in enumerate(spec)
+                        if not nd]
+        self.arrays = [(self.slots[i], i, const, dt)
+                       for i, (nd, const, dt, _) in enumerate(spec) if nd]
+        self.ctx = ctx
+        self.cur = ctypes.c_void_p()       # the thread's current context
+        self.cur_ref = ctypes.pointer(self.cur)
+        self.smem = _DEFAULT_SMEM
+        self.lock = threading.Lock()
+
+    def pack(self, args):
+        """Write ``args`` into the slots: a scalar as its C type's bits, an
+        array as its data pointer. An array whose dtype or layout differs
+        from the signature's goes through a contiguous temporary of the
+        signature's dtype. Returns the temporaries, which must stay
+        referenced until the launch is queued, and the (array, temporary)
+        pairs of in-out arrays to write back."""
+        temps, writeback = [], []
+        for slot, i, encode in self.scalars:
+            slot.value = encode(args[i])
+        for slot, i, const, dt in self.arrays:
+            t = args[i]._data
+            if t.dtype is not dt or not t.is_contiguous():
                 t = t.detach().to(dt).contiguous()
                 temps.append(t)
                 if not const:
-                    writeback.append((arg, t))
-            values.append(ctypes.c_void_p(t.data_ptr()))
+                    writeback.append((args[i], t))
+            slot.value = t.data_ptr()
+        return temps, writeback
 
-        fn = self._module._function(dev.index, self._name)
-        params = (ctypes.c_void_p * max(1, len(values)))()
-        for i, v in enumerate(values):
-            params[i] = ctypes.cast(ctypes.pointer(v), ctypes.c_void_p)
-        cu = _cuda()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with _Context(dev.index):
-            if shared_mem > _DEFAULT_SMEM:
-                _cu_check(cu.cuFuncSetAttribute(
-                    fn, _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES,
-                    shared_mem), "raising %s's dynamic shared memory to %d "
-                    "bytes" % (self._name, shared_mem))
-            _cu_check(cu.cuLaunchKernel(fn, grid[0], grid[1], grid[2],
-                                        block[0], block[1], block[2],
-                                        shared_mem, stream, params, None),
-                      "cuLaunchKernel(%s)" % self._name)
-        launches["rtc"] += 1
-        with torch.no_grad():
-            for arr, t in writeback:
-                arr._data.copy_(t)
-        del temps            # freed in stream order, after the kernel
+    def launch(self, args, grid, block, shared_mem, stream, name):
+        """Pack ``args`` and launch on ``stream``: one cuLaunchKernel,
+        after raising the function's dynamic shared memory where this
+        launch asks for more than it has. The primary context is pushed,
+        and popped after, only where it is not current on this thread
+        (torch's runtime makes it current on a thread that has used the
+        device). Returns what :meth:`pack` returns."""
+        cu = _libs["cuda"]
+        with self.lock:
+            temps, writeback = self.pack(args)
+            cu.cuCtxGetCurrent(self.cur_ref)
+            pushed = self.cur.value != self.ctx
+            if pushed:
+                _cu_check(cu.cuCtxPushCurrent_v2(self.ctx),
+                          "cuCtxPushCurrent")
+            try:
+                if shared_mem > self.smem:
+                    _cu_check(cu.cuFuncSetAttribute(
+                        self.fn,
+                        _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES,
+                        shared_mem), "raising %s's dynamic shared memory to"
+                        " %d bytes" % (name, shared_mem))
+                    self.smem = shared_mem
+                rc = cu.cuLaunchKernel(self.fn, grid[0], grid[1], grid[2],
+                                       block[0], block[1], block[2],
+                                       shared_mem, stream, self.params, None)
+            finally:
+                if pushed:
+                    cu.cuCtxPopCurrent_v2(self.cur_ref)
+        if rc:
+            _cu_check(rc, "cuLaunchKernel(%s)" % name)
+        return temps, writeback
 
 
-def _scalar(value, dtype):
-    """``value`` as the ctypes object of the signature's C type."""
-    if dtype in (torch.float16, torch.bfloat16):
-        bits = torch.tensor(float(value), dtype=dtype).view(torch.int16)
-        return ctypes.c_uint16(int(bits) & 0xFFFF)
-    if dtype.is_floating_point:
-        return _CTYPES[dtype](float(value))
-    return _CTYPES[dtype](int(value))
+def _f32_bits(value):
+    """The bits of ``value`` rounded to float32 as C rounds a double (to
+    nearest even; ±inf beyond float32's range)."""
+    return ctypes.c_uint32.from_buffer(ctypes.c_float(value)).value
+
+
+def _rne(m, s):
+    """``m >> s`` rounded to nearest, ties to even."""
+    q = m >> s
+    r, half = m - (q << s), 1 << (s - 1)
+    return q + (r > half or (r == half and q & 1))
+
+
+def _half_bits(value):
+    """The float16 bits of ``value`` as torch makes them from a Python
+    float: rounded to float32, then to nearest even (NaN: the sign and
+    0x7E00)."""
+    f = _f32_bits(float(value))
+    sign, a = (f >> 16) & 0x8000, f & 0x7FFFFFFF
+    if a > 0x7F800000:
+        return sign | 0x7E00
+    if a >= 0x477FF000:          # 65520 and above round to inf
+        return sign | 0x7C00
+    if a >= 0x38800000:          # normal: exponent bias 127 -> 15
+        return sign | _rne(a - 0x38000000, 13)
+    if a < 0x33000000:           # below 2^-25: to zero
+        return sign
+    # subnormal: the significand in units of 2^-24
+    return sign | _rne((a & 0x7FFFFF) | 0x800000, 126 - (a >> 23))
+
+
+def _bf16_bits(value):
+    """The bfloat16 bits of ``value`` as torch makes them from a Python
+    float: rounded to float32, then to nearest even (NaN: 0x7FC0)."""
+    f = _f32_bits(float(value))
+    if f & 0x7FFFFFFF > 0x7F800000:
+        return 0x7FC0
+    return (f + 0x7FFF + ((f >> 16) & 1)) >> 16
+
+
+# scalar arguments: what each dtype's slot is given
+_ENCODE = {dt: (float if dt.is_floating_point else int)
+           for dt in _CTYPES}
+_ENCODE[torch.float16] = _half_bits
+_ENCODE[torch.bfloat16] = _bf16_bits
