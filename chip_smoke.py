@@ -52,11 +52,21 @@ no result, anywhere else. Phases (any failure exits non-zero):
 5. model — ToyDecoderLM at GPT-2-small width (12 layers, 12 heads x 64,
    d_ff 3072, vocab 50257, 1024 positions; random weights from seed 0):
    prefill logits and 16 stepwise decode logits, kernels vs plain;
-6. server — the first slice's main path: DecodeServer serves 16
-   streamed requests (one consumed through tokens(), one cancelled
-   midway); every stream equals a server-free greedy loop over the same
-   model; then a short run over an int8 KV pool. Kernel launch counts
-   are zeroed just before this phase and read just after it;
+6. server — the first slice's main path: DecodeServer, its fixed
+   program set captured as CUDA graphs in warmup (the decode step and
+   one prefill a ladder rung), serves 16 streamed requests (one consumed
+   through tokens(), one cancelled midway) by graph replay; every stream
+   equals a server-free greedy loop over the same model; exactly
+   ``1 + len(ladder)`` captures, none during traffic, one replay a step,
+   and launch counts exact (each replay adds the launches its graph
+   holds). Kernel launch counts are zeroed just before this run and
+   read just after it. Then the same 16 requests' run over an int8 KV
+   pool, each stream held to a greedy loop over an int8 paged cache;
+   then a weight swap mid-traffic with the prefix cache on (a full-page
+   prefix hit copies its shared page through the copy graph): the swap
+   adds exactly one generation's captures, streams admitted before and
+   after it equal the greedy loop under their own weights, and the old
+   generation's graphs are dropped once its requests finish;
 7. int8 decode — the third slice's ``flash_decode(k_scale=, v_scale=)``
    on ``flash_decode_q8.cu``: at B8 T576 H12 D64 on a cache quantized
    page by page as the int8 pool does it (raw int8 pages, each page's
@@ -87,7 +97,11 @@ no result, anywhere else. Phases (any failure exits non-zero):
    time beside it, the plain expression's, one PyTorch call's and the
    bound;
 9. step profile — where one steady decode step's time goes (kernel
-   classes, device idle share), from the profiler;
+   classes, device idle share, from the profiler), replayed from the
+   server's CUDA graph and run eagerly on the same inputs (identical
+   tokens; ``model.decode`` from a graph equal to the eager logits), the
+   step graph's device time alone, the graphs' memory, and whole
+   scheduler ticks around the replayed step;
 10. training — the second slice's main path: a Gluon decoder LM at the
    same width (``gluon_lm``) on gpu(0), batch 8 x 1024 random tokens,
    next-token SoftmaxCrossEntropyLoss, Adam (lr 1e-3). One
@@ -97,7 +111,16 @@ no result, anywhere else. Phases (any failure exits non-zero):
    steps on one fixed batch (the loss must fall; launch counts zeroed
    just before and read just after: 12 per step for each of flash_fwd,
    flash_bwd_dkdv and flash_bwd_dq), then ms per step, tokens/s and the
-   device idle share from the profiler.
+   device idle share from the profiler;
+11. router (run after 9, before 10, which frees the model) — the fleet
+   Router over two DecodeServers on the card, each with its own pool,
+   both on graphs: 16 sessions over two tenants; replica 1 is not
+   warmed, so its captures run while replica 0 replays, and replica 0
+   swaps to a copy of its weights during one of them; replica 1 is
+   killed once its sessions stream: zero failed streams, every stream
+   equal to the greedy loop; then two more sessions on the survivor and
+   a graceful drain of it, which they outlive; the router's stats,
+   client-side TTFT and inter-token p50, exact launch counts.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, training, int8 decode or rtc; ``launches`` from
@@ -187,6 +210,9 @@ RTC_TOL = dict(rtol=1e-6, atol=1e-6)
 ROWSUM_TOL = dict(rtol=1e-5, atol=1e-5)
 # launches in each host-time loop of phase 8
 RTC_REPS = 2000
+# the server phases' DecodeServer: GPT-2-small prompts up to 512 tokens
+SERVER_CFG = dict(seq_ladder=[64, 128, 256, 512], max_new_tokens=64,
+                  window=8, page_size=16, pool_pages=384)
 # the kernels each main path runs
 SERVER_KERNELS = ("flash_fwd", "flash_decode")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -973,19 +999,115 @@ def greedy_loop(model, params, prompt, n_new, rung, window, T):
     return out, margins
 
 
+def greedy_loop_q8(model, params, prompt, n_new, rung, window, max_pages):
+    """:func:`greedy_loop` over an int8 paged cache: the request's K/V
+    quantized into pages 1..max_pages of a private int8 pool the way the
+    server's pool does it (``scatter_prefill_q8``, then one
+    ``scatter_token_q8`` a step) and dequantized by ``gather_pages_q8``
+    before each decode step, the request in row 0 of the window."""
+    from mxnet_tpu_torch.serving import KVCachePool, kvcache
+    dev = torch.device("cuda", 0)
+    pool = KVCachePool(model.n_layers, model.n_heads, model.head_dim,
+                       page_size=PAGE, n_pages=max_pages + 1, dtype="int8",
+                       device=dev)
+    table = torch.zeros(window, max_pages, dtype=torch.long, device=dev)
+    table[0] = torch.arange(1, max_pages + 1, device=dev)
+    P = len(prompt)
+    toks = torch.zeros(1, rung, dtype=torch.long, device=dev)
+    toks[0, :P] = torch.from_numpy(prompt.astype(np.int64)).to(dev)
+    planes = ((pool.k, pool.k_scale), (pool.v, pool.v_scale))
+    with torch.no_grad():
+        logits, k, v = model.prefill(params, toks)
+        for (pages, scales), seq in zip(planes, (k, v)):
+            kvcache.scatter_prefill_q8(pages, scales, table[0], seq[:, 0], P)
+        out = [int(torch.argmax(logits[0, P - 1]))]
+        margins = [top2_margin(logits[0, P - 1])]
+        tokens = torch.zeros(window, dtype=torch.long, device=dev)
+        positions = torch.zeros(window, dtype=torch.long, device=dev)
+        while len(out) < n_new:
+            tokens[0], positions[0] = out[-1], P + len(out) - 1
+            kc, vc = (kvcache.gather_pages_q8(pages, scales, table)
+                      for pages, scales in planes)
+            lg, nk, nv = model.decode(params, tokens, positions, kc, vc)
+            for (pages, scales), new in zip(planes, (nk, nv)):
+                kvcache.scatter_token_q8(pages, scales, table, positions,
+                                         new)
+            out.append(int(torch.argmax(lg[0])))
+            margins.append(top2_margin(lg[0]))
+    return out, margins
+
+
+def server_specs(vocab, seed, n=16, prompt=(20, 501), new=(32, 65)):
+    """``n`` requests (prompt, new tokens, priority 0/1) drawn from
+    ``seed``: prompts of 20..500 tokens, 32..64 new tokens."""
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, vocab, size=rs.randint(*prompt)),
+             int(rs.randint(*new)), i % 2) for i in range(n)]
+
+
+def check_streams(what, specs, results, reference):
+    """Every stream against ``reference(prompt, n) -> (tokens,
+    margins)``; a divergence must sit at a top-2 tie."""
+    ties = 0
+    for i, ((p, _n, _pri), got) in enumerate(zip(specs, results)):
+        got = [int(t) for t in got]
+        want, margins = reference(p, len(got))
+        if got != want:
+            step = next(j for j, (a, b) in enumerate(zip(got, want))
+                        if a != b)
+            print("  %s: request %d diverges at step %d: top-2 margin %.3g"
+                  % (what, i, step, margins[step]))
+            if margins[step] >= TIE_MARGIN:
+                fail("%s: request %d differs from the greedy loop"
+                     % (what, i))
+            ties += 1
+    print("%s: streams equal the greedy loop: %d/%d (%d at a tie)"
+          % (what, len(results), len(results), ties))
+
+
+def check_graphs(what, st, warm, launches, n_layers, captured=True):
+    """The fixed program set's oracle on one server's ``stats()`` (``warm``:
+    its graphs right after warmup): ``1 + len(ladder)`` captures of the
+    serving generation, none during traffic, one replay a step, and
+    exact launch counts — each replay adds the layers' launches its
+    graph holds, each capture's eager first call launches them once
+    (``captured``: the captures fall inside the counted run)."""
+    g = st["graphs"]
+    want = {"step": 1, "prefill": len(st["ladder"]), "cow": 0}
+    if g is None or warm["captures"] != want or g["captures"] != want:
+        fail("%s: captures %s after warmup, %s after traffic, want %s"
+             % (what, warm and warm["captures"], g and g["captures"], want))
+    if g["after_warmup"] or g["recaptures"]:
+        fail("%s: %d captures during traffic, %d recaptures"
+             % (what, g["after_warmup"], g["recaptures"]))
+    if (g["replays"]["step"], g["replays"]["prefill"]) != \
+            (st["decode_steps"], st["prefill_steps"]):
+        fail("%s: replays %s for %d decode and %d prefill steps"
+             % (what, g["replays"], st["decode_steps"],
+                st["prefill_steps"]))
+    extra = int(captured)
+    exact = {"flash_decode": n_layers * (st["decode_steps"] + extra),
+             "flash_fwd": n_layers * (st["prefill_steps"]
+                                      + extra * len(st["ladder"]))}
+    if any(launches[k] != n for k, n in exact.items()):
+        fail("%s: launches %s, want %s" % (what, launches, exact))
+    print("  %s graphs: captures %s (none in traffic, %d recaptures),"
+          " replays %s, launches exact %s; graph memory %s MB"
+          % (what, g["captures"], g["recaptures"], g["replays"], exact,
+             {k: round(b / 2 ** 20, 1)
+              for k, b in g["memory_bytes"].items()}))
+
+
 def phase_server(model, params, tfa):
     from mxnet_tpu_torch.serving import DecodeServer
-    cfg = dict(seq_ladder=[64, 128, 256, 512], max_new_tokens=64,
-               window=8, page_size=16, pool_pages=384)
-    rs = np.random.RandomState(0)
-    specs = [(rs.randint(0, model.vocab, size=rs.randint(20, 501)),
-              int(rs.randint(32, 65)), i % 2) for i in range(16)]
+    specs = server_specs(model.vocab, seed=0)
     tfa.reset_launches()                  # the main path starts here
     t0 = time.perf_counter()
-    srv = DecodeServer(model, params, **cfg)
+    srv = DecodeServer(model, params, **SERVER_CFG)
     try:
         srv.warmup()
         t_warm = time.perf_counter() - t0
+        warm = srv.stats()["graphs"]
         reqs = [srv.submit(p, max_new_tokens=n, priority=pri)
                 for p, n, pri in specs]
         victim = reqs[1]
@@ -1002,10 +1124,11 @@ def phase_server(model, params, tfa):
         srv.stop()
     launches = dict(tfa.launches)         # ... and ends here
     wall = time.perf_counter() - t0
-    print("server: %d requests, warmup %.2f s, serve %.2f s; tokens/s %.1f,"
-          " ttft p50 %.2f ms, inter-token p50 %.2f ms; launches %s"
-          % (len(reqs), t_warm, wall - t_warm, st["tokens_per_sec"],
-             st["ttft_ms"]["p50"], st["inter_token_ms"]["p50"], launches))
+    print("server (CUDA graphs): %d requests, warmup %.2f s, serve %.2f s;"
+          " tokens/s %.1f, ttft p50 %.2f ms, inter-token p50 %.2f ms;"
+          " launches %s" % (len(reqs), t_warm, wall - t_warm,
+                            st["tokens_per_sec"], st["ttft_ms"]["p50"],
+                            st["inter_token_ms"]["p50"], launches))
     if streamed != [int(t) for t in results[0]]:
         fail("tokens() stream differs from result()")
     if victim.state != "cancelled" or not 8 <= len(results[1]) < \
@@ -1021,54 +1144,144 @@ def phase_server(model, params, tfa):
                                       ("completed", "cancelled", "errors")})
     if min(launches[k] for k in SERVER_KERNELS) < 1:
         fail("a kernel of the path never launched: %s" % launches)
-    # every stream against the server-free greedy loop
-    T = srv._max_pages * cfg["page_size"]
-    ties = 0
-    for i, ((p, n, _pri), got) in enumerate(zip(specs, results)):
-        rung = srv._seq_ladder.bucket_for(len(p))
-        want, margins = greedy_loop(model, params, p, len(got), rung,
-                                    cfg["window"], T)
-        got = [int(t) for t in got]
-        if got != want:
-            step = next(j for j, (a, b) in enumerate(zip(got, want))
-                        if a != b)
-            print("  request %d diverges at step %d: top-2 margin %.3g"
-                  % (i, step, margins[step]))
-            if margins[step] >= TIE_MARGIN:
-                fail("request %d differs from the greedy loop" % i)
-            ties += 1
-    print("server streams equal the greedy loop: 16/16 (%d at a tie)"
-          % ties)
+    check_graphs("server", st, warm, launches, model.n_layers)
+    T = srv._max_pages * SERVER_CFG["page_size"]
+    check_streams("server", specs, results, lambda p, n: greedy_loop(
+        model, params, p, n, srv._seq_ladder.bucket_for(len(p)),
+        SERVER_CFG["window"], T))
     return launches, st
 
 
-def phase_step_profile(model, params, steps=5):
-    """Where one steady decode step's time goes: a full window of 8
-    requests (prompts of 256) is admitted, then `steps` ticks run under
-    the profiler. Prints wall ms per step, device ms per step by kernel
-    class, and the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_server_int8(model, params, tfa):
+    """Phase 6 over an int8 pool: 16 requests on graphs, each stream held
+    to :func:`greedy_loop_q8`. Returns the pool (phase 7 reads it)."""
     from mxnet_tpu_torch.serving import DecodeServer
-    srv = DecodeServer(model, params, seq_ladder=[256], max_new_tokens=64,
-                       window=8, page_size=16, pool_pages=384, start=False)
+    os.environ["MXNET_KV_DTYPE"] = "int8"
     try:
-        rs = np.random.RandomState(2)
-        reqs = [srv.submit(rs.randint(0, model.vocab, size=256),
-                           max_new_tokens=64) for _ in range(8)]
-        while srv.stats()["active"] < 8:
-            srv._tick()                   # prefills (one per tick)
-        srv._tick()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                srv._tick()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        for r in reqs:
-            r.cancel()
+        srv = DecodeServer(model, params, **SERVER_CFG)
     finally:
-        srv.stop(drain=False)
+        del os.environ["MXNET_KV_DTYPE"]
+    specs = server_specs(model.vocab, seed=1)
+    try:
+        if not srv._pool.quantized:
+            fail("the int8 pool is not quantized")
+        tfa.reset_launches()
+        srv.warmup()
+        warm = srv.stats()["graphs"]
+        reqs = [srv.submit(p, max_new_tokens=n, priority=pri)
+                for p, n, pri in specs]
+        results = [r.result(timeout=300) for r in reqs]
+        st = srv.stats()
+    finally:
+        srv.stop()
+    launches = dict(tfa.launches)
+    if st["completed"] != len(specs) or any(
+            len(o) != n for o, (_p, n, _pri) in zip(results, specs)):
+        fail("int8 pool run did not complete: %s" % st["completed"])
+    print("server int8 pool (CUDA graphs): %d/%d requests complete,"
+          " tokens/s %.1f, ttft p50 %.2f ms, inter-token p50 %.2f ms"
+          % (st["completed"], len(specs), st["tokens_per_sec"],
+             st["ttft_ms"]["p50"], st["inter_token_ms"]["p50"]))
+    check_graphs("server int8 pool", st, warm, launches, model.n_layers)
+    check_streams("server int8 pool", specs, results,
+                  lambda p, n: greedy_loop_q8(
+                      model, params, p, n,
+                      srv._seq_ladder.bucket_for(len(p)),
+                      SERVER_CFG["window"], srv._max_pages))
+    return srv._pool
+
+
+def phase_swap(model, params):
+    """A weight swap mid-traffic on graphs, with the prefix cache on: 4
+    requests stream on generation 1 (the second repeats the first's
+    64-token prompt: a full-page prefix hit whose re-fed last token
+    copies the shared page, through the copy graph), ``swap_weights``
+    flips to a second random dict, 4 more are admitted on generation 2.
+    The swap adds exactly one generation's captures; every stream equals
+    the greedy loop under its own weights; generation 1's graphs are
+    dropped once its last request finishes."""
+    from mxnet_tpu_torch.serving import DecodeServer
+    cfg = dict(SERVER_CFG, seq_ladder=[64, 128])
+    params_b = model.init_params(seed=1, device="cuda")
+    specs = server_specs(model.vocab, seed=3, n=8, prompt=(20, 129),
+                         new=(24, 41))
+    shared = np.random.RandomState(4).randint(0, model.vocab, size=64)
+    specs[:2] = [(shared, 32, 0), (shared, 24, 1)]
+    srv = DecodeServer(model, params, prefix_cache=True, **cfg)
+    try:
+        n_prog = srv.warmup()
+        old = [srv.submit(p, max_new_tokens=n) for p, n, _ in specs[:4]]
+        deadline = time.monotonic() + 120
+        while min(len(r.generated) for r in old) < 4:
+            if time.monotonic() > deadline:
+                fail("swap: generation 1 made no progress")
+            time.sleep(0.001)
+        srv.swap_weights(params_b)
+        inflight = sum(not r.done() for r in old)
+        new = [srv.submit(p, max_new_tokens=n) for p, n, _ in specs[4:]]
+        results = [r.result(timeout=300) for r in old + new]
+        st = srv.stats()
+    finally:
+        srv.stop()
+    g = st["graphs"]
+    print("swap: %d of 4 generation-1 requests streaming at the swap;"
+          " prefix hits %d, copy-on-write splits %d; graphs %s"
+          % (inflight, st["prefix"]["hits"], st["prefix"]["cow_splits"],
+             {k: g[k] for k in ("captures", "replays", "after_warmup",
+                                "recaptures", "generations", "retired")}))
+    if inflight < 1:
+        fail("swap: no generation-1 request was streaming at the swap")
+    if g["after_warmup"] != n_prog - 1 or g["recaptures"] \
+            or g["generations"] != [2] or g["retired"] != 1:
+        fail("swap: want %d captures for generation 2, none again, and"
+             " generation 1 retired: %s" % (n_prog - 1, g))
+    if g["captures"]["cow"] != 1 or g["replays"]["cow"] < 1 \
+            or st["prefix"]["cow_splits"] != g["replays"]["cow"]:
+        fail("swap: copy-on-write %s, %d splits"
+             % ({k: g[k]["cow"] for k in ("captures", "replays")},
+                st["prefix"]["cow_splits"]))
+    T = srv._max_pages * cfg["page_size"]
+    for what, part, res, tree in (("swap: generation 1", specs[:4],
+                                   results[:4], params),
+                                  ("swap: generation 2", specs[4:],
+                                   results[4:], params_b)):
+        check_streams(what, part, res, lambda p, n, tree=tree: greedy_loop(
+            model, tree, p, n, srv._seq_ladder.bucket_for(len(p)),
+            cfg["window"], T))
+    del params_b
+
+
+def step_inputs(srv):
+    """The decode step's inputs over ``srv``'s active requests, as
+    ``DecodeServer._decode_group`` builds them."""
+    D, M = srv._window, srv._max_pages
+    tokens = np.zeros((D,), np.int64)
+    positions = np.zeros((D,), np.int64)
+    pts = np.zeros((D, M), np.int64)
+    for i, r in enumerate(srv._active):
+        tokens[i] = r.generated[-1]
+        positions[i] = len(r.prompt) + len(r.generated) - 1
+        pts[i, :len(r.pages)] = r.pages
+    return tokens, positions, pts
+
+
+def profile_steps(fn, steps):
+    """(wall ms a call, device busy ms a call, busy ms by kernel class,
+    the top kernels, wall ms a call without the profiler) of ``steps``
+    calls of ``fn`` under the profiler (and 4 x ``steps`` without)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4 * steps):
+        fn()
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) * 1e3 / (4 * steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
     classes = {"attention kernels": ("decode_kernel", "fwd_kernel"),
                "matmul": ("gemm", "cutlass", "sm90_", "ampere_"),
                "KV gather/scatter": ("index", "gather", "scatter")}
@@ -1082,15 +1295,292 @@ def phase_step_profile(model, params, steps=5):
         cls = next((c for c, keys in classes.items()
                     if any(k in name for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / steps
-    busy = sum(by_class.values())
-    print("decode step (window 8, ~256-token contexts): wall %.2f ms,"
-          " device busy %.2f ms, idle share %.2f"
-          % (wall, busy, 1 - busy / wall if wall else float("nan")))
-    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print("  %-18s %.3f ms/step" % (cls, ms))
-    for us, key, count in sorted(kernels, reverse=True)[:6]:
-        print("  top: %.3f ms/step in %d calls/step  %s"
-              % (us / 1e3 / steps, count // steps, key[:70]))
+    return (wall, sum(by_class.values()), by_class,
+            sorted(kernels, reverse=True), bare)
+
+
+def phase_step_profile(model, params, card, steps=5):
+    """Where one steady decode step's time goes, the step replayed from
+    the server's CUDA graph and run eagerly (its capture body,
+    ``_decode_step``, with today's host-to-device copies) on the same
+    inputs: a full window of 8 requests (prompts of 256) is admitted,
+    then ``steps`` calls of each run under the profiler. Prints wall ms
+    a step, device busy ms by kernel class and the device's idle share
+    of each; the two must give identical tokens, and ``model.decode``
+    replayed from a graph must give the eager call's logits. Then the
+    same for whole scheduler ticks (``_tick``: admission and
+    bookkeeping around one replayed step). Prints the server's graph
+    memory."""
+    from mxnet_tpu_torch.serving import DecodeServer, kvcache
+    srv = DecodeServer(model, params, seq_ladder=[256], max_new_tokens=64,
+                       window=8, page_size=16, pool_pages=384, start=False)
+    try:
+        rs = np.random.RandomState(2)
+        reqs = [srv.submit(rs.randint(0, model.vocab, size=256),
+                           max_new_tokens=64) for _ in range(8)]
+        while srv.stats()["active"] < 8:
+            srv._tick()                   # prefills (one per tick)
+        srv._tick()
+        ver = srv._params
+        ins = step_inputs(srv)
+        modes = {"graph replay": lambda: srv._run_step(ver, *ins),
+                 "eager": lambda: srv._decode_step(
+                     ver.tree, *ins).cpu().numpy()}
+        toks = {mode: fn() for mode, fn in modes.items()}
+        if not np.array_equal(toks["graph replay"], toks["eager"]):
+            fail("step: graph replay tokens %s, eager %s"
+                 % (toks["graph replay"], toks["eager"]))
+        runs = {mode: profile_steps(fn, steps) for mode, fn in modes.items()}
+        step = srv._programs._graphs[("step", 0, ver.version)]
+        replay_ms = events_ms(lambda: [step.replay() for _ in range(20)]) / 20
+        # the logits, which the step graph keeps on the device: a graph of
+        # model.decode over the same gathered caches against one eager call
+        dev = [torch.from_numpy(a).cuda() for a in ins]
+        pool = srv._pool
+
+        def logits():
+            with torch.no_grad():
+                kc, vc = (kvcache.gather_pages(t, dev[2])
+                          for t in (pool.k, pool.v))
+                return model.decode(ver.tree, dev[0], dev[1], kc, vc)[0]
+        want = logits()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            logits()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = logits()
+        graph.replay()
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        # whole scheduler ticks around the replayed step: the step's own
+        # wall plus the scheduler's Python around it
+        ticks = srv.stats()["decode_steps"]
+        runs["tick (replay)"] = profile_steps(srv._tick, steps)
+        if srv.stats()["decode_steps"] - ticks != 5 * steps:
+            fail("step: %d ticks ran %d decode steps"
+                 % (5 * steps, srv.stats()["decode_steps"] - ticks))
+        mem = srv.stats()["graphs"]["memory_bytes"]
+        for r in reqs:
+            r.cancel()
+    finally:
+        srv.stop(drain=False)
+    print("decode step (window 8, ~256-token contexts; %s): tokens of the"
+          " graph replay and the eager step identical; model.decode logits"
+          " graph vs eager max abs diff %.3g; the step graph alone %.3f ms"
+          " of device time (CUDA events, 20 replays); graph memory %s MB"
+          % (card, diff, replay_ms,
+             {k: round(b / 2 ** 20, 1) for k, b in mem.items()}))
+    if diff != 0.0:
+        fail("step: model.decode from a graph differs from eager by %g"
+             % diff)
+    for mode, (wall, busy, by_class, kernels, bare) in runs.items():
+        print("  %-12s wall %.2f ms, device busy %.2f ms, idle share %.2f"
+              " (profiled); wall %.2f ms without the profiler"
+              % (mode, wall, busy, 1 - busy / wall if wall else
+                 float("nan"), bare))
+        for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            print("    %-18s %.3f ms/step" % (cls, ms))
+        for us, key, count in kernels[:4]:
+            print("    top: %.3f ms/step in %d calls/step  %s"
+                  % (us / 1e3 / steps, count // steps, key[:70]))
+    return {mode: dict(wall_ms=r[0], busy_ms=r[1], bare_ms=r[4])
+            for mode, r in runs.items()}
+
+
+def consume(reqs, t0):
+    """Per-token arrival times of each request, read through its
+    ``tokens()`` iterator on a thread of its own (started now)."""
+    stamps = [[] for _ in reqs]
+
+    def read(req, out):
+        for _tok in req.tokens(timeout=300):
+            out.append(time.monotonic() - t0)
+    threads = [threading.Thread(target=read, args=(r, s), daemon=True)
+               for r, s in zip(reqs, stamps)]
+    for t in threads:
+        t.start()
+    return stamps, threads
+
+
+def watch_programs(srv, name, log, busy):
+    """Wrap ``srv``'s program set so that each capture and replay
+    appends ``(name, kind, start, end)`` (monotonic s) to ``log``;
+    ``name`` is in the set ``busy`` while one of its captures runs."""
+    P = srv._programs
+    for kind in ("capture", "replay"):
+        def timed_call(*a, _fn=getattr(P, kind), _kind=kind):
+            t = time.monotonic()
+            if _kind == "capture":
+                busy.add(name)
+            try:
+                return _fn(*a)
+            finally:
+                busy.discard(name)
+                log.append((name, _kind, t, time.monotonic()))
+        setattr(P, kind, timed_call)
+
+
+def phase_router(model, params, tfa):
+    """The fleet Router over two port DecodeServers on the card, each
+    with its own pool, both on graphs: 16 sessions over two tenants
+    (prompts 20..500, 32..64 new tokens). Replica 0 is warmed, replica
+    1 is not (the README's Router example), so replica 1 captures its
+    1 + len(ladder) programs at its first prefill, on its thread, while
+    replica 0 replays; during one of those captures replica 0 swaps to
+    a copy of the weights (a second generation with the same values,
+    so every stream keeps one greedy reference; ``phase_swap`` holds
+    distinct weights): replica 0 captures the new generation at its
+    next prefill, behind replica 1's captures (one capture at a time in
+    the process), and retires the old one once its rows finish. Once
+    replica 1's sessions stream, replica 1 is killed and they fail over
+    to replica 0. Zero failed streams, every stream equal to the greedy
+    loop; then two more sessions and a graceful drain of replica 0,
+    which they outlive. Launch counts zeroed just before the traffic and read just
+    after: one replay adds a graph's launches, one capture's eager
+    call launches them once."""
+    from mxnet_tpu_torch.serving import DecodeServer, Router
+    reps = [DecodeServer(model, params, name="replica-%d" % i, **SERVER_CFG)
+            for i in range(2)]
+    warm, cold = reps
+    warm.warmup()
+    copy = {k: v.clone() for k, v in params.items()}
+    specs = server_specs(model.vocab, seed=5)
+    more = server_specs(model.vocab, seed=6, n=2)
+    log, busy = [], set()
+    for srv, name in ((warm, "warm"), (cold, "cold")):
+        watch_programs(srv, name, log, busy)
+    before = [s.stats()["graphs"]["captures"] for s in reps]
+    tfa.reset_launches()
+    t0 = time.monotonic()
+    router = Router(reps)
+    try:
+        reqs = [router.submit(p, max_new_tokens=n,
+                              tenant="acme" if i % 2 else "zeta")
+                for i, (p, n, _pri) in enumerate(specs)]
+        stamps, threads = consume(reqs, t0)
+        deadline = time.monotonic() + 120
+        # the swap, once replica 0 has replayed 8 times since replica 1
+        # began to capture (or once replica 1's last program is
+        # captured): after it, replica 0's next prefill needs captures of
+        # its own, which wait behind replica 1's
+        t_cold = None
+        while t_cold is None or sum(
+                e[:2] == ("warm", "replay") and e[2] >= t_cold
+                for e in list(log)) < 8:
+            if t_cold is None and "cold" in busy:
+                t_cold = time.monotonic()
+            if time.monotonic() > deadline \
+                    or cold._programs.captures["step"]:
+                break
+            time.sleep(0.0002)
+        t_swap = time.monotonic()
+        warm.swap_weights(copy)
+        t_swapped = time.monotonic()
+        # the kill, once every session bound to replica 1 streams (its
+        # captures done; replica 0's later sessions may still wait for
+        # their own captures, behind replica 1's)
+        victim = next(r for r in router.replicas_up() if r.server is cold)
+        while True:
+            on_victim = [q for q in reqs if q._replica is victim]
+            if on_victim and min(len(q.emitted) for q in on_victim) >= 2:
+                break
+            if time.monotonic() > deadline:
+                fail("router: replica-1's sessions made no progress")
+            time.sleep(0.001)
+        n_bound = len(on_victim)
+        victim.kill()
+        results = [q.result(timeout=300) for q in reqs]
+        st = router.stats()
+        survivor = router.replicas_up()[0]
+        extra = [router.submit(p, max_new_tokens=n) for p, n, _ in more]
+        deadline = time.monotonic() + 120
+        while min(len(q.emitted) for q in extra) < 2:
+            if time.monotonic() > deadline:
+                fail("router: sessions on the survivor made no progress")
+            time.sleep(0.002)
+        router.drain(survivor.name, wait=True)
+        results += [q.result(timeout=300) for q in extra]
+        st2 = router.stats()
+        for t in threads:
+            t.join(60)
+    finally:
+        router.stop()
+    launches = dict(tfa.launches)
+    rep_st = [s.stats() for s in reps]
+    ttft = [s[0] * 1e3 for s in stamps if s]
+    gaps = [(b - a) * 1e3 for s in stamps for a, b in zip(s, s[1:])]
+    spans = [(a, b) for n, k, a, b in log if (n, k) == ("cold", "capture")]
+    inside = sum(any(a <= t < b for a, b in spans)
+                 for n, k, t, _e in log if (n, k) == ("warm", "replay"))
+    swap_in = any(a < t_swapped and t_swap < b for a, b in spans)
+    print("router: 2 replicas (replica-1 unwarmed), %d sessions, replica"
+          " %s killed mid-stream (%d sessions bound); failed %d, completed"
+          " %d, failovers %d, replay tokens %d, resume p50 %.2f ms; ttft"
+          " p50 %.2f ms, inter-token p50 %.2f ms (client side); launches"
+          " %s" % (len(reqs), victim.name, n_bound, st["failed"],
+                   st["completed"], st["failovers"], st["replay_tokens"],
+                   st.get("failover_resume_ms", {}).get("p50", float("nan")),
+                   statistics.median(ttft), statistics.median(gaps),
+                   launches))
+    print("  captures beside replays: replica-1 captured %d programs in"
+          " %.1f ms (%.1f-%.1f ms after the first submit), replica-0"
+          " replayed %d times inside them; replica-0's swap (%.2f ms,"
+          " at %.1f ms) %s a replica-1 capture"
+          % (len(spans), sum(b - a for a, b in spans) * 1e3,
+             (min(a for a, _ in spans) - t0) * 1e3 if spans else 0,
+             (max(b for _, b in spans) - t0) * 1e3 if spans else 0,
+             inside, (t_swapped - t_swap) * 1e3, (t_swap - t0) * 1e3,
+             "overlapped" if swap_in else "did not overlap"))
+    print("  router stats after the drain: %s" % json.dumps(
+        {k: st2[k] for k in ("replicas", "replicas_up", "completed",
+                             "failed", "failovers", "replicas_lost",
+                             "drains", "drain_timeouts", "dispatched",
+                             "replay_tokens", "tenants")}))
+    for s in rep_st:
+        g = s["graphs"]
+        print("  %s graphs: %s" % (s["name"], {k: g[k] for k in (
+            "captures", "replays", "after_warmup", "recaptures",
+            "generations", "retired")}))
+    if st["failed"] or st["completed"] != len(reqs) \
+            or st["replicas_lost"] != 1 or st["failovers"] != n_bound \
+            or n_bound < 1:
+        fail("router: %d bound to the victim, %s" % (n_bound, {
+            k: st[k] for k in ("failed", "completed", "replicas_lost",
+                               "failovers")}))
+    if any(q.failovers for q in extra) or survivor.server is not warm \
+            or survivor.state != "drained" or st2["failed"] \
+            or st2["completed"] != len(reqs) + len(extra):
+        fail("router drain: survivor %s %s, %s" % (
+            survivor.name, survivor.state, {
+                k: st2[k] for k in ("failed", "completed", "failovers")}))
+    n_prog = 1 + len(SERVER_CFG["seq_ladder"])
+    gw, gc = rep_st[0]["graphs"], rep_st[1]["graphs"]
+    if gc["after_warmup"] or gc["recaptures"] \
+            or sum(gc["captures"].values()) != n_prog \
+            or not gc["replays"]["step"]:
+        fail("router: replica-1 (unwarmed) graphs %s" % gc)
+    if gw["after_warmup"] != n_prog or gw["recaptures"] \
+            or gw["generations"] != [2] or gw["retired"] != 1:
+        fail("router: replica-0 wants one generation's captures after the"
+             " swap, none again, generation 1 retired: %s" % gw)
+    if not inside:
+        fail("router: replica-0 never replayed while replica-1 captured")
+    exact = {}
+    for kernel, site, steps in (("flash_decode", "step", "decode_steps"),
+                                ("flash_fwd", "prefill", "prefill_steps")):
+        exact[kernel] = model.n_layers * sum(
+            s[steps] + s["graphs"]["captures"][site] - b[site]
+            for s, b in zip(rep_st, before))
+    if any(launches[k] != n for k, n in exact.items()):
+        fail("router: launches %s, want %s" % (launches, exact))
+    T = reps[0]._max_pages * SERVER_CFG["page_size"]
+    check_streams("router", specs + more, results, lambda p, n: greedy_loop(
+        model, params, p, n, reps[0]._seq_ladder.bucket_for(len(p)),
+        SERVER_CFG["window"], T))
+    return launches
 
 
 def gluon_lm(mx):
@@ -1339,32 +1829,6 @@ def phase_training(tfa, card, steps=20, prof_steps=3):
         print("    top: %.2f ms/step in %d calls/step  %s"
               % (us / 1e3 / prof_steps, count // prof_steps, key[:70]))
     return launches
-
-
-def phase_server_int8(model, params):
-    from mxnet_tpu_torch.serving import DecodeServer
-    os.environ["MXNET_KV_DTYPE"] = "int8"
-    try:
-        srv = DecodeServer(model, params, seq_ladder=[64, 128],
-                           max_new_tokens=32, window=8, page_size=16,
-                           pool_pages=64)
-    finally:
-        del os.environ["MXNET_KV_DTYPE"]
-    rs = np.random.RandomState(1)
-    try:
-        if not srv._pool.quantized:
-            fail("the int8 pool is not quantized")
-        reqs = [srv.submit(rs.randint(0, model.vocab, size=40 + 20 * i),
-                           max_new_tokens=32) for i in range(4)]
-        out = [r.result(timeout=120) for r in reqs]
-        st = srv.stats()
-    finally:
-        srv.stop()
-    if any(len(o) != 32 for o in out) or st["completed"] != 4:
-        fail("int8 pool run did not complete")
-    print("server int8 pool: 4/4 requests complete, tokens/s %.1f"
-          % st["tokens_per_sec"])
-    return srv._pool
 
 
 def q8_pool_cache(B, T, H, D, lens, seed):
@@ -2113,12 +2577,14 @@ def main():
              time.perf_counter() - t0))
     phase_model(model_k, model_p, params)
     launches, _st = phase_server(model_k, params, tfa)
-    pool8 = phase_server_int8(model_k, params)
+    pool8 = phase_server_int8(model_k, params, tfa)
+    phase_swap(model_k, params)
     q8 = phase_q8_decode(tfa)
     q8_launches, q8_pool_err = phase_q8_pool(tfa, model_k, params, pool8)
     del pool8
     rtc, rtc_launches = phase_rtc(card)
-    phase_step_profile(model_k, params)
+    phase_step_profile(model_k, params, card)
+    phase_router(model_k, params, tfa)
     del model_k, model_p, params
     torch.cuda.empty_cache()
     train_launches = phase_training(tfa, card)

@@ -105,6 +105,35 @@ declare("MXNET_DECODE_STOP_TIMEOUT_MS", "int", 5000,
         "Bound on DecodeServer.stop waiting for its scheduler thread; "
         "past it, outstanding streams fail with ServerClosedError.", _G)
 
+_G = "router"
+declare("MXNET_ROUTER_PROBE_MS", "int", 50,
+        "Milliseconds between fleet health-probe sweeps of the "
+        "serving router.", _G)
+declare("MXNET_ROUTER_STRIKES", "int", 2,
+        "Consecutive failed probes before a replica is confirmed "
+        "lost (two-strike false-positive guard).", _G)
+declare("MXNET_ROUTER_MAX_INFLIGHT", "int", 8,
+        "Per-replica bound on router-dispatched in-flight sessions "
+        "(excess sessions wait in the tenant queues).", _G)
+declare("MXNET_ROUTER_TENANT_QUEUE", "int", 256,
+        "Per-tenant router queue bound; past it the newest lowest-"
+        "priority queued session of that tenant is shed.", _G)
+declare("MXNET_ROUTER_TENANT_WEIGHT", "float", 1.0,
+        "Default weighted-fair-queueing weight of a tenant not "
+        "configured explicitly.", _G)
+declare("MXNET_ROUTER_TENANT_RATE", "float", 0.0,
+        "Default per-tenant token-bucket refill rate, tokens/sec "
+        "(prompt + budgeted generation tokens; 0 = unlimited).", _G)
+declare("MXNET_ROUTER_TENANT_BURST", "float", 0.0,
+        "Default per-tenant token-bucket capacity (0 = 2 x rate, or "
+        "unlimited when the rate is 0).", _G)
+declare("MXNET_ROUTER_DRAIN_TIMEOUT_MS", "int", 10000,
+        "Graceful-drain budget per replica; sessions still streaming "
+        "past it fail over to the remaining replicas.", _G)
+declare("MXNET_ROUTER_RECORD_EVERY", "int", 50,
+        "Router pump rounds (with activity) between router telemetry "
+        "records.", _G)
+
 
 _UNSET = object()
 

@@ -18,7 +18,13 @@ Sites of this slice:
 - ``kv_share`` — once per would-be prefix-cache hit; a raise forces a
   miss (a full private prefill);
 - ``kv_cow`` — once per copy-on-write page split; a raise degrades the
-  request to a private re-prefill.
+  request to a private re-prefill;
+- ``serve_route`` — once per router dispatch; a raise is counted and
+  survived (the session stays queued and routes on the next pass), a
+  hang stalls dispatch so queued sessions age;
+- ``replica_lost`` — once per replica per router health sweep; a
+  planned raise confirms the loss of the replica under probe on that
+  visit.
 
 Actions: ``raise`` → :class:`InjectedFault`; ``hang`` → sleep
 ``MXNET_FAULT_HANG_SECONDS`` then :class:`InjectedHang`; ``stall`` →
@@ -37,8 +43,8 @@ __all__ = ["FaultPlan", "InjectedFault", "InjectedHang", "plan",
            "set_plan", "reset", "inject", "stats", "reset_stats"]
 
 _ACTIONS = ("raise", "hang", "stall")
-_SITES = ("serve_admit", "serve_decode", "kv_evict", "kv_share",
-          "kv_cow")
+_SITES = ("serve_admit", "serve_decode", "serve_route", "kv_evict",
+          "kv_share", "kv_cow", "replica_lost")
 
 
 class InjectedFault(MXNetError):

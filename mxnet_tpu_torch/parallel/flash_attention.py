@@ -39,18 +39,24 @@ that attends to nothing (segment id 0) contributes no gradient; the
 JAX kernels give such rows weights that depend on the tiling, so the
 two agree where a masked loss puts a zero cotangent on those rows.
 
-Each wrapper counts its kernel launches in :data:`launches`.
+Each wrapper counts its kernel launches in :data:`launches`. A CUDA
+graph capture enqueues kernels and runs none: inside
+:func:`recording_launches` the calling thread's counts go to the block's
+own dict instead, and a graph replay adds them back with
+:func:`add_launches`.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_decode", "launches",
-           "reset_launches"]
+           "reset_launches", "recording_launches", "add_launches"]
 
 _NEG = -1e30
 
@@ -59,10 +65,41 @@ launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_q8": 0,
             "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 
+# the dict a capture on this thread counts into (recording_launches)
+_held = threading.local()
+
+
 def reset_launches():
     """Set every launch count to 0."""
     for name in launches:
         launches[name] = 0
+
+
+def _count(name):
+    sink = getattr(_held, "counts", None)
+    (launches if sink is None else sink)[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside the block, this thread's launches count into the yielded
+    dict, not :data:`launches` (other threads count as usual): what a
+    CUDA graph captured inside holds, for :func:`add_launches` at each
+    replay."""
+    counts = dict.fromkeys(launches, 0)
+    outer = getattr(_held, "counts", None)
+    _held.counts = counts
+    try:
+        yield counts
+    finally:
+        _held.counts = outer
+
+
+def add_launches(counts, times=1):
+    """Add ``times`` x ``counts`` (a :func:`recording_launches` dict) to
+    :data:`launches`: the kernels a graph replay ran."""
+    for name, n in counts.items():
+        launches[name] += n * times
 
 
 def _torch_reference(q, k, v, scale, causal, segment_ids=None):
@@ -231,7 +268,7 @@ def _fwd_cuda(q, k, v, seg, scale, causal):
                 float(scale), int(bool(causal)),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_fwd")
-    launches["flash_fwd"] += 1
+    _count("flash_fwd")
     return o, lse
 
 
@@ -277,7 +314,7 @@ def _bwd_cuda(name, q, k, v, do, lse, dcap, seg, scale, causal):
                     out.data_ptr(), B, H, Tq, Tk, D, float(scale),
                     int(bool(causal)), stream)
     _raise_on(rc, name)
-    launches[name] += 1
+    _count(name)
     return out
 
 
@@ -349,7 +386,7 @@ def _decode_cuda(q, k, v, lengths, scale):
                 o.data_ptr(), B, H, T, D, float(scale), 0,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode")
-    launches["flash_decode"] += 1
+    _count("flash_decode")
     return o
 
 
@@ -394,7 +431,7 @@ def _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths, scale):
                 o.data_ptr(), B, H, T, D, float(scale), 0,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode_q8")
-    launches["flash_decode_q8"] += 1
+    _count("flash_decode_q8")
     return o
 
 

@@ -31,14 +31,22 @@ over a paged KV cache (counterpart of ``mxnet_tpu/serving/decode.py``).
   step, ``kv_evict`` per page reclaim, ``kv_share``/``kv_cow`` on the
   prefix path.
 
-**Eager torch, no fixed program set.** The JAX server compiles one
-prefill program per ladder rung plus one decode-step program and
-checks, through ``compile_watch``, that no other program is ever
-compiled. Here each step is a plain method call running eager torch
-ops, so there is no program set to count and no such oracle; the
-ladder still bounds the prefill shapes. Capturing the steps as CUDA
-graphs is a later change. :meth:`DecodeServer.warmup` runs every step
-shape once (building the attention kernels on a first call).
+**The fixed program set as CUDA graphs.** The JAX server compiles one
+prefill program per ladder rung, one decode-step program and one
+copy-on-write program, and checks through ``compile_watch`` that no
+other program is ever compiled. On a CUDA device this server captures
+the same set as CUDA graphs (:class:`_Programs`): the decode step
+(``_decode_step``: gather → ``model.decode`` → scatter → argmax) and
+each rung's prefill (``_prefill_step``) once per weight generation, the
+page copy once. Every step after that is one graph replay over static
+input buffers, staged from pinned host memory; the graphs of a
+generation are dropped once no request of it remains. ``stats()
+["graphs"]`` counts captures, replays and recaptures (the oracle:
+``1 + len(ladder)`` captures a generation, plus one copy, and none
+again in steady state). :meth:`DecodeServer.warmup` captures
+generation 1's set; a later generation's is captured at its first use.
+A capture that fails raises: nothing falls back to eager on the card.
+On a CPU device the same step bodies run eagerly.
 
 **Device.** The server runs on ``device`` (default ``cuda:0``; with no
 CUDA device, construction raises unless ``device="cpu"``). Its
@@ -88,6 +96,12 @@ from .server import (RequestTimeoutError, ServerClosedError,
 __all__ = ["DecodeServer", "DecodeRequest", "ToyDecoderLM"]
 
 _DONE = object()          # stream sentinel
+
+_SITES = ("step", "prefill", "cow")
+# one capture at a time in the process: torch.cuda.graph synchronises
+# the device and empties the allocator's cache before it captures,
+# which another thread's capture in flight would not survive
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _ParamsVersion:
@@ -330,6 +344,177 @@ class ToyDecoderLM:
 
 
 # ---------------------------------------------------------------------------
+# the fixed program set
+# ---------------------------------------------------------------------------
+
+def _cuda_capture(body, device, pool):
+    """Capture ``body()`` as a CUDA graph on ``device``: one eager call on
+    a side stream first (it builds the kernels and sets up cuBLAS
+    outside the capture), then the capture into the graph memory pool
+    ``pool``. The mode is thread-local, so other servers' threads keep
+    launching and synchronising while this one captures. Returns
+    ``(replay, output, launches)``: the graph's replay, its output
+    tensor and the kernel launches it holds."""
+    from ..parallel import flash_attention as fa
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        body()
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with fa.recording_launches() as held:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            out = body()
+    return graph.replay, out, held
+
+
+class _Graph:
+    """One captured program: its replay, its output, the kernel
+    launches it holds, and the weights it reads (kept alive with it)."""
+
+    __slots__ = ("replay", "output", "launches", "weights")
+
+    def __init__(self, replay, output, launches, weights):
+        self.replay = replay
+        self.output = output
+        self.launches = launches
+        self.weights = weights
+
+
+class _Programs:
+    """The decode server's fixed program set, keyed by (site, rung,
+    generation): site ``"step"`` (rung 0) and ``"prefill"`` (one a
+    ladder rung) per weight generation, ``"cow"`` (rung 0, generation
+    None) once. Each program's inputs live in static device buffers, one
+    set per (site, rung) shared by the generations; an array input is
+    staged through pinned host memory, an int by a device fill.
+    ``capture(body, device, pool)`` makes a program (:func:`_cuda_capture`
+    on the card; the tests drive the bookkeeping on the CPU with a
+    stand-in)."""
+
+    def __init__(self, device, capture=_cuda_capture):
+        self.device = device
+        self._capture = capture
+        self._cuda = device.type == "cuda"
+        self._mempool = None
+        self._graphs = {}
+        self._inputs = {}        # (site, rung) -> [(device, host or None)]
+        self._staged = None      # event after the last staging copies
+        self._seen = set()
+        self.captures = dict.fromkeys(_SITES, 0)
+        self.replays = dict.fromkeys(_SITES, 0)
+        self.recaptures = 0      # a key captured again
+        self.after_warmup = 0    # captures once warmup() has run
+        self.retired = 0         # generations dropped
+        self.memory_bytes = dict.fromkeys(_SITES, 0)
+        self.warmed = False
+
+    def has(self, site, rung, generation):
+        return (site, rung, generation) in self._graphs
+
+    def generations(self):
+        # list() copies the keys in one step: stats() may run on another
+        # thread while the server's thread captures or retires
+        return sorted({k[2] for k in list(self._graphs)
+                       if k[2] is not None})
+
+    def _buffers(self, site, rung, args):
+        bufs = self._inputs.get((site, rung))
+        if bufs is None:
+            bufs = []
+            for a in args:
+                if isinstance(a, (int, _np.integer)):
+                    bufs.append((torch.zeros((), dtype=torch.long,
+                                             device=self.device), None))
+                    continue
+                host = torch.zeros(a.shape, dtype=torch.long,
+                                   pin_memory=self._cuda)
+                bufs.append((torch.zeros(a.shape, dtype=torch.long,
+                                         device=self.device), host))
+            self._inputs[(site, rung)] = bufs
+        return bufs
+
+    def _stage(self, bufs, args):
+        if self._staged is not None:
+            # the pinned buffers are rewritten only once the copies out
+            # of them have landed
+            self._staged.synchronize()
+        for (dev, host), a in zip(bufs, args):
+            if host is None:
+                dev.fill_(int(a))
+            else:
+                host.numpy()[...] = a
+                dev.copy_(host, non_blocking=True)
+        if self._cuda:
+            if self._staged is None:
+                self._staged = torch.cuda.Event()
+            self._staged.record()
+
+    def capture(self, site, rung, generation, args, body, weights=None):
+        """Capture ``body(*inputs)`` as program (site, rung, generation)
+        over the static buffers shaped like ``args``, with every input
+        zero (tables of the dump page, ``n_valid`` 0) for its eager
+        call."""
+        key = (site, rung, generation)
+        bufs = self._buffers(site, rung, args)
+        self._stage(bufs, [0 if host is None else 0 * a
+                           for (_d, host), a in zip(bufs, args)])
+        inputs = [dev for dev, _host in bufs]
+        with _CAPTURE_LOCK:
+            if self._cuda:
+                torch.cuda.empty_cache()
+                before = torch.cuda.memory_reserved(self.device)
+            replay, out, held = self._capture(
+                lambda: body(*inputs), self.device, self._pool())
+            if self._cuda:
+                self.memory_bytes[site] += \
+                    torch.cuda.memory_reserved(self.device) - before
+        self.recaptures += int(key in self._seen)
+        self.after_warmup += int(self.warmed)
+        self._seen.add(key)
+        self.captures[site] += 1
+        self._graphs[key] = _Graph(replay, out, dict(held), weights)
+
+    def _pool(self):
+        # one graph memory pool for the server's graphs: they replay one
+        # at a time on its thread, and each keeps its output alive
+        if self._cuda and self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
+        return self._mempool
+
+    def replay(self, site, rung, generation, args):
+        """Stage ``args`` into the program's inputs, replay it, count
+        the launches it holds; returns its output tensor."""
+        from ..parallel import flash_attention as fa
+        g = self._graphs[(site, rung, generation)]
+        self._stage(self._inputs[(site, rung)], args)
+        g.replay()
+        fa.add_launches(g.launches)
+        self.replays[site] += 1
+        return g.output
+
+    def retire(self, live):
+        """Drop the graphs (and with them the weights) of every
+        generation not in ``live``."""
+        dead = [k for k in list(self._graphs)
+                if k[2] is not None and k[2] not in live]
+        self.retired += len({k[2] for k in dead})
+        for k in dead:
+            del self._graphs[k]
+
+    def stats(self):
+        return {"captures": dict(self.captures),
+                "replays": dict(self.replays),
+                "recaptures": self.recaptures,
+                "after_warmup": self.after_warmup,
+                "generations": self.generations(),
+                "retired": self.retired,
+                "memory_bytes": dict(self.memory_bytes)}
+
+
+# ---------------------------------------------------------------------------
 # the server
 # ---------------------------------------------------------------------------
 
@@ -454,6 +639,9 @@ class DecodeServer:
         self._queue = deque()
         self._active = []
         self._params = _ParamsVersion(1, _place(params, self._device))
+        # the fixed program set as CUDA graphs; eager on the CPU
+        self._programs = _Programs(self._device) \
+            if self._device.type == "cuda" else None
         self._rid = itertools.count(1)
         self._stats = {"requests": 0, "completed": 0, "cancelled": 0,
                        "timeouts": 0, "shed": 0, "errors": 0,
@@ -480,17 +668,25 @@ class DecodeServer:
         if start:
             self.start()
 
-    # -- the steps (eager; they update the pool in place) -------------------
-    def _to_dev(self, arr):
-        return torch.from_numpy(arr).to(self._device, torch.long)
+    # -- the steps (the graphs' bodies; they update the pool in place) -----
+    def _to_dev(self, x):
+        """A step input on the device: a tensor is taken as it is (a
+        static buffer of the program set), an array or int is copied."""
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.from_numpy(_np.asarray(x)).to(self._device,
+                                                   torch.long)
 
     @torch.no_grad()
     def _prefill_step(self, params, tokens, n_valid, page_table):
         """Prefill one prompt (``tokens (1, rung)``, ``n_valid`` real
         tokens), write its K/V through ``page_table`` and return the
-        greedy first token (a 0-d device tensor)."""
-        logits, k_seq, v_seq = self._model.prefill(params,
-                                                   self._to_dev(tokens))
+        greedy first token (a 0-d device tensor). Each input may be a
+        device tensor, ``n_valid`` a 0-d one: nothing here reads a value
+        on the host."""
+        tokens = self._to_dev(tokens)
+        n_valid = self._to_dev(n_valid)
+        logits, k_seq, v_seq = self._model.prefill(params, tokens)
         pt = self._to_dev(page_table)
         pool = self._pool
         if pool.quantized:
@@ -501,7 +697,10 @@ class DecodeServer:
         else:
             kvcache.scatter_prefill(pool.k, pt, k_seq[:, 0], n_valid)
             kvcache.scatter_prefill(pool.v, pt, v_seq[:, 0], n_valid)
-        return torch.argmax(logits[0, int(n_valid) - 1])
+        # the row of the last real token, gathered on the device (n_valid
+        # 0, warmup's, wraps to the last row as a negative index does)
+        last = torch.remainder(n_valid - 1, tokens.shape[1]).reshape(1)
+        return torch.argmax(logits[0].index_select(0, last)[0])
 
     @torch.no_grad()
     def _decode_step(self, params, tokens, positions, page_tables):
@@ -529,6 +728,74 @@ class DecodeServer:
             kvcache.scatter_token(pool.k, pts, pos, k_new)
             kvcache.scatter_token(pool.v, pts, pos, v_new)
         return torch.argmax(logits, dim=-1)
+
+    # -- the program set: a graph replay on the card, the body on the CPU --
+    def _prefill_args(self, rung):
+        return (_np.zeros((1, rung), _np.int64), 0,
+                _np.zeros((self._max_pages,), _np.int64))
+
+    def _step_args(self):
+        W, M = self._window, self._max_pages
+        return (_np.zeros((W,), _np.int64), _np.zeros((W,), _np.int64),
+                _np.zeros((W, M), _np.int64))
+
+    def _capture_generation(self, ver):
+        """Capture ``ver``'s decode step and every rung's prefill (those
+        not captured yet); returns the number of programs the
+        generation has. Runs under the pool's ``step_lock``: each
+        capture's eager call writes the dump page."""
+        P, tree, gen = self._programs, ver.tree, ver.version
+        for rung in self._seq_ladder.buckets:
+            if not P.has("prefill", rung, gen):
+                P.capture("prefill", rung, gen, self._prefill_args(rung),
+                          lambda *a: self._prefill_step(tree, *a), tree)
+        if not P.has("step", 0, gen):
+            P.capture("step", 0, gen, self._step_args(),
+                      lambda *a: self._decode_step(tree, *a), tree)
+        return 1 + len(self._seq_ladder.buckets)
+
+    def _capture_cow(self):
+        if not self._programs.has("cow", 0, None):
+            self._programs.capture("cow", 0, None, (0, 0),
+                                   self._pool.copy_page)
+
+    def _run_prefill(self, ver, tokens, n_valid, page_table):
+        """The greedy first token (an int) of one prefill."""
+        if self._programs is None:
+            return int(self._prefill_step(ver.tree, tokens, n_valid,
+                                          page_table))
+        self._capture_generation(ver)
+        return int(self._programs.replay(
+            "prefill", tokens.shape[1], ver.version,
+            (tokens, n_valid, page_table)))
+
+    def _run_step(self, ver, tokens, positions, page_tables):
+        """The greedy tokens ``(window,)`` of one decode step, as numpy."""
+        if self._programs is None:
+            out = self._decode_step(ver.tree, tokens, positions,
+                                    page_tables)
+        else:
+            self._capture_generation(ver)
+            out = self._programs.replay(
+                "step", 0, ver.version, (tokens, positions, page_tables))
+        return out.cpu().numpy()
+
+    def _run_cow(self, src, dst):
+        if self._programs is None:
+            self._pool.copy_page(src, dst)
+            return
+        self._capture_cow()
+        self._programs.replay("cow", 0, None, (src, dst))
+
+    def _retire_generations(self):
+        """Drop the graphs of every generation no request holds."""
+        if self._programs is None:
+            return
+        with self._cond:
+            live = {r.params.version for r in self._active
+                    if r.params is not None}
+            live.add(self._params.version)
+        self._programs.retire(live)
 
     def _namespace(self, ver):
         """The prefix-index namespace: share group (defaults to this
@@ -611,33 +878,36 @@ class DecodeServer:
         return False
 
     def warmup(self):
-        """Run every step shape once (each prefill rung, the decode
-        step, and the copy-on-write copy when the prefix cache is on)
-        before taking traffic, so the kernels are built and the
-        libraries' first-call costs are paid. Warmup writes only the
+        """Make the fixed program set ready before taking traffic: each
+        prefill rung, the decode step, and the copy-on-write copy when
+        the prefix cache is on. On a CUDA device each is captured as a
+        CUDA graph for the serving weights (its eager first call builds
+        the kernels); on the CPU each runs once. Warmup writes only the
         dump page (``n_valid=0``, all-zero tables). The scheduler is
-        paused meanwhile. Returns the number of steps run."""
+        paused meanwhile. Returns the number of programs."""
         with self._cond:
             if self._closed:
                 raise ServerClosedError("DecodeServer is stopped")
             self._warming = True
+            ver = self._params
         try:
-            n = 0
-            zeros_pt = _np.zeros((self._max_pages,), _np.int64)
             with self._pool.step_lock:
+                if self._programs is not None:
+                    with self._on_device():
+                        n = self._capture_generation(ver)
+                        if self._prefix_on:
+                            self._capture_cow()
+                            n += 1
+                    self._programs.warmed = True
+                    return n
+                n = 0
                 for rung in self._seq_ladder.buckets:
-                    toks = _np.zeros((1, rung), _np.int64)
-                    int(self._prefill_step(self._params.tree, toks, 0,
-                                           zeros_pt))
+                    self._run_prefill(ver, *self._prefill_args(rung))
                     n += 1
-                toks = _np.zeros((self._window,), _np.int64)
-                pts = _np.zeros((self._window, self._max_pages),
-                                _np.int64)
-                self._decode_step(self._params.tree, toks, toks,
-                                  pts).cpu()
+                self._run_step(ver, *self._step_args())
                 n += 1
                 if self._prefix_on:
-                    self._pool.copy_page(0, 0)   # dump page onto itself
+                    self._run_cow(0, 0)   # dump page onto itself
                     n += 1
             return n
         finally:
@@ -770,8 +1040,9 @@ class DecodeServer:
                        tuple(old.shape), old.dtype))
         if self._device.type == "cuda":
             # the copies land BEFORE the flip: the next step must never
-            # read a half-loaded dict
-            torch.cuda.synchronize(self._device)
+            # read a half-loaded dict (a stream's sync, not the device's:
+            # another server's thread may be capturing a graph)
+            torch.cuda.current_stream(self._device).synchronize()
         with self._cond:
             old = self._params
             new_version = old.version + 1
@@ -790,10 +1061,12 @@ class DecodeServer:
         with self._cond:
             return bool(self._queue or self._active)
 
-    def _loop(self):
-        dev = torch.cuda.device(self._device) \
+    def _on_device(self):
+        return torch.cuda.device(self._device) \
             if self._device.type == "cuda" else contextlib.nullcontext()
-        with dev:
+
+    def _loop(self):
+        with self._on_device():
             while True:
                 with self._cond:
                     # idle: submit/stop/warmup-end all notify; the 1 s
@@ -830,6 +1103,7 @@ class DecodeServer:
         self._reap()
         did = self._admit_one()
         did = self._decode_once() or did
+        self._retire_generations()
         if metering.enabled():
             raise NotImplementedError(
                 "DecodeServer: page-second metering needs the armed "
@@ -983,8 +1257,7 @@ class DecodeServer:
         pt[:len(req.pages)] = req.pages
         try:
             with self._pool.step_lock:
-                tok = int(self._prefill_step(req.params.tree, tokens, P,
-                                             pt))
+                tok = self._run_prefill(req.params, tokens, P, pt)
         except Exception as exc:       # noqa: BLE001 — model errors
             with self._cond:           # belong to the request
                 if req in self._active:
@@ -1094,7 +1367,7 @@ class DecodeServer:
             pg = self._pool.alloc(1, owner=self._owner)
         old, new = int(r.pages[pidx]), int(pg[0])
         with self._pool.step_lock:
-            self._pool.copy_page(old, new)
+            self._run_cow(old, new)
         self._pool.cow_release(old)
         r.pages[pidx] = new
         with self._cond:
@@ -1152,8 +1425,7 @@ class DecodeServer:
             pts[i, :len(r.pages)] = r.pages
         try:
             with self._pool.step_lock:
-                toks = self._decode_step(ver.tree, tokens, positions,
-                                         pts).cpu().numpy()
+                toks = self._run_step(ver, tokens, positions, pts)
         except Exception as exc:       # noqa: BLE001 — model errors
             with self._cond:           # belong to the batch's requests
                 for r in rows:
@@ -1246,6 +1518,9 @@ class DecodeServer:
             "weight_version": version,
             "versions_alive": len(versions),
             "ladder": list(self._seq_ladder.buckets),
+            # the fixed program set (None: eager, on the CPU)
+            "graphs": self._programs.stats()
+            if self._programs is not None else None,
         }
         if intervals:
             out["inter_token_ms"] = {

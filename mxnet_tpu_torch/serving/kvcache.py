@@ -123,7 +123,7 @@ def _prefill_slots(pages, page_table_row, Lr, n_valid):
     S = pages.shape[2]
     pos = torch.arange(Lr, device=pages.device)
     table = _index(page_table_row, pages.device)
-    valid = pos < int(n_valid)
+    valid = pos < _index(n_valid, pages.device)
     pidx = torch.where(valid, table[pos // S], 0)
     return pos, valid, pidx, pos % S
 
@@ -132,7 +132,10 @@ def scatter_prefill(pages, page_table_row, seq, n_valid):
     """Write one request's prefill K (or V) sequence into the pool IN
     PLACE: ``seq (L, Lr, H, D)`` at positions ``0..Lr-1`` through
     ``page_table_row (M,)``. Positions at or beyond ``n_valid`` (rung
-    padding) are routed to the dump page. Returns ``pages``."""
+    padding) are routed to the dump page. ``n_valid`` may be an int or a
+    0-d tensor on the pool's device, which the write reads there (no
+    host sync: the server's prefill graphs take it so). Returns
+    ``pages``."""
     _pos, _valid, pidx, slot = _prefill_slots(
         pages, page_table_row, seq.shape[1], n_valid)
     pages[:, pidx, slot] = seq.to(pages.dtype)
@@ -208,11 +211,12 @@ def scatter_prefill_q8(pages, scales, page_table_row, seq, n_valid):
     red = tuple(range(2, chunks.dim()))
     pscale = torch.clamp_min(torch.amax(torch.abs(chunks), dim=red),
                              _EPS) / _INT8_MAX            # (L, n_chunks)
-    rscale = torch.repeat_interleave(pscale, S, dim=1)[:, :Lr]
+    rscale = pscale[:, :, None].expand(L, Lp // S, S).reshape(L, Lp)[:, :Lr]
     pages[:, pidx, slot] = _quantize(seq / rscale[:, :, None, None])
     table = _index(page_table_row, pages.device)
     cpos = torch.arange(Lp // S, device=pages.device) * S
-    cpidx = torch.where(cpos < int(n_valid), table[cpos // S], 0)
+    cpidx = torch.where(cpos < _index(n_valid, pages.device),
+                        table[cpos // S], 0)
     scales[:, cpidx] = pscale
     return pages, scales
 
@@ -442,12 +446,17 @@ class KVCachePool:
     def copy_page(self, src, dst):
         """Copy page ``src`` onto page ``dst`` in every layer (the
         copy-on-write split); an int8 page's scales travel with it, so
-        the private copy dequantizes exactly like the shared one."""
-        self.k[:, dst] = self.k[:, src]
-        self.v[:, dst] = self.v[:, src]
+        the private copy dequantizes exactly like the shared one.
+        ``src``/``dst`` are page ids or one-element long tensors on the
+        pool's device, which the copy reads there (the server's copy
+        graph takes them so)."""
+        src = _index(src, self.device).reshape(1)
+        dst = _index(dst, self.device).reshape(1)
+        planes = (self.k, self.v)
         if self.quantized:
-            self.k_scale[:, dst] = self.k_scale[:, src]
-            self.v_scale[:, dst] = self.v_scale[:, src]
+            planes += (self.k_scale, self.v_scale)
+        for t in planes:
+            t.index_copy_(1, dst, t.index_select(1, src))
 
     # -- multi-model attachment ---------------------------------------
 

@@ -1,16 +1,24 @@
 """Telemetry hooks of the decode serving path, disarmed (stands in for
 ``mxnet_tpu/telemetry.py``).
 
-The JAX package sends ``decode`` and ``prefix_cache`` records and
-counter notes to the active telemetry run; with no run active, which is
-its default, each hook returns at once. The port has no telemetry run
-yet (``ROADMAP.md`` queue A, observability), so the hooks here are
-that disarmed state. :func:`percentile` is a real copy: ``stats()``
-reports latency percentiles with it.
+The JAX package sends ``decode``, ``prefix_cache``, ``router`` and
+``alert`` records and counter notes to the active telemetry run; with
+no run active, which is its default, each hook returns at once. The
+port has no telemetry run yet (``ROADMAP.md`` queue A, observability),
+so the hooks here are that disarmed state and :func:`enabled` is always
+False (the router record has no hook: the Router raises if armed).
+:func:`percentile` is a real copy: ``stats()`` reports latency
+percentiles with it.
 """
 from __future__ import annotations
 
-__all__ = ["note", "decode_event", "prefix_cache_event", "percentile"]
+__all__ = ["enabled", "note", "decode_event", "prefix_cache_event",
+           "alert_event", "percentile"]
+
+
+def enabled():
+    """True while a telemetry run is active (never, in this slice)."""
+    return False
 
 
 def note(name, delta=1):
@@ -24,6 +32,11 @@ def decode_event(stats):
 
 def prefix_cache_event(stats):
     """Record a cumulative ``prefix_cache`` snapshot in the active run
+    (none)."""
+
+
+def alert_event(fields):
+    """Record an ``alert`` (a confirmed replica loss) in the active run
     (none)."""
 
 
