@@ -111,7 +111,10 @@ no result, anywhere else. Phases (any failure exits non-zero):
    steps on one fixed batch (the loss must fall; launch counts zeroed
    just before and read just after: 12 per step for each of flash_fwd,
    flash_bwd_dkdv and flash_bwd_dq), then ms per step, tokens/s and the
-   device idle share from the profiler;
+   device idle share from the profiler; then 3 more steps under an armed
+   telemetry run: one step record a step after the first (tick mode),
+   each with its optimizer phase, and one memory record read from the
+   card;
 11. router (run after 9, before 10, which frees the model) — the fleet
    Router over two DecodeServers on the card, each with its own pool,
    both on graphs: 16 sessions over two tenants; replica 1 is not
@@ -120,15 +123,46 @@ no result, anywhere else. Phases (any failure exits non-zero):
    killed once its sessions stream: zero failed streams, every stream
    equal to the greedy loop; then two more sessions on the survivor and
    a graceful drain of it, which they outlive; the router's stats,
-   client-side TTFT and inter-token p50, exact launch counts.
+   client-side TTFT and inter-token p50, exact launch counts;
+12. observability (after 11, before 10) — first the cost of arming on
+   one warmed server (phase 9's shapes), in turns disarmed, armed,
+   armed with a /metrics scrape thread (twice), armed, disarmed: wall ms
+   of a scheduler tick around the replayed step and the inter-token p50
+   of each turn, and the ms of each scrape. Then the ninth slice's
+   path: the telemetry run (sink), the tracer, the flight recorder,
+   /metrics on 127.0.0.1 and the SLO watchdog armed from the
+   environment, and a meter with a ledger; a Router over two
+   DecodeServers at GPT-2-small width (ladder [64, 128], window 8,
+   prefix cache on), one warmed and one not (its captures run while
+   /metrics is scraped), 8 sessions of two tenants (one tenant's
+   prompts share a two-page prefix), /metrics scraped every 100 ms from
+   a client thread; one replica killed once every session streams, then
+   the survivor drained. Launch counts zeroed just before the traffic
+   and read just after (12 a replayed step or prefill, or a capture).
+   Zero failed streams, each equal to the greedy loop; exactly one
+   flight-recorder bundle, carrying the replica_lost alert; each
+   session's router- and replica-side spans joined under its request
+   id in causal order; the usage ledger reconciled (tokens, replayed
+   tokens, page-seconds, prefix credits equal to the servers' hit
+   counters); FLOPs and bytes billed equal to each program's count
+   times its graph replays; no scrape raised, every scrape parses, at
+   least one ran while the traffic did and each of those carries the
+   router's counters and each live replica's, no counter goes down from
+   one scrape to the next, one scrape overlapped a capture, and the last
+   one's decode and router counters equal ``stats()``; ``python -m
+   mxnet_tpu_torch.tools.diagnose --format json`` on the directory and
+   the tool's ``main`` on the sink report every reconcile line true.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
-path (``path``: server, training, int8 decode or rtc; ``launches`` from
-that path's run, times at the shape it gives the kernel), and, last,
+path (``path``: server, observability, training, int8 decode or rtc;
+``launches`` from that path's run, times at the shape it gives the
+kernel), and, last,
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import ctypes
 import gc
+import io
 import json
 import os
 import re
@@ -932,7 +966,7 @@ def phase_kernels(tfa):
     one = decode_case(tfa, 8, 576, H, D, seed=19,
                       lens_np=[576] + [1] * 7)
     rec = dict(fwd[512], err=max(c["err"] for c in fwd.values()))
-    return rec, dict(dec, err=max(dec["err"], one["err"]))
+    return rec, dict(dec, err=max(dec["err"], one["err"])), fwd
 
 
 def top2_margin(logits):
@@ -1583,6 +1617,561 @@ def phase_router(model, params, tfa):
     return launches
 
 
+OBS_CFG = dict(seq_ladder=[64, 128], max_new_tokens=64, window=8,
+               page_size=16, pool_pages=384)
+OBS_ENV = ("MXNET_TELEMETRY_FILE", "MXNET_TRACE", "MXNET_METRICS_PORT",
+           "MXNET_METRICS_HOST", "MXNET_WATCHDOG", "MXNET_FLIGHTREC_DIR",
+           "MXNET_METER_FILE")
+SCRAPE_S = 0.1
+
+
+def arm_everything(tmp):
+    """Arm every observability subsystem from the environment, as an
+    operator does, into ``tmp``: the telemetry run (sink), the tracer, the
+    flight recorder, /metrics on 127.0.0.1 (an ephemeral port) and the
+    SLO watchdog (all four by ``telemetry.start``), and the meter with a
+    ledger. Returns the /metrics port."""
+    from mxnet_tpu_torch import livemetrics, metering, telemetry
+    os.environ.update({
+        "MXNET_TELEMETRY_FILE": os.path.join(tmp, "telemetry.jsonl"),
+        "MXNET_TRACE": "1", "MXNET_METRICS_PORT": "0",
+        "MXNET_METRICS_HOST": "127.0.0.1", "MXNET_WATCHDOG": "1",
+        "MXNET_FLIGHTREC_DIR": os.path.join(tmp, "flightrec"),
+        "MXNET_METER_FILE": os.path.join(tmp, "meter", "usage.jsonl")})
+    os.makedirs(os.path.join(tmp, "meter"))
+    telemetry.reset()
+    telemetry.start(run_id="observability")
+    metering.start(name="fleet")
+    return livemetrics.server_port()
+
+
+def disarm_everything():
+    """Stop what :func:`arm_everything` armed (the sink's summary, the
+    ledger's last lines) and clear the environment."""
+    from mxnet_tpu_torch import (flightrec, livemetrics, metering,
+                                 telemetry, tracing)
+    metering.stop()
+    telemetry.stop()
+    tracing.reset()
+    flightrec.disable()
+    livemetrics.disable_watchdog()
+    livemetrics.stop_server()
+    for key in OBS_ENV:
+        os.environ.pop(key, None)
+
+
+def scraper(port, pages):
+    """A client thread scraping /metrics every ``SCRAPE_S``, appending
+    ``(start, end, page)`` (monotonic s around each request) to
+    ``pages``. Returns ``end()``, which stops the thread and fails the
+    run if a scrape raised (an HTTP error, a reset connection) or the
+    thread did not stop; later calls do nothing."""
+    import urllib.request
+    stop = threading.Event()
+    errors = []
+
+    def run():
+        try:
+            while not stop.is_set():
+                t = time.monotonic()
+                page = urllib.request.urlopen(
+                    "http://127.0.0.1:%d/metrics" % port,
+                    timeout=10).read().decode("utf-8")
+                pages.append((t, time.monotonic(), page))
+                stop.wait(SCRAPE_S)
+        except Exception as exc:          # noqa: BLE001 — end() fails
+            errors.append(exc)
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def end():
+        if stop.is_set():
+            return
+        stop.set()
+        thread.join(30)
+        if thread.is_alive():
+            fail("observability: the /metrics scraper did not stop")
+        if errors:
+            fail("observability: a /metrics scrape failed: %r" % errors[0])
+    return end
+
+
+def parse_metrics(page, counters=None):
+    """{series with labels: value} of one Prometheus text page; a line
+    that does not parse fails the run. The families the page types as
+    counters are added to the set ``counters`` when one is given."""
+    out = {}
+    for line in page.splitlines():
+        if line.startswith("# TYPE ") and line.endswith(" counter") \
+                and counters is not None:
+            counters.add(line.split()[2])
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^}]*\})?) "
+                     r"([-+0-9.eEinfa]+)$", line)
+        if m is None:
+            fail("observability: unparseable /metrics line %r" % line)
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+ARM_TURNS = ("disarmed", "armed", "armed+scrape", "armed+scrape", "armed",
+             "disarmed") * 2
+
+
+def tick_server(model, params, ticks):
+    """Phase 9's server (ladder [256], window 8, page 16, 384 pages),
+    unstarted and warmed, with the budget for ``ticks`` timed ticks."""
+    from mxnet_tpu_torch.serving import DecodeServer
+    srv = DecodeServer(model, params, seq_ladder=[256],
+                       max_new_tokens=ticks + 16, window=8, page_size=16,
+                       pool_pages=384, start=False)
+    srv.warmup()
+    return srv
+
+
+def tick_turn(srv, vocab, rs, ticks, mode):
+    """One turn on :func:`tick_server`'s server: arm per ``mode``
+    (disarmed, armed, or armed+scrape: armed with the /metrics scrape
+    thread during the timed ticks), admit 8 fresh requests (prompts of
+    256), time ``ticks`` scheduler ticks around the replayed step one by
+    one (their mean is phase 9's unprofiled reading), read the
+    inter-token p50 the server recorded in them, cancel and disarm.
+    Returns (mean tick ms, median tick ms, inter-token p50 ms, the ms
+    of each scrape, request to page read)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        port = arm_everything(tmp) if mode != "disarmed" else None
+        reqs = [srv.submit(rs.randint(0, vocab, size=256),
+                           max_new_tokens=ticks + 16) for _ in range(8)]
+        while srv.stats()["active"] < 8:
+            srv._tick()
+        srv._tick()
+        pages = []
+        end_scrape = scraper(port, pages) \
+            if mode == "armed+scrape" else None
+        n0 = srv.stats()["tokens_out"]
+        walls = []
+        torch.cuda.synchronize()
+        for _ in range(ticks):
+            t0 = time.perf_counter()
+            srv._tick()                   # ends on the tokens' copy back
+            walls.append((time.perf_counter() - t0) * 1e3)
+        # each token of a timed tick is one inter-token interval (the
+        # ring is bounded: read its newest entries)
+        gaps = list(srv._intervals)[n0 - srv.stats()["tokens_out"]:]
+        if end_scrape is not None:
+            end_scrape()
+        for r in reqs:
+            r.cancel()
+        while srv.stats()["active"]:
+            srv._tick()
+        if mode != "disarmed":
+            disarm_everything()
+    if mode == "armed+scrape" and not pages:
+        fail("observability: no scrape during a timed turn")
+    return (statistics.mean(walls), statistics.median(walls),
+            statistics.median(gaps), [(b - a) * 1e3 for a, b, _p in pages])
+
+
+def arming_cost(model, params, card, ticks=100):
+    """The cost of arming on one warmed server (:func:`tick_server`), in
+    the turns of ``ARM_TURNS`` (each mode before and after each other,
+    twice). Returns {mode: [:func:`tick_turn`'s readings, ...]}."""
+    srv = tick_server(model, params, ticks)
+    rs = np.random.RandomState(12)
+    out = {}
+    try:
+        for mode in ARM_TURNS:
+            out.setdefault(mode, []).append(
+                tick_turn(srv, model.vocab, rs, ticks, mode))
+    finally:
+        srv.stop(drain=False)
+    print("observability: cost of arming on one warmed server (phase 9's:"
+          " window 8, ~256-token contexts, %d ticks a turn, turns %s; %s):"
+          % (ticks, ", ".join(ARM_TURNS), card))
+    for mode, turns in out.items():
+        print("  %-13s tick wall ms mean %s (median %s); inter-token p50"
+              " ms %s%s" % (
+                  mode, " / ".join("%.3f" % t[0] for t in turns),
+                  " / ".join("%.3f" % t[1] for t in turns),
+                  " / ".join("%.3f" % t[2] for t in turns),
+                  "" if mode != "armed+scrape" else "; scrapes %s, ms"
+                  " a scrape median %s, max %s" % (
+                      " / ".join(str(len(t[3])) for t in turns),
+                      " / ".join("%.3f" % statistics.median(t[3])
+                                 for t in turns),
+                      " / ".join("%.3f" % max(t[3]) for t in turns))))
+        print("  %-13s medians of the turns: tick mean %.3f, tick median"
+              " %.3f, inter-token p50 %.3f ms" % (
+                  "", *(statistics.median(t[i] for t in turns)
+                        for i in range(3))))
+    return out
+
+
+def fleet_specs(vocab, seed):
+    """Phase 12's 8 sessions: tenant acme's four share a 32-token (two
+    page) prefix, tenant zeta's four are random; prompts 40..96 tokens,
+    24..40 new."""
+    rs = np.random.RandomState(seed)
+    base = rs.randint(0, vocab, size=32)
+    specs = []
+    for i in range(8):
+        n = int(rs.randint(40, 97))
+        p = np.concatenate([base, rs.randint(0, vocab, size=n - 32)]) \
+            if i % 2 else rs.randint(0, vocab, size=n)
+        specs.append((p, int(rs.randint(24, 41)), "acme" if i % 2
+                      else "zeta"))
+    return specs
+
+
+def joined_spans(events, reqs):
+    """Per session: its router- and replica-side spans under its request
+    id, in causal order (router queue first; where a prefill ran, the
+    replica's queue, then the prefill, then the decode span). Returns the
+    number of sessions that joined."""
+    spans = {}
+    for e in events:
+        rid = (e.get("args") or {}).get("request_id")
+        if e.get("ph") == "X" and rid is not None:
+            spans.setdefault(rid, {}).setdefault(
+                (e["cat"], e["name"]), []).append(e["ts"])
+    for q in reqs:
+        got = {k: min(v) for k, v in spans.get(q.request_id, {}).items()}
+        if ("router", "queue") not in got or ("decode", "decode") not in got:
+            fail("observability: session %s lacks joined spans: %s"
+                 % (q.request_id, sorted(got)))
+        first_decode = min(t for (cat, _n), t in got.items()
+                           if cat == "decode")
+        order = [got["router", "queue"], first_decode]
+        if ("decode", "prefill") in got:
+            order += [got["decode", "queue"], got["decode", "prefill"]]
+        if order != sorted(order):
+            fail("observability: session %s spans out of causal order: %s"
+                 % (q.request_id, got))
+    return len(reqs)
+
+
+def reconcile_lines(js):
+    """Every ``reconciled``/``ok`` verdict in a diagnose JSON report
+    (key path, value)."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "reconciled":
+                    out.append((path + "/" + k, v))
+                walk(v, path + "/" + k)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, "%s/%d" % (path, i))
+    walk(js, "")
+    return out
+
+
+def observability_drill(model, params, tfa, card):
+    """Phase 12's drill: everything armed from the environment, a Router
+    over two DecodeServers (each its own pool, prefix cache on), 8
+    sessions from two tenants, /metrics scraped every 100 ms from a
+    client thread; one replica killed once its sessions stream, then the
+    survivor drained. Replica obs-0 is warmed, obs-1 is not: obs-1
+    captures its programs at its first prefill while the scrapes read
+    its ``stats()``. Every page scraped while the traffic ran must carry
+    the router's series and each live replica's, with no counter going
+    down, and one scrape must overlap a capture. Launch counts zeroed
+    just before the traffic and read just after. Returns the
+    launches."""
+    import tempfile
+    import urllib.request
+    from mxnet_tpu_torch import flightrec, metering, tracing
+    from mxnet_tpu_torch.serving import DecodeServer, Router
+    from mxnet_tpu_torch.tools import diagnose
+    with tempfile.TemporaryDirectory() as tmp:
+        t_phase = time.perf_counter()
+        port = arm_everything(tmp)
+        sink = os.environ["MXNET_TELEMETRY_FILE"]
+        bundles_dir = os.environ["MXNET_FLIGHTREC_DIR"]
+        ledger = os.environ["MXNET_METER_FILE"]
+        # a record every tick: the lost replica's last record holds every
+        # session dispatched to it, so the fleet report can reconcile
+        reps = [DecodeServer(model, params, name="obs-%d" % i,
+                             prefix_cache=True, record_every=1, **OBS_CFG)
+                for i in range(2)]
+        reps[0].warmup()
+        log, busy = [], set()
+        watch_programs(reps[1], "cold", log, busy)
+        costs = [srv.program_costs() for srv in reps]
+        specs = fleet_specs(model.vocab, seed=8)
+        before = [s.stats() for s in reps]
+        tfa.reset_launches()              # this slice's path starts here
+        router = Router(reps, name="obs-front")
+        pages = []
+        end_scrape = scraper(port, pages)
+        try:
+            t0 = time.monotonic()
+            reqs = [router.submit(p, max_new_tokens=n, tenant=t)
+                    for p, n, t in specs[:2]]
+            deadline = time.monotonic() + 120
+            while min(len(q.emitted) for q in reqs) < 1:
+                if time.monotonic() > deadline:
+                    fail("observability: the first sessions made no"
+                         " progress")
+                time.sleep(0.002)
+            reqs += [router.submit(p, max_new_tokens=n, tenant=t)
+                     for p, n, t in specs[2:]]
+            stamps, readers = consume(reqs, t0)
+            # the kill, once every session streams (each dispatch is in
+            # its replica's records by then)
+            while min(len(q.emitted) for q in reqs) < 2:
+                if time.monotonic() > deadline:
+                    fail("observability: the sessions made no progress")
+                time.sleep(0.001)
+            victim = next((q._replica for q in reqs
+                           if not q.done() and q._replica is not None),
+                          None)
+            if victim is None:
+                fail("observability: no replica with streaming sessions"
+                     " to kill")
+            # at most these re-home: one may finish before the loss is
+            # confirmed
+            n_bound = sum(q._replica is victim and not q.done()
+                          for q in reqs)
+            victim.kill()
+            t_kill = time.monotonic()
+            results = [q.result(timeout=300) for q in reqs]
+            for t in readers:
+                t.join(60)
+            t_done = time.monotonic()
+            end_scrape()
+            st = router.stats()
+            rep_st = [s.stats() for s in reps]
+            final = parse_metrics(urllib.request.urlopen(
+                "http://127.0.0.1:%d/metrics" % port, timeout=10).read()
+                .decode("utf-8"))
+            launches = dict(tfa.launches)     # ... and ends here
+            survivor = router.replicas_up()[0]
+            router.drain(survivor.name, wait=True)
+        finally:
+            try:
+                end_scrape()
+            finally:
+                router.stop()
+        snap = metering.snapshot()
+        events = tracing.export()["traceEvents"]
+        trace_stats = tracing.stats()
+        fr = flightrec.stats()
+        disarm_everything()
+        t_traffic = time.perf_counter() - t_phase
+        # -- streams and the router
+        if st["failed"] or st["completed"] != len(reqs) \
+                or st["replicas_lost"] != 1 \
+                or not 1 <= st["failovers"] <= n_bound:
+            fail("observability: router %s, %d bound to the victim" % ({
+                k: st[k] for k in ("failed", "completed", "replicas_lost",
+                                   "failovers")}, n_bound))
+        T = reps[0]._max_pages * OBS_CFG["page_size"]
+        check_streams("observability", [(p, n, 0) for p, n, _t in specs],
+                      results, lambda p, n: greedy_loop(
+                          model, params, p, n,
+                          reps[0]._seq_ladder.bucket_for(len(p)),
+                          OBS_CFG["window"], T))
+        # -- launches: every step and prefill replayed its graph, and
+        # each of obs-1's captures launched its kernels once
+        exact = {k: model.n_layers * sum(
+            a[key] - b[key] + a["graphs"]["captures"][site]
+            - b["graphs"]["captures"][site] for a, b in zip(rep_st, before))
+            for k, site, key in (("flash_decode", "step", "decode_steps"),
+                                 ("flash_fwd", "prefill", "prefill_steps"))}
+        if any(launches[k] != n or not n for k, n in exact.items()):
+            fail("observability: launches %s, want %s" % (launches, exact))
+        # -- one flight-recorder bundle, carrying the replica_lost alert
+        bundles = flightrec.list_bundles(bundles_dir)
+        if len(bundles) != 1 or fr["failed"]:
+            fail("observability: %d bundles (want 1), recorder %s"
+                 % (len(bundles), fr))
+        bundle = flightrec.read_bundle(bundles[0])
+        if (bundle["alert"] or {}).get("kind") != "replica_lost" \
+                or bundle["alert"]["replica"] != victim.name \
+                or bundle["alert"]["sessions"] != st["failovers"]:
+            fail("observability: bundle alert %s" % bundle["alert"])
+        sites = bundle["compile_sites"]
+        # -- spans joined under each session's request id
+        joined = joined_spans(events, reqs)
+        # -- the usage ledger reconciles
+        lines = [json.loads(line) for line in open(ledger)]
+        hits = sum(s["prefix"]["hit_tokens"] for s in rep_st)
+        gen = sum(len(r) for r in results)
+        if not snap["reconcile"]["ok"] or len(lines) != len(reqs) \
+                or snap["totals"]["generated_tokens"] != gen \
+                or sum(x["generated_tokens"] for x in lines) != gen \
+                or snap["totals"]["replay_tokens"] != st["replay_tokens"] \
+                or snap["totals"]["prefix_hit_tokens"] != hits \
+                or not snap["totals"]["page_seconds"] > 0:
+            fail("observability: usage %s, %d ledger lines, %d tokens,"
+                 " %d hit tokens" % (snap["totals"], len(lines), gen, hits))
+        # -- FLOPs and bytes billed: program counts x dispatches
+        want_f = want_b = 0.0
+        for s, b, c in zip(rep_st, before, costs):
+            g, g0 = s["graphs"], b["graphs"]
+            n_step = g["replays"]["step"] - g0["replays"]["step"]
+            want_f += n_step * c["step"][0]
+            want_b += n_step * c["step"][1]
+            for rung, n in g["prefill_replays"].items():
+                n -= g0["prefill_replays"].get(rung, 0)
+                want_f += n * c["prefill"][rung][0]
+                want_b += n * c["prefill"][rung][1]
+        got_f, got_b = snap["totals"]["flops"], snap["totals"]["bytes"]
+        if abs(got_f - want_f) > 1e-9 * want_f \
+                or abs(got_b - want_b) > 1e-9 * want_b:
+            fail("observability: billed %.6g FLOPs / %.6g bytes, program"
+                 " counts x dispatches %.6g / %.6g"
+                 % (got_f, got_b, want_f, want_b))
+        # -- the last scrape agrees with stats()
+        lab = '{router="obs-front"}'
+        for key in ("requests", "dispatched", "completed", "failed",
+                    "failovers", "replay_tokens", "replicas_lost"):
+            if final.get("mxnet_router_%s_total%s" % (key, lab)) != st[key]:
+                fail("observability: scrape router %s %s, stats %s" % (
+                    key, final.get("mxnet_router_%s_total%s" % (key, lab)),
+                    st[key]))
+        for s in rep_st:
+            slab = '{server="%s"}' % s["name"]
+            if s["name"] == victim.name:
+                if "mxnet_decode_requests_total" + slab in final:
+                    fail("observability: the lost replica is still scraped")
+                continue
+            for key in ("requests", "completed", "prefill_steps",
+                        "decode_steps", "tokens_out"):
+                got = final.get("mxnet_decode_%s_total%s" % (key, slab))
+                if got != s[key]:
+                    fail("observability: scrape decode %s %s, stats %s"
+                         % (key, got, s[key]))
+        # -- every page scraped while the traffic ran carries the router
+        # and each live replica, counters never go down, and one scrape
+        # overlapped obs-1's captures
+        counters = set()
+        scraped = [(a, b, parse_metrics(page, counters))
+                   for a, b, page in pages]
+        during = [(a, b, m) for a, b, m in scraped if t0 <= a < t_done]
+        if not during:
+            fail("observability: no scrape while the traffic ran")
+        survivor_name = next(s.name for s in reps if s.name != victim.name)
+        for a, b, m in during:
+            live = [survivor_name] + ([victim.name] if b < t_kill else [])
+            want = ['mxnet_router_%s_total{router="obs-front"}' % key
+                    for key in ("requests", "dispatched", "completed",
+                                "failed", "failovers", "replay_tokens",
+                                "replicas_lost")]
+            want += ['mxnet_decode_%s_total{server="%s"}' % (key, name)
+                     for name in live for key in (
+                         "requests", "completed", "prefill_steps",
+                         "decode_steps", "tokens_out")]
+            missing = [k for k in want if k not in m]
+            if missing:
+                fail("observability: a scrape %.1f ms into the traffic"
+                     " lacks %s" % ((a - t0) * 1e3, missing))
+        for (_a, _b, prev), (a, _b2, cur) in zip(scraped, scraped[1:]):
+            down = [k for k, v in cur.items()
+                    if k.split("{")[0] in counters and k in prev
+                    and v < prev[k]]
+            if down:
+                fail("observability: counters went down in a scrape %.1f"
+                     " ms into the traffic: %s" % ((a - t0) * 1e3, {
+                         k: (prev[k], cur[k]) for k in down}))
+        captures = [(a, b) for _n, kind, a, b in log if kind == "capture"]
+        overlap = sum(any(a < cb and ca < b for ca, cb in captures)
+                      for a, b, _m in scraped)
+        if not overlap:
+            fail("observability: no scrape overlapped obs-1's %d captures"
+                 % len(captures))
+        scrape_ms = [(b - a) * 1e3 for a, b, _m in scraped]
+        # -- diagnose on the sink and on the directory: every reconcile
+        # line OK
+        # the entry point once, on the directory (the fleet report);
+        # the sink's report in this process
+        t_diag = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.diagnose", tmp,
+             "--format", "json"], capture_output=True, text=True,
+            timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+        if out.returncode != 0:
+            fail("observability: diagnose %s: %s" % (tmp, out.stderr[-800:]))
+        diag_out = {tmp: json.loads(out.stdout)}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            diagnose.main([sink, "--format", "json"])
+        diag_out[sink] = json.loads(buf.getvalue())
+        verdicts = reconcile_lines(diag_out[sink]) \
+            + reconcile_lines(diag_out[tmp])
+        if not verdicts or not all(v is True for _k, v in verdicts):
+            fail("observability: diagnose reconcile lines %s" % verdicts)
+        fleet = diag_out[tmp]["serving"]
+        if fleet["replicas_lost"] != 1 or fleet["replica_lost_alerts"] != 1 \
+                or len(diag_out[tmp]["bundles"]) != 1:
+            fail("observability: fleet report %s, %d bundles" % (
+                fleet, len(diag_out[tmp]["bundles"])))
+        t_diag = time.perf_counter() - t_diag
+        kinds = {}
+        for line in open(sink):
+            kind = json.loads(line)["type"]
+            kinds[kind] = kinds.get(kind, 0) + 1
+        if kinds.get("memory", 0) < 1:
+            fail("observability: no memory record read from the card")
+    gaps = [(b - a) * 1e3 for s in stamps for a, b in zip(s, s[1:])]
+    ttft = [s[0] * 1e3 for s in stamps if s]
+    print("observability: router over 2 replicas (GPT-2-small width, %d"
+          " layers, ladder %s, window %d), %d sessions of 2 tenants,"
+          " replica %s killed (%d sessions streaming on it); failed %d,"
+          " completed %d, failovers %d; client ttft p50 %.2f ms,"
+          " inter-token p50 %.2f ms;"
+          " launches %s; %s" % (model.n_layers, OBS_CFG["seq_ladder"],
+                                OBS_CFG["window"], len(reqs), victim.name,
+                                n_bound, st["failed"], st["completed"],
+                                st["failovers"], statistics.median(ttft),
+                                statistics.median(gaps), launches, card))
+    print("  armed: sink records %s; trace %s; 1 flight-recorder bundle"
+          " (%s, %d records, %d trace events); %d/%d sessions' spans"
+          " joined; %d scrapes every %.0f ms (%d while the traffic ran,"
+          " each with the router's and the live replicas' counters, none"
+          " going down; %d overlapping obs-1's %d captures; ms a scrape"
+          " median %.3f, max %.3f), the last equal to stats()"
+          % (json.dumps(kinds, sort_keys=True), trace_stats,
+             bundle["alert"]["kind"], len(bundle["records"]),
+             len(bundle["trace"]["traceEvents"]), joined, len(reqs),
+             len(pages), SCRAPE_S * 1e3, len(during), overlap,
+             len(captures), statistics.median(scrape_ms), max(scrape_ms)))
+    print("  usage: reconciled %s; tokens %d prompt + %d generated, %d"
+          " replayed, %d prefix-credited; page-seconds %.4f; billed %.6g"
+          " FLOPs, %.6g bytes = program counts x dispatches"
+          % (snap["reconcile"]["ok"], snap["totals"]["prompt_tokens"], gen,
+             snap["totals"]["replay_tokens"], hits,
+             snap["totals"]["page_seconds"], got_f, got_b))
+    print("  program counts: step %.6g FLOPs / %.6g bytes (%.6g / %.6g a"
+          " row, window %d); prefill %s; bundle compile_sites %s"
+          % (costs[0]["step"][0], costs[0]["step"][1],
+             costs[0]["step"][0] / OBS_CFG["window"],
+             costs[0]["step"][1] / OBS_CFG["window"], OBS_CFG["window"],
+             ", ".join("rung %d %.6g FLOPs / %.6g bytes (%.6g / %.6g a"
+                       " token)" % (r, f, b, f / r, b / r)
+                       for r, (f, b) in sorted(costs[0]["prefill"].items())),
+             json.dumps(sites, sort_keys=True)))
+    print("  diagnose --format json: %d reconcile lines, all OK (%.1f s);"
+          " armed %.1f s (warmups and traffic)"
+          % (len(verdicts), t_diag, t_traffic))
+    return launches
+
+
+def phase_observability(model, params, tfa, card):
+    """Phase 12: the cost of arming on one warmed server, then the armed
+    fleet drill. Returns the drill's launches."""
+    t0 = time.perf_counter()
+    arming_cost(model, params, card)
+    launches = observability_drill(model, params, tfa, card)
+    print("observability: phase 12 %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def gluon_lm(mx):
     """The training model, a user script of the port's Gluon: the pre-LN
     decoder of ToyDecoderLM.prefill composed from Embedding, LayerNorm,
@@ -1828,7 +2417,46 @@ def phase_training(tfa, card, steps=20, prof_steps=3):
     for us, key, count in sorted(kernels, reverse=True)[:8]:
         print("    top: %.2f ms/step in %d calls/step  %s"
               % (us / 1e3 / prof_steps, count // prof_steps, key[:70]))
+    armed_steps(step_loss, net, trainer, B, card)
     return launches
+
+
+def armed_steps(step_loss, net, trainer, B, card, steps=3):
+    """``steps`` more Trainer steps under an armed telemetry run (after
+    the timed ones, which it must not move): the Trainer ticks one step
+    record a call after the first (tick mode), each with its optimizer
+    phase and samples, and ``stop`` writes one memory record read from
+    the card's allocator."""
+    import tempfile
+    from mxnet_tpu_torch import telemetry
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = os.path.join(tmp, "train.jsonl")
+        telemetry.reset()
+        telemetry.start(filename=sink, run_id="training")
+        for _ in range(steps):
+            step_loss(net)
+            trainer.step(B)
+        summary = telemetry.stop()
+        recs = [json.loads(line) for line in open(sink)]
+    step_recs = [r for r in recs if r["type"] == "step"]
+    mem = [r for r in recs if r["type"] == "memory"]
+    if len(step_recs) != steps - 1 or any(
+            r.get("samples") != B or not r.get("phases_ms", {})
+            .get("optimizer") for r in step_recs):
+        fail("training telemetry: step records %s" % step_recs)
+    if len(mem) != 1 or mem[0]["device"] != "cuda:0" \
+            or not 0 < mem[0]["bytes_in_use"] <= mem[0]["peak_bytes_in_use"]:
+        fail("training telemetry: memory records %s" % mem)
+    print("  armed telemetry, %d more steps (%s): step records %s ms"
+          " (optimizer phase %s ms); memory cuda:0 %.2f GB allocated, peak"
+          " %.2f GB; summary steps %d, samples %d"
+          % (steps, card, " / ".join("%.1f" % r["dur_ms"]
+                                     for r in step_recs),
+             " / ".join("%.2f" % r["phases_ms"]["optimizer"]
+                        for r in step_recs),
+             mem[0]["bytes_in_use"] / 1e9,
+             mem[0]["peak_bytes_in_use"] / 1e9, summary["steps"],
+             summary["samples"]))
 
 
 def q8_pool_cache(B, T, H, D, lens, seed):
@@ -2566,7 +3194,7 @@ def main():
     print("kernels vs plain (fp32, TF32 off; device ms = GPU time per call"
           " from CUDA-graph replays, per-call ms = median CUDA-event time of"
           " one eager call; %s):" % card)
-    fwd, dec = phase_kernels(tfa)
+    fwd, dec, fwd_rungs = phase_kernels(tfa)
     train_fwd, bwd, bwd_errs = phase_bwd_kernels(tfa)
     t0 = time.perf_counter()
     model_k = ToyDecoderLM(**GPT2_SMALL)
@@ -2585,6 +3213,9 @@ def main():
     rtc, rtc_launches = phase_rtc(card)
     phase_step_profile(model_k, params, card)
     phase_router(model_k, params, tfa)
+    obs_launches = phase_observability(model_k, params, tfa, card)
+    obs_dec = decode_case(tfa, OBS_CFG["window"], (OBS_CFG["seq_ladder"][-1]
+                          + OBS_CFG["max_new_tokens"]), 12, 64, seed=29)
     del model_k, model_p, params
     torch.cuda.empty_cache()
     train_launches = phase_training(tfa, card)
@@ -2597,6 +3228,12 @@ def main():
                    "B1 T512 H12 D64 causal", launches, fwd, fwd["err"]),
         kernel_row("flash_decode", DEC_SRC, DEC_TPU, "server",
                    "B8 T576 H12 D64", launches, dec, dec["err"]),
+        kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "observability",
+                   "B1 T128 H12 D64 causal", obs_launches, fwd_rungs[128],
+                   fwd_rungs[128]["err"]),
+        kernel_row("flash_decode", DEC_SRC, DEC_TPU, "observability",
+                   "B8 T192 H12 D64", obs_launches, obs_dec,
+                   obs_dec["err"]),
         kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "training", train_shape,
                    train_launches, train_fwd, train_fwd["err"]),
     ] + [kernel_row(kname, BWD_SRC[kname], BWD_TPU[kname], "training",

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from ..base import MXNetError
 
-__all__ = ["BucketLadder"]
+__all__ = ["BucketLadder", "bucket_sort_key"]
 
 
 class BucketLadder:
@@ -81,3 +81,9 @@ class BucketLadder:
 
     def __repr__(self):
         return "BucketLadder(%s)" % self.buckets
+
+
+def bucket_sort_key(key):
+    """Numeric sort key for encoded bucket keys ("8" < "16"; "4x8" by
+    dims) — the diagnose tables sort per-bucket counts with it."""
+    return tuple(int(p) for p in str(key).split("x"))

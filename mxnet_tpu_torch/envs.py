@@ -11,6 +11,9 @@ JAX package's own:
 - an accessor of the wrong kind raises;
 - reads stay point-of-use (nothing is cached), so a test that flips a
   variable mid-process sees the new value.
+
+:func:`snapshot` lists the declared knobs that are set; the flight
+recorder stores it in each bundle.
 """
 from __future__ import annotations
 
@@ -20,14 +23,14 @@ from typing import Dict, Optional
 from .base import MXNetError
 
 __all__ = ["EnvVar", "declare", "registry", "get_bool", "get_int",
-           "get_float", "get_str", "get_raw"]
+           "get_float", "get_str", "get_path", "get_raw", "snapshot"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
 
 
 class EnvVar:
-    """One declared knob: ``name``, ``kind`` (bool/int/float/str),
+    """One declared knob: ``name``, ``kind`` (bool/int/float/str/path),
     ``default`` (returned when unset), ``doc``, ``group``."""
 
     __slots__ = ("name", "kind", "default", "doc", "group")
@@ -48,7 +51,7 @@ _REGISTRY: Dict[str, EnvVar] = {}
 
 
 def declare(name, kind, default, doc, group="misc"):
-    if kind not in ("bool", "int", "float", "str"):
+    if kind not in ("bool", "int", "float", "str", "path"):
         raise MXNetError("envs.declare(%s): unknown kind %r"
                          % (name, kind))
     if name in _REGISTRY:
@@ -133,6 +136,105 @@ declare("MXNET_ROUTER_DRAIN_TIMEOUT_MS", "int", 10000,
 declare("MXNET_ROUTER_RECORD_EVERY", "int", 50,
         "Router pump rounds (with activity) between router telemetry "
         "records.", _G)
+declare("MXNET_ROUTER_AUTOSCALE_IDLE_ROUNDS", "int", 500,
+        "Consecutive idle health-sweep rounds before the autoscaler "
+        "hook suggests scale_down to the supervisor callback.", _G)
+
+_G = "launch"
+declare("MXNET_TPU_WORLD", "int", None,
+        "Multi-process world size.", _G)
+declare("MXNET_TPU_RANK", "int", None,
+        "This process's rank in the multi-process world.", _G)
+declare("MXNET_LAUNCH_RESTART", "int", 0,
+        "Restart generation, set BY the supervisor in every worker's "
+        "env (0 = first launch).", _G)
+
+_G = "telemetry"
+declare("MXNET_TELEMETRY", "bool", False,
+        "Auto-start a telemetry run at the first step.", _G)
+declare("MXNET_TELEMETRY_FILE", "path", "",
+        "JSONL sink for telemetry records; empty keeps records "
+        "in-memory only.", _G)
+declare("MXNET_TELEMETRY_RING", "int", 1024,
+        "Ring size of the per-metric latency reservoirs.", _G)
+declare("MXNET_TELEMETRY_MEM_INTERVAL", "int", 10,
+        "Steps between device memory samples.", _G)
+declare("MXNET_TELEMETRY_FLUSH_STEPS", "int", 50,
+        "Steps between sink flushes.", _G)
+declare("MXNET_TELEMETRY_MAX_RECORDS", "int", 100000,
+        "In-memory record cap for sink-less runs (overflow drops and "
+        "counts).", _G)
+declare("MXNET_TRACE", "bool", False,
+        "Arm the request/step tracer.", _G)
+declare("MXNET_TRACE_FILE", "path", "",
+        "Perfetto-JSON sink the tracer exports to at exit/disable.", _G)
+declare("MXNET_TRACE_RING", "int", 200000,
+        "Bounded in-memory trace-event ring (oldest dropped).", _G)
+declare("MXNET_TRACE_TRACKS", "int", 4096,
+        "Cap on distinct trace tracks (request lanes).", _G)
+declare("MXNET_TRACE_WIRE", "bool", True,
+        "Propagate the serializable trace context across process "
+        "boundaries (router dispatch) while tracing is on; off keeps "
+        "every wire payload byte-identical even with a tracer armed.",
+        _G)
+declare("MXNET_FLIGHTREC_DIR", "path", "",
+        "Arm the flight recorder: post-mortem bundles (trace ring, "
+        "recent telemetry, env/graph/serving state, the triggering "
+        "alert) land here on watchdog alerts and crash paths.", _G)
+declare("MXNET_FLIGHTREC_MAX_BUNDLES", "int", 8,
+        "Keep at most this many flight-recorder bundles (oldest "
+        "deleted first).", _G)
+declare("MXNET_FLIGHTREC_MAX_BYTES", "int", 16 << 20,
+        "Total on-disk budget for flight-recorder bundles; oldest "
+        "bundles are deleted until a new one fits.", _G)
+declare("MXNET_FLIGHTREC_INTERVAL_MS", "int", 5000,
+        "Rate limit between flight-recorder dumps; triggers inside "
+        "the window are counted as suppressed, never stacked.", _G)
+declare("MXNET_FLIGHTREC_RECORDS", "int", 256,
+        "Last K telemetry records the flight recorder keeps in its "
+        "bounded shadow ring for bundles.", _G)
+declare("MXNET_PROFILER_MAX_EVENTS", "int", 1000000,
+        "Host-profiler event cap; overflow increments "
+        "profiler_events_dropped instead of growing forever.", _G)
+declare("MXNET_METRICS_PORT", "int", 0,
+        "Serve the live /metrics endpoint on this port (0 picks a "
+        "free port when started explicitly; unset disables).", _G)
+declare("MXNET_METRICS_HOST", "str", "",
+        "Bind host for the /metrics endpoint (default 127.0.0.1).",
+        _G)
+declare("MXNET_WATCHDOG", "bool", False,
+        "Arm the SLO watchdog over serving/training step health.", _G)
+declare("MXNET_WATCHDOG_DRIFT", "float", 1.5,
+        "Step-time drift factor over baseline that counts as a slow "
+        "step.", _G)
+declare("MXNET_WATCHDOG_WINDOW", "int", 20,
+        "Sliding window (steps) for watchdog drift checks.", _G)
+declare("MXNET_WATCHDOG_BASELINE", "int", 50,
+        "Steps used to establish the watchdog's baseline step "
+        "time.", _G)
+declare("MXNET_WATCHDOG_SUSTAIN", "int", 10,
+        "Consecutive slow windows before the watchdog fires.", _G)
+declare("MXNET_WATCHDOG_SHED_RATE", "float", 0.3,
+        "Shed share of new serving requests that counts as a "
+        "breach.", _G)
+declare("MXNET_WATCHDOG_MIN_REQUESTS", "int", 20,
+        "Minimum requests in a window before serving SLO checks "
+        "apply.", _G)
+declare("MXNET_WATCHDOG_QUEUE_FRAC", "float", 0.9,
+        "Admission-queue occupancy fraction that counts as "
+        "saturation.", _G)
+declare("MXNET_WATCHDOG_SKEW", "float", 2.0,
+        "Max replica service-time skew before the watchdog flags an "
+        "unhealthy replica.", _G)
+declare("MXNET_METER_FILE", "path", "",
+        "JSONL ledger for per-request usage records (metering); empty "
+        "keeps the bounded in-memory tail only.", _G)
+declare("MXNET_METER_FLUSH_EVERY", "int", 32,
+        "Closed usage records between ledger appends and usage "
+        "telemetry snapshots.", _G)
+declare("MXNET_METER_MAX_RECORDS", "int", 100000,
+        "In-memory cap on closed usage records (the ledger file is "
+        "unbounded; the tail ring is not).", _G)
 
 
 _UNSET = object()
@@ -213,9 +315,23 @@ def get_str(name, default=_UNSET) -> Optional[str]:
     return raw.strip() if isinstance(raw, str) else raw
 
 
+def get_path(name, default=_UNSET) -> Optional[str]:
+    """A filesystem path (no existence check); surrounding whitespace
+    stripped."""
+    raw = _read(name, "path", default)
+    return raw.strip() if isinstance(raw, str) else raw
+
+
 def get_raw(name) -> Optional[str]:
     """The unparsed value of a DECLARED variable (None when unset) —
     for knobs with their own grammar (``MXNET_FAULT_PLAN``)."""
     if name not in _REGISTRY:
         _var(name, "str")          # raises the not-registered error
     return os.environ.get(name)
+
+
+def snapshot():
+    """{name: raw value} for every DECLARED variable currently set in
+    the process environment."""
+    return {name: os.environ[name] for name in _REGISTRY
+            if name in os.environ}

@@ -24,7 +24,13 @@ Sites of this slice:
   hang stalls dispatch so queued sessions age;
 - ``replica_lost`` — once per replica per router health sweep; a
   planned raise confirms the loss of the replica under probe on that
-  visit.
+  visit;
+- ``flightrec`` — once per flight-recorder dump; a raise is counted as
+  a failed dump, never fatal (the dumper drill).
+
+The JAX module's retry, gradient-guard and resume branches, which also
+count into an active telemetry run (``telemetry.note``), arrive with
+the modules that take them (kvstore, the fused step, checkpoint).
 
 Actions: ``raise`` → :class:`InjectedFault`; ``hang`` → sleep
 ``MXNET_FAULT_HANG_SECONDS`` then :class:`InjectedHang`; ``stall`` →
@@ -44,7 +50,7 @@ __all__ = ["FaultPlan", "InjectedFault", "InjectedHang", "plan",
 
 _ACTIONS = ("raise", "hang", "stall")
 _SITES = ("serve_admit", "serve_decode", "serve_route", "kv_evict",
-          "kv_share", "kv_cow", "replica_lost")
+          "kv_share", "kv_cow", "replica_lost", "flightrec")
 
 
 class InjectedFault(MXNetError):

@@ -9,9 +9,19 @@ stale: ``step`` raises unless ``ignore_stale_grad=True``, which skips
 it. The kvstore kinds that span devices or processes (``dist*``,
 ``tpu*``) raise NotImplementedError until the parallel layer is ported
 (ROADMAP queue A item 12); a fused all-parameter update is a later PR.
+
+Telemetry, as in the JAX Trainer: each ``step``/``update`` is one step
+boundary of the telemetry run (``telemetry.maybe_start`` starts one
+from the environment; tick mode, the step spans from the previous
+call), with the parameter update under the ``optimizer`` phase. The
+JAX Trainer times the cross-worker reduce under ``sync`` only when it
+has a kvstore, which one device never has, so the ``sync`` phase comes
+with the multi-device kvstore. Each step also ticks the usage meter's
+training account (``metering.training_step``).
 """
 from __future__ import annotations
 
+from .. import metering, telemetry
 from .. import optimizer as opt
 from .parameter import Parameter, ParameterDict
 
@@ -82,15 +92,23 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce + update, rescaled by batch size
         (reference: trainer.py:302)."""
+        telemetry.maybe_start(meta={"source": "gluon.Trainer"})
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
-        self._apply_updates(ignore_stale_grad)
+        self._update_step(batch_size, ignore_stale_grad)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update only — the caller already ran allreduce_grads
         (reference: trainer.py:363)."""
+        telemetry.maybe_start(meta={"source": "gluon.Trainer"})
         self._optimizer.rescale_grad = self._scale / batch_size
-        self._apply_updates(ignore_stale_grad)
+        self._update_step(batch_size, ignore_stale_grad)
+
+    def _update_step(self, batch_size, ignore_stale_grad):
+        with telemetry.span("optimizer"):
+            self._apply_updates(ignore_stale_grad)
+        telemetry.step_tick(samples=batch_size)
+        metering.training_step()
 
     def _apply_updates(self, ignore_stale_grad):
         for i, param in enumerate(self._params):

@@ -53,6 +53,18 @@ CUDA device, construction raises unless ``device="cpu"``). Its
 scheduler thread enters that device, and the kernels launch on that
 thread's current stream.
 
+**Observability** (each hook one ``None`` check while disarmed, as in
+the JAX server): a router's trace context is adopted at ``submit`` and
+the request's ``queue``, ``prefill`` and ``decode`` spans land on its
+track under the router's ``request_id``; each tick integrates the
+active requests' KV page-seconds into the meter; a prefix hit credits
+its cached tokens; each prefill and decode step bills its program's
+analytic cost (:meth:`DecodeServer.program_costs`); cumulative
+``decode``/``prefix_cache`` telemetry records and the ``/metrics``
+gauges read :meth:`DecodeServer.stats`. Every hook runs on the host
+between programs, after the step's tokens are copied back: none runs
+inside a captured graph, and none waits for the device.
+
 The model contract (see :class:`ToyDecoderLM`, the reference model):
 
 - ``model.prefill(params, tokens) -> (logits, k, v)`` — ``tokens (B,
@@ -124,8 +136,8 @@ class DecodeRequest:
     __slots__ = ("prompt", "max_new", "priority", "deadline", "eos_id",
                  "request_id", "t_submit", "pages", "generated",
                  "params", "state", "_cancelled", "_stream", "_event",
-                 "_error", "_last_emit", "_t_first", "pending",
-                 "pending_pos", "prefix_cached")
+                 "_error", "_last_emit", "_t_first", "trace_args",
+                 "_t_trace", "pending", "pending_pos", "prefix_cached")
 
     def __init__(self, prompt, max_new, priority, deadline, eos_id,
                  request_id):
@@ -147,6 +159,9 @@ class DecodeRequest:
         self._error = None
         self._last_emit = None
         self._t_first = None
+        self.trace_args = None    # span args while traced (carries an
+                                  # adopted router request_id, if any)
+        self._t_trace = None      # trace-clock submit stamp
         # prefix-cache suffix feed: tokens still to run through the
         # decode step (outputs discarded until the last, which IS the
         # first generated token), and the position the next one writes
@@ -342,6 +357,34 @@ class ToyDecoderLM:
             @ params["wout"]
         return logits, torch.stack(k_new), torch.stack(v_new)
 
+    def cost(self, rows, queries, keys):
+        """Analytic ``(flops, bytes)`` of one forward over ``rows``
+        sequences of ``queries`` query tokens, each attending over
+        ``keys`` keys, at the program's static shapes (as XLA's
+        ``cost_analysis`` counts a compiled program: padded rows and
+        masked keys included). With d = d_model, f = d_ff, V = vocab,
+        L = n_layers and n = rows x queries query tokens:
+
+        - flops = n (L (8 d^2 + 4 d f) + 2 d V) + 4 L rows queries keys d:
+          per layer the Q/K/V/O projections (4 d x d), the two FFN
+          matrices (d x f, f x d), attention's Q K^T and P V (2 d
+          multiply-adds per query-key pair each), and the LM head; a
+          multiply-add counts 2;
+        - bytes = 4 (L (4 d^2 + 2 d f + 4 d) + 2 d + d V) + 4 n (2 d + V):
+          every weight matrix and LayerNorm vector read once, one
+          ``embed`` and one ``pos`` row gathered per query token, and
+          the float32 logits written.
+
+        The decode server adds the K/V pages its program gathers and
+        scatters (``DecodeServer.program_costs``)."""
+        d, f, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        n = rows * queries
+        flops = n * (L * (8 * d * d + 4 * d * f) + 2 * d * V) \
+            + 4 * L * rows * queries * keys * d
+        nbytes = 4 * (L * (4 * d * d + 2 * d * f + 4 * d) + 2 * d
+                      + d * V) + 4 * n * (2 * d + V)
+        return float(flops), float(nbytes)
+
 
 # ---------------------------------------------------------------------------
 # the fixed program set
@@ -403,8 +446,13 @@ class _Programs:
         self._inputs = {}        # (site, rung) -> [(device, host or None)]
         self._staged = None      # event after the last staging copies
         self._seen = set()
+        # the counters are read by other threads (stats(), a /metrics
+        # scrape, the flight recorder) while this server's thread
+        # captures and replays: updates and copies hold the lock
+        self._lock = threading.Lock()
         self.captures = dict.fromkeys(_SITES, 0)
         self.replays = dict.fromkeys(_SITES, 0)
+        self.prefill_replays = {}    # rung -> replays
         self.recaptures = 0      # a key captured again
         self.after_warmup = 0    # captures once warmup() has run
         self.retired = 0         # generations dropped
@@ -415,10 +463,11 @@ class _Programs:
         return (site, rung, generation) in self._graphs
 
     def generations(self):
-        # list() copies the keys in one step: stats() may run on another
-        # thread while the server's thread captures or retires
-        return sorted({k[2] for k in list(self._graphs)
-                       if k[2] is not None})
+        with self._lock:
+            return self._generations_unlocked()
+
+    def _generations_unlocked(self):
+        return sorted({k[2] for k in self._graphs if k[2] is not None})
 
     def _buffers(self, site, rung, args):
         bufs = self._inputs.get((site, rung))
@@ -469,13 +518,15 @@ class _Programs:
             replay, out, held = self._capture(
                 lambda: body(*inputs), self.device, self._pool())
             if self._cuda:
-                self.memory_bytes[site] += \
-                    torch.cuda.memory_reserved(self.device) - before
-        self.recaptures += int(key in self._seen)
-        self.after_warmup += int(self.warmed)
-        self._seen.add(key)
-        self.captures[site] += 1
-        self._graphs[key] = _Graph(replay, out, dict(held), weights)
+                grew = torch.cuda.memory_reserved(self.device) - before
+                with self._lock:
+                    self.memory_bytes[site] += grew
+        with self._lock:
+            self.recaptures += int(key in self._seen)
+            self.after_warmup += int(self.warmed)
+            self._seen.add(key)
+            self.captures[site] += 1
+            self._graphs[key] = _Graph(replay, out, dict(held), weights)
 
     def _pool(self):
         # one graph memory pool for the server's graphs: they replay one
@@ -492,26 +543,33 @@ class _Programs:
         self._stage(self._inputs[(site, rung)], args)
         g.replay()
         fa.add_launches(g.launches)
-        self.replays[site] += 1
+        with self._lock:
+            self.replays[site] += 1
+            if site == "prefill":
+                self.prefill_replays[rung] = \
+                    self.prefill_replays.get(rung, 0) + 1
         return g.output
 
     def retire(self, live):
         """Drop the graphs (and with them the weights) of every
         generation not in ``live``."""
-        dead = [k for k in list(self._graphs)
-                if k[2] is not None and k[2] not in live]
-        self.retired += len({k[2] for k in dead})
-        for k in dead:
-            del self._graphs[k]
+        with self._lock:
+            dead = [k for k in self._graphs
+                    if k[2] is not None and k[2] not in live]
+            self.retired += len({k[2] for k in dead})
+            for k in dead:
+                del self._graphs[k]
 
     def stats(self):
-        return {"captures": dict(self.captures),
-                "replays": dict(self.replays),
-                "recaptures": self.recaptures,
-                "after_warmup": self.after_warmup,
-                "generations": self.generations(),
-                "retired": self.retired,
-                "memory_bytes": dict(self.memory_bytes)}
+        with self._lock:
+            return {"captures": dict(self.captures),
+                    "replays": dict(self.replays),
+                    "prefill_replays": dict(self.prefill_replays),
+                    "recaptures": self.recaptures,
+                    "after_warmup": self.after_warmup,
+                    "generations": self._generations_unlocked(),
+                    "retired": self.retired,
+                    "memory_bytes": dict(self.memory_bytes)}
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +714,7 @@ class DecodeServer:
         self._intervals = deque(maxlen=ring)    # inter-token ms
         self._ttft = deque(maxlen=ring)         # submit -> first token
         self._steps_since_record = 0
+        self._costs = self.program_costs()
         self._t0 = time.perf_counter()
         self._stopping = False
         self._drain = True
@@ -753,6 +812,34 @@ class DecodeServer:
             P.capture("step", 0, gen, self._step_args(),
                       lambda *a: self._decode_step(tree, *a), tree)
         return 1 + len(self._seq_ladder.buckets)
+
+    def program_costs(self):
+        """``{"step": (flops, bytes), "prefill": {rung: (flops,
+        bytes)}}`` of the fixed program set, from the programs' static
+        shapes — the counterpart of the JAX server's per-program
+        ``cost_analysis``, which the meter bills (a prefill's whole cost
+        to its request, a step's in equal shares over its rows). The
+        model's :meth:`ToyDecoderLM.cost` counts the forward; the K/V
+        traffic is added here: the step gathers ``window x max_pages x
+        page_size`` cached tokens and scatters ``window`` new ones, a
+        prefill at rung R scatters R (an int8 pool's float32 page scales
+        ride along). None when the model has no ``cost``."""
+        cost = getattr(self._model, "cost", None)
+        if cost is None:
+            return None
+        pool = self._pool
+        W, T = self._window, self._max_pages * pool.page_size
+        scale_tok = 2 * pool.n_layers * 4 if pool.quantized else 0
+        flops, nbytes = cost(W, 1, T)
+        step = (flops, nbytes + W * T * pool.token_bytes
+                + W * self._max_pages * scale_tok
+                + W * (pool.token_bytes + scale_tok))
+        prefill = {}
+        for rung in self._seq_ladder.buckets:
+            flops, nbytes = cost(1, rung, rung)
+            prefill[rung] = (flops, nbytes + rung * pool.token_bytes
+                             + pool.pages_for(rung) * scale_tok)
+        return {"step": step, "prefill": prefill}
 
     def _capture_cow(self):
         if not self._programs.has("cow", 0, None):
@@ -924,14 +1011,12 @@ class DecodeServer:
         tokens (stopping early at ``eos_id``). ``priority`` (0 lowest ..
         ``MXNET_SERVING_PRIORITIES``-1) drives overload shedding and
         KV-pool preemption. ``deadline_ms`` bounds the WHOLE generation.
-        ``trace_ctx`` (a submitting process's trace context) is ignored
-        while the tracer is disarmed, as in the JAX server."""
+        ``trace_ctx`` (a router's :func:`tracing.wire_context`) joins
+        this server's spans to the router's under the session's
+        ``request_id`` while the tracer is armed; disarmed, it is
+        ignored."""
         if self._closed:
             raise ServerClosedError("DecodeServer is stopped")
-        if trace_ctx is not None and tracing.enabled():
-            raise NotImplementedError(
-                "DecodeServer: adopting a trace context needs the armed "
-                "tracer, which is not ported yet")
         prompt = _np.asarray(prompt)
         if prompt.ndim != 1 or prompt.size < 1:
             raise MXNetError(
@@ -965,6 +1050,19 @@ class DecodeServer:
         rid = "d%06d" % next(self._rid)
         req = DecodeRequest(prompt, max_new, priority,
                             req_deadline(deadline_s), eos_id, rid)
+        if tracing.enabled():
+            joined = rid
+            args = {"server_request_id": rid}
+            if trace_ctx:
+                adopted = tracing.adopt_context(
+                    trace_ctx, name="ctx:submit", cat="wire",
+                    tid=tracing.track("req %s"
+                                      % trace_ctx.get("request_id", rid)))
+                if adopted and adopted.get("request_id"):
+                    joined = adopted["request_id"]
+            args["request_id"] = joined
+            req.trace_args = args
+            req._t_trace = tracing.now()
         victim = None
         shed = stopping = False
         with self._cond:
@@ -1105,9 +1203,13 @@ class DecodeServer:
         did = self._decode_once() or did
         self._retire_generations()
         if metering.enabled():
-            raise NotImplementedError(
-                "DecodeServer: page-second metering needs the armed "
-                "meter, which is not ported yet")
+            # integrate KV page holdings at the step boundary: each
+            # active request's pages x dt accrue to its tenant AND to
+            # the meter's pool total in one dual-entry pass
+            with self._cond:
+                entries = [(metering.inner_key(self, r.request_id),
+                            len(r.pages)) for r in self._active]
+            metering.request_pages(entries, time.monotonic())
         if did:
             self._steps_since_record += 1
             if self._steps_since_record >= self._record_every:
@@ -1144,6 +1246,17 @@ class DecodeServer:
     def _finish(self, req, error, cancelled=False):
         """Retire one request: reclaim its pages (the counted
         ``kv_evict`` path), account it, complete the future."""
+        if req.trace_args is not None and req._t_trace is not None:
+            tracing.add(
+                "decode", "decode", req._t_trace,
+                tracing.now() - req._t_trace,
+                tid=tracing.track("req %s" % req.trace_args["request_id"]),
+                args=dict(req.trace_args,
+                          tokens=len(req.generated),
+                          outcome=("cancelled" if cancelled
+                                   else "ok" if error is None
+                                   else type(error).__name__)))
+            req._t_trace = None
         if req.pages:
             if self._prefix_on and not cancelled and error is None \
                     and req.params is not None:
@@ -1213,6 +1326,12 @@ class DecodeServer:
                     self._stats["prefix_hit_tokens"] += cached
                 else:
                     self._stats["prefix_misses"] += 1
+            if shared:
+                # credited at the SAME point the hit counters increment,
+                # so the meter's credits reconcile with prefix_hit_tokens
+                metering.request_prefix(
+                    metering.inner_key(self, req.request_id), cached,
+                    cached * self._pool.token_bytes)
         need = self._pool.pages_for(P + 1) - len(shared)
         pages = self._pool.alloc(need, owner=self._owner)
         while pages is None:
@@ -1250,6 +1369,7 @@ class DecodeServer:
             req.pending = deque(int(t) for t in req.prompt[start:])
             req.pending_pos = start
             return True
+        t_pre = tracing.now() if req.trace_args is not None else None
         rung = self._seq_ladder.bucket_for(P)
         tokens = _np.zeros((1, rung), _np.int64)
         tokens[0, :P] = req.prompt
@@ -1264,6 +1384,12 @@ class DecodeServer:
                     self._active.remove(req)
             self._finish(req, exc)
             return True
+        if self._costs is not None and metering.enabled():
+            # a prefill is this one request: the whole program is its
+            # share
+            metering.request_flops(
+                metering.inner_key(self, req.request_id),
+                *self._costs["prefill"][rung])
         if self._prefix_on:
             # register the prompt's full pages so the NEXT same-prefix
             # prompt shares them
@@ -1272,6 +1398,18 @@ class DecodeServer:
         now = time.perf_counter()
         req._t_first = now
         req._last_emit = now
+        if t_pre is not None:
+            # the first token is on the host (the copy back waited for
+            # the device): the prefill span ends here
+            rtid = tracing.track("req %s" % req.trace_args["request_id"])
+            if req._t_trace is not None:
+                tracing.add("queue", "decode", req._t_trace,
+                            t_pre - req._t_trace, tid=rtid,
+                            args=req.trace_args)
+            tracing.add("prefill", "decode", t_pre,
+                        tracing.now() - t_pre, tid=rtid,
+                        args=dict(req.trace_args, rung=rung))
+            req._t_trace = tracing.now()
         with self._cond:
             self._stats["prefill_steps"] += 1
             self._stats["tokens_out"] += 1
@@ -1434,6 +1572,15 @@ class DecodeServer:
             for r in rows:
                 self._finish(r, exc)
             return
+        if self._costs is not None and metering.enabled():
+            # the step ran ONE batch over these rows: each request is
+            # billed an equal share of the program's cost
+            flops, nbytes = self._costs["step"]
+            share = 1.0 / len(rows)
+            for r in rows:
+                metering.request_flops(
+                    metering.inner_key(self, r.request_id),
+                    flops * share, nbytes * share)
         now = time.perf_counter()
         emitting = []
         for i, r in enumerate(rows):
@@ -1492,7 +1639,8 @@ class DecodeServer:
             shed_pri = dict(self._shed_by_priority)
         steps = s["prefill_steps"] + s["decode_steps"]
         out = {
-            "name": self.name or "default",
+            "name": getattr(self, "_metrics_label", None)
+            or self.name or "default",
             "kind": "decode",
             "requests": s["requests"],
             "completed": s["completed"],

@@ -48,21 +48,26 @@ iterator sees a latency blip, never an error.
   CLEAN departure the monitor never misreads as a loss. Sessions
   still streaming past ``MXNET_ROUTER_DRAIN_TIMEOUT_MS`` fail over to
   the remaining replicas instead of blocking the drain.
-- **Autoscaler hook** — the JAX router's ``supervisor`` callback reads
-  the livemetrics SLO watchdog's pressure alerts, which the port does
-  not have yet: ``supervisor=`` raises NotImplementedError naming
-  ``ROADMAP.md`` queue A item 6 (observability).
+- **Autoscaler hook** — with a ``supervisor`` callback, the router
+  watches the livemetrics SLO watchdog's pressure alerts
+  (queue-at-bound, shed rate, replica skew) and calls
+  ``supervisor("scale_up", router, info)`` on new ones; a fleet idle
+  for ``MXNET_ROUTER_AUTOSCALE_IDLE_ROUNDS`` sweeps gets ONE
+  ``"scale_down"`` suggestion. The callback starts/drains replicas
+  (``add_replica``/``drain``); the router never spawns processes
+  itself.
 - **Faults** — ``serve_route`` fires once per dispatch (a planned
   raise is counted and survived; a hang stalls dispatch so queued
   sessions age deterministically); ``replica_lost`` fires per replica
   per health sweep (a planned raise IS the loss confirmation).
-- **Observability** — :meth:`Router.stats` has every counter of the
-  JAX router's ``router`` telemetry record (failovers, replayed
-  re-prefill tokens, per-replica outstanding tokens, per-tenant
-  throttles/latency, drains, detection-to-resume latency). The port's
-  telemetry, tracing, metering and /metrics hooks are disarmed stubs,
-  as the JAX ones are by default; an armed telemetry run would make
-  the record raise NotImplementedError (queue A item 6).
+- **Observability** — cumulative ``router`` telemetry records
+  (failovers, replayed re-prefill tokens, per-replica outstanding
+  tokens, per-tenant throttles/latency, drains, detection-to-resume
+  latency), the diagnose Router table, and ``mxnet_router_*``
+  /metrics gauges; trace spans and instants on each session's track,
+  joined to the replica's spans by the wire context each dispatch
+  carries; the meter's per-request hooks; a confirmed replica loss is
+  an ``alert`` record, which the flight recorder dumps on.
 
 Fallback matrix: a single-replica router is today's single-server
 behavior plus the relay (same tokens, same typed errors); with no
@@ -266,19 +271,15 @@ class Router:
     ``replicas`` are live DecodeServers (or ``fleet.Replica``
     wrappers); ``tenants`` maps tenant name to ``{"weight", "rate",
     "burst"}`` overrides of the ``MXNET_ROUTER_TENANT_*`` defaults;
-    ``supervisor`` (the autoscaler hook) waits for the port's
-    observability and raises NotImplementedError. ``start=False``
-    leaves the pump unstarted for deterministic tests."""
+    ``supervisor`` arms the autoscaler hook (``supervisor(action,
+    router, info)`` with action ``"scale_up"``/``"scale_down"``).
+    ``start=False`` leaves the pump unstarted for deterministic
+    tests."""
 
     def __init__(self, replicas=(), *, name=None, tenants=None,
                  probe_interval_ms=None, strikes=None,
                  max_inflight=None, drain_timeout_ms=None,
                  record_every=None, supervisor=None, start=True):
-        if supervisor is not None:
-            raise NotImplementedError(
-                "Router: the autoscaler hook reads the livemetrics SLO "
-                "watchdog, which is not ported yet (ROADMAP.md queue A "
-                "item 6, observability)")
         self.name = name
         self._lock = threading.RLock()
         self._replicas = []
@@ -310,7 +311,14 @@ class Router:
                        "replay_tokens": 0, "replay_cached_tokens": 0,
                        "replicas_lost": 0,
                        "drains": 0, "drain_timeouts": 0,
-                       "route_faults": 0}
+                       "route_faults": 0, "scale_up_signals": 0,
+                       "scale_down_signals": 0}
+        self._supervisor = supervisor
+        self._alerts_seen = 0
+        self._idle_rounds = 0
+        self._idle_fired = False
+        self._idle_limit = max(1, envs.get_int(
+            "MXNET_ROUTER_AUTOSCALE_IDLE_ROUNDS"))
         self._resume_ms = deque(maxlen=512)   # detect -> resume, ms
         self._rounds_since_record = 0
         self._stopping = False
@@ -539,7 +547,7 @@ class Router:
     def pump(self, now=None):
         """One router pass: health sweep (when due), WFQ dispatch,
         one scheduler step for any unstarted replica, stream relay,
-        drain bookkeeping. The started router's loop
+        drain bookkeeping, autoscaler tick. The started router's loop
         calls this continuously; ``start=False`` tests call it
         directly (passing ``now`` makes health-sweep timing
         deterministic). Returns True when anything progressed."""
@@ -552,6 +560,7 @@ class Router:
         did = self._step_unstarted() or did
         did = self._relay_round() or did
         self._drain_round(time.monotonic())
+        self._autoscale_round()
         if did:
             self._rounds_since_record += 1
             if self._rounds_since_record >= self._record_every:
@@ -1049,6 +1058,47 @@ class Router:
                         inner.cancel()
                     self._failover_session(req, now)
 
+    # -- autoscaler hook ---------------------------------------------------
+    def _autoscale_round(self):
+        if self._supervisor is None:
+            return
+        from .. import livemetrics
+        wd = livemetrics._watchdog
+        counts = wd.alerts() if wd is not None else {}
+        pressure = sum(counts.get(k, 0)
+                       for k in ("serving_queue_full",
+                                 "serving_shed_rate", "replica_skew"))
+        if pressure > self._alerts_seen:
+            self._alerts_seen = pressure
+            with self._lock:
+                self._stats["scale_up_signals"] += 1
+            self._call_supervisor("scale_up", {"alerts": dict(counts)})
+        with self._lock:
+            idle = not self._sessions and all(
+                not t.queue for t in self._tenants.values())
+            ups = sum(1 for r in self._replicas if r.state == "up")
+        if idle and ups > 1:
+            self._idle_rounds += 1
+            if self._idle_rounds >= self._idle_limit \
+                    and not self._idle_fired:
+                self._idle_fired = True
+                with self._lock:
+                    self._stats["scale_down_signals"] += 1
+                self._call_supervisor("scale_down",
+                                      {"replicas_up": ups})
+        else:
+            self._idle_rounds = 0
+            self._idle_fired = False
+
+    def _call_supervisor(self, action, info):
+        try:
+            self._supervisor(action, self, info)
+        except Exception as exc:    # noqa: BLE001 — a broken callback
+            # must not take the pump down with it
+            warnings.warn("router: supervisor callback failed on %r "
+                          "(%s: %s)" % (action, type(exc).__name__,
+                                        exc))
+
     # -- stats & telemetry -------------------------------------------------
     def stats(self):
         """Cumulative router snapshot: dispatch/completion counters,
@@ -1100,9 +1150,4 @@ class Router:
         return out
 
     def _emit_record(self):
-        if not telemetry.enabled():
-            return
-        raise NotImplementedError(
-            "Router: the router telemetry record needs the armed "
-            "telemetry run, which is not ported yet (ROADMAP.md "
-            "queue A item 6, observability)")
+        telemetry.router_event(self.stats())

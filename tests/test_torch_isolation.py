@@ -28,7 +28,9 @@ def _modules():
 def test_every_module_imports_with_jax_and_mxnet_tpu_blocked():
     mods = _modules()
     for mod in ("serving.decode", "serving.router", "serving.fleet",
-                "parallel.multihost", "tools.launch"):
+                "parallel.multihost", "tools.launch", "log", "profiler",
+                "tracing", "telemetry", "metering", "livemetrics",
+                "flightrec", "tools.diagnose"):
         assert "mxnet_tpu_torch." + mod in mods
     code = ("import sys\n"
             "for name in %r:\n"

@@ -12,8 +12,12 @@ prefill at each length, on the port's model with the JAX model's
 weights; the cross-package tests run a JAX Router over JAX
 DecodeServers and a port Router over port DecodeServers on the same
 numpy weights and prompts and require the same streams and counters.
-The autoscaler and the armed telemetry record wait for the port's
-observability and raise NotImplementedError."""
+The autoscaler drills and the router's telemetry record (sink, diagnose
+Router table, /metrics gauges) run as tests/test_router.py runs them."""
+import json
+import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -25,6 +29,7 @@ from mxnet_tpu import fault as jfault
 from mxnet_tpu import serving as jserving
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import fault
+from mxnet_tpu_torch import livemetrics
 from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.parallel.multihost import StrikeTracker
 from mxnet_tpu_torch.serving import (DecodeServer, FleetMonitor,
@@ -450,20 +455,95 @@ def test_router_stop_drains_and_types_out_leftovers():
 
 
 # ---------------------------------------------------------------------------
-# what waits for the port's observability
+# autoscaler hook
 # ---------------------------------------------------------------------------
 
-def test_autoscaler_and_armed_telemetry_raise_not_implemented(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _router(n=1, supervisor=lambda action, router, info: None)
-    r = _router(n=1)
+class _FakeWatchdog:
+    def __init__(self):
+        self.counts = {}
+
+    def alerts(self):
+        return dict(self.counts)
+
+
+def test_autoscaler_scale_up_on_watchdog_pressure(monkeypatch):
+    wd = _FakeWatchdog()
+    monkeypatch.setattr(livemetrics, "_watchdog", wd)
+    calls = []
+    r = _router(n=1, supervisor=lambda action, router, info:
+                calls.append((action, info)))
     try:
-        monkeypatch.setattr(telemetry, "enabled", lambda: True)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            r._emit_record()
+        r.pump(0.01)
+        assert calls == []                 # no pressure, no signal
+        wd.counts["serving_queue_full"] = 2
+        r.pump(0.02)
+        r.pump(0.03)                       # same pressure: no re-fire
+        assert [c[0] for c in calls] == ["scale_up"]
+        assert calls[0][1]["alerts"]["serving_queue_full"] == 2
+        wd.counts["serving_shed_rate"] = 1
+        r.pump(0.04)                       # NEW pressure re-fires
+        assert [c[0] for c in calls] == ["scale_up", "scale_up"]
+        assert r.stats()["scale_up_signals"] == 2
     finally:
-        monkeypatch.setattr(telemetry, "enabled", lambda: False)
         r.stop()
+
+
+def test_autoscaler_scale_down_after_idle_rounds(monkeypatch):
+    monkeypatch.setenv("MXNET_ROUTER_AUTOSCALE_IDLE_ROUNDS", "3")
+    calls = []
+    r = _router(n=2, supervisor=lambda action, router, info:
+                calls.append((action, info)))
+    try:
+        for i in range(6):
+            r.pump(0.01 * (i + 1))
+        assert [c[0] for c in calls] == ["scale_down"]   # fires ONCE
+        assert calls[0][1]["replicas_up"] == 2
+        assert r.stats()["scale_down_signals"] == 1
+        # a broken callback is survived (warned, not raised)
+        r2 = _router(n=2, supervisor=lambda *a: 1 / 0)
+        with pytest.warns(UserWarning, match="supervisor callback"):
+            for i in range(4):
+                r2.pump(0.01 * (i + 1))
+        r2.stop()
+    finally:
+        r.stop()
+
+
+def test_router_telemetry_records_diagnose_table_and_metrics(tmp_path):
+    sink = str(tmp_path / "run.jsonl")
+    telemetry.start(filename=sink, run_id="router-test")
+    try:
+        r = Router([_replica("rt-%d" % i) for i in range(2)], name="fleet",
+                   start=False, probe_interval_ms=1, strikes=1)
+        req = r.submit(np.arange(1, 5), max_new_tokens=6)
+        now = 0.0
+        while len(req.emitted) < 2:
+            now += 0.01
+            r.pump(now)
+        r.replica(req._replica.name).kill()
+        _run(r, req)
+        page = livemetrics.render()
+        assert 'mxnet_router_failovers_total{router="fleet"} 1' in page
+        assert 'mxnet_router_replicas_up{router="fleet"} 1' in page
+        assert 'mxnet_router_replica_outstanding_tokens{' in page
+        r.stop()                           # final record
+    finally:
+        telemetry.stop()
+    recs = [json.loads(line) for line in open(sink) if line.strip()]
+    last = [x for x in recs if x.get("type") == "router"][-1]
+    assert last["name"] == "fleet"
+    assert last["completed"] == 1 and last["failovers"] == 1
+    assert last["replicas_lost"] == 1
+    assert last["failover_resume_ms"]["p99"] > 0
+    summary = [x for x in recs if x.get("type") == "summary"][-1]
+    assert summary["router"]["fleet"]["failovers"] == 1
+    out = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.diagnose", sink],
+        capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr
+    assert "----------Router----------" in out.stdout
+    assert "re-homed" in out.stdout and "resume" in out.stdout
 
 
 # ---------------------------------------------------------------------------
