@@ -153,6 +153,30 @@ no result, anywhere else. Phases (any failure exits non-zero):
    mxnet_tpu_torch.tools.diagnose --format json`` on the directory and
    the tool's ``main`` on the sink report every reconcile line true.
 
+13. resnet (run last) — the tenth slice's main path, ``entry()``'s
+   five lines through ``import mxnet_tpu_torch as mx`` on gpu(0)
+   (``vision.resnet50_v1(classes=10)``, Xavier from ``mx.random.seed(0)``,
+   a forward on zeros, ``net(sym.var("data"))``,
+   ``build_graph_callable``) at batch 2, 32x32, fp32 with TF32 off: the
+   plan and the hybridized net (``net.hybridize()``: the CachedOp's CUDA
+   graph) against the imperative run on the card (rtol = atol = 1e-5),
+   over 8 calls on 4 inputs exactly 1 capture and 8 replays, each call's
+   output its own tensor; the output weight written in place by
+   ``set_data`` (a replay, the output follows) and replaced by a new
+   tensor (one counted recapture, the output follows). One training
+   call under ``record()`` on the hybridized net, for it and for
+   ResNet-18 at batch 2, 64x64: every BatchNorm's moving statistics
+   against momentum*old + (1-momentum)*batch, the batch moments
+   recomputed in float64 from that BatchNorm's input; gradients reach
+   every conv weight. Then ms a batch and images/s (median of 20 after
+   warm-up), device busy ms by class and the idle share (profiler), peak
+   memory and the bound (convolution and FC FLOPs at the fp32 peak, or
+   the weights' bytes), imperative and hybridized, at entry()'s config
+   and at the reference's benchmark size (ResNet-50, classes 1000,
+   batch 32, 224x224), there with one extra labelled reading with
+   cuDNN's TF32 on. Attention kernel launches, zeroed before, must read
+   0: no kernel of the port is on this path.
+
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode or rtc;
 ``launches`` from that path's run, times at the shape it gives the
@@ -162,6 +186,7 @@ kernel), and, last,
 import contextlib
 import ctypes
 import gc
+import importlib
 import io
 import json
 import os
@@ -247,6 +272,25 @@ RTC_REPS = 2000
 # the server phases' DecodeServer: GPT-2-small prompts up to 512 tokens
 SERVER_CFG = dict(seq_ladder=[64, 128, 256, 512], max_new_tokens=64,
                   window=8, page_size=16, pool_pages=384)
+# the ResNet phase: entry()'s config (batch, image, classes), the
+# reference's benchmark size, the training check's second net, and its
+# tolerances: logits by graph replay and through build_graph_callable vs
+# the imperative run on the card (the same cuDNN calls, another
+# launch path); the written-back moving statistics vs
+# momentum*old + (1-momentum)*batch recomputed in float64 (fp32 one-pass
+# shifted moments against float64 two-pass ones)
+RESNET_ENTRY = (2, 32, 10)
+RESNET_BENCH = (32, 224, 1000)
+RESNET18_TRAIN = (2, 64, 10)
+RESNET_TOL = dict(rtol=1e-5, atol=1e-5)
+RESNET_STAT_TOL = dict(rtol=1e-5, atol=1e-5)
+RESNET_ITERS = 20
+# device time by class in the ResNet profile, first match wins
+RESNET_CLASSES = (("pooling", ("pool", "pad")),
+                  ("convolutions", ("conv", "fprop", "implicit", "winograd",
+                                    "fft", "nchwkcrs", "nhwckrsc")),
+                  ("FC (matmul)", ("gemm",)),
+                  ("BatchNorm/elementwise", ("elementwise",)))
 # the kernels each main path runs
 SERVER_KERNELS = ("flash_fwd", "flash_decode")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -1299,10 +1343,17 @@ def step_inputs(srv):
     return tokens, positions, pts
 
 
-def profile_steps(fn, steps):
+STEP_CLASSES = (("attention kernels", ("decode_kernel", "fwd_kernel")),
+                ("matmul", ("gemm", "cutlass", "sm90_", "ampere_")),
+                ("KV gather/scatter", ("index", "gather", "scatter")))
+
+
+def profile_steps(fn, steps, classes=STEP_CLASSES):
     """(wall ms a call, device busy ms a call, busy ms by kernel class,
     the top kernels, wall ms a call without the profiler) of ``steps``
-    calls of ``fn`` under the profiler (and 4 x ``steps`` without)."""
+    calls of ``fn`` under the profiler (and 4 x ``steps`` without);
+    ``classes``: (class, name substrings), first match wins, the rest
+    "other"."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1316,9 +1367,6 @@ def profile_steps(fn, steps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    classes = {"attention kernels": ("decode_kernel", "fwd_kernel"),
-               "matmul": ("gemm", "cutlass", "sm90_", "ampere_"),
-               "KV gather/scatter": ("index", "gather", "scatter")}
     by_class, kernels = {}, []
     for e in prof.key_averages():
         us = e.self_device_time_total
@@ -1326,7 +1374,7 @@ def profile_steps(fn, steps):
             continue
         kernels.append((us, e.key, e.count))
         name = e.key.lower()
-        cls = next((c for c, keys in classes.items()
+        cls = next((c for c, keys in classes
                     if any(k in name for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / steps
     return (wall, sum(by_class.values()), by_class,
@@ -3156,6 +3204,317 @@ def phase_rtc(card):
     return recs, launches
 
 
+def resnet_net(mx, layers, batch, image, classes):
+    """ResNet v1 as ``entry()`` builds it: Xavier from ``mx.random.seed(0)``
+    on gpu(0), deferred shapes fixed by one forward on zeros."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(0)
+    net = vision.get_model("resnet%d_v1" % layers, classes=classes)
+    net.initialize(mx.init.Xavier())
+    net(mx.nd.zeros((batch, 3, image, image)))
+    return net
+
+
+def resnet_plan(net):
+    """``entry()``'s lowering of ``net``: ``net(sym.var("data"))`` →
+    ``build_graph_callable``, and its forward (eval), reading each
+    parameter's current tensor."""
+    from mxnet_tpu_torch import symbol as sym_mod
+    from mxnet_tpu_torch.cached_op import build_graph_callable
+    out = net(sym_mod.var("data"))
+    fn, arg_names, aux_names, n_rng, n_out = build_graph_callable(out)
+    if (n_rng, n_out) != (0, 1):
+        fail("resnet: build_graph_callable gave n_rng %d, n_out %d"
+             % (n_rng, n_out))
+    params = {p.name: p for p in net.collect_params().values()}
+
+    def forward(x):
+        vals = [x if n == "data" else params[n].data()._data
+                for n in arg_names]
+        vals += [params[n].data()._data for n in aux_names]
+        with torch.no_grad():
+            return fn({"__train__": False}, *vals)[0]
+    return out, forward, arg_names, aux_names
+
+
+def resnet_cost(sym, batch, image):
+    """(FLOPs, bytes) of one forward: 2 x the multiply-adds of every
+    Convolution and FullyConnected node (shapes from the graph's
+    inference), and the parameters, auxiliary states, input and logits
+    each moved once."""
+    internals = sym.get_internals()
+    _, shapes, _ = internals.infer_shape(data=(batch, 3, image, image))
+    shape_of = dict(zip(internals.list_outputs(), shapes))
+    flops = 0
+    for node in sym._topo_nodes():
+        if node.op is not None and node.op.name in ("Convolution",
+                                                    "FullyConnected"):
+            out = shape_of[node.name + "_output"]
+            w = shape_of[node.inputs[1][0].name]
+            flops += 2 * int(np.prod(out)) * int(np.prod(w[1:]))
+    arg_shapes, out_shapes, aux_shapes = sym.infer_shape(
+        data=(batch, 3, image, image))
+    nbytes = 4 * sum(int(np.prod(s)) for s in
+                     arg_shapes + out_shapes + aux_shapes)
+    return flops, nbytes
+
+
+def resnet_bound(flops, nbytes):
+    """(bound ms, bound by) at the card's fp32 peak and memory rate."""
+    by_ops, by_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return max(by_ops, by_bytes) * 1e3, \
+        "operations" if by_ops >= by_bytes else "bytes"
+
+
+def wall_ms(fn, iters=RESNET_ITERS, warm=3):
+    """Median host ms of one call that ends in a device sync (what a
+    user waits for), after ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def resnet_inference(mx, card):
+    """``entry()``'s config on the card: its five lines, the imperative
+    run, the hybridized run (one CUDA graph), both held to each other;
+    one capture then replays only; copied outputs; a parameter written
+    in place (a replay) and one replaced by a new tensor (one counted
+    recapture). Returns the net."""
+    batch, image, classes = RESNET_ENTRY
+    net = resnet_net(mx, 50, batch, image, classes)
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    _sym, forward, arg_names, aux_names = resnet_plan(net)
+    xs = [mx.nd.array(np.random.RandomState(40 + i).randn(
+        batch, 3, image, image).astype(np.float32)) for i in range(4)]
+    eager = [net(x)._data.clone() for x in xs]
+    errs = []
+    for x, want in zip(xs, eager):
+        got = forward(x._data)
+        errs.append(close(got, want, RESNET_TOL))
+    net.hybridize()
+    ys = [net(x) for x in xs]
+    first = ys[0]._data.clone()
+    ys += [net(x) for x in xs]
+    for y, want in zip(ys, eager + eager):
+        errs.append(close(y._data, want, RESNET_TOL))
+    st = net._cached_op.stats()
+    distinct = len({y._data.data_ptr() for y in ys}) == len(ys)
+    kept = torch.equal(ys[0]._data, first)
+    print("resnet: entry()'s config (ResNet-50 v1, classes %d, batch %d, "
+          "%dx%d, %.2fM parameters, %d args + %d aux; %s): "
+          "build_graph_callable and the hybridized net (CUDA graph) vs "
+          "the imperative run on the card, max abs err %.3g (tol rtol = "
+          "atol = %g); graphs %s; %d outputs distinct tensors: %s, the "
+          "first unchanged by later calls: %s"
+          % (classes, batch, image, image, n_params / 1e6, len(arg_names),
+             len(aux_names), card, max(e for e, _ in errs),
+             RESNET_TOL["rtol"], st, len(ys), distinct, kept))
+    if not all(ok for _, ok in errs):
+        fail("resnet: entry() logits differ from the imperative run")
+    if st != dict(captures=1, replays=len(ys), recaptures=0, signatures=1):
+        fail("resnet: expected 1 capture and %d replays, got %s"
+             % (len(ys), st))
+    if not (distinct and kept):
+        fail("resnet: a call's output is not its own tensor")
+    # in place (set_data copies into the tensor the graph reads): a replay
+    w = net.output.weight
+    w.set_data(w.data() * 0.5)
+    y = net(xs[0])
+    err_a, ok_a = close(y._data, forward(xs[0]._data), RESNET_TOL)
+    st_a = net._cached_op.stats()
+    # replaced by a new tensor: one counted recapture
+    w.data()._set_data(w.data()._data * 3.0)
+    y2 = net(xs[0])
+    err_b, ok_b = close(y2._data, forward(xs[0]._data), RESNET_TOL)
+    st_b = net._cached_op.stats()
+    moved = not torch.equal(y._data, y2._data) \
+        and not torch.equal(y._data, first)
+    print("  output weight set_data in place: %s, err %.3g; replaced by a "
+          "new tensor: %s, err %.3g; outputs moved: %s"
+          % (st_a, err_a, st_b, err_b, moved))
+    if not (ok_a and ok_b and moved):
+        fail("resnet: outputs after the weight changes are wrong")
+    if (st_a["captures"], st_a["recaptures"]) != (1, 0) \
+            or (st_b["captures"], st_b["recaptures"]) != (2, 1):
+        fail("resnet: weight changes gave %s then %s" % (st_a, st_b))
+    return net
+
+
+def resnet_train_call(mx, net, batch, image, label):
+    """One hybridized training call under ``record()``: every BatchNorm's
+    written-back moving statistics against momentum*old +
+    (1-momentum)*batch, the batch moments recomputed in float64 from
+    that BatchNorm's input (the train-mode plan of the same graph, on
+    copies of the statistics); gradients reach every conv weight."""
+    from mxnet_tpu_torch import ops, symbol as sym_mod
+    from mxnet_tpu_torch.cached_op import build_graph_callable
+    sym = net(sym_mod.var("data"))
+    x = mx.nd.array(np.random.RandomState(50).randn(
+        batch, 3, image, image).astype(np.float32))
+    head = mx.nd.array(np.random.RandomState(51).randn(
+        batch, net.output.weight.shape[0]).astype(np.float32))
+    params = {p.name: p for p in net.collect_params().values()}
+    bns = [n for n in sym._topo_nodes()
+           if n.op is not None and n.op.name == "BatchNorm"]
+    fn, arg_names, aux_names, _, n_out = build_graph_callable(
+        sym_mod.Symbol([n.inputs[0] for n in bns]))
+    vals = [x._data if n == "data" else params[n].data()._data
+            for n in arg_names]
+    vals += [params[n].data()._data.clone() for n in aux_names]
+    with torch.no_grad():
+        bn_in = fn({"__train__": True}, *vals)[:n_out]
+    old = {n.inputs[i][0].name: params[n.inputs[i][0].name].data()._data
+           .double().clone() for n in bns for i in (3, 4)}
+    net.hybridize()
+    with mx.autograd.record():
+        y = net(x)
+        loss = (y * head).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    worst, bad = 0.0, []
+    for node, xin in zip(bns, bn_in):
+        m = ops.normalize_attrs(node.op, node.attrs)["momentum"]
+        d = xin.double()
+        red = [i for i in range(d.dim()) if i != 1]
+        batch = {3: d.mean(dim=red), 4: d.var(dim=red, unbiased=False)}
+        for i in (3, 4):
+            name = node.inputs[i][0].name
+            want = m * old[name] + (1 - m) * batch[i]
+            got = params[name].data()._data.double()
+            err, ok = close(got, want, RESNET_STAT_TOL)
+            worst = max(worst, err)
+            if not ok or torch.equal(got, old[name]):
+                bad.append(name)
+    convs = [p for p in net.collect_params().values()
+             if "conv" in p.name and p.name.endswith("weight")]
+    no_grad = [p.name for p in convs
+               if not bool(torch.isfinite(p.grad()._data).all())
+               or float(p.grad()._data.abs().sum()) == 0.0]
+    print("  training call, %s, hybridized under record(): logits %s "
+          "finite %s; %d BatchNorms' moving statistics vs momentum*old + "
+          "(1-momentum)*batch in float64, max abs err %.3g (tol rtol %g, "
+          "atol %g); gradients reach %d of %d conv weights"
+          % (label, tuple(y.shape), bool(torch.isfinite(y._data).all()),
+             len(bns), worst, RESNET_STAT_TOL["rtol"],
+             RESNET_STAT_TOL["atol"], len(convs) - len(no_grad),
+             len(convs)))
+    if bad or no_grad or not bool(torch.isfinite(y._data).all()):
+        fail("resnet: training call, %s: statistics %s, gradients %s"
+             % (label, bad[:4], no_grad[:4]))
+
+
+def resnet_timing(mx, net, batch, image, label, card, tf32=False):
+    """Images/s, ms a batch (median of RESNET_ITERS after warm-up), the
+    device busy ms by class and idle share (profiler), peak memory and
+    the bound, imperative and hybridized; with ``tf32``, one extra
+    hybridized reading with cuDNN's TF32 on."""
+    from mxnet_tpu_torch import symbol as sym_mod
+    x = mx.nd.array(np.random.RandomState(60).randn(
+        batch, 3, image, image).astype(np.float32))
+    flops, nbytes = resnet_cost(net(sym_mod.var("data")), batch, image)
+    bound, bound_by = resnet_bound(flops, nbytes)
+    rows = {}
+    outs = {}
+    for mode in ("imperative", "hybridized"):
+        net.hybridize(active=mode == "hybridized")
+        net(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: net(x))
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_steps(lambda: net(x), 3, RESNET_CLASSES)
+        outs[mode] = net(x)._data
+        rows[mode] = (ms, peak, prof)
+    err, ok = close(outs["hybridized"], outs["imperative"], RESNET_TOL)
+    if not ok:
+        fail("resnet: %s hybridized vs imperative max abs err %g"
+             % (label, err))
+    print("resnet timing, %s (batch %d, %dx%d, fp32, TF32 off; %s): "
+          "%.4g GFLOP a batch (%.4g GMAC an image), %.1f MB moved once; "
+          "bound %.4f ms (%s); hybridized vs imperative max abs err %.3g"
+          % (label, batch, image, image, card, flops / 1e9,
+             flops / 2e9 / batch, nbytes / 1e6, bound, bound_by, err))
+    result = {}
+    for mode, (ms, peak, (wall, busy, by_class, kernels, bare)) \
+            in rows.items():
+        print("  %-10s %.3f ms a batch, %.1f images/s, %.3f of the bound; "
+              "peak memory %.1f MB; profiled: wall %.3f ms, device busy "
+              "%.3f ms, idle share %.3f"
+              % (mode, ms, batch * 1e3 / ms, bound / ms, peak / 2 ** 20,
+                 wall, busy, 1 - busy / wall if wall else float("nan")))
+        for cls, cms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            print("    %-24s %.3f ms a batch" % (cls, cms))
+        for us, key, count in kernels[:3]:
+            print("    top: %.3f ms in %d calls  %s"
+                  % (us / 1e3 / 3, count // 3, key[:70]))
+        result[mode] = dict(ms=ms, images_s=batch * 1e3 / ms,
+                            busy_ms=busy, peak_mb=peak / 2 ** 20)
+    if tf32:
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            net.hybridize()      # a new graph: the old one holds fp32 kernels
+            ms = wall_ms(lambda: net(x))
+            err32 = float((net(x)._data - outs["hybridized"]).abs().max())
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        print("  [data for amp, not a mode of the port] hybridized with "
+              "cuDNN TF32 on (matmul TF32 off): %.3f ms a batch, %.1f "
+              "images/s; max abs diff vs fp32 %.3g"
+              % (ms, batch * 1e3 / ms, err32))
+        result["tf32_ms"] = ms
+    net.hybridize(active=False)
+    return result
+
+
+def phase_resnet(card):
+    """The tenth slice's main path: ``entry()``'s five lines through the
+    port's entry points on gpu(0), the hybridized net on CUDA graphs,
+    one training call each for ResNet-50 (entry's config) and ResNet-18
+    (64x64), then timings at the reference's benchmark size and at
+    entry()'s. No attention kernel is on this path: the launch counts,
+    zeroed just before, must read 0 after. Returns the readings."""
+    import mxnet_tpu_torch as mx
+    tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tfa.reset_launches()
+    net = resnet_inference(mx, card)
+    resnet_train_call(mx, net, RESNET_ENTRY[0], RESNET_ENTRY[1],
+                      "ResNet-50, entry()'s config")
+    batch, image, classes = RESNET18_TRAIN
+    r18 = resnet_net(mx, 18, batch, image, classes)
+    resnet_train_call(mx, r18, batch, image, "ResNet-18, batch %d, %dx%d"
+                      % (batch, image, image))
+    del r18
+    readings = {"entry": resnet_timing(mx, net, RESNET_ENTRY[0],
+                                       RESNET_ENTRY[1], "entry()'s config",
+                                       card)}
+    del net
+    torch.cuda.empty_cache()
+    batch, image, classes = RESNET_BENCH
+    big = resnet_net(mx, 50, batch, image, classes)
+    readings["bench"] = resnet_timing(
+        mx, big, batch, image, "ResNet-50 v1, classes %d" % classes, card,
+        tf32=True)
+    del big
+    torch.cuda.empty_cache()
+    if any(tfa.launches.values()):
+        fail("resnet: the ResNet path launched attention kernels: %s"
+             % tfa.launches)
+    print("  attention kernel launches on the ResNet path: %s (none is on "
+          "it); resnet phase %.1f s"
+          % (dict(tfa.launches), time.perf_counter() - t_phase))
+    return readings
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -3186,7 +3545,6 @@ def main():
     t_start = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import importlib
     from mxnet_tpu_torch.serving import ToyDecoderLM
     tfa = importlib.import_module(
         "mxnet_tpu_torch.parallel.flash_attention")
@@ -3219,6 +3577,7 @@ def main():
     del model_k, model_p, params
     torch.cuda.empty_cache()
     train_launches = phase_training(tfa, card)
+    phase_resnet(card)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

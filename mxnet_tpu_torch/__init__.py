@@ -9,7 +9,7 @@ nothing of ``mxnet_tpu``. Entry points run on the CUDA device
 on the serving path); the attention kernels are CUDA C++ written for
 Hopper (``parallel/csrc``), built with ``nvcc`` at first use.
 
-Three slices are ported:
+What is ported:
 
 - the token path of the LM server: ``serving.DecodeServer`` over
   ``serving.ToyDecoderLM``, with the paged KV pool (``serving.kvcache``)
@@ -20,7 +20,12 @@ Three slices are ported:
 - the last two TPU kernels: the int8-cache decode attention
   (``flash_decode(k_scale=, v_scale=)`` on ``parallel/csrc/
   flash_decode_q8.cu``) and runtime compilation of user CUDA C kernels
-  (``rtc.CudaModule``, NVRTC).
+  (``rtc.CudaModule``, NVRTC);
+- the framework core up to ``entry()``: ``mx.sym`` (the Symbol graph),
+  ``cached_op`` (``build_graph_callable``, ``CachedOp``: one CUDA graph
+  per input signature on the card), ``HybridBlock.hybridize()``, the
+  conv/pooling/BatchNorm layers and ``gluon.model_zoo.vision``'s
+  ResNets.
 
 Typical use mirrors MXNet::
 
@@ -36,9 +41,15 @@ Typical use mirrors MXNet::
 """
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context, num_gpus
+from .name import NameManager
+from .attribute import AttrScope
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
+from . import symbol
+from . import symbol as sym
+from .symbol import Symbol
+from . import cached_op
 from . import random
 from . import autograd
 from . import initializer
@@ -48,5 +59,6 @@ from . import gluon
 from . import rtc
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "nd", "ndarray", "NDArray", "random", "autograd",
-           "init", "initializer", "optimizer", "gluon", "rtc"]
+           "num_gpus", "NameManager", "AttrScope", "nd", "ndarray",
+           "NDArray", "sym", "symbol", "Symbol", "cached_op", "random",
+           "autograd", "init", "initializer", "optimizer", "gluon", "rtc"]

@@ -1,5 +1,5 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): blocks, parameters, the
-layers, losses and Trainer of the slice's training loop."""
+layers, losses and Trainer, and the model zoo's ResNets."""
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 from .block import Block, HybridBlock
 from .trainer import Trainer
@@ -7,7 +7,8 @@ from . import nn
 from . import loss
 from . import contrib
 from . import convert
+from . import model_zoo
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
            "Block", "HybridBlock", "Trainer", "nn", "loss", "contrib",
-           "convert"]
+           "convert", "model_zoo"]

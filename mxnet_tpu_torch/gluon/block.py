@@ -6,13 +6,14 @@ its parameters are named ``<prefix><name>``;
 :meth:`Block._collect_params_with_prefix` gives the structural names
 (``0.weight``) that do not depend on the global counters.
 
-``HybridBlock.forward`` calls ``hybrid_forward(F=nd, x, ..., **params)``
-eagerly. Deferred shapes are fixed from the first input by each layer's
-:meth:`HybridBlock._infer_param_shapes` (the way ``torch.nn.LazyLinear``
-does it), where the JAX package infers them through its Symbol graph;
-the resulting shapes are the same. ``hybridize()`` raises
-NotImplementedError until the Symbol/``cached_op`` layer is ported
-(ROADMAP queue A item 8).
+``HybridBlock.forward`` takes an NDArray or a Symbol. With an NDArray it
+calls ``hybrid_forward(F=nd, x, ..., **params)`` eagerly, or, once
+``hybridize()``d, runs the block's traced graph through one
+:class:`~mxnet_tpu_torch.cached_op.CachedOp` (on the card: one CUDA
+graph per input signature). With a Symbol it traces
+``hybrid_forward(F=sym, ...)`` into the graph. Deferred parameter shapes
+are fixed from the first input by shape inference over that graph, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,11 +21,63 @@ import re
 import threading
 from collections import OrderedDict
 
+from ..base import MXNetError
 from .. import ndarray as nd
 from ..ndarray import NDArray
+from .. import symbol as sym_mod
+from ..symbol import Symbol
+from ..cached_op import CachedOp
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
 __all__ = ["Block", "HybridBlock"]
+
+
+# ---------------------------------------------------------------------------
+# pytree codec for nested Symbol/NDArray structures
+# ---------------------------------------------------------------------------
+
+class _Leaf:
+    """Spec of one leaf; ``width`` > 0 marks a multi-output Symbol that
+    regroups as a slice of that many outputs."""
+
+    __slots__ = ("width",)
+
+    def __init__(self, width=0):
+        self.width = width
+
+    def __eq__(self, other):
+        return isinstance(other, _Leaf) and self.width == other.width
+
+
+def _tree_flatten(tree, role):
+    """→ (leaves, spec); spec is a _Leaf or a list of nested specs."""
+    if isinstance(tree, NDArray):
+        return [tree], _Leaf()
+    if isinstance(tree, Symbol):
+        n = len(tree.list_outputs())
+        return [tree], _Leaf(n if n > 1 else 0)
+    if not isinstance(tree, (list, tuple)):
+        raise AssertionError(
+            "HybridBlock %s must be (nested) list of Symbol or NDArray, "
+            "but got %s of type %s" % (role, str(tree), str(type(tree))))
+    leaves, specs = [], []
+    for item in tree:
+        sub_leaves, sub_spec = _tree_flatten(item, role)
+        leaves.extend(sub_leaves)
+        specs.append(sub_spec)
+    return leaves, specs
+
+
+def _tree_unflatten(leaves, spec):
+    """Inverse of _tree_flatten; consumes ``leaves`` (a list used as a
+    queue) and returns the structured value."""
+    if isinstance(spec, _Leaf):
+        if spec.width == 0:
+            return leaves.pop(0)
+        picked = leaves[:spec.width]
+        del leaves[:spec.width]
+        return picked
+    return [_tree_unflatten(leaves, s) for s in spec]
 
 
 class _Naming:
@@ -177,6 +230,13 @@ class Block:
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast every parameter (and the children's) to ``dtype``."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for param in self.params.values():
+            param.cast(dtype)
+
     def __call__(self, *args):
         return self.forward(*args)
 
@@ -185,9 +245,77 @@ class Block:
 
 
 class HybridBlock(Block):
-    """A block written once against ``F`` (reference: block.py:671); here
-    it always runs imperatively with ``F`` = :mod:`~mxnet_tpu_torch.nd`."""
+    """A block written once against ``F`` that can run as one traced
+    graph (reference: block.py:671)."""
 
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._cached_graph = ()
+        self._cached_op = None
+        self._cache_sources = None      # [("data", idx) | ("param", p)]
+        self._in_spec = None
+        self._out_spec = None
+        self._active = False
+        self._flags = []
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if isinstance(value, HybridBlock):
+            self._clear_cached_op()
+
+    # -- tracing ----------------------------------------------------------
+    def _get_graph(self, *args):
+        if not self._cached_graph:
+            leaves, self._in_spec = _tree_flatten(list(args), "input")
+            # the placeholders carry the inputs' dtypes for inference
+            placeholders = [
+                sym_mod.var("data%d" % i, dtype=getattr(leaf, "dtype", None))
+                for i, leaf in enumerate(leaves)]
+            structured = _tree_unflatten(list(placeholders), self._in_spec)
+            param_vars = {n: p.var() for n, p in self._reg_params.items()}
+            with self.name_scope():
+                out = self.hybrid_forward(sym_mod, *structured,
+                                          **param_vars)
+            flat_out, self._out_spec = _tree_flatten(out, "output")
+            graph = sym_mod.Group(flat_out) if len(flat_out) > 1 \
+                else flat_out[0]
+            self._cached_graph = (placeholders, graph)
+        return self._cached_graph
+
+    def _build_cache(self, *args):
+        placeholders, graph = self._get_graph(*args)
+        slot_of = {p.name: i for i, p in enumerate(placeholders)}
+        by_name = {p.name: p for p in self.collect_params().values()}
+        self._cache_sources = []
+        for name in graph.list_arguments() + graph.list_auxiliary_states():
+            if name in slot_of:
+                self._cache_sources.append(("data", slot_of[name]))
+            elif name in by_name:
+                self._cache_sources.append(("param", by_name[name]))
+            else:
+                raise MXNetError("Unknown input to HybridBlock: %s" % name)
+        self._cached_op = CachedOp(
+            graph, self._flags,
+            data_indices=[i for i, (kind, _) in
+                          enumerate(self._cache_sources) if kind == "data"])
+
+    def _call_cached_op(self, *args):
+        if self._cached_op is None:
+            self._build_cache(*args)
+        leaves, spec = _tree_flatten(list(args), "input")
+        if spec != self._in_spec:
+            raise AssertionError("Invalid input format")
+        feed = [leaves[ref] if kind == "data" else ref.data()
+                for kind, ref in self._cache_sources]
+        out = self._cached_op(*feed)
+        flat = [out] if isinstance(out, NDArray) else list(out)
+        return _tree_unflatten(flat, self._out_spec)
+
+    def _clear_cached_op(self):
+        self._cached_graph = ()
+        self._cached_op = None
+
+    # -- composition overrides --------------------------------------------
     def register_child(self, block, name=None):
         if not isinstance(block, HybridBlock):
             raise ValueError(
@@ -196,36 +324,76 @@ class HybridBlock(Block):
                 "HybridSequential instead." % (str(block),
                                                str(type(block))))
         super().register_child(block, name)
+        self._clear_cached_op()
 
     def hybridize(self, active=True, **kwargs):
-        if active:
-            raise NotImplementedError(
-                "HybridBlock.hybridize: compiling a block into one program "
-                "needs the Symbol/cached_op layer, not ported yet (ROADMAP "
-                "queue A item 8); the block runs imperatively")
+        """Run this block (and its children) as one traced graph from
+        the next call; ``active=False`` goes back to eager calls."""
+        self._active = active
+        self._flags = list(kwargs.items())
+        self._clear_cached_op()
         super().hybridize(active, **kwargs)
 
-    def _infer_param_shapes(self, *args):
-        """Fix the unknown (0) dims of this block's own parameters from
-        its inputs. Layers with deferred parameters override it."""
-        raise ValueError(
-            "Deferred initialization failed because shape cannot be "
-            "inferred: %s has no shape rule for its parameters %s"
-            % (type(self).__name__, sorted(self._reg_params)))
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
 
-    def forward(self, x, *args):
-        if not isinstance(x, NDArray):
-            raise AssertionError(
-                "HybridBlock requires the first argument to forward be an "
-                "NDArray, but got %s" % type(x))
+    # -- shape/type inference ---------------------------------------------
+    def _infer_attrs(self, infer_fn, attr, *args):
+        _, graph = self._get_graph(*args)
+        leaves, _ = _tree_flatten(list(args), "input")
+        feed = {"data%d" % i: (leaf.shape if attr == "shape" else leaf.dtype)
+                for i, leaf in enumerate(leaves)}
+        arg_attrs, _, aux_attrs = getattr(graph, infer_fn)(**feed)
+        known = dict(zip(graph.list_arguments(), arg_attrs))
+        known.update(zip(graph.list_auxiliary_states(), aux_attrs))
+        field = "_shape" if attr == "shape" else "_dtype"
+        for name, param in self.collect_params().items():
+            if name in known:
+                setattr(param, field, known[name])
+
+    def infer_shape(self, *args):
+        """Fix the parameters' shapes from the inputs' (reference:
+        block.py:839) and finish their deferred initialization."""
+        self._infer_attrs("infer_shape", "shape", *args)
+        for param in self.collect_params().values():
+            param._finish_deferred_init()
+
+    def infer_type(self, *args):
+        self._infer_attrs("infer_type", "dtype", *args)
+
+    def _deferred_infer_shape(self, *args):
         try:
-            params = {n: p.data() for n, p in self._reg_params.items()}
-        except DeferredInitializationError:
-            self._infer_param_shapes(x, *args)
-            for p in self._reg_params.values():
-                p._finish_deferred_init()
-            params = {n: p.data() for n, p in self._reg_params.items()}
-        return self.hybrid_forward(nd, x, *args, **params)
+            self.infer_shape(*args)
+        except Exception as e:
+            raise ValueError(
+                "Deferred initialization failed because shape cannot be "
+                "inferred. {}".format(e)) from e
+
+    # -- execution --------------------------------------------------------
+    def forward(self, x, *args):
+        """Hybridized (one CachedOp) or eager with an NDArray; a traced
+        graph with a Symbol (reference: block.py:795)."""
+        if isinstance(x, NDArray):
+            if self._active:
+                try:
+                    return self._call_cached_op(x, *args)
+                except DeferredInitializationError:
+                    self._deferred_infer_shape(x, *args)
+                    return self._call_cached_op(x, *args)
+            try:
+                params = {n: p.data() for n, p in self._reg_params.items()}
+            except DeferredInitializationError:
+                self._deferred_infer_shape(x, *args)
+                params = {n: p.data() for n, p in self._reg_params.items()}
+            return self.hybrid_forward(nd, x, *args, **params)
+        if not isinstance(x, Symbol):
+            raise AssertionError(
+                "HybridBlock requires the first argument to forward be "
+                "either Symbol or NDArray, but got %s" % type(x))
+        param_vars = {n: p.var() for n, p in self._reg_params.items()}
+        with self.name_scope():
+            return self.hybrid_forward(sym_mod, x, *args, **param_vars)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError()

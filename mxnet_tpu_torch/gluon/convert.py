@@ -4,9 +4,10 @@ A Gluon parameter's full name carries process-global counters
 (``dense3_weight``), so two nets built in different processes, or by two
 packages, name the same weight differently. The structural names of
 :meth:`Block._collect_params_with_prefix` (``0.weight``,
-``1.query_proj.weight``) depend only on the block tree; the JAX
-package's blocks give the same ones, so ``{name: p.data().asnumpy()}``
-from a JAX net loads into the port's copy of it.
+``1.query_proj.weight``, ``features.1.running_mean``) depend only on
+the block tree; the JAX package's blocks give the same ones, so
+``{name: p.data().asnumpy()}`` from a JAX net (its auxiliary states,
+BatchNorm's running statistics, too) loads into the port's copy of it.
 """
 from __future__ import annotations
 

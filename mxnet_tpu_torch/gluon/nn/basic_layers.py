@@ -1,17 +1,17 @@
 """Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): the two Sequential containers,
-``Dense``, ``Embedding``, ``LayerNorm`` and ``Activation``. Each lowers
-to registered ops; a layer whose parameter shapes wait for the first
-input (``in_units=0``, ``in_channels=0``) fixes them from that input in
-``_infer_param_shapes``."""
+``Dense``, ``Embedding``, ``BatchNorm``, ``LayerNorm``, ``Flatten`` and
+``Activation``. Each lowers to registered ops; a parameter shape that
+waits for the first input (``in_units=0``, ``in_channels=0``) is fixed
+by shape inference over the block's traced graph."""
 from __future__ import annotations
 
-import math
+import numpy as np
 
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Embedding",
-           "LayerNorm", "Activation"]
+           "BatchNorm", "LayerNorm", "Flatten", "Activation"]
 
 
 class _Stack:
@@ -76,10 +76,6 @@ class Dense(HybridBlock):
             self.act = Activation(activation, prefix=activation + "_") \
                 if activation is not None else None
 
-    def _infer_param_shapes(self, x, *args):
-        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
-        self.weight.shape = (self._units, in_units)
-
     def hybrid_forward(self, F, x, weight, bias=None):
         out = F.FullyConnected(x, weight, bias, no_bias=bias is None,
                                num_hidden=self._units,
@@ -117,6 +113,57 @@ class Embedding(HybridBlock):
             type(self).__name__, **self._kwargs)
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization with running statistics (reference:
+    basic_layers.py:276): ``fix_gamma = not scale``; ``running_mean`` and
+    ``running_var`` are auxiliary states (``grad_req='null'``), updated
+    in train mode as ``momentum * old + (1 - momentum) * batch``.
+    ``in_channels=0`` is taken from the first input's ``axis`` dim."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        if in_channels != 0:
+            self.in_channels = in_channels
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True, differentiable=scale)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True, differentiable=center)
+        for stat, init in (("running_mean", running_mean_initializer),
+                           ("running_var", running_variance_initializer)):
+            setattr(self, stat, self.params.get(
+                stat, grad_req="null", shape=(in_channels,), init=init,
+                allow_deferred_init=True, differentiable=False))
+
+    def cast(self, dtype):
+        # float16 batch statistics lose too much precision: keep fp32
+        if np.dtype(dtype).name == "float16":
+            dtype = "float32"
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           name="fwd", **self._kwargs)
+
+    def __repr__(self):
+        inner = ", ".join("=".join((k, repr(v)))
+                          for k, v in self._kwargs.items())
+        c = self.gamma.shape[0]
+        return "{}({}, in_channels={})".format(
+            type(self).__name__, inner, c if c else None)
+
+
 class LayerNorm(HybridBlock):
     """Normalization over one axis, the last by default (reference:
     basic_layers.py:535). ``in_channels=0`` is taken from the first
@@ -138,11 +185,6 @@ class LayerNorm(HybridBlock):
             shape=(in_channels,), init=beta_initializer,
             allow_deferred_init=True)
 
-    def _infer_param_shapes(self, x, *args):
-        channels = x.shape[self._axis]
-        self.gamma.shape = (channels,)
-        self.beta.shape = (channels,)
-
     def hybrid_forward(self, F, data, gamma, beta):
         return F.LayerNorm(data, gamma=gamma, beta=beta, axis=self._axis,
                            eps=self._epsilon)
@@ -153,6 +195,16 @@ class LayerNorm(HybridBlock):
         c = self.gamma.shape[0]
         return "{}({}, in_channels={})".format(
             type(self).__name__, inner, c if c else None)
+
+
+class Flatten(HybridBlock):
+    """Collapse all but the batch dim (reference: basic_layers.py:418)."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return type(self).__name__
 
 
 class Activation(HybridBlock):

@@ -80,6 +80,7 @@ class Parameter:
         self._grad = None
         self._pending = None            # DEFERRED when set
         self._ctx_list = []
+        self._var = None                # the Symbol variable, built once
         self._grad_req = None
         self.grad_req = grad_req
 
@@ -257,6 +258,31 @@ class Parameter:
     def zero_grad(self):
         if self._grad is not None:
             self._grad[:] = 0
+
+    def cast(self, dtype):
+        """New arrays of ``dtype`` for the value and its gradient (a
+        hybridized block's graph then recaptures over them)."""
+        self._dtype = dtype
+        self._var = None        # the variable carries the old dtype
+        if self._data is None:
+            return
+        with autograd.pause():
+            self._data = self._data.astype(dtype)
+            if self._grad is not None:
+                self._grad = self._grad.astype(dtype)
+            autograd.mark_variables([self._data], [self._grad],
+                                    [self._grad_req])
+
+    def var(self):
+        """The Symbol variable of this parameter (name, shape, dtype,
+        multipliers, initializer), as Gluon's tracing feeds it to
+        ``hybrid_forward``."""
+        if self._var is None:
+            from .. import symbol
+            self._var = symbol.var(
+                self.name, shape=self.shape, dtype=self.dtype,
+                lr_mult=self.lr_mult, wd_mult=self.wd_mult, init=self.init)
+        return self._var
 
 
 class ParameterDict:

@@ -1,13 +1,16 @@
 """Weight initializers (counterpart of ``mxnet_tpu/initializer.py``).
 
 A parameter is routed by its name's suffix (``*weight``, ``*bias``,
-``*gamma``, ``*beta``) to a handler, which fills the array in place.
+``*gamma``, ``*beta``, BatchNorm's ``*running_mean`` / ``*moving_mean``
+to zeros and ``*running_var`` / ``*moving_var`` to ones) to a handler,
+which fills the array in place.
 Every random draw takes the generator of the array's device from
 :mod:`mxnet_tpu_torch.random` (the JAX package draws from numpy's global
 state), so a seed fixes the weights on each device.
 """
 from __future__ import annotations
 
+import json
 import math
 
 import torch
@@ -43,6 +46,9 @@ _SUFFIX_ROUTES = (
     (("bias",), "_init_bias"),
     (("gamma",), "_init_gamma"),
     (("beta",), "_init_beta"),
+    (("moving_mean", "running_mean", "moving_inv_var", "moving_avg",
+      "min", "max"), "_init_zero"),
+    (("moving_var", "running_var"), "_init_one"),
 )
 
 
@@ -52,6 +58,11 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+
+    def dumps(self):
+        """Serialized ``[name, kwargs]`` form (a Symbol variable's
+        ``__init__`` attribute)."""
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
 
     def __call__(self, desc, arr):
         if not isinstance(desc, str):
@@ -90,8 +101,8 @@ class Initializer:
     def _init_default(self, name, arr):
         raise ValueError(
             "no initialization rule for %r: only *weight/*bias/*gamma/"
-            "*beta route automatically — pass an explicit Initializer for "
-            "this array" % str(name))
+            "*beta (and BatchNorm stats) route automatically — pass an "
+            "explicit Initializer for this array" % str(name))
 
 
 class _EverywhereMixin:

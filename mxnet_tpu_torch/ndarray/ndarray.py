@@ -385,12 +385,27 @@ def _as_nd(x, ctx=None):
 
 def invoke_nd(op_name, inputs, attrs, out=None):
     """Run a registered op on NDArrays (the ``Imperative::Invoke``
-    role): gradients are recorded only inside ``autograd.record()``."""
+    role): gradients are recorded only inside ``autograd.record()``; an
+    op with a ``__train__`` attribute runs in the autograd train mode;
+    the new values of its mutable inputs (BatchNorm's moving statistics)
+    are written back into those NDArrays in place, with no grad."""
     from .. import autograd
+    from .. import random as _random
     op = _ops.get_op(op_name) if isinstance(op_name, str) else op_name
     attrs = {k: v for k, v in attrs.items() if v is not None or k == "axis"}
+    if "__train__" in op.defaults:
+        attrs["__train__"] = autograd.is_training()
+    rng = None
+    if op.needs_rng:
+        rng = _random.generator(inputs[0]._data.device if inputs
+                                else current_context().torch_device())
     with torch.set_grad_enabled(autograd.is_recording()):
-        outputs = _ops.invoke(op, [i._data for i in inputs], attrs)
+        outputs, aux_updates = _ops.invoke(op, [i._data for i in inputs],
+                                           attrs, rng=rng)
+    with torch.no_grad():
+        for idx, val in aux_updates:
+            if val is not inputs[idx]._data:
+                inputs[idx]._data.copy_(val)
     out_nds = [NDArray(o) for o in outputs]
     if out is not None:
         for o, nd in zip(out if isinstance(out, (list, tuple)) else [out],

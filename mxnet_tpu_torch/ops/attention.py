@@ -61,7 +61,13 @@ def _decode_attention(attrs, query, key_cache, value_cache, lengths):
                         impl="plain" if impl == "dense" else None)
 
 
+def _like_query(attrs, query, *rest):
+    """Output shape rule: the kernels cannot run on ``meta`` tensors."""
+    return [(tuple(query.shape), query.dtype)]
+
+
 register("_contrib_decode_attention", _decode_attention,
+         output_shapes=_like_query,
          arg_names=("query", "key_cache", "value_cache", "lengths"),
          defaults={"scale": 0.0, "impl": "auto", "block_k": 128},
          attr_docs={"scale": "score scale; 0 = 1/sqrt(head_dim)",
@@ -76,7 +82,7 @@ register("_contrib_decode_attention", _decode_attention,
                      "carry exact-zero weight.")
 
 
-register("_contrib_flash_attention", _attention,
+register("_contrib_flash_attention", _attention, output_shapes=_like_query,
          arg_names=("query", "key", "value"),
          defaults={"causal": False, "scale": 0.0, "impl": "auto"},
          attr_docs={"causal": "apply a causal (lower-triangular) mask",

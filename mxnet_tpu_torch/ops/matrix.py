@@ -1,6 +1,7 @@
 """Shape operators (counterpart of ``mxnet_tpu/ops/matrix.py``): Reshape
 with MXNet's special codes (0 copies a dim, -1 infers one, -2 copies the
-rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left)."""
+rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left)
+and Flatten (all but the batch dim into one)."""
 from __future__ import annotations
 
 from .registry import register
@@ -88,3 +89,7 @@ def _reshape(attrs, x):
 
 register("Reshape", _reshape, arg_names=_D,
          defaults={"shape": None, "reverse": False}, aliases=("reshape",))
+
+
+register("Flatten", lambda attrs, x: x.reshape(x.shape[0], -1),
+         arg_names=_D, aliases=("flatten",))

@@ -1,8 +1,16 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``):
-``FullyConnected``, ``Activation``, ``LayerNorm``, ``softmax`` and
-``log_softmax``. Matrix products go to cuBLAS through torch, as the JAX
-package leaves them to XLA; there is no hand kernel among them."""
+``FullyConnected``, ``Convolution``, ``Activation``, ``BatchNorm``,
+``LayerNorm``, ``Pooling``, ``softmax`` and ``log_softmax``. Matrix
+products and convolutions go to cuBLAS and cuDNN through torch, as the
+JAX package leaves them to XLA (``jnp.dot``,
+``lax.conv_general_dilated``); there is no hand kernel among them.
+
+Train/eval behaviour (BatchNorm) follows the ``__train__`` attribute,
+which ``invoke_nd`` and ``CachedOp`` set from the autograd train mode.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -10,6 +18,20 @@ import torch.nn.functional as F
 from .registry import register
 
 _D = ("data",)
+
+
+def _is_train(attrs):
+    return bool(attrs.get("__train__", False))
+
+
+def _tup(v, nd, default=1):
+    """An int or a short tuple as ``nd`` ints, padded with ``default``."""
+    if v is None or v == ():
+        return (default,) * nd
+    if isinstance(v, int):
+        return (v,) * nd
+    t = tuple(int(x) for x in v)
+    return t if len(t) == nd else t + (default,) * (nd - len(t))
 
 
 def _fully_connected(attrs, data, weight, bias=None):
@@ -35,6 +57,37 @@ register("FullyConnected", _fully_connected,
                     "flatten": "collapse trailing input dims first"},
          attr_ranges={"num_hidden": (0, None)})
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _convolution(attrs, data, weight, bias=None):
+    """Cross-correlation over 1-3 spatial dims (NCW/NCHW/NCDHW), weight
+    ``(num_filter, C/num_group, *kernel)``, symmetric zero padding;
+    cuDNN on the card."""
+    nd = len(tuple(attrs["kernel"]))
+    if attrs.get("no_bias", False):
+        bias = None
+    return _CONV[nd](data, weight, bias,
+                     stride=_tup(attrs.get("stride"), nd, 1),
+                     padding=_tup(attrs.get("pad"), nd, 0),
+                     dilation=_tup(attrs.get("dilate"), nd, 1),
+                     groups=int(attrs.get("num_group", 1)))
+
+
+register("Convolution", _convolution, arg_names=("data", "weight", "bias"),
+         defaults={"kernel": (), "stride": (), "dilate": (), "pad": (),
+                   "num_filter": 0, "num_group": 1, "workspace": 1024,
+                   "no_bias": False, "cudnn_tune": None, "cudnn_off": False,
+                   "layout": None},
+         arg_names_fn=_bias_args(["data", "weight", "bias"]),
+         attr_docs={"kernel": "spatial window, e.g. (3, 3)",
+                    "stride": "window step per spatial dim",
+                    "dilate": "kernel dilation per spatial dim",
+                    "pad": "zero padding per spatial dim",
+                    "num_filter": "output channels",
+                    "num_group": "grouped-convolution groups"},
+         attr_ranges={"num_filter": (0, None), "num_group": (1, None)})
+
 _ACT = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
         "softrelu": F.softplus, "softsign": F.softsign}
 
@@ -50,6 +103,112 @@ register("Activation", _activation, arg_names=_D,
          defaults={"act_type": "relu"},
          attr_docs={"act_type": "one of relu/sigmoid/tanh/softrelu/"
                                 "softsign"})
+
+
+def _batch_norm_outputs(attrs):
+    return 3 if attrs.get("output_mean_var", False) else 1
+
+
+def _bn_affine(data, g, beta, mean, inv, bshape):
+    """``out = data * a + b`` with the per-channel ``a = inv * g`` and
+    ``b = beta - mean * inv * g`` formed in fp32, then cast to the
+    data's dtype: the JAX package's per-channel FMA, one pass over the
+    data (``addcmul``)."""
+    g32 = g.to(torch.float32)
+    a = (inv * g32).to(data.dtype)
+    b = (beta.to(torch.float32) - mean * inv * g32).to(data.dtype)
+    return torch.addcmul(b.reshape(bshape), data, a.reshape(bshape))
+
+
+class _BNTrain(torch.autograd.Function):
+    """Training-mode BatchNorm with the JAX package's hand-written VJP
+    (``_bn_train_core``). Forward: one-pass moments in fp32, shifted by
+    the moving mean ``c`` (no cancellation on large-mean channels), then
+    the per-channel FMA. Backward: the fused gradient
+    ``dx = (g*inv) * (dy - mean(dy) - xhat * mean(dy*xhat))``, saving
+    only the input and the per-channel mean and inverse deviation. The
+    batch mean and variance are outputs without gradient."""
+
+    @staticmethod
+    def forward(ctx, data, g, beta, c, red, bshape, eps):
+        xc = data.to(torch.float32) - c
+        mean_c = xc.mean(dim=red)
+        meansq_c = xc.square().mean(dim=red)
+        var = torch.clamp_min(meansq_c - mean_c.square(), 0.0)
+        mean = mean_c + c.reshape(mean_c.shape)
+        inv = torch.rsqrt(var + eps)
+        out = _bn_affine(data, g, beta, mean, inv, bshape)
+        ctx.save_for_backward(data, g, mean, inv)
+        ctx.red, ctx.bshape = red, bshape
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        data, g, mean, inv = ctx.saved_tensors
+        red, bshape = ctx.red, ctx.bshape
+        m = math.prod(data.shape[i] for i in red)
+        a = (inv * g.to(torch.float32)).to(data.dtype)
+        nmean = (-mean * inv).to(data.dtype)
+        xhat = data * inv.reshape(bshape).to(data.dtype) \
+            + nmean.reshape(bshape)
+        sum_dy = dy.sum(dim=red, dtype=torch.float32)
+        sum_dy_xhat = (dy * xhat).sum(dim=red, dtype=torch.float32)
+        c1 = (sum_dy / m).to(data.dtype).reshape(bshape)
+        c2 = (sum_dy_xhat / m).to(data.dtype).reshape(bshape)
+        dx = a.reshape(bshape) * (dy - c1 - xhat * c2)
+        return (dx, sum_dy_xhat.to(g.dtype), sum_dy.to(g.dtype), None,
+                None, None, None)
+
+
+def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
+    """Normalize over every axis but ``axis``: by the batch moments in
+    training (unless ``use_global_stats``), by the moving statistics in
+    eval. Returns the outputs, then the new moving mean and variance
+    ``momentum * old + (1 - momentum) * batch`` (fp32; unchanged in
+    eval), which the caller writes back. Not ``F.batch_norm``: torch
+    updates with the unbiased variance and weighs the new batch by
+    ``momentum``."""
+    eps = float(attrs.get("eps", 1e-3))
+    momentum = float(attrs.get("momentum", 0.9))
+    axis = int(attrs.get("axis", 1)) % data.ndim
+    train = _is_train(attrs) and not attrs.get("use_global_stats", False)
+    red = tuple(i for i in range(data.ndim) if i != axis)
+    bshape = tuple(data.shape[axis] if i == axis else 1
+                   for i in range(data.ndim))
+    g = torch.ones_like(gamma) if attrs.get("fix_gamma", True) else gamma
+    if train:
+        c = moving_mean.detach().to(torch.float32, copy=True).reshape(bshape)
+        out, mean, var = _BNTrain.apply(data, g, beta, c, red, bshape, eps)
+        new_mean = (momentum * moving_mean.detach().to(torch.float32)
+                    + (1 - momentum) * mean).to(moving_mean.dtype)
+        new_var = (momentum * moving_var.detach().to(torch.float32)
+                   + (1 - momentum) * var).to(moving_var.dtype)
+    else:
+        mean = moving_mean.to(torch.float32)
+        var = moving_var.to(torch.float32)
+        new_mean, new_var = moving_mean, moving_var
+        out = _bn_affine(data, g, beta, mean, torch.rsqrt(var + eps), bshape)
+    mean = mean.detach().to(gamma.dtype)
+    var = var.detach().to(gamma.dtype)
+    outs = (out, mean, var) if attrs.get("output_mean_var", False) \
+        else (out,)
+    return outs + (new_mean, new_var)
+
+
+register("BatchNorm", _batch_norm,
+         arg_names=("data", "gamma", "beta", "moving_mean", "moving_var"),
+         defaults={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                   "use_global_stats": False, "output_mean_var": False,
+                   "axis": 1, "cudnn_off": False, "__train__": False},
+         num_outputs=_batch_norm_outputs, mutable_inputs=(3, 4),
+         attr_docs={"eps": "added to variance for numeric stability",
+                    "momentum": "running-stat decay factor",
+                    "fix_gamma": "freeze gamma at 1",
+                    "use_global_stats": "normalize with running stats "
+                                        "even in training",
+                    "axis": "channel axis"},
+         attr_ranges={"momentum": (0.0, 1.0), "eps": (0.0, None)})
 
 
 def _layer_norm(attrs, data, gamma, beta):
@@ -71,6 +230,77 @@ def _layer_norm(attrs, data, gamma, beta):
 register("LayerNorm", _layer_norm, arg_names=("data", "gamma", "beta"),
          defaults={"axis": -1, "eps": 1e-5, "output_mean_var": False},
          num_outputs=lambda a: 3 if a.get("output_mean_var", False) else 1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _sum_pool(x, kernel, stride):
+    """Window sums with no padding (``avg_pool`` with divisor 1; a 1-D
+    pool runs as a 2-D one over a unit dim)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(-2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+def _pooling(attrs, data):
+    """max / avg / sum / lp pooling over 1-3 spatial dims. The padding
+    is explicit (-inf for max, 0 otherwise) and the pool runs with none,
+    so MXNet's ``pooling_convention="full"`` (extra high-side padding up
+    to a ceil'd output size) and ``count_include_pad=False`` (divide by
+    the count of real elements in each window) hold exactly."""
+    nd = data.ndim - 2
+    kernel = tuple(attrs.get("kernel", ()))
+    pool_type = attrs.get("pool_type", "max")
+    global_pool = bool(attrs.get("global_pool", False))
+    if global_pool or not kernel:
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
+    else:
+        kernel = _tup(kernel, nd, 1)
+        stride = _tup(attrs.get("stride"), nd, 1)
+        pad = _tup(attrs.get("pad"), nd, 0)
+    full = attrs.get("pooling_convention", "valid") == "full" \
+        and not global_pool
+    flat = []                        # F.pad order: last dim first
+    for i in reversed(range(nd)):
+        hi = pad[i]
+        if full:
+            inp = data.shape[2 + i]
+            out = -(-(inp + 2 * pad[i] - kernel[i]) // stride[i]) + 1
+            hi += max((out - 1) * stride[i] + kernel[i]
+                      - (inp + 2 * pad[i]), 0)
+        flat += [pad[i], hi]
+    padded = any(flat)
+
+    if pool_type == "max":
+        fill = -math.inf if data.is_floating_point() \
+            else torch.iinfo(data.dtype).min
+        x = F.pad(data, flat, value=fill) if padded else data
+        return _MAX_POOL[nd](x, kernel, stride)
+    if pool_type in ("avg", "sum"):
+        s = _sum_pool(F.pad(data, flat) if padded else data, kernel, stride)
+        if pool_type == "sum":
+            return s
+        if attrs.get("count_include_pad", True) or not padded:
+            return s / float(math.prod(kernel))
+        ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                          device=data.device)
+        return s / _sum_pool(F.pad(ones, flat), kernel, stride)
+    if pool_type == "lp":
+        p = float(attrs.get("p_value", 2))
+        x = torch.abs(data) ** p
+        s = _sum_pool(F.pad(x, flat) if padded else x, kernel, stride)
+        return s ** (1.0 / p)
+    raise ValueError("Pooling: unknown pool_type %r" % pool_type)
+
+
+register("Pooling", _pooling, arg_names=_D,
+         defaults={"kernel": (), "pool_type": "max", "global_pool": False,
+                   "stride": (), "pad": (), "pooling_convention": "valid",
+                   "count_include_pad": True, "p_value": 2,
+                   "cudnn_off": False})
 
 
 def _tempered(attrs, x):

@@ -3,11 +3,15 @@
 An op's body is ONE torch function ``forward(attrs, *inputs)`` over
 tensors; torch autograd differentiates it, so there is no per-op
 gradient registration. What is registered per op: the body, the input
-names, the number of outputs, and the attribute defaults, docs and
-ranges (the dmlc ``Parameter`` struct role). :func:`invoke` merges the
-defaults, parses string-typed values, range-checks and calls the body
-eagerly: the JAX package's per-signature ``jax.jit`` cache has no
-counterpart here.
+names, the number of outputs, the RNG need, the mutable inputs (an op
+returns its outputs followed by the new values of its mutable inputs:
+BatchNorm's moving statistics), and the attribute defaults, docs and
+ranges (the dmlc ``Parameter`` struct role). Output shapes come from
+running the body on ``meta`` tensors (``symbol.Symbol.infer_shape``); an
+op whose body cannot run there registers ``output_shapes``.
+:func:`invoke` merges the defaults, parses string-typed values,
+range-checks and calls the body eagerly: the JAX package's
+per-signature ``jax.jit`` cache has no counterpart here.
 """
 from __future__ import annotations
 
@@ -24,23 +28,36 @@ _OP_REGISTRY = Registry("operator")
 class OpDef:
     """A registered operator.
 
-    - ``forward(attrs, *inputs) -> tensor | tuple`` over torch tensors;
+    - ``forward(attrs, *inputs, rng=None) -> tensor | tuple`` over torch
+      tensors; with ``mutable_inputs`` the tuple carries the
+      ``num_outputs`` outputs, then one new value per mutable input;
     - ``arg_names``: tensor input names (``arg_names_fn(attrs)`` when
       they depend on the attributes, e.g. ``no_bias``);
     - ``defaults``: attribute name → default value;
     - ``num_outputs``: int, or ``attrs -> int``;
+    - ``needs_rng``: the body takes ``rng=``, a ``torch.Generator``;
+    - ``mutable_inputs``: indices of the inputs the op updates
+      (FMutateInputs; a Symbol lists their variables as auxiliary
+      states);
+    - ``output_shapes``: ``(attrs, *inputs) -> [(shape, dtype), ...]``
+      for an op whose body cannot run on ``meta`` tensors (it reaches a
+      kernel), used by shape inference in place of the body;
     - ``attr_docs`` / ``attr_ranges``: per-attribute documentation and
       ``(lo, hi)`` bounds, checked at invoke."""
 
     def __init__(self, name, forward, arg_names=("data",), defaults=None,
                  num_outputs=1, arg_names_fn=None, description="",
-                 attr_docs=None, attr_ranges=None):
+                 attr_docs=None, attr_ranges=None, needs_rng=False,
+                 mutable_inputs=(), output_shapes=None):
         self.name = name
         self.forward = forward
         self.arg_names = list(arg_names)
         self.defaults = dict(defaults or {})
         self.num_outputs = num_outputs
         self.arg_names_fn = arg_names_fn
+        self.needs_rng = bool(needs_rng)
+        self.mutable_inputs = tuple(mutable_inputs)
+        self.output_shapes = output_shapes
         self.description = description or (forward.__doc__ or "")
         self.attr_docs = dict(attr_docs or {})
         self.attr_ranges = dict(attr_ranges or {})
@@ -54,6 +71,8 @@ class OpDef:
         if self.defaults:
             lines += ["Parameters", "----------"]
             for key, default in self.defaults.items():
+                if key.startswith("__"):
+                    continue
                 entry = "%s : default %r" % (key, default)
                 if key in self.attr_ranges:
                     entry += ", range %s" % (self.attr_ranges[key],)
@@ -146,11 +165,17 @@ def normalize_attrs(op, attrs):
     return out
 
 
-def invoke(op, inputs, attrs):
-    """Run ``op`` eagerly on torch tensors; returns the tuple of its
-    outputs."""
+def invoke(op, inputs, attrs, rng=None):
+    """Run ``op`` eagerly on torch tensors; returns ``(outputs,
+    aux_updates)``: the tuple of its outputs and a list of ``(input
+    index, new value)`` for its mutable inputs."""
     nattrs = normalize_attrs(op, attrs)
-    result = op.forward(nattrs, *inputs)
+    if op.needs_rng:
+        result = op.forward(nattrs, *inputs, rng=rng)
+    else:
+        result = op.forward(nattrs, *inputs)
     if not isinstance(result, (tuple, list)):
         result = (result,)
-    return tuple(result[:op.resolve_num_outputs(nattrs)])
+    n_out = op.resolve_num_outputs(nattrs)
+    return (tuple(result[:n_out]),
+            list(zip(op.mutable_inputs, result[n_out:])))

@@ -98,6 +98,11 @@ from .. import envs, fault, livemetrics, metering, profiler, telemetry, \
     tracing
 from ..base import MXNetError
 from ..bucketing.ladder import BucketLadder
+# one capture at a time in the process (CachedOp's graphs too):
+# torch.cuda.graph synchronises the device and empties the allocator's
+# cache before it captures, which another thread's capture in flight
+# would not survive
+from ..cached_op import _CAPTURE_LOCK, _cuda_capture
 from ..context import resolve_device
 from . import kvcache
 from .kvcache import KVCachePool
@@ -110,10 +115,6 @@ __all__ = ["DecodeServer", "DecodeRequest", "ToyDecoderLM"]
 _DONE = object()          # stream sentinel
 
 _SITES = ("step", "prefill", "cow")
-# one capture at a time in the process: torch.cuda.graph synchronises
-# the device and empties the allocator's cache before it captures,
-# which another thread's capture in flight would not survive
-_CAPTURE_LOCK = threading.Lock()
 
 
 class _ParamsVersion:
@@ -389,29 +390,6 @@ class ToyDecoderLM:
 # ---------------------------------------------------------------------------
 # the fixed program set
 # ---------------------------------------------------------------------------
-
-def _cuda_capture(body, device, pool):
-    """Capture ``body()`` as a CUDA graph on ``device``: one eager call on
-    a side stream first (it builds the kernels and sets up cuBLAS
-    outside the capture), then the capture into the graph memory pool
-    ``pool``. The mode is thread-local, so other servers' threads keep
-    launching and synchronising while this one captures. Returns
-    ``(replay, output, launches)``: the graph's replay, its output
-    tensor and the kernel launches it holds."""
-    from ..parallel import flash_attention as fa
-    cur = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        body()
-    cur.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with fa.recording_launches() as held:
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            out = body()
-    return graph.replay, out, held
-
 
 class _Graph:
     """One captured program: its replay, its output, the kernel

@@ -570,14 +570,30 @@ def test_params_from_numpy_rejects_mismatches():
 
 
 # ---------------------------------------------------------------------------
-# what this slice does not do yet, and the device default
+# hybridize, and the device default
 # ---------------------------------------------------------------------------
 
 def test_hybridize_raises_until_symbol_layer_is_ported():
-    net = tmx.gluon.contrib.nn.MeshMultiHeadAttention(16, 2)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        net.hybridize()
-    net.hybridize(active=False)
+    """The Symbol/cached_op layer is ported, so hybridize() no longer
+    raises (the name is this test's first form): the hybridized block
+    gives the JAX block's output, through one CachedOp, and
+    ``hybridize(active=False)`` goes back to the imperative path."""
+    x = _rand(16, 2, 10, 16)
+    jnet = jmx.gluon.contrib.nn.MeshMultiHeadAttention(16, 2, causal=True)
+    jnet.initialize(jmx.init.Xavier())
+    want = jnet(jmx.nd.array(x)).asnumpy()
+    tnet = tmx.gluon.contrib.nn.MeshMultiHeadAttention(16, 2, causal=True)
+    tnet.initialize()
+    params_from_numpy(tnet, _weights(jnet))
+    tnet.hybridize()
+    got = tnet(tmx.nd.array(x)).asnumpy()
+    assert tnet._cached_op is not None
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    tnet.hybridize(active=False)
+    assert tnet._cached_op is None
+    np.testing.assert_allclose(tnet(tmx.nd.array(x)).asnumpy(), want,
+                               rtol=1e-5, atol=1e-5)
+    assert tnet._cached_op is None
 
 
 def test_default_context_raises_without_cuda(monkeypatch):

@@ -30,7 +30,9 @@ def test_every_module_imports_with_jax_and_mxnet_tpu_blocked():
     for mod in ("serving.decode", "serving.router", "serving.fleet",
                 "parallel.multihost", "tools.launch", "log", "profiler",
                 "tracing", "telemetry", "metering", "livemetrics",
-                "flightrec", "tools.diagnose"):
+                "flightrec", "tools.diagnose", "attribute",
+                "symbol.symbol", "symbol.infer", "cached_op",
+                "gluon.nn.conv_layers", "gluon.model_zoo.vision.resnet"):
         assert "mxnet_tpu_torch." + mod in mods
     code = ("import sys\n"
             "for name in %r:\n"
