@@ -63,10 +63,14 @@ no result, anywhere else. Phases (any failure exits non-zero):
    read just after it. Then the same 16 requests' run over an int8 KV
    pool, each stream held to a greedy loop over an int8 paged cache;
    then a weight swap mid-traffic with the prefix cache on (a full-page
-   prefix hit copies its shared page through the copy graph): the swap
-   adds exactly one generation's captures, streams admitted before and
-   after it equal the greedy loop under their own weights, and the old
-   generation's graphs are dropped once its requests finish;
+   prefix hit copies its shared page through the copy graph), then a
+   second swap from a checkpoint manifest (``swap_weights(prefix=,
+   epoch=)``; written here by ``write_manifest``, npz shards with their
+   SHA-256, one entry in two pieces): each swap adds exactly one
+   generation's captures, streams admitted before and after each equal
+   the greedy loop under their own weights, the old generations' graphs
+   are dropped once their requests finish, and a manifest with one byte
+   of a shard flipped raises, naming the file;
 7. int8 decode — the third slice's ``flash_decode(k_scale=, v_scale=)``
    on ``flash_decode_q8.cu``: at B8 T576 H12 D64 on a cache quantized
    page by page as the int8 pool does it (raw int8 pages, each page's
@@ -176,6 +180,26 @@ no result, anywhere else. Phases (any failure exits non-zero):
    batch 32, 224x224), there with one extra labelled reading with
    cuDNN's TF32 on. Attention kernel launches, zeroed before, must read
    0: no kernel of the port is on this path.
+14. module (after 13) — the eleventh slice's main path, the symbolic
+   API: ResNet-50 v1 (``vision.resnet50_v1(classes=1000)`` traced with
+   ``net(sym.var("data"))`` plus ``SoftmaxOutput``) trained by
+   ``mx.mod.Module.fit`` on gpu(0) over an ``NDArrayIter`` of 64 random
+   images (batch 32, 224x224, labels 0-999, numpy seed), SGD (lr 0.1,
+   momentum 0.9, wd 1e-4), Xavier, ``eval_metric="acc"`` and a
+   Speedometer, 10 epochs: the loss by epoch must fall from the first to
+   the last and every step's gradients be finite; ``score`` and
+   ``predict`` over the images on the executor's CUDA graph (1 capture,
+   then replays, no recapture), the probabilities equal to an eager
+   predict forward; a training step's ms (median after warm-up) with and
+   without ``update_metric``, images/s, device busy ms by class, the
+   optimizer loop's alone, the idle share and peak memory; predict
+   images/s by graph. Then one Module step against one Gluon step
+   (``autograd.record`` -> ``SoftmaxCrossEntropyLoss`` ->
+   ``Trainer("sgd")``) from the same weights and batch: the loss, the
+   moving statistics and every weight's step agree (MODULE_TOL,
+   MODULE_STEP_REL), and the Module's deferred conv biases' gradients
+   read exactly 0. TF32 off; attention kernel launches, zeroed before,
+   must read 0.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode or rtc;
@@ -291,6 +315,31 @@ RESNET_CLASSES = (("pooling", ("pool", "pad")),
                                     "fft", "nchwkcrs", "nhwckrsc")),
                   ("FC (matmul)", ("gemm",)),
                   ("BatchNorm/elementwise", ("elementwise",)))
+# the symbolic training path (phase 14): ResNet-50 v1 through Module at
+# the reference's benchmark size (batch, image, classes), the images, the
+# epochs and SGD's settings; one Module step against one Gluon step from
+# the same weights and batch: each weight's step (lr * (grad/batch + wd *
+# w) + momentum * 0) within MODULE_STEP_REL of its largest entry, the
+# moving statistics and the loss within MODULE_TOL (the same cuDNN calls
+# in both, but the Module runs the biased 1x1 convs without their bias,
+# which BatchNorm absorbs); the predict graph's outputs equal an eager
+# predict forward exactly
+MODULE_BENCH = (32, 224, 1000)
+MODULE_IMAGES = 64
+MODULE_EPOCHS = 10
+MODULE_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+MODULE_STEP_REL = 1e-3
+MODULE_TOL = dict(rtol=1e-4, atol=1e-5)
+MODULE_ITERS = 10
+# device time by class in a Module training step, first match wins
+MODULE_CLASSES = (("convolution backward", ("dgrad", "wgrad", "bprop")),
+                  ("convolution forward", ("conv", "fprop", "implicit",
+                                           "winograd", "fft", "nchwkcrs",
+                                           "nhwckrsc", "xmma")),
+                  ("FC (matmul)", ("gemm",)),
+                  ("SoftmaxOutput", ("softmax",)),
+                  ("pooling", ("pool", "pad")),
+                  ("BatchNorm/elementwise", ("elementwise", "reduce")))
 # the kernels each main path runs
 SERVER_KERNELS = ("flash_fwd", "flash_decode")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -1269,50 +1318,135 @@ def phase_server_int8(model, params, tfa):
     return srv._pool
 
 
+def write_manifest(prefix, epoch, arrays, split):
+    """A checkpoint manifest in the format ``mxnet_tpu_torch.checkpoint``
+    reads (the port has no writer yet, the card host no JAX): every entry
+    ``arg:<name>`` whole in shard 0 (``prefix-%04d.params``), except
+    ``split``, cut by rows into two pieces, the second in shard 1; each
+    shard an npz payload with its SHA-256 in ``prefix-%04d.ckpt.json``,
+    written last. ``arrays``: {name: host numpy array}."""
+    import hashlib
+    tag = "%s-%04d" % (prefix, epoch)
+    shards, layout = [{}, {}], {}
+    for name, arr in arrays.items():
+        key = "arg:" + name
+        entry = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
+        if name == split:
+            half = arr.shape[0] // 2
+            entry["pieces"] = []
+            for i, (a, b) in enumerate(((0, half), (half, arr.shape[0]))):
+                pkey = "%s::piece%d" % (key, i)
+                shards[i][pkey] = arr[a:b]
+                entry["pieces"].append({"shard": i, "key": pkey, "index": [
+                    [a, b]] + [[0, d] for d in arr.shape[1:]]})
+        else:
+            shards[0][key] = arr
+            entry["pieces"] = [{"shard": 0, "key": key, "index": None}]
+        layout[key] = entry
+    files, paths = [], []
+    for i, roster in enumerate(shards):
+        buf = io.BytesIO()
+        np.savez(buf, **roster)
+        paths.append(tag + (".params" if i == 0 else
+                            ".shard%02d-of-%02d.params" % (i, len(shards))))
+        with open(paths[-1], "wb") as f:
+            f.write(buf.getvalue())
+        files.append({"file": os.path.basename(paths[-1]), "shard": i,
+                      "sha256": hashlib.sha256(buf.getvalue()).hexdigest(),
+                      "bytes": len(buf.getvalue())})
+    with open(tag + ".ckpt.json", "w") as f:
+        json.dump({"format": 1, "epoch": epoch, "time": time.time(),
+                   "shards": files, "params": layout}, f)
+    return paths
+
+
 def phase_swap(model, params):
-    """A weight swap mid-traffic on graphs, with the prefix cache on: 4
+    """Weight swaps mid-traffic on graphs, with the prefix cache on: 4
     requests stream on generation 1 (the second repeats the first's
     64-token prompt: a full-page prefix hit whose re-fed last token
     copies the shared page, through the copy graph), ``swap_weights``
-    flips to a second random dict, 4 more are admitted on generation 2.
-    The swap adds exactly one generation's captures; every stream equals
-    the greedy loop under its own weights; generation 1's graphs are
-    dropped once its last request finishes."""
+    flips to a second random dict, 4 more are admitted on generation 2;
+    then ``swap_weights(prefix=, epoch=)`` flips to a third dict read
+    from a checkpoint manifest (two shard files, one entry in two
+    pieces), 4 more are admitted on generation 3, and a manifest with
+    one byte of a shard flipped must raise, naming the file, and leave
+    the server on generation 3. Each swap adds exactly one generation's
+    captures (``1 + len(ladder)``), none during traffic; every stream
+    equals the greedy loop under its own weights; the older generations'
+    graphs are dropped once their last request finishes."""
+    import tempfile
+    from mxnet_tpu_torch import MXNetError
     from mxnet_tpu_torch.serving import DecodeServer
     cfg = dict(SERVER_CFG, seq_ladder=[64, 128])
     params_b = model.init_params(seed=1, device="cuda")
-    specs = server_specs(model.vocab, seed=3, n=8, prompt=(20, 129),
+    params_c = model.init_params(seed=2, device="cuda")
+    specs = server_specs(model.vocab, seed=3, n=12, prompt=(20, 129),
                          new=(24, 41))
     shared = np.random.RandomState(4).randint(0, model.vocab, size=64)
     specs[:2] = [(shared, 32, 0), (shared, 24, 1)]
     srv = DecodeServer(model, params, prefix_cache=True, **cfg)
-    try:
-        n_prog = srv.warmup()
-        old = [srv.submit(p, max_new_tokens=n) for p, n, _ in specs[:4]]
-        deadline = time.monotonic() + 120
-        while min(len(r.generated) for r in old) < 4:
-            if time.monotonic() > deadline:
-                fail("swap: generation 1 made no progress")
-            time.sleep(0.001)
-        srv.swap_weights(params_b)
-        inflight = sum(not r.done() for r in old)
-        new = [srv.submit(p, max_new_tokens=n) for p, n, _ in specs[4:]]
-        results = [r.result(timeout=300) for r in old + new]
-        st = srv.stats()
-    finally:
-        srv.stop()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "lm")
+        host_c = {k: v.cpu().numpy() for k, v in params_c.items()}
+        write_manifest(prefix, 7, host_c, split="embed")
+        torn = write_manifest(prefix, 8, host_c, split="embed")[1]
+        with open(torn, "r+b") as f:
+            f.seek(os.path.getsize(torn) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            n_prog = srv.warmup()
+            old = [srv.submit(p, max_new_tokens=n) for p, n, _ in specs[:4]]
+            deadline = time.monotonic() + 120
+            while min(len(r.generated) for r in old) < 4:
+                if time.monotonic() > deadline:
+                    fail("swap: generation 1 made no progress")
+                time.sleep(0.001)
+            srv.swap_weights(params_b)
+            inflight = sum(not r.done() for r in old)
+            new = [srv.submit(p, max_new_tokens=n) for p, n, _ in specs[4:8]]
+            while min(len(r.generated) for r in new) < 4:
+                if time.monotonic() > deadline:
+                    fail("swap: generation 2 made no progress")
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            version = srv.swap_weights(prefix=prefix, epoch=7)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            inflight_b = sum(not r.done() for r in new)
+            third = [srv.submit(p, max_new_tokens=n)
+                     for p, n, _ in specs[8:]]
+            results = [r.result(timeout=300) for r in old + new + third]
+            try:
+                srv.swap_weights(prefix=prefix, epoch=8)
+                fail("swap: a manifest with a torn shard loaded")
+            except MXNetError as exc:
+                torn_msg = str(exc)
+            st = srv.stats()
+        finally:
+            srv.stop()
     g = st["graphs"]
-    print("swap: %d of 4 generation-1 requests streaming at the swap;"
-          " prefix hits %d, copy-on-write splits %d; graphs %s"
-          % (inflight, st["prefix"]["hits"], st["prefix"]["cow_splits"],
+    print("swap: %d of 4 generation-1 requests streaming at the swap to a"
+          " dict, %d of 4 generation-2 at the swap from a manifest (version"
+          " %d, %.1f ms to read, check and place %.1f MB); prefix hits %d,"
+          " copy-on-write splits %d; graphs %s"
+          % (inflight, inflight_b, version, load_ms,
+             sum(a.nbytes for a in host_c.values()) / 1e6,
+             st["prefix"]["hits"], st["prefix"]["cow_splits"],
              {k: g[k] for k in ("captures", "replays", "after_warmup",
                                 "recaptures", "generations", "retired")}))
+    print("  torn shard: %s" % torn_msg)
+    if os.path.basename(torn) not in torn_msg \
+            or st["weight_version"] != 3:
+        fail("swap: the torn manifest gave %r, weight version %d"
+             % (torn_msg, st["weight_version"]))
     if inflight < 1:
         fail("swap: no generation-1 request was streaming at the swap")
-    if g["after_warmup"] != n_prog - 1 or g["recaptures"] \
-            or g["generations"] != [2] or g["retired"] != 1:
-        fail("swap: want %d captures for generation 2, none again, and"
-             " generation 1 retired: %s" % (n_prog - 1, g))
+    if g["after_warmup"] != 2 * (n_prog - 1) or g["recaptures"] \
+            or g["generations"] != [3] or g["retired"] != 2:
+        fail("swap: want %d captures for each of generations 2 and 3, "
+             "none again, and generations 1-2 retired: %s"
+             % (n_prog - 1, g))
     if g["captures"]["cow"] != 1 or g["replays"]["cow"] < 1 \
             or st["prefix"]["cow_splits"] != g["replays"]["cow"]:
         fail("swap: copy-on-write %s, %d splits"
@@ -1321,12 +1455,14 @@ def phase_swap(model, params):
     T = srv._max_pages * cfg["page_size"]
     for what, part, res, tree in (("swap: generation 1", specs[:4],
                                    results[:4], params),
-                                  ("swap: generation 2", specs[4:],
-                                   results[4:], params_b)):
+                                  ("swap: generation 2", specs[4:8],
+                                   results[4:8], params_b),
+                                  ("swap: generation 3 (manifest)",
+                                   specs[8:], results[8:], params_c)):
         check_streams(what, part, res, lambda p, n, tree=tree: greedy_loop(
             model, tree, p, n, srv._seq_ladder.bucket_for(len(p)),
             cfg["window"], T))
-    del params_b
+    del params_b, params_c
 
 
 def step_inputs(srv):
@@ -3515,6 +3651,262 @@ def phase_resnet(card):
     return readings
 
 
+def module_resnet(mx, classes):
+    """ResNet-50 v1 as the reference's symbolic scripts train it: the
+    Gluon model traced with ``net(sym.var("data"))`` plus
+    ``SoftmaxOutput`` (the net itself is never run), and the Module's
+    batch arguments."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.resnet50_v1(classes=classes)
+    net.initialize()
+    return mx.sym.SoftmaxOutput(net(mx.sym.var("data")), name="softmax")
+
+
+def module_fit(mx, x, y, batch, card):
+    """``Module.fit`` over an NDArrayIter of the images: SGD, Xavier,
+    ``eval_metric="acc"`` and a Speedometer; each batch's loss from the
+    SoftmaxOutput probabilities and a device-side all-finite flag over
+    the gradients. Returns the module and the per-epoch losses."""
+    mx.random.seed(0)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mx.mod.Module(module_resnet(mx, MODULE_BENCH[2]))
+    losses, finite = [], []
+
+    def watch(param):
+        probs = mod.get_outputs()[0]._data
+        label = param.locals["data_batch"].label[0]._data.long()
+        losses.append(-torch.log(probs.gather(1, label[:, None]) + 1e-12)
+                      .mean())
+        grads = [g._data for g in mod._exec.grad_arrays if g is not None]
+        finite.append(torch.stack([torch.isfinite(g).all()
+                                   for g in grads]).all())
+    t0 = time.perf_counter()
+    mod.fit(it, optimizer="sgd", optimizer_params=MODULE_SGD,
+            initializer=mx.init.Xavier(), eval_metric="acc",
+            num_epoch=MODULE_EPOCHS,
+            batch_end_callback=[mx.callback.Speedometer(batch, 2), watch])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    per = len(losses) // MODULE_EPOCHS
+    epochs = [float(torch.stack(losses[i * per:(i + 1) * per]).mean())
+              for i in range(MODULE_EPOCHS)]
+    n_finite = int(torch.stack(finite).sum())
+    print("module: Module.fit, ResNet-50 v1 (classes %d) on %d images, "
+          "batch %d, %dx%d, fp32, TF32 off, %d epochs = %d steps in %.2f s "
+          "(%s); loss by epoch %s; gradients all finite in %d of %d steps; "
+          "%d conv biases deferred into BatchNorm"
+          % (MODULE_BENCH[2], len(x), batch, x.shape[2], x.shape[3],
+             MODULE_EPOCHS, len(losses), fit_s, card,
+             " ".join("%.4f" % v for v in epochs), n_finite, len(finite),
+             len(mod._exec._bias_defer)))
+    if len(losses) != MODULE_EPOCHS * len(x) // batch:
+        fail("module: fit ran %d steps" % len(losses))
+    if not epochs[-1] < epochs[0] or not all(np.isfinite(epochs)):
+        fail("module: the loss did not fall: %s" % epochs)
+    if n_finite != len(finite):
+        fail("module: non-finite gradients in %d steps"
+             % (len(finite) - n_finite))
+    return mod
+
+
+def module_vs_gluon(mx, x, y):
+    """One SGD step through the Module and one through the Gluon path
+    (``autograd.record`` -> ``SoftmaxCrossEntropyLoss`` ->
+    ``Trainer("sgd")``) from the same weights and batch: every weight's
+    step, the moving statistics and the loss agree; the deferred conv
+    biases' gradients read exactly 0 on the Module side."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    batch = x.shape[0]
+    mx.random.seed(1)
+    net = vision.resnet50_v1(classes=MODULE_BENCH[2])
+    net.initialize(mx.init.Xavier())
+    net(mx.nd.zeros((1,) + x.shape[1:]))
+    params = {p.name: p for p in net.collect_params().values()}
+    old = {n: p.data()._data.detach().clone() for n, p in params.items()}
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(net(mx.sym.var("data")),
+                                             name="softmax"))
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.set_params({n: params[n].data() for n in mod._param_names},
+                   {n: params[n].data() for n in mod._aux_names})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=MODULE_SGD)
+    data, label = mx.nd.array(x), mx.nd.array(y)
+    mod.forward_backward(mx.io.DataBatch(data=[data], label=[label]))
+    probs = mod.get_outputs()[0]._data
+    m_loss = float(-torch.log(probs.gather(1, label._data.long()[:, None]))
+                   .mean())
+    ex = mod._exec
+    deferred = [bias[1] for _, bias in ex._bias_defer.values()]
+    zero = all(not bool(ex.grad_arrays[i]._data.any()) for i in deferred)
+    mod.update()
+    m_args, m_aux = mod.get_params()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", MODULE_SGD)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(data), label)
+    loss.backward()
+    trainer.step(batch)
+    g_loss = float(loss.mean().asscalar())
+    # a deferred bias's gradient is 0 in exact arithmetic: the Gluon
+    # step's rounding noise there is held against the net's largest step
+    biases = {ex.arg_names[i] for i in deferred}
+    steps = {n: p.data()._data.detach() - old[n] for n, p in params.items()
+             if n not in m_aux}
+    largest = max(float(st.abs().max()) for st in steps.values())
+    worst_step, worst_stat, bad = 0.0, 0.0, []
+    for n, p in params.items():
+        if n in m_aux:
+            err, ok = close(m_aux[n]._data, p.data()._data, MODULE_TOL)
+            worst_stat = max(worst_stat, err)
+        else:
+            scale = largest if n in biases \
+                else float(steps[n].abs().max()) or 1.0
+            err = float((m_args[n]._data - old[n] - steps[n]).abs().max()) \
+                / scale
+            ok = err <= MODULE_STEP_REL
+            worst_step = max(worst_step, err)
+        if not ok:
+            bad.append(n)
+    loss_ok = abs(m_loss - g_loss) <= MODULE_TOL["atol"] \
+        + MODULE_TOL["rtol"] * abs(g_loss)
+    print("  one Module step vs one Gluon step (record -> "
+          "SoftmaxCrossEntropyLoss -> Trainer('sgd'), same weights and "
+          "batch): loss %.6f vs %.6f; worst weight step error %.3g of its "
+          "largest entry (tol %g), %d params; moving statistics max abs err "
+          "%.3g (tol rtol %g, atol %g); %d deferred biases' gradients "
+          "exactly 0: %s"
+          % (m_loss, g_loss, worst_step, MODULE_STEP_REL, len(params),
+             worst_stat, MODULE_TOL["rtol"], MODULE_TOL["atol"],
+             len(deferred), zero))
+    if bad or not loss_ok or not zero or not deferred:
+        fail("module: the Module step differs from the Gluon step: %s, "
+             "loss %s, deferred biases zero %s (%d)"
+             % (bad[:4], (m_loss, g_loss), zero, len(deferred)))
+
+
+def module_predict(mx, mod, x, y, card):
+    """``Module.score`` and ``Module.predict`` over the images on the
+    executor's CUDA graph: 1 capture, then replays, 0 recaptures; the
+    probabilities equal an eager predict forward of the same plan."""
+    batch = MODULE_BENCH[0]
+    ex = mod._exec
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    score = mod.score(it, "acc")
+    probs = mod.predict(it)._data
+    st = ex.graphs.stats()
+    run = ex._make_graph_fn(False)
+    errs = []
+    for i in range(0, len(x), batch):
+        ex._gather_inputs({"data": x[i:i + batch]})
+        args, aux = ex._values()
+        with torch.no_grad():
+            want = run(args, aux)[0][0]
+        errs.append(float((probs[i:i + batch] - want).abs().max()))
+    n_batches = len(x) // batch
+    print("  predict: score %s and predict over %d images on the executor's "
+          "CUDA graph: graphs %s; probabilities vs an eager predict forward "
+          "max abs err %.3g (expected 0)"
+          % (score, len(x), st, max(errs)))
+    if st != dict(captures=1, replays=2 * n_batches, recaptures=0,
+                  signatures=1):
+        fail("module: predict graphs %s, want 1 capture and %d replays"
+             % (st, 2 * n_batches))
+    if max(errs) != 0.0:
+        fail("module: predict graph differs from eager by %g" % max(errs))
+    feed = mx.io.DataBatch(data=[mx.nd.array(x[:batch])],
+                           label=[mx.nd.array(y[:batch])])
+    ms = wall_ms(lambda: mod.forward(feed, is_train=False),
+                 iters=MODULE_ITERS)
+    print("  predict by graph: %.3f ms a batch, %.1f images/s (%s)"
+          % (ms, batch * 1e3 / ms, card))
+    return ms
+
+
+def module_timing(mx, mod, x, y, card):
+    """A training step's ms (median after warm-up) with and without
+    ``update_metric`` (its host read-back syncs each step), images/s,
+    device busy ms by class, the optimizer loop's busy ms alone, the
+    idle share and peak memory."""
+    batch = MODULE_BENCH[0]
+    feed = mx.io.DataBatch(data=[mx.nd.array(x[:batch])],
+                           label=[mx.nd.array(y[:batch])])
+    metric = mx.metric.create("acc")
+
+    def step(with_metric):
+        mod.forward_backward(feed)
+        mod.update()
+        if with_metric:
+            mod.update_metric(metric, feed.label)
+    def back_to_back(with_metric):
+        """Mean ms a step over MODULE_ITERS steps issued back to back,
+        one sync at the end (only the metric's read-back syncs between
+        them)."""
+        step(with_metric)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MODULE_ITERS):
+            step(with_metric)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / MODULE_ITERS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {w: wall_ms(lambda w=w: step(w), iters=MODULE_ITERS)
+          for w in (True, False)}
+    b2b = {w: back_to_back(w) for w in (True, False)}
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, by_class, kernels, _ = profile_steps(
+        lambda: step(False), 3, MODULE_CLASSES)
+    _, opt_busy, _, _, _ = profile_steps(mod.update, 3, MODULE_CLASSES)
+    print("module timing (ResNet-50 v1, batch %d, %dx%d, fp32, TF32 off; "
+          "%s): a training step %.3f ms with update_metric, %.3f ms "
+          "without (median of %d after warm-up, a sync after each), %.1f "
+          "images/s; back to back (one sync after %d steps) %.3f ms with "
+          "update_metric, %.3f without; peak memory %.1f MB; profiled: "
+          "wall %.3f ms, device busy %.3f ms, idle share %.3f; the "
+          "optimizer loop alone %.3f ms busy"
+          % (batch, x.shape[2], x.shape[3], card, ms[True], ms[False],
+             MODULE_ITERS, batch * 1e3 / ms[True], MODULE_ITERS, b2b[True],
+             b2b[False], peak / 2 ** 20, wall, busy,
+             1 - busy / wall if wall else float("nan"), opt_busy))
+    for cls, cms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print("    %-24s %.3f ms a step" % (cls, cms))
+    for us, key, count in kernels[:3]:
+        print("    top: %.3f ms in %d calls  %s"
+              % (us / 1e3 / 3, count // 3, key[:70]))
+    return ms, b2b
+
+
+def phase_module(card):
+    """The eleventh slice's main path: ResNet-50 v1 trained through
+    ``mx.mod.Module`` on gpu(0) at the reference's benchmark size, one
+    Module step held to one Gluon step, predict on the executor's CUDA
+    graph, and the step's timings. No attention kernel is on this path:
+    the launch counts, zeroed just before, must read 0 after."""
+    import mxnet_tpu_torch as mx
+    tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, image, classes = MODULE_BENCH
+    rs = np.random.RandomState(70)
+    x = rs.randn(MODULE_IMAGES, 3, image, image).astype(np.float32)
+    y = rs.randint(0, classes, MODULE_IMAGES).astype(np.float32)
+    tfa.reset_launches()
+    mod = module_fit(mx, x, y, batch, card)
+    module_predict(mx, mod, x, y, card)
+    module_timing(mx, mod, x, y, card)
+    del mod
+    torch.cuda.empty_cache()
+    module_vs_gluon(mx, x[:batch], y[:batch])
+    torch.cuda.empty_cache()
+    if any(tfa.launches.values()):
+        fail("module: the Module path launched attention kernels: %s"
+             % tfa.launches)
+    print("  attention kernel launches on the Module path: %s (none is on "
+          "it); module phase %.1f s"
+          % (dict(tfa.launches), time.perf_counter() - t_phase))
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -3578,6 +3970,7 @@ def main():
     torch.cuda.empty_cache()
     train_launches = phase_training(tfa, card)
     phase_resnet(card)
+    phase_module(card)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

@@ -25,7 +25,14 @@ What is ported:
   ``cached_op`` (``build_graph_callable``, ``CachedOp``: one CUDA graph
   per input signature on the card), ``HybridBlock.hybridize()``, the
   conv/pooling/BatchNorm layers and ``gluon.model_zoo.vision``'s
-  ResNets.
+  ResNets;
+- the symbolic training path: ``Symbol.bind``/``simple_bind``/``eval``
+  and the ``executor`` (predict runs as CUDA graphs on the card),
+  ``mx.mod.Module`` with ``fit``/``score``/``predict``, ``mx.io``'s
+  ``NDArrayIter``, ``metric``, ``lr_scheduler``, ``callback``,
+  ``model``'s checkpoints, ``nd.save``/``nd.load``, and the read half of
+  ``checkpoint`` (manifests), which ``DecodeServer.swap_weights(
+  prefix=, epoch=)`` loads.
 
 Typical use mirrors MXNet::
 
@@ -57,8 +64,19 @@ from . import initializer as init
 from . import optimizer
 from . import gluon
 from . import rtc
+from . import executor
+from . import io
+from . import metric
+from . import lr_scheduler
+from . import callback
+from . import model
+from . import checkpoint
+from . import module
+from . import module as mod
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "NameManager", "AttrScope", "nd", "ndarray",
            "NDArray", "sym", "symbol", "Symbol", "cached_op", "random",
-           "autograd", "init", "initializer", "optimizer", "gluon", "rtc"]
+           "autograd", "init", "initializer", "optimizer", "gluon", "rtc",
+           "executor", "io", "metric", "lr_scheduler", "callback", "model",
+           "checkpoint", "module", "mod"]

@@ -1,0 +1,477 @@
+"""Executor — a Symbol bound to arrays on one device (counterpart of
+``mxnet_tpu/executor.py``).
+
+``bind`` turns the graph into a plan: the ops in topological order,
+each with its normalized attributes and the slots its inputs come from
+(the JAX package's ``_build_plan``). The plan runs two ways:
+
+- **predict** (``forward(is_train=False)``): on a CUDA bind, one CUDA
+  graph per input signature (``cached_op._Graphs``, the holder of the
+  hybridized CachedOp, with its capture lock), the counterpart of the
+  JAX executor's one jitted program. The batch arguments (a Module's
+  data and labels) are staged into the graph's static buffers, every
+  other argument and auxiliary state is read in place; a capture that
+  fails raises. On the CPU the plan runs op by op. A graph with an op
+  that draws random numbers runs op by op on either device;
+- **train** (``forward(is_train=True)``, ``forward_backward``): op by op
+  under torch autograd over the arguments that carry a gradient.
+  ``backward`` takes ``torch.autograd.grad`` of the stored forward, as
+  the reference's backward consumes its stored activations, so a
+  training forward updates BatchNorm's moving statistics once (the JAX
+  executor's ``backward`` runs its forward again and updates them a
+  second time). Without a pending training forward, ``backward`` runs
+  one.
+
+Everything is written in place: inputs, parameters
+(``copy_params_from``), the moving statistics and the gradients
+(``grad_req`` ``write`` copies, ``add`` accumulates, ``null`` has no
+array; an argument the outputs do not depend on gets zeros, as JAX's
+``vjp`` gives). A CUDA graph remembers the storage of what it reads in
+place, so a replaced tensor would cost a recapture each batch.
+
+The conv-bias/BatchNorm peephole of the JAX executor
+(``_plan_bias_defer``) is kept: in a training run, a biased convolution
+whose only consumer is a train-mode channel BatchNorm runs without its
+bias, and the bias, detached, is added to the BatchNorm's mean outputs
+and moving-mean write-back instead; its gradient is exactly 0.
+
+Not ported: a multi-device bind and ``group2ctx`` placement (ROADMAP
+queue A items 12 and 8), and the compile-cache token (item 11).
+"""
+from __future__ import annotations
+
+import torch
+
+from .base import MXNetError
+from .context import Context
+from . import ops as _ops
+
+__all__ = ["Executor"]
+
+
+def _single_context(ctx):
+    """The one context of a bind; several distinct devices raise."""
+    if isinstance(ctx, (list, tuple)):
+        distinct = list(dict.fromkeys(Context(c) for c in ctx))
+        if len(distinct) > 1:
+            raise NotImplementedError(
+                "bind over %d devices (%s) is data parallelism, not ported "
+                "yet (ROADMAP queue A item 12)"
+                % (len(distinct), ", ".join(map(str, distinct))))
+        ctx = distinct[0]
+    return ctx if isinstance(ctx, Context) else Context(ctx)
+
+
+class Executor:
+    """A Symbol bound to argument, gradient and auxiliary arrays
+    (reference: executor.py)."""
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None, batch_args=None, group2ctx=None):
+        if group2ctx:
+            raise NotImplementedError(
+                "group2ctx placement needs placement.py, not ported yet "
+                "(ROADMAP queue A item 8)")
+        self._symbol = symbol
+        self._ctx_arg = ctx
+        self._ctx = _single_context(ctx)
+        self._batch_args = set(batch_args or ())
+        self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
+        self.output_names = symbol.list_outputs()
+
+        if isinstance(args, dict):
+            missing = [n for n in self.arg_names if n not in args]
+            if missing:
+                raise MXNetError("bind: missing arguments %s" % missing)
+            self.arg_arrays = [args[n] for n in self.arg_names]
+        else:
+            args = list(args)
+            if len(args) != len(self.arg_names):
+                raise MXNetError("bind: expected %d args, got %d"
+                                 % (len(self.arg_names), len(args)))
+            self.arg_arrays = args
+
+        if isinstance(grad_req, str):
+            self._grad_req = {n: grad_req for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self._grad_req = dict(zip(self.arg_names, grad_req))
+        else:
+            self._grad_req = {n: grad_req.get(n, "null")
+                              for n in self.arg_names}
+        if isinstance(args_grad, dict) or args_grad is None:
+            args_grad = args_grad or {}
+            self.grad_arrays = [args_grad.get(n) for n in self.arg_names]
+        else:
+            args_grad = list(args_grad)
+            self.grad_arrays = args_grad + \
+                [None] * (len(self.arg_names) - len(args_grad))
+        for n, g in zip(self.arg_names, self.grad_arrays):
+            if g is None:
+                self._grad_req[n] = "null"
+
+        aux_states = aux_states if aux_states is not None else []
+        if isinstance(aux_states, dict):
+            self.aux_arrays = [aux_states[n] for n in self.aux_names]
+        else:
+            self.aux_arrays = list(aux_states)
+        if len(self.aux_arrays) != len(self.aux_names):
+            raise MXNetError("bind: expected %d aux states, got %d"
+                             % (len(self.aux_names), len(self.aux_arrays)))
+
+        self.arg_dict = dict(zip(self.arg_names, self.arg_arrays))
+        self.grad_dict = dict(zip(self.arg_names, self.grad_arrays))
+        self.aux_dict = dict(zip(self.aux_names, self.aux_arrays))
+        self.outputs = [None] * len(symbol._outputs)
+        self._monitor_callback = None
+        self._monitor_all = False
+        self._tape = None            # (leaves, outputs) of a train forward
+        self._build_plan()
+        from .cached_op import _Graphs
+        self.graphs = _Graphs()
+
+    # -- graph plan ------------------------------------------------------
+    def _build_plan(self):
+        arg_pos = {n: i for i, n in enumerate(self.arg_names)}
+        aux_pos = {n: i for i, n in enumerate(self.aux_names)}
+        self._plan = []
+        self._plan_names = []
+        node_slot = {}
+        for node in self._symbol._topo_nodes():
+            if node.is_variable():
+                if node.name in aux_pos:
+                    node_slot[id(node)] = ("var", ("aux", aux_pos[node.name]))
+                elif node.name in arg_pos:
+                    node_slot[id(node)] = ("var", ("arg", arg_pos[node.name]))
+                else:
+                    raise MXNetError("unbound variable %s" % node.name)
+                continue
+            nattrs = _ops.normalize_attrs(node.op, node.attrs)
+            bindings = []
+            for (src, i) in node.inputs:
+                kind, ref = node_slot[id(src)]
+                bindings.append(ref if kind == "var" else ("res", ref, i))
+            # mutable input -> aux slot its new value is written back to
+            aux_wb = [aux_pos.get(node.inputs[mi][0].name)
+                      if mi < len(node.inputs)
+                      and node.inputs[mi][0].is_variable() else None
+                      for mi in node.op.mutable_inputs]
+            slot = len(self._plan)
+            self._plan.append((node.op, nattrs, tuple(bindings), aux_wb,
+                               slot))
+            self._plan_names.append(node.name)
+            node_slot[id(node)] = ("res", slot)
+        self._head_refs = []
+        for (n, i) in self._symbol._outputs:
+            kind, ref = node_slot[id(n)]
+            self._head_refs.append((ref[0], ref[1], 0) if kind == "var"
+                                   else ("res", ref, i))
+        self._needs_rng = any(op.needs_rng for op, *_ in self._plan)
+        self._grad_positions = [i for i, n in enumerate(self.arg_names)
+                                if self._grad_req.get(n, "null") != "null"]
+        self._plan_bias_defer()
+
+    def _plan_bias_defer(self):
+        """Peephole: a Convolution with a bias whose SOLE consumer is a
+        train-mode channel-axis BatchNorm (the JAX executor's
+        ``_plan_bias_defer``). BN subtracts the batch mean, which holds
+        the bias, so ``BN(conv(x) + b)`` equals ``BN(conv(x))`` with the
+        batch and moving means shifted by ``b`` (the variance does not
+        move), and the bias gradient, the per-channel sum of BN's input
+        gradient, is zero. A training run skips the bias pass: the conv
+        runs biasless and the bias goes into BN's mean outputs.
+        Predict runs are untouched: with the moving statistics the bias
+        is live. ResNet v1's bottleneck keeps biased 1x1 convs, so this
+        is on its path."""
+        consumers = {}
+        for pi, (op, nattrs, bindings, aux_wb, slot) in enumerate(self._plan):
+            for b in bindings:
+                if b[0] == "res":
+                    consumers.setdefault((b[1], b[2]), []).append(pi)
+        for h in self._head_refs:
+            if h[0] == "res":
+                consumers.setdefault((h[1], h[2]), []).append("head")
+        self._bias_defer = {}
+        for pi, (op, nattrs, bindings, aux_wb, slot) in enumerate(self._plan):
+            if op.name != "Convolution" or nattrs.get("no_bias") \
+                    or len(bindings) != 3:
+                continue
+            cons = consumers.get((slot, 0), [])
+            if len(cons) != 1 or cons[0] == "head":
+                continue
+            bn_op, bn_attrs, bn_bind, _, _ = self._plan[cons[0]]
+            if bn_op.name != "BatchNorm" \
+                    or int(bn_attrs.get("axis", 1)) != 1 \
+                    or bn_attrs.get("use_global_stats", False) \
+                    or bn_bind[0] != ("res", slot, 0):
+                continue
+            self._bias_defer[pi] = (cons[0], bindings[2])
+
+    def _make_graph_fn(self, is_train, allow_rewrites=True, tap=None):
+        """``run(arg_vals, aux_vals) -> (outputs, new aux values)`` over
+        tensors; ``tap(name, value)`` sees each op output (the monitor's
+        per-op path, which runs the graph as defined: no peephole)."""
+        plan, plan_names, head_refs = self._plan, self._plan_names, \
+            self._head_refs
+        bias_defer = self._bias_defer if (is_train and allow_rewrites) \
+            else {}
+        bn_bias = {bn_pi: (bias_b, float(self._plan[bn_pi][1].get(
+            "momentum", 0.9))) for bn_pi, bias_b in bias_defer.values()}
+        rng = None
+        if self._needs_rng:
+            from . import random as _random
+            rng = _random.generator(self._ctx.torch_device())
+
+        def run(arg_vals, aux_vals):
+            results = []
+            new_aux = list(aux_vals)
+
+            def resolve(b):
+                if b[0] == "arg":
+                    return arg_vals[b[1]]
+                if b[0] == "aux":
+                    return new_aux[b[1]]
+                return results[b[1]][b[2]]
+            for pi, (op, nattrs, bindings, aux_wb, slot) in enumerate(plan):
+                attrs = nattrs
+                if pi in bias_defer:
+                    bindings = bindings[:2]
+                    attrs = dict(attrs, no_bias=True)
+                if "__train__" in op.defaults:
+                    attrs = dict(attrs, __train__=is_train)
+                vals = [resolve(b) for b in bindings]
+                out = op.forward(attrs, *vals, rng=rng) if op.needs_rng \
+                    else op.forward(attrs, *vals)
+                if not isinstance(out, (tuple, list)):
+                    out = (out,)
+                n_out = op.resolve_num_outputs(attrs)
+                if pi in bn_bias:
+                    bias_b, momentum = bn_bias[pi]
+                    out = _bn_add_bias(out, resolve(bias_b), momentum, n_out)
+                if tap is not None:
+                    for oi in range(n_out):
+                        tap(plan_names[pi] + "_output"
+                            + (str(oi) if n_out > 1 else ""), out[oi])
+                results.append(tuple(out[:n_out]))
+                for wb, val in zip(aux_wb, out[n_out:]):
+                    if wb is not None:
+                        new_aux[wb] = val
+            outs = [arg_vals[h[1]] if h[0] == "arg" else
+                    new_aux[h[1]] if h[0] == "aux" else results[h[1]][h[2]]
+                    for h in head_refs]
+            return tuple(outs), tuple(new_aux)
+        return run
+
+    # -- execution -------------------------------------------------------
+    def _gather_inputs(self, kwargs):
+        """Write the given inputs into the bound arrays, in place (a new
+        tensor only where the shape changes: a new signature)."""
+        from .ndarray import NDArray
+        for k, v in kwargs.items():
+            if k not in self.arg_dict:
+                raise MXNetError("unknown argument %s" % k)
+            dst = self.arg_dict[k]
+            src = v._data if isinstance(v, NDArray) else torch.as_tensor(v)
+            if tuple(src.shape) == dst.shape:
+                with torch.no_grad():
+                    dst._data.copy_(src)
+            else:
+                dst._set_data(src.to(dst._data.device, dst._data.dtype,
+                                     copy=True))
+
+    def _values(self):
+        return ([a._data for a in self.arg_arrays],
+                [a._data for a in self.aux_arrays])
+
+    def _store_outputs(self, outs):
+        from .ndarray import NDArray
+        for i, o in enumerate(outs):
+            if self.outputs[i] is None:
+                self.outputs[i] = NDArray(o)
+            else:
+                self.outputs[i]._data = o
+
+    def _store_aux(self, old, new_aux):
+        """The moving statistics an op updated, copied into their arrays."""
+        with torch.no_grad():
+            for arr, before, val in zip(self.aux_arrays, old, new_aux):
+                if val is not before:
+                    arr._data.copy_(val)
+
+    def _predict(self):
+        """The plan in predict mode: one CUDA graph per signature on the
+        card, op by op elsewhere."""
+        args, aux = self._values()
+        run = self._make_graph_fn(False)
+        tensors = args + aux
+        if self._needs_rng or not self.graphs.serves(tensors):
+            with torch.no_grad():
+                return run(args, aux)[0]
+        n_args = len(args)
+        data = tuple(i for i, n in enumerate(self.arg_names)
+                     if n in self._batch_args)
+
+        def body(feed):
+            with torch.no_grad():
+                return run(feed[:n_args], feed[n_args:])[0]
+        return tuple(self.graphs.run(body, tensors, data))
+
+    def _train(self, is_train):
+        """One forward under torch autograd over the grad-carrying
+        arguments; the moving statistics are written back once (train
+        mode). Returns the outputs, keeping the tape for ``backward``."""
+        args, aux = self._values()
+        leaves = []
+        for p in self._grad_positions:
+            args[p] = args[p].detach().requires_grad_(True)
+            leaves.append(args[p])
+        with torch.enable_grad():
+            outs, new_aux = self._make_graph_fn(is_train)(args, aux)
+        if is_train:
+            self._store_aux(aux, new_aux)
+        self._tape = (leaves, outs)
+        return tuple(o.detach() for o in outs)
+
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph on the bound arrays (``kwargs`` are written into
+        them first); returns :attr:`outputs`."""
+        self._gather_inputs(kwargs)
+        self._tape = None
+        if self._monitor_callback is not None and self._monitor_all:
+            from .ndarray import NDArray
+            args, aux = self._values()
+            run = self._make_graph_fn(
+                bool(is_train), allow_rewrites=False,
+                tap=lambda name, v: self._monitor_callback(
+                    name, NDArray(v.detach())))
+            with torch.no_grad():
+                outs, new_aux = run(args, aux)
+            if is_train:
+                self._store_aux(aux, new_aux)
+        elif is_train:
+            outs = self._train(True)
+        else:
+            outs = self._predict()
+        self._store_outputs(outs)
+        if self._monitor_callback is not None and not self._monitor_all:
+            self._run_monitor()
+        return self.outputs
+
+    def backward(self, out_grads=None, is_train=True):
+        """Gradients of the last training forward into the grad arrays
+        (``out_grads``: the head gradients, ones by default; a loss
+        layer ignores them). Without a pending training forward, runs
+        one first."""
+        if self._tape is None:
+            self.forward_backward(out_grads=out_grads, is_train=is_train)
+            return
+        self._write_grads(out_grads)
+        if self._monitor_callback is not None:
+            self._run_monitor()
+
+    def forward_backward(self, out_grads=None, is_train=True, **kwargs):
+        """One forward and its backward: the moving statistics update
+        once."""
+        self._gather_inputs(kwargs)
+        if not self._grad_positions:
+            self.forward(is_train=is_train)
+            return
+        self._store_outputs(self._train(bool(is_train)))
+        self._write_grads(out_grads)
+        if self._monitor_callback is not None:
+            self._run_monitor()
+
+    def _write_grads(self, out_grads):
+        from .ndarray import NDArray
+        leaves, outs = self._tape
+        self._tape = None
+        if out_grads is None:
+            ogs = [torch.ones_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            ogs = [g._data for g in out_grads]
+        live = [(o, g) for o, g in zip(outs, ogs) if o.requires_grad]
+        grads = torch.autograd.grad(
+            [o for o, _ in live], leaves, grad_outputs=[g for _, g in live],
+            allow_unused=True) if live else [None] * len(leaves)
+        with torch.no_grad():
+            for p, g in zip(self._grad_positions, grads):
+                tgt = self.grad_arrays[p]._data
+                if self._grad_req[self.arg_names[p]] == "add":
+                    if g is not None:
+                        tgt.add_(g)
+                elif g is None:
+                    tgt.zero_()
+                else:
+                    tgt.copy_(g)
+
+    # -- misc API parity -------------------------------------------------
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """An executor for new input shapes, sharing every array whose
+        shape stays."""
+        from .ndarray import zeros
+        arg_shapes, _, _ = self._symbol.infer_shape(**kwargs)
+        new_args = [arr if arr.shape == tuple(shape)
+                    else zeros(shape, ctx=self._ctx, dtype=arr.dtype)
+                    for arr, shape in zip(self.arg_arrays, arg_shapes)]
+        grads = {}
+        for name, g, shape in zip(self.arg_names, self.grad_arrays,
+                                  arg_shapes):
+            if g is not None:
+                grads[name] = g if g.shape == tuple(shape) \
+                    else zeros(shape, ctx=self._ctx, dtype=g.dtype)
+        return Executor(self._symbol, self._ctx_arg, new_args, grads,
+                        self._grad_req, self.aux_arrays,
+                        batch_args=self._batch_args)
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy parameter values into the bound arrays, in place."""
+        for table, params, what in ((self.arg_dict, arg_params,
+                                     "arguments"),
+                                    (self.aux_dict, aux_params or {},
+                                     "auxiliary states")):
+            for name, arr in params.items():
+                if name in table:
+                    with torch.no_grad():
+                        table[name]._data.copy_(arr._data)
+                elif not allow_extra_params:
+                    raise MXNetError("Found name \"%s\" that is not in the "
+                                     "%s" % (name, what))
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """``callback(name, NDArray)`` after each forward on every output,
+        or, with ``monitor_all``, on every op's output (the plan then
+        runs op by op, as defined)."""
+        self._monitor_callback = callback
+        self._monitor_all = monitor_all
+
+    def _run_monitor(self):
+        for name, out in zip(self.output_names, self.outputs):
+            self._monitor_callback(name, out)
+
+    @property
+    def output_dict(self):
+        return dict(zip(self.output_names, self.outputs))
+
+    def debug_str(self):
+        lines = ["Symbol Outputs:"]
+        lines += ["\toutput=%s" % n for n in self.output_names]
+        lines += ["Op:%s" % op.name for op, *_ in self._plan]
+        return "\n".join(lines)
+
+
+def _bn_add_bias(out, bias, momentum, n_out):
+    """Shift a BatchNorm's mean outputs by a deferred conv bias: the
+    batch mean (an output under ``output_mean_var``) by the whole bias,
+    the moving-mean write-back by its ``(1 - momentum)`` share (the
+    blend ``momentum * old + (1 - momentum) * batch_mean``). The bias is
+    detached: BN's mean output carries no gradient."""
+    bias = bias.detach()
+    out = list(out)
+    if n_out == 3:
+        out[1] = out[1] + bias.to(out[1].dtype)
+    out[n_out] = out[n_out] + ((1.0 - momentum) * bias).to(out[n_out].dtype)
+    return tuple(out)

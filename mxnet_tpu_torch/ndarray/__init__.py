@@ -1,7 +1,8 @@
 """NDArray namespace (``mx.nd``): the array type, its creation functions
 and one generated function per registered op (``nd.FullyConnected``,
 ``nd._contrib_flash_attention``, ...)."""
-from .ndarray import NDArray, invoke_nd, array, zeros, ones, full
+from .ndarray import (NDArray, invoke_nd, array, zeros, ones, full,
+                      concatenate, save, load)
 from .register import install_ops as _install_ops
 
 _install_ops(globals())

@@ -13,9 +13,14 @@ requires grad; ``autograd.backward`` then writes (``grad_req='write'``)
 or adds (``'add'``) the leaf's gradient into the handle's ``grad``
 NDArray. In-place writes (``x[:] = v``) copy into the tensor without
 recording.
+
+:func:`save` / :func:`load` keep the JAX package's file format (an npz
+payload, a list under indexed keys, written to a temporary file and
+renamed), so a file written by either package loads in the other.
 """
 from __future__ import annotations
 
+import os
 import weakref
 
 import numpy as np
@@ -26,7 +31,7 @@ from ..context import Context, context_of, current_context
 from .. import ops as _ops
 
 __all__ = ["NDArray", "invoke_nd", "array", "zeros", "ones", "full",
-           "torch_dtype", "numpy_dtype"]
+           "concatenate", "save", "load", "torch_dtype", "numpy_dtype"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -450,3 +455,85 @@ def zeros(shape, ctx=None, dtype=None):
 
 def ones(shape, ctx=None, dtype=None):
     return full(shape, 1, ctx=ctx, dtype=dtype)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """The arrays joined along ``axis`` (one new array)."""
+    return NDArray(torch.cat([a._data.detach() for a in arrays], dim=axis))
+
+
+# ---------------------------------------------------------------------------
+# save / load (the JAX package's npz format)
+# ---------------------------------------------------------------------------
+
+_SAVE_LIST_KEY = "__mxnet_tpu_list__"
+_SPARSE_KEYS = ("__sparse_csr__::", "__sparse_rsp__::")
+
+
+def host_numpy(tensor):
+    """A host numpy copy of ``tensor``; bfloat16, which numpy has no
+    dtype for, as its raw 2-byte values (``|V2``, as npz keeps an
+    extension dtype)."""
+    t = tensor.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def tensor_from_numpy(arr):
+    """A CPU tensor of a host array; raw 2-byte values (``|V2``) are
+    reinterpreted as bfloat16."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def save(fname, data):
+    """Write an NDArray, a list of them or a ``{name: NDArray}`` dict
+    to ``fname`` (write-then-rename: a preempted save never leaves a
+    truncated file there)."""
+    if isinstance(data, NDArray):
+        data = [data]
+    if isinstance(data, dict):
+        arrays = {k: host_numpy(v._data) for k, v in data.items()}
+    elif isinstance(data, (list, tuple)):
+        arrays = {"%s%d" % (_SAVE_LIST_KEY, i): host_numpy(v._data)
+                  for i, v in enumerate(data)}
+    else:
+        raise ValueError("data needs to either be a NDArray, dict of (str, "
+                         "NDArray) pairs or a list of NDarrays.")
+    tmp = fname + ".tmp"
+    with open(tmp, "wb") as sink:
+        np.savez(sink, **arrays)
+    os.replace(tmp, fname)
+
+
+def load_arrays(loaded, ctx=None):
+    """``{key: NDArray}`` from an npz mapping, on ``ctx`` (the current
+    context by default). Sparse entries raise: sparse arrays are not
+    ported (ROADMAP queue A item 13)."""
+    sparse = [k for k in loaded.keys() if k.startswith(_SPARSE_KEYS)]
+    if sparse:
+        raise NotImplementedError(
+            "nd.load: sparse entries (%s) need ndarray/sparse.py, not "
+            "ported yet (ROADMAP queue A item 13)" % sparse[0])
+    device = (ctx or current_context()).torch_device()
+    out = {}
+    for k in loaded.keys():
+        arr = loaded[k]
+        if arr.dtype.kind != "V":
+            arr = arr.astype(_canonical(arr.dtype), copy=False)
+        out[k] = NDArray(tensor_from_numpy(arr).to(device))
+    return out
+
+
+def load(fname):
+    """What :func:`save` wrote: a list when it saved one, else the
+    ``{name: NDArray}`` dict."""
+    with open(fname, "rb") as f:
+        out = load_arrays(np.load(f, allow_pickle=False))
+    keys = list(out)
+    if keys and all(k.startswith(_SAVE_LIST_KEY) for k in keys):
+        return [out["%s%d" % (_SAVE_LIST_KEY, i)] for i in range(len(keys))]
+    return out

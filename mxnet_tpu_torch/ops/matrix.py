@@ -1,8 +1,11 @@
 """Shape operators (counterpart of ``mxnet_tpu/ops/matrix.py``): Reshape
 with MXNet's special codes (0 copies a dim, -1 infers one, -2 copies the
-rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left)
-and Flatten (all but the batch dim into one)."""
+rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left),
+Flatten (all but the batch dim into one) and SliceChannel (equal parts
+along one axis, one output each)."""
 from __future__ import annotations
+
+import torch
 
 from .registry import register
 
@@ -93,3 +96,23 @@ register("Reshape", _reshape, arg_names=_D,
 
 register("Flatten", lambda attrs, x: x.reshape(x.shape[0], -1),
          arg_names=_D, aliases=("flatten",))
+
+
+def _split(attrs, x):
+    """``num_outputs`` equal parts along ``axis``, each squeezed there
+    with ``squeeze_axis``."""
+    axis = int(attrs.get("axis", 1))
+    n = int(attrs["num_outputs"])
+    if x.shape[axis] % n:
+        raise ValueError("SliceChannel: axis %d of size %d does not split "
+                         "into %d equal parts" % (axis, x.shape[axis], n))
+    parts = torch.split(x, x.shape[axis] // n, dim=axis)
+    if attrs.get("squeeze_axis", False):
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+register("SliceChannel", _split, arg_names=_D,
+         defaults={"num_outputs": 1, "axis": 1, "squeeze_axis": False},
+         num_outputs=lambda attrs: int(attrs.get("num_outputs", 1)),
+         aliases=("split",))

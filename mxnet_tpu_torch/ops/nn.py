@@ -1,6 +1,7 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``):
 ``FullyConnected``, ``Convolution``, ``Activation``, ``BatchNorm``,
-``LayerNorm``, ``Pooling``, ``softmax`` and ``log_softmax``. Matrix
+``LayerNorm``, ``Pooling``, ``softmax``, ``log_softmax`` and the loss
+layer ``SoftmaxOutput``. Matrix
 products and convolutions go to cuBLAS and cuDNN through torch, as the
 JAX package leaves them to XLA (``jnp.dot``,
 ``lax.conv_general_dilated``); there is no hand kernel among them.
@@ -318,3 +319,98 @@ register("log_softmax",
                                             int(attrs.get("axis", -1))),
          arg_names=_D, defaults={"axis": -1, "temperature": None,
                                  "dtype": None})
+
+
+def _so_softmax(data, cfg):
+    """SoftmaxOutput's forward: softmax over axis 1 (``multi_output``),
+    the last axis (``preserve_shape``) or the flattened trailing axes."""
+    if cfg["multi_output"]:
+        return torch.softmax(data, 1)
+    if cfg["preserve_shape"]:
+        return torch.softmax(data, -1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         -1).reshape(data.shape)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """A loss layer: the forward is the softmax, the backward the JAX
+    package's custom VJP (``p - onehot``, softmax_output-inl.h), which
+    ignores the head gradient unless ``out_grad`` and gives the label a
+    zero gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        p = _so_softmax(data, cfg)
+        ctx.save_for_backward(p, label)
+        ctx.cfg = cfg
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        cfg = ctx.cfg
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        if tuple(label.shape) == tuple(p.shape):
+            # probability labels: (p - label) * grad_scale, no
+            # normalization
+            grad = (p - label) * cfg["grad_scale"]
+            return (grad * g if cfg["out_grad"] else grad), dlabel, None
+        axis = 1 if cfg["multi_output"] else p.dim() - 1
+        nclass = p.shape[axis]
+        li = label.to(torch.int32).unsqueeze(axis)
+        classes = torch.arange(nclass, device=p.device, dtype=torch.int32)
+        onehot = (li == classes.reshape([nclass if i == axis else 1
+                                         for i in range(p.dim())])
+                  ).to(p.dtype)
+        alpha = cfg["smooth_alpha"]
+        if alpha > 0:
+            onehot = onehot * (1 - alpha) + alpha / (nclass - 1) \
+                * (1 - onehot)
+        grad = p - onehot
+        valid = None
+        if cfg["use_ignore"]:
+            valid = (label != cfg["ignore_label"]).to(p.dtype)
+            grad = grad * valid.unsqueeze(axis)
+        spatial = math.prod(p.shape[2:]) if cfg["multi_output"] else 1
+        norm = cfg["normalization"]
+        if norm == "batch":
+            grad = grad / (p.shape[0] * spatial)
+        elif norm == "valid":
+            n_valid = valid.sum() if valid is not None \
+                else torch.tensor(float(label.numel()), device=p.device)
+            grad = grad / torch.clamp_min(n_valid, 1.0)
+        elif spatial != 1:
+            grad = grad / spatial
+        grad = grad * cfg["grad_scale"]
+        if cfg["out_grad"]:
+            grad = grad * g
+        return grad, dlabel, None
+
+
+def _softmax_output(attrs, data, label):
+    """Softmax forward with the cross-entropy gradient of a loss layer
+    (reference: softmax_output-inl.h). ``normalization`` ``null``
+    leaves the gradient summed over the batch (``Module`` rescales by
+    1/batch in the optimizer), ``batch`` divides by the batch (times
+    the spatial size under ``multi_output``), ``valid`` by the count of
+    labels not ignored."""
+    cfg = {"grad_scale": float(attrs.get("grad_scale", 1.0)),
+           "ignore_label": float(attrs.get("ignore_label", -1.0)),
+           "use_ignore": bool(attrs.get("use_ignore", False)),
+           "multi_output": bool(attrs.get("multi_output", False)),
+           "preserve_shape": bool(attrs.get("preserve_shape", False)),
+           "normalization": attrs.get("normalization", "null"),
+           "smooth_alpha": float(attrs.get("smooth_alpha", 0.0)),
+           "out_grad": bool(attrs.get("out_grad", False))}
+    return _SoftmaxOutput.apply(data, label, cfg)
+
+
+register("SoftmaxOutput", _softmax_output, arg_names=("data", "label"),
+         defaults={"grad_scale": 1.0, "ignore_label": -1.0,
+                   "multi_output": False, "use_ignore": False,
+                   "preserve_shape": False, "normalization": "null",
+                   "out_grad": False, "smooth_alpha": 0.0},
+         output_shapes=lambda attrs, data, label: [(tuple(data.shape),
+                                                    data.dtype)],
+         aliases=("Softmax",))

@@ -34,11 +34,13 @@ def register(klass):
 
 class Optimizer:
     """Base optimizer: per-index update counting and lr/wd multiplier
-    tables (reference: optimizer.py:37)."""
+    tables (reference: optimizer.py:37). With ``sym`` (what
+    ``Module.init_optimizer`` passes), the symbol's ``__lr_mult__`` and
+    ``__wd_mult__`` variable attributes seed the tables."""
 
     def __init__(self, rescale_grad=1., param_idx2name=None, wd=0.,
                  clip_gradient=None, learning_rate=0.01,
-                 lr_scheduler=None, begin_num_update=0,
+                 lr_scheduler=None, sym=None, begin_num_update=0,
                  multi_precision=False, param_dict=None):
         if param_idx2name is None:
             param_idx2name = {}
@@ -54,6 +56,8 @@ class Optimizer:
         self._index_update_count = {}
         self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name)
+        self.sym_info = () if sym is None else \
+            (sym.attr_dict(), sym.list_arguments())
         self.param_dict = param_dict or {}
         self.set_lr_mult({})
         self.set_wd_mult({})
@@ -70,13 +74,24 @@ class Optimizer:
                 "LRScheduler of the optimizer has already been defined.")
         self.lr = lr
 
+    def _mults_from_sym(self, attr_key):
+        """``{argument: multiplier}`` from the symbol's ``__lr_mult__`` or
+        ``__wd_mult__`` variable attributes."""
+        if not self.sym_info:
+            return {}
+        attrs, arg_names = self.sym_info
+        return {n: float(attrs[n][attr_key]) for n in arg_names
+                if attr_key in attrs.get(n, {})}
+
     def set_lr_mult(self, args_lr_mult):
-        self.lr_mult = dict(args_lr_mult)
+        self.lr_mult = self._mults_from_sym("__lr_mult__")
+        self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
         # biases/betas get no decay; weights and norm gammas keep it
         self.wd_mult = {n: 0.0 for n in self.idx2name.values()
                         if not n.endswith(("_weight", "_gamma"))}
+        self.wd_mult.update(self._mults_from_sym("__wd_mult__"))
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):

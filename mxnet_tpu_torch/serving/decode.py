@@ -25,8 +25,9 @@ over a paged KV cache (counterpart of ``mxnet_tpu/serving/decode.py``).
   prefill with every decode step.
 - **Streaming + cancellation**, **deadlines**, **priorities** (bounded
   queue sheds the lowest class first), **weight hot-swap**
-  (:meth:`DecodeServer.swap_weights` with a parameter dict; in-flight
-  requests finish on the weights they started with).
+  (:meth:`DecodeServer.swap_weights` with a parameter dict or from a
+  checkpoint manifest; in-flight requests finish on the weights they
+  started with).
 - **Faults** — ``serve_admit`` per submit, ``serve_decode`` per decode
   step, ``kv_evict`` per page reclaim, ``kv_share``/``kv_cow`` on the
   prefix path.
@@ -1088,14 +1089,24 @@ class DecodeServer:
             self._shed_by_priority.get(priority, 0) + 1
 
     # -- weight hot-swap ---------------------------------------------------
-    def swap_weights(self, params):
+    def swap_weights(self, params=None, *, prefix=None, epoch=None,
+                     validate=True):
         """Zero-downtime weight swap: load the new parameter dict
-        alongside the old one, flip atomically between steps. It must
-        match the serving dict's names, shapes and dtypes. In-flight
+        alongside the old one, flip atomically between steps. ``params``
+        must match the serving dict's names, shapes and dtypes; or
+        ``prefix``/``epoch`` name a checkpoint manifest, read through
+        ``checkpoint.load_param_arrays`` (each file checked against its
+        SHA-256 with ``validate``: a torn file raises, naming it). In-flight
         requests finish on the weights they started with; requests
         admitted after the flip use the new ones; the old dict frees
-        when its last request drains. Returns the new version number.
-        (Loading from a checkpoint manifest waits for a later slice.)"""
+        when its last request drains. Returns the new version number."""
+        if (params is None) == (prefix is None):
+            raise MXNetError("swap_weights: pass exactly one of params= "
+                             "or prefix=/epoch=")
+        if params is None:
+            from .. import checkpoint
+            params = checkpoint.load_param_arrays(prefix, epoch,
+                                                  validate=validate)
         cur = self._params.tree
         if not isinstance(params, dict) or set(params) != set(cur):
             raise MXNetError(

@@ -12,8 +12,8 @@ parameters are resolved backward from the data by the hooks of
 :mod:`.infer`. The JSON follows the nnvm graph format, so a graph
 written by either package loads in the other.
 
-``bind`` / ``simple_bind`` / ``eval`` need ``executor.py``, which is not
-ported yet (ROADMAP queue A item 8): they raise NotImplementedError.
+``bind`` / ``simple_bind`` / ``eval`` bind the graph to arrays through
+:class:`~mxnet_tpu_torch.executor.Executor`.
 """
 from __future__ import annotations
 
@@ -76,13 +76,6 @@ def _topo(entries):
     for (n, _) in entries:
         dfs(n)
     return order
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        "Symbol.%s needs the executor (executor.py), not ported yet "
-        "(ROADMAP queue A item 8); run a graph with "
-        "cached_op.build_graph_callable or CachedOp" % what)
 
 
 class Symbol:
@@ -274,14 +267,46 @@ class Symbol:
                 [f32] * len(self.list_auxiliary_states()))
 
     # -- evaluation ------------------------------------------------------
-    def bind(self, *args, **kwargs):
-        _not_ported("bind")
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over the given
+        arrays (a list in ``list_arguments`` order or a name dict)."""
+        from ..executor import Executor
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx)
 
-    def simple_bind(self, *args, **kwargs):
-        _not_ported("simple_bind")
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, **kwargs):
+        """Bind to zero arrays of the shapes inferred from ``kwargs``
+        (argument shapes), with a gradient array for each argument whose
+        ``grad_req`` is not ``null``."""
+        from ..executor import Executor, _single_context
+        from ..ndarray import zeros
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        arg_names = self.list_arguments()
+        type_dict = type_dict or {}
+        dev = _single_context(ctx)
+        args = [zeros(s, ctx=dev, dtype=type_dict.get(n, "float32"))
+                for n, s in zip(arg_names, arg_shapes)]
+        if isinstance(grad_req, str):
+            reqs = {n: grad_req for n in arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            reqs = dict(zip(arg_names, grad_req))
+        else:
+            reqs = {n: grad_req.get(n, "null") for n in arg_names}
+        args_grad = {n: zeros(s, ctx=dev, dtype=type_dict.get(n, "float32"))
+                     for n, s in zip(arg_names, arg_shapes)
+                     if reqs.get(n, "null") != "null"}
+        aux = [zeros(s, ctx=dev) for s in aux_shapes]
+        return Executor(self, ctx, args, args_grad, reqs, aux,
+                        group2ctx=group2ctx)
 
-    def eval(self, *args, **kwargs):
-        _not_ported("eval")
+    def eval(self, ctx=None, **kwargs):
+        """The outputs of one predict-mode forward over ``kwargs``."""
+        from ..context import current_context
+        ex = self.bind(ctx or current_context(), kwargs)
+        return ex.forward()
 
     # -- serialization ---------------------------------------------------
     def tojson(self):

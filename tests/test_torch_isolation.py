@@ -32,7 +32,10 @@ def test_every_module_imports_with_jax_and_mxnet_tpu_blocked():
                 "tracing", "telemetry", "metering", "livemetrics",
                 "flightrec", "tools.diagnose", "attribute",
                 "symbol.symbol", "symbol.infer", "cached_op",
-                "gluon.nn.conv_layers", "gluon.model_zoo.vision.resnet"):
+                "gluon.nn.conv_layers", "gluon.model_zoo.vision.resnet",
+                "executor", "checkpoint", "io.io", "metric", "lr_scheduler",
+                "callback", "model", "module.base_module",
+                "module.module"):
         assert "mxnet_tpu_torch." + mod in mods
     code = ("import sys\n"
             "for name in %r:\n"
