@@ -1,9 +1,9 @@
 """Attribute scoping for symbols (counterpart of
 ``mxnet_tpu/attribute.py``): ``with mx.AttrScope(ctx_group='dev1'):``
 attaches string attributes to every Symbol node created inside it. The
-port stores them on the nodes and in the JSON; placement by
-``ctx_group`` comes with ``executor.py`` / ``placement.py`` (ROADMAP
-queue A item 8)."""
+port stores them on the nodes and in the JSON; ``bind(group2ctx=)``
+places the ``ctx_group`` segments on their devices
+(:mod:`~mxnet_tpu_torch.placement`)."""
 from __future__ import annotations
 
 import threading

@@ -26,6 +26,12 @@ contract. :class:`CachedOp` runs that plan:
   states are written back in place (train mode updates the moving
   statistics).
 
+Predict mode keeps its graph whatever ops the plan holds, unless one of
+them draws random numbers in predict mode (``OpDef.draws_in``: Dropout
+draws nothing there unless ``mode="always"``). Such a plan runs op by op
+on the card too, and :meth:`CachedOp.stats` counts each such call
+(``eager_rng``): a graph would replay one frozen mask.
+
 The JAX CachedOp's graph token for the persistent compile cache has no
 counterpart here until ``compile_cache.py`` is ported (ROADMAP queue A
 item 11).
@@ -166,6 +172,13 @@ class _Graphs:
         self.captures = 0
         self.replays = 0
         self.recaptures = 0
+        self.eager_rng = 0
+
+    def note_eager_rng(self):
+        """Count one call the graphs could have served that ran op by op
+        because the plan draws in predict mode."""
+        with self._lock:
+            self.eager_rng += 1
 
     def serves(self, tensors):
         return bool(tensors) and all(t.device.type == self.device_type
@@ -217,7 +230,8 @@ class _Graphs:
         with self._lock:
             return {"captures": self.captures, "replays": self.replays,
                     "recaptures": self.recaptures,
-                    "signatures": len(self._entries)}
+                    "signatures": len(self._entries),
+                    "eager_rng": self.eager_rng}
 
 
 class CachedOp:
@@ -239,6 +253,9 @@ class CachedOp:
         self._fn = fn
         self._n_out = n_out
         self._data_indices = tuple(data_indices)
+        self._predict_draws = any(
+            n.op.draws_in(_ops.normalize_attrs(n.op, n.attrs), False)
+            for n in sym._topo_nodes() if n.op is not None)
         # name the op after the graph's head, so a trace tells which
         # hybridized block ran
         outs = sym.list_outputs()
@@ -263,7 +280,10 @@ class CachedOp:
                    len(self.aux_names), len(inputs)))
         tensors = [x._data for x in inputs]
         if autograd.is_recording() or autograd.is_training() \
-                or self._op.needs_rng or not self.graphs.serves(tensors):
+                or not self.graphs.serves(tensors):
+            return invoke_nd(self._op, list(inputs), {})
+        if self._predict_draws:
+            self.graphs.note_eager_rng()
             return invoke_nd(self._op, list(inputs), {})
         outs = [NDArray(o) for o in self.graphs.run(
             self._graph_body, tensors, self._data_indices)]
@@ -283,6 +303,7 @@ class CachedOp:
     def stats(self):
         """Graph counters: captures (recaptures included), replays (one
         per call by graph, the capturing call too), recaptures (a
-        signature captured again over replaced tensors) and the live
-        signatures."""
+        signature captured again over replaced tensors), the live
+        signatures, and the predict calls on the graphs' device that ran
+        op by op because the plan draws (``eager_rng``)."""
         return self.graphs.stats()

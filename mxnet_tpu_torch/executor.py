@@ -12,7 +12,10 @@ each with its normalized attributes and the slots its inputs come from
   data and labels) are staged into the graph's static buffers, every
   other argument and auxiliary state is read in place; a capture that
   fails raises. On the CPU the plan runs op by op. A graph with an op
-  that draws random numbers runs op by op on either device;
+  that draws random numbers in predict mode (Dropout with
+  ``mode="always"``; a train-mode Dropout draws nothing there) runs op
+  by op on either device, each such run counted as ``eager_rng`` in
+  ``stats()``;
 - **train** (``forward(is_train=True)``, ``forward_backward``): op by op
   under torch autograd over the arguments that carry a gradient.
   ``backward`` takes ``torch.autograd.grad`` of the stored forward, as
@@ -35,8 +38,13 @@ whose only consumer is a train-mode channel BatchNorm runs without its
 bias, and the bias, detached, is added to the BatchNorm's mean outputs
 and moving-mean write-back instead; its gradient is exactly 0.
 
-Not ported: a multi-device bind and ``group2ctx`` placement (ROADMAP
-queue A items 12 and 8), and the compile-cache token (item 11).
+``group2ctx`` places the plan's ``ctx_group`` segments on their devices
+(:mod:`~mxnet_tpu_torch.placement`): op by op in both modes, never a
+CUDA graph, counted as ``grouped`` in ``stats()``. A ``group2ctx`` that names no group of the graph
+leaves placement off.
+
+Not ported: a multi-device bind (ROADMAP queue A item 12) and the
+compile-cache token (item 11).
 """
 from __future__ import annotations
 
@@ -68,11 +76,8 @@ class Executor:
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, batch_args=None, group2ctx=None):
-        if group2ctx:
-            raise NotImplementedError(
-                "group2ctx placement needs placement.py, not ported yet "
-                "(ROADMAP queue A item 8)")
         self._symbol = symbol
+        self._group2ctx = group2ctx
         self._ctx_arg = ctx
         self._ctx = _single_context(ctx)
         self._batch_args = set(batch_args or ())
@@ -128,7 +133,17 @@ class Executor:
         self._tape = None            # (leaves, outputs) of a train forward
         self._build_plan()
         from .cached_op import _Graphs
+        from . import placement
         self.graphs = _Graphs()
+        self._grouped_runs = 0
+        self._op_ctxs = placement.op_contexts(self._plan_nodes, group2ctx,
+                                              self._ctx)
+        self._op_devices = None
+        if self._op_ctxs is not None:
+            self._op_devices = [c.torch_device() for c in self._op_ctxs]
+            placement.place(self._plan, self._op_devices, self.arg_arrays,
+                            self.grad_arrays, self.aux_arrays)
+            self._bias_defer = {}
 
     # -- graph plan ------------------------------------------------------
     def _build_plan(self):
@@ -136,6 +151,7 @@ class Executor:
         aux_pos = {n: i for i, n in enumerate(self.aux_names)}
         self._plan = []
         self._plan_names = []
+        self._plan_nodes = []
         node_slot = {}
         for node in self._symbol._topo_nodes():
             if node.is_variable():
@@ -160,6 +176,7 @@ class Executor:
             self._plan.append((node.op, nattrs, tuple(bindings), aux_wb,
                                slot))
             self._plan_names.append(node.name)
+            self._plan_nodes.append(node)
             node_slot[id(node)] = ("res", slot)
         self._head_refs = []
         for (n, i) in self._symbol._outputs:
@@ -167,6 +184,8 @@ class Executor:
             self._head_refs.append((ref[0], ref[1], 0) if kind == "var"
                                    else ("res", ref, i))
         self._needs_rng = any(op.needs_rng for op, *_ in self._plan)
+        self._predict_draws = any(op.draws_in(nattrs, False)
+                                  for op, nattrs, *_ in self._plan)
         self._grad_positions = [i for i, n in enumerate(self.arg_names)
                                 if self._grad_req.get(n, "null") != "null"]
         self._plan_bias_defer()
@@ -210,17 +229,22 @@ class Executor:
     def _make_graph_fn(self, is_train, allow_rewrites=True, tap=None):
         """``run(arg_vals, aux_vals) -> (outputs, new aux values)`` over
         tensors; ``tap(name, value)`` sees each op output (the monitor's
-        per-op path, which runs the graph as defined: no peephole)."""
+        per-op path, which runs the graph as defined: no peephole). A
+        grouped executor moves each op's inputs to the op's device and
+        draws from that device's generator."""
         plan, plan_names, head_refs = self._plan, self._plan_names, \
             self._head_refs
         bias_defer = self._bias_defer if (is_train and allow_rewrites) \
             else {}
         bn_bias = {bn_pi: (bias_b, float(self._plan[bn_pi][1].get(
             "momentum", 0.9))) for bn_pi, bias_b in bias_defer.values()}
-        rng = None
+        devices, rngs = self._op_devices, None
         if self._needs_rng:
             from . import random as _random
-            rng = _random.generator(self._ctx.torch_device())
+            rngs = [_random.generator(d) if op.needs_rng else None
+                    for (op, *_), d in zip(
+                        plan, devices or [self._ctx.torch_device()]
+                        * len(plan))]
 
         def run(arg_vals, aux_vals):
             results = []
@@ -240,8 +264,11 @@ class Executor:
                 if "__train__" in op.defaults:
                     attrs = dict(attrs, __train__=is_train)
                 vals = [resolve(b) for b in bindings]
-                out = op.forward(attrs, *vals, rng=rng) if op.needs_rng \
-                    else op.forward(attrs, *vals)
+                if devices is not None:
+                    # the cross-group transfer: a no-op inside a segment
+                    vals = [v.to(devices[pi]) for v in vals]
+                out = op.forward(attrs, *vals, rng=rngs[pi]) \
+                    if op.needs_rng else op.forward(attrs, *vals)
                 if not isinstance(out, (tuple, list)):
                     out = (out,)
                 n_out = op.resolve_num_outputs(attrs)
@@ -300,21 +327,27 @@ class Executor:
 
     def _predict(self):
         """The plan in predict mode: one CUDA graph per signature on the
-        card, op by op elsewhere."""
+        card, op by op elsewhere, and op by op (counted) for a plan that
+        draws in predict mode or a grouped executor."""
         args, aux = self._values()
         run = self._make_graph_fn(False)
         tensors = args + aux
-        if self._needs_rng or not self.graphs.serves(tensors):
-            with torch.no_grad():
-                return run(args, aux)[0]
-        n_args = len(args)
-        data = tuple(i for i, n in enumerate(self.arg_names)
-                     if n in self._batch_args)
+        serves = self.graphs.serves(tensors)
+        if self._op_devices is not None:
+            self._grouped_runs += 1
+        elif serves and self._predict_draws:
+            self.graphs.note_eager_rng()
+        elif serves:
+            n_args = len(args)
+            data = tuple(i for i, n in enumerate(self.arg_names)
+                         if n in self._batch_args)
 
-        def body(feed):
-            with torch.no_grad():
-                return run(feed[:n_args], feed[n_args:])[0]
-        return tuple(self.graphs.run(body, tensors, data))
+            def body(feed):
+                with torch.no_grad():
+                    return run(feed[:n_args], feed[n_args:])[0]
+            return tuple(self.graphs.run(body, tensors, data))
+        with torch.no_grad():
+            return run(args, aux)[0]
 
     def _train(self, is_train):
         """One forward under torch autograd over the grad-carrying
@@ -331,6 +364,12 @@ class Executor:
             self._store_aux(aux, new_aux)
         self._tape = (leaves, outs)
         return tuple(o.detach() for o in outs)
+
+    def stats(self):
+        """The predict graphs' counters (``cached_op._Graphs.stats``) and
+        ``grouped``: the predict runs of a placed executor, op by op
+        because a CUDA graph cannot hold a segment on the host."""
+        return dict(self.graphs.stats(), grouped=self._grouped_runs)
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph on the bound arrays (``kwargs`` are written into
@@ -424,7 +463,8 @@ class Executor:
                     else zeros(shape, ctx=self._ctx, dtype=g.dtype)
         return Executor(self._symbol, self._ctx_arg, new_args, grads,
                         self._grad_req, self.aux_arrays,
-                        batch_args=self._batch_args)
+                        batch_args=self._batch_args,
+                        group2ctx=self._group2ctx)
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):

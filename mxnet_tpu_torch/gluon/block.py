@@ -14,9 +14,17 @@ graph per input signature). With a Symbol it traces
 ``hybrid_forward(F=sym, ...)`` into the graph. Deferred parameter shapes
 are fixed from the first input by shape inference over that graph, as
 in the JAX package.
+
+Files: ``save_parameters``/``load_parameters`` keyed by structural name
+(a file keyed by full names loads too, as in the JAX package),
+``export`` (``<path>-symbol.json`` and ``<path>-%04d.params`` with
+``arg:``/``aux:`` keys) and :class:`SymbolBlock` (``imports``) all go
+through ``nd.save``/``nd.load`` and the nnvm JSON, whose formats the two
+packages share, so a file written by either loads in the other.
 """
 from __future__ import annotations
 
+import copy
 import re
 import threading
 from collections import OrderedDict
@@ -29,7 +37,7 @@ from ..symbol import Symbol
 from ..cached_op import CachedOp
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +86,14 @@ def _tree_unflatten(leaves, spec):
         del leaves[:spec.width]
         return picked
     return [_tree_unflatten(leaves, s) for s in spec]
+
+
+def _name_list_preview(names, limit=7):
+    names = list(names)
+    if len(names) > limit:
+        return (_name_list_preview(names[:limit // 2], limit) + ", ..., "
+                + _name_list_preview(names[-limit // 2:], limit))
+    return ", ".join("'%s'" % n for n in names)
 
 
 class _Naming:
@@ -212,6 +228,44 @@ class Block:
     def register_child(self, block, name=None):
         self._children[name if name is not None
                        else str(len(self._children))] = block
+
+    # -- files (structural names) -----------------------------------------
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter keyed by its structural name
+        (reference: block.py:315)."""
+        table = self._collect_params_with_prefix()
+        nd.save(filename, {key: p.data() for key, p in table.items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set the parameters from a :meth:`save_parameters` file; a file
+        keyed by full parameter names (no ``.`` in any key) goes through
+        ``collect_params().load`` (reference: block.py:404)."""
+        loaded = nd.load(filename)
+        table = self._collect_params_with_prefix()
+        if not loaded and not table:
+            return
+        if loaded and not any("." in k for k in loaded):
+            self.collect_params().load(filename, ctx, allow_missing,
+                                       ignore_extra, self.prefix)
+            return
+        if not allow_missing:
+            for key in table:
+                if key not in loaded:
+                    raise AssertionError(
+                        "Parameter '%s' is missing in file '%s', which "
+                        "contains parameters: %s." % (
+                            key, filename, _name_list_preview(loaded)))
+        for key, value in loaded.items():
+            if key not in table:
+                if ignore_extra:
+                    continue
+                raise ValueError(
+                    "Parameter '%s' loaded from file '%s' is not present "
+                    "in ParameterDict, which contains parameters %s." % (
+                        key, filename, _name_list_preview(table)))
+            table[key]._load_init(value, ctx)
 
     def apply(self, fn):
         for child in self._children.values():
@@ -370,6 +424,32 @@ class HybridBlock(Block):
                 "Deferred initialization failed because shape cannot be "
                 "inferred. {}".format(e)) from e
 
+    # -- deployment -------------------------------------------------------
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write the traced graph to ``<path>-symbol.json`` and its
+        parameters to ``<path>-<epoch:04d>.params`` (keys ``arg:<name>``
+        and ``aux:<name>``), the deploy pair that
+        :meth:`SymbolBlock.imports` and ``Module.load`` read (reference:
+        block.py:868). Needs one hybridized call first."""
+        if not self._cached_graph:
+            raise RuntimeError(
+                "Please first call block.hybridize() and then run forward "
+                "with this block at least once before calling export.")
+        graph = self._cached_graph[1]
+        sym_file = "%s-symbol.json" % path
+        graph.save(sym_file)
+        arg_names = set(graph.list_arguments())
+        aux_names = set(graph.list_auxiliary_states())
+        payload = {}
+        for name, param in self.collect_params().items():
+            if name in arg_names:
+                payload["arg:%s" % name] = param.data()
+            elif name in aux_names:
+                payload["aux:%s" % name] = param.data()
+        params_file = "%s-%04d.params" % (path, epoch)
+        nd.save(params_file, payload)
+        return sym_file, params_file
+
     # -- execution --------------------------------------------------------
     def forward(self, x, *args):
         """Hybridized (one CachedOp) or eager with an NDArray; a traced
@@ -397,3 +477,110 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError()
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a Block (reference: block.py:952): ``outputs``
+    over the variables ``inputs``; every other argument and auxiliary
+    state of the graph becomes a parameter named as its variable. It
+    always runs as one CachedOp (a CUDA graph per signature on the
+    card)."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock over ``symbol_file``'s graph with ``input_names``
+        as its inputs (``data0`` for a block that ``export`` wrote), its
+        parameters from ``param_file`` (``arg:``/``aux:`` keys, or plain
+        names)."""
+        graph = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        net = SymbolBlock(graph, [sym_mod.var(n) for n in input_names])
+        if param_file is not None:
+            saved = {}
+            for name, value in nd.load(param_file).items():
+                saved[name[4:] if name[:4] in ("arg:", "aux:")
+                      else name] = value
+            for name, param in net.collect_params().items():
+                if name in saved:
+                    param._load_init(saved[name], ctx)
+        return net
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=params)
+        self._prefix = ""
+        self._params = ParameterDict("", params)
+        if isinstance(inputs, Symbol) and len(inputs.list_outputs()) == 1:
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)):
+            outputs = outputs[0] if len(outputs) == 1 \
+                else sym_mod.Group(outputs)
+        in_leaves, self._in_spec = _tree_flatten(inputs, "input")
+        out_leaves, self._out_spec = _tree_flatten(outputs, "output")
+        graph = sym_mod.Group(out_leaves) if len(out_leaves) > 1 \
+            else out_leaves[0]
+        bound = set()
+        for leaf in in_leaves:
+            if len(leaf.list_outputs()) != 1:
+                raise AssertionError(
+                    "Input symbols must be variable, but %s is an output "
+                    "of operators" % str(leaf))
+            bound.add(leaf.name)
+        for name in graph.list_arguments():
+            if name not in bound:
+                self.params.get(name, allow_deferred_init=True)
+        for name in graph.list_auxiliary_states():
+            if name not in bound:
+                self.params.get(name, grad_req="null",
+                                allow_deferred_init=True)
+        self._cached_graph = (in_leaves, graph)
+        strip = _common_prefix(list(self._params.keys()))
+        self._reg_params = {k[len(strip):]: v
+                            for k, v in self._params.items()}
+
+    def _resolve_deferred_shapes(self, x, *args):
+        inputs, graph = self._cached_graph
+        leaves, _ = _tree_flatten([x] + list(args), "input")
+        feed = {i.name: a.shape for i, a in zip(inputs, leaves)}
+        arg_shapes, _, aux_shapes = graph.infer_shape(**feed)
+        known = dict(zip(graph.list_arguments(), arg_shapes))
+        known.update(zip(graph.list_auxiliary_states(), aux_shapes))
+        for name, param in self.params.items():
+            if not param._shape_known():
+                param._shape = known[name]
+            param._finish_deferred_init()
+
+    def forward(self, x, *args):
+        if isinstance(x, NDArray):
+            try:
+                return self._call_cached_op(x, *args)
+            except DeferredInitializationError:
+                self._resolve_deferred_shapes(x, *args)
+                return self._call_cached_op(x, *args)
+        if not isinstance(x, Symbol):
+            raise AssertionError(
+                "HybridBlock requires the first argument to forward be "
+                "either Symbol or NDArray, but got %s" % type(x))
+        _, spec = _tree_flatten([x] + list(args), "input")
+        if spec != self._in_spec:
+            raise AssertionError("Invalid input format")
+        return copy.copy(self._cached_graph[1])
+
+    def _clear_cached_op(self):
+        keep = self._cached_graph
+        super()._clear_cached_op()
+        self._cached_graph = keep
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError()
+
+
+def _common_prefix(names):
+    """Longest common prefix of all names."""
+    if not names:
+        return ""
+    lo, hi = min(names), max(names)
+    n = 0
+    while n < len(lo) and lo[n] == hi[n]:
+        n += 1
+    return lo[:n]

@@ -2,13 +2,12 @@
 ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``): the reference's
 factories (resnet18-152, v1 and v2) block for block, so structural
 parameter names (``features.1.running_mean``) equal the JAX package's
-and its weights load by ``gluon.convert.params_from_numpy``. Weights are
-random (an initializer); none can be downloaded.
+and its weights load by ``gluon.convert.params_from_numpy``.
+``pretrained=True`` reads a local ``.params`` file through
+``model_store`` and raises without one; nothing is downloaded.
 """
 from __future__ import annotations
 
-from ....base import MXNetError
-from ....context import cpu
 from ...block import HybridBlock
 from ... import nn
 
@@ -238,24 +237,25 @@ resnet_block_versions = [{'basic_block': BasicBlockV1,
                           'bottle_neck': BottleneckV2}]
 
 
-def get_resnet(version, num_layers, pretrained=False, ctx=cpu(),
+def get_resnet(version, num_layers, pretrained=False, ctx=None,
                root='~/.mxnet/models', **kwargs):
-    """Factory (reference: resnet.py:355). ``pretrained=True`` raises:
-    the port downloads nothing."""
+    """Factory (reference: resnet.py:355). ``pretrained=True`` reads a
+    local ``.params`` file through ``model_store`` and raises without
+    one: the port downloads nothing."""
     assert num_layers in resnet_spec, \
         "Invalid number of layers: %d. Options are %s" % (
             num_layers, str(resnet_spec.keys()))
     block_type, layers, channels = resnet_spec[num_layers]
     assert 1 <= version <= 2, \
         "Invalid resnet version: %d. Options are 1 and 2." % version
-    if pretrained:
-        raise MXNetError(
-            "resnet%d_v%d(pretrained=True): no pretrained weights can be "
-            "downloaded; initialize the net, or load weights with "
-            "gluon.convert.params_from_numpy" % (num_layers, version))
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
-    return resnet_class(block_class, layers, channels, **kwargs)
+    net = resnet_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            'resnet%d_v%d' % (num_layers, version), root=root), ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

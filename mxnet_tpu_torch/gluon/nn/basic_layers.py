@@ -1,7 +1,7 @@
 """Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): the two Sequential containers,
-``Dense``, ``Embedding``, ``BatchNorm``, ``LayerNorm``, ``Flatten`` and
-``Activation``. Each lowers to registered ops; a parameter shape that
+``Dense``, ``Dropout``, ``Embedding``, ``BatchNorm``, ``LayerNorm``,
+``Flatten`` and ``Activation``. Each lowers to registered ops; a parameter shape that
 waits for the first input (``in_units=0``, ``in_channels=0``) is fixed
 by shape inference over the block's traced graph."""
 from __future__ import annotations
@@ -10,8 +10,8 @@ import numpy as np
 
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Embedding",
-           "BatchNorm", "LayerNorm", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "Embedding", "BatchNorm", "LayerNorm", "Flatten", "Activation"]
 
 
 class _Stack:
@@ -87,6 +87,26 @@ class Dense(HybridBlock):
         return "{}({} -> {}, {})".format(
             type(self).__name__, n_in if n_in else None, n_out,
             self.act if self.act else "linear")
+
+
+class Dropout(HybridBlock):
+    """Train-time random zeroing (reference: basic_layers.py:226): the
+    ``Dropout`` op, which draws only in training, so a hybridized net
+    holding it keeps its predict-mode CUDA graph."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate, self._axes = rate, axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
+            return F._copy(x, name="fwd")
+        return F.Dropout(x, p=self._rate, axes=self._axes, name="fwd",
+                         cudnn_off=False)
+
+    def __repr__(self):
+        return "{}(p = {}, axes={})".format(type(self).__name__,
+                                            self._rate, self._axes)
 
 
 class Embedding(HybridBlock):

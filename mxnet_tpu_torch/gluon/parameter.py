@@ -382,3 +382,46 @@ class ParameterDict:
     def setattr(self, name, value):
         for param in self.values():
             setattr(param, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to ``filename`` (``nd.save``'s format)
+        keyed by its full name less ``strip_prefix``."""
+        payload = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with '%s'" % (
+                        strip_prefix, param.name, strip_prefix))
+            payload[param.name[len(strip_prefix):]] = param.data()
+        nd.save(filename, payload)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set the parameters from a file that :meth:`save` wrote, each
+        name prefixed with ``restore_prefix``."""
+        if restore_prefix:
+            for name in self.keys():
+                if not name.startswith(restore_prefix):
+                    raise AssertionError(
+                        "restore_prefix is '%s' but Parameter name '%s' "
+                        "does not start with it" % (restore_prefix, name))
+        strip = len(restore_prefix)
+        loaded = {restore_prefix + k: v
+                  for k, v in nd.load(filename).items()}
+        if not allow_missing:
+            missing = [n for n in self.keys() if n not in loaded]
+            if missing:
+                raise AssertionError(
+                    "Parameter '%s' is missing in file '%s'"
+                    % (missing[0][strip:], filename))
+        for name, value in loaded.items():
+            target = self._params.get(name)
+            if target is None:
+                if not ignore_extra:
+                    raise AssertionError(
+                        "Parameter '%s' loaded from file '%s' is not "
+                        "present in ParameterDict"
+                        % (name[strip:], filename))
+                continue
+            target._load_init(value, ctx)

@@ -13,8 +13,11 @@ step waits for ROADMAP queue A item 10). Parameters are written into
 the bound arrays in place (``set_params``/``init_params``), so the
 predict graph keeps replaying.
 
+``group2ctxs`` places the symbol's ``ctx_group`` segments on their
+devices (:mod:`~mxnet_tpu_torch.placement`).
+
 Not ported: a multi-device context list and the kvstore (item 12),
-``group2ctxs`` (item 8), ``save_optimizer_states`` /
+``save_optimizer_states`` /
 ``load_optimizer_states`` (item 10; the JAX package pickles its own
 NDArray classes, which the port cannot read).
 """
@@ -220,10 +223,6 @@ class Module(BaseModule):
             return
         if not for_training:
             assert not inputs_need_grad
-        if self._group2ctxs:
-            raise NotImplementedError(
-                "Module(group2ctxs=) needs placement.py, not ported yet "
-                "(ROADMAP queue A item 8)")
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self._data_shapes, self._label_shapes = _parse_data_desc(
@@ -253,9 +252,15 @@ class Module(BaseModule):
                  for name, shape in zip(arg_names, arg_shapes)
                  if reqs[name] != "null"}
         from ..executor import Executor
+        # group2ctxs: the reference takes one group -> context dict per
+        # data-parallel replica; one executor takes the first
+        g2c = self._group2ctxs
+        if isinstance(g2c, (list, tuple)):
+            g2c = g2c[0] if g2c else None
         self._exec = Executor(
             self._symbol, self._context, args, grads, reqs, aux,
-            batch_args=set(self._data_names) | set(self._label_names))
+            batch_args=set(self._data_names) | set(self._label_names),
+            group2ctx=g2c)
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             self.set_params(*shared_module.get_params())

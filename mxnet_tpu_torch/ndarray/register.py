@@ -33,10 +33,12 @@ def make_stub(op):
         named = {k: kwargs.pop(k) for k in list(kwargs)
                  if isinstance(kwargs[k], NDArray)}
         if named:
-            arg_names = op.resolve_arg_names(kwargs)
+            arg_names = op.resolve_arg_names(kwargs, num_inputs=len(named))
             bound = dict(zip(arg_names, tensors))
             bound.update(named)
             tensors = [bound[n] for n in arg_names if n in bound]
+        if op.key_var_num_args and op.key_var_num_args not in kwargs:
+            kwargs[op.key_var_num_args] = len(tensors)
         return invoke_nd(op, tensors, kwargs, out=out)
 
     stub.__name__ = op.name

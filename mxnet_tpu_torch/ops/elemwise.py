@@ -35,6 +35,10 @@ def _cast(attrs, x):
 
 register("Cast", _cast, arg_names=_D, defaults={"dtype": "float32"},
          aliases=("cast",))
+register("clip",
+         lambda attrs, x: torch.clamp(x, float(attrs["a_min"]),
+                                      float(attrs["a_max"])),
+         arg_names=_D, defaults={"a_min": 0.0, "a_max": 1.0})
 
 
 def _cmp(fn):

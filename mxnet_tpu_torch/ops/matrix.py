@@ -1,11 +1,14 @@
 """Shape operators (counterpart of ``mxnet_tpu/ops/matrix.py``): Reshape
 with MXNet's special codes (0 copies a dim, -1 infers one, -2 copies the
 rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left),
-Flatten (all but the batch dim into one) and SliceChannel (equal parts
-along one axis, one output each)."""
+Flatten (all but the batch dim into one), SliceChannel (equal parts
+along one axis, one output each), Concat (any number of inputs along
+one axis) and Pad (constant, edge or reflect, one ``(before, after)``
+pair per dim)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .registry import register
 
@@ -116,3 +119,49 @@ register("SliceChannel", _split, arg_names=_D,
          defaults={"num_outputs": 1, "axis": 1, "squeeze_axis": False},
          num_outputs=lambda attrs: int(attrs.get("num_outputs", 1)),
          aliases=("split",))
+
+
+def _concat(attrs, *inputs):
+    return torch.cat(inputs, dim=int(attrs.get("dim", 1)))
+
+
+register("Concat", _concat, arg_names=("arg",),
+         defaults={"dim": 1, "num_args": 1}, key_var_num_args="num_args",
+         aliases=("concat",))
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source index of each padded position along a dim of size ``n``:
+    clamped (edge) or mirrored without repeating the border (reflect, as
+    numpy's, a triangle wave when a pad exceeds ``n - 1``). Built on
+    the device, so a CUDA graph can hold it."""
+    idx = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return idx.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    idx = idx.abs().remainder(period)
+    return torch.where(idx >= n, period - idx, idx)
+
+
+def _pad(attrs, x):
+    """``pad_width`` holds ``(before, after)`` for every dim in order;
+    ``constant`` fills with ``constant_value``, ``edge`` repeats the
+    border, ``reflect`` mirrors around it."""
+    mode = attrs.get("mode", "constant")
+    pw = attrs["pad_width"]
+    pairs = [(int(pw[2 * i]), int(pw[2 * i + 1])) for i in range(x.dim())]
+    if mode == "constant":
+        flat = [v for lo_hi in reversed(pairs) for v in lo_hi]
+        return F.pad(x, flat, value=float(attrs.get("constant_value", 0.0)))
+    if mode not in ("edge", "reflect"):
+        raise ValueError("Pad: unknown mode %r" % mode)
+    for dim, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            x = x.index_select(dim, _pad_index(x.shape[dim], lo, hi, mode,
+                                               x.device))
+    return x
+
+
+register("Pad", _pad, arg_names=_D,
+         defaults={"mode": "constant", "pad_width": (), "constant_value": 0.0},
+         aliases=("pad",))

@@ -1,13 +1,14 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``):
-``FullyConnected``, ``Convolution``, ``Activation``, ``BatchNorm``,
-``LayerNorm``, ``Pooling``, ``softmax``, ``log_softmax`` and the loss
-layer ``SoftmaxOutput``. Matrix
-products and convolutions go to cuBLAS and cuDNN through torch, as the
-JAX package leaves them to XLA (``jnp.dot``,
+``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Activation``,
+``BatchNorm``, ``LayerNorm``, ``Pooling``, ``Dropout``, ``softmax``,
+``log_softmax`` and the loss layer ``SoftmaxOutput``. Matrix products
+and (transposed) convolutions go to cuBLAS and cuDNN through torch, as
+the JAX package leaves them to XLA (``jnp.dot``,
 ``lax.conv_general_dilated``); there is no hand kernel among them.
 
-Train/eval behaviour (BatchNorm) follows the ``__train__`` attribute,
-which ``invoke_nd`` and ``CachedOp`` set from the autograd train mode.
+Train/eval behaviour (BatchNorm, Dropout) follows the ``__train__``
+attribute, which ``invoke_nd`` and ``CachedOp`` set from the autograd
+train mode.
 """
 from __future__ import annotations
 
@@ -88,6 +89,37 @@ register("Convolution", _convolution, arg_names=("data", "weight", "bias"),
                     "num_filter": "output channels",
                     "num_group": "grouped-convolution groups"},
          attr_ranges={"num_filter": (0, None), "num_group": (1, None)})
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconvolution(attrs, data, weight, bias=None):
+    """The transpose of ``Convolution`` (the gradient of a convolution
+    with respect to its input), weight ``(C_in, num_filter/num_group,
+    *kernel)``, which is torch's own layout; output size per spatial
+    dim ``(n-1)*stride - 2*pad + dilate*(k-1) + adj + 1``, the JAX
+    package's lhs-dilated formulation. ``adj`` becomes torch's
+    ``output_padding``, which must stay below the stride or the
+    dilation; ``target_shape`` is ignored, as in the JAX package."""
+    nd = len(tuple(attrs["kernel"]))
+    if attrs.get("no_bias", True):
+        bias = None
+    return _CONV_T[nd](data, weight, bias,
+                       stride=_tup(attrs.get("stride"), nd, 1),
+                       padding=_tup(attrs.get("pad"), nd, 0),
+                       output_padding=_tup(attrs.get("adj"), nd, 0),
+                       groups=int(attrs.get("num_group", 1)),
+                       dilation=_tup(attrs.get("dilate"), nd, 1))
+
+
+register("Deconvolution", _deconvolution,
+         arg_names=("data", "weight", "bias"),
+         defaults={"kernel": (), "stride": (), "dilate": (), "pad": (),
+                   "adj": (), "target_shape": (), "num_filter": 0,
+                   "num_group": 1, "workspace": 512, "no_bias": True,
+                   "cudnn_tune": None, "cudnn_off": False, "layout": None},
+         arg_names_fn=_bias_args(["data", "weight", "bias"]))
 
 _ACT = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
         "softrelu": F.softplus, "softsign": F.softsign}
@@ -302,6 +334,49 @@ register("Pooling", _pooling, arg_names=_D,
                    "stride": (), "pad": (), "pooling_convention": "valid",
                    "count_include_pad": True, "p_value": 2,
                    "cudnn_off": False})
+
+
+def _dropout_draws(attrs, is_train):
+    return float(attrs.get("p", 0.5)) != 0.0 and (
+        is_train or attrs.get("mode", "training") == "always")
+
+
+def _dropout(attrs, data, rng=None):
+    """``data * mask / (1 - p)`` with a Bernoulli(1 - p) ``mask`` drawn
+    from ``rng`` (the caller's ``torch.Generator``; the device's
+    generator of :mod:`~mxnet_tpu_torch.random` when none is given), of
+    the data's shape with each dim in ``axes`` set to 1 (one mask
+    broadcast along them). It draws only in training or with
+    ``mode="always"``; otherwise it returns ``data`` itself and draws
+    nothing, so a predict-mode graph holding it stays replayable. On
+    ``meta`` tensors (shape inference) the mask is shape only."""
+    if not _dropout_draws(attrs, _is_train(attrs)):
+        return data
+    keep = 1.0 - float(attrs.get("p", 0.5))
+    shape = list(data.shape)
+    for a in tuple(attrs.get("axes", ()) or ()):
+        shape[a] = 1
+    if data.device.type == "meta":
+        mask = torch.empty(shape, dtype=data.dtype, device="meta")
+    else:
+        if rng is None:
+            from .. import random as _random
+            rng = _random.generator(data.device)
+        mask = (torch.rand(shape, generator=rng, device=data.device)
+                < keep).to(data.dtype)
+    return data * mask / keep
+
+
+register("Dropout", _dropout, arg_names=_D, needs_rng=True,
+         draws=_dropout_draws,
+         defaults={"p": 0.5, "mode": "training", "axes": (),
+                   "cudnn_off": False, "__train__": False},
+         attr_docs={"p": "fraction of inputs zeroed during training",
+                    "axes": "axes sharing one dropout mask "
+                            "(broadcast dropout)",
+                    "mode": "'training' (only when training) or "
+                            "'always'"},
+         attr_ranges={"p": (0.0, 1.0)})
 
 
 def _tempered(attrs, x):

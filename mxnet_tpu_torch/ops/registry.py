@@ -35,7 +35,15 @@ class OpDef:
       they depend on the attributes, e.g. ``no_bias``);
     - ``defaults``: attribute name → default value;
     - ``num_outputs``: int, or ``attrs -> int``;
+    - ``key_var_num_args``: the attribute that holds a variadic op's
+      input count (Concat's ``num_args``); its inputs are then named
+      ``<arg_names[0]><i>`` (``arg0``, ``arg1``, ...), as nnvm's
+      ``key_var_num_args`` names them;
     - ``needs_rng``: the body takes ``rng=``, a ``torch.Generator``;
+    - ``draws``: ``(attrs, is_train) -> bool``, whether an op that
+      ``needs_rng`` draws for these attributes in that mode (Dropout
+      draws only in training or with ``mode="always"``); an op without
+      it draws whenever it runs;
     - ``mutable_inputs``: indices of the inputs the op updates
       (FMutateInputs; a Symbol lists their variables as auxiliary
       states);
@@ -48,14 +56,17 @@ class OpDef:
     def __init__(self, name, forward, arg_names=("data",), defaults=None,
                  num_outputs=1, arg_names_fn=None, description="",
                  attr_docs=None, attr_ranges=None, needs_rng=False,
-                 mutable_inputs=(), output_shapes=None):
+                 mutable_inputs=(), output_shapes=None, key_var_num_args=None,
+                 draws=None):
         self.name = name
         self.forward = forward
         self.arg_names = list(arg_names)
         self.defaults = dict(defaults or {})
         self.num_outputs = num_outputs
         self.arg_names_fn = arg_names_fn
+        self.key_var_num_args = key_var_num_args
         self.needs_rng = bool(needs_rng)
+        self._draws = draws
         self.mutable_inputs = tuple(mutable_inputs)
         self.output_shapes = output_shapes
         self.description = description or (forward.__doc__ or "")
@@ -98,7 +109,20 @@ class OpDef:
             return self.num_outputs(attrs)
         return self.num_outputs
 
-    def resolve_arg_names(self, attrs):
+    def draws_in(self, attrs, is_train):
+        """Whether a run with these (normalized) attributes in this
+        train mode draws random numbers."""
+        if not self.needs_rng:
+            return False
+        return True if self._draws is None else \
+            bool(self._draws(attrs, is_train))
+
+    def resolve_arg_names(self, attrs, num_inputs=None):
+        if self.key_var_num_args:
+            n = int(attrs.get(self.key_var_num_args,
+                              num_inputs if num_inputs is not None else 1))
+            base = self.arg_names[0] if self.arg_names else "arg"
+            return ["%s%d" % (base, i) for i in range(n)]
         if self.arg_names_fn is not None:
             return list(self.arg_names_fn(normalize_attrs(self, attrs)))
         return list(self.arg_names)

@@ -51,6 +51,19 @@ def _conv(attrs, in_shapes):
     return out
 
 
+@hook("Deconvolution")
+def _deconv(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return {}
+    num_filter = int(attrs["num_filter"])
+    groups = int(attrs.get("num_group", 1))
+    out = {1: (data[1], num_filter // groups) + tuple(attrs["kernel"])}
+    if not attrs.get("no_bias", True):
+        out[2] = (num_filter,)
+    return out
+
+
 def _channel_param(axis_default):
     def fn(attrs, in_shapes):
         data = in_shapes[0]

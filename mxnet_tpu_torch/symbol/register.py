@@ -41,7 +41,7 @@ def make_stub(op):
         named = {k: kwargs.pop(k) for k in list(kwargs)
                  if isinstance(kwargs[k], Symbol)}
         if named:
-            arg_names = op.resolve_arg_names(kwargs)
+            arg_names = op.resolve_arg_names(kwargs, num_inputs=len(named))
             bound = dict(zip(arg_names, symbols))
             bound.update(named)
             symbols = [bound[n] for n in arg_names if n in bound]

@@ -473,12 +473,16 @@ def create(op_name, input_syms, attrs, name=None):
         if not isinstance(s, Symbol):
             raise TypeError("inputs must be Symbols, got %s" % type(s))
         entries.extend(s._outputs)   # a multi-output Symbol fills slots
-    full_names = op.resolve_arg_names(attrs)
-    while len(entries) < len(full_names):
-        vnode = _Node(None, "%s_%s" % (name, full_names[len(entries)]),
-                      {}, [])
-        vnode._extra_attrs = dict(AttrScope.current().get(None))
-        entries.append((vnode, 0))
+    if op.key_var_num_args:
+        # a variadic op takes what it is given: num_args counts it
+        attrs.setdefault(op.key_var_num_args, len(entries))
+    else:
+        full_names = op.resolve_arg_names(attrs)
+        while len(entries) < len(full_names):
+            vnode = _Node(None, "%s_%s" % (name, full_names[len(entries)]),
+                          {}, [])
+            vnode._extra_attrs = dict(AttrScope.current().get(None))
+            entries.append((vnode, 0))
     node = _Node(op, name, attrs, entries)
     node._extra_attrs = dict(AttrScope.current().get(None))
     return Symbol([(node, i) for i in range(node.num_outputs())])

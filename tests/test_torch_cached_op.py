@@ -148,7 +148,8 @@ def test_graph_holder_captures_replays_and_recaptures():
               for s in (3, 4))
     y1 = call(x1)
     assert op.stats() == dict(captures=1, replays=1, recaptures=0,
-                              signatures=1)
+                              signatures=1,
+                              eager_rng=0)
     first = y1.asnumpy()
     np.testing.assert_allclose(first, want(x1), **TOL)
     y2 = call(x2)                      # another data tensor: staged, replay
@@ -168,12 +169,14 @@ def test_graph_holder_captures_replays_and_recaptures():
     np.testing.assert_allclose(y.asnumpy(), want(x1), **TOL)
     assert not np.allclose(y.asnumpy(), first)
     assert op.stats() == dict(captures=2, replays=4, recaptures=1,
-                              signatures=1)
+                              signatures=1,
+                              eager_rng=0)
     # a new signature is a capture of its own, not a recapture
     x3 = tmx.nd.array(np.random.RandomState(5).randn(3, 3, 6, 6))
     np.testing.assert_allclose(call(x3).asnumpy(), want(x3), **TOL)
     assert op.stats() == dict(captures=3, replays=5, recaptures=1,
-                              signatures=2)
+                              signatures=2,
+                              eager_rng=0)
     # recording or train mode: op by op, the moving statistics move
     before = aux_nd[0].asnumpy()
     with tmx.autograd.train_mode():
@@ -192,7 +195,8 @@ def test_capture_failure_raises_without_fallback():
     with pytest.raises(RuntimeError, match="capture failed"):
         op(*[tmx.nd.array(a) for a in args + aux])
     assert op.stats() == dict(captures=0, replays=0, recaptures=0,
-                              signatures=0)
+                              signatures=0,
+                              eager_rng=0)
 
 
 def test_graphs_serve_only_cuda_tensors_by_default():
@@ -233,7 +237,8 @@ def test_hybridized_block_replays_and_clears_its_graph():
     np.testing.assert_allclose(net(tmx.nd.array(x)).asnumpy(), want, **TOL)
     np.testing.assert_allclose(net(tmx.nd.array(x)).asnumpy(), want, **TOL)
     assert op.stats() == dict(captures=1, replays=2, recaptures=0,
-                              signatures=1)
+                              signatures=1,
+                              eager_rng=0)
     net.hybridize()
     assert net._cached_op is None
     net(tmx.nd.array(x))
@@ -246,3 +251,98 @@ def test_hybridized_block_replays_and_clears_its_graph():
     out = net(tmx.nd.array(x, dtype="float64"))
     assert out.dtype == np.float64
     assert net[1].running_mean.data().dtype == np.float64
+
+
+# ---------------------------------------------------------------------------
+# a plan holding Dropout
+# ---------------------------------------------------------------------------
+
+def _dropout_net(mx, mode="training"):
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(4, 3, padding=1), nn.Activation("relu"),
+                nn.Dropout(0.5), nn.GlobalAvgPool2D(), nn.Dense(3))
+    if mode == "always":
+        class _Always(mx.gluon.HybridBlock):
+            def hybrid_forward(self, F, x):
+                return F.Dropout(x, p=0.5, mode="always")
+        net.add(_Always())
+    return net
+
+
+def test_predict_graph_keeps_dropout_plans():
+    """A hybridized net with train-mode Dropout keeps its graph in
+    predict mode: 1 capture, replays, no eager call; its logits equal
+    JAX's (Dropout is the identity there). Under ``record()`` it runs
+    op by op and draws."""
+    x = np.random.RandomState(8).randn(2, 3, 6, 6).astype(np.float32)
+    jnet = _dropout_net(jmx)
+    jnet.initialize(jmx.init.Xavier())
+    jnet.hybridize()
+    want = jnet(jmx.nd.array(x)).asnumpy()
+    net = _dropout_net(tmx)
+    net.initialize()
+    net.hybridize()
+    net(tmx.nd.array(x))
+    op = net._cached_op
+    assert op._op.needs_rng and not op._predict_draws
+    op.graphs = tco._Graphs("cpu", capture=_standin())
+    params_from_numpy(net, {k: p.data().asnumpy() for k, p
+                            in jnet._collect_params_with_prefix().items()})
+    for _ in range(3):
+        np.testing.assert_allclose(net(tmx.nd.array(x)).asnumpy(), want,
+                                   **TOL)
+    assert op.stats() == dict(captures=1, replays=3, recaptures=0,
+                              signatures=1, eager_rng=0)
+    with tmx.autograd.record():
+        drawn = net(tmx.nd.array(x)).asnumpy()
+    assert not np.allclose(drawn, want)
+    assert op.stats()["replays"] == 3
+
+
+def test_plan_that_draws_in_predict_runs_op_by_op_counted():
+    """``Dropout(mode="always")`` draws in predict mode: no capture,
+    each call op by op, counted as ``eager_rng``; the executor's
+    predict run does the same."""
+    x = np.random.RandomState(9).randn(2, 3, 6, 6).astype(np.float32)
+    net = _dropout_net(tmx, mode="always")
+    net.initialize()
+    net.hybridize()
+    net(tmx.nd.array(x))
+    op = net._cached_op
+    assert op._predict_draws
+    op.graphs = tco._Graphs("cpu", capture=_standin())
+    outs = [net(tmx.nd.array(x)).asnumpy() for _ in range(2)]
+    assert not np.array_equal(outs[0], outs[1])          # two draws
+    assert op.stats() == dict(captures=0, replays=0, recaptures=0,
+                              signatures=0, eager_rng=2)
+    sym = tmx.sym.Dropout(tmx.sym.FullyConnected(
+        tmx.sym.var("data"), num_hidden=4, name="fc"), p=0.5, mode="always")
+    ex = sym.simple_bind(tmx.cpu(), data=(3, 5), grad_req="null")
+    ex.graphs = tco._Graphs("cpu", capture=_standin())
+    ex.arg_dict["fc_weight"][:] = 1.0
+    ex.forward(data=np.ones((3, 5), np.float32))
+    assert ex.graphs.stats()["eager_rng"] == 1
+    assert ex.graphs.stats()["captures"] == 0
+
+
+def test_graph_callable_with_dropout_matches_jax():
+    """``build_graph_callable`` over a traced net with Dropout: the same
+    names and RNG count as JAX's, and equal predict-mode outputs."""
+    jnet, tnet = _dropout_net(jmx), _dropout_net(tmx)
+    jnet.initialize(jmx.init.Xavier())
+    x = np.random.RandomState(10).randn(1, 3, 6, 6).astype(np.float32)
+    jnet(jmx.nd.array(x))
+    tnet.initialize()
+    params_from_numpy(tnet, {k: p.data().asnumpy() for k, p
+                             in jnet._collect_params_with_prefix().items()})
+    jplan = jmx.cached_op.build_graph_callable(jnet(jmx.sym.var("data")))
+    tplan = tco.build_graph_callable(tnet(tmx.sym.var("data")))
+    assert tplan[1:] == jplan[1:] and tplan[3] == 1
+    params = {p.name: p for p in tnet.collect_params().values()}
+    vals = [torch.from_numpy(x) if n == "data" else params[n].data()._data
+            for n in tplan[1] + tplan[2]]
+    got = tplan[0]({"__train__": False}, *vals)[0]
+    np.testing.assert_allclose(got.detach().numpy(),
+                               jnet(jmx.nd.array(x)).asnumpy(), **TOL)

@@ -361,8 +361,8 @@ def test_predict_graph_replays_over_in_place_writes():
     w = ex.arg_dict["conv_weight"]
     ex.copy_params_from({"conv_weight": w * 2})
     ex.forward(data=x)
-    assert ex.graphs.stats() == dict(captures=1, replays=4, recaptures=0,
-                                     signatures=1)
+    assert ex.stats() == dict(captures=1, replays=4, recaptures=0,
+                              signatures=1, eager_rng=0, grouped=0)
     w._set_data(w._data * 0.5)
     ex.forward(data=x)
     assert ex.graphs.stats()["recaptures"] == 1
@@ -389,9 +389,11 @@ def test_multi_device_bind_and_group2ctx_raise():
     sym = _mlp(tmx)
     with pytest.raises(NotImplementedError, match="item 12"):
         sym.simple_bind([tmx.cpu(0), tmx.cpu(1)], data=(2, 5), label=(2,))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sym.simple_bind(tmx.cpu(), data=(2, 5), label=(2,),
-                        group2ctx={"dev1": tmx.cpu()})
+    # placement (queue A item 8) is ported: a group2ctx naming no group
+    # of the graph leaves it off (tests/test_torch_placement.py)
+    grouped = sym.simple_bind(tmx.cpu(), data=(2, 5), label=(2,),
+                              group2ctx={"dev1": tmx.cpu()})
+    assert grouped._op_ctxs is None
     ex = sym.simple_bind([tmx.cpu(), tmx.cpu()], data=(2, 5), label=(2,))
     assert ex.forward()[0].shape == (2, 4)
 

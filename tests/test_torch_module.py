@@ -181,8 +181,9 @@ def test_score_after_fit_replays_one_graph():
     mod.score(it, "acc")
     got = mod.predict(it).asnumpy()
     np.testing.assert_array_equal(got, want)
-    assert mod._exec.graphs.stats() == dict(captures=1, replays=16,
-                                            recaptures=0, signatures=1)
+    assert mod._exec.stats() == dict(captures=1, replays=16,
+                                     recaptures=0, signatures=1,
+                                     eager_rng=0, grouped=0)
 
 
 def test_predict_and_input_grads_match_jax():

@@ -268,7 +268,7 @@ def test_model_zoo_structure_matches_jax(name):
 
 def test_model_zoo_rejects_unknown_names():
     with pytest.raises(ValueError, match="not supported"):
-        tmx.gluon.model_zoo.vision.get_model("vgg16")
+        tmx.gluon.model_zoo.vision.get_model("vgg17")
 
 
 def test_resnet18_v2_forward_matches_jax():

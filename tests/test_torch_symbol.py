@@ -232,3 +232,60 @@ def test_traced_gluon_graph_matches_jax(run_first):
     assert len(t.list_auxiliary_states()) == 40
     assert t.infer_shape(data=(1, 3, 32, 32)) == \
         j.infer_shape(data=(1, 3, 32, 32))
+
+
+# ---------------------------------------------------------------------------
+# variadic inputs (key_var_num_args)
+# ---------------------------------------------------------------------------
+
+def _concat_graph(mx):
+    S = mx.sym
+    a, b, c = S.var("a"), S.var("b"), S.var("c")
+    h = S.FullyConnected(a, num_hidden=3, name="fc")
+    return S.Concat(h, b, S.Activation(c, act_type="tanh"), dim=1,
+                    name="cat")
+
+
+def test_variadic_concat_matches_jax():
+    """``Concat(x, y, z)``: inputs named ``arg0..arg2``, ``num_args``
+    set from the count, no auto-created variables; JSON equal and
+    loadable both ways; a named-input call binds by ``argN``."""
+    j, t = _both(_concat_graph)
+    for name in LISTINGS:
+        assert getattr(t, name)() == getattr(j, name)(), name
+    assert t.attr_dict()["cat"] == j.attr_dict()["cat"]
+    assert t.attr_dict()["cat"]["num_args"] == "3"
+    assert tmx.ops.get_op("Concat").resolve_arg_names(
+        {"num_args": 3}) == ["arg0", "arg1", "arg2"]
+    assert _json(t) == _json(j)
+    shapes = dict(a=(2, 5), b=(2, 4), c=(2, 2))
+    for sym in (tmx.sym.load_json(j.tojson()), t):
+        assert sym.infer_shape(**shapes) == j.infer_shape(**shapes)
+        assert sym.infer_shape(**shapes)[1] == [(2, 9)]
+    assert jmx.sym.load_json(t.tojson()).infer_shape(**shapes)[1] == [(2, 9)]
+    named = tmx.sym.Concat(arg0=tmx.sym.var("p"), arg1=tmx.sym.var("q"),
+                           dim=0)
+    assert named.list_arguments() == ["p", "q"]
+    assert named.attr_dict()[named.name]["num_args"] == "2"
+
+
+def test_variadic_concat_ndarray_stub():
+    import numpy as np
+    xs = [np.random.RandomState(i).randn(2, i + 1).astype(np.float32)
+          for i in range(4)]
+    outs = [mx.nd.concat(*[mx.nd.array(x) for x in xs], dim=1).asnumpy()
+            for mx in (jmx, tmx)]
+    np.testing.assert_array_equal(outs[1], outs[0])
+    assert outs[1].shape == (2, 10)
+    assert tmx.nd.Concat(tmx.nd.array(xs[0]), num_args=1,
+                         dim=1).shape == (2, 1)
+
+
+def test_dropout_symbol_infers_in_both_modes():
+    """Shape inference runs Dropout's body on ``meta`` tensors with no
+    generator, in predict mode and with ``mode="always"`` (a draw)."""
+    for mode in ("training", "always"):
+        syms = [mx.sym.Dropout(mx.sym.var("x"), p=0.3, mode=mode,
+                               axes=(1,)) for mx in (jmx, tmx)]
+        assert syms[1].infer_shape(x=(3, 4, 5)) == \
+            syms[0].infer_shape(x=(3, 4, 5))
