@@ -115,7 +115,10 @@ no result, anywhere else. Phases (any failure exits non-zero):
    steps on one fixed batch (the loss must fall; launch counts zeroed
    just before and read just after: 12 per step for each of flash_fwd,
    flash_bwd_dkdv and flash_bwd_dq), then ms per step, tokens/s and the
-   device idle share from the profiler; then 3 more steps under an armed
+   device idle share from the profiler; the Trainer's update is the
+   fused step (one CUDA graph replay a step: 1 capture, 0 recaptures
+   across the Adam steps), timed beside ``MXNET_FUSED_STEP=0``'s
+   per-parameter loop; then 3 more steps under an armed
    telemetry run: one step record a step after the first (tick mode),
    each with its optimizer phase, and one memory record read from the
    card;
@@ -186,13 +189,16 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ``mx.mod.Module.fit`` on gpu(0) over an ``NDArrayIter`` of 64 random
    images (batch 32, 224x224, labels 0-999, numpy seed), SGD (lr 0.0125,
    momentum 0.9, wd 1e-4), Xavier, ``eval_metric="acc"`` and a
-   Speedometer, 10 epochs: the loss by epoch must fall from the first to
+   Speedometer, 10 epochs on the fused step (forward + backward + update
+   one CUDA graph replay; the non-finite guard on, so the graph tests
+   every gradient): the loss by epoch must fall from the first to
    the last and every step's gradients be finite; ``score`` and
    ``predict`` over the images on the executor's CUDA graph (1 capture,
    then replays, no recapture), the probabilities equal to an eager
    predict forward; a training step's ms (median after warm-up) with and
    without ``update_metric``, images/s, device busy ms by class, the
-   optimizer loop's alone, the idle share and peak memory; predict
+   eager optimizer loop's alone, the idle share and peak memory, and the
+   step with ``MXNET_FUSED_STEP=0``; predict
    images/s by graph. Then one Module step against one Gluon step
    (``autograd.record`` -> ``SoftmaxCrossEntropyLoss`` ->
    ``Trainer("sgd")``) from the same weights and batch: the loss, the
@@ -228,10 +234,41 @@ no result, anywhere else. Phases (any failure exits non-zero):
    MODULE_TOL, each Dropout's keep fraction within 5 binomial standard
    deviations of 0.5; then trained through ``Module.fit`` on 1024
    random images (numpy seed 90; labels from 16 classes), SGD, 5 epochs
-   = 10 steps, Dropout drawing from the executor's generator: the loss
-   finite and falling from the first epoch to the last, every step's
-   gradients finite; ms a step, images/s, device busy by class, the
-   idle share and peak memory. Attention kernel launches, zeroed before, must read 0.
+   = 10 steps on the fused step, Dropout drawing from the executor's
+   generator inside the graph: the loss finite and falling from the
+   first epoch to the last, every step's gradients finite; ms a step
+   (and with ``MXNET_FUSED_STEP=0``), images/s, device busy by class,
+   the idle share and peak memory. Attention kernel launches, zeroed
+   before, must read 0.
+17. amp (after 16) — the thirteenth slice's main path, mixed precision
+   and the fused step, on ResNet-50 v1 at phase 14's size and data:
+   (a) 3 fp32 Module steps by the fused step and 3 eager from the same
+   weights under deterministic cuDNN, every array bit-identical, the
+   fused graphs 1 capture, 3 replays, 0 recaptures, 0 fallbacks, each
+   path's ms a step; (b) bfloat16 AMP through ``Module.fit``
+   (``DtypePolicy("bfloat16").cast_params``, the batch cast to bfloat16
+   in the symbol, SGD momentum ``multi_precision=True`` at lr 0.0125, 10
+   epochs, fused): the loss falls, every gradient finite, each bf16
+   weight the cast of its fp32 master, BatchNorm terms fp32; ms a step,
+   images/s, idle share, busy by class and peak memory beside phase
+   14's fp32 fused and eager steps; (c) one bf16 Gluon step (hybridized,
+   ``policy.apply``, fused Trainer) against one bf16 Module step from
+   the same weights within AMP_STEP_REL (``scratch/amp_step_spread.py``
+   measures the spread); (d) the hybridized forward in bfloat16 by graph
+   replay, ms a batch and the share of the bf16 FLOP bound beside phase
+   13's fp32; (e) ``MXNET_NONFINITE_GUARD=scale_backoff`` with a planned
+   grad NaN on step 3: skipped inside the graph (the weights of steps 2
+   and 3 equal), the loss scale halved, ``skipped_steps`` 1, 0
+   recaptures; (f) ``fit(checkpoint_prefix=)`` with the async writer, 2
+   epochs, a fresh Module resumed from epoch 1 with its optimizer states:
+   after epoch 2 bit-identical to an uninterrupted run (deterministic
+   cuDNN); a policy checkpoint of the masters resumes under fp32 as
+   exactly those masters; a save's blocking ms async and sync, its
+   bytes; (g) ``flash_attention`` forward and backward at phase 4's LM
+   shape and ``flash_decode`` at the server's window on bfloat16 inputs,
+   within one bfloat16 step of the plain versions, bfloat16 out, the
+   kernels counted. Attention kernel launches over (a)-(f), zeroed
+   before, must read 0.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode or rtc;
@@ -2680,6 +2717,21 @@ def phase_training(tfa, card, steps=20, prof_steps=3):
     for us, key, count in sorted(kernels, reverse=True)[:8]:
         print("    top: %.2f ms/step in %d calls/step  %s"
               % (us / 1e3 / prof_steps, count // prof_steps, key[:70]))
+
+    def full_step():
+        step_loss(net)
+        trainer.step(B)
+    fused_ms = wall_ms(full_step, iters=5, warm=1)
+    fst = trainer._fused_updater.stats()
+    with fused_gate(False):
+        eager_ms = wall_ms(full_step, iters=5, warm=1)
+    print("  the Trainer's fused update (one CUDA graph replay a step): "
+          "%.1f ms a step; with MXNET_FUSED_STEP=0 (the per-parameter "
+          "loop) %.1f ms a step (%s); fused graphs %s"
+          % (fused_ms, eager_ms, card, fst))
+    if fst["captures"] != 1 or fst["recaptures"] != 0:
+        fail("training: the fused update's graphs %s, want 1 capture and "
+             "no recapture across the Adam steps" % fst)
     armed_steps(step_loss, net, trainer, B, card)
     return launches
 
@@ -3742,27 +3794,70 @@ def module_resnet(mx, classes):
     return mx.sym.SoftmaxOutput(net(mx.sym.var("data")), name="softmax")
 
 
+@contextlib.contextmanager
+def guard_on(policy="skip_step"):
+    """The non-finite guard on for the block (``MXNET_NONFINITE_GUARD``),
+    its state fresh before and after."""
+    from mxnet_tpu_torch import fault
+    old = os.environ.get("MXNET_NONFINITE_GUARD")
+    os.environ["MXNET_NONFINITE_GUARD"] = policy
+    fault.reset()
+    try:
+        yield fault
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_NONFINITE_GUARD", None)
+        else:
+            os.environ["MXNET_NONFINITE_GUARD"] = old
+        fault.reset()
+
+
+@contextlib.contextmanager
+def fused_gate(on):
+    """``MXNET_FUSED_STEP`` set to ``on`` for the block."""
+    old = os.environ.get("MXNET_FUSED_STEP")
+    os.environ["MXNET_FUSED_STEP"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_FUSED_STEP", None)
+        else:
+            os.environ["MXNET_FUSED_STEP"] = old
+
+
 def fit_curve(mod, it, num_epoch, callbacks=(), **fit_kw):
     """``mod.fit(it, ...)`` with a batch-end watch after ``callbacks``:
-    each batch's loss from the SoftmaxOutput probabilities and a
-    device-side all-finite flag over the gradients. Returns the mean
+    each batch's loss from the SoftmaxOutput probabilities and whether
+    every gradient of the step was finite. Under the fused step the
+    gradients live inside its CUDA graph and never reach the executor's
+    arrays, so the fit runs with the non-finite guard on (``skip_step``):
+    the graph tests every gradient and a step with a non-finite one
+    counts in ``fault.stats()["skipped_steps"]``; the eager path's
+    gradient arrays are tested on the device as well. Returns the mean
     loss of each epoch, the steps taken, the steps whose gradients were
     all finite and the fit's seconds."""
     losses, finite = [], []
+    with guard_on() as fault:
+        skipped = [fault.stats()["skipped_steps"]]
 
-    def watch(param):
-        probs = mod.get_outputs()[0]._data
-        label = param.locals["data_batch"].label[0]._data.long()
-        losses.append(-torch.log(probs.gather(1, label[:, None]) + 1e-12)
-                      .mean())
-        grads = [g._data for g in mod._exec.grad_arrays if g is not None]
-        finite.append(torch.stack([torch.isfinite(g).all()
-                                   for g in grads]).all())
-    t0 = time.perf_counter()
-    mod.fit(it, num_epoch=num_epoch,
-            batch_end_callback=list(callbacks) + [watch], **fit_kw)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+        def watch(param):
+            probs = mod.get_outputs()[0]._data
+            label = param.locals["data_batch"].label[0]._data.long()
+            losses.append(-torch.log(probs.float().gather(1, label[:, None])
+                                     + 1e-12).mean())
+            grads = [g._data for g in mod._exec.grad_arrays
+                     if g is not None]
+            now = fault.stats()["skipped_steps"]
+            finite.append(torch.stack([torch.isfinite(g).all()
+                                       for g in grads]).all()
+                          & (now == skipped[-1]))
+            skipped.append(now)
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=num_epoch,
+                batch_end_callback=list(callbacks) + [watch], **fit_kw)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
     per = len(losses) // num_epoch
     epochs = [float(torch.stack(losses[i * per:(i + 1) * per]).mean())
               for i in range(num_epoch)]
@@ -3952,23 +4047,33 @@ def module_timing(mx, mod, x, y, card):
     wall, busy, by_class, kernels, _ = profile_steps(
         lambda: step(False), 3, MODULE_CLASSES)
     _, opt_busy, _, _, _ = profile_steps(mod.update, 3, MODULE_CLASSES)
+    with fused_gate(False):
+        eager_ms = wall_ms(lambda: step(False), iters=MODULE_ITERS)
+        e_wall, e_busy, _, _, _ = profile_steps(lambda: step(False), 3,
+                                                MODULE_CLASSES)
+    fst = mod._fused.stats() if mod._fused else None
     print("module timing (ResNet-50 v1, batch %d, %dx%d, fp32, TF32 off; "
-          "%s): a training step %.3f ms with update_metric, %.3f ms "
-          "without (median of %d after warm-up, a sync after each), %.1f "
-          "images/s; back to back (one sync after %d steps) %.3f ms with "
-          "update_metric, %.3f without; peak memory %.1f MB; profiled: "
-          "wall %.3f ms, device busy %.3f ms, idle share %.3f; the "
-          "optimizer loop alone %.3f ms busy"
+          "%s): a training step by the fused step's graph replay %.3f ms "
+          "with update_metric, %.3f ms without (median of %d after "
+          "warm-up, a sync after each), %.1f images/s; back to back (one "
+          "sync after %d steps) %.3f ms with update_metric, %.3f without; "
+          "peak memory %.1f MB; profiled: wall %.3f ms, device busy %.3f "
+          "ms, idle share %.3f; the eager optimizer loop alone %.3f ms "
+          "busy; with MXNET_FUSED_STEP=0 (eager forward + backward + "
+          "loop) %.3f ms a step, idle share %.3f; fused graphs %s"
           % (batch, x.shape[2], x.shape[3], card, ms[True], ms[False],
              MODULE_ITERS, batch * 1e3 / ms[True], MODULE_ITERS, b2b[True],
              b2b[False], peak / 2 ** 20, wall, busy,
-             1 - busy / wall if wall else float("nan"), opt_busy))
+             1 - busy / wall if wall else float("nan"), opt_busy, eager_ms,
+             1 - e_busy / e_wall if e_wall else float("nan"), fst))
     for cls, cms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print("    %-24s %.3f ms a step" % (cls, cms))
     for us, key, count in kernels[:3]:
         print("    top: %.3f ms in %d calls  %s"
               % (us / 1e3 / 3, count // 3, key[:70]))
-    return ms, b2b
+    return dict(fused_ms=ms[False], eager_ms=eager_ms,
+                idle=1 - busy / wall if wall else float("nan"),
+                eager_idle=1 - e_busy / e_wall if e_wall else float("nan"))
 
 
 def phase_module(card):
@@ -3991,7 +4096,7 @@ def phase_module(card):
     check_fit("module", epochs, steps, n_finite,
               MODULE_EPOCHS * MODULE_IMAGES // batch)
     module_predict(mx, mod, x, y, card)
-    module_timing(mx, mod, x, y, card)
+    timing = module_timing(mx, mod, x, y, card)
     del mod
     torch.cuda.empty_cache()
     module_vs_gluon(mx, x[:batch], y[:batch])
@@ -4002,6 +4107,7 @@ def phase_module(card):
     print("  attention kernel launches on the Module path: %s (none is on "
           "it); module phase %.1f s"
           % (dict(tfa.launches), time.perf_counter() - t_phase))
+    return timing
 
 
 def zoo_net(mx, name, image):
@@ -4347,18 +4453,23 @@ def alexnet_fit(mx, card):
     ms = wall_ms(step, iters=MODULE_ITERS)
     peak = torch.cuda.max_memory_allocated()
     wall, busy, by_class, _, _ = profile_steps(step, 3, MODULE_CLASSES)
+    with fused_gate(False):
+        eager_ms = wall_ms(step, iters=MODULE_ITERS)
     print("alexnet: Module.fit, AlexNet (classes %d) on %d images, batch "
           "%d, %dx%d, fp32, TF32 off, %d epochs = %d steps in %.2f s (%s); "
           "loss by epoch %s; gradients all finite in %d of %d steps; "
-          "Dropout keep fraction in the held step %s (p = 0.5); a step "
-          "%.3f ms (median of %d after warm-up), %.1f images/s; peak memory %.1f MB; profiled: "
+          "Dropout keep fraction in the held step %s (p = 0.5); a step by "
+          "the fused step's graph replay %.3f ms (median of %d after "
+          "warm-up), %.1f images/s, with MXNET_FUSED_STEP=0 %.3f ms; "
+          "fused graphs %s; peak memory %.1f MB; profiled: "
           "wall %.3f ms, device busy %.3f ms, idle share %.3f"
           % (classes, len(x), batch, image, image, TRAIN_EPOCHS,
              steps, fit_s, card, " ".join("%.4f" % v for v in epochs),
              n_finite, steps,
              ["%.4f of %d" % f for f in fractions], ms, MODULE_ITERS,
-             batch * 1e3 / ms, peak / 2 ** 20, wall, busy,
-             1 - busy / wall if wall else float("nan")))
+             batch * 1e3 / ms, eager_ms,
+             mod._fused.stats() if mod._fused else None, peak / 2 ** 20,
+             wall, busy, 1 - busy / wall if wall else float("nan")))
     for cls, cms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print("    %-24s %.3f ms a step" % (cls, cms))
     check_fit("alexnet", epochs, steps, n_finite,
@@ -4391,6 +4502,576 @@ def phase_export_train(card, inception):
         fail("export/train: attention kernels launched: %s" % tfa.launches)
     print("  attention kernel launches on phase 16: %s; phase %.1f s"
           % (dict(tfa.launches), time.perf_counter() - t_phase))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: mixed precision and the fused step
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12
+AMP_SGD = dict(MODULE_SGD, multi_precision=True)
+AMP_STEPS = 3
+# one bf16 Module step against one bf16 Gluon step (phase 17 (c), under
+# deterministic cuDNN): each master's step, the worst entry's difference
+# over the step's largest entry. The Module's SoftmaxOutput takes its
+# softmax in bf16 and the Gluon loss in fp32, and a bf16 backward
+# carries that rounding difference through 53 BatchNorms: in fp32 the
+# same two steps part by 2.3e-4 (phase 14), in bf16 by 0.079-0.213 over
+# four seeds' weights on phase 17's batch, the same with cuDNN free and
+# deterministic (scratch/amp_step_spread.py; NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md, PR 13). Held at 0.3: a missing loss-scale division,
+# a wrong rate or a bf16 update of the master moves a step by 1 or more.
+AMP_STEP_REL = 0.3
+# a bfloat16 result held to its plain version computed on the same
+# bfloat16 inputs, both float32 inside: the two float32 results agree to
+# ~1e-5, so after the cast to bfloat16 an entry moves by at most one
+# bfloat16 step, 2^-7 of the largest magnitude
+BF16_STEP = 2.0 ** -7
+
+
+def amp_resnet(mx, classes):
+    """ResNet-50 v1 for bfloat16 training: the traced symbol casts the
+    batch to bfloat16 first (the data iterator stays float32), then
+    ``SoftmaxOutput``."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.resnet50_v1(classes=classes)
+    net.initialize()
+    return mx.sym.SoftmaxOutput(net(mx.sym.var("data").astype("bfloat16")),
+                                name="softmax")
+
+
+def amp_module(mx, sym, x, policy, seed, opt=AMP_SGD):
+    """A Module over ``sym`` bound at phase 14's batch, Xavier from
+    ``mx.random.seed(seed)``, its parameters cast by ``policy``
+    (``cast_params``; None keeps float32), SGD with ``opt``."""
+    batch = MODULE_BENCH[0]
+    mod = mx.mod.Module(sym)
+    mod.bind(data_shapes=[("data", (batch,) + x.shape[1:])],
+             label_shapes=[("softmax_label", (batch,))])
+    mx.random.seed(seed)
+    mod.init_params(initializer=mx.init.Xavier())
+    if policy is not None:
+        args, auxs = mod.get_params()
+        mod.set_params(policy.cast_params(args), auxs)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    return mod
+
+
+def param_tensors(mod):
+    """Every argument and auxiliary state of the bound executor, by name
+    (the live tensors)."""
+    ex = mod._exec
+    out = {n: ex.arg_dict[n]._data for n in mod._param_names}
+    out.update((n, ex.aux_dict[n]._data) for n in mod._aux_names)
+    return out
+
+
+def masters_of(mod):
+    """``{name: fp32 master tensor}`` from a Module's multi-precision
+    optimizer state."""
+    opt, upd = mod._optimizer, mod._updater
+    out = {}
+    for i, name in enumerate(mod._param_names):
+        st = upd.states.get(i)
+        if st is None:
+            continue
+        m = opt.master_from_state(mod._exec.arg_dict[name], st)
+        if m is not None:
+            out[name] = m._data
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def amp_fused_vs_eager(mx, x, y, card):
+    """(a) three fp32 Module steps by the fused step and three eager
+    from the same weights and batch, deterministic cuDNN: every weight
+    and moving statistic bit-identical; the fused graphs 1 capture, 3
+    replays, 0 recaptures, 0 fallbacks. Returns each path's ms a step."""
+    from mxnet_tpu_torch import profiler
+    batch = MODULE_BENCH[0]
+    feed = mx.io.DataBatch(data=[mx.nd.array(x[:batch])],
+                           label=[mx.nd.array(y[:batch])])
+    sym = module_resnet(mx, MODULE_BENCH[2])
+    ends, ms, stats = {}, {}, {}
+    fb0 = profiler.counters().get("fused_step_fallbacks", 0)
+    with deterministic_cudnn():
+        for fused in (True, False):
+            with fused_gate(fused):
+                mod = amp_module(mx, sym, x, None, seed=4,
+                                 opt=MODULE_SGD)
+                times = []
+                for _ in range(AMP_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    mod.forward_backward(feed)
+                    mod.update()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ends[fused] = {n: t.clone()
+                               for n, t in param_tensors(mod).items()}
+                stats[fused] = mod._fused.stats() if mod._fused else None
+                ms[fused] = wall_ms(lambda: (mod.forward_backward(feed),
+                                             mod.update()),
+                                    iters=MODULE_ITERS)
+                del mod
+                torch.cuda.empty_cache()
+    fallbacks = profiler.counters().get("fused_step_fallbacks", 0) - fb0
+    differ = [n for n in ends[True]
+              if not torch.equal(ends[True][n], ends[False][n])]
+    print("amp (a): 3 fp32 ResNet-50 Module steps fused vs 3 eager, same "
+          "weights and batch, deterministic cuDNN (%s): %d of %d arrays "
+          "bit-identical; fused graphs after the 3 steps %s; fallbacks %d; "
+          "ms a step (median of %d after warm-up, deterministic cuDNN) "
+          "fused %.3f, eager %.3f"
+          % (card, len(ends[True]) - len(differ), len(ends[True]),
+             stats[True], fallbacks, MODULE_ITERS, ms[True], ms[False]))
+    if differ:
+        fail("amp: fused and eager steps differ in %s" % differ[:4])
+    if stats[True] is None or (stats[True]["captures"],
+                               stats[True]["recaptures"]) != (1, 0) \
+            or fallbacks:
+        fail("amp: fused graphs %s, fallbacks %d" % (stats[True],
+                                                    fallbacks))
+    # the first three replays: stats were read after them, before timing
+    if stats[True]["replays"] != AMP_STEPS:
+        fail("amp: %d replays in %d fused steps" % (stats[True]["replays"],
+                                                    AMP_STEPS))
+    return ms
+
+
+def amp_fit(mx, x, y, card, fp32):
+    """(b) bfloat16 AMP through ``Module.fit``: ResNet-50 v1 with its
+    parameters cast by ``DtypePolicy("bfloat16").cast_params``, SGD
+    momentum with ``multi_precision=True`` at phase 14's lr, 10 epochs on
+    the fused step: the loss falls, every gradient finite, each bfloat16
+    weight the bfloat16 cast of its fp32 master, BatchNorm terms fp32;
+    then ms a step, images/s, idle share, busy by class and peak memory
+    beside phase 14's fp32 readings."""
+    from mxnet_tpu_torch.amp import DtypePolicy
+    batch = MODULE_BENCH[0]
+    policy = DtypePolicy("bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    mod = amp_module(mx, amp_resnet(mx, MODULE_BENCH[2]), x, policy,
+                     seed=0)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    epochs, steps, n_finite, fit_s = fit_curve(
+        mod, it, MODULE_EPOCHS, optimizer="sgd", optimizer_params=AMP_SGD,
+        eval_metric="acc")
+    check_fit("amp", epochs, steps, n_finite,
+              MODULE_EPOCHS * MODULE_IMAGES // batch)
+    dtypes = {n: str(t.dtype).replace("torch.", "")
+              for n, t in param_tensors(mod).items()}
+    masters = masters_of(mod)
+    bad = [n for n, m in masters.items()
+           if not torch.equal(mod._exec.arg_dict[n]._data,
+                              m.to(torch.bfloat16))]
+    norm = [n for n in dtypes if any(r in n for r in ("gamma", "beta",
+                                                      "moving_"))]
+    low = [n for n in dtypes if dtypes[n] == "bfloat16"]
+    if bad or not masters or len(masters) != len(low) \
+            or any(dtypes[n] != "float32" for n in norm):
+        fail("amp: weights vs masters %s, %d masters for %d bf16 weights, "
+             "norm dtypes %s" % (bad[:4], len(masters), len(low),
+                                 sorted({dtypes[n] for n in norm})))
+    feed = mx.io.DataBatch(data=[mx.nd.array(x[:batch])],
+                           label=[mx.nd.array(y[:batch])])
+
+    def step():
+        mod.forward_backward(feed)
+        mod.update()
+    ms = wall_ms(step, iters=MODULE_ITERS)
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, by_class, kernels, _ = profile_steps(step, 3,
+                                                     MODULE_CLASSES)
+    _, opt_busy, _, _, _ = profile_steps(mod.update, 3, MODULE_CLASSES)
+    print("amp (b): Module.fit, ResNet-50 v1 in bfloat16 (DtypePolicy "
+          "cast_params: %d bf16 weights with fp32 masters, %d BatchNorm "
+          "terms fp32), SGD momentum lr %g multi_precision, %d epochs = %d "
+          "steps on the fused step in %.2f s (%s); loss by epoch %s; "
+          "gradients all finite in %d of %d steps; every bf16 weight the "
+          "cast of its master"
+          % (len(low), len(norm), AMP_SGD["learning_rate"], MODULE_EPOCHS,
+             steps, fit_s, card, " ".join("%.4f" % v for v in epochs),
+             n_finite, steps))
+    print("  bf16 step %.3f ms (median of %d after warm-up), %.1f images/s; "
+          "peak memory %.1f MB; profiled: wall %.3f ms, device busy %.3f "
+          "ms, idle share %.3f; the eager optimizer loop alone %.3f ms "
+          "busy; fused graphs %s"
+          % (ms, MODULE_ITERS, batch * 1e3 / ms, peak / 2 ** 20, wall, busy,
+             1 - busy / wall if wall else float("nan"), opt_busy,
+             mod._fused.stats()))
+    for cls, cms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print("    %-24s %.3f ms a step" % (cls, cms))
+    for us, key, count in kernels[:3]:
+        print("    top: %.3f ms in %d calls  %s"
+              % (us / 1e3 / 3, count // 3, key[:70]))
+    print("  beside phase 14 (fp32, TF32 off): fused %.3f ms a step (idle "
+          "%.3f), eager %.3f ms (idle %.3f); bf16 fused %.3f ms (idle "
+          "%.3f): %.2fx the fp32 fused step's speed"
+          % (fp32["fused_ms"], fp32["idle"], fp32["eager_ms"],
+             fp32["eager_idle"], ms, 1 - busy / wall if wall else 0.0,
+             fp32["fused_ms"] / ms))
+    return mod, ms
+
+
+def amp_gluon_vs_module(mx, x, y, seed=1):
+    """(c) one bfloat16 Gluon step (hybridized net, ``policy.apply``,
+    the fused Trainer, ``multi_precision``) against one bfloat16 Module
+    step (fused) from the same weights and batch: every weight's step
+    within AMP_STEP_REL of its largest entry, the moving statistics
+    within MODULE_TOL. The Module's SoftmaxOutput takes its softmax in
+    bfloat16 and the Gluon loss in float32 (the logits cast first), so
+    the two steps part by bfloat16 rounding: AMP_STEP_REL is the spread
+    measured on the card (see its definition). Returns the worst step
+    error and the moving statistics' error."""
+    from mxnet_tpu_torch.amp import DtypePolicy
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    batch = x.shape[0]
+    policy = DtypePolicy("bfloat16")
+    mx.random.seed(seed)
+    net = vision.resnet50_v1(classes=MODULE_BENCH[2])
+    net.initialize(mx.init.Xavier())
+    net(mx.nd.zeros((1,) + x.shape[1:]))
+    policy.apply(net)
+    params = {p.name: p for p in net.collect_params().values()}
+    old = {n: p.data()._data.detach().clone() for n, p in params.items()}
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(
+        net(mx.sym.var("data").astype("bfloat16")), name="softmax"))
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.set_params({n: params[n].data() for n in mod._param_names},
+                   {n: params[n].data() for n in mod._aux_names})
+    opt = dict(MODULE_STEP_SGD, multi_precision=True)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    data, label = mx.nd.array(x), mx.nd.array(y)
+    mod.forward_backward(mx.io.DataBatch(data=[data], label=[label]))
+    mod.update()
+    m_masters = masters_of(mod)
+    m_args, m_aux = mod.get_params()
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", opt)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(data.astype("bfloat16")).astype("float32"),
+                       label)
+    loss.backward()
+    trainer.step(batch)
+    g_masters = {n: m._data for n, m in mx.amp.master_params(
+        trainer).items()}
+    # a deferred conv bias's Module gradient is 0 in exact arithmetic:
+    # the Gluon step's rounding noise there is held against the net's
+    # largest step, as in phase 14
+    ex = mod._exec
+    biases = {ex.arg_names[bias[1]] for _, bias in ex._bias_defer.values()}
+    steps = {n: g_masters.get(n, p.data()._data).detach().float()
+             - old[n].float() for n, p in params.items() if n not in m_aux}
+    largest = max(float(st.abs().max()) for st in steps.values())
+    worst, worst_stat, rows = 0.0, 0.0, []
+    for n, p in params.items():
+        if n in m_aux:
+            err, _ = close(m_aux[n]._data, p.data()._data, MODULE_TOL)
+            worst_stat = max(worst_stat, err)
+            continue
+        m_new = m_masters.get(n, m_args[n]._data).float()
+        scale = largest if n in biases \
+            else float(steps[n].abs().max()) or 1.0
+        err = float((m_new - old[n].float() - steps[n]).abs().max()) / scale
+        rows.append((err, n))
+        worst = max(worst, err)
+    rows.sort(reverse=True)
+    print("amp (c): one bf16 Module step vs one bf16 Gluon step (hybridized, "
+          "policy.apply, fused Trainer, multi_precision; same weights and "
+          "batch): worst master step error %.4g of its largest entry (tol "
+          "%g; largest: %s), moving statistics max abs err %.3g (tol rtol "
+          "%g, atol %g); fused Trainer graphs %s"
+          % (worst, AMP_STEP_REL, ", ".join("%s %.3g" % (n, e)
+                                            for e, n in rows[:3]),
+             worst_stat, MODULE_TOL["rtol"], MODULE_TOL["atol"],
+             trainer._fused_updater.stats()))
+    if worst > AMP_STEP_REL or not np.isfinite(worst) \
+            or worst_stat > 1e-2:
+        fail("amp: the bf16 Module step differs from the Gluon step by %g "
+             "(stats %g)" % (worst, worst_stat))
+    return worst, worst_stat
+
+
+def amp_inference(mx, card, fp32_reading):
+    """(d) ResNet-50 v1's hybridized forward in bfloat16 (``policy.apply``
+    on the net, a bfloat16 batch) by graph replay at batch 32, 224x224:
+    ms a batch and the share of the bfloat16 FLOP bound, beside phase
+    13's fp32 reading."""
+    from mxnet_tpu_torch.amp import DtypePolicy
+    from mxnet_tpu_torch import symbol as sym_mod
+    batch, image, classes = RESNET_BENCH
+    net = resnet_net(mx, 50, batch, image, classes)
+    flops, _ = resnet_cost(net(sym_mod.var("data")), batch, image)
+    DtypePolicy("bfloat16").apply(net)
+    nbytes = sum(p.data()._data.numel() * p.data()._data.element_size()
+                 for p in net.collect_params().values()) \
+        + batch * 3 * image * image * 2 + batch * classes * 2
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    net.hybridize()
+    x = mx.nd.array(np.random.RandomState(60).randn(
+        batch, 3, image, image).astype(np.float32)).astype("bfloat16")
+    out = net(x)
+    if str(out.dtype) != "bfloat16" or not bool(
+            torch.isfinite(out._data.float()).all()):
+        fail("amp: bf16 inference output %s, finite %s"
+             % (out.dtype, bool(torch.isfinite(out._data.float()).all())))
+    ms = wall_ms(lambda: net(x))
+    st = net._cached_op.stats()
+    wall, busy, by_class, _, _ = profile_steps(lambda: net(x), 3,
+                                               RESNET_CLASSES)
+    fp = fp32_reading
+    print("amp (d): ResNet-50 v1 hybridized forward in bfloat16 by graph "
+          "replay, batch %d, %dx%d (%s): %.3f ms a batch, %.1f images/s, "
+          "%.3f of the bf16 bound (%.4f ms: %.4g GFLOP at %g TFLOP/s); "
+          "idle share %.3f; graphs %s; beside phase 13's fp32 hybridized "
+          "%.3f ms (%.1f images/s): %.2fx"
+          % (batch, image, image, card, ms, batch * 1e3 / ms, bound / ms,
+             bound, flops / 1e9, PEAK_BF16_FLOPS / 1e12,
+             1 - busy / wall if wall else float("nan"), st, fp["ms"],
+             fp["images_s"], fp["ms"] / ms))
+    for cls, cms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print("    %-24s %.3f ms a batch" % (cls, cms))
+    return ms
+
+
+def amp_guard(mx, x, y, card):
+    """(e) the non-finite guard under ``scale_backoff`` on the bfloat16
+    Module: a planned ``grad`` NaN on step 3 (every parameter's visit of
+    that step): the step is skipped inside the graph (the weights after
+    steps 2 and 3 equal), the loss scale halves, ``skipped_steps`` reads
+    1, and the graph is never recaptured."""
+    from mxnet_tpu_torch.amp import DtypePolicy
+    batch = MODULE_BENCH[0]
+    feed = mx.io.DataBatch(data=[mx.nd.array(x[:batch])],
+                           label=[mx.nd.array(y[:batch])])
+    with guard_on("scale_backoff") as fault:
+        mod = amp_module(mx, amp_resnet(mx, MODULE_BENCH[2]), x,
+                         DtypePolicy("bfloat16"), seed=6)
+        n = len(mod._exec._grad_positions)
+        fault.set_plan("grad:step=%d:nan:count=%d" % (2 * n + 1, n))
+        scale0 = fault.loss_scale()
+        snaps = []
+        for _ in range(4):
+            mod.forward_backward(feed)
+            mod.update()
+            snaps.append({k: t.clone() for k, t in
+                          param_tensors(mod).items()})
+        st = fault.stats()
+        # the weights hold; the moving statistics move in any forward
+        held = all(torch.equal(snaps[1][k], snaps[2][k])
+                   for k in mod._param_names)
+        moved = any(not torch.equal(snaps[2][k], snaps[3][k])
+                    for k in mod._param_names)
+        fst = mod._fused.stats()
+        scale = fault.loss_scale()
+        fault.set_plan(None)
+    print("amp (e): scale_backoff guard, planned grad NaN on step 3 of 4 "
+          "(%d parameter visits; %s): weights after steps 2 and 3 equal %s, "
+          "step 4 moved them %s; loss scale %g -> %g; skipped_steps %d; "
+          "fused graphs %s"
+          % (n, card, held, moved, scale0, scale, st["skipped_steps"], fst))
+    if not held or not moved or scale != scale0 / 2 \
+            or st["skipped_steps"] != 1 or fst["recaptures"] != 0 \
+            or fst["captures"] != 1:
+        fail("amp: the guard's skip: held %s, moved %s, scale %g, "
+             "skipped %d, graphs %s" % (held, moved, scale,
+                                       st["skipped_steps"], fst))
+
+
+def amp_checkpoints(mx, x, y, card):
+    """(f) ``fit(checkpoint_prefix=)`` with the async writer, 2 epochs of
+    the bfloat16 Module; a fresh Module resumed from epoch 1 with
+    ``resume_from_checkpoint=True`` and its optimizer states, then epoch
+    2: its weights, masters and moving statistics equal an uninterrupted
+    3-epoch run's bit for bit (deterministic cuDNN). A policy checkpoint
+    of the fp32 masters resumes under fp32 as exactly those masters. The
+    blocking ms of a save, async and sync, and the bytes written."""
+    import tempfile
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.amp import DtypePolicy
+    batch = MODULE_BENCH[0]
+    policy = DtypePolicy("bfloat16")
+    sym = amp_resnet(mx, MODULE_BENCH[2])
+    ends = {}
+    with tempfile.TemporaryDirectory() as tmp, deterministic_cudnn():
+        prefix = os.path.join(tmp, "r50")
+        for run in ("straight", "first", "resumed"):
+            mod = amp_module(mx, sym, x, policy, seed=8)
+            it = mx.io.NDArrayIter(x, y, batch_size=batch)
+            kw = dict(optimizer="sgd", optimizer_params=AMP_SGD,
+                      eval_metric="acc")
+            if run == "straight":
+                mod.fit(it, num_epoch=3, **kw)
+            elif run == "first":
+                mod.fit(it, num_epoch=2, checkpoint_prefix=prefix, **kw)
+            else:
+                mod = mx.mod.Module(sym)
+                mod.fit(it, num_epoch=3, checkpoint_prefix=prefix,
+                        resume_from_checkpoint=True, **kw)
+            torch.cuda.synchronize()
+            ends[run] = dict({n: t.clone() for n, t in
+                              param_tensors(mod).items()},
+                             **{"master:" + n: m.clone()
+                                for n, m in masters_of(mod).items()})
+            if run == "first":
+                arg, aux = mod.get_params()
+                states = mod._optimizer_state_bytes()
+                mast = {n: mx.nd.NDArray(m) for n, m in
+                        masters_of(mod).items()}
+            del mod
+            torch.cuda.empty_cache()
+        from mxnet_tpu_torch import fault
+        resumed_from = fault.stats()["resumed_from_epoch"]
+        blocking, nbytes = {}, {}
+        for async_ in (True, False):
+            mgr = ck.CheckpointManager(os.path.join(tmp, "t%d" % async_),
+                                       async_=async_)
+            mgr.save(0, arg, aux, states_bytes=states)
+            blocking[async_] = mgr.last_blocking_ms
+            mgr.close()
+            nbytes[async_] = mgr.stats()["bytes_written"]
+        pol_prefix = os.path.join(tmp, "pol")
+        mgr = ck.CheckpointManager(pol_prefix, async_=False,
+                                   meta={"dtype_policy": policy.describe()})
+        mgr.save(0, mast, aux)
+        a32, _ = ck.restore_params(pol_prefix, 0,
+                                   policy=DtypePolicy("float32"))
+        exact = all(torch.equal(a32[n]._data.to(m._data.device), m._data)
+                    for n, m in mast.items())
+    differ = [k for k in ends["straight"]
+              if not torch.equal(ends["straight"][k], ends["resumed"][k])]
+    print("amp (f): Module.fit with checkpoint_prefix (async writer), 2 "
+          "epochs, then a fresh Module resumed from epoch %s with its "
+          "optimizer states for epoch 2 (%s): %d of %d arrays (weights, "
+          "masters, moving statistics) bit-identical to an uninterrupted "
+          "3-epoch run; a save's blocking ms async %.2f, sync %.2f, %d "
+          "bytes written (params, states); the policy checkpoint's fp32 "
+          "resume equals the masters exactly: %s"
+          % (resumed_from, card, len(ends["straight"]) - len(differ),
+             len(ends["straight"]), blocking[True], blocking[False],
+             nbytes[True], exact))
+    if differ or resumed_from != 1 or not exact \
+            or nbytes[True] != nbytes[False]:
+        fail("amp: resume differs in %s (from %s), masters exact %s"
+             % (differ[:4], resumed_from, exact))
+
+
+def amp_attention(tfa, card):
+    """(g) bfloat16 attention: ``flash_attention`` forward and backward
+    at phase 4's LM shape (B8 T1024 H12 D64, causal) and ``flash_decode``
+    at the server's window (B8 T576 H12 D64), bfloat16 inputs: the
+    outputs and gradients bfloat16, each within one bfloat16 step of its
+    plain version (BF16_STEP of the largest magnitude), the launch
+    counters counting the kernels."""
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(12)
+
+    def bf(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)) \
+            .to(dev, torch.bfloat16)
+    B, T, H, D = TRAIN_BATCH, GPT2_SMALL["max_len"], 12, 64
+    q, k, v, do = bf(B, T, H, D), bf(B, T, H, D), bf(B, T, H, D), \
+        bf(B, T, H, D)
+    res = {}
+    for impl in (None, "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if impl is None:
+            tfa.reset_launches()
+        out = tfa.flash_attention(*leaves, causal=True, impl=impl)
+        out.backward(do)
+        torch.cuda.synchronize()
+        if impl is None:
+            launches = dict(tfa.launches)
+        res[impl] = [out] + [t.grad for t in leaves]
+    errs = []
+    for name, a, b in zip(("o", "dq", "dk", "dv"), res[None], res["plain"]):
+        a, b = a.detach().float(), b.detach().float()
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        errs.append((name, err, scale))
+        if err > BF16_STEP * scale:
+            fail("amp: bf16 flash_attention %s err %g of %g"
+                 % (name, err, scale))
+    dtypes = {t.dtype for t in res[None]}
+    if dtypes != {torch.bfloat16}:
+        fail("amp: bf16 flash_attention returned %s" % dtypes)
+    want = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"), 1)
+    if any(launches[n] != c for n, c in want.items()):
+        fail("amp: bf16 attention launches %s" % launches)
+    Tw = SERVER_CFG["seq_ladder"][-1] + SERVER_CFG["max_new_tokens"]
+    W = SERVER_CFG["window"]
+    qd, kd, vd = bf(W, 1, H, D), bf(W, Tw, H, D), bf(W, Tw, H, D)
+    lens = torch.from_numpy(rs.randint(1, Tw + 1, size=W).astype(np.int32))
+    tfa.reset_launches()
+    got = tfa.flash_decode(qd, kd, vd, lens.to(dev))
+    torch.cuda.synchronize()
+    dlaunch = tfa.launches["flash_decode"]
+    ref = tfa.flash_decode(qd, kd, vd, lens.to(dev), impl="plain")
+    dscale = float(ref.float().abs().max())
+    derr = float((got.float() - ref.float()).abs().max())
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    fp32_ms = call_ms(lambda: tfa.flash_attention(q32, k32, v32,
+                                                  causal=True))
+    bf16_ms = call_ms(lambda: tfa.flash_attention(q, k, v, causal=True))
+    print("amp (g): bf16 attention through the fp32 kernels (upcast, "
+          "launch, cast back; %s): flash_attention B%d T%d H%d D%d causal "
+          "%s; launches %s; flash_decode B%d T%d bf16 err %.3g of %.3g, "
+          "launches %d; tol one bf16 step (%g of the largest magnitude); "
+          "forward per call bf16 %.3f ms vs fp32 %.3f ms"
+          % (card, B, T, H, D, ", ".join("%s err %.3g of %.3g" % e
+                                         for e in errs), launches, W, Tw,
+             derr, dscale, dlaunch, BF16_STEP, bf16_ms, fp32_ms))
+    if got.dtype != torch.bfloat16 or derr > BF16_STEP * dscale \
+            or dlaunch != 1:
+        fail("amp: bf16 flash_decode %s err %g launches %d"
+             % (got.dtype, derr, dlaunch))
+
+
+def phase_amp(card, tfa, fp32_module, fp32_resnet):
+    """Phase 17: mixed precision and the fused step on ResNet-50 v1 at
+    the reference's training size with phase 14's data and seed, and
+    bfloat16 attention. No attention kernel is on the ResNet paths: the
+    launch counts, zeroed just before (a)-(f), must read 0 after."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, image, classes = MODULE_BENCH
+    rs = np.random.RandomState(70)
+    x = rs.randn(MODULE_IMAGES, 3, image, image).astype(np.float32)
+    y = rs.randint(0, classes, MODULE_IMAGES).astype(np.float32)
+    tfa.reset_launches()
+    amp_fused_vs_eager(mx, x, y, card)
+    torch.cuda.empty_cache()
+    mod, _ = amp_fit(mx, x, y, card, fp32_module)
+    del mod
+    torch.cuda.empty_cache()
+    with deterministic_cudnn():
+        amp_gluon_vs_module(mx, x[:batch], y[:batch])
+    torch.cuda.empty_cache()
+    amp_inference(mx, card, fp32_resnet["bench"]["hybridized"])
+    torch.cuda.empty_cache()
+    amp_guard(mx, x, y, card)
+    torch.cuda.empty_cache()
+    amp_checkpoints(mx, x, y, card)
+    torch.cuda.empty_cache()
+    if any(tfa.launches.values()):
+        fail("amp: the ResNet paths launched attention kernels: %s"
+             % tfa.launches)
+    amp_attention(tfa, card)
+    print("  amp phase %.1f s" % (time.perf_counter() - t_phase))
 
 
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
@@ -4455,9 +5136,10 @@ def main():
     del model_k, model_p, params
     torch.cuda.empty_cache()
     train_launches = phase_training(tfa, card)
-    phase_resnet(card)
-    phase_module(card)
+    resnet_readings = phase_resnet(card)
+    module_readings = phase_module(card)
     phase_export_train(card, phase_zoo(card))
+    phase_amp(card, tfa, module_readings, resnet_readings)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

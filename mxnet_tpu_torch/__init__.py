@@ -32,7 +32,14 @@ What is ported:
   ``NDArrayIter``, ``metric``, ``lr_scheduler``, ``callback``,
   ``model``'s checkpoints, ``nd.save``/``nd.load``, and the read half of
   ``checkpoint`` (manifests), which ``DecodeServer.swap_weights(
-  prefix=, epoch=)`` loads.
+  prefix=, epoch=)`` loads;
+- mixed-precision training and the fused step: ``mx.amp``'s dtype
+  policy with fp32 masters (``multi_precision``), every optimizer the
+  JAX package registers, the whole update (and, through ``Module``,
+  forward + backward with it) as one CUDA graph per signature
+  (``fused_step``), the non-finite guard with loss scaling
+  (``fault``), and the checkpoint writer with ``fit(checkpoint_prefix=,
+  resume_from_checkpoint=)``.
 
 Typical use mirrors MXNet::
 
@@ -71,6 +78,10 @@ from . import lr_scheduler
 from . import callback
 from . import model
 from . import checkpoint
+from . import fault
+from . import profiler
+from . import amp
+from . import fused_step
 from . import module
 from . import module as mod
 
@@ -79,4 +90,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "NDArray", "sym", "symbol", "Symbol", "cached_op", "random",
            "autograd", "init", "initializer", "optimizer", "gluon", "rtc",
            "executor", "io", "metric", "lr_scheduler", "callback", "model",
-           "checkpoint", "module", "mod"]
+           "checkpoint", "fault", "profiler", "amp", "fused_step", "module",
+           "mod"]

@@ -169,11 +169,25 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     for var, g in zip(variables, grads):
         if g is None:
             continue
-        if var._grad_req == "add":
-            var.grad._data = var.grad._data + g
-        else:
-            var.grad._data = g
+        _store_grad(var, g)
         var._fresh_grad = True
+
+
+def _store_grad(var, g):
+    """Write (``'write'``) or add (``'add'``) ``g`` into the variable's
+    gradient buffer IN PLACE, so a gradient keeps its storage from step
+    to step (the fused update's CUDA graph reads it there). A buffer of
+    another shape, dtype or device is replaced."""
+    buf = var.grad._data
+    if buf.shape != g.shape or buf.dtype != g.dtype \
+            or buf.device != g.device or buf.requires_grad:
+        var.grad._data = buf + g if var._grad_req == "add" else g
+        return
+    with torch.no_grad():
+        if var._grad_req == "add":
+            buf.add_(g)
+        else:
+            buf.copy_(g)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -117,15 +117,17 @@ def build_graph_callable(symbol):
     return fn, arg_names, aux_names, n_rng, len(head_refs)
 
 
-def _cuda_capture(body, device, pool):
+def _cuda_capture(body, device, pool, generators=()):
     """Capture ``body()`` as a CUDA graph on ``device``: one eager call on
     a side stream first (it builds the kernels, lets cuDNN pick its
     algorithms and sets up cuBLAS outside the capture), then the capture
     into the graph memory pool ``pool``. The mode is thread-local, so
     other threads keep launching and synchronising while this one
-    captures. Returns ``(replay, output, launches)``: the graph's replay,
-    the body's output (its buffers, written by each replay) and the
-    kernel launches it holds."""
+    captures. ``generators`` are the ``torch.Generator``s the body draws
+    from, registered with the graph so that each replay draws anew.
+    Returns ``(replay, output, launches)``: the graph's replay, the
+    body's output (its buffers, written by each replay) and the kernel
+    launches it holds."""
     from .parallel import flash_attention as fa
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -134,6 +136,8 @@ def _cuda_capture(body, device, pool):
         body()
     cur.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     with fa.recording_launches() as held:
         with torch.cuda.graph(graph, pool=pool,
                               capture_error_mode="thread_local"):

@@ -1,22 +1,40 @@
-"""Checkpoint manifests, the read half (counterpart of
+"""Checkpoint manifests: the writer and the reader (counterpart of
 ``mxnet_tpu/checkpoint.py``).
 
 A manifest checkpoint is a JSON file ``<prefix>-<epoch>.ckpt.json``
 that names every artifact of one save with its SHA-256 (shard files of
-npz payloads, an optimizer-state sibling) and every parameter's layout
+npz payloads, an optimizer-state sibling), every parameter's layout
 (shape, dtype, and its pieces: shard, key, and the global index of a
-piece of a sharded entry). Shard 0 is ``<prefix>-<epoch>.params``, the
-single-file format ``nd.load`` reads. Loading checks each file against
-its checksum before it parses it, so a torn write raises
+piece of a sharded entry) and an optional ``meta`` record (the AMP
+policy, ``{"dtype_policy": policy.describe()}``). Shard 0 is
+``<prefix>-<epoch>.params``, the single-file format ``nd.load`` reads.
+
+**Writing.** :func:`save_arrays` writes the optimizer states first, then
+the shards, then the manifest, each through :func:`atomic_write_file`
+(tmp + fsync + ``os.replace``, visiting the ``ckpt_write`` and
+``ckpt_fsync`` fault sites), so a kill mid-save strands at most
+unreferenced files, never a manifest pointing at a torn one. One
+process writes one shard (multi-process saves wait for ROADMAP queue A
+item 12). :class:`CheckpointManager` runs saves for a training loop:
+``save`` snapshots every parameter as a device-side clone on the
+training stream (the fused step's graph writes the live weights in
+place at its next replay, so the writer must never read them), then a
+writer thread behind a bounded queue (``MXNET_CHECKPOINT_INFLIGHT``:
+backpressure past it) copies the clones to the host, serializes,
+checksums and writes; ``MXNET_ASYNC_CHECKPOINT=0`` runs the same on the
+calling thread. A failed save warns and leaves the previous good epoch
+as the resume point. Each save is one ``checkpoint`` telemetry record;
+:func:`write_bytes_async`/:func:`flush_async_writes` are the shared
+background writer of ``Trainer.save_states(background=True)``.
+
+**Reading.** Loading checks each file against its checksum before it
+parses it, so a torn write raises
 :class:`~mxnet_tpu_torch.base.MXNetError` naming the file, and
-re-assembles a sharded entry from its pieces on the host.
-
-A bfloat16 entry comes back from npz as raw 2-byte values (``|V2``);
-numpy has no bfloat16 dtype without ``ml_dtypes``, so the port
-reinterprets those bytes as ``torch.bfloat16``, bit for bit.
-
-The writer (``CheckpointManager``, ``save_arrays``) is not ported yet
-(ROADMAP queue A item 10).
+re-assembles a sharded entry from its pieces on the host. A bfloat16
+entry comes back from npz as raw 2-byte values (``|V2``); numpy has no
+bfloat16 dtype without ``ml_dtypes``, so the port reinterprets those
+bytes as ``torch.bfloat16``, bit for bit, and writes bfloat16 the same
+way. :func:`restore_params` casts a load to an AMP policy.
 """
 from __future__ import annotations
 
@@ -26,18 +44,32 @@ import io as _io
 import json
 import logging
 import os
+import queue
 import re
+import threading
+import time
 
 import numpy as np
 import torch
 
+from . import envs
 from .base import MXNetError
-from .ndarray.ndarray import tensor_from_numpy
+from .ndarray.ndarray import host_numpy, numpy_dtype, tensor_from_numpy
 
-__all__ = ["manifest_path", "load_manifest", "validate_manifest",
-           "latest_manifest_epoch", "load_arrays", "load_param_arrays"]
+__all__ = ["CheckpointManager", "async_checkpoint_enabled",
+           "manifest_path", "load_manifest", "validate_manifest",
+           "latest_manifest_epoch", "load_arrays", "load_param_arrays",
+           "restore_params", "save_arrays", "saved_dtype_policy",
+           "snapshot_params", "atomic_write_file", "write_bytes_async",
+           "flush_async_writes"]
 
 _PIECE_SEP = "::piece"       # shard-file key suffix for partial pieces
+MANIFEST_FORMAT = 1
+
+
+def async_checkpoint_enabled():
+    """The ``MXNET_ASYNC_CHECKPOINT`` gate (default on), read per fit."""
+    return envs.get_bool("MXNET_ASYNC_CHECKPOINT")
 
 
 def _tag(prefix, epoch):
@@ -50,6 +82,182 @@ def manifest_path(prefix, epoch):
 
 def _sha256(payload):
     return hashlib.sha256(payload).hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# durable writes
+# ---------------------------------------------------------------------------
+
+def atomic_write_file(fname, payload):
+    """``<fname>.tmp`` + fsync + ``os.replace``, visiting the
+    ``ckpt_write``/``ckpt_fsync`` fault sites: a raised fault leaves at
+    most a ``.tmp`` behind, never a torn ``fname``."""
+    from . import fault
+    fault.inject("ckpt_write")
+    tmp = fname + ".tmp"
+    with open(tmp, "wb") as sink:
+        sink.write(payload)
+        sink.flush()
+        fault.inject("ckpt_fsync")
+        os.fsync(sink.fileno())
+    os.replace(tmp, fname)
+
+
+_bytes_q = None
+_bytes_thread = None
+_bytes_lock = threading.Lock()
+_bytes_errors = []       # (fname, "Type: msg") since the last flush
+
+
+def _bytes_writer_loop():
+    while True:
+        fname, payload = _bytes_q.get()
+        try:
+            atomic_write_file(fname, payload)
+        except Exception as exc:               # noqa: BLE001
+            with _bytes_lock:
+                _bytes_errors.append((fname, "%s: %s" % (
+                    type(exc).__name__, str(exc)[:200])))
+            logging.getLogger(__name__).warning(
+                "checkpoint: background write of %s failed (%s: %s)",
+                fname, type(exc).__name__, exc)
+        finally:
+            _bytes_q.task_done()
+
+
+def write_bytes_async(fname, payload):
+    """Durably write ``payload`` (a consistent byte snapshot) to
+    ``fname`` from the shared background writer, behind a bounded
+    queue."""
+    global _bytes_q, _bytes_thread
+    with _bytes_lock:
+        if _bytes_thread is None or not _bytes_thread.is_alive():
+            _bytes_q = queue.Queue(
+                maxsize=max(1, envs.get_int("MXNET_CHECKPOINT_INFLIGHT")))
+            _bytes_thread = threading.Thread(
+                target=_bytes_writer_loop, daemon=True, name="mxckpt-bytes")
+            _bytes_thread.start()
+    _bytes_q.put((fname, payload))
+
+
+def flush_async_writes():
+    """Block until every :func:`write_bytes_async` payload landed, then
+    raise naming the writes that failed since the last flush."""
+    q = _bytes_q
+    if q is not None:
+        q.join()
+    with _bytes_lock:
+        errors, _bytes_errors[:] = list(_bytes_errors), []
+    if errors:
+        raise MXNetError("background checkpoint write(s) failed: "
+                         + "; ".join("%s (%s)" % e for e in errors))
+
+
+# ---------------------------------------------------------------------------
+# snapshot and serialization
+# ---------------------------------------------------------------------------
+
+def snapshot_params(arg_params, aux_params=None, extra=None):
+    """A point-in-time capture ``{'arg:name': tensor}`` (plus ``aux:``,
+    and ``extra`` under its own keys): a device-side clone of each
+    array, enqueued on the calling thread's stream, so a later in-place
+    write (the fused step's replay) cannot reach what the writer
+    reads. Host values (numpy) are copied."""
+    flat = {}
+    for prefix, params in (("arg:", arg_params), ("aux:", aux_params)):
+        for k, v in (params or {}).items():
+            flat[prefix + k] = _snap(v)
+    for k, v in (extra or {}).items():
+        flat[k] = _snap(v)
+    return flat
+
+
+def _snap(value):
+    data = getattr(value, "_data", value)
+    if isinstance(data, torch.Tensor):
+        return data.detach().clone()
+    return np.array(data, copy=True)
+
+
+def _host(value):
+    return host_numpy(value) if isinstance(value, torch.Tensor) \
+        else np.asarray(value)
+
+
+def _dtype_name(value):
+    if isinstance(value, torch.Tensor):
+        return str(numpy_dtype(value.dtype))
+    return str(np.asarray(value).dtype)
+
+
+def _shard_file(prefix, epoch, shard):
+    return _tag(prefix, epoch) + ".params" if shard == 0 else \
+        "%s.shard%02d.params" % (_tag(prefix, epoch), shard)
+
+
+def _npz_bytes(arrays):
+    buf = _io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def save_arrays(prefix, epoch, flat, states_bytes=None, symbol=None,
+                meta=None):
+    """Write one checkpoint of a :func:`snapshot_params` roster: the
+    optimizer states, then the shard, then the manifest (with ``meta``
+    recorded verbatim), each durably. The device-to-host copy happens
+    here, on the calling thread. Returns the stats the telemetry record
+    carries; raises on a failure (a planned ``ckpt_write``/
+    ``ckpt_fsync`` fault included)."""
+    t0 = time.perf_counter()
+    arrays, layout = {}, {}
+    for key, value in flat.items():
+        host = _host(value)
+        arrays[key] = host
+        layout[key] = {"shape": [int(d) for d in host.shape],
+                       "dtype": _dtype_name(value),
+                       "pieces": [{"shard": 0, "key": key, "index": None}]}
+    t_snap = time.perf_counter()
+    dirname = os.path.dirname(prefix)
+    if dirname:
+        os.makedirs(dirname, exist_ok=True)
+    payload = _npz_bytes(arrays)
+    shard_fname = _shard_file(prefix, epoch, 0)
+    t_ser = time.perf_counter()
+    if symbol is not None:
+        symbol.save("%s-symbol.json" % prefix)
+    total_bytes = len(payload)
+    # states BEFORE the shard: a kill between the two strands only a
+    # .states file, never a loadable .params whose states are missing
+    states_entry = None
+    if states_bytes is not None:
+        states_file = _tag(prefix, epoch) + ".states"
+        atomic_write_file(states_file, states_bytes)
+        states_entry = {"file": os.path.basename(states_file),
+                        "sha256": _sha256(states_bytes),
+                        "bytes": len(states_bytes)}
+        total_bytes += len(states_bytes)
+    atomic_write_file(shard_fname, payload)
+    t_write = time.perf_counter()
+    manifest = {"format": MANIFEST_FORMAT, "epoch": int(epoch),
+                "time": time.time(),
+                "shards": [{"file": os.path.basename(shard_fname),
+                            "sha256": _sha256(payload),
+                            "bytes": len(payload), "shard": 0}],
+                "params": layout}
+    if states_entry is not None:
+        manifest["optimizer_states"] = states_entry
+    if meta:
+        manifest["meta"] = dict(meta)
+    atomic_write_file(manifest_path(prefix, epoch),
+                      json.dumps(manifest, sort_keys=True).encode())
+    t_end = time.perf_counter()
+    return {"epoch": int(epoch), "bytes": total_bytes, "shards": 1,
+            "snapshot_ms": round((t_snap - t0) * 1e3, 3),
+            "serialize_ms": round((t_ser - t_snap) * 1e3, 3),
+            "write_ms": round((t_write - t_ser) * 1e3, 3),
+            "manifest_ms": round((t_end - t_write) * 1e3, 3),
+            "total_ms": round((t_end - t0) * 1e3, 3)}
 
 
 def latest_manifest_epoch(prefix, validate=True):
@@ -201,3 +409,181 @@ def load_param_arrays(prefix, epoch, validate=True):
     returns numpy arrays, since numpy has no bfloat16."""
     return {(k.split(":", 1)[1] if ":" in k else k): v
             for k, v in _read_host(prefix, epoch, validate).items()}
+
+
+def saved_dtype_policy(prefix, epoch):
+    """The :class:`~mxnet_tpu_torch.amp.DtypePolicy` a manifest
+    checkpoint was saved under (its ``meta.dtype_policy``), or None."""
+    from .amp import DtypePolicy
+    manifest = load_manifest(prefix, epoch)
+    meta = (manifest or {}).get("meta") or {}
+    return DtypePolicy.from_describe(meta.get("dtype_policy"))
+
+
+def restore_params(prefix, epoch, validate=True, policy=None, ctx=None):
+    """``(arg_params, aux_params)`` of a manifest checkpoint. ``policy``
+    casts each parameter to its resolved dtype: an ``amp.DtypePolicy``
+    resumes under that policy (an AMP checkpoint stores fp32 masters, so
+    any resume precision is a cast of the exact master), ``"manifest"``
+    re-adopts the policy the checkpoint was saved under. Placement on a
+    mesh waits for ROADMAP queue A item 12."""
+    flat = load_arrays(prefix, epoch, validate=validate, ctx=ctx)
+    arg_params, aux_params = {}, {}
+    for k, v in flat.items():
+        tp, name = k.split(":", 1)
+        (arg_params if tp == "arg" else aux_params)[name] = v
+    if policy == "manifest":
+        policy = saved_dtype_policy(prefix, epoch)
+    if policy is not None:
+        arg_params = policy.cast_params(arg_params)
+        aux_params = policy.cast_params(aux_params)
+    return arg_params, aux_params
+
+
+# ---------------------------------------------------------------------------
+# the manager: a bounded-queue background writer
+# ---------------------------------------------------------------------------
+
+_CLOSE = object()
+
+
+class CheckpointManager:
+    """One checkpoint prefix's save pipeline for a training loop. Async
+    mode (default): ``save()`` snapshots (device-side clones) under the
+    telemetry ``checkpoint`` phase, waits only when the bounded queue is
+    full, and returns; a writer thread does the rest. Sync mode runs the
+    same writer code on the calling thread. A failed save warns and
+    leaves :attr:`last_good_epoch` as it was."""
+
+    def __init__(self, prefix, symbol=None, async_=None, inflight=None,
+                 logger=None, meta=None):
+        self.prefix = prefix
+        self._symbol = symbol
+        self._symbol_saved = False
+        self.meta = dict(meta) if meta else None
+        self.async_ = async_checkpoint_enabled() if async_ is None \
+            else bool(async_)
+        depth = inflight if inflight is not None \
+            else envs.get_int("MXNET_CHECKPOINT_INFLIGHT")
+        self._q = queue.Queue(maxsize=max(1, int(depth)))
+        self._thread = None
+        self._lock = threading.Lock()
+        self.logger = logger or logging.getLogger(__name__)
+        self.last_good_epoch = None
+        self.saves = 0
+        self.failures = 0
+        self.bytes_written = 0
+        self.last_blocking_ms = None
+
+    def save(self, epoch, arg_params, aux_params=None, states_bytes=None,
+             extra=None):
+        """Checkpoint ``epoch``. The caller blocks for the snapshot (and,
+        under backpressure, the queue) in async mode, for the whole
+        durable write in sync mode."""
+        from . import telemetry, tracing
+        with telemetry.span("checkpoint"):
+            t0 = time.perf_counter()
+            ctx = tracing.context()
+            flat = snapshot_params(arg_params, aux_params, extra=extra)
+            if not self.async_:
+                self._write(epoch, flat, states_bytes, t0, blocking=True,
+                            ctx=ctx)
+                self.last_blocking_ms = (time.perf_counter() - t0) * 1e3
+                return
+            self._ensure_thread()
+            timing = {"t0": t0, "ctx": ctx}
+            self._q.put((epoch, flat, states_bytes, timing))
+            timing["t_enq"] = time.perf_counter()
+            self.last_blocking_ms = (timing["t_enq"] - t0) * 1e3
+
+    def wait(self):
+        """Block until every enqueued save was written (or failed)."""
+        if self._thread is not None:
+            self._q.join()
+
+    def close(self):
+        """Drain the in-flight saves and stop the writer thread; safe to
+        call twice (a later save starts a new thread)."""
+        if self._thread is None:
+            return
+        self._q.join()
+        self._q.put(_CLOSE)
+        self._thread.join(timeout=30)
+        self._thread = None
+
+    def stats(self):
+        with self._lock:
+            return {"saves": self.saves, "failures": self.failures,
+                    "bytes_written": self.bytes_written,
+                    "last_good_epoch": self.last_good_epoch,
+                    "async": self.async_}
+
+    def _ensure_thread(self):
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(target=self._writer_loop,
+                                            daemon=True, name="mxckpt-write")
+            self._thread.start()
+
+    def _writer_loop(self):
+        while True:
+            item = self._q.get()
+            if item is _CLOSE:
+                self._q.task_done()
+                return
+            epoch, flat, states_bytes, timing = item
+            try:
+                self._write(epoch, flat, states_bytes, timing["t0"],
+                            blocking=False, t_enq=timing.get("t_enq"),
+                            ctx=timing.get("ctx"))
+            finally:
+                self._q.task_done()
+
+    def _symbol_once(self):
+        if self._symbol is not None and not self._symbol_saved:
+            self._symbol.save("%s-symbol.json" % self.prefix)
+            self._symbol_saved = True
+
+    def _write(self, epoch, flat, states_bytes, t0, blocking, t_enq=None,
+               ctx=None):
+        """One durable save and its accounting; never raises."""
+        from . import telemetry, tracing
+        t_work0 = time.perf_counter()
+        if t_enq is None and not blocking:
+            t_enq = time.perf_counter()
+        rec = {"epoch": int(epoch), "async": not blocking}
+        try:
+            self._symbol_once()
+            st = save_arrays(self.prefix, epoch, flat,
+                             states_bytes=states_bytes, meta=self.meta)
+            rec.update(st, ok=True)
+            with self._lock:
+                self.saves += 1
+                self.bytes_written += st["bytes"]
+                if self.last_good_epoch is None \
+                        or epoch > self.last_good_epoch:
+                    self.last_good_epoch = epoch
+        except Exception as exc:               # noqa: BLE001
+            with self._lock:
+                self.failures += 1
+            rec.update(ok=False, error="%s: %s" % (type(exc).__name__,
+                                                   str(exc)[:200]))
+            self.logger.warning(
+                "checkpoint: save of epoch %d failed (%s: %s) — last good "
+                "epoch is %s", epoch, type(exc).__name__, exc,
+                self.last_good_epoch)
+        now = time.perf_counter()
+        if blocking:
+            rec["blocking_ms"] = round((now - t0) * 1e3, 3)
+            rec["async_ms"] = 0.0
+        else:
+            rec["blocking_ms"] = round((t_enq - t0) * 1e3, 3)
+            rec["async_ms"] = round((now - t_enq) * 1e3, 3)
+        rec["last_good_epoch"] = self.last_good_epoch
+        if tracing._tracer is not None:
+            args = dict(ctx or {})
+            args.update(epoch=int(epoch), ok=bool(rec.get("ok")),
+                        bytes=rec.get("bytes", 0))
+            tracing.add("ckpt:epoch%04d" % int(epoch), "checkpoint",
+                        t_work0, now - t_work0,
+                        tid=tracing.track("checkpoint"), args=args)
+        telemetry.checkpoint_event(rec)

@@ -76,6 +76,31 @@ declare("MXNET_FAULT_PLAN", "str", "",
         "'serve_decode:step=1:hang' (see fault.py).", _G)
 declare("MXNET_FAULT_HANG_SECONDS", "float", 0.05,
         "Duration of an injected 'hang' fault.", _G)
+declare("MXNET_NONFINITE_GUARD", "str", "",
+        "Non-finite gradient policy: skip_step | scale_backoff | "
+        "empty (off).", _G)
+declare("MXNET_LOSS_SCALE", "float", 2.0 ** 15,
+        "Initial loss scale for the scale_backoff guard.", _G)
+declare("MXNET_LOSS_SCALE_WINDOW", "int", 2000,
+        "Good steps between loss-scale growth attempts.", _G)
+declare("MXNET_AMP_POLICY", "str", "",
+        "Default AMP compute dtype for amp.DtypePolicy.from_env: "
+        "bfloat16 | float16 | empty (off).", _G)
+declare("MXNET_AMP_RULES", "str", "",
+        "Ordered per-parameter dtype overrides for the AMP policy, "
+        "'substring=dtype,...' — first match wins (see amp.py).", _G)
+declare("MXNET_ASYNC_CHECKPOINT", "bool", True,
+        "Write checkpoints from the bounded background writer "
+        "instead of blocking the step.", _G)
+declare("MXNET_CHECKPOINT_INFLIGHT", "int", 2,
+        "Bounded queue depth of in-flight async checkpoint "
+        "snapshots (backpressure past it).", _G)
+
+_G = "core"
+declare("MXNET_FUSED_STEP", "bool", True,
+        "Run the whole optimizer update (and, on the Module path, "
+        "forward + backward with it) as one CUDA graph per signature "
+        "(eager fallback when off).", _G)
 
 _G = "serving"
 declare("MXNET_SERVING_RECORD_EVERY", "int", 50,

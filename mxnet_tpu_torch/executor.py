@@ -299,11 +299,16 @@ class Executor:
                 raise MXNetError("unknown argument %s" % k)
             dst = self.arg_dict[k]
             src = v._data if isinstance(v, NDArray) else torch.as_tensor(v)
-            if tuple(src.shape) == dst.shape:
+            # a floating NDArray of another float dtype (a bfloat16 batch
+            # for bfloat16 weights): the bound array adopts its dtype
+            adopt = isinstance(v, NDArray) and src.dtype != dst._data.dtype \
+                and src.is_floating_point() and dst._data.is_floating_point()
+            if tuple(src.shape) == dst.shape and not adopt:
                 with torch.no_grad():
                     dst._data.copy_(src)
             else:
-                dst._set_data(src.to(dst._data.device, dst._data.dtype,
+                dst._set_data(src.to(dst._data.device,
+                                     src.dtype if adopt else dst._data.dtype,
                                      copy=True))
 
     def _values(self):
@@ -349,11 +354,12 @@ class Executor:
         with torch.no_grad():
             return run(args, aux)[0]
 
-    def _train(self, is_train):
+    def _forward_tape(self, args, aux, is_train):
         """One forward under torch autograd over the grad-carrying
-        arguments; the moving statistics are written back once (train
-        mode). Returns the outputs, keeping the tape for ``backward``."""
-        args, aux = self._values()
+        arguments of the given argument and auxiliary tensors (the bound
+        arrays' own); the moving statistics are written back once (train
+        mode). Returns ``(leaves, outputs)``."""
+        args = list(args)
         leaves = []
         for p in self._grad_positions:
             args[p] = args[p].detach().requires_grad_(True)
@@ -362,8 +368,61 @@ class Executor:
             outs, new_aux = self._make_graph_fn(is_train)(args, aux)
         if is_train:
             self._store_aux(aux, new_aux)
-        self._tape = (leaves, outs)
-        return tuple(o.detach() for o in outs)
+        return leaves, outs
+
+    @staticmethod
+    def _tape_grads(leaves, outs, ogs):
+        """``torch.autograd.grad`` of the outputs that carry a graph, with
+        head gradients ``ogs``; None for a leaf they do not reach."""
+        live = [(o, g) for o, g in zip(outs, ogs) if o.requires_grad]
+        return torch.autograd.grad(
+            [o for o, _ in live], leaves, grad_outputs=[g for _, g in live],
+            allow_unused=True) if live else [None] * len(leaves)
+
+    def _train(self, is_train):
+        """One training forward; returns the outputs, keeping the tape
+        for ``backward``."""
+        self._tape = self._forward_tape(*self._values(), is_train)
+        return tuple(o.detach() for o in self._tape[1])
+
+    def fused_forward_backward(self, args, aux, og_scale=None):
+        """The training forward and its backward over the bound arrays'
+        argument and auxiliary tensors, for the fused step to capture
+        (the JAX executor's ``fused_plan``): the head gradients are ones
+        (times ``og_scale``, a 0-d tensor, under loss scaling; a loss
+        layer ignores them). Returns ``(outputs, grads)``, zeros for a
+        grad-carrying argument the outputs do not reach; nothing reads a
+        device value on the host."""
+        leaves, outs = self._forward_tape(args, aux, True)
+        ogs = [torch.ones_like(o) for o in outs]
+        if og_scale is not None:
+            ogs = [g * og_scale.to(g.dtype) for g in ogs]
+        grads = self._tape_grads(leaves, outs, ogs)
+        return [o.detach() for o in outs], \
+            [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+
+    def rng_generators(self):
+        """The distinct ``torch.Generator``s a training run of the plan
+        draws from (a CUDA graph registers them, so each replay draws
+        anew)."""
+        if not self._needs_rng:
+            return []
+        from . import random as _random
+        devices = self._op_devices or [self._ctx.torch_device()] \
+            * len(self._plan)
+        gens = []
+        for (op, *_), d in zip(self._plan, devices):
+            if op.needs_rng:
+                g = _random.generator(d)
+                if all(g is not h for h in gens):
+                    gens.append(g)
+        return gens
+
+    @property
+    def grouped(self):
+        """True for a placed executor (``group2ctx`` names a group)."""
+        return self._op_ctxs is not None
 
     def stats(self):
         """The predict graphs' counters (``cached_op._Graphs.stats``) and
@@ -430,10 +489,7 @@ class Executor:
             if isinstance(out_grads, NDArray):
                 out_grads = [out_grads]
             ogs = [g._data for g in out_grads]
-        live = [(o, g) for o, g in zip(outs, ogs) if o.requires_grad]
-        grads = torch.autograd.grad(
-            [o for o, _ in live], leaves, grad_outputs=[g for _, g in live],
-            allow_unused=True) if live else [None] * len(leaves)
+        grads = self._tape_grads(leaves, outs, ogs)
         with torch.no_grad():
             for p, g in zip(self._grad_positions, grads):
                 tgt = self.grad_arrays[p]._data
@@ -468,18 +524,39 @@ class Executor:
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
-        """Copy parameter values into the bound arrays, in place."""
+        """Copy parameter values into the bound arrays, in place (a value
+        of another float dtype is adopted: :meth:`adopt_value`)."""
         for table, params, what in ((self.arg_dict, arg_params,
                                      "arguments"),
                                     (self.aux_dict, aux_params or {},
                                      "auxiliary states")):
             for name, arr in params.items():
                 if name in table:
-                    with torch.no_grad():
-                        table[name]._data.copy_(arr._data)
+                    self.adopt_value(name, arr)
                 elif not allow_extra_params:
                     raise MXNetError("Found name \"%s\" that is not in the "
                                      "%s" % (name, what))
+
+    def adopt_value(self, name, src):
+        """Write ``src`` into the bound array ``name`` (an argument or an
+        auxiliary state): in place when the dtypes agree; a value of
+        another floating dtype (an AMP policy's bfloat16 weight) replaces
+        the array in that dtype, and the argument's gradient array
+        follows it."""
+        dst = self.arg_dict[name] if name in self.arg_dict \
+            else self.aux_dict[name]
+        if src is dst:
+            return
+        if src._data.dtype == dst._data.dtype \
+                or not (src._data.is_floating_point()
+                        and dst._data.is_floating_point()):
+            with torch.no_grad():
+                dst._data.copy_(src._data)
+            return
+        dst._set_data(src._data.detach().to(dst._data.device, copy=True))
+        grad = self.grad_dict.get(name)
+        if grad is not None:
+            grad._set_data(torch.zeros_like(dst._data))
 
     def set_monitor_callback(self, callback, monitor_all=False):
         """``callback(name, NDArray)`` after each forward on every output,

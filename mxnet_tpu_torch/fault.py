@@ -1,15 +1,21 @@
-"""Deterministic fault injection (counterpart of ``mxnet_tpu/fault.py``),
-limited to the pieces and sites the decode serving path calls.
+"""Deterministic fault injection and the non-finite gradient guard
+(counterpart of ``mxnet_tpu/fault.py``).
 
-``MXNET_FAULT_PLAN`` holds a ``;``- or ``,``-separated list of
-``site:step=N:action[:count=K]`` entries, e.g.
-``serve_decode:step=1:hang:count=inf;kv_evict:step=1:raise``. A site's
-step counter counts *visits*; an entry fires on visits
-``step .. step+count-1`` (``count=inf`` fires forever). With the plan
-unset every injection point is a no-op.
+**Fault injection.** ``MXNET_FAULT_PLAN`` holds a ``;``- or
+``,``-separated list of ``site:step=N:action[:count=K]`` entries, e.g.
+``serve_decode:step=1:hang:count=inf;grad:step=5:nan``. A site's step
+counter counts *visits*; an entry fires on visits ``step ..
+step+count-1`` (``count=inf`` fires forever). With the plan unset every
+injection point is a no-op.
 
-Sites of this slice:
+Sites of the port:
 
+- ``grad`` — once per parameter per optimizer step (the ``Updater``, or
+  :func:`grad_poison` inside the fused step); ``nan``/``inf`` corrupt a
+  copy of the gradient;
+- ``ckpt_write`` / ``ckpt_fsync`` — before each checkpoint file write
+  and before its fsync (``checkpoint.atomic_write_file``), so a planned
+  fault aborts or stalls a save at an exact file boundary;
 - ``serve_admit`` — once per ``DecodeServer.submit``;
 - ``serve_decode`` — once per decode step; a planned hang stalls token
   production so a streaming request ages past its deadline;
@@ -28,17 +34,29 @@ Sites of this slice:
 - ``flightrec`` — once per flight-recorder dump; a raise is counted as
   a failed dump, never fatal (the dumper drill).
 
-The JAX module's retry, gradient-guard and resume branches, which also
-count into an active telemetry run (``telemetry.note``), arrive with
-the modules that take them (kvstore, the fused step, checkpoint).
-
 Actions: ``raise`` → :class:`InjectedFault`; ``hang`` → sleep
 ``MXNET_FAULT_HANG_SECONDS`` then :class:`InjectedHang`; ``stall`` →
-the same sleep and no exception. State is process-global; :func:`reset`
-re-reads the environment.
+the same sleep and no exception; ``nan``/``inf`` (the ``grad`` site
+only) → a poisoned copy of the value.
+
+**Non-finite gradient guard.** Policies ``skip_step`` (drop the update,
+count it in :func:`stats`) and ``scale_backoff`` (also halve a dynamic
+loss scale, regrow it after ``MXNET_LOSS_SCALE_WINDOW`` clean steps),
+selected with ``MXNET_NONFINITE_GUARD``; a plan with a ``grad`` site
+turns ``skip_step`` on. :func:`filter_gradient` is the eager updater's
+guard; the fused step skips inside its graph and reports the step
+through :func:`fused_step_guard`. Each branch that advances
+``skipped_steps`` also notes it into an active telemetry run, and each
+loss-scale change writes a ``loss_scale`` record.
+
+The JAX module's retries and process-group join (``with_retries``,
+``join_process_group``) arrive with the multi-device layer (ROADMAP
+queue A item 12). State is process-global; :func:`reset` re-reads the
+environment.
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 
@@ -46,11 +64,19 @@ from . import envs
 from .base import MXNetError
 
 __all__ = ["FaultPlan", "InjectedFault", "InjectedHang", "plan",
-           "set_plan", "reset", "inject", "stats", "reset_stats"]
+           "set_plan", "reset", "active", "is_enabled", "inject",
+           "stats", "reset_stats", "guard_policy", "loss_scale",
+           "filter_gradient", "grad_poison", "fused_step_guard",
+           "note_resume"]
 
-_ACTIONS = ("raise", "hang", "stall")
-_SITES = ("serve_admit", "serve_decode", "serve_route", "kv_evict",
-          "kv_share", "kv_cow", "replica_lost", "flightrec")
+_ACTIONS = ("raise", "hang", "stall", "nan", "inf")
+_SITES = ("grad", "ckpt_write", "ckpt_fsync", "serve_admit",
+          "serve_decode", "serve_route", "kv_evict", "kv_share", "kv_cow",
+          "replica_lost", "flightrec")
+# corruption needs a value to corrupt: only the grad site carries one
+_VALUE_SITES = ("grad",)
+_GUARD_POLICIES = ("skip_step", "scale_backoff")
+_LOSS_SCALE_MAX = 2.0 ** 24
 
 
 class InjectedFault(MXNetError):
@@ -107,6 +133,10 @@ def _parse_entry(text):
         raise MXNetError(
             "fault plan entry %r: unknown site %r (sites: %s)"
             % (text, site, "|".join(_SITES)))
+    if action in ("nan", "inf") and site not in _VALUE_SITES:
+        raise MXNetError(
+            "fault plan entry %r: action %r needs one of the value-"
+            "carrying sites (%s)" % (text, action, "|".join(_VALUE_SITES)))
     return _PlanEntry(site, step, action, count)
 
 
@@ -133,14 +163,38 @@ class FaultPlan:
                 return entry
         return None
 
+    def has_site(self, site):
+        return any(e.site == site for e in self.entries)
+
     def __repr__(self):
         return "FaultPlan(%s)" % ";".join(repr(e) for e in self.entries)
 
 
+# ---------------------------------------------------------------------------
+# process-global state
+# ---------------------------------------------------------------------------
+
 _lock = threading.Lock()
 _plan = None
 _plan_loaded = False
-_stats = {"injected": {}}
+_guard = None
+_guard_loaded = False
+_loss_scale_val = None
+_good_steps = 0
+# the updater runs once per parameter index per optimizer step; the
+# guard counts per STEP, and a repeating index marks the next step
+_seen_indices = set()
+_step_clean = True
+
+
+def _fresh_stats():
+    return {"skipped_steps": 0, "retries": 0, "timeouts": 0,
+            "injected": {}, "resumed_from_epoch": None,
+            "clean_resumes": 0, "rollback_resumes": 0,
+            "rollback_epochs": 0}
+
+
+_stats = _fresh_stats()
 
 
 def plan():
@@ -158,9 +212,18 @@ def plan():
     return _plan
 
 
+def _reset_guard_state_locked():
+    global _guard, _guard_loaded, _loss_scale_val, _good_steps
+    global _seen_indices, _step_clean
+    _guard, _guard_loaded = None, False
+    _loss_scale_val, _good_steps = None, 0
+    _seen_indices, _step_clean = set(), True
+
+
 def set_plan(spec):
     """Install a plan programmatically (a spec string, a FaultPlan, or
-    None); resets the visit counters and the stats."""
+    None); resets the visit counters, the stats, the guard's resolution
+    and its runtime state (loss scale, step tracking)."""
     global _plan, _plan_loaded
     with _lock:
         if spec is None or isinstance(spec, FaultPlan):
@@ -170,48 +233,268 @@ def set_plan(spec):
             if not _plan.entries:
                 _plan = None
         _plan_loaded = True
+        _reset_guard_state_locked()
     reset_stats()
 
 
 def reset():
-    """Forget the cached plan and re-read the environment on next use.
-    Tests that monkeypatch MXNET_* vars call this."""
+    """Forget the cached plan, guard and scale state and re-read the
+    environment on next use. Tests that monkeypatch MXNET_* vars call
+    this."""
     global _plan, _plan_loaded
     with _lock:
         _plan, _plan_loaded = None, False
+        _reset_guard_state_locked()
     reset_stats()
 
 
 def reset_stats():
     global _stats
     with _lock:
-        _stats = {"injected": {}}
+        _stats = _fresh_stats()
 
 
-def stats():
-    """Per-site counts of the faults that fired (``injected``)."""
-    with _lock:
-        return {"injected": dict(_stats["injected"])}
+def active():
+    """True when a fault plan is installed."""
+    return plan() is not None
 
 
-def inject(site):
-    """One injection point. Counts a visit to ``site``; when a plan
-    entry fires: ``raise`` → InjectedFault, ``hang`` → bounded sleep
-    then InjectedHang, ``stall`` → the same sleep and no exception.
-    No-op without an active plan."""
+def guard_policy():
+    """The resolved non-finite-guard policy: MXNET_NONFINITE_GUARD when
+    set (``off`` disables), else ``skip_step`` when the active plan has
+    a ``grad`` site, else None."""
+    global _guard, _guard_loaded
+    if not _guard_loaded:
+        env = envs.get_str("MXNET_NONFINITE_GUARD")
+        if env and env != "off":
+            if env not in _GUARD_POLICIES:
+                raise MXNetError("MXNET_NONFINITE_GUARD=%r (want %s|off)"
+                                 % (env, "|".join(_GUARD_POLICIES)))
+            resolved = env
+        elif env == "off":
+            resolved = None
+        else:
+            p = plan()
+            resolved = "skip_step" if p is not None and p.has_site("grad") \
+                else None
+        with _lock:
+            _guard, _guard_loaded = resolved, True
+    return _guard
+
+
+def is_enabled():
+    """Cheap hot-path check: a plan or a guard policy is on."""
+    return active() or guard_policy() is not None
+
+
+# ---------------------------------------------------------------------------
+# injection
+# ---------------------------------------------------------------------------
+
+def _hang_seconds():
+    return envs.get_float("MXNET_FAULT_HANG_SECONDS")
+
+
+def _corrupt(value, kind):
+    """A poisoned COPY of ``value`` (an NDArray or a tensor): the
+    caller's buffer is never touched."""
+    bad = float("nan") if kind == "nan" else float("inf")
+    data = getattr(value, "_data", None)
+    if data is not None:
+        from .ndarray import NDArray
+        return NDArray(data.detach().clone().fill_(bad))
+    return value.detach().clone().fill_(bad)
+
+
+def _visit_site(site):
+    """Count one visit to ``site``; return the corruption entry firing
+    on this visit or None. ``raise``/``hang``/``stall`` act here."""
     p = plan()
     if p is None:
-        return
+        return None
     with _lock:
         entry = p.visit(site)
         if entry is not None:
             _stats["injected"][site] = _stats["injected"].get(site, 0) + 1
     if entry is None:
-        return
+        return None
     if entry.action == "raise":
         raise InjectedFault("planned fault at site %r (%r)" % (site, entry))
-    hang = envs.get_float("MXNET_FAULT_HANG_SECONDS")
-    time.sleep(hang)
-    if entry.action == "hang":
-        raise InjectedHang("planned hang at site %r (%r): blocked %.3fs"
-                           % (site, entry, hang))
+    if entry.action in ("hang", "stall"):
+        hang = _hang_seconds()
+        time.sleep(hang)
+        if entry.action == "hang":
+            raise InjectedHang("planned hang at site %r (%r): blocked %.3fs"
+                               % (site, entry, hang))
+        return None
+    return entry
+
+
+def inject(site, value=None):
+    """One injection point. Counts a visit to ``site``; when a plan
+    entry fires: ``raise`` → InjectedFault, ``hang`` → bounded sleep
+    then InjectedHang, ``stall`` → the same sleep and no exception,
+    ``nan``/``inf`` → a corrupted copy of ``value``. Returns ``value``
+    (possibly corrupted); a no-op without an active plan."""
+    entry = _visit_site(site)
+    if entry is not None and value is not None:
+        return _corrupt(value, entry.action)
+    return value
+
+
+def grad_poison():
+    """The fused step's ``grad`` site: counts ONE visit (once per
+    parameter per step, the eager updater's visit order) and returns
+    the poison the graph splices over that parameter's gradient: 0.0
+    when nothing fires, nan/inf when a corruption entry does."""
+    entry = _visit_site("grad")
+    if entry is None:
+        return 0.0
+    return float("nan") if entry.action == "nan" else float("inf")
+
+
+# ---------------------------------------------------------------------------
+# non-finite gradient guard
+# ---------------------------------------------------------------------------
+
+def _all_finite(grad):
+    import torch
+    data = getattr(grad, "_data", grad)
+    return bool(torch.isfinite(data).all())
+
+
+def loss_scale():
+    """The current dynamic loss scale under ``scale_backoff``; 1.0 when
+    that policy is off. The training loop multiplies the loss by it
+    before backward; ``gluon.Trainer.step`` divides it back out."""
+    global _loss_scale_val
+    if guard_policy() != "scale_backoff":
+        return 1.0
+    if _loss_scale_val is None:
+        _loss_scale_val = envs.get_float("MXNET_LOSS_SCALE")
+    return _loss_scale_val
+
+
+def _emit_scale_record(prev, cur, cause):
+    """One ``loss_scale`` telemetry record per scale change: the
+    trajectory ``tools.diagnose`` renders."""
+    from . import telemetry
+    telemetry.external_record({"type": "loss_scale", "prev": prev,
+                               "scale": cur, "cause": cause})
+
+
+def _backoff_scale():
+    global _loss_scale_val, _good_steps
+    prev = loss_scale()
+    _loss_scale_val = max(prev * 0.5, 1.0)
+    _good_steps = 0
+    if _loss_scale_val != prev:
+        _emit_scale_record(prev, _loss_scale_val, "backoff")
+    return prev, _loss_scale_val
+
+
+def _close_step():
+    """End-of-step accounting: a clean step advances the regrow window
+    (scale_backoff); a bad step already halved."""
+    global _loss_scale_val, _good_steps
+    if guard_policy() != "scale_backoff" or not _step_clean:
+        return
+    _good_steps += 1
+    if _good_steps >= envs.get_int("MXNET_LOSS_SCALE_WINDOW"):
+        prev = loss_scale()
+        _loss_scale_val = min(prev * 2.0, _LOSS_SCALE_MAX)
+        _good_steps = 0
+        if _loss_scale_val != prev:
+            _emit_scale_record(prev, _loss_scale_val, "regrow")
+
+
+def _note_step_boundary(index):
+    global _seen_indices, _step_clean
+    if index in _seen_indices:
+        _close_step()
+        _seen_indices = set()
+        _step_clean = True
+    _seen_indices.add(index)
+
+
+def _count_skip(policy, where):
+    with _lock:
+        _stats["skipped_steps"] += 1
+    from . import telemetry
+    telemetry.note("skipped_steps")
+    if policy == "scale_backoff":
+        prev, cur = _backoff_scale()
+        logging.warning("fault: non-finite gradient %s — update dropped, "
+                        "loss scale %g -> %g", where, prev, cur)
+    else:
+        logging.warning("fault: non-finite gradient %s — update dropped "
+                        "(policy=skip_step)", where)
+
+
+def filter_gradient(index, grad):
+    """The eager updater's guard: apply a planned ``grad`` fault, then
+    test finiteness under the active policy. Returns ``(grad, skip)``;
+    ``skip=True`` drops this parameter's update. ``skipped_steps`` and
+    the scale_backoff halving advance once per optimizer step, however
+    many of its gradients overflowed."""
+    global _step_clean
+    grad = inject("grad", value=grad)
+    policy = guard_policy()
+    if policy is None:
+        return grad, False
+    _note_step_boundary(index)
+    if _all_finite(grad):
+        return grad, False
+    first_bad = _step_clean
+    _step_clean = False
+    if first_bad:
+        _count_skip(policy, "for index %s" % (index,))
+    return grad, True
+
+
+def fused_step_guard(all_finite):
+    """The fused step's guard accounting: the skip itself happened
+    inside the graph (a ``torch.where`` kept the old weight and state
+    of every non-finite gradient); this is :func:`filter_gradient`'s
+    host bookkeeping, one count and one halving per bad step, a regrow
+    window tick per clean one. No-op without a guard policy."""
+    global _step_clean
+    policy = guard_policy()
+    if policy is None:
+        return
+    if all_finite:
+        _step_clean = True
+        _close_step()
+        return
+    _step_clean = False
+    _count_skip(policy, "inside the fused step")
+
+
+def note_resume(epoch, skipped_epochs=0):
+    """Record a checkpoint resume. ``skipped_epochs`` counts newer
+    epochs the scan rejected (torn or corrupt) before settling on
+    ``epoch``: a rollback resume loses their steps."""
+    skipped_epochs = int(skipped_epochs)
+    with _lock:
+        _stats["resumed_from_epoch"] = epoch
+        if skipped_epochs > 0:
+            _stats["rollback_resumes"] += 1
+            _stats["rollback_epochs"] += skipped_epochs
+        else:
+            _stats["clean_resumes"] += 1
+    if skipped_epochs > 0:
+        from . import telemetry
+        telemetry.note("resume_rollback_epochs", skipped_epochs)
+        telemetry.note("resume_next_epoch", int(epoch) + 1)
+
+
+def stats():
+    """Resilience counters: skipped_steps, retries, timeouts, per-site
+    injected counts, the resume record, the loss scale and the guard
+    policy."""
+    with _lock:
+        out = dict(_stats)
+        out["injected"] = dict(_stats["injected"])
+    out["loss_scale"] = loss_scale()
+    out["guard_policy"] = guard_policy()
+    return out

@@ -2,22 +2,36 @@
 ``mxnet_tpu/gluon/trainer.py``).
 
 ``step(batch_size)`` rescales the gradients by ``1/batch_size`` (times
-``rescale_grad``), reduces them across workers (a no-op on one device)
-and applies the optimizer, parameter by parameter, in place. A
-parameter whose gradient no backward wrote since the last step is
-stale: ``step`` raises unless ``ignore_stale_grad=True``, which skips
-it. The kvstore kinds that span devices or processes (``dist*``,
-``tpu*``) raise NotImplementedError until the parallel layer is ported
-(ROADMAP queue A item 12); a fused all-parameter update is a later PR.
+``rescale_grad``, and divided by the loss scale under the
+``scale_backoff`` guard: the caller multiplies the loss by
+``fault.loss_scale()`` before backward), reduces them across workers (a
+no-op on one device) and applies the optimizer. A parameter whose
+gradient no backward wrote since the last step is stale: ``step``
+raises unless ``ignore_stale_grad=True``, which skips it.
+
+**The fused update** (``fused_step.py``, on unless
+``MXNET_FUSED_STEP=0``): every parameter's update runs as ONE CUDA
+graph replay (:class:`~mxnet_tpu_torch.fused_step.FusedUpdater`) over
+the gradients autograd wrote into their buffers in place, bit-identical
+to the per-parameter loop. An optimizer without a fused update runs the
+loop, counted in ``profiler.counters()['fused_step_fallbacks']``.
+``multi_precision=True`` keeps fp32 masters for bfloat16/float16
+weights (``amp.DtypePolicy(...).apply(net)``).
+
+``save_states``/``load_states`` write and read the optimizer state in
+the JAX package's pickle, durably (``checkpoint.atomic_write_file``; the
+shared background writer with ``background=True``).
+
+The kvstore kinds that span devices or processes (``dist*``, ``tpu*``)
+raise NotImplementedError until the parallel layer is ported (ROADMAP
+queue A item 12).
 
 Telemetry, as in the JAX Trainer: each ``step``/``update`` is one step
 boundary of the telemetry run (``telemetry.maybe_start`` starts one
 from the environment; tick mode, the step spans from the previous
-call), with the parameter update under the ``optimizer`` phase. The
-JAX Trainer times the cross-worker reduce under ``sync`` only when it
-has a kvstore, which one device never has, so the ``sync`` phase comes
-with the multi-device kvstore. Each step also ticks the usage meter's
-training account (``metering.training_step``).
+call), with the parameter update under the ``optimizer`` phase. Each
+step also ticks the usage meter's training account
+(``metering.training_step``).
 """
 from __future__ import annotations
 
@@ -70,7 +84,8 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, param_dict=roster,
                                          **opts)
-        self._updater = opt.get_updater(self._optimizer)
+        self._updaters = [opt.get_updater(self._optimizer)]
+        self._fused_updater = None
 
     @property
     def learning_rate(self):
@@ -89,11 +104,20 @@ class Trainer:
         """Cross-worker gradient reduction (reference: trainer.py:331):
         nothing to reduce on one device."""
 
+    def _step_rescale(self, batch_size):
+        """``rescale_grad / batch_size``, divided by the loss scale under
+        the scale_backoff guard."""
+        from .. import fault
+        scale = self._scale / batch_size
+        if fault.guard_policy() == "scale_backoff":
+            scale /= fault.loss_scale()
+        self._optimizer.rescale_grad = scale
+
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce + update, rescaled by batch size
         (reference: trainer.py:302)."""
         telemetry.maybe_start(meta={"source": "gluon.Trainer"})
-        self._optimizer.rescale_grad = self._scale / batch_size
+        self._step_rescale(batch_size)
         self.allreduce_grads()
         self._update_step(batch_size, ignore_stale_grad)
 
@@ -101,16 +125,33 @@ class Trainer:
         """Update only — the caller already ran allreduce_grads
         (reference: trainer.py:363)."""
         telemetry.maybe_start(meta={"source": "gluon.Trainer"})
-        self._optimizer.rescale_grad = self._scale / batch_size
+        self._step_rescale(batch_size)
         self._update_step(batch_size, ignore_stale_grad)
 
     def _update_step(self, batch_size, ignore_stale_grad):
         with telemetry.span("optimizer"):
-            self._apply_updates(ignore_stale_grad)
+            fused = self._apply_updates(ignore_stale_grad)
         telemetry.step_tick(samples=batch_size)
-        metering.training_step()
+        if not fused:
+            # a fused update ticks the meter itself
+            metering.training_step()
+
+    def _get_fused(self):
+        """The FusedUpdater over this Trainer's optimizer and Updater;
+        None with ``MXNET_FUSED_STEP=0``."""
+        from ..fused_step import FusedUpdater, fused_step_enabled
+        if not fused_step_enabled():
+            return None
+        fused = self._fused_updater
+        if fused is None or fused._opt is not self._optimizer \
+                or fused._updater is not self._updaters[0]:
+            fused = self._fused_updater = FusedUpdater(self._optimizer,
+                                                       self._updaters[0])
+        return fused
 
     def _apply_updates(self, ignore_stale_grad):
+        """The step's updates; True when the fused update ran them."""
+        work = []
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or param._data is None:
                 continue
@@ -127,5 +168,43 @@ class Trainer:
                         "Parameters with stale gradient"
                         % (param.name, str(param.list_ctx()[0])))
                 continue
-            self._updater(i, param.grad(), param.data())
+            work.append((i, param))
+        fused_done = False
+        if work:
+            fused = self._get_fused()
+            if fused is not None:
+                fused_done = fused.update(
+                    [(i, p.data(), p.grad()) for i, p in work])
+        for i, param in work:
+            if not fused_done:
+                self._updaters[0](i, param.grad(), param.data())
             param._data._fresh_grad = False
+        return fused_done
+
+    # -- optimizer-state checkpointing ------------------------------------
+    def save_states(self, fname, background=False):
+        """Durably write the optimizer state (tmp + fsync + rename through
+        ``checkpoint.atomic_write_file``, fault-injectable at
+        ``ckpt_write``/``ckpt_fsync``). The pickle is taken here, on the
+        calling thread; ``background=True`` hands the write to the
+        shared checkpoint writer (``checkpoint.flush_async_writes()``
+        waits for it and raises on a failed write)."""
+        from .. import checkpoint as ckpt
+        payload = self._updaters[0].get_states(dump_optimizer=True)
+        if background:
+            ckpt.write_bytes_async(fname, payload)
+        else:
+            ckpt.atomic_write_file(fname, payload)
+
+    def load_states(self, fname):
+        """States written by either package's ``save_states``; the
+        optimizer comes with them, its ``param_dict`` reset to this
+        Trainer's parameters."""
+        with open(fname, "rb") as src:
+            blob = src.read()
+        for updater in self._updaters:
+            updater.set_states(blob)
+            updater.optimizer = self._updaters[0].optimizer
+        self._optimizer = self._updaters[0].optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
+        self._fused_updater = None

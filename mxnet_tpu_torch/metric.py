@@ -32,7 +32,10 @@ def register(klass):
 
 
 def _host(x):
-    """Fetch to host numpy (NDArray or array-like)."""
+    """Fetch to host numpy (NDArray or array-like); a bfloat16 array,
+    which numpy cannot hold, comes back as its float32 values."""
+    if str(getattr(x, "dtype", "")) == "bfloat16":
+        x = x.astype("float32")
     asnumpy = getattr(x, "asnumpy", None)
     return asnumpy() if asnumpy is not None else numpy.asarray(x)
 

@@ -25,7 +25,7 @@ from . import symbol as sym
 
 __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
            "load_params", "list_checkpoint_epochs",
-           "load_latest_valid_checkpoint"]
+           "load_latest_valid_checkpoint", "latest_checkpoint_scan"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -107,17 +107,44 @@ def list_checkpoint_epochs(prefix):
                    for m in [pat.match(f)] if m})
 
 
-def load_latest_valid_checkpoint(prefix):
-    """``(epoch, arg_params, aux_params)`` of the newest epoch under
-    ``prefix`` that loads cleanly; a torn or partial epoch is skipped
-    with a warning. None when nothing usable exists. (An optimizer-state
-    sibling is not read: its format is the JAX package's pickle, ROADMAP
-    queue A item 10.)"""
-    for epoch in reversed(list_checkpoint_epochs(prefix)):
+def _validate_sibling_states(prefix, epoch):
+    """A corrupt optimizer-state sibling rejects its epoch (resuming with
+    fresh optimizer state is a different trajectory, not a resume). A
+    missing one is fine. A manifest epoch checksums its states file in
+    the load itself; a single-file epoch's is parsed here."""
+    from . import checkpoint as ckpt
+    from .optimizer._pickle import loads
+    if ckpt.load_manifest(prefix, epoch) is not None:
+        return
+    states_file = "%s-%04d.states" % (prefix, epoch)
+    if not os.path.isfile(states_file):
+        return
+    with open(states_file, "rb") as src:
+        loads(src.read())
+
+
+def latest_checkpoint_scan(prefix):
+    """``(epoch, arg_params, aux_params, skipped_epochs)`` of the newest
+    epoch under ``prefix`` that loads cleanly; ``skipped_epochs`` counts
+    the newer epochs rejected as torn or corrupt (their steps are lost
+    work). None when nothing usable exists."""
+    epochs = list_checkpoint_epochs(prefix)
+    for pos, epoch in enumerate(reversed(epochs)):
         try:
-            return (epoch,) + load_params(prefix, epoch)
-        except Exception as exc:
+            _validate_sibling_states(prefix, epoch)
+            arg_params, aux_params = load_params(prefix, epoch)
+            return (epoch, arg_params, aux_params, pos)
+        except Exception as exc:                   # noqa: BLE001
             logging.warning("skipping corrupt/partial checkpoint %s-%04d "
                             "(%s: %s)", prefix, epoch, type(exc).__name__,
                             exc)
     return None
+
+
+def load_latest_valid_checkpoint(prefix):
+    """``(epoch, arg_params, aux_params)`` of the newest epoch under
+    ``prefix`` that loads cleanly, its optimizer-state sibling included;
+    a torn or partial epoch is skipped with a warning. None when nothing
+    usable exists."""
+    found = latest_checkpoint_scan(prefix)
+    return None if found is None else found[:3]

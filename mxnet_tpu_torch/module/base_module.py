@@ -4,9 +4,14 @@ base_module.py:409).
 
 ``fit`` consumes ``train_data`` directly, as the JAX package does under
 ``MXNET_DATA_PIPELINE=0``: the async input pipeline (``io/pipeline.py``)
-is not ported yet. Epoch checkpoints (``checkpoint_prefix=``) and
-resuming (``resume_from_checkpoint=``) need the manifest writer and the
-optimizer-state format (ROADMAP queue A item 10) and raise.
+is not ported yet. ``checkpoint_prefix`` saves an epoch checkpoint every
+``checkpoint_period`` epochs through ``checkpoint.CheckpointManager``
+(the background writer unless ``MXNET_ASYNC_CHECKPOINT=0``), optimizer
+state included; ``resume_from_checkpoint=True`` (or a prefix) scans the
+prefix for the newest epoch whose files check out, loads its parameters
+and optimizer state and continues from the next epoch, rolling past a
+torn or corrupt epoch (``fault.note_resume``). The steps the
+non-finite guard skipped are reported at the end.
 """
 from __future__ import annotations
 
@@ -70,12 +75,6 @@ def _output_pad(eval_batch, out, pad):
 
 def _as_list(obj):
     return obj if isinstance(obj, (list, tuple)) else [obj]
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        "%s needs the checkpoint writer and the optimizer-state format, "
-        "not ported yet (ROADMAP queue A item 10)" % what)
 
 
 class BaseModule:
@@ -183,6 +182,54 @@ class BaseModule:
             return merged[0]
         return merged
 
+    def _resume_point(self, resume_from_checkpoint, checkpoint_prefix):
+        """fit's resume: the newest epoch under the prefix whose files
+        load cleanly (torn or corrupt ones are skipped with a warning),
+        as ``(next_epoch, arg_params, aux_params)``; None when nothing
+        usable exists."""
+        from ..model import latest_checkpoint_scan
+        from .. import fault
+        prefix = resume_from_checkpoint \
+            if isinstance(resume_from_checkpoint, str) else checkpoint_prefix
+        if not prefix:
+            raise ValueError(
+                'resume_from_checkpoint needs a prefix: pass '
+                'checkpoint_prefix=... or resume_from_checkpoint="<prefix>"')
+        found = latest_checkpoint_scan(prefix)
+        if found is None:
+            self.logger.info("fit: no usable checkpoint under %s; starting "
+                             "fresh", prefix)
+            return None
+        epoch, args, auxs, skipped = found
+        self._stage_resume_opt_states("%s-%04d.states" % (prefix, epoch))
+        fault.note_resume(epoch, skipped_epochs=skipped)
+        if skipped:
+            self.logger.warning("fit: rolled back past %d corrupt newer "
+                                "epoch(s); their steps are lost work "
+                                "(fault.stats())", skipped)
+        self.logger.info("fit: resuming from checkpoint %s-%04d.params at "
+                         "epoch %d", prefix, epoch, epoch + 1)
+        return (epoch + 1, args, auxs)
+
+    def _stage_resume_opt_states(self, states_file):
+        """Stage the epoch's optimizer-state file for ``init_optimizer``;
+        a missing or corrupt file downgrades to a params-only resume,
+        with a warning."""
+        import os
+        from ..optimizer._pickle import loads
+        if not hasattr(self, "_preload_opt_states") \
+                or not os.path.isfile(states_file):
+            return
+        try:
+            with open(states_file, "rb") as src:
+                loads(src.read())
+        except Exception as exc:                   # noqa: BLE001
+            self.logger.warning("fit: optimizer states %s are corrupt "
+                                "(%s: %s); resuming with params only",
+                                states_file, type(exc).__name__, exc)
+            return
+        self._preload_opt_states = states_file
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", optimizer="sgd",
@@ -200,18 +247,26 @@ class BaseModule:
         ``eval_data``. With a telemetry run (``MXNET_TELEMETRY``/
         ``MXNET_TELEMETRY_FILE``, or one already started) each batch is
         a step record with its data_wait, compute and optimizer
-        phases."""
-        from .. import telemetry
+        phases. ``checkpoint_prefix``/``resume_from_checkpoint``/
+        ``checkpoint_period``: see the module docstring."""
+        from .. import fault, telemetry
         assert num_epoch is not None, "please specify number of epochs"
-        if checkpoint_prefix is not None:
-            _not_ported("fit(checkpoint_prefix=)")
-        if resume_from_checkpoint:
-            _not_ported("fit(resume_from_checkpoint=)")
         owns_telemetry = telemetry.maybe_start(
             meta={"source": "Module.fit", "begin_epoch": begin_epoch,
                   "num_epoch": num_epoch})
+        # stats are process-global: report only this fit's guard skips
+        skipped_at_entry = fault.stats()["skipped_steps"] \
+            if fault.is_enabled() else 0
         batch_samples = getattr(train_data, "batch_size", None) or None
+        ckpt_mgr = None
         try:
+            if resume_from_checkpoint:
+                resumed = self._resume_point(resume_from_checkpoint,
+                                             checkpoint_prefix)
+                if resumed is not None:
+                    resume_epoch, arg_params, aux_params = resumed
+                    begin_epoch = max(begin_epoch, resume_epoch)
+                    force_init = True
             self.bind(data_shapes=train_data.provide_data,
                       label_shapes=train_data.provide_label,
                       for_training=True, force_rebind=force_rebind)
@@ -274,6 +329,17 @@ class BaseModule:
                                  time.time() - tic)
                 arg_params, aux_params = self.get_params()
                 self.set_params(arg_params, aux_params)
+                if checkpoint_prefix is not None and \
+                        (epoch + 1) % max(checkpoint_period, 1) == 0:
+                    if ckpt_mgr is None:
+                        from ..checkpoint import CheckpointManager
+                        ckpt_mgr = CheckpointManager(
+                            checkpoint_prefix, symbol=self.symbol,
+                            logger=self.logger)
+                    to_bytes = getattr(self, "_optimizer_state_bytes", None)
+                    states = to_bytes() if to_bytes is not None else None
+                    ckpt_mgr.save(epoch, arg_params, aux_params,
+                                  states_bytes=states)
                 if epoch_end_callback is not None:
                     for callback in _as_list(epoch_end_callback):
                         callback(epoch, self.symbol, arg_params, aux_params)
@@ -288,7 +354,18 @@ class BaseModule:
                         self.logger.info("Epoch[%d] Validation-%s=%f",
                                          epoch, name, val)
                 train_data.reset()
+            if fault.is_enabled():
+                skipped = fault.stats()["skipped_steps"] - skipped_at_entry
+                if skipped:
+                    self.logger.warning(
+                        "fit: %d optimizer step(s) skipped by the "
+                        "non-finite gradient guard (fault.stats())",
+                        skipped)
         finally:
+            if ckpt_mgr is not None:
+                # drain in-flight saves: a resume scan right after fit()
+                # sees the final epoch
+                ckpt_mgr.close()
             if owns_telemetry:
                 telemetry.stop()
 

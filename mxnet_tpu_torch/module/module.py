@@ -4,37 +4,48 @@
 ``bind`` infers every shape from the data and label shapes and binds
 the symbol through :class:`~mxnet_tpu_torch.executor.Executor` on one
 device (``gpu(0)`` unless the module's context says otherwise).
-``forward(is_train=True)`` runs the training forward under torch
-autograd and ``backward`` its gradients; ``forward(is_train=False)`` is
-the executor's predict run (a CUDA graph per input signature on the
-card). ``update`` is the per-parameter ``Updater`` loop, in place (the
-JAX package's fused step is bit-exact with that loop; the port's fused
-step waits for ROADMAP queue A item 10). Parameters are written into
-the bound arrays in place (``set_params``/``init_params``), so the
-predict graph keeps replaying.
+``forward(is_train=False)`` is the executor's predict run (a CUDA graph
+per input signature on the card). Parameters are written into the bound
+arrays in place (``set_params``/``init_params``; a value of another
+float dtype, an AMP policy's bfloat16 weight, is adopted), so the
+graphs keep replaying.
+
+**The fused step** (``fused_step.py``), on by default as in the JAX
+package: a training ``forward`` only stages the batch, ``backward``
+defers, and ``update`` runs forward + backward + every parameter's
+update as ONE CUDA graph replay (:class:`~mxnet_tpu_torch.fused_step.
+FusedStepExecutor`), bit-identical to the eager path. Observing the
+step before ``update`` (``get_outputs``, another ``forward``) runs the
+eager forward and backward for that step instead. The eager path (the
+executor's training forward under torch autograd, then the
+per-parameter ``Updater`` loop) runs with ``MXNET_FUSED_STEP=0`` and
+for JAX's fallback matrix, each case counted in
+``profiler.counters()['fused_step_fallbacks']``: an optimizer without a
+fused update (counted once), a monitor, ``inputs_need_grad``,
+``grad_req='add'`` and a placed executor (counted per step).
+
+Checkpoints go through ``checkpoint.save_arrays`` (checksummed shards
+plus a manifest; shard 0 is the single-file ``.params`` both packages
+read) with the optimizer state as a ``.states`` sibling in the JAX
+package's pickle (``save_optimizer_states``/``load_optimizer_states``,
+``Module.load(load_optimizer_states=True)``).
 
 ``group2ctxs`` places the symbol's ``ctx_group`` segments on their
 devices (:mod:`~mxnet_tpu_torch.placement`).
 
-Not ported: a multi-device context list and the kvstore (item 12),
-``save_optimizer_states`` /
-``load_optimizer_states`` (item 10; the JAX package pickles its own
-NDArray classes, which the port cannot read).
+Not ported: a multi-device context list and the kvstore (item 12).
 """
 from __future__ import annotations
 
 import logging
 
-import torch
-
 from .. import ndarray as nd
 from ..context import Context, current_context
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt
-from ..model import (_create_kvstore, _update_params, load_checkpoint,
-                     save_checkpoint)
-from .base_module import (BaseModule, _check_input_names, _not_ported,
-                          _parse_data_desc)
+from ..model import _create_kvstore, _update_params, load_checkpoint
+from ..base import MXNetError
+from .base_module import BaseModule, _check_input_names, _parse_data_desc
 
 __all__ = ["Module"]
 
@@ -78,32 +89,46 @@ class Module(BaseModule):
         self._params_dirty = False
         self._group2ctxs = group2ctxs
         self._optimizer = self._kvstore = self._updater = None
+        self._preload_opt_states = None
         self._exec = None
+        self._fused = None            # FusedStepExecutor | False | None
+        self._pending_step = False
+        self._pending_forward = False
+        self._noted_monitor_eager = False
 
     # -- checkpointing -----------------------------------------------------
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
         """A module over ``prefix-symbol.json`` with the parameters of
         ``epoch`` (a manifest checkpoint or the single file), set at
-        ``bind``."""
-        if load_optimizer_states:
-            _not_ported("Module.load(load_optimizer_states=True)")
+        ``bind``; with ``load_optimizer_states`` the ``.states`` sibling
+        loads at ``init_optimizer``."""
         sym, args, auxs = load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params, mod._aux_params = args, auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
                         remove_amp_cast=True):
-        """``prefix-symbol.json`` and the single-file
-        ``prefix-%04d.params`` (``model.save_checkpoint``), which both
-        packages load; the manifest writer waits for ROADMAP queue A
-        item 10."""
-        if save_optimizer_states:
-            _not_ported("save_checkpoint(save_optimizer_states=True)")
-        arg_params, aux_params = self.get_params()
-        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
+        """``prefix-symbol.json`` and one durable checkpoint through
+        ``checkpoint.save_arrays``: checksummed shards (shard 0 is the
+        single-file ``prefix-%04d.params``) and a manifest written last,
+        the optimizer state's ``.states`` file beside them."""
+        from .. import telemetry
+        from ..checkpoint import save_arrays, snapshot_params
+        with telemetry.span("checkpoint"):
+            self._symbol.save("%s-symbol.json" % prefix)
+            arg_params, aux_params = self.get_params()
+            states = None
+            if save_optimizer_states:
+                assert self.optimizer_initialized
+                states = self._optimizer_state_bytes()
+            save_arrays(prefix, epoch, snapshot_params(arg_params,
+                                                       aux_params),
+                        states_bytes=states)
         logging.info('Saved checkpoint to "%s-%04d.params"', prefix, epoch)
 
     # -- properties --------------------------------------------------------
@@ -149,10 +174,7 @@ class Module(BaseModule):
         """One bound array: the provided value copied in place, else the
         initializer keyed by the symbol's attributes."""
         if provided is not None and name in provided:
-            src = provided[name]
-            if src is not dst:
-                with torch.no_grad():
-                    dst._data.copy_(src._data)
+            self._exec.adopt_value(name, provided[name])
             return
         if initializer is None:
             if not allow_missing:
@@ -217,6 +239,8 @@ class Module(BaseModule):
              shared_module=None, grad_req="write"):
         if force_rebind:
             self._exec = None
+            self._fused = None
+            self._pending_step = False
             self.binded = False
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
@@ -304,29 +328,132 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._updater = opt.get_updater(optimizer)
+        self._fused = None
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- computation -------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
+        if self._pending_step:
+            # a deferred fused step is outstanding and this forward would
+            # overwrite its staged inputs: run its eager forward and
+            # backward now, so update() sees that batch's gradients
+            self._exec.forward_backward(is_train=True)
+            self._pending_step = False
         if is_train is None:
             is_train = self.for_training
         feed = dict(zip(self._data_names, data_batch.data))
         if self._label_names and data_batch.label:
             feed.update(zip(self._label_names, data_batch.label))
-        self._exec.forward(is_train=is_train, **feed)
+        monitored = self._exec._monitor_callback is not None and \
+            self._exec._monitor_all
+        if is_train and self.for_training and not monitored:
+            # defer: backward() decides between the fused step and the
+            # eager forward + backward; only stage the inputs here
+            self._exec._gather_inputs(feed)
+            self._pending_forward = True
+        else:
+            self._exec.forward(is_train=is_train, **feed)
+            self._pending_forward = False
 
     def backward(self, out_grads=None):
+        """Deferred under the fused step: the gradients are consumed
+        inside ``update()``'s graph and never land in the executor's
+        gradient arrays. Set ``MXNET_FUSED_STEP=0`` to inspect them."""
         assert self.binded and self.params_initialized
-        self._exec.backward(out_grads=out_grads)
+        if out_grads is None and self._pending_forward \
+                and self._fused_eligible(count=True):
+            self._pending_step = True
+            self._params_dirty = True
+            return
+        if self._pending_forward:
+            self._exec.forward_backward(out_grads=out_grads, is_train=True)
+        else:
+            self._exec.backward(out_grads=out_grads)
+        self._pending_forward = False
+        self._pending_step = False
         self._params_dirty = True
 
+    def _fused_eligible(self, count=False):
+        """Whether this step can take the fused step; with ``count``, a
+        step that JAX's fallback matrix sends to the eager path while the
+        gate is on is counted in ``fused_step_fallbacks``."""
+        from ..fused_step import fused_step_enabled
+        if not self.optimizer_initialized or self._updater is None \
+                or self._fused is False or not fused_step_enabled():
+            return False
+        ex = self._exec
+        reason = None
+        if self._kvstore is not None:
+            reason = "kvstore"
+        elif self.inputs_need_grad:
+            reason = "inputs_need_grad"
+        elif ex.grouped:
+            reason = "placement"
+        elif ex._monitor_callback is not None:
+            reason = "monitor"
+        elif any(ex._grad_req.get(n) == "add" for n in ex.arg_names):
+            reason = "grad_req_add"
+        if reason is None:
+            return True
+        if count:
+            from .. import profiler, telemetry
+            profiler.increment_counter("fused_step_fallbacks")
+            if reason == "monitor" and telemetry.enabled() \
+                    and not self._noted_monitor_eager:
+                self._noted_monitor_eager = True
+                telemetry.note("fused_step_eager_monitor")
+        return False
+
+    def _get_fused(self):
+        """The FusedStepExecutor of the current executor and optimizer;
+        None (cached as False, counted once) when the optimizer or its
+        state layout has no fused update."""
+        from ..fused_step import FusedStepExecutor
+        fused = self._fused
+        if fused is not None and fused is not False \
+                and fused._ex is self._exec \
+                and fused._opt is self._optimizer \
+                and fused._updater is self._updater:
+            return fused
+        try:
+            fused = FusedStepExecutor(self._exec, self._optimizer,
+                                      self._updater, self._param_names)
+            weights = [self._exec.arg_dict[self._param_names[i]]
+                       for i in fused._indices]
+            ok = fused.step_fns(fused._indices, weights) is not None \
+                and fused._states_for(fused._indices,
+                                      weights)[0] is not None
+        except MXNetError:
+            ok = False
+        if not ok:
+            from .. import profiler
+            profiler.increment_counter("fused_step_fallbacks")
+            self._fused = False
+            return None
+        self._fused = fused
+        return fused
+
     def update(self):
-        """One optimizer step over every parameter with a gradient."""
+        """One optimizer step: the fused step's graph replay when the
+        step was deferred, else the per-parameter loop."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         from .. import telemetry
         self._params_dirty = True
+        if self._pending_step:
+            self._pending_step = False
+            fused = self._get_fused()
+            if fused is not None:
+                fused.step()          # spans "optimizer" itself
+                self._pending_forward = False
+                return
+            with telemetry.span("compute"):
+                self._exec.forward_backward(is_train=True)
+            self._pending_forward = False
         with telemetry.span("optimizer"):
             _update_params([self._exec.arg_dict[n] for n in self._param_names],
                            [self._exec.grad_dict.get(n)
@@ -335,6 +462,16 @@ class Module(BaseModule):
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
+        if self._pending_step:
+            # observed between backward() and update(): run the eager
+            # forward and backward for this step; update() then takes
+            # the eager loop
+            self._exec.forward_backward(is_train=True)
+            self._pending_step = False
+            self._pending_forward = False
+        elif self._pending_forward:
+            self._exec.forward(is_train=True)
+            self._pending_forward = False
         return self._exec.outputs
 
     def get_input_grads(self, merge_multi_context=True):
@@ -361,11 +498,28 @@ class Module(BaseModule):
         assert self.binded
         mon.install(self._exec)
 
+    # -- optimizer state ---------------------------------------------------
+    def _optimizer_state_bytes(self):
+        """The optimizer state's pickle for a checkpoint (taken on the
+        training thread: the states change in place each step); None
+        before ``init_optimizer``."""
+        if not self.optimizer_initialized or self._updater is None:
+            return None
+        return self._updater.get_states()
+
     def save_optimizer_states(self, fname):
-        _not_ported("Module.save_optimizer_states")
+        """The optimizer state, durably (tmp + fsync + rename), in the
+        JAX package's pickle."""
+        assert self.optimizer_initialized
+        from ..checkpoint import atomic_write_file
+        atomic_write_file(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
-        _not_ported("Module.load_optimizer_states")
+        """States written by :meth:`save_optimizer_states` of either
+        package."""
+        assert self.optimizer_initialized
+        with open(fname, "rb") as src:
+            self._updater.set_states(src.read())
 
     def reshape(self, data_shapes, label_shapes=None):
         """Rebind to new input shapes, sharing the parameters."""
@@ -373,3 +527,5 @@ class Module(BaseModule):
         self._data_shapes, self._label_shapes = _parse_data_desc(
             self._data_names, self._label_names, data_shapes, label_shapes)
         self._exec = self._exec.reshape(**self._feed_shapes())
+        self._fused = None
+        self._pending_step = False

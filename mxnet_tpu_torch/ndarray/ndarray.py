@@ -371,6 +371,29 @@ class NDArray:
     def __hash__(self):
         return id(self)
 
+    # -- pickling (the JAX NDArray's state, so pickles cross packages) ----
+    def __getstate__(self):
+        """``{"data": numpy, "ctx": str}``, the JAX NDArray's pickled
+        state. numpy has no bfloat16: such an array is stored as float32
+        with ``"dtype": "bfloat16"``, which the port restores exactly
+        and the JAX package reads as its float32 value."""
+        data = self._data.detach()
+        state = {"ctx": str(self.context)}
+        if data.dtype == torch.bfloat16:
+            data = data.to(torch.float32)
+            state["dtype"] = "bfloat16"
+        state["data"] = data.to("cpu", copy=True).numpy()
+        return state
+
+    def __setstate__(self, state):
+        data = torch.from_numpy(np.array(state["data"], copy=True))
+        if state.get("dtype") == "bfloat16":
+            data = data.to(torch.bfloat16)
+        self._data = data.to(current_context().torch_device())
+        self.grad = None
+        self._grad_req = "null"
+        self._fresh_grad = False
+
 
 _RSCALAR = {"_minus_scalar": "_rminus_scalar", "_div_scalar": "_rdiv_scalar",
             "_power_scalar": "_rpower_scalar"}

@@ -3,7 +3,8 @@ what the Gluon training loop of this slice reaches; ``ROADMAP.md``
 queue A lists the rest."""
 from .registry import (OpDef, register, get_op, find_op, list_ops, invoke,
                        normalize_attrs)
-from . import elemwise, matrix, reduce, nn, indexing, attention  # noqa: F401
+from . import (elemwise, matrix, reduce, nn, indexing, attention,  # noqa: F401
+               optimizer_ops)
 
 __all__ = ["OpDef", "register", "get_op", "find_op", "list_ops", "invoke",
            "normalize_attrs"]

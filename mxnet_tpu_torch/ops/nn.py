@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from .registry import register
 
 _D = ("data",)
+_LOW = (torch.bfloat16, torch.float16)
 
 
 def _is_train(attrs):
@@ -37,11 +38,21 @@ def _tup(v, nd, default=1):
 
 
 def _fully_connected(attrs, data, weight, bias=None):
+    """``x W^T + b`` with the JAX package's dtype rule (``jnp.dot``):
+    the product runs in ``torch.promote_types`` of data and weight, and
+    a bias of another dtype promotes the sum again (a float32 input
+    meeting a bfloat16 weight computes in float32)."""
     x = data.reshape(data.shape[0], -1) if attrs.get("flatten", True) \
         else data
     if attrs.get("no_bias", False):
         bias = None
-    return F.linear(x, weight, bias)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    x, weight = x.to(dt), weight.to(dt)
+    if bias is None or (bias.dtype == dt == torch.float32):
+        return F.linear(x, weight, bias)
+    # low precision: the product rounds before the bias is added, as
+    # JAX's dot-then-add does (a fused bias would round once)
+    return F.linear(x, weight) + bias
 
 
 def _bias_args(names):
@@ -69,11 +80,36 @@ def _convolution(attrs, data, weight, bias=None):
     nd = len(tuple(attrs["kernel"]))
     if attrs.get("no_bias", False):
         bias = None
-    return _CONV[nd](data, weight, bias,
-                     stride=_tup(attrs.get("stride"), nd, 1),
-                     padding=_tup(attrs.get("pad"), nd, 0),
-                     dilation=_tup(attrs.get("dilate"), nd, 1),
-                     groups=int(attrs.get("num_group", 1)))
+    weight = _same_dtype("Convolution", data, weight)
+    out = _CONV[nd](data, weight,
+                    bias if bias is None or bias.dtype == data.dtype
+                    else None,
+                    stride=_tup(attrs.get("stride"), nd, 1),
+                    padding=_tup(attrs.get("pad"), nd, 0),
+                    dilation=_tup(attrs.get("dilate"), nd, 1),
+                    groups=int(attrs.get("num_group", 1)))
+    return _add_bias(out, bias, nd)
+
+
+def _same_dtype(name, data, weight):
+    """``lax.conv_general_dilated`` takes one dtype: mixed data and
+    weight raise, as in the JAX package. Shape inference (``meta``
+    tensors, whose variables carry no dtype yet) returns the weight in
+    the data's dtype instead."""
+    if data.dtype == weight.dtype:
+        return weight
+    if data.device.type == "meta":
+        return weight.to(data.dtype)
+    raise TypeError("%s requires data and weight of one dtype, got "
+                    "%s and %s" % (name, data.dtype, weight.dtype))
+
+
+def _add_bias(out, bias, nd):
+    """A bias of another dtype than the product, added after it with
+    promotion (the JAX package's ``out + bias``)."""
+    if bias is None or bias.dtype == out.dtype:
+        return out
+    return out + bias.reshape((1, -1) + (1,) * nd)
 
 
 register("Convolution", _convolution, arg_names=("data", "weight", "bias"),
@@ -105,12 +141,16 @@ def _deconvolution(attrs, data, weight, bias=None):
     nd = len(tuple(attrs["kernel"]))
     if attrs.get("no_bias", True):
         bias = None
-    return _CONV_T[nd](data, weight, bias,
-                       stride=_tup(attrs.get("stride"), nd, 1),
-                       padding=_tup(attrs.get("pad"), nd, 0),
-                       output_padding=_tup(attrs.get("adj"), nd, 0),
-                       groups=int(attrs.get("num_group", 1)),
-                       dilation=_tup(attrs.get("dilate"), nd, 1))
+    weight = _same_dtype("Deconvolution", data, weight)
+    out = _CONV_T[nd](data, weight,
+                      bias if bias is None or bias.dtype == data.dtype
+                      else None,
+                      stride=_tup(attrs.get("stride"), nd, 1),
+                      padding=_tup(attrs.get("pad"), nd, 0),
+                      output_padding=_tup(attrs.get("adj"), nd, 0),
+                      groups=int(attrs.get("num_group", 1)),
+                      dilation=_tup(attrs.get("dilate"), nd, 1))
+    return _add_bias(out, bias, nd)
 
 
 register("Deconvolution", _deconvolution,
@@ -150,6 +190,10 @@ def _bn_affine(data, g, beta, mean, inv, bshape):
     g32 = g.to(torch.float32)
     a = (inv * g32).to(data.dtype)
     b = (beta.to(torch.float32) - mean * inv * g32).to(data.dtype)
+    if data.dtype in _LOW:
+        # the product rounds to the data's dtype before the add, as
+        # JAX's two bfloat16 ops do
+        return data * a.reshape(bshape) + b.reshape(bshape)
     return torch.addcmul(b.reshape(bshape), data, a.reshape(bshape))
 
 
@@ -245,9 +289,14 @@ register("BatchNorm", _batch_norm,
 
 
 def _layer_norm(attrs, data, gamma, beta):
+    """The JAX package's arithmetic: normalize in the data's dtype, then
+    scale and shift with promotion, so bfloat16 data with float32
+    gamma/beta (what ``amp.DtypePolicy`` keeps) returns float32. One
+    dtype throughout takes ``F.layer_norm``."""
     axis = int(attrs.get("axis", -1)) % data.ndim
     eps = float(attrs.get("eps", 1e-5))
-    if not attrs.get("output_mean_var", False) and axis == data.ndim - 1:
+    if not attrs.get("output_mean_var", False) and axis == data.ndim - 1 \
+            and data.dtype == gamma.dtype == beta.dtype:
         return F.layer_norm(data, (data.shape[-1],), gamma, beta, eps)
     mean = torch.mean(data, dim=axis, keepdim=True)
     var = torch.var(data, dim=axis, keepdim=True, unbiased=False)
@@ -384,14 +433,34 @@ def _tempered(attrs, x):
     return x / float(temp) if temp else x
 
 
+def _softmax_t(x, axis):
+    """Softmax; in low precision ``jax.nn.softmax``'s own steps, each
+    rounded to the input's dtype (``exp(x - max) / sum``), which is
+    what the JAX package computes there (torch's fused softmax rounds
+    once)."""
+    if x.dtype not in _LOW:
+        return torch.softmax(x, axis)
+    e = torch.exp(x - torch.amax(x, dim=axis, keepdim=True))
+    return e / torch.sum(e, dim=axis, keepdim=True)
+
+
+def _log_softmax_t(x, axis):
+    """Log-softmax; in low precision ``jax.nn.log_softmax``'s steps."""
+    if x.dtype not in _LOW:
+        return torch.log_softmax(x, axis)
+    shifted = x - torch.amax(x, dim=axis, keepdim=True).detach()
+    return shifted - torch.log(torch.sum(torch.exp(shifted), dim=axis,
+                                         keepdim=True))
+
+
 register("softmax",
-         lambda attrs, x: torch.softmax(_tempered(attrs, x),
-                                        int(attrs.get("axis", -1))),
+         lambda attrs, x: _softmax_t(_tempered(attrs, x),
+                                     int(attrs.get("axis", -1))),
          arg_names=_D, defaults={"axis": -1, "temperature": None,
                                  "dtype": None})
 register("log_softmax",
-         lambda attrs, x: torch.log_softmax(_tempered(attrs, x),
-                                            int(attrs.get("axis", -1))),
+         lambda attrs, x: _log_softmax_t(_tempered(attrs, x),
+                                         int(attrs.get("axis", -1))),
          arg_names=_D, defaults={"axis": -1, "temperature": None,
                                  "dtype": None})
 
@@ -400,11 +469,11 @@ def _so_softmax(data, cfg):
     """SoftmaxOutput's forward: softmax over axis 1 (``multi_output``),
     the last axis (``preserve_shape``) or the flattened trailing axes."""
     if cfg["multi_output"]:
-        return torch.softmax(data, 1)
+        return _softmax_t(data, 1)
     if cfg["preserve_shape"]:
-        return torch.softmax(data, -1)
-    return torch.softmax(data.reshape(data.shape[0], -1),
-                         -1).reshape(data.shape)
+        return _softmax_t(data, -1)
+    return _softmax_t(data.reshape(data.shape[0], -1),
+                      -1).reshape(data.shape)
 
 
 class _SoftmaxOutput(torch.autograd.Function):

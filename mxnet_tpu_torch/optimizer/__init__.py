@@ -1,6 +1,10 @@
 """Optimizer package (counterpart of ``mxnet_tpu/optimizer``)."""
-from .optimizer import (Optimizer, SGD, Adam, Updater, get_updater,
-                        register, create)
+from .optimizer import (Optimizer, SGD, Signum, FTML, DCASGD, NAG, SGLD,
+                        Adam, AdaGrad, AdaDelta, RMSProp, Ftrl, Adamax,
+                        Nadam, LBSGD, Test, Updater, get_updater, register,
+                        create)
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater",
-           "register", "create"]
+__all__ = ["Optimizer", "SGD", "Signum", "FTML", "DCASGD", "NAG", "SGLD",
+           "Adam", "AdaGrad", "AdaDelta", "RMSProp", "Ftrl", "Adamax",
+           "Nadam", "LBSGD", "Test", "Updater", "get_updater", "register",
+           "create"]

@@ -30,6 +30,13 @@ version on any device; it exists for the tests and ``chip_smoke.py``,
 which hold each kernel against it on the card. On a CUDA tensor the
 wrappers launch the kernel or raise: there is no fallback.
 
+bfloat16 (or float16) q/k/v/dO keep the JAX kernels' contract: float32
+inside, outputs and gradients in the input dtype, the LSE and ``D =
+rowsum(dO * O)`` in float32 (``D`` from the rounded output). The
+wrappers upcast to float32, launch the same kernels (counted as
+usual) and cast the results back; the plain versions upcast the same
+way. Kernels that load bfloat16 natively are ROADMAP queue B work.
+
 Each backward kernel has its plain version too (:func:`_torch_bwd_dkdv`,
 :func:`_torch_bwd_dq`): the same LSE-recompute arithmetic in PyTorch.
 ``_Flash`` runs with them when it is applied with ``kernel=False``,
@@ -329,12 +336,14 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg, scale, causal, kernel):
         seg = _seg_plane(seg, q.shape[0], q.shape[1], q.device)
+        f32 = (_f32(q), _f32(k), _f32(v))
         if kernel:
-            o, lse = _fwd_cuda(q, k, v, seg, scale, causal)
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            o, lse = _fwd_cuda(*f32, seg, scale, causal)
         else:
-            o, lse = _torch_fwd_lse(q, k, v, seg, scale, causal)
-        ctx.save_for_backward(q, k, v, o, lse, seg)
+            o, lse = _torch_fwd_lse(*f32, seg, scale, causal)
+        o = o.to(q.dtype)
+        ctx.save_for_backward(q.contiguous(), k.contiguous(),
+                              v.contiguous(), o, lse, seg)
         ctx.scale, ctx.causal, ctx.kernel = scale, causal, kernel
         return o
 
@@ -342,17 +351,26 @@ class _Flash(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse, seg = ctx.saved_tensors
-        do = do.contiguous()
-        # D = rowsum(dO * O), laid out (B, H, Tq) like the LSE
-        dcap = torch.sum(do * o, dim=-1).permute(0, 2, 1).contiguous()
-        args = (q, k, v, do, lse, dcap, seg, ctx.scale, ctx.causal)
+        # D = rowsum(dO * O) in float32, laid out (B, H, Tq) like the LSE
+        do32 = _f32(do).contiguous()
+        dcap = torch.sum(do32 * _f32(o), dim=-1).permute(0, 2, 1) \
+            .contiguous()
+        args = (_f32(q), _f32(k), _f32(v), do32, lse, dcap, seg,
+                ctx.scale, ctx.causal)
         if ctx.kernel:
             dk, dv = _bwd_cuda("flash_bwd_dkdv", *args)
             dq = _bwd_cuda("flash_bwd_dq", *args)
         else:
             dk, dv = _torch_bwd_dkdv(*args)
             dq = _torch_bwd_dq(*args)
-        return dq, dk, dv, None, None, None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def _f32(x):
+    """``x`` in float32: what a kernel computes in for a low-precision
+    input, as the JAX kernels cast their bfloat16 tiles on load."""
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
 def _decode_lengths(lengths, B, device):
@@ -468,12 +486,22 @@ def flash_decode(q, k, v, lengths, scale=None, k_scale=None,
     kernel = _use_kernel(q, impl)
     if quant:
         if kernel:
-            return _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths,
-                                   scale)
-        return _torch_decode_q8(q, k, v, k_scale, v_scale, lengths, scale)
-    if kernel:
-        return _decode_cuda(q, k, v, lengths, scale)
-    return _torch_decode(q, k.to(q.dtype), v.to(q.dtype), lengths, scale)
+            o = _decode_q8_cuda(_f32(q), k, v, k_scale, v_scale, lengths,
+                                scale)
+        else:
+            o = _torch_decode_q8(_f32(q), k, v, k_scale, v_scale, lengths,
+                                 scale)
+        return o.to(q.dtype)
+    if q.dtype == torch.float32:
+        if kernel:
+            return _decode_cuda(q, k, v, lengths, scale)
+        return _torch_decode(q, k.to(q.dtype), v.to(q.dtype), lengths,
+                             scale)
+    # a low-precision query: float32 inside, the output in q's dtype
+    q32, k32, v32 = _f32(q), _f32(k), _f32(v)
+    o = _decode_cuda(q32, k32, v32, lengths, scale) if kernel \
+        else _torch_decode(q32, k32, v32, lengths, scale)
+    return o.to(q.dtype)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
@@ -497,5 +525,9 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
             % (q.shape[1], k.shape[1]))
     if _use_kernel(q, impl):
         return _Flash.apply(q, k, v, segment_ids, scale, causal, True)
+    if q.dtype != torch.float32:
+        # low precision: the kernels' contract through the plain
+        # versions (float32 inside, D from the rounded output)
+        return _Flash.apply(q, k, v, segment_ids, scale, causal, False)
     return _torch_reference(q, k, v, scale, causal,
                             segment_ids=segment_ids)

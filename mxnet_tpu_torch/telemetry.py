@@ -64,7 +64,7 @@ __all__ = ["enabled", "start", "stop", "reset", "maybe_start",
            "step_begin", "step_end", "step_tick", "span", "note",
            "recent_rate", "sample_memory", "flush", "report",
            "quick_stats", "percentile", "external_record",
-           "decode_event", "router_event", "prefix_cache_event",
+           "checkpoint_event", "decode_event", "router_event", "prefix_cache_event",
            "alert_event", "usage_event"]
 
 _lock = threading.Lock()
@@ -119,6 +119,7 @@ class _Run:
                                      # (dispatch/failover) stats
         self.prefix = None           # per-server cumulative KV
                                      # prefix-cache (page sharing) stats
+        self.ckpt = None             # checkpoint-save aggregates (lazy)
         self.usage = None            # per-meter cumulative usage
                                      # (tenant cost-attribution) stats
         self.alerts = None           # SLO-watchdog alert list (lazy,
@@ -502,6 +503,40 @@ def external_record(rec):
     _remember(rec)
 
 
+def checkpoint_event(fields):
+    """Append one ``checkpoint`` record for a save of
+    ``checkpoint.CheckpointManager`` (its writer thread calls this) and
+    roll it into the run's checkpoint summary (count, bytes, blocking vs
+    async milliseconds, failures, last good epoch). No-op without a
+    run."""
+    run = _run
+    if run is None:
+        return
+    rec = {"type": "checkpoint", "seq": run.steps,
+           "t": round(time.time() - run.t0_wall, 6)}
+    rec.update(fields)
+    with _lock:
+        agg = run.ckpt
+        if agg is None:
+            agg = run.ckpt = {"saves": 0, "failures": 0, "bytes": 0,
+                              "blocking_ms": 0.0, "async_ms": 0.0,
+                              "last_good_epoch": None}
+        if fields.get("ok"):
+            agg["saves"] += 1
+            agg["bytes"] += int(fields.get("bytes", 0) or 0)
+        else:
+            agg["failures"] += 1
+        agg["blocking_ms"] += float(fields.get("blocking_ms", 0.0) or 0)
+        agg["async_ms"] += float(fields.get("async_ms", 0.0) or 0)
+        last = fields.get("last_good_epoch")
+        if last is not None:
+            prev = agg["last_good_epoch"]
+            agg["last_good_epoch"] = last if prev is None \
+                else max(prev, last)
+        run.records.append(rec)
+    _remember(rec)
+
+
 def decode_event(fields):
     """Append one cumulative ``decode`` record from a
     ``serving.DecodeServer`` (token throughput,
@@ -793,6 +828,11 @@ def report():
         }
         if run.extra_counters:
             out["events"] = dict(run.extra_counters)
+        if run.ckpt is not None:
+            ck = dict(run.ckpt)
+            ck["blocking_ms"] = round(ck["blocking_ms"], 3)
+            ck["async_ms"] = round(ck["async_ms"], 3)
+            out["checkpoint"] = ck
         if run.decode is not None:
             out["decode"] = {k: dict(v)
                              for k, v in run.decode.items()}
@@ -830,8 +870,6 @@ def report():
         }
     from . import fault
     if fault_base is not None:
-        # the port's fault module has only the injection counters so
-        # far: the goodput branches arrive with their modules
         fs = fault.stats()
         out["fault"] = {k: fs.get(k, 0) - fault_base.get(k, 0)
                         for k in ("skipped_steps", "retries", "timeouts")}

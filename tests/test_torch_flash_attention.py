@@ -280,3 +280,65 @@ def test_q8_plain_matches_jax_q8_pallas_kernel_on_pool_pages():
         caches.append((raw.numpy(), expanded.numpy()))
     (k, ks), (v, vs) = caches
     _q8_against_pallas(q, k, v, ks, vs, lengths)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 inputs: the kernels' contract (float32 inside, the output in
+# the input dtype), held to the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_flash_attention_matches_pallas(causal):
+    """bfloat16 q/k/v (B1 T64 H2 D32): the port computes in float32 and
+    returns bfloat16, within 2e-5 of the Pallas kernel, which casts its
+    bfloat16 tiles to float32 the same way."""
+    q, k, v = _qkv(11, 1, 64, 64, 2, 32)
+    got = tfa.flash_attention(_bf16(q), _bf16(k), _bf16(v), causal=causal)
+    assert got.dtype == torch.bfloat16
+    want = jfa.flash_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                 for x in (q, k, v)), causal=causal,
+                               force_pallas=True)
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "q8"])
+def test_bf16_flash_decode_matches_pallas(quant):
+    """A bfloat16 query (and cache, or an int8 cache with float32
+    scales): float32 inside, the output bfloat16, within 2e-5 of the
+    Pallas decode kernels."""
+    rs = np.random.RandomState(21)
+    B, T, H, D = 2, 128, 2, 32
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    lengths = np.asarray([37, 128], np.int32)
+    if quant:
+        k = rs.randint(-127, 128, size=(B, T, H, D)).astype(np.int8)
+        v = rs.randint(-127, 128, size=(B, T, H, D)).astype(np.int8)
+        ks = rs.uniform(0.005, 0.02, size=(B, T)).astype(np.float32)
+        vs = rs.uniform(0.005, 0.02, size=(B, T)).astype(np.float32)
+        got = tfa.flash_decode(_bf16(q), _t(k), _t(v), _t(lengths),
+                               k_scale=_t(ks), v_scale=_t(vs))
+        want = jfa.flash_decode(
+            jnp.asarray(q, jnp.bfloat16), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+            v_scale=jnp.asarray(vs), force_pallas=True, block_k=64)
+    else:
+        k = rs.randn(B, T, H, D).astype(np.float32)
+        v = rs.randn(B, T, H, D).astype(np.float32)
+        got = tfa.flash_decode(_bf16(q), _bf16(k), _bf16(v), _t(lengths))
+        want = jfa.flash_decode(*(jnp.asarray(x, jnp.bfloat16)
+                                  for x in (q, k, v)),
+                                jnp.asarray(lengths), force_pallas=True,
+                                block_k=64)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0, atol=2e-5)

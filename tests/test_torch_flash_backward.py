@@ -300,3 +300,56 @@ def test_tf32_parts_hold_the_forward_to_fp32(passes):
     else:
         assert not any(within), errs
         assert min(errs) > 1e-4, errs
+
+
+@pytest.mark.parametrize("name", ["causal", "full"])
+def test_bf16_gradients_match_jax_pallas(name):
+    """bfloat16 q/k/v and cotangent: the port's backward (the plain
+    kernel versions through ``_Flash``, what a CPU tensor runs) takes D
+    in float32 from the rounded bfloat16 output, computes in float32 and
+    returns bfloat16 gradients, as ``jax.vjp`` of the Pallas kernels
+    does on the same bfloat16 inputs. Each gradient is within 2e-5 of
+    JAX's, except where the two float32 results straddle a bfloat16
+    rounding boundary: there the port's float32 value (before its cast)
+    lies within 2e-5 of the midpoint between the two bfloat16 values,
+    so the two agree within 2e-5 in float32 and the cast split them."""
+    B, Tq, Tk, H, D, causal, _ = CASES[name]
+    q, k, v, g, _ = _inputs(CASES[name], seed=len(name) + 7)
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+              for x in (q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=causal)
+    assert out.dtype == torch.bfloat16
+    gt = torch.from_numpy(g).to(torch.bfloat16)
+    out.backward(gt)
+    got = [x.grad for x in leaves]
+    assert all(x.dtype == torch.bfloat16 for x in got)
+
+    # the same backward before the final cast, from the rounded output
+    scale = D ** -0.5
+    q32, k32, v32, g32 = (x.detach().to(torch.float32)
+                          for x in leaves + [gt])
+    _, lse = tfa._torch_fwd_lse(q32, k32, v32, None, scale, causal)
+    dcap = torch.sum(g32 * out.detach().to(torch.float32), dim=-1) \
+        .permute(0, 2, 1)
+    args = (q32, k32, v32, g32, lse, dcap, None, scale, causal)
+    dk32, dv32 = tfa._torch_bwd_dkdv(*args)
+    pre = [tfa._torch_bwd_dq(*args), dk32, dv32]
+
+    def f(a, b, c):
+        return jfa.flash_attention(a, b, c, causal=causal,
+                                   force_pallas=True, block_q=128,
+                                   block_k=128)
+    _, vjp = jax.vjp(f, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g, jnp.bfloat16))
+    for which, a, a32, b in zip("qkv", got, pre, want):
+        assert b.dtype == jnp.bfloat16
+        a = a.to(torch.float32).numpy()
+        b = np.asarray(b, np.float32)
+        a32 = a32.numpy()
+        assert np.array_equal(a, a32.astype(np.float32).astype(
+            jnp.bfloat16).astype(np.float32))
+        split = np.abs(a - b) > 2e-5
+        mid = (a + b) / 2
+        assert np.all(np.abs(a32[split] - mid[split]) <= 2e-5), \
+            "d" + which
+        assert split.mean() < 1e-3, "d" + which

@@ -141,6 +141,111 @@ def test_ops_match(name):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+# ---------------------------------------------------------------------------
+# mixed bfloat16/float32 operands: JAX's promotion rules
+# ---------------------------------------------------------------------------
+
+# a result computed through bfloat16 intermediates, held across the
+# packages: the port rounds each op's bfloat16 result as the JAX program
+# is written, while XLA keeps float32 between ops whose result is
+# converted to float32 next (its excess-precision simplification), so
+# the two part by at most one bfloat16 step (2^-7 relative at most);
+# measured on the CPU: 5.2e-3 (LayerNorm with float32 affine terms),
+# 3.3e-3 (FullyConnected in bfloat16 with a float32 bias), 0 for the
+# ops whose output stays bfloat16 (BatchNorm, softmax, SoftmaxOutput)
+BF16_TOL = dict(rtol=8e-3, atol=1e-5)
+
+
+def _dt(mx, a, dtype):
+    return mx.nd.array(a).astype(dtype)
+
+
+def _both_dtype(fn):
+    """fn(mx) on both packages: [(dtype name, float32 numpy)] each."""
+    out = []
+    for mx in (jmx, tmx):
+        r = fn(mx)
+        out.append((str(r.dtype), r.astype("float32").asnumpy()))
+    return out
+
+
+MIXED = {
+    # name: (fn(mx, x, w, b), tolerance)
+    "fc_f32_data_bf16_weight": (lambda mx, x, w, b: mx.nd.FullyConnected(
+        _dt(mx, x, "float32"), _dt(mx, w, "bfloat16"),
+        _dt(mx, b, "bfloat16"), num_hidden=5), TOL),
+    "fc_bf16_data_f32_bias": (lambda mx, x, w, b: mx.nd.FullyConnected(
+        _dt(mx, x, "bfloat16"), _dt(mx, w, "bfloat16"),
+        _dt(mx, b, "float32"), num_hidden=5), BF16_TOL),
+    "layernorm_bf16_data_f32_affine": (lambda mx, x, w, b: mx.nd.LayerNorm(
+        _dt(mx, x, "bfloat16"), _dt(mx, w[0], "float32"),
+        _dt(mx, w[1], "float32"), eps=1e-5), BF16_TOL),
+    "batchnorm_bf16_data_f32_terms": (lambda mx, x, w, b: mx.nd.BatchNorm(
+        _dt(mx, x.reshape(2, 3, 4), "bfloat16"), _dt(mx, b[:3], "float32"),
+        _dt(mx, b[2:], "float32"), _dt(mx, w[0, :3] * 0.1, "float32"),
+        _dt(mx, np.abs(w[1, :3]) + 0.5, "float32"), fix_gamma=False),
+        TOL),
+    "embedding_bf16_weight": (lambda mx, x, w, b: mx.nd.Embedding(
+        mx.nd.array(np.array([[0, 4], [2, 1]], np.float32)),
+        _dt(mx, w, "bfloat16"), input_dim=5, output_dim=12), TOL),
+    "softmax_bf16": (lambda mx, x, w, b: mx.nd.softmax(
+        _dt(mx, x, "bfloat16"), axis=-1), TOL),
+    "softmax_output_bf16": (lambda mx, x, w, b: mx.nd.SoftmaxOutput(
+        _dt(mx, x, "bfloat16"), mx.nd.array(np.array([1, 3], np.float32))),
+        TOL),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MIXED))
+def test_mixed_dtype_ops_promote_like_jax(name):
+    """Each product and normalization op on mixed bfloat16/float32
+    operands returns JAX's dtype and JAX's values (a float32 operand
+    promotes the product, as ``jnp.dot`` does; LayerNorm's float32
+    affine terms promote its output)."""
+    fn, tol = MIXED[name]
+    x, w, b = _rand(4, 2, 12), _rand(5, 5, 12), _rand(6, 5)
+    (jd, jv), (td, tv) = _both_dtype(lambda mx: fn(mx, x, w, b))
+    assert td == jd
+    np.testing.assert_allclose(tv, jv, **tol)
+
+
+@pytest.mark.parametrize("op", ["Convolution", "Deconvolution"])
+def test_mixed_dtype_convolution_raises_like_jax(op):
+    """``lax.conv_general_dilated`` takes one dtype: mixed data and
+    weight raise in both packages."""
+    x = _rand(1, 1, 2, 6, 6)
+    w = _rand(2, 2, 3, 3, 3) if op == "Convolution" else _rand(2, 2, 3, 3,
+                                                                3)
+    for mx in (jmx, tmx):
+        with pytest.raises(Exception):
+            getattr(mx.nd, op)(_dt(mx, x, "float32"), _dt(mx, w, "bfloat16"),
+                               kernel=(3, 3), num_filter=3, no_bias=True)\
+                .asnumpy()
+
+
+def test_layernorm_dense_under_bf16_policy_returns_float32():
+    """``LayerNorm -> Dense`` under ``DtypePolicy("bfloat16")`` on a
+    bfloat16 input: the policy keeps gamma/beta float32, so LayerNorm
+    returns float32 and the Dense product runs in float32 over its
+    bfloat16 weight, as in JAX (the port returned bfloat16 before)."""
+    x = _rand(9, 4, 8)
+    outs = []
+    for mx in (jmx, tmx):
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.LayerNorm(in_channels=8))
+        net.add(mx.gluon.nn.Dense(6, in_units=8))
+        net.initialize(mx.init.Xavier())
+        for i, p in enumerate(net.collect_params().values()):
+            p.set_data(mx.nd.array(np.random.RandomState(i).uniform(
+                -0.5, 0.5, p.shape).astype(np.float32)))
+        mx.amp.DtypePolicy("bfloat16").apply(net)
+        out = net(mx.nd.array(x).astype("bfloat16"))
+        outs.append((str(out.dtype), out.asnumpy()))
+    (jd, jv), (td, tv) = outs
+    assert jd == td == "float32"
+    np.testing.assert_allclose(tv, jv, **BF16_TOL)
+
+
 @pytest.mark.parametrize("mode,keepdims", [("clip", False), ("wrap", True)])
 def test_embedding_and_pick_match(mode, keepdims):
     w = _rand(7, 10, 4)

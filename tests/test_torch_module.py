@@ -322,21 +322,26 @@ def test_module_checkpoint_across_packages(tmp_path, writer):
 
 
 def test_unported_paths_raise_naming_their_items(tmp_path):
+    """The item-10 paths run now (checkpoint_prefix, resume, optimizer
+    states); a multi-device context and a kvstore still raise, naming
+    item 12."""
     x, y = _synthetic_mnist(n=64)
     it = tmx.io.NDArrayIter(x, y, batch_size=32)
     mod = tmx.mod.Module(_mlp_sym(tmx), context=tmx.cpu())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mod.fit(it, num_epoch=1, checkpoint_prefix=str(tmp_path / "c"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mod.fit(it, num_epoch=1, resume_from_checkpoint=True)
-    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
-    mod.init_params()
-    mod.init_optimizer()
-    for call in (lambda: mod.save_optimizer_states("s"),
-                 lambda: mod.load_optimizer_states("s"),
-                 lambda: mod.save_checkpoint(str(tmp_path / "c"), 1, True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    prefix = str(tmp_path / "c")
+    mod.fit(it, num_epoch=1, checkpoint_prefix=prefix,
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    assert os.path.isfile(prefix + "-0000.ckpt.json")
+    assert os.path.isfile(prefix + "-0000.states")
+    again = tmx.mod.Module(_mlp_sym(tmx), context=tmx.cpu())
+    again.fit(it, num_epoch=1, resume_from_checkpoint=prefix,
+              optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    from mxnet_tpu_torch import fault as tfault
+    assert tfault.stats()["resumed_from_epoch"] == 0
+    mod.save_optimizer_states(str(tmp_path / "s"))
+    mod.load_optimizer_states(str(tmp_path / "s"))
+    mod.save_checkpoint(prefix, 1, True)
+    assert os.path.isfile(prefix + "-0001.states")
     two = tmx.mod.Module(_mlp_sym(tmx), context=[tmx.cpu(), tmx.cpu()])
     two.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
     two.init_params()
