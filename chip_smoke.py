@@ -269,6 +269,35 @@ no result, anywhere else. Phases (any failure exits non-zero):
    within one bfloat16 step of the plain versions, bfloat16 out, the
    kernels counted. Attention kernel launches over (a)-(f), zeroed
    before, must read 0.
+18. input (after 17) — the fourteenth slice's main path, the input
+   path: 256 synthetic 256x320 JPEGs (seed 0: smooth gradients and a
+   slow wave plus low-amplitude noise, quality 95) packed by
+   ``tools.im2rec`` into a ``.rec``/``.idx`` pair; (a) the decoder
+   (cv2, else PIL), ``os.cpu_count()``, the ``.rec`` bytes; (b) MB/s of
+   a scan by the Python ``MXRecordIO`` and by the native
+   ``PrefetchingRecordReader`` (built with g++); (c) ``ImageRecordIter``
+   (3x224x224, resize 256, random crop and mirror, ImageNet mean/std,
+   batch 32, ``preprocess_threads`` 4) decoding alone through the
+   pipeline's pool at ``MXNET_DATA_WORKERS`` 1, 2 and 4, images/s;
+   (d) ResNet-50 v1 ``Module.fit`` over that iterator through the async
+   pipeline (placed on cuda:0 by the placer's stream), SGD at lr
+   0.0125, 3 epochs = 24 fused steps under a telemetry run: ms a step,
+   images/s, the data_wait share, h2d copies and bytes, the fused
+   graphs (1 capture, 0 recaptures), the loss finite, the first
+   epoch's placed batches bit-identical to the eager iterator's, no
+   pipeline thread left; then 2 more epochs with
+   ``MXNET_DATA_PIPELINE=0`` and one under the profiler (idle share),
+   beside phase 14's step; (d') the same fit over ``NDArrayIter``'s
+   split protocol on a fresh module (always runs); (e) ``gluon.data.
+   DataLoader(ArrayDataset, num_workers=4, device_prefetch=True)``
+   feeding a hybridized Gluon ResNet-50 ``Trainer`` for 5 steps, the
+   batches on cuda:0 and h2d accounted; (f) 200 batches placed at depth
+   4 while the consumer's stream runs a long kernel before comparing
+   each with its host source bitwise (the cross-stream allocator
+   check). Without cv2 or PIL, (c) and (d) print "not run: no cv2 or
+   PIL on this host" and (b) reads records of random bytes. No kernel
+   of the table is on this path: the attention and decode launch
+   counts, zeroed before, must read 0.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode or rtc;
@@ -3813,17 +3842,22 @@ def guard_on(policy="skip_step"):
 
 
 @contextlib.contextmanager
-def fused_gate(on):
-    """``MXNET_FUSED_STEP`` set to ``on`` for the block."""
-    old = os.environ.get("MXNET_FUSED_STEP")
-    os.environ["MXNET_FUSED_STEP"] = "1" if on else "0"
+def env_set(name, value):
+    """The environment variable ``name`` set to ``value`` for the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("MXNET_FUSED_STEP", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["MXNET_FUSED_STEP"] = old
+            os.environ[name] = old
+
+
+def fused_gate(on):
+    """``MXNET_FUSED_STEP`` set to ``on`` for the block."""
+    return env_set("MXNET_FUSED_STEP", "1" if on else "0")
 
 
 def fit_curve(mod, it, num_epoch, callbacks=(), **fit_kw):
@@ -5074,6 +5108,568 @@ def phase_amp(card, tfa, fp32_module, fp32_resnet):
     print("  amp phase %.1f s" % (time.perf_counter() - t_phase))
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the input path
+# ---------------------------------------------------------------------------
+
+INPUT_IMAGES = 256
+INPUT_HW = (256, 320)
+INPUT_QUALITY = 95
+INPUT_LABELS = 16
+INPUT_BATCH = 32
+INPUT_SHAPE = (3, 224, 224)
+INPUT_RESIZE = 256
+INPUT_EPOCHS = 3
+INPUT_MEAN = dict(mean_r=123.68, mean_g=116.28, mean_b=103.53)
+INPUT_STD = dict(std_r=58.395, std_g=57.12, std_b=57.375)
+INPUT_THREADS = 4
+INPUT_WORKERS = (1, 2, 4)
+INPUT_NOT_RUN = "not run: no cv2 or PIL on this host"
+LOADER_IMAGES = 160
+LOADER_STEPS = 5
+LOADER_WORKERS = 4
+STREAM_BATCHES = 200
+STREAM_DEPTH = 4
+STREAM_BATCH = (16, 3, 32, 32)
+STREAM_SLEEP_CYCLES = 2_000_000
+
+
+def image_decoder():
+    """The JPEG library ``recordio`` decodes with here (cv2, else PIL),
+    or None."""
+    try:
+        import cv2
+        return "cv2 %s" % cv2.__version__
+    except ImportError:
+        pass
+    try:
+        import PIL
+        return "PIL %s" % PIL.__version__
+    except ImportError:
+        return None
+
+
+def write_input_images(root):
+    """INPUT_IMAGES 256x320 JPEGs (seed 0): smooth gradients and a slow
+    wave per channel plus low-amplitude noise, so they encode near
+    natural sizes; one subdirectory a label (INPUT_LABELS)."""
+    from mxnet_tpu_torch import recordio
+    rs = np.random.RandomState(0)
+    h, w = INPUT_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(INPUT_IMAGES):
+        a, f, ph = rs.uniform(-1, 1, (3, 2)), rs.uniform(0.5, 3, (3, 2)), \
+            rs.uniform(0, 6.3, 3)
+        img = np.stack([128 + 60 * (a[c, 0] * yy / h + a[c, 1] * xx / w)
+                        + 40 * np.sin(2 * np.pi * (f[c, 0] * yy / h
+                                                   + f[c, 1] * xx / w)
+                                      + ph[c]) for c in range(3)], -1)
+        img = np.clip(img + rs.normal(0, 4, img.shape), 0,
+                      255).astype(np.uint8)
+        d = os.path.join(root, "label%02d" % (i % INPUT_LABELS))
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "img%03d.jpg" % i), "wb") as f_out:
+            f_out.write(recordio._imencode(img, INPUT_QUALITY, ".jpg"))
+
+
+def write_raw_rec(prefix, sizes):
+    """Without a decoder: records of random bytes at JPEG-like sizes, so
+    that (b) still reads a file of that shape."""
+    from mxnet_tpu_torch import recordio
+    rs = np.random.RandomState(0)
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i, n in enumerate(sizes):
+        rec.write_idx(i, recordio.pack(recordio.IRHeader(
+            0, float(i % INPUT_LABELS), i, 0), rs.bytes(n)))
+    rec.close()
+
+
+def record_read_rates(rec_path, reps=10):
+    """(b): MB/s of a whole scan of the .rec, the Python reader against
+    the native prefetching reader (best of ``reps``, page cache warm)."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.io import native
+    size = os.path.getsize(rec_path)
+
+    def scan(open_reader):
+        best = None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = open_reader()
+            n = 0
+            while r.read() is not None:
+                n += 1
+            r.close()
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        return n, size / best / 1e6
+    n_py, py = scan(lambda: recordio.MXRecordIO(rec_path, "r"))
+    if not native.available():
+        fail("input: the native reader did not build (%s)"
+             % native.lib_path())
+    n_nat, nat = scan(lambda: native.PrefetchingRecordReader(rec_path))
+    if n_py != n_nat:
+        fail("input: the readers saw %d and %d records" % (n_py, n_nat))
+    return n_py, py, nat
+
+
+def record_iter(mx, prefix, threads=INPUT_THREADS):
+    """The reference training flow's reader at phase 18's settings."""
+    return mx.io.ImageRecordIter(
+        path_imgrec=prefix + ".rec", path_imgidx=prefix + ".idx",
+        data_shape=INPUT_SHAPE, batch_size=INPUT_BATCH, resize=INPUT_RESIZE,
+        rand_crop=True, rand_mirror=True, shuffle=True, seed=0,
+        preprocess_threads=threads, **INPUT_MEAN, **INPUT_STD)
+
+
+def decode_rate(mx, prefix, workers, threads=INPUT_THREADS, epochs=2):
+    """(c): images/s of decode and augmentation alone, host batches
+    through the pipeline's pool of ``workers`` (no placement)."""
+    it = record_iter(mx, prefix, threads)
+    pipe = mx.io.AsyncInputPipeline(it, num_workers=workers)
+    try:
+        t0 = time.perf_counter()
+        n = 0
+        for e in range(epochs):
+            if e:
+                pipe.reset()
+            n += sum(b.data[0].shape[0] for b in pipe)
+        dt = time.perf_counter() - t0
+    finally:
+        pipe.close()
+        it.close()
+    return n / dt
+
+
+def thread_census():
+    """The process's other live threads, by name with its trailing
+    number dropped."""
+    counts = {}
+    for t in threading.enumerate():
+        if t is not threading.main_thread():
+            name = re.sub(r"[-_]?\d+(_\d+)?$", "", t.name)
+            counts[name] = counts.get(name, 0) + 1
+    return ", ".join("%s x%d" % kv for kv in sorted(counts.items())) \
+        or "none"
+
+
+def pipeline_threads():
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("mxio-") and t.is_alive()]
+
+
+class FitWatch:
+    """A batch-end callback: each batch's loss from the SoftmaxOutput
+    probabilities (kept on the card until the end) and, through epoch
+    ``keep - 1``, the batch as it reached the step, copied to the host."""
+
+    def __init__(self, mod, keep=0):
+        self.mod, self.keep = mod, keep
+        self.losses, self.kept, self.devices = [], [], set()
+
+    def __call__(self, param):
+        batch = param.locals["data_batch"]
+        probs = self.mod.get_outputs()[0]._data
+        label = batch.label[0]._data
+        self.losses.append(-torch.log(probs.float().gather(
+            1, label.long()[:, None]) + 1e-12).mean())
+        self.devices.add(str(batch.data[0]._data.device))
+        if param.epoch < self.keep:
+            self.kept.append((batch.data[0]._data.cpu(), label.cpu()))
+
+    def epoch_losses(self, epochs):
+        per = len(self.losses) // epochs
+        return [float(torch.stack(self.losses[i * per:(i + 1) * per]).mean())
+                for i in range(epochs)]
+
+
+def timed_fit(mx, mod, it, watch, begin, end, steps_per_epoch):
+    """``mod.fit`` over epochs [begin, end) under a telemetry run: wall s,
+    the steady steps' (all but the first epoch of a fresh fit) median
+    and mean ms, their data_wait share, and the h2d counters' deltas."""
+    import tempfile
+    from mxnet_tpu_torch import profiler, telemetry
+    before = profiler.counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = os.path.join(tmp, "fit.jsonl")
+        telemetry.reset()
+        telemetry.start(filename=sink, run_id="input")
+        t0 = time.perf_counter()
+        try:
+            mod.fit(it, begin_epoch=begin, num_epoch=end, optimizer="sgd",
+                    optimizer_params=MODULE_SGD,
+                    initializer=mx.init.Xavier(), eval_metric="acc",
+                    batch_end_callback=watch)
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t0
+            telemetry.stop()
+            recs = [json.loads(line) for line in open(sink)]
+            telemetry.reset()
+    after = profiler.counters()
+    steps = [r for r in recs if r["type"] == "step"]
+    steady = steps[steps_per_epoch:] if begin == 0 else steps
+    durs = [r["dur_ms"] for r in steady]
+    waits = [r.get("phases_ms", {}).get("data_wait", 0.0) for r in steady]
+    return dict(
+        wall=wall, steps=len(steps), ms=statistics.median(durs),
+        mean_ms=sum(durs) / len(durs), wait_share=sum(waits) / sum(durs),
+        h2d_calls=after.get("h2d_calls", 0) - before.get("h2d_calls", 0),
+        h2d_bytes=after.get("h2d_bytes", 0) - before.get("h2d_bytes", 0))
+
+
+def fit_idle(mx, mod, it, begin, steps_per_epoch):
+    """Two more epochs of a fitted module (its graphs captured) under the
+    profiler: the first whole, the second in a steady window (its steps
+    3 to 7, the profiler's active steps by its schedule, timed between
+    the batch-end callbacks, each after ``update_metric``'s sync).
+    Returns ((wall ms, busy ms) of the epoch, (wall ms, busy ms) of the
+    window)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def busy_ms(prof):
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.self_device_time_total > 0) / 1e3
+    kw = dict(optimizer="sgd", optimizer_params=MODULE_SGD,
+              eval_metric="acc")
+    it.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mod.fit(it, begin_epoch=begin, num_epoch=begin + 1, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    epoch = (wall, busy_ms(prof))
+    it.reset()
+    stamps = []
+    active = min(5, steps_per_epoch - 3)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+            wait=1, warmup=1, active=active, repeat=1)) as prof:
+        def tick(param):
+            stamps.append(time.perf_counter())
+            prof.step()
+        mod.fit(it, begin_epoch=begin + 1, num_epoch=begin + 2,
+                batch_end_callback=tick, **kw)
+    window = ((stamps[1 + active] - stamps[1]) * 1e3, busy_ms(prof))
+    return epoch, window
+
+
+def check_input_fit(what, mod, watch, epochs, want_steps):
+    """A fit through the pipeline: the steps ran, the loss is finite,
+    the batches reached the step on the card, one capture of the fused
+    step and no recapture, no pipeline thread left."""
+    st = mod._fused.stats() if mod._fused else None
+    losses = watch.epoch_losses(epochs)
+    left = pipeline_threads()
+    if len(watch.losses) != want_steps:
+        fail("%s: fit ran %d steps, want %d" % (what, len(watch.losses),
+                                                want_steps))
+    if not all(np.isfinite(losses)):
+        fail("%s: non-finite loss %s" % (what, losses))
+    if watch.devices != {"cuda:0"}:
+        fail("%s: batches reached the step on %s" % (what, watch.devices))
+    if st is None or st["captures"] != 1 or st["recaptures"] != 0:
+        fail("%s: fused graphs %s, want 1 capture, 0 recaptures"
+             % (what, st))
+    if left:
+        fail("%s: pipeline threads alive after fit: %s" % (what, left))
+    return losses, st
+
+
+def check_first_epoch(what, kept, eager_batches):
+    """The first epoch's batches as the pipeline placed them against the
+    eager iterator's, bit for bit."""
+    if len(kept) != len(eager_batches):
+        fail("%s: %d placed batches, %d eager" % (what, len(kept),
+                                                  len(eager_batches)))
+    for i, ((pd, pl), (ed, el)) in enumerate(zip(kept, eager_batches)):
+        if not (torch.equal(pd, ed) and torch.equal(pl, el)):
+            fail("%s: placed batch %d differs from the eager one" % (what, i))
+
+
+def check_h2d(what, res, steps, batch_bytes):
+    """A fit's h2d copies: two a step (data and label), plus those of the
+    batches the pipeline placed for the epoch after the last (fit resets
+    its iterator after every epoch, as the reference's does; they are
+    dropped at close), each batch's bytes whole."""
+    extra = res["h2d_calls"] - 2 * steps
+    if extra < 0 or extra % 2 or extra > 2 * 8 \
+            or res["h2d_bytes"] != res["h2d_calls"] // 2 * batch_bytes:
+        fail("%s: h2d %d copies, %d bytes for %d steps of %d bytes"
+             % (what, res["h2d_calls"], res["h2d_bytes"], steps,
+                batch_bytes))
+    res["h2d_extra"] = extra
+
+
+def input_record_fit(mx, prefix, card, module_readings):
+    """(d): ResNet-50 v1 trained by ``Module.fit`` over ImageRecordIter
+    through the pipeline, then two more epochs with the pipeline off and
+    one under the profiler; the first epoch's placed batches against the
+    eager iterator's."""
+    steps_per_epoch = INPUT_IMAGES // INPUT_BATCH
+    mx.random.seed(0)
+    it = record_iter(mx, prefix)
+    mod = mx.mod.Module(module_resnet(mx, MODULE_BENCH[2]))
+    watch = FitWatch(mod, keep=1)
+    on = timed_fit(mx, mod, it, watch, 0, INPUT_EPOCHS, steps_per_epoch)
+    losses, st = check_input_fit("input (d)", mod, watch, INPUT_EPOCHS,
+                                 INPUT_EPOCHS * steps_per_epoch)
+    check_h2d("input (d)", on, INPUT_EPOCHS * steps_per_epoch,
+              INPUT_BATCH * (4 * int(np.prod(INPUT_SHAPE)) + 4))
+    eager_it = record_iter(mx, prefix)
+    eager = []
+    for _ in range(steps_per_epoch):
+        b = eager_it.next()
+        eager.append((b.data[0]._data.cpu(), b.label[0]._data.cpu()))
+    eager_it.close()
+    check_first_epoch("input (d)", watch.kept, eager)
+    watch.kept = []
+    it.reset()
+    off_watch = FitWatch(mod)
+    with env_set("MXNET_DATA_PIPELINE", "0"):
+        off = timed_fit(mx, mod, it, off_watch, INPUT_EPOCHS,
+                        INPUT_EPOCHS + 2, steps_per_epoch)
+    (e_wall, e_busy), (w_wall, w_busy) = fit_idle(
+        mx, mod, it, INPUT_EPOCHS + 2, steps_per_epoch)
+    idle = 1 - w_busy / w_wall
+    st_after = mod._fused.stats()
+    if st_after["captures"] != 1 or st_after["recaptures"] != 0:
+        fail("input (d): fused graphs after the later fits %s" % st_after)
+    it.close()
+    print("input (d): Module.fit, ResNet-50 v1 (classes %d), %d images from"
+          " the .rec through ImageRecordIter (3x%dx%d, resize %d, random crop"
+          " and mirror, ImageNet mean/std, preprocess_threads %d) and the "
+          "pipeline (MXNET_DATA_WORKERS %d, depth 2, placed on cuda:0), "
+          "batch %d, SGD lr %g, %d epochs = %d fused steps in %.2f s (%s): "
+          "%.3f ms a step (median of epochs 2-%d; mean %.3f), %.1f images/s; "
+          "data_wait %.4f of a step; idle share %.3f in a steady window of"
+          " one more epoch (steps 3-7: wall %.1f ms, busy %.1f), %.3f over "
+          "a whole epoch (wall %.1f, busy %.1f: the epoch's start and end "
+          "included); h2d %d copies (%d of them "
+          "for the epoch after the last), %d bytes; "
+          "fused graphs %s; loss by epoch %s; first epoch's %d placed batches"
+          " bit-identical to the eager iterator's; no pipeline thread left"
+          % (MODULE_BENCH[2], INPUT_IMAGES, INPUT_SHAPE[1], INPUT_SHAPE[2],
+             INPUT_RESIZE, INPUT_THREADS, mx.io.data_workers(), INPUT_BATCH,
+             MODULE_SGD["learning_rate"], INPUT_EPOCHS, on["steps"],
+             on["wall"], card, on["ms"], INPUT_EPOCHS, on["mean_ms"],
+             INPUT_BATCH * 1e3 / on["ms"], on["wait_share"], idle, w_wall,
+             w_busy, 1 - e_busy / e_wall, e_wall, e_busy, on["h2d_calls"], on["h2d_extra"], on["h2d_bytes"], st,
+             " ".join("%.4f" % v for v in losses), steps_per_epoch))
+    print("  the same module, 2 more epochs with MXNET_DATA_PIPELINE=0: "
+          "%.3f ms a step (mean %.3f), %.1f images/s, data_wait %.4f of a "
+          "step; phase 14 (NDArrayIter from memory, fused step, this run): "
+          "%.3f ms a step"
+          % (off["ms"], off["mean_ms"], INPUT_BATCH * 1e3 / off["ms"],
+             off["wait_share"], module_readings["fused_ms"]))
+    del mod
+    torch.cuda.empty_cache()
+    return on, off, idle
+
+
+def input_ndarray_fit(mx, card):
+    """(d'): the same fit over NDArrayIter's split protocol through the
+    pipeline (phase 14's images), on a fresh module: its capture runs
+    while the placer copies."""
+    batch, image, classes = MODULE_BENCH
+    rs = np.random.RandomState(70)
+    x = rs.randn(MODULE_IMAGES, 3, image, image).astype(np.float32)
+    y = rs.randint(0, classes, MODULE_IMAGES).astype(np.float32)
+    per = MODULE_IMAGES // batch
+    mx.random.seed(0)
+    np.random.seed(18)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=True)
+    np.random.seed(18)
+    eager_it = mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=True)
+    eager = [(b.data[0]._data.cpu(), b.label[0]._data.cpu())
+             for b in eager_it]
+    mod = mx.mod.Module(module_resnet(mx, classes))
+    watch = FitWatch(mod, keep=1)
+    res = timed_fit(mx, mod, it, watch, 0, INPUT_EPOCHS, per)
+    losses, st = check_input_fit("input (d')", mod, watch, INPUT_EPOCHS,
+                                 INPUT_EPOCHS * per)
+    check_first_epoch("input (d')", watch.kept, eager)
+    check_h2d("input (d')", res, INPUT_EPOCHS * per,
+              batch * (4 * image * image * 3 + 4))
+    print("input (d'): Module.fit over NDArrayIter's split protocol through"
+          " the pipeline (phase 14's %d images, shuffled), %d epochs = %d "
+          "fused steps in %.2f s (%s): %.3f ms a step (median of epochs "
+          "2-%d), data_wait %.4f; h2d %d copies (%d for the epoch after "
+          "the last), %d bytes; fused graphs %s;"
+          " loss by epoch %s; first epoch bit-identical to the eager "
+          "iterator's; no pipeline thread left"
+          % (MODULE_IMAGES, INPUT_EPOCHS, res["steps"], res["wall"], card,
+             res["ms"], INPUT_EPOCHS, res["wait_share"], res["h2d_calls"],
+             res["h2d_extra"], res["h2d_bytes"], st, " ".join("%.4f" % v for v in losses)))
+    del mod
+    torch.cuda.empty_cache()
+    return res
+
+
+def input_loader_trainer(mx, card):
+    """(e): ``gluon.data.DataLoader(ArrayDataset, num_workers=4,
+    device_prefetch=True)`` feeding a hybridized Gluon ResNet-50 Trainer
+    for LOADER_STEPS steps: batches arrive on cuda:0, h2d accounted."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rs = np.random.RandomState(71)
+    x = rs.randn(LOADER_IMAGES, *INPUT_SHAPE).astype(np.float32)
+    y = rs.randint(0, MODULE_BENCH[2], LOADER_IMAGES).astype(np.float32)
+    mx.random.seed(0)
+    net = vision.resnet50_v1(classes=MODULE_BENCH[2])
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", MODULE_SGD)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loader = DataLoader(ArrayDataset(x, y), batch_size=INPUT_BATCH,
+                        num_workers=LOADER_WORKERS, device_prefetch=True)
+    before = profiler.counters()
+    losses, devices, times = [], set(), []
+    t0 = time.perf_counter()
+    for data, label in loader:
+        devices.update({str(data._data.device), str(label._data.device)})
+        with mx.autograd.record():
+            loss = loss_fn(net(data), label)
+        loss.backward()
+        trainer.step(INPUT_BATCH)
+        losses.append(loss.mean()._data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+    after = profiler.counters()
+    calls = after.get("h2d_calls", 0) - before.get("h2d_calls", 0)
+    nbytes = after.get("h2d_bytes", 0) - before.get("h2d_bytes", 0)
+    want_bytes = LOADER_IMAGES * (4 * int(np.prod(INPUT_SHAPE)) + 4)
+    loss_vals = [float(v) for v in losses]
+    left = pipeline_threads()
+    if len(losses) != LOADER_STEPS or devices != {"cuda:0"}:
+        fail("input (e): %d steps, batches on %s" % (len(losses), devices))
+    if (calls, nbytes) != (2 * LOADER_STEPS, want_bytes):
+        fail("input (e): h2d %d calls, %d bytes; want %d, %d"
+             % (calls, nbytes, 2 * LOADER_STEPS, want_bytes))
+    if not all(np.isfinite(loss_vals)) or left:
+        fail("input (e): loss %s, threads left %s" % (loss_vals, left))
+    print("input (e): DataLoader(ArrayDataset of %d images, batch %d, "
+          "num_workers %d, device_prefetch=True) -> hybridized Gluon "
+          "ResNet-50 v1, record -> SoftmaxCrossEntropyLoss -> "
+          "Trainer('sgd'), %d steps (%s): batches on %s; h2d %d copies, %d "
+          "bytes; %.1f ms a step after the first (%.1f first); loss %s; no "
+          "pipeline thread left"
+          % (LOADER_IMAGES, INPUT_BATCH, LOADER_WORKERS, len(losses), card,
+             sorted(devices), calls, nbytes,
+             statistics.median(times[1:]) * 1e3, times[0] * 1e3,
+             " ".join("%.4f" % v for v in loss_vals)))
+    del net, trainer
+    torch.cuda.empty_cache()
+
+
+def input_stream_check(mx, card, device=None):
+    """(f): STREAM_BATCHES batches placed at depth STREAM_DEPTH while the
+    consumer's stream runs a long kernel before each comparison: each
+    placed batch is compared bitwise on that stream with its host
+    source (copied to the card beforehand), and dropped before the
+    comparison has run. A block the allocator handed to the placer's
+    next copy before the comparison ran would differ."""
+    device = device or torch.device("cuda", 0)
+    n, rest = STREAM_BATCHES * STREAM_BATCH[0], STREAM_BATCH[1:]
+    x = np.random.RandomState(72).rand(n, *rest).astype(np.float32)
+    want = torch.from_numpy(x).to(device).view(torch.int32)
+    it = mx.io.NDArrayIter(x, np.arange(n, dtype=np.float32),
+                           batch_size=STREAM_BATCH[0])
+    pipe = mx.io.AsyncInputPipeline(it, num_workers=2,
+                                    prefetch_depth=STREAM_DEPTH,
+                                    placement=device)
+    oks = []
+    t0 = time.perf_counter()
+    try:
+        for i in range(STREAM_BATCHES):
+            got = pipe.next().data[0]._data
+            torch.cuda._sleep(STREAM_SLEEP_CYCLES)
+            rows = want[i * STREAM_BATCH[0]:(i + 1) * STREAM_BATCH[0]]
+            oks.append((got.view(torch.int32) == rows).all())
+            del got
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        drained = time.perf_counter() - t0
+    finally:
+        pipe.close()
+    bad = STREAM_BATCHES - int(torch.stack(oks).sum())
+    if bad:
+        fail("input (f): %d of %d placed batches differ from their host "
+             "source" % (bad, STREAM_BATCHES))
+    print("input (f): %d batches of %s placed at depth %d while the "
+          "consumer's stream ran a %d-cycle kernel before each comparison "
+          "(%s): all bit-identical to their host source; the host enqueued"
+          " in %.3f s, the stream drained at %.3f s"
+          % (STREAM_BATCHES, "x".join(map(str, STREAM_BATCH)), STREAM_DEPTH,
+             STREAM_SLEEP_CYCLES, card, enqueued, drained))
+
+
+def phase_input(card, module_readings):
+    """Phase 18: the input path, the fourteenth slice's main path.
+    Attention and decode launch counts, zeroed before, must read 0."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.tools import im2rec
+    tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tfa.reset_launches()
+    decoder = image_decoder()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "input")
+        t0 = time.perf_counter()
+        if decoder:
+            root = os.path.join(tmp, "images")
+            write_input_images(root)
+            lst, _ = im2rec.make_list(root, prefix)
+            im2rec.im2rec(lst, root, prefix, quality=INPUT_QUALITY)
+        else:
+            write_raw_rec(prefix, np.random.RandomState(1).randint(
+                30000, 60000, INPUT_IMAGES))
+        write_s = time.perf_counter() - t0
+        rec_bytes = os.path.getsize(prefix + ".rec")
+        print("input (a): decoder: %s; os.cpu_count() %d; .rec %d bytes "
+              "(%d records, %.1f KB a record, %s) written in %.2f s"
+              % (decoder or "none (neither cv2 nor PIL)", os.cpu_count(),
+                 rec_bytes, INPUT_IMAGES, rec_bytes / INPUT_IMAGES / 1e3,
+                 "%dx%d JPEGs at quality %d by tools.im2rec"
+                 % (INPUT_HW + (INPUT_QUALITY,)) if decoder
+                 else "random bytes: no encoder", write_s))
+        n, py, nat = record_read_rates(prefix + ".rec")
+        print("input (b): record read, %d records (%s): Python MXRecordIO "
+              "%.1f MB/s, native PrefetchingRecordReader %.1f MB/s"
+              % (n, card, py, nat))
+        if decoder:
+            print("input (c): host before decoding: load average %s, %d "
+                  "cores usable, other threads of this process: %s"
+                  % ("/".join("%.2f" % v for v in os.getloadavg()),
+                     len(os.sched_getaffinity(0)), thread_census()))
+            rates = {w: decode_rate(mx, prefix, w) for w in INPUT_WORKERS}
+            wide = decode_rate(mx, prefix, 4, threads=os.cpu_count())
+            print("input (c): ImageRecordIter decode + augment alone, "
+                  "preprocess_threads %d, host batches (%s): %s images/s; "
+                  "preprocess_threads %d at 4 workers %.1f images/s"
+                  % (INPUT_THREADS, card, ", ".join(
+                      "MXNET_DATA_WORKERS %d %.1f" % (w, r)
+                      for w, r in rates.items()), os.cpu_count(), wide))
+            input_record_fit(mx, prefix, card, module_readings)
+        else:
+            print("input (c): %s" % INPUT_NOT_RUN)
+            print("input (d): %s" % INPUT_NOT_RUN)
+    input_ndarray_fit(mx, card)
+    input_loader_trainer(mx, card)
+    input_stream_check(mx, card)
+    if any(tfa.launches.values()):
+        fail("input: the input path launched attention kernels: %s"
+             % tfa.launches)
+    print("  attention kernel launches on the input path: %s (none is on "
+          "it); input phase %.1f s"
+          % (dict(tfa.launches), time.perf_counter() - t_phase))
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -5140,6 +5736,7 @@ def main():
     module_readings = phase_module(card)
     phase_export_train(card, phase_zoo(card))
     phase_amp(card, tfa, module_readings, resnet_readings)
+    phase_input(card, module_readings)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

@@ -39,7 +39,17 @@ What is ported:
   forward + backward with it) as one CUDA graph per signature
   (``fused_step``), the non-finite guard with loss scaling
   (``fault``), and the checkpoint writer with ``fit(checkpoint_prefix=,
-  resume_from_checkpoint=)``.
+  resume_from_checkpoint=)``;
+- the input path: ``recordio`` (``.rec``/``.idx``, ``IRHeader``
+  packing), the native RecordIO reader (``io/csrc``, built with g++ at
+  first use), ``mx.io``'s ``ImageRecordIter``/``ImageDetRecordIter``,
+  ``CSVIter``, ``MNISTIter``, ``ResizeIter``, ``PrefetchingIter`` and
+  the async input pipeline (``io.pipeline``: a decode pool and a placer
+  copying batches to the card on its own stream) through which
+  ``Module.fit`` reads, ``SequentialModule``/``PythonModule``,
+  ``tools.im2rec``/``tools.rec2idx`` and ``gluon.data`` (datasets,
+  samplers, the DataLoader with ``device_prefetch``, vision
+  transforms).
 
 Typical use mirrors MXNet::
 
@@ -73,6 +83,7 @@ from . import gluon
 from . import rtc
 from . import executor
 from . import io
+from . import recordio
 from . import metric
 from . import lr_scheduler
 from . import callback
@@ -89,6 +100,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "NameManager", "AttrScope", "nd", "ndarray",
            "NDArray", "sym", "symbol", "Symbol", "cached_op", "random",
            "autograd", "init", "initializer", "optimizer", "gluon", "rtc",
-           "executor", "io", "metric", "lr_scheduler", "callback", "model",
+           "executor", "io", "recordio", "metric", "lr_scheduler", "callback", "model",
            "checkpoint", "fault", "profiler", "amp", "fused_step", "module",
            "mod"]

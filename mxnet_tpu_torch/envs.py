@@ -96,6 +96,15 @@ declare("MXNET_CHECKPOINT_INFLIGHT", "int", 2,
         "Bounded queue depth of in-flight async checkpoint "
         "snapshots (backpressure past it).", _G)
 
+_G = "io"
+declare("MXNET_DATA_PIPELINE", "bool", True,
+        "Route Module/Gluon fit loops through the async input "
+        "pipeline.", _G)
+declare("MXNET_DATA_WORKERS", "int", 2,
+        "Decode-pool width of the async input pipeline.", _G)
+declare("MXNET_USE_NATIVE_IO", "bool", True,
+        "Use the native record/image readers where available.", _G)
+
 _G = "core"
 declare("MXNET_FUSED_STEP", "bool", True,
         "Run the whole optimizer update (and, on the Module path, "

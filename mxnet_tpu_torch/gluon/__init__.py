@@ -1,5 +1,6 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): blocks, parameters, the
-layers, losses and Trainer, ``SymbolBlock`` and the model zoo."""
+layers, losses and Trainer, ``SymbolBlock``, the model zoo and ``data``
+(datasets, samplers, the DataLoader, vision transforms)."""
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 from .block import Block, HybridBlock, SymbolBlock
 from .trainer import Trainer
@@ -8,7 +9,8 @@ from . import loss
 from . import contrib
 from . import convert
 from . import model_zoo
+from . import data
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
            "Block", "HybridBlock", "SymbolBlock", "Trainer", "nn", "loss",
-           "contrib", "convert", "model_zoo"]
+           "contrib", "convert", "model_zoo", "data"]

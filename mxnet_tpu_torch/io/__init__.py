@@ -1,4 +1,11 @@
-"""IO namespace (counterpart of ``mxnet_tpu/io``): the batch types and
-the in-memory iterator. The record readers and the async input pipeline
-(``io/pipeline.py``) are not ported yet (ROADMAP queue A item 10)."""
-from .io import DataDesc, DataBatch, DataIter, NDArrayIter
+"""IO namespace (counterpart of ``mxnet_tpu/io``): the batch types, the
+iterators over memory, CSV and MNIST files and RecordIO images, and the
+async input pipeline (``io/pipeline.py``). ``LibSVMIter`` (sparse,
+item 13) and ``make_sharded_pipeline`` (a mesh, item 12) raise
+``NotImplementedError``."""
+from .io import (DataDesc, DataBatch, DataIter, ResizeIter, PrefetchingIter,
+                 NDArrayIter, MNISTIter, CSVIter, LibSVMIter)
+from .image_record import ImageRecordIter, ImageDetRecordIter
+from .pipeline import (AsyncInputPipeline, data_workers, pipeline_enabled,
+                       placement_for_module, make_sharded_pipeline,
+                       place_batch)

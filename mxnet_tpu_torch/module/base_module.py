@@ -2,9 +2,13 @@
 ``mxnet_tpu/module/base_module.py``; the reference's ``fit`` is
 base_module.py:409).
 
-``fit`` consumes ``train_data`` directly, as the JAX package does under
-``MXNET_DATA_PIPELINE=0``: the async input pipeline (``io/pipeline.py``)
-is not ported yet. ``checkpoint_prefix`` saves an epoch checkpoint every
+``fit`` consumes ``train_data`` through the async input pipeline
+(``io/pipeline.py``) unless ``MXNET_DATA_PIPELINE=0``: a
+``MXNET_DATA_WORKERS``-wide decode pool and a placer that copies each
+batch to the bound executor's device on its own stream ahead of the
+step, so decode and the host-to-device copy overlap the step and
+``data_wait`` counts only stalls; the pipeline fit made is closed in
+its ``finally``. ``checkpoint_prefix`` saves an epoch checkpoint every
 ``checkpoint_period`` epochs through ``checkpoint.CheckpointManager``
 (the background writer unless ``MXNET_ASYNC_CHECKPOINT=0``), optimizer
 state included; ``resume_from_checkpoint=True`` (or a prefix) scans the
@@ -259,6 +263,7 @@ class BaseModule:
             if fault.is_enabled() else 0
         batch_samples = getattr(train_data, "batch_size", None) or None
         ckpt_mgr = None
+        owned_pipeline = None
         try:
             if resume_from_checkpoint:
                 resumed = self._resume_point(resume_from_checkpoint,
@@ -282,12 +287,13 @@ class BaseModule:
                 validation_metric = eval_metric
             if not isinstance(eval_metric, _metric.EvalMetric):
                 eval_metric = _metric.create(eval_metric)
+            fit_data, owned_pipeline = self._wrap_train_data(train_data)
 
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
                 eval_metric.reset()
                 nbatch = 0
-                data_iter = iter(train_data)
+                data_iter = iter(fit_data)
                 end_of_batch = False
                 with telemetry.span("data_wait"):
                     next_data_batch = next(data_iter)
@@ -353,7 +359,7 @@ class BaseModule:
                     for name, val in res:
                         self.logger.info("Epoch[%d] Validation-%s=%f",
                                          epoch, name, val)
-                train_data.reset()
+                fit_data.reset()
             if fault.is_enabled():
                 skipped = fault.stats()["skipped_steps"] - skipped_at_entry
                 if skipped:
@@ -366,13 +372,58 @@ class BaseModule:
                 # drain in-flight saves: a resume scan right after fit()
                 # sees the final epoch
                 ckpt_mgr.close()
+            if owned_pipeline is not None:
+                owned_pipeline.close()
             if owns_telemetry:
                 telemetry.stop()
+
+    def _wrap_train_data(self, train_data):
+        """``(iterator, owned pipeline)``: ``train_data`` wrapped in the
+        async input pipeline, placing batches as the bound executor's
+        arrays lie (``placement_for_module``); fit closes a pipeline it
+        made. An iterator that is already a pipeline adopts that
+        placement; anything that is not a ``DataIter``, and every
+        iterator under ``MXNET_DATA_PIPELINE=0``, passes through."""
+        from ..io.io import DataIter, PrefetchingIter
+        from ..io.pipeline import (AsyncInputPipeline, pipeline_enabled,
+                                   placement_for_module)
+        if not pipeline_enabled():
+            return train_data, None
+        if isinstance(train_data, (AsyncInputPipeline, PrefetchingIter)):
+            placement = placement_for_module(self)
+            if placement is not None:
+                train_data.set_placement(placement)
+            return train_data, None
+        if not isinstance(train_data, DataIter):
+            return train_data, None
+        pipeline = AsyncInputPipeline(
+            train_data, placement=placement_for_module(self))
+        return pipeline, pipeline
 
     # -- symbol / params -------------------------------------------------
     @property
     def symbol(self):
         return self._symbol
+
+    @property
+    def data_names(self):
+        raise NotImplementedError()
+
+    @property
+    def output_names(self):
+        raise NotImplementedError()
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError()
 
     def get_params(self):
         raise NotImplementedError()
@@ -407,5 +458,37 @@ class BaseModule:
                 raise ValueError("Invalid param file " + fname)
         self.set_params(arg_params, aux_params)
 
+    def install_monitor(self, mon):
+        raise NotImplementedError()
+
     def prepare(self, data_batch, sparse_row_id_fn=None):
         pass
+
+    # -- computation interface -------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        raise NotImplementedError()
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False,
+             shared_module=None, grad_req="write"):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError()

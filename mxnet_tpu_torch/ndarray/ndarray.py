@@ -231,6 +231,15 @@ class NDArray:
                 *reversed(range(self.ndim)))
         return NDArray(data)
 
+    def expand_dims(self, axis):
+        return invoke_nd("expand_dims", [self], {"axis": axis})
+
+    def flip(self, axis):
+        return invoke_nd("reverse", [self], {"axis": axis})
+
+    def clip(self, a_min, a_max):
+        return invoke_nd("clip", [self], {"a_min": a_min, "a_max": a_max})
+
     def sum(self, axis=None, keepdims=False, exclude=False):
         return invoke_nd("sum", [self], {"axis": axis, "keepdims": keepdims,
                                          "exclude": exclude})

@@ -3,8 +3,10 @@ with MXNet's special codes (0 copies a dim, -1 infers one, -2 copies the
 rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left),
 Flatten (all but the batch dim into one), SliceChannel (equal parts
 along one axis, one output each), Concat (any number of inputs along
-one axis) and Pad (constant, edge or reflect, one ``(before, after)``
-pair per dim)."""
+one axis), stack (along a new axis), expand_dims, transpose, reverse
+(``flip``), dot (the last axis of ``lhs`` with the first of ``rhs``) and
+Pad (constant, edge or reflect, one ``(before, after)`` pair per
+dim)."""
 from __future__ import annotations
 
 import torch
@@ -128,6 +130,46 @@ def _concat(attrs, *inputs):
 register("Concat", _concat, arg_names=("arg",),
          defaults={"dim": 1, "num_args": 1}, key_var_num_args="num_args",
          aliases=("concat",))
+
+
+register("stack", lambda attrs, *inputs: torch.stack(
+    inputs, dim=int(attrs.get("axis", 0))), arg_names=("arg",),
+    defaults={"axis": 0, "num_args": 1}, key_var_num_args="num_args")
+
+register("expand_dims", lambda attrs, x: x.unsqueeze(int(attrs["axis"])),
+         arg_names=_D, defaults={"axis": 0})
+
+
+def _transpose(attrs, x):
+    axes = attrs.get("axes", None)
+    return x.permute(*axes) if axes else x.permute(*reversed(range(x.dim())))
+
+
+register("transpose", _transpose, arg_names=_D, defaults={"axes": None})
+
+
+def _reverse(attrs, x):
+    axis = attrs.get("axis", 0)
+    return torch.flip(x, (axis,) if isinstance(axis, int) else tuple(axis))
+
+
+register("reverse", _reverse, arg_names=_D, defaults={"axis": 0},
+         aliases=("flip",))
+
+
+def _dot(attrs, x, y):
+    if attrs.get("transpose_a", False):
+        x = x.permute(*reversed(range(x.dim())))
+    if attrs.get("transpose_b", False):
+        y = y.permute(*reversed(range(y.dim())))
+    if x.dim() == 1 and y.dim() == 1:
+        return torch.dot(x, y)
+    return torch.tensordot(x, y, dims=1)
+
+
+register("dot", _dot, arg_names=("lhs", "rhs"),
+         defaults={"transpose_a": False, "transpose_b": False,
+                   "forward_stype": None})
 
 
 def _pad_index(n, lo, hi, mode, device):

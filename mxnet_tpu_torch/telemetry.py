@@ -25,6 +25,9 @@ records — one schema, one sink (counterpart of
   each ``serving.Router``, ``usage`` records from the meter
   (``metering``), and ``alert`` records (a confirmed replica loss, an
   SLO-watchdog breach) that also trigger the flight recorder.
+- **Comms ledger** — the input pipeline's host-to-device copies
+  (:func:`h2d`), calls, bytes and milliseconds per ``h2d:<array>``, in
+  the summary's ``comms`` (present once a copy was accounted).
 
 Everything flows to a structured JSONL sink (``MXNET_TELEMETRY_FILE``)
 and to the :func:`report` summary dict; ``python -m
@@ -65,7 +68,7 @@ __all__ = ["enabled", "start", "stop", "reset", "maybe_start",
            "recent_rate", "sample_memory", "flush", "report",
            "quick_stats", "percentile", "external_record",
            "checkpoint_event", "decode_event", "router_event", "prefix_cache_event",
-           "alert_event", "usage_event"]
+           "alert_event", "usage_event", "comm", "h2d"]
 
 _lock = threading.Lock()
 _run = None          # the active _Run
@@ -127,6 +130,7 @@ class _Run:
         self.fault_counters = {"skipped_steps": 0, "retries": 0,
                                "timeouts": 0}
         self.extra_counters = {}     # free-form note() names
+        self.comms = {}              # (kind, key) -> calls/bytes/time_ms
         self.mem_watermarks = {}     # device -> peak/last bytes
         self.fault_base = None       # fault.stats() at start
         self._step_t0 = None         # perf_counter at step_begin
@@ -489,6 +493,36 @@ def span(phase):
 # fault/goodput unification
 # ---------------------------------------------------------------------------
 
+def comm(kind, key, nbytes=0, seconds=0.0):
+    """Account one transfer: calls, bytes and milliseconds per
+    ``(kind, key)`` in the run's comms ledger (the summary's ``comms``,
+    keyed ``kind:key``). No-op without a run. The port writes only the
+    ``h2d`` kind; the collectives' kinds come with item 12."""
+    run = _run
+    if run is None:
+        return
+    k = (str(kind), str(key))
+    with _lock:
+        c = run.comms.get(k)
+        if c is None:
+            c = run.comms[k] = {"calls": 0, "bytes": 0, "time_ms": 0.0}
+        c["calls"] += 1
+        c["bytes"] += int(nbytes)
+        c["time_ms"] += seconds * 1e3
+
+
+def h2d(key, nbytes=0, seconds=0.0):
+    """Account one host-to-device batch copy made by the input
+    pipeline's placer (``io/pipeline.py``): the ``h2d`` kind of the comms
+    ledger, and the process-wide profiler counters ``h2d_calls`` /
+    ``h2d_bytes``. The copy runs on the placer's thread, off the step's
+    accounting thread, so it is a counter and not a :func:`span`."""
+    from . import profiler
+    profiler.increment_counter("h2d_calls")
+    profiler.increment_counter("h2d_bytes", int(nbytes))
+    comm("h2d", key, nbytes, seconds)
+
+
 def external_record(rec):
     """Append one externally-built record to the active run. No-op
     without a run. The caller
@@ -826,6 +860,9 @@ def report():
             "memory": {d: dict(w)
                        for d, w in run.mem_watermarks.items()},
         }
+        if run.comms:
+            out["comms"] = {"%s:%s" % k: dict(c)
+                            for k, c in sorted(run.comms.items())}
         if run.extra_counters:
             out["events"] = dict(run.extra_counters)
         if run.ckpt is not None:

@@ -37,7 +37,12 @@ def test_every_module_imports_with_jax_and_mxnet_tpu_blocked():
                 "callback", "model", "module.base_module",
                 "module.module", "amp", "fused_step", "fault",
                 "optimizer.optimizer", "optimizer._pickle",
-                "ops.optimizer_ops", "gluon.trainer"):
+                "ops.optimizer_ops", "gluon.trainer", "recordio",
+                "io.native", "io.image_record", "io.pipeline",
+                "module.sequential_module", "module.python_module",
+                "tools.im2rec", "tools.rec2idx", "gluon.data.dataset",
+                "gluon.data.sampler", "gluon.data.dataloader",
+                "gluon.data.vision.transforms"):
         assert "mxnet_tpu_torch." + mod in mods
     code = ("import sys\n"
             "for name in %r:\n"
