@@ -298,9 +298,48 @@ no result, anywhere else. Phases (any failure exits non-zero):
    PIL on this host" and (b) reads records of random bytes. No kernel
    of the table is on this path: the attention and decode launch
    counts, zeroed before, must read 0.
+19. bucketing (after 18) — the fifteenth slice's main path, variable-
+   length training, BASELINE config 3 (the reference's
+   example/rnn/bucketing/lstm_bucketing.py at its defaults: 2 x
+   ``mx.rnn.LSTMCell(200)``, Embedding 200, FC to the vocabulary of
+   10000, ``SoftmaxOutput(use_ignore=True, ignore_label=0)``, buckets
+   10-60, batch 32, SGD lr 0.01, momentum 0, wd 1e-5, Xavier(in,
+   2.34), ``Perplexity(0)``) on a synthetic corpus of PTB's shape
+   (``lm_corpus``: 4096 sentences from seed 0), fp32, TF32 off.
+   (a) ``BucketingModule.fit`` over ``rnn.BucketSentenceIter``, 2
+   epochs on the fused step: one capture per bucket seen, none new and
+   no recapture in epoch 2, no fused-step fallback, the perplexity
+   falling from epoch 1 to 2; each capture's ms, ms a step by bucket
+   (forward + backward + update replayed, no metric), real and padded
+   tokens/s over epoch 2, the padding share, the metric's host ms, the
+   bucket-60 step's idle share and kernels (its graph's nodes) under
+   the profiler, peak memory; (b) the same fit with
+   ``MXNET_FUSED_STEP=0`` and its ms a step, and one bucket-60 step
+   each way from the same weights: probabilities and every array
+   bit-identical but ``embed_weight`` (atomics), held to
+   LM_EMBED_STEP_REL; (c) the ``FusedRNNCell`` variant (one ``RNN`` op,
+   2 layers of 200) from (a)'s weights (its probabilities equal the
+   unrolled cells' within LM_FUSED_TOL), fitted and read as (a), and
+   the ``RNN`` op's forward + backward at T60 N32 H200 by graph replay
+   beside cuDNN's ``torch._VF.lstm`` on the same weights (a yardstick
+   only); (d) a hybridized Gluon LM (``gluon.rnn.LSTM(200,
+   num_layers=2)``) trained by ``Trainer`` on ``bucketing.
+   BucketedPipeline`` batches with ``MaskedSoftmaxCELoss`` and
+   ``masked_batch_loss``: the loss falls, the fused update 1 capture,
+   one predict graph per bucket; (e) ``bucketing.PackedPipeline``
+   batches (seed 0, ladder [256], 72 samples of 16-240 positions, each
+   q, k and v at H12 D64) through ``_contrib_flash_attention`` with
+   their segment plane, causal, forward and backward on the kernels:
+   held to the plain version (TOL, BWD_TOL), no gradient outside the
+   touched sample, launch counts zeroed just before and read just
+   after (one each of flash_fwd, flash_bwd_dkdv and flash_bwd_dq a
+   batch); then the three kernels timed at B8 T256 on that segment
+   plane (as phases 3-4). Attention and decode launches over (a)-(d),
+   zeroed before, must read 0.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
-path (``path``: server, observability, training, int8 decode or rtc;
+path (``path``: server, observability, training, int8 decode, rtc or
+packing;
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -792,7 +831,7 @@ def fwd_bounds(B, Tq, Tk, H, D, live, segmented):
 
 
 def fwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed,
-             time_splits=False):
+             time_splits=False, seg=None):
     """The forward kernel on one input: O and LSE against the plain
     version (``_torch_fwd_lse``) on the rows with a live key, and the LSE
     of rows with none equal to the plain version's, at the host's block
@@ -805,7 +844,8 @@ def fwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed,
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn(B, Tq, H, D, generator=g).to(dev)
     k, v = (torch.randn(B, Tk, H, D, generator=g).to(dev) for _ in range(2))
-    seg = segment_plane(B, Tq, seed, dev) if segmented else None
+    if segmented and seg is None:
+        seg = segment_plane(B, Tq, seed, dev)
     scale = D ** -0.5
     want, want_lse = tfa._torch_fwd_lse(q, k, v, seg, scale, causal)
     live = live_mask(B, Tq, Tk, causal, seg, dev)
@@ -1031,7 +1071,8 @@ def f64_case(tfa, B=2, T=256, H=12, D=64):
         fail("backward kernels disagree with float64 dense autograd")
 
 
-def bwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed, probe=False):
+def bwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed, probe=False,
+             seg=None):
     """Both backward kernels against their plain versions on one input,
     with a zero cotangent on rows that attend to nothing (a masked
     loss), and the backward of scaled_dot_product_attention as the
@@ -1041,7 +1082,8 @@ def bwd_case(tfa, B, Tq, Tk, H, D, causal, segmented, seed, probe=False):
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, do = (torch.randn(B, Tq, H, D, generator=g).to(dev) for _ in range(2))
     k, v = (torch.randn(B, Tk, H, D, generator=g).to(dev) for _ in range(2))
-    seg = segment_plane(B, Tq, seed, dev) if segmented else None
+    if segmented and seg is None:
+        seg = segment_plane(B, Tq, seed, dev)
     scale = D ** -0.5
     if seg is not None:
         do[seg == 0] = 0.0
@@ -5670,6 +5712,742 @@ def phase_input(card, module_readings):
           % (dict(tfa.launches), time.perf_counter() - t_phase))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: variable-length training (BucketingModule, the RNN path)
+# ---------------------------------------------------------------------------
+
+# BASELINE config 3, the reference's example/rnn/bucketing/lstm_bucketing.py
+# at its argparse defaults: 2 x LSTMCell(200), Embedding(200), FC(vocab),
+# SoftmaxOutput; buckets 10-60, batch 32, SGD lr 0.01, momentum 0, wd 1e-5,
+# Xavier(in, 2.34); PTB's vocabulary of 10000 (ids 1..9999, 0 = invalid)
+LM_VOCAB = 10000
+LM_EMBED = 200
+LM_HIDDEN = 200
+LM_LAYERS = 2
+LM_BUCKETS = [10, 20, 30, 40, 50, 60]
+LM_BATCH = 32
+LM_SGD = dict(learning_rate=0.01, momentum=0.0, wd=1e-5)
+LM_EPOCHS = 2
+# (b): the eager fit, cut to one epoch (its steps are ~10x the fused
+# ones); from the same weights and batches its epoch-1 perplexity is the
+# fused fit's within LM_PPL_REL (bit for bit when the embedding's
+# backward accumulates in a fixed order)
+LM_EAGER_EPOCHS = 1
+LM_PPL_REL = 1e-4
+# the synthetic corpus of PTB's shape (no PTB in the repository): Zipf
+# unigrams, a sparse first-order Markov chain (each token's successors
+# drawn from the unigram, taken with LM_CHAIN probability, else a fresh
+# unigram draw), gamma-distributed sentence lengths (mean ~21 tokens, a
+# tail past 60 that the iterator discards and counts)
+LM_SENTENCES = 4096
+LM_SUCCESSORS = 4
+LM_SUCCESSOR_P = (0.55, 0.25, 0.12, 0.08)
+LM_CHAIN = 0.6
+LM_LENGTH_GAMMA = (3.0, 7.0)
+LM_SEED = 0
+# (c): the fused RNN op against the unrolled cells from the same weights,
+# the softmax's probabilities at the first batch (fp32, TF32 off)
+LM_FUSED_TOL = dict(rtol=1e-4, atol=1e-7)
+# (b): a fused step against an eager one from the same weights and batch:
+# every array bit-identical but the embedding, whose CUDA backward
+# accumulates with atomics: its step within LM_EMBED_STEP_REL of the
+# largest step
+LM_EMBED_STEP_REL = 1e-5
+# (d): the Gluon LM's per-sample loss is the mean over its positions, so
+# the Module's rate (a gradient summed over a sentence) times the mean
+# sentence length
+LM_GLUON_LR = 0.2
+LM_GLUON_STEPS = 96
+# (e): packed attention at the training shape's heads
+PACK_LADDER = [256]
+PACK_BATCH = 8
+PACK_HEADS = 12
+PACK_DIM = 64
+PACK_SAMPLES = 72
+PACK_LENGTHS = (16, 240)
+PACK_BATCHES = 3
+PACK_SHAPE = "B%d T%d H%d D%d causal seg" % (PACK_BATCH, PACK_LADDER[-1],
+                                             PACK_HEADS, PACK_DIM)
+LM_CLASSES = (("matmul", ("gemm", "cutlass", "sm90_", "ampere_", "gemv")),
+              ("softmax", ("softmax",)),
+              ("embedding", ("embedding", "index")))
+
+
+def lm_corpus(seed=LM_SEED):
+    """PTB-shaped synthetic sentences of token ids 1..LM_VOCAB-1."""
+    n, vocab = LM_SENTENCES, LM_VOCAB
+    rs = np.random.RandomState(seed)
+    ids = np.arange(1, vocab)
+    unigram = 1.0 / ids
+    unigram /= unigram.sum()
+    succ = rs.choice(ids, size=(vocab, LM_SUCCESSORS), p=unigram)
+    lengths = np.maximum(2, np.rint(rs.gamma(*LM_LENGTH_GAMMA, size=n))
+                         ).astype(int)
+    toks = np.empty((n, int(lengths.max())), np.int64)
+    toks[:, 0] = rs.choice(ids, size=n, p=unigram)
+    for t in range(1, toks.shape[1]):
+        pick = rs.choice(LM_SUCCESSORS, size=n, p=LM_SUCCESSOR_P)
+        chain = succ[toks[:, t - 1], pick]
+        fresh = rs.choice(ids, size=n, p=unigram)
+        toks[:, t] = np.where(rs.rand(n) < LM_CHAIN, chain, fresh)
+    return [list(toks[i, :lengths[i]]) for i in range(n)]
+
+
+def lm_sym_gen(mx, fused=False):
+    """The reference's sym_gen (lstm_bucketing.py; ``fused``:
+    cudnn_lstm_bucketing.py's FusedRNNCell at the same widths), with
+    ``use_ignore`` for the padded tails."""
+    def sym_gen(seq_len):
+        data = mx.sym.var("data")
+        label = mx.sym.var("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=LM_VOCAB,
+                                 output_dim=LM_EMBED, name="embed")
+        if fused:
+            cell = mx.rnn.FusedRNNCell(LM_HIDDEN, num_layers=LM_LAYERS,
+                                       mode="lstm", prefix="lstm_")
+        else:
+            cell = mx.rnn.SequentialRNNCell()
+            for i in range(LM_LAYERS):
+                cell.add(mx.rnn.LSTMCell(num_hidden=LM_HIDDEN,
+                                         prefix="lstm_l%d_" % i))
+        outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, LM_HIDDEN))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=LM_VOCAB,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax",
+                                    use_ignore=True, ignore_label=0)
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def lm_iter(mx, sents):
+    """The training iterator, its shuffles from LM_SEED."""
+    np.random.seed(LM_SEED)
+    return mx.rnn.BucketSentenceIter(sents, LM_BATCH, buckets=LM_BUCKETS,
+                                     invalid_label=0)
+
+
+def lm_module(mx, sym_gen, it, arg_params=None):
+    """A bound BucketingModule with the reference's Xavier (or the given
+    arg_params)."""
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mx.random.seed(LM_SEED)
+    if arg_params is None:
+        mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    else:
+        mod.init_params(initializer=None, arg_params={
+            k: mx.nd.array(v) for k, v in arg_params.items()},
+            aux_params={})
+    return mod
+
+
+def fused_lstm_params(args):
+    """The unrolled cells' weights as the RNN op's flat vector (weights,
+    then biases, layer by layer), LSTMCell's in-graph forget bias of 1.0
+    folded into each layer's i2h bias: the same model."""
+    H = LM_HIDDEN
+    ws, bs = [], []
+    for i in range(LM_LAYERS):
+        p = "lstm_l%d_" % i
+        ws += [args[p + "i2h_weight"].ravel(), args[p + "h2h_weight"].ravel()]
+        b = args[p + "i2h_bias"].copy()
+        b[H:2 * H] += 1.0
+        bs += [b, args[p + "h2h_bias"]]
+    out = {k: v for k, v in args.items() if not k.startswith("lstm_l")}
+    out["lstm_parameters"] = np.concatenate(ws + bs).astype(np.float32)
+    return out
+
+
+class CaptureClock:
+    """Wall ms of each fused-step capture (the eager warm-up on the side
+    stream and the capture), in order: the graph holders that
+    ``fused_step.set_graph_factory(clock.factory)`` makes time their
+    captures."""
+
+    def __init__(self):
+        self.ms = []
+
+    def factory(self):
+        from mxnet_tpu_torch.cached_op import _Graphs
+        graphs = _Graphs()
+        base = graphs._capture
+
+        def timed_capture(body, device, pool, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = base(body, device, pool, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        graphs._capture = timed_capture
+        return graphs
+
+
+class LMWatch:
+    """fit's batch-end and epoch-end callbacks: each batch's bucket and
+    wall stamp, the capture (if any) its step made, and at each epoch's
+    end the perplexity, the per-bucket graph counters and the iterator's
+    bucketing snapshot."""
+
+    def __init__(self, mod, it, ppl, clock):
+        self.mod, self.it, self.ppl, self.clock = mod, it, ppl, clock
+        self.buckets, self.captures, self.epochs = [], {}, []
+        self.t0 = time.perf_counter()
+
+    def __call__(self, param):
+        key = param.locals["data_batch"].bucket_key
+        self.buckets.append(key)
+        if len(self.clock.ms) > sum(len(v) for v in self.captures.values()):
+            self.captures.setdefault(key, []).append(self.clock.ms[-1])
+
+    def epoch_end(self, epoch, sym, arg, aux):
+        torch.cuda.synchronize()
+        self.epochs.append(dict(
+            t=time.perf_counter(), steps=len(self.buckets),
+            ppl=self.ppl.get()[1],
+            stats={k: dict(v["fused"]) for k, v in self.mod.stats().items()},
+            snap=self.it.bucketing.snapshot()))
+
+
+def lm_fit(mx, mod, it, epochs, clock):
+    """``mod.fit`` over ``it`` for ``epochs`` (the reference's optimizer,
+    Perplexity(invalid_label)); returns the watch."""
+    from mxnet_tpu_torch import fused_step
+    ppl = mx.metric.Perplexity(ignore_label=0)
+    watch = LMWatch(mod, it, ppl, clock)
+    fused_step.set_graph_factory(clock.factory)
+    try:
+        mod.fit(it, num_epoch=epochs, eval_metric=ppl, optimizer="sgd",
+                optimizer_params=LM_SGD, batch_end_callback=watch,
+                epoch_end_callback=watch.epoch_end)
+    finally:
+        fused_step.set_graph_factory(None)
+    return watch
+
+
+def lm_batches(it):
+    """One batch of each bucket, in bucket order."""
+    it.reset()
+    out = {}
+    for b in it:
+        out.setdefault(b.bucket_key, b)
+    return [out[k] for k in sorted(out)]
+
+
+def lm_step(mod, batch):
+    """One training step as fit takes it, without the metric."""
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+
+
+def lm_report(what, watch, card, fused=True):
+    """The fit's readings: perplexity by epoch, the last epoch's rates
+    (from the end of the one before, or from the fit's start for a
+    one-epoch fit) and padding, the per-bucket graph counters. On the
+    fused step checks one capture per bucket seen and, over two epochs,
+    none new in the second and the perplexity falling."""
+    e1, last = watch.epochs[0], watch.epochs[-1]
+    if len(watch.epochs) > 1:
+        t0, snap0, steps0 = e1["t"], e1["snap"], e1["steps"]
+    else:
+        t0, snap0, steps0 = watch.t0, dict.fromkeys(
+            ("total_elements", "padded_elements"), 0), 0
+    secs = last["t"] - t0
+    real = (last["snap"]["total_elements"] - last["snap"]["padded_elements"]) \
+        - (snap0["total_elements"] - snap0["padded_elements"])
+    total = last["snap"]["total_elements"] - snap0["total_elements"]
+    steps = last["steps"] - steps0
+    print("  %s: perplexity by epoch %s; epoch %d: %d steps in %.2f s, %.1f "
+          "ms a step with the metric, %.0f real tokens/s, %.0f padded "
+          "tokens/s (%s); padding share %s over the run, pad rows %d, "
+          "discarded %d"
+          % (what, " ".join("%.2f" % e["ppl"] for e in watch.epochs),
+             len(watch.epochs), steps, secs, secs * 1e3 / max(steps, 1),
+             real / secs, total / secs, card, last["snap"]["padding_share"],
+             last["snap"]["pad_rows"], last["snap"]["discarded"]))
+    caps = {k: st["captures"] for k, st in e1["stats"].items()}
+    print("  %s: fused-step captures per bucket after epoch 1 %s, after "
+          "epoch %d %s; recaptures %s; capture ms (warm-up + capture) %s"
+          % (what, caps, len(watch.epochs),
+             {k: st["captures"] for k, st in last["stats"].items()},
+             {k: st["recaptures"] for k, st in last["stats"].items()},
+             {k: ["%.1f" % v for v in ms]
+              for k, ms in sorted(watch.captures.items())}))
+    seen = sorted(set(watch.buckets))
+    if list(caps) != ["bucketing:%d" % k for k in seen]:
+        fail("%s: buckets %s bound, %s seen" % (what, list(caps), seen))
+    want = 1 if fused else 0
+    if any(v != want for v in caps.values()):
+        fail("%s: captures per bucket after epoch 1: %s" % (what, caps))
+    for key, st in last["stats"].items():
+        if st["captures"] != want or st["recaptures"]:
+            fail("%s: a later epoch recaptured %s: %s" % (what, key, st))
+    ppl = [e["ppl"] for e in watch.epochs]
+    if not all(np.isfinite(ppl)) or \
+            (len(ppl) > 1 and not ppl[-1] < ppl[0]):
+        fail("%s: the perplexity did not fall: %s" % (what, ppl))
+    return dict(ppl=ppl, secs=secs, real_tps=real / secs,
+                padded_tps=total / secs,
+                padding=last["snap"]["padding_share"],
+                capture_ms={k: v[0] for k, v in watch.captures.items()})
+
+
+def lm_step_times(mod, batches, card, what, iters=10):
+    """ms a step (forward + backward + update, no metric) for one batch of
+    each bucket: the median CUDA-event time of ``iters`` steps after 2."""
+    ms = {b.bucket_key: call_ms(lambda b=b: lm_step(mod, b), iters=iters,
+                                warm=2) for b in batches}
+    print("  %s: ms a step by bucket %s (%s)"
+          % (what, " ".join("%d:%.3f" % kv for kv in sorted(ms.items())),
+             card))
+    return ms
+
+
+def lm_profile(mod, batch, card, what):
+    """Idle share and kernels of the bucket's replayed step (profiler);
+    the kernels of one step are the nodes its graph holds."""
+    wall, busy, by_class, kernels, bare = profile_steps(
+        lambda: lm_step(mod, batch), 5, classes=LM_CLASSES)
+    nodes = sum(n for _, _, n in kernels) / 5
+    print("  %s: bucket %d step under the profiler %.3f ms wall (%.3f "
+          "without), busy %.3f ms, idle share %.3f; %s; %.0f kernels a "
+          "step (the graph's kernel nodes) (%s)"
+          % (what, batch.bucket_key, wall, bare, busy, 1 - busy / wall,
+             ", ".join("%s %.3f" % kv for kv in sorted(by_class.items())),
+             nodes, card))
+    return dict(wall=wall, busy=busy, idle=1 - busy / wall, nodes=nodes)
+
+
+def lm_fused_vs_eager(mx, sym_gen, init, batch, card):
+    """(b): one fused step and one eager step (``MXNET_FUSED_STEP=0``)
+    from the same weights on the same batch: the probabilities and every
+    array bit-identical but the embedding, held to LM_EMBED_STEP_REL of
+    its largest step (its CUDA backward accumulates with atomics)."""
+    res = {}
+    for fused in (True, False):
+        mod = mx.mod.BucketingModule(sym_gen,
+                                     default_bucket_key=batch.bucket_key)
+        mod.bind(data_shapes=batch.provide_data,
+                 label_shapes=batch.provide_label)
+        mod.init_params(initializer=None, arg_params={
+            k: mx.nd.array(v) for k, v in init.items()}, aux_params={})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=LM_SGD)
+        with fused_gate(fused):
+            lm_step(mod, batch)
+            probs = mod.get_outputs()[0].asnumpy()
+        res[fused] = (probs, {k: v.asnumpy()
+                              for k, v in mod.get_params()[0].items()})
+        del mod
+    same = {k: bool((res[True][1][k] == res[False][1][k]).all())
+            for k in init}
+    step = np.abs(res[False][1]["embed_weight"] - init["embed_weight"]).max()
+    emb = np.abs(res[True][1]["embed_weight"]
+                 - res[False][1]["embed_weight"]).max()
+    probs_same = bool((res[True][0] == res[False][0]).all())
+    print("  (b) one bucket-%d step, fused against MXNET_FUSED_STEP=0 from "
+          "the same weights: probabilities bit-identical %s; every array "
+          "but embed_weight bit-identical %s; embed_weight %s (held %s)"
+          % (batch.bucket_key, probs_same,
+             all(v for k, v in same.items() if k != "embed_weight"),
+             "bit-identical" if same["embed_weight"] else
+             "differs by %.3g, %.3g of its largest step %.3g"
+             % (emb, emb / max(step, 1e-30), step),
+             "bit for bit" if same["embed_weight"] else
+             "to %g of its largest step: its CUDA backward may accumulate "
+             "with atomics" % LM_EMBED_STEP_REL))
+    if not probs_same or not all(v for k, v in same.items()
+                                 if k != "embed_weight"):
+        fail("(b): the fused step differs from the eager step: %s" % same)
+    if emb > LM_EMBED_STEP_REL * step:
+        fail("(b): the embedding's fused step differs by %.3g" % emb)
+
+
+def rnn_op_timing(mx, init, card):
+    """(c): the RNN op's forward + backward at T60 N32 H200, 2 layers, by
+    CUDA-graph replay, beside cuDNN's LSTM (``torch._VF.lstm``) on the
+    same weights, a yardstick only; the outputs of both held together."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    dev = mx.current_context().torch_device()
+    T, N, H, L = LM_BUCKETS[-1], LM_BATCH, LM_HIDDEN, LM_LAYERS
+    g = torch.Generator(device="cpu").manual_seed(19)
+    x = torch.randn(T, N, LM_EMBED, generator=g).to(dev)
+    dy = torch.randn(T, N, H, generator=g).to(dev)
+    flat = torch.from_numpy(init["lstm_parameters"]).to(dev)
+    h0 = torch.zeros(L, N, H, device=dev)
+    c0 = torch.zeros(L, N, H, device=dev)
+    op = get_op("RNN")
+    attrs = dict(op.defaults, state_size=H, num_layers=L, mode="lstm",
+                 state_outputs=True, __train__=True)
+
+    def port():
+        # fresh leaves each call, as the fused step makes them: a capture
+        # must not reach the autograd nodes of leaves made outside it
+        xl, fl = (t.detach().requires_grad_(True) for t in (x, flat))
+        out = op.forward(attrs, xl, fl, h0, c0)[0]
+        return out, torch.autograd.grad(out, (xl, fl), dy)
+    lstm = torch.nn.LSTM(LM_EMBED, H, L).to(dev)
+    G4 = 4 * H
+    with torch.no_grad():
+        off = 0
+        for layer in range(L):
+            for name, n in (("weight_ih_l%d", G4 * (LM_EMBED if layer == 0
+                                                    else H)),
+                            ("weight_hh_l%d", G4 * H)):
+                w = getattr(lstm, name % layer)
+                w.copy_(flat[off:off + n].view_as(w))
+                off += n
+        for layer in range(L):
+            for name in ("bias_ih_l%d", "bias_hh_l%d"):
+                b = getattr(lstm, name % layer)
+                b.copy_(flat[off:off + G4])
+                off += G4
+    lstm.flatten_parameters()
+    weights = [w.detach() for w in lstm._flat_weights]
+
+    def cudnn():
+        xl = x.detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in weights]
+        out = torch._VF.lstm(xl, (h0, c0), ws, True, L, 0.0, True, False,
+                             False)[0]
+        return out, torch.autograd.grad(out, [xl] + ws, dy)
+    (po, pg), (co, cg) = port(), cudnn()
+    err = float((po - co).detach().abs().max())
+    gerr = float((pg[0] - cg[0]).abs().max())
+    port_ms, eager_ms = device_ms(port, iters=5), stream_ms(port)
+    try:
+        cudnn_ms, how = device_ms(cudnn, iters=5), "graph replay"
+    except RuntimeError as exc:     # cuDNN's RNN would not capture
+        cudnn_ms, how = stream_ms(cudnn), "back-to-back calls (%s)" \
+            % str(exc).splitlines()[0][:80]
+    fwd = 2.0 * N * T * G4 * (LM_EMBED + H + (L - 1) * 2 * H)
+    flops = 3 * fwd                       # backward: twice the forward
+    bound = flops / PEAK_FP32_FLOPS * 1e3
+    print("  (c) RNN op forward + backward, T%d N%d H%d, %d layers, fp32: "
+          "%.3f ms by graph replay (%.3f ms eager, calls back to back); "
+          "cuDNN's LSTM (torch._VF.lstm, same weights, a yardstick only) "
+          "%.3f ms by %s; outputs differ by %.3g, input gradients by %.3g; "
+          "bound %.4f ms (%.2f GFLOP at the fp32 peak; the recurrence is %d "
+          "dependent steps) (%s)"
+          % (T, N, H, L, port_ms, eager_ms, cudnn_ms, how, err, gerr, bound,
+             flops / 1e9, T * L, card))
+    if err > 1e-4 or gerr > 1e-4:
+        fail("(c): the RNN op disagrees with cuDNN's LSTM: %.3g %.3g"
+             % (err, gerr))
+    return dict(ms=port_ms, eager_ms=eager_ms, cudnn_ms=cudnn_ms,
+                bound_ms=bound)
+
+
+def lstm_gluon_lm(mx):
+    """(d): Embedding -> gluon.rnn.LSTM(200, num_layers=2) -> Dense(vocab),
+    the LM of the reference's gluon word_language_model at this width."""
+    class LM(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embed = mx.gluon.nn.Embedding(LM_VOCAB, LM_EMBED)
+                self.lstm = mx.gluon.rnn.LSTM(LM_HIDDEN,
+                                              num_layers=LM_LAYERS,
+                                              layout="NTC",
+                                              input_size=LM_EMBED)
+                self.out = mx.gluon.nn.Dense(LM_VOCAB, flatten=False,
+                                             in_units=LM_HIDDEN)
+
+        def hybrid_forward(self, F, x, h, c):
+            y, _ = self.lstm(self.embed(x), [h, c])
+            return self.out(y)
+    return LM()
+
+
+def gluon_lm_train(mx, sents, card):
+    """(d): the hybridized Gluon LM trained through ``Trainer`` on
+    ``BucketedPipeline`` batches with ``MaskedSoftmaxCELoss`` and
+    ``masked_batch_loss``; then one predict call a bucket on the
+    CachedOp's graphs (one capture a bucket) and a second round (replays
+    only)."""
+    from mxnet_tpu_torch import bucketing
+    samples = [(np.asarray(s[:-1], np.float32), np.asarray(s[1:], np.float32))
+               for s in sents]
+    pipe = bucketing.BucketedPipeline(samples, LM_BATCH, ladder=LM_BUCKETS,
+                                      invalid_label=0, name="lm")
+    net = lstm_gluon_lm(mx)
+    mx.random.seed(LM_SEED)
+    net.initialize(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(LM_SGD, learning_rate=LM_GLUON_LR))
+    loss_fn = bucketing.MaskedSoftmaxCELoss()
+    zeros = mx.nd.zeros((LM_LAYERS, LM_BATCH, LM_HIDDEN))
+    losses, times, keys, first = [], [], [], {}
+    for batch in pipe:
+        if len(losses) == LM_GLUON_STEPS:
+            break
+        first.setdefault(batch.bucket_key, batch)
+        mask = mx.nd.array(pipe.mask_for(batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            logits = net(batch.data[0], zeros, zeros)
+            loss = bucketing.masked_batch_loss(
+                loss_fn(logits, batch.label[0], mask), batch.valid_rows)
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(loss.asnumpy()))
+        times.append((time.perf_counter() - t0) * 1e3)
+        keys.append(batch.bucket_key)
+    head, tail = np.mean(losses[:16]), np.mean(losses[-16:])
+    upd = trainer._fused_updater.stats() if trainer._fused_updater else {}
+    for _ in range(2):
+        for batch in first.values():
+            net(batch.data[0], zeros, zeros).asnumpy()
+    graphs = net._cached_op.stats()
+    by_bucket = {}
+    for k, t in zip(keys[8:], times[8:]):
+        by_bucket.setdefault(k, []).append(t)
+    print("  (d) Gluon LM (hybridized Embedding -> gluon.rnn.LSTM(%d, %d "
+          "layers) -> Dense(%d)), Trainer SGD lr %g on BucketedPipeline "
+          "batches, MaskedSoftmaxCELoss + masked_batch_loss: %d steps, loss "
+          "%.4f over the first 16 steps -> %.4f over the last 16; ms a step "
+          "(median, after 8) %s (%s); fused update graphs %s; predict graphs "
+          "over %d buckets twice: %s; pipeline padding share %s"
+          % (LM_HIDDEN, LM_LAYERS, LM_VOCAB, LM_GLUON_LR, len(losses), head,
+             tail, " ".join("%d:%.2f" % (k, statistics.median(v))
+                            for k, v in sorted(by_bucket.items())), card,
+             upd, len(first), graphs,
+             pipe.stats.snapshot()["padding_share"]))
+    if not np.isfinite(tail) or not tail < head:
+        fail("(d): the Gluon LM's loss did not fall: %.4f -> %.4f"
+             % (head, tail))
+    if graphs["captures"] != len(first) or graphs["recaptures"] \
+            or graphs["replays"] != 2 * len(first):
+        fail("(d): predict graphs %s over %d buckets" % (graphs, len(first)))
+    if upd.get("captures") != 1 or upd.get("recaptures"):
+        fail("(d): the Trainer's fused update graphs: %s" % upd)
+    return dict(head=head, tail=tail, ms={k: statistics.median(v)
+                                          for k, v in by_bucket.items()})
+
+
+def pack_stream(seed=0):
+    """Mixed-length samples for the packing path: each (L, heads, 3 x D),
+    q, k and v side by side."""
+    rs = np.random.RandomState(seed)
+    return [rs.randn(int(L), PACK_HEADS, 3 * PACK_DIM).astype(np.float32)
+            for L in rs.randint(PACK_LENGTHS[0], PACK_LENGTHS[1] + 1,
+                                PACK_SAMPLES)]
+
+
+def packed_attention(mx, tfa, card):
+    """(e): PackedPipeline batches through ``_contrib_flash_attention``
+    with their segment plane, causal, forward and backward on the
+    kernels, held to the plain version (TOL forward, BWD_TOL backward),
+    no gradient outside the touched sample; launch counts zeroed just
+    before and read just after. Returns (launches, the first batch's
+    plane on the card, the largest forward and backward errors)."""
+    from mxnet_tpu_torch import bucketing
+    pipe = bucketing.PackedPipeline(pack_stream(), PACK_BATCH,
+                                    ladder=PACK_LADDER, name="pack")
+    batches = []
+    for b in pipe:
+        batches.append(b)
+        if len(batches) == PACK_BATCHES:
+            break
+    tfa.reset_launches()
+    runs = []
+    for b in batches:
+        x = b.data[0]._data
+        seg = torch.from_numpy(b.segment_ids).to(x.device)
+        q, k, v = (mx.nd.NDArray(x[..., i * PACK_DIM:(i + 1) * PACK_DIM]
+                                 .contiguous()) for i in range(3))
+        for a in (q, k, v):
+            a.attach_grad()
+        touched = int(b.n_segments) // 2 + 1
+        sel = mx.nd.NDArray((seg == touched).to(torch.float32)[..., None,
+                                                                 None])
+        with mx.autograd.record():
+            out = mx.nd._contrib_flash_attention(
+                q, k, v, mx.nd.NDArray(seg), causal=True)
+            loss = (out * out * sel).sum()
+        loss.backward()
+        runs.append((b, seg, out._data.detach(),
+                     [a.grad._data.clone() for a in (q, k, v)], touched))
+    torch.cuda.synchronize()
+    launches = dict(tfa.launches)
+    ferr = berr = 0.0
+    for b, seg, got, grads, touched in runs:
+        x = b.data[0]._data
+        leaves = [x[..., i * PACK_DIM:(i + 1) * PACK_DIM].contiguous()
+                  .requires_grad_(True) for i in range(3)]
+        ref = tfa.flash_attention(*leaves, causal=True, segment_ids=seg,
+                                  impl="plain")
+        sel = (seg == touched).to(torch.float32)[..., None, None]
+        want = torch.autograd.grad((ref * ref * sel).sum(), leaves)
+        real = seg > 0
+        e, ok = close(got[real], ref.detach()[real], TOL)
+        ferr = max(ferr, e)
+        if not ok:
+            fail("(e): packed forward disagrees with the plain version: %.3g"
+                 % e)
+        for g, w in zip(grads, want):
+            e, ok = close(g, w, BWD_TOL)
+            berr = max(berr, e)
+            if not ok:
+                fail("(e): packed backward disagrees with the plain "
+                     "version: %.3g" % e)
+            if bool((g[seg != touched] != 0).any()):
+                fail("(e): a gradient crossed a segment (sample %d)"
+                     % touched)
+    want = {"flash_fwd": len(runs), "flash_bwd_dkdv": len(runs),
+            "flash_bwd_dq": len(runs)}
+    print("  (e) PackedPipeline (seed 0, ladder %s, %d mixed-length samples "
+          "%d-%d): %d batches of B%d T%d H%d D%d, %s samples a batch, real "
+          "token fraction %s; _contrib_flash_attention causal with the "
+          "segment plane, forward and backward: err %.3g forward, %.3g "
+          "backward; gradients zero outside the touched sample; segmented "
+          "launches %s"
+          % (PACK_LADDER, PACK_SAMPLES, PACK_LENGTHS[0], PACK_LENGTHS[1],
+             len(runs), PACK_BATCH, PACK_LADDER[-1], PACK_HEADS, PACK_DIM,
+             [int(r[0].n_segments) for r in runs],
+             pipe.stats.snapshot()["real_token_fraction"], ferr, berr,
+             {k: launches[k] for k in want}))
+    if any(launches[k] != n for k, n in want.items()) or \
+            any(v for k, v in launches.items() if k not in want):
+        fail("(e): segmented launches %s, want %s" % (launches, want))
+    return launches, runs[0][1], ferr, berr
+
+
+def phase_bucketing(card, tfa):
+    """Phase 19: variable-length training, the fifteenth slice's main
+    path. Returns (the packing path's launches, its forward record, its
+    backward records, its errors)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    sents = lm_corpus()
+    lens = np.array([len(s) for s in sents])
+    print("bucketing: synthetic corpus of PTB's shape (seed %d): %d "
+          "sentences, vocabulary %d (Zipf), %d successors a token taken "
+          "with p %.2f; lengths mean %.1f, %.1f%% under 40, %d past %d "
+          "(discarded); made in %.2f s"
+          % (LM_SEED, len(sents), LM_VOCAB, LM_SUCCESSORS, LM_CHAIN,
+             lens.mean(), 100.0 * (lens < 40).mean(),
+             int((lens > LM_BUCKETS[-1]).sum()), LM_BUCKETS[-1],
+             time.perf_counter() - t0))
+    tfa.reset_launches()
+    # (a) the LSTM LM through BucketingModule.fit on the fused step
+    it = lm_iter(mx, sents)
+    mod = lm_module(mx, lm_sym_gen(mx), it)
+    init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    print("  (a) 2 x LSTMCell(%d) + Embedding(%d) + FC(%d) + SoftmaxOutput"
+          "(use_ignore), %.2fM parameters, buckets %s, batch %d, SGD %s, "
+          "Xavier(in, 2.34), %d epochs = %d steps an epoch"
+          % (LM_HIDDEN, LM_EMBED, LM_VOCAB, sum(v.size for v in
+                                                init.values()) / 1e6,
+             LM_BUCKETS, LM_BATCH, LM_SGD, LM_EPOCHS, len(it.idx)))
+    before = profiler.counters().get("fused_step_fallbacks", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = CaptureClock()
+    watch = lm_fit(mx, mod, it, LM_EPOCHS, clock)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    fallbacks = profiler.counters().get("fused_step_fallbacks", 0) - before
+    fused = lm_report("(a)", watch, card)
+    print("  (a) fused_step_fallbacks %d; peak memory %.1f MB allocated, "
+          "%.1f MB reserved" % (fallbacks, peak,
+                                torch.cuda.memory_reserved() / 2 ** 20))
+    if fallbacks:
+        fail("(a): %d fused-step fallbacks" % fallbacks)
+    batches = lm_batches(it)
+    step_ms = lm_step_times(mod, batches, card, "(a) fused, replayed")
+    t1 = time.perf_counter()
+    ppl = mx.metric.Perplexity(ignore_label=0)
+    mod.update_metric(ppl, batches[-1].label)
+    torch.cuda.synchronize()
+    print("  (a) update_metric (Perplexity, probabilities to the host) on "
+          "the bucket-%d batch: %.2f ms" % (batches[-1].bucket_key,
+                                            (time.perf_counter() - t1) * 1e3))
+    prof = lm_profile(mod, batches[-1], card, "(a)")
+    if any(tfa.launches.values()):
+        fail("(a): the LSTM LM launched attention kernels: %s"
+             % tfa.launches)
+    print("  (a) done at %.1f s of the phase" % (time.perf_counter() - t_phase))
+    # (b) the same fit with MXNET_FUSED_STEP=0, and one step each way
+    with fused_gate(False):
+        it_b = lm_iter(mx, sents)
+        mod_b = lm_module(mx, lm_sym_gen(mx), it_b, arg_params=init)
+        watch_b = lm_fit(mx, mod_b, it_b, LM_EAGER_EPOCHS, CaptureClock())
+        eager = lm_report("(b) MXNET_FUSED_STEP=0", watch_b, card,
+                          fused=False)
+        eager_ms = lm_step_times(mod_b, lm_batches(it_b), card,
+                                 "(b) eager", iters=5)
+    print("  (b) fused against eager ms a step: %s; epoch-1 perplexity "
+          "%.6f fused, %.6f eager"
+          % (" ".join("%d: %.3f / %.3f" % (k, step_ms[k], eager_ms[k])
+                      for k in sorted(step_ms)), fused["ppl"][0],
+             eager["ppl"][0]))
+    if abs(eager["ppl"][0] - fused["ppl"][0]) > LM_PPL_REL * fused["ppl"][0]:
+        fail("(b): the eager fit's epoch-1 perplexity %.6f is not the fused "
+             "fit's %.6f" % (eager["ppl"][0], fused["ppl"][0]))
+    del mod_b, it_b
+    lm_fused_vs_eager(mx, lm_sym_gen(mx), init, batches[-1], card)
+    print("  (b) done at %.1f s of the phase" % (time.perf_counter() - t_phase))
+    # (c) the FusedRNNCell variant: one RNN op, from (a)'s weights
+    finit = fused_lstm_params(init)
+    it_c = lm_iter(mx, sents)
+    mod_c = lm_module(mx, lm_sym_gen(mx, fused=True), it_c,
+                      arg_params=finit)
+    ref = lm_module(mx, lm_sym_gen(mx), lm_iter(mx, sents), arg_params=init)
+    probe = batches[0]
+    mod_c.forward(probe, is_train=False)
+    ref.forward(probe, is_train=False)
+    err, ok = close(mod_c.get_outputs()[0]._data, ref.get_outputs()[0]._data,
+                    LM_FUSED_TOL)
+    print("  (c) FusedRNNCell (one RNN op, 2 layers of %d) from (a)'s "
+          "weights: bucket-%d probabilities against the unrolled cells' "
+          "max abs err %.3g (rtol %g, atol %g)"
+          % (LM_HIDDEN, probe.bucket_key, err, LM_FUSED_TOL["rtol"],
+             LM_FUSED_TOL["atol"]))
+    if not ok:
+        fail("(c): the RNN op's model disagrees with the unrolled cells")
+    del ref
+    watch_c = lm_fit(mx, mod_c, it_c, LM_EPOCHS, CaptureClock())
+    fused_c = lm_report("(c) FusedRNNCell", watch_c, card)
+    step_c = lm_step_times(mod_c, lm_batches(it_c), card,
+                           "(c) FusedRNNCell, replayed")
+    prof_c = lm_profile(mod_c, lm_batches(it_c)[-1], card, "(c)")
+    del mod_c, it_c, mod, it
+    rnn = rnn_op_timing(mx, finit, card)
+    print("  (c) done at %.1f s of the phase" % (time.perf_counter() - t_phase))
+    # (d) the Gluon path
+    gl = gluon_lm_train(mx, sents, card)
+    if any(tfa.launches.values()):
+        fail("(a)-(d): the LSTM paths launched attention kernels: %s"
+             % tfa.launches)
+    print("  attention and decode kernel launches over (a)-(d): %s (none "
+          "is on these paths); (d) done at %.1f s of the phase"
+          % (dict(tfa.launches), time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    # (e) the packing path on the flash kernels
+    launches, seg, ferr, berr = packed_attention(mx, tfa, card)
+    H, D, T = PACK_HEADS, PACK_DIM, PACK_LADDER[-1]
+    fwd = fwd_case(tfa, PACK_BATCH, T, T, H, D, True, True, seed=31,
+                   seg=seg)
+    bwd = bwd_case(tfa, PACK_BATCH, T, T, H, D, True, True, seed=32,
+                   seg=seg)
+    print("bucketing phase %.1f s" % (time.perf_counter() - t_phase))
+    return dict(launches=launches, fwd=fwd, bwd=bwd, ferr=max(ferr, fwd["err"]),
+                berr={k: max(berr, bwd[k]["err"]) for k in bwd},
+                fused=fused, eager=eager, fused_c=fused_c, step_ms=step_ms,
+                eager_ms=eager_ms, step_c=step_c, prof=prof, prof_c=prof_c,
+                rnn=rnn, gluon=gl)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -5737,6 +6515,7 @@ def main():
     phase_export_train(card, phase_zoo(card))
     phase_amp(card, tfa, module_readings, resnet_readings)
     phase_input(card, module_readings)
+    pack = phase_bucketing(card, tfa)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -5761,7 +6540,13 @@ def main():
         kernel_row("flash_decode_q8", Q8_SRC, Q8_TPU, "int8 decode",
                    "B8 T576 H12 D64 int8", q8_launches, q8,
                    max(q8["err"], q8_pool_err)),
-    ] + [rtc_row(name, rtc[name], rtc_launches) for name in rtc]
+    ] + [rtc_row(name, rtc[name], rtc_launches) for name in rtc] + [
+        kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "packing", PACK_SHAPE,
+                   pack["launches"], pack["fwd"], pack["ferr"]),
+    ] + [kernel_row(kname, BWD_SRC[kname], BWD_TPU[kname], "packing",
+                    PACK_SHAPE, pack["launches"], pack["bwd"][kname],
+                    pack["berr"][kname])
+         for kname in ("flash_bwd_dkdv", "flash_bwd_dq")]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))

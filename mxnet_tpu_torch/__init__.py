@@ -49,7 +49,12 @@ What is ported:
   ``Module.fit`` reads, ``SequentialModule``/``PythonModule``,
   ``tools.im2rec``/``tools.rec2idx`` and ``gluon.data`` (datasets,
   samplers, the DataLoader with ``device_prefetch``, vision
-  transforms).
+  transforms);
+- variable-length training: the ``RNN`` op, ``mx.rnn`` (symbolic cells,
+  ``BucketSentenceIter``), ``gluon.rnn``, ``mx.bucketing`` (ladders,
+  padding, masked losses and metrics, ``BucketedPipeline``, packing)
+  and ``mx.mod.BucketingModule`` (one fused-step CUDA graph per
+  bucket).
 
 Typical use mirrors MXNet::
 
@@ -95,6 +100,8 @@ from . import amp
 from . import fused_step
 from . import module
 from . import module as mod
+from . import rnn
+from . import bucketing
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "NameManager", "AttrScope", "nd", "ndarray",
@@ -102,4 +109,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "autograd", "init", "initializer", "optimizer", "gluon", "rtc",
            "executor", "io", "recordio", "metric", "lr_scheduler", "callback", "model",
            "checkpoint", "fault", "profiler", "amp", "fused_step", "module",
-           "mod"]
+           "mod", "rnn", "bucketing"]

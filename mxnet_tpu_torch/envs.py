@@ -105,6 +105,16 @@ declare("MXNET_DATA_WORKERS", "int", 2,
 declare("MXNET_USE_NATIVE_IO", "bool", True,
         "Use the native record/image readers where available.", _G)
 
+_G = "bucketing"
+declare("MXNET_BUCKET_LADDER", "str", "",
+        "Process-default shape ladder: '8,16,32' or "
+        "'4x16,8x16,8x32' (parsed by bucketing.ladder).", _G)
+declare("MXNET_BUCKET_WINDOW", "int", None,
+        "Ragged-stream reorder window, samples (default "
+        "4 x batch_size).", _G)
+declare("MXNET_BUCKETING_RECORD_EVERY", "int", 50,
+        "Batches between bucketing telemetry records.", _G)
+
 _G = "core"
 declare("MXNET_FUSED_STEP", "bool", True,
         "Run the whole optimizer update (and, on the Module path, "
@@ -358,7 +368,8 @@ def get_path(name, default=_UNSET) -> Optional[str]:
 
 def get_raw(name) -> Optional[str]:
     """The unparsed value of a DECLARED variable (None when unset) —
-    for knobs with their own grammar (``MXNET_FAULT_PLAN``)."""
+    for knobs with their own grammar (``MXNET_FAULT_PLAN``,
+    ``MXNET_BUCKET_LADDER``)."""
     if name not in _REGISTRY:
         _var(name, "str")          # raises the not-registered error
     return os.environ.get(name)

@@ -8,6 +8,9 @@ packages, name the same weight differently. The structural names of
 the block tree; the JAX package's blocks give the same ones, so
 ``{name: p.data().asnumpy()}`` from a JAX net (its auxiliary states,
 BatchNorm's running statistics, too) loads into the port's copy of it.
+The recurrent layers and cells of ``gluon.rnn`` load the same way: a
+layer's per-layer, per-direction weights (``lstm.l0_i2h_weight`` ...)
+bind its deferred input width from the given array.
 """
 from __future__ import annotations
 

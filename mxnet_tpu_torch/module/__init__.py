@@ -1,6 +1,6 @@
-"""Module API (counterpart of ``mxnet_tpu/module``). ``BucketingModule``
-is not ported yet (ROADMAP queue A item 10)."""
+"""Module API (counterpart of ``mxnet_tpu/module``)."""
 from .base_module import BaseModule
 from .module import Module
+from .bucketing_module import BucketingModule
 from .sequential_module import SequentialModule
 from .python_module import PythonModule, PythonLossModule

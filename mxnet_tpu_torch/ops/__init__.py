@@ -4,7 +4,7 @@ queue A lists the rest."""
 from .registry import (OpDef, register, get_op, find_op, list_ops, invoke,
                        normalize_attrs)
 from . import (elemwise, matrix, reduce, nn, indexing, attention,  # noqa: F401
-               optimizer_ops)
+               optimizer_ops, init_ops, rnn_op)
 
 __all__ = ["OpDef", "register", "get_op", "find_op", "list_ops", "invoke",
            "normalize_attrs"]

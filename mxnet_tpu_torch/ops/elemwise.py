@@ -1,6 +1,6 @@
 """Elementwise operators (counterpart of ``mxnet_tpu/ops/elemwise.py``):
 the unary, broadcasting binary and scalar ops that NDArray arithmetic
-and the slice's losses reach. MXNet's dtype conventions are kept:
+and the losses reach, and ``where``. MXNet's dtype conventions are kept:
 comparisons return 0/1 in the input dtype, and a scalar operand takes
 the array's dtype (an integer array gets an integer scalar)."""
 from __future__ import annotations
@@ -17,6 +17,7 @@ _UNARY = {
     "sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log,
     "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
     "negative": torch.neg,
+    "softsign": lambda x: x / (1 + torch.abs(x)),
     "_copy": lambda x: x.clone(),
     "zeros_like": torch.zeros_like,
     "ones_like": torch.ones_like,
@@ -53,6 +54,7 @@ _BINARY = {
     "broadcast_mul": torch.mul,
     "broadcast_div": torch.div,
     "broadcast_power": torch.pow,
+    "broadcast_maximum": torch.maximum,
     "broadcast_equal": _cmp(torch.eq),
     "broadcast_not_equal": _cmp(torch.ne),
     "broadcast_greater": _cmp(torch.gt),
@@ -67,6 +69,7 @@ _BINARY_ALIASES = {
     "broadcast_mul": ("elemwise_mul", "_mul"),
     "broadcast_div": ("elemwise_div", "_div"),
     "broadcast_power": ("_power", "_pow"),
+    "broadcast_maximum": ("_maximum",),
 }
 
 for _name, _fn in _BINARY.items():
@@ -102,3 +105,7 @@ _SCALAR = {
 for _name, _fn in _SCALAR.items():
     register(_name, lambda attrs, x, _f=_fn: _f(x, _sc(x, attrs)),
              arg_names=_D, defaults={"scalar": 0.0})
+
+
+register("where", lambda attrs, c, x, y: torch.where(c != 0, x, y),
+         arg_names=("condition", "x", "y"))

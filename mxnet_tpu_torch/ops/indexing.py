@@ -1,6 +1,7 @@
 """Indexing operators (counterpart of ``mxnet_tpu/ops/indexing.py``):
-``Embedding`` (row lookup, indices clipped into range) and ``pick``
-(one element per row along an axis, ``clip`` or ``wrap`` indices)."""
+``Embedding`` (row lookup, indices clipped into range), ``pick``
+(one element per row along an axis, ``clip`` or ``wrap`` indices) and
+``gather_nd``."""
 from __future__ import annotations
 
 import torch
@@ -36,3 +37,13 @@ def _pick(attrs, data, index):
 register("pick", _pick, arg_names=("data", "index"),
          defaults={"axis": -1, "keepdims": False, "mode": "clip"},
          aliases=("choose_element_0index",))
+
+
+def _gather_nd(attrs, data, indices):
+    """``data[indices[0], ..., indices[M-1]]``: the leading axis of
+    ``indices`` holds one coordinate plane per indexed dim of ``data``."""
+    idx = indices.to(torch.long)
+    return data[tuple(idx[i] for i in range(idx.shape[0]))]
+
+
+register("gather_nd", _gather_nd, arg_names=("data", "indices"))

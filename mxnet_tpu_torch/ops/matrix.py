@@ -4,9 +4,9 @@ rest, -3 merges two, -4 splits one; ``reverse`` resolves right to left),
 Flatten (all but the batch dim into one), SliceChannel (equal parts
 along one axis, one output each), Concat (any number of inputs along
 one axis), stack (along a new axis), expand_dims, transpose, reverse
-(``flip``), dot (the last axis of ``lhs`` with the first of ``rhs``) and
+(``flip``), dot (the last axis of ``lhs`` with the first of ``rhs``),
 Pad (constant, edge or reflect, one ``(before, after)`` pair per
-dim)."""
+dim), SwapAxis (``swapaxes``), slice_axis, tile and reshape_like."""
 from __future__ import annotations
 
 import torch
@@ -207,3 +207,27 @@ def _pad(attrs, x):
 register("Pad", _pad, arg_names=_D,
          defaults={"mode": "constant", "pad_width": (), "constant_value": 0.0},
          aliases=("pad",))
+
+
+register("SwapAxis", lambda attrs, x: torch.swapaxes(
+    x, int(attrs.get("dim1", 0)), int(attrs.get("dim2", 0))),
+    arg_names=_D, defaults={"dim1": 0, "dim2": 0}, aliases=("swapaxes",))
+
+
+def _slice_axis(attrs, x):
+    """``x[begin:end]`` along ``axis`` (``end=None`` to the end;
+    negative bounds count from the end)."""
+    idx = [slice(None)] * x.dim()
+    idx[int(attrs["axis"])] = slice(attrs.get("begin", 0),
+                                    attrs.get("end", None))
+    return x[tuple(idx)]
+
+
+register("slice_axis", _slice_axis, arg_names=_D,
+         defaults={"axis": 0, "begin": 0, "end": None})
+
+register("tile", lambda attrs, x: torch.tile(x, tuple(attrs["reps"])),
+         arg_names=_D, defaults={"reps": ()})
+
+register("reshape_like", lambda attrs, x, y: x.reshape(y.shape),
+         arg_names=("lhs", "rhs"))

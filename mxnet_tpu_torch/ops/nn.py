@@ -1,7 +1,8 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``):
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Activation``,
 ``BatchNorm``, ``LayerNorm``, ``Pooling``, ``Dropout``, ``softmax``,
-``log_softmax`` and the loss layer ``SoftmaxOutput``. Matrix products
+``log_softmax``, the loss layer ``SoftmaxOutput`` and the sequence ops
+(``SequenceMask``, ``SequenceLast``, ``SequenceReverse``). Matrix products
 and (transposed) convolutions go to cuBLAS and cuDNN through torch, as
 the JAX package leaves them to XLA (``jnp.dot``,
 ``lax.conv_general_dilated``); there is no hand kernel among them.
@@ -558,3 +559,79 @@ register("SoftmaxOutput", _softmax_output, arg_names=("data", "label"),
          output_shapes=lambda attrs, data, label: [(tuple(data.shape),
                                                     data.dtype)],
          aliases=("Softmax",))
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops: ``axis`` is the time axis (0: (T, B, ...), 1: (B, T, ...));
+# with ``use_sequence_length`` each sample's own length applies
+# ---------------------------------------------------------------------------
+
+def _seq_args(attrs):
+    return ["data", "sequence_length"] \
+        if attrs.get("use_sequence_length", False) else ["data"]
+
+
+def _time_index(data, axis):
+    """``t`` broadcast over ``data``'s shape along ``axis``."""
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return torch.arange(data.shape[axis], device=data.device).reshape(shape)
+
+
+def _sequence_mask(attrs, data, sequence_length=None):
+    """Positions at or past each sample's length set to ``value``."""
+    if not attrs.get("use_sequence_length", False) \
+            or sequence_length is None:
+        return data
+    axis = int(attrs.get("axis", 0))
+    batch_axis = 1 - axis
+    shape = [1] * data.dim()
+    shape[batch_axis] = data.shape[batch_axis]
+    lens = sequence_length.to(torch.int32).reshape(shape)
+    return torch.where(_time_index(data, axis) < lens, data,
+                       torch.tensor(float(attrs.get("value", 0.0)),
+                                    dtype=data.dtype, device=data.device))
+
+
+register("SequenceMask", _sequence_mask,
+         arg_names=("data", "sequence_length"),
+         defaults={"use_sequence_length": False, "value": 0.0, "axis": 0},
+         arg_names_fn=_seq_args)
+
+
+def _sequence_last(attrs, data, sequence_length=None):
+    """Each sample's last valid step (the last step without lengths)."""
+    axis = int(attrs.get("axis", 0))
+    if not attrs.get("use_sequence_length", False) \
+            or sequence_length is None:
+        return data.select(axis, -1)
+    moved = torch.movedim(data, axis, 0)                 # (T, B, ...)
+    last = (sequence_length.to(torch.long) - 1).reshape(
+        (1, -1) + (1,) * (moved.dim() - 2))
+    return torch.take_along_dim(moved, last, dim=0)[0]
+
+
+register("SequenceLast", _sequence_last,
+         arg_names=("data", "sequence_length"),
+         defaults={"use_sequence_length": False, "axis": 0},
+         arg_names_fn=_seq_args)
+
+
+def _sequence_reverse(attrs, data, sequence_length=None):
+    """Each sample's first ``length`` steps reversed, the rest kept."""
+    axis = int(attrs.get("axis", 0))
+    if not attrs.get("use_sequence_length", False) \
+            or sequence_length is None:
+        return torch.flip(data, (axis,))
+    moved = torch.movedim(data, axis, 0)                 # (T, B, ...)
+    lens = sequence_length.to(torch.long).reshape(
+        (1, -1) + (1,) * (moved.dim() - 2))
+    t = _time_index(moved, 0)
+    src = torch.where(t < lens, lens - 1 - t, t).expand(moved.shape)
+    return torch.movedim(torch.gather(moved, 0, src), 0, axis)
+
+
+register("SequenceReverse", _sequence_reverse,
+         arg_names=("data", "sequence_length"),
+         defaults={"use_sequence_length": False, "axis": 0},
+         arg_names_fn=_seq_args)

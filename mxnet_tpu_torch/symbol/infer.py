@@ -81,3 +81,15 @@ PARAM_SHAPE_HOOKS["LayerNorm"] = _channel_param(-1)
 @hook("Embedding")
 def _embedding(attrs, in_shapes):
     return {1: (int(attrs["input_dim"]), int(attrs["output_dim"]))}
+
+
+@hook("RNN")
+def _rnn(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return {}
+    from ..ops.rnn_op import param_size
+    return {1: (param_size(attrs.get("mode", "lstm"),
+                           attrs.get("num_layers", 1),
+                           attrs.get("bidirectional", False), data[2],
+                           attrs["state_size"]),)}

@@ -31,6 +31,7 @@ from .. import ops as _ops
 from .infer import PARAM_SHAPE_HOOKS
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
+           "zeros",
            "create"]
 
 
@@ -230,6 +231,7 @@ class Symbol:
                     if i < len(n.inputs) and in_shapes[i] is None:
                         src, sidx = n.inputs[i]
                         in_shapes[i] = shapes[(id(src), sidx)] = tuple(shp)
+                        dtypes.setdefault((id(src), sidx), torch.float32)
                         if src.is_variable():
                             var_shape[id(src)] = tuple(shp)
             if any(s is None for s in in_shapes):
@@ -545,3 +547,9 @@ def load_json(json_str):
                                  if k not in op_attrs}
         nodes.append(node)
     return Symbol([(nodes[h[0]], h[1]) for h in data["heads"]])
+
+
+def zeros(shape, dtype="float32", name=None, **kwargs):
+    """A Symbol of zeros (the ``_zeros`` op)."""
+    return create("_zeros", [], {"shape": tuple(shape), "dtype": dtype},
+                  name=name)

@@ -25,6 +25,8 @@ records — one schema, one sink (counterpart of
   each ``serving.Router``, ``usage`` records from the meter
   (``metering``), and ``alert`` records (a confirmed replica loss, an
   SLO-watchdog breach) that also trigger the flight recorder.
+- **Bucketing records** — cumulative ``bucketing`` records from each
+  shape-bucketing producer (``bucketing.BucketingStats``).
 - **Comms ledger** — the input pipeline's host-to-device copies
   (:func:`h2d`), calls, bytes and milliseconds per ``h2d:<array>``, in
   the summary's ``comms`` (present once a copy was accounted).
@@ -47,7 +49,8 @@ also arms the tracer (``MXNET_TRACE``), the flight recorder
 (``MXNET_METRICS_PORT``) and the SLO watchdog (``MXNET_WATCHDOG``).
 
 JSONL record types: ``run_start``, ``step``, ``memory``, ``summary``,
-``decode``, ``prefix_cache``, ``router``, ``usage`` and ``alert``;
+``decode``, ``prefix_cache``, ``router``, ``bucketing``, ``usage`` and
+``alert``;
 a subsystem that never runs writes none of its kinds, so the sink is
 byte-identical to a run without it. The JAX package's other kinds
 arrive with the modules that emit them (``ROADMAP.md`` queue A).
@@ -68,7 +71,7 @@ __all__ = ["enabled", "start", "stop", "reset", "maybe_start",
            "recent_rate", "sample_memory", "flush", "report",
            "quick_stats", "percentile", "external_record",
            "checkpoint_event", "decode_event", "router_event", "prefix_cache_event",
-           "alert_event", "usage_event", "comm", "h2d"]
+           "bucketing_event", "alert_event", "usage_event", "comm", "h2d"]
 
 _lock = threading.Lock()
 _run = None          # the active _Run
@@ -122,6 +125,8 @@ class _Run:
                                      # (dispatch/failover) stats
         self.prefix = None           # per-server cumulative KV
                                      # prefix-cache (page sharing) stats
+        self.bucketing = None        # per-producer cumulative bucketing
+                                     # (pads, discards, per-bucket) stats
         self.ckpt = None             # checkpoint-save aggregates (lazy)
         self.usage = None            # per-meter cumulative usage
                                      # (tenant cost-attribution) stats
@@ -624,6 +629,32 @@ def prefix_cache_event(fields):
         _cap_records_locked(run)
 
 
+def bucketing_event(fields):
+    """Append one cumulative ``bucketing`` record from a shape-
+    bucketing producer (``bucketing.BucketingStats``: per-bucket batch
+    counts, padding-overhead share, pad-row and discarded-sample
+    counts; producers emit every ``MXNET_BUCKETING_RECORD_EVERY``
+    batches and at epoch boundaries). Latest snapshot per producer
+    ``name`` lands in the summary's ``bucketing`` block. No-op without
+    a run, so an unbucketed run keeps a byte-identical sink."""
+    run = _run
+    if run is None:
+        return
+    rec = {"type": "bucketing", "seq": run.steps,
+           "t": round(time.time() - run.t0_wall, 6)}
+    rec.update(fields)
+    with _lock:
+        if run.bucketing is None:
+            run.bucketing = {}
+        # cumulative per producer: latest wins
+        run.bucketing[fields.get("name") or "default"] = dict(fields)
+        run.records.append(rec)
+        _remember(rec)
+        # a stepless sink-less loop (a bare data-pipeline soak) must
+        # not grow records unboundedly
+        _cap_records_locked(run)
+
+
 def router_event(fields):
     """Append one cumulative ``router`` record from a
     ``serving.Router`` (dispatches, failovers and replayed
@@ -879,6 +910,9 @@ def report():
         if run.prefix is not None:
             out["prefix_cache"] = {k: dict(v)
                                    for k, v in run.prefix.items()}
+        if run.bucketing is not None:
+            out["bucketing"] = {k: dict(v)
+                                for k, v in run.bucketing.items()}
         if run.usage is not None:
             out["usage"] = {k: dict(v)
                             for k, v in run.usage.items()}

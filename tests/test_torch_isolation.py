@@ -42,7 +42,12 @@ def test_every_module_imports_with_jax_and_mxnet_tpu_blocked():
                 "module.sequential_module", "module.python_module",
                 "tools.im2rec", "tools.rec2idx", "gluon.data.dataset",
                 "gluon.data.sampler", "gluon.data.dataloader",
-                "gluon.data.vision.transforms"):
+                "gluon.data.vision.transforms", "ops.rnn_op",
+                "ops.init_ops", "rnn.rnn_cell", "rnn.io", "bucketing.ladder",
+                "bucketing.padding", "bucketing.record", "bucketing.masked",
+                "bucketing.iter", "bucketing.packing",
+                "module.bucketing_module", "gluon.rnn.rnn_cell",
+                "gluon.rnn.rnn_layer"):
         assert "mxnet_tpu_torch." + mod in mods
     code = ("import sys\n"
             "for name in %r:\n"
@@ -77,3 +82,18 @@ def test_no_import_of_jax_or_mxnet_tpu(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
         assert top not in BLOCKED, "%s imports %s" % (path.name, name)
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A phase's helper must not shadow another phase's: chip_smoke.py
+    binds each top-level function, class and constant once."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names.extend(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    dup = sorted({n for n in names if names.count(n) > 1})
+    assert not dup, dup
