@@ -336,6 +336,37 @@ no result, anywhere else. Phases (any failure exits non-zero):
    batch); then the three kernels timed at B8 T256 on that segment
    plane (as phases 3-4). Attention and decode launches over (a)-(d),
    zeroed before, must read 0.
+20. gan (after 19) — the sixteenth slice's main path, the rest of the
+   Gluon surface and ``mx.random``, fp32 with TF32 off: (a) each of the
+   17 sampling ops (``_random_*``, ``_sample_*``, ``_sample_multinomial``
+   with ``get_prob``, ``_shuffle``) at 2^20 draws made on gpu(0), with
+   no host-to-device copy while they draw (profiler), held to the
+   moments and bounds of tests/test_random_samplers.py with its
+   tolerances scaled by sqrt(40000 / 2^20), ``randint`` within a
+   chi-square bound, the shuffle a permutation, the tensor-parameter
+   rows each to its own parameters; ``mx.random.seed(n)`` repeats the
+   draws and ``seed(n, ctx=gpu(0))`` restarts only the card's; (b) the
+   new layers (the LeakyReLU family, rrelu in predict mode,
+   ``InstanceNorm``, ``HybridLambda``, the three ``PixelShuffle``s)
+   hybridized on the card at the DCGAN's shapes, the ten losses and
+   ``norm``, against the port on the CPU from the same numpy inputs
+   (outputs, input and parameter gradients, the predict graph's output;
+   rtol = atol = 1e-5), and the five new initializers bit-identical on
+   both under one numpy seed; (c) the DCGAN of MXNet's Gluon GAN
+   tutorial at its widths (nz 100, ngf = ndf = 64, 64x64, batch 64;
+   ``summary()`` counts 3,576,704 trainable parameters in G and
+   2,765,568 in D), ``Normal(0.02)``, ``SigmoidBCELoss``, two
+   ``Trainer("adam", beta1=0.5)`` at lr 2e-4, both nets hybridized, the
+   latent drawn by ``mx.nd.random.normal`` on gpu(0) each step: the
+   first step bit-identical to the same nets run op by op under
+   deterministic cuDNN, D's first loss near 2 ln 2; then 300 steps on
+   2048 synthetic images (``gan_images``, seed 0) under the non-finite
+   guard: no step skipped, every loss finite, the tutorial's binary
+   accuracy of D above chance, G's samples in [-1, 1], no graph
+   recaptured; ms a GAN step, images/s, device busy by class
+   (convolutions, Adam, BatchNorm/elementwise), the idle share and peak
+   memory. Attention, decode and rtc launches over (a)-(c), zeroed
+   before, must read 0.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc or
@@ -350,6 +381,7 @@ import gc
 import importlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -6448,6 +6480,778 @@ def phase_bucketing(card, tfa):
                 rnn=rnn, gluon=gl)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the rest of the Gluon surface, mx.random and the DCGAN
+# ---------------------------------------------------------------------------
+
+RANDOM_DRAWS = 1 << 20
+SAMPLER_N = 40000                   # tests/test_random_samplers.py's N
+SAMPLER_RTOL = 0.08                 # and its RTOL
+# its tolerances scaled to this sample size (a moment's spread falls as
+# 1/sqrt(n))
+SAMPLER_SCALE = math.sqrt(SAMPLER_N / RANDOM_DRAWS)
+RANDINT_CHI2 = 30.0                 # 5 degrees of freedom: p ~ 1.4e-5
+GAN_NZ, GAN_NGF, GAN_NDF, GAN_NC = 100, 64, 64, 3
+GAN_IMAGE = 64
+GAN_BATCH = 64
+GAN_IMAGES = 2048
+GAN_STEPS = 300
+GAN_TIMED = 20
+GAN_SPIN_CYCLES = 1 << 24           # ~8 ms: longer than a Trainer.step's host work
+GAN_SEED = 0
+GAN_ADAM = dict(learning_rate=2e-4, beta1=0.5)
+GAN_TRAINABLE = (3576704, 2765568)  # G, D at the tutorial's widths
+GAN_TOL = dict(rtol=1e-5, atol=1e-5)
+GAN_LOSS_START = 2 * math.log(2)
+GAN_ACC_MIN = 0.6
+GAN_CLASSES = (("convolutions", ("conv", "dgrad", "wgrad", "fprop", "bprop",
+                                 "xmma", "implicit", "gemm", "cutlass",
+                                 "winograd", "fft", "nchw", "nhwc",
+                                 "sm90_", "sm80_", "cudnn")),)
+
+
+def h2d_copies(prof):
+    """The host-to-device copies in a CUDA profile."""
+    return sum(1 for e in prof.events() if "memcpy htod" in e.name.lower())
+
+
+def random_cases(mx, ctx):
+    """The 17 sampling ops, each at RANDOM_DRAWS draws on ``ctx``: (name,
+    draw, check), ``check(numpy sample) -> [(what, ok)]``. The
+    tensor-parameter samplers draw two rows of half as many under their
+    own parameters."""
+    n = RANDOM_DRAWS
+    s = SAMPLER_SCALE
+    rt = SAMPLER_RTOL * s
+    half = n // 2
+
+    def two(a, b):
+        return mx.nd.array(np.array([a, b], np.float32), ctx=ctx)
+
+    def near(what, got, want, rtol=0.0, atol=0.0):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return ("%s %s (want %s)" % (what, np.round(got, 4).tolist(),
+                                     np.round(want, 4).tolist()),
+                bool(np.all(np.abs(got - want)
+                            <= atol + rtol * np.abs(want))))
+
+    def integral(x):
+        return ("integers", bool(np.all(x == np.round(x))))
+
+    probs = np.array([[0.1, 0.2, 0.7], [0.5, 0.3, 0.2]], np.float32)
+
+    def multinomial_check(out):
+        draws, lp = out
+        rows = [np.bincount(draws[r], minlength=3) / half for r in range(2)]
+        want_lp = np.log(probs)[np.arange(2)[:, None], draws]
+        return [near("row frequencies", rows, probs, atol=0.02 * s),
+                ("log-probabilities", bool(np.allclose(lp, want_lp,
+                                                       rtol=1e-5,
+                                                       atol=1e-6)))]
+
+    def randint_check(x):
+        counts = np.bincount(x.astype(np.int64), minlength=9)[3:9]
+        expect = x.size / 6.0
+        chi2 = float(((counts - expect) ** 2 / expect).sum())
+        return [("bounds [%d, %d]" % (x.min(), x.max()),
+                 x.min() == 3 and x.max() == 8),
+                ("chi-square %.2f < %.1f" % (chi2, RANDINT_CHI2),
+                 chi2 < RANDINT_CHI2)]
+
+    # the parameter arrays are made here: a draw copies nothing to the card
+    rows = {pair: two(*pair) for pair in [
+        (-3.0, 2.0), (0.0, 5.0), (0.25, 0.5), (0.4, 0.5),
+        (1.0, 0.5), (1.0, 4.0), (1.0, 9.0), (2.0, 5.0),
+        (2.0, 9.0), (4.0, 2.0), (5.0, 2.0)]}
+    probs_nd = mx.nd.array(probs, ctx=ctx)
+    shuffle_src = mx.nd.array(np.arange(n, dtype=np.float32), ctx=ctx)
+    nd = mx.nd
+    return [
+        ("_random_uniform",
+         lambda: nd._random_uniform(low=-2.0, high=3.0, shape=(n,), ctx=ctx),
+         lambda x: [("bounds", x.min() >= -2.0 and x.max() < 3.0),
+                    near("mean", x.mean(), 0.5, atol=0.05 * s),
+                    near("var", x.var(), 25.0 / 12, rtol=rt)]),
+        ("_random_normal",
+         lambda: nd._random_normal(loc=1.5, scale=2.0, shape=(n,), ctx=ctx),
+         lambda x: [near("mean", x.mean(), 1.5, atol=0.05 * s),
+                    near("std", x.std(), 2.0, rtol=rt)]),
+        ("_random_gamma",
+         lambda: nd._random_gamma(alpha=3.0, beta=2.0, shape=(n,), ctx=ctx),
+         lambda x: [near("mean", x.mean(), 6.0, rtol=rt),
+                    near("var", x.var(), 12.0, rtol=2 * rt),
+                    ("positive", x.min() > 0)]),
+        ("_random_exponential",
+         lambda: nd._random_exponential(lam=4.0, shape=(n,), ctx=ctx),
+         lambda x: [near("mean", x.mean(), 0.25, rtol=rt),
+                    near("std", x.std(), 0.25, rtol=2 * rt)]),
+        ("_random_poisson",
+         lambda: nd._random_poisson(lam=7.0, shape=(n,), ctx=ctx),
+         lambda x: [near("mean", x.mean(), 7.0, rtol=rt),
+                    near("var", x.var(), 7.0, rtol=2 * rt), integral(x)]),
+        ("_random_randint",
+         lambda: nd._random_randint(low=3, high=9, shape=(n,), ctx=ctx),
+         randint_check),
+        ("_random_negative_binomial",
+         lambda: nd._random_negative_binomial(k=5.0, p=0.4, shape=(n,),
+                                              ctx=ctx),
+         lambda x: [near("mean", x.mean(), 7.5, rtol=rt),
+                    near("var", x.var(), 18.75, rtol=2 * rt), integral(x)]),
+        ("_random_generalized_negative_binomial",
+         lambda: nd._random_generalized_negative_binomial(
+             mu=4.0, alpha=0.25, shape=(n,), ctx=ctx),
+         lambda x: [near("mean", x.mean(), 4.0, rtol=rt),
+                    near("var", x.var(), 8.0, rtol=2 * rt), integral(x)]),
+        ("_sample_uniform",
+         lambda: nd._sample_uniform(rows[0.0, 5.0], rows[1.0, 9.0],
+                                    shape=(half,)),
+         lambda x: [near("row means", x.mean(1), [0.5, 7.0], atol=0.08 * s),
+                    ("row bounds", x[0].min() >= 0 and x[0].max() < 1
+                     and x[1].min() >= 5 and x[1].max() < 9)]),
+        ("_sample_normal",
+         lambda: nd._sample_normal(rows[-3.0, 2.0], rows[1.0, 0.5],
+                                   shape=(half,)),
+         lambda x: [near("row means", x.mean(1), [-3.0, 2.0], atol=0.08 * s),
+                    near("row stds", x.std(1), [1.0, 0.5], rtol=rt)]),
+        ("_sample_gamma",
+         lambda: nd._sample_gamma(rows[2.0, 5.0], rows[1.0, 0.5],
+                                  shape=(half,)),
+         lambda x: [near("row means", x.mean(1), [2.0, 2.5], rtol=rt),
+                    near("row vars", x.var(1), [2.0, 1.25], rtol=2 * rt)]),
+        ("_sample_exponential",
+         lambda: nd._sample_exponential(rows[1.0, 4.0], shape=(half,)),
+         lambda x: [near("row means", x.mean(1), [1.0, 0.25], rtol=rt)]),
+        ("_sample_poisson",
+         lambda: nd._sample_poisson(rows[2.0, 9.0], shape=(half,)),
+         lambda x: [near("row means", x.mean(1), [2.0, 9.0], rtol=rt),
+                    near("row vars", x.var(1), [2.0, 9.0], rtol=2 * rt),
+                    integral(x)]),
+        ("_sample_negative_binomial",
+         lambda: nd._sample_negative_binomial(rows[5.0, 2.0], rows[0.4, 0.5],
+                                              shape=(half,)),
+         lambda x: [near("row means", x.mean(1), [7.5, 2.0], rtol=rt),
+                    near("row vars", x.var(1), [18.75, 4.0], rtol=2 * rt)]),
+        ("_sample_generalized_negative_binomial",
+         lambda: nd._sample_generalized_negative_binomial(
+             rows[4.0, 2.0], rows[0.25, 0.5], shape=(half,)),
+         lambda x: [near("row means", x.mean(1), [4.0, 2.0], rtol=rt),
+                    near("row vars", x.var(1), [8.0, 4.0], rtol=2 * rt)]),
+        ("_sample_multinomial",
+         lambda: nd._sample_multinomial(probs_nd,
+                                        shape=(half,), get_prob=True),
+         multinomial_check),
+        ("_shuffle", lambda: nd._shuffle(shuffle_src),
+         lambda x: [("a permutation", bool(np.array_equal(
+             np.sort(x), np.arange(n, dtype=np.float32)))),
+             ("not the identity", not np.array_equal(
+                 x, np.arange(n, dtype=np.float32)))]),
+    ]
+
+
+def random_on_card(mx, ctx, card):
+    """(a): every sampling op at RANDOM_DRAWS draws made on ``ctx``'s
+    device (no host-to-device copy while they draw), held to the
+    moments and bounds of tests/test_random_samplers.py; the seeds."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = ctx.torch_device()
+    mx.random.seed(GAN_SEED)
+    cases = random_cases(mx, ctx)
+    for _, draw, _ in cases:        # each generator exists before the run
+        draw()
+    torch.cuda.synchronize()
+    outs = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for name, draw, _ in cases:
+            outs[name] = draw()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    copies = h2d_copies(prof)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    print("  (a) 17 sampling ops, %d draws each on %s: %.2f ms wall, device "
+          "busy %.3f ms (profiled), host-to-device copies while drawing: %d; "
+          "tolerances of tests/test_random_samplers.py x %.4f (sqrt(%d / "
+          "%d)); %s"
+          % (RANDOM_DRAWS, dev, wall, busy, copies, SAMPLER_SCALE,
+             SAMPLER_N, RANDOM_DRAWS, card))
+    if copies:
+        fail("(a): %d host-to-device copies while the samplers drew" % copies)
+    for name, _, check in cases:
+        out = outs[name]
+        parts = out if isinstance(out, (list, tuple)) else [out]
+        if any(p._data.device != dev for p in parts):
+            fail("(a): %s drew on %s" % (name, [p._data.device
+                                              for p in parts]))
+        host = [p.asnumpy() for p in parts]
+        size = host[0].size
+        results = check(host if len(host) > 1 else host[0])
+        print("    %-38s %s %s: %s" % (name, host[0].dtype, host[0].shape,
+                                       "; ".join(w for w, _ in results)))
+        if size != RANDOM_DRAWS:
+            fail("(a): %s made %d draws" % (name, size))
+        bad = [w for w, ok in results if not ok]
+        if bad:
+            fail("(a): %s: %s" % (name, bad))
+    # seeds: seed(n) repeats the card's draws; seed(n, ctx) only the card's
+    cpu = mx.cpu()
+
+    def pair():
+        return (mx.nd.random.normal(shape=(64,), ctx=ctx).asnumpy(),
+                mx.nd.random.normal(shape=(64,), ctx=cpu).asnumpy())
+    mx.random.seed(5)
+    g1, c1 = pair()
+    g2, c2 = pair()
+    mx.random.seed(5)
+    g1b, c1b = pair()
+    mx.random.seed(5, ctx=ctx)
+    g1c, c2c = pair()
+    ok = (np.array_equal(g1, g1b) and np.array_equal(c1, c1b)
+          and not np.array_equal(g1, g2) and np.array_equal(g1c, g1)
+          and np.array_equal(c2c, c2))
+    print("  (a) mx.random.seed(5) repeats the draws on both devices: %s; "
+          "seed(5, ctx=%s) restarts the card's stream only (the host's "
+          "goes on): %s" % (np.array_equal(g1, g1b)
+                            and np.array_equal(c1, c1b),
+                            ctx, np.array_equal(g1c, g1)
+                            and np.array_equal(c2c, c2)))
+    if not ok:
+        fail("(a): seeding does not repeat the draws as it should")
+    return dict(wall_ms=wall, busy_ms=busy)
+
+
+def layer_cases(mx):
+    """(name, make, input shape, train mode of the recorded call) of the
+    new layers at the DCGAN's shapes, the discriminator's (64, 128, 16,
+    16) activations, the generator's (64, 256, 8, 8) features; rrelu is
+    held in predict mode (in training it draws its slopes)."""
+    nn, cnn = mx.gluon.nn, mx.gluon.contrib.nn
+    act = (GAN_BATCH, 2 * GAN_NDF, 16, 16)
+    feat = (GAN_BATCH, 4 * GAN_NGF, 8, 8)
+    return [
+        ("LeakyReLU(0.2)", lambda: nn.LeakyReLU(0.2), act),
+        ("PReLU", lambda: nn.PReLU(), act),
+        ("ELU", lambda: nn.ELU(0.8), act),
+        ("SELU", lambda: nn.SELU(), act),
+        ("GELU", lambda: nn.GELU(), act),
+        ("Swish", lambda: nn.Swish(1.5), act),
+        ("InstanceNorm", lambda: nn.InstanceNorm(
+            scale=True, in_channels=feat[1],
+            gamma_initializer=mx.init.Constant(1.5),
+            beta_initializer=mx.init.Constant(-0.25)), feat),
+        ("HybridLambda(tanh)", lambda: nn.HybridLambda("tanh"),
+         (GAN_BATCH, GAN_NC, GAN_IMAGE, GAN_IMAGE)),
+        ("rrelu (predict)", lambda: nn.HybridLambda(
+            lambda F, x: F.LeakyReLU(x, act_type="rrelu")[0]), act, False),
+        ("PixelShuffle1D(2)", lambda: cnn.PixelShuffle1D(2),
+         (GAN_BATCH, 2 * GAN_NDF, 64)),
+        ("PixelShuffle2D(2)", lambda: cnn.PixelShuffle2D(2), feat),
+        ("PixelShuffle3D(2)", lambda: cnn.PixelShuffle3D(2),
+         (8, GAN_NGF, 4, 8, 8)),
+    ]
+
+
+def loss_cases(mx):
+    """(name, make, arrays): the ten losses, D's (64, 1) logits for the
+    sigmoid family, (64, 100) rows for the rest."""
+    rs = np.random.RandomState(41)
+    L = mx.gluon.loss
+    b, w = GAN_BATCH, GAN_NZ
+
+    def r(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def pos(*shape):
+        return (rs.rand(*shape) * 0.9 + 0.05).astype(np.float32)
+
+    def bits(*shape):
+        return (rs.rand(*shape) > 0.5).astype(np.float32)
+
+    def sign(*shape):
+        return np.where(rs.rand(*shape) > 0.5, 1.0, -1.0).astype(np.float32)
+    sw = pos(b, 1)
+    return [
+        ("SigmoidBCELoss", L.SigmoidBCELoss, [r(b, 1) * 3, bits(b, 1), sw]),
+        ("SigmoidBCELoss(pos_weight)", L.SigmoidBCELoss,
+         [r(b, w), bits(b, w), sw, pos(w) * 3]),
+        ("SigmoidBCELoss(from_sigmoid)",
+         lambda: L.SigmoidBCELoss(from_sigmoid=True),
+         [pos(b, w), bits(b, w), sw]),
+        ("L1Loss", L.L1Loss, [r(b, w), r(b, w), sw]),
+        ("KLDivLoss", lambda: L.KLDivLoss(from_logits=False),
+         [r(b, w), pos(b, w), sw]),
+        ("HuberLoss", lambda: L.HuberLoss(rho=0.5), [r(b, w), r(b, w), sw]),
+        ("HingeLoss", L.HingeLoss, [r(b, w), sign(b, w), sw]),
+        ("SquaredHingeLoss", L.SquaredHingeLoss, [r(b, w), sign(b, w), sw]),
+        ("LogisticLoss", L.LogisticLoss, [r(b, w), sign(b, w), sw]),
+        ("TripletLoss", L.TripletLoss, [r(b, w), r(b, w), r(b, w)]),
+        ("PoissonNLLLoss", lambda: L.PoissonNLLLoss(compute_full=True),
+         [r(b, w), pos(b, w) * 4, sw]),
+        ("CosineEmbeddingLoss", lambda: L.CosineEmbeddingLoss(margin=0.1),
+         [r(b, w), r(b, w), sign(b), sw[:, 0]]),
+    ]
+
+
+def block_grads(mx, net, x, head, ctx, train_mode=True):
+    """(output, input gradient, {param: gradient}) of one recorded call."""
+    xin = mx.nd.array(x, ctx=ctx)
+    xin.attach_grad()
+    with mx.autograd.record(train_mode=train_mode):
+        out = net(xin)
+    out.backward(mx.nd.array(head, ctx=ctx))
+    grads = {k: p.grad().asnumpy()
+             for k, p in net._collect_params_with_prefix().items()
+             if p.grad_req != "null"}
+    return out.asnumpy(), xin.grad.asnumpy(), grads
+
+
+def worst(pairs, tol=GAN_TOL, of_largest=False):
+    """(max abs error, all within tol) over (got, want) numpy pairs;
+    ``of_largest`` scales atol by each array's largest entry (a sum over
+    the batch, which two devices add in another order)."""
+    err, ok = 0.0, True
+    for got, want in pairs:
+        want = np.asarray(want, np.float64)
+        d = np.abs(np.asarray(got, np.float64) - want)
+        err = max(err, float(d.max()) if d.size else 0.0)
+        atol = tol["atol"] * (max(float(np.abs(want).max()), 1.0)
+                              if of_largest else 1.0)
+        ok = ok and bool(np.all(np.isfinite(got))) and bool(
+            np.all(d <= atol + tol["rtol"] * np.abs(want)))
+    return err, ok
+
+
+def layers_on_card(mx, ctx, card):
+    """(b): each new layer hybridized on ``ctx`` against the port on the
+    CPU (eager) from the same numpy input, weights and head gradient:
+    the output, the input and parameter gradients of a recorded call,
+    and the predict-mode output (the card's by graph replay); the ten
+    losses and ``norm`` with their gradients; the five initializers on
+    both devices under one numpy seed."""
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+    cpu = mx.cpu()
+    rs = np.random.RandomState(40)
+    n_checks = 0
+    for name, make, shape, *mode in layer_cases(mx):
+        train = mode[0] if mode else True
+        x = rs.randn(*shape).astype(np.float32)
+        host = make()
+        host.initialize(ctx=cpu)
+        want = host(mx.nd.array(x, ctx=cpu))
+        weights = {k: p.data().asnumpy() for k, p in
+                   host._collect_params_with_prefix().items()}
+        head = rs.randn(*want.shape).astype(np.float32)
+        card_net = make()
+        card_net.initialize(ctx=ctx)
+        params_from_numpy(card_net, weights, ctx=ctx)
+        card_net.hybridize()
+        w_out, w_dx, w_dp = block_grads(mx, host, x, head, cpu, train)
+        g_out, g_dx, g_dp = block_grads(mx, card_net, x, head, ctx, train)
+        pred = card_net(mx.nd.array(x, ctx=ctx)).asnumpy()
+        pred_want = host(mx.nd.array(x, ctx=cpu)).asnumpy()
+        err, ok = worst([(g_out, w_out), (g_dx, w_dx), (pred, pred_want)])
+        perr, pok = worst([(g_dp[k], w_dp[k]) for k in w_dp],
+                          of_largest=True)
+        st = card_net._cached_op.stats()
+        print("    %-28s %-20s out %s, predict graph %s: max abs err %.3g; "
+              "%d parameter gradient(s) (largest entry %s) %.3g"
+              % (name, shape, g_out.shape, st, err, len(w_dp),
+                 ["%.4g" % np.abs(w_dp[k]).max() for k in sorted(w_dp)],
+                 perr))
+        if not (ok and pok) or sorted(g_dp) != sorted(w_dp):
+            fail("(b): %s on the card disagrees with the CPU (%.3g, %.3g)"
+                 % (name, err, perr))
+        if st["captures"] != 1 or st["eager_rng"]:
+            fail("(b): %s's predict call did not replay a graph: %s"
+                 % (name, st))
+        n_checks += 1
+    for name, make, arrays in loss_cases(mx):
+        res = []
+        for dev in (cpu, ctx):
+            args = [mx.nd.array(a, ctx=dev) for a in arrays]
+            args[0].attach_grad()
+            with mx.autograd.record():
+                out = make()(*args)
+            out.backward()
+            res.append((out.asnumpy(), args[0].grad.asnumpy()))
+        err, ok = worst([(res[1][0], res[0][0]), (res[1][1], res[0][1])])
+        print("    %-28s loss %s and its gradient: max abs err %.3g"
+              % (name, res[1][0].shape, err))
+        if not ok:
+            fail("(b): %s on the card disagrees with the CPU (%.3g)"
+                 % (name, err))
+        n_checks += 1
+    x = rs.randn(GAN_BATCH, GAN_NZ, 4).astype(np.float32)
+    head = rs.randn(GAN_BATCH, 4).astype(np.float32)
+    res = []
+    for dev in (cpu, ctx):
+        a = mx.nd.array(x, ctx=dev)
+        a.attach_grad()
+        with mx.autograd.record():
+            out = mx.nd.norm(a, axis=1)
+        out.backward(mx.nd.array(head, ctx=dev))
+        res.append((out.asnumpy(), a.grad.asnumpy()))
+    err, ok = worst([(res[1][0], res[0][0]), (res[1][1], res[0][1])])
+    print("    %-28s (64, 100, 4) over axis 1 and its gradient: max abs "
+          "err %.3g" % ("norm", err))
+    if not ok:
+        fail("(b): norm on the card disagrees with the CPU")
+    inits = [("Orthogonal", lambda: mx.init.Orthogonal(), (256, 512)),
+             ("MSRAPrelu", lambda: mx.init.MSRAPrelu(), (128, 64, 4, 4)),
+             ("Bilinear", lambda: mx.init.Bilinear(), (64, 64, 4, 4)),
+             ("LSTMBias", lambda: mx.init.LSTMBias(), (800,)),
+             ("Mixed", lambda: mx.init.Mixed(
+                 [".*bias", ".*"], [mx.init.Zero(), mx.init.Orthogonal()]),
+              (100, 64))]
+    same = []
+    for name, make, shape in inits:
+        arrs = []
+        for dev in (cpu, ctx):
+            np.random.seed(GAN_SEED)
+            arr = mx.nd.zeros(shape, ctx=dev)
+            make()(mx.init.InitDesc("layer_weight"), arr)
+            arrs.append(arr.asnumpy())
+        same.append(bool(np.array_equal(*arrs)))
+    print("  (b) %d layers and %d losses (+ norm) on %s against the CPU "
+          "within rtol = atol = %g (a parameter gradient, a sum over the "
+          "batch, within atol %g of its largest entry), TF32 off; the five "
+          "initializers bit-identical on both devices under one numpy "
+          "seed: %s"
+          % (len(layer_cases(mx)), len(loss_cases(mx)), ctx,
+             GAN_TOL["rtol"], GAN_TOL["atol"],
+             dict(zip([i[0] for i in inits], same))))
+    if not all(same):
+        fail("(b): an initializer differs between the card and the CPU")
+    return n_checks
+
+
+def gan_nets(mx, ngf=GAN_NGF, ndf=GAN_NDF):
+    """The tutorial's generator and discriminator (no biases)."""
+    nn = mx.gluon.nn
+    g = nn.HybridSequential()
+    with g.name_scope():
+        g.add(nn.Conv2DTranspose(ngf * 8, 4, 1, 0, use_bias=False),
+              nn.BatchNorm(), nn.Activation("relu"))
+        for mult in (4, 2, 1):
+            g.add(nn.Conv2DTranspose(ngf * mult, 4, 2, 1, use_bias=False),
+                  nn.BatchNorm(), nn.Activation("relu"))
+        g.add(nn.Conv2DTranspose(GAN_NC, 4, 2, 1, use_bias=False),
+              nn.Activation("tanh"))
+    d = nn.HybridSequential()
+    with d.name_scope():
+        d.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False), nn.LeakyReLU(0.2))
+        for mult in (2, 4, 8):
+            d.add(nn.Conv2D(ndf * mult, 4, 2, 1, use_bias=False),
+                  nn.BatchNorm(), nn.LeakyReLU(0.2))
+        d.add(nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return g, d
+
+
+def gan_images(dev):
+    """GAN_IMAGES synthetic 64x64 RGB images in [-1, 1], made on ``dev``
+    from GAN_SEED: a coloured background and two soft blobs of random
+    colour, centre and radius."""
+    n = GAN_IMAGES
+    gen = torch.Generator(device=dev).manual_seed(GAN_SEED)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    axis = torch.linspace(-1.0, 1.0, GAN_IMAGE, device=dev)
+    yy, xx = axis.reshape(1, 1, -1, 1), axis.reshape(1, 1, 1, -1)
+    img = (u(n, GAN_NC, 1, 1) * 2 - 1) * 0.3
+    for _ in range(2):
+        cy, cx = (u(n, 1, 1, 1) * 1.4 - 0.7 for _ in range(2))
+        rad = u(n, 1, 1, 1) * 0.3 + 0.15
+        blob = torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * rad ** 2))
+        img = img + blob * (u(n, GAN_NC, 1, 1) * 2 - 1) * 1.5
+    return torch.tanh(img)
+
+
+def gan_facc(label, pred):
+    """The tutorial's binary accuracy, on D's raw outputs."""
+    pred = pred.ravel()
+    label = label.ravel()
+    return ((pred > 0.5) == label).mean()
+
+
+class GanLoop:
+    """The tutorial's loop over a pair of nets: D's step on a real and a
+    detached fake batch, then G's step; both by Adam."""
+
+    def __init__(self, mx, g, d, ctx):
+        self.mx, self.g, self.d, self.ctx = mx, g, d, ctx
+        self.loss = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+        self.trainer_g = mx.gluon.Trainer(g.collect_params(), "adam",
+                                          dict(GAN_ADAM))
+        self.trainer_d = mx.gluon.Trainer(d.collect_params(), "adam",
+                                          dict(GAN_ADAM))
+        self.real_label = mx.nd.ones((GAN_BATCH,), ctx=ctx)
+        self.fake_label = mx.nd.zeros((GAN_BATCH,), ctx=ctx)
+        self.metric = mx.metric.CustomMetric(gan_facc)
+        self.adam_events = []
+        self.adam_host = []
+
+    def latent(self):
+        return self.mx.nd.random.normal(0, 1, shape=(GAN_BATCH, GAN_NZ, 1, 1),
+                                        ctx=self.ctx)
+
+    def step(self, data, z=None, metric=False, time_adam=False):
+        """One GAN step; returns (D's loss, G's loss, the fake batch),
+        NDArrays on the card."""
+        mx, g, d = self.mx, self.g, self.d
+        z = self.latent() if z is None else z
+        with mx.autograd.record():
+            output = d(data).reshape((-1, 1))
+            err_real = self.loss(output, self.real_label)
+            if metric:
+                self.metric.update([self.real_label], [output])
+            fake = g(z)
+            output = d(fake.detach()).reshape((-1, 1))
+            err_fake = self.loss(output, self.fake_label)
+            err_d = err_real + err_fake
+            err_d.backward()
+        if metric:
+            self.metric.update([self.fake_label], [output])
+        self._update(self.trainer_d, time_adam)
+        with mx.autograd.record():
+            fake = g(z)
+            output = d(fake).reshape((-1, 1))
+            err_g = self.loss(output, self.real_label)
+            err_g.backward()
+        self._update(self.trainer_g, time_adam)
+        return err_d, err_g, fake
+
+    def _update(self, trainer, timed):
+        """``trainer.step``; timed, a spin kernel runs ahead of the start
+        event, so the step's host work is queued before its device time
+        starts (the events read the replayed update alone), and the host
+        clock reads the call."""
+        if not timed:
+            trainer.step(GAN_BATCH)
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(GAN_SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        trainer.step(GAN_BATCH)
+        self.adam_host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        self.adam_events.append((start, end))
+
+
+def gan_weights(net):
+    return {k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def gan_first_step(mx, ctx, data, z):
+    """The first step of the hybridized nets against the same nets run
+    op by op, from the same weights (Normal(0.02) from
+    ``mx.random.seed(GAN_SEED)``) and latent, under deterministic cuDNN:
+    losses, fakes, every weight and statistic bit-identical. Returns the
+    hybridized loop (one step taken), its first losses and the trainable
+    parameter counts."""
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+    mx.random.seed(GAN_SEED)
+    g0, d0 = gan_nets(mx)
+    g0.initialize(mx.init.Normal(0.02), ctx=ctx)
+    d0.initialize(mx.init.Normal(0.02), ctx=ctx)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        g0.summary(z)
+        d0.summary(g0(z))
+    totals = [int(m) for m in re.findall(r"Trainable params: (\d+)",
+                                         buf.getvalue())]
+    print("  (c) summary(): trainable parameters G %s, D %s (want %d, %d)"
+          % (totals[0], totals[1], *GAN_TRAINABLE))
+    if tuple(totals) != GAN_TRAINABLE:
+        fail("(c): summary() counts %s trainable parameters" % totals)
+    gw, dw = gan_weights(g0), gan_weights(d0)
+    g1, d1 = gan_nets(mx)
+    for net, weights in ((g1, gw), (d1, dw)):
+        net.initialize(ctx=ctx)
+        params_from_numpy(net, weights, ctx=ctx)
+        net.hybridize()
+    res = []
+    with deterministic_cudnn():
+        for g, d in ((g0, d0), (g1, d1)):
+            loop = GanLoop(mx, g, d, ctx)
+            err_d, err_g, fake = loop.step(data, z=z, metric=True)
+            res.append(dict(err_d=err_d.asnumpy(), err_g=err_g.asnumpy(),
+                            fake=fake.asnumpy(),
+                            **{"g:" + k: v for k, v in gan_weights(g).items()},
+                            **{"d:" + k: v for k, v in gan_weights(d).items()}))
+    diff = {k: float(np.abs(res[1][k] - res[0][k]).max()) for k in res[0]}
+    same = all(np.array_equal(res[1][k], res[0][k]) for k in res[0])
+    moved = sum(not np.array_equal(res[1][k], (gw if k[0] == "g" else dw)
+                                   [k[2:]])
+                for k in res[1] if k[:2] in ("g:", "d:"))
+    first = dict(err_d=float(res[1]["err_d"].mean()),
+                 err_g=float(res[1]["err_g"].mean()))
+    print("  (c) first step, hybridized against op by op (deterministic "
+          "cuDNN): bit-identical %s (largest difference %.3g over %d "
+          "arrays); %d of %d weights and statistics moved; D's loss %.4f "
+          "(2 ln 2 = %.4f), G's %.4f"
+          % (same, max(diff.values()), len(diff), moved, len(gw) + len(dw),
+             first["err_d"], GAN_LOSS_START, first["err_g"]))
+    if not same:
+        fail("(c): the hybridized first step differs from the op-by-op "
+             "one: %s" % {k: v for k, v in diff.items() if v})
+    if moved != len(gw) + len(dw):
+        fail("(c): the first step left weights unchanged")
+    if abs(first["err_d"] - GAN_LOSS_START) > 0.25 * GAN_LOSS_START:
+        fail("(c): D's first loss %.4f is not near 2 ln 2" % first["err_d"])
+    return loop, first, totals
+
+
+def phase_gan(card):
+    """Phase 20: the sixteenth slice's main path, the rest of the Gluon
+    surface and ``mx.random``, with the DCGAN of MXNet's Gluon GAN
+    tutorial (docs/tutorials/unsupervised_learning/gan.md in
+    incubator-mxnet v1.5, after Radford et al. 2015) at its published
+    widths. Cuts: the tutorial's LFW / CIFAR-10 images are not in the
+    repository, so the data are GAN_IMAGES synthetic coloured blobs
+    made on the card from seed GAN_SEED (``gan_images``); and the depth
+    is GAN_STEPS steps (about 9 epochs of those images), not 25 epochs.
+    No kernel of the table is on this path: the attention, decode and
+    rtc launch counts, zeroed before, must read 0 after."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tfa.reset_launches()
+    rtc.reset_launches()
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    rnd = random_on_card(mx, ctx, card)
+    print("  (a) done at %.1f s of the phase" % (time.perf_counter() - t_phase))
+    n_checks = layers_on_card(mx, ctx, card)
+    print("  (b) %d layer and loss checks; done at %.1f s of the phase"
+          % (n_checks, time.perf_counter() - t_phase))
+    # (c) the DCGAN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    images = gan_images(dev)
+    print("  (c) DCGAN: nz %d, ngf %d, ndf %d, nc %d, %dx%d, batch %d, fp32, "
+          "TF32 off; Adam %s for both nets; %d synthetic images from seed "
+          "%d (%.1f MB on the card, %.3f..%.3f)"
+          % (GAN_NZ, GAN_NGF, GAN_NDF, GAN_NC, GAN_IMAGE, GAN_IMAGE,
+             GAN_BATCH, GAN_ADAM, GAN_IMAGES, GAN_SEED,
+             images.numel() * 4 / 2 ** 20, float(images.min()),
+             float(images.max())))
+    order = torch.Generator(device=dev).manual_seed(GAN_SEED + 1)
+
+    def batches():
+        while True:
+            keys = torch.rand(GAN_IMAGES, generator=order, device=dev)
+            perm = torch.argsort(keys)
+            for i in range(GAN_IMAGES // GAN_BATCH):
+                yield mx.nd.NDArray(
+                    images[perm[i * GAN_BATCH:(i + 1) * GAN_BATCH]])
+    feed = batches()
+    mx.random.seed(GAN_SEED)
+    z0 = mx.nd.random.normal(0, 1, shape=(GAN_BATCH, GAN_NZ, 1, 1), ctx=ctx)
+    loop, first, _ = gan_first_step(mx, ctx, next(feed), z0)
+    with guard_on("skip_step") as fault:
+        losses = []
+        acc = []
+        loop.metric.reset()
+        t0 = time.perf_counter()
+        for step in range(1, GAN_STEPS):
+            err_d, err_g, fake = loop.step(next(feed), metric=True)
+            losses.append(torch.stack([err_d._data.detach().mean(),
+                                       err_g._data.detach().mean()]))
+            if step % 25 == 0:
+                acc.append(loop.metric.get()[1])
+                loop.metric.reset()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        skipped = fault.stats()["skipped_steps"]
+    curve = torch.stack(losses).cpu().numpy()
+    samples = loop.g(loop.latent())
+    lo, hi = float(samples._data.min()), float(samples._data.max())
+    finite = bool(np.isfinite(curve).all())
+    print("  (c) %d more steps with the metric in %.2f s (%.2f ms a step); "
+          "non-finite guard (skip_step) skipped %d; losses finite %s; D's "
+          "loss by 25 steps %s; G's %s; the tutorial's binary accuracy of "
+          "D (real vs fake, raw outputs > 0.5) by 25 steps %s"
+          % (GAN_STEPS - 1, train_s, train_s * 1e3 / (GAN_STEPS - 1),
+             skipped, finite,
+             " ".join("%.3f" % v for v in curve[24::25, 0]),
+             " ".join("%.3f" % v for v in curve[24::25, 1]),
+             " ".join("%.3f" % a for a in acc)))
+    late = float(np.mean(acc[len(acc) // 2:]))
+    print("  (c) D's accuracy over the second half %.3f (chance 0.5, held "
+          "above %.2f); G's samples (predict, by graph) in [%.4f, %.4f]"
+          % (late, GAN_ACC_MIN, lo, hi))
+    if skipped or not finite:
+        fail("(c): a non-finite loss or gradient (%d steps skipped)"
+             % skipped)
+    if not late > GAN_ACC_MIN:
+        fail("(c): D's accuracy %.3f did not rise above chance" % late)
+    if lo < -1.0 or hi > 1.0:
+        fail("(c): G's samples leave [-1, 1]: %g..%g" % (lo, hi))
+    # timing: the step without the metric, D's and G's halves, Adam
+    data = next(feed)
+    for _ in range(3):
+        loop.step(data)
+    torch.cuda.synchronize()
+    d_ms, g_ms, step_ms = [], [], []
+    for _ in range(GAN_TIMED):
+        t0 = time.perf_counter()
+        loop.step(data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    loop.adam_events.clear()
+    for _ in range(GAN_TIMED):
+        loop.step(data, time_adam=True)
+    torch.cuda.synchronize()
+    adam_ms = sum(s.elapsed_time(e) for s, e in loop.adam_events) / GAN_TIMED
+    adam_host = sum(loop.adam_host) / GAN_TIMED
+    ms = statistics.median(step_ms)
+    wall, busy, by_class, kernels, _ = profile_steps(lambda: loop.step(data),
+                                                     3, GAN_CLASSES)
+    other = by_class.get("other", 0.0)
+    conv = by_class.get("convolutions", 0.0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    idle = 1 - busy / wall if wall else float("nan")
+    print("  (c) %s: %.3f ms a GAN step (D and G, median of %d, no metric), "
+          "%.1f images/s (%d real + %d generated a step); profiled: wall "
+          "%.3f ms, device busy %.3f ms, idle share %.3f; busy by class: "
+          "convolutions %.3f ms, Adam (both fused updates' replays, CUDA "
+          "events behind a spin kernel) %.3f ms, BatchNorm/elementwise and "
+          "the rest %.3f ms; the two Trainer.step calls' host ms %.3f; peak "
+          "memory %.1f MB"
+          % (card, ms, GAN_TIMED, GAN_BATCH * 1e3 / ms, GAN_BATCH, GAN_BATCH,
+             wall, busy, idle, conv, adam_ms, max(other - adam_ms, 0.0),
+             adam_host, peak))
+    for us, key, count in kernels[:4]:
+        print("    top: %.3f ms in %d calls  %s"
+              % (us / 1e3 / 3, count // 3, key[:70]))
+    st = {"G": loop.g._cached_op.stats(), "D": loop.d._cached_op.stats()}
+    fused = {"G": loop.trainer_g._fused_updater.stats(),
+             "D": loop.trainer_d._fused_updater.stats()}
+    print("  (c) CachedOp graphs %s (training runs op by op under record; "
+          "the sample is G's predict graph); fused Adam updates %s (one "
+          "signature without the guard, one with it)" % (st, fused))
+    if any(s["recaptures"] for s in st.values()) or any(
+            f["recaptures"] or f["captures"] != f["signatures"]
+            for f in fused.values()):
+        fail("(c): a graph was captured again after the first step: %s %s"
+             % (st, fused))
+    launches = dict(tfa.launches, rtc=rtc.launches["rtc"])
+    print("  attention, decode and rtc kernel launches over (a)-(c): %s "
+          "(none is on this path); gan phase %.1f s"
+          % (launches, time.perf_counter() - t_phase))
+    if any(launches.values()):
+        fail("gan: the path launched a kernel of the table: %s" % launches)
+    return dict(ms=ms, images_s=GAN_BATCH * 1e3 / ms, busy=busy, idle=idle,
+                conv=conv, adam=adam_ms, adam_host=adam_host, peak=peak,
+                first=first, acc=acc, random=rnd)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -6516,6 +7320,7 @@ def main():
     phase_amp(card, tfa, module_readings, resnet_readings)
     phase_input(card, module_readings)
     pack = phase_bucketing(card, tfa)
+    phase_gan(card)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

@@ -54,7 +54,16 @@ What is ported:
   ``BucketSentenceIter``), ``gluon.rnn``, ``mx.bucketing`` (ladders,
   padding, masked losses and metrics, ``BucketedPipeline``, packing)
   and ``mx.mod.BucketingModule`` (one fused-step CUDA graph per
-  bucket).
+  bucket);
+- the rest of the Gluon surface and ``mx.random``: the sampling ops
+  (``mx.nd.random``, ``mx.sym.random``: ``_random_*``, ``_sample_*``,
+  ``multinomial``, ``shuffle``, each drawn on its device from that
+  device's generator), the ``LeakyReLU`` family of activations,
+  ``InstanceNorm``, ``PixelShuffle1D/2D/3D``, ``Lambda``/``HybridLambda``,
+  the losses of ``gluon.loss`` but ``CTCLoss``, forward hooks and
+  ``summary``, ``gluon.Constant``, ``gluon.utils`` and the
+  ``Orthogonal``, ``MSRAPrelu``, ``Bilinear``, ``LSTMBias`` and ``Mixed``
+  initializers.
 
 Typical use mirrors MXNet::
 
@@ -69,44 +78,63 @@ Typical use mirrors MXNet::
 ``ROADMAP.md`` lists what waits for later slices.
 """
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context, num_gpus
+from . import fault
+from .fault import InjectedFault
+from .context import Context, cpu, gpu, cpu_pinned, current_context, \
+    num_gpus, gpu_memory_info
 from .name import NameManager
 from .attribute import AttrScope
+from . import base
+from . import ops
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
+from . import random
 from . import symbol
 from . import symbol as sym
 from .symbol import Symbol
 from . import cached_op
-from . import random
 from . import autograd
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from .optimizer import Optimizer
 from . import gluon
 from . import rtc
 from . import executor
+from .executor import Executor
 from . import io
 from . import recordio
 from . import metric
 from . import lr_scheduler
 from . import callback
 from . import model
+from .model import save_checkpoint, load_checkpoint
 from . import checkpoint
-from . import fault
+from . import log
 from . import profiler
+from . import tracing
+from . import telemetry
+from . import livemetrics
+from . import flightrec
 from . import amp
 from . import fused_step
 from . import module
 from . import module as mod
+from .module import Module
 from . import rnn
 from . import bucketing
+from . import serving
+from . import parallel
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "NameManager", "AttrScope", "nd", "ndarray",
-           "NDArray", "sym", "symbol", "Symbol", "cached_op", "random",
-           "autograd", "init", "initializer", "optimizer", "gluon", "rtc",
-           "executor", "io", "recordio", "metric", "lr_scheduler", "callback", "model",
-           "checkpoint", "fault", "profiler", "amp", "fused_step", "module",
-           "mod", "rnn", "bucketing"]
+__all__ = ["MXNetError", "fault", "InjectedFault", "Context", "cpu", "gpu",
+           "cpu_pinned", "current_context", "num_gpus", "gpu_memory_info",
+           "NameManager", "AttrScope", "base", "ops", "nd", "ndarray",
+           "NDArray", "random", "sym", "symbol", "Symbol", "cached_op",
+           "autograd", "init", "initializer", "optimizer", "Optimizer",
+           "gluon", "rtc", "executor", "Executor", "io", "recordio",
+           "metric", "lr_scheduler", "callback", "model", "save_checkpoint",
+           "load_checkpoint", "checkpoint", "log", "profiler", "tracing",
+           "telemetry", "livemetrics", "flightrec", "amp", "fused_step",
+           "module", "mod", "Module", "rnn", "bucketing", "serving",
+           "parallel"]

@@ -38,6 +38,7 @@ item 11).
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import threading
 
@@ -138,10 +139,19 @@ def _cuda_capture(body, device, pool, generators=()):
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
-    with fa.recording_launches() as held:
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            out = body()
+    # Python's cyclic collector stays off while the stream captures: a
+    # collected block can free another CUDA graph, whose destruction is
+    # not permitted during a capture and invalidates it
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with fa.recording_launches() as held:
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out = body()
+    finally:
+        if collecting:
+            gc.enable()
     return graph.replay, out, held
 
 

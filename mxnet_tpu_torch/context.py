@@ -6,6 +6,8 @@ default context is ``gpu(0)``. Where no CUDA device is visible the
 default RAISES, unless the caller asked for the CPU: ``ctx=mx.cpu()``, a
 ``with mx.cpu():`` scope, or ``MXNET_DEFAULT_CONTEXT=cpu``. (The JAX
 package falls back to the CPU silently; the port does not.)
+``cpu_pinned()`` names host memory, as in the JAX package; it resolves
+to the host device.
 
 :func:`resolve_device` is the same rule for entry points that take a
 ``device`` argument instead of a context (the serving path).
@@ -19,8 +21,9 @@ import torch
 from . import envs
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
-           "context_of", "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "num_gpus", "gpu_memory_info", "as_context", "context_of",
+           "resolve_device"]
 
 _NO_CUDA = ("no CUDA device is visible: mxnet_tpu_torch runs on gpu(0) "
             "by default — ask for the CPU with ctx=mx.cpu(), a `with "
@@ -30,7 +33,7 @@ _NO_CUDA = ("no CUDA device is visible: mxnet_tpu_torch runs on gpu(0) "
 class Context:
     """Device context (reference: python/mxnet/context.py:29)."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
     devstr2type = {v: k for k, v in devtype2str.items()}
 
     _scope = threading.local()
@@ -74,7 +77,7 @@ class Context:
     def torch_device(self):
         """The ``torch.device``; a gpu context raises where its CUDA
         device is not visible."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError("context %s: %s" % (self, _NO_CUDA))
@@ -89,6 +92,11 @@ def cpu(device_id=0):
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id=0):
+    """A pinned host memory context (reference: context.py:219)."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id=0):
     """A CUDA device context."""
     return Context("gpu", device_id)
@@ -97,6 +105,14 @@ def gpu(device_id=0):
 def num_gpus():
     """Number of visible CUDA devices."""
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def gpu_memory_info(device_id=0):
+    """``(free, total)`` bytes of CUDA device ``device_id``; raises
+    where no CUDA device is visible."""
+    if not torch.cuda.is_available():
+        raise MXNetError("no accelerator device present")
+    return torch.cuda.mem_get_info(device_id)
 
 
 def current_context():
@@ -112,6 +128,14 @@ def current_context():
     if not torch.cuda.is_available():
         raise MXNetError(_NO_CUDA)
     return Context("gpu", 0)
+
+
+def as_context(value):
+    """A Context, or its string form (``"gpu(0)"``), as a Context."""
+    if isinstance(value, Context):
+        return value
+    kind, _, rest = str(value).partition("(")
+    return Context(kind, int(rest.rstrip(")") or 0))
 
 
 def context_of(device):

@@ -15,6 +15,10 @@ graph per input signature). With a Symbol it traces
 are fixed from the first input by shape inference over that graph, as
 in the JAX package.
 
+Forward hooks (``register_forward_pre_hook``, ``register_forward_hook``)
+run around each ``Block.__call__``; ``summary`` prints a layer table
+from them.
+
 Files: ``save_parameters``/``load_parameters`` keyed by structural name
 (a file keyed by full names loads too, as in the JAX package),
 ``export`` (``<path>-symbol.json`` and ``<path>-%04d.params`` with
@@ -25,6 +29,7 @@ packages share, so a file written by either loads in the other.
 from __future__ import annotations
 
 import copy
+import math
 import re
 import threading
 from collections import OrderedDict
@@ -86,6 +91,21 @@ def _tree_unflatten(leaves, spec):
         del leaves[:spec.width]
         return picked
     return [_tree_unflatten(leaves, s) for s in spec]
+
+
+class _HookHandle:
+    """What ``register_forward_hook`` returns: ``detach()`` removes the
+    hook."""
+
+    _serial = [0]
+
+    def __init__(self, registry):
+        _HookHandle._serial[0] += 1
+        self.id = _HookHandle._serial[0]
+        self._registry = registry
+
+    def detach(self):
+        self._registry.pop(self.id, None)
 
 
 def _name_list_preview(names, limit=7):
@@ -166,6 +186,8 @@ class Block:
         self._scope = _Naming(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_hooks = OrderedDict()
+        self._forward_pre_hooks = OrderedDict()
 
     def _alias(self):
         return type(self).__name__.lower()
@@ -228,6 +250,20 @@ class Block:
     def register_child(self, block, name=None):
         self._children[name if name is not None
                        else str(len(self._children))] = block
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, inputs)`` before each call; returns a handle
+        whose ``detach()`` removes it."""
+        handle = _HookHandle(self._forward_pre_hooks)
+        self._forward_pre_hooks[handle.id] = hook
+        return handle
+
+    def register_forward_hook(self, hook):
+        """``hook(block, inputs, outputs)`` after each call; returns a
+        handle whose ``detach()`` removes it."""
+        handle = _HookHandle(self._forward_hooks)
+        self._forward_hooks[handle.id] = hook
+        return handle
 
     # -- files (structural names) -----------------------------------------
     def save_parameters(self, filename, deduplicate=False):
@@ -292,10 +328,83 @@ class Block:
             param.cast(dtype)
 
     def __call__(self, *args):
-        return self.forward(*args)
+        for hook in self._forward_pre_hooks.values():
+            hook(self, args)
+        out = self.forward(*args)
+        for hook in self._forward_hooks.values():
+            hook(self, args, out)
+        return out
 
     def forward(self, *args):
         raise NotImplementedError()
+
+    def summary(self, *inputs):
+        """Print a table of each layer's output shape and parameter
+        count from one call on ``inputs``, then the totals (reference:
+        block.py:575). A parameter reached again is counted as shared.
+        Sequential containers get no row of their own."""
+        rows = OrderedDict()
+        counted = set()
+        handles = []
+
+        def shape_of(value):
+            if isinstance(value, NDArray):
+                return str(value.shape)
+            if isinstance(value, (list, tuple)):
+                return str([shape_of(v) for v in value]).replace("'", "")
+            return str(value)
+
+        def count(p):
+            return int(math.prod(p.shape)) if p.shape else 0
+
+        def on_forward(block, _, outputs):
+            key = "%s-%i" % (type(block).__name__, len(rows))
+            row = rows[key] = dict(output_shape=shape_of(outputs),
+                                   n_params=0, trainable=0, shared=0)
+            for p in block.params.values():
+                row["n_params"] += count(p)
+                if p.grad_req != "null":
+                    row["trainable"] += count(p)
+                if p in counted:
+                    row["shared"] += count(p)
+                else:
+                    counted.add(p)
+
+        def attach(block):
+            from .nn.basic_layers import Sequential, HybridSequential
+            if not isinstance(block, (Sequential, HybridSequential)):
+                handles.append(block.register_forward_hook(on_forward))
+
+        rows["Input"] = dict(output_shape=shape_of(list(inputs)),
+                             n_params=0, trainable=0, shared=0)
+        try:
+            self.apply(attach)
+            self(*inputs)
+            fmt = "{:>20}  {:>42} {:>15}"
+            print("-" * 80)
+            print(fmt.format("Layer (type)", "Output Shape", "Param #"))
+            print("=" * 80)
+            totals = dict(n_params=0, trainable=0, shared=0)
+            for key, row in rows.items():
+                print(fmt.format(key, row["output_shape"],
+                                 row["n_params"]))
+                for field in totals:
+                    totals[field] += row[field]
+            print("=" * 80)
+            print("Parameters in forward computation graph, duplicate "
+                  "included")
+            print("   Total params: " + str(totals["n_params"]))
+            print("   Trainable params: " + str(totals["trainable"]))
+            print("   Non-trainable params: "
+                  + str(totals["n_params"] - totals["trainable"]))
+            print("Shared params in forward computation graph: "
+                  + str(totals["shared"]))
+            print("Unique parameters in model: "
+                  + str(totals["n_params"] - totals["shared"]))
+            print("-" * 80)
+        finally:
+            for h in handles:
+                h.detach()
 
 
 class HybridBlock(Block):

@@ -1,13 +1,15 @@
 """Contrib layers (counterpart of
 ``mxnet_tpu/gluon/contrib/nn/basic_layers.py``): ``Concurrent`` and
 ``HybridConcurrent`` (children run on one input, their outputs joined
-by ``Concat``) and ``Identity``."""
+by ``Concat``), ``Identity``, and the sub-pixel upsampling layers
+``PixelShuffle1D``/``2D``/``3D`` (reshapes and one transpose)."""
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ...nn.basic_layers import Sequential, HybridSequential
 
-__all__ = ["Concurrent", "HybridConcurrent", "Identity"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "PixelShuffle1D",
+           "PixelShuffle2D", "PixelShuffle3D"]
 
 
 class Concurrent(Sequential):
@@ -45,3 +47,70 @@ class Identity(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return x
+
+
+def _factors(factor, n):
+    """``factor`` as ``n`` ints (one int repeated, or a sequence of
+    ``n``)."""
+    try:
+        return (int(factor),) * n
+    except TypeError:
+        factors = tuple(int(fac) for fac in factor)
+        assert len(factors) == n, "wrong length {}".format(len(factors))
+        return factors
+
+
+class PixelShuffle1D(HybridBlock):
+    """(N, C*f, W) -> (N, C, W*f) sub-pixel upsampling (reference:
+    contrib/nn/basic_layers.py PixelShuffle1D)."""
+
+    def __init__(self, factor):
+        super().__init__()
+        self._factor = int(factor)
+
+    def hybrid_forward(self, F, x):
+        f = self._factor
+        x = F.Reshape(x, shape=(0, -4, -1, f, 0))   # (N, C, f, W)
+        x = F.transpose(x, axes=(0, 1, 3, 2))       # (N, C, W, f)
+        return F.Reshape(x, shape=(0, 0, -3))       # (N, C, W*f)
+
+    def __repr__(self):
+        return "{}({})".format(self.__class__.__name__, self._factor)
+
+
+class PixelShuffle2D(HybridBlock):
+    """(N, C*f1*f2, H, W) -> (N, C, H*f1, W*f2)."""
+
+    def __init__(self, factor):
+        super().__init__()
+        self._factors = _factors(factor, 2)
+
+    def hybrid_forward(self, F, x):
+        f1, f2 = self._factors
+        x = F.Reshape(x, shape=(0, -4, -1, f1 * f2, 0, 0))
+        x = F.Reshape(x, shape=(0, 0, -4, f1, f2, 0, 0))
+        x = F.transpose(x, axes=(0, 1, 4, 2, 5, 3))
+        return F.Reshape(x, shape=(0, 0, -3, -3))
+
+    def __repr__(self):
+        return "{}({})".format(self.__class__.__name__, self._factors)
+
+
+class PixelShuffle3D(HybridBlock):
+    """(N, C*f1*f2*f3, D, H, W) -> (N, C, D*f1, H*f2, W*f3)."""
+
+    def __init__(self, factor):
+        super().__init__()
+        self._factors = _factors(factor, 3)
+
+    def hybrid_forward(self, F, x):
+        f1, f2, f3 = self._factors
+        x = F.Reshape(x, shape=(0, -4, -1, f1 * f2 * f3, 0, 0, 0))
+        x = F.Reshape(x, shape=(0, 0, -4, f1, -1, 0, 0, 0))
+        x = F.Reshape(x, shape=(0, 0, 0, -4, f2, f3, 0, 0, 0))
+        # (N, C, f1, f2, f3, D, H, W) -> (N, C, D, f1, H, f2, W, f3)
+        x = F.transpose(x, axes=(0, 1, 5, 2, 6, 3, 7, 4))
+        return F.Reshape(x, shape=(0, 0, -3, -3, -3))
+
+    def __repr__(self):
+        return "{}({})".format(self.__class__.__name__, self._factors)

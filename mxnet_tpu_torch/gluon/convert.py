@@ -7,7 +7,9 @@ packages, name the same weight differently. The structural names of
 ``1.query_proj.weight``, ``features.1.running_mean``) depend only on
 the block tree; the JAX package's blocks give the same ones, so
 ``{name: p.data().asnumpy()}`` from a JAX net (its auxiliary states,
-BatchNorm's running statistics, too) loads into the port's copy of it.
+BatchNorm's running statistics, PReLU's ``alpha``, InstanceNorm's
+``gamma``/``beta`` and a transposed convolution's ``(in, out, kh, kw)``
+weight too) loads into the port's copy of it.
 The recurrent layers and cells of ``gluon.rnn`` load the same way: a
 layer's per-layer, per-direction weights (``lstm.l0_i2h_weight`` ...)
 bind its deferred input width from the given array.

@@ -1,9 +1,12 @@
 """Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): the two Sequential containers,
-``Dense``, ``Dropout``, ``Embedding``, ``BatchNorm``, ``LayerNorm``,
-``Flatten`` and ``Activation``. Each lowers to registered ops; a parameter shape that
-waits for the first input (``in_units=0``, ``in_channels=0``) is fixed
-by shape inference over the block's traced graph."""
+``Dense``, ``Dropout``, ``Embedding``, ``BatchNorm``, ``InstanceNorm``,
+``LayerNorm``, ``Flatten``, the function wrappers ``Lambda`` and
+``HybridLambda``, and the activations (``Activation`` and the LeakyReLU
+family: ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``, and
+``Swish``). Each lowers to registered ops; a parameter shape that waits
+for the first input (``in_units=0``, ``in_channels=0``) is fixed by
+shape inference over the block's traced graph."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,7 +14,9 @@ import numpy as np
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Embedding", "BatchNorm", "LayerNorm", "Flatten", "Activation"]
+           "Embedding", "BatchNorm", "InstanceNorm", "LayerNorm", "Flatten",
+           "Lambda", "HybridLambda", "Activation", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "Swish", "GELU"]
 
 
 class _Stack:
@@ -184,6 +189,45 @@ class BatchNorm(HybridBlock):
             type(self).__name__, inner, c if c else None)
 
 
+class InstanceNorm(HybridBlock):
+    """Per-sample, per-channel normalization over the spatial dims
+    (reference: basic_layers.py:457). ``gamma`` and ``beta`` stay
+    differentiable when ``scale``/``center`` is off (their
+    ``grad_req`` is ``'null'`` until set otherwise)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"eps": epsilon, "axis": axis, "center": center,
+                        "scale": scale}
+        self._axis, self._epsilon = axis, epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, name="fwd",
+                                  eps=self._epsilon)
+        moved = x.swapaxes(1, self._axis)
+        out = F.InstanceNorm(moved, gamma, beta, name="fwd",
+                             eps=self._epsilon)
+        return out.swapaxes(1, self._axis)
+
+    def __repr__(self):
+        inner = ", ".join("=".join((k, repr(v)))
+                          for k, v in self._kwargs.items())
+        c = self.gamma.shape[0]
+        return "{}({}, in_channels={})".format(
+            type(self).__name__, inner, c if c else None)
+
+
 class LayerNorm(HybridBlock):
     """Normalization over one axis, the last by default (reference:
     basic_layers.py:535). ``in_channels=0`` is taken from the first
@@ -242,3 +286,145 @@ class Activation(HybridBlock):
 
     def __repr__(self):
         return "{}({})".format(type(self).__name__, self._act_type)
+
+
+# ---------------------------------------------------------------------------
+# function wrappers
+# ---------------------------------------------------------------------------
+
+def _resolve_function(function, *namespaces):
+    """(impl, display name) from a callable, or None and the name of an
+    op looked up in each of ``namespaces``."""
+    if callable(function):
+        return function, function.__name__
+    if isinstance(function, str):
+        for ns in namespaces:
+            if not hasattr(ns, function):
+                raise AssertionError(
+                    "Function name %s is not found in %s." % (
+                        function,
+                        "/".join(n.__name__.split(".")[-1]
+                                 for n in namespaces)))
+        return None, function
+    raise ValueError(
+        "Unrecognized function in lambda: {} of type {}".format(
+            function, type(function)))
+
+
+class Lambda(Block):
+    """A function, or the name of an ``nd`` op, as a Block (reference:
+    basic_layers.py:573)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        from ... import ndarray
+        impl, name = _resolve_function(function, ndarray)
+        self._func_impl = impl if impl is not None \
+            else getattr(ndarray, name)
+        self._func_name = name
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "{}({})".format(type(self).__name__, self._func_name)
+
+
+class HybridLambda(HybridBlock):
+    """A function of ``(F, x, *args)``, or the name of an op of both
+    ``nd`` and ``sym``, as a HybridBlock (reference:
+    basic_layers.py:602)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        from ... import ndarray, symbol
+        impl, name = _resolve_function(function, ndarray, symbol)
+        if impl is None:
+            def impl(F, *args, **kwargs):
+                return getattr(F, name)(*args, **kwargs)
+        self._func, self._func_name = impl, name
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return "{}({})".format(type(self).__name__, self._func_name)
+
+
+# ---------------------------------------------------------------------------
+# the LeakyReLU family (reference: gluon/nn/activations.py)
+# ---------------------------------------------------------------------------
+
+class _LeakyFamily(HybridBlock):
+    """An activation that is the LeakyReLU op with a fixed act_type and
+    no slope."""
+
+    _ACT_TYPE = None
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type=self._ACT_TYPE, name="fwd")
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` above 0, ``alpha * x`` below."""
+
+    def __init__(self, alpha, **kwargs):
+        if alpha < 0:
+            raise AssertionError(
+                "Slope coefficient for LeakyReLU must be no less than 0.")
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha,
+                           name="fwd")
+
+    def __repr__(self):
+        return "{}({})".format(type(self).__name__, self._alpha)
+
+
+class ELU(HybridBlock):
+    """``x`` above 0, ``alpha * (exp(x) - 1)`` below."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(_LeakyFamily):
+    _ACT_TYPE = "selu"
+
+
+class GELU(_LeakyFamily):
+    _ACT_TYPE = "gelu"
+
+
+class PReLU(HybridBlock):
+    """A leaky slope learned as the parameter ``alpha`` (shape (1,),
+    ``Constant(0.25)`` by default)."""
+
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        if alpha_initializer is None:
+            from ... import initializer
+            alpha_initializer = initializer.Constant(0.25)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(1,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu", name="fwd")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x, name="fwd")

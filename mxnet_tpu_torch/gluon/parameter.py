@@ -20,7 +20,8 @@ from .. import autograd
 from .. import initializer
 from .. import ndarray as nd
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -285,6 +286,30 @@ class Parameter:
         return self._var
 
 
+class Constant(Parameter):
+    """A parameter that holds a fixed value: no gradient, and Trainer
+    skips it (reference: parameter.py:612). The value is captured in a
+    one-off registered initializer, so ``initialize()`` reproduces it on
+    any context."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, nd.NDArray):
+            value = nd.array(value)
+        self.value = value
+
+        class _Repeat(initializer.Initializer):
+            def _fill(self, _, data, gen):
+                data.copy_(value._data)
+
+            _init_default = initializer.Initializer._init_weight
+
+        alias = "Constant_{}_{}".format(name, id(self))
+        initializer._REG.register(alias, allow_override=True)(_Repeat)
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=alias,
+                         differentiable=False)
+
+
 class ParameterDict:
     """Prefix-scoped mapping of Parameters with sharing
     (reference: parameter.py:632)."""
@@ -357,6 +382,24 @@ class ParameterDict:
         else:
             for key, value in kwargs.items():
                 self._reconcile(param, key, value)
+        return param
+
+    def get_constant(self, name, value=None):
+        """The Constant ``prefix + name``, created from ``value`` if it
+        does not exist (reference: parameter.py:730)."""
+        full = self._prefix + name
+        param = self._lookup(full)
+        if param is None:
+            if value is None:
+                raise KeyError(
+                    "No constant named '{}'. Please specify value if you "
+                    "want to create a new constant.".format(full))
+            param = Constant(full, value)
+            self._params[full] = param
+        elif value is not None and not isinstance(param, Constant):
+            raise AssertionError(
+                "Parameter '{}' already exists but it is not a constant."
+                .format(full))
         return param
 
     def update(self, other):

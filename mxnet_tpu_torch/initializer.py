@@ -4,22 +4,29 @@ A parameter is routed by its name's suffix (``*weight``, ``*bias``,
 ``*gamma``, ``*beta``, BatchNorm's ``*running_mean`` / ``*moving_mean``
 to zeros and ``*running_var`` / ``*moving_var`` to ones) to a handler,
 which fills the array in place.
-Every random draw takes the generator of the array's device from
-:mod:`mxnet_tpu_torch.random` (the JAX package draws from numpy's global
-state), so a seed fixes the weights on each device.
+The random draws of ``Uniform``, ``Normal`` and ``Xavier`` take the
+generator of the array's device from :mod:`mxnet_tpu_torch.random` (the
+JAX package draws from numpy's global state), so a seed fixes the
+weights on each device. ``Orthogonal``, ``MSRAPrelu``, ``Bilinear`` and
+``LSTMBias`` copy the JAX package's numpy arithmetic instead, drawing
+from numpy's global state, so one ``np.random.seed`` gives the same
+arrays in both packages; ``Mixed`` picks an initializer by name.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as np
 import torch
 
 from .base import MXNetError, Registry
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "Mixed"]
 
 _REG = Registry("initializer", case_sensitive=False)
 
@@ -198,7 +205,117 @@ class Xavier(Initializer):
                              % (self.rnd_type,))
 
 
-for _alias, _cls in (("zeros", Zero), ("ones", One), ("gaussian", Normal)):
+class _NumpyDraw:
+    """A weight made on the host by ``_generate(name, shape)``, the JAX
+    package's numpy arithmetic, then copied into the array."""
+
+    def _init_weight(self, name, arr):
+        value = np.asarray(self._generate(name, arr.shape),
+                           dtype=np.dtype(arr.dtype))
+        with torch.no_grad():
+            arr._data.copy_(torch.from_numpy(value))
+
+
+@register
+class Orthogonal(_NumpyDraw, Initializer):
+    """An orthonormal basis from the SVD of a random matrix (uniform in
+    [-1, 1] or standard normal), scaled (reference:
+    initializer.py:482)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale, self.rand_type = scale, rand_type
+
+    def _generate(self, name, shape):
+        rows, cols = shape[0], int(np.prod(shape[1:]))
+        seed = np.random.uniform(-1, 1, (rows, cols)) \
+            if self.rand_type == "uniform" \
+            else np.random.normal(0, 1, (rows, cols))
+        u, _, vt = np.linalg.svd(seed, full_matrices=False)
+        basis = u if u.shape == seed.shape else vt
+        return (self.scale * basis).reshape(shape)
+
+
+@register
+class MSRAPrelu(_NumpyDraw, Xavier):
+    """He/MSRA scaling for PReLU slopes: Xavier gaussian with magnitude
+    ``2 / (1 + slope**2)`` (reference: initializer.py:626)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+    def _generate(self, name, shape):
+        try:
+            factor = self._FACTORS[self.factor_type](*_fans(name, shape))
+        except KeyError:
+            raise ValueError("factor_type must be avg/in/out, got %r"
+                             % (self.factor_type,))
+        return np.random.normal(0.0, np.sqrt(self.magnitude / factor),
+                                shape)
+
+
+@register
+class Bilinear(_NumpyDraw, Initializer):
+    """The bilinear upsampling kernel of a deconvolution, on every
+    (out, in) pair (reference: initializer.py:657)."""
+
+    def _generate(self, name, shape):
+        kw = shape[3]
+        kh = shape[2]
+        f = np.ceil(kw / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        xs = np.arange(kw)
+        ys = np.arange(kh)
+        kernel = np.outer(1 - np.abs(ys / f - c), 1 - np.abs(xs / f - c))
+        return np.broadcast_to(kernel, shape)
+
+
+@register
+class LSTMBias(_NumpyDraw, Initializer):
+    """``forget_bias`` on the forget gate's quarter of an LSTM bias,
+    zero elsewhere (reference: initializer.py:685)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _generate(self, name, shape):
+        vec = np.zeros(shape, dtype="float32")
+        h = shape[0] // 4
+        vec[h:2 * h] = self.forget_bias
+        return vec
+
+    def _init_default(self, name, arr):
+        self._init_weight(name, arr)
+
+    _init_bias = _NumpyDraw._init_weight
+
+
+@register
+class Mixed(Initializer):
+    """The initializer of the first pattern (a regex) that matches a
+    parameter's name (reference: initializer.py:286)."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must pair up")
+        self.map = [(re.compile(p), ini)
+                    for p, ini in zip(patterns, initializers)]
+
+    def __call__(self, name, arr):
+        for pattern, ini in self.map:
+            if pattern.match(str(name)):
+                ini(name, arr)
+                return
+        raise ValueError(
+            "parameter %r matched none of the Mixed patterns; add a "
+            "'.*' catch-all if that is intended" % str(name))
+
+
+for _alias, _cls in (("zeros", Zero), ("ones", One), ("gaussian", Normal),
+                     ("msra", MSRAPrelu)):
     _REG.register(_alias, allow_override=True)(_cls)
 
 

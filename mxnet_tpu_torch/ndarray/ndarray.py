@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, integer_types, numeric_types
-from ..context import Context, context_of, current_context
+from ..context import Context, as_context, context_of, current_context
 from .. import ops as _ops
 
 __all__ = ["NDArray", "invoke_nd", "array", "zeros", "ones", "full",
@@ -231,6 +231,13 @@ class NDArray:
                 *reversed(range(self.ndim)))
         return NDArray(data)
 
+    def swapaxes(self, dim1, dim2):
+        return invoke_nd("SwapAxis", [self], {"dim1": dim1, "dim2": dim2})
+
+    def slice_axis(self, axis, begin, end):
+        return invoke_nd("slice_axis", [self],
+                         {"axis": axis, "begin": begin, "end": end})
+
     def expand_dims(self, axis):
         return invoke_nd("expand_dims", [self], {"axis": axis})
 
@@ -420,22 +427,31 @@ def _as_nd(x, ctx=None):
     return x if isinstance(x, NDArray) else array(x, ctx=ctx)
 
 
-def invoke_nd(op_name, inputs, attrs, out=None):
+def invoke_nd(op_name, inputs, attrs, out=None, ctx=None):
     """Run a registered op on NDArrays (the ``Imperative::Invoke``
     role): gradients are recorded only inside ``autograd.record()``; an
     op with a ``__train__`` attribute runs in the autograd train mode;
     the new values of its mutable inputs (BatchNorm's moving statistics)
-    are written back into those NDArrays in place, with no grad."""
+    are written back into those NDArrays in place, with no grad. An op
+    with no input makes its output on ``ctx`` (its ``ctx`` attribute),
+    else on the current context, and draws from that device's
+    generator."""
     from .. import autograd
     from .. import random as _random
     op = _ops.get_op(op_name) if isinstance(op_name, str) else op_name
     attrs = {k: v for k, v in attrs.items() if v is not None or k == "axis"}
     if "__train__" in op.defaults:
         attrs["__train__"] = autograd.is_training()
+    if not inputs and ctx is not None and "ctx" in op.defaults:
+        attrs["ctx"] = ctx
     rng = None
     if op.needs_rng:
-        rng = _random.generator(inputs[0]._data.device if inputs
-                                else current_context().torch_device())
+        if inputs:
+            dev = inputs[0]._data.device
+        else:
+            dev = as_context(ctx or attrs.get("ctx")
+                             or current_context()).torch_device()
+        rng = _random.generator(dev)
     with torch.set_grad_enabled(autograd.is_recording()):
         outputs, aux_updates = _ops.invoke(op, [i._data for i in inputs],
                                            attrs, rng=rng)

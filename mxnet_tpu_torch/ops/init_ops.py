@@ -14,11 +14,10 @@ from .registry import register
 
 
 def _zeros(attrs):
-    from ..context import Context, current_context
+    from ..context import as_context, current_context
     from ..ndarray.ndarray import torch_dtype
     ctx = attrs.get("ctx")
-    ctx = current_context() if not ctx else (
-        ctx if isinstance(ctx, Context) else Context(ctx))
+    ctx = as_context(ctx) if ctx else current_context()
     return torch.zeros(tuple(attrs.get("shape", ())),
                        dtype=torch_dtype(attrs.get("dtype") or "float32"),
                        device=ctx.torch_device())

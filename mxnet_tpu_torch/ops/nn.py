@@ -1,6 +1,6 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``):
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Activation``,
-``BatchNorm``, ``LayerNorm``, ``Pooling``, ``Dropout``, ``softmax``,
+``LeakyReLU``, ``BatchNorm``, ``LayerNorm``, ``InstanceNorm``, ``Pooling``, ``Dropout``, ``softmax``,
 ``log_softmax``, the loss layer ``SoftmaxOutput`` and the sequence ops
 (``SequenceMask``, ``SequenceLast``, ``SequenceReverse``). Matrix products
 and (transposed) convolutions go to cuBLAS and cuDNN through torch, as
@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..base import MXNetError
 from .registry import register
 
 _D = ("data",)
@@ -179,6 +180,67 @@ register("Activation", _activation, arg_names=_D,
                                 "softsign"})
 
 
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def _leaky_relu_outputs(attrs):
+    return 2 if attrs.get("act_type", "leaky") == "rrelu" else 1
+
+
+def _leaky_relu_draws(attrs, is_train):
+    return attrs.get("act_type", "leaky") == "rrelu" and is_train
+
+
+def _leaky_relu(attrs, data, gamma=None, rng=None):
+    """The LeakyReLU family by ``act_type``: ``leaky`` (``slope * x``
+    below 0), ``elu`` (``slope * expm1(x)``), ``prelu`` (a learned
+    ``gamma``, one slope a channel of axis 1), ``selu`` (the JAX
+    package's constants), exact-erf ``gelu`` and ``rrelu``. ``rrelu``
+    returns the slopes too: uniform draws in [lower_bound, upper_bound)
+    in training, their mean in predict mode, where it draws nothing
+    (``draws``), so a predict graph holding it stays replayable."""
+    t = attrs.get("act_type", "leaky")
+    slope = float(attrs.get("slope", 0.25))
+    if t == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if t == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if t == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 and data.dim() > 1 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if t == "selu":
+        return _SELU_SCALE * torch.where(data >= 0, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if t == "gelu":
+        return F.gelu(data, approximate="none")
+    if t == "rrelu":
+        lo = float(attrs.get("lower_bound", 0.125))
+        hi = float(attrs.get("upper_bound", 0.334))
+        if not _leaky_relu_draws(attrs, _is_train(attrs)):
+            mask = torch.full_like(data, (lo + hi) / 2.0)
+        elif data.device.type == "meta":
+            mask = torch.empty_like(data)
+        else:
+            if rng is None:
+                from .. import random as _random
+                rng = _random.generator(data.device)
+            mask = torch.empty_like(data).uniform_(lo, hi, generator=rng)
+        return torch.where(data >= 0, data, mask * data), mask
+    raise ValueError("LeakyReLU: unknown act_type %r" % t)
+
+
+register("LeakyReLU", _leaky_relu, arg_names=("data", "gamma"),
+         needs_rng=True, draws=_leaky_relu_draws,
+         defaults={"act_type": "leaky", "slope": 0.25, "lower_bound": 0.125,
+                   "upper_bound": 0.334, "__train__": False},
+         num_outputs=_leaky_relu_outputs,
+         arg_names_fn=lambda attrs: ["data", "gamma"]
+         if attrs.get("act_type") == "prelu" else ["data"],
+         attr_docs={"act_type": "one of leaky/elu/prelu/selu/gelu/rrelu",
+                    "slope": "the negative slope (leaky) or alpha (elu)"})
+
+
 def _batch_norm_outputs(attrs):
     return 3 if attrs.get("output_mean_var", False) else 1
 
@@ -315,6 +377,23 @@ register("LayerNorm", _layer_norm, arg_names=("data", "gamma", "beta"),
          num_outputs=lambda a: 3 if a.get("output_mean_var", False) else 1)
 
 
+def _instance_norm(attrs, data, gamma, beta):
+    """Each sample's channels normalized over their spatial dims (the
+    JAX package's arithmetic: biased variance, ``rsqrt(var + eps)``),
+    then scaled by ``gamma`` and shifted by ``beta`` a channel."""
+    eps = float(attrs.get("eps", 1e-3))
+    red = tuple(range(2, data.dim()))
+    mean = torch.mean(data, dim=red, keepdim=True)
+    var = torch.var(data, dim=red, keepdim=True, unbiased=False)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+register("InstanceNorm", _instance_norm, arg_names=("data", "gamma", "beta"),
+         defaults={"eps": 1e-3})
+
+
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 
@@ -338,6 +417,17 @@ def _pooling(attrs, data):
     kernel = tuple(attrs.get("kernel", ()))
     pool_type = attrs.get("pool_type", "max")
     global_pool = bool(attrs.get("global_pool", False))
+    if nd == 0:
+        # no spatial dim: the JAX package's (1, 1) window over (N, C)
+        if pool_type in ("max", "avg", "sum"):
+            return data
+        if pool_type == "lp":
+            p = float(attrs.get("p_value", 2))
+            return (torch.abs(data) ** p) ** (1.0 / p)
+        raise ValueError("Pooling: unknown pool_type %r" % pool_type)
+    if nd < 0 or nd > 3:
+        raise MXNetError("Pooling: data of %d dims; 2 to 5 are supported"
+                         % data.ndim)
     if global_pool or not kernel:
         kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
     else:

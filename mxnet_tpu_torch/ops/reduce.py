@@ -1,4 +1,5 @@
-"""Reductions (counterpart of ``mxnet_tpu/ops/reduce.py``): ``axis`` may
+"""Reductions and the L1/L2 ``norm`` (counterpart of
+``mxnet_tpu/ops/reduce.py``): ``axis`` may
 be None, an int or a tuple, ``exclude=True`` reduces over the complement
 (``Loss._finish``'s mean over the non-batch axes), ``keepdims`` keeps the
 reduced dims as 1."""
@@ -38,3 +39,18 @@ _reg_reduce("sum", lambda x, a, k: torch.sum(x, dim=a, keepdim=k))
 _reg_reduce("mean", lambda x, a, k: torch.mean(x, dim=a, keepdim=k))
 _reg_reduce("max", lambda x, a, k: torch.amax(x, dim=a, keepdim=k))
 _reg_reduce("min", lambda x, a, k: torch.amin(x, dim=a, keepdim=k))
+
+
+def _norm(attrs, x):
+    """The L1 (``ord=1``) or L2 norm over ``axis`` (all axes by
+    default)."""
+    axes = _norm_axis(attrs, x.ndim)
+    k = bool(attrs.get("keepdims", False))
+    if int(attrs.get("ord", 2)) == 1:
+        return torch.sum(torch.abs(x), dim=axes, keepdim=k)
+    return torch.sqrt(torch.sum(torch.square(x), dim=axes, keepdim=k))
+
+
+register("norm", _norm, arg_names=_D,
+         defaults={"axis": None, "keepdims": False, "exclude": False,
+                   "ord": 2})

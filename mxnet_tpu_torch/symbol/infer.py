@@ -76,6 +76,17 @@ def _channel_param(axis_default):
 
 PARAM_SHAPE_HOOKS["BatchNorm"] = _channel_param(1)
 PARAM_SHAPE_HOOKS["LayerNorm"] = _channel_param(-1)
+PARAM_SHAPE_HOOKS["InstanceNorm"] = _channel_param(1)
+
+
+@hook("LeakyReLU")
+def _leaky(attrs, in_shapes):
+    if attrs.get("act_type", "leaky") != "prelu":
+        return {}
+    data = in_shapes[0]
+    if data is None:
+        return {}
+    return {1: (data[1] if len(data) > 1 else 1,)}
 
 
 @hook("Embedding")

@@ -425,6 +425,9 @@ class Symbol:
     def astype(self, dtype):
         return create("Cast", [self], {"dtype": _dtype_name(dtype)})
 
+    def swapaxes(self, dim1, dim2):
+        return create("SwapAxis", [self], {"dim1": dim1, "dim2": dim2})
+
     def softmax(self, axis=-1):
         return create("softmax", [self], {"axis": axis})
 
