@@ -367,6 +367,38 @@ no result, anywhere else. Phases (any failure exits non-zero):
    (convolutions, Adam, BatchNorm/elementwise), the idle share and peak
    memory. Attention, decode and rtc launches over (a)-(c), zeroed
    before, must read 0.
+21. ops (after 20) — the seventeenth slice, the operator breadth, fp32
+   with TF32 off: (a) every registered op whose body lives in the
+   port's elemwise, reduce, matrix, indexing, init_ops, nn, linalg or
+   extra module and does not draw (the list taken from the registry;
+   an op without a case in ``ops_cases`` fails the phase) runs on
+   gpu(0) and on cpu() from the same numpy inputs (the reference's
+   ``check_consistency``): outputs and input gradients within OPS_TOL
+   of each other (normwise, max |gpu - cpu| / max |cpu|; OPS_WIDE
+   states the wider ones), indices and counts bit-equal (the ties of
+   ``sort``/``argsort``/``topk``/``argmax``), at the LM's activations
+   (8 x 1024 x 768), (b)'s attention shapes and vocabulary, and 64 SPD
+   matrices of 128 x 128; gelqf's and syevd's rows aligned by sign
+   first; every GPU run under ``torch.cuda.set_sync_debug_mode``: an op
+   that makes the host wait fails, but OPS_SYNC_OK; the count swept and
+   the ten largest errors printed; (b) ToyDecoderLM's GPT-2-small-width
+   decoder written in ``mx.sym`` with the slice's ops (``sym_lm``:
+   ``batch_dot``, ``_contrib_div_sqrt_dim``, a causal mask from
+   ``_arange`` with ``broadcast_lesser_equal``/``broadcast_like``,
+   ``softmax_cross_entropy`` under ``MakeLoss``, ``topk`` under
+   ``BlockGrad``) on ``ToyDecoderLM.init_params(seed=0)``: its logits
+   at B1 T512 against ``ToyDecoderLM.prefill`` (the flash_fwd route;
+   LOGIT_ATOL), 16 greedy tokens in a fixed T512 window against the
+   model's prefill + decode stream (a difference only at a printed
+   top-2 gap below LOGIT_ATOL); one fused ``Module`` step against one
+   eager from the same weights (as phase 14 holds a step); then
+   ``Module.fit`` over an ``NDArrayIter`` of synthetic tokens, batch 8
+   x 1024, Adam lr 1e-3, 10 steps on the fused step: 1 capture, 0
+   recaptures, the loss falling; ms a step, tokens/s, busy by class
+   (``batch_dot`` products, FC products, the rest, from the eager
+   step's profile), the idle share and peak memory. The attention,
+   decode and rtc launch counts, zeroed before the symbol's runs, must
+   read 0 after.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc or
@@ -7252,6 +7284,891 @@ def phase_gan(card):
                 first=first, acc=acc, random=rnd)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the operator breadth
+# ---------------------------------------------------------------------------
+
+OPS_MODULES = ("elemwise", "reduce", "matrix", "indexing", "init_ops", "nn",
+               "linalg", "extra")
+OPS_ACT = (8, 1024, 768)            # the LM's activations: elementwise, reduce
+OPS_SPD = (64, 128)                 # 64 SPD matrices of 128 x 128: linalg
+OPS_TOL = 1e-5                      # max |gpu - cpu| / max |cpu|, fwd and grad
+# wider normwise tolerances, with their reasons
+OPS_WIDE = {
+    # the factorizations' rounding grows with the condition number
+    # (cuSOLVER against LAPACK)
+    "_linalg_potri": 1e-4, "_linalg_inverse": 1e-4, "_linalg_trsm": 1e-4,
+    "_linalg_det": 1e-4, "_linalg_slogdet": 1e-4, "_linalg_gelqf": 1e-4,
+    "_linalg_potrf": 1e-4, "_linalg_sumlogdiag": 1e-4,
+    # eigenvector gradients divide by eigenvalue gaps (1e-3 apart at 128)
+    "_linalg_syevd": 1e-3,
+    # CTC runs T log-space steps, each a logaddexp whose CUDA and host
+    # exp/log1p round differently
+    "_contrib_ctc_loss": 1e-4,
+    # lgamma's CUDA and host implementations differ by float32 ulps,
+    # which exp turns into relative error
+    "gamma": 4e-5, "gammaln": 4e-5,
+    # every probability carries the rounding of a 50257-term normalizer
+    # (~sqrt(n) float32 ulps, summed in another order on each device)
+    "softmax_cross_entropy": 4e-5,
+}
+OPS_SYNC_OK = ("_linalg_syevd",)    # torch.linalg.eigh reads its info flag
+SYM_LM_BATCH = 8
+SYM_LM_STEPS = 10
+SYM_LM_T = 512                      # the forward and greedy checks' window
+SYM_LM_PROMPT = 496                 # the greedy check's prompt in that window
+SYM_LM_NEW = 16
+SYM_LM_ADAM = dict(learning_rate=1e-3)
+SYM_LM_ITERS = 10
+SYM_LM_CLASSES = (("batch_dot products", ("aten::bmm",)),
+                  ("FC products", ("aten::mm", "aten::addmm")))
+
+
+def _r(rs, shape, lo=None, hi=None):
+    if lo is not None:
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+    return rs.standard_normal(shape).astype(np.float32)
+
+
+def ops_cases(rs, act, spd, heads, vocab, seq, width):
+    """``{op name: [case, ...]}`` for phase 21 (a): each case is ``(arrays,
+    attrs, opts)``; ``opts``: ``grad`` (False: forward only), ``exact``
+    (outputs bit-equal: indices, counts), ``align`` (a factorization
+    whose rows' signs the solver picks). Elementwise and reduce ops run
+    at the LM's activations ``act``, the attention ops at one sequence of
+    (b)'s (``heads`` x ``seq`` x ``width / heads``), the embedding and
+    the loss at its ``vocab``, linalg on ``spd`` SPD matrices.
+    ``tests/test_torch_op_registry.py`` runs it at toy sizes on the
+    CPU."""
+    f32 = np.float32
+    dh = width // heads
+    A = _r(rs, act)
+    B1 = _r(rs, (1,) + act[1:])
+    P = _r(rs, act, 0.1, 3.0)
+    U = _r(rs, act, -0.9, 0.9)
+    T = np.round(_r(rs, act) * 4) / 2              # halves: ties, x.5 values
+    T1 = np.round(_r(rs, (1,) + act[1:]) * 4) / 2
+    near1 = _r(rs, act, 0.99, 1.01)
+    nan = A.copy()
+    nan.reshape(-1)[::97] = np.nan
+    nan1 = near1.copy()
+    nan1.reshape(-1)[::97] = np.nan
+    sgn = np.where(_r(rs, (1,) + act[1:]) < 0, -1, 1).astype(f32)
+    div = sgn * _r(rs, (1,) + act[1:], 0.5, 2.0)
+    img = _r(rs, (8, 16, 32, 32))
+    n, m = spd
+    M = _r(rs, (n, m, m)) / np.sqrt(m)
+    S = (M @ M.transpose(0, 2, 1) + 0.5 * np.eye(m, dtype=f32)).astype(f32)
+    L = np.linalg.cholesky(S.astype(np.float64)).astype(f32)
+    D16 = (S[:, :16, :16] * 2.0).astype(f32)
+    # eigenvalues 0.5..4.5 evenly apart: the eigenvectors are well
+    # defined (a Wishart matrix's smallest eigenvalues crowd together)
+    Q = np.linalg.qr(rs.standard_normal((n, m, m)))[0]
+    Sev = ((Q * np.linspace(0.5, 4.5, m)) @ Q.transpose(0, 2, 1)) \
+        .astype(f32)
+    Bm = _r(rs, (n, m, 32))
+    q = _r(rs, (heads, seq, dh))
+    k = _r(rs, (heads, seq, dh))
+    scores = _r(rs, (heads, seq, seq)) * 4
+    ids = rs.randint(0, vocab, (act[0], act[1])).astype(f32)
+    logits = np.round(_r(rs, (1, seq // 2, vocab)) * 2) / 2
+    ce = _r(rs, (seq, vocab)) * 3
+    ce_label = rs.randint(0, vocab, (seq,)).astype(f32)
+    ctc = _r(rs, (100, 32, 50)) * 2
+    ctc_label = rs.randint(1, 50, (32, 20)).astype(f32)
+    ctc_label[:, 15:] = 0
+    g, b = _r(rs, act[-1:], 0.5, 1.5), _r(rs, act[-1:])
+    g16, b16 = _r(rs, (16,), 0.5, 1.5), _r(rs, (16,))
+    seqlen = rs.randint(1, act[0] + 1, act[1]).astype(f32)
+    rows = act[1] // 16                             # rows an assignment writes
+
+    def c(arrays, attrs=None, **opts):
+        return (list(arrays), dict(attrs or {}), opts)
+
+    cases = {}
+    unary = {"abs": A, "sign": T, "ceil": T, "floor": T, "trunc": T,
+             "fix": T, "round": T, "rint": T, "square": A, "sqrt": P,
+             "exp": A, "log": P, "relu": A, "sigmoid": A, "tanh": A,
+             "negative": A, "softsign": A, "_copy": A, "identity": A,
+             "zeros_like": A, "ones_like": A, "logical_not": T,
+             "log10": P, "log2": P, "log1p": P, "expm1": A, "rsqrt": P,
+             "cbrt": A, "rcbrt": P, "sin": A, "cos": A,
+             "tan": U, "arcsin": U, "arccos": U, "arctan": A, "sinh": A,
+             "cosh": A, "arcsinh": A, "arccosh": P + 1.0, "arctanh": U,
+             "degrees": A, "radians": A, "erf": A, "erfinv": U,
+             "gamma": P + 0.1, "gammaln": P, "reciprocal": P}
+    for name, x in unary.items():
+        cases[name] = [c([x])]
+    binary = {"broadcast_add": (A, B1), "broadcast_sub": (A, B1),
+              "broadcast_mul": (A, B1), "broadcast_div": (A, div),
+              "broadcast_power": (P, B1 * 0.5), "broadcast_maximum": (A, B1),
+              "broadcast_minimum": (A, B1), "broadcast_mod": (A * 3, div),
+              "broadcast_hypot": (A, B1), "_scatter_elemwise_div": (A, P)}
+    for name in ("equal", "not_equal", "greater", "greater_equal",
+                 "lesser", "lesser_equal", "logical_and", "logical_or",
+                 "logical_xor"):
+        binary["broadcast_" + name] = (T, T1)
+    for name, (x, y) in binary.items():
+        cases[name] = [c([x, y])]
+    scalar = {"_plus_scalar": (A, 0.5), "_minus_scalar": (A, 0.5),
+              "_rminus_scalar": (A, 0.5), "_mul_scalar": (A, -1.5),
+              "_div_scalar": (A, 1.5), "_rdiv_scalar": (P, 1.5),
+              "_power_scalar": (P, 1.5), "_rpower_scalar": (A, 2.0),
+              "_mod_scalar": (A * 3, 0.7), "_rmod_scalar": (P, 2.5),
+              "_maximum_scalar": (A, 0.3), "_minimum_scalar": (A, 0.3),
+              "_hypot_scalar": (A, 0.3), "_scatter_plus_scalar": (A, 0.5),
+              "_scatter_minus_scalar": (A, 0.5)}
+    for name in ("equal", "not_equal", "greater", "greater_equal",
+                 "lesser", "lesser_equal", "logical_and", "logical_or",
+                 "logical_xor"):
+        scalar["_%s_scalar" % name] = (T, 0.5)
+    for name, (x, s) in scalar.items():
+        cases[name] = [c([x], {"scalar": s})]
+    cases.update({
+        "Cast": [c([A], {"dtype": "float16"})],
+        "clip": [c([A], {"a_min": -0.5, "a_max": 0.5})],
+        "where": [c([T, A, B1.repeat(act[0], 0)])],
+        "smooth_l1": [c([A], {"scalar": 1.5})],
+        "BlockGrad": [c([A])],
+        "make_loss": [c([A], {"grad_scale": 0.5})],
+        "shape_array": [c([A], grad=False, exact=True)],
+        "size_array": [c([A], grad=False, exact=True)],
+        # reductions
+        "sum": [c([A], {"axis": -1}), c([A])],
+        "mean": [c([A], {"axis": (0, 1)})],
+        "max": [c([A], {"axis": -1})], "min": [c([A], {"axis": 1})],
+        "prod": [c([near1], {"axis": -1})],
+        "nansum": [c([nan], {"axis": -1})],
+        "nanprod": [c([nan1], {"axis": -1})],
+        "norm": [c([A], {"axis": -1})],
+        "argmax": [c([T], {"axis": -1}, exact=True)],
+        "argmin": [c([T], {"axis": 1}, exact=True)],
+        "argmax_channel": [c([T], exact=True)],
+        "broadcast_to": [c([B1], {"shape": act})],
+        "broadcast_axis": [c([A[:, :1]], {"axis": 1, "size": act[1]})],
+        "broadcast_like": [c([B1, A])],
+        # shapes and products
+        "Reshape": [c([A], {"shape": (0, -1)})],
+        "Flatten": [c([A])],
+        "SliceChannel": [c([A], {"num_outputs": 3, "axis": 2})],
+        "Concat": [c([A, A * 2], {"dim": 2, "num_args": 2})],
+        "stack": [c([A, B1.repeat(act[0], 0)], {"axis": 1, "num_args": 2})],
+        "expand_dims": [c([A], {"axis": 1})],
+        "transpose": [c([A], {"axes": (2, 0, 1)})],
+        "reverse": [c([A], {"axis": 1})],
+        "dot": [c([A[0], _r(rs, (act[-1], act[-1]))])],
+        "Pad": [c([img], {"mode": "reflect",
+                          "pad_width": (0, 0, 0, 0, 2, 3, 1, 2)})],
+        "SwapAxis": [c([A], {"dim1": 0, "dim2": 2})],
+        "slice_axis": [c([A], {"axis": 1, "begin": 10, "end": -10})],
+        "tile": [c([img[:2]], {"reps": (1, 2, 1, 2)})],
+        "reshape_like": [c([A, A.reshape(act[0], -1)])],
+        "batch_dot": [c([q, k], {"transpose_b": True}),
+                      c([_r(rs, (heads, seq, seq)), k])],
+        "slice": [c([A], {"begin": (None, 1000, 5), "end": (None, 0, None),
+                          "step": (2, -3, 7)})],
+        "slice_like": [c([A, A[:3, :100, :64]], {"axes": (0, 1)})],
+        "squeeze": [c([A[:, :1]], {"axis": 1})],
+        "repeat": [c([A[:2]], {"repeats": 3, "axis": 1})],
+        "diag": [c([A], {"k": 3, "axis1": 1, "axis2": 2})],
+        "khatri_rao": [c([_r(rs, (64, 512)), _r(rs, (32, 512))],
+                         {"num_args": 2})],
+        "depth_to_space": [c([img], {"block_size": 2})],
+        "space_to_depth": [c([img], {"block_size": 2})],
+        "_rnn_param_concat": [c([A.reshape(-1), B1.reshape(-1)],
+                                {"num_args": 2})],
+        # indexing and ordering
+        "Embedding": [c([ids, _r(rs, (vocab, width))],
+                        {"input_dim": vocab, "output_dim": width})],
+        "pick": [c([A, rs.randint(0, act[-1], act[:2]).astype(f32)])],
+        "gather_nd": [c([A, np.stack([rs.randint(0, n_, 4096) for n_ in
+                                      act[:2]]).astype(f32)])],
+        "take": [c([A[0], rs.randint(-5, act[1] + 5, (64, 32)).astype(f32)],
+                   {"mode": "clip"}),
+                 c([A[0], rs.randint(-5, act[1] + 5, (64,)).astype(f32)],
+                   {"mode": "wrap"})],
+        "batch_take": [c([A[0], rs.randint(0, act[-1], act[1])
+                          .astype(f32)])],
+        "one_hot": [c([ids[:, :256] % 1000], {"depth": 1000}, grad=False)],
+        "topk": [c([logits], {"k": 1, "ret_typ": "both"}, exact=True),
+                 c([logits], {"k": 4, "ret_typ": "both"}, exact=True),
+                 c([T], {"k": 3, "ret_typ": "mask", "is_ascend": True},
+                   exact=True)],
+        "sort": [c([T], {"is_ascend": False}, exact=True)],
+        "argsort": [c([T], {"is_ascend": False}, exact=True)],
+        "scatter_nd": [c([_r(rs, (act[1], act[-1])),
+                          rs.permutation(act[1] * 2)[:act[1]][None]
+                          .astype(f32)], {"shape": (act[1] * 2, act[-1])})],
+        "_getitem": [c([A, np.array([3, 0, 7], np.int32)],
+                       {"spec": (("e",), ("s", None, None, -2), ("a",)),
+                        "num_arrays": 1})],
+        "_contrib_boolean_mask": [c([A[0], (ids[0] % 3 == 0).astype(f32)])],
+        "_contrib_index_copy": [c([A[0], rs.permutation(act[1])[:rows]
+                                   .astype(f32), _r(rs, (rows, act[-1]))])],
+        # creation
+        "_zeros": [c([], {"shape": act})], "_ones": [c([], {"shape": act})],
+        "_full": [c([], {"shape": act, "value": 0.25})],
+        "_arange": [c([], {"start": 0, "stop": seq}),
+                    c([], {"start": 0.1, "stop": 7.3, "step": 0.3,
+                           "repeat": 2})],
+        "_linspace": [c([], {"start": -3, "stop": 7, "num": 1000})],
+        "_eye": [c([], {"N": seq, "M": seq // 2, "k": 3})],
+        "_contrib_arange_like": [c([A], {"axis": 1})],
+        # neural-network ops
+        "Activation": [c([A], {"act_type": "relu"})],
+        "BatchNorm": [c([img, g16, b16, np.zeros(16, f32),
+                         np.ones(16, f32)], {"__train__": True,
+                                             "fix_gamma": False})],
+        "LayerNorm": [c([A, g, b], {"eps": 1e-5})],
+        "InstanceNorm": [c([img, g16, b16])],
+        "FullyConnected": [c([A, _r(rs, (act[-1], act[-1])) * 0.05],
+                             {"num_hidden": act[-1], "no_bias": True,
+                              "flatten": False})],
+        "Convolution": [c([img, _r(rs, (32, 16, 3, 3)) * 0.1, _r(rs, (32,))],
+                          {"kernel": (3, 3), "num_filter": 32,
+                           "pad": (1, 1)})],
+        "Deconvolution": [c([img[:, :, :16, :16], _r(rs, (16, 8, 4, 4)) * 0.1],
+                            {"kernel": (4, 4), "num_filter": 8,
+                             "stride": (2, 2), "pad": (1, 1),
+                             "no_bias": True})],
+        "Pooling": [c([img], {"kernel": (2, 2), "stride": (2, 2),
+                              "pool_type": "max"}),
+                    c([img], {"kernel": (3, 3), "stride": (2, 2),
+                              "pool_type": "avg", "pad": (1, 1)})],
+        "softmax": [c([scores], {"axis": -1})],
+        "log_softmax": [c([A], {"axis": -1})],
+        "softmin": [c([A], {"axis": -1})],
+        "SoftmaxActivation": [c([img], {"mode": "channel"})],
+        "SoftmaxOutput": [c([ce[:, :1000], ce_label % 1000],
+                            {"normalization": "batch"}),
+                          c([ce[:, :1000], ce_label % 1000],
+                            {"normalization": "valid"})],
+        "SequenceMask": [c([A, seqlen], {"use_sequence_length": True})],
+        "SequenceLast": [c([A, seqlen], {"use_sequence_length": True})],
+        "SequenceReverse": [c([A, seqlen], {"use_sequence_length": True})],
+        "L2Normalization": [c([img], {"mode": "channel"})],
+        "LRN": [c([img], {"nsize": 5})],
+        "UpSampling": [c([img], {"scale": 2, "num_args": 1}),
+                       c([img[:, :, :8, :8]], {"scale": 2,
+                                               "sample_type": "bilinear",
+                                               "num_args": 1})],
+        "softmax_cross_entropy": [c([ce, ce_label])],
+        "_contrib_div_sqrt_dim": [c([q])],
+        "_contrib_ctc_loss": [c([ctc, ctc_label])],
+        "LinearRegressionOutput": [c([A, B1.repeat(act[0], 0)])],
+        "LogisticRegressionOutput": [c([A, B1.repeat(act[0], 0)])],
+        "MAERegressionOutput": [c([A, B1.repeat(act[0], 0)])],
+        # linear algebra
+        "_linalg_gemm2": [c([S, Bm], {"alpha": 0.5}),
+                          c([S, S], {"transpose_b": True})],
+        "_linalg_gemm": [c([S, Bm, Bm], {"beta": -1.0})],
+        "_linalg_potrf": [c([S])], "_linalg_potri": [c([L])],
+        "_linalg_trsm": [c([L, Bm], {"alpha": 2.0}),
+                         c([L, Bm.transpose(0, 2, 1)],
+                           {"rightside": True, "transpose": True})],
+        "_linalg_trmm": [c([L, Bm], {"lower": True})],
+        "_linalg_syrk": [c([Bm], {"alpha": 0.5})],
+        "_linalg_sumlogdiag": [c([L])],
+        "_linalg_extractdiag": [c([S], {"offset": 1})],
+        "_linalg_makediag": [c([Bm[:, :, 0]], {"offset": -1})],
+        "_linalg_extracttrian": [c([S], {"offset": -1})],
+        "_linalg_gelqf": [c([M], align="gelqf")],
+        "_linalg_syevd": [c([Sev], align="syevd")],
+        "_linalg_inverse": [c([S])], "_linalg_det": [c([D16])],
+        "_linalg_slogdet": [c([S])],
+        # the rest
+        "Crop": [c([img], {"h_w": (20, 24), "center_crop": True})],
+        "_contrib_fft": [c([A.reshape(-1, act[-1])[:2048]])],
+        "_contrib_ifft": [c([A.reshape(-1, act[-1])[:2048]])],
+        "_contrib_BilinearResize2D": [c([img], {"height": 48, "width": 40}),
+                                      c([img], {"height": 20, "width": 13})],
+        "_contrib_AdaptiveAvgPooling2D": [c([img], {"output_size": (4, 8)}),
+                                          c([img], {"output_size": (5, 7)})],
+        "_histogram": [c([A.reshape(-1)[:4096]], {"bin_cnt": 20,
+                                                   "range": (-3.0, 3.0)},
+                         grad=False, exact=True)],
+        "_ravel_multi_index": [c([np.stack([rs.randint(0, 8, 4096),
+                                            rs.randint(0, 1024, 4096)])
+                                  .astype(f32)], {"shape": (8, 1024)},
+                                 grad=False, exact=True)],
+        "_unravel_index": [c([rs.randint(0, 8192, 4096).astype(f32)],
+                             {"shape": (8, 1024)}, grad=False, exact=True)],
+        "hard_sigmoid": [c([A * 3])],
+        "add_n": [c([A, A * 2, B1.repeat(act[0], 0)], {"num_args": 3})],
+        "_grad_add": [c([A, A * 2])],
+        "_identity_with_attr_like_rhs": [c([A, A])],
+        "_zeros_without_dtype": [c([], {"shape": act})],
+        "_split_v2": [c([A], {"indices": (100, 500), "axis": 1})],
+        "_slice_assign": [c([A, _r(rs, (act[0], rows, act[-1]))],
+                            {"begin": (None, rows), "end": (None, 2 * rows)})],
+        "_slice_assign_scalar": [c([A], {"begin": (None, 900),
+                                         "end": (None, 100),
+                                         "step": (None, -2),
+                                         "scalar": 0.5})],
+        "_scatter_set_nd": [c([A[0], rs.permutation(act[1])[:rows][None]
+                               .astype(f32), _r(rs, (rows, act[-1]))])],
+        "_contrib_quadratic": [c([A], {"a": 0.5, "b": -1.0, "c": 2.0})],
+        "_contrib_gradientmultiplier": [c([A], {"scalar": -0.5})],
+        "SVMOutput": [c([A[0], rs.randint(0, act[-1], act[1]).astype(f32)],
+                        {"margin": 1.0})],
+        "IdentityAttachKLSparseReg": [c([A])],
+    })
+    for v1 in ("BatchNorm", "Convolution", "Pooling"):
+        cases[v1 + "_v1"] = cases[v1]
+    return cases
+
+
+def ops_swept(ops):
+    """The distinct registered ops of phase 21 (a), from the port's
+    registry: every op whose body lives in one of OPS_MODULES and does
+    not draw (the samplers and Dropout are phase 20's), and the names
+    (canonical and aliases) that reach each."""
+    names = {}
+    for name in ops.list_ops():
+        op = ops.get_op(name)
+        if op.needs_rng or op.forward.__module__.rsplit(".", 1)[-1] \
+                not in OPS_MODULES:
+            continue
+        names.setdefault(op.name, []).append(name)
+    return names
+
+
+def op_leaves(arrays, device, grad):
+    """The inputs as tensors on ``device``; with ``grad`` the float ones
+    require gradients."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+          for a in arrays]
+    return [t.requires_grad_(True) if grad and t.is_floating_point() else t
+            for t in ts]
+
+
+def op_outputs(ops, name, leaves, attrs, device):
+    """The op's outputs on ``leaves`` (a graph behind them where the
+    leaves require gradients); a nullary op gets ``device`` as its
+    ``ctx``."""
+    op = ops.get_op(name)
+    if not leaves and "ctx" in op.defaults:
+        attrs = dict(attrs, ctx="gpu(0)" if device.type == "cuda"
+                     else "cpu(0)")
+    with torch.set_grad_enabled(any(t.requires_grad for t in leaves)):
+        outs, _ = ops.invoke(op, leaves, attrs)
+    return list(outs)
+
+
+def op_grads(outs, leaves, heads):
+    """The gradients of the leaves that require them, backward from
+    ``heads`` on the outputs (None: not differentiated); zeros where no
+    output reaches a leaf."""
+    diff = [t for t in leaves if t.requires_grad]
+    pairs = [(o, h) for o, h in zip(outs, heads)
+             if h is not None and o.requires_grad]
+    grads = torch.autograd.grad(
+        [o for o, _ in pairs], diff, [h for _, h in pairs],
+        allow_unused=True) if pairs else [None] * len(diff)
+    return [torch.zeros_like(t) if g is None else g
+            for t, g in zip(diff, grads)]
+
+
+def _rel_err(got, want):
+    """max |got - want| / max |want| over the entries finite in ``want``
+    (NaN where the two differ in finiteness)."""
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        return float("nan")
+    if not bool(fin.any()):
+        return 0.0
+    got, want = got[fin].double(), want[fin].double()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err / scale if scale else err
+
+
+def sweep_one(ops, name, case, gen, dev, cpu):
+    """(forward error, gradient error, synced) of one case, gpu(0)
+    against cpu(): normwise relative errors (0/1 for ``exact`` outputs:
+    bit-equal or not) compared on the card, heads drawn from the host
+    generator ``gen``; ``synced``: the card's run made the host wait
+    (``torch.cuda.set_sync_debug_mode``; its inputs and heads are on the
+    card before it starts)."""
+    arrays, attrs, opts = case
+    grad = opts.get("grad", True)
+    c_in = op_leaves(arrays, cpu, grad)
+    g_in = [t.detach().to(dev).requires_grad_(t.requires_grad)
+            for t in c_in]
+    c_outs = op_outputs(ops, name, c_in, attrs, cpu)
+    heads = [torch.randn(tuple(o.shape), generator=gen).to(o.dtype)
+             if grad and o.requires_grad else None for o in c_outs]
+    g_heads = [None if h is None else h.to(dev) for h in heads]
+
+    def on_card():
+        outs = op_outputs(ops, name, g_in, attrs, dev)
+        return outs, op_grads(outs, g_in, g_heads) if grad else []
+    torch.cuda.synchronize()
+    synced = False
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_outs, g_grads = on_card()
+    except RuntimeError as err:
+        if "synchroniz" not in str(err):
+            raise
+        synced = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if synced:
+        g_outs, g_grads = on_card()
+    c_ref = [o.detach().to(dev) for o in c_outs]
+    g_outs = [o.detach() for o in g_outs]
+    align = opts.get("align")
+    if align:
+        # the solver's row signs: align the card's rows to the host's,
+        # and take the host's gradient under the heads the aligned rows
+        # see (a sign-free comparison)
+        k = 1 if align == "gelqf" else 0       # Q's rows, or V's
+        s = torch.sign((g_outs[k] * c_ref[k]).sum(-1, keepdim=True))
+        s[s == 0] = 1
+        sc = s.cpu()
+        if align == "gelqf":
+            g_outs = [g_outs[0] * s.transpose(-1, -2), g_outs[1] * s]
+            heads = [heads[0] * sc.transpose(-1, -2), heads[1] * sc]
+        else:
+            g_outs = [g_outs[0] * s, g_outs[1]]
+            heads = [heads[0] * sc, heads[1]]
+    c_grads = op_grads(c_outs, c_in, heads) if grad else []
+    fwd = 0.0
+    for g, c in zip(g_outs, c_ref):
+        if g.dtype != c.dtype or g.shape != c.shape:
+            return float("nan"), float("nan"), synced
+        if opts.get("exact") or not g.is_floating_point():
+            fwd = max(fwd, 0.0 if torch.equal(g, c) else 1.0)
+        else:
+            fwd = max(fwd, _rel_err(g, c))
+    bwd = 0.0
+    for g, c in zip(g_grads, c_grads):
+        bwd = max(bwd, _rel_err(g, c.to(dev)))
+    return fwd, bwd, synced
+
+
+def ops_sweep(card, dev=None):
+    """(a): every registered op of OPS_MODULES on gpu(0) against cpu()
+    (the reference's ``check_consistency``): forward and gradient, the
+    ties of the ordering ops bit-equal; and no op makes the host wait
+    for the card (but OPS_SYNC_OK, whose torch call reads a status
+    flag)."""
+    from mxnet_tpu_torch import ops
+    t0 = time.perf_counter()
+    dev, cpu = dev or torch.device("cuda", 0), torch.device("cpu")
+    rs = np.random.RandomState(21)
+    gen = torch.Generator().manual_seed(21)
+    cfg = GPT2_SMALL
+    cases = ops_cases(rs, OPS_ACT, OPS_SPD, cfg["n_heads"], cfg["vocab"],
+                      cfg["max_len"], cfg["n_heads"] * cfg["head_dim"])
+    swept = ops_swept(ops)
+    missing = sorted(set(swept) - set(cases))
+    if missing:
+        fail("(a): no sweep case for %s" % missing)
+    rows, bad, synced = [], [], []
+    for name in sorted(swept):
+        tol = OPS_WIDE.get(name, OPS_TOL)
+        for case in cases[name]:
+            fwd, bwd, sync = sweep_one(ops, name, case, gen, dev, cpu)
+            exact = case[2].get("exact")
+            rows.append((max(fwd / tol if not exact else fwd, bwd / tol)
+                         if fwd == fwd and bwd == bwd else float("inf"),
+                         name, fwd, bwd, tol))
+            if not (fwd <= (0.0 if exact else tol) and bwd <= tol):
+                bad.append((name, fwd, bwd, tol))
+            if sync:
+                synced.append(name)
+    n_names = sum(len(v) for v in swept.values())
+    print("  (a) consistency sweep (%s): %d op names (%d distinct ops of %s) "
+          "in %d cases, gpu(0) against cpu(), forward and gradient, "
+          "normwise relative error max|gpu-cpu|/max|cpu| against %g (wider "
+          "where stated), indices and counts bit-equal; %.1f s"
+          % (card, n_names, len(swept), "/".join(OPS_MODULES), len(rows),
+             OPS_TOL, time.perf_counter() - t0))
+    for ratio, name, fwd, bwd, tol in sorted(rows, reverse=True)[:10]:
+        print("    %-32s fwd %.3g grad %.3g (tolerance %g)"
+              % (name, fwd, bwd, tol))
+    print("  (a) ops whose GPU run made the host wait: %s (allowed: %s)"
+          % (synced or "none", list(OPS_SYNC_OK)))
+    if bad:
+        fail("(a): gpu(0) and cpu() differ beyond tolerance: %s" % bad[:8])
+    if set(synced) - set(OPS_SYNC_OK):
+        fail("(a): ops read the card from the host: %s"
+             % sorted(set(synced) - set(OPS_SYNC_OK)))
+    return dict(names=n_names, ops=len(swept), cases=len(rows),
+                worst=sorted(rows, reverse=True)[:10], synced=synced,
+                s=time.perf_counter() - t0)
+
+
+def sym_lm(mx, vocab, n_layers, n_heads, head_dim, d_ff, seq, batch=1,
+           train=True):
+    """ToyDecoderLM's function written as an MXNet 1.5 user wrote a
+    decoder in ``mx.sym``: pre-LN, ReLU, no biases; attention by
+    ``batch_dot`` over heads folded into the batch, the query scaled by
+    ``_contrib_div_sqrt_dim``, a causal mask from ``_arange``,
+    ``broadcast_lesser_equal`` and ``broadcast_like``, ``softmax``. The
+    training symbol is ``MakeLoss`` of ``softmax_cross_entropy`` (summed,
+    its gradient scaled to the mean by ``grad_scale``); the predict
+    symbol gives the logits and the greedy token, ``topk`` under
+    ``BlockGrad``. Variables: ``data``/``label`` (B, ``seq``) token ids,
+    and :func:`sym_lm_args`' names."""
+    S = mx.sym
+    d = n_heads * head_dim
+    data = S.var("data")
+    pos = S.arange(0, seq, name="positions")
+    h = S.Embedding(data, S.var("embed_weight"), input_dim=vocab,
+                    output_dim=d, name="embed")
+    p = S.expand_dims(S.Embedding(pos, S.var("pos_weight"), input_dim=seq,
+                                  output_dim=d, name="pos"), axis=0)
+    h = h + S.broadcast_like(p, h)
+    row = S.reshape(pos, shape=(seq, 1))
+    col = S.reshape(pos, shape=(1, seq))
+    allowed = S.broadcast_lesser_equal(col, row)       # (seq, seq) 0/1
+    bias = S.expand_dims((allowed - 1.0) * 1e9, axis=0)
+
+    def heads(x):           # (B, T, d) -> (B*H, T, Dh)
+        x = S.reshape(x, shape=(0, 0, n_heads, head_dim))
+        return S.reshape(S.transpose(x, axes=(0, 2, 1, 3)), shape=(-3, 0, 0))
+
+    for i in range(n_layers):
+        pre = "l%d_" % i
+
+        def fc(x, name, units):
+            return S.FullyConnected(x, S.var(pre + name + "_weight"),
+                                    num_hidden=units, no_bias=True,
+                                    flatten=False, name=pre + name)
+        x = S.LayerNorm(h, S.var(pre + "att_gamma"), S.var(pre + "att_beta"),
+                        eps=1e-5, name=pre + "att_ln")
+        q = S._contrib_div_sqrt_dim(heads(fc(x, "wq", d)))
+        k, v = heads(fc(x, "wk", d)), heads(fc(x, "wv", d))
+        att = S.batch_dot(q, k, transpose_b=True, name=pre + "scores")
+        att = att + S.broadcast_like(bias, att)
+        att = S.batch_dot(S.softmax(att, axis=-1), v, name=pre + "context")
+        att = S.reshape(S.transpose(S.reshape(att, shape=(-4, -1, n_heads,
+                                                          0, 0)),
+                                    axes=(0, 2, 1, 3)), shape=(0, 0, -3))
+        h = h + fc(att, "wo", d)
+        x = S.LayerNorm(h, S.var(pre + "ffn_gamma"), S.var(pre + "ffn_beta"),
+                        eps=1e-5, name=pre + "ffn_ln")
+        h = h + fc(S.relu(fc(x, "w1", d_ff)), "w2", d)
+    h = S.LayerNorm(h, S.var("out_gamma"), S.var("out_beta"), eps=1e-5,
+                    name="out_ln")
+    logits = S.FullyConnected(h, S.var("head_weight"), num_hidden=vocab,
+                              no_bias=True, flatten=False, name="head")
+    if not train:
+        return S.Group([logits, S.BlockGrad(S.topk(logits, axis=-1, k=1))])
+    label = S.var("label")
+    ce = S.softmax_cross_entropy(S.reshape(logits, shape=(-1, vocab)),
+                                 S.reshape(label, shape=(-1,)))
+    return S.MakeLoss(ce, grad_scale=1.0 / (batch * seq), name="loss")
+
+
+def sym_lm_args(params, n_layers):
+    """``{argument name: numpy array}`` for :func:`sym_lm` from a
+    ToyDecoderLM flat parameter dict (numpy or tensors): FullyConnected
+    holds each ``x @ W`` matrix transposed."""
+    def a(x):
+        x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return np.ascontiguousarray(x, dtype=np.float32)
+    out = {"embed_weight": a(params["embed"]),
+           "pos_weight": a(params["pos"]),
+           "out_gamma": a(params["out_g"]), "out_beta": a(params["out_b"]),
+           "head_weight": a(params["wout"]).T.copy()}
+    for i in range(n_layers):
+        src, pre = "l%d." % i, "l%d_" % i
+        out.update({pre + "att_gamma": a(params[src + "att_g"]),
+                    pre + "att_beta": a(params[src + "att_b"]),
+                    pre + "ffn_gamma": a(params[src + "ffn_g"]),
+                    pre + "ffn_beta": a(params[src + "ffn_b"])})
+        for w in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            out[pre + w + "_weight"] = a(params[src + w]).T.copy()
+    return out
+
+
+def sym_lm_forward(mx, model, params, card, tfa):
+    """(b) 1-2: the predict symbol at B1 T512 bound on gpu(0) with the
+    weights of ``params``: its logits against ``ToyDecoderLM.prefill``
+    (the flash_fwd route) on the same weights and tokens, then 16 greedy
+    tokens, each the symbol's ``topk`` at the prompt's end in a fixed
+    T512 window, against the model's prefill + decode stream. Returns
+    (max logit error, tokens equal, the launch counts of the symbol's
+    run)."""
+    seq = SYM_LM_T
+    cfg = GPT2_SMALL
+    sym = sym_lm(mx, cfg["vocab"], cfg["n_layers"], cfg["n_heads"],
+                 cfg["head_dim"], cfg["d_ff"], seq, train=False)
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    args = {k: mx.nd.array(v, ctx=ctx)
+            for k, v in sym_lm_args(params, cfg["n_layers"]).items()}
+    g = torch.Generator(device="cpu").manual_seed(21)
+    prompt = torch.randint(0, cfg["vocab"], (1, SYM_LM_PROMPT), generator=g)
+    window = torch.zeros(1, seq, dtype=torch.float32)
+    window[0, :SYM_LM_PROMPT] = prompt[0].float()
+    args["data"] = mx.nd.array(window.numpy(), ctx=ctx)
+    ex = sym.bind(ctx, args, grad_req="null")
+    tfa.reset_launches()
+    from mxnet_tpu_torch import rtc
+    rtc.reset_launches()
+    t0 = time.perf_counter()
+    ex.forward(is_train=False)
+    logits = ex.outputs[0]._data.clone()
+    toks, plen = [], SYM_LM_PROMPT
+    for _ in range(SYM_LM_NEW):
+        ex.forward(is_train=False, data=mx.nd.array(window.numpy(), ctx=ctx))
+        nxt = int(ex.outputs[1]._data[0, plen - 1, 0])
+        toks.append(nxt)
+        window[0, plen] = nxt
+        plen += 1
+    torch.cuda.synchronize()
+    sym_s = time.perf_counter() - t0
+    launches = dict(tfa.launches, rtc=rtc.launches["rtc"])
+    graphs = ex.stats()
+    # the reference: ToyDecoderLM on the same weights (flash_fwd route),
+    # outside the counted window
+    with torch.no_grad():
+        ref, kk, vv = model.prefill(params, window[:, :SYM_LM_PROMPT].long()
+                                    .to(dev))
+        err = float((logits[:, :SYM_LM_PROMPT] - ref).abs().max())
+        L, H, Dh = model.n_layers, model.n_heads, model.head_dim
+        P = SYM_LM_PROMPT
+        kc = torch.zeros(L, 1, P + SYM_LM_NEW, H, Dh, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :P], vc[:, :, :P] = kk, vv
+        last = ref[0, P - 1]
+        want, gaps = [], []
+        for i in range(SYM_LM_NEW):
+            tok = int(torch.argmax(last))
+            want.append(tok)
+            gaps.append(top2_margin(last))
+            pos = torch.tensor([P + i], device=dev)
+            out, nk, nv = model.decode(params, torch.tensor([tok],
+                                                            device=dev),
+                                       pos, kc, vc)
+            kc[:, :, P + i], vc[:, :, P + i] = nk, nv
+            last = out[0]
+    scale = float(ref.abs().max())
+    print("  (b) predict symbol at B1 T%d (%s): logits against "
+          "ToyDecoderLM.prefill (flash_fwd) on the same weights: max abs "
+          "error %.3g (tolerance %g, max |logit| %.3g); %d greedy tokens "
+          "by the symbol's topk in a fixed T%d window (%.2f s with the "
+          "first forward): %s; the model's stream %s; executor graphs %s"
+          % (seq, card, err, LOGIT_ATOL, scale, SYM_LM_NEW, seq, sym_s,
+             toks, want, graphs))
+    if not err <= LOGIT_ATOL:
+        fail("(b): the symbol's logits differ from ToyDecoderLM.prefill by "
+             "%g" % err)
+    first = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b),
+                 None)
+    if first is not None:
+        print("  (b) the streams part at token %d: top-2 logit gap there "
+              "%.3g" % (first, gaps[first]))
+        if not gaps[first] < LOGIT_ATOL:
+            fail("(b): greedy token %d differs (%d vs %d) with a top-2 gap "
+                 "%g above the logits' tolerance"
+                 % (first, toks[first], want[first], gaps[first]))
+    del ex, args, logits, ref
+    return err, first is None, launches
+
+
+def sym_lm_module(mx, args_np, fused):
+    """A Module over the training symbol at batch SYM_LM_BATCH x 1024 on
+    gpu(0) with the given weights and Adam."""
+    cfg = GPT2_SMALL
+    T = cfg["max_len"]
+    sym = sym_lm(mx, cfg["vocab"], cfg["n_layers"], cfg["n_heads"],
+                 cfg["head_dim"], cfg["d_ff"], T, batch=SYM_LM_BATCH)
+    with fused_gate(fused):
+        mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                            context=mx.gpu(0))
+        mod.bind(data_shapes=[("data", (SYM_LM_BATCH, T))],
+                 label_shapes=[("label", (SYM_LM_BATCH, T))])
+        mod.set_params({k: mx.nd.array(v, ctx=mx.gpu(0))
+                        for k, v in args_np.items()}, {})
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params=dict(SYM_LM_ADAM,
+                                                 rescale_grad=1.0))
+    return mod
+
+
+def sym_lm_train(mx, params, card, tfa):
+    """(b) 3-5: ``Module.fit`` over an NDArrayIter of synthetic tokens
+    (B8 x 1024, SYM_LM_STEPS steps) on the fused step; the first step
+    fused against eager from the same weights; ms a step, tokens/s, busy
+    by class, the idle share and peak memory."""
+    from mxnet_tpu_torch import profiler, rtc
+    cfg = GPT2_SMALL
+    T, V = cfg["max_len"], cfg["vocab"]
+    B = SYM_LM_BATCH
+    args_np = sym_lm_args(params, cfg["n_layers"])
+    rs = np.random.RandomState(21)
+    # synthetic tokens: a random walk over a window of the vocabulary,
+    # so the next token is predictable from the current one
+    span = min(2048, V // 2)
+    steps = rs.randint(-3, 4, (B * SYM_LM_STEPS, T + 1))
+    toks = (np.cumsum(steps, axis=1) % span + rs.randint(
+        0, V - span, (B * SYM_LM_STEPS, 1))).astype(np.float32)
+    x, y = toks[:, :T], toks[:, 1:]
+    feed = mx.io.DataBatch(data=[mx.nd.array(x[:B], ctx=mx.gpu(0))],
+                           label=[mx.nd.array(y[:B], ctx=mx.gpu(0))])
+    # the first step, fused against eager from the same weights, held
+    # as phase 14 holds a Module step to a Gluon step
+    ends, loss = {}, {}
+    for fused in (True, False):
+        with fused_gate(fused):
+            mod = sym_lm_module(mx, args_np, fused)
+            mod.forward_backward(feed)
+            mod.update()
+            loss[fused] = float(mod.get_outputs()[0]._data) / (B * T)
+            ends[fused] = {n: t.clone() for n, t in param_tensors(mod).items()}
+            del mod
+            torch.cuda.empty_cache()
+    same, worst, bad = 0, 0.0, []
+    for n, t in ends[True].items():
+        if torch.equal(t, ends[False][n]):
+            same += 1
+            continue
+        step = torch.from_numpy(args_np[n]).to(t.device) - ends[False][n]
+        err = float((t - ends[False][n]).abs().max()) \
+            / (float(step.abs().max()) or 1.0)
+        worst = max(worst, err)
+        if not err <= MODULE_STEP_REL:
+            bad.append(n)
+    loss_ok = abs(loss[True] - loss[False]) <= MODULE_TOL["atol"] \
+        + MODULE_TOL["rtol"] * abs(loss[False])
+    print("  (b) one fused step against one eager step (MXNET_FUSED_STEP=0) "
+          "from the same weights and batch: loss %.6f vs %.6f; %d of %d "
+          "arrays bit-identical, the worst weight step error %.3g of its "
+          "largest entry (tolerance %g, as phase 14)"
+          % (loss[True], loss[False], same, len(ends[True]), worst,
+             MODULE_STEP_REL))
+    if bad or not loss_ok:
+        fail("(b): the fused step differs from the eager step: %s, loss %s"
+             % (bad[:4], loss))
+    del ends
+    # Module.fit: SYM_LM_STEPS fused steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mod = sym_lm_module(mx, args_np, True)
+    it = mx.io.NDArrayIter(x, y, batch_size=B, data_name="data",
+                           label_name="label")
+    losses = []
+    fb0 = profiler.counters().get("fused_step_fallbacks", 0)
+    tfa.reset_launches()
+    rtc.reset_launches()
+
+    def watch(param):
+        losses.append(mod.get_outputs()[0]._data.reshape(()) / (B * T))
+    t0 = time.perf_counter()
+    with fused_gate(True):
+        mod.fit(it, num_epoch=1, eval_metric=mx.metric.Loss(),
+                batch_end_callback=[watch], optimizer="adam",
+                optimizer_params=dict(SYM_LM_ADAM, rescale_grad=1.0))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(tfa.launches, rtc=rtc.launches["rtc"])
+        stats = mod._fused.stats() if mod._fused else None
+        fallbacks = profiler.counters().get("fused_step_fallbacks", 0) - fb0
+        losses = [float(v) for v in losses]
+        print("  (b) Module.fit (%s): GPT-2-small width in mx.sym, B%d x "
+              "T%d, Adam lr %g, %d steps in %.2f s on the fused step; loss "
+              "a token by step %s; fused graphs %s, fallbacks %d"
+              % (card, B, T, SYM_LM_ADAM["learning_rate"], len(losses),
+                 fit_s, " ".join("%.4f" % v for v in losses), stats,
+                 fallbacks))
+        if len(losses) != SYM_LM_STEPS or not all(np.isfinite(losses)) \
+                or not losses[-1] < losses[0]:
+            fail("(b): the fit's loss did not fall: %s" % losses)
+        if stats is None or (stats["captures"], stats["recaptures"]) \
+                != (1, 0) or fallbacks:
+            fail("(b): fused graphs %s, fallbacks %d" % (stats, fallbacks))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        feed = mx.io.DataBatch(data=[mx.nd.array(x[:B], ctx=mx.gpu(0))],
+                               label=[mx.nd.array(y[:B], ctx=mx.gpu(0))])
+
+        def step():
+            mod.forward_backward(feed)
+            mod.update()
+        ms = wall_ms(step, iters=SYM_LM_ITERS)
+        wall, busy, _, kernels, _ = profile_steps(step, 3, classes=())
+    # the products by class from the eager step, where torch's ops name
+    # the work (a graph replay shows only kernels); the rest is the
+    # fused step's busy time less those
+    with fused_gate(False):
+        eager = sym_lm_module(mx, args_np, False)
+
+        def eager_step():
+            eager.forward_backward(feed)
+            eager.update()
+        eager_step()
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eager_step()
+            torch.cuda.synchronize()
+        by_class = {cls: sum(e.device_time_total
+                             for e in prof.key_averages()
+                             if e.key in keys) / 1e3
+                    for cls, keys in SYM_LM_CLASSES}
+        by_class["softmax/mask/elementwise and the rest"] = \
+            busy - sum(by_class.values())
+        del eager
+    idle = 1 - busy / wall if wall else float("nan")
+    print("  (b) %s: %.3f ms a fused step (median of %d, no metric), %.0f "
+          "tokens/s; profiled: wall %.3f ms, busy %.3f ms, idle share %.3f; "
+          "busy by class (the products from the eager step's ops): %s; "
+          "peak memory %.2f GiB; phase 10's Gluon LM step at this width "
+          "(flash attention) read 173.8 ms"
+          % (card, ms, SYM_LM_ITERS, B * T * 1e3 / ms, wall, busy, idle,
+             ", ".join("%s %.3f ms" % kv for kv in by_class.items()),
+             peak))
+    for us, key, count in kernels[:4]:
+        print("    top: %.3f ms in %d calls  %s"
+              % (us / 1e3 / 3, count // 3, key[:70]))
+    del mod
+    torch.cuda.empty_cache()
+    return dict(ms=ms, tokens_s=B * T * 1e3 / ms, busy=busy, idle=idle,
+                by_class=by_class, peak=peak, losses=losses,
+                launches=launches)
+
+
+def phase_ops(card):
+    """Phase 21: the seventeenth slice, the operator breadth. (a) the
+    consistency sweep of every registered op of OPS_MODULES, gpu(0)
+    against cpu(); (b) ToyDecoderLM's GPT-2-small-width decoder written
+    in ``mx.sym`` with the slice's ops (``sym_lm``), on ToyDecoderLM's
+    ``init_params(seed=0)`` weights: its logits and greedy tokens held to
+    ToyDecoderLM's, then ``Module.fit`` on the fused step. fp32, TF32
+    off. No kernel of the table is on this path: the attention, decode
+    and rtc launch counts, zeroed before (b)'s symbol runs and read
+    after, must read 0."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import ToyDecoderLM
+    tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sweep = ops_sweep(card, mx.gpu(0).torch_device())
+    model = ToyDecoderLM(**GPT2_SMALL)
+    params = model.init_params(seed=0, device=mx.gpu(0).torch_device())
+    err, same, fwd_launches = sym_lm_forward(mx, model, params, card, tfa)
+    print("  (b) forward done at %.1f s of the phase"
+          % (time.perf_counter() - t_phase))
+    train = sym_lm_train(mx, params, card, tfa)
+    del params, model
+    torch.cuda.empty_cache()
+    launches = {k: fwd_launches[k] + train["launches"][k]
+                for k in fwd_launches}
+    print("  attention, decode and rtc kernel launches over (b)'s symbol "
+          "runs: %s (none is on this path); ops phase %.1f s"
+          % (launches, time.perf_counter() - t_phase))
+    if any(launches.values()):
+        fail("ops: the path launched a kernel of the table: %s" % launches)
+    return dict(sweep=sweep, logit_err=err, greedy_equal=same, **train)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -7321,6 +8238,7 @@ def main():
     phase_input(card, module_readings)
     pack = phase_bucketing(card, tfa)
     phase_gan(card)
+    phase_ops(card)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

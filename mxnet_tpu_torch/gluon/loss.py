@@ -4,8 +4,7 @@ label like the prediction, a pointwise penalty, weighting, the mean
 over the non-batch axes) lives once in :class:`_PointwiseLoss`; each
 standard loss supplies its penalty in ``_penalty``. Losses of another
 arity (Triplet, CosineEmbedding, SigmoidBCE with ``pos_weight``,
-PoissonNLL) override ``hybrid_forward``. ``CTCLoss`` waits for the
-``ctc_loss`` op (ROADMAP queue A)."""
+PoissonNLL, CTC) override ``hybrid_forward``."""
 from __future__ import annotations
 
 import math
@@ -15,7 +14,7 @@ from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
-           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "PoissonNLLLoss",
            "CosineEmbeddingLoss"]
 
@@ -166,6 +165,42 @@ class KLDivLoss(_PointwiseLoss):
         logp = pred if self._from_logits else \
             F.log_softmax(pred, axis=self._axis)
         return label * (F.log(label + 1e-12) - logp)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification over the ``ctc_loss`` op
+    (reference: loss.py:403): blank 0, zero labels are padding unless
+    ``label_lengths`` is given; one loss per sequence."""
+
+    _PRED_LAYOUTS = ("NTC", "TNC")
+    _LABEL_LAYOUTS = ("NT", "TN")
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in self._PRED_LAYOUTS:
+            raise AssertionError(
+                "Only 'NTC' and 'TNC' layouts for pred are supported, "
+                "got: %s" % layout)
+        if label_layout not in self._LABEL_LAYOUTS:
+            raise AssertionError(
+                "Only 'NT' and 'TN' layouts for label are supported, "
+                "got: %s" % label_layout)
+        self._layout, self._label_layout = layout, label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        # the op takes TNC predictions and NT labels
+        if self._layout != "TNC":
+            pred = F.SwapAxis(pred, dim1=0, dim2=1)
+        if self._label_layout != "NT":
+            label = F.SwapAxis(label, dim1=0, dim2=1)
+        operands = [pred, label] + [x for x in (pred_lengths, label_lengths)
+                                    if x is not None]
+        loss = F._contrib_ctc_loss(
+            *operands, use_data_lengths=pred_lengths is not None,
+            use_label_lengths=label_lengths is not None)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(_PointwiseLoss):

@@ -31,7 +31,12 @@ from ..context import Context, as_context, context_of, current_context
 from .. import ops as _ops
 
 __all__ = ["NDArray", "invoke_nd", "array", "zeros", "ones", "full",
-           "concatenate", "save", "load", "torch_dtype", "numpy_dtype"]
+           "empty", "arange", "linspace", "eye", "moveaxis", "concatenate",
+           "save", "load", "waitall", "add", "subtract", "multiply",
+           "divide", "modulo", "power", "maximum", "minimum", "hypot",
+           "equal", "not_equal", "greater", "greater_equal", "lesser",
+           "lesser_equal", "logical_and", "logical_or", "logical_xor",
+           "true_divide", "torch_dtype", "numpy_dtype"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -104,10 +109,23 @@ class NDArray:
     def T(self):
         return self.transpose()
 
+    @property
+    def stype(self):
+        """The storage type: always ``"default"`` (dense); sparse arrays
+        are not ported (ROADMAP queue A item 13)."""
+        return "default"
+
+    @property
+    def handle(self):
+        """The array's tensor (the reference exposes its C handle here)."""
+        return self._data
+
     # -- host transfer ---------------------------------------------------
     def wait_to_read(self):
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
+
+    wait_to_write = wait_to_read
 
     def asnumpy(self):
         """A copy on the host (never a view of a CPU tensor)."""
@@ -173,6 +191,21 @@ class NDArray:
         return self.copyto(context)
 
     as_in_ctx = as_in_context
+
+    def as_nd_ndarray(self):
+        return self
+
+    def tostype(self, stype):
+        """This array for ``"default"``; a sparse storage type raises."""
+        if stype == "default":
+            return self
+        raise NotImplementedError(
+            "NDArray.tostype(%r): sparse storage needs ndarray/sparse.py, "
+            "not ported yet (ROADMAP queue A item 13, order step 5)"
+            % (stype,))
+
+    def to_dlpack_for_read(self):
+        return torch.utils.dlpack.to_dlpack(self._data.detach())
 
     # -- mutation --------------------------------------------------------
     def _set_data(self, new_data):
@@ -295,6 +328,96 @@ class NDArray:
     def ones_like(self):
         return invoke_nd("ones_like", [self], {})
 
+    def _op1(self, name, **attrs):
+        return invoke_nd(name, [self], attrs)
+
+    def reshape_like(self, other):
+        return invoke_nd("reshape_like", [self, other], {})
+
+    def flatten(self):
+        return self._op1("Flatten")
+
+    def squeeze(self, axis=None):
+        return self._op1("squeeze", axis=axis)
+
+    def broadcast_to(self, shape):
+        return self._op1("broadcast_to", shape=tuple(shape))
+
+    def broadcast_like(self, other):
+        return invoke_nd("broadcast_like", [self, other], {})
+
+    def tile(self, reps):
+        return self._op1("tile", reps=tuple(reps))
+
+    def repeat(self, repeats, axis=None):
+        return self._op1("repeat", repeats=repeats, axis=axis)
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return self._op1("Pad", mode=mode, pad_width=pad_width,
+                         constant_value=constant_value)
+
+    def slice(self, begin, end, step=None):
+        return self._op1("slice", begin=begin, end=end, step=step)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return invoke_nd("take", [self, _as_nd(indices, self.context)],
+                         {"axis": axis, "mode": mode})
+
+    def one_hot(self, depth, **kwargs):
+        return invoke_nd("one_hot", [self], dict(kwargs, depth=depth))
+
+    def sort(self, axis=-1, is_ascend=True):
+        return self._op1("sort", axis=axis, is_ascend=is_ascend)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return self._op1("argsort", axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return self._op1("topk", axis=axis, k=k, ret_typ=ret_typ,
+                         is_ascend=is_ascend)
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return invoke_nd("dot", [self, other],
+                         {"transpose_a": transpose_a,
+                          "transpose_b": transpose_b})
+
+    def nansum(self, axis=None, keepdims=False, **kwargs):
+        return self._op1("nansum", axis=axis, keepdims=keepdims)
+
+    def prod(self, axis=None, keepdims=False, **kwargs):
+        return self._op1("prod", axis=axis, keepdims=keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return self._op1("norm", ord=ord, axis=axis, keepdims=keepdims)
+
+    def argmax(self, axis=None, keepdims=False):
+        return self._op1("argmax", axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return self._op1("argmin", axis=axis, keepdims=keepdims)
+
+    def sign(self):
+        return self._op1("sign")
+
+    def sigmoid(self):
+        return self._op1("sigmoid")
+
+    def tanh(self):
+        return self._op1("tanh")
+
+    def round(self):
+        return self._op1("round")
+
+    def floor(self):
+        return self._op1("floor")
+
+    def ceil(self):
+        return self._op1("ceil")
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return self._op1("SliceChannel", num_outputs=num_outputs, axis=axis,
+                         squeeze_axis=squeeze_axis)
+
     # -- arithmetic and comparison operators -------------------------------
     def _binary(self, other, op, scalar_op, reverse=False):
         if isinstance(other, NDArray):
@@ -336,6 +459,15 @@ class NDArray:
 
     def __rpow__(self, other):
         return self._binary(other, "broadcast_power", "_power_scalar", True)
+
+    def __mod__(self, other):
+        return self._binary(other, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._binary(other, "broadcast_mod", "_mod_scalar", True)
+
+    def __matmul__(self, other):
+        return self.dot(other)
 
     def __iadd__(self, other):
         self._set_data(self.__add__(other)._data)
@@ -412,7 +544,7 @@ class NDArray:
 
 
 _RSCALAR = {"_minus_scalar": "_rminus_scalar", "_div_scalar": "_rdiv_scalar",
-            "_power_scalar": "_rpower_scalar"}
+            "_mod_scalar": "_rmod_scalar", "_power_scalar": "_rpower_scalar"}
 
 
 def _clean_index(key):
@@ -508,6 +640,144 @@ def ones(shape, ctx=None, dtype=None):
 def concatenate(arrays, axis=0, always_copy=True):
     """The arrays joined along ``axis`` (one new array)."""
     return NDArray(torch.cat([a._data.detach() for a in arrays], dim=axis))
+
+
+def empty(shape, ctx=None, dtype=None):
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def _dtype_name(dtype):
+    return dtype if isinstance(dtype, str) else np.dtype(dtype).name
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    return invoke_nd("_arange", [], {"start": start, "stop": stop,
+                                     "step": step, "repeat": repeat,
+                                     "dtype": _dtype_name(dtype)},
+                     ctx=ctx or current_context())
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype="float32"):
+    return invoke_nd("_linspace", [], {"start": start, "stop": stop,
+                                       "num": num, "endpoint": endpoint,
+                                       "dtype": _dtype_name(dtype)},
+                     ctx=ctx or current_context())
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    return invoke_nd("_eye", [], {"N": N, "M": M, "k": k,
+                                  "dtype": _dtype_name(dtype)},
+                     ctx=ctx or current_context())
+
+
+def moveaxis(tensor, source, destination):
+    """``tensor`` with the axes ``source`` moved to ``destination``."""
+    axes = list(range(tensor.ndim))
+    try:
+        source = [source] if isinstance(source, int) else list(source)
+        destination = [destination] if isinstance(destination, int) \
+            else list(destination)
+    except TypeError:
+        raise MXNetError("bad source/destination")
+    for src in source:
+        axes.remove(src % tensor.ndim)
+    for dst, src in sorted(zip(destination, source)):
+        axes.insert(dst % tensor.ndim, src % tensor.ndim)
+    return tensor.transpose(axes)
+
+
+def waitall():
+    """Wait for the work queued on every CUDA device."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _ufunc(lhs, rhs, op, scalar_op, rscalar_op=None):
+    if isinstance(lhs, NDArray) and isinstance(rhs, NDArray):
+        return invoke_nd(op, [lhs, rhs], {})
+    if isinstance(lhs, NDArray):
+        return invoke_nd(scalar_op, [lhs], {"scalar": rhs})
+    if isinstance(rhs, NDArray):
+        return invoke_nd(rscalar_op or scalar_op, [rhs], {"scalar": lhs})
+    raise TypeError("at least one argument must be an NDArray")
+
+
+def add(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_add", "_plus_scalar")
+
+
+def subtract(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_sub", "_minus_scalar",
+                  "_rminus_scalar")
+
+
+def multiply(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_mul", "_mul_scalar")
+
+
+def divide(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_div", "_div_scalar", "_rdiv_scalar")
+
+
+true_divide = divide
+
+
+def modulo(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_mod", "_mod_scalar", "_rmod_scalar")
+
+
+def power(base, exp):
+    return _ufunc(base, exp, "broadcast_power", "_power_scalar",
+                  "_rpower_scalar")
+
+
+def maximum(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_maximum", "_maximum_scalar")
+
+
+def minimum(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_minimum", "_minimum_scalar")
+
+
+def hypot(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_hypot", "_hypot_scalar")
+
+
+def equal(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_equal", "_equal_scalar")
+
+
+def not_equal(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_not_equal", "_not_equal_scalar")
+
+
+def greater(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_greater", "_greater_scalar")
+
+
+def greater_equal(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_greater_equal",
+                  "_greater_equal_scalar")
+
+
+def lesser(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_lesser", "_lesser_scalar")
+
+
+def lesser_equal(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_lesser_equal", "_lesser_equal_scalar")
+
+
+def logical_and(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_logical_and", "_logical_and_scalar")
+
+
+def logical_or(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_logical_or", "_logical_or_scalar")
+
+
+def logical_xor(lhs, rhs):
+    return _ufunc(lhs, rhs, "broadcast_logical_xor", "_logical_xor_scalar")
 
 
 # ---------------------------------------------------------------------------

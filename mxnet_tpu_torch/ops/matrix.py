@@ -6,7 +6,11 @@ along one axis, one output each), Concat (any number of inputs along
 one axis), stack (along a new axis), expand_dims, transpose, reverse
 (``flip``), dot (the last axis of ``lhs`` with the first of ``rhs``),
 Pad (constant, edge or reflect, one ``(before, after)`` pair per
-dim), SwapAxis (``swapaxes``), slice_axis, tile and reshape_like."""
+dim), SwapAxis (``swapaxes``), slice_axis, tile, reshape_like, slice
+(Python slices per dim, negative steps included: torch's slicing takes
+none, so those dims are flipped first), slice_like, squeeze, repeat,
+batch_dot, khatri_rao, depth_to_space/space_to_depth, diag and
+``_rnn_param_concat``."""
 from __future__ import annotations
 
 import torch
@@ -231,3 +235,150 @@ register("tile", lambda attrs, x: torch.tile(x, tuple(attrs["reps"])),
 
 register("reshape_like", lambda attrs, x, y: x.reshape(y.shape),
          arg_names=("lhs", "rhs"))
+
+
+def positive_slices(x, slices, first_dim=0):
+    """``x[slices]`` for per-dim Python slices starting at ``first_dim``,
+    negative steps included: each such dim is flipped and its slice
+    rewritten with a positive step (the same elements in the same
+    order)."""
+    flips, key = [], [slice(None)] * first_dim
+    for i, sl in enumerate(slices):
+        if sl.step is not None and sl.step < 0:
+            d = first_dim + i
+            n = x.shape[d]
+            start, stop, step = sl.indices(n)
+            flips.append(d)
+            sl = slice(n - 1 - start, n - 1 - stop, -step)
+        key.append(sl)
+    if flips:
+        x = torch.flip(x, flips)
+    return x[tuple(key)]
+
+
+def slice_key(shape, slices, device):
+    """An indexing key for ``slices`` that also writes: plain slices when
+    every step is positive, else one ``arange`` per dim shaped to
+    broadcast like ``numpy.ix_`` (the elements basic slicing selects, in
+    its result shape)."""
+    if all(sl.step is None or sl.step > 0 for sl in slices):
+        return tuple(slices)
+    k = len(slices)
+    out = []
+    for i, sl in enumerate(slices):
+        r = torch.arange(*sl.indices(shape[i]), device=device)
+        out.append(r.reshape([-1 if j == i else 1 for j in range(k)]))
+    return tuple(out)
+
+
+def _slice(attrs, x):
+    begin, end = attrs["begin"], attrs["end"]
+    step = attrs.get("step", None) or (None,) * len(begin)
+    slices = [slice(begin[i], end[i] if i < len(end) else None,
+                    step[i] if i < len(step) else None)
+              for i in range(min(len(begin), x.dim()))]
+    return positive_slices(x, slices)
+
+
+register("slice", _slice, arg_names=_D,
+         defaults={"begin": (), "end": (), "step": None})
+
+
+def _slice_like(attrs, x, shape_like):
+    axes = attrs.get("axes", ()) or tuple(range(min(x.dim(),
+                                                    shape_like.dim())))
+    idx = [slice(None)] * x.dim()
+    for a in axes:
+        idx[a % x.dim()] = slice(0, shape_like.shape[a % x.dim()])
+    return x[tuple(idx)]
+
+
+register("slice_like", _slice_like, arg_names=("lhs", "rhs"),
+         defaults={"axes": ()})
+
+
+def _squeeze(attrs, x):
+    axis = attrs.get("axis", None)
+    if axis is None:
+        return torch.squeeze(x)
+    return torch.squeeze(x, (axis,) if isinstance(axis, int)
+                         else tuple(axis))
+
+
+register("squeeze", _squeeze, arg_names=_D, defaults={"axis": None})
+
+
+def _repeat(attrs, x):
+    axis = attrs.get("axis", None)
+    reps = int(attrs["repeats"])
+    if axis is None:
+        return torch.repeat_interleave(x.reshape(-1), reps)
+    return torch.repeat_interleave(x, reps, dim=int(axis))
+
+
+register("repeat", _repeat, arg_names=_D,
+         defaults={"repeats": 1, "axis": None})
+
+
+def _batch_dot(attrs, x, y):
+    if attrs.get("transpose_a", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_b", False):
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
+
+
+register("batch_dot", _batch_dot, arg_names=("lhs", "rhs"),
+         defaults={"transpose_a": False, "transpose_b": False,
+                   "forward_stype": None})
+
+
+def _khatri_rao(attrs, *mats):
+    """The column-wise Kronecker product of the inputs (the first's rows
+    vary slowest)."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = torch.einsum("ik,jk->ijk", out, m).reshape(-1, out.shape[-1])
+    return out
+
+
+register("khatri_rao", _khatri_rao, arg_names=("args",),
+         defaults={"num_args": 1}, key_var_num_args="num_args")
+
+
+def _depth_to_space(attrs, x):
+    b = int(attrs["block_size"])
+    n, c, h, w = x.shape
+    x = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+def _space_to_depth(attrs, x):
+    b = int(attrs["block_size"])
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+register("depth_to_space", _depth_to_space, arg_names=_D,
+         defaults={"block_size": 1})
+register("space_to_depth", _space_to_depth, arg_names=_D,
+         defaults={"block_size": 1})
+
+
+def _diag(attrs, x):
+    """A 1-D input becomes the ``k``-th diagonal of a matrix; otherwise
+    the ``k``-th diagonal of the ``axis1``/``axis2`` planes, moved last."""
+    k = int(attrs.get("k", 0))
+    if x.dim() == 1:
+        return torch.diag(x, k)
+    return torch.diagonal(x, offset=k, dim1=int(attrs.get("axis1", 0)),
+                          dim2=int(attrs.get("axis2", 1)))
+
+
+register("diag", _diag, arg_names=_D,
+         defaults={"k": 0, "axis1": 0, "axis2": 1})
+
+register("_rnn_param_concat", lambda attrs, *inputs: torch.cat(
+    inputs, dim=int(attrs.get("dim", 0))), arg_names=("arg",),
+    defaults={"dim": 0, "num_args": 1}, key_var_num_args="num_args")

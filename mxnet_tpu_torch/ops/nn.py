@@ -1,8 +1,12 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``):
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Activation``,
 ``LeakyReLU``, ``BatchNorm``, ``LayerNorm``, ``InstanceNorm``, ``Pooling``, ``Dropout``, ``softmax``,
-``log_softmax``, the loss layer ``SoftmaxOutput`` and the sequence ops
-(``SequenceMask``, ``SequenceLast``, ``SequenceReverse``). Matrix products
+``log_softmax``, ``softmin``, ``SoftmaxActivation``, the loss layers
+``SoftmaxOutput`` and the regression outputs, ``softmax_cross_entropy``,
+``L2Normalization``, ``LRN``, ``UpSampling``, ``_contrib_div_sqrt_dim``,
+``ctc_loss``, the sequence ops (``SequenceMask``, ``SequenceLast``,
+``SequenceReverse``) and the ``_v1`` names of BatchNorm, Convolution and
+Pooling. Matrix products
 and (transposed) convolutions go to cuBLAS and cuDNN through torch, as
 the JAX package leaves them to XLA (``jnp.dot``,
 ``lax.conv_general_dilated``); there is no hand kernel among them.
@@ -19,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .registry import register
+from .registry import get_op, register
 
 _D = ("data",)
 _LOW = (torch.bfloat16, torch.float16)
@@ -613,7 +617,7 @@ class _SoftmaxOutput(torch.autograd.Function):
             grad = grad / (p.shape[0] * spatial)
         elif norm == "valid":
             n_valid = valid.sum() if valid is not None \
-                else torch.tensor(float(label.numel()), device=p.device)
+                else torch.full((), float(label.numel()), device=p.device)
             grad = grad / torch.clamp_min(n_valid, 1.0)
         elif spatial != 1:
             grad = grad / spatial
@@ -679,8 +683,8 @@ def _sequence_mask(attrs, data, sequence_length=None):
     shape[batch_axis] = data.shape[batch_axis]
     lens = sequence_length.to(torch.int32).reshape(shape)
     return torch.where(_time_index(data, axis) < lens, data,
-                       torch.tensor(float(attrs.get("value", 0.0)),
-                                    dtype=data.dtype, device=data.device))
+                       torch.full((), float(attrs.get("value", 0.0)),
+                                  dtype=data.dtype, device=data.device))
 
 
 register("SequenceMask", _sequence_mask,
@@ -725,3 +729,262 @@ register("SequenceReverse", _sequence_reverse,
          arg_names=("data", "sequence_length"),
          defaults={"use_sequence_length": False, "axis": 0},
          arg_names_fn=_seq_args)
+
+
+# ---------------------------------------------------------------------------
+# The softmax family's other members
+# ---------------------------------------------------------------------------
+
+register("softmin",
+         lambda attrs, x: _softmax_t(-x, int(attrs.get("axis", -1))),
+         arg_names=_D, defaults={"axis": -1, "temperature": None})
+
+
+def _softmax_activation(attrs, x):
+    if attrs.get("mode", "instance") == "channel":
+        return _softmax_t(x, 1)
+    return _softmax_t(x.reshape(x.shape[0], -1), -1).reshape(x.shape)
+
+
+register("SoftmaxActivation", _softmax_activation, arg_names=_D,
+         defaults={"mode": "instance"})
+
+
+def _softmax_cross_entropy(attrs, data, label):
+    """The summed cross-entropy of (N, C) logits against N class
+    labels (a scalar)."""
+    logp = _log_softmax_t(data, -1)
+    picked = torch.gather(logp, -1, label.to(torch.long).reshape(-1, 1))
+    return -torch.sum(picked)
+
+
+register("softmax_cross_entropy", _softmax_cross_entropy,
+         arg_names=("data", "label"))
+
+
+def _div_sqrt_dim(attrs, x):
+    # the float32 square root of the width, as jnp computes it in the
+    # input's dtype
+    root = torch.sqrt(torch.tensor(float(x.shape[-1]), dtype=x.dtype))
+    return x / float(root)
+
+
+register("_contrib_div_sqrt_dim", _div_sqrt_dim, arg_names=_D)
+
+
+# ---------------------------------------------------------------------------
+# Normalizations
+# ---------------------------------------------------------------------------
+
+def _l2_normalization(attrs, data):
+    eps = float(attrs.get("eps", 1e-10))
+    mode = attrs.get("mode", "instance")
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    elif mode == "spatial":
+        red = tuple(range(2, data.dim()))
+    else:
+        raise ValueError("L2Normalization: unknown mode %r" % mode)
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=red,
+                                       keepdim=True) + eps)
+
+
+register("L2Normalization", _l2_normalization, arg_names=_D,
+         defaults={"eps": 1e-10, "mode": "instance"})
+
+
+def _lrn(attrs, data):
+    """Local response normalization across channels: ``nsize``
+    neighbouring channels' squares, zero-padded at the ends."""
+    nsize = int(attrs.get("nsize", 5))
+    alpha, beta = float(attrs.get("alpha", 1e-4)), \
+        float(attrs.get("beta", 0.75))
+    knorm = float(attrs.get("knorm", 2.0))
+    half = nsize // 2
+    sq = F.pad(torch.square(data),
+               [0, 0] * (data.dim() - 2) + [half, half])
+    windows = sum(sq[:, i:i + data.shape[1]] for i in range(nsize))
+    return data / torch.pow(knorm + (alpha / nsize) * windows, beta)
+
+
+register("LRN", _lrn, arg_names=_D,
+         defaults={"nsize": 5, "alpha": 1e-4, "beta": 0.75, "knorm": 2.0})
+
+
+def _upsampling(attrs, *inputs):
+    """``nearest``: each input repeated to the first's upsampled size and
+    concatenated on channels; ``bilinear``: the data resized with
+    half-pixel centres (``jax.image.resize``; the weight input that
+    MXNet's bilinear mode takes is not read, as in the JAX package)."""
+    scale = int(attrs.get("scale", 1))
+    data = inputs[0]
+    if attrs.get("sample_type", "nearest") == "nearest":
+        def up(x, s):
+            return torch.repeat_interleave(
+                torch.repeat_interleave(x, s, dim=2), s, dim=3)
+        out = up(data, scale)
+        if len(inputs) > 1:
+            out = torch.cat([out] + [up(x, out.shape[2] // x.shape[2])
+                                     for x in inputs[1:]], dim=1)
+        return out
+    n, c, h, w = data.shape
+    return F.interpolate(data, size=(h * scale, w * scale), mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
+register("UpSampling", _upsampling, arg_names=("data",),
+         defaults={"scale": 1, "sample_type": "nearest", "num_args": 1,
+                   "num_filter": 0, "multi_input_mode": "concat",
+                   "workspace": 512},
+         key_var_num_args="num_args")
+
+
+# ---------------------------------------------------------------------------
+# Regression output layers: the forward is the prediction, the backward
+# the JAX package's custom VJP (regression_output.cc), which ignores the
+# head gradient and gives the label a zero one
+# ---------------------------------------------------------------------------
+
+class _RegressionOutput(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape)
+        grad = torch.sign(diff) if ctx.kind == "mae" else diff
+        num_out = math.prod(out.shape[1:])
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad * (ctx.grad_scale / num_out), dlabel, None, None
+
+
+def _regression_output(kind):
+    def fwd(attrs, data, label):
+        return _RegressionOutput.apply(data, label, kind,
+                                       float(attrs.get("grad_scale", 1.0)))
+    return fwd
+
+
+for _name, _kind in (("LinearRegressionOutput", "linear"),
+                     ("LogisticRegressionOutput", "logistic"),
+                     ("MAERegressionOutput", "mae")):
+    register(_name, _regression_output(_kind), arg_names=("data", "label"),
+             defaults={"grad_scale": 1.0},
+             output_shapes=lambda attrs, data, label: [
+                 (tuple(data.shape), data.dtype)])
+
+
+# ---------------------------------------------------------------------------
+# CTC loss: optax's ``ctc_loss`` (the JAX package's body) in torch, step
+# for step. It takes logits (T, N, C), applies log-softmax inside, blank
+# 0; a zero label is padding unless ``use_label_lengths``; ``blank_label``
+# is not read (the JAX package ignores it). An alignment that cannot
+# exist gives a large finite loss (log(0) is -1e5 here), not inf as
+# ``torch.nn.functional.ctc_loss`` would.
+# ---------------------------------------------------------------------------
+
+_CTC_LOG_EPS = -1e5
+
+
+def _ctc_args(attrs):
+    names = ["data", "label"]
+    if attrs.get("use_data_lengths", False):
+        names.append("data_lengths")
+    if attrs.get("use_label_lengths", False):
+        names.append("label_lengths")
+    return names
+
+
+def ctc_loss_padded(logits, logit_paddings, labels, label_paddings):
+    """Per-sequence CTC loss of (N, T, C) logits; paddings are 1.0 where
+    a frame or label is padding (labels right-padded)."""
+    n, t_max, n_class = logits.shape
+    n_lab = labels.shape[1]
+    logprobs = _log_softmax_t(logits, -1)
+    labellens = n_lab - torch.sum(label_paddings, dim=1).to(torch.long)
+    repeat = (labels[:, :-1] == labels[:, 1:]).to(logits.dtype)
+    repeat = F.pad(repeat, (0, 1))
+    logprobs_phi = logprobs[:, :, 0:1].transpose(0, 1)            # T N 1
+    in_range = (labels >= 0) & (labels < n_class)
+    emit = torch.gather(logprobs, 2, labels.clamp(0, n_class - 1)
+                        .unsqueeze(1).expand(n, t_max, n_lab))
+    emit = (emit * in_range.unsqueeze(1).to(emit.dtype)).transpose(0, 1)
+    pads = logit_paddings.transpose(0, 1).to(logits.dtype)
+    eps = _CTC_LOG_EPS
+    phi = torch.full((n, n_lab + 1), eps, dtype=logits.dtype,
+                     device=logits.device)
+    phi = torch.cat([torch.zeros_like(phi[:, :1]), phi[:, 1:]], dim=1)
+    em = torch.full((n, n_lab), eps, dtype=logits.dtype,
+                    device=logits.device)
+
+    def add_phi(p, score):
+        return torch.cat([p[:, :1], torch.logaddexp(p[:, 1:], score)],
+                         dim=-1)
+
+    for t in range(t_max):
+        prev_phi_orig = phi
+        prev_phi = add_phi(phi, em + eps * repeat)
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + emit[t],
+                                    em + emit[t])
+        next_phi = add_phi(prev_phi + logprobs_phi[t],
+                           em + logprobs_phi[t] + eps * (1.0 - repeat))
+        pad = pads[t].reshape(n, 1)
+        em = pad * em + (1.0 - pad) * next_emit
+        phi = pad * prev_phi_orig + (1.0 - pad) * next_phi
+    last = add_phi(phi, em)
+    pick = torch.arange(n_lab + 1, device=logits.device) \
+        == labellens.unsqueeze(1)
+    return -torch.sum(last * pick.to(last.dtype), dim=1)
+
+
+def _ctc_loss(attrs, data, label, *rest):
+    rest = list(rest)
+    data_lengths = rest.pop(0) if attrs.get("use_data_lengths", False) \
+        else None
+    label_lengths = rest.pop(0) if attrs.get("use_label_lengths", False) \
+        else None
+    t_max, n, _ = data.shape
+    logits = data.transpose(0, 1)
+    t_iota = torch.arange(t_max, device=data.device).unsqueeze(0)
+    if data_lengths is not None:
+        logit_pad = (t_iota >= data_lengths.to(torch.long).unsqueeze(1))
+    else:
+        logit_pad = torch.zeros((n, t_max), dtype=torch.bool,
+                                device=data.device)
+    labels = label.to(torch.long)
+    if label_lengths is not None:
+        s_iota = torch.arange(labels.shape[1], device=data.device)
+        label_pad = s_iota.unsqueeze(0) >= \
+            label_lengths.to(torch.long).unsqueeze(1)
+    else:
+        label_pad = labels == 0
+    return ctc_loss_padded(logits, logit_pad.to(torch.float32), labels,
+                           label_pad.to(torch.float32))
+
+
+register("_contrib_ctc_loss", _ctc_loss,
+         arg_names=("data", "label", "data_lengths", "label_lengths"),
+         defaults={"use_data_lengths": False, "use_label_lengths": False,
+                   "blank_label": "first"},
+         arg_names_fn=_ctc_args, aliases=("ctc_loss", "CTCLoss"))
+
+
+# the legacy ``_v1`` names: the same op under its older interface name
+for _v1, _cur in (("BatchNorm_v1", "BatchNorm"),
+                  ("Convolution_v1", "Convolution"),
+                  ("Pooling_v1", "Pooling")):
+    _op = get_op(_cur)
+    register(_v1, _op.forward, arg_names=tuple(_op.arg_names),
+             defaults=dict(_op.defaults), num_outputs=_op.num_outputs,
+             mutable_inputs=_op.mutable_inputs,
+             arg_names_fn=_op.arg_names_fn, output_shapes=_op.output_shapes,
+             attr_docs=_op.attr_docs, attr_ranges=_op.attr_ranges)

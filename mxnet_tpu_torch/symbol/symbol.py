@@ -31,8 +31,8 @@ from .. import ops as _ops
 from .infer import PARAM_SHAPE_HOOKS
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
-           "zeros",
-           "create"]
+           "zeros", "ones", "full", "arange", "pow", "maximum", "minimum",
+           "hypot", "create"]
 
 
 def _dtype_name(dtype):
@@ -165,7 +165,34 @@ class Symbol:
         return Symbol([(n, i) for n in self._topo_nodes()
                        for i in range(n.num_outputs())])
 
+    def get_children(self):
+        """The inputs of this Symbol's output nodes, or None for a
+        variable."""
+        children = [e for (n, _) in self._outputs for e in n.inputs]
+        return Symbol(children) if children else None
+
     # -- attributes ------------------------------------------------------
+    def attr(self, key):
+        """The attribute ``key`` of a single-output Symbol's node (a set
+        attribute, else an op attribute as a string), or None."""
+        if len(self._outputs) != 1:
+            return None
+        node = self._outputs[0][0]
+        value = node._extra_attrs.get(key)
+        if value is None and node.op is not None and key in node.attrs:
+            value = str(node.attrs[key])
+        return value
+
+    def list_attr(self, recursive=False):
+        """The attributes of this Symbol's node as strings (of every node
+        by name with ``recursive``)."""
+        if recursive:
+            return self.attr_dict()
+        node = self._outputs[0][0]
+        out = {k: str(v) for k, v in node.attrs.items()}
+        out.update(node._extra_attrs)
+        return out
+
     def attr_dict(self):
         ret = {}
         for n in self._topo_nodes():
@@ -377,6 +404,9 @@ class Symbol:
     def __pow__(self, other):
         return self._binary(other, "broadcast_power", "_power_scalar")
 
+    def __mod__(self, other):
+        return self._binary(other, "broadcast_mod", "_mod_scalar")
+
     def __neg__(self):
         return create("negative", [self], {})
 
@@ -431,9 +461,28 @@ class Symbol:
     def softmax(self, axis=-1):
         return create("softmax", [self], {"axis": axis})
 
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return create("transpose", [self], {"axes": axes or None})
+
+    def flatten(self):
+        return create("Flatten", [self], {})
+
+    def slice_axis(self, axis, begin, end):
+        return create("slice_axis", [self],
+                      {"axis": axis, "begin": begin, "end": end})
+
+    def expand_dims(self, axis):
+        return create("expand_dims", [self], {"axis": axis})
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return create("dot", [self, other], {"transpose_a": transpose_a,
+                                             "transpose_b": transpose_b})
+
 
 _RSCALAR = {"_minus_scalar": "_rminus_scalar", "_div_scalar": "_rdiv_scalar",
-            "_power_scalar": "_rpower_scalar"}
+            "_mod_scalar": "_rmod_scalar", "_power_scalar": "_rpower_scalar"}
 
 
 def _torch_dtype(name):
@@ -556,3 +605,46 @@ def zeros(shape, dtype="float32", name=None, **kwargs):
     """A Symbol of zeros (the ``_zeros`` op)."""
     return create("_zeros", [], {"shape": tuple(shape), "dtype": dtype},
                   name=name)
+
+
+def ones(shape, dtype="float32", name=None, **kwargs):
+    return create("_ones", [], {"shape": tuple(shape), "dtype": dtype},
+                  name=name)
+
+
+def full(shape, val, dtype="float32", name=None, **kwargs):
+    return create("_full", [], {"shape": tuple(shape), "value": val,
+                                "dtype": dtype}, name=name)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype="float32",
+           name=None, **kwargs):
+    return create("_arange", [], {"start": start, "stop": stop,
+                                  "step": step, "repeat": repeat,
+                                  "dtype": dtype}, name=name)
+
+
+def pow(base, exp):
+    if isinstance(base, Symbol):
+        return base.__pow__(exp)
+    raise TypeError("pow: unsupported types")
+
+
+def _sym_or_scalar(lhs, rhs, op, scalar_op):
+    if isinstance(lhs, Symbol) and isinstance(rhs, Symbol):
+        return create(op, [lhs, rhs], {})
+    if isinstance(lhs, Symbol):
+        return create(scalar_op, [lhs], {"scalar": rhs})
+    return create(scalar_op, [rhs], {"scalar": lhs})
+
+
+def maximum(lhs, rhs):
+    return _sym_or_scalar(lhs, rhs, "broadcast_maximum", "_maximum_scalar")
+
+
+def minimum(lhs, rhs):
+    return _sym_or_scalar(lhs, rhs, "broadcast_minimum", "_minimum_scalar")
+
+
+def hypot(lhs, rhs):
+    return create("broadcast_hypot", [lhs, rhs], {})

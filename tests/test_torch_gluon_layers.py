@@ -1,7 +1,8 @@
 """The rest of the Gluon surface, the port against the JAX package on
 the CPU from the same numpy inputs: the ``LeakyReLU`` (six act_types),
 ``InstanceNorm`` and ``norm`` ops, the nine ``gluon.nn`` layers and the
-three ``PixelShuffle``s (eager and hybridized), the ten losses, forward
+three ``PixelShuffle``s (eager and hybridized), the ten losses and
+``CTCLoss`` (over the ``ctc_loss`` op of the operator breadth), forward
 hooks, ``summary``, ``Constant``/``get_constant``, ``gluon.utils`` and
 the five initializers (identical arrays under one ``np.random.seed``).
 Forward values and input and parameter gradients are held at
@@ -401,6 +402,42 @@ def test_loss_oracles_of_the_reference_tests():
             repr(getattr(jmx.gluon.loss, name)())
     with pytest.raises(ValueError):
         tmx.gluon.loss.LogisticLoss(label_format="other")
+
+
+@pytest.mark.parametrize("layout,label_layout,lengths,hybridize", [
+    ("NTC", "NT", False, False), ("TNC", "TN", False, False),
+    ("NTC", "NT", True, False), ("NTC", "NT", True, True)])
+def test_ctc_loss_matches_jax(layout, label_layout, lengths, hybridize):
+    """gluon.loss.CTCLoss over the ``ctc_loss`` op: the losses and the
+    prediction's gradient against the JAX package's loss block, with the
+    sequence and label lengths given or read from zero padding."""
+    pred = _rand(63, 3, 10, 6) * 2
+    label = np.array([[1, 2, 2, 0], [3, 1, 4, 5], [5, 0, 0, 0]], np.float32)
+    if layout == "TNC":
+        pred = pred.transpose(1, 0, 2)
+    if label_layout == "TN":
+        label = label.T
+    extra = [np.array([10, 8, 4], np.float32),
+             np.array([3, 4, 1], np.float32)] if lengths else []
+
+    def run(mx):
+        loss = mx.gluon.loss.CTCLoss(layout=layout, label_layout=label_layout,
+                                     weight=0.5)
+        if hybridize:
+            loss.hybridize()
+        args = [mx.nd.array(a) for a in [pred, label] + extra]
+        args[0].attach_grad()
+        with mx.autograd.record():
+            out = loss(*args)
+        out.backward()
+        return out.asnumpy(), args[0].grad.asnumpy()
+    want, wgrad = run(jmx)
+    got, ggrad = run(tmx)
+    assert got.shape == want.shape == (3,)
+    np.testing.assert_allclose(got, want, **TOL)
+    # the gradient runs back through T logaddexp steps: float32 rounding
+    # of XLA's and torch's steps differ in the last ulps
+    np.testing.assert_allclose(ggrad, wgrad, rtol=1e-5, atol=2e-6)
 
 
 # ---------------------------------------------------------------------------
