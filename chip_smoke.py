@@ -399,6 +399,41 @@ no result, anywhere else. Phases (any failure exits non-zero):
    step's profile), the idle share and peak memory. The attention,
    decode and rtc launch counts, zeroed before the symbol's runs, must
    read 0 after.
+22. kvstore (after 21) — the eighteenth slice, ``mx.kv`` on
+   ``torch.distributed``, fp32 with TF32 off and deterministic cuDNN:
+   (a) ``device`` and ``local`` stores on gpu(0), every call under
+   ``torch.cuda.set_sync_debug_mode("error")``: a list push of four
+   per-context copies pulled as the exact list-order sum into the
+   destinations' own tensors (``data_ptr`` unchanged), an updater
+   accumulating over three pushes, 2-bit compression and its residual
+   over three pushes bit-equal to the plain formula; then two ranks,
+   separate processes under ``python -m mxnet_tpu_torch.tools.launch -n
+   2`` (``chip_smoke.py kv-rank DIR``), both on gpu(0), whose process
+   group is gloo's by the backend rule (two ranks share the card; gloo
+   stages CUDA tensors through the host): (b) the dense assertions of
+   tests/test_dist_kvstore.py (34-67), a barrier, a planned
+   ``push:step=1:raise`` on both ranks retried to the same bytes,
+   ``dist_async``'s one warning; (c) BASELINE config 5 at its published
+   width: ``model_zoo.vision.resnet18_v1(classes=10)`` on 3x32x32,
+   hybridized, ``Trainer("sgd", lr 0.05, momentum 0.9, wd 1e-4,
+   kvstore="dist_sync")``, 64 images a rank a step of
+   ``kv_cifar`` (examples/train_gluon_cnn.py's synthetic_cifar, seed 0),
+   20 steps, both ranks seeded alike, once per key and once with
+   ``MXNET_GRAD_OVERLAP=1``: every parameter bit-identical across the
+   ranks and across the two exchanges, rank 0's arrays bit-identical to
+   the two-replica twin run here (``kv_twin``), the update graph 1
+   capture and 0 recaptures a rank, the loss falling; ms a step (median
+   of steps 5-20) split into forward + backward, ``sync`` and the
+   update, images/s over both ranks, the exchange's GB/s, peak memory;
+   (d) config 1's MLP through ``Module.fit(kvstore="dist_sync")``, 2
+   ranks x 50 for 10 steps, ``update_on_kvstore`` True, against a
+   one-process fit at batch 100 within KV_MLP_TOL; (e)
+   ``tools.bandwidth.measure`` over ResNet-18's shapes, ``device`` store,
+   2 worker copies here, and a two-rank dist_sync push + pull round over
+   the same shapes, both in GB/s with the reference's accounting (the
+   second a one-card, process-to-process figure). A failing rank fails
+   the phase with its last lines. The attention, decode and rtc launch
+   counts, zeroed before, read 0 here and on every rank.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc or
@@ -413,6 +448,7 @@ import gc
 import importlib
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -8169,6 +8205,642 @@ def phase_ops(card):
     return dict(sweep=sweep, logit_err=err, greedy_equal=same, **train)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the kvstore
+# ---------------------------------------------------------------------------
+
+# BASELINE config 5 (ResNet CIFAR-10, kvstore=dist_sync): Gluon's
+# resnet18_v1 at 10 classes on 3x32x32 images (tools/bandwidth.py's own
+# CIFAR defaults), 64 images a rank a step on 2 ranks, SGD as the
+# reference's example/distributed_training trains it; cut in steps only
+KV_RANKS = 2
+KV_BATCH = 64
+KV_STEPS = 20
+KV_TIMED = 4                        # the medians read steps 5-20
+KV_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
+KV_SEED = 0
+# BASELINE config 1's MLP (examples/train_mnist_module.py) through
+# Module.fit on 2 ranks x 50 for 10 steps against one process at batch
+# 100: the ranks' gradient is two cuBLAS sums of 50 where the one process
+# takes one of 100, carried through 10 SGD steps with momentum 0.9
+KV_MLP_BATCH = 50
+KV_MLP_STEPS = 10
+KV_MLP_SGD = dict(learning_rate=0.01, momentum=0.9)
+KV_MLP_TOL = dict(rtol=1e-4, atol=1e-6)
+KV_BAND_ROUNDS = 5
+KV_SHAPE = (2, 3)
+KV_LAUNCH_TIMEOUT = 300
+
+
+def kv_cifar(n, seed=KV_SEED):
+    """examples/train_gluon_cnn.py's synthetic_cifar (its generator, here
+    without the JAX package): ten colour prototypes plus noise."""
+    rng = np.random.RandomState(seed)
+    protos = rng.normal(0, 1.5, (10, 3, 1, 1)).astype(np.float32)
+    y = rng.randint(0, 10, n)
+    x = protos[y] + rng.normal(0, 0.8, (n, 3, 32, 32)).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def kv_rank_batches(mx, rank):
+    """Rank ``rank``'s half of every global batch of KV_RANKS x KV_BATCH
+    images, placed on gpu(0) ahead of the steps."""
+    x, y = kv_cifar(KV_STEPS * KV_RANKS * KV_BATCH)
+    x = x.reshape(KV_STEPS, KV_RANKS, KV_BATCH, 3, 32, 32)
+    y = y.reshape(KV_STEPS, KV_RANKS, KV_BATCH)
+    ctx = mx.gpu(0)
+    return [(mx.nd.array(x[s, rank], ctx=ctx), mx.nd.array(y[s, rank],
+                                                              ctx=ctx))
+            for s in range(KV_STEPS)]
+
+
+def kv_mlp_data():
+    """examples/train_mnist_module.py's synthetic MNIST generator for
+    KV_MLP_STEPS global batches, and Xavier-like initial weights."""
+    rng = np.random.RandomState(KV_SEED)
+    n = KV_MLP_STEPS * KV_RANKS * KV_MLP_BATCH
+    protos = rng.normal(0, 2.5, (10, 784)).astype(np.float32)
+    y = rng.randint(0, 10, n)
+    x = ((protos[y] + rng.normal(0, 1.0, (n, 784))) / 3.0).astype(np.float32)
+    init = {}
+    for name, (fan_in, width) in (("fc1", (784, 128)), ("fc2", (128, 64)),
+                                  ("fc3", (64, 10))):
+        bound = math.sqrt(6.0 / (fan_in + width))
+        init[name + "_weight"] = rng.uniform(
+            -bound, bound, (width, fan_in)).astype(np.float32)
+        init[name + "_bias"] = np.zeros(width, np.float32)
+    return x, y.astype(np.float32), init
+
+
+def kv_mlp_fit(mx, x, y, batch, init, kvstore):
+    """examples/train_mnist_module.py's symbol through Module.fit on
+    gpu(0), one epoch, in order; the module."""
+    sym = mx.sym.var("data")
+    for i, width in enumerate((128, 64, 10)):
+        sym = mx.sym.FullyConnected(sym, num_hidden=width,
+                                    name="fc%d" % (i + 1))
+        if width != 10:
+            sym = mx.sym.Activation(sym, act_type="relu")
+    sym = mx.sym.SoftmaxOutput(sym, name="softmax")
+    it = mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=False,
+                           label_name="softmax_label")
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.fit(it, arg_params={k: mx.nd.array(v) for k, v in init.items()},
+            aux_params={}, optimizer="sgd", optimizer_params=KV_MLP_SGD,
+            kvstore=kvstore, num_epoch=1)
+    return mod
+
+
+def kv_resnet(mx, init=None):
+    """resnet18_v1(classes=10) on gpu(0), Xavier, its parameters set to
+    ``init`` (a list in ``collect_params`` order) when given, hybridized;
+    (net, parameter list)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.resnet18_v1(classes=10)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.zeros((1, 3, 32, 32), ctx=mx.gpu(0)))
+    params = list(net.collect_params().values())
+    if init is not None:
+        for p, v in zip(params, init):
+            p.set_data(mx.nd.array(v, ctx=mx.gpu(0)))
+    net.hybridize()
+    return net, params
+
+
+def kv_host(params):
+    """Host copies of the parameters' values."""
+    return [p.data()._data.detach().cpu().numpy().copy() for p in params]
+
+
+def kv_rank_train(mx, net, params, batches, overlap):
+    """KV_STEPS Trainer(kvstore='dist_sync') steps of the global batch on
+    this rank's half: each step's ms split into forward + backward (host
+    clock to a synchronize), ``sync`` (the kvstore exchange's telemetry
+    span) and the update (the rest of ``step``, to a synchronize)."""
+    from mxnet_tpu_torch import autograd, gluon, profiler, telemetry
+    os.environ["MXNET_GRAD_OVERLAP"] = "1" if overlap else "0"
+    buckets0 = profiler.counters().get("grad_sync_kvstore_buckets", 0)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(KV_SGD),
+                            kvstore="dist_sync")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    telemetry.reset()
+    telemetry.start(run_id="kvstore")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, losses, prev = [], [], {}
+    for x, y in batches:
+        telemetry.step_begin()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.step(KV_RANKS * KV_BATCH)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        phases = telemetry.report()["phases_ms"]
+        sync = phases.get("sync", 0.0) - prev.get("sync", 0.0)
+        prev = phases
+        rows.append(((t2 - t0) * 1e3, (t1 - t0) * 1e3, sync,
+                     (t2 - t1) * 1e3 - sync))
+        losses.append(loss._data.detach().mean())
+    telemetry.stop()
+    telemetry.reset()
+    os.environ.pop("MXNET_GRAD_OVERLAP", None)
+    grad_bytes = sum(p.grad()._data.numel() * 4 for p in params
+                     if p.grad_req != "null")
+    med = [statistics.median(r[i] for r in rows[KV_TIMED:])
+           for i in range(4)]
+    return dict(
+        step_ms=med[0], fb_ms=med[1], sync_ms=med[2], update_ms=med[3],
+        images_s=KV_RANKS * KV_BATCH * 1e3 / med[0],
+        exchange_gbs=2 * grad_bytes * KV_RANKS / (med[2] / 1e3) / 1e9,
+        grad_bytes=grad_bytes, grads=sum(p.grad_req != "null"
+                                         for p in params),
+        peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+        losses=[float(v) for v in torch.stack(losses).cpu()],
+        graphs=trainer._fused_updater.stats(), kv=trainer._kvstore.stats(),
+        buckets=(profiler.counters().get("grad_sync_kvstore_buckets", 0)
+                 - buckets0) // KV_STEPS)
+
+
+def kv_rank_dense(mx, kv, rank, say):
+    """(b): tests/test_dist_kvstore.py's dense assertions (34-67) on
+    gpu(0) arrays, a barrier, a planned push fault on every rank retried
+    to the same bytes, and dist_async's one warning."""
+    from mxnet_tpu_torch import fault
+    nw = kv.num_workers
+    shape, big_shape = (3, 3), (50, 4)
+    kv.init(3, mx.nd.ones(shape))
+    kv.init(99, mx.nd.ones(big_shape))
+    kv.push(3, mx.nd.ones(shape) * (rank + 1))
+    out = mx.nd.zeros(shape)
+    kv.pull(3, out=out)
+    assert np.allclose(out.asnumpy(), sum(r + 1 for r in range(nw)))
+    for it in range(3):
+        kv.push(99, mx.nd.ones(big_shape) * (it + rank))
+        out = mx.nd.zeros(big_shape)
+        kv.pull(99, out=out)
+        assert np.allclose(out.asnumpy(), sum(it + r for r in range(nw)))
+    kv.init(7, mx.nd.zeros(shape))
+    kv.push(7, mx.nd.array(np.arange(9, dtype=np.float32).reshape(shape)
+                           * (rank + 1)))
+    out = mx.nd.zeros(shape)
+    kv.pull(7, out=out)
+    assert np.allclose(out.asnumpy(), np.arange(9).reshape(shape)
+                       * sum(r + 1 for r in range(nw)))
+    t0 = time.perf_counter()
+    kv.barrier()
+    barrier_ms = (time.perf_counter() - t0) * 1e3
+    x = mx.nd.array(np.random.RandomState(rank).randn(64, 257)
+                    .astype(np.float32))
+    kv.init(11, mx.nd.zeros(x.shape))
+    kv.push(11, x)
+    base = mx.nd.zeros(x.shape)
+    kv.pull(11, out=base)
+    fault.set_plan("push:step=1:raise")
+    try:
+        kv.push(11, x)
+        again = mx.nd.zeros(x.shape)
+        kv.pull(11, out=again)
+        stats = fault.stats()
+    finally:
+        fault.set_plan(None)
+    assert stats["injected"]["push"] == 1 and stats["retries"] >= 1, stats
+    assert bool((again._data == base._data).all()), "retry changed bytes"
+    from mxnet_tpu_torch import kvstore as kvs
+    warned = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: warned.append(rec.getMessage())
+    logging.getLogger().addHandler(handler)
+    try:
+        kvs._DIST_ASYNC_WARNED = False
+        mx.kv.create("dist_async")
+        mx.kv.create("dist_async")
+    finally:
+        logging.getLogger().removeHandler(handler)
+    hits = [m for m in warned if "dist_async" in m]
+    assert len(hits) == 1 and "degrades to synchronous" in hits[0], hits
+    say("(b) rank %d: dense assertions of tests/test_dist_kvstore.py "
+        "passed over %d workers; barrier %.3f ms; a planned push fault "
+        "retried (%d retries) to the same bytes; dist_async warned once"
+        % (rank, nw, barrier_ms, stats["retries"]))
+    return dict(barrier_ms=barrier_ms, retries=stats["retries"])
+
+
+def kv_rank_band(mx, kv, rank):
+    """(e) on the ranks: KV_BAND_ROUNDS rounds of dist_sync push + pull
+    over ResNet-18's weight shapes (tools/bandwidth.py's, on gpu(0));
+    GB/s with the reference's accounting, the sums checked after."""
+    from mxnet_tpu_torch.tools import bandwidth
+    shapes = bandwidth._layer_shapes("resnet18_v1", 10, (3, 32, 32))
+    vals = [mx.nd.ones(s) * (rank + 1) for s in shapes]
+    outs = [mx.nd.zeros(s) for s in shapes]
+    for i, s in enumerate(shapes):
+        kv.init("band%d" % i, mx.nd.zeros(s))
+    total = sum(int(np.prod(s)) * 4 for s in shapes)
+    times = []
+    for _ in range(KV_BAND_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(len(shapes)):
+            kv.push("band%d" % i, vals[i])
+            kv.pull("band%d" % i, out=outs[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    want = sum(r + 1 for r in range(kv.num_workers))
+    errors = sum(not bool((o._data == want).all()) for o in outs)
+    return dict(keys=len(shapes), bytes=total, errors=errors,
+                gbs=[2 * total * kv.num_workers / t / 1e9 for t in times],
+                ms=[t * 1e3 for t in times])
+
+
+def kv_rank_main(outdir):
+    """One rank of phase 22, spawned by ``python -m mxnet_tpu_torch.tools.
+    launch -n 2`` (``chip_smoke.py kv-rank DIR``): importing the package
+    joins the launcher's process group. Runs (b)-(e) on gpu(0) and
+    writes its readings to DIR/rank<r>.json, its weights to npz files and
+    its log to DIR/rank<r>.log; any failure is written there and exits
+    1."""
+    import traceback
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    log = open(os.path.join(outdir, "rank%d.log" % rank), "w")
+
+    def say(line):
+        log.write(line + "\n")
+        log.flush()
+        print(line, flush=True)
+    res = {"rank": rank}
+    try:
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import rtc
+        tfa = importlib.import_module(
+            "mxnet_tpu_torch.parallel.flash_attention")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        tfa.reset_launches()
+        rtc.reset_launches()
+        kv = mx.kv.create("dist_sync")
+        res.update(kv.stats())
+        say("rank %d of %d joined: backend %s, device %s"
+            % (rank, kv.num_workers, res["backend"],
+               torch.cuda.get_device_name(0)))
+        res["b"] = kv_rank_dense(mx, kv, rank, say)
+        batches = kv_rank_batches(mx, rank)
+        np.random.seed(KV_SEED)
+        mx.random.seed(KV_SEED)
+        net, params = kv_resnet(mx)
+        init = kv_host(params)
+        res["trainable"] = [i for i, p in enumerate(params)
+                            if p.grad_req != "null"]
+        if rank == 0:
+            np.savez(os.path.join(outdir, "init.npz"), *init)
+        res["c"] = {}
+        for name, overlap in (("per_key", False), ("overlap", True)):
+            if overlap:
+                net, params = kv_resnet(mx, init)
+            res["c"][name] = kv_rank_train(mx, net, params, batches, overlap)
+            np.savez(os.path.join(outdir, "rank%d_%s.npz" % (rank, name)),
+                     *kv_host(params))
+            r = res["c"][name]
+            say("(c) rank %d, %s: %.3f ms a step (fwd+bwd %.3f, sync %.3f, "
+                "update %.3f), loss %.4f -> %.4f, update graph %s"
+                % (rank, name, r["step_ms"], r["fb_ms"], r["sync_ms"],
+                   r["update_ms"], r["losses"][0], r["losses"][-1],
+                   r["graphs"]))
+        del net, params, batches
+        torch.cuda.empty_cache()
+        x, y, init = kv_mlp_data()
+        glob = x.reshape(KV_MLP_STEPS, KV_RANKS, KV_MLP_BATCH, 784)
+        gy = y.reshape(KV_MLP_STEPS, KV_RANKS, KV_MLP_BATCH)
+        mod = kv_mlp_fit(mx, glob[:, rank].reshape(-1, 784),
+                         gy[:, rank].reshape(-1), KV_MLP_BATCH, init,
+                         "dist_sync")
+        args, _ = mod.get_params()
+        np.savez(os.path.join(outdir, "rank%d_mlp.npz" % rank),
+                 **{k: v.asnumpy() for k, v in args.items()})
+        res["d"] = dict(update_on_kvstore=bool(mod._update_on_kvstore),
+                        rescale=mod._optimizer.rescale_grad,
+                        kv=mod._kvstore.stats())
+        res["e"] = kv_rank_band(mx, kv, rank)
+        kv.barrier()
+        res["launches"] = dict(tfa.launches, rtc=rtc.launches["rtc"])
+        say("rank %d done" % rank)
+    except BaseException:                        # noqa: BLE001
+        res["error"] = traceback.format_exc()
+        say(res["error"])
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    log.close()
+    return 1 if "error" in res else 0
+
+
+def kv_single_process(mx):
+    """(a): the single-process stores on the card, every call under
+    ``set_sync_debug_mode("error")``: list pushes of per-context copies
+    (device and local), exact sums pulled into the destinations' own
+    tensors, an updater accumulating over pushes, 2-bit compression held
+    to its plain formula over three pushes."""
+    ctx = mx.gpu(0)
+    rs = np.random.RandomState(KV_SEED)
+    parts = [rs.randn(256, 1024).astype(np.float32) for _ in range(4)]
+    grads = [(rs.randn(512, 512) * 0.4).astype(np.float32)
+             for _ in range(3)]
+    copies = [mx.nd.array(p, ctx=ctx) for p in parts]
+    outs = {t: [mx.nd.zeros(parts[0].shape, ctx=ctx) for _ in range(2)]
+            for t in ("device", "local")}
+    ptrs = {t: [o._data.data_ptr() for o in v] for t, v in outs.items()}
+    acc_out = mx.nd.zeros(parts[0].shape, ctx=ctx)
+    g_nd = [mx.nd.array(g, ctx=ctx) for g in grads]
+    q_outs = [mx.nd.zeros(grads[0].shape, ctx=ctx) for _ in grads]
+    zeros = mx.nd.zeros(parts[0].shape, ctx=ctx)
+    torch.cuda.synchronize()
+    stores = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in ("device", "local"):
+            kv = stores[t] = mx.kv.create(t)
+            kv.init("w", zeros)
+            kv.push("w", copies)
+            kv.pull("w", out=outs[t])
+        acc = mx.kv.create("local")
+
+        def updater(key, pushed, stored):
+            stored += pushed
+        acc.set_updater(updater)
+        acc.init(0, zeros)
+        for _ in range(3):
+            acc.push(0, copies[:2])
+        acc.pull(0, out=acc_out)
+        comp = mx.kv.create("device")
+        comp.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        comp.init(0, mx.nd.zeros(grads[0].shape, ctx=ctx))
+        for g, o in zip(g_nd, q_outs):
+            comp.push(0, g)
+            comp.pull(0, out=o)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = parts[0]
+    for p in parts[1:]:
+        want = want + p
+    for t in ("device", "local"):
+        if [o._data.data_ptr() for o in outs[t]] != ptrs[t]:
+            fail("(a) %s: a pull replaced a destination's tensor" % t)
+        for o in outs[t]:
+            if not np.array_equal(o.asnumpy(), want):
+                fail("(a) %s: the pulled sum differs from the list-order "
+                     "sum" % t)
+    if not np.array_equal(acc_out.asnumpy(),
+                          3 * (parts[0] + parts[1])):
+        fail("(a) the updater's accumulation is wrong")
+    res = np.zeros(grads[0].shape, np.float32)
+    for g, o in zip(grads, q_outs):
+        x = g + res
+        q = np.where(x >= 0.5, 0.5, np.where(x <= -0.5, -0.5, 0.0)) \
+            .astype(np.float32)
+        res = (x - q).astype(np.float32)
+        if not np.array_equal(o.asnumpy(), q):
+            fail("(a) 2-bit compression differs from its plain formula")
+    if not np.array_equal(comp._compression._residual[0].cpu().numpy(),
+                          res):
+        fail("(a) the 2-bit residual differs from its plain formula")
+    print("  (a) device and local stores on gpu(0) under "
+          "set_sync_debug_mode('error'): a list push of %d copies of "
+          "%s pulled as the exact list-order sum into the destinations' "
+          "own tensors; an updater's 3 accumulated pushes exact; 2-bit "
+          "compression and its residual over 3 pushes bit-equal to the "
+          "plain formula" % (len(parts), parts[0].shape))
+
+
+def kv_launch(outdir):
+    """Runs the ranks: ``python -m mxnet_tpu_torch.tools.launch -n 2``
+    over ``chip_smoke.py kv-rank DIR`` from the checkout; their readings.
+    A failing rank fails the phase with its last lines."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(KV_RANKS), sys.executable, os.path.abspath(__file__),
+           "kv-rank", outdir]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=KV_LAUNCH_TIMEOUT)
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as exc:
+        rc, out, err = "timeout", exc.stdout or "", exc.stderr or ""
+        out = out if isinstance(out, str) else out.decode()
+        err = err if isinstance(err, str) else err.decode()
+    secs = time.perf_counter() - t0
+    ranks = []
+    for r in range(KV_RANKS):
+        path = os.path.join(outdir, "rank%d.json" % r)
+        ranks.append(json.load(open(path)) if os.path.exists(path)
+                     else {"error": "rank %d wrote no result" % r})
+    if rc != 0 or any("error" in r for r in ranks):
+        for r in range(KV_RANKS):
+            path = os.path.join(outdir, "rank%d.log" % r)
+            tail = open(path).read()[-3000:] if os.path.exists(path) else ""
+            print("  rank %d's last lines:\n%s%s"
+                  % (r, tail, ranks[r].get("error", "")))
+        print("  launcher stderr:\n%s" % err[-3000:])
+        fail("kvstore: the launched ranks failed (launcher exit %s)" % rc)
+    for line in out.splitlines():
+        print("    " + line)
+    return ranks, secs
+
+
+def kv_twin(mx, init):
+    """The two-replica twin of (c): two ResNet-18s on gpu(0) from the
+    ranks' initial weights, each fed its rank's half, the gradients
+    summed in rank order into the first replica's, one fused SGD update
+    of the global batch, its weights copied to the second (each keeps
+    its own BatchNorm statistics, as each rank does)."""
+    from mxnet_tpu_torch import autograd, gluon
+    reps = [kv_resnet(mx, init) for _ in range(KV_RANKS)]
+    batches = [kv_rank_batches(mx, r) for r in range(KV_RANKS)]
+    trainer = gluon.Trainer(reps[0][0].collect_params(), "sgd",
+                            dict(KV_SGD))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for s in range(KV_STEPS):
+        for (net, _), rank_batches in zip(reps, batches):
+            x, y = rank_batches[s]
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+        with torch.no_grad():
+            for pa, pb in zip(reps[0][1], reps[1][1]):
+                if pa.grad_req != "null":
+                    pa.grad()._data.add_(pb.grad()._data)
+        trainer.step(KV_RANKS * KV_BATCH)
+        for pa, pb in zip(reps[0][1], reps[1][1]):
+            if pa.grad_req != "null":
+                pb.set_data(pa.data())
+    return kv_host(reps[0][1])
+
+
+def kv_npz(outdir, name):
+    with np.load(os.path.join(outdir, name)) as f:
+        return [f["arr_%d" % i] for i in range(len(f.files))]
+
+
+def phase_kv(card):
+    """Phase 22: the eighteenth slice, the kvstore. (a) the single-process
+    stores on gpu(0) under ``set_sync_debug_mode("error")``; then two
+    ranks, separate processes under ``python -m mxnet_tpu_torch.tools.
+    launch -n 2``, both on gpu(0) (the one card: the process group is
+    gloo's, which stages CUDA tensors through the host), run (b) the
+    dense dist_sync assertions, (c) BASELINE config 5 (resnet18_v1 at 10
+    classes, 3x32x32, 64 images a rank, 20 steps, once per key and once
+    bucketed), (d) config 1's MLP through ``Module.fit`` and (e) a
+    dist_sync push + pull round over ResNet-18's shapes; this process
+    holds them to (c)'s two-replica twin, (d)'s one-process fit at the
+    summed batch and runs ``tools.bandwidth.measure`` on a ``device``
+    store. fp32, TF32 off, deterministic cuDNN. No kernel of the table
+    is on this path: its launch counts, zeroed before, must read 0 in
+    this process and on every rank."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.tools import bandwidth
+    tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tfa.reset_launches()
+    rtc.reset_launches()
+    kv_single_process(mx)
+    outdir = tempfile.mkdtemp(prefix="kv_ranks_")
+    try:
+        ranks, launch_s = kv_launch(outdir)
+        print("  (b)-(e) ranks: %d processes on %s, backend %s, %.1f s of "
+              "launch" % (len(ranks), card, ranks[0]["backend"], launch_s))
+        init = kv_npz(outdir, "init.npz")
+        finals = {(r, name): kv_npz(outdir, "rank%d_%s.npz" % (r, name))
+                  for r in range(KV_RANKS) for name in ("per_key", "overlap")}
+        mlps = [dict(np.load(os.path.join(outdir, "rank%d_mlp.npz" % r)))
+                for r in range(KV_RANKS)]
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    # (c): across ranks (the trainable parameters: each rank's BatchNorm
+    # keeps its own moving statistics), across the two exchanges (every
+    # array), against the twin (every array)
+    trainable = ranks[0]["trainable"]
+    for name in ("per_key", "overlap"):
+        if any(not np.array_equal(finals[(0, name)][i], finals[(1, name)][i])
+               for i in trainable):
+            fail("(c) %s: the ranks' parameters differ" % name)
+    for r in range(KV_RANKS):
+        if any(not np.array_equal(a, b) for a, b in
+               zip(finals[(r, "per_key")], finals[(r, "overlap")])):
+            fail("(c) rank %d: the bucketed exchange's arrays differ from "
+                 "the per-key loop's" % r)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        twin = kv_twin(mx, init)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    diff = [float(np.abs(a - b).max()) for a, b in
+            zip(finals[(0, "per_key")], twin)]
+    same = all(np.array_equal(a, b)
+               for a, b in zip(finals[(0, "per_key")], twin))
+    print("  (c) after %d steps: the two ranks' %d parameters "
+          "bit-identical, per key and bucketed; each rank's %d arrays "
+          "(BatchNorm statistics included) bit-identical across the two "
+          "exchanges; rank 0's against the two-replica twin in this "
+          "process: bit-identical %s (max |diff| %.3g)"
+          % (KV_STEPS, len(trainable), len(twin), same, max(diff)))
+    if not same:
+        fail("(c): rank 0's weights differ from the twin's (max |diff| %g)"
+             % max(diff))
+    for r, rank in enumerate(ranks):
+        for name, c in rank["c"].items():
+            g = c["graphs"]
+            print("  (c) rank %d, %s exchange: %.3f ms a step (median of "
+                  "steps %d-%d): forward + backward %.3f, sync %.3f, update "
+                  "%.3f; %.1f images/s over both ranks; exchange %.3f GB/s "
+                  "(2 x %.1f MB x %d ranks / sync; %d gradient arrays, %s "
+                  "buckets a step); peak memory %.1f MB; update graph captures %d, "
+                  "recaptures %d; loss %.4f -> %.4f; %s"
+                  % (r, name, c["step_ms"], KV_TIMED + 1, KV_STEPS,
+                     c["fb_ms"], c["sync_ms"], c["update_ms"], c["images_s"],
+                     c["exchange_gbs"], c["grad_bytes"] / 1e6, KV_RANKS,
+                     c["grads"], c["buckets"] or "no", c["peak_mb"],
+                     g["captures"], g["recaptures"], c["losses"][0],
+                     c["losses"][-1], card))
+            if g["captures"] != 1 or g["recaptures"] != 0:
+                fail("(c) rank %d %s: the update graph was captured again: "
+                     "%s" % (r, name, g))
+            early = np.mean(c["losses"][:5])
+            late = np.mean(c["losses"][-5:])
+            if not late < early:
+                fail("(c) rank %d %s: the loss did not fall (%.4f -> %.4f)"
+                     % (r, name, early, late))
+    # (d): the MLP against one process at the summed batch
+    x, y, init_mlp = kv_mlp_data()
+    one = kv_mlp_fit(mx, x, y, KV_RANKS * KV_MLP_BATCH, init_mlp, "local")
+    args, _ = one.get_params()
+    worst = 0.0
+    for k, v in args.items():
+        want = v.asnumpy()
+        if not np.array_equal(mlps[0][k], mlps[1][k]):
+            fail("(d): the ranks' %s differ" % k)
+        err = np.abs(mlps[0][k] - want)
+        worst = max(worst, float(err.max()))
+        if not (err <= KV_MLP_TOL["atol"]
+                + KV_MLP_TOL["rtol"] * np.abs(want)).all():
+            fail("(d): %s off the one-process fit by %g" % (k, err.max()))
+    d = ranks[0]["d"]
+    print("  (d) config 1's MLP through Module.fit(kvstore='dist_sync'), %d "
+          "ranks x %d for %d steps: update_on_kvstore %s, rescale_grad %g; "
+          "the ranks bit-identical; against one process at batch %d: max "
+          "|diff| %.3g (held to rtol %g, atol %g)"
+          % (KV_RANKS, KV_MLP_BATCH, KV_MLP_STEPS, d["update_on_kvstore"],
+             d["rescale"], KV_RANKS * KV_MLP_BATCH, worst,
+             KV_MLP_TOL["rtol"], KV_MLP_TOL["atol"]))
+    if not d["update_on_kvstore"]:
+        fail("(d): _create_kvstore did not update on the dist store")
+    # (e): bandwidth, one process on a device store and two ranks
+    with mx.gpu(0):
+        shapes = bandwidth._layer_shapes("resnet18_v1", 10, (3, 32, 32))
+        rows = bandwidth.measure(shapes, kv_type="device", num_workers=2,
+                                 num_batches=KV_BAND_ROUNDS)
+    if any(r["error"] for r in rows):
+        fail("(e): tools.bandwidth.measure found wrong sums: %s" % rows)
+    local_gbs = statistics.median(r["bandwidth_gbps"] for r in rows)
+    e = ranks[0]["e"]
+    if any(rank["e"]["errors"] for rank in ranks):
+        fail("(e): the two-rank round's sums are wrong")
+    dist_gbs = statistics.median(e["gbs"])
+    print("  (e) KVStore push + pull bandwidth over ResNet-18's %d weight "
+          "arrays (%.1f MB), reference accounting 2 x bytes x workers / s, "
+          "%s: tools.bandwidth.measure, 'device' store, 2 worker copies in "
+          "one process on gpu(0): %.3f GB/s (median of %d rounds, sums "
+          "checked); dist_sync over 2 ranks on the one card, process to "
+          "process through gloo: %.3f GB/s (median of %d rounds, %.3f ms a "
+          "round; sums checked). The second is a one-card figure, not a "
+          "multi-card NVLink one."
+          % (e["keys"], e["bytes"] / 1e6, card, local_gbs, len(rows),
+             dist_gbs, KV_BAND_ROUNDS, statistics.median(e["ms"])))
+    launches = dict(tfa.launches, rtc=rtc.launches["rtc"])
+    rank_launches = [rank["launches"] for rank in ranks]
+    print("  attention, decode and rtc kernel launches over phase 22: %s in "
+          "this process, %s on the ranks (none is on this path); kvstore "
+          "phase %.1f s" % (launches, rank_launches,
+                            time.perf_counter() - t_phase))
+    if any(launches.values()) or any(any(r.values()) for r in rank_launches):
+        fail("kvstore: the path launched a kernel of the table")
+    return dict(ranks=ranks, local_gbs=local_gbs, dist_gbs=dist_gbs,
+                mlp_err=worst)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -8239,6 +8911,7 @@ def main():
     pack = phase_bucketing(card, tfa)
     phase_gan(card)
     phase_ops(card)
+    phase_kv(card)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -8280,4 +8953,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["kv-rank"]:
+        sys.exit(kv_rank_main(sys.argv[2]))
     sys.exit(main())

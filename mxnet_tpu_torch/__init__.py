@@ -63,7 +63,14 @@ What is ported:
   the losses of ``gluon.loss`` but ``CTCLoss``, forward hooks and
   ``summary``, ``gluon.Constant``, ``gluon.utils`` and the
   ``Orthogonal``, ``MSRAPrelu``, ``Bilinear``, ``LSTMBias`` and ``Mixed``
-  initializers.
+  initializers;
+- the kvstore: ``mx.kv`` (``local``, ``device``, ``dist_sync`` on a
+  ``torch.distributed`` all-reduce, ``dist_async`` degraded to sync),
+  the kvstore paths of ``Module`` and ``gluon.Trainer``, fault's retries
+  (``CollectiveTimeoutError``), ``parallel.distributed``, the local
+  launcher (``python -m mxnet_tpu_torch.tools.launch -n N ...``) and
+  ``tools.bandwidth``. A worker the launcher spawns joins its process
+  group when it imports the package.
 
 Typical use mirrors MXNet::
 
@@ -77,9 +84,26 @@ Typical use mirrors MXNet::
 
 ``ROADMAP.md`` lists what waits for later slices.
 """
+
+
+def _join_launcher_process_group():
+    """Join the process group of the launcher's DMLC_* contract
+    (``tools/launch.py``) at import, as the JAX package does, so a
+    launched worker needs no launcher-specific code
+    (``fault.join_process_group``; a no-op without the contract)."""
+    import os
+    if int(os.environ.get("DMLC_NUM_WORKER", "1") or 1) <= 1 \
+            or "DMLC_WORKER_ID" not in os.environ:
+        return
+    from . import fault
+    fault.join_process_group()
+
+
+_join_launcher_process_group()
+
 from .base import MXNetError
 from . import fault
-from .fault import InjectedFault
+from .fault import CollectiveTimeoutError, InjectedFault
 from .context import Context, cpu, gpu, cpu_pinned, current_context, \
     num_gpus, gpu_memory_info
 from .name import NameManager
@@ -126,6 +150,18 @@ from . import rnn
 from . import bucketing
 from . import serving
 from . import parallel
+from . import kvstore as kvstore_module
+from .kvstore import KVStore
+from . import kvstore_server
+
+
+def kvstore_create(name="local"):
+    """``mx.kv.create`` under its top-level name."""
+    return kvstore_module.create(name)
+
+
+# the `mx.kv` alias of reference scripts
+kv = kvstore_module
 
 __all__ = ["MXNetError", "fault", "InjectedFault", "Context", "cpu", "gpu",
            "cpu_pinned", "current_context", "num_gpus", "gpu_memory_info",
@@ -137,4 +173,5 @@ __all__ = ["MXNetError", "fault", "InjectedFault", "Context", "cpu", "gpu",
            "load_checkpoint", "checkpoint", "log", "profiler", "tracing",
            "telemetry", "livemetrics", "flightrec", "amp", "fused_step",
            "module", "mod", "Module", "rnn", "bucketing", "serving",
-           "parallel"]
+           "parallel", "CollectiveTimeoutError", "kvstore_module", "kv",
+           "KVStore", "kvstore_server", "kvstore_create"]

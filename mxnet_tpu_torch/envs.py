@@ -95,6 +95,20 @@ declare("MXNET_ASYNC_CHECKPOINT", "bool", True,
 declare("MXNET_CHECKPOINT_INFLIGHT", "int", 2,
         "Bounded queue depth of in-flight async checkpoint "
         "snapshots (backpressure past it).", _G)
+declare("MXNET_KVSTORE_TIMEOUT", "float", 60.0,
+        "Seconds a collective may retry before "
+        "CollectiveTimeoutError.", _G)
+declare("MXNET_KVSTORE_RETRY_BACKOFF", "float", 0.05,
+        "Initial collective retry backoff, seconds.", _G)
+declare("MXNET_KVSTORE_RETRY_MAX_BACKOFF", "float", 2.0,
+        "Backoff ceiling for collective retries, seconds.", _G)
+
+_G = "parallel"
+declare("MXNET_GRAD_OVERLAP", "bool", False,
+        "Bucketed gradient exchange: the kvstore's push/pull runs "
+        "once per size-capped bucket instead of once per key.", _G)
+declare("MXNET_GRAD_BUCKET_MB", "float", 4.0,
+        "Gradient-bucket size cap for the overlap path, MB.", _G)
 
 _G = "io"
 declare("MXNET_DATA_PIPELINE", "bool", True,
@@ -120,6 +134,9 @@ declare("MXNET_FUSED_STEP", "bool", True,
         "Run the whole optimizer update (and, on the Module path, "
         "forward + backward with it) as one CUDA graph per signature "
         "(eager fallback when off).", _G)
+declare("MXNET_UPDATE_ON_KVSTORE", "bool", None,
+        "Run optimizer updates on the kvstore instead of the worker "
+        "(default depends on the kvstore type).", _G)
 
 _G = "serving"
 declare("MXNET_SERVING_RECORD_EVERY", "int", 50,
@@ -185,6 +202,9 @@ declare("MXNET_ROUTER_AUTOSCALE_IDLE_ROUNDS", "int", 500,
         "hook suggests scale_down to the supervisor callback.", _G)
 
 _G = "launch"
+declare("MXNET_TPU_COORDINATOR", "str", None,
+        "Multi-process coordinator address (host:port, or a "
+        "torch.distributed init URL) for parallel.distributed.init.", _G)
 declare("MXNET_TPU_WORLD", "int", None,
         "Multi-process world size.", _G)
 declare("MXNET_TPU_RANK", "int", None,
@@ -192,6 +212,12 @@ declare("MXNET_TPU_RANK", "int", None,
 declare("MXNET_LAUNCH_RESTART", "int", 0,
         "Restart generation, set BY the supervisor in every worker's "
         "env (0 = first launch).", _G)
+declare("MXNET_LAUNCH_GRACE", "float", 5.0,
+        "Seconds between SIGTERM and SIGKILL when the launcher tears "
+        "down surviving workers.", _G)
+declare("MXNET_HB_DIR", "path", "",
+        "Heartbeat directory of the launcher contract; workers "
+        "touch per-rank files, the monitor detects stale peers.", _G)
 
 _G = "telemetry"
 declare("MXNET_TELEMETRY", "bool", False,

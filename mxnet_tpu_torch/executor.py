@@ -43,8 +43,11 @@ and moving-mean write-back instead; its gradient is exactly 0.
 CUDA graph, counted as ``grouped`` in ``stats()``. A ``group2ctx`` that names no group of the graph
 leaves placement off.
 
-Not ported: a multi-device bind (ROADMAP queue A item 12) and the
-compile-cache token (item 11).
+A bind over a context list whose contexts resolve to one torch device
+(``[cpu(0), cpu(1)]`` on the host, ``[gpu(0), gpu(0)]`` on the card) is
+one executor over the whole batch, as the JAX package's mesh program
+computes; contexts on distinct devices raise (the mesh, ROADMAP queue A
+item 12, order step 6). Not ported: the compile-cache token (item 11).
 """
 from __future__ import annotations
 
@@ -58,15 +61,11 @@ __all__ = ["Executor"]
 
 
 def _single_context(ctx):
-    """The one context of a bind; several distinct devices raise."""
+    """The one context of a bind: a list's contexts must resolve to one
+    torch device (``parallel.mesh.one_device``)."""
     if isinstance(ctx, (list, tuple)):
-        distinct = list(dict.fromkeys(Context(c) for c in ctx))
-        if len(distinct) > 1:
-            raise NotImplementedError(
-                "bind over %d devices (%s) is data parallelism, not ported "
-                "yet (ROADMAP queue A item 12)"
-                % (len(distinct), ", ".join(map(str, distinct))))
-        ctx = distinct[0]
+        from .parallel.mesh import one_device
+        return one_device(ctx, "bind")
     return ctx if isinstance(ctx, Context) else Context(ctx)
 
 

@@ -32,7 +32,11 @@ Sites of the port:
   planned raise confirms the loss of the replica under probe on that
   visit;
 - ``flightrec`` — once per flight-recorder dump; a raise is counted as
-  a failed dump, never fatal (the dumper drill).
+  a failed dump, never fatal (the dumper drill);
+- ``push`` / ``pull`` — once per attempt of a kvstore push's reduce and
+  of a pull (``kvstore.py``), so a planned raise exercises the retry;
+- ``init`` — once per attempt of the process-group join;
+- ``proc_join`` — once per join, before its retried attempts.
 
 Actions: ``raise`` → :class:`InjectedFault`; ``hang`` → sleep
 ``MXNET_FAULT_HANG_SECONDS`` then :class:`InjectedHang`; ``stall`` →
@@ -49,30 +53,38 @@ through :func:`fused_step_guard`. Each branch that advances
 ``skipped_steps`` also notes it into an active telemetry run, and each
 loss-scale change writes a ``loss_scale`` record.
 
-The JAX module's retries and process-group join (``with_retries``,
-``join_process_group``) arrive with the multi-device layer (ROADMAP
-queue A item 12). State is process-global; :func:`reset` re-reads the
-environment.
+**Retries.** :func:`with_retries` runs a synchronization op with
+exponential backoff and jitter under the ``MXNET_KVSTORE_TIMEOUT``
+deadline and raises :class:`CollectiveTimeoutError` once it passes;
+:func:`guard` is the kvstore's gate for single-process stores (retries
+only while a plan is active). :func:`join_process_group` joins the
+``torch.distributed`` process group the launcher's ``DMLC_*`` contract
+describes (``tools/launch.py``). State is process-global;
+:func:`reset` re-reads the environment.
 """
 from __future__ import annotations
 
 import logging
+import os
+import random
 import threading
 import time
 
 from . import envs
 from .base import MXNetError
 
-__all__ = ["FaultPlan", "InjectedFault", "InjectedHang", "plan",
+__all__ = ["FaultPlan", "InjectedFault", "InjectedHang",
+           "CollectiveTimeoutError", "with_retries", "guard",
+           "join_process_group", "plan",
            "set_plan", "reset", "active", "is_enabled", "inject",
            "stats", "reset_stats", "guard_policy", "loss_scale",
            "filter_gradient", "grad_poison", "fused_step_guard",
            "note_resume"]
 
 _ACTIONS = ("raise", "hang", "stall", "nan", "inf")
-_SITES = ("grad", "ckpt_write", "ckpt_fsync", "serve_admit",
-          "serve_decode", "serve_route", "kv_evict", "kv_share", "kv_cow",
-          "replica_lost", "flightrec")
+_SITES = ("push", "pull", "init", "grad", "ckpt_write", "ckpt_fsync",
+          "serve_admit", "serve_decode", "serve_route", "kv_evict",
+          "kv_share", "kv_cow", "replica_lost", "proc_join", "flightrec")
 # corruption needs a value to corrupt: only the grad site carries one
 _VALUE_SITES = ("grad",)
 _GUARD_POLICIES = ("skip_step", "scale_backoff")
@@ -86,6 +98,12 @@ class InjectedFault(MXNetError):
 class InjectedHang(InjectedFault):
     """A planned hang: the injection point blocked for
     MXNET_FAULT_HANG_SECONDS and then surfaced as a timed-out op."""
+
+
+class CollectiveTimeoutError(MXNetError):
+    """A synchronization op (kvstore push/pull, barrier, process-group
+    init) did not complete within MXNET_KVSTORE_TIMEOUT despite
+    retries."""
 
 
 class _PlanEntry:
@@ -241,9 +259,10 @@ def reset():
     """Forget the cached plan, guard and scale state and re-read the
     environment on next use. Tests that monkeypatch MXNET_* vars call
     this."""
-    global _plan, _plan_loaded
+    global _plan, _plan_loaded, _retry_cfg
     with _lock:
         _plan, _plan_loaded = None, False
+        _retry_cfg = None
         _reset_guard_state_locked()
     reset_stats()
 
@@ -356,6 +375,125 @@ def grad_poison():
 # ---------------------------------------------------------------------------
 # non-finite gradient guard
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# retries
+# ---------------------------------------------------------------------------
+
+_retry_cfg = None
+_jitter_rng = random.Random(0)
+
+
+def _retry_config():
+    """(timeout, backoff, max_backoff) from the environment, parsed
+    once: with_retries sits on the per-key dist push path. reset()
+    re-reads."""
+    global _retry_cfg
+    if _retry_cfg is None:
+        _retry_cfg = (
+            envs.get_float("MXNET_KVSTORE_TIMEOUT"),
+            envs.get_float("MXNET_KVSTORE_RETRY_BACKOFF"),
+            envs.get_float("MXNET_KVSTORE_RETRY_MAX_BACKOFF"))
+    return _retry_cfg
+
+
+def with_retries(fn, timeout=None, backoff=None, max_backoff=None,
+                 retry_on=None, site=None):
+    """Run ``fn()`` with exponential backoff and jitter under a wall-clock
+    deadline; raise :class:`CollectiveTimeoutError` (chaining the last
+    error) once the deadline passes.
+
+    The deadline is enforced BETWEEN attempts: a planned ``hang`` is
+    bounded (it sleeps MXNET_FAULT_HANG_SECONDS, then raises), but an op
+    wedged inside the runtime is bounded only by its own timeout (the
+    process group's, for a collective).
+
+    - ``timeout``: seconds; default MXNET_KVSTORE_TIMEOUT (60).
+    - ``backoff``: first retry delay; default
+      MXNET_KVSTORE_RETRY_BACKOFF (0.05), doubling per attempt up to
+      ``max_backoff`` (MXNET_KVSTORE_RETRY_MAX_BACKOFF, 2.0).
+    - ``retry_on``: exception classes worth retrying; default injected
+      faults and transient transport errors (ConnectionError,
+      TimeoutError, OSError).
+    - ``site``: an injection site visited before each attempt, so
+      planned faults exercise the retry path itself.
+    """
+    env_timeout, env_backoff, env_max_backoff = _retry_config()
+    if timeout is None:
+        timeout = env_timeout
+    if backoff is None:
+        backoff = env_backoff
+    if max_backoff is None:
+        max_backoff = env_max_backoff
+    if retry_on is None:
+        retry_on = (InjectedFault, ConnectionError, TimeoutError, OSError)
+    deadline = time.monotonic() + timeout
+    attempt = 0
+    while True:
+        try:
+            if site is not None:
+                inject(site)
+            return fn()
+        except CollectiveTimeoutError:
+            raise
+        except retry_on as exc:
+            now = time.monotonic()
+            if now >= deadline:
+                with _lock:
+                    _stats["timeouts"] += 1
+                from . import telemetry
+                telemetry.note("timeouts")
+                raise CollectiveTimeoutError(
+                    "%s did not complete within %.3fs (%d attempt(s); "
+                    "last error %s: %s)"
+                    % (site or getattr(fn, "__name__", "op"), timeout,
+                       attempt + 1, type(exc).__name__, exc)) from exc
+            # jitter BEFORE the deadline clamp, so the sleep never
+            # overshoots the promised wall-clock bound
+            delay = min(backoff * (2.0 ** attempt), max_backoff)
+            delay *= 1.0 + 0.1 * _jitter_rng.random()
+            delay = min(delay, max(deadline - now, 0.0))
+            with _lock:
+                _stats["retries"] += 1
+            from . import telemetry
+            telemetry.note("retries")
+            time.sleep(delay)
+            attempt += 1
+
+
+def guard(fn, site):
+    """The fast-path gate for sync points: ``with_retries`` while a
+    fault plan is active, a plain call otherwise."""
+    if active():
+        return with_retries(fn, site=site)
+    return fn()
+
+
+def join_process_group():
+    """Join the ``torch.distributed`` process group the launcher's
+    ``DMLC_*`` contract describes (``tools/launch.py``):
+    ``tcp://DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``, world size
+    ``DMLC_NUM_WORKER``, rank ``DMLC_WORKER_ID``, the group's timeout
+    ``MXNET_KVSTORE_TIMEOUT``; the backend by
+    ``parallel.distributed.backend_for``. Transient coordinator races
+    are retried under the kvstore deadline (site ``init``). A no-op
+    without a contract or inside a group already. The heartbeat of the
+    supervised launcher (``MXNET_HB_DIR``) is not ported: it raises."""
+    n = int(os.environ.get("DMLC_NUM_WORKER", "1") or 1)
+    if n <= 1 or "DMLC_WORKER_ID" not in os.environ:
+        return
+    from .parallel import distributed
+    distributed._no_heartbeat()
+    if distributed.is_initialized():
+        return
+    uri = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")
+    port = os.environ.get("DMLC_PS_ROOT_PORT", "9091")
+    inject("proc_join")
+    with_retries(
+        lambda: distributed.join("tcp://%s:%s" % (uri, port), n,
+                                 int(os.environ["DMLC_WORKER_ID"])),
+        retry_on=(ConnectionError, OSError, InjectedFault), site="init")
+
 
 def _all_finite(grad):
     import torch

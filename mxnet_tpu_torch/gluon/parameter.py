@@ -5,7 +5,11 @@ A Parameter is a three-state machine: UNBOUND (no array, no pending
 init), DEFERRED (a recipe waiting for the first forward to fix its
 shape), LIVE (an NDArray bound, with its gradient buffer when
 ``grad_req`` is not ``'null'``). A shape of 0 in a dimension means
-unknown. A Parameter owns ONE NDArray on one device.
+unknown. A Parameter owns ONE NDArray on one device. Over a context list whose
+contexts resolve to one torch device it keeps that one array
+(``list_data``/``list_grad`` return one element, ``list_ctx`` the
+list); contexts on distinct devices raise (the mesh, ROADMAP queue A
+item 12, order step 6).
 """
 from __future__ import annotations
 
@@ -55,10 +59,8 @@ def _as_ctx_list(ctx):
     if isinstance(ctx, Context):
         return [ctx]
     ctx = list(ctx)
-    if len(ctx) != 1:
-        raise NotImplementedError(
-            "Parameter: one context per parameter; data parallelism over "
-            "several devices is not ported yet (ROADMAP queue A item 12)")
+    from ..parallel.mesh import one_device
+    one_device(ctx, "Parameter")
     return ctx
 
 

@@ -1,11 +1,12 @@
-"""Gluon Trainer on one device (counterpart of
-``mxnet_tpu/gluon/trainer.py``).
+"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``).
 
 ``step(batch_size)`` rescales the gradients by ``1/batch_size`` (times
 ``rescale_grad``, and divided by the loss scale under the
 ``scale_backoff`` guard: the caller multiplies the loss by
-``fault.loss_scale()`` before backward), reduces them across workers (a
-no-op on one device) and applies the optimizer. A parameter whose
+``fault.loss_scale()`` before backward), reduces them across workers
+through the kvstore and applies the optimizer. ``batch_size`` is the
+batch the summed gradient covers: a ``dist_sync`` user passes the
+global batch, as in the JAX package. A parameter whose
 gradient no backward wrote since the last step is stale: ``step``
 raises unless ``ignore_stale_grad=True``, which skips it.
 
@@ -22,9 +23,15 @@ weights (``amp.DtypePolicy(...).apply(net)``).
 the JAX package's pickle, durably (``checkpoint.atomic_write_file``; the
 shared background writer with ``background=True``).
 
-The kvstore kinds that span devices or processes (``dist*``, ``tpu*``)
-raise NotImplementedError until the parallel layer is ported (ROADMAP
-queue A item 12).
+**The kvstore** (``_resolve_kvstore``): a plain ``local``/``device``
+name resolves to no store (every Parameter is one array on one device);
+a ``dist``/``tpu`` name, or a ``KVStore``, to a real one, set up at the
+first step. Then ``allreduce_grads`` pushes each gradient and pulls the
+sum back into its buffer IN PLACE, so the fused update's graph keeps
+replaying (one push/pull a size-capped bucket with
+``MXNET_GRAD_OVERLAP=1``); with ``update_on_kvstore=True`` the store's
+optimizer updates its copy and ``step`` pulls the weights back. The
+exchange is the telemetry ``sync`` phase.
 
 Telemetry, as in the JAX Trainer: each ``step``/``update`` is one step
 boundary of the telemetry run (``telemetry.maybe_start`` starts one
@@ -64,13 +71,13 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None):
-        if isinstance(kvstore, str) and ("dist" in kvstore
-                                         or "tpu" in kvstore):
-            raise NotImplementedError(
-                "Trainer(kvstore=%r): multi-device and multi-process "
-                "gradient reduction is not ported yet (ROADMAP queue A "
-                "item 12)" % kvstore)
         self._params = _as_param_list(params)
+        self._compression_params = compression_params
+        self._kvstore_params = {"kvstore": kvstore,
+                                "update_on_kvstore": update_on_kvstore}
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = None
         opts = dict(optimizer_params or {})
         self._scale = float(opts.get("rescale_grad", 1.0))
         roster = dict(enumerate(self._params))
@@ -100,9 +107,55 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    # -- the kvstore -------------------------------------------------------
+    def _resolve_kvstore(self):
+        """The store (reference: trainer.py:169): a plain local/device
+        name resolves to none; a dist/tpu name makes one."""
+        from .. import kvstore as kvs
+        spec = self._kvstore_params["kvstore"]
+        if isinstance(spec, kvs.KVStore):
+            return spec
+        if isinstance(spec, str) and ("dist" in spec or "tpu" in spec):
+            return kvs.create(spec)
+        return None
+
+    def _init_kvstore(self):
+        kv = self._resolve_kvstore()
+        if kv is not None:
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            for i, param in enumerate(self._params):
+                if param._data is not None:
+                    kv.init(i, param.data())
+        self._kvstore = kv
+        self._update_on_kvstore = bool(
+            self._kvstore_params["update_on_kvstore"])
+        if kv is not None and self._update_on_kvstore:
+            kv.set_optimizer(self._optimizer)
+        self._kv_initialized = True
+
     def allreduce_grads(self):
         """Cross-worker gradient reduction (reference: trainer.py:331):
-        nothing to reduce on one device."""
+        each gradient pushed and, unless the store updates the weights,
+        its sum pulled back in place; bucketed with
+        ``MXNET_GRAD_OVERLAP=1`` (hosted updates keep the per-key loop:
+        the store's optimizer runs per key)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is None:
+            return
+        if not self._update_on_kvstore:
+            from ..parallel import grad_sync
+            if grad_sync.overlap_enabled():
+                items = [(i, p.grad()) for i, p in enumerate(self._params)
+                         if p.grad_req != "null"]
+                if grad_sync.bucketed_kvstore_sync(self._kvstore, items):
+                    return
+        for i, param in enumerate(self._params):
+            if param.grad_req != "null":
+                self._kvstore.push(i, param.grad())
+                if not self._update_on_kvstore:
+                    self._kvstore.pull(i, param.grad())
 
     def _step_rescale(self, batch_size):
         """``rescale_grad / batch_size``, divided by the loss scale under
@@ -118,13 +171,24 @@ class Trainer:
         (reference: trainer.py:302)."""
         telemetry.maybe_start(meta={"source": "gluon.Trainer"})
         self._step_rescale(batch_size)
-        self.allreduce_grads()
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None:
+            with telemetry.span("sync"):
+                self.allreduce_grads()
         self._update_step(batch_size, ignore_stale_grad)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update only — the caller already ran allreduce_grads
         (reference: trainer.py:363)."""
         telemetry.maybe_start(meta={"source": "gluon.Trainer"})
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None and self._update_on_kvstore:
+            raise AssertionError(
+                "update() when parameters are updated on kvstore is not "
+                "supported. Try setting `update_on_kvstore` to False when "
+                "creating trainer.")
         self._step_rescale(batch_size)
         self._update_step(batch_size, ignore_stale_grad)
 
@@ -150,7 +214,10 @@ class Trainer:
         return fused
 
     def _apply_updates(self, ignore_stale_grad):
-        """The step's updates; True when the fused update ran them."""
+        """The step's updates; True when the fused update ran them. Under
+        ``update_on_kvstore`` the store updated its copies in the push:
+        each weight is pulled back in place."""
+        hosted = self._kvstore is not None and self._update_on_kvstore
         work = []
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or param._data is None:
@@ -168,7 +235,15 @@ class Trainer:
                         "Parameters with stale gradient"
                         % (param.name, str(param.list_ctx()[0])))
                 continue
+            if hosted:
+                param._data._fresh_grad = False
+                continue
             work.append((i, param))
+        if hosted:
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null" and param._data is not None:
+                    self._kvstore.pull(i, param.data())
+            return False
         fused_done = False
         if work:
             fused = self._get_fused()
@@ -190,7 +265,16 @@ class Trainer:
         shared checkpoint writer (``checkpoint.flush_async_writes()``
         waits for it and raises on a failed write)."""
         from .. import checkpoint as ckpt
-        payload = self._updaters[0].get_states(dump_optimizer=True)
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore and self._kvstore is not None:
+            updater = self._kvstore._updater
+            assert updater is not None, \
+                "Cannot save states for distributed training without " \
+                "updater"
+            payload = updater.get_states(dump_optimizer=True)
+        else:
+            payload = self._updaters[0].get_states(dump_optimizer=True)
         if background:
             ckpt.write_bytes_async(fname, payload)
         else:
@@ -200,6 +284,13 @@ class Trainer:
         """States written by either package's ``save_states``; the
         optimizer comes with them, its ``param_dict`` reset to this
         Trainer's parameters."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore and self._kvstore is not None:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+            self._optimizer.param_dict = dict(enumerate(self._params))
+            return
         with open(fname, "rb") as src:
             blob = src.read()
         for updater in self._updaters:

@@ -1,6 +1,7 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
-``split_data``, ``split_and_load`` (one context; several wait for the
-multi-device layer, ROADMAP queue A item 12), ``clip_global_norm``,
+``split_data``, ``split_and_load`` (one device: contexts on distinct
+devices wait for the mesh, ROADMAP queue A item 12, order step 6),
+``clip_global_norm``,
 ``check_sha1``, ``download`` (a cached file only: it makes no network
 call) and ``shape_is_known``."""
 from __future__ import annotations
@@ -40,16 +41,16 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """The batch on the one context of ``ctx_list`` (reference:
-    utils.py:88), as a one-element list."""
+    """The whole batch on the one device of ``ctx_list``, as a
+    one-element list (reference: utils.py:88; the JAX package returns
+    one array over its mesh too). Contexts that resolve to one torch
+    device are one; contexts on distinct devices raise (the mesh,
+    ROADMAP queue A item 12, order step 6)."""
+    from ..parallel.mesh import one_device
+    ctx = one_device(ctx_list, "split_and_load")
     if not isinstance(data, NDArray):
-        data = nd.array(data, ctx=ctx_list[0])
-    if len(set(ctx_list)) > 1:
-        raise NotImplementedError(
-            "split_and_load over %d contexts: data parallelism over several "
-            "devices is not ported yet (ROADMAP queue A item 12)"
-            % len(set(ctx_list)))
-    return [data.as_in_context(ctx_list[0])]
+        data = nd.array(data, ctx=ctx)
+    return [data.as_in_context(ctx)]
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):

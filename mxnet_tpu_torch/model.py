@@ -8,9 +8,13 @@ to a temporary file and renamed). An epoch with a manifest
 checked against its SHA-256, so a torn write raises instead of loading.
 Either package reads what the other writes.
 
-On one device with ``kvstore='local'`` there is no kvstore, as in the
-JAX package: the optimizer updates each parameter in place. Any store
-that would be created raises (ROADMAP queue A item 12).
+The kvstore wiring of ``Module`` (reference: model.py:82-160):
+:func:`_create_kvstore` decides the store and ``update_on_kvstore`` as
+the JAX package does (no store for ``local`` on one device; a
+``local`` store over more than 16M-element parameters updates on the
+worker; ``MXNET_UPDATE_ON_KVSTORE`` overrides), and the update helpers
+exchange gradients per key, or in size-capped buckets with
+``MXNET_GRAD_OVERLAP=1`` (:func:`_bucketed_exchange`).
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import logging
 import os
 import re
 from collections import namedtuple
+
+import numpy as np
 
 from .base import MXNetError
 from . import ndarray as nd
@@ -32,26 +38,105 @@ BatchEndParam = namedtuple("BatchEndParams",
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """``(kvstore, update_on_kvstore)``: ``(None, False)`` for no store,
-    or ``'local'`` on one device (reference: model.py:82)."""
-    if kvstore is None or (isinstance(kvstore, str) and num_device == 1
-                           and "dist" not in kvstore):
+    """``(kvstore, update_on_kvstore)`` (reference: model.py:82)."""
+    from . import envs
+    from . import kvstore as kvs
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore \
+                and "tpu" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(int(np.prod(arr.shape))
+                               for arr in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
         return None, False
-    raise NotImplementedError(
-        "kvstore %r over %d device(s) needs kvstore.py, not ported yet "
-        "(ROADMAP queue A item 12)" % (kvstore, num_device))
+    return kv, envs.get_bool("MXNET_UPDATE_ON_KVSTORE",
+                             bool(update_on_kvstore))
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Each parameter's value into the store; with ``update_on_kvstore``
+    the store's value back into the bound arrays (reference:
+    model.py:121)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, arg_params[name])
+        if update_on_kvstore:
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """Push each gradient (the store's optimizer updates its value) and
+    pull the new weight back in place."""
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list is None or (isinstance(grad_list, list)
+                                 and grad_list[0] is None):
+            continue
+        name = param_names[index]
+        kvstore.push(name, grad_list, priority=-index)
+        kvstore.pull(name, arg_list, priority=-index)
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device=1,
                    kvstore=None, param_names=None):
     """``updater(index, grad, weight)`` for each parameter with a
-    gradient, in order (the per-parameter loop)."""
-    if kvstore is not None:
-        raise NotImplementedError("kvstore updates are not ported yet "
-                                  "(ROADMAP queue A item 12)")
-    for index, (weight, grad) in enumerate(zip(param_arrays, grad_arrays)):
-        if grad is not None:
-            updater(index, grad, weight)
+    gradient, in order; with a kvstore the gradients are summed through
+    it first (per key, or bucketed: :func:`_bucketed_exchange`)."""
+    updates = [[] for _ in range(num_device)]
+    bucketed = _bucketed_exchange(grad_arrays, kvstore)
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if not isinstance(arg_list, list):
+            arg_list, grad_list = [arg_list], [grad_list]
+        if grad_list[0] is None:
+            continue
+        if kvstore and not bucketed:
+            name = param_names[index]
+            kvstore.push(name, grad_list, priority=-index)
+            kvstore.pull(name, grad_list, priority=-index)
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            updates[k].append((index * num_device + k, g, w))
+    for dev_updates in updates:
+        for i, g, w in dev_updates:
+            updater(i, g, w)
+
+
+def _bucketed_exchange(grad_arrays, kvstore):
+    """The ``MXNET_GRAD_OVERLAP=1`` gradient exchange: single-copy
+    gradients go through the kvstore as size-capped concat buckets
+    (``parallel.grad_sync.bucketed_kvstore_sync``: one push/pull a bucket
+    instead of a key, exact because concatenation and the store's
+    elementwise sum commute). True when the exchange ran; a roster of
+    per-context copies returns False and keeps the per-key loop."""
+    if not kvstore:
+        return False
+    from .parallel import grad_sync
+    if not grad_sync.overlap_enabled():
+        return False
+    items = []
+    for i, grad_list in enumerate(grad_arrays):
+        if not isinstance(grad_list, list):
+            grad_list = [grad_list]
+        if grad_list[0] is None:
+            continue
+        if len(grad_list) != 1:
+            return False
+        items.append((i, grad_list[0]))
+    return grad_sync.bucketed_kvstore_sync(kvstore, items)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,

@@ -41,6 +41,7 @@ def _borrow_optimizer(mod, donor):
     mod._optimizer = donor._optimizer
     mod._updater = donor._updater
     mod._kvstore = donor._kvstore
+    mod._update_on_kvstore = donor._update_on_kvstore
     mod.optimizer_initialized = True
 
 

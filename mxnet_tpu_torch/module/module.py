@@ -33,7 +33,18 @@ package's pickle (``save_optimizer_states``/``load_optimizer_states``,
 ``group2ctxs`` places the symbol's ``ctx_group`` segments on their
 devices (:mod:`~mxnet_tpu_torch.placement`).
 
-Not ported: a multi-device context list and the kvstore (item 12).
+**The kvstore** (``init_optimizer(kvstore=...)``, ``model.
+_create_kvstore``): a ``dist`` store always, and ``local``/``device``
+over several contexts, as in the JAX package. With ``update_on_kvstore``
+each gradient is pushed, the store's optimizer updates its value and
+the weight is pulled back in place; otherwise the gradients are summed
+through the store (per key, or bucketed with ``MXNET_GRAD_OVERLAP=1``)
+and the worker's updater applies them. Either exchange is the
+telemetry ``sync`` phase. A step with a kvstore runs the eager path
+(JAX's fallback matrix), and ``dist_sync`` rescales the gradients by
+``1 / (batch x workers)``. A context list that resolves to one torch
+device binds one executor over the whole batch; contexts on distinct
+devices raise (the mesh, ROADMAP queue A item 12, order step 6).
 """
 from __future__ import annotations
 
@@ -43,7 +54,9 @@ from .. import ndarray as nd
 from ..context import Context, current_context
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt
-from ..model import _create_kvstore, _update_params, load_checkpoint
+from ..model import (_bucketed_exchange, _create_kvstore,
+                     _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint)
 from ..base import MXNetError
 from .base_module import BaseModule, _check_input_names, _parse_data_desc
 
@@ -88,7 +101,9 @@ class Module(BaseModule):
         self._arg_params = self._aux_params = None
         self._params_dirty = False
         self._group2ctxs = group2ctxs
+        self._compression_params = compression_params
         self._optimizer = self._kvstore = self._updater = None
+        self._update_on_kvstore = None
         self._preload_opt_states = None
         self._exec = None
         self._fused = None            # FusedStepExecutor | False | None
@@ -294,12 +309,21 @@ class Module(BaseModule):
                                         allow_extra_params=True)
 
     # -- optimizer ---------------------------------------------------------
+    def _effective_batch(self, kvstore):
+        """The batch a gradient sums over: this worker's, times the
+        workers of a synchronous dist store."""
+        batch = self._data_shapes[0].shape[0]
+        if kvstore and "dist" in kvstore.type \
+                and "_async" not in kvstore.type:
+            batch *= kvstore.num_workers
+        return batch
+
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """The optimizer and its per-parameter updater; a name is
-        created with ``rescale_grad = 1/batch`` (a loss layer's gradient
-        is summed over the batch)."""
+        """The optimizer, the kvstore and the updater; a name is created
+        with ``rescale_grad = 1/(batch x workers)`` (a loss layer's
+        gradient is summed over the batch)."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, "
@@ -307,9 +331,9 @@ class Module(BaseModule):
             return
         if self._params_dirty:
             self._sync_params_from_devices()
-        kvstore, _ = _create_kvstore(kvstore, len(self._context),
-                                     self._arg_params)
-        rescale = 1.0 / self._data_shapes[0].shape[0]
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        rescale = 1.0 / self._effective_batch(kvstore)
         idx2name = dict(enumerate(self._param_names))
         if isinstance(optimizer, str):
             config = dict(optimizer_params)
@@ -321,13 +345,28 @@ class Module(BaseModule):
             if optimizer.rescale_grad != rescale:
                 self.logger.warning(
                     "Optimizer created manually outside Module but "
-                    "rescale_grad is not normalized to 1.0/batch_size "
-                    "(%s vs. %s).", optimizer.rescale_grad, rescale)
+                    "rescale_grad is not normalized to 1.0/batch_size/"
+                    "num_workers (%s vs. %s).", optimizer.rescale_grad,
+                    rescale)
             if not optimizer.idx2name:
                 optimizer.idx2name = idx2name.copy()
         self._optimizer = optimizer
         self._kvstore = kvstore
-        self._updater = opt.get_updater(optimizer)
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
+            if update_on_kvstore:
+                kvstore.set_optimizer(optimizer)
+            _initialize_kvstore(
+                kvstore=kvstore,
+                param_arrays=[self._exec.arg_dict[n]
+                              for n in self._param_names],
+                arg_params=self._arg_params, param_names=self._param_names,
+                update_on_kvstore=update_on_kvstore)
+        if not update_on_kvstore:
+            self._updater = opt.get_updater(optimizer)
         self._fused = None
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
@@ -383,13 +422,12 @@ class Module(BaseModule):
         gate is on is counted in ``fused_step_fallbacks``."""
         from ..fused_step import fused_step_enabled
         if not self.optimizer_initialized or self._updater is None \
-                or self._fused is False or not fused_step_enabled():
+                or self._kvstore is not None or self._fused is False \
+                or not fused_step_enabled():
             return False
         ex = self._exec
         reason = None
-        if self._kvstore is not None:
-            reason = "kvstore"
-        elif self.inputs_need_grad:
+        if self.inputs_need_grad:
             reason = "inputs_need_grad"
         elif ex.grouped:
             reason = "placement"
@@ -454,11 +492,27 @@ class Module(BaseModule):
             with telemetry.span("compute"):
                 self._exec.forward_backward(is_train=True)
             self._pending_forward = False
+        weights = [self._exec.arg_dict[n] for n in self._param_names]
+        grads = [self._exec.grad_dict.get(n) for n in self._param_names]
+        if self._update_on_kvstore:
+            # push/pull IS the cross-worker reduce, and the store's
+            # optimizer runs inside the push: the "sync" phase
+            with telemetry.span("sync"):
+                _update_params_on_kvstore(weights, grads, self._kvstore,
+                                          self._param_names)
+            return
+        kvstore = self._kvstore
+        if kvstore is not None:
+            # the worker-side update: the gradient exchange is "sync",
+            # bucketed with MXNET_GRAD_OVERLAP=1, else per key
+            with telemetry.span("sync"):
+                if not _bucketed_exchange(grads, kvstore):
+                    for i, name in enumerate(self._param_names):
+                        if grads[i] is not None:
+                            kvstore.push(name, [grads[i]], priority=-i)
+                            kvstore.pull(name, [grads[i]], priority=-i)
         with telemetry.span("optimizer"):
-            _update_params([self._exec.arg_dict[n] for n in self._param_names],
-                           [self._exec.grad_dict.get(n)
-                            for n in self._param_names],
-                           updater=self._updater)
+            _update_params(weights, grads, updater=self._updater)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -501,16 +555,25 @@ class Module(BaseModule):
     # -- optimizer state ---------------------------------------------------
     def _optimizer_state_bytes(self):
         """The optimizer state's pickle for a checkpoint (taken on the
-        training thread: the states change in place each step); None
-        before ``init_optimizer``."""
-        if not self.optimizer_initialized or self._updater is None:
+        training thread: the states change in place each step), the
+        kvstore's under ``update_on_kvstore``; None before
+        ``init_optimizer``."""
+        if not self.optimizer_initialized:
             return None
-        return self._updater.get_states()
+        if self._update_on_kvstore:
+            self._kvstore._ensure_updater()
+            updater = self._kvstore._updater
+        else:
+            updater = self._updater
+        return updater.get_states() if updater is not None else None
 
     def save_optimizer_states(self, fname):
         """The optimizer state, durably (tmp + fsync + rename), in the
-        JAX package's pickle."""
+        JAX package's pickle; the kvstore's under ``update_on_kvstore``."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         from ..checkpoint import atomic_write_file
         atomic_write_file(fname, self._updater.get_states())
 
@@ -518,6 +581,9 @@ class Module(BaseModule):
         """States written by :meth:`save_optimizer_states` of either
         package."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as src:
             self._updater.set_states(src.read())
 

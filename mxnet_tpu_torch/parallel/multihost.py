@@ -1,8 +1,9 @@
 """Peer-loss judgment (counterpart of the ``StrikeTracker`` part of
 ``mxnet_tpu/parallel/multihost.py``). The serving fleet's replica health
-(``serving.fleet``) judges by it; the heartbeat, process group and
-restart machinery of multi-host training wait for the port's
-``torch.distributed`` slice (``ROADMAP.md`` queue A item 12)."""
+(``serving.fleet``) judges by it. The process group is
+``parallel.distributed``'s; the heartbeat, the cross-host exchange and
+the restart machinery of multi-host training wait for ROADMAP queue A
+item 12, order step 6."""
 from __future__ import annotations
 
 __all__ = ["StrikeTracker"]

@@ -28,8 +28,11 @@ records — one schema, one sink (counterpart of
 - **Bucketing records** — cumulative ``bucketing`` records from each
   shape-bucketing producer (``bucketing.BucketingStats``).
 - **Comms ledger** — the input pipeline's host-to-device copies
-  (:func:`h2d`), calls, bytes and milliseconds per ``h2d:<array>``, in
-  the summary's ``comms`` (present once a copy was accounted).
+  (:func:`h2d`), the kvstore's pushes and pulls and the bucketed
+  exchange (:func:`comm_span`), and the per-link split
+  (:func:`comm_links`): calls, bytes and milliseconds per
+  ``kind:key`` in the summary's ``comms`` (present once a transfer was
+  accounted).
 
 Everything flows to a structured JSONL sink (``MXNET_TELEMETRY_FILE``)
 and to the :func:`report` summary dict; ``python -m
@@ -71,7 +74,8 @@ __all__ = ["enabled", "start", "stop", "reset", "maybe_start",
            "recent_rate", "sample_memory", "flush", "report",
            "quick_stats", "percentile", "external_record",
            "checkpoint_event", "decode_event", "router_event", "prefix_cache_event",
-           "bucketing_event", "alert_event", "usage_event", "comm", "h2d"]
+           "bucketing_event", "alert_event", "usage_event", "comm",
+           "comm_span", "comm_links", "h2d"]
 
 _lock = threading.Lock()
 _run = None          # the active _Run
@@ -501,8 +505,10 @@ def span(phase):
 def comm(kind, key, nbytes=0, seconds=0.0):
     """Account one transfer: calls, bytes and milliseconds per
     ``(kind, key)`` in the run's comms ledger (the summary's ``comms``,
-    keyed ``kind:key``). No-op without a run. The port writes only the
-    ``h2d`` kind; the collectives' kinds come with item 12."""
+    keyed ``kind:key``). No-op without a run. Kinds: ``h2d`` (the input
+    placer), ``push``/``pull`` (the kvstore, per key) and ``grad_sync``
+    (the bucketed exchange, per bucket); the per-link split lands under
+    ``ici``/``dcn`` (:func:`comm_links`)."""
     run = _run
     if run is None:
         return
@@ -514,6 +520,66 @@ def comm(kind, key, nbytes=0, seconds=0.0):
         c["calls"] += 1
         c["bytes"] += int(nbytes)
         c["time_ms"] += seconds * 1e3
+
+
+def _nbytes(value):
+    """Payload size of an NDArray, a tensor or a list of them."""
+    if value is None:
+        return 0
+    if isinstance(value, (list, tuple)):
+        return sum(_nbytes(v) for v in value)
+    data = getattr(value, "_data", value)
+    nbytes = getattr(data, "nbytes", None)
+    return int(nbytes) if isinstance(nbytes, int) else 0
+
+
+class _CommSpan:
+    __slots__ = ("kind", "key", "nbytes", "t0")
+
+    def __init__(self, kind, key, nbytes):
+        self.kind = kind
+        self.key = key
+        self.nbytes = nbytes
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *a):
+        comm(self.kind, self.key, self.nbytes,
+             time.perf_counter() - self.t0)
+        return False
+
+
+def comm_span(kind, key, value=None, nbytes=None):
+    """Time one communication call and account ``value``'s bytes (or
+    ``nbytes``) under ``(kind, key)``. The latency is the caller's: it
+    includes any retry backoff and, for a reduce through ``gloo`` on
+    CUDA tensors, the host's wait for the copies. No-op without a
+    run."""
+    if _run is None:
+        return _NULL
+    return _CommSpan(kind, key,
+                     _nbytes(value) if nbytes is None else int(nbytes))
+
+
+def comm_links(key, ici_bytes, dcn_bytes, calls=1):
+    """Account one collective's bytes by link, keyed by the collective's
+    kind: ``ici`` within a host's devices, ``dcn`` between processes.
+    The port books every byte a rank sends another process under
+    ``dcn``, as the JAX package books its process-group exchange, ranks
+    on one host included. No-op without a run."""
+    run = _run
+    if run is None:
+        return
+    with _lock:
+        for link, nbytes in (("ici", ici_bytes), ("dcn", dcn_bytes)):
+            c = run.comms.get((link, str(key)))
+            if c is None:
+                c = run.comms[(link, str(key))] = {
+                    "calls": 0, "bytes": 0, "time_ms": 0.0}
+            c["calls"] += int(calls)
+            c["bytes"] += int(nbytes)
 
 
 def h2d(key, nbytes=0, seconds=0.0):

@@ -385,10 +385,19 @@ def test_monitor_callback_sees_the_same_names_as_jax():
     assert "Op:SoftmaxOutput" in ex.debug_str()
 
 
-def test_multi_device_bind_and_group2ctx_raise():
+def test_multi_device_bind_and_group2ctx_raise(monkeypatch):
     sym = _mlp(tmx)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # contexts that resolve to one torch device bind one executor
+    one = sym.simple_bind([tmx.cpu(0), tmx.cpu(1)], data=(2, 5),
+                          label=(2,))
+    assert one._ctx == tmx.cpu(0) and one.forward()[0].shape == (2, 4)
+    cpu_device = tmx.Context.torch_device
+    monkeypatch.setattr(tmx.Context, "torch_device", lambda self: (
+        torch.device("cpu", self.device_id) if self.device_type == "cpu"
+        else cpu_device(self)))
+    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
         sym.simple_bind([tmx.cpu(0), tmx.cpu(1)], data=(2, 5), label=(2,))
+    monkeypatch.undo()
     # placement (queue A item 8) is ported: a group2ctx naming no group
     # of the graph leaves it off (tests/test_torch_placement.py)
     grouped = sym.simple_bind(tmx.cpu(), data=(2, 5), label=(2,),

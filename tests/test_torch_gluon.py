@@ -625,7 +625,7 @@ def test_initializers_use_seeded_generators():
     assert np.abs(arr.asnumpy()).max() <= 0.1
 
 
-def test_trainer_stale_gradient_and_grad_req_add():
+def test_trainer_stale_gradient_and_grad_req_add(monkeypatch):
     net = tmx.gluon.nn.Dense(2, in_units=3)
     net.initialize()
     trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
@@ -648,8 +648,34 @@ def test_trainer_stale_gradient_and_grad_req_add():
     assert trainer.learning_rate == 0.1
     trainer.set_learning_rate(0.2)
     assert trainer.optimizer.lr == 0.2
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    # a dist store outside a launched world is one worker: its sum is the
+    # identity, and the step equals the store-free one bit for bit
+    nets = [tmx.gluon.nn.Dense(2, in_units=3) for _ in range(2)]
+    trainers = []
+    for net_, kv in zip(nets, ("device", "dist_sync")):
+        net_.initialize()
+        net_.weight.set_data(tmx.nd.array(np.arange(6.0).reshape(2, 3)))
+        trainers.append(tmx.gluon.Trainer(net_.collect_params(), "sgd",
+                                          {"learning_rate": 0.1,
+                                           "momentum": 0.9}, kvstore=kv))
+        for _ in range(2):
+            with tmx.autograd.record():
+                y = (net_(tmx.nd.array(np.ones((2, 3)) * 0.5)) ** 2).sum()
+            y.backward()
+            trainers[-1].step(2)
+    assert trainers[0]._kvstore is None
+    assert trainers[1]._kvstore.type == "dist_sync"
+    assert trainers[1]._kvstore.num_workers == 1
+    np.testing.assert_array_equal(nets[1].weight.data().asnumpy(),
+                                  nets[0].weight.data().asnumpy())
+    # contexts on distinct torch devices are a mesh: step 6
+    cpu_device = tmx.Context.torch_device
+    monkeypatch.setattr(tmx.Context, "torch_device", lambda self: (
+        torch.device("cpu", self.device_id) if self.device_type == "cpu"
+        else cpu_device(self)))
+    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
+        tmx.gluon.nn.Dense(2, in_units=3).initialize(
+            ctx=[tmx.cpu(0), tmx.cpu(1)])
 
 
 def test_l2_loss_matches_jax():

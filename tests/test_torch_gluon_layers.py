@@ -15,6 +15,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
@@ -586,14 +587,28 @@ def test_split_data_matches_jax(num, even):
         tmx.gluon.utils.split_data(tmx.nd.array(x), 3)
 
 
-def test_split_and_load_over_one_context():
+def test_split_and_load_over_one_context(monkeypatch):
     x = _rand(71, 4, 3)
     out = tmx.gluon.split_and_load(x, [tmx.cpu()])
     assert len(out) == 1 and out[0].context == tmx.cpu()
     np.testing.assert_array_equal(out[0].asnumpy(), x)
     assert len(tmx.gluon.utils.split_and_load(
         tmx.nd.array(x), [tmx.cpu(), tmx.cpu()])) == 1
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # contexts on one torch device are one: the whole batch, one array,
+    # as the JAX package's mesh array holds it
+    two = tmx.gluon.utils.split_and_load(x, [tmx.cpu(0), tmx.cpu(1)])
+    want = jmx.gluon.utils.split_and_load(x, [jmx.cpu(0), jmx.cpu(1)])
+    assert len(two) == len(want) == 1
+    np.testing.assert_array_equal(two[0].asnumpy(), want[0].asnumpy())
+    dense = tmx.gluon.nn.Dense(2, in_units=3)
+    dense.initialize(ctx=[tmx.cpu(0), tmx.cpu(1)])
+    assert len(dense.weight.list_data()) == len(dense.weight.list_grad()) == 1
+    assert dense.weight.list_ctx() == [tmx.cpu(0), tmx.cpu(1)]
+    real = tmx.Context.torch_device
+    monkeypatch.setattr(tmx.Context, "torch_device", lambda self: (
+        torch.device("cpu", self.device_id) if self.device_type == "cpu"
+        else real(self)))
+    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
         tmx.gluon.utils.split_and_load(x, [tmx.cpu(0), tmx.cpu(1)])
 
 

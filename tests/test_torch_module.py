@@ -17,6 +17,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
@@ -321,10 +322,12 @@ def test_module_checkpoint_across_packages(tmp_path, writer):
     np.testing.assert_allclose(outs[1], outs[0], **TOL)
 
 
-def test_unported_paths_raise_naming_their_items(tmp_path):
-    """The item-10 paths run now (checkpoint_prefix, resume, optimizer
-    states); a multi-device context and a kvstore still raise, naming
-    item 12."""
+def test_unported_paths_raise_naming_their_items(tmp_path, monkeypatch):
+    """The item-10 paths run (checkpoint_prefix, resume, optimizer
+    states), and so do item 12's kvstore paths: two contexts on one
+    device make a ``local`` store, ``dist_sync`` outside a launched
+    world is one worker. Contexts on distinct devices still raise,
+    naming item 12's order step 6."""
     x, y = _synthetic_mnist(n=64)
     it = tmx.io.NDArrayIter(x, y, batch_size=32)
     mod = tmx.mod.Module(_mlp_sym(tmx), context=tmx.cpu())
@@ -345,10 +348,30 @@ def test_unported_paths_raise_naming_their_items(tmp_path):
     two = tmx.mod.Module(_mlp_sym(tmx), context=[tmx.cpu(), tmx.cpu()])
     two.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
     two.init_params()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        two.init_optimizer(kvstore="local")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    two.init_optimizer(kvstore="local")
+    assert two._kvstore.type == "local" and two._update_on_kvstore
+    assert two._updater is None and not two._fused_eligible()
+    w = two._exec.arg_dict["fc1_weight"]
+    ptr, before = w._data.data_ptr(), w.asnumpy()
+    batch = next(iter(it))
+    two.forward(batch, is_train=True)
+    two.backward()
+    two.update()
+    assert w._data.data_ptr() == ptr          # pulled back in place
+    assert not np.array_equal(w.asnumpy(), before)
+    two.save_optimizer_states(str(tmp_path / "kv.states"))
+    two.load_optimizer_states(str(tmp_path / "kv.states"))
+    mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    assert mod._kvstore.num_workers == 1 and mod._update_on_kvstore
+    assert mod._optimizer.rescale_grad == 1.0 / 32
+    cpu_device = tmx.Context.torch_device
+    monkeypatch.setattr(tmx.Context, "torch_device", lambda self: (
+        torch.device("cpu", self.device_id)
+        if self.device_type == "cpu" else cpu_device(self)))
+    apart = tmx.mod.Module(_mlp_sym(tmx), context=[tmx.cpu(0), tmx.cpu(1)])
+    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
+        apart.bind(data_shapes=it.provide_data,
+                   label_shapes=it.provide_label)
 
 
 def test_module_reshape_and_output_shapes():

@@ -28,9 +28,6 @@ def _port_on_cpu(monkeypatch):
 # public names of mxnet_tpu/__init__.py the port does not carry yet, with
 # the ROADMAP queue A item (or the reason) that brings them
 UNPORTED = {
-    "CollectiveTimeoutError": "item 12 (kvstore, fault's retries)",
-    "KVStore": "item 12", "kvstore_module": "item 12", "kv": "item 12",
-    "kvstore_create": "item 12", "kvstore_server": "item 12",
     "deploy": "item 11", "compile_watch": "item 11",
     "operator": "item 8 (Custom ops)", "engine": "item 8",
     "util": "item 8", "runtime": "item 8", "registry": "item 8",
