@@ -434,6 +434,38 @@ no result, anywhere else. Phases (any failure exits non-zero):
    second a one-card, process-to-process figure). A failing rank fails
    the phase with its last lines. The attention, decode and rtc launch
    counts, zeroed before, read 0 here and on every rank.
+23. sparse (after 22) — the nineteenth slice, sparse storage, BASELINE
+   config 4 (``example/sparse``'s factorization machine at MXNet v1.5's
+   defaults: 2,000,000 features, factor 16, batch 1000) on a synthetic
+   libsvm file of Criteo's shape (``fm_rows``: 39 features a row, 13
+   numeric and 26 categorical fields, each field's ids from its own range
+   drawn Zipf-skewed; 100,000 rows from seed 0), fp32 with TF32 off: (a)
+   the sparse primitives at the FM's shapes on gpu(0) against the host
+   (FM_TOL): csr (1000 x 2M, 39 stored a row) ``dot`` a (2M, 16) matrix,
+   transposed against (1000, 16) and against a vector, ``cast_storage``
+   dense -> row_sparse -> dense at (2M, 16) with one batch's rows non-zero
+   and dense <-> csr at FM_CSR_COLS columns, ``retain``, ``csr + csr``,
+   ``_square_sum`` and ``getnnz``, each with its host syncs, and
+   ``dot``'s per-call ms beside ``torch.sparse.mm``'s (a yardstick
+   only); (b) SGD with momentum, Adam, AdaGrad and Ftrl lazy at (2M, 16)
+   on one batch's rows: untouched rows and states bit-identical, touched
+   rows within FM_TOL of the host, ``lazy_update=False`` densifying;
+   Adam's lazy update timed in its parts beside the dense update; (c) the
+   FM of tests/test_sparse.py (two ``nn.Embedding(sparse_grad=True)``
+   and the pairwise term, ``SigmoidBinaryCrossEntropyLoss``, Adam lr
+   0.02) trained through ``gluon.Trainer`` on batches of
+   ``mx.io.LibSVMIter``, 2 epochs: step 1 against the host from the same
+   weights, epoch 2's mean loss below epoch 1's, ``fused_step_fallbacks``
+   = steps (a sparse step runs eagerly); ms a step (median and range),
+   samples/s, the idle share and busy ms by stage (profiler ranges),
+   host syncs a step, peak memory; (d) a ``local`` store's
+   ``row_sparse_pull`` of the trained v by five batches' ids equal to
+   those weight rows bit for bit, then two ranks through phase 22's
+   launcher (``chip_smoke.py sparse-rank DIR``) each pushing the
+   row_sparse v gradient of its own batch: the stored union equal to the
+   one-process sum bit for bit on both ranks, no push densifying, a
+   push's ms and bytes; (e) the attention, decode and rtc launch counts,
+   zeroed before, read 0.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc or
@@ -7325,7 +7357,7 @@ def phase_gan(card):
 # ---------------------------------------------------------------------------
 
 OPS_MODULES = ("elemwise", "reduce", "matrix", "indexing", "init_ops", "nn",
-               "linalg", "extra")
+               "linalg", "extra", "deformable")
 OPS_ACT = (8, 1024, 768)            # the LM's activations: elementwise, reduce
 OPS_SPD = (64, 128)                 # 64 SPD matrices of 128 x 128: linalg
 OPS_TOL = 1e-5                      # max |gpu - cpu| / max |cpu|, fwd and grad
@@ -7516,6 +7548,11 @@ def ops_cases(rs, act, spd, heads, vocab, seq, width):
         # indexing and ordering
         "Embedding": [c([ids, _r(rs, (vocab, width))],
                         {"input_dim": vocab, "output_dim": width})],
+        "_contrib_SparseEmbedding": [c([ids, _r(rs, (vocab, width))],
+                                       {"input_dim": vocab,
+                                        "output_dim": width})],
+        "_sparse_retain": [c([A[0], rs.permutation(act[1])[:rows]
+                              .astype(f32)])],
         "pick": [c([A, rs.randint(0, act[-1], act[:2]).astype(f32)])],
         "gather_nd": [c([A, np.stack([rs.randint(0, n_, 4096) for n_ in
                                       act[:2]]).astype(f32)])],
@@ -7630,6 +7667,12 @@ def ops_cases(rs, act, spd, heads, vocab, seq, width):
         "_unravel_index": [c([rs.randint(0, 8192, 4096).astype(f32)],
                              {"shape": (8, 1024)}, grad=False, exact=True)],
         "hard_sigmoid": [c([A * 3])],
+        # the dense bodies of the sparse ops (order step 5)
+        "_square_sum": [c([A], {"axis": -1}),
+                        c([A], {"axis": (0, 2), "keepdims": True})],
+        "_contrib_getnnz": [c([np.where(np.abs(A) < 0.5, 0, A)],
+                              {"axis": 1}, grad=False, exact=True)],
+        "cast_storage": [c([A], {"stype": "row_sparse"})],
         "add_n": [c([A, A * 2, B1.repeat(act[0], 0)], {"num_args": 3})],
         "_grad_add": [c([A, A * 2])],
         "_identity_with_attr_like_rhs": [c([A, A])],
@@ -8615,16 +8658,16 @@ def kv_single_process(mx):
           "plain formula" % (len(parts), parts[0].shape))
 
 
-def kv_launch(outdir):
+def kv_launch(outdir, role="kv-rank"):
     """Runs the ranks: ``python -m mxnet_tpu_torch.tools.launch -n 2``
-    over ``chip_smoke.py kv-rank DIR`` from the checkout; their readings.
+    over ``chip_smoke.py <role> DIR`` from the checkout; their readings.
     A failing rank fails the phase with its last lines."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
            str(KV_RANKS), sys.executable, os.path.abspath(__file__),
-           "kv-rank", outdir]
+           role, outdir]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
@@ -8841,6 +8884,733 @@ def phase_kv(card):
                 mlp_err=worst)
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: sparse storage
+# ---------------------------------------------------------------------------
+
+# BASELINE config 4 ("example/sparse: factorization-machine") at MXNet
+# v1.5 example/sparse/factorization_machine's defaults (--input-size
+# 2000000 --factor-size 16 --batch-size 1000) on Criteo-shaped rows: 39
+# features a row, 13 numeric and 26 categorical fields, each field's ids
+# from its own range of the 2M, drawn skewed (Zipf) so hot ids repeat;
+# a synthetic libsvm file from seed 0, as Criteo is not in the
+# repository; cut in rows (100,000 = 100 batches) and epochs (2) only
+FM_FEATURES = 2000000
+FM_FACTOR = 16
+FM_BATCH = 1000
+FM_NUMERIC = 13
+FM_CATEGORICAL = 26
+FM_NUMERIC_IDS = 1024               # a numeric field's value buckets
+FM_ZIPF = 1.2
+FM_ROWS = 100000
+FM_EPOCHS = 2
+FM_ADAM = dict(learning_rate=0.02)
+FM_SEED = 0
+FM_TOL = dict(rtol=1e-5, atol=1e-5)
+FM_LAZY_WD = 0.01
+FM_CSR_COLS = 65536                 # the dense <-> csr cast's width
+FM_PROFILE_STEPS = 5
+FM_PUSHES = 5
+FM_STAGES = ("fm:forward", "fm:backward", "fm:row_set", "fm:lazy_update")
+
+
+def fm_rows(n, seed=FM_SEED):
+    """(ids (n, 39) int64, values (n, 39) float32, labels (n,) float32):
+    field f's ids lie in its own range, ascending with f, so a row's ids
+    are distinct and sorted; a numeric field's value is a log-scaled
+    count, a categorical one's 1; labels from a hidden linear model of
+    the features."""
+    rs = np.random.RandomState(seed)
+    n_fields = FM_NUMERIC + FM_CATEGORICAL
+    cat = (FM_FEATURES - FM_NUMERIC * FM_NUMERIC_IDS) // FM_CATEGORICAL
+    sizes = [FM_NUMERIC_IDS] * FM_NUMERIC + [cat] * FM_CATEGORICAL
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    ids = np.empty((n, n_fields), np.int64)
+    for f, (start, size) in enumerate(zip(starts, sizes)):
+        ids[:, f] = start + (rs.zipf(FM_ZIPF, n) - 1) % size
+    vals = np.ones((n, n_fields), np.float32)
+    vals[:, :FM_NUMERIC] = (np.log1p(rs.geometric(0.05, (n, FM_NUMERIC)))
+                            / 5).astype(np.float32)
+    true_w = rs.normal(0, 0.5, FM_FEATURES).astype(np.float32)
+    logit = (true_w[ids] * vals).sum(1) - 0.5
+    y = (rs.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return ids, vals, y
+
+
+def fm_write_libsvm(path, ids, vals, y):
+    fmt = "%d" + " %d:%.6g" * ids.shape[1] + "\n"
+    cols = np.empty((ids.shape[0], 2 * ids.shape[1]), object)
+    cols[:, 0::2] = ids
+    cols[:, 1::2] = vals
+    with open(path, "w") as f:
+        for label, row in zip(y, cols):
+            f.write(fmt % ((int(label),) + tuple(row)))
+
+
+def fm_net(mx, ctx):
+    """tests/test_sparse.py:302-314's FM at config 4's widths: two
+    ``nn.Embedding(sparse_grad=True)`` (w: 2M x 1, v: 2M x 16) and the
+    pairwise term, eager (the row stash needs NDArray lookups), Normal
+    (0.05) from ``mx.random.seed(FM_SEED)``."""
+    nn = mx.gluon.nn
+
+    class FM(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.w = nn.Embedding(FM_FEATURES, 1, sparse_grad=True)
+                self.v = nn.Embedding(FM_FEATURES, FM_FACTOR,
+                                      sparse_grad=True)
+
+        def hybrid_forward(self, F, idx, vals):
+            linear = (F.squeeze(self.w(idx), axis=2) * vals).sum(1)
+            vx = self.v(idx) * vals.expand_dims(2)
+            s1 = vx.sum(1) ** 2
+            s2 = (vx ** 2).sum(1)
+            return linear + 0.5 * (s1 - s2).sum(1)
+
+    mx.random.seed(FM_SEED)
+    net = FM()
+    net.initialize(mx.init.Normal(0.05), ctx=ctx)
+    return net
+
+
+def fm_inputs(mx, csr):
+    """The FM's (ids, values) of a csr batch whose rows hold 39 entries
+    each: its index and value arrays as (rows, 39), on its device."""
+    n = csr.shape[0]
+    return (mx.nd.NDArray(csr.indices._data.reshape(n, -1)),
+            mx.nd.NDArray(csr.data._data.reshape(n, -1)))
+
+
+def fm_step(mx, net, trainer, loss_fn, batch, total=None):
+    """One training step of the FM on a LibSVMIter batch; the loss's sum
+    is added on the device to ``total``."""
+    from torch.profiler import record_function
+    idx, vals = fm_inputs(mx, batch.data[0])
+    with record_function("fm:forward"):
+        with mx.autograd.record():
+            loss = loss_fn(net(idx, vals), batch.label[0])
+    with record_function("fm:backward"):
+        loss.backward()
+    trainer.step(FM_BATCH)
+    if total is not None:
+        total.add_(loss._data.detach().sum())
+    return loss
+
+
+@contextlib.contextmanager
+def fm_stage_ranges(mx):
+    """The Trainer's row set and lazy update, each under a profiler
+    range (``fm:row_set``, ``fm:lazy_update``), while profiling."""
+    from torch.profiler import record_function
+    from mxnet_tpu_torch.optimizer import optimizer as opt_mod
+    trainer_cls = mx.gluon.Trainer
+    to_rsp, lazy = trainer_cls._to_row_sparse, opt_mod._lazy_row_update
+
+    def ranged(name, fn):
+        def wrapper(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+    trainer_cls._to_row_sparse = staticmethod(ranged("fm:row_set", to_rsp))
+    opt_mod._lazy_row_update = ranged("fm:lazy_update", lazy)
+    try:
+        yield
+    finally:
+        trainer_cls._to_row_sparse = staticmethod(to_rsp)
+        opt_mod._lazy_row_update = lazy
+
+
+def count_syncs(fn):
+    """(``fn()``, the host syncs it made): the calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own one-time notice ("a prototype feature ...") is no
+    # sync
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message)
+                    and "prototype" not in str(w.message))
+
+
+def sparse_hold(what, got, want, tol=FM_TOL):
+    """Fail unless card result ``got`` equals host result ``want`` (index
+    arrays bit for bit, values within ``tol``); their max abs error."""
+    def parts(x):
+        if getattr(x, "stype", "default") == "csr":
+            return [("indptr", x.indptr), ("indices", x.indices),
+                    ("data", x.data)]
+        if getattr(x, "stype", "default") == "row_sparse":
+            return [("indices", x.indices), ("data", x.data)]
+        return [("data", x)]
+    if got.stype != want.stype or got.shape != want.shape:
+        fail("(a) %s: %s %s on the card, %s %s on the host"
+             % (what, got.stype, got.shape, want.stype, want.shape))
+    err = 0.0
+    for (name, g), (_, w) in zip(parts(got), parts(want)):
+        g, w = g.asnumpy(), w.asnumpy()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail("(a) %s: %s is %s %s on the card, %s %s on the host"
+                 % (what, name, g.dtype, g.shape, w.dtype, w.shape))
+        if name != "data" or not np.issubdtype(g.dtype, np.floating):
+            if not np.array_equal(g, w):
+                fail("(a) %s: %s differs from the host's" % (what, name))
+            continue
+        if g.size:
+            err = max(err, float(np.abs(g - w).max()))
+        if not np.allclose(g, w, **tol):
+            fail("(a) %s: values off the host's by %g" % (what, err))
+    return err
+
+
+def fm_csr(mx, ids, vals, ctx, cols=FM_FEATURES):
+    n, k = ids.shape
+    return mx.nd.sparse.csr_matrix(
+        (vals.reshape(-1), ids.reshape(-1) % cols,
+         np.arange(0, n * k + 1, k)), shape=(n, cols), ctx=ctx)
+
+
+def sparse_primitives(mx, ids, vals, card):
+    """(a): the sparse primitives at the FM's shapes, each on gpu(0)
+    against the same call on the host from the same inputs (fp32, TF32
+    off, FM_TOL), with its host syncs; ``dot``'s per-call ms (CUDA
+    events) beside ``torch.sparse.mm`` on the same matrix (a yardstick
+    only) and its bound."""
+    sp = mx.nd.sparse
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    rs = np.random.RandomState(FM_SEED + 1)
+    B = FM_BATCH
+    csr = fm_csr(mx, ids[:B], vals[:B], gpu)
+    csr2 = fm_csr(mx, ids[B:2 * B], vals[B:2 * B], gpu)
+    V = rs.standard_normal((FM_FEATURES, FM_FACTOR)).astype(np.float32)
+    G = rs.standard_normal((B, FM_FACTOR)).astype(np.float32)
+    rows = np.unique(ids[:B])
+    D = np.zeros((FM_FEATURES, FM_FACTOR), np.float32)
+    D[rows] = rs.standard_normal((rows.size, FM_FACTOR))
+    X = fm_csr(mx, ids[:B], vals[:B], cpu, FM_CSR_COLS).asnumpy()
+    keep = rows[::2]
+
+    def cases(ctx, c, c2):
+        # every input is on ``ctx`` before a case runs: a case's host
+        # syncs are its own
+        v = mx.nd.array(V, ctx=ctx)
+        v0 = v[:, 0]
+        g = mx.nd.array(G, ctx=ctx)
+        d = mx.nd.array(D, ctx=ctx)
+        r = d.tostype("row_sparse")
+        x = mx.nd.array(X, ctx=ctx)
+        xc = x.tostype("csr")
+        k = mx.nd.array(keep, ctx=ctx, dtype="int32")
+        return [
+            ("dot(csr, V)", lambda: sp.dot(c, v)),
+            ("dot(csr, G, transpose_a)",
+             lambda: sp.dot(c, g, transpose_a=True)),
+            ("dot(csr, V[:, 0])", lambda: sp.dot(c, v0)),
+            ("cast_storage(dense -> row_sparse)",
+             lambda: d.tostype("row_sparse")),
+            ("cast_storage(row_sparse -> dense)",
+             lambda: r.tostype("default")),
+            ("cast_storage(dense -> csr), %d columns" % FM_CSR_COLS,
+             lambda: x.tostype("csr")),
+            ("cast_storage(csr -> dense), %d columns" % FM_CSR_COLS,
+             lambda: xc.tostype("default")),
+            ("retain(row_sparse, half its rows)", lambda: sp.retain(r, k)),
+            ("csr + csr", lambda: c + c2),
+            ("_square_sum(V, axis=1)",
+             lambda: mx.nd._square_sum(v, axis=1)),
+            ("getnnz(dense, axis=1)",
+             lambda: mx.nd.contrib.getnnz(x, axis=1)),
+        ]
+    host = cases(cpu, csr.copyto(cpu), csr2.copyto(cpu))
+    rows_out = []
+    for (what, fn), (_, host_fn) in zip(cases(gpu, csr, csr2), host):
+        got, syncs = count_syncs(fn)
+        err = sparse_hold(what, got, host_fn())
+        rows_out.append((what, syncs, err))
+    back = sp.cast_storage(mx.nd.array(D, ctx=gpu), "row_sparse") \
+        .tostype("default")
+    if not np.array_equal(back.asnumpy(), D):
+        fail("(a) dense -> row_sparse -> dense is not the identity")
+    for what, syncs, err in rows_out:
+        print("  (a) %-44s card = host (max |err| %.3g), %d host sync%s"
+              % (what, err, syncs, "" if syncs == 1 else "s"))
+    v = mx.nd.array(V, ctx=gpu)
+    ours = call_ms(lambda: sp.dot(csr, v))
+    tcsr = torch.sparse_csr_tensor(
+        csr.indptr._data.long(), csr.indices._data.long(), csr.data._data,
+        size=csr.shape, check_invariants=False)
+    lib = call_ms(lambda: torch.sparse.mm(tcsr, v._data))
+    if not torch.allclose(torch.sparse.mm(tcsr, v._data),
+                          sp.dot(csr, v)._data, **FM_TOL):
+        fail("(a) torch.sparse.mm disagrees with sparse.dot")
+    nnz = csr.data.shape[0]
+    nbytes = nnz * (4 + 4 + FM_FACTOR * 4) + (B + 1) * 4 \
+        + B * FM_FACTOR * 4
+    bound = max(nbytes / PEAK_BYTES, 2 * nnz * FM_FACTOR
+                / PEAK_FP32_FLOPS) * 1e3
+    print("  (a) dot(csr %dx%d, %d stored, V %dx%d): %.4f ms a call "
+          "(CUDA events; gather + index_add_), torch.sparse.mm %.4f ms "
+          "(yardstick), bound %.4f ms (bytes: each stored value, its "
+          "column id and V row read once, the output written once); %s"
+          % (B, FM_FEATURES, nnz, FM_FEATURES, FM_FACTOR, ours, lib, bound,
+             card))
+    return dict(primitives=rows_out, dot_ms=ours, dot_lib_ms=lib,
+                dot_bound_ms=bound)
+
+
+LAZY_OPTS = (("sgd", dict(momentum=0.9)), ("adam", {}), ("adagrad", {}),
+             ("ftrl", {}))
+
+
+def lazy_optimizers(mx, ids, card):
+    """(b): the four lazy optimizers at (2M, 16) on one batch's touched
+    rows, on gpu(0) against the host from the same inputs: untouched
+    rows and states bit-identical to their start, touched rows within
+    FM_TOL of the host; ``lazy_update=False`` densifies (SGD, Adam).
+    Then Adam's lazy update taken apart (gather, the update op on the
+    block, scatter) against the dense update of the whole table."""
+    sp = mx.nd.sparse
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    rs = np.random.RandomState(FM_SEED + 2)
+    W0 = (rs.standard_normal((FM_FEATURES, FM_FACTOR)) * 0.05) \
+        .astype(np.float32)
+    rows = np.unique(ids[:FM_BATCH])
+    g = rs.standard_normal((rows.size, FM_FACTOR)).astype(np.float32)
+    untouched = np.ones(FM_FEATURES, bool)
+    untouched[rows] = False
+
+    def run(name, kwargs, ctx, lazy=True):
+        extra = {} if name in ("adagrad", "ftrl") else {"lazy_update": lazy}
+        opt = mx.optimizer.create(name, learning_rate=0.1, wd=FM_LAZY_WD,
+                                  **dict(kwargs, **extra))
+        w = mx.nd.array(W0, ctx=ctx)
+        state = opt.create_state(0, w)
+        grad = sp.row_sparse_array((mx.nd.array(g, ctx=ctx),
+                                    mx.nd.array(rows, ctx=ctx,
+                                                dtype="int32")),
+                                   shape=(FM_FEATURES, FM_FACTOR), ctx=ctx)
+        opt.update(0, w, grad, state)
+        states = state if isinstance(state, tuple) else (state,)
+        return w.asnumpy(), [s.asnumpy() for s in states if s is not None]
+    worst = 0.0
+    for name, kwargs in LAZY_OPTS:
+        (w, states), (hw, hstates) = (run(name, kwargs, gpu),
+                                      run(name, kwargs, cpu))
+        if not np.array_equal(w[untouched], W0[untouched]):
+            fail("(b) %s: an untouched row moved" % name)
+        if any(s[untouched].any() for s in states):
+            fail("(b) %s: an untouched row's state moved" % name)
+        for a, b in zip([w] + states, [hw] + hstates):
+            err = float(np.abs(a[rows] - b[rows]).max())
+            worst = max(worst, err)
+            if not np.allclose(a[rows], b[rows], **FM_TOL):
+                fail("(b) %s: touched rows off the host's by %g"
+                     % (name, err))
+    for name, kwargs in LAZY_OPTS[:2]:
+        w, _ = run(name, kwargs, gpu, lazy=False)
+        if not (w[untouched] != W0[untouched]).any(axis=1).all():
+            fail("(b) %s lazy_update=False: an untouched row kept its "
+                 "value (the update did not densify)" % name)
+    print("  (b) SGD (momentum 0.9), Adam, AdaGrad, Ftrl on (%d, %d) with "
+          "%d touched rows (wd %g): untouched rows and states bit-identical "
+          "to their start; touched rows card = host (max |err| %.3g); "
+          "lazy_update=False moves every row (SGD, Adam)"
+          % (FM_FEATURES, FM_FACTOR, rows.size, FM_LAZY_WD, worst))
+    # Adam's lazy update taken apart, on the card
+    opt = mx.optimizer.create("adam", learning_rate=0.1)
+    w = mx.nd.array(W0, ctx=gpu)
+    mean, var = opt.create_state(0, w)
+    grad = sp.row_sparse_array((mx.nd.array(g, ctx=gpu),
+                                mx.nd.array(rows, ctx=gpu, dtype="int32")),
+                               shape=(FM_FEATURES, FM_FACTOR), ctx=gpu)
+    idx = grad.indices._data.long()
+    op = mx.ops.get_op("adam_update")
+    attrs = mx.ops.normalize_attrs(op, dict(lr=0.1, wd=0.0, beta1=0.9,
+                                            beta2=0.999, epsilon=1e-8))
+    blocks = [t.index_select(0, idx) for t in (w._data, mean._data,
+                                               var._data)]
+    with torch.no_grad():
+        gather = call_ms(lambda: [t.index_select(0, idx) for t in
+                                  (w._data, mean._data, var._data)])
+        rule = call_ms(lambda: op.forward(attrs, blocks[0], grad.data._data,
+                                          blocks[1], blocks[2]))
+        scatter = call_ms(lambda: [t.index_copy_(0, idx, b) for t, b in
+                                   zip((w._data, mean._data, var._data),
+                                       blocks)])
+        whole = call_ms(lambda: opt.update(0, w, grad, (mean, var)))
+        dense_g = torch.zeros_like(w._data)
+        dense = call_ms(lambda: op.forward(attrs, w._data, dense_g,
+                                           mean._data, var._data))
+    nbytes = rows.size * FM_FACTOR * 4 * 7 + rows.size * 4
+    bound = nbytes / PEAK_BYTES * 1e3
+    print("  (b) Adam's lazy update of %d rows: %.4f ms a call (gather of "
+          "w, mean, var %.4f, the update op on the block %.4f, scatter "
+          "%.4f; CUDA events), bound %.4f ms (bytes: 4 blocks read, 3 "
+          "written); the dense update of all %d rows %.4f ms; %s"
+          % (rows.size, whole, gather, rule, scatter, bound, FM_FEATURES,
+             dense, card))
+    return dict(lazy_err=worst, touched=int(rows.size), adam_ms=whole,
+                gather_ms=gather, rule_ms=rule, scatter_ms=scatter,
+                dense_adam_ms=dense, lazy_bound_ms=bound)
+
+
+def fm_first_step(mx, net, trainer, loss_fn, batch):
+    """Step 1 on the card and on the host from the same initial weights
+    and batch. The dense gradients before the update agree within FM_TOL
+    normwise (max |card - host| over max |host|). Every weight after it
+    agrees within FM_TOL plus that gradient difference carried through
+    Adam's first step: with g the rescaled gradient, the step is
+    lr g / (|g| + e'), e' = epsilon / sqrt(1 - beta2), whose slope
+    lr e' / (|g| + e')^2 turns a gradient difference d into at most that
+    slope times d where |g| is near e'. Returns (max |weight error|, the
+    count of weights whose bound the carried difference widened, the
+    card's loss)."""
+    cpu = mx.cpu()
+    host = fm_net(mx, cpu)
+    for src, dst in ((net.w, host.w), (net.v, host.v)):
+        dst.weight.set_data(mx.nd.array(src.weight.data().asnumpy(),
+                                        ctx=cpu))
+    host_trainer = mx.gluon.Trainer(host.collect_params(), "adam",
+                                    dict(FM_ADAM))
+    hbatch = mx.io.DataBatch(data=[batch.data[0].copyto(cpu)],
+                             label=[batch.label[0].as_in_context(cpu)])
+    grads, losses = {}, {}
+    for tag, n, t, b in (("card", net, trainer, batch),
+                         ("host", host, host_trainer, hbatch)):
+        idx, vals = fm_inputs(mx, b.data[0])
+        with mx.autograd.record():
+            losses[tag] = loss_fn(n(idx, vals), b.label[0])
+        losses[tag].backward()
+        grads[tag] = [p.grad().asnumpy() for p in (n.w.weight, n.v.weight)]
+        # the host's step is not the card's: it counts no fallback
+        with fused_gate(tag == "card"):
+            t.step(FM_BATCH)
+    opt = host_trainer.optimizer
+    lr, eps = opt.lr, opt.epsilon / math.sqrt(1 - opt.beta2)
+    worst, widened = 0.0, 0
+    for name, gc_, gh, pc, ph in zip(
+            ("w", "v"), grads["card"], grads["host"], (net.w, net.v),
+            (host.w, host.v)):
+        scale = float(np.abs(gh).max())
+        diff = float(np.abs(gc_ - gh).max())
+        if diff > FM_TOL["rtol"] * scale:
+            fail("(c) step 1: %s's gradient off the host's by %g of its "
+                 "largest" % (name, diff / scale))
+        a, b = pc.weight.data().asnumpy(), ph.weight.data().asnumpy()
+        # the slope's largest value between the two gradients
+        g = np.maximum(np.abs(gh) - diff, 0) / FM_BATCH
+        carried = lr * eps / (g + eps) ** 2 * (diff / FM_BATCH)
+        tol = FM_TOL["atol"] + FM_TOL["rtol"] * np.abs(b)
+        err = np.abs(a - b)
+        if not (err <= tol + carried).all():
+            k = int(np.argmax(err - tol - carried))
+            fail("(c) step 1: %s off the host's by %g (gradient %g, "
+                 "bound %g)" % (name, err.flat[k], gh.flat[k],
+                                tol.flat[k] + carried.flat[k]))
+        worst = max(worst, float(err.max()))
+        widened += int((err > tol).sum())
+    del host, host_trainer
+    return worst, widened, losses["card"]
+
+
+def fm_train(mx, path, card):
+    """(c): the FM trained on gpu(0) from the libsvm file through
+    ``mx.io.LibSVMIter``, FM_EPOCHS epochs, Adam; step 1 held to the host;
+    ms a step, samples/s, the device's idle share and busy ms by stage
+    (profiler), host syncs a step, the fused-step fallbacks, the peak
+    memory the training adds to what the process held before it (the
+    weights, states, gradients and every step's temporaries)."""
+    gpu = mx.gpu(0)
+    t0 = time.perf_counter()
+    with gpu:
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(FM_FEATURES,),
+                              batch_size=FM_BATCH)
+    parse_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    net = fm_net(mx, gpu)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(FM_ADAM))
+    loss_fn = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    mx.profiler.reset_counters()
+    losses, step_ms, steps = [], [], 0
+    step1 = None
+    for epoch in range(FM_EPOCHS):
+        it.reset()
+        total = torch.zeros((), device=gpu.torch_device())
+        with gpu:
+            batches = iter(it)
+            for batch in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if step1 is None:
+                    step1 = fm_first_step(mx, net, trainer, loss_fn, batch)
+                    total.add_(step1[2]._data.detach().sum())
+                else:
+                    fm_step(mx, net, trainer, loss_fn, batch, total)
+                torch.cuda.synchronize()
+                if epoch == FM_EPOCHS - 1:
+                    step_ms.append((time.perf_counter() - t) * 1e3)
+                steps += 1
+        losses.append(float(total) / FM_ROWS)
+    peak_mb = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    fallbacks = mx.profiler.counters().get("fused_step_fallbacks", 0)
+    # one step's host syncs, then a short profile by stage
+    it.reset()
+    with gpu:
+        prof_batches = [it.next() for _ in range(FM_PROFILE_STEPS + 1)]
+        _, syncs = count_syncs(lambda: fm_step(mx, net, trainer, loss_fn,
+                                               prof_batches[0]))
+        stages, busy, wall = fm_profile(mx, net, trainer, loss_fn,
+                                        prof_batches[1:])
+    med = statistics.median(step_ms)
+    print("  (c) LibSVMIter parsed %d rows in %.1f s; %d steps over %d "
+          "epochs (batch %d, Adam lr %g): mean loss by epoch %s; step 1 "
+          "card = host within rtol %g, atol %g and the gradient's "
+          "difference carried through Adam's first step (max |err| %.3g; "
+          "%d weights outside rtol and atol alone)"
+          % (FM_ROWS, parse_s, steps, FM_EPOCHS, FM_BATCH,
+             FM_ADAM["learning_rate"], ["%.5f" % x for x in losses],
+             FM_TOL["rtol"], FM_TOL["atol"], step1[0], step1[1]))
+    print("  (c) epoch %d: %.3f ms a step (median; range %.3f-%.3f), %.0f "
+          "samples/s; under the profiler (%d steps) %.3f ms a step, device "
+          "busy %.3f ms, idle share %.3f; busy by stage: %s; host syncs a "
+          "step %d; fused_step_fallbacks %d (= %d steps); peak memory %.1f "
+          "MB above the phase's start; %s"
+          % (FM_EPOCHS, med, min(step_ms), max(step_ms),
+             FM_BATCH / med * 1e3, FM_PROFILE_STEPS, wall, busy,
+             1 - busy / wall, ", ".join("%s %.3f" % kv
+                                        for kv in stages.items()),
+             syncs, fallbacks, steps, peak_mb, card))
+    if not losses[1] < losses[0]:
+        fail("(c) the loss did not fall from epoch 1 to 2: %s" % losses)
+    if fallbacks != steps:
+        fail("(c) fused_step_fallbacks %d, steps %d" % (fallbacks, steps))
+    return net, dict(losses=losses, step_ms=med, step_range=(
+        min(step_ms), max(step_ms)), samples_s=FM_BATCH / med * 1e3,
+        busy_ms=busy, idle=1 - busy / wall, stages=stages, syncs=syncs,
+        peak_mb=peak_mb, fallbacks=fallbacks, steps=steps,
+        step1_err=step1[0], step1_noisy=step1[1], parse_s=parse_s)
+
+
+def fm_profile(mx, net, trainer, loss_fn, batches):
+    """(device ms by stage a step, device busy ms a step, wall ms a step)
+    over ``batches`` under the profiler: forward, backward (the dense
+    gradient), the row set (``Trainer._to_row_sparse``) and the lazy
+    update (gather, Adam, scatter), from the profiler's ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with fm_stage_ranges(mx), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            fm_step(mx, net, trainer, loss_fn, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / len(batches)
+    stages = dict.fromkeys(FM_STAGES, 0.0)
+    busy = 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in stages:
+            stages[ev.name] += ev.device_time_total / 1e3 / len(batches)
+        elif ev.device_type == DeviceType.CUDA and ev.name not in stages \
+                and not getattr(ev, "is_user_annotation", False):
+            # the device's own work: the ranges' spans on the device's
+            # timeline are not work
+            busy += ev.device_time / 1e3 / len(batches)
+    return stages, busy, wall
+
+
+def fm_kvstore(mx, net, ids, card):
+    """(d), one process: a ``local`` store's ``row_sparse_pull`` of the
+    trained v by five batches' column ids equals those rows of the
+    weight, bit for bit, deduplicated and sorted."""
+    gpu = mx.gpu(0)
+    kv = mx.kv.create("local")
+    v = net.v.weight.data()
+    kv.init("v", v)
+    weight = v.asnumpy()
+    for b in range(5):
+        sl = ids[b * FM_BATCH:(b + 1) * FM_BATCH]
+        out = mx.nd.sparse.zeros("row_sparse", v.shape, ctx=gpu)
+        kv.row_sparse_pull("v", out=out, row_ids=mx.nd.array(
+            sl.reshape(-1), ctx=gpu, dtype="int32"))
+        want = np.unique(sl)
+        if not np.array_equal(out.indices.asnumpy(), want) \
+                or not np.array_equal(out.data.asnumpy(), weight[want]):
+            fail("(d) row_sparse_pull of batch %d differs from the "
+                 "weight's rows" % b)
+    print("  (d) local store: row_sparse_pull of the trained v (%d x %d) "
+          "by 5 batches' column ids = those rows of the weight, bit for "
+          "bit, deduplicated and sorted" % v.shape)
+
+
+def sparse_rank_main(outdir):
+    """One rank of phase 23 (d), spawned by ``python -m mxnet_tpu_torch.
+    tools.launch -n 2`` (``chip_smoke.py sparse-rank DIR``): the FM from
+    seed on gpu(0), one forward + backward on its own batch, and the
+    row_sparse v gradient of it pushed to a dist_sync store
+    (FM_PUSHES times, timed; ``RowSparseNDArray.tostype`` patched to
+    raise, so a densifying push fails); writes its gradient, the stored
+    value and its readings to DIR."""
+    import traceback
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    res = {"rank": rank}
+    try:
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kv = mx.kv.create("dist_sync")
+        res.update(kv.stats())
+        with np.load(os.path.join(outdir, "batches.npz")) as f:
+            ids, vals, y = f["ids"][rank], f["vals"][rank], f["y"][rank]
+        gpu = mx.gpu(0)
+        net = fm_net(mx, gpu)
+        loss_fn = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(ids, ctx=gpu, dtype="int32"),
+                               mx.nd.array(vals, ctx=gpu)),
+                           mx.nd.array(y, ctx=gpu))
+        loss.backward()
+        grad = mx.gluon.Trainer._to_row_sparse(net.v.weight,
+                                               net.v.weight.grad())
+        kv.init(3, mx.nd.zeros((FM_FEATURES, FM_FACTOR), ctx=gpu))
+
+        def densified(self, stype):
+            raise AssertionError("the row_sparse push densified")
+        orig = RowSparseNDArray.tostype
+        RowSparseNDArray.tostype = densified
+        ms = []
+        try:
+            for _ in range(FM_PUSHES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kv.push(3, grad)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            RowSparseNDArray.tostype = orig
+        stored = kv._data[3]
+        res.update(stype=stored.stype, push_ms=ms,
+                   rows=int(grad.indices.shape[0]),
+                   union=int(stored.indices.shape[0]))
+        np.savez(os.path.join(outdir, "rank%d.npz" % rank),
+                 g_idx=grad.indices.asnumpy(), g_data=grad.data.asnumpy(),
+                 s_idx=stored.indices.asnumpy(),
+                 s_data=stored.data.asnumpy())
+        kv.barrier()
+    except BaseException:                        # noqa: BLE001
+        res["error"] = traceback.format_exc()
+        print(res["error"], flush=True)
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    return 1 if "error" in res else 0
+
+
+def fm_dist_push(ids, vals, y, card):
+    """(d), two ranks on the one card through phase 22's launcher: each
+    pushes the row_sparse v gradient of its own batch; the stored union
+    and its values equal the one-process sum of the two gradients, bit
+    for bit on both ranks, and no push densified."""
+    import shutil
+    import tempfile
+    outdir = tempfile.mkdtemp(prefix="sparse_ranks_")
+    try:
+        sl = slice(0, 2 * FM_BATCH)
+        np.savez(os.path.join(outdir, "batches.npz"),
+                 ids=ids[sl].reshape(2, FM_BATCH, -1).astype(np.int32),
+                 vals=vals[sl].reshape(2, FM_BATCH, -1),
+                 y=y[sl].reshape(2, FM_BATCH))
+        ranks, secs = kv_launch(outdir, "sparse-rank")
+        saved = [dict(np.load(os.path.join(outdir, "rank%d.npz" % r)))
+                 for r in range(KV_RANKS)]
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    union = np.union1d(saved[0]["g_idx"], saved[1]["g_idx"])
+    want = np.zeros((union.size, FM_FACTOR), np.float32)
+    for s in saved:
+        want[np.searchsorted(union, s["g_idx"])] += s["g_data"]
+    for r, (rank, s) in enumerate(zip(ranks, saved)):
+        if rank["stype"] != "row_sparse":
+            fail("(d) rank %d stored a %s value" % (r, rank["stype"]))
+        if not np.array_equal(s["s_idx"], union) \
+                or not np.array_equal(s["s_data"], want):
+            fail("(d) rank %d's stored union differs from the one-process "
+                 "sum" % r)
+    if not all(np.array_equal(saved[0][k], saved[1][k])
+               for k in ("s_idx", "s_data")):
+        fail("(d) the ranks' stored values differ")
+    push = [statistics.median(r["push_ms"]) for r in ranks]
+    nbytes = FM_FEATURES + union.size * FM_FACTOR * 4
+    print("  (d) 2 ranks (%s, %.1f s of launch) each push the row_sparse v "
+          "gradient of its own batch (%d and %d rows): the stored union (%d "
+          "rows) and its values = the one-process sum, bit for bit on both "
+          "ranks; no push densified; a push %.3f / %.3f ms (median of %d), "
+          "%.2f MB a rank each way (a one-byte mask of %d rows, then the "
+          "%d x %d block), %.3f GB/s; %s"
+          % (ranks[0]["backend"], secs, ranks[0]["rows"], ranks[1]["rows"],
+             union.size, push[0], push[1], FM_PUSHES, nbytes / 1e6,
+             FM_FEATURES, union.size, FM_FACTOR,
+             nbytes / (max(push) / 1e3) / 1e9, card))
+    return dict(push_ms=push, push_bytes=nbytes, union=int(union.size),
+                rank_rows=[r["rows"] for r in ranks], launch_s=secs)
+
+
+def phase_sparse(card):
+    """Phase 23: sparse storage, BASELINE config 4. (a) the sparse
+    primitives at the FM's shapes, card against host; (b) the four lazy
+    optimizers at (2M, 16); (c) the factorization machine trained
+    through Gluon from a synthetic libsvm file; (d) the kvstore: a local
+    ``row_sparse_pull`` and a two-rank row_sparse push; (e) the kernels
+    of the table launch 0 times over the phase. fp32, TF32 off."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tfa.reset_launches()
+    rtc.reset_launches()
+    t0 = time.perf_counter()
+    ids, vals, y = fm_rows(FM_ROWS)
+    tmp = tempfile.mkdtemp(prefix="fm_")
+    try:
+        path = os.path.join(tmp, "fm.libsvm")
+        fm_write_libsvm(path, ids, vals, y)
+        print("  data: %d Criteo-shaped rows (%d numeric + %d categorical "
+              "fields over %d ids, Zipf %g; %d distinct ids, %.1f MB of "
+              "libsvm) from seed %d in %.1f s"
+              % (FM_ROWS, FM_NUMERIC, FM_CATEGORICAL, FM_FEATURES, FM_ZIPF,
+                 np.unique(ids).size, os.path.getsize(path) / 1e6, FM_SEED,
+                 time.perf_counter() - t0))
+        prim = sparse_primitives(mx, ids, vals, card)
+        lazy = lazy_optimizers(mx, ids, card)
+        net, fm = fm_train(mx, path, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fm_kvstore(mx, net, ids, card)
+    del net
+    torch.cuda.empty_cache()
+    dist = fm_dist_push(ids, vals, y, card)
+    launches = dict(tfa.launches, rtc=rtc.launches["rtc"])
+    print("  (e) attention, decode and rtc kernel launches over phase 23: "
+          "%s (none is on this path); sparse phase %.1f s"
+          % (launches, time.perf_counter() - t_phase))
+    if any(launches.values()):
+        fail("sparse: the path launched a kernel of the table: %s"
+             % launches)
+    return dict(prim, **lazy, **fm, **dist)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -8912,6 +9682,8 @@ def main():
     phase_gan(card)
     phase_ops(card)
     phase_kv(card)
+    print("sparse (BASELINE config 4):")
+    phase_sparse(card)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -8955,4 +9727,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["kv-rank"]:
         sys.exit(kv_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["sparse-rank"]:
+        sys.exit(sparse_rank_main(sys.argv[2]))
     sys.exit(main())

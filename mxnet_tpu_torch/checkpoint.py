@@ -54,7 +54,8 @@ import torch
 
 from . import envs
 from .base import MXNetError
-from .ndarray.ndarray import host_numpy, numpy_dtype, tensor_from_numpy
+from .ndarray.ndarray import (_flatten_entry, host_numpy, numpy_dtype,
+                              tensor_from_numpy)
 
 __all__ = ["CheckpointManager", "async_checkpoint_enabled",
            "manifest_path", "load_manifest", "validate_manifest",
@@ -166,17 +167,25 @@ def snapshot_params(arg_params, aux_params=None, extra=None):
     flat = {}
     for prefix, params in (("arg:", arg_params), ("aux:", aux_params)):
         for k, v in (params or {}).items():
-            flat[prefix + k] = _snap(v)
+            _snap(prefix + k, v, flat)
     for k, v in (extra or {}).items():
-        flat[k] = _snap(v)
+        _snap(k, v, flat)
     return flat
 
 
-def _snap(value):
+def _snap(key, value, flat):
+    """One roster entry into ``flat``: a clone of a dense array; a sparse
+    array's components (clones) and shape under the ``nd.save`` keys
+    (``__sparse_csr__::<key>::data``, ...), as the JAX writer spills
+    them."""
+    if getattr(value, "stype", "default") != "default":
+        _flatten_entry(key, value, flat, lambda t: t.detach().clone())
+        return
     data = getattr(value, "_data", value)
     if isinstance(data, torch.Tensor):
-        return data.detach().clone()
-    return np.array(data, copy=True)
+        flat[key] = data.detach().clone()
+    else:
+        flat[key] = np.array(data, copy=True)
 
 
 def _host(value):
@@ -368,12 +377,6 @@ def _read_host(prefix, epoch, validate):
     out = {}
     for key, entry in manifest["params"].items():
         pieces = entry["pieces"]
-        if key.startswith(("__sparse_csr__::", "__sparse_rsp__::")) \
-                or "shape" not in entry:
-            raise NotImplementedError(
-                "checkpoint %s: sparse entry %s needs ndarray/sparse.py, "
-                "not ported yet (ROADMAP queue A item 13)"
-                % (_tag(prefix, epoch), key))
         if len(pieces) == 1 and pieces[0]["index"] is None:
             out[key] = _restore_dtype(
                 shard_data[pieces[0]["shard"]][pieces[0]["key"]], entry)
@@ -391,24 +394,26 @@ def _read_host(prefix, epoch, validate):
 
 def load_arrays(prefix, epoch, validate=True, ctx=None):
     """A manifest checkpoint as a flat ``{'arg:name': NDArray}`` dict on
-    ``ctx`` (the current context by default). ``validate`` checksums
-    every artifact against the bytes it parses (one read a file), so a
-    torn write raises."""
-    from .context import current_context
-    from .ndarray import NDArray
-    device = (ctx or current_context()).torch_device()
-    return {k: NDArray(v.to(device))
-            for k, v in _read_host(prefix, epoch, validate).items()}
+    ``ctx`` (the current context by default), a sparse entry put back
+    together from its components. ``validate`` checksums every artifact
+    against the bytes it parses (one read a file), so a torn write
+    raises."""
+    from .ndarray.ndarray import unflatten_arrays
+    return unflatten_arrays(_read_host(prefix, epoch, validate), ctx)
 
 
 def load_param_arrays(prefix, epoch, validate=True):
     """``{name: CPU tensor}`` of a manifest checkpoint's entries under
-    their plain names (``arg:``/``aux:`` dropped): the decode server's
-    weight swap source (``DecodeServer.swap_weights(prefix=, epoch=)``).
-    The caller places them; host tensors stand where the JAX package
-    returns numpy arrays, since numpy has no bfloat16."""
-    return {(k.split(":", 1)[1] if ":" in k else k): v
-            for k, v in _read_host(prefix, epoch, validate).items()}
+    their plain names (``arg:``/``aux:`` dropped; a sparse entry dense):
+    the decode server's weight swap source
+    (``DecodeServer.swap_weights(prefix=, epoch=)``). The caller places
+    them; host tensors stand where the JAX package returns numpy arrays,
+    since numpy has no bfloat16."""
+    from .context import cpu
+    from .ndarray.ndarray import unflatten_arrays
+    flat = unflatten_arrays(_read_host(prefix, epoch, validate), cpu())
+    return {(k.split(":", 1)[1] if ":" in k else k): v.tostype("default")
+            ._data for k, v in flat.items()}
 
 
 def saved_dtype_policy(prefix, epoch):

@@ -315,9 +315,14 @@ def _hang_seconds():
 
 
 def _corrupt(value, kind):
-    """A poisoned COPY of ``value`` (an NDArray or a tensor): the
-    caller's buffer is never touched."""
+    """A poisoned COPY of ``value`` (an NDArray, a sparse NDArray, whose
+    values are poisoned, or a tensor): the caller's buffer is never
+    touched."""
     bad = float("nan") if kind == "nan" else float("inf")
+    if getattr(value, "_sp_data", None) is not None:
+        out = value.copy()
+        out._sp_data = _corrupt(out._sp_data, kind)
+        return out
     data = getattr(value, "_data", None)
     if data is not None:
         from .ndarray import NDArray
@@ -497,6 +502,7 @@ def join_process_group():
 
 def _all_finite(grad):
     import torch
+    grad = getattr(grad, "_sp_data", grad)
     data = getattr(grad, "_data", grad)
     return bool(torch.isfinite(data).all())
 

@@ -1,15 +1,16 @@
 """Contrib layers (counterpart of
 ``mxnet_tpu/gluon/contrib/nn/basic_layers.py``): ``Concurrent`` and
 ``HybridConcurrent`` (children run on one input, their outputs joined
-by ``Concat``), ``Identity``, and the sub-pixel upsampling layers
-``PixelShuffle1D``/``2D``/``3D`` (reshapes and one transpose)."""
+by ``Concat``), ``Identity``, ``SparseEmbedding`` and the sub-pixel
+upsampling layers ``PixelShuffle1D``/``2D``/``3D`` (reshapes and one
+transpose)."""
 from __future__ import annotations
 
-from ...block import HybridBlock
+from ...block import Block, HybridBlock
 from ...nn.basic_layers import Sequential, HybridSequential
 
-__all__ = ["Concurrent", "HybridConcurrent", "Identity", "PixelShuffle1D",
-           "PixelShuffle2D", "PixelShuffle3D"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
+           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D"]
 
 
 class Concurrent(Sequential):
@@ -47,6 +48,30 @@ class Identity(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return x
+
+
+class SparseEmbedding(Block):
+    """An embedding whose op says ``sparse_grad=True`` (reference:
+    basic_layers.py:118). As in the JAX package its weight declares no
+    ``grad_stype``, so the Trainer updates it densely; the row-lazy
+    update is ``nn.Embedding(sparse_grad=True)``'s."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": True}
+        self.weight = self.params.get("weight",
+                                      shape=(input_dim, output_dim),
+                                      init=weight_initializer, dtype=dtype)
+
+    def forward(self, x):
+        from .... import ndarray as nd
+        return nd.Embedding(x, self.weight.data(), **self._kwargs)
+
+    def __repr__(self):
+        s = "{block_name}({input_dim} -> {output_dim}, {dtype})"
+        return s.format(block_name=self.__class__.__name__, **self._kwargs)
 
 
 def _factors(factor, n):

@@ -115,22 +115,41 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Index → row lookup (reference: basic_layers.py:372)."""
+    """Index → row lookup (reference: basic_layers.py:372). With
+    ``sparse_grad=True`` the weight's ``grad_stype`` is ``'row_sparse'``:
+    its gradient buffer stays dense, and ``Trainer`` hands the optimizer
+    a row_sparse view of the rows this block looked up (the ids stashed
+    by :meth:`_note_touched_rows`), so a lazy optimizer touches only
+    those rows. Only an eager call under ``record()`` stashes ids; a
+    hybridized block traces Symbols, so its Trainer scans the gradient
+    for non-zero rows instead, as in the JAX package."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise NotImplementedError(
-                "Embedding(sparse_grad=True): row_sparse gradients are not "
-                "ported yet (ROADMAP queue A item 13)")
         self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
                         "dtype": dtype, "sparse_grad": sparse_grad}
         self.weight = self.params.get(
             "weight", shape=(input_dim, output_dim), dtype=dtype,
-            init=weight_initializer, allow_deferred_init=True)
+            init=weight_initializer, allow_deferred_init=True,
+            grad_stype="row_sparse" if sparse_grad else "default")
+
+    def _note_touched_rows(self, x):
+        """Stash the looked-up ids (raw, before the lookup clips them)
+        on the weight, accumulating across forwards until the Trainer's
+        next step, which builds the row_sparse gradient from their
+        union (the reference gets them from its sparse embedding
+        kernel's row_sparse output)."""
+        from ... import autograd
+        from ...ndarray import NDArray
+        if isinstance(x, NDArray) and autograd.is_recording():
+            stash = getattr(self.weight, "_sparse_row_ids", None) or []
+            stash.append(x)
+            self.weight._sparse_row_ids = stash
 
     def hybrid_forward(self, F, x, weight):
+        if self._kwargs["sparse_grad"]:
+            self._note_touched_rows(x)
         return F.Embedding(x, weight, name="fwd", **self._kwargs)
 
     def __repr__(self):

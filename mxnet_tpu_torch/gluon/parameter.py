@@ -77,6 +77,7 @@ class Parameter:
         self._shape = (shape,) if isinstance(shape, int) else \
             (tuple(shape) if shape is not None else None)
         self._dtype = dtype
+        self._stype, self._grad_stype = stype, grad_stype
         self._differentiable = differentiable
         self._allow_deferred_init = allow_deferred_init
         self._data = None               # LIVE when set
@@ -116,6 +117,10 @@ class Parameter:
     @property
     def shape(self):
         return self._shape
+
+    @property
+    def stype(self):
+        return self._stype
 
     @shape.setter
     def shape(self, new_shape):
@@ -221,6 +226,11 @@ class Parameter:
 
     def list_data(self):
         return [self.data()]
+
+    def row_sparse_data(self, row_id):
+        """The rows ``row_id`` names, as a dense NDArray (the JAX
+        package's ``take``)."""
+        return self.data().take(row_id)
 
     def grad(self, ctx=None):
         if self._data is not None and self._grad is None:

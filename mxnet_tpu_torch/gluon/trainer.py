@@ -19,6 +19,15 @@ loop, counted in ``profiler.counters()['fused_step_fallbacks']``.
 ``multi_precision=True`` keeps fp32 masters for bfloat16/float16
 weights (``amp.DtypePolicy(...).apply(net)``).
 
+**Sparse gradients.** A parameter whose ``grad_stype`` is
+``'row_sparse'`` (``nn.Embedding(sparse_grad=True)``) reaches the
+optimizer as a RowSparseNDArray view of its dense gradient over the rows
+its forwards looked up (:meth:`Trainer._to_row_sparse`), which the lazy
+optimizers update alone. The row set depends on the data, so such a
+step cannot be one CUDA graph: it runs the eager loop, counted in
+``fused_step_fallbacks`` as in the JAX package. Every parameter's row
+stash is dropped after a step.
+
 ``save_states``/``load_states`` write and read the optimizer state in
 the JAX package's pickle, durably (``checkpoint.atomic_write_file``; the
 shared background writer with ``background=True``).
@@ -213,6 +222,26 @@ class Trainer:
                                                        self._updaters[0])
         return fused
 
+    @staticmethod
+    def _to_row_sparse(param, grad):
+        """The row_sparse view of ``grad`` over the rows the forwards
+        looked up since the last step (the union of the stashed ids,
+        sorted: rows whose gradient is exactly 0 stay in), or over its
+        non-zero rows when nothing was stashed (a hybridized block)."""
+        import torch
+        from ..ndarray import NDArray
+        from ..ndarray.sparse import RowSparseNDArray
+        ids = getattr(param, "_sparse_row_ids", None)
+        if ids is None:
+            return grad.tostype("row_sparse")
+        param._sparse_row_ids = None
+        rows = torch.unique(torch.cat(
+            [i._data.detach().reshape(-1).to(grad._data.device,
+                                             torch.long) for i in ids]))
+        rows_nd = NDArray(rows.to(torch.int32))
+        return RowSparseNDArray(grad.take(rows_nd), rows_nd, grad.shape,
+                                ctx=grad.context)
+
     def _apply_updates(self, ignore_stale_grad):
         """The step's updates; True when the fused update ran them. Under
         ``update_on_kvstore`` the store updated its copies in the push:
@@ -239,21 +268,33 @@ class Trainer:
                 param._data._fresh_grad = False
                 continue
             work.append((i, param))
-        if hosted:
-            for i, param in enumerate(self._params):
-                if param.grad_req != "null" and param._data is not None:
-                    self._kvstore.pull(i, param.data())
-            return False
+        sparse = any(p._grad_stype == "row_sparse" for _, p in work)
         fused_done = False
-        if work:
+        if work and not sparse:
             fused = self._get_fused()
             if fused is not None:
                 fused_done = fused.update(
                     [(i, p.data(), p.grad()) for i, p in work])
+        elif sparse:
+            from ..fused_step import fused_step_enabled
+            if fused_step_enabled():
+                from .. import profiler
+                profiler.increment_counter("fused_step_fallbacks")
         for i, param in work:
             if not fused_done:
-                self._updaters[0](i, param.grad(), param.data())
+                grad = param.grad()
+                if param._grad_stype == "row_sparse":
+                    grad = self._to_row_sparse(param, grad)
+                self._updaters[0](i, grad, param.data())
             param._data._fresh_grad = False
+        # every parameter's stash goes (a frozen or stale one's too), so
+        # no forward of this step leaks into the next
+        for param in self._params:
+            param._sparse_row_ids = None
+        if hosted:
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null" and param._data is not None:
+                    self._kvstore.pull(i, param.data())
         return fused_done
 
     # -- optimizer-state checkpointing ------------------------------------

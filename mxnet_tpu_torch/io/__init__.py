@@ -1,7 +1,7 @@
 """IO namespace (counterpart of ``mxnet_tpu/io``): the batch types, the
 iterators over memory, CSV and MNIST files and RecordIO images, and the
-async input pipeline (``io/pipeline.py``). ``LibSVMIter`` (sparse,
-item 13) and ``make_sharded_pipeline`` (a mesh, item 12) raise
+async input pipeline (``io/pipeline.py``), and ``LibSVMIter`` (csr
+batches). ``make_sharded_pipeline`` (a mesh, item 12) raises
 ``NotImplementedError``."""
 from .io import (DataDesc, DataBatch, DataIter, ResizeIter, PrefetchingIter,
                  NDArrayIter, MNISTIter, CSVIter, LibSVMIter)

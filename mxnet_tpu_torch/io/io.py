@@ -18,9 +18,9 @@ eager ``next()`` is ``decode_raw(next_raw())`` with the batch then put
 on the current context, as the JAX package's ``nd_array`` puts it on
 the default device.
 
-:class:`LibSVMIter` yields CSR batches in the JAX package; sparse
-storage is ROADMAP queue A item 13, so here it raises
-``NotImplementedError``.
+:class:`LibSVMIter` parses a libsvm file into one scipy CSR matrix on
+the host and yields its batches as ``CSRNDArray``s on the current
+context (``ndarray/sparse.py``), never densified.
 """
 from __future__ import annotations
 
@@ -560,11 +560,92 @@ class CSVIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM-format iterator (reference: src/io/iter_libsvm.cc). Its
-    batches are CSR arrays, and sparse storage is not ported yet
-    (ROADMAP queue A item 13): constructing one raises."""
+    """LibSVM-format iterator (reference: src/io/iter_libsvm.cc).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LibSVMIter yields CSR batches; sparse storage is not ported "
-            "to mxnet_tpu_torch yet (ROADMAP queue A item 13)")
+    Parses ``label idx:val ...`` lines into ONE scipy CSR matrix and
+    yields CSRNDArray batches by slicing it: the sparse structure is
+    never densified (the reference's iterator likewise stays CSR end to
+    end). ``round_batch=True`` wraps the final short batch around to the
+    beginning, as the reference's ``round_batch``; otherwise it is
+    padded with row 0 and ``pad`` says how many rows. ``label_libsvm``
+    reads the labels from a second libsvm file (dense, of
+    ``label_shape``)."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True,
+                 data_name="data", label_name="softmax_label", **kwargs):
+        super().__init__(batch_size)
+        import scipy.sparse as spsp
+        feat_dim = int(np.prod(data_shape))
+
+        def parse(fname, dim):
+            vals, cols, indptr, heads = [], [], [0], []
+            with open(fname) as f:
+                for line in f:
+                    parts = line.strip().split()
+                    if not parts:
+                        continue
+                    heads.append(float(parts[0]))
+                    for tok in parts[1:]:
+                        i, v = tok.split(":")
+                        cols.append(int(i))
+                        vals.append(float(v))
+                    indptr.append(len(cols))
+            m = spsp.csr_matrix(
+                (np.asarray(vals, np.float32), np.asarray(cols, np.int64),
+                 np.asarray(indptr, np.int64)),
+                shape=(len(indptr) - 1, dim))
+            return m, np.asarray(heads, np.float32)
+
+        self._csr, label = parse(data_libsvm, feat_dim)
+        if label_libsvm is not None:
+            lmat, _ = parse(label_libsvm, int(np.prod(label_shape)))
+            label = lmat.toarray()
+        self._label = label
+        self._num = self._csr.shape[0]
+        self._round = round_batch
+        self._cursor = 0
+        self._data_shape = tuple(data_shape)
+        self._data_name = data_name
+        self._label_name = label_name
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self._data_name,
+                         (self.batch_size,) + self._data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self._label_name,
+                         (self.batch_size,) + self._label.shape[1:])]
+
+    def reset(self):
+        self._cursor = 0
+
+    def iter_next(self):
+        return self._cursor < self._num
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        from ..context import current_context
+        from ..ndarray import sparse as _sp
+        start = self._cursor
+        stop = start + self.batch_size
+        self._cursor = stop
+        pad = 0
+        if stop <= self._num:
+            idx = np.arange(start, stop)
+        elif self._round:
+            idx = np.arange(start, stop) % self._num
+        else:
+            pad = stop - self._num
+            idx = np.concatenate([np.arange(start, self._num),
+                                  np.zeros(pad, np.int64)])
+        ctx = current_context()
+        data = _sp.csr_matrix(self._csr[idx], ctx=ctx)
+        label = NDArray(host_array(self._label[idx])._data.to(
+            ctx.torch_device()))
+        return DataBatch(data=[data], label=[label], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)

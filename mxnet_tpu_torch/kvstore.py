@@ -32,9 +32,19 @@ replaying); otherwise the destination takes a copy of the value.
 
 ``update_on_kvstore`` hosting (``set_optimizer``, ``set_updater``),
 2-bit gradient compression with the worker-side residual, and the
-optimizer-state files are kept. Sparse values (row_sparse push, the
-row-union reduce, ``row_sparse_pull``) raise until the sparse arrays
-are ported (ROADMAP queue A item 13, order step 5).
+optimizer-state files are kept.
+
+**Sparse values.** A row_sparse push is not compressed; without an
+updater the stored value becomes the pushed (reduced) row_sparse array.
+Across processes it is reduced by row union
+(:meth:`KVStore._global_reduce_rsp`): the ranks all-reduce (MAX) a
+one-byte presence mask a row, agree on the sorted union of their rows
+and all-reduce only that (U, ...) block, so the value never densifies to
+its full shape. A csr push is reduced dense and cast back. ``pull``
+skips a sparse stored value unless ``ignore_sparse=False``;
+``row_sparse_pull`` gathers the requested rows (deduplicated and
+sorted) into row_sparse destinations, and a dense ``out`` raises
+``MXNetError`` (the reference asserts the same).
 
 Observability: with a telemetry run active, every push and pull is
 accounted per key under the comm kinds ``push``/``pull`` (bytes and
@@ -59,8 +69,6 @@ __all__ = ["KVStore", "create"]
 
 _TYPES = ("local", "device", "nccl", "tpu_sync", "dist_sync",
           "dist_device_sync", "dist_async", "dist")
-_SPARSE = ("sparse values need ndarray/sparse.py, not ported yet (ROADMAP "
-           "queue A item 13, order step 5)")
 
 
 def _ctype_key_value(key, vals):
@@ -69,16 +77,16 @@ def _ctype_key_value(key, vals):
     return [key], [vals]
 
 
+def _sparse(arr):
+    return getattr(arr, "stype", "default") != "default"
+
+
 def _clone(arr):
     """A detached copy of ``arr`` on its device, outside any autograd
-    graph."""
+    graph (a sparse array's components copied)."""
+    if _sparse(arr):
+        return arr.copy()
     return NDArray(arr._data.detach().clone())
-
-
-def _check_dense(value):
-    for v in value if isinstance(value, (list, tuple)) else [value]:
-        if getattr(v, "stype", "default") != "default":
-            raise NotImplementedError("kvstore: %s" % _SPARSE)
 
 
 class _TwoBitCompressor:
@@ -200,7 +208,6 @@ class KVStore:
             self._push_one(k, v)
 
     def _push_one(self, k, v):
-        _check_dense(v)
         # local phase: aggregation and compression mutate worker-local
         # state (the compression residual), so they run exactly once
         if isinstance(v, (list, tuple)):
@@ -208,7 +215,7 @@ class KVStore:
                                            for x in v[1:]])
         else:
             agg = v
-        if self._compression is not None:
+        if self._compression is not None and not _sparse(agg):
             agg = self._compression.compress(k, agg)
         # communication phase: the only retried region; the latency is
         # the caller's, retry backoff included
@@ -221,6 +228,9 @@ class KVStore:
             self._ensure_updater()
         if self._updater is not None:
             self._updater(self._key_index(k), agg, self._data[k])
+        elif _sparse(agg):
+            # no updater: the merged value replaces the stored one
+            self._data[k] = agg.copy()
         else:
             # no updater: the merged value replaces the stored one; a
             # value that is still a caller's tensor is copied first
@@ -233,7 +243,13 @@ class KVStore:
     @staticmethod
     def _tree_sum(vals):
         """The Reduce of a list push: the per-context copies summed in
-        list order (``((v0 + v1) + v2) + ...``), outside autograd."""
+        list order (``((v0 + v1) + v2) + ...``), outside autograd; sparse
+        copies by their own sum (row_sparse by row union)."""
+        if any(_sparse(v) for v in vals):
+            agg = vals[0]
+            for other in vals[1:]:
+                agg = agg + other
+            return agg
         agg = vals[0]._data.detach()
         for other in vals[1:]:
             agg = agg + other._data.detach()
@@ -241,8 +257,10 @@ class KVStore:
 
     @staticmethod
     def _like(arr, ref):
-        """``arr`` on ``ref``'s device (itself when it is there)."""
-        if arr._data.device == ref._data.device:
+        """``arr`` on ``ref``'s device (itself when it is there; a
+        sparse array keeps its own placement)."""
+        if _sparse(arr) or _sparse(ref) \
+                or arr._data.device == ref._data.device:
             return arr
         return NDArray(arr._data.detach().to(ref._data.device))
 
@@ -253,6 +271,13 @@ class KVStore:
         returns ``arr`` itself."""
         if not self._is_dist or self.num_workers == 1:
             return arr
+        if arr.stype == "row_sparse":
+            return self._global_reduce_rsp(arr)
+        if arr.stype == "csr":
+            # csr is no dist-push format of the reference (its server
+            # merges row_sparse only): reduced dense, cast back
+            return self._global_reduce(arr.tostype("default")) \
+                .tostype("csr")
         import torch.distributed as dist
         buf = arr._data.detach().clone()
         dist.all_reduce(buf, op=dist.ReduceOp.SUM)
@@ -260,18 +285,51 @@ class KVStore:
                              * buf.element_size() * (self.num_workers - 1))
         return NDArray(buf)
 
+    def _global_reduce_rsp(self, arr):
+        """The cross-process sum of a row_sparse value by row union (the
+        reference server's row_sparse merge, kvstore_dist_server.h:499):
+        each rank marks its rows in a one-byte mask of the value's
+        first dimension, one all-reduce (MAX) of the masks gives every
+        rank the same sorted union, each rank scatters its rows onto
+        their union slots (the rows are unique: exact), and only that
+        (U, ...) block is summed across ranks by :meth:`_global_reduce`.
+        The value never densifies to its full shape."""
+        import torch.distributed as dist
+        from .ndarray.sparse import RowSparseNDArray
+        data = arr.data._data.detach()
+        idx = arr.indices._data.to(torch.long)
+        mask = torch.zeros(arr.shape[0], dtype=torch.uint8,
+                           device=data.device)
+        mask[idx] = 1
+        dist.all_reduce(mask, op=dist.ReduceOp.MAX)
+        union = torch.nonzero(mask).squeeze(1)
+        block = torch.zeros((union.numel(),) + tuple(arr.shape[1:]),
+                            dtype=data.dtype, device=data.device)
+        block.index_add_(0, torch.searchsorted(union, idx), data)
+        summed = self._global_reduce(NDArray(block))
+        return RowSparseNDArray(summed, NDArray(union.to(torch.int32)),
+                                arr.shape, ctx=arr.context)
+
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy each key's stored value into ``out`` (an NDArray or a list
-        of them), in place where shape, dtype and device match."""
+        of them), in place where shape, dtype and device match. A sparse
+        stored value is skipped, unless ``ignore_sparse=False``: then it
+        is copied (``copyto``) into each destination."""
         keys, outs = _ctype_key_value(key, out)
         for k, o in zip(keys, outs):
             with telemetry.comm_span("pull", k, self._data.get(k)):
-                self._guarded(functools.partial(self._pull_one, k, o),
+                self._guarded(functools.partial(self._pull_one, k, o,
+                                                ignore_sparse),
                               site="pull")
 
-    def _pull_one(self, k, o):
+    def _pull_one(self, k, o, ignore_sparse=True):
         if k not in self._data:
             raise MXNetError("kvstore: key %s not initialized" % str(k))
+        if _sparse(self._data[k]):
+            if not ignore_sparse:
+                for dst in o if isinstance(o, (list, tuple)) else [o]:
+                    self._data[k].copyto(dst)
+            return
         v = self._data[k]._data
         for dst in o if isinstance(o, (list, tuple)) else [o]:
             d = dst._data
@@ -288,9 +346,35 @@ class KVStore:
             self.pull(key, out, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        """The requested rows of a row_sparse value (reference:
-        kvstore.py row_sparse_pull): raises until sparse arrays land."""
-        raise NotImplementedError("row_sparse_pull: %s" % _SPARSE)
+        """The rows ``row_ids`` names of each key's value, into row_sparse
+        destinations (reference: kvstore.py row_sparse_pull): the ids
+        deduplicated and sorted on the device (one host sync for their
+        count), the rows gathered there. ``row_ids`` is one NDArray for
+        every key or one a key; a dense ``out`` raises ``MXNetError``."""
+        from .ndarray.sparse import RowSparseNDArray
+        if out is None or row_ids is None:
+            raise AssertionError("row_sparse_pull needs out and row_ids")
+        keys, outs = _ctype_key_value(key, out)
+        if isinstance(row_ids, NDArray):
+            row_ids = [row_ids] * len(keys)
+        for k, o, rid in zip(keys, outs, row_ids):
+            v = self._data[k]
+            if _sparse(v):
+                v = v.tostype("default")
+            dev = v._data.device
+            ids = rid._data.detach() if isinstance(rid, NDArray) \
+                else torch.as_tensor(rid)
+            ids = torch.unique(ids.reshape(-1).to(dev, torch.long))
+            rows = v.take(NDArray(ids))
+            for tgt in o if isinstance(o, (list, tuple)) else [o]:
+                if not isinstance(tgt, RowSparseNDArray):
+                    raise MXNetError(
+                        "row_sparse_pull requires 'out' arrays with "
+                        "stype='row_sparse', got a dense NDArray for key "
+                        "%s" % (k,))
+                tgt._sp_data = rows.copy()
+                tgt._sp_indices = NDArray(ids.to(torch.int32))
+                tgt._shape = v.shape
 
     # -- updater/optimizer ----------------------------------------------
     def set_updater(self, updater):

@@ -111,8 +111,8 @@ class NDArray:
 
     @property
     def stype(self):
-        """The storage type: always ``"default"`` (dense); sparse arrays
-        are not ported (ROADMAP queue A item 13)."""
+        """The storage type: ``"default"`` (dense); the sparse arrays of
+        ``ndarray/sparse.py`` say ``"csr"`` or ``"row_sparse"``."""
         return "default"
 
     @property
@@ -196,13 +196,12 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        """This array for ``"default"``; a sparse storage type raises."""
+        """This array for ``"default"``, else its ``cast_storage`` to
+        ``"csr"`` or ``"row_sparse"``."""
         if stype == "default":
             return self
-        raise NotImplementedError(
-            "NDArray.tostype(%r): sparse storage needs ndarray/sparse.py, "
-            "not ported yet (ROADMAP queue A item 13, order step 5)"
-            % (stype,))
+        from . import sparse as _sp
+        return _sp.cast_storage(self, stype)
 
     def to_dlpack_for_read(self):
         return torch.utils.dlpack.to_dlpack(self._data.detach())
@@ -785,7 +784,13 @@ def logical_xor(lhs, rhs):
 # ---------------------------------------------------------------------------
 
 _SAVE_LIST_KEY = "__mxnet_tpu_list__"
-_SPARSE_KEYS = ("__sparse_csr__::", "__sparse_rsp__::")
+# a sparse entry spills its components under reserved key prefixes
+# inside the same npz payload (the JAX package's layout, after the
+# reference's sparse-aware NDArray::Save, ndarray.cc:1576)
+_SP_CSR_KEY = "__sparse_csr__::"
+_SP_RSP_KEY = "__sparse_rsp__::"
+_SPARSE_LAYOUT = {"csr": (_SP_CSR_KEY, ("data", "indices", "indptr")),
+                  "row_sparse": (_SP_RSP_KEY, ("data", "indices"))}
 
 
 def host_numpy(tensor):
@@ -807,50 +812,87 @@ def tensor_from_numpy(arr):
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+def _flatten_entry(key, val, arrays, convert=host_numpy):
+    """``val``'s tensors, each through ``convert``, into ``arrays``: a
+    dense array's under ``key``, a sparse one's components under
+    ``<prefix><key>::<part>`` beside its shape (int64)."""
+    layout = _SPARSE_LAYOUT.get(val.stype)
+    if layout is None:
+        arrays[key] = convert(val._data)
+        return
+    prefix, parts = layout
+    for part in parts:
+        arrays["%s%s::%s" % (prefix, key, part)] = \
+            convert(getattr(val, part)._data)
+    arrays["%s%s::shape" % (prefix, key)] = np.asarray(val.shape, np.int64)
+
+
 def save(fname, data):
     """Write an NDArray, a list of them or a ``{name: NDArray}`` dict
     to ``fname`` (write-then-rename: a preempted save never leaves a
-    truncated file there)."""
+    truncated file there). Sparse arrays are saved in the JAX package's
+    component layout."""
     if isinstance(data, NDArray):
         data = [data]
     if isinstance(data, dict):
-        arrays = {k: host_numpy(v._data) for k, v in data.items()}
+        items = list(data.items())
     elif isinstance(data, (list, tuple)):
-        arrays = {"%s%d" % (_SAVE_LIST_KEY, i): host_numpy(v._data)
-                  for i, v in enumerate(data)}
+        items = [("%s%d" % (_SAVE_LIST_KEY, i), v)
+                 for i, v in enumerate(data)]
     else:
         raise ValueError("data needs to either be a NDArray, dict of (str, "
                          "NDArray) pairs or a list of NDarrays.")
+    arrays = {}
+    for key, val in items:
+        _flatten_entry(key, val, arrays)
     tmp = fname + ".tmp"
     with open(tmp, "wb") as sink:
         np.savez(sink, **arrays)
     os.replace(tmp, fname)
 
 
-def load_arrays(loaded, ctx=None):
-    """``{key: NDArray}`` from an npz mapping, on ``ctx`` (the current
-    context by default). Sparse entries raise: sparse arrays are not
-    ported (ROADMAP queue A item 13)."""
-    sparse = [k for k in loaded.keys() if k.startswith(_SPARSE_KEYS)]
-    if sparse:
-        raise NotImplementedError(
-            "nd.load: sparse entries (%s) need ndarray/sparse.py, not "
-            "ported yet (ROADMAP queue A item 13)" % sparse[0])
-    device = (ctx or current_context()).torch_device()
-    out = {}
+def _host_nd(arr, device):
+    if isinstance(arr, torch.Tensor):
+        return NDArray(arr.to(device))
+    if arr.dtype.kind != "V":
+        arr = arr.astype(_canonical(arr.dtype), copy=False)
+    return NDArray(tensor_from_numpy(arr).to(device))
+
+
+def unflatten_arrays(loaded, ctx=None):
+    """``{key: NDArray}`` from a mapping of host arrays (numpy arrays or
+    CPU tensors) in the :func:`save` layout, on ``ctx`` (the current
+    context by default):
+    the sparse components are put back together as CSRNDArray and
+    RowSparseNDArray entries."""
+    from .sparse import CSRNDArray, RowSparseNDArray
+    ctx = ctx or current_context()
+    device = ctx.torch_device()
+    out, sparse_parts = {}, {}
     for k in loaded.keys():
-        arr = loaded[k]
-        if arr.dtype.kind != "V":
-            arr = arr.astype(_canonical(arr.dtype), copy=False)
-        out[k] = NDArray(tensor_from_numpy(arr).to(device))
+        for stype, (prefix, _) in _SPARSE_LAYOUT.items():
+            if k.startswith(prefix):
+                name, part = k[len(prefix):].rsplit("::", 1)
+                sparse_parts.setdefault((name, stype), {})[part] = loaded[k]
+                break
+        else:
+            out[k] = _host_nd(loaded[k], device)
+    for (name, stype), parts in sparse_parts.items():
+        shape = tuple(int(s) for s in parts["shape"])
+        comps = {p: _host_nd(a, device) for p, a in parts.items()
+                 if p != "shape"}
+        out[name] = CSRNDArray(comps["data"], comps["indices"],
+                               comps["indptr"], shape, ctx=ctx) \
+            if stype == "csr" else \
+            RowSparseNDArray(comps["data"], comps["indices"], shape, ctx=ctx)
     return out
 
 
 def load(fname):
-    """What :func:`save` wrote: a list when it saved one, else the
-    ``{name: NDArray}`` dict."""
+    """What :func:`save` (of either package) wrote: a list when it saved
+    one, else the ``{name: NDArray}`` dict."""
     with open(fname, "rb") as f:
-        out = load_arrays(np.load(f, allow_pickle=False))
+        out = unflatten_arrays(np.load(f, allow_pickle=False))
     keys = list(out)
     if keys and all(k.startswith(_SAVE_LIST_KEY) for k in keys):
         return [out["%s%d" % (_SAVE_LIST_KEY, i)] for i in range(len(keys))]

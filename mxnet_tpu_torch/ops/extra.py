@@ -1,7 +1,9 @@
 """Breadth operators (counterpart of ``mxnet_tpu/ops/extra.py``, without
-its sparse, image, spatial-sampling and synchronized ops, which come
-with later steps of ROADMAP queue A): ``Crop``, the FFT pair, the 2-D
-resize and adaptive pooling, ``_histogram``, the index (un)ravelling,
+its image, spatial-sampling and synchronized ops, which come with later
+steps of ROADMAP queue A): the dense bodies of the sparse ops
+(``_square_sum``, ``_contrib_getnnz``, ``_contrib_SparseEmbedding``; the
+sparse arrays themselves live in ``ndarray/sparse.py``), ``Crop``, the
+FFT pair, the 2-D resize and adaptive pooling, ``_histogram``, the index (un)ravelling,
 ``hard_sigmoid``, ``add_n``, the graph helpers (``_grad_add``,
 ``_identity_with_attr_like_rhs``, ``_zeros_without_dtype``),
 ``_split_v2``, the slice and scatter assignments (out of place, as the
@@ -152,6 +154,50 @@ def _unravel_index(attrs, data):
 
 register("_unravel_index", _unravel_index, arg_names=_D,
          defaults={"shape": ()})
+
+def _square_sum(attrs, data):
+    """The sum of squares over ``axis`` (all axes for None); ``exclude``
+    is accepted and ignored, as in the JAX package."""
+    axis = attrs.get("axis", None)
+    sq = data * data
+    if axis is None:
+        out = sq.sum()
+        return out.reshape((1,) * data.ndim) if attrs.get("keepdims") \
+            else out
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    if not axes:
+        return sq
+    return sq.sum(dim=axes, keepdim=bool(attrs.get("keepdims", False)))
+
+
+register("_square_sum", _square_sum, arg_names=_D,
+         defaults={"axis": None, "keepdims": False, "exclude": False})
+
+
+def _getnnz(attrs, data):
+    """The count of non-zero entries (over ``axis``), int32 as the JAX
+    package's index dtype."""
+    nz = data.ne(0)
+    axis = attrs.get("axis", None)
+    if axis is None:
+        return nz.sum(dtype=torch.int32)
+    return nz.sum(dim=axis, dtype=torch.int32)
+
+
+register("_contrib_getnnz", _getnnz, arg_names=_D, defaults={"axis": None})
+
+
+def _sparse_embedding(attrs, data, weight):
+    """``Embedding``'s lookup (its gradient is dense here, as in the JAX
+    package)."""
+    from .registry import get_op
+    return get_op("Embedding").forward(dict(attrs), data, weight)
+
+
+register("_contrib_SparseEmbedding", _sparse_embedding,
+         arg_names=("data", "weight"),
+         defaults={"input_dim": 0, "output_dim": 0, "dtype": "float32",
+                   "sparse_grad": True})
 
 register("hard_sigmoid", lambda attrs, x: torch.clamp(
     float(attrs.get("alpha", 0.2)) * x + float(attrs.get("beta", 0.5)),

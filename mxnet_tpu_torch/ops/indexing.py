@@ -3,8 +3,9 @@
 clipped into range), ``pick`` (one element per row along an axis,
 ``clip`` or ``wrap`` indices), ``gather_nd``/``scatter_nd``, ``take``,
 ``batch_take``, ``one_hot``, ``sort``/``argsort``/``topk``, ``_getitem``
-(the NDArray indexing encoding as one op), ``_contrib_boolean_mask`` and
-``_contrib_index_copy``.
+(the NDArray indexing encoding as one op), ``_contrib_boolean_mask``,
+``_contrib_index_copy`` and ``_sparse_retain`` (the dense body of row
+retention).
 
 Ties follow the JAX package, on both devices: ``sort``/``argsort`` sort
 stably and flip for descending order (so tied elements come out in
@@ -250,3 +251,23 @@ def _getitem(attrs, data, *index_arrays):
 register("_getitem", _getitem, arg_names=("data",),
          defaults={"spec": (), "num_arrays": 0},
          key_var_num_args="num_arrays")
+
+
+def _sparse_retain(attrs, data, indices):
+    """Row retention on dense storage (reference:
+    src/operator/tensor/sparse_retain.cc): the rows of ``data`` whose
+    index ``indices`` does not name become zero (``ndarray.sparse.retain``
+    drops them from a row_sparse array instead)."""
+    n = data.shape[0]
+    idx = indices.detach().reshape(-1).to(torch.long)
+    # a scatter of the named rows (an index outside [0, n) names none),
+    # which makes the host wait for nothing, as torch.isin would
+    hits = torch.zeros(n, dtype=torch.int32, device=data.device)
+    hits.index_put_((idx.clamp(0, n - 1),),
+                    ((idx >= 0) & (idx < n)).to(torch.int32),
+                    accumulate=True)
+    keep = (hits > 0).to(data.dtype)
+    return data * keep.reshape((-1,) + (1,) * (data.dim() - 1))
+
+
+register("_sparse_retain", _sparse_retain, arg_names=("data", "indices"))

@@ -37,8 +37,14 @@ their ``mxnet_tpu`` paths and whose NDArrays pickle as ``{"data":
 numpy, "ctx": str}`` (:mod:`~mxnet_tpu_torch.optimizer._pickle`), so a
 ``.states`` file crosses between the packages both ways.
 
-Not ported: row-sparse (lazy) updates, which need ``ndarray/sparse.py``
-(ROADMAP queue A item 13).
+**Lazy row updates.** A row_sparse gradient (``ndarray/sparse.py``;
+what ``Trainer`` builds for an ``Embedding(sparse_grad=True)``) updates
+only the rows it names: SGD (with ``lazy_update``, the default), Adam
+(the same), AdaGrad and Ftrl gather those rows of the weight and of each
+state, run the registered update op on that block and scatter the
+results back (:func:`_lazy_row_update`). Untouched rows and their states
+take no weight decay and no momentum decay. ``lazy_update=False``
+densifies the gradient instead.
 """
 from __future__ import annotations
 
@@ -83,6 +89,35 @@ def _apply(op_name, inputs, attrs):
         inputs[0]._data.copy_(out[0])
         for mi, val in zip(op.mutable_inputs, out[n_out:]):
             inputs[mi]._data.copy_(val)
+
+
+def _lazy_row_update(op_name, weight, grad, states, attrs):
+    """The row-lazy sparse update (reference: the row_sparse kernels of
+    src/operator/optimizer_op.cc with ``lazy_update=True``): the
+    registered update op runs on the rows ``grad`` names, gathered from
+    the weight and from each state, and its results are scattered back
+    into those rows in place (the row ids are unique, so the scatter is
+    exact); no other row, and no other row of a state, changes."""
+    op = _ops.get_op(op_name)
+    nattrs = _ops.normalize_attrs(op, attrs)
+    rows = grad.indices._data.to(torch.long)
+    with torch.no_grad():
+        picked = [weight._data.index_select(0, rows), grad.data._data] + \
+            [s._data.index_select(0, rows) for s in states]
+        out = op.forward(nattrs, *picked)
+        if not isinstance(out, (tuple, list)):
+            out = (out,)
+        n_out = op.resolve_num_outputs(nattrs)
+        weight._data.index_copy_(0, rows, out[0].to(weight._data.dtype))
+        for mi, val in zip(op.mutable_inputs, out[n_out:]):
+            state = states[mi - 2]._data
+            state.index_copy_(0, rows, val.to(state.dtype))
+
+
+def _rsp_grad(grad):
+    """``grad`` when it is a RowSparseNDArray, else None."""
+    return grad if getattr(grad, "stype", "default") == "row_sparse" \
+        else None
 
 
 def _zeros_like(weight):
@@ -296,8 +331,8 @@ class Optimizer:
 
 @register
 class SGD(Optimizer):
-    """SGD with momentum and multi-precision (reference:
-    optimizer.py:498)."""
+    """SGD with momentum, lazy sparse rows and multi-precision
+    (reference: optimizer.py:498)."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -321,6 +356,16 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         _, _, kw = self._step_inputs(index)
+        rsp = _rsp_grad(grad)
+        if rsp is not None:
+            if not self.lazy_update:
+                grad = rsp.tostype("default")
+            elif self.momentum != 0.0:
+                return _lazy_row_update("sgd_mom_update", weight, rsp,
+                                        [state],
+                                        dict(kw, momentum=self.momentum))
+            else:
+                return _lazy_row_update("sgd_update", weight, rsp, [], kw)
         if self.momentum != 0.0:
             _apply("sgd_mom_update", [weight, grad, state],
                    dict(kw, momentum=self.momentum))
@@ -454,6 +499,12 @@ class Adam(Optimizer):
         kw["lr"] = self._corrected(lr, index)
         mean, var = state
         kw.update(beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon)
+        rsp = _rsp_grad(grad)
+        if rsp is not None:
+            if self.lazy_update:
+                return _lazy_row_update("adam_update", weight, rsp,
+                                        [mean, var], kw)
+            grad = rsp.tostype("default")
         _apply("adam_update", [weight, grad, mean, var], kw)
 
     def fused_step_fn(self, index, weight):
@@ -491,7 +542,7 @@ class Adam(Optimizer):
 @register
 class AdaGrad(Optimizer):
     """Accumulated squared-gradient scaling (reference:
-    optimizer.py:1280)."""
+    optimizer.py:1280); sparse updates are always row-lazy."""
 
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
@@ -503,6 +554,10 @@ class AdaGrad(Optimizer):
     def update(self, index, weight, grad, state):
         _, _, kw = self._step_inputs(index)
         kw["epsilon"] = self.float_stable_eps
+        rsp = _rsp_grad(grad)
+        if rsp is not None:
+            return _lazy_row_update("adagrad_update", weight, rsp, [state],
+                                    kw)
         _apply("adagrad_update", [weight, grad, state], kw)
 
     def fused_step_fn(self, index, weight):
@@ -600,7 +655,8 @@ class RMSProp(Optimizer):
 
 @register
 class Ftrl(Optimizer):
-    """FTRL-proximal (reference: optimizer.py:1440)."""
+    """FTRL-proximal (reference: optimizer.py:1440); sparse updates are
+    row-lazy."""
 
     def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -613,6 +669,9 @@ class Ftrl(Optimizer):
         _, _, kw = self._step_inputs(index)
         kw.update(lamda1=self.lamda1, beta=self.beta)
         z, n = state
+        rsp = _rsp_grad(grad)
+        if rsp is not None:
+            return _lazy_row_update("ftrl_update", weight, rsp, [z, n], kw)
         _apply("ftrl_update", [weight, grad, z, n], kw)
 
 

@@ -116,12 +116,15 @@ def bucketed_kvstore_sync(kvstore, items, cap_bytes=None):
     PLACE (a CUDA graph reading them by address keeps replaying).
 
     Returns True when the bucketed path ran; False (nothing touched) for
-    an empty roster or a store with 2-bit compression, whose residuals
-    are kept per key: the caller keeps its per-key loop."""
+    an empty roster, a sparse gradient among them, or a store with 2-bit
+    compression, whose residuals are kept per key: the caller keeps its
+    per-key loop."""
     from .. import profiler, telemetry, tracing
     from ..ndarray import NDArray
 
-    if not items or getattr(kvstore, "_compression", None) is not None:
+    if not items or getattr(kvstore, "_compression", None) is not None \
+            or any(getattr(g, "stype", "default") != "default"
+                   for _, g in items):
         return False
     # the plan is a function of the roster's signature: cached on the
     # store, so a step does not rebuild it

@@ -523,11 +523,15 @@ def comm(kind, key, nbytes=0, seconds=0.0):
 
 
 def _nbytes(value):
-    """Payload size of an NDArray, a tensor or a list of them."""
+    """Payload size of an NDArray, a tensor, a sparse NDArray (its values
+    and indices) or a list of them."""
     if value is None:
         return 0
     if isinstance(value, (list, tuple)):
         return sum(_nbytes(v) for v in value)
+    sp = getattr(value, "_sp_data", None)
+    if sp is not None:
+        return _nbytes(sp) + _nbytes(getattr(value, "_sp_indices", None))
     data = getattr(value, "_data", value)
     nbytes = getattr(data, "nbytes", None)
     return int(nbytes) if isinstance(nbytes, int) else 0

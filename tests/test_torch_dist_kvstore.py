@@ -1,7 +1,9 @@
 """The port's dist kvstore across processes, on the CPU: two gloo ranks
 run the dense assertions of ``tests/test_dist_kvstore.py`` (34-67), a
 barrier, a planned push fault retried to the same bytes and an endless
-one that raises ``CollectiveTimeoutError``; first spawned directly over
+one that raises ``CollectiveTimeoutError``, and the row_sparse cases
+(69-104: a push reduced by row union, never densified, and
+``row_sparse_pull``); first spawned directly over
 a ``FileStore`` (no TCP port to race for under xdist), then through
 ``tools.launch``'s DMLC_* contract (``tests/test_launch.py``), with the
 launcher's CLI cases; and ``tools.bandwidth.measure``
@@ -98,6 +100,53 @@ _WORKER = textwrap.dedent(r'''
 ''')
 
 
+# tests/test_dist_kvstore.py:69-104 on the port: a row_sparse push
+# reduced by row union across the ranks, never densified, and
+# row_sparse_pull of the reduced value; each rank saves what it holds
+_RSP_WORKER = textwrap.dedent(r'''
+    import sys
+
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+    from mxnet_tpu_torch.parallel import distributed
+
+    distributed.init("file://" + sys.argv[1], int(sys.argv[2]),
+                     int(sys.argv[3]))
+    kv = mx.kv.create("dist_sync")
+    rank, nw = kv.rank, kv.num_workers
+    rsp_shape = (20, 3)
+    kv.init(11, mx.nd.zeros(rsp_shape))
+    rows = np.array([1 + rank, 5, 12 + rank], dtype=np.int64)  # overlap @5
+    vals = np.random.RandomState(rank).randn(3, 3).astype(np.float32)
+    rsp = RowSparseNDArray(mx.nd.array(vals), mx.nd.array(rows), rsp_shape)
+
+    orig_tostype = RowSparseNDArray.tostype
+
+    def _no_densify(self, stype):
+        raise AssertionError("rsp cross-worker push densified")
+    RowSparseNDArray.tostype = _no_densify
+    kv.push(11, rsp)
+    RowSparseNDArray.tostype = orig_tostype
+
+    stored = kv._data[11]
+    assert stored.stype == "row_sparse", stored
+    assert stored.indices.asnumpy().tolist() == sorted(
+        {1 + r for r in range(nw)} | {5} | {12 + r for r in range(nw)})
+    out = RowSparseNDArray(mx.nd.zeros((0, 3)),
+                           mx.nd.array(np.zeros((0,), np.int64)), rsp_shape)
+    kv.row_sparse_pull(11, out=out, row_ids=mx.nd.array(
+        np.array([12, 5, 12], np.int64)))
+    assert out.stype == "row_sparse"
+    assert out.indices.asnumpy().tolist() == [5, 12]
+    np.savez(sys.argv[4] + str(rank), indices=stored.indices.asnumpy(),
+             data=stored.data.asnumpy(), pulled=out.data.asnumpy())
+    kv.barrier()
+    print("WORKER_OK %d" % rank, flush=True)
+''')
+
+
 def _env(tmp_path):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("DMLC_", "MXNET_"))}
@@ -135,6 +184,36 @@ def test_two_gloo_ranks_over_a_file_store(tmp_path):
         assert p.returncode == 0, "rank %d failed:\n%s" % (rank,
                                                           out[-3000:])
         assert "WORKER_OK %d" % rank in out
+
+
+def test_two_gloo_ranks_reduce_a_row_sparse_push_by_row_union(tmp_path):
+    """Each rank pushes rows {1 + r, 5, 12 + r} of its own values: the
+    stored union and its values equal the one-process sum, bit for bit
+    on both ranks, and the pull gathers rows 5 and 12 of it."""
+    import numpy as np
+    script = tmp_path / "rsp_worker.py"
+    script.write_text(_RSP_WORKER)
+    store, saved = tmp_path / "store", str(tmp_path / "rank")
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(store), "2", str(rank), saved],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=_env(tmp_path), cwd=str(tmp_path)) for rank in range(2)]
+    outs = _wait(procs)
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, "rank %d failed:\n%s" % (rank,
+                                                          out[-3000:])
+        assert "WORKER_OK %d" % rank in out
+    want = np.zeros((20, 3), np.float32)
+    for rank in range(2):
+        vals = np.random.RandomState(rank).randn(3, 3).astype(np.float32)
+        want[[1 + rank, 5, 12 + rank]] += vals
+    got = [dict(np.load(saved + "%d.npz" % r)) for r in range(2)]
+    for key in ("indices", "data", "pulled"):
+        np.testing.assert_array_equal(got[0][key], got[1][key])
+    assert got[0]["indices"].tolist() == [1, 2, 5, 12, 13]
+    assert got[0]["indices"].dtype == np.int32
+    np.testing.assert_array_equal(got[0]["data"], want[[1, 2, 5, 12, 13]])
+    np.testing.assert_array_equal(got[0]["pulled"], want[[5, 12]])
 
 
 def test_launch_local_runs_the_dist_kvstore(tmp_path):

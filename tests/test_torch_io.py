@@ -6,8 +6,9 @@ with the same seed give batches EXACTLY equal to the JAX package's
 numpy), with shuffle, random crop, mirror, resize, mean/std and
 round-batch padding; ``CSVIter``, ``MNISTIter`` over local idx files,
 ``ResizeIter`` and ``PrefetchingIter`` follow the JAX iterators batch for
-batch; ``LibSVMIter`` (sparse, item 13) and ``make_sharded_pipeline``
-(a mesh, item 12) raise.
+batch; ``make_sharded_pipeline`` (a mesh, item 12) raises.
+``LibSVMIter``'s csr batches are held to the JAX package's in
+``tests/test_torch_sparse.py``.
 """
 import gzip
 import os
@@ -313,11 +314,6 @@ def test_ndarray_iter_split_protocol_matches_next():
 
 
 def test_unported_iterators_raise(tmp_path):
-    path = tmp_path / "d.libsvm"
-    path.write_text("1 0:1.0 3:2.0\n0 1:0.5\n")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmx.io.LibSVMIter(data_libsvm=str(path), data_shape=(4,),
-                          batch_size=2)
     with pytest.raises(NotImplementedError, match="item 12"):
         tmx.io.make_sharded_pipeline(
             tmx.io.NDArrayIter(np.zeros((4, 2), np.float32), batch_size=2),

@@ -575,17 +575,39 @@ def test_bucketed_sync_equals_the_per_key_loop_bit_for_bit(monkeypatch,
     assert not grad_sync.bucketed_kvstore_sync(kv2, [(0, doubled[0])])
 
 
-def test_sparse_values_raise_naming_item_13_step_5():
+def test_sparse_values_push_and_pull_like_jax():
+    """A row_sparse push stored as row_sparse (a list push summed by row
+    union), skipped by ``pull``, and ``row_sparse_pull`` of a dense
+    stored value deduplicated and sorted into a row_sparse destination;
+    a dense destination raises (tests/test_sparse.py:155-187)."""
+    d = np.zeros((6, 2), np.float32)
+    d[[1, 3]] = 2.0
+    w = _rand(9, 6, 2)
+
+    def run(mx):
+        sp = mx.nd.sparse
+        kv = mx.kv.create("local")
+        kv.init(0, mx.nd.zeros((6, 2)))
+        kv.push(0, [sp.row_sparse_array(d), sp.row_sparse_array(d * 3)])
+        kept = mx.nd.ones((6, 2))
+        kv.pull(0, out=kept)
+        kv.init(1, mx.nd.array(w))
+        out = sp.zeros("row_sparse", (6, 2))
+        kv.row_sparse_pull(1, out=out, row_ids=mx.nd.array([5, 0, 5]))
+        return kv._data[0], kept.asnumpy(), out
+    (stored, kept, out), (jstored, jkept, jout) = _both(run)
+    assert stored.stype == jstored.stype == "row_sparse"
+    np.testing.assert_array_equal(stored.asnumpy(), jstored.asnumpy())
+    np.testing.assert_array_equal(stored.asnumpy(), 4 * d)
+    np.testing.assert_array_equal(kept, jkept)
+    assert list(out.indices.asnumpy()) == list(jout.indices.asnumpy()) \
+        == [0, 5]
+    np.testing.assert_array_equal(out.data.asnumpy(), w[[0, 5]])
     kv = tmx.kv.create("local")
     kv.init(0, tmx.nd.zeros((4, 2)))
-    with pytest.raises(NotImplementedError, match="item 13, order step 5"):
+    with pytest.raises(MXNetError):
         kv.row_sparse_pull(0, out=tmx.nd.zeros((4, 2)),
                            row_ids=tmx.nd.array([1]))
-
-    class _RowSparse:
-        stype = "row_sparse"
-    with pytest.raises(NotImplementedError, match="item 13, order step 5"):
-        kv.push(0, _RowSparse())
 
 
 def test_server_role_is_a_logged_no_op(caplog):

@@ -268,8 +268,18 @@ def test_fixture_checkpoint_loads_through_model():
                     is_train=False)
         np.testing.assert_allclose(mod.get_outputs()[0].asnumpy(),
                                    np.asarray(man["mlp_forward"]), **TOL)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tmx.nd.load(os.path.join(_FIX_ROOT, tag, "arrays.nd"))
+        # tests/test_checkpoint_backcompat.py's sparse payload (order
+        # step 5): the csr and row_sparse entries load and hold the
+        # manifest's values
+        payload = tmx.nd.load(os.path.join(_FIX_ROOT, tag, "arrays.nd"))
+        np.testing.assert_allclose(payload["dense"].asnumpy(),
+                                   np.asarray(man["dense"]), rtol=1e-6)
+        for key, stype, want in (("csr", "csr", "csr_dense"),
+                                 ("rsp", "row_sparse", "rsp_dense")):
+            assert payload[key].stype == stype
+            np.testing.assert_allclose(
+                payload[key].tostype("default").asnumpy(),
+                np.asarray(man[want]), rtol=1e-6)
         dense = tmx.nd.load(os.path.join(_FIX_ROOT, tag, "gluon.params"))
         assert dense and all(isinstance(v, tmx.nd.NDArray)
                              for v in dense.values())

@@ -29,14 +29,14 @@ import mxnet_tpu_torch.ops as tops
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-6)
 
-_STEP5 = "order step 5 (item 13, sparse)"
 _STEP6 = "order step 6 (item 12, parallel/)"
 _STEP8 = "order step 8 (item 13, breadth)"
 
+# the names order step 5 (sparse storage) registered
+STEP5 = {"_square_sum", "_contrib_getnnz", "_contrib_SparseEmbedding",
+         "cast_storage", "_sparse_retain"}
+
 UNPORTED = dict(
-    {n: _STEP5 for n in ("_square_sum", "_contrib_getnnz",
-                         "_contrib_SparseEmbedding", "cast_storage",
-                         "_sparse_retain")},
     _contrib_SyncBatchNorm=_STEP6,
     **{n: _STEP8 for n in (
         "_contrib_edge_id", "_image_normalize", "_image_resize",
@@ -75,17 +75,13 @@ SLICE = {
 
 # public names of mx.nd / mx.sym that wait for a later step
 NS_UNPORTED = dict(
-    {n: _STEP5 for n in ("sparse", "BaseSparseNDArray", "CSRNDArray",
-                         "RowSparseNDArray", "csr_matrix",
-                         "row_sparse_array", "retain", "cast_storage")},
-    **{n: _STEP8 for n in (
+    {n: _STEP8 for n in (
         "Custom", "GridGenerator", "BilinearSampler", "SpatialTransformer",
         "Correlation", "MultiBoxDetection", "MultiBoxPrior",
         "MultiBoxTarget", "MultiProposal", "Proposal", "ROIAlign",
         "ROIPooling")})
 
 CONTRIB_UNPORTED = dict(
-    {n: _STEP5 for n in ("SparseEmbedding", "getnnz")},
     SyncBatchNorm=_STEP6,
     **{n: _STEP8 for n in (
         "edge_id", "dequantize", "quantize", "quantize_v2",
@@ -150,17 +146,20 @@ def test_every_jax_op_is_registered_alike_or_listed(name):
 
 
 def test_the_port_registers_328_of_382_names_and_nothing_of_its_own():
+    """328 names through order step 3; order step 5 added five (333),
+    and 49 wait in ``UNPORTED``."""
     jax_names, port_names = set(jops.list_ops()), set(tops.list_ops())
     assert port_names <= jax_names
-    assert len(jax_names) == 382 and len(port_names) == 328
-    assert jax_names - port_names == set(UNPORTED)
+    assert len(jax_names) == 382 and len(port_names - STEP5) == 328
+    assert STEP5 <= port_names and len(port_names) == 333
+    assert jax_names - port_names == set(UNPORTED) and len(UNPORTED) == 49
 
 
 def test_the_slice_registers_179_names_by_module():
     """The names this slice added, by the JAX module that registers
     them (the ``_v1`` names sit in the JAX package's extra.py; the port
     registers them in its nn.py, beside the ops they rename)."""
-    added = set(tops.list_ops()) - _EARLIER
+    added = set(tops.list_ops()) - _EARLIER - STEP5
     counts = {}
     for name in added:
         mod = jops.get_op(name).forward.__module__.rsplit(".", 1)[-1]
@@ -210,11 +209,19 @@ def test_every_method_of_the_jax_class_exists(cls):
     assert not (want - got), sorted(want - got)
 
 
-def test_sparse_storage_raises_with_its_step():
-    x = tmx.nd.array(np.ones((2, 3), np.float32))
-    assert x.stype == "default" and x.tostype("default") is x
-    with pytest.raises(NotImplementedError, match="item 13"):
-        x.tostype("csr")
+@pytest.mark.parametrize("stype", ["csr", "row_sparse"])
+def test_sparse_storage_casts_like_jax(stype):
+    """``tostype`` to a sparse storage type and back, and the sparse
+    names of ``mx.nd``, against the JAX package (order step 5)."""
+    x = np.array([[0, 1.5, 0], [0, 0, 0], [2, 0, -1]], np.float32)
+    got, want = (mx.nd.array(x).tostype(stype) for mx in (tmx, jmx))
+    assert got.stype == want.stype == stype
+    np.testing.assert_array_equal(got.indices.asnumpy(),
+                                  want.indices.asnumpy())
+    np.testing.assert_array_equal(got.tostype("default").asnumpy(), x)
+    assert isinstance(got, getattr(tmx.nd, type(want).__name__))
+    dense = tmx.nd.array(x)
+    assert dense.stype == "default" and dense.tostype("default") is dense
 
 
 def test_symbolic_control_flow_raises_with_its_step():
@@ -427,6 +434,7 @@ def test_phase_21_sweeps_every_op_of_the_slice_and_each_case_runs():
     names = {n for ns in swept.values() for n in ns}
     slice_names = set(tops.list_ops()) - _EARLIER
     assert slice_names <= names, sorted(slice_names - names)
+    assert STEP5 <= names
     rs = np.random.RandomState(0)
     cases = cs.ops_cases(rs, act=(2, 16, 12), spd=(2, 6), heads=2, vocab=40,
                          seq=8, width=12)
