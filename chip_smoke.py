@@ -466,10 +466,35 @@ no result, anywhere else. Phases (any failure exits non-zero):
    one-process sum bit for bit on both ranks, no push densifying, a
    push's ms and bytes; (e) the attention, decode and rtc launch counts,
    zeroed before, read 0.
+24. mesh (after 23) — the twentieth slice, the rank mesh, fp32 with TF32
+   off: the three flash kernels held to their plain versions (and timed
+   beside SDPA and their bounds) at the shapes the mesh gives them, B2
+   T1024 H6 D64 (Ulysses over sp = 2) and B4 T1024 H12 D64 (a dp rank);
+   (a)'s twin in this process: phase 10's Gluon LM (``gluon_lm`` behind
+   ``mesh_lm``'s one input, seed 0) one Adam step through the Gluon
+   ``Trainer`` on the global batch 8 x 1024; then two ranks under phase
+   22's launcher (``chip_smoke.py mesh-rank DIR``, gloo, both on
+   gpu(0)): (a) ``parallel.DistributedTrainer`` over ``{"dp": 2}`` with
+   ``grad_overlap=True`` (ZeRO-1) and ``param_shard=True`` (FSDP), Adam
+   lr 1e-3, 10 steps on the global batch (4 rows a rank): the ranks'
+   initial weights equal the twin's, step 1 within MESH_STEP1_FLIP of
+   the twin (the loss before and after within LOSS_ATOL), the loss
+   falling and equal on both ranks, overlap off and FSDP off
+   bit-identical to it after 2 steps, one SGD step's exchanged gradient
+   within phase 10's gradient tolerances of the twin's, parameter and
+   Adam-state bytes a rank about half the twin's, 12 launches of each
+   flash kernel a step (counts zeroed just before the steps and read
+   just after); ms a step, ``sync`` ms (the FSDP entry gather
+   included), peak memory; (b) the LM at B2 T1024 over ``{"sp": 2}`` (512 positions a
+   rank), forward and backward with ``impl="ulysses"`` then ``"ring"``,
+   gradients summed over sp, against the one-process flash route on the
+   same weights (logits within MESH_LOGIT_ATOL, gradients within phase
+   10's tolerances), ms fwd + bwd for each; Ulysses launches each flash
+   kernel 12 times a rank, ring none (its block is plain torch).
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
-path (``path``: server, observability, training, int8 decode, rtc or
-packing;
+path (``path``: server, observability, training, int8 decode, rtc,
+packing, or mesh dp / mesh sp ulysses, rank 0's launches;
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -7694,6 +7719,8 @@ def ops_cases(rs, act, spd, heads, vocab, seq, width):
     })
     for v1 in ("BatchNorm", "Convolution", "Pooling"):
         cases[v1 + "_v1"] = cases[v1]
+    # no mesh in this phase: the synchronized op is BatchNorm's body
+    cases["_contrib_SyncBatchNorm"] = cases["BatchNorm"]
     return cases
 
 
@@ -9611,6 +9638,538 @@ def phase_sparse(card):
     return dict(prim, **lazy, **fm, **dist)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the rank mesh
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_BATCH = 8                      # the global batch of (a): 4 a rank
+MESH_STEPS = 10
+MESH_IDENT_STEPS = 2                # steps of the on/off identity runs
+MESH_ADAM = dict(learning_rate=1e-3)
+MESH_SEED = 0
+MESH_SP_BATCH = 2
+MESH_SP_ITERS = 3
+# (a)'s step 1 against the twin. Adam's first step is about lr * sign(g)
+# whatever g's scale, so it cannot show a wrongly weighted gradient: a
+# one-step SGD run (lr MESH_SGD_LR, no momentum, no wd) moves each weight
+# by exactly the exchanged gradient, held per parameter to the twin's
+# gradient of the global mean at phase 10's GRAD_RTOL (GRAD_RTOL_RELU
+# for the ffn1 weights); a half-batch or mis-scaled gradient is off by
+# 0.5 or more. Of the Adam run's step 1: the loss before and after
+# within LOSS_ATOL of the twin's, and at most MESH_STEP1_FLIP of all the
+# elements stepping the other way
+MESH_SGD_LR = 1.0
+MESH_STEP1_FLIP = 1e-4
+MESH_LOGIT_ATOL = LOGIT_ATOL
+MESH_SP_SHAPE = "B%d T%d H%d D64 causal" % (
+    MESH_SP_BATCH, GPT2_SMALL["max_len"], GPT2_SMALL["n_heads"] // MESH_RANKS)
+MESH_DP_SHAPE = "B%d T%d H%d D64 causal" % (
+    MESH_BATCH // MESH_RANKS, GPT2_SMALL["max_len"], GPT2_SMALL["n_heads"])
+
+
+def mesh_lm(mx):
+    """Phase 10's Gluon LM behind one input: the positions come from the
+    tokens' own length (``contrib.arange_like``), so the
+    DistributedTrainer traces it as ``net(data)``."""
+    DecoderLM = gluon_lm(mx)
+
+    class PositionedLM(mx.gluon.HybridBlock):
+        def __init__(self, **cfg):
+            super().__init__()
+            with self.name_scope():
+                self.lm = DecoderLM(**cfg)
+
+        def hybrid_forward(self, F, tokens):
+            return self.lm(tokens, F.contrib.arange_like(tokens, axis=1))
+
+    return PositionedLM
+
+
+def mesh_cfg():
+    return dict(vocab=GPT2_SMALL["vocab"], layers=GPT2_SMALL["n_layers"],
+                heads=GPT2_SMALL["n_heads"],
+                units=GPT2_SMALL["n_heads"] * GPT2_SMALL["head_dim"],
+                d_ff=GPT2_SMALL["d_ff"], max_len=GPT2_SMALL["max_len"])
+
+
+def mesh_tokens(batch):
+    T = GPT2_SMALL["max_len"]
+    seq = np.random.RandomState(MESH_SEED).randint(
+        0, GPT2_SMALL["vocab"], size=(batch, T + 1))
+    return seq[:, :T].astype(np.float32), seq[:, 1:].astype(np.float32)
+
+
+def mesh_net(mx, ctx):
+    """The LM from seed MESH_SEED (Xavier), on ``ctx``: the same weights
+    in every process that builds it."""
+    PositionedLM = mesh_lm(mx)
+    mx.random.seed(MESH_SEED)
+    net = PositionedLM(**mesh_cfg())
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.array(np.zeros((1, 16), np.float32), ctx=ctx))
+    return net
+
+
+def mesh_host(net):
+    return {n: p.data().asnumpy()
+            for n, p in net._collect_params_with_prefix().items()}
+
+
+def mesh_fingerprint(host):
+    return {n: float(np.abs(v.astype(np.float64)).sum())
+            for n, v in host.items()}
+
+
+def mesh_set(mx, net, host, ctx):
+    for n, p in net._collect_params_with_prefix().items():
+        p.set_data(mx.nd.array(host[n], ctx=ctx))
+
+
+def mesh_twin(mx, ctx):
+    """(a)'s twin: phase 10's one-process Gluon Trainer (Adam, fused
+    update) on the global batch, one step; the weights before and after
+    and the gradient of the global mean on the host, the step's loss,
+    and the full parameter and Adam state bytes."""
+    net = mesh_net(mx, ctx)
+    init = mesh_host(net)
+    x, y = mesh_tokens(MESH_BATCH)
+    tokens, labels = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               dict(MESH_ADAM))
+    with mx.autograd.record():
+        loss = loss_fn(net(tokens), labels)
+    loss.backward()
+    grad = {n: p.grad().asnumpy() / MESH_BATCH
+            for n, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+    trainer.step(MESH_BATCH)
+    step1 = mesh_host(net)
+    with mx.autograd.pause():
+        loss2 = float(loss_fn(net(tokens), labels).mean().asscalar())
+    n = sum(v.size for v in init.values())
+    rec = dict(init=init, step1=step1, grad=grad,
+               loss=float(loss.mean().asscalar()),
+               loss2=loss2,
+               param_bytes=4 * n, state_bytes=8 * n, n_params=n,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del net, trainer, loss, tokens, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_rank_dp(mx, par, tfa, ctx, rank, outdir, init, say):
+    """(a) on one rank: the DistributedTrainer over {"dp": 2} with
+    ZeRO-1 and FSDP, MESH_STEPS Adam steps on the global batch; then the
+    overlap-off and FSDP-off runs, MESH_IDENT_STEPS steps each from the
+    same weights, held bit for bit to the first run's weights at that
+    step; then one SGD step of the first run's modes (rank 0's weights
+    after it to sgd1.npz)."""
+    mesh = par.create_mesh({"dp": MESH_RANKS})
+    x, y = mesh_tokens(MESH_BATCH)
+    tokens, labels = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    net = mesh_net(mx, ctx)
+    out = {"fingerprint": mesh_fingerprint(mesh_host(net))}
+
+    def trainer(overlap, shard, optimizer="adam", params=MESH_ADAM):
+        mesh_set(mx, net, init, ctx)
+        return par.DistributedTrainer(
+            net, loss_fn, mesh, optimizer=optimizer,
+            optimizer_params=dict(params), grad_overlap=overlap,
+            param_shard=shard)
+
+    tr = trainer(True, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()              # (a)'s main path starts here
+    curve, step_ms, sync_ms, ident = [], [], [], None
+    for step in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        loss = float(tr.fit_batch(tokens, labels).asscalar())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sync_ms.append(tr.last_sync_s * 1e3)
+        curve.append(loss)
+        if step + 1 in (1, MESH_IDENT_STEPS):
+            tr.sync_gluon_params()
+            host = mesh_host(net)
+            if step == 0 and rank == 0:
+                np.savez(os.path.join(outdir, "step1.npz"), **host)
+            if step + 1 == MESH_IDENT_STEPS:
+                ident = host
+    out["launches"] = dict(tfa.launches)      # ... and ends here
+    out.update(curve=curve, step_ms=step_ms, sync_ms=sync_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               state_bytes=tr.state_bytes_per_device(),
+               param_bytes=tr.param_bytes_per_device(),
+               breakdown=tr._memory_breakdown(),
+               buckets=len(tr._plan.buckets),
+               padded=[pl.name for pl in tr._param_plans if pl.padded],
+               sharded=sum(pl.sharded for pl in tr._param_plans),
+               plans=len(tr._param_plans))
+    say("(a) rank %d: loss %.4f -> %.4f, %.1f ms a step (sync %.1f), peak "
+        "%.2f GB, launches %s" % (rank, curve[0], curve[-1],
+                                  statistics.median(step_ms[1:]),
+                                  statistics.median(sync_ms[1:]),
+                                  out["peak_gb"], out["launches"]))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["identity"] = {}
+    for name, overlap, shard in (("overlap off", False, True),
+                                 ("FSDP off", True, False)):
+        tr = trainer(overlap, shard)
+        for _ in range(MESH_IDENT_STEPS):
+            tr.fit_batch(tokens, labels)
+        tr.sync_gluon_params()
+        host = mesh_host(net)
+        out["identity"][name] = all(np.array_equal(host[n], ident[n])
+                                    for n in ident)
+        del tr, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("(a) rank %d: bit-identical after %d steps: %s"
+        % (rank, MESH_IDENT_STEPS, out["identity"]))
+    tr = trainer(True, True, "sgd", dict(learning_rate=MESH_SGD_LR))
+    out["sgd_loss"] = float(tr.fit_batch(tokens, labels).asscalar())
+    tr.sync_gluon_params()
+    if rank == 0:
+        np.savez(os.path.join(outdir, "sgd1.npz"), **mesh_host(net))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_grads(net):
+    return {n: p.grad()._data.clone()
+            for n, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+
+
+def mesh_rank_sp(mx, par, tfa, ctx, rank, init, say):
+    """(b) on one rank: the LM at B2 T1024 over {"sp": 2}, this rank's
+    512 positions, forward and backward with impl="ulysses" and then
+    "ring" (the gradients summed over the axis), against the one-process
+    flash route over the whole sequence, on the same weights."""
+    from mxnet_tpu_torch.parallel import collectives
+    mesh = par.create_mesh({"sp": MESH_RANKS})
+    x, y = mesh_tokens(MESH_SP_BATCH)
+    T = x.shape[1]
+    Tl = T // MESH_RANKS
+    lo, hi = rank * Tl, (rank + 1) * Tl
+    net = mesh_net(mx, ctx)
+    mesh_set(mx, net, init, ctx)
+    lm = net.lm
+    layers = [lm.layers[i] for i in range(len(lm.layers))]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def route(impl, tok, lab, pos, denom, sharded, grads=True):
+        """Forward + backward; with ``grads``, the gradients (summed over
+        the sp ranks when ``sharded``)."""
+        for layer in layers:
+            layer.attn._impl = impl
+        for p in net.collect_params().values():
+            if p.grad_req != "null":
+                p.zero_grad()
+        with par.use_mesh(mesh if sharded else None):
+            with mx.autograd.record():
+                logits = lm(tok, pos)
+                loss = loss_fn(logits, lab).sum() / denom
+            loss.backward()
+        torch.cuda.synchronize()
+        if not grads:
+            return logits._data, None
+        out = mesh_grads(net)
+        if sharded:
+            out = {n: collectives.all_reduce(g, mesh, "sp")
+                   for n, g in out.items()}
+        return logits._data, out
+
+    def timed_route(*args):
+        """ms of forward + backward (the gradient sum not included)."""
+        ms = []
+        for _ in range(MESH_SP_ITERS):
+            t0 = time.perf_counter()
+            route(*args, grads=False)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    tok = mx.nd.array(x[:, lo:hi], ctx=ctx)
+    lab = mx.nd.array(y[:, lo:hi], ctx=ctx)
+    pos = mx.nd.array(np.arange(lo, hi, dtype=np.float32), ctx=ctx)
+    denom = float(MESH_SP_BATCH * MESH_RANKS)
+    full = (mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx),
+            mx.nd.array(np.arange(T, dtype=np.float32), ctx=ctx),
+            float(MESH_SP_BATCH), False)
+    ref_logits, ref_grads = route("flash", *full)
+    ref_logits = ref_logits[:, lo:hi]
+    out = {"ref_ms": timed_route("flash", *full)}
+    for impl in ("ulysses", "ring"):
+        tfa.reset_launches()              # (b)'s route starts here
+        logits, grads = route(impl, tok, lab, pos, denom, True)
+        out[impl] = {"launches": dict(tfa.launches)}   # ... ends here
+        ratios = {n: float((grads[n] - g).abs().max()
+                           / g.abs().max().clamp_min(1e-30))
+                  for n, g in ref_grads.items()}
+        over = [n for n, r in ratios.items()
+                if r > (GRAD_RTOL_RELU if n.endswith("ffn1.weight")
+                        else GRAD_RTOL)]
+        out[impl].update(
+            logit_err=float((logits - ref_logits).abs().max()),
+            grad_worst=max(ratios.values()),
+            grad_median=statistics.median(ratios.values()),
+            grad_worst_name=max(ratios, key=ratios.get), grad_over=over,
+            ms=timed_route(impl, tok, lab, pos, denom, True))
+        say("(b) rank %d %s: logits max abs err %.3g, gradients worst "
+            "%.3g (%s), %.1f ms fwd+bwd (one process %.1f), launches %s"
+            % (rank, impl, out[impl]["logit_err"], out[impl]["grad_worst"],
+               out[impl]["grad_worst_name"], out[impl]["ms"],
+               out["ref_ms"], out[impl]["launches"]))
+    del net, lm, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_main(outdir):
+    """One rank of phase 24, spawned by ``python -m mxnet_tpu_torch.tools.
+    launch -n 2`` (``chip_smoke.py mesh-rank DIR``) on gpu(0): (a) and
+    (b); its readings to DIR/rank<r>.json, rank 0's step-1 weights to
+    DIR/step1.npz, its log to DIR/rank<r>.log; any failure is written
+    there and exits 1."""
+    import traceback
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    log = open(os.path.join(outdir, "rank%d.log" % rank), "w")
+
+    def say(line):
+        log.write(line + "\n")
+        log.flush()
+        print(line, flush=True)
+    res = {"rank": rank}
+    try:
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import parallel as par
+        from mxnet_tpu_torch.parallel import distributed
+        tfa = importlib.import_module(
+            "mxnet_tpu_torch.parallel.flash_attention")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ctx = mx.gpu(0)
+        res["backend"] = distributed.backend()
+        say("rank %d of %d joined: backend %s, device %s"
+            % (rank, distributed.num_workers(), res["backend"],
+               torch.cuda.get_device_name(0)))
+        init = mesh_host(mesh_net(mx, ctx))
+        torch.cuda.empty_cache()
+        res["a"] = mesh_rank_dp(mx, par, tfa, ctx, rank, outdir, init, say)
+        res["b"] = mesh_rank_sp(mx, par, tfa, ctx, rank, init, say)
+        distributed.barrier()
+        say("rank %d done" % rank)
+    except Exception:                            # noqa: BLE001
+        res["error"] = traceback.format_exc()
+        say(res["error"])
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    log.close()
+    return 1 if "error" in res else 0
+
+
+def mesh_sgd_grads(twin, outdir):
+    """The SGD step's exchanged gradient, ``(init - after) / lr``, held
+    to the twin's gradient: ``{name: max|diff| / max|grad|}``."""
+    out = {}
+    with np.load(os.path.join(outdir, "sgd1.npz")) as f:
+        for n, want in twin["grad"].items():
+            got = (twin["init"][n].astype(np.float64)
+                   - f[n].astype(np.float64)) / MESH_SGD_LR
+            out[n] = float(np.abs(got - want).max()
+                           / max(float(np.abs(want).max()), 1e-30))
+    return out
+
+
+def mesh_step1(twin, lr, outdir):
+    """(a)'s Adam step 1 against the twin: the share of all elements
+    whose step goes the other way, and per parameter (largest share
+    first) that share, the share further than 1e-3 lr apart with the
+    median size of the twin's step there, and the largest difference
+    (in units of lr)."""
+    rows, flips, total = [], 0, 0
+    with np.load(os.path.join(outdir, "step1.npz")) as f:
+        for n, want in twin["step1"].items():
+            init = twin["init"][n]
+            got_step, want_step = f[n] - init, want - init
+            d = np.abs(got_step - want_step) / lr
+            off = d > 1e-3
+            flip = int((np.sign(got_step) != np.sign(want_step)).sum())
+            flips, total = flips + flip, total + want.size
+            rows.append((flip / want.size, float(d.max()), float(off.mean()),
+                         float(np.median(np.abs(want_step[off])) / lr)
+                         if off.any() else 0.0, n))
+    rows.sort(reverse=True)
+    return flips / total, rows
+
+
+def phase_mesh(card, tfa):
+    """Phase 24: the twentieth slice, the rank mesh. Each kernel of the
+    Ulysses path held to its plain version at its shapes here; (a)'s
+    one-process twin; then two ranks, separate processes under ``python
+    -m mxnet_tpu_torch.tools.launch -n 2``, both on gpu(0) (gloo by the
+    backend rule, CUDA tensors staged through the host): (a) the
+    DistributedTrainer over {"dp": 2} with ZeRO-1 and FSDP, (b) Ulysses
+    and ring attention over {"sp": 2}. fp32, TF32 off. Returns the
+    kernel records and the Ulysses launch counts."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T, H = GPT2_SMALL["max_len"], GPT2_SMALL["n_heads"]
+    print("  the kernels at the mesh's shapes (%s):" % card)
+    kern = {"sp": dict(bwd_case(tfa, MESH_SP_BATCH, T, T, H // MESH_RANKS,
+                                64, True, False, seed=41),
+                       flash_fwd=fwd_case(tfa, MESH_SP_BATCH, T, T,
+                                          H // MESH_RANKS, 64, True, False,
+                                          seed=41)),
+            "dp": dict(bwd_case(tfa, MESH_BATCH // MESH_RANKS, T, T, H, 64,
+                                True, False, seed=42),
+                       flash_fwd=fwd_case(tfa, MESH_BATCH // MESH_RANKS, T,
+                                          T, H, 64, True, False, seed=42))}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    twin = mesh_twin(mx, mx.gpu(0))
+    print("  (a)'s twin: one process, Gluon Trainer (Adam lr %g, fused "
+          "update), global batch %d x %d, %.1fM parameters: step-1 loss "
+          "%.5f, peak %.2f GB, %.1f s"
+          % (MESH_ADAM["learning_rate"], MESH_BATCH, T,
+             twin["n_params"] / 1e6, twin["loss"], twin["peak_gb"],
+             time.perf_counter() - t0))
+    outdir = tempfile.mkdtemp(prefix="mesh_")
+    try:
+        ranks, secs = kv_launch(outdir, "mesh-rank")
+        lr = MESH_ADAM["learning_rate"]
+        flip_share, step1_rows = mesh_step1(twin, lr, outdir)
+        sgd_ratios = mesh_sgd_grads(twin, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    a = [r["a"] for r in ranks]
+    b = [r["b"] for r in ranks]
+    if any(r["fingerprint"] != mesh_fingerprint(twin["init"]) for r in a):
+        fail("mesh: a rank's initial weights differ from the twin's")
+    ratio_p = a[0]["param_bytes"] / twin["param_bytes"]
+    ratio_s = a[0]["state_bytes"] / twin["state_bytes"]
+    print("  (a) 2 ranks (%s, %.1f s of launch), {dp: 2}, "
+          "DistributedTrainer(grad_overlap=True, param_shard=True), Adam lr "
+          "%g, global batch %d x %d (%d a rank), %d steps: loss %s; step 1 "
+          "against the twin: loss %.6f / %.6f before, %.6f / %.6f after "
+          "(tolerance %g); share of the elements stepping the other way "
+          "%.3g (at most %g)"
+          % (ranks[0]["backend"], secs, lr, MESH_BATCH, T,
+             MESH_BATCH // MESH_RANKS, MESH_STEPS,
+             " ".join("%.4f" % c for c in a[0]["curve"]), a[0]["curve"][0],
+             twin["loss"], a[0]["curve"][1], twin["loss2"], LOSS_ATOL,
+             flip_share, MESH_STEP1_FLIP))
+    sgd_over = [n for n, r in sgd_ratios.items()
+                if r > (GRAD_RTOL_RELU if n.endswith("ffn1.weight")
+                        else GRAD_RTOL)]
+    print("  (a) one SGD step (lr %g) of the same modes: the exchanged "
+          "gradient against the twin's, max|diff| / max|grad| per "
+          "parameter: worst %.3g (%s), median %.3g (tolerance %g, ffn1 "
+          "weights %g: phase 10's); loss %.6f (%s)"
+          % (MESH_SGD_LR, max(sgd_ratios.values()),
+             max(sgd_ratios, key=sgd_ratios.get),
+             statistics.median(sgd_ratios.values()), GRAD_RTOL,
+             GRAD_RTOL_RELU, a[0]["sgd_loss"], card))
+    print_groups(sgd_ratios)
+    for flip, dmax, off, size, name in step1_rows[:5]:
+        print("    step 1, %s: %.3g of its elements step the other way, "
+              "%.3g further than 1e-3 lr apart (the twin's step there: "
+              "median %.3g lr), largest difference %.3g lr"
+              % (name, flip, off, size, dmax))
+    for r, rec in enumerate(a):
+        print("    rank %d: %.1f ms a step (median of steps 2-%d; sync %.1f "
+              "ms), peak %.2f GB; parameters %.1f MB a rank (%.3f of the "
+              "twin's %.1f MB: %d of %d sharded, padded %s), Adam state "
+              "%.1f MB (%.3f of %.1f MB), %d buckets; breakdown %s; "
+              "launches %s; bit-identical after %d steps: %s; %s"
+              % (r, statistics.median(rec["step_ms"][1:]), MESH_STEPS,
+                 statistics.median(rec["sync_ms"][1:]), rec["peak_gb"],
+                 rec["param_bytes"] / 1e6,
+                 rec["param_bytes"] / twin["param_bytes"],
+                 twin["param_bytes"] / 1e6, rec["sharded"], rec["plans"],
+                 rec["padded"], rec["state_bytes"] / 1e6,
+                 rec["state_bytes"] / twin["state_bytes"],
+                 twin["state_bytes"] / 1e6, rec["buckets"],
+                 rec["breakdown"], rec["launches"], MESH_IDENT_STEPS,
+                 rec["identity"], card))
+    L = GPT2_SMALL["n_layers"]
+    for r, rec in enumerate(a):
+        if not all(np.isfinite(rec["curve"])) \
+                or not rec["curve"][-1] < rec["curve"][0]:
+            fail("(a) rank %d: the loss did not fall: %s" % (r, rec["curve"]))
+        if not all(rec["identity"].values()):
+            fail("(a) rank %d: an on/off pair is not bit-identical: %s"
+                 % (r, rec["identity"]))
+        for kname in TRAIN_KERNELS:
+            if rec["launches"][kname] != L * MESH_STEPS:
+                fail("(a) rank %d: %s launched %d times in %d steps, want "
+                     "%d a step" % (r, kname, rec["launches"][kname],
+                                    MESH_STEPS, L))
+        if not (0.45 < rec["param_bytes"] / twin["param_bytes"] < 0.55
+                and 0.45 < rec["state_bytes"] / twin["state_bytes"] < 0.55):
+            fail("(a) rank %d: parameter or state bytes are not about half "
+                 "the twin's" % r)
+    if a[0]["curve"] != a[1]["curve"]:
+        fail("(a) the ranks' losses differ")
+    if sgd_over:
+        fail("(a) the exchanged gradient is outside its tolerance of the "
+             "twin's: %s" % sgd_over)
+    if flip_share > MESH_STEP1_FLIP \
+            or abs(a[0]["curve"][0] - twin["loss"]) > LOSS_ATOL \
+            or abs(a[0]["curve"][1] - twin["loss2"]) > LOSS_ATOL:
+        fail("(a) step 1 is outside its tolerance of the twin")
+    print("  (b) {sp: 2}, the LM at B%d T%d (%d positions a rank), forward "
+          "+ backward on the same weights, gradients summed over sp, "
+          "against the one-process flash route (%s):"
+          % (MESH_SP_BATCH, T, T // MESH_RANKS, card))
+    for impl in ("ulysses", "ring"):
+        for r, rec in enumerate(b):
+            x = rec[impl]
+            print("    %-7s rank %d: logits max abs err %.3g (tolerance "
+                  "%g), gradients max|diff| / max|grad| worst %.3g (%s), "
+                  "median %.3g (tolerance %g, ffn1 weights %g: phase 10's); "
+                  "%.1f ms fwd+bwd vs %.1f ms one process; kernel launches "
+                  "%s" % (impl, r, x["logit_err"], MESH_LOGIT_ATOL,
+                          x["grad_worst"], x["grad_worst_name"],
+                          x["grad_median"], GRAD_RTOL, GRAD_RTOL_RELU,
+                          x["ms"], rec["ref_ms"], x["launches"]))
+            if x["logit_err"] > MESH_LOGIT_ATOL or x["grad_over"]:
+                fail("(b) %s on rank %d is outside its tolerance of the "
+                     "one-process route" % (impl, r))
+        for kname in TRAIN_KERNELS:
+            n = [rec[impl]["launches"][kname] for rec in b]
+            if impl == "ulysses" and min(n) != L:
+                fail("(b) ulysses: %s launched %s times on the ranks, want "
+                     "%d each" % (kname, n, L))
+    print("  ring attention launched %s of the table's kernels on the ranks"
+          " (its block is plain torch, as the JAX package's is jnp); mesh "
+          "phase %.1f s" % ([{k: rec["ring"]["launches"][k]
+                              for k in TRAIN_KERNELS} for rec in b],
+                            time.perf_counter() - t_phase))
+    return dict(kern=kern, dp_launches=a[0]["launches"],
+                sp_launches=b[0]["ulysses"]["launches"],
+                ring_launches=b[0]["ring"]["launches"])
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -9684,6 +10243,8 @@ def main():
     phase_kv(card)
     print("sparse (BASELINE config 4):")
     phase_sparse(card)
+    print("mesh (the rank mesh: dp with ZeRO-1 and FSDP, sp):")
+    mesh = phase_mesh(card, tfa)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -9714,7 +10275,15 @@ def main():
     ] + [kernel_row(kname, BWD_SRC[kname], BWD_TPU[kname], "packing",
                     PACK_SHAPE, pack["launches"], pack["bwd"][kname],
                     pack["berr"][kname])
-         for kname in ("flash_bwd_dkdv", "flash_bwd_dq")]
+         for kname in ("flash_bwd_dkdv", "flash_bwd_dq")] + [
+        kernel_row(kname, FWD_SRC if kname == "flash_fwd" else BWD_SRC[kname],
+                   FWD_TPU if kname == "flash_fwd" else BWD_TPU[kname],
+                   path, shape, mesh[key], mesh["kern"][kind][kname],
+                   mesh["kern"][kind][kname]["err"])
+        for path, shape, key, kind in (
+            ("mesh dp (rank 0)", MESH_DP_SHAPE, "dp_launches", "dp"),
+            ("mesh sp ulysses (rank 0)", MESH_SP_SHAPE, "sp_launches", "sp"))
+        for kname in TRAIN_KERNELS]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))
@@ -9729,4 +10298,6 @@ if __name__ == "__main__":
         sys.exit(kv_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["sparse-rank"]:
         sys.exit(sparse_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -13,9 +13,13 @@ policy, ``{"dtype_policy": policy.describe()}``). Shard 0 is
 the shards, then the manifest, each through :func:`atomic_write_file`
 (tmp + fsync + ``os.replace``, visiting the ``ckpt_write`` and
 ``ckpt_fsync`` fault sites), so a kill mid-save strands at most
-unreferenced files, never a manifest pointing at a torn one. One
-process writes one shard (multi-process saves wait for ROADMAP queue A
-item 12). :class:`CheckpointManager` runs saves for a training loop:
+unreferenced files, never a manifest pointing at a torn one. A roster
+holding a :class:`~mxnet_tpu_torch.parallel.mesh.ShardedTensor` (the
+rank-mesh trainer's sharded parameters and ZeRO-1 state) is saved by
+every rank of the mesh, as the JAX package's multi-process save is: each
+rank writes the shard file of its own pieces (rank 0's also holds every
+whole entry), all meet at a barrier, and rank 0 checksums every shard and
+writes the manifest last. :class:`CheckpointManager` runs saves for a training loop:
 ``save`` snapshots every parameter as a device-side clone on the
 training stream (the fused step's graph writes the live weights in
 place at its next replay, so the writer must never read them), then a
@@ -181,6 +185,11 @@ def _snap(key, value, flat):
     if getattr(value, "stype", "default") != "default":
         _flatten_entry(key, value, flat, lambda t: t.detach().clone())
         return
+    from .parallel.mesh import ShardedTensor
+    if isinstance(value, ShardedTensor):
+        flat[key] = ShardedTensor(value.local.detach().clone(), value.shape,
+                                  value.sharding)
+        return
     data = getattr(value, "_data", value)
     if isinstance(data, torch.Tensor):
         flat[key] = data.detach().clone()
@@ -199,9 +208,118 @@ def _dtype_name(value):
     return str(np.asarray(value).dtype)
 
 
-def _shard_file(prefix, epoch, shard):
+def _shard_file(prefix, epoch, shard, n_shards=1):
+    """Shard 0 keeps the single-file name ``nd.load`` reads; the other
+    mesh positions get the JAX package's ``.shardNN-of-NN`` names."""
     return _tag(prefix, epoch) + ".params" if shard == 0 else \
-        "%s.shard%02d.params" % (_tag(prefix, epoch), shard)
+        "%s.shard%02d-of-%02d.params" % (_tag(prefix, epoch), shard,
+                                         n_shards)
+
+
+def _split_pieces(flat, me):
+    """``(mine, layout, n_shards)`` of a roster with sharded entries:
+    this rank's shard-file arrays and every entry's manifest layout. A
+    sharded entry contributes one piece per distinct index, in the shard
+    of the first rank (in rank order) holding it; whole entries are rank
+    0's."""
+    from .parallel.mesh import ShardedTensor
+    mine, layout, n_shards = {}, {}, 1
+    for key, value in flat.items():
+        if isinstance(value, ShardedTensor) \
+                and not value.is_fully_replicated:
+            pieces, seen = [], set()
+            for rank, index in value.pieces():
+                n_shards = max(n_shards, rank + 1)
+                if tuple(map(tuple, index)) in seen:
+                    continue          # a replicated copy of a piece
+                seen.add(tuple(map(tuple, index)))
+                pkey = "%s%s%d" % (key, _PIECE_SEP, len(pieces))
+                if rank == me:
+                    mine[pkey] = _host(value.local)
+                pieces.append({"shard": rank, "key": pkey,
+                               "index": [list(ix) for ix in index]})
+            layout[key] = {"shape": list(value.shape),
+                           "dtype": _dtype_name(value.local),
+                           "pieces": pieces}
+            continue
+        if isinstance(value, ShardedTensor):
+            value = value.local
+        host = _host(value)
+        if me == 0:
+            mine[key] = host
+        layout[key] = {"shape": [int(d) for d in host.shape],
+                       "dtype": _dtype_name(value),
+                       "pieces": [{"shard": 0, "key": key, "index": None}]}
+    return mine, layout, n_shards
+
+
+def _save_ranks(prefix, epoch, flat, states_bytes, symbol, meta):
+    """The every-rank save of a roster with sharded entries (see the
+    module docstring); returns the telemetry stats."""
+    import torch.distributed as dist
+    from .parallel import distributed
+    me = distributed.rank()
+    t0 = time.perf_counter()
+    mine, layout, n_shards = _split_pieces(flat, me)
+    n_shards = max(n_shards, distributed.num_workers())
+    t_snap = time.perf_counter()
+    dirname = os.path.dirname(prefix)
+    if dirname:
+        os.makedirs(dirname, exist_ok=True)
+    payload = _npz_bytes(mine)
+    t_ser = time.perf_counter()
+    states_entry = None
+    if me == 0:
+        if symbol is not None:
+            symbol.save("%s-symbol.json" % prefix)
+        if states_bytes is not None:
+            states_file = _tag(prefix, epoch) + ".states"
+            atomic_write_file(states_file, states_bytes)
+            states_entry = {"file": os.path.basename(states_file),
+                            "sha256": _sha256(states_bytes),
+                            "bytes": len(states_bytes)}
+    atomic_write_file(_shard_file(prefix, epoch, me, n_shards), payload)
+    t_write = time.perf_counter()
+    distributed.barrier("ckpt/%s" % _tag(prefix, epoch))
+    ok = [True]
+    if me == 0:
+        try:
+            shards = []
+            for shard in range(n_shards):
+                fname = _shard_file(prefix, epoch, shard, n_shards)
+                if shard == me:
+                    data = payload
+                else:
+                    with open(fname, "rb") as f:
+                        data = f.read()
+                shards.append({"file": os.path.basename(fname),
+                               "sha256": _sha256(data),
+                               "bytes": len(data), "shard": shard})
+            manifest = {"format": MANIFEST_FORMAT, "epoch": int(epoch),
+                        "time": time.time(), "shards": shards,
+                        "params": layout, "processes": n_shards}
+            if states_entry is not None:
+                manifest["optimizer_states"] = states_entry
+            if meta:
+                manifest["meta"] = dict(meta)
+            atomic_write_file(manifest_path(prefix, epoch),
+                              json.dumps(manifest, sort_keys=True).encode())
+        except Exception:
+            ok = [False]
+            dist.broadcast_object_list(ok, src=0)
+            raise
+    dist.broadcast_object_list(ok, src=0)
+    if not ok[0]:
+        raise MXNetError("checkpoint %s: rank 0 failed to write the "
+                         "manifest" % _tag(prefix, epoch))
+    t_end = time.perf_counter()
+    return {"epoch": int(epoch), "bytes": len(payload), "shards": n_shards,
+            "manifest": me == 0,
+            "snapshot_ms": round((t_snap - t0) * 1e3, 3),
+            "serialize_ms": round((t_ser - t_snap) * 1e3, 3),
+            "write_ms": round((t_write - t_ser) * 1e3, 3),
+            "manifest_ms": round((t_end - t_write) * 1e3, 3),
+            "total_ms": round((t_end - t0) * 1e3, 3)}
 
 
 def _npz_bytes(arrays):
@@ -217,10 +335,20 @@ def save_arrays(prefix, epoch, flat, states_bytes=None, symbol=None,
     recorded verbatim), each durably. The device-to-host copy happens
     here, on the calling thread. Returns the stats the telemetry record
     carries; raises on a failure (a planned ``ckpt_write``/
-    ``ckpt_fsync`` fault included)."""
+    ``ckpt_fsync`` fault included). A roster with a sharded entry on a
+    mesh of several ranks is saved by every rank (:func:`_save_ranks`)."""
+    from .parallel import distributed
+    from .parallel.mesh import ShardedTensor
+    if distributed.num_workers() > 1 and any(
+            isinstance(v, ShardedTensor) and not v.is_fully_replicated
+            for v in flat.values()):
+        return _save_ranks(prefix, epoch, flat, states_bytes, symbol, meta)
     t0 = time.perf_counter()
     arrays, layout = {}, {}
     for key, value in flat.items():
+        if isinstance(value, ShardedTensor):
+            value = value.local if value.is_fully_replicated \
+                else value.full()
         host = _host(value)
         arrays[key] = host
         layout[key] = {"shape": [int(d) for d in host.shape],
@@ -431,7 +559,7 @@ def restore_params(prefix, epoch, validate=True, policy=None, ctx=None):
     resumes under that policy (an AMP checkpoint stores fp32 masters, so
     any resume precision is a cast of the exact master), ``"manifest"``
     re-adopts the policy the checkpoint was saved under. Placement on a
-    mesh waits for ROADMAP queue A item 12."""
+    rank mesh is ``parallel.DistributedTrainer.load_checkpoint``'s."""
     flat = load_arrays(prefix, epoch, validate=validate, ctx=ctx)
     arg_params, aux_params = {}, {}
     for k, v in flat.items():

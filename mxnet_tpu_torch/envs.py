@@ -106,9 +106,14 @@ declare("MXNET_KVSTORE_RETRY_MAX_BACKOFF", "float", 2.0,
 _G = "parallel"
 declare("MXNET_GRAD_OVERLAP", "bool", False,
         "Bucketed gradient exchange: the kvstore's push/pull runs "
-        "once per size-capped bucket instead of once per key.", _G)
+        "once per size-capped bucket instead of once per key; on a rank "
+        "mesh, a reduce-scatter per bucket and the ZeRO-1 sharded "
+        "update.", _G)
 declare("MXNET_GRAD_BUCKET_MB", "float", 4.0,
         "Gradient-bucket size cap for the overlap path, MB.", _G)
+declare("MXNET_PARAM_SHARD", "bool", False,
+        "Keep parameters FSDP-sharded at rest over the rank mesh, "
+        "gathered at step entry.", _G)
 
 _G = "io"
 declare("MXNET_DATA_PIPELINE", "bool", True,

@@ -1,9 +1,9 @@
 """Contrib nn layers (counterpart of ``mxnet_tpu/gluon/contrib/nn``)."""
 from .basic_layers import (Concurrent, HybridConcurrent, Identity,
-                           SparseEmbedding, PixelShuffle1D, PixelShuffle2D,
-                           PixelShuffle3D)
+                           SparseEmbedding, SyncBatchNorm, PixelShuffle1D,
+                           PixelShuffle2D, PixelShuffle3D)
 from .attention import MeshMultiHeadAttention
 
 __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
-           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D",
+           "SyncBatchNorm", "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D",
            "MeshMultiHeadAttention"]

@@ -21,9 +21,10 @@ class MeshMultiHeadAttention(HybridBlock):
     num_heads : int
     causal : bool
     impl : str
-        'auto' | 'flash' | 'dense' — forwarded to
-        ``_contrib_flash_attention`` ('ring' and 'ulysses' raise until
-        the device mesh is ported).
+        'auto' | 'flash' | 'dense' | 'ring' | 'ulysses' — forwarded to
+        ``_contrib_flash_attention`` (ring and Ulysses run over the ``sp``
+        axis of the active mesh, ``parallel.use_mesh``, each rank on its
+        sequence slice).
     use_bias : bool
     """
 

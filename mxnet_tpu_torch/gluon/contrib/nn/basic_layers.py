@@ -1,13 +1,13 @@
 """Contrib layers (counterpart of
 ``mxnet_tpu/gluon/contrib/nn/basic_layers.py``): ``Concurrent`` and
 ``HybridConcurrent`` (children run on one input, their outputs joined
-by ``Concat``), ``Identity``, ``SparseEmbedding`` and the sub-pixel
-upsampling layers ``PixelShuffle1D``/``2D``/``3D`` (reshapes and one
+by ``Concat``), ``Identity``, ``SparseEmbedding``, ``SyncBatchNorm``
+and the sub-pixel upsampling layers ``PixelShuffle1D``/``2D``/``3D`` (reshapes and one
 transpose)."""
 from __future__ import annotations
 
 from ...block import Block, HybridBlock
-from ...nn.basic_layers import Sequential, HybridSequential
+from ...nn.basic_layers import BatchNorm, Sequential, HybridSequential
 
 __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
            "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D"]
@@ -83,6 +83,28 @@ def _factors(factor, n):
         factors = tuple(int(fac) for fac in factor)
         assert len(factors) == n, "wrong length {}".format(len(factors))
         return factors
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device synchronized BatchNorm (reference:
+    src/operator/contrib/sync_batch_norm.cc): BatchNorm over axis 1 whose
+    training moments are the global batch's under a mesh that shards the
+    batch over several ranks (``parallel.use_mesh``; the data-parallel
+    trainers install theirs), as the JAX package's BatchNorm is inside a
+    mesh program. ``num_devices`` is accepted for API parity."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", **kwargs):
+        super().__init__(1, momentum, epsilon, center, scale,
+                         use_global_stats, beta_initializer,
+                         gamma_initializer, running_mean_initializer,
+                         running_variance_initializer, in_channels,
+                         **kwargs)
+        self._num_devices = num_devices
 
 
 class PixelShuffle1D(HybridBlock):

@@ -1,8 +1,8 @@
 """IO namespace (counterpart of ``mxnet_tpu/io``): the batch types, the
 iterators over memory, CSV and MNIST files and RecordIO images, and the
 async input pipeline (``io/pipeline.py``), and ``LibSVMIter`` (csr
-batches). ``make_sharded_pipeline`` (a mesh, item 12) raises
-``NotImplementedError``."""
+batches), with ``make_sharded_pipeline``: each rank of a ``dp`` mesh
+gets its rows of every batch."""
 from .io import (DataDesc, DataBatch, DataIter, ResizeIter, PrefetchingIter,
                  NDArrayIter, MNISTIter, CSVIter, LibSVMIter)
 from .image_record import ImageRecordIter, ImageDetRecordIter

@@ -42,8 +42,11 @@ is dry (a non-blocking get is tried first), so the phase measures
 input stalls, not every fetch. A failed decode or placement raises in
 the consumer.
 
-``make_sharded_pipeline`` needs a device mesh (ROADMAP queue A item
-12) and raises ``NotImplementedError``.
+:func:`make_sharded_pipeline` places for a rank mesh: each rank's
+placer takes its ``dp`` rows of every array whose leading dim splits
+over the axis (a :class:`RowShard` target) and leaves the rest whole;
+the placed arrays are marked, so the data-parallel step does not take
+rows a second time.
 """
 from __future__ import annotations
 
@@ -108,12 +111,25 @@ def _device(target):
     return device
 
 
+class RowShard:
+    """A placement target that keeps rows ``[index * k, (index + 1) * k)``
+    of an array whose leading dim is ``n * k``, on ``device``."""
+    __slots__ = ("device", "n", "index")
+
+    def __init__(self, device, n, index):
+        self.device, self.n, self.index = device, int(n), int(index)
+
+
 def _target(placement, name, data):
-    """The device of one array: ``placement`` itself, or its answer for
-    ``(name, tensor)`` when it is a callable."""
+    """The device of one array (or a :class:`RowShard`): ``placement``
+    itself, or its answer for ``(name, tensor)`` when it is a
+    callable."""
     if callable(placement) and not isinstance(placement,
                                               (Context, torch.device)):
-        return _device(placement(name, data))
+        placement = placement(name, data)
+    if isinstance(placement, RowShard):
+        return RowShard(_device(placement.device), placement.n,
+                        placement.index)
     return _device(placement)
 
 
@@ -168,6 +184,13 @@ def _place(batch, placement, data_names, label_names, placer, copied):
     if isinstance(batch, NDArray):
         name = data_names[0] if data_names else "data"
         device = _target(placement, name, batch._data)
+        if isinstance(device, RowShard):
+            k = batch.shape[0] // device.n
+            placed = placer.put(
+                NDArray(batch._data[device.index * k:(device.index + 1) * k]),
+                device.device, name, copied)
+            placed._dp_local = True
+            return placed
         return batch if device is None else \
             placer.put(batch, device, name, copied)
     if isinstance(batch, DataBatch):
@@ -240,19 +263,34 @@ def placement_for_module(module):
     return place
 
 
-def _dp_placement(*args, **kwargs):
-    raise NotImplementedError(
-        "data-parallel placement needs a device mesh, which is not ported "
-        "to mxnet_tpu_torch yet (ROADMAP queue A item 12)")
+def _dp_placement(mesh, device, batch_args=None, axis="dp"):
+    """The data-parallel placement of a rank mesh as a callable: a batch
+    arg whose leading dim splits over the ``axis`` size goes to this
+    rank's rows on ``device`` (a :class:`RowShard`), anything else whole
+    on ``device``."""
+    n_dp = mesh.axis_size(axis)
+    index = mesh.axis_index(axis)
+
+    def place(name, arr):
+        if (batch_args is None or name in batch_args) \
+                and getattr(arr, "ndim", 0) >= 1 \
+                and arr.shape[0] % n_dp == 0:
+            return RowShard(device, n_dp, index)
+        return device
+    return place
 
 
 def make_sharded_pipeline(source, mesh, prefetch_depth=2,
                           num_workers=None):
-    """A pipeline whose batches land sharded over a data-parallel mesh:
-    needs the mesh of ROADMAP queue A item 12, so it raises."""
-    raise NotImplementedError(
-        "make_sharded_pipeline needs a device mesh, which is not ported "
-        "to mxnet_tpu_torch yet (ROADMAP queue A item 12)")
+    """A pipeline whose batches land as this rank's ``dp`` rows of every
+    batch-divisible array (the rest whole) on the current context's
+    device: what ``parallel.data_parallel``'s step consumes without
+    taking rows again."""
+    from ..context import current_context
+    target = _device(current_context())
+    return AsyncInputPipeline(source, num_workers=num_workers,
+                              prefetch_depth=prefetch_depth,
+                              placement=_dp_placement(mesh, target))
 
 
 # ---------------------------------------------------------------------------

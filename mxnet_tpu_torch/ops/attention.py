@@ -9,14 +9,20 @@ accepted and unused).
 
 ``impl``:
 
-- ``auto`` — ``flash``: the port has no device mesh yet, so there is no
-  sequence-parallel axis for ``auto`` to pick ring attention on;
+- ``auto`` — ``ring`` when the active mesh (``parallel.mesh.use_mesh``)
+  has an ``sp`` axis (``mesh_axis``) of size > 1, else ``flash``;
 - ``flash`` — :func:`~mxnet_tpu_torch.parallel.flash_attention.
   flash_attention`: the CUDA kernels on a CUDA tensor (differentiable
   through their backward kernels), the plain version on a CPU tensor;
 - ``dense`` — the plain version on any device (torch autograd);
-- ``ring`` / ``ulysses`` — raise NotImplementedError until the mesh and
-  the sequence-parallel kernels are ported (ROADMAP queue A item 12).
+- ``ring`` / ``ulysses`` — :mod:`~mxnet_tpu_torch.parallel.
+  ring_attention` over the mesh's ``sp`` axis: each rank passes its
+  sequence slice and gets its slice of the output back. Without an
+  ``sp`` mesh both run local attention (``flash``). A ``segment_ids``
+  plane is refused with them.
+
+``block_q``/``block_k`` are the TPU kernel's blocks: accepted, unused
+(the CUDA kernels pick their own tiles).
 """
 from __future__ import annotations
 
@@ -29,17 +35,26 @@ __all__ = []
 
 def _attention(attrs, query, key, value, segment_ids=None):
     from ..parallel.flash_attention import flash_attention
+    from ..parallel.mesh import current_mesh, mesh_axes
+    from ..parallel.ring_attention import ring_attention, ulysses_attention
     causal = bool(attrs.get("causal", False))
     scale = float(attrs.get("scale", 0.0)) or \
         1.0 / math.sqrt(query.shape[-1])
     impl = str(attrs.get("impl", "auto"))
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            "_contrib_flash_attention: impl=%r needs the device mesh and "
-            "the sequence-parallel attention, not ported yet (ROADMAP "
-            "queue A item 12)" % impl)
+    axis = str(attrs.get("mesh_axis", "sp"))
+    mesh = current_mesh()
+    has_sp = mesh is not None and mesh_axes(mesh).get(axis, 1) > 1
     if impl == "auto":
-        impl = "flash"
+        impl = "ring" if has_sp else "flash"
+    if segment_ids is not None and impl in ("ring", "ulysses"):
+        # packed batches: the sequence-sharded paths take no segment plane
+        raise ValueError(
+            "_contrib_flash_attention: segment_ids (packed batches) is "
+            "supported by impl='flash'/'dense' only, not %r" % impl)
+    if impl in ("ring", "ulysses"):
+        fn = ring_attention if impl == "ring" else ulysses_attention
+        return fn(query, key, value, mesh=mesh if has_sp else None,
+                  axis=axis, causal=causal, scale=scale)
     if impl not in ("flash", "dense"):
         raise ValueError("_contrib_flash_attention: unknown impl %r"
                          % impl)
@@ -84,10 +99,16 @@ register("_contrib_decode_attention", _decode_attention,
 
 register("_contrib_flash_attention", _attention, output_shapes=_like_query,
          arg_names=("query", "key", "value"),
-         defaults={"causal": False, "scale": 0.0, "impl": "auto"},
+         defaults={"causal": False, "scale": 0.0, "impl": "auto",
+                   "mesh_axis": "sp", "block_q": 512, "block_k": 512},
          attr_docs={"causal": "apply a causal (lower-triangular) mask",
                     "scale": "score scale; 0 = 1/sqrt(head_dim)",
-                    "impl": "auto|flash|dense|ring|ulysses"},
+                    "impl": "auto|flash|dense|ring|ulysses",
+                    "mesh_axis": "mesh axis carrying the sequence slices",
+                    "block_q": "the TPU kernel's query block; accepted, "
+                               "unused",
+                    "block_k": "the TPU kernel's key block; accepted, "
+                               "unused"},
          description="Fused attention over (B, T, H, D); an optional "
                      "4th input carries the (B, T) int32 segment-id "
                      "plane of a packed batch — cross-segment attention "

@@ -1,6 +1,6 @@
 """Breadth operators (counterpart of ``mxnet_tpu/ops/extra.py``, without
-its image, spatial-sampling and synchronized ops, which come with later
-steps of ROADMAP queue A): the dense bodies of the sparse ops
+its image and spatial-sampling ops, which come with a later step of
+ROADMAP queue A): ``_contrib_SyncBatchNorm``, the dense bodies of the sparse ops
 (``_square_sum``, ``_contrib_getnnz``, ``_contrib_SparseEmbedding``; the
 sparse arrays themselves live in ``ndarray/sparse.py``), ``Crop``, the
 FFT pair, the 2-D resize and adaptive pooling, ``_histogram``, the index (un)ravelling,
@@ -360,3 +360,20 @@ register("IdentityAttachKLSparseReg", lambda attrs, data: data.clone(),
          arg_names=_D,
          defaults={"sparseness_target": 0.1, "penalty": 0.001,
                    "momentum": 0.9})
+
+
+def _sync_batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
+    """Cross-device BatchNorm (reference: contrib/sync_batch_norm.cc):
+    the BatchNorm body, whose moments are the global batch's under a
+    mesh that shards the batch over several ranks (``ops/nn.py``)."""
+    from .registry import get_op
+    return get_op("BatchNorm").forward(dict(attrs), data, gamma, beta,
+                                       moving_mean, moving_var)
+
+
+register("_contrib_SyncBatchNorm", _sync_batch_norm,
+         arg_names=("data", "gamma", "beta", "moving_mean", "moving_var"),
+         defaults={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                   "use_global_stats": False, "output_mean_var": False,
+                   "ndev": 1, "key": "", "__train__": False},
+         mutable_inputs=(3, 4))

@@ -271,19 +271,38 @@ class _BNTrain(torch.autograd.Function):
     the per-channel FMA. Backward: the fused gradient
     ``dx = (g*inv) * (dy - mean(dy) - xhat * mean(dy*xhat))``, saving
     only the input and the per-channel mean and inverse deviation. The
-    batch mean and variance are outputs without gradient."""
+    batch mean and variance are outputs without gradient.
+
+    ``sync`` (a ``(mesh, axis)`` pair) takes the moments over the GLOBAL
+    batch of the ranks along ``axis``: the per-channel sums, sums of
+    squares and row counts are all-reduced in the forward, and the two
+    per-channel sums of the backward likewise. The gamma and beta
+    gradients stay this rank's own sums, which the trainer's gradient
+    exchange adds up."""
 
     @staticmethod
-    def forward(ctx, data, g, beta, c, red, bshape, eps):
+    def forward(ctx, data, g, beta, c, red, bshape, eps, sync=None):
         xc = data.to(torch.float32) - c
-        mean_c = xc.mean(dim=red)
-        meansq_c = xc.square().mean(dim=red)
+        count = math.prod(data.shape[i] for i in red)
+        if sync is None:
+            mean_c = xc.mean(dim=red)
+            meansq_c = xc.square().mean(dim=red)
+        else:
+            from ..parallel.collectives import all_reduce
+            mesh, axis = sync
+            sums = torch.cat([xc.sum(dim=red), xc.square().sum(dim=red),
+                              xc.new_full((1,), float(count))])
+            sums = all_reduce(sums, mesh, axis)
+            n_ch = (sums.numel() - 1) // 2
+            count = sums[-1]
+            mean_c = sums[:n_ch] / count
+            meansq_c = sums[n_ch:2 * n_ch] / count
         var = torch.clamp_min(meansq_c - mean_c.square(), 0.0)
         mean = mean_c + c.reshape(mean_c.shape)
         inv = torch.rsqrt(var + eps)
         out = _bn_affine(data, g, beta, mean, inv, bshape)
         ctx.save_for_backward(data, g, mean, inv)
-        ctx.red, ctx.bshape = red, bshape
+        ctx.red, ctx.bshape, ctx.sync, ctx.count = red, bshape, sync, count
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -291,18 +310,34 @@ class _BNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         data, g, mean, inv = ctx.saved_tensors
         red, bshape = ctx.red, ctx.bshape
-        m = math.prod(data.shape[i] for i in red)
         a = (inv * g.to(torch.float32)).to(data.dtype)
         nmean = (-mean * inv).to(data.dtype)
         xhat = data * inv.reshape(bshape).to(data.dtype) \
             + nmean.reshape(bshape)
         sum_dy = dy.sum(dim=red, dtype=torch.float32)
         sum_dy_xhat = (dy * xhat).sum(dim=red, dtype=torch.float32)
-        c1 = (sum_dy / m).to(data.dtype).reshape(bshape)
-        c2 = (sum_dy_xhat / m).to(data.dtype).reshape(bshape)
+        tot_dy, tot_dy_xhat = sum_dy, sum_dy_xhat
+        if ctx.sync is not None:
+            from ..parallel.collectives import all_reduce
+            both = all_reduce(torch.cat([sum_dy, sum_dy_xhat]), *ctx.sync)
+            tot_dy, tot_dy_xhat = both.chunk(2)
+        m = ctx.count
+        c1 = (tot_dy / m).to(data.dtype).reshape(bshape)
+        c2 = (tot_dy_xhat / m).to(data.dtype).reshape(bshape)
         dx = a.reshape(bshape) * (dy - c1 - xhat * c2)
         return (dx, sum_dy_xhat.to(g.dtype), sum_dy.to(g.dtype), None,
-                None, None, None)
+                None, None, None, None)
+
+
+def _global_batch():
+    """``(mesh, axis)`` when the active mesh shards the batch over more
+    than one rank (its ``dp``/``data`` axis), else None."""
+    from ..parallel.mesh import current_mesh, data_axis
+    mesh = current_mesh()
+    axis = data_axis(mesh)
+    if axis is None or mesh.axis_size(axis) == 1:
+        return None
+    return mesh, axis
 
 
 def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
@@ -312,7 +347,10 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     ``momentum * old + (1 - momentum) * batch`` (fp32; unchanged in
     eval), which the caller writes back. Not ``F.batch_norm``: torch
     updates with the unbiased variance and weighs the new batch by
-    ``momentum``."""
+    ``momentum``. Under a mesh whose batch axis spans several ranks
+    (``parallel.use_mesh``; the data-parallel trainers install theirs)
+    the batch moments are the global batch's, as inside a JAX mesh
+    program."""
     eps = float(attrs.get("eps", 1e-3))
     momentum = float(attrs.get("momentum", 0.9))
     axis = int(attrs.get("axis", 1)) % data.ndim
@@ -323,7 +361,8 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     g = torch.ones_like(gamma) if attrs.get("fix_gamma", True) else gamma
     if train:
         c = moving_mean.detach().to(torch.float32, copy=True).reshape(bshape)
-        out, mean, var = _BNTrain.apply(data, g, beta, c, red, bshape, eps)
+        out, mean, var = _BNTrain.apply(data, g, beta, c, red, bshape, eps,
+                                        _global_batch())
         new_mean = (momentum * moving_mean.detach().to(torch.float32)
                     + (1 - momentum) * mean).to(moving_mean.dtype)
         new_var = (momentum * moving_var.detach().to(torch.float32)

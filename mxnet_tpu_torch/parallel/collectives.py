@@ -1,0 +1,303 @@
+"""Collectives over the axes of a rank mesh (counterpart of
+``mxnet_tpu/parallel/collectives.py``).
+
+Each function is one rank's side of the collective: it takes this rank's
+piece and returns this rank's result, in the group of its slice along
+``axis`` (``Mesh.group``). On an axis of size 1 the input comes back as
+it is. Shapes follow the JAX package's ``shard_map`` forms: the input of
+:func:`all_reduce`/:func:`all_gather` is a shard, the input of
+:func:`reduce_scatter` a whole contribution.
+
+**Sums are deterministic.** :func:`reduce_scatter` (and the bucket forms
+built on it) exchange the pieces with one all-to-all and add the ranks'
+contributions in rank order on each rank, so a value's sum does not
+depend on where it sits in the buffer: bucketed and monolithic exchanges
+of one gradient agree bit for bit. It moves what a ring reduce-scatter
+moves, ``(n - 1) / n`` of the buffer.
+
+**The gloo staging rule.** Where the group's backend is ``gloo`` (ranks
+that share a card, or the host) a CUDA tensor goes through a host copy
+and back: gloo's collectives are host code. The staged bytes count in
+``profiler.counters()['collective_staged_bytes']``. The rule is keyed on
+``distributed.backend()``, not on a failed call.
+
+Each eager call is accounted under comm kind ``collective`` keyed by its
+name (bytes and caller-observed latency) and split by link
+(``telemetry.comm_links``); the bucket forms are ``grad_sync`` spans.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
+           "ppermute", "barrier", "psum_eager", "all_to_all",
+           "bucket_reduce_scatter", "bucket_all_gather"]
+
+
+def _account_links(name, mesh, axis, value=None, nbytes=None):
+    """Book one collective's bytes by link (``mesh.link_split``)."""
+    from .. import telemetry
+    if not telemetry.enabled():
+        return
+    if nbytes is None:
+        nbytes = value.numel() * value.element_size() \
+            if isinstance(value, torch.Tensor) else 0
+    from .mesh import link_split
+    try:
+        ici, dcn = link_split(mesh, axis, nbytes)
+    except ValueError:
+        return
+    telemetry.comm_links(name, ici, dcn)
+
+
+def _stages(t):
+    from . import distributed
+    return t.is_cuda and distributed.backend() == "gloo"
+
+
+def _to_wire(t):
+    """``t`` where the group's backend can reach it: a host copy under
+    the gloo staging rule (counted), else ``t``."""
+    if _stages(t):
+        from .. import profiler
+        profiler.increment_counter("collective_staged_bytes",
+                                   t.numel() * t.element_size())
+        return t.cpu()
+    return t
+
+
+def _from_wire(t, like):
+    if t.device != like.device:
+        from .. import profiler
+        profiler.increment_counter("collective_staged_bytes",
+                                   t.numel() * t.element_size())
+        return t.to(like.device)
+    return t
+
+
+def _unwrap(x):
+    from ..ndarray import NDArray
+    if isinstance(x, NDArray):
+        return x._data, lambda t: NDArray(t)
+    return x, lambda t: t
+
+
+def _span(name, nbytes):
+    from .. import telemetry
+    return telemetry.comm_span("collective", name, nbytes=nbytes)
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def all_reduce(x, mesh, axis="dp", op="sum"):
+    """Reduce the ranks' ``x`` along ``axis`` (``sum``/``max``/``mean``);
+    every rank gets the reduced value. Visits the ``allreduce`` fault
+    site under an active plan (``fault.guard``)."""
+    import torch.distributed as dist
+    from .. import fault
+    if op not in ("sum", "max", "mean"):
+        raise ValueError(op)
+    t, wrap = _unwrap(x)
+    group, ranks = mesh.group(axis)
+    if len(ranks) == 1:
+        return x
+
+    def run():
+        buf = _to_wire(t).clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
+        if op == "mean":
+            buf = buf / len(ranks)
+        return _from_wire(buf, t)
+
+    _account_links("all_reduce", mesh, axis, t)
+    with _span("all_reduce", _nbytes(t)):
+        return wrap(fault.guard(run, "allreduce"))
+
+
+def all_gather(x, mesh, axis="dp", tiled=True, account=True):
+    """Every rank's ``x`` along ``axis``, in axis order: concatenated on
+    dim 0 (``tiled``) or stacked on a new dim 0."""
+    import torch.distributed as dist
+    t, wrap = _unwrap(x)
+    group, ranks = mesh.group(axis)
+    if len(ranks) == 1:
+        return wrap(t if tiled else t.unsqueeze(0))
+    src = _to_wire(t.contiguous())
+    out = torch.empty((len(ranks) * t.shape[0],) + tuple(t.shape[1:])
+                      if t.dim() else (len(ranks),),
+                      dtype=t.dtype, device=src.device)
+
+    def run():
+        dist.all_gather_into_tensor(out, src.reshape(-1) if not t.dim()
+                                    else src, group=group)
+        return _from_wire(out, t)
+
+    if not account:
+        res = run()
+    else:
+        _account_links("all_gather", mesh, axis, t)
+        with _span("all_gather", _nbytes(t)):
+            res = run()
+    if not tiled:
+        res = res.reshape((len(ranks),) + tuple(t.shape))
+    return wrap(res)
+
+
+def _sum_in_rank_order(blocks):
+    acc = blocks[0].clone()
+    for b in blocks[1:]:
+        acc += b
+    return acc
+
+
+def _scatter_sum(flat, group, n):
+    """This rank's ``1/n`` slice of the sum of every rank's ``flat`` (its
+    length divides ``n``): one all-to-all, then the contributions added
+    in rank order."""
+    import torch.distributed as dist
+    src = _to_wire(flat.contiguous())
+    recv = torch.empty_like(src)
+    dist.all_to_all_single(recv, src, group=group)
+    return _from_wire(_sum_in_rank_order(recv.view(n, -1).unbind(0)), flat)
+
+
+def reduce_scatter(x, mesh, axis="dp"):
+    """Sum the ranks' whole contributions ``x`` and return this rank's
+    rows of the sum (``ceil(d0 / n)`` a rank). A leading dim that does
+    not divide the axis size is zero-padded through the collective and
+    the pad rows are cut off the result, so the last ranks may hold
+    fewer rows (the sum is unaffected: the pad adds exact zeros)."""
+    t, wrap = _unwrap(x)
+    group, ranks = mesh.group(axis)
+    n = len(ranks)
+    if n == 1:
+        return x
+    me = ranks.index(mesh.rank)
+    d0 = int(t.shape[0]) if t.dim() else 1
+    rows = -(-d0 // n)
+    body = t.reshape((d0,) + tuple(t.shape[1:]))
+    if rows * n != d0:
+        body = torch.cat([body, body.new_zeros(
+            (rows * n - d0,) + tuple(body.shape[1:]))])
+    _account_links("reduce_scatter", mesh, axis, t)
+    with _span("reduce_scatter", _nbytes(t)):
+        mine = _scatter_sum(body.reshape(-1), group, n).view(
+            (rows,) + tuple(body.shape[1:]))
+    return wrap(mine[:max(0, min(rows, d0 - me * rows))])
+
+
+def bucket_reduce_scatter(contribs, mesh, axis="dp", key="bucket"):
+    """One collective for a whole gradient bucket: this rank's
+    contributions (a list of same-dtype tensors) flattened, concatenated,
+    zero-padded to a multiple of the axis size and reduce-scattered;
+    returns this rank's ``padded / n`` slice of the summed flat bucket.
+    One ``grad_sync`` comm span under ``key``."""
+    from .. import telemetry
+    group, ranks = mesh.group(axis)
+    n = len(ranks)
+    parts = [_unwrap(c)[0].reshape(-1) for c in contribs]
+    flat, total = torch.cat(parts), sum(p.numel() for p in parts)
+    pad = -(-total // n) * n - total
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    nbytes = (total + pad) * flat.element_size()
+    _account_links("bucket_reduce_scatter", mesh, axis, nbytes=nbytes)
+    with telemetry.comm_span("grad_sync", key, nbytes=nbytes):
+        return flat if n == 1 else _scatter_sum(flat, group, n)
+
+
+def bucket_all_gather(flat, mesh, axis="dp", key="bucket"):
+    """Gather a reduce-scattered flat bucket back to the whole vector on
+    every rank; one ``grad_sync`` comm span under ``key``."""
+    from .. import telemetry
+    t, wrap = _unwrap(flat)
+    _account_links("bucket_all_gather", mesh, axis, t)
+    with telemetry.comm_span("grad_sync", key, nbytes=_nbytes(t)):
+        return wrap(all_gather(t, mesh, axis, account=False))
+
+
+def all_to_all(x, mesh, axis, split_axis, concat_axis):
+    """Split ``x`` into ``n`` chunks along ``split_axis``, send chunk
+    ``j`` to the rank at index ``j`` of the axis, and concatenate the
+    chunks received along ``concat_axis`` in axis order (JAX's tiled
+    ``all_to_all``)."""
+    import torch.distributed as dist
+    t, wrap = _unwrap(x)
+    group, ranks = mesh.group(axis)
+    n = len(ranks)
+    if n == 1:
+        return x
+    chunks = torch.stack(t.chunk(n, dim=split_axis))
+    src = _to_wire(chunks.contiguous())
+    recv = torch.empty_like(src)
+
+    _account_links("all_to_all", mesh, axis, t)
+    with _span("all_to_all", _nbytes(t)):
+        dist.all_to_all_single(recv, src, group=group)
+    return wrap(torch.cat(_from_wire(recv, t).unbind(0), dim=concat_axis))
+
+
+def ppermute(x, mesh, axis, perm):
+    """Send ``x`` along the ``(source, destination)`` pairs of ``perm``
+    (axis indices): each rank returns what its source sent, zeros where
+    no pair names it as a destination (JAX's ``ppermute``). One batch of
+    point-to-point sends and receives."""
+    import torch.distributed as dist
+    t, wrap = _unwrap(x)
+    group, ranks = mesh.group(axis)
+    me = mesh.axis_index(axis)
+    perm = [(int(s) % len(ranks), int(d) % len(ranks)) for s, d in perm]
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(ranks) == 1:
+        return wrap(t.clone() if src else torch.zeros_like(t))
+    wire = _to_wire(t.contiguous())
+    recv = torch.zeros_like(wire)
+
+    ops = [dist.P2POp(dist.isend, wire, ranks[d], group=group)
+           for d in dst if d != me]
+    ops += [dist.P2POp(dist.irecv, recv, ranks[s], group=group)
+            for s in src if s != me]
+    _account_links("ppermute", mesh, axis, t)
+    with _span("ppermute", _nbytes(t)):
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+    if me in src:
+        recv.copy_(wire)
+    return wrap(_from_wire(recv, t))
+
+
+def broadcast(x, mesh, axis="dp", root=0):
+    """The ``x`` of the rank at index ``root`` along ``axis``, on every
+    rank of the slice."""
+    import torch.distributed as dist
+    t, wrap = _unwrap(x)
+    group, ranks = mesh.group(axis)
+    if len(ranks) == 1:
+        return x
+    buf = _to_wire(t).clone()
+    _account_links("broadcast", mesh, axis, t)
+    with _span("broadcast", _nbytes(t)):
+        dist.broadcast(buf, src=ranks[int(root)], group=group)
+    return wrap(_from_wire(buf, t))
+
+
+def psum_eager(arrays):
+    """Sum a list of same-shape arrays in list order (the one-process
+    CommDevice Reduce role)."""
+    out = arrays[0]
+    for a in arrays[1:]:
+        out = out + a
+    return out
+
+
+def barrier(name="barrier"):
+    """A barrier over every rank (a no-op on a world of 1)."""
+    from . import distributed
+    if distributed.num_workers() > 1:
+        with _span("barrier", 0):
+            distributed.barrier(name)

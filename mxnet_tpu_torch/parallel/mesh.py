@@ -1,13 +1,171 @@
-"""Contexts resolved to torch devices (the ``distinct_devices`` rule of
-``mxnet_tpu/parallel/mesh.py``). Contexts that resolve to ONE torch
-device act as one: ``[cpu(0), cpu(1)]`` on the host or ``[gpu(0),
-gpu(0)]`` on the card bind a single executor, parameter or batch over
-the whole batch, which is what the JAX package's mesh program computes.
-Contexts on distinct devices form a data-parallel mesh, which is not
-ported yet (ROADMAP queue A item 12, order step 6)."""
+"""The rank mesh (counterpart of ``mxnet_tpu/parallel/mesh.py``).
+
+The JAX package runs one controller over N devices: its mesh is a
+``jax.sharding.Mesh``. PyTorch runs one process per device, so the
+port's :class:`Mesh` names axes over the RANKS of the process group
+(``parallel.distributed``):
+
+- ``dp`` — data parallel (each rank takes its rows of the batch);
+- ``fsdp`` / ``data`` / ``tp`` — the sharding-rules layer's axes
+  (:func:`make_mesh`);
+- ``sp`` — sequence parallel (ring attention / Ulysses).
+
+**Rank order.** Ranks follow JAX's device order, row-major over the axes:
+rank ``r`` sits where JAX's device ``r`` sits in a mesh of the same
+sizes, so rank ``r`` holds the shard JAX's device ``r`` holds.
+**Size rules.** A mesh whose size is not the world size raises, naming
+the launcher; on a world of 1 every axis has size 1 and the callers run
+their single-device path. Each axis gets one ``torch.distributed``
+group per slice (``dist.new_group``, made by every rank in the same
+order when the mesh is built); a rank's collectives over an axis run in
+the group of its own slice.
+
+:class:`PartitionSpec`, :class:`NamedSharding` and :class:`ShardedTensor`
+are the port's forms of JAX's placement types: a spec names the mesh
+axes each dim is split over, a sharding binds it to a mesh, and a
+sharded tensor is one rank's piece of a global array with the global
+shape beside it.
+
+:func:`distinct_devices` / :func:`one_device` keep the contexts-to-
+devices rule of a single process: contexts that resolve to one torch
+device act as one; contexts on distinct devices inside one process wait
+for ROADMAP queue A item 12, order step 6.
+"""
 from __future__ import annotations
 
-__all__ = ["distinct_devices", "one_device"]
+from collections import OrderedDict
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+__all__ = ["Mesh", "create_mesh", "auto_mesh", "make_mesh", "mesh_axes",
+           "local_mesh", "PartitionSpec", "NamedSharding", "ShardedTensor",
+           "replicated", "shard_batch", "dp_mesh", "distinct_devices",
+           "one_device", "use_mesh", "current_mesh", "set_current_mesh",
+           "axis_hosts", "link_split", "data_axis"]
+
+_LAUNCH = "python -m mxnet_tpu_torch.tools.launch -n %d"
+_DP_MESH_CACHE = {}
+_CURRENT_MESH = [None]
+
+
+def set_current_mesh(mesh):
+    """Install ``mesh`` as the process-wide active mesh; returns the
+    previous one. Ops that use mesh axes consult it: the sequence-
+    parallel impls of ``_contrib_flash_attention`` (``sp``) and
+    BatchNorm's global-batch statistics (``dp``)."""
+    prev = _CURRENT_MESH[0]
+    _CURRENT_MESH[0] = mesh
+    return prev
+
+
+def current_mesh():
+    return _CURRENT_MESH[0]
+
+
+class use_mesh:
+    """``with use_mesh(mesh): ...`` scoped :func:`set_current_mesh`."""
+
+    def __init__(self, mesh):
+        self._mesh = mesh
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = set_current_mesh(self._mesh)
+        return self._mesh
+
+    def __exit__(self, *exc):
+        set_current_mesh(self._prev)
+
+
+class Mesh:
+    """Named axes over the ranks of the process group.
+
+    ``devices`` is the array of rank ids shaped by the axis sizes (row-
+    major over ``axis_names``); ``shape`` maps each name to its size.
+    :meth:`group` returns the ``torch.distributed`` group of this rank's
+    slice along an axis (None on an axis of size 1) and its member
+    ranks in axis order."""
+
+    def __init__(self, axis_sizes, ranks=None):
+        from . import distributed
+        names = [str(n) for n in axis_sizes]
+        sizes = [int(axis_sizes[n]) for n in axis_sizes]
+        world, me = distributed.num_workers(), distributed.rank()
+        total = int(np.prod(sizes)) if sizes else 1
+        ranks = list(range(world)) if ranks is None \
+            else [int(r) for r in ranks]
+        if total != len(ranks):
+            raise ValueError("mesh axes %s product %d != device count %d"
+                             % (dict(axis_sizes), total, len(ranks)))
+        if sorted(ranks) != list(range(world)):
+            raise ValueError(
+                "mesh axes %s: a mesh spans every rank of the process "
+                "group (world size %d); launch %d ranks with %s"
+                % (dict(axis_sizes), world, total, _LAUNCH % total))
+        self.axis_names = tuple(names)
+        self.devices = np.asarray(ranks, dtype=np.int64).reshape(sizes)
+        self.shape = OrderedDict(zip(names, sizes))
+        self.size = total
+        self.rank = me
+        where = np.argwhere(self.devices == me)[0]
+        self._coords = {n: int(c) for n, c in zip(names, where)}
+        self._groups = {}
+        import torch.distributed as dist
+        for k, name in enumerate(names):
+            rows = np.moveaxis(self.devices, k, -1).reshape(-1, sizes[k])
+            for row in rows:
+                row = [int(r) for r in row]
+                # every rank makes every group, in one order
+                group = dist.new_group(row) \
+                    if world > 1 and sizes[k] > 1 else None
+                if me in row:
+                    self._groups[name] = (group, row)
+
+    def __repr__(self):
+        return "Mesh(%s, rank=%d)" % (
+            ", ".join("%s=%d" % kv for kv in self.shape.items()), self.rank)
+
+    def axis_size(self, axis):
+        if axis not in self.shape:
+            raise ValueError("mesh has no axis %r (axes: %s)"
+                             % (axis, list(self.axis_names)))
+        return self.shape[axis]
+
+    def axis_index(self, axis):
+        """This rank's coordinate along ``axis``."""
+        self.axis_size(axis)
+        return self._coords[axis]
+
+    def group(self, axis):
+        """``(group, ranks)`` of this rank's slice along ``axis``."""
+        self.axis_size(axis)
+        return self._groups[axis]
+
+    def peer(self, axis, index):
+        """The global rank at ``index`` along ``axis`` in this rank's
+        slice."""
+        return self.group(axis)[1][int(index) % self.axis_size(axis)]
+
+
+def data_axis(mesh):
+    """The batch axis of ``mesh``: ``dp``, else ``data``; None when it
+    has neither."""
+    for name in ("dp", "data"):
+        if mesh is not None and name in mesh.axis_names:
+            return name
+    return None
+
+
+def dp_mesh(devices):
+    """The shared 1-axis ``dp`` mesh over an ordered rank tuple, cached
+    so every caller of one rank list agrees on one Mesh."""
+    key = tuple(devices)
+    mesh = _DP_MESH_CACHE.get(key)
+    if mesh is None:
+        mesh = _DP_MESH_CACHE[key] = create_mesh({"dp": len(key)},
+                                                 devices=list(key))
+    return mesh
 
 
 def distinct_devices(ctx_list):
@@ -25,7 +183,7 @@ def distinct_devices(ctx_list):
 def one_device(ctx_list, what):
     """The first of ``ctx_list`` when every context resolves to one torch
     device; contexts on distinct devices raise, naming the step that
-    brings the mesh."""
+    brings them."""
     from ..context import as_context
     ctx_list = [as_context(c) for c in ctx_list]
     if len(set(ctx_list)) == 1:
@@ -34,7 +192,262 @@ def one_device(ctx_list, what):
     if len(devices) > 1:
         raise NotImplementedError(
             "%s over contexts %s on %d distinct devices (%s) is a "
-            "data-parallel mesh, not ported yet (ROADMAP queue A item 12, "
-            "order step 6)" % (what, ", ".join(map(str, ctx_list)),
-                               len(devices), ", ".join(map(str, devices))))
+            "data-parallel mesh inside one process, not ported yet (ROADMAP "
+            "queue A item 12, order step 6); a mesh of ranks is "
+            "parallel.create_mesh under %s"
+            % (what, ", ".join(map(str, ctx_list)), len(devices),
+               ", ".join(map(str, devices)), _LAUNCH % len(devices)))
     return ctx_list[0]
+
+
+class PartitionSpec(tuple):
+    """The mesh axes each dim is split over (None: whole); an entry may
+    be a tuple of axes (split over their product, row-major)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return "PartitionSpec%s" % (tuple.__repr__(self),)
+
+
+def _dim_split(mesh, entry, coords=None):
+    """``(pieces, index)`` of one spec entry at ``coords`` (an ``{axis:
+    index}`` map; this rank's by default)."""
+    if entry is None:
+        return 1, 0
+    n, idx = 1, 0
+    for a in entry if isinstance(entry, tuple) else (entry,):
+        size = mesh.axis_size(a)
+        idx = idx * size + (mesh.axis_index(a) if coords is None
+                            else coords[a])
+        n *= size
+    return n, idx
+
+
+class NamedSharding:
+    """A :class:`PartitionSpec` bound to a mesh: :meth:`shard` cuts a
+    global value down to this rank's piece, :meth:`place` wraps that
+    piece as a :class:`ShardedTensor`."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) \
+            else PartitionSpec(*spec)
+
+    def __repr__(self):
+        return "NamedSharding(%r, %r)" % (self.mesh, self.spec)
+
+    def __eq__(self, other):
+        return isinstance(other, NamedSharding) \
+            and other.mesh is self.mesh and other.spec == self.spec
+
+    def __hash__(self):
+        return hash((id(self.mesh), self.spec))
+
+    def index(self, shape, coords=None):
+        """``[(start, stop), ...]`` of the piece held at ``coords`` (an
+        ``{axis: index}`` map; this rank's by default)."""
+        out = []
+        for d, size in enumerate(shape):
+            entry = self.spec[d] if d < len(self.spec) else None
+            n, idx = _dim_split(self.mesh, entry, coords)
+            if size % n:
+                raise ValueError(
+                    "dim %d of size %d does not split over %s (%d pieces)"
+                    % (d, size, entry, n))
+            step = size // n
+            out.append((idx * step, (idx + 1) * step))
+        return out
+
+    def shard(self, value):
+        """This rank's piece of the global ``value``."""
+        ix = self.index(tuple(value.shape))
+        return value[tuple(slice(a, b) for a, b in ix)]
+
+    def place(self, value):
+        return ShardedTensor(self.shard(value), tuple(value.shape), self)
+
+    @property
+    def is_fully_replicated(self):
+        return all(_dim_split(self.mesh, e)[0] == 1 for e in self.spec)
+
+
+class ShardedTensor:
+    """One rank's piece (``local``) of a global array of ``shape`` laid
+    out by ``sharding``: the port's counterpart of a sharded
+    ``jax.Array`` (a replicated one holds the whole value)."""
+
+    __slots__ = ("local", "shape", "sharding")
+
+    def __init__(self, local, shape, sharding):
+        self.local = local
+        self.shape = tuple(int(s) for s in shape)
+        self.sharding = sharding
+
+    def __repr__(self):
+        return "ShardedTensor(shape=%s, local=%s, spec=%r)" % (
+            self.shape, tuple(self.local.shape), self.sharding.spec)
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    @property
+    def is_fully_replicated(self):
+        return tuple(self.local.shape) == self.shape
+
+    @property
+    def index(self):
+        return self.sharding.index(self.shape)
+
+    def pieces(self):
+        """``[(rank, [(start, stop), ...]), ...]`` for every rank of the
+        mesh, in rank order: the layout a checkpoint manifest records."""
+        mesh = self.sharding.mesh
+        out = []
+        for pos in np.ndindex(*mesh.devices.shape):
+            coords = dict(zip(mesh.axis_names, pos))
+            out.append((int(mesh.devices[pos]),
+                        self.sharding.index(self.shape, coords)))
+        return out
+
+    def full(self):
+        """The whole value on every rank (an all-gather per sharded dim,
+        over the dim's axes from the innermost out)."""
+        from .collectives import all_gather
+        out = self.local
+        spec = self.sharding.spec
+        for d in range(len(spec)):
+            entry = spec[d]
+            if entry is None:
+                continue
+            for a in reversed(entry if isinstance(entry, tuple)
+                              else (entry,)):
+                if self.sharding.mesh.axis_size(a) == 1:
+                    continue
+                moved = out.movedim(d, 0).contiguous()
+                gathered = all_gather(moved, self.sharding.mesh, a,
+                                      account=False)
+                out = gathered.movedim(0, d)
+        return out
+
+
+def create_mesh(axis_sizes: Dict[str, int], devices=None):
+    """A :class:`Mesh` from ``{'dp': 2, 'sp': 2, ...}`` (axis order is the
+    dict order) over the ranks ``devices`` (every rank, in rank order,
+    by default). The product must equal the world size."""
+    from . import distributed
+    world = distributed.num_workers()
+    total = int(np.prod([int(v) for v in axis_sizes.values()])) \
+        if axis_sizes else 1
+    if devices is None and total != world:
+        raise ValueError(
+            "mesh axes %s need %d ranks but the world has %d: launch them "
+            "with %s" % (dict(axis_sizes), total, world, _LAUNCH % total))
+    return Mesh(axis_sizes, ranks=devices)
+
+
+def auto_mesh(n_devices: Optional[int] = None,
+              prefer: Sequence[str] = ("dp", "tp", "sp")):
+    """Factor the world size into a default mesh: factors of 2 to the
+    trailing preferred axes first, the rest to the first."""
+    from . import distributed
+    n = n_devices if n_devices is not None else distributed.num_workers()
+    sizes = {k: 1 for k in prefer}
+    axes = list(prefer)
+    i, rem = len(axes) - 1, n
+    while i > 0 and rem % 2 == 0 and rem > 2:
+        sizes[axes[i]] *= 2
+        rem //= 2
+        i -= 1
+    sizes[axes[0]] = rem
+    return create_mesh(sizes)
+
+
+def make_mesh(data=None, fsdp=None, tp=None, devices=None, hosts=None):
+    """The ``data`` x ``fsdp`` x ``tp`` mesh of the sharding-rules layer
+    (data outermost). Sizes left None are 1, except ``data``, which takes
+    the ranks that remain. ``hosts``, when given, must equal the number
+    of processes the ranks span (each rank is a process) and the inner
+    ``fsdp*tp`` block must divide the ranks of each."""
+    from . import distributed
+    ranks = list(devices) if devices is not None \
+        else list(range(distributed.num_workers()))
+    n = len(ranks)
+    if hosts is not None:
+        hosts = int(hosts)
+        if hosts != n:
+            raise ValueError(
+                "make_mesh(hosts=%d): the %d available devices span %d "
+                "process(es) — launch contract and topology disagree"
+                % (hosts, n, n))
+        inner_block = (int(fsdp) if fsdp else 1) * (int(tp) if tp else 1)
+        if inner_block != 1:
+            raise ValueError(
+                "make_mesh(hosts=%d): fsdp*tp = %d does not divide the 1 "
+                "device local to each process" % (hosts, inner_block))
+    fsdp = int(fsdp) if fsdp is not None else 1
+    tp = int(tp) if tp is not None else 1
+    if fsdp < 1 or tp < 1:
+        raise ValueError("make_mesh: axis sizes must be >= 1, got fsdp=%s "
+                         "tp=%s" % (fsdp, tp))
+    inner = fsdp * tp
+    if data is None:
+        if n % inner:
+            raise ValueError("make_mesh: fsdp*tp = %d does not divide the "
+                             "%d available devices" % (inner, n))
+        data = n // inner
+    data = int(data)
+    if data < 1:
+        raise ValueError("make_mesh: axis sizes must be >= 1, got data=%s"
+                         % data)
+    if data * inner > n:
+        raise ValueError(
+            "make_mesh: data=%d x fsdp=%d x tp=%d needs %d devices, only "
+            "%d available" % (data, fsdp, tp, data * inner, n))
+    return create_mesh({"data": data, "fsdp": fsdp, "tp": tp},
+                       devices=ranks[:data * inner])
+
+
+def local_mesh(axis_name="dp"):
+    """A 1-axis mesh over every rank."""
+    from . import distributed
+    return create_mesh({axis_name: distributed.num_workers()})
+
+
+def mesh_axes(mesh):
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def replicated(mesh):
+    return NamedSharding(mesh, PartitionSpec())
+
+
+def shard_batch(mesh, batch_axes=("dp",)):
+    """The sharding of a batch: dim 0 split over ``batch_axes``."""
+    return NamedSharding(mesh, PartitionSpec(tuple(batch_axes)))
+
+
+def axis_hosts(mesh, axis):
+    """``(group_size, hosts_per_group)`` of one axis: how many ranks a
+    collective over ``axis`` spans and how many processes each of its
+    groups touches. Every rank is its own process, so the two agree."""
+    if axis not in mesh.axis_names:
+        raise ValueError("mesh has no axis %r (axes: %s)"
+                         % (axis, list(mesh.axis_names)))
+    n = int(mesh.shape[axis])
+    return n, n
+
+
+def link_split(mesh, axis, nbytes):
+    """Split one collective's payload into ``(ici_bytes, dcn_bytes)`` by
+    the JAX package's hop model (``h - 1`` of the ``n - 1`` combine hops
+    cross a process boundary). Every hop between ranks crosses one, so
+    the port books the whole payload under ``dcn``, as
+    ``telemetry.comm_links`` states."""
+    n, h = axis_hosts(mesh, axis)
+    if n <= 1:
+        return 0, 0
+    dcn = int(round(nbytes * max(h - 1, 0) / (n - 1)))
+    return int(nbytes) - dcn, dcn

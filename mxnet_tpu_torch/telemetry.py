@@ -19,7 +19,9 @@ records — one schema, one sink (counterpart of
   :func:`stop`. A CUDA graph's private memory pool shows in reserved
   memory, not in allocated memory. Without a card no ``memory`` record
   is written: the JAX package's host live-buffer fallback
-  (``MXNET_TELEMETRY_LIVE_BUFFERS``) has no torch counterpart.
+  (``MXNET_TELEMETRY_LIVE_BUFFERS``) has no torch counterpart. The
+  rank-mesh trainer adds its per-rank split (:func:`memory_breakdown`:
+  sharded and replicated parameters, optimizer state).
 - **Serving records** — cumulative ``decode`` and ``prefix_cache``
   records from each ``serving.DecodeServer``, ``router`` records from
   each ``serving.Router``, ``usage`` records from the meter
@@ -29,7 +31,8 @@ records — one schema, one sink (counterpart of
   shape-bucketing producer (``bucketing.BucketingStats``).
 - **Comms ledger** — the input pipeline's host-to-device copies
   (:func:`h2d`), the kvstore's pushes and pulls and the bucketed
-  exchange (:func:`comm_span`), and the per-link split
+  exchange (:func:`comm_span`), the rank mesh's collectives (kind
+  ``collective``, keyed by the collective's name), and the per-link split
   (:func:`comm_links`): calls, bytes and milliseconds per
   ``kind:key`` in the summary's ``comms`` (present once a transfer was
   accounted).
@@ -51,9 +54,9 @@ also arms the tracer (``MXNET_TRACE``), the flight recorder
 (``MXNET_FLIGHTREC_DIR``), the ``/metrics`` endpoint
 (``MXNET_METRICS_PORT``) and the SLO watchdog (``MXNET_WATCHDOG``).
 
-JSONL record types: ``run_start``, ``step``, ``memory``, ``summary``,
-``decode``, ``prefix_cache``, ``router``, ``bucketing``, ``usage`` and
-``alert``;
+JSONL record types: ``run_start``, ``step``, ``memory``,
+``memory_breakdown``, ``summary``, ``decode``, ``prefix_cache``,
+``router``, ``bucketing``, ``usage`` and ``alert``;
 a subsystem that never runs writes none of its kinds, so the sink is
 byte-identical to a run without it. The JAX package's other kinds
 arrive with the modules that emit them (``ROADMAP.md`` queue A).
@@ -75,7 +78,7 @@ __all__ = ["enabled", "start", "stop", "reset", "maybe_start",
            "quick_stats", "percentile", "external_record",
            "checkpoint_event", "decode_event", "router_event", "prefix_cache_event",
            "bucketing_event", "alert_event", "usage_event", "comm",
-           "comm_span", "comm_links", "h2d"]
+           "comm_span", "comm_links", "h2d", "memory_breakdown"]
 
 _lock = threading.Lock()
 _run = None          # the active _Run
@@ -141,6 +144,7 @@ class _Run:
         self.extra_counters = {}     # free-form note() names
         self.comms = {}              # (kind, key) -> calls/bytes/time_ms
         self.mem_watermarks = {}     # device -> peak/last bytes
+        self.mem_breakdown = None    # params_sharded/... split (lazy)
         self.fault_base = None       # fault.stats() at start
         self._step_t0 = None         # perf_counter at step_begin
         self._last_boundary = None   # perf_counter at last step end
@@ -859,6 +863,32 @@ def _sample_memory(run):
         _record_memory(run, "cuda:%d" % d, in_use, peak)
 
 
+def memory_breakdown(**kinds):
+    """Account a per-rank resident-bytes split by kind
+    (``params_sharded`` / ``params_replicated`` / ``opt_state``, from the
+    FSDP/ZeRO-1 trainer). Watermarks: each kind keeps its max over the
+    run, and a ``memory_breakdown`` record is appended only when one
+    grows (a steady loop adds one record). No-op without a run."""
+    run = _run
+    if run is None:
+        return
+    with _lock:
+        bd = run.mem_breakdown
+        if bd is None:
+            bd = run.mem_breakdown = {}
+        grew = False
+        for k, v in kinds.items():
+            v = int(v or 0)
+            if v > bd.get(k, -1):
+                bd[k] = v
+                grew = True
+        if grew:
+            rec = {"type": "memory_breakdown", "seq": run.steps}
+            rec.update(bd)
+            run.records.append(rec)
+            _remember(rec)
+
+
 def _record_memory(run, device, in_use, peak):
     rec = {"type": "memory", "device": device, "seq": run.steps,
            "bytes_in_use": in_use, "peak_bytes_in_use": peak}
@@ -964,6 +994,8 @@ def report():
         if run.comms:
             out["comms"] = {"%s:%s" % k: dict(c)
                             for k, c in sorted(run.comms.items())}
+        if run.mem_breakdown is not None:
+            out["memory_breakdown"] = dict(run.mem_breakdown)
         if run.extra_counters:
             out["events"] = dict(run.extra_counters)
         if run.ckpt is not None:

@@ -300,20 +300,37 @@ def test_decode_attention_op_matches(impl):
             tmx.nd.array(lengths), impl="ring")
 
 
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
-def test_sequence_parallel_impls_raise(impl):
+def test_sequence_parallel_impls_raise(impl, causal):
+    """``impl='ring'|'ulysses'`` without an ``sp`` mesh (none, or a
+    world of one rank) runs local attention, as the JAX op does; only a
+    segment plane with them raises."""
+    rs = np.random.RandomState(4)
+    q, k, v = (rs.randn(2, 12, 4, 8).astype(np.float32) for _ in range(3))
+
+    def run(mx):
+        return mx.nd._contrib_flash_attention(
+            *[mx.nd.array(a) for a in (q, k, v)], impl=impl, causal=causal)
+    got, want = _both(run)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    from mxnet_tpu_torch import parallel as tpar
+    with tpar.use_mesh(tpar.create_mesh({"sp": 1})):
+        np.testing.assert_allclose(run(tmx).asnumpy(), want, rtol=2e-5,
+                                   atol=2e-5)
     x = tmx.nd.ones((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tmx.nd._contrib_flash_attention(x, x, x, impl=impl)
+    with pytest.raises(ValueError, match="segment_ids"):
+        tmx.nd._contrib_flash_attention(x, x, x, tmx.nd.ones((1, 4)),
+                                        impl=impl)
 
 
 def test_op_attribute_checks_match_jax_registry():
     from mxnet_tpu.ops import registry as jreg
     from mxnet_tpu_torch.ops import registry as treg
-    # the port declares no attribute it does not act on: the attention
-    # op's mesh axis and TPU tile sizes wait for the mesh slice
-    unported = {"_contrib_flash_attention": {"mesh_axis", "block_q",
-                                             "block_k"}}
+    # every attribute of these ops is declared alike; the attention op's
+    # TPU tile sizes are accepted and unused (the CUDA kernels pick their
+    # own)
+    unported = {}
     for name in ("FullyConnected", "LayerNorm", "Embedding", "pick",
                  "Reshape", "_contrib_flash_attention",
                  "_contrib_decode_attention", "softmax", "mean"):

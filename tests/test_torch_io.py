@@ -6,7 +6,8 @@ with the same seed give batches EXACTLY equal to the JAX package's
 numpy), with shuffle, random crop, mirror, resize, mean/std and
 round-batch padding; ``CSVIter``, ``MNISTIter`` over local idx files,
 ``ResizeIter`` and ``PrefetchingIter`` follow the JAX iterators batch for
-batch; ``make_sharded_pipeline`` (a mesh, item 12) raises.
+batch; ``make_sharded_pipeline`` gives each rank of a ``dp`` mesh its
+rows (two gloo ranks).
 ``LibSVMIter``'s csr batches are held to the JAX package's in
 ``tests/test_torch_sparse.py``.
 """
@@ -313,8 +314,30 @@ def test_ndarray_iter_split_protocol_matches_next():
     assert got[0].label[0].dtype == np.int32
 
 
-def test_unported_iterators_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmx.io.make_sharded_pipeline(
-            tmx.io.NDArrayIter(np.zeros((4, 2), np.float32), batch_size=2),
-            mesh=None)
+@pytest.mark.parametrize("world", [1, 2])
+def test_unported_iterators_raise(tmp_path, world):
+    """``make_sharded_pipeline`` is ported: each rank of a ``dp`` mesh gets
+    its rows of every batch-divisible array, marked as placed (on two
+    gloo ranks through ``torch_mesh_ranks``; a world of one keeps every
+    row)."""
+    x = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+    y = np.arange(8, dtype=np.float32)
+    if world == 1:
+        from mxnet_tpu_torch import parallel as tpar
+        pipe = tmx.io.make_sharded_pipeline(
+            tmx.io.NDArrayIter(x, y, batch_size=4), tpar.local_mesh("dp"))
+        got = list(pipe)
+        np.testing.assert_array_equal(
+            np.concatenate([b.data[0].asnumpy() for b in got]), x)
+        assert all(b.data[0]._dp_local for b in got)
+        return
+    import torch_mesh_ranks as h
+    ranks = h.spawn(tmp_path, "pipeline", world)
+    assert not h.errors(ranks, "")
+    for r, res in enumerate(ranks):
+        rows = [b * 4 + r * 2 + i for b in range(2) for i in range(2)]
+        np.testing.assert_array_equal(res["pipe/data"].reshape(-1, 3),
+                                      x[rows])
+        np.testing.assert_array_equal(res["pipe/label"].reshape(-1), y[rows])
+        assert res["pipe/marked"] == [True, True]
+        assert res["pipe/whole"] == "cpu"

@@ -29,15 +29,15 @@ import mxnet_tpu_torch.ops as tops
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-6)
 
-_STEP6 = "order step 6 (item 12, parallel/)"
 _STEP8 = "order step 8 (item 13, breadth)"
 
 # the names order step 5 (sparse storage) registered
 STEP5 = {"_square_sum", "_contrib_getnnz", "_contrib_SparseEmbedding",
          "cast_storage", "_sparse_retain"}
+# and the first half of order step 6 (the rank mesh)
+STEP6 = {"_contrib_SyncBatchNorm"}
 
 UNPORTED = dict(
-    _contrib_SyncBatchNorm=_STEP6,
     **{n: _STEP8 for n in (
         "_contrib_edge_id", "_image_normalize", "_image_resize",
         "_image_to_tensor", "_image_totensor", "GridGenerator",
@@ -61,11 +61,7 @@ UNPORTED = dict(
         "_contrib_dgl_graph_compact", "_contrib_dgl_subgraph")})
 
 # registered in both with a documented difference
-DIFFERS = {
-    # the mesh axis and the TPU kernel's block sizes: the port has no mesh
-    # yet (order step 6) and its kernels pick their own tiles
-    "_contrib_flash_attention": ("defaults",),
-}
+DIFFERS = {}
 
 # the names of this slice (ROADMAP queue A order step 3), by module
 SLICE = {
@@ -82,7 +78,6 @@ NS_UNPORTED = dict(
         "ROIPooling")})
 
 CONTRIB_UNPORTED = dict(
-    SyncBatchNorm=_STEP6,
     **{n: _STEP8 for n in (
         "edge_id", "dequantize", "quantize", "quantize_v2",
         "quantized_concat", "quantized_conv", "quantized_flatten",
@@ -146,20 +141,20 @@ def test_every_jax_op_is_registered_alike_or_listed(name):
 
 
 def test_the_port_registers_328_of_382_names_and_nothing_of_its_own():
-    """328 names through order step 3; order step 5 added five (333),
-    and 49 wait in ``UNPORTED``."""
+    """328 names through order step 3; order step 5 added five and order
+    step 6 one (334), and 48 wait in ``UNPORTED``."""
     jax_names, port_names = set(jops.list_ops()), set(tops.list_ops())
     assert port_names <= jax_names
-    assert len(jax_names) == 382 and len(port_names - STEP5) == 328
-    assert STEP5 <= port_names and len(port_names) == 333
-    assert jax_names - port_names == set(UNPORTED) and len(UNPORTED) == 49
+    assert len(jax_names) == 382 and len(port_names - STEP5 - STEP6) == 328
+    assert STEP5 | STEP6 <= port_names and len(port_names) == 334
+    assert jax_names - port_names == set(UNPORTED) and len(UNPORTED) == 48
 
 
 def test_the_slice_registers_179_names_by_module():
     """The names this slice added, by the JAX module that registers
     them (the ``_v1`` names sit in the JAX package's extra.py; the port
     registers them in its nn.py, beside the ops they rename)."""
-    added = set(tops.list_ops()) - _EARLIER - STEP5
+    added = set(tops.list_ops()) - _EARLIER - STEP5 - STEP6
     counts = {}
     for name in added:
         mod = jops.get_op(name).forward.__module__.rsplit(".", 1)[-1]
@@ -434,7 +429,7 @@ def test_phase_21_sweeps_every_op_of_the_slice_and_each_case_runs():
     names = {n for ns in swept.values() for n in ns}
     slice_names = set(tops.list_ops()) - _EARLIER
     assert slice_names <= names, sorted(slice_names - names)
-    assert STEP5 <= names
+    assert STEP5 | STEP6 <= names
     rs = np.random.RandomState(0)
     cases = cs.ops_cases(rs, act=(2, 16, 12), spd=(2, 6), heads=2, vocab=40,
                          seq=8, width=12)
