@@ -490,11 +490,39 @@ no result, anywhere else. Phases (any failure exits non-zero):
    gradients summed over sp, against the one-process flash route on the
    same weights (logits within MESH_LOGIT_ATOL, gradients within phase
    10's tolerances), ms fwd + bwd for each; Ulysses launches each flash
-   kernel 12 times a rank, ring none (its block is plain torch).
+   kernel 12 times a rank, ring none (its block is plain torch). Both
+   get phase 10's second pass: (a)'s twin again on the global batch with
+   each layer's ReLU replaced by the ranks' masks (their rows), (b)'s
+   one-process route with the ranks' masks (their sequence halves), every
+   gradient within GRAD_RTOL_SHARED.
+25. mesh axes (after 24) — the twenty-first slice, every mesh axis, fp32
+   with TF32 off. Four ranks under phase 22's launcher (``chip_smoke.py
+   mesh4-rank DIR``): (a) phase 24's LM and batch through the
+   ``DistributedTrainer`` over ``{"dp": 2, "sp": 2}`` (B4 x T512 a rank,
+   ring attention through the op's auto route, global positions, ZeRO-1
+   and FSDP over dp), Adam lr 1e-3, MESH4_STEPS steps: step 1's loss
+   before and after within LOSS_ATOL of phase 24's twin, the loss falling
+   and equal on every rank; one SGD step's exchanged gradient at both of
+   phase 10's tiers (the second with the ranks' ReLU masks, their rows
+   and sequence halves, in the twin); (b) the same over ``{"dp": 2,
+   "tp": 2}`` with FSDP: each weight at rest as its 2-D piece, parameter
+   bytes a rank the rules' (projections 1/4, embeddings 1/2, norms whole),
+   the losses equal to phase 24 (a)'s first MESH4_STEPS bit for bit.
+   Then eight ranks (``python -m mxnet_tpu_torch.dryrun rank``, the
+   dryrun's own worker, gloo on gpu(0)): (c) ``dryrun_multichip``'s step
+   at the JAX entry point's dims over ``dp2/tp2/sp2`` and ``dp2/pp2/sp2``,
+   (d) the same step at GPT-2-small width (D768 H12 F3072 E4 T1024, B =
+   2 * dp * n_micro: 8 and 16): the loss within DRY_LOSS_RTOL and every
+   updated shard within DRY_ATOL + DRY_RTOL * max|w| of a one-process
+   twin of the step on the card (plain attention). Every rank prints ms a
+   step, ``sync`` ms, peak memory, the gloo-staged bytes and its share of
+   the parameter bytes; the flash launch counts, zeroed before each path,
+   are read after it: (a), (c) and (d) launch none (ring attention's
+   block is plain torch), (b) 12 of each flash kernel a step.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
-packing, or mesh dp / mesh sp ulysses, rank 0's launches;
+packing, or mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches;
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -2750,7 +2778,8 @@ def gluon_lm(mx):
 
 def shared_relu(mx):
     """A ReLU block that applies a given 0/1 mask instead of its input's
-    sign, and counts the positions where the two disagree (``flips``)."""
+    sign, and counts the positions where the two disagree (``flips``);
+    with ``mask`` None it is the plain ReLU."""
 
     class SharedReLU(mx.gluon.nn.Activation):
         def __init__(self, mask, **kwargs):
@@ -2758,6 +2787,8 @@ def shared_relu(mx):
             self.mask, self.flips = mask, 0
 
         def hybrid_forward(self, F, x):
+            if self.mask is None:
+                return super().hybrid_forward(F, x)
             self.flips = int(((x > 0) != self.mask).sum().asscalar())
             return x * self.mask
 
@@ -8685,20 +8716,20 @@ def kv_single_process(mx):
           "plain formula" % (len(parts), parts[0].shape))
 
 
-def kv_launch(outdir, role="kv-rank"):
-    """Runs the ranks: ``python -m mxnet_tpu_torch.tools.launch -n 2``
+def kv_launch(outdir, role="kv-rank", n=KV_RANKS,
+              timeout=KV_LAUNCH_TIMEOUT):
+    """Runs the ranks: ``python -m mxnet_tpu_torch.tools.launch -n N``
     over ``chip_smoke.py <role> DIR`` from the checkout; their readings.
     A failing rank fails the phase with its last lines."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
-           str(KV_RANKS), sys.executable, os.path.abspath(__file__),
-           role, outdir]
+           str(n), sys.executable, os.path.abspath(__file__), role, outdir]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
-                              text=True, timeout=KV_LAUNCH_TIMEOUT)
+                              text=True, timeout=timeout)
         rc, out, err = proc.returncode, proc.stdout, proc.stderr
     except subprocess.TimeoutExpired as exc:
         rc, out, err = "timeout", exc.stdout or "", exc.stderr or ""
@@ -8706,12 +8737,12 @@ def kv_launch(outdir, role="kv-rank"):
         err = err if isinstance(err, str) else err.decode()
     secs = time.perf_counter() - t0
     ranks = []
-    for r in range(KV_RANKS):
+    for r in range(n):
         path = os.path.join(outdir, "rank%d.json" % r)
         ranks.append(json.load(open(path)) if os.path.exists(path)
                      else {"error": "rank %d wrote no result" % r})
     if rc != 0 or any("error" in r for r in ranks):
-        for r in range(KV_RANKS):
+        for r in range(n):
             path = os.path.join(outdir, "rank%d.log" % r)
             tail = open(path).read()[-3000:] if os.path.exists(path) else ""
             print("  rank %d's last lines:\n%s%s"
@@ -9656,10 +9687,14 @@ MESH_SP_ITERS = 3
 # by exactly the exchanged gradient, held per parameter to the twin's
 # gradient of the global mean at phase 10's GRAD_RTOL (GRAD_RTOL_RELU
 # for the ffn1 weights); a half-batch or mis-scaled gradient is off by
-# 0.5 or more. Of the Adam run's step 1: the loss before and after
-# within LOSS_ATOL of the twin's, and at most MESH_STEP1_FLIP of all the
+# 0.5 or more. The gradient is read back as (before - after) / lr, in
+# fp32 weights: lr 1e3 keeps that reading's rounding (half an ulp of a
+# LayerNorm gain's 1.0 over lr) near 1e-6 of even the smallest gradient,
+# where lr 1 left it at 1e-3 of the gains' own, the second tier's
+# tolerance. Of the Adam run's step 1: the loss before and after within
+# LOSS_ATOL of the twin's, and at most MESH_STEP1_FLIP of all the
 # elements stepping the other way
-MESH_SGD_LR = 1.0
+MESH_SGD_LR = 1e3
 MESH_STEP1_FLIP = 1e-4
 MESH_LOGIT_ATOL = LOGIT_ATOL
 MESH_SP_SHAPE = "B%d T%d H%d D64 causal" % (
@@ -9842,10 +9877,79 @@ def mesh_rank_dp(mx, par, tfa, ctx, rank, outdir, init, say):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
+    mesh_rank_masks(mx, par, net, init, ctx, tokens, mesh, outdir, rank,
+                    "masks")
     del net
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def mesh_rank_masks(mx, par, net, init, ctx, tokens, mesh, outdir, rank,
+                    tag):
+    """This rank's ReLU masks (``a > 0`` of each layer's ffn1) of the net
+    at ``init`` on its piece of ``tokens`` (its dp rows and, over sp, its
+    half of the sequence), the forward the SGD step ran, bit-packed to
+    DIR/<tag>.rank<r>.npz."""
+    spec = ("dp", "sp") if "sp" in mesh.axis_names else ("dp",)
+    local = mx.nd.NDArray(par.NamedSharding(mesh, par.PartitionSpec(*spec))
+                          .shard(tokens._data).contiguous())
+    mesh_set(mx, net, init, ctx)
+    layers = [net.lm.layers[i] for i in range(len(net.lm.layers))]
+    for layer in layers:
+        layer.relu_masks = []
+    with par.use_mesh(mesh), mx.autograd.pause():
+        net(local)
+    np.savez(os.path.join(outdir, "%s.rank%d.npz" % (tag, rank)),
+             **{"l%d" % i: np.packbits(layer.relu_masks[0].asnumpy() > 0,
+                                       axis=-1)
+                for i, layer in enumerate(layers)})
+    for layer in layers:
+        layer.relu_masks = None
+
+
+def mesh_masks(outdir, tag, n_ranks, coords):
+    """The ranks' masks assembled over the global batch: ``coords(r)``
+    gives rank r's (row block, sequence block) of ``n_ranks`` ranks."""
+    B, T, F = MESH_BATCH, GPT2_SMALL["max_len"], GPT2_SMALL["d_ff"]
+    blocks = [coords(r) for r in range(n_ranks)]
+    nb = max(b for b, _ in blocks) + 1
+    ns = max(s for _, s in blocks) + 1
+    full = [np.zeros((B, T, F), bool) for _ in range(GPT2_SMALL["n_layers"])]
+    for r, (b, s) in enumerate(blocks):
+        rows = slice(b * B // nb, (b + 1) * B // nb)
+        cols = slice(s * T // ns, (s + 1) * T // ns)
+        with np.load(os.path.join(outdir, "%s.rank%d.npz" % (tag, r))) as f:
+            for i, m in enumerate(full):
+                m[rows, cols] = np.unpackbits(f["l%d" % i], axis=-1,
+                                              count=F).astype(bool)
+    return full
+
+
+def mesh_twin_shared(mx, ctx, init, masks):
+    """The twin's gradient of the global mean (global batch, flash
+    attention) with each layer's ReLU replaced by the ranks' masks
+    (phase 10's second pass); also the sign flips between the routes."""
+    net = mesh_net(mx, ctx)
+    mesh_set(mx, net, init, ctx)
+    SharedReLU = shared_relu(mx)
+    layers = [net.lm.layers[i] for i in range(len(net.lm.layers))]
+    for layer, m in zip(layers, masks):
+        layer.ffn1.act = SharedReLU(mx.nd.array(m.astype(np.float32),
+                                                ctx=ctx))
+    x, y = mesh_tokens(MESH_BATCH)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(mx.nd.array(x, ctx=ctx)), mx.nd.array(y, ctx=ctx))
+    loss.backward()
+    grad = {n: p.grad().asnumpy() / MESH_BATCH
+            for n, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+    flips = [layer.ffn1.act.flips for layer in layers]
+    del net, layers, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return grad, flips
 
 
 def mesh_grads(net):
@@ -9912,13 +10016,39 @@ def mesh_rank_sp(mx, par, tfa, ctx, rank, init, say):
     ref_logits, ref_grads = route("flash", *full)
     ref_logits = ref_logits[:, lo:hi]
     out = {"ref_ms": timed_route("flash", *full)}
+    SharedReLU = shared_relu(mx)
+    for layer in layers:                  # the plain ReLU until a mask is set
+        layer.ffn1.act = SharedReLU(None)
+
+    def ratios_of(grads, ref):
+        return {n: float((grads[n] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for n, g in ref.items()}
+
     for impl in ("ulysses", "ring"):
+        for layer in layers:
+            layer.relu_masks = []
         tfa.reset_launches()              # (b)'s route starts here
         logits, grads = route(impl, tok, lab, pos, denom, True)
         out[impl] = {"launches": dict(tfa.launches)}   # ... ends here
-        ratios = {n: float((grads[n] - g).abs().max()
-                           / g.abs().max().clamp_min(1e-30))
-                  for n, g in ref_grads.items()}
+        ratios = ratios_of(grads, ref_grads)
+        # phase 10's second pass: the one-process route again with the
+        # ranks' ReLU masks (the sequence halves gathered over sp)
+        for layer in layers:
+            half = layer.relu_masks[0]._data.movedim(1, 0).contiguous()
+            layer.relu_masks = None
+            whole = collectives.all_gather(half, mesh, "sp").movedim(0, 1)
+            layer.ffn1.act.mask = mx.nd.NDArray(whole.contiguous())
+        _, shared_grads = route("flash", *full)
+        flips = [layer.ffn1.act.flips for layer in layers]
+        for layer in layers:
+            layer.ffn1.act.mask = None
+        shared = ratios_of(grads, shared_grads)
+        del shared_grads
+        out[impl].update(shared_worst=max(shared.values()),
+                         shared_median=statistics.median(shared.values()),
+                         shared_worst_name=max(shared, key=shared.get),
+                         shared_flips=sum(flips))
         over = [n for n, r in ratios.items()
                 if r > (GRAD_RTOL_RELU if n.endswith("ffn1.weight")
                         else GRAD_RTOL)]
@@ -9929,9 +10059,11 @@ def mesh_rank_sp(mx, par, tfa, ctx, rank, init, say):
             grad_worst_name=max(ratios, key=ratios.get), grad_over=over,
             ms=timed_route(impl, tok, lab, pos, denom, True))
         say("(b) rank %d %s: logits max abs err %.3g, gradients worst "
-            "%.3g (%s), %.1f ms fwd+bwd (one process %.1f), launches %s"
+            "%.3g (%s), with shared masks %.3g (%s), %.1f ms fwd+bwd (one "
+            "process %.1f), launches %s"
             % (rank, impl, out[impl]["logit_err"], out[impl]["grad_worst"],
-               out[impl]["grad_worst_name"], out[impl]["ms"],
+               out[impl]["grad_worst_name"], out[impl]["shared_worst"],
+               out[impl]["shared_worst_name"], out[impl]["ms"],
                out["ref_ms"], out[impl]["launches"]))
     del net, lm, layers
     gc.collect()
@@ -9982,12 +10114,13 @@ def mesh_rank_main(outdir):
     return 1 if "error" in res else 0
 
 
-def mesh_sgd_grads(twin, outdir):
+def mesh_sgd_grads(twin, outdir, grad=None, fname="sgd1.npz"):
     """The SGD step's exchanged gradient, ``(init - after) / lr``, held
-    to the twin's gradient: ``{name: max|diff| / max|grad|}``."""
+    to the twin's gradient (``grad``, else ``twin["grad"]``): ``{name:
+    max|diff| / max|grad|}``."""
     out = {}
-    with np.load(os.path.join(outdir, "sgd1.npz")) as f:
-        for n, want in twin["grad"].items():
+    with np.load(os.path.join(outdir, fname)) as f:
+        for n, want in (grad or twin["grad"]).items():
             got = (twin["init"][n].astype(np.float64)
                    - f[n].astype(np.float64)) / MESH_SGD_LR
             out[n] = float(np.abs(got - want).max()
@@ -10055,10 +10188,14 @@ def phase_mesh(card, tfa):
              time.perf_counter() - t0))
     outdir = tempfile.mkdtemp(prefix="mesh_")
     try:
-        ranks, secs = kv_launch(outdir, "mesh-rank")
+        ranks, secs = kv_launch(outdir, "mesh-rank", MESH_RANKS)
         lr = MESH_ADAM["learning_rate"]
         flip_share, step1_rows = mesh_step1(twin, lr, outdir)
         sgd_ratios = mesh_sgd_grads(twin, outdir)
+        shared_grad, shared_flips = mesh_twin_shared(
+            mx, mx.gpu(0), twin["init"],
+            mesh_masks(outdir, "masks", MESH_RANKS, lambda r: (r, 0)))
+        shared_ratios = mesh_sgd_grads(twin, outdir, shared_grad)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     a = [r["a"] for r in ranks]
@@ -10090,6 +10227,15 @@ def phase_mesh(card, tfa):
              statistics.median(sgd_ratios.values()), GRAD_RTOL,
              GRAD_RTOL_RELU, a[0]["sgd_loss"], card))
     print_groups(sgd_ratios)
+    print("  (a) the twin again with the ranks' ReLU masks (phase 10's second"
+          " pass; %d pre-activations flipped sign between the routes, per "
+          "layer %s): the exchanged gradient worst %.3g (%s), median %.3g "
+          "(tolerance %g, every parameter; %s)"
+          % (sum(shared_flips), shared_flips, max(shared_ratios.values()),
+             max(shared_ratios, key=shared_ratios.get),
+             statistics.median(shared_ratios.values()), GRAD_RTOL_SHARED,
+             card))
+    print_groups(shared_ratios)
     for flip, dmax, off, size, name in step1_rows[:5]:
         print("    step 1, %s: %.3g of its elements step the other way, "
               "%.3g further than 1e-3 lr apart (the twin's step there: "
@@ -10133,6 +10279,9 @@ def phase_mesh(card, tfa):
     if sgd_over:
         fail("(a) the exchanged gradient is outside its tolerance of the "
              "twin's: %s" % sgd_over)
+    if max(shared_ratios.values()) > GRAD_RTOL_SHARED:
+        fail("(a) the exchanged gradient is outside %g of the twin's with "
+             "shared ReLU masks" % GRAD_RTOL_SHARED)
     if flip_share > MESH_STEP1_FLIP \
             or abs(a[0]["curve"][0] - twin["loss"]) > LOSS_ATOL \
             or abs(a[0]["curve"][1] - twin["loss2"]) > LOSS_ATOL:
@@ -10147,12 +10296,17 @@ def phase_mesh(card, tfa):
             print("    %-7s rank %d: logits max abs err %.3g (tolerance "
                   "%g), gradients max|diff| / max|grad| worst %.3g (%s), "
                   "median %.3g (tolerance %g, ffn1 weights %g: phase 10's); "
-                  "%.1f ms fwd+bwd vs %.1f ms one process; kernel launches "
-                  "%s" % (impl, r, x["logit_err"], MESH_LOGIT_ATOL,
-                          x["grad_worst"], x["grad_worst_name"],
-                          x["grad_median"], GRAD_RTOL, GRAD_RTOL_RELU,
-                          x["ms"], rec["ref_ms"], x["launches"]))
-            if x["logit_err"] > MESH_LOGIT_ATOL or x["grad_over"]:
+                  "with the ranks' ReLU masks shared (%d sign flips) worst "
+                  "%.3g (%s), median %.3g (tolerance %g); %.1f ms fwd+bwd vs "
+                  "%.1f ms one process; kernel launches %s"
+                  % (impl, r, x["logit_err"], MESH_LOGIT_ATOL,
+                     x["grad_worst"], x["grad_worst_name"], x["grad_median"],
+                     GRAD_RTOL, GRAD_RTOL_RELU, x["shared_flips"],
+                     x["shared_worst"], x["shared_worst_name"],
+                     x["shared_median"], GRAD_RTOL_SHARED, x["ms"],
+                     rec["ref_ms"], x["launches"]))
+            if x["logit_err"] > MESH_LOGIT_ATOL or x["grad_over"] \
+                    or x["shared_worst"] > GRAD_RTOL_SHARED:
                 fail("(b) %s on rank %d is outside its tolerance of the "
                      "one-process route" % (impl, r))
         for kname in TRAIN_KERNELS:
@@ -10167,7 +10321,342 @@ def phase_mesh(card, tfa):
                             time.perf_counter() - t_phase))
     return dict(kern=kern, dp_launches=a[0]["launches"],
                 sp_launches=b[0]["ulysses"]["launches"],
-                ring_launches=b[0]["ring"]["launches"])
+                ring_launches=b[0]["ring"]["launches"], twin=twin,
+                curve=a[0]["curve"])
+
+
+# ---------------------------------------------------------------------------
+# phase 25: every mesh axis
+# ---------------------------------------------------------------------------
+
+MESH4_RANKS = 4
+MESH4_STEPS = 5
+MESH4_LAUNCH_TIMEOUT = 600
+DRY_RANKS = 8
+DRY_WIDTH = dict(D=768, H=12, F=3072, E=4, T=1024)
+DRY_LOSS_RTOL = 1e-5
+DRY_ATOL, DRY_RTOL = 1e-6, 1e-5
+DRY_LAUNCH_TIMEOUT = 600
+
+
+def staged_bytes():
+    from mxnet_tpu_torch import profiler
+    return profiler.counters().get("collective_staged_bytes", 0)
+
+
+def mesh4_trainer(mx, par, net, init, ctx, mesh, optimizer="adam",
+                  params=MESH_ADAM):
+    mesh_set(mx, net, init, ctx)
+    return par.DistributedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), mesh,
+        optimizer=optimizer, optimizer_params=dict(params),
+        grad_overlap=True, param_shard=True)
+
+
+def mesh4_steps(mx, tfa, tr, tokens, labels):
+    """MESH4_STEPS steps, launch counts zeroed just before and read just
+    after: the curve, ms and sync ms a step, peak memory, staged bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = staged_bytes()
+    tfa.reset_launches()                  # the path starts here
+    curve, step_ms, sync_ms = [], [], []
+    for _ in range(MESH4_STEPS):
+        t0 = time.perf_counter()
+        curve.append(float(tr.fit_batch(tokens, labels).asscalar()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sync_ms.append(tr.last_sync_s * 1e3)
+    return dict(launches=dict(tfa.launches), curve=curve, step_ms=step_ms,
+                sync_ms=sync_ms, staged=staged_bytes() - staged0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                param_bytes=tr.param_bytes_per_device(),
+                state_bytes=tr.state_bytes_per_device())
+
+
+def mesh4_rank_main(outdir):
+    """One rank of phase 25's four, spawned by ``python -m mxnet_tpu_torch.
+    tools.launch -n 4`` (``chip_smoke.py mesh4-rank DIR``) on gpu(0): (a)
+    over {"dp": 2, "sp": 2}, (b) over {"dp": 2, "tp": 2}; readings to
+    DIR/rank<r>.json, rank 0's SGD-step weights to DIR/sgd4.npz, every
+    rank's ReLU masks to DIR/masks4.rank<r>.npz."""
+    import traceback
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    log = open(os.path.join(outdir, "rank%d.log" % rank), "w")
+
+    def say(line):
+        log.write(line + "\n")
+        log.flush()
+        print(line, flush=True)
+    res = {"rank": rank}
+    try:
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import parallel as par
+        tfa = importlib.import_module(
+            "mxnet_tpu_torch.parallel.flash_attention")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ctx = mx.gpu(0)
+        net = mesh_net(mx, ctx)
+        init = mesh_host(net)
+        x, y = mesh_tokens(MESH_BATCH)
+        tokens, labels = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+        # (a) {dp: 2, sp: 2}
+        mesh = par.create_mesh({"dp": 2, "sp": 2})
+        res["backend"] = par.distributed.backend()
+        tr = mesh4_trainer(mx, par, net, init, ctx, mesh)
+        res["a"] = mesh4_steps(mx, tfa, tr, tokens, labels)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = mesh4_trainer(mx, par, net, init, ctx, mesh, "sgd",
+                           dict(learning_rate=MESH_SGD_LR))
+        res["a"]["sgd_loss"] = float(tr.fit_batch(tokens, labels).asscalar())
+        tr.sync_gluon_params()
+        if rank == 0:
+            np.savez(os.path.join(outdir, "sgd4.npz"), **mesh_host(net))
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_rank_masks(mx, par, net, init, ctx, tokens, mesh, outdir, rank,
+                        "masks4")
+        a = res["a"]
+        say("(a) rank %d {dp: 2, sp: 2}: loss %s, %.1f ms a step (sync %.1f),"
+            " peak %.2f GB, staged %.1f MB, launches %s"
+            % (rank, a["curve"], statistics.median(a["step_ms"][1:]),
+               statistics.median(a["sync_ms"][1:]), a["peak_gb"],
+               a["staged"] / 1e6, a["launches"]))
+        # (b) {dp: 2, tp: 2}
+        mesh = par.create_mesh({"dp": 2, "tp": 2})
+        tr = mesh4_trainer(mx, par, net, init, ctx, mesh)
+        res["b"] = mesh4_steps(mx, tfa, tr, tokens, labels)
+        rules = par.ShardingRules(mesh)
+        res["b"]["rules_bytes"] = int(sum(
+            rules.plan(n, tuple(p.shape)).bytes_per_device("float32", mesh)
+            for n, p in net.collect_params().items()))
+        res["b"]["pieces"] = sorted({str(list(pl.spec))
+                                     for pl in tr._param_plans})
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = res["b"]
+        say("(b) rank %d {dp: 2, tp: 2}: loss %s, %.1f ms a step (sync %.1f),"
+            " peak %.2f GB, parameters %.1f MB a rank (the rules' %.1f MB),"
+            " staged %.1f MB, launches %s"
+            % (rank, b["curve"], statistics.median(b["step_ms"][1:]),
+               statistics.median(b["sync_ms"][1:]), b["peak_gb"],
+               b["param_bytes"] / 1e6, b["rules_bytes"] / 1e6,
+               b["staged"] / 1e6, b["launches"]))
+        par.distributed.barrier()
+        say("rank %d done" % rank)
+    except Exception:                            # noqa: BLE001
+        res["error"] = traceback.format_exc()
+        say(res["error"])
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    log.close()
+    return 1 if "error" in res else 0
+
+
+def dry_piece(value, name, sizes, rank):
+    """Rank ``rank``'s piece of a whole dryrun array (ranks row-major over
+    the mesh's dp, pp, tp, sp)."""
+    from mxnet_tpu_torch import dryrun
+    coords = dict(zip(sizes, np.unravel_index(rank, tuple(sizes.values()))))
+    out = value
+    for d, ax in enumerate(dryrun.SPECS[name]):
+        if ax is not None:
+            step = value.shape[d] // sizes[ax]
+            out = out.narrow(d, coords[ax] * step, step)
+    return out
+
+
+def dry_twin(run, outdir):
+    """The one-process twin of one dryrun on the card (plain attention),
+    held to every rank's loss and updated shards; returns the readings."""
+    from mxnet_tpu_torch import dryrun
+    sizes = dryrun.mesh_sizes(DRY_RANKS, run["degenerate"])
+    dims = dryrun.jax_dims(sizes, run.get("width"))
+    host = dryrun.init_host(sizes, dims)
+    dev = torch.device("cuda", 0)
+    t = {n: torch.from_numpy(v).to(dev) for n, v in host.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, new, grads, _ = dryrun.dryrun_step(
+        {n: t[n] for n in dryrun.PARAMS}, t["x"], t["y"], None, dims,
+        plain=True)
+    torch.cuda.synchronize()
+    rec = dict(loss=loss, ms=(time.perf_counter() - t0) * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               sizes=sizes, dims=dims, worst=0.0, worst_name="",
+               grad_worst=0.0, grad_worst_name="", over=[],
+               param_bytes=sum(host[n].nbytes for n in dryrun.PARAMS))
+    for r in range(DRY_RANKS):
+        with np.load(os.path.join(outdir, "%s.rank%d.npz"
+                                  % (run["tag"], r))) as f:
+            for n in dryrun.PARAMS:
+                want = dry_piece(new[n], n, sizes, r).cpu().numpy()
+                bound = DRY_ATOL + DRY_RTOL * float(new[n].abs().max())
+                err = float(np.abs(f[n] - want).max())
+                if err / bound > rec["worst"]:
+                    rec["worst"], rec["worst_name"] = err / bound, n
+                if err > bound:
+                    rec["over"].append((r, n, err, bound))
+                g = dry_piece(grads[n], n, sizes, r).cpu().numpy()
+                ratio = float(np.abs(f["grad_" + n] - g).max()
+                              / max(float(grads[n].abs().max()), 1e-30))
+                if ratio > rec["grad_worst"]:
+                    rec["grad_worst"], rec["grad_worst_name"] = ratio, n
+    del t, new, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_mesh_axes(card, tfa, mesh24):
+    """Phase 25: the twenty-first slice, every mesh axis. (a) and (b) on
+    four ranks, (c) and (d) on eight (the module docstring); returns (b)'s
+    flash launch counts on rank 0."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dryrun
+    t_phase = time.perf_counter()
+    twin = mesh24["twin"]
+    L, T = GPT2_SMALL["n_layers"], GPT2_SMALL["max_len"]
+    outdir = tempfile.mkdtemp(prefix="mesh4_")
+    try:
+        ranks, secs = kv_launch(outdir, "mesh4-rank", MESH4_RANKS,
+                                MESH4_LAUNCH_TIMEOUT)
+        sgd = mesh_sgd_grads(twin, outdir, fname="sgd4.npz")
+        shared_grad, flips = mesh_twin_shared(
+            mx, mx.gpu(0), twin["init"],
+            mesh_masks(outdir, "masks4", MESH4_RANKS,
+                       lambda r: divmod(r, 2)))
+        shared = mesh_sgd_grads(twin, outdir, shared_grad, "sgd4.npz")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    a = [r["a"] for r in ranks]
+    b = [r["b"] for r in ranks]
+    print("  four ranks (%s, %.1f s of launch), phase 24's LM (%.1fM "
+          "parameters, seed 0), global batch %d x %d, Adam lr %g, %d steps, "
+          "ZeRO-1 and FSDP over dp (%s):"
+          % (ranks[0]["backend"], secs, twin["n_params"] / 1e6, MESH_BATCH,
+             T, MESH_ADAM["learning_rate"], MESH4_STEPS, card))
+    for name, recs in (("(a) {dp: 2, sp: 2}", a), ("(b) {dp: 2, tp: 2}", b)):
+        for r, rec in enumerate(recs):
+            print("    %s rank %d: loss %s; %.1f ms a step (median of steps "
+                  "2-%d; sync %.1f ms), peak %.2f GB, gloo-staged %.1f MB "
+                  "over the steps, parameters %.1f MB a rank (%.4f of the "
+                  "twin's %.1f MB), Adam state %.1f MB; flash launches %s"
+                  % (name, r, " ".join("%.4f" % c for c in rec["curve"]),
+                     statistics.median(rec["step_ms"][1:]), MESH4_STEPS,
+                     statistics.median(rec["sync_ms"][1:]), rec["peak_gb"],
+                     rec["staged"] / 1e6, rec["param_bytes"] / 1e6,
+                     rec["param_bytes"] / twin["param_bytes"],
+                     twin["param_bytes"] / 1e6, rec["state_bytes"] / 1e6,
+                     rec["launches"]))
+    sgd_over = [n for n, v in sgd.items()
+                if v > (GRAD_RTOL_RELU if n.endswith("ffn1.weight")
+                        else GRAD_RTOL)]
+    print("  (a) step 1 against phase 24's twin: loss %.6f / %.6f before, "
+          "%.6f / %.6f after (tolerance %g); one SGD step (lr %g, loss %.6f):"
+          " the exchanged gradient against the twin's, max|diff| / max|grad|"
+          " worst %.3g (%s), median %.3g (tolerance %g, ffn1 weights %g); "
+          "with the ranks' ReLU masks (rows x sequence halves; %d sign "
+          "flips) worst %.3g (%s), median %.3g (tolerance %g); %s"
+          % (a[0]["curve"][0], twin["loss"], a[0]["curve"][1], twin["loss2"],
+             LOSS_ATOL, MESH_SGD_LR, a[0]["sgd_loss"], max(sgd.values()),
+             max(sgd, key=sgd.get), statistics.median(sgd.values()),
+             GRAD_RTOL, GRAD_RTOL_RELU, sum(flips), max(shared.values()),
+             max(shared, key=shared.get), statistics.median(shared.values()),
+             GRAD_RTOL_SHARED, card))
+    print_groups(shared)
+    ref = mesh24["curve"][:MESH4_STEPS]
+    same = all(rec["curve"] == ref for rec in b)
+    worst_b = max(abs(c - w) for rec in b for c, w in zip(rec["curve"], ref))
+    print("  (b) losses against phase 24 (a)'s {dp: 2} run: %s (largest "
+          "difference %.3g; pieces %s); parameter bytes a rank %d, the rules'"
+          " %d" % ("bit for bit" if same else "NOT bit for bit", worst_b,
+                   b[0]["pieces"], b[0]["param_bytes"], b[0]["rules_bytes"]))
+    for r, rec in enumerate(a):
+        if rec["curve"] != a[0]["curve"] or not all(np.isfinite(rec["curve"])) \
+                or not rec["curve"][-1] < rec["curve"][0]:
+            fail("(a) rank %d: the loss did not fall or differs across ranks:"
+                 " %s" % (r, rec["curve"]))
+        if any(rec["launches"].values()):
+            fail("(a) rank %d: the ring route launched flash kernels: %s"
+                 % (r, rec["launches"]))
+    if abs(a[0]["curve"][0] - twin["loss"]) > LOSS_ATOL \
+            or abs(a[0]["curve"][1] - twin["loss2"]) > LOSS_ATOL:
+        fail("(a) step 1 is outside its tolerance of the twin")
+    if sgd_over or max(shared.values()) > GRAD_RTOL_SHARED:
+        fail("(a) the exchanged gradient is outside its tolerances: %s, "
+             "shared worst %.3g" % (sgd_over, max(shared.values())))
+    if worst_b > LOSS_ATOL:
+        fail("(b) the losses are outside LOSS_ATOL of the {dp: 2} run's")
+    for r, rec in enumerate(b):
+        if rec["param_bytes"] != rec["rules_bytes"]:
+            fail("(b) rank %d: %d parameter bytes, the rules give %d"
+                 % (r, rec["param_bytes"], rec["rules_bytes"]))
+        for kname in TRAIN_KERNELS:
+            if rec["launches"][kname] != L * MESH4_STEPS:
+                fail("(b) rank %d: %s launched %d times in %d steps, want %d "
+                     "a step" % (r, kname, rec["launches"][kname],
+                                 MESH4_STEPS, L))
+    # (c) and (d): the dryrun step over eight ranks
+    runs = [dict(tag="%s_%s" % (kind, deg), n=DRY_RANKS, degenerate=deg,
+                 width=width)
+            for kind, width in (("c", None), ("d", DRY_WIDTH))
+            for deg in ("pp", "tp")]
+    outdir = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        t0 = time.perf_counter()
+        dranks = dryrun.launch_runs(DRY_RANKS, runs, "cuda:0", outdir,
+                                    DRY_LAUNCH_TIMEOUT)
+        secs = time.perf_counter() - t0
+        twins = [dry_twin(run, outdir) for run in runs]
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    print("  eight ranks (%s, %.1f s of launch with the four steps), "
+          "dryrun_multichip's step, one SGD step at lr %g (%s):"
+          % (dranks[0]["backend"], secs, dryrun.LR, card))
+    for k, (run, tw) in enumerate(zip(runs, twins)):
+        recs = [r["runs"][k] for r in dranks]
+        print("    (%s) %s %s: B%d T%d D%d H%d F%d E%d n_micro %d, %.2fM "
+              "parameters; loss %.7f, the twin's %.7f (rel %.3g, tolerance "
+              "%g); updated shards worst %.3g of the bound (%s; bound %g + "
+              "%g max|w|), gradients worst %.3g of max|g| (%s); twin %.1f ms, "
+              "peak %.2f GB" % (run["tag"][0], run["tag"], tw["sizes"],
+                            *(tw["dims"][x] for x in ("B", "T", "D", "H",
+                                                      "F", "E", "n_micro")),
+                            tw["param_bytes"] / 4e6, recs[0]["loss"],
+                            tw["loss"],
+                            abs(recs[0]["loss"] - tw["loss"]) / abs(tw["loss"]),
+                            DRY_LOSS_RTOL, tw["worst"], tw["worst_name"],
+                            DRY_ATOL, DRY_RTOL, tw["grad_worst"],
+                            tw["grad_worst_name"], tw["ms"],
+                            tw["peak_gb"]))
+        for r, rec in enumerate(recs):
+            print("      rank %d: %.1f ms a step (sync %.1f), peak %.2f GB, "
+                  "gloo-staged %.2f MB, parameters %.3f of the whole, flash "
+                  "launches %s" % (r, rec["ms"], rec["sync_ms"],
+                                   rec["peak_gb"] or 0.0,
+                                   rec["staged_bytes"] / 1e6,
+                                   rec["param_bytes"] / tw["param_bytes"],
+                                   rec["launches"]))
+        if any(abs(rec["loss"] - tw["loss"]) > DRY_LOSS_RTOL * abs(tw["loss"])
+               for rec in recs) or tw["over"]:
+            fail("(%s) the dryrun is outside its tolerance of the twin: %s"
+                 % (run["tag"], tw["over"][:4]))
+        if any(any(rec["launches"].values()) for rec in recs):
+            fail("(%s) the dryrun launched flash kernels" % run["tag"])
+    print("  phase 25 launches none of the kernel table's rows in (a), (c) "
+          "and (d) (zeroed counters, read 0); (b) launches the flash kernels "
+          "%s on rank 0; mesh axes phase %.1f s"
+          % (b[0]["launches"], time.perf_counter() - t_phase))
+    return dict(tp_launches=b[0]["launches"])
 
 
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
@@ -10245,6 +10734,9 @@ def main():
     phase_sparse(card)
     print("mesh (the rank mesh: dp with ZeRO-1 and FSDP, sp):")
     mesh = phase_mesh(card, tfa)
+    print("mesh axes (sp and tp in the trainer, the dryrun over pp, ep, tp, "
+          "sp and dp):")
+    axes = phase_mesh_axes(card, tfa, mesh)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -10283,6 +10775,11 @@ def main():
         for path, shape, key, kind in (
             ("mesh dp (rank 0)", MESH_DP_SHAPE, "dp_launches", "dp"),
             ("mesh sp ulysses (rank 0)", MESH_SP_SHAPE, "sp_launches", "sp"))
+        for kname in TRAIN_KERNELS] + [
+        kernel_row(kname, FWD_SRC if kname == "flash_fwd" else BWD_SRC[kname],
+                   FWD_TPU if kname == "flash_fwd" else BWD_TPU[kname],
+                   "mesh dp x tp (rank 0)", MESH_DP_SHAPE, axes["tp_launches"],
+                   mesh["kern"]["dp"][kname], mesh["kern"]["dp"][kname]["err"])
         for kname in TRAIN_KERNELS]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
@@ -10300,4 +10797,6 @@ if __name__ == "__main__":
         sys.exit(sparse_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["mesh-rank"]:
         sys.exit(mesh_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["mesh4-rank"]:
+        sys.exit(mesh4_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -26,8 +26,9 @@ __all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
            "resolve_device"]
 
 _NO_CUDA = ("no CUDA device is visible: mxnet_tpu_torch runs on gpu(0) "
-            "by default — ask for the CPU with ctx=mx.cpu(), a `with "
-            "mx.cpu():` scope or MXNET_DEFAULT_CONTEXT=cpu")
+            "by default — ask for the CPU with ctx=mx.cpu() (device='cpu' "
+            "where a call takes a device), a `with mx.cpu():` scope or "
+            "MXNET_DEFAULT_CONTEXT=cpu")
 
 
 class Context:
@@ -150,13 +151,10 @@ def context_of(device):
 
 
 def resolve_device(device=None):
-    """``device`` as a :class:`torch.device`; None means ``cuda:0`` and
-    raises when no CUDA device is visible — pass ``device="cpu"`` to run
-    on the CPU."""
+    """``device`` as a :class:`torch.device`; None means the device of
+    :func:`current_context` (a ``with mx.cpu():`` scope, else
+    ``MXNET_DEFAULT_CONTEXT``, else ``cuda:0``), which raises when no CUDA
+    device is visible and the CPU was not asked for."""
     if device is not None:
         return torch.device(device)
-    if not torch.cuda.is_available():
-        raise MXNetError(
-            "no CUDA device is visible: mxnet_tpu_torch runs on cuda:0 "
-            "by default — pass device='cpu' to run on the CPU")
-    return torch.device("cuda", 0)
+    return current_context().torch_device()

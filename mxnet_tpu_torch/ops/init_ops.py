@@ -117,11 +117,19 @@ register("_eye", _eye, arg_names=(),
 
 def _arange_like(attrs, x):
     """``start + step * i`` over ``x``'s elements (its shape), or along
-    ``axis`` (1-D), in ``x``'s dtype; ``repeat`` repeats each value."""
+    ``axis`` (1-D), in ``x``'s dtype; ``repeat`` repeats each value.
+    Along axis 1 under a mesh with an ``sp`` axis (``parallel.use_mesh``)
+    ``i`` counts from this rank's first global position."""
+    from ..parallel.mesh import sequence_offset
     axis = attrs.get("axis", None)
     start, step = float(attrs.get("start", 0.0)), float(attrs.get("step", 1.0))
     n = x.numel() if axis is None else x.shape[int(axis)]
-    out = start + step * torch.arange(n, dtype=x.dtype, device=x.device)
+    # under a sequence-parallel mesh dim 1 is this rank's slice of the
+    # sequence: its positions are the global ones
+    first = sequence_offset(n) if axis is not None and int(axis) == 1 \
+        else 0
+    out = start + step * torch.arange(first, first + n, dtype=x.dtype,
+                                      device=x.device)
     if axis is None:
         out = out.reshape(x.shape)
     repeat = int(attrs.get("repeat", 1))

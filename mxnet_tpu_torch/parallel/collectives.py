@@ -24,6 +24,27 @@ and back: gloo's collectives are host code. The staged bytes count in
 Each eager call is accounted under comm kind ``collective`` keyed by its
 name (bytes and caller-observed latency) and split by link
 (``telemetry.comm_links``); the bucket forms are ``grad_sync`` spans.
+
+**Under autograd.** The functions above carry no gradient. The model-
+parallel code differentiates through the ``torch.autograd`` forms below,
+each a pair of collectives (Megatron-LM's operators, Shoeybi et al.,
+2019, and the JAX package's ``shard_map`` transposes):
+
+- :func:`copy_to_axis` — identity forward, all-reduce backward: the
+  entry of a computation split over ``axis`` whose input is replicated;
+- :func:`reduce_from_axis` — all-reduce forward, identity backward: the
+  exit of such a computation (partial sums to a replicated value);
+- :func:`psum` — all-reduce both ways: a sum of the ranks' pieces whose
+  every rank's loss reads it (the partial-loss convention of ``dp``);
+- :func:`gather_from_axis` — all-gather along a dim; backward this
+  rank's slice of the gradient (``grad="slice"``) or its reduce-scatter
+  (``grad="sum"``);
+- :func:`ppermute_grad` / :func:`all_to_all_grad` — the point-to-point
+  ring and the all-to-all, backward along the reversed pairs / with
+  split and concat swapped.
+
+``axis`` may be a tuple of axes: the collective runs over each in turn
+(the group of their product, in a fixed order).
 """
 from __future__ import annotations
 
@@ -31,7 +52,9 @@ import torch
 
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "ppermute", "barrier", "psum_eager", "all_to_all",
-           "bucket_reduce_scatter", "bucket_all_gather"]
+           "bucket_reduce_scatter", "bucket_all_gather", "copy_to_axis",
+           "reduce_from_axis", "psum", "gather_from_axis", "ppermute_grad",
+           "all_to_all_grad"]
 
 
 def _account_links(name, mesh, axis, value=None, nbytes=None):
@@ -301,3 +324,159 @@ def barrier(name="barrier"):
     if distributed.num_workers() > 1:
         with _span("barrier", 0):
             distributed.barrier(name)
+
+
+# ---------------------------------------------------------------------------
+# under autograd
+# ---------------------------------------------------------------------------
+
+def _axes(axis):
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def _sum_over(t, mesh, axes):
+    for a in axes:
+        t = all_reduce(t, mesh, a)
+    return t
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _sum_over(x.contiguous(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _sum_over(x.contiguous(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+def _gather_dim(t, mesh, axis, dim):
+    moved = t.movedim(dim, 0).contiguous()
+    return all_gather(moved, mesh, axis).movedim(0, dim)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, grad):
+        ctx.args = (mesh, axes, dim, grad)
+        for a in reversed(axes):
+            x = _gather_dim(x, mesh, a, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, grad = ctx.args
+        g = g.contiguous()
+        for a in axes:
+            if grad == "sum":
+                g = reduce_scatter(g.movedim(dim, 0).contiguous(), mesh,
+                                   a).movedim(0, dim)
+            else:
+                n, i = mesh.axis_size(a), mesh.axis_index(a)
+                step = g.shape[dim] // n
+                g = g.narrow(dim, i * step, step)
+        return g.contiguous(), None, None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    """``ppermute`` whose backward sends the gradient back along the
+    reversed pairs."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.perm]
+        return ppermute(g.contiguous(), ctx.mesh, ctx.axis, back), \
+            None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled ``all_to_all``; its backward is the all-to-all with
+    split and concat swapped."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return all_to_all(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return all_to_all(g.contiguous(), mesh, axis, concat_axis,
+                          split_axis), None, None, None, None
+
+
+def _live(mesh, axis):
+    """The axes of ``axis`` that ``mesh`` has with size > 1."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in _axes(axis)
+                 if a in mesh.axis_names and mesh.axis_size(a) > 1)
+
+
+def copy_to_axis(x, mesh, axis):
+    """Identity forward; the gradient summed over ``axis`` backward."""
+    axes = _live(mesh, axis)
+    return _CopyTo.apply(x, mesh, axes) if axes else x
+
+
+def reduce_from_axis(x, mesh, axis):
+    """The ranks' ``x`` summed over ``axis`` forward; the gradient as it
+    is backward (every rank holds the whole gradient of the sum)."""
+    axes = _live(mesh, axis)
+    return _ReduceFrom.apply(x, mesh, axes) if axes else x
+
+
+def psum(x, mesh, axis):
+    """The ranks' ``x`` summed over ``axis``, forward and backward (each
+    rank holds a partial gradient of the sum)."""
+    axes = _live(mesh, axis)
+    return _PSum.apply(x, mesh, axes) if axes else x
+
+
+def gather_from_axis(x, mesh, axis, dim=0, grad="slice"):
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in axis
+    order (a tuple of axes: row-major, the first outermost). Backward:
+    this rank's slice of the gradient (``grad="slice"``: every rank holds
+    the whole gradient) or of its sum over the axis (``grad="sum"``)."""
+    if grad not in ("slice", "sum"):
+        raise ValueError("gather_from_axis: grad is 'slice' or 'sum', "
+                         "not %r" % (grad,))
+    axes = _live(mesh, axis)
+    return _GatherFrom.apply(x, mesh, axes, dim, grad) if axes else x
+
+
+def ppermute_grad(x, mesh, axis, perm):
+    """:func:`ppermute` under autograd."""
+    return _PPermute.apply(x, mesh, axis, perm)
+
+
+def all_to_all_grad(x, mesh, axis, split_axis, concat_axis):
+    """:func:`all_to_all` under autograd."""
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)

@@ -30,7 +30,22 @@ gradients add up to the gradient of the global mean.
   so FSDP on and off are bit-identical too. The rules
   (``sharding_rules``) lay out the FSDP parameters' checkpoint pieces.
   Under the trainer's mesh, BatchNorm's statistics are the global
-  batch's. A mesh whose ``sp`` axis is larger than 1 is refused.
+  batch's.
+- **Sequence parallelism.** On a mesh with an ``sp`` axis each rank also
+  takes its ``sp`` slice of dim 1 of the data and the labels (per-token
+  labels, ``(B, T, ...)``); the net runs under the mesh, so the
+  attention op's ``auto`` route is ring attention over ``sp`` and
+  ``contrib.arange_like`` along dim 1 gives the global positions. The
+  gradients are summed over ``sp`` and then exchanged over ``dp``; the
+  loss is each rank's token sum over the global count. FSDP and ZeRO-1
+  stay over ``dp``.
+- **Tensor-parallel placement.** With ``param_shard`` and a ``tp`` axis
+  larger than 1, the rules lay a projection weight out as a 2-D shard
+  ``P(dp, tp)`` (the JAX package's placement): each rank keeps its
+  piece at rest, with its optimizer state beside it, gathers the whole
+  weights over both axes at step entry and updates its piece from the
+  gradient summed over ``dp``. The ``tp`` ranks repeat the ``dp``
+  work, as the JAX trainer's numbers are the global ones.
 - Checkpoints go through ``checkpoint.py``'s manifest, every rank
   writing its pieces: elastic across mesh sizes, and across the
   packages (a JAX 8-device save loads on 2 ranks, and back).
@@ -85,14 +100,36 @@ def _local_rows(value, mesh, axis="dp"):
     return NamedSharding(mesh, P(axis)).shard(_tensor(value))
 
 
-def _refuse_sp(mesh, who):
-    """The sequence is not sharded over ``sp`` here, nor the gradient
-    summed over it: a mesh with ``sp`` > 1 would feed every sp rank the
-    whole sequence as its slice."""
-    if "sp" in mesh.axis_names and mesh.axis_size("sp") > 1:
-        raise NotImplementedError(
-            "%s over a mesh whose 'sp' axis is larger than 1 waits for "
-            "ROADMAP queue A item 12, order step 6" % who)
+def _sp_size(mesh):
+    return mesh.axis_size("sp") if "sp" in mesh.axis_names else 1
+
+
+def _local_piece(value, mesh, need_seq=False, what="an input"):
+    """This rank's ``dp`` rows of a batch array and, on a mesh with
+    ``sp`` > 1, its ``sp`` slice of dim 1 (an array placed already keeps
+    its rows; a 1-D one stays whole along the sequence, or raises with
+    ``need_seq``)."""
+    local = _local_rows(value, mesh)
+    if isinstance(value, ShardedTensor) or _sp_size(mesh) == 1:
+        return local
+    if local.dim() < 2:
+        if need_seq:
+            raise MXNetError(
+                "%s of shape %s has no sequence dim to split over the "
+                "mesh's 'sp' axis: a sequence-parallel step takes per-"
+                "token data and labels, (B, T, ...)"
+                % (what, tuple(local.shape)))
+        return local
+    return NamedSharding(mesh, P(None, "sp")).shard(local)
+
+
+def _sum_over(tensors, mesh, axes):
+    """Each tensor summed over the mesh ``axes`` of size > 1."""
+    from .collectives import all_reduce
+    for a in axes:
+        if a in mesh.axis_names and mesh.axis_size(a) > 1:
+            tensors = [all_reduce(t, mesh, a) for t in tensors]
+    return tensors
 
 
 def _resolver(mesh, rules):
@@ -163,7 +200,11 @@ def make_data_parallel_step(loss_fn: Callable, mesh, optimizer_update=None,
     rows it is given: each rank calls it on its ``dp`` rows, weights its
     gradient by rows / global rows and the ranks' weighted gradients
     are summed (in rank order), so the step follows the global batch's
-    mean; the returned loss is the global mean. ``optimizer_update(p, g)
+    mean; the returned loss is the global mean. On a mesh with ``sp`` >
+    1 each rank also takes its ``sp`` slice of dim 1 of every array of
+    two or more dims, runs ``loss_fn`` under the mesh (ring attention
+    for the attention op) and the slices' gradients are summed too: the
+    loss must then be a mean over the tokens it is given. ``optimizer_update(p, g)
     -> new_p`` is elementwise (default SGD, lr 0.01). ``params`` values
     are tensors, NDArrays or :class:`~.mesh.ShardedTensor`; the new
     parameters come back in the same form. ``batch`` values are the
@@ -181,8 +222,6 @@ def make_data_parallel_step(loss_fn: Callable, mesh, optimizer_update=None,
     from . import grad_sync
     from .mesh import use_mesh
     from .sharding_rules import param_shard_enabled
-    from .collectives import all_reduce
-    _refuse_sp(mesh, "make_data_parallel_step")
     if optimizer_update is None:
         def optimizer_update(p, g):
             return p - 0.01 * g
@@ -194,7 +233,9 @@ def make_data_parallel_step(loss_fn: Callable, mesh, optimizer_update=None,
     cap = (int(bucket_mb * (1 << 20)) if bucket_mb
            else grad_sync.bucket_cap_bytes()) if overlap \
         else grad_sync.MONOLITH_CAP
-    batch_sharding = NamedSharding(mesh, P("dp"))
+    n_sp = _sp_size(mesh)
+    batch_sharding = NamedSharding(mesh, P("dp", "sp") if n_sp > 1
+                                   else P("dp"))
     n_dp = mesh.axis_size("dp")
 
     def update(g, w, states, lr, wd, rescale):
@@ -203,14 +244,15 @@ def make_data_parallel_step(loss_fn: Callable, mesh, optimizer_update=None,
     def step(params, batch):
         names = list(params)
         whole = [_whole(params[n]).detach() for n in names]
-        local = {k: _local_rows(v, mesh) for k, v in batch.items()}
-        rows = next(iter(local.values())).shape[0]
-        weight = float(rows) / float(rows * n_dp)
+        local = {k: _local_piece(v, mesh) for k, v in batch.items()}
+        weight = 1.0 / float(n_dp * n_sp)
         leaves = [w.clone().requires_grad_(True) for w in whole]
         with use_mesh(mesh):
             loss = loss_fn(dict(zip(names, leaves)), local)
         grads = torch.autograd.grad(loss * weight, leaves,
                                     materialize_grads=True)
+        with torch.no_grad():
+            grads = _sum_over(grads, mesh, ("sp",))
         with torch.no_grad():
             # grad_sync's exchange with the user's rule as every
             # parameter's step function (no state, no scalars)
@@ -222,9 +264,7 @@ def make_data_parallel_step(loss_fn: Callable, mesh, optimizer_update=None,
             new, _ = apply([g.detach() for g in grads], whole, (),
                            torch.zeros(2 * len(names) + 2,
                                        device=whole[0].device))
-            total = loss.detach() * weight
-            if n_dp > 1:
-                total = all_reduce(total, mesh, "dp")
+            total, = _sum_over([loss.detach() * weight], mesh, ("dp", "sp"))
         out = {}
         for n, v, w in zip(names, (params[k] for k in names), new):
             if isinstance(v, ShardedTensor):
@@ -239,6 +279,87 @@ def make_data_parallel_step(loss_fn: Callable, mesh, optimizer_update=None,
         return total, out
 
     return step, batch_sharding
+
+
+class _Shard2D:
+    """The trainer's storage, update and optimizer state with ``param_
+    shard`` on a live ``tp`` axis: each parameter at rest as its piece
+    of the rules' spec (``P(dp, tp)`` for a projection weight, whole for
+    a replicated one), the optimizer state beside it in the same layout
+    (flat, ``n_slots`` vectors a parameter). The update sums the
+    gradient over ``dp`` (the ``tp`` ranks computed the same one), cuts
+    this rank's piece and runs the parameter's fused rule on it."""
+
+    sharded = True
+
+    def __init__(self, plans, mesh, step_fns, optimizer, weights_nd):
+        from ..fused_step import _flat_state_handles
+        self.plans, self.mesh, self.step_fns = plans, mesh, step_fns
+        self.shardings = [pl.sharding(mesh) for pl in plans]
+        flat = _flat_state_handles(optimizer.create_state_multi_precision(
+            0, weights_nd[0])) if weights_nd else []
+        self.slot_dtypes = [h._data.dtype for h in flat or []]
+        self.n_slots = len(self.slot_dtypes)
+        self._states = None
+        self.sync_seconds = []
+
+    def at_rest(self, whole):
+        return [sh.shard(pl.pad(w)).clone() if pl.sharded else w.clone()
+                for pl, sh, w in zip(self.plans, self.shardings, whole)]
+
+    def whole(self, pieces):
+        """Every parameter's logical value (sharded ones gathered over
+        their axes)."""
+        return [pl.logical(ShardedTensor(v, pl.padded_shape, sh).full())
+                if pl.sharded else v
+                for pl, sh, v in zip(self.plans, self.shardings, pieces)]
+
+    def ensure(self, pieces):
+        """The flat state tuple, zeros beside ``pieces`` on first use."""
+        if self._states is None:
+            self._states = tuple(
+                torch.zeros(v.numel(), dtype=dt, device=v.device)
+                for v in pieces for dt in self.slot_dtypes)
+        return self._states
+
+    def store(self, states):
+        self._states = tuple(states)
+
+    def state_bytes_per_device(self):
+        return sum(t.numel() * t.element_size() for t in self._states or ())
+
+    def checkpoint_roster(self, *args):
+        """Refuses: the pieces' state has no manifest layout yet."""
+        raise NotImplementedError(
+            "DistributedTrainer: a checkpoint of the 2-D (dp, tp) "
+            "parameter shards is not ported yet (ROADMAP queue A item 12, "
+            "order step 6); checkpoint with param_shard off or tp 1")
+
+    load_host_flats = checkpoint_roster
+
+    def __call__(self, grads, pieces, states, scalars):
+        """``(new_pieces, new_states)`` from this rank's gradient
+        contributions (``sync_seconds``: the exchange's time)."""
+        n, k = len(self.plans), self.n_slots
+        t0 = time.perf_counter()
+        grads = _sum_over(list(grads), self.mesh, ("dp",))
+        self.sync_seconds = [time.perf_counter() - t0]
+        new_ws, new_sts = [], []
+        for i, (pl, sh, g, w) in enumerate(zip(self.plans, self.shardings,
+                                               grads, pieces)):
+            if pl.sharded:
+                g = sh.shard(pl.pad(g))
+            fn = self.step_fns[i]
+            sdt = getattr(fn, "scalar_dtype", None) or g.dtype
+            m = w.numel()
+            nw, nst = fn(g.reshape(-1), w.reshape(-1),
+                         tuple(states[i * k:(i + 1) * k]),
+                         scalars[i].to(sdt).expand(m),
+                         scalars[n + i].to(sdt).expand(m),
+                         scalars[2 * n].to(sdt))
+            new_ws.append(nw.view(w.shape))
+            new_sts.extend(nst)
+        return new_ws, new_sts
 
 
 class DistributedTrainer:
@@ -259,8 +380,10 @@ class DistributedTrainer:
     rank keeping its ``1/N`` slice of every bucket at rest, gathered at
     step entry; ``param_rules`` lay out the checkpoint's pieces. Both
     pairs of modes give the same bits. ``multihost`` is accepted: every
-    trainer of the port is multi-process. The mesh's ``sp`` axis, if
-    any, has size 1."""
+    trainer of the port is multi-process. On a mesh with ``sp`` > 1 each
+    rank takes its slice of the sequence (the module docstring); with
+    ``param_shard`` on a ``tp`` axis larger than 1 the parameters rest
+    as the rules' 2-D shards (:class:`_Shard2D`)."""
 
     def __init__(self, net, loss_block, mesh, optimizer="sgd",
                  learning_rate=0.01, optimizer_params=None,
@@ -279,12 +402,12 @@ class DistributedTrainer:
         if "dp" not in mesh.axis_names:
             raise MXNetError("DistributedTrainer: the mesh has no 'dp' axis "
                              "(axes: %s)" % list(mesh.axis_names))
-        _refuse_sp(mesh, "DistributedTrainer")
         self._overlap = grad_overlap
         self._bucket_mb = bucket_mb
         self._param_rules = param_rules
         self._param_shard = param_shard
         self._param_plans = None
+        self._shard2d = None
         self._mem_bd = None
         self._step_fn = None
         self._roster = None
@@ -378,6 +501,11 @@ class DistributedTrainer:
                     rules.note_padded(n)
         self._param_plans = plans
         self._mem_bd = None
+        self._shard2d = None
+        if plans is not None and "tp" in mesh.axis_names \
+                and mesh.axis_size("tp") > 1:
+            self._shard2d = _Shard2D(plans, mesh, step_fns, self._opt,
+                                     weights_nd)
         overlap = grad_sync.overlap_enabled() if self._overlap is None \
             else bool(self._overlap)
         cap = int(self._bucket_mb * (1 << 20)) if self._bucket_mb else None
@@ -391,16 +519,22 @@ class DistributedTrainer:
             else [v.clone() for v in vals]
         self._aux_vals = [params[n].data()._data.detach().clone()
                           for n in aux_roster]
-        sync_state = grad_sync.ShardedOptState(plan, mesh, "dp",
-                                               sharded=overlap)
-        if not sync_state.probe(self._opt, indices, weights_nd):
-            raise MXNetError("DistributedTrainer: optimizer %s state layout "
-                             "has no sharded path" % type(self._opt).__name__)
-        self._state_vals = list(sync_state.ensure())
+        if self._shard2d is not None:
+            sync_state = self._shard2d
+            self._state_vals = list(sync_state.ensure(self._param_vals))
+            self._apply = sync_state
+        else:
+            sync_state = grad_sync.ShardedOptState(plan, mesh, "dp",
+                                                   sharded=overlap)
+            if not sync_state.probe(self._opt, indices, weights_nd):
+                raise MXNetError(
+                    "DistributedTrainer: optimizer %s state layout has no "
+                    "sharded path" % type(self._opt).__name__)
+            self._state_vals = list(sync_state.ensure())
+            self._apply = grad_sync.make_bucketed_apply(
+                step_fns, sync_state.n_slots, plan, mesh, "dp",
+                shard_state=overlap, gather_params=plans is None)
         self._plan, self._sync_state = plan, sync_state
-        self._apply = grad_sync.make_bucketed_apply(
-            step_fns, sync_state.n_slots, plan, mesh, "dp",
-            shard_state=overlap, gather_params=plans is None)
         device = vals[0].device if vals else torch.device("cpu")
         self._rng = _random.generator(device) if n_rng else None
         self._graph = (fn, arg_names, aux_names, n_out)
@@ -414,6 +548,8 @@ class DistributedTrainer:
         """FSDP's storage of the whole parameters: this rank's bucket
         slices."""
         from . import grad_sync
+        if self._shard2d is not None:
+            return self._shard2d.at_rest(whole)
         index = self._mesh.axis_index("dp") if plan.axis_size > 1 else 0
         return grad_sync.bucket_slices(plan, whole, index)
 
@@ -422,16 +558,18 @@ class DistributedTrainer:
         from . import grad_sync
         if self._param_plans is None:
             return list(self._param_vals)
+        if self._shard2d is not None:
+            return self._shard2d.whole(self._param_vals)
         return grad_sync.gather_bucket_slices(
             self._plan, self._param_vals, self._shapes, self._mesh, "dp")
 
     # -- the step ---------------------------------------------------------
     def _step(self, data_v, label_v, scalars):
-        from .collectives import all_reduce
         from .mesh import use_mesh
         fn, arg_names, aux_names, n_out = self._graph
         n_dp = self._mesh.axis_size("dp")
-        n_rows = float(data_v.shape[0] * n_dp)
+        # a row's loss is its mean over this rank's tokens
+        n_rows = float(data_v.shape[0] * n_dp * _sp_size(self._mesh))
         t0 = time.perf_counter()
         whole = self._whole_params()
         self._gather_s = time.perf_counter() - t0
@@ -448,15 +586,18 @@ class DistributedTrainer:
             loss = outs[0].sum() / n_rows
             grads = torch.autograd.grad(loss, leaves,
                                         materialize_grads=True)
+        with torch.no_grad():
+            grads = _sum_over(list(grads), self._mesh, ("sp",))
         new_aux = [a.detach() for a in outs[n_out:n_out
                                             + len(self._aux_roster)]]
         with torch.no_grad():
-            new_ws, new_sts = self._apply(
-                grads, [w.detach() for w in whole], self._state_vals,
-                scalars)
-            loss = loss.detach()
-            if n_dp > 1:
-                loss = all_reduce(loss, self._mesh, "dp")
+            # the 2-D shards update this rank's pieces in place of the
+            # whole weights
+            held = self._param_vals if self._shard2d is not None \
+                else [w.detach() for w in whole]
+            new_ws, new_sts = self._apply(grads, held, self._state_vals,
+                                          scalars)
+            loss, = _sum_over([loss.detach()], self._mesh, ("dp", "sp"))
         return loss, new_ws, new_sts, new_aux
 
     def fit_batch(self, data, label):
@@ -469,8 +610,8 @@ class DistributedTrainer:
         from ..fused_step import pack_step_scalars
         from ..ndarray import NDArray
         from . import grad_sync
-        data_v = _local_rows(data, self._mesh)
-        label_v = _local_rows(label, self._mesh)
+        data_v = _local_piece(data, self._mesh, True, "the data")
+        label_v = _local_piece(label, self._mesh, True, "the label")
         if self._step_fn is None:
             self._build(data_v)
         device = self._device
@@ -488,7 +629,7 @@ class DistributedTrainer:
             if self._mem_bd is None:
                 self._mem_bd = self._memory_breakdown()
             telemetry.memory_breakdown(**self._mem_bd)
-        if self._sync_state.sharded:
+        if self._sync_state.sharded and self._shard2d is None:
             grad_sync.account_in_program_sync(
                 self._plan, mesh=self._mesh,
                 seconds=self._apply.sync_seconds)
@@ -500,10 +641,16 @@ class DistributedTrainer:
         """Resident bytes a rank by kind: ``params_sharded`` (FSDP's
         bucket slices), ``params_replicated`` (aux included) and
         ``opt_state``."""
-        held = sum(v.numel() * v.element_size()
-                   for v in self._param_vals or [])
-        sharded, replicated = (held, 0) if self._param_plans is not None \
-            else (0, held)
+        sizes = [v.numel() * v.element_size()
+                 for v in self._param_vals or []]
+        if self._shard2d is not None:
+            sharded = sum(b for b, pl in zip(sizes, self._param_plans)
+                          if pl.sharded)
+            replicated = sum(sizes) - sharded
+        elif self._param_plans is not None:
+            sharded, replicated = sum(sizes), 0
+        else:
+            sharded, replicated = 0, sum(sizes)
         replicated += sum(v.numel() * v.element_size()
                           for v in self._aux_vals or [])
         return {"params_sharded": sharded, "params_replicated": replicated,

@@ -8,7 +8,10 @@ port's :class:`Mesh` names axes over the RANKS of the process group
 - ``dp`` — data parallel (each rank takes its rows of the batch);
 - ``fsdp`` / ``data`` / ``tp`` — the sharding-rules layer's axes
   (:func:`make_mesh`);
-- ``sp`` — sequence parallel (ring attention / Ulysses).
+- ``sp`` — sequence parallel (ring attention / Ulysses): each rank holds
+  its slice of dim 1 (:func:`sequence_offset` places it);
+- ``pp`` — pipeline stages (``pipeline.pipeline_apply``); ``ep`` — the
+  experts of ``moe.moe_ffn`` (often riding ``tp``).
 
 **Rank order.** Ranks follow JAX's device order, row-major over the axes:
 rank ``r`` sits where JAX's device ``r`` sits in a mesh of the same
@@ -42,7 +45,7 @@ __all__ = ["Mesh", "create_mesh", "auto_mesh", "make_mesh", "mesh_axes",
            "local_mesh", "PartitionSpec", "NamedSharding", "ShardedTensor",
            "replicated", "shard_batch", "dp_mesh", "distinct_devices",
            "one_device", "use_mesh", "current_mesh", "set_current_mesh",
-           "axis_hosts", "link_split", "data_axis"]
+           "axis_hosts", "link_split", "data_axis", "sequence_offset"]
 
 _LAUNCH = "python -m mxnet_tpu_torch.tools.launch -n %d"
 _DP_MESH_CACHE = {}
@@ -146,6 +149,19 @@ class Mesh:
         """The global rank at ``index`` along ``axis`` in this rank's
         slice."""
         return self.group(axis)[1][int(index) % self.axis_size(axis)]
+
+
+def sequence_offset(local_len):
+    """The global position of this rank's first element along the
+    sequence dim, whose local length is ``local_len``: ``index * local_
+    len`` on the active mesh's ``sp`` axis, 0 without one (or at size
+    1). The ring/Ulysses convention: rank ``i`` of the axis holds the
+    ``i``-th slice."""
+    mesh = current_mesh()
+    if mesh is None or "sp" not in mesh.axis_names \
+            or mesh.axis_size("sp") == 1:
+        return 0
+    return mesh.axis_index("sp") * int(local_len)
 
 
 def data_axis(mesh):

@@ -16,8 +16,8 @@ this rank's slice of the attention output.
   ``H / sp`` heads; :func:`local_attention` (the flash kernels on a CUDA
   tensor) runs there; a second all-to-all returns the slices.
 
-Both are differentiable: the collectives are ``torch.autograd``
-functions whose backward is the inverse collective (a ``ppermute`` along
+Both are differentiable: the collectives are ``collectives``' autograd
+forms, whose backward is the inverse collective (a ``ppermute`` along
 the reversed pairs; the all-to-all with split and concat swapped).
 Without a mesh, or on a mesh without ``axis``, both run
 :func:`local_attention`.
@@ -27,6 +27,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .collectives import all_to_all_grad, ppermute_grad
 
 __all__ = ["ring_attention", "ulysses_attention", "local_attention"]
 
@@ -67,42 +69,6 @@ def local_attention(q, k, v, causal=False, scale=None):
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 
-class _PPermute(torch.autograd.Function):
-    """``ppermute`` whose backward sends the gradient back along the
-    reversed pairs."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis, perm):
-        from .collectives import ppermute
-        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
-        return ppermute(x, mesh, axis, perm)
-
-    @staticmethod
-    def backward(ctx, g):
-        from .collectives import ppermute
-        back = [(d, s) for s, d in ctx.perm]
-        return ppermute(g.contiguous(), ctx.mesh, ctx.axis, back), \
-            None, None, None
-
-
-class _AllToAll(torch.autograd.Function):
-    """The tiled ``all_to_all``; its backward is the all-to-all with
-    split and concat swapped."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
-        from .collectives import all_to_all
-        ctx.args = (mesh, axis, split_axis, concat_axis)
-        return all_to_all(x, mesh, axis, split_axis, concat_axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        from .collectives import all_to_all
-        mesh, axis, split_axis, concat_axis = ctx.args
-        return all_to_all(g.contiguous(), mesh, axis, concat_axis,
-                          split_axis), None, None, None, None
-
-
 def _sp_size(mesh, axis):
     if mesh is None or axis not in getattr(mesh, "axis_names", ()):
         return 1
@@ -130,7 +96,7 @@ def ring_attention(q, k, v, mesh=None, axis="sp", causal=False, scale=None):
     perm = [(i, (i + 1) % sp) for i in range(sp)]
     kv = torch.stack([k, v])
     for step in range(1, sp):
-        kv = _PPermute.apply(kv, mesh, axis, perm)
+        kv = ppermute_grad(kv, mesh, axis, perm)
         src = (my - step) % sp            # the owner of the K/V block held
         ob, mb, lb = _block_attn(q, kv[0], kv[1], scale, mask_for(src))
         o, m, l = _merge_blocks(o, m, l, ob, mb, lb)
@@ -151,7 +117,7 @@ def ulysses_attention(q, k, v, mesh=None, axis="sp", causal=False,
                          "sp=%d" % (H, sp))
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     # one exchange for q, k and v: (3, B, T/sp, H, D) -> (3, B, T, H/sp, D)
-    qkv = _AllToAll.apply(torch.stack([q, k, v]), mesh, axis, 3, 2)
+    qkv = all_to_all_grad(torch.stack([q, k, v]), mesh, axis, 3, 2)
     out = local_attention(qkv[0].contiguous(), qkv[1].contiguous(),
                           qkv[2].contiguous(), causal=causal, scale=scale)
-    return _AllToAll.apply(out, mesh, axis, 1, 2)
+    return all_to_all_grad(out, mesh, axis, 1, 2)

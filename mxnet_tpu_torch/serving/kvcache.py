@@ -286,7 +286,8 @@ class KVCachePool:
     server's scheduler thread under ``step_lock``. Page ids are
     allocated lowest-first, so allocation order is deterministic. Page 0
     is reserved as the dump page and never allocated. ``device`` None
-    means ``cuda:0`` (see :func:`~mxnet_tpu_torch.context.resolve_device`).
+    means the current context's device, ``cuda:0`` unless the CPU was
+    asked for (see :func:`~mxnet_tpu_torch.context.resolve_device`).
     """
 
     def __init__(self, n_layers, n_heads, head_dim, *, page_size=None,

@@ -19,11 +19,18 @@ and :453-:635) and its own claims:
   bytes and the diagnose Gradient sync and memory tables of a rank's
   sink, rendered by both packages' diagnose;
 - a conv net with ``BatchNorm`` and ``SyncBatchNorm`` over dp = 2: its
-  moving statistics equal the JAX mesh program's global-batch ones."""
+  moving statistics equal the JAX mesh program's global-batch ones;
+- sequence parallelism on four ranks as ``{dp: 2, sp: 2}``: the
+  trainer on an attention net and on one whose position ids come from
+  ``arange_like`` (three SGD steps, each rank its rows and its half of
+  the sequence) against JAX's trainer on a mesh of the same sizes, with
+  FSDP and ZeRO-1 over dp bit for bit the same run, and
+  ``make_data_parallel_step`` on per-token data against JAX's step."""
 import json
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -368,3 +375,94 @@ def test_batchnorm_net_trains_like_jax(ranks, jax_bn):
         for key, w in want.items():
             np.testing.assert_allclose(r["bn/" + key], w, err_msg=key,
                                        **TRAJ_TOL)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: {dp: 2, sp: 2} on four ranks
+# ---------------------------------------------------------------------------
+
+SP_AXES = {"dp": 2, "sp": 2}
+
+
+@pytest.fixture(scope="module")
+def ranks_sp(tmp_path_factory):
+    return h.spawn(tmp_path_factory.mktemp("sp_trainer"), "sp_trainer", 4)
+
+
+def _jax_sp_run(kind):
+    from mxnet_tpu.parallel.mesh import use_mesh
+    mesh = jpar.create_mesh(SP_AXES, devices=jax.devices()[:4])
+    net = h.sp_net(jmx, kind)
+    tr = jpar.DistributedTrainer(
+        net, jgluon.loss.SoftmaxCrossEntropyLoss(), mesh, optimizer="sgd",
+        optimizer_params={"learning_rate": h.SP_LR})
+    with use_mesh(mesh):
+        losses = [float(tr.fit_batch(jmx.nd.array(x),
+                                     jmx.nd.array(y)).asnumpy())
+                  for x, y in h.sp_batches(kind)]
+    tr.sync_gluon_params()
+    return np.array(losses), [p.data().asnumpy() for _, p in
+                              sorted(net.collect_params().items())]
+
+
+@pytest.mark.parametrize("kind", ["probe", "positioned"])
+def test_sp_trainer_matches_jax(ranks_sp, kind):
+    _no_errors(ranks_sp, "check_sp_trainer")
+    losses, params = _jax_sp_run(kind)
+    key = "sp/" + kind
+    for r in ranks_sp:
+        np.testing.assert_allclose(r[key + "/losses"][0], losses[0],
+                                   **STEP_TOL)
+        np.testing.assert_allclose(r[key + "/losses"], losses, **TRAJ_TOL)
+        for i, p in enumerate(params):
+            np.testing.assert_allclose(r["%s/p%d" % (key, i)], p,
+                                       **TRAJ_TOL)
+        np.testing.assert_array_equal(r[key + "/losses"],
+                                      ranks_sp[0][key + "/losses"])
+
+
+def test_sp_trainer_fsdp_zero1_bitexact(ranks_sp):
+    for r in ranks_sp:
+        np.testing.assert_array_equal(r["sp/fsdp/losses"],
+                                      r["sp/probe/losses"])
+
+
+def test_sp_trainer_needs_per_token_labels(ranks_sp):
+    for r in ranks_sp:
+        assert "has no sequence dim to split over the mesh's 'sp' axis" \
+            in r["sp/no_seq"]
+
+
+def _jax_sp_step():
+    mesh = jpar.create_mesh(SP_AXES, devices=jax.devices()[:4])
+
+    def loss_fn(params, batch):
+        pred = batch["x"] @ params["w"] + params["b"]
+        return jnp.mean((pred - batch["y"]) ** 2)
+
+    step, bsh = jpar.make_data_parallel_step(
+        loss_fn, mesh, optimizer_update=lambda p, g: p - 0.1 * g,
+        donate=False)
+    params = {"w": jnp.zeros((4, 1)), "b": jnp.zeros((1,))}
+    losses = []
+    for x, y in h.sp_step_data():
+        loss, params = step(params, {"x": jax.device_put(x, bsh),
+                                     "y": jax.device_put(y, bsh)})
+        losses.append(float(loss))
+    return np.array(losses), params
+
+
+def test_sp_data_parallel_step_matches_jax(ranks_sp):
+    _no_errors(ranks_sp, "check_sp_dp_step")
+    losses, params = _jax_sp_step()
+    for r in ranks_sp:
+        np.testing.assert_allclose(r["sp_step/0/losses"][0], losses[0],
+                                   **STEP_TOL)
+        np.testing.assert_allclose(r["sp_step/0/losses"], losses,
+                                   **TRAJ_TOL)
+        for k in ("w", "b"):
+            np.testing.assert_allclose(r["sp_step/0/" + k],
+                                       np.asarray(params[k]), **TRAJ_TOL)
+            np.testing.assert_array_equal(r["sp_step/0/" + k],
+                                          r["sp_step/1/" + k])
+        assert r["sp_step/spec"] == ["dp", "sp"]

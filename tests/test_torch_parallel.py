@@ -18,8 +18,11 @@ numpy inputs:
   rows against one of 32, compounded), and its bucketed exchange bit for
   bit against its one-bucket exchange.
 
-A world of 1 runs the single-device path; the names of the next slice
-raise ``NotImplementedError`` naming it."""
+A world of 1 runs the single-device path; the multi-host heartbeat's
+``HostLostError`` raises ``NotImplementedError`` naming its queue item.
+On the ``{"dp": 2, "sp": 2}`` mesh both data-parallel paths train, each
+rank on its rows and its half of the sequence, as one process does on
+the whole batch."""
 import functools
 
 import jax
@@ -112,9 +115,7 @@ def test_world_of_one_runs_the_single_device_path():
         tpar.create_mesh({"dp": 2})
 
 
-@pytest.mark.parametrize("name", ["pipeline_apply", "stack_stage_params",
-                                  "moe_ffn", "topk_route",
-                                  "load_balance_loss", "HostLostError"])
+@pytest.mark.parametrize("name", ["HostLostError"])
 def test_next_slice_names_raise(name):
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue A item 12, order step 6"):
@@ -312,17 +313,42 @@ def test_axis_groups_follow_jax_device_order(ranks4):
         assert float(res["groups/sp"][0]) == 2 * d + (2 * d + 1)
 
 
+def _one_process_sp_losses(k, monkeypatch):
+    """The same two runs in this process, on the whole batch (a world of
+    one rank)."""
+    monkeypatch.setenv("MXNET_DEFAULT_CONTEXT", "cpu")
+    mesh = tpar.create_mesh({"dp": 1, "sp": 1})
+    if k == 0:
+        tr = tpar.DistributedTrainer(
+            h.sp_net(tmx, "probe"), tmx.gluon.loss.SoftmaxCrossEntropyLoss(),
+            mesh, optimizer="sgd",
+            optimizer_params={"learning_rate": h.SP_LR})
+        return [float(tr.fit_batch(tmx.nd.array(x), tmx.nd.array(y))
+                      .asnumpy()) for x, y in h.sp_batches("probe")]
+    step, _ = tpar.make_data_parallel_step(
+        lambda p, b: ((b["x"] @ p["w"] - b["y"]) ** 2).mean(), mesh,
+        optimizer_update=lambda p, g: p - 0.1 * g)
+    params, losses = {"w": torch.zeros(4, 1)}, []
+    for x, y in h.sp_step_data():
+        loss, params = step(params, {"x": x, "y": y})
+        losses.append(float(loss))
+    return losses
+
+
 @pytest.mark.parametrize("k", range(2),
                          ids=["DistributedTrainer", "make_data_parallel_step"])
-def test_dp_paths_refuse_sp_axis(ranks4, k):
-    """A ``{"dp": 2, "sp": 2}`` mesh: the dp paths take their dp rows
-    only, so every sp rank would hold the whole sequence; they raise,
-    naming the queue item that shards it."""
+def test_dp_paths_train_over_sp_axis(ranks4, k, monkeypatch):
+    """A ``{"dp": 2, "sp": 2}`` mesh: each rank takes its dp rows and its
+    sp half of the sequence; the ranks agree and follow the one-process
+    run on the whole batch."""
     _no_errors(ranks4, "check_attention4")
+    key = ("sp_train/trainer", "sp_train/step")[k]
+    want = _one_process_sp_losses(k, monkeypatch)
     for res in ranks4:
-        kind, msg = res["sp_refused"][k]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP queue A item 12, order step 6" in msg
+        assert res[key] == ranks4[0][key]
+        np.testing.assert_allclose(res[key], want, **TRAJ_TOL)
+    if k == 1:
+        assert ranks4[0][key][-1] < ranks4[0][key][0]
 
 
 # ---------------------------------------------------------------------------

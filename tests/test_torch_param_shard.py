@@ -14,7 +14,13 @@ py``'s oracles, :58-:375 and :602-:660):
   resume bit for bit, a JAX 8-device FSDP save restored on two ranks
   (re-sharded, one step at rtol 1e-5, atol 1e-6),
   ``make_data_parallel_step`` with FSDP against its replicated run and
-  against JAX, the gate's default, and ``make_mesh``."""
+  against JAX, the gate's default, and ``make_mesh``;
+- on four gloo ranks as ``{dp: 2, tp: 2}`` (the tp probe: Dense(64,
+  relu) -> Dense(10) over 32 inputs, Adam): with FSDP each projection
+  weight rests as its ``P(dp, tp)`` piece, equal to JAX's piece for
+  piece, ``param_bytes_per_device()`` equals JAX's (2984 bytes), the
+  trajectory is the ``{dp: 2}`` run's bit for bit and JAX's at the step
+  tolerances; without FSDP ``tp`` places nothing."""
 import json
 
 import jax
@@ -387,3 +393,97 @@ def test_make_mesh_fsdp_and_tp(ranks):
             np.asarray(ttiles.addressable_shards[rank].data))
         assert r["make_mesh/batch"] == [4, 5]
         assert "does not divide" in r["make_mesh/bad"]
+
+
+# ---------------------------------------------------------------------------
+# the tp axis: {dp: 2, tp: 2} on four ranks
+# ---------------------------------------------------------------------------
+
+TP_AXES = {"dp": 2, "tp": 2}
+TP_BYTES = 2984               # (64, 32) / 4 + (10, 64) / 4 + 74 biases
+
+
+@pytest.fixture(scope="module")
+def ranks_tp(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_trainer")
+    return h.spawn(tmp, "tp_trainer", 4, {"tmp": str(tmp)})
+
+
+@pytest.fixture(scope="module")
+def jax_tp():
+    """JAX's trainer on the tp probe over {dp: 2, tp: 2}, FSDP on and
+    off: losses, weights, bytes and (FSDP) the per-device pieces."""
+    out = {}
+    mesh = jpar.create_mesh(TP_AXES, devices=jax.devices()[:4])
+    for shard in (True, False):
+        net = h.tp_net(jmx)
+        tr = jpar.DistributedTrainer(
+            net, jgluon.loss.SoftmaxCrossEntropyLoss(), mesh,
+            optimizer="adam", optimizer_params={"learning_rate": 0.01},
+            param_shard=shard)
+        losses = [float(tr.fit_batch(jmx.nd.array(x),
+                                     jmx.nd.array(y)).asnumpy())
+                  for x, y in h.dist_batches(3, width=h.TP_WIDTH)]
+        rec = dict(losses=np.array(losses),
+                   bytes=tr.param_bytes_per_device(),
+                   roster=list(tr._roster),
+                   pieces=[{s.device.id: np.asarray(s.data)
+                            for s in v.addressable_shards}
+                           for v in tr._param_vals])
+        tr.sync_gluon_params()
+        rec["params"] = [p.data().asnumpy() for _, p in
+                         sorted(net.collect_params().items())]
+        out[shard] = rec
+    return out
+
+
+def test_tp_param_bytes_match_jax(ranks_tp, jax_tp):
+    _no_errors(ranks_tp, "check_tp_trainer")
+    assert jax_tp[True]["bytes"] == TP_BYTES
+    for r in ranks_tp:
+        assert r["tp/1/bytes"] == jax_tp[True]["bytes"]
+        assert r["tp/0/bytes"] == jax_tp[False]["bytes"]
+        bd = r["tp/1/breakdown"]
+        assert bd["params_sharded"] + bd["params_replicated"] == TP_BYTES
+        # Adam's two slots rest beside each piece
+        assert r["tp/1/state_bytes"] == 2 * TP_BYTES
+
+
+def test_tp_shards_match_jax_piece_for_piece(ranks_tp, jax_tp):
+    want = jax_tp[True]
+    for rank, r in enumerate(ranks_tp):
+        assert r["tp/1/roster"] == want["roster"]
+        assert r["tp/1/specs"][0] == ["dp", "tp"]
+        for name, pieces in zip(want["roster"], want["pieces"]):
+            got = r["tp/1/local/" + name]
+            assert got.shape == pieces[rank].shape, name
+            np.testing.assert_allclose(got, pieces[rank], err_msg=name,
+                                       **STEP_TOL)
+
+
+@pytest.mark.parametrize("shard", [1, 0], ids=["fsdp", "replicated"])
+def test_tp_trajectory_is_the_dp_runs(ranks, ranks_tp, jax_tp, shard):
+    """{dp: 2, tp: 2} trains as {dp: 2} does, bit for bit (the tp ranks
+    repeat the dp work), and as JAX's trainer on the same mesh."""
+    _no_errors(ranks, "check_tp_reference")
+    ref = ranks[0]
+    for r in ranks_tp:
+        key = "tp/%d" % shard
+        np.testing.assert_array_equal(r[key + "/losses"],
+                                      ref["tp_ref/losses"])
+        for i in range(4):
+            np.testing.assert_array_equal(r["%s/p%d" % (key, i)],
+                                          ref["tp_ref/p%d" % i])
+        want = jax_tp[bool(shard)]
+        np.testing.assert_allclose(r[key + "/losses"][0], want["losses"][0],
+                                   **STEP_TOL)
+        np.testing.assert_allclose(r[key + "/losses"], want["losses"],
+                                   rtol=1e-4, atol=1e-6)
+        for i, p in enumerate(want["params"]):
+            np.testing.assert_allclose(r["%s/p%d" % (key, i)], p,
+                                       rtol=1e-4, atol=1e-6)
+
+
+def test_tp_checkpoint_names_its_queue_item(ranks_tp):
+    for r in ranks_tp:
+        assert "ROADMAP queue A item 12" in r["tp/1/ckpt"]

@@ -134,6 +134,115 @@ def fsdp_step_data():
     return host, batch
 
 
+def pipe_data():
+    """The pipeline problem: 2 stages of ``tanh(h @ w + b)``, 4
+    microbatches of 4 rows of width 6 (a dp rank takes 2 rows of each)."""
+    rng = np.random.RandomState(0)
+    return (rng.normal(0, 0.5, (2, 6, 6)).astype(np.float32),
+            rng.normal(0, 0.5, (2, 6)).astype(np.float32),
+            rng.normal(0, 1, (4, 4, 6)).astype(np.float32))
+
+
+def moe_data():
+    """The MoE problem over {dp: 2, tp: 2}: B4 T4 D6 F8, 4 experts."""
+    rng = np.random.RandomState(5)
+    return (rng.normal(0, 1, (4, 4, 6)).astype(np.float32),
+            rng.normal(0, 1, (6, 4)).astype(np.float32),
+            rng.normal(0, 0.5, (4, 6, 8)).astype(np.float32),
+            rng.normal(0, 0.5, (4, 8, 6)).astype(np.float32))
+
+
+MOE_CAPACITY_FACTOR = 1.0        # some claims overflow and drop
+SP_STEPS = 3
+SP_LR = 0.1
+
+
+def sp_nets(mx):
+    """The sequence-parallel nets, from either package: ``probe``
+    (attention over (B, T, 16) inputs, then a per-token Dense(10)) and
+    ``positioned`` (token and position embeddings, the position ids from
+    ``arange_like`` along the sequence, then the same)."""
+    from_gluon = mx.gluon
+
+    def probe():
+        net = from_gluon.nn.HybridSequential(prefix="spprobe_")
+        with net.name_scope():
+            net.add(from_gluon.contrib.nn.MeshMultiHeadAttention(
+                16, 2, causal=True), from_gluon.nn.Dense(10, flatten=False))
+        return net
+
+    class Positioned(from_gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="sppos_")
+            with self.name_scope():
+                self.tok = from_gluon.nn.Embedding(12, 16)
+                self.pos = from_gluon.nn.Embedding(8, 16)
+                self.attn = from_gluon.contrib.nn.MeshMultiHeadAttention(
+                    16, 2, causal=True)
+                self.out = from_gluon.nn.Dense(10, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            h = self.tok(x) + self.pos(F.contrib.arange_like(x, axis=1))
+            return self.out(self.attn(h))
+    return {"probe": probe, "positioned": Positioned}
+
+
+def sp_batches(kind):
+    """SP_STEPS global batches of 4 rows of 8 positions, per-token
+    labels."""
+    rng = np.random.RandomState(7)
+    out = []
+    for _ in range(SP_STEPS):
+        x = rng.normal(0, 1, (4, 8, 16)).astype(np.float32) \
+            if kind == "probe" \
+            else rng.randint(0, 12, (4, 8)).astype(np.float32)
+        out.append((x, rng.randint(0, 10, (4, 8)).astype(np.float32)))
+    return out
+
+
+def sp_net(mx, kind):
+    """A net of ``sp_nets`` with the shared initial weights."""
+    net = sp_nets(mx)[kind]()
+    net.initialize()
+    net(mx.nd.array(sp_batches(kind)[0][0][:1]))
+    plist = sorted(net.collect_params().items())
+    for (_, p), v in zip(plist, dist_net_init([p.data().shape
+                                               for _, p in plist])):
+        p.set_data(mx.nd.array(v))
+    return net
+
+
+def sp_step_data(steps=3):
+    """make_data_parallel_step's per-token problem: (4, 8, 4) inputs,
+    (4, 8, 1) targets."""
+    rng = np.random.RandomState(9)
+    w_true = rng.randn(4, 1).astype(np.float32)
+    out = []
+    for _ in range(steps):
+        x = rng.randn(4, 8, 4).astype(np.float32)
+        out.append((x, x @ w_true))
+    return out
+
+
+TP_WIDTH = 32                    # the tp probe's inputs
+
+
+def tp_net(mx, prefix="tpnet_"):
+    """The tp probe: Dense(64, relu) -> Dense(10) over 32 inputs."""
+    from_gluon = mx.gluon
+    net = from_gluon.nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(from_gluon.nn.Dense(64, activation="relu"),
+                from_gluon.nn.Dense(10))
+    net.initialize()
+    net(mx.nd.array(np.zeros((16, TP_WIDTH), np.float32)))
+    plist = sorted(net.collect_params().items())
+    for (_, p), v in zip(plist, dist_net_init([p.data().shape
+                                               for _, p in plist])):
+        p.set_data(mx.nd.array(v))
+    return net
+
+
 def jax_dist_run(n_dev, overlap=True, opt="adam", steps=5, classes=10,
                   load=None, skip=0, prefix="gsync_", param_shard=None,
                   opt_params=None, bucket_mb=0.001):
@@ -326,19 +435,23 @@ def check_attention4(R, mx, par):
     R.put("groups/dp", _np(par.all_reduce(me, mesh, "dp")))
     R.put("groups/sp", _np(par.all_reduce(me, mesh, "sp")))
     R.put("groups/coords", [mesh.axis_index("dp"), mesh.axis_index("sp")])
-    # the dp paths do not shard the sequence over sp: refused
+    # both dp paths train over the same mesh, each rank on its slice
     from mxnet_tpu_torch import gluon
-    refused = []
-    for make in (lambda: par.DistributedTrainer(
-                     gluon.nn.Dense(4), gluon.loss.L2Loss(), mesh),
-                 lambda: par.make_data_parallel_step(
-                     lambda p, b: p["w"].sum(), mesh)):
-        try:
-            make()
-            refused.append(["", ""])
-        except Exception as exc:
-            refused.append([type(exc).__name__, str(exc)])
-    R.put("sp_refused", refused)
+    tr = par.DistributedTrainer(sp_net(mx, "probe"),
+                                gluon.loss.SoftmaxCrossEntropyLoss(), mesh,
+                                optimizer="sgd",
+                                optimizer_params={"learning_rate": SP_LR})
+    R.put("sp_train/trainer", [float(tr.fit_batch(
+        mx.nd.array(x), mx.nd.array(y)).asnumpy())
+        for x, y in sp_batches("probe")])
+    step, _ = par.make_data_parallel_step(
+        lambda p, b: ((b["x"] @ p["w"] - b["y"]) ** 2).mean(), mesh,
+        optimizer_update=lambda p, g: p - 0.1 * g)
+    params, losses = {"w": torch.zeros(4, 1)}, []
+    for x, y in sp_step_data():
+        loss, params = step(params, {"x": x, "y": y})
+        losses.append(float(loss))
+    R.put("sp_train/step", losses)
 
 
 def check_dp_step(R, mx, par):
@@ -768,18 +881,222 @@ def check_pipeline(R, mx, par):
     R.put("pipe/whole", str(place("w", np.zeros((3, 2)))))
 
 
+def check_pipeline_apply(R, mx, par):
+    """``pipeline_apply`` over {pp: 2, dp: 2}: this rank's rows of every
+    microbatch through both stages; the gradients of ``sum(out ** 2)``
+    (this rank's rows) for its stage's w and b (summed over dp) and for
+    its rows of the input."""
+    import torch
+    mesh = par.create_mesh({"pp": 2, "dp": 2})
+    w, b, x = pipe_data()
+    d = mesh.axis_index("dp")
+    xs = torch.from_numpy(x[:, 2 * d:2 * d + 2].copy()).requires_grad_(True)
+    stage = mesh.axis_index("pp")
+    wt = torch.from_numpy(w[stage:stage + 1].copy()).requires_grad_(True)
+    bt = torch.from_numpy(b[stage:stage + 1].copy()).requires_grad_(True)
+
+    def fn(p, h):
+        return torch.tanh(h @ p[0] + p[1])
+    out = par.pipeline_apply(fn, (wt, bt), xs, mesh=mesh, axis="pp")
+    R.put("pipe_apply/out", _np(out))
+    (out ** 2).sum().backward()
+    R.put("pipe_apply/dw", _np(par.all_reduce(wt.grad, mesh, "dp")))
+    R.put("pipe_apply/db", _np(par.all_reduce(bt.grad, mesh, "dp")))
+    R.put("pipe_apply/dx", _np(xs.grad))
+    R.put("pipe_apply/coords", [stage, d])
+    whole = par.pipeline_apply(fn, par.stack_stage_params(
+        [(torch.from_numpy(w[i]), torch.from_numpy(b[i])) for i in (0, 1)]),
+        xs.detach(), mesh=mesh, axis="pp")
+    R.put("pipe_apply/stacked", _np(whole))
+
+
+def check_pipeline_n_micro(R, mx, par):
+    import torch
+    mesh = par.create_mesh({"pp": 4})
+    try:
+        par.pipeline_apply(lambda w, h: h @ w, torch.zeros(4, 4, 4),
+                           torch.zeros(2, 2, 4), mesh=mesh, axis="pp")
+        R.put("pipe_micro", ["", ""])
+    except Exception as exc:
+        R.put("pipe_micro", [type(exc).__name__, str(exc)])
+
+
+def check_autograd_collectives(R, mx, par):
+    """The autograd collectives over {dp: 2, tp: 2} on integer-valued
+    data (every sum exact): each one's value and the gradient of ``sum(
+    out * c)`` with a rank-dependent cotangent ``c``."""
+    import torch
+    mesh = par.create_mesh({"dp": 2, "tp": 2})
+
+    def run(name, fn):
+        x = (torch.arange(4, dtype=torch.float32)
+             + 10 * R.rank).requires_grad_(True)
+        out = fn(x)
+        c = torch.arange(out.numel(), dtype=torch.float32).reshape(
+            out.shape) + 100 * R.rank
+        (out * c).sum().backward()
+        R.put("coll_grad/%s/out" % name, _np(out))
+        R.put("coll_grad/%s/grad" % name, _np(x.grad))
+
+    run("copy", lambda x: par.copy_to_axis(x, mesh, "tp"))
+    run("reduce", lambda x: par.reduce_from_axis(x, mesh, "tp"))
+    run("psum", lambda x: par.psum(x, mesh, "tp"))
+    run("gather_slice", lambda x: par.gather_from_axis(x, mesh, "tp"))
+    run("gather_sum", lambda x: par.gather_from_axis(x, mesh, "tp",
+                                                     grad="sum"))
+    run("gather_both", lambda x: par.gather_from_axis(x, mesh, ("dp", "tp")))
+    run("ppermute", lambda x: par.ppermute_grad(x, mesh, "tp",
+                                                [(0, 1), (1, 0)]))
+
+
+def check_moe_mesh(R, mx, par):
+    """``moe_ffn`` over {dp: 2, tp: 2} with the experts over tp: this
+    rank's rows of the output, the aux loss, and the gradients of
+    ``sum(out ** 2) + 0.01 * aux`` (summed over dp; this rank's experts
+    for w1/w2, its rows for x)."""
+    import torch
+    mesh = par.create_mesh({"dp": 2, "tp": 2})
+    x, gw, w1, w2 = moe_data()
+    d, t = mesh.axis_index("dp"), mesh.axis_index("tp")
+    ts = [torch.from_numpy(a.copy()).requires_grad_(True)
+          for a in (x[2 * d:2 * d + 2], gw, w1[2 * t:2 * t + 2],
+                    w2[2 * t:2 * t + 2])]
+    out, aux = par.moe_ffn(*ts, k=2, capacity_factor=MOE_CAPACITY_FACTOR,
+                           mesh=mesh, ep_axis="tp")
+    R.put("moe/out", _np(out))
+    R.put("moe/aux", float(aux))
+    ((out ** 2).sum() + 0.01 * aux).backward()
+    R.put("moe/dx", _np(ts[0].grad))
+    for name, t_ in zip(("dgw", "dw1", "dw2"), ts[1:]):
+        R.put("moe/" + name, _np(par.all_reduce(t_.grad, mesh, "dp")))
+
+
+def _sp_train(R, mx, par, mesh, kind, key):
+    from mxnet_tpu_torch import gluon
+    net = sp_net(mx, kind)
+    tr = par.DistributedTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                mesh, optimizer="sgd",
+                                optimizer_params={"learning_rate": SP_LR})
+    R.put(key + "/losses", np.array([float(tr.fit_batch(
+        mx.nd.array(x), mx.nd.array(y)).asnumpy())
+        for x, y in sp_batches(kind)]))
+    tr.sync_gluon_params()
+    for i, (_, p) in enumerate(sorted(net.collect_params().items())):
+        R.put("%s/p%d" % (key, i), p.data().asnumpy())
+
+
+def check_sp_trainer(R, mx, par):
+    """The DistributedTrainer over {dp: 2, sp: 2} (each rank its rows
+    and its half of the sequence), both sp nets, SGD; with FSDP and
+    ZeRO-1 over dp too."""
+    mesh = par.create_mesh({"dp": 2, "sp": 2})
+    for kind in ("probe", "positioned"):
+        _sp_train(R, mx, par, mesh, kind, "sp/" + kind)
+    from mxnet_tpu_torch import gluon
+    tr = par.DistributedTrainer(sp_net(mx, "probe"),
+                                gluon.loss.SoftmaxCrossEntropyLoss(), mesh,
+                                optimizer="sgd",
+                                optimizer_params={"learning_rate": SP_LR},
+                                grad_overlap=True, param_shard=True)
+    R.put("sp/fsdp/losses", np.array([float(tr.fit_batch(
+        mx.nd.array(x), mx.nd.array(y)).asnumpy())
+        for x, y in sp_batches("probe")]))
+    try:
+        tr2 = par.DistributedTrainer(
+            tp_net(mx), gluon.loss.SoftmaxCrossEntropyLoss(), mesh)
+        tr2.fit_batch(mx.nd.array(np.zeros((4, TP_WIDTH), np.float32)),
+                      mx.nd.array(np.zeros((4,), np.float32)))
+        R.put("sp/no_seq", "")
+    except Exception as exc:
+        R.put("sp/no_seq", str(exc))
+
+
+def check_sp_dp_step(R, mx, par):
+    """make_data_parallel_step over {dp: 2, sp: 2} on per-token data."""
+    import torch
+    mesh = par.create_mesh({"dp": 2, "sp": 2})
+    for overlap in (False, True):
+        step, bsh = par.make_data_parallel_step(
+            lambda p, b: ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean(),
+            mesh, optimizer_update=lambda p, g: p - 0.1 * g,
+            grad_overlap=overlap, bucket_mb=1e-6)
+        params = {"w": torch.zeros(4, 1), "b": torch.zeros(1)}
+        losses = []
+        for x, y in sp_step_data():
+            loss, params = step(params, {"x": x, "y": y})
+            losses.append(float(loss))
+        key = "sp_step/%d" % overlap
+        R.put(key + "/losses", np.array(losses))
+        R.put(key + "/w", _np(params["w"]))
+        R.put(key + "/b", _np(params["b"]))
+    R.put("sp_step/spec", list(bsh.spec))
+
+
+def tp_run(mx, par, mesh, shard, steps=3):
+    from mxnet_tpu_torch import gluon
+    net = tp_net(mx)
+    tr = par.DistributedTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                mesh, optimizer="adam",
+                                optimizer_params={"learning_rate": 0.01},
+                                param_shard=shard)
+    losses = [float(tr.fit_batch(mx.nd.array(x), mx.nd.array(y)).asnumpy())
+              for x, y in dist_batches(steps, width=TP_WIDTH)]
+    return net, tr, np.array(losses)
+
+
+def check_tp_trainer(R, mx, par):
+    """The tp probe over {dp: 2, tp: 2}, Adam: with param_shard the 2-D
+    shards at rest (this rank's piece of each, its bytes, its optimizer
+    state); without it, tp places nothing. The weights after the run."""
+    mesh = par.create_mesh({"dp": 2, "tp": 2})
+    for shard in (True, False):
+        net, tr, losses = tp_run(mx, par, mesh, shard)
+        key = "tp/%d" % shard
+        R.put(key + "/losses", losses)
+        R.put(key + "/bytes", tr.param_bytes_per_device())
+        R.put(key + "/state_bytes", tr.state_bytes_per_device())
+        R.put(key + "/breakdown", tr._memory_breakdown())
+        if shard:
+            R.put(key + "/roster", list(tr._roster))
+            R.put(key + "/specs", [list(pl.spec) for pl in tr._param_plans])
+            for name, v in zip(tr._roster, tr._param_vals):
+                R.put("%s/local/%s" % (key, name), _np(v))
+            try:
+                tr.save_checkpoint(os.path.join(R.cfg["tmp"], "tp"), 0)
+                R.put(key + "/ckpt", "")
+            except NotImplementedError as exc:
+                R.put(key + "/ckpt", str(exc))
+        tr.sync_gluon_params()
+        for i, (_, p) in enumerate(sorted(net.collect_params().items())):
+            R.put("%s/p%d" % (key, i), p.data().asnumpy())
+
+
+def check_tp_reference(R, mx, par):
+    """The tp probe over {dp: 2} with param_shard: the run the {dp: 2,
+    tp: 2} one must equal."""
+    net, tr, losses = tp_run(mx, par, par.local_mesh("dp"), True)
+    R.put("tp_ref/losses", losses)
+    tr.sync_gluon_params()
+    for i, (_, p) in enumerate(sorted(net.collect_params().items())):
+        R.put("tp_ref/p%d" % i, p.data().asnumpy())
+
+
 SUITES = {
     "parallel": (check_mesh, check_collectives, check_attention,
                  check_attention_op, check_dp_step),
     "pipeline": (check_pipeline,),
     "parallel4": (check_attention4,),
+    "pipeline_moe": (check_pipeline_apply, check_pipeline_n_micro,
+                     check_moe_mesh, check_autograd_collectives),
+    "sp_trainer": (check_sp_trainer, check_sp_dp_step),
+    "tp_trainer": (check_tp_trainer,),
     "data_parallel": (check_bitexact, check_zero1, check_placed_once,
                       check_unknown_optimizer, check_checkpoint,
                       check_cross_load, check_seed_export, check_telemetry,
                       check_batchnorm),
     "param_shard": (check_fsdp, check_fsdp_checkpoint, check_cross_load,
                     check_fsdp_dp_step, check_make_mesh, check_shard_params,
-                    check_telemetry),
+                    check_telemetry, check_tp_reference),
 }
 
 
