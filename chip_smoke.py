@@ -520,9 +520,38 @@ no result, anywhere else. Phases (any failure exits non-zero):
    are read after it: (a), (c) and (d) launch none (ring attention's
    block is plain torch), (b) 12 of each flash kernel a step.
 
+26. serve (after 25) — the twenty-second slice, deploy and serve, fp32
+   with TF32 off. (a) ResNet-50 v1 as phase 13 builds it (1000 classes,
+   3x224x224, seed 0) exported by ``mx.deploy.export_compiled`` on the
+   card with buckets SERVE_BUCKETS, loaded (every program on cuda:0) and
+   served by ``InferenceServer(max_queue=64, batch_window_ms=2.0)``:
+   ``warmup()`` captures the six bucket graphs (``compile_watch``: six
+   sites, one compile each); 8 client threads x 32 requests (seed 1):
+   no compile and no recapture during traffic, replays = batches, each
+   answer within SERVE_TOL of the hybridized net on its sample alone and
+   bit-identical to the Predictor's program at its bucket; export s,
+   bytes, capture ms, requests/s, latency, occupancy, batches by bucket,
+   ms a batch at bucket 32 by replay beside phase 13's CachedOp replay;
+   a shed drill and a deadline drill (``MXNET_FAULT_PLAN`` hang at
+   ``serve_dispatch``). (b) examples/serve_artifact.py's convnet exported
+   in a CPU-only subprocess (``chip_smoke.py export-convnet PATH``) and
+   on the card, both served on cuda:0: no program names the CPU, answers
+   within PORTABLE_TOL. (c) phase 10's LM (163.0M parameters, not
+   hybridized) as an in-process callable, ladder [1, 2, 4, 8] x seq
+   [256, 1024]: 8 captures, flash_fwd 12 launches a replay (counters
+   zeroed before the traffic, read after), per-position max logit and
+   argmax against the model alone; hybridized, its CachedOp captures
+   nothing inside a bucket graph; its export raises naming
+   ``_contrib_flash_attention``. (d) phase 14's ``Module.fit`` under
+   ``MXNET_COMPILE_WATCH=1`` for WATCH_STEPS steps: one
+   ``fused_step:module`` compile, a step's flops within WATCH_FLOPS_REL of
+   the hand count, the utilization record's MFU = flops / (step s x the
+   table's fp32 peak).
+
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
-packing, or mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches;
+packing, mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches,
+or serving (InferenceServer);
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -10659,6 +10688,630 @@ def phase_mesh_axes(card, tfa, mesh24):
     return dict(tp_launches=b[0]["launches"])
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the deploy and serve path
+# ---------------------------------------------------------------------------
+
+# (a) ResNet-50 v1 as phase 13 builds it at the reference's size, exported
+# with one program a bucket and served: 8 clients x 32 requests from
+# seed 1; each answer against the hybridized net on its sample alone
+# (the example's tolerance) and bit for bit against the Predictor's
+# program at the bucket it ran in; the drills' queue bound and burst
+SERVE_BUCKETS = [1, 2, 4, 8, 16, 32]
+SERVE_IMAGE = 224
+SERVE_CLASSES = 1000
+SERVE_CLIENTS = 8
+SERVE_PER_CLIENT = 32
+SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+SHED_QUEUE = 4
+SHED_BURST = 64
+DEADLINE_HANG_S = "0.2"
+# (b) examples/serve_artifact.py's convnet exported on the CPU (a CPU-only
+# subprocess) and on the card, both served on the card
+CONVNET_BUCKETS = [1, 2, 4, 8]
+CONVNET_REQUESTS = 32
+PORTABLE_TOL = dict(rtol=1e-5, atol=1e-6)
+# (c) phase 10's LM as an in-process callable: 32 requests of 100-1024
+# tokens from seed 2; per position (max logit, argmax) against the model
+# alone on the request
+LM_SERVE_LADDER = [1, 2, 4, 8]
+LM_SERVE_SEQ = [256, 1024]
+LM_SERVE_REQUESTS = 32
+LM_SERVE_LENGTHS = (100, 1024)
+LM_SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+# (d) phase 14's Module.fit under MXNET_COMPILE_WATCH=1
+WATCH_STEPS = 5
+WATCH_FLOPS_REL = 0.01
+WATCH_MFU_REL = 1e-3
+
+
+def convnet_export(mx, path, ctx):
+    """examples/serve_artifact.py's convnet and weights (seed 0) on
+    ``ctx``, exported with one program a bucket of CONVNET_BUCKETS."""
+    data = mx.sym.var("data")
+    h = mx.sym.Convolution(data, name="conv1", kernel=(3, 3),
+                           num_filter=8, pad=(1, 1))
+    h = mx.sym.Activation(h, act_type="relu")
+    h = mx.sym.Pooling(h, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    h = mx.sym.Flatten(h)
+    out = mx.sym.FullyConnected(h, name="fc", num_hidden=10)
+    rs = np.random.RandomState(0)
+    params = {
+        "conv1_weight": mx.nd.array(rs.randn(8, 3, 3, 3) * 0.1, ctx=ctx),
+        "conv1_bias": mx.nd.zeros((8,), ctx=ctx),
+        "fc_weight": mx.nd.array(rs.randn(10, 8 * 16 * 16) * 0.01,
+                                 ctx=ctx),
+        "fc_bias": mx.nd.zeros((10,), ctx=ctx),
+    }
+    mx.deploy.export_compiled(out, path, params=params,
+                              input_shapes={"data": (1, 3, 32, 32)},
+                              batch_sizes=CONVNET_BUCKETS)
+    return path
+
+
+def export_convnet_main(path):
+    """``chip_smoke.py export-convnet PATH``: (b)'s CPU export, run in a
+    process that sees no CUDA device."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mx
+    if torch.cuda.is_available():
+        print("export-convnet: a CUDA device is visible")
+        return 1
+    convnet_export(mx, path, mx.cpu())
+    print("export-convnet: %s, %d bytes" % (path, os.path.getsize(path)))
+    return 0
+
+
+@contextlib.contextmanager
+def timing_calls(module, names):
+    """``{name: [s a call]}`` of ``module``'s functions ``names`` over
+    the block (each wrapped, then restored)."""
+    spent = {n: [] for n in names}
+    orig = {n: getattr(module, n) for n in names}
+
+    def timed_fn(n):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig[n](*a, **kw)
+            finally:
+                spent[n].append(time.perf_counter() - t0)
+        return call
+    for n in names:
+        setattr(module, n, timed_fn(n))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(module, n, orig[n])
+
+
+def serve_traffic(srv, samples, clients):
+    """``clients`` threads each submit their share of ``samples`` (with
+    backpressure: ``block=True``), then wait for them. Returns the
+    futures in sample order and the traffic's wall seconds."""
+    futs = [None] * len(samples)
+    errors = []
+    per = len(samples) // clients
+
+    def client(c):
+        try:
+            mine = range(c * per, (c + 1) * per)
+            for i in mine:
+                futs[i] = srv.submit(samples[i], block=True)
+            for i in mine:
+                futs[i].result(timeout=300)
+        except Exception as exc:            # noqa: BLE001
+            errors.append(repr(exc))
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("serve: client errors %s" % errors[:3])
+    return futs, wall
+
+
+def program_graphs(srv, device="cuda:0"):
+    """``{key: graph holder}`` of a server's programs on ``device``."""
+    return {key: fn.graphs for (dev, key), fn in srv._programs.items()
+            if dev == device}
+
+
+def serve_drills(mx, pred, card):
+    """(a)'s shed drill (a burst of SHED_BURST into a queue of SHED_QUEUE)
+    and deadline drill (a planned hang at ``serve_dispatch``: every queued
+    request fails with RequestTimeoutError)."""
+    from mxnet_tpu_torch import fault, serving
+    x = np.zeros((3, SERVE_IMAGE, SERVE_IMAGE), np.float32)
+    with serving.InferenceServer(pred, ladder=[SERVE_BUCKETS[-1]],
+                                 max_queue=SHED_QUEUE, batch_window_ms=2.0,
+                                 name="shed") as srv:
+        srv.warmup()
+        shed, futs = 0, []
+        for _ in range(SHED_BURST):
+            try:
+                futs.append(srv.submit(x))
+            except serving.ServerOverloadedError:
+                shed += 1
+        for f in futs:
+            f.result(timeout=120)
+        st = srv.stats()
+    if shed < 1 or st["shed"] != shed or st["completed"] != len(futs) \
+            or st["queue_peak"] > SHED_QUEUE:
+        fail("serve: shed drill: %d shed by the client, stats %s"
+             % (shed, st))
+    print("  (a) shed drill: burst of %d into max_queue %d: %d shed "
+          "(ServerOverloadedError), %d served, queue peak %d (bound %d)"
+          % (SHED_BURST, SHED_QUEUE, shed, st["completed"],
+             st["queue_peak"], SHED_QUEUE))
+    with env_set("MXNET_FAULT_PLAN", "serve_dispatch:step=1:hang:count=2"), \
+            env_set("MXNET_FAULT_HANG_SECONDS", DEADLINE_HANG_S):
+        fault.reset()
+        try:
+            srv = serving.InferenceServer(pred, ladder=[1], max_queue=16,
+                                          batch_window_ms=0.0,
+                                          name="deadline")
+            srv.warmup()
+            futs = [srv.submit(x, deadline_ms=1) for _ in range(3)]
+            timed_out = 0
+            for f in futs:
+                try:
+                    f.result(timeout=60)
+                except serving.RequestTimeoutError:
+                    timed_out += 1
+            st = srv.stats()
+            srv.stop()
+        finally:
+            fault.reset()
+        fault.reset()
+    if timed_out != 3 or st["timeouts"] != 3 or st["completed"] != 0 \
+            or st["dispatch_faults"] < 1:
+        fail("serve: deadline drill: %d timed out, stats %s"
+             % (timed_out, st))
+    print("  (a) deadline drill: MXNET_FAULT_PLAN hang %s s at "
+          "serve_dispatch: %d of 3 queued requests failed with "
+          "RequestTimeoutError, %d served, %d dispatch faults"
+          % (DEADLINE_HANG_S, timed_out, st["completed"],
+             st["dispatch_faults"]))
+
+
+def serve_resnet(mx, card, bench_ms):
+    """(a): ResNet-50 v1 exported, loaded and served on the card."""
+    import tempfile
+    from mxnet_tpu_torch import compile_watch, serving
+    net = resnet_net(mx, 50, 1, SERVE_IMAGE, SERVE_CLASSES)
+    net.hybridize()
+    shape = (1, 3, SERVE_IMAGE, SERVE_IMAGE)
+    net(mx.nd.zeros(shape))                 # the graph export reads
+    tmp = tempfile.mkdtemp(prefix="mxt-serve-")
+    path = os.path.join(tmp, "resnet50.mxp")
+    t0 = time.perf_counter()
+    with timing_calls(torch.export, ("export", "save")) as spent:
+        mx.deploy.export_compiled(net, path, input_shapes={"data0": shape},
+                                  batch_sizes=SERVE_BUCKETS)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = mx.deploy.load_compiled(path)
+    load_s = time.perf_counter() - t0
+    meta = pred.meta
+    size = os.path.getsize(path)
+    print("  (a) ResNet-50 v1 (%d classes, 3x%dx%d, seed 0) exported on the "
+          "card: %.2f s for %d buckets; s a bucket: torch.export.export %s, "
+          "torch.export.save %s; artifact %d bytes (programs %s bytes, "
+          "weights once: %d bytes); loaded on %s in %.2f s; program devices "
+          "%s (%s)"
+          % (SERVE_CLASSES, SERVE_IMAGE, SERVE_IMAGE, export_s,
+             len(SERVE_BUCKETS),
+             [round(t, 2) for t in spent["export"]],
+             [round(t, 2) for t in spent["save"]], size,
+             [p["length"] for p in meta["programs"]],
+             meta["weights"]["length"], pred.device, load_s,
+             sorted(pred.program_devices()), card))
+    if pred.program_devices() != {"cuda:0"} or \
+            pred.batch_sizes != SERVE_BUCKETS:
+        fail("serve: the loaded artifact: devices %s, buckets %s"
+             % (pred.program_devices(), pred.batch_sizes))
+    compile_watch.enable()
+    srv = serving.InferenceServer(pred, max_queue=64, batch_window_ms=2.0)
+    t0 = time.perf_counter()
+    n = srv.warmup()
+    warm_s = time.perf_counter() - t0
+    warm = compile_watch.site_stats("serving")
+    graphs = program_graphs(srv)
+    want_sites = {"serving:b%d" % b for b in SERVE_BUCKETS}
+    if n != len(SERVE_BUCKETS) or set(warm) != want_sites or \
+            any(s["count"] != 1 for s in warm.values()):
+        fail("serve: warmup readied %d programs, sites %s" % (n, warm))
+    print("  (a) warmup: %d programs captured in %.2f s; capture ms by "
+          "bucket %s"
+          % (n, warm_s, {b: round(warm["serving:b%d" % b]["total_s"] * 1e3,
+                                  1) for b in SERVE_BUCKETS}))
+    replays0 = sum(g.replays for g in graphs.values())
+    rs = np.random.RandomState(1)
+    xs = rs.randn(SERVE_CLIENTS * SERVE_PER_CLIENT, 3, SERVE_IMAGE,
+                  SERVE_IMAGE).astype(np.float32)
+    futs, wall = serve_traffic(srv, xs, SERVE_CLIENTS)
+    st = srv.stats()
+    srv.stop()
+    after = compile_watch.site_stats("serving")
+    traffic_replays = sum(g.replays for g in graphs.values()) - replays0
+    recaptures = sum(g.recaptures for g in graphs.values())
+    compiles_in_traffic = sum(after[s]["count"] - warm[s]["count"]
+                              for s in warm)
+    print("  (a) traffic: %d clients x %d requests in %.3f s: %.1f "
+          "requests/s; latency ms p50 %.2f p99 %.2f; occupancy %.3f; "
+          "batches by bucket %s; replays %d = batches %d; compiles during "
+          "traffic %d (bound 0), recaptures %d (bound 0) (%s)"
+          % (SERVE_CLIENTS, SERVE_PER_CLIENT, wall, len(xs) / wall,
+             st["latency_ms"]["p50"], st["latency_ms"]["p99"],
+             st["occupancy"], st["buckets"], traffic_replays, st["batches"],
+             compiles_in_traffic, recaptures, card))
+    if st["completed"] != len(xs) or st["shed"] or st["timeouts"] or \
+            set(after) != want_sites or compiles_in_traffic or recaptures \
+            or traffic_replays != st["batches"]:
+        fail("serve: traffic stats %s, sites %s, replays %d"
+             % (st, after, traffic_replays))
+    # each answer against the hybridized net on its sample alone
+    worst = 0.0
+    for i, f in enumerate(futs):
+        want = net(mx.nd.array(xs[i:i + 1]))._data[0].cpu().numpy()
+        got = f.result()
+        err = float(np.max(np.abs(got - want)))
+        worst = max(worst, err)
+        if not np.allclose(got, want, **SERVE_TOL):
+            fail("serve: request %d differs from the net alone by %g"
+                 % (i, err))
+    # ... and bit for bit against the Predictor's program at its bucket
+    exact = 0
+    with torch.inference_mode():
+        for b in SERVE_BUCKETS:
+            idx = [i for i, f in enumerate(futs) if f.bucket == b]
+            for k in range(0, len(idx), b):
+                group = idx[k:k + b]
+                batch = np.zeros((b,) + xs.shape[1:], np.float32)
+                batch[:len(group)] = xs[group]
+                out = pred.program(b)(torch.from_numpy(batch).cuda())
+                out = out.cpu().numpy()
+                for row, i in enumerate(group):
+                    if not np.array_equal(out[row], futs[i].result()):
+                        fail("serve: request %d differs from the "
+                             "Predictor's bucket-%d program" % (i, b))
+                    exact += 1
+    x32 = torch.from_numpy(
+        xs[np.arange(SERVE_BUCKETS[-1]) % len(xs)]).cuda()
+    fn = srv._programs[("cuda:0", SERVE_BUCKETS[-1])]
+    with torch.inference_mode():
+        replay_ms = wall_ms(lambda: fn(x32))
+    print("  (a) answers vs the hybridized net alone: max abs err %.3g "
+          "(rtol %g, atol %g); %d of %d bit-identical to the Predictor at "
+          "their bucket; ms a batch at bucket %d by artifact replay %.3f "
+          "(%.1f images/s) beside phase 13's CachedOp replay %.3f (%s)"
+          % (worst, SERVE_TOL["rtol"], SERVE_TOL["atol"], exact, len(xs),
+             SERVE_BUCKETS[-1], replay_ms,
+             SERVE_BUCKETS[-1] * 1e3 / replay_ms, bench_ms, card))
+    serve_drills(mx, pred, card)
+    compile_watch.disable()
+    del srv, pred, net, fn, x32
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return dict(export_s=export_s, bytes=size, rps=len(xs) / wall,
+                replay_ms=replay_ms)
+
+
+def serve_portable(mx, card):
+    """(b): the convnet exported in a CPU-only process serves on cuda:0,
+    equal to a card export's answers; nothing of its programs stays on
+    the CPU."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import serving
+    tmp = tempfile.mkdtemp(prefix="mxt-port-")
+    cpu_path = os.path.join(tmp, "convnet-cpu.mxp")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               MXNET_DEFAULT_CONTEXT="cpu")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "export-convnet", cpu_path], env=env,
+                         capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail("serve: the CPU export failed: %s" % res.stderr[-2000:])
+    card_path = convnet_export(mx, os.path.join(tmp, "convnet-card.mxp"),
+                               mx.gpu(0))
+    rs = np.random.RandomState(1)
+    xs = rs.randn(CONVNET_REQUESTS, 3, 32, 32).astype(np.float32)
+    outs, devs = {}, {}
+    for tag, path in (("cpu", cpu_path), ("card", card_path)):
+        pred = mx.deploy.load_compiled(path)
+        devs[tag] = pred.program_devices()
+        with serving.InferenceServer(pred, max_queue=64,
+                                     batch_window_ms=2.0,
+                                     name="convnet-" + tag) as srv:
+            srv.warmup()
+            futs, _ = serve_traffic(srv, xs, 4)
+        outs[tag] = np.stack([f.result() for f in futs])
+    err = float(np.max(np.abs(outs["cpu"] - outs["card"])))
+    print("  (b) serve_artifact.py's convnet exported in a CPU-only process "
+          "(%.1f s with its start), loaded on cuda:0: program devices %s "
+          "(card export: %s); %d requests served from each, max abs diff "
+          "%.3g (rtol %g, atol %g)"
+          % (sub_s, sorted(devs["cpu"]), sorted(devs["card"]),
+             CONVNET_REQUESTS, err, PORTABLE_TOL["rtol"],
+             PORTABLE_TOL["atol"]))
+    if devs["cpu"] != {"cuda:0"} or devs["card"] != {"cuda:0"}:
+        fail("serve: a loaded program names another device: %s" % devs)
+    if not np.allclose(outs["cpu"], outs["card"], **PORTABLE_TOL):
+        fail("serve: the CPU export's answers differ from the card's by %g"
+             % err)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lm_serving_net(mx):
+    """Phase 10's LM (GPT-2-small width, Xavier from seed 0 on gpu(0)),
+    not hybridized, and the in-process callable over it: tokens (B, S)
+    -> per position (max logit, argmax)."""
+    cfg = dict(vocab=GPT2_SMALL["vocab"], layers=GPT2_SMALL["n_layers"],
+               heads=GPT2_SMALL["n_heads"],
+               units=GPT2_SMALL["n_heads"] * GPT2_SMALL["head_dim"],
+               d_ff=GPT2_SMALL["d_ff"], max_len=GPT2_SMALL["max_len"])
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    net = gluon_lm(mx)(**cfg)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((1, 16), ctx=ctx),
+            mx.nd.array(np.arange(16, dtype=np.float32), ctx=ctx))
+    NDArray = mx.nd.NDArray
+
+    def lm(tokens):
+        pos = torch.arange(tokens.shape[1], dtype=torch.float32,
+                           device=tokens.device)
+        logits = net(NDArray(tokens), NDArray(pos))._data
+        top = logits.max(-1)
+        return top.values, top.indices
+    return net, lm, cfg
+
+
+def lm_alone(net, mx, tokens):
+    """The model alone on one request: (max logit, argmax, top-2
+    margin) per position."""
+    ctx = mx.gpu(0)
+    with torch.inference_mode():
+        logits = net(mx.nd.array(tokens[None], ctx=ctx),
+                     mx.nd.array(np.arange(len(tokens), dtype=np.float32),
+                                 ctx=ctx))._data[0]
+        top = torch.topk(logits, 2, dim=-1).values
+        return (logits.max(-1).values.cpu().numpy(),
+                logits.argmax(-1).cpu().numpy(),
+                (top[:, 0] - top[:, 1]).cpu().numpy())
+
+
+def serve_lm(mx, card, tfa):
+    """(c): the LM as an in-process callable on the server's bucket
+    graphs; the flash kernel inside them."""
+    from mxnet_tpu_torch import compile_watch, serving
+    from mxnet_tpu_torch.base import MXNetError
+    net, lm, cfg = lm_serving_net(mx)
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    compile_watch.enable()
+    srv = serving.InferenceServer(lm, ladder=LM_SERVE_LADDER,
+                                  seq_ladder=LM_SERVE_SEQ, max_queue=64,
+                                  batch_window_ms=2.0, name="lm")
+    t0 = time.perf_counter()
+    n = srv.warmup(np.zeros(LM_SERVE_SEQ[-1], np.float32))
+    warm_s = time.perf_counter() - t0
+    warm = compile_watch.site_stats("serving:lm")
+    graphs = program_graphs(srv)
+    if n != 8 or len(warm) != 8 or any(s["count"] != 1
+                                       for s in warm.values()):
+        fail("serve: the LM's warmup readied %d programs, sites %s"
+             % (n, warm))
+    held = {k: g._entries[next(iter(g._entries))].launches
+            for k, g in graphs.items()}
+    rs = np.random.RandomState(2)
+    lengths = rs.randint(LM_SERVE_LENGTHS[0], LM_SERVE_LENGTHS[1] + 1,
+                         LM_SERVE_REQUESTS)
+    samples = [rs.randint(0, cfg["vocab"], L).astype(np.float32)
+               for L in lengths]
+    replays0 = sum(g.replays for g in graphs.values())
+    tfa.reset_launches()                      # the main path starts here
+    futs, wall = serve_traffic(srv, samples, 4)
+    launches = dict(tfa.launches)             # ... and ends here
+    st = srv.stats()
+    srv.stop()
+    traffic_replays = sum(g.replays for g in graphs.values()) - replays0
+    after = compile_watch.site_stats("serving:lm")
+    per_replay = {k: v.get("flash_fwd", 0) for k, v in held.items()}
+    if launches["flash_fwd"] != GPT2_SMALL["n_layers"] * traffic_replays \
+            or any(v != GPT2_SMALL["n_layers"] for v in per_replay.values()) \
+            or any(v for k, v in launches.items() if k != "flash_fwd") \
+            or after != warm or st["completed"] != LM_SERVE_REQUESTS:
+        fail("serve: the LM's launches %s over %d replays (held %s), "
+             "sites %s, stats %s" % (launches, traffic_replays, per_replay,
+                                     after, st))
+    worst, ties = 0.0, 0
+    for L, tokens, f in zip(lengths, samples, futs):
+        got_max, got_arg = f.result()
+        want_max, want_arg, margin = lm_alone(net, mx, tokens)
+        err = float(np.max(np.abs(got_max[:L] - want_max)))
+        worst = max(worst, err)
+        if not np.allclose(got_max[:L], want_max, **LM_SERVE_TOL):
+            fail("serve: the LM's reply of %d tokens differs from the model "
+                 "alone by %g" % (L, err))
+        off = got_arg[:L] != want_arg
+        ties += int(off.sum())
+        if (off & (margin > TIE_MARGIN)).any():
+            fail("serve: the LM's argmax differs off a tie (%d positions)"
+                 % int((off & (margin > TIE_MARGIN)).sum()))
+    print("  (c) phase 10's LM (%.1fM parameters, not hybridized) as an "
+          "in-process callable, ladder %s x seq %s: %d programs captured in "
+          "%.2f s (capture ms %s); %d requests of %d-%d tokens in %.3f s: "
+          "%.2f requests/s, latency ms p50 %.1f p99 %.1f, batches %s; "
+          "flash_fwd launches %d = %d per replay x %d replays (held by each "
+          "graph: %s); max logit max abs err %.3g vs the model alone "
+          "(rtol %g, atol %g), argmax equal but %d tied positions (%s)"
+          % (n_params / 1e6, LM_SERVE_LADDER, LM_SERVE_SEQ, n, warm_s,
+             {k: round(v["total_s"] * 1e3, 1) for k, v in warm.items()},
+             LM_SERVE_REQUESTS, LM_SERVE_LENGTHS[0], LM_SERVE_LENGTHS[1],
+             wall, LM_SERVE_REQUESTS / wall, st["latency_ms"]["p50"],
+             st["latency_ms"]["p99"], st["buckets"], launches["flash_fwd"],
+             GPT2_SMALL["n_layers"], traffic_replays,
+             sorted(set(per_replay.values())), worst,
+             LM_SERVE_TOL["rtol"], LM_SERVE_TOL["atol"], ties, card))
+    # a hybridized block inside a bucket's graph runs its plan there: its
+    # own CachedOp captures nothing
+    net.hybridize()
+    L = int(lengths[0])
+    with serving.InferenceServer(lm, ladder=[1], seq_ladder=[LM_SERVE_SEQ[0]
+                                 if L <= LM_SERVE_SEQ[0]
+                                 else LM_SERVE_SEQ[-1]],
+                                 name="lm-hybridized") as hsrv:
+        hsrv.warmup(np.zeros(L, np.float32))
+        got_max, _ = hsrv.predict(samples[0], timeout=120)
+    cop = net._cached_op.stats()
+    want_max = futs[0].result()[0][:L]
+    herr = float(np.max(np.abs(got_max[:L] - want_max)))
+    if cop["captures"] != 0 or not np.allclose(got_max[:L], want_max,
+                                               **LM_SERVE_TOL):
+        fail("serve: the hybridized LM in a bucket graph: CachedOp %s, "
+             "err %g" % (cop, herr))
+    print("  (c) the LM hybridized, inside the server's bucket graph: its "
+          "CachedOp captured %d graphs (its plan ran inside the bucket's), "
+          "reply within %.3g of the unhybridized one" % (cop["captures"],
+                                                         herr))
+    try:
+        mx.deploy.export_compiled(net, "/dev/null",
+                                  input_shapes={"data0": (1, 256),
+                                                "data1": (256,)})
+        fail("serve: export_compiled took the LM with flash attention")
+    except MXNetError as exc:
+        if "_contrib_flash_attention" not in str(exc):
+            fail("serve: the LM's export refusal does not name the op: %s"
+                 % exc)
+        print("  (c) deploy.export_compiled of the LM on the card raises: "
+              "%s" % str(exc)[:110])
+    compile_watch.disable()
+    del srv, net, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def module_flops(sym, batch, image):
+    """(forward flops, the first convolution's): 2 x the multiply-adds of
+    every Convolution and FullyConnected node; the first convolution
+    reads the data, whose gradient no one asks for."""
+    internals = sym.get_internals()
+    _, shapes, _ = internals.infer_shape(data=(batch, 3, image, image),
+                                         softmax_label=(batch,))
+    shape_of = dict(zip(internals.list_outputs(), shapes))
+    total, first = 0, None
+    for node in sym._topo_nodes():
+        if node.op is not None and node.op.name in ("Convolution",
+                                                    "FullyConnected"):
+            out = shape_of[node.name + "_output"]
+            w = shape_of[node.inputs[1][0].name]
+            f = 2 * int(np.prod(out)) * int(np.prod(w[1:]))
+            total += f
+            if first is None and node.op.name == "Convolution":
+                first = f
+    return total, first
+
+
+def watch_module(mx, card):
+    """(d): phase 14's Module.fit (ResNet-50 v1, batch 32, 224x224, 1000
+    classes) for WATCH_STEPS steps with MXNET_COMPILE_WATCH=1."""
+    from mxnet_tpu_torch import compile_watch, telemetry
+    batch, image, classes = MODULE_BENCH
+    rs = np.random.RandomState(70)
+    x = rs.randn(WATCH_STEPS * batch, 3, image, image).astype(np.float32)
+    y = rs.randint(0, classes, WATCH_STEPS * batch).astype(np.float32)
+    compile_watch.disable()
+    with env_set("MXNET_COMPILE_WATCH", "1"):
+        telemetry.start(run_id="compile-watch")
+        mx.random.seed(0)
+        sym = module_resnet(mx, classes)
+        mod = mx.mod.Module(sym)
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=batch), num_epoch=1,
+                optimizer="sgd", optimizer_params=MODULE_SGD,
+                initializer=mx.init.Xavier())
+        summary = telemetry.stop()
+    records = telemetry._last_run.records
+    steps = [r for r in records if r.get("type") == "step"]
+    utils = {r["seq"]: r for r in records if r.get("type") == "utilization"}
+    prog = compile_watch.stats()["programs"].get("fused_step:module", {})
+    fwd, first = module_flops(sym, batch, image)
+    hand = 3 * fwd - first
+    last = steps[-1]
+    util = utils.get(last["seq"], {})
+    flops = util.get("flops", 0.0)
+    peak = compile_watch.peak_table()[0] \
+        * compile_watch.dtype_peak_factor("float32")
+    want_mfu = flops / (last["dur_ms"] / 1e3 * peak)
+    print("  (d) Module.fit under MXNET_COMPILE_WATCH=1, %d steps: site "
+          "fused_step:module %d compile(s) in %.1f ms, fused_step_compile_ms "
+          "%.1f; flops of one step %.6g (torch's flop counter) vs the hand "
+          "count %.6g (3 x forward %.6g - the first conv's %.6g: no data "
+          "gradient), rel diff %.2g (bound %g); step %d: %.3f ms, MFU %.4g "
+          "against %.4g TFLOP/s fp32 (TF32 off) = flops / (step s x peak) "
+          "%.4g; bytes %.4g, bandwidth use %.4g (%s)"
+          % (len(steps), prog.get("count", 0), prog.get("total_s", 0) * 1e3,
+             summary.get("counters", {}).get("fused_step_compile_ms", 0.0),
+             flops, hand, fwd, first, abs(flops - hand) / hand,
+             WATCH_FLOPS_REL, last["seq"], last["dur_ms"],
+             util.get("mfu", float("nan")), peak / 1e12, want_mfu,
+             util.get("bytes", 0.0), util.get("bw_util", float("nan")),
+             card))
+    if len(steps) != WATCH_STEPS or prog.get("count") != 1 or \
+            not summary.get("counters", {}).get("fused_step_compile_ms"):
+        fail("compile watch: %d steps, fused_step:module %s, counters %s"
+             % (len(steps), prog, summary.get("counters")))
+    if abs(flops - hand) > WATCH_FLOPS_REL * hand:
+        fail("compile watch: a step's flops %g vs the hand count %g"
+             % (flops, hand))
+    if abs(util.get("mfu", 0.0) - want_mfu) > WATCH_MFU_REL * want_mfu:
+        fail("compile watch: MFU %s vs %g" % (util.get("mfu"), want_mfu))
+    compile_watch.disable()
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(mfu=util.get("mfu"), flops=flops, hand=hand)
+
+
+def phase_serve(card, tfa, resnet_readings):
+    """The twenty-second slice's main path: deploy artifacts through
+    torch.export and the continuous-batching InferenceServer on CUDA
+    graphs, (a)-(d) as the module docstring sets out; fp32, TF32 off.
+    Returns (c)'s launches."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tfa.reset_launches()
+    serve_resnet(mx, card, resnet_readings["bench"]["hybridized"]["ms"])
+    serve_portable(mx, card)
+    if any(tfa.launches.values()):
+        fail("serve: the convnet paths launched attention kernels: %s"
+             % tfa.launches)
+    launches = serve_lm(mx, card, tfa)
+    tfa.reset_launches()
+    watch_module(mx, card)
+    if any(tfa.launches.values()):
+        fail("serve: the Module path launched attention kernels: %s"
+             % tfa.launches)
+    print("  attention kernel launches: none in (a), (b) and (d) (zeroed, "
+          "read 0); (c) %s; serve phase %.1f s"
+          % (launches, time.perf_counter() - t_phase))
+    return launches
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -10737,6 +11390,9 @@ def main():
     print("mesh axes (sp and tp in the trainer, the dryrun over pp, ep, tp, "
           "sp and dp):")
     axes = phase_mesh_axes(card, tfa, mesh)
+    print("serve (deploy artifacts through torch.export, the "
+          "InferenceServer on CUDA graphs, the compile watch):")
+    serve_launches = phase_serve(card, tfa, resnet_readings)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -10780,7 +11436,9 @@ def main():
                    FWD_TPU if kname == "flash_fwd" else BWD_TPU[kname],
                    "mesh dp x tp (rank 0)", MESH_DP_SHAPE, axes["tp_launches"],
                    mesh["kern"]["dp"][kname], mesh["kern"]["dp"][kname]["err"])
-        for kname in TRAIN_KERNELS]
+        for kname in TRAIN_KERNELS] + [
+        kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "serving (InferenceServer)",
+                   train_shape, serve_launches, train_fwd, train_fwd["err"])]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))
@@ -10799,4 +11457,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["mesh4-rank"]:
         sys.exit(mesh4_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["export-convnet"]:
+        sys.exit(export_convnet_main(sys.argv[2]))
     sys.exit(main())

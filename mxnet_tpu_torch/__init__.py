@@ -141,6 +141,7 @@ from . import tracing
 from . import telemetry
 from . import livemetrics
 from . import flightrec
+from . import compile_watch
 from . import amp
 from . import fused_step
 from . import module
@@ -149,6 +150,7 @@ from .module import Module
 from . import rnn
 from . import bucketing
 from . import serving
+from . import deploy
 from . import parallel
 from . import kvstore as kvstore_module
 from .kvstore import KVStore

@@ -32,15 +32,26 @@ draws nothing there unless ``mode="always"``). Such a plan runs op by op
 on the card too, and :meth:`CachedOp.stats` counts each such call
 (``eager_rng``): a graph would replay one frozen mask.
 
+Each graph holder reports to :mod:`~mxnet_tpu_torch.compile_watch`
+under its site (``op:_cachedopN.<head>`` here): a capture on the card,
+or the first call of a signature on the CPU, is one recorded compile
+while the watch is on.
+
+A plan that runs inside another program's body (an
+``InferenceServer`` bucket over an in-process callable holding a
+hybridized block) runs op by op there: its ops are captured by the outer
+graph, and a capture of its own would nest inside the outer one.
+
 The JAX CachedOp's graph token for the persistent compile cache has no
 counterpart here until ``compile_cache.py`` is ported (ROADMAP queue A
-item 11).
+step 7).
 """
 from __future__ import annotations
 
 import gc
 import itertools
 import threading
+import time
 
 import torch
 
@@ -55,6 +66,25 @@ _counter = itertools.count()
 # torch.cuda.graph syncs the device and empties the cache before it
 # captures: one capture at a time in the process
 _CAPTURE_LOCK = threading.Lock()
+
+# set on a thread while it runs a program's body (a capture's warm-up
+# and capture, or a CPU program's call): a graph holder reached from
+# there runs its body directly, inside the outer program
+_body = threading.local()
+
+
+def in_program():
+    """True while this thread runs the body of a graph holder's
+    program."""
+    return getattr(_body, "depth", 0) > 0
+
+
+class _InBody:
+    def __enter__(self):
+        _body.depth = getattr(_body, "depth", 0) + 1
+
+    def __exit__(self, *exc):
+        _body.depth -= 1
 
 
 def build_graph_callable(symbol):
@@ -157,18 +187,31 @@ def _cuda_capture(body, device, pool, generators=()):
 
 class _Entry:
     """One captured signature: its replay, output buffers, kernel
-    launches, the static buffers of its data inputs, and the storage of
-    the inputs it reads in place (kept alive with it)."""
+    launches, the static buffers of its data inputs, the storage of the
+    inputs it reads in place (kept alive with it), and its cost entry
+    in the compile watch (None while the watch is off)."""
 
-    __slots__ = ("replay", "outputs", "launches", "static", "bound", "held")
+    __slots__ = ("replay", "outputs", "launches", "static", "bound", "held",
+                 "cost")
 
-    def __init__(self, replay, outputs, launches, static, bound, held):
+    def __init__(self, replay, outputs, launches, static, bound, held,
+                 cost=None):
         self.replay = replay
         self.outputs = outputs
         self.launches = launches
         self.static = static
         self.bound = bound
         self.held = held
+        self.cost = cost
+
+
+def _replaced(names, old_bound, new_bound, data_indices, n):
+    """The names of the in-place inputs whose storage changed between
+    two bindings of one signature."""
+    kept = [i for i in range(n) if i not in data_indices]
+    return [str(names[i]) if names is not None and i < len(names)
+            else "arg%d" % i
+            for i, a, b in zip(kept, old_bound, new_bound) if a != b]
 
 
 class _Graphs:
@@ -182,11 +225,15 @@ class _Graphs:
         self._capture = capture
         self._pool = None
         self._entries = {}
+        self._eager = {}        # signature -> (bound, held, cost)
         self._lock = threading.Lock()
         self.captures = 0
         self.replays = 0
         self.recaptures = 0
         self.eager_rng = 0
+        # the compile watch's site (compile_watch.Site); None reports
+        # nothing
+        self.site = None
 
     def note_eager_rng(self):
         """Count one call the graphs could have served that ran op by op
@@ -198,29 +245,41 @@ class _Graphs:
         return bool(tensors) and all(t.device.type == self.device_type
                                      for t in tensors)
 
-    def run(self, body, tensors, data_indices):
-        """``body(feed)`` by graph replay; ``feed`` is ``tensors`` with
-        each data input replaced by its static buffer. Returns copies of
-        the outputs."""
-        from .parallel import flash_attention as fa
+    @staticmethod
+    def _key(tensors, data_indices):
         sig = tuple((tuple(t.shape), t.stride(), t.dtype, t.device)
                     for t in tensors)
         bound = tuple(t.data_ptr() for i, t in enumerate(tensors)
                       if i not in data_indices)
+        return sig, bound
+
+    def run(self, body, tensors, data_indices):
+        """``body(feed)`` by graph replay; ``feed`` is ``tensors`` with
+        each data input replaced by its static buffer. Returns copies of
+        the outputs. Inside another program's body (:func:`in_program`)
+        the body runs directly, its ops captured by the outer graph."""
+        from . import compile_watch
+        from .parallel import flash_attention as fa
+        if in_program():
+            return list(body(list(tensors)))
+        sig, bound = self._key(tensors, data_indices)
         entry = self._entries.get(sig)
         if entry is None or entry.bound != bound:
             entry = self._capture_entry(sig, body, tensors, data_indices,
-                                        bound, again=entry is not None)
+                                        bound, again=entry)
         for i, buf in zip(data_indices, entry.static):
             buf.copy_(tensors[i])
         entry.replay()
         fa.add_launches(entry.launches)
         with self._lock:
             self.replays += 1
+        if entry.cost is not None:
+            compile_watch.accrue(self.site, entry.cost)
         return [o.clone() for o in entry.outputs]
 
     def _capture_entry(self, sig, body, tensors, data_indices, bound,
                        again):
+        from . import compile_watch
         self._entries.pop(sig, None)        # its graph and pool blocks go
         static = [tensors[i].clone() for i in data_indices]
         feed = list(tensors)
@@ -229,16 +288,66 @@ class _Graphs:
         device = tensors[0].device
         if device.type == "cuda" and self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+
+        def call():
+            with _InBody():
+                return body(feed)
+        watched = self.site is not None and compile_watch.enabled()
+        cost = {}
+        if watched:
+            call, cost = compile_watch.counted(call)
         with _CAPTURE_LOCK:
-            replay, outputs, launches = self._capture(
-                lambda: body(feed), device, self._pool)
+            t0 = time.perf_counter()
+            replay, outputs, launches = self._capture(call, device,
+                                                      self._pool)
+            dur = time.perf_counter() - t0
         held = [t for i, t in enumerate(tensors) if i not in data_indices]
         entry = _Entry(replay, outputs, dict(launches), static, bound, held)
+        if watched:
+            replaced = () if again is None else _replaced(
+                self.site.names, again.bound, bound, data_indices,
+                len(tensors))
+            entry.cost = compile_watch.note_compile(
+                self.site, tensors, dur, cost, replaced)
         self._entries[sig] = entry
         with self._lock:
             self.captures += 1
-            self.recaptures += int(again)
+            self.recaptures += int(again is not None)
         return entry
+
+    def eager(self, body, tensors, data_indices=()):
+        """``body(tensors)`` called directly (off the card, or where the
+        caller runs op by op). While the watch is on, the first call of
+        a signature (with its in-place inputs' storage) is this site's
+        compile, timed and costed; later calls accrue its cost."""
+        from . import compile_watch
+        if self.site is None or not compile_watch.enabled():
+            with _InBody():
+                return body(tensors)
+        sig, bound = self._key(tensors, data_indices)
+        seen = self._eager.get(sig)
+        if seen is not None and seen[0] == bound \
+                and seen[2] is not None:
+            with _InBody():
+                out = body(tensors)
+            compile_watch.accrue(self.site, seen[2])
+            return out
+
+        def call():
+            with _InBody():
+                return body(tensors)
+        call, cost = compile_watch.counted(call)
+        t0 = time.perf_counter()
+        out = call()
+        dur = time.perf_counter() - t0
+        replaced = () if seen is None else _replaced(
+            self.site.names, seen[0], bound, data_indices, len(tensors))
+        entry = compile_watch.note_compile(self.site, tensors, dur, cost,
+                                           replaced)
+        held = [t for i, t in enumerate(tensors) if i not in data_indices]
+        self._eager[sig] = (bound, held, entry)
+        compile_watch.accrue(self.site, entry)
+        return out
 
     def stats(self):
         with self._lock:
@@ -283,6 +392,9 @@ class CachedOp:
             mutable_inputs=range(len(arg_names), self.num_inputs),
             description="CachedOp(%s)" % outs)
         self.graphs = _Graphs()
+        from .compile_watch import Site
+        self.graphs.site = Site("op:%s" % self._op.name,
+                                names=arg_names + aux_names)
 
     def __call__(self, *inputs):
         from . import autograd
@@ -293,12 +405,15 @@ class CachedOp:
                 % (self.num_inputs, len(self.arg_names),
                    len(self.aux_names), len(inputs)))
         tensors = [x._data for x in inputs]
-        if autograd.is_recording() or autograd.is_training() \
-                or not self.graphs.serves(tensors):
+        if autograd.is_recording() or autograd.is_training():
             return invoke_nd(self._op, list(inputs), {})
-        if self._predict_draws:
+        serves = self.graphs.serves(tensors)
+        if serves and self._predict_draws:
             self.graphs.note_eager_rng()
-            return invoke_nd(self._op, list(inputs), {})
+        if not serves or self._predict_draws:
+            return self.graphs.eager(
+                lambda _t: invoke_nd(self._op, list(inputs), {}), tensors,
+                self._data_indices)
         outs = [NDArray(o) for o in self.graphs.run(
             self._graph_body, tensors, self._data_indices)]
         return outs[0] if len(outs) == 1 else outs

@@ -47,9 +47,9 @@ class Speedometer:
     """Logs samples/sec and the metric every ``frequent`` batches
     (reference: callback.py:129). With a telemetry run active the speed
     comes from the run's step records (``telemetry.recent_rate``), so the
-    log and the run's report agree; otherwise from a wall clock. (The
-    JAX package's MFU column needs the compile watch, ROADMAP queue A
-    item 11.)"""
+    log and the run's report agree; otherwise from a wall clock. With
+    the compile watch on and utilization records in the window, an
+    ``MFU`` column follows the speed (``compile_watch.recent_mfu``)."""
 
     def __init__(self, batch_size, frequent=50, auto_reset=True):
         self.batch_size = batch_size
@@ -70,6 +70,15 @@ class Speedometer:
         except ZeroDivisionError:
             return float("inf")
 
+    def _mfu(self):
+        """Mean MFU over the logging window when the compile watch has
+        utilization records for this run; None (no output change)
+        otherwise."""
+        from . import compile_watch
+        if not compile_watch.enabled():
+            return None
+        return compile_watch.recent_mfu(self.frequent)
+
     def __call__(self, param):
         count = param.nbatch
         if self.last_count > count:
@@ -82,17 +91,20 @@ class Speedometer:
         if count % self.frequent != 0:
             return
         speed = self._speed()
+        mfu = self._mfu()
+        mfu_part = () if mfu is None else (100.0 * mfu,)
+        mfu_fmt = "" if mfu is None else "\tMFU: %.2f%%"
         if param.eval_metric is not None:
             name_value = param.eval_metric.get_name_value()
             if self.auto_reset:
                 param.eval_metric.reset()
             logging.info("Epoch[%d] Batch [%d-%d]\tSpeed: %.2f samples/sec"
-                         + "\t%s=%f" * len(name_value), param.epoch,
-                         count - self.frequent, count, speed,
-                         *sum(name_value, ()))
+                         + mfu_fmt + "\t%s=%f" * len(name_value),
+                         param.epoch, count - self.frequent, count, speed,
+                         *mfu_part, *sum(name_value, ()))
         else:
-            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
-                         param.epoch, count, speed)
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec"
+                         + mfu_fmt, param.epoch, count, speed, *mfu_part)
         self.tic = time.time()
 
 

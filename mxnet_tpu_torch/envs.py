@@ -143,7 +143,27 @@ declare("MXNET_UPDATE_ON_KVSTORE", "bool", None,
         "Run optimizer updates on the kvstore instead of the worker "
         "(default depends on the kvstore type).", _G)
 
+_G = "compile"
+declare("MXNET_COMPILE_WATCH", "bool", False,
+        "Watch every program site: per-capture timing, recompile "
+        "causes, storms, MFU.", _G)
+declare("MXNET_COMPILE_STORM_K", "int", 3,
+        "Compiles of one program within the storm window that fire "
+        "the recompile-storm warning.", _G)
+declare("MXNET_COMPILE_STORM_STEPS", "int", 50,
+        "The recompile-storm window, in telemetry steps (watched "
+        "dispatches without a run).", _G)
+declare("MXNET_DEVICE_PEAK_FLOPS", "float", 0.0,
+        "Per-device peak FLOP/s for MFU math (0 = use the built-in "
+        "peak table).", _G)
+declare("MXNET_DEVICE_PEAK_BW", "float", 0.0,
+        "Per-device peak memory bandwidth bytes/s for BW-utilization "
+        "math (0 = built-in table).", _G)
+
 _G = "serving"
+declare("MXNET_SERVING_MAX_OUTSTANDING", "int", 2,
+        "Per-replica outstanding-dispatch bound (admission "
+        "backpressure).", _G)
 declare("MXNET_SERVING_RECORD_EVERY", "int", 50,
         "Batches between serving telemetry records.", _G)
 declare("MXNET_SERVING_LATENCY_RING", "int", 8192,

@@ -47,7 +47,10 @@ A bind over a context list whose contexts resolve to one torch device
 (``[cpu(0), cpu(1)]`` on the host, ``[gpu(0), gpu(0)]`` on the card) is
 one executor over the whole batch, as the JAX package's mesh program
 computes; contexts on distinct devices raise (the mesh, ROADMAP queue A
-item 12, order step 6). Not ported: the compile-cache token (item 11).
+item 12, order step 6). The predict program reports to the compile
+watch under ``executor:fwd:eval`` (``bucketing:<shape>`` for a bucket of
+a shape ladder); the train programs, op by op, have no site. Not ported:
+the compile-cache token (ROADMAP queue A step 7).
 """
 from __future__ import annotations
 
@@ -134,6 +137,7 @@ class Executor:
         from .cached_op import _Graphs
         from . import placement
         self.graphs = _Graphs()
+        self._cw_bucket = None      # a bucket of a shape ladder: its site
         self._grouped_runs = 0
         self._op_ctxs = placement.op_contexts(self._plan_nodes, group2ctx,
                                               self._ctx)
@@ -336,22 +340,39 @@ class Executor:
         args, aux = self._values()
         run = self._make_graph_fn(False)
         tensors = args + aux
-        serves = self.graphs.serves(tensors)
         if self._op_devices is not None:
             self._grouped_runs += 1
-        elif serves and self._predict_draws:
-            self.graphs.note_eager_rng()
-        elif serves:
-            n_args = len(args)
-            data = tuple(i for i, n in enumerate(self.arg_names)
-                         if n in self._batch_args)
+            with torch.no_grad():
+                return run(args, aux)[0]
+        if self.graphs.site is None:
+            self.graphs.site = self._cw_site()
+        n_args = len(args)
+        data = tuple(i for i, n in enumerate(self.arg_names)
+                     if n in self._batch_args)
 
-            def body(feed):
-                with torch.no_grad():
-                    return run(feed[:n_args], feed[n_args:])[0]
+        def body(feed):
+            with torch.no_grad():
+                return run(feed[:n_args], feed[n_args:])[0]
+        serves = self.graphs.serves(tensors)
+        if serves and not self._predict_draws:
             return tuple(self.graphs.run(body, tensors, data))
-        with torch.no_grad():
-            return run(args, aux)[0]
+        if serves:
+            self.graphs.note_eager_rng()
+        return tuple(self.graphs.eager(body, tensors, data))
+
+    def _cw_site(self):
+        """The predict program's compile-watch site: ``executor:fwd:
+        eval``, or the bucket's own ``bucketing:<shape>`` for one bucket
+        of a shape ladder; arguments named as the symbol names them."""
+        from .compile_watch import Site
+        names = list(self.arg_names) + ["aux:%s" % n
+                                        for n in self.aux_names]
+        if self._cw_bucket is None:
+            return Site("executor:fwd:eval", names=names)
+        from .bucketing.ladder import bucket_site
+        return Site(bucket_site(self._cw_bucket),
+                    statics=("bucket", "fwd", False, self._cw_bucket),
+                    names=names)
 
     def _forward_tape(self, args, aux, is_train):
         """One forward under torch autograd over the grad-carrying

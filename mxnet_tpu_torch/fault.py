@@ -16,7 +16,11 @@ Sites of the port:
 - ``ckpt_write`` / ``ckpt_fsync`` — before each checkpoint file write
   and before its fsync (``checkpoint.atomic_write_file``), so a planned
   fault aborts or stalls a save at an exact file boundary;
-- ``serve_admit`` — once per ``DecodeServer.submit``;
+- ``serve_admit`` — once per ``DecodeServer.submit`` and per
+  admitted ``InferenceServer.submit``;
+- ``serve_dispatch`` — once per ``InferenceServer`` batcher pass; a
+  planned hang stalls dispatch so queued requests age past their
+  deadlines, a raise fails that pass and is counted;
 - ``serve_decode`` — once per decode step; a planned hang stalls token
   production so a streaming request ages past its deadline;
 - ``kv_evict`` — once per KV page reclaim; a planned raise is counted
@@ -83,7 +87,8 @@ __all__ = ["FaultPlan", "InjectedFault", "InjectedHang",
 
 _ACTIONS = ("raise", "hang", "stall", "nan", "inf")
 _SITES = ("push", "pull", "init", "grad", "ckpt_write", "ckpt_fsync",
-          "serve_admit", "serve_decode", "serve_route", "kv_evict",
+          "serve_admit", "serve_dispatch", "serve_decode",
+          "serve_route", "kv_evict",
           "kv_share", "kv_cow", "replica_lost", "proc_join", "flightrec")
 # corruption needs a value to corrupt: only the grad site carries one
 _VALUE_SITES = ("grad",)

@@ -10,9 +10,9 @@ JSON bundle per trigger under ``MXNET_FLIGHTREC_DIR``: the triggering
 alert, the last K telemetry records (a shadow ring — the run's own
 records leave memory at every sink flush), the trace-ring tail,
 ``envs.snapshot()``, each live decode server's program-set counters
-(``compile_sites``: captures, replays and recaptures per site from
-``stats()["graphs"]``, the counterpart of the JAX package's
-``compile_watch.site_stats()``), the latest decode/router snapshots,
+(``compile_sites``: ``compile_watch.site_stats()`` while the watch is
+on; else the decode servers' captures, replays and recaptures per site
+from ``stats()["graphs"]``), the latest decode/router snapshots,
 the meter's books, and the fleet topology.
 
 - **Always cheap when off** — arming installs two module-global hooks
@@ -205,11 +205,15 @@ def _versions():
 
 
 def _program_sites():
-    """Each live decode server's fixed-program-set counters, keyed by
-    its /metrics label: ``{site: {"captures", "replays"}}`` plus the
-    server's ``recaptures`` (None for a server running eagerly on the
-    CPU)."""
-    from . import livemetrics
+    """``compile_watch.site_stats()`` while the compile watch is on (the
+    JAX bundle's ``compile_sites``); otherwise each live decode server's
+    fixed-program-set counters, keyed by its /metrics label: ``{site:
+    {"captures", "replays"}}`` plus the server's ``recaptures`` (None for
+    a server running eagerly on the CPU)."""
+    from . import compile_watch, livemetrics
+    sites = compile_watch.site_stats()
+    if sites is not None:
+        return sites
     out = {}
     for srv in list(livemetrics._decode_servers):
         g = srv.stats()["graphs"]

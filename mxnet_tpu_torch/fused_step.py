@@ -27,6 +27,13 @@ loop. Off the card (a CPU bind) the same body runs directly, step by
 step; the tests drive the graph bookkeeping on the CPU through a
 stand-in capture (``set_graph_factory``).
 
+Each graph holder reports to the compile watch under
+``fused_step:module`` (``bucketing:<shape>`` for a bucket of a shape
+ladder) or ``fused_step:trainer``, its compile milliseconds mirrored
+into ``profiler.counters()['fused_step_compile_ms']``. The JAX package's
+``fused_step:trainer_sync`` / ``fused_step:fsdp`` have no counterpart:
+the port's ``DistributedTrainer`` updates eagerly.
+
 Capture: the snapshot of every tensor the body writes (weights, states,
 the moving statistics) is taken before the capture and put back after
 it, so the capture's eager warm-up call changes nothing and each step
@@ -259,10 +266,11 @@ class _FusedCore:
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
 
-    def _holder(self, key, generators=()):
+    def _holder(self, key, generators=(), site=None):
         graphs = self._graphs.get(key)
         if graphs is None:
             graphs = _graph_factory()
+            graphs.site = site
             base = graphs._capture
             if generators and graphs.device_type == "cuda":
                 base = functools.partial(base, generators=tuple(generators))
@@ -271,18 +279,20 @@ class _FusedCore:
             self._trace_count += 1
         return graphs
 
-    def _run(self, key, body, tensors, mutated, generators=()):
+    def _run(self, key, body, tensors, mutated, generators=(),
+             site=None):
         """``body(feed)`` by graph replay where the holder serves the
         tensors (the first two, the scalar and poison blocks, staged),
-        directly otherwise. Returns the body's outputs."""
-        graphs = self._holder(key, generators)
+        directly otherwise. Returns the body's outputs. ``site`` (a
+        ``compile_watch.Site``) is what the holder reports under."""
+        graphs = self._holder(key, generators, site)
         if graphs.serves(tensors):
             self._mutated = mutated
             try:
                 return graphs.run(body, tensors, (0, 1))
             finally:
                 self._mutated = []
-        return body(tensors)
+        return graphs.eager(body, tensors, (0, 1))
 
     def stats(self):
         """The fused graphs' counters, summed over their signatures:
@@ -399,11 +409,29 @@ class FusedStepExecutor(_FusedCore):
         mutated = [args[p] for p in gpos] + aux + states
         with telemetry.span("optimizer"):
             res = self._run(key, body, tensors, mutated,
-                            ex.rng_generators())
+                            ex.rng_generators(), self._site(key, ex))
         n_out = len(ex.output_names)
         ex._store_outputs(res[:n_out])
         self._post_step(self._indices, res[n_out] if guard else None)
         return ex.outputs
+
+
+    @staticmethod
+    def _site(key, ex):
+        """The compile-watch site of one static configuration:
+        ``fused_step:module``, or the bucket's own ``bucketing:<shape>``
+        for one bucket of a shape ladder (a bucket switch is never
+        storm-flagged as churn)."""
+        from .compile_watch import Site
+        names = ["scalars", "poisons"] + list(ex.arg_names) \
+            + ["aux:%s" % n for n in ex.aux_names]
+        bucket = getattr(ex, "_cw_bucket", None)
+        if bucket is None:
+            return Site("fused_step:module", statics=key, names=names,
+                        counter="fused_step_compile_ms")
+        from .bucketing.ladder import bucket_site
+        return Site(bucket_site(bucket), statics=key + ("fused", bucket),
+                    names=names, counter="fused_step_compile_ms")
 
 
 class FusedUpdater(_FusedCore):
@@ -446,6 +474,12 @@ class FusedUpdater(_FusedCore):
             return [mask] if mask is not None else []
 
         # the Trainer's own "optimizer" span holds this update
-        res = self._run(key, body, tensors, weights + states)
+        from .compile_watch import Site
+        site = Site("fused_step:trainer", statics=key,
+                    names=["scalars", "poisons"]
+                    + ["grad%d" % i for i in indices]
+                    + ["param%d" % i for i in indices],
+                    counter="fused_step_compile_ms")
+        res = self._run(key, body, tensors, weights + states, site=site)
         self._post_step(indices, res[0] if guard else None)
         return True

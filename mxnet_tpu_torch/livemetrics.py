@@ -7,7 +7,8 @@ observability stack.
   server (``http.server``) answering ``GET /metrics`` with Prometheus
   text exposition (format 0.0.4) rendered on demand from
   ``telemetry.report()``, ``profiler.counters()``, every live
-  ``serving.DecodeServer`` and ``serving.Router`` (registered by
+  ``serving.InferenceServer``, ``serving.DecodeServer`` and
+  ``serving.Router`` (registered by
   weakref; a stopped one drops out) and the process meter. Rendering
   reads host state only — each server's ``stats()`` — and never
   touches a device, so a scrape is safe while a server captures or
@@ -17,10 +18,10 @@ observability stack.
   construction) starts it from the environment; port 0 asks the OS for
   an ephemeral port (tests).
 
-- **SLO watchdog** — :class:`Watchdog` observes the step records
-  flowing through telemetry (the ``_watch_step`` hook, one ``None``
-  check when off) and cumulative serving snapshots handed to
-  :meth:`Watchdog.on_serving`, and raises structured ``alert``
+- **SLO watchdog** — :class:`Watchdog` observes the step records and
+  the InferenceServer's cumulative serving snapshots flowing through
+  telemetry (the ``_watch_step``/``_watch_serving`` hooks, one ``None``
+  check each when off), and raises structured ``alert``
   telemetry records plus a one-time warning per alert kind on:
   sustained step-time p50 drift against a rolling baseline, serving
   shed-rate breach, queue depth pinned at the bound, and per-replica
@@ -28,14 +29,14 @@ observability stack.
 
 The series names and labels are the JAX package's; the identity gauge
 labels the process with ``torch`` and ``cuda`` versions in place of
-``jax`` and ``jaxlib``. The InferenceServer's ``mxnet_serving_*``
-families arrive with it (``ROADMAP.md`` queue A item 11).
+``jax`` and ``jaxlib``.
 
 Both pieces are off by default and cost nothing when off: without
 :func:`serve` no thread, socket, or render ever exists.
 """
 from __future__ import annotations
 
+import bisect
 import itertools
 import threading
 import warnings
@@ -45,11 +46,18 @@ from collections import deque
 from . import envs
 
 __all__ = ["serve", "stop_server", "server_port", "render",
+           "register_server", "deregister_server",
            "register_decode_server", "deregister_decode_server",
            "register_router", "deregister_router", "Watchdog",
            "enable_watchdog", "disable_watchdog", "watchdog_enabled",
-           "maybe_start"]
+           "maybe_start", "LATENCY_BUCKETS_MS"]
 
+# histogram bucket upper bounds (ms) for the recent-window serving
+# latency histogram — roughly log-spaced over sub-ms..seconds
+LATENCY_BUCKETS_MS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                      500.0, 1000.0, 2500.0, 5000.0)
+
+_servers = weakref.WeakSet()      # live InferenceServers
 _decode_servers = weakref.WeakSet()   # live DecodeServers
 _routers = weakref.WeakSet()      # live serving Routers
 _http = None                      # (HTTPServer, thread)
@@ -67,6 +75,24 @@ def _assign_label_locked(server, pool):
     if label in taken:
         label = "%s-%d" % (label, next(_label_seq))
     server._metrics_label = label
+
+
+def register_server(server):
+    """Track one live ``serving.InferenceServer`` for the scrape
+    (weakref — a collected server drops out). Called from the server
+    constructor. Each server gets a UNIQUE ``server=`` label: a second
+    unnamed (or same-named) server is suffixed ``-2``, ``-3``, ... —
+    duplicate label sets would make Prometheus reject the scrape."""
+    with _register_lock:
+        _assign_label_locked(server, _servers)
+        _servers.add(server)
+
+
+def deregister_server(server):
+    """Drop a server from the scrape (called by
+    ``InferenceServer.stop``); its label becomes reusable."""
+    with _register_lock:
+        _servers.discard(server)
 
 
 def register_decode_server(server):
@@ -484,6 +510,70 @@ def _render_identity(page):
                    "versions)")
 
 
+def _render_serving(page):
+    for srv in list(_servers):
+        try:
+            st = srv.stats()
+            lats = srv.latency_snapshot()
+        except Exception:
+            continue                       # mid-shutdown server
+        lab = {"server": getattr(srv, "_metrics_label", None)
+               or "default"}
+        page.add("mxnet_serving_requests_total", st["requests"],
+                 labels=lab, kind="counter",
+                 help_="requests submitted (admission attempts)")
+        page.add("mxnet_serving_completed_total", st["completed"],
+                 labels=lab, kind="counter")
+        page.add("mxnet_serving_shed_total", st["shed"], labels=lab,
+                 kind="counter",
+                 help_="requests shed at the bounded admission queue")
+        page.add("mxnet_serving_timeouts_total", st["timeouts"],
+                 labels=lab, kind="counter")
+        page.add("mxnet_serving_errors_total", st["errors"],
+                 labels=lab, kind="counter")
+        page.add("mxnet_serving_batches_total", st["batches"],
+                 labels=lab, kind="counter")
+        page.add("mxnet_serving_queue_depth", st["queue_depth"],
+                 labels=lab,
+                 help_="admission queue depth now (bound: max_queue)")
+        page.add("mxnet_serving_queue_peak", st["queue_peak"],
+                 labels=lab)
+        page.add("mxnet_serving_queue_bound", st["max_queue"],
+                 labels=lab)
+        page.add("mxnet_serving_occupancy_ratio", st.get("occupancy"),
+                 labels=lab,
+                 help_="mean filled share of dispatched bucket slots")
+        page.add("mxnet_serving_rps", st.get("rps"), labels=lab)
+        lat = st.get("latency_ms") or {}
+        for q in ("p50", "p90", "p99"):
+            page.add("mxnet_serving_latency_ms", lat.get(q),
+                     labels=dict(lab, quantile=q),
+                     help_="request latency over the recent ring")
+        for i, n in enumerate(st.get("replica_batches") or []):
+            page.add("mxnet_serving_replica_batches_total", n,
+                     labels=dict(lab, replica=str(i)), kind="counter")
+        for i, ms in enumerate(st.get("replica_service_ms") or []):
+            page.add("mxnet_serving_replica_service_ms", ms,
+                     labels=dict(lab, replica=str(i)),
+                     help_="mean batch service time per replica "
+                           "(straggler signal)")
+        # recent-window latency histogram (the ring, not all-time):
+        # cumulative le buckets per the Prometheus histogram contract
+        ms_vals = [v * 1e3 for v in lats]
+        bins = [0] * (len(LATENCY_BUCKETS_MS) + 1)
+        for v in ms_vals:
+            bins[bisect.bisect_left(LATENCY_BUCKETS_MS, v)] += 1
+        le_counts, cum = [], 0
+        for le, c in zip(LATENCY_BUCKETS_MS, bins):
+            cum += c
+            le_counts.append(("%g" % le, cum))
+        page.histogram(
+            "mxnet_serving_latency_recent_ms", le_counts,
+            round(sum(ms_vals), 3), len(ms_vals), labels=lab,
+            help_="request latency histogram over the recent "
+                  "latency ring")
+
+
 def render():
     """The whole ``/metrics`` page as Prometheus text exposition."""
     page = _Page()
@@ -491,6 +581,7 @@ def render():
     _render_identity(page)
     _render_training(page)
     _render_counters(page)
+    _render_serving(page)
     _render_decode(page)
     _render_router(page)
     _render_usage(page)
@@ -573,8 +664,9 @@ def stop_server():
 class Watchdog:
     """Rolling-baseline SLO detector. Observes step records (installed
     as telemetry's ``_watch_step`` hook) and cumulative serving
-    snapshots (:meth:`on_serving`; the InferenceServer's records feed
-    it once that server is ported) and emits one structured ``alert``
+    snapshots (:meth:`on_serving`, installed as telemetry's
+    ``_watch_serving`` hook: the InferenceServer's records feed it) and
+    emits one structured ``alert``
     telemetry record + one warning per alert kind:
 
     - ``step_time_drift`` — recent-window step-time p50 above
@@ -808,6 +900,7 @@ def enable_watchdog():
     wd = Watchdog()
     _watchdog = wd
     telemetry._watch_step = wd.on_step
+    telemetry._watch_serving = wd.on_serving
     return wd
 
 
@@ -815,6 +908,7 @@ def disable_watchdog():
     global _watchdog
     from . import telemetry
     telemetry._watch_step = None
+    telemetry._watch_serving = None
     _watchdog = None
 
 

@@ -164,13 +164,16 @@ class BucketingModule(BaseModule):
     # -- bind / switch -----------------------------------------------------
     def _new_module(self, bucket_key):
         symbol, data_names, label_names = self._sym_gen(bucket_key)
-        return Module(symbol, data_names, label_names, logger=self.logger,
-                      context=self._context,
-                      work_load_list=self._work_load_list,
-                      fixed_param_names=self._fixed_param_names,
-                      state_names=self._state_names,
-                      group2ctxs=self._group2ctxs,
-                      compression_params=self._compression_params)
+        module = Module(symbol, data_names, label_names, logger=self.logger,
+                        context=self._context,
+                        work_load_list=self._work_load_list,
+                        fixed_param_names=self._fixed_param_names,
+                        state_names=self._state_names,
+                        group2ctxs=self._group2ctxs,
+                        compression_params=self._compression_params)
+        # the bucket's programs report under its own compile-watch site
+        module._bucket_site = bucket_key
+        return module
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,

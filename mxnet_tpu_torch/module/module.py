@@ -106,6 +106,7 @@ class Module(BaseModule):
         self._update_on_kvstore = None
         self._preload_opt_states = None
         self._exec = None
+        self._bucket_site = None      # a BucketingModule's bucket key
         self._fused = None            # FusedStepExecutor | False | None
         self._pending_step = False
         self._pending_forward = False
@@ -300,6 +301,7 @@ class Module(BaseModule):
             self._symbol, self._context, args, grads, reqs, aux,
             batch_args=set(self._data_names) | set(self._label_names),
             group2ctx=g2c)
+        self._exec._cw_bucket = self._bucket_site
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             self.set_params(*shared_module.get_params())

@@ -50,7 +50,10 @@ Each wrapper counts its kernel launches in :data:`launches`. A CUDA
 graph capture enqueues kernels and runs none: inside
 :func:`recording_launches` the calling thread's counts go to the block's
 own dict instead, and a graph replay adds them back with
-:func:`add_launches`.
+:func:`add_launches`. Inside :func:`counting_work` each launch also adds
+its flops and bytes (the formulas of ``PERF.md`` §6's bound column) to
+the block's dict: the compile watch costs a program once that way, the
+kernels being invisible to torch's flop counter.
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_decode", "launches",
-           "reset_launches", "recording_launches", "add_launches"]
+           "reset_launches", "recording_launches", "add_launches",
+           "counting_work"]
 
 _NEG = -1e30
 
@@ -100,6 +104,39 @@ def recording_launches():
         yield counts
     finally:
         _held.counts = outer
+
+
+@contextlib.contextmanager
+def counting_work():
+    """Inside the block, this thread's kernel launches add their flops
+    and the bytes of their tensors (each input read once, each output
+    written once) into the yielded ``{"flops", "bytes"}`` dict."""
+    work = {"flops": 0.0, "bytes": 0.0}
+    outer = getattr(_held, "work", None)
+    _held.work = work
+    try:
+        yield work
+    finally:
+        _held.work = outer
+
+
+def _work(flops, *tensors):
+    """One launch's flops (a callable, evaluated only inside
+    :func:`counting_work`) and the bytes of its tensors."""
+    work = getattr(_held, "work", None)
+    if work is not None:
+        work["flops"] += float(flops())
+        work["bytes"] += float(sum(t.numel() * t.element_size()
+                                   for t in tensors if t is not None))
+
+
+def _pairs(B, Tq, Tk, causal, seg, device):
+    """Live (q, k) pairs of a batch (the kernels' ``live_pair`` rule)."""
+    if seg is not None:
+        return int(_live_pairs(Tq, Tk, causal, seg, device).sum())
+    if causal:
+        return B * sum(min(i + 1, Tk) for i in range(Tq))
+    return B * Tq * Tk
 
 
 def add_launches(counts, times=1):
@@ -276,6 +313,8 @@ def _fwd_cuda(q, k, v, seg, scale, causal):
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_fwd")
     _count("flash_fwd")
+    _work(lambda: 4.0 * D * H * _pairs(B, Tq, Tk, causal, seg, q.device),
+          q, k, v, seg, o, lse)
     return o, lse
 
 
@@ -322,6 +361,10 @@ def _bwd_cuda(name, q, k, v, do, lse, dcap, seg, scale, causal):
                     int(bool(causal)), stream)
     _raise_on(rc, name)
     _count(name)
+    _work(lambda: (8.0 if name == "flash_bwd_dkdv" else 6.0) * D * H
+          * _pairs(B, Tq, Tk, causal, seg, q.device),
+          q, k, v, do, lse, dcap, seg,
+          *(out if isinstance(out, tuple) else (out,)))
     return out
 
 
@@ -405,6 +448,8 @@ def _decode_cuda(q, k, v, lengths, scale):
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode")
     _count("flash_decode")
+    _work(lambda: 4.0 * D * H * int(lens.clamp(0, T).sum()),
+          q, k, v, lens, o)
     return o
 
 
@@ -450,6 +495,8 @@ def _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths, scale):
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode_q8")
     _count("flash_decode_q8")
+    _work(lambda: 6.0 * D * H * int(lens.clamp(0, T).sum()),
+          q, k, v, k_scale, v_scale, lens, o)
     return o
 
 

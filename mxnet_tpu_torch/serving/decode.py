@@ -47,7 +47,10 @@ generation are dropped once no request of it remains. ``stats()
 again in steady state). :meth:`DecodeServer.warmup` captures
 generation 1's set; a later generation's is captured at its first use.
 A capture that fails raises: nothing falls back to eager on the card.
-On a CPU device the same step bodies run eagerly.
+On a CPU device the same step bodies run eagerly. Each capture reports
+to the compile watch under the JAX package's sites (``decode[:name]:
+step``, ``:prefill:sN``, ``:cow``); the eager CPU server has no program
+and so no site.
 
 **Device.** The server runs on ``device`` (default ``cuda:0``; with no
 CUDA device, construction raises unless ``device="cpu"``). Its
@@ -396,13 +399,14 @@ class _Graph:
     """One captured program: its replay, its output, the kernel
     launches it holds, and the weights it reads (kept alive with it)."""
 
-    __slots__ = ("replay", "output", "launches", "weights")
+    __slots__ = ("replay", "output", "launches", "weights", "cost")
 
-    def __init__(self, replay, output, launches, weights):
+    def __init__(self, replay, output, launches, weights, cost=None):
         self.replay = replay
         self.output = output
         self.launches = launches
         self.weights = weights
+        self.cost = cost
 
 
 class _Programs:
@@ -419,6 +423,8 @@ class _Programs:
     def __init__(self, device, capture=_cuda_capture):
         self.device = device
         self._capture = capture
+        # the compile-watch site prefix: decode[:server name]
+        self.site = "decode"
         self._cuda = device.type == "cuda"
         self._mempool = None
         self._graphs = {}
@@ -485,17 +491,24 @@ class _Programs:
         over the static buffers shaped like ``args``, with every input
         zero (tables of the dump page, ``n_valid`` 0) for its eager
         call."""
+        from .. import compile_watch
         key = (site, rung, generation)
         bufs = self._buffers(site, rung, args)
         self._stage(bufs, [0 if host is None else 0 * a
                            for (_d, host), a in zip(bufs, args)])
         inputs = [dev for dev, _host in bufs]
+        call = lambda: body(*inputs)          # noqa: E731
+        watched = compile_watch.enabled()
+        if watched:
+            call, cost = compile_watch.counted(call)
         with _CAPTURE_LOCK:
             if self._cuda:
                 torch.cuda.empty_cache()
                 before = torch.cuda.memory_reserved(self.device)
-            replay, out, held = self._capture(
-                lambda: body(*inputs), self.device, self._pool())
+            t0 = time.perf_counter()
+            replay, out, held = self._capture(call, self.device,
+                                              self._pool())
+            dur = time.perf_counter() - t0
             if self._cuda:
                 grew = torch.cuda.memory_reserved(self.device) - before
                 with self._lock:
@@ -505,7 +518,15 @@ class _Programs:
             self.after_warmup += int(self.warmed)
             self._seen.add(key)
             self.captures[site] += 1
-            self._graphs[key] = _Graph(replay, out, dict(held), weights)
+            self._graphs[key] = graph = _Graph(replay, out, dict(held),
+                                               weights)
+        if watched:
+            name = "%s:%s" % (self.site, site) if site != "prefill" \
+                else "%s:prefill:s%d" % (self.site, rung)
+            where = compile_watch.Site(name, statics=(self.site, site,
+                                                      rung, generation))
+            graph.cost = (where, compile_watch.note_compile(
+                where, inputs, dur, cost))
 
     def _pool(self):
         # one graph memory pool for the server's graphs: they replay one
@@ -527,6 +548,9 @@ class _Programs:
             if site == "prefill":
                 self.prefill_replays[rung] = \
                     self.prefill_replays.get(rung, 0) + 1
+        if g.cost is not None:
+            from .. import compile_watch
+            compile_watch.accrue(*g.cost)
         return g.output
 
     def retire(self, live):
@@ -679,6 +703,9 @@ class DecodeServer:
         # the fixed program set as CUDA graphs; eager on the CPU
         self._programs = _Programs(self._device) \
             if self._device.type == "cuda" else None
+        if self._programs is not None:
+            self._programs.site = "decode" if not name \
+                else "decode:%s" % name
         self._rid = itertools.count(1)
         self._stats = {"requests": 0, "completed": 0, "cancelled": 0,
                        "timeouts": 0, "shed": 0, "errors": 0,

@@ -22,8 +22,10 @@ records — one schema, one sink (counterpart of
   (``MXNET_TELEMETRY_LIVE_BUFFERS``) has no torch counterpart. The
   rank-mesh trainer adds its per-rank split (:func:`memory_breakdown`:
   sharded and replicated parameters, optimizer state).
-- **Serving records** — cumulative ``decode`` and ``prefix_cache``
-  records from each ``serving.DecodeServer``, ``router`` records from
+- **Serving records** — cumulative ``serving`` records from each
+  ``serving.InferenceServer`` (the summary's ``serving`` block: the
+  latest), ``decode`` and ``prefix_cache`` records from each
+  ``serving.DecodeServer``, ``router`` records from
   each ``serving.Router``, ``usage`` records from the meter
   (``metering``), and ``alert`` records (a confirmed replica loss, an
   SLO-watchdog breach) that also trigger the flight recorder.
@@ -55,8 +57,11 @@ also arms the tracer (``MXNET_TRACE``), the flight recorder
 (``MXNET_METRICS_PORT``) and the SLO watchdog (``MXNET_WATCHDOG``).
 
 JSONL record types: ``run_start``, ``step``, ``memory``,
-``memory_breakdown``, ``summary``, ``decode``, ``prefix_cache``,
-``router``, ``bucketing``, ``usage`` and ``alert``;
+``memory_breakdown``, ``summary``, ``serving``, ``decode``,
+``prefix_cache``, ``router``, ``bucketing``, ``usage`` and ``alert``,
+and, only while the compile watch is on (:mod:`~mxnet_tpu_torch.
+compile_watch`), ``compile`` and ``utilization`` (with the summary's
+``compile``/``utilization`` blocks);
 a subsystem that never runs writes none of its kinds, so the sink is
 byte-identical to a run without it. The JAX package's other kinds
 arrive with the modules that emit them (``ROADMAP.md`` queue A).
@@ -76,7 +81,8 @@ __all__ = ["enabled", "start", "stop", "reset", "maybe_start",
            "step_begin", "step_end", "step_tick", "span", "note",
            "recent_rate", "sample_memory", "flush", "report",
            "quick_stats", "percentile", "external_record",
-           "checkpoint_event", "decode_event", "router_event", "prefix_cache_event",
+           "checkpoint_event", "serving_event", "decode_event",
+           "router_event", "prefix_cache_event",
            "bucketing_event", "alert_event", "usage_event", "comm",
            "comm_span", "comm_links", "h2d", "memory_breakdown"]
 
@@ -84,10 +90,20 @@ _lock = threading.Lock()
 _run = None          # the active _Run
 _last_run = None     # most recently stopped run (report() after fit)
 _env_cfg = None      # cached (enabled, filename) from the environment
-# the SLO-watchdog hook, installed by livemetrics.enable_watchdog():
-# _watch_step receives each closed step record, called OUTSIDE the
-# module lock. One global None check when the watchdog is off.
+# per-step utilization hooks, installed by compile_watch.enable():
+# _util_probe is called at each step boundary (under _lock — it must
+# not call back in) with (step_seq, dur_s) and returns the extra fields
+# of a ``utilization`` record, or None; _util_reset is called at
+# step_begin so pre-step backlog never inflates the first step's MFU.
+# One global None check each when the watch is off.
+_util_probe = None
+_util_reset = None
+# SLO-watchdog hooks, installed by livemetrics.enable_watchdog():
+# _watch_step receives each closed step record, _watch_serving each
+# cumulative serving snapshot — both called OUTSIDE the module lock.
+# One global None check each when the watchdog is off.
 _watch_step = None
+_watch_serving = None
 # flight-recorder hooks, installed by flightrec.enable(): _recent is
 # the recorder's own bounded deque shadowing every record the run
 # appends (records leave run.records at flush, so a post-mortem needs
@@ -126,6 +142,7 @@ class _Run:
         self.phase_totals = {}       # phase -> seconds (whole run)
         self.open_phases = set()     # same-phase reentrancy guard
         self.pending_phases = {}     # phase -> seconds since boundary
+        self.serving = None          # latest cumulative serving stats
         self.decode = None           # per-server cumulative decode
                                      # (autoregressive serving) stats
         self.router = None           # per-router cumulative fleet
@@ -146,6 +163,8 @@ class _Run:
         self.mem_watermarks = {}     # device -> peak/last bytes
         self.mem_breakdown = None    # params_sharded/... split (lazy)
         self.fault_base = None       # fault.stats() at start
+        self.counters_base = {}      # profiler.counters() at start
+        self.cw_base = None          # compile_watch compile baseline
         self._step_t0 = None         # perf_counter at step_begin
         self._last_boundary = None   # perf_counter at last step end
         # spans only count on the accounting thread (the one driving
@@ -212,8 +231,11 @@ def start(filename=None, run_id=None, meta=None):
     global _run, _atexit_registered
     # the baseline first, outside the lock (fault takes its own lock;
     # a loser's snapshot is simply discarded below)
-    from . import fault
+    from . import compile_watch, fault, profiler
     fault_base = fault.stats()
+    counters_base = profiler.counters()
+    compile_watch.maybe_enable()   # MXNET_COMPILE_WATCH rides the run
+    compile_watch.run_reset()      # utilization is scoped to THIS run
     tracing.maybe_enable()         # MXNET_TRACE rides the run
     from . import flightrec
     flightrec.maybe_enable()       # MXNET_FLIGHTREC_DIR rides the run
@@ -221,6 +243,9 @@ def start(filename=None, run_id=None, meta=None):
     # MXNET_METRICS_PORT / MXNET_WATCHDOG; a new run gets a FRESH
     # watchdog so the drift baseline never spans workloads
     livemetrics.maybe_start(fresh_run=True)
+    cw = compile_watch.stats()
+    cw_base = {"count": cw["compiles"],
+               "total_s": cw["compile_total_s"]} if cw else None
     with _lock:
         if _run is not None:
             return _run.run_id     # racer lost: report the winner's id
@@ -228,6 +253,8 @@ def start(filename=None, run_id=None, meta=None):
             filename = _env()[1]
         run = _Run(_per_worker_filename(filename), run_id, meta)
         run.fault_base = fault_base
+        run.counters_base = counters_base
+        run.cw_base = cw_base
         _run = run
     if not _atexit_registered:
         _atexit_registered = True
@@ -359,6 +386,15 @@ def _close_step_locked(run, now, samples):
         # phase spans recorded by _Span nest inside it by containment
         tracing.add("step", "step", now - dur, dur, tid=run._thread,
                     args={"seq": run.steps})
+    probe = _util_probe
+    if probe is not None:
+        util = probe(run.steps, dur)
+        if util:
+            urec = {"type": "utilization", "seq": run.steps,
+                    "t": rec["t"], "dur_ms": rec["dur_ms"]}
+            urec.update(util)
+            run.records.append(urec)
+            _remember(urec)
     _cap_records_locked(run)
     run._steps_since_flush += 1
     run._steps_since_mem += 1
@@ -387,9 +423,16 @@ def step_begin():
     if run is None:
         return
     now = time.perf_counter()
+    resetf = _util_reset
     with _lock:
         if run._step_t0 is not None:
-            _close_step_locked(run, now, None)   # a still-open step
+            # a still-open step: close it FIRST so the utilization
+            # probe drains its accumulators into its record
+            _close_step_locked(run, now, None)
+        elif resetf is not None:
+            # no step was open: anything accrued since the last
+            # boundary is pre-step backlog, not this step's work
+            resetf()
         run._step_t0 = now
         run._thread = threading.get_ident()
         run.pending_phases = {}
@@ -648,6 +691,32 @@ def checkpoint_event(fields):
                 else max(prev, last)
         run.records.append(rec)
     _remember(rec)
+
+
+def serving_event(fields):
+    """Append one cumulative ``serving`` record from a
+    ``serving.InferenceServer`` (request counts, latency percentiles,
+    rps, occupancy, queue depth — the server emits one every
+    ``record_every`` batches and at stop). The latest snapshot also
+    lands in the summary's ``serving`` block. No-op without a run, so a
+    run that never serves keeps a byte-identical sink."""
+    run = _run
+    if run is not None:
+        rec = {"type": "serving", "seq": run.steps,
+               "t": round(time.time() - run.t0_wall, 6)}
+        rec.update(fields)
+        with _lock:
+            run.serving = dict(fields)     # cumulative: latest wins
+            run.records.append(rec)
+            _remember(rec)
+            # a stepless sink-less serving process must not grow
+            # records unboundedly
+            _cap_records_locked(run)
+    # the SLO watchdog observes snapshots even without a telemetry run;
+    # called outside the lock
+    hook = _watch_serving
+    if hook is not None:
+        hook(fields)
 
 
 def decode_event(fields):
@@ -1003,6 +1072,8 @@ def report():
             ck["blocking_ms"] = round(ck["blocking_ms"], 3)
             ck["async_ms"] = round(ck["async_ms"], 3)
             out["checkpoint"] = ck
+        if run.serving is not None:
+            out["serving"] = dict(run.serving)
         if run.decode is not None:
             out["decode"] = {k: dict(v)
                              for k, v in run.decode.items()}
@@ -1026,6 +1097,8 @@ def report():
             out["records_dropped"] = run.records_dropped
         total_s = run.total_step_s
         fault_base = run.fault_base
+        counters_base = run.counters_base
+        cw_base = run.cw_base
     out["productive_steps"] = out["steps"] - out["skipped_steps"]
     out["goodput"] = (out["productive_steps"] / out["steps"]) \
         if out["steps"] else None
@@ -1046,6 +1119,25 @@ def report():
         fs = fault.stats()
         out["fault"] = {k: fs.get(k, 0) - fault_base.get(k, 0)
                         for k in ("skipped_steps", "retries", "timeouts")}
+    from . import compile_watch, profiler
+    ctr = profiler.counters()
+    fused = {k: v - counters_base.get(k, 0) for k, v in ctr.items()
+             if k.startswith("fused_step")}
+    if fused:
+        out["counters"] = fused
+    # compile & utilization blocks only while the compile watch is on,
+    # so an off-run's summary (and sink) is byte-identical
+    cblock, ublock = compile_watch.summary_blocks()
+    if cblock is not None:
+        if cw_base:
+            # count/seconds scoped to THIS run; the per-program table
+            # stays process-lifetime
+            cblock["count"] = cblock["count"] - cw_base["count"]
+            cblock["total_s"] = round(
+                cblock["total_s"] - cw_base["total_s"], 6)
+        out["compile"] = cblock
+    if ublock is not None:
+        out["utilization"] = ublock
     return out
 
 

@@ -9,8 +9,8 @@ shed rate, queue at its bound, replica skew, hysteresis). A scrape runs
 from another thread while started servers and a started router serve,
 as it does on the card beside their CUDA graphs. The cross-package
 check runs the same routed drill on a JAX fleet and a port fleet and
-requires the same set of series names (the InferenceServer's
-``mxnet_serving_*`` families wait for its port)."""
+requires the same set of series names, an InferenceServer's
+``mxnet_serving_*`` families with them."""
 import gc
 import re
 import threading
@@ -242,6 +242,12 @@ def test_series_names_equal_the_jax_page():
     jr = jserving.Router(jreps, name="lm3", start=False,
                          probe_interval_ms=1)
     r = _fleet("lm3")
+    # an InferenceServer each, for the mxnet_serving_* families
+    from mxnet_tpu_torch.serving import InferenceServer
+    jinf = jserving.InferenceServer(lambda x: x, max_batch=2,
+                                    name="lm3-inf", start=False)
+    inf = InferenceServer(lambda x: x, max_batch=2, name="lm3-inf",
+                          devices=["cpu"], start=False)
     try:
         for router in (jr, r):
             reqs = [router.submit(np.arange(1, 6 + i), max_new_tokens=6,
@@ -255,10 +261,12 @@ def test_series_names_equal_the_jax_page():
         for prof in (profiler, jprofiler):
             prof.increment_counter("series_names_probe")
         got = _names(livemetrics.render(), "lm3")
-        want = {n for n in _names(jlivemetrics.render(), "lm3")
-                if not n.startswith("mxnet_serving_")}
+        want = _names(jlivemetrics.render(), "lm3")
         assert got == want
+        assert "mxnet_serving_queue_bound" in got
     finally:
+        jinf.stop()
+        inf.stop()
         jr.stop()
         r.stop()
         jmetering.stop()

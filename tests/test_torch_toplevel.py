@@ -28,7 +28,6 @@ def _port_on_cpu(monkeypatch):
 # public names of mxnet_tpu/__init__.py the port does not carry yet, with
 # the ROADMAP queue A item (or the reason) that brings them
 UNPORTED = {
-    "deploy": "item 11", "compile_watch": "item 11",
     "operator": "item 8 (Custom ops)", "engine": "item 8",
     "util": "item 8", "runtime": "item 8", "registry": "item 8",
     "libinfo": "item 8", "monitor": "item 8", "visualization": "item 8",
