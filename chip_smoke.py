@@ -476,7 +476,9 @@ no result, anywhere else. Phases (any failure exits non-zero):
    22's launcher (``chip_smoke.py mesh-rank DIR``, gloo, both on
    gpu(0)): (a) ``parallel.DistributedTrainer`` over ``{"dp": 2}`` with
    ``grad_overlap=True`` (ZeRO-1) and ``param_shard=True`` (FSDP), Adam
-   lr 1e-3, 10 steps on the global batch (4 rows a rank): the ranks'
+   lr 1e-3, MESH_STEPS steps on the global batch (4 rows a rank), a
+   manifest checkpoint every FT_STEPS steps and the heartbeat armed (this
+   run is phase 27 (a)): the ranks'
    initial weights equal the twin's, step 1 within MESH_STEP1_FLIP of
    the twin (the loss before and after within LOSS_ATOL), the loss
    falling and equal on both ranks, overlap off and FSDP off
@@ -507,7 +509,11 @@ no result, anywhere else. Phases (any failure exits non-zero):
    and sequence halves, in the twin); (b) the same over ``{"dp": 2,
    "tp": 2}`` with FSDP: each weight at rest as its 2-D piece, parameter
    bytes a rank the rules' (projections 1/4, embeddings 1/2, norms whole),
-   the losses equal to phase 24 (a)'s first MESH4_STEPS bit for bit.
+   the losses equal to phase 24 (a)'s first MESH4_STEPS bit for bit;
+   then (phase 27 (d)) its state saved once (the 2-D pieces and their
+   Adam state, each piece under its global index), loaded by a fresh
+   trainer, and one more step of each: losses, pieces and state equal
+   bit for bit.
    Then eight ranks (``python -m mxnet_tpu_torch.dryrun rank``, the
    dryrun's own worker, gloo on gpu(0)): (c) ``dryrun_multichip``'s step
    at the JAX entry point's dims over ``dp2/tp2/sp2`` and ``dp2/pp2/sp2``,
@@ -525,8 +531,8 @@ no result, anywhere else. Phases (any failure exits non-zero):
    3x224x224, seed 0) exported by ``mx.deploy.export_compiled`` on the
    card with buckets SERVE_BUCKETS, loaded (every program on cuda:0) and
    served by ``InferenceServer(max_queue=64, batch_window_ms=2.0)``:
-   ``warmup()`` captures the six bucket graphs (``compile_watch``: six
-   sites, one compile each); 8 client threads x 32 requests (seed 1):
+   ``warmup()`` captures the three bucket graphs (``compile_watch``:
+   three sites, one compile each); 8 client threads x 32 requests (seed 1):
    no compile and no recapture during traffic, replays = batches, each
    answer within SERVE_TOL of the hybridized net on its sample alone and
    bit-identical to the Predictor's program at its bucket; export s,
@@ -547,11 +553,35 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ``fused_step:module`` compile, a step's flops within WATCH_FLOPS_REL of
    the hand count, the utilization record's MFU = flops / (step s x the
    table's fp32 peak).
+27. fault tolerance (after 26) — the twenty-third slice, multi-host
+   fault tolerance, fp32 with TF32 off. (a) is phase 24 (a)'s run:
+   FT_EPOCHS epochs of FT_STEPS steps of the LM over ``{"dp": 2}``
+   (ZeRO-1, FSDP, Adam) on the global batch, a manifest checkpoint after
+   each epoch, the heartbeat armed at MXNET_HB_TIMEOUT_MS =
+   FT_HB_TIMEOUT_MS. (b) the same two ranks (``chip_smoke.py ft-rank
+   DIR``, gloo, both on gpu(0)) under ``python -m mxnet_tpu_torch.tools.
+   launch --supervise --resume-prefix --events-file``, rank 1 carrying
+   ``proc_exit:step=FT_KILL_STEP:raise`` in generation 0 (mid epoch 1):
+   the events launch, worker_failed, teardown, restart, launch, success;
+   the restart resumes from epoch 0's manifest, its final weights equal
+   (a)'s bit for bit (SHA-256 a parameter) and its losses (a)'s last
+   epochs', the last manifest records ``processes: 2``; no false host
+   loss in (a) or (b); detection to relaunch from the events file, save
+   and load ms, bytes a rank, ms a step before and after the restart, 12
+   launches of each flash kernel a step (zeroed before the steps, read
+   after). (c), beside (b): a wedged host; both ranks join and place the
+   model, then rank 1's heartbeat writer stalls for good
+   (``proc_hb:step=1:stall:count=inf``, timeout FT_WEDGE_TIMEOUT_MS):
+   rank 0 exits 43 with ``HostLostError``, the launcher with it; stall
+   to detection from the monitor's message. (d) runs inside phase 25
+   (b): the ``{dp: 2, tp: 2}`` FSDP state saved, loaded by a fresh
+   trainer, one more step of each bit for bit.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
 packing, mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches,
-or serving (InferenceServer);
+serving (InferenceServer), or fault tolerance (b), rank 0's launches in
+its second generation;
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -8746,12 +8776,13 @@ def kv_single_process(mx):
 
 
 def kv_launch(outdir, role="kv-rank", n=KV_RANKS,
-              timeout=KV_LAUNCH_TIMEOUT):
+              timeout=KV_LAUNCH_TIMEOUT, env=None):
     """Runs the ranks: ``python -m mxnet_tpu_torch.tools.launch -n N``
-    over ``chip_smoke.py <role> DIR`` from the checkout; their readings.
-    A failing rank fails the phase with its last lines."""
+    over ``chip_smoke.py <role> DIR`` from the checkout (``env``: more
+    variables for the ranks); their readings. A failing rank fails the
+    phase with its last lines."""
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
+    env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
            str(n), sys.executable, os.path.abspath(__file__), role, outdir]
@@ -9704,7 +9735,15 @@ def phase_sparse(card):
 
 MESH_RANKS = 2
 MESH_BATCH = 8                      # the global batch of (a): 4 a rank
-MESH_STEPS = 10
+# (a)'s run is also phase 27's uninterrupted reference: FT_EPOCHS epochs
+# of FT_STEPS steps on the global batch, a manifest checkpoint after each
+# epoch, the heartbeat armed at FT_HB_TIMEOUT_MS (a full-width step keeps
+# the host busy ~2 s in the gloo exchange) (cut from 10 steps without
+# checkpoints: phase 27's time)
+FT_EPOCHS = 3
+FT_STEPS = 2
+FT_HB_TIMEOUT_MS = 10000
+MESH_STEPS = FT_EPOCHS * FT_STEPS
 MESH_IDENT_STEPS = 2                # steps of the on/off identity runs
 MESH_ADAM = dict(learning_rate=1e-3)
 MESH_SEED = 0
@@ -9827,11 +9866,13 @@ def mesh_twin(mx, ctx):
 
 def mesh_rank_dp(mx, par, tfa, ctx, rank, outdir, init, say):
     """(a) on one rank: the DistributedTrainer over {"dp": 2} with
-    ZeRO-1 and FSDP, MESH_STEPS Adam steps on the global batch; then the
+    ZeRO-1 and FSDP, MESH_STEPS Adam steps on the global batch, a
+    checkpoint each FT_STEPS (phase 27 (a)); then the
     overlap-off and FSDP-off runs, MESH_IDENT_STEPS steps each from the
     same weights, held bit for bit to the first run's weights at that
     step; then one SGD step of the first run's modes (rank 0's weights
     after it to sgd1.npz)."""
+    from mxnet_tpu_torch.parallel import multihost
     mesh = par.create_mesh({"dp": MESH_RANKS})
     x, y = mesh_tokens(MESH_BATCH)
     tokens, labels = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
@@ -9851,6 +9892,7 @@ def mesh_rank_dp(mx, par, tfa, ctx, rank, outdir, init, say):
     torch.cuda.reset_peak_memory_stats()
     tfa.reset_launches()              # (a)'s main path starts here
     curve, step_ms, sync_ms, ident = [], [], [], None
+    ft = dict(save_ms=[], save_bytes=[])
     for step in range(MESH_STEPS):
         t0 = time.perf_counter()
         loss = float(tr.fit_batch(tokens, labels).asscalar())
@@ -9865,7 +9907,15 @@ def mesh_rank_dp(mx, par, tfa, ctx, rank, outdir, init, say):
                 np.savez(os.path.join(outdir, "step1.npz"), **host)
             if step + 1 == MESH_IDENT_STEPS:
                 ident = host
+        if (step + 1) % FT_STEPS == 0:
+            ft_save(tr, os.path.join(outdir, "ck"), step // FT_STEPS, rank,
+                    ft)
     out["launches"] = dict(tfa.launches)      # ... and ends here
+    tr.sync_gluon_params()
+    ft.update(curve=curve, step_ms=step_ms, host_lost=multihost.host_lost())
+    if rank == 0:
+        ft["digest"] = ft_digest(mesh_host(net))
+    out["ft"] = ft
     out.update(curve=curve, step_ms=step_ms, sync_ms=sync_ms,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                state_bytes=tr.state_bytes_per_device(),
@@ -10217,7 +10267,10 @@ def phase_mesh(card, tfa):
              time.perf_counter() - t0))
     outdir = tempfile.mkdtemp(prefix="mesh_")
     try:
-        ranks, secs = kv_launch(outdir, "mesh-rank", MESH_RANKS)
+        ranks, secs = kv_launch(
+            outdir, "mesh-rank", MESH_RANKS,
+            env=dict(MXNET_HB_DIR=os.path.join(outdir, "hb"),
+                     MXNET_HB_TIMEOUT_MS=str(FT_HB_TIMEOUT_MS)))
         lr = MESH_ADAM["learning_rate"]
         flip_share, step1_rows = mesh_step1(twin, lr, outdir)
         sgd_ratios = mesh_sgd_grads(twin, outdir)
@@ -10351,7 +10404,7 @@ def phase_mesh(card, tfa):
     return dict(kern=kern, dp_launches=a[0]["launches"],
                 sp_launches=b[0]["ulysses"]["launches"],
                 ring_launches=b[0]["ring"]["launches"], twin=twin,
-                curve=a[0]["curve"])
+                curve=a[0]["curve"], ft=[rec["ft"] for rec in a], ft_s=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -10359,7 +10412,7 @@ def phase_mesh(card, tfa):
 # ---------------------------------------------------------------------------
 
 MESH4_RANKS = 4
-MESH4_STEPS = 5
+MESH4_STEPS = 3                     # (cut from 5: phase 27's time)
 MESH4_LAUNCH_TIMEOUT = 600
 DRY_RANKS = 8
 DRY_WIDTH = dict(D=768, H=12, F=3072, E=4, T=1024)
@@ -10401,6 +10454,37 @@ def mesh4_steps(mx, tfa, tr, tokens, labels):
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 param_bytes=tr.param_bytes_per_device(),
                 state_bytes=tr.state_bytes_per_device())
+
+
+def mesh4_checkpoint(mx, par, tr, net, init, ctx, mesh, tokens, labels,
+                     outdir, rank):
+    """Phase 27 (d) on one rank: (b)'s trainer saves its state once, a
+    fresh trainer loads it, and each takes one more step: the losses, the
+    2-D pieces and the Adam state equal bit for bit; save and load ms,
+    this rank's shard bytes."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    prefix = os.path.join(outdir, "tp2d")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save_checkpoint(prefix, 0)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = mesh4_trainer(mx, par, net, init, ctx, mesh)
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(prefix, 0)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(tr.fit_batch(tokens, labels).asscalar())
+    loss_fresh = float(fresh.fit_batch(tokens, labels).asscalar())
+    same = all(torch.equal(a, b) for a, b in
+               zip(list(tr._param_vals) + list(tr._state_vals),
+                   list(fresh._param_vals) + list(fresh._state_vals)))
+    manifest = ckpt.load_manifest(prefix, 0)
+    del fresh
+    return dict(save_ms=save_ms, load_ms=load_ms, loss=loss,
+                loss_fresh=loss_fresh, same=same,
+                bytes=os.path.getsize(ckpt._shard_file(prefix, 0, rank, 4)),
+                processes=manifest["processes"],
+                spanning=sum(len(e["pieces"]) == 4
+                             for e in manifest["params"].values()))
 
 
 def mesh4_rank_main(outdir):
@@ -10465,6 +10549,8 @@ def mesh4_rank_main(outdir):
             for n, p in net.collect_params().items()))
         res["b"]["pieces"] = sorted({str(list(pl.spec))
                                      for pl in tr._param_plans})
+        res["b"]["ckpt"] = mesh4_checkpoint(mx, par, tr, net, init, ctx, mesh,
+                                            tokens, labels, outdir, rank)
         del tr
         gc.collect()
         torch.cuda.empty_cache()
@@ -10626,6 +10712,20 @@ def phase_mesh_axes(card, tfa, mesh24):
     if worst_b > LOSS_ATOL:
         fail("(b) the losses are outside LOSS_ATOL of the {dp: 2} run's")
     for r, rec in enumerate(b):
+        ck = rec["ckpt"]
+        print("    phase 27 (d) rank %d: (b)'s {dp: 2, tp: 2} FSDP state saved in %.1f "
+              "ms (%.1f MB this rank's shard; %d entries as 4 pieces, "
+              "processes %d), loaded by a fresh trainer in %.1f ms; one more "
+              "step: loss %.6f running, %.6f fresh, pieces and Adam state "
+              "%s (%s)" % (r, ck["save_ms"], ck["bytes"] / 1e6, ck["spanning"],
+                           ck["processes"], ck["load_ms"], ck["loss"],
+                           ck["loss_fresh"], "bit for bit" if ck["same"]
+                           else "DIFFERENT", card))
+        if not ck["same"] or ck["loss"] != ck["loss_fresh"] \
+                or ck["processes"] != MESH4_RANKS or not ck["spanning"]:
+            fail("phase 27 (d) rank %d: the 2-D checkpoint did not "
+                 "round-trip: %s"
+                 % (r, ck))
         if rec["param_bytes"] != rec["rules_bytes"]:
             fail("(b) rank %d: %d parameter bytes, the rules give %d"
                  % (r, rec["param_bytes"], rec["rules_bytes"]))
@@ -10697,7 +10797,7 @@ def phase_mesh_axes(card, tfa, mesh24):
 # seed 1; each answer against the hybridized net on its sample alone
 # (the example's tolerance) and bit for bit against the Predictor's
 # program at the bucket it ran in; the drills' queue bound and burst
-SERVE_BUCKETS = [1, 2, 4, 8, 16, 32]
+SERVE_BUCKETS = [1, 8, 32]          # (cut from six: phase 27's time)
 SERVE_IMAGE = 224
 SERVE_CLASSES = 1000
 SERVE_CLIENTS = 8
@@ -11312,6 +11412,296 @@ def phase_serve(card, tfa, resnet_readings):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 27: multi-host fault tolerance
+# ---------------------------------------------------------------------------
+
+# (b) replays phase 24 (a)'s schedule under the supervisor, rank 1 dying
+# at its FT_KILL_STEP-th step boundary in generation 0 (mid epoch 1), so
+# epoch 0's manifest is the resume point; (c)'s heartbeat bound is the
+# JAX wedge test's, and (c) runs beside (b) (its ranks mostly sleep)
+FT_KILL_STEP = 4
+FT_WEDGE_TIMEOUT_MS = 1500
+FT_BACKOFF_S = 0.5
+FT_GRACE_S = 5
+FT_LAUNCH_TIMEOUT = 600
+
+
+def ft_digest(host):
+    """SHA-256 of each parameter's bytes: equal digests, equal bits."""
+    import hashlib
+    return {n: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for n, v in host.items()}
+
+
+def ft_save(tr, prefix, epoch, rank, ft):
+    """One epoch's checkpoint: its ms and this rank's shard bytes into
+    ``ft``."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    t0 = time.perf_counter()
+    tr.save_checkpoint(prefix, epoch)
+    ft["save_ms"].append((time.perf_counter() - t0) * 1e3)
+    ft["save_bytes"].append(os.path.getsize(ckpt._shard_file(
+        prefix, epoch, rank, MESH_RANKS)))
+
+
+def ft_rank_train(mx, par, tfa, ctx, rank, outdir, say):
+    """(b) on one rank: phase 24 (a)'s trainer and schedule, resumed from
+    MXNET_LAUNCH_RESUME_EPOCH when the supervisor set it."""
+    from mxnet_tpu_torch import envs
+    from mxnet_tpu_torch.parallel import multihost
+    prefix = os.path.join(outdir, "ck")
+    net = mesh_net(mx, ctx)
+    x, y = mesh_tokens(MESH_BATCH)
+    tokens, labels = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    tr = par.DistributedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        par.create_mesh({"dp": MESH_RANKS}), optimizer="adam",
+        optimizer_params=dict(MESH_ADAM), grad_overlap=True, param_shard=True)
+    ft = dict(load_ms=None, begin=0, save_ms=[], save_bytes=[])
+    resume = envs.get_int("MXNET_LAUNCH_RESUME_EPOCH")
+    if resume is not None:
+        t0 = time.perf_counter()
+        tr.load_checkpoint(prefix, resume)
+        ft["load_ms"] = (time.perf_counter() - t0) * 1e3
+        ft["begin"] = resume + 1
+    torch.cuda.synchronize()
+    tfa.reset_launches()                  # the path starts here
+    curve, step_ms = [], []
+    for epoch in range(ft["begin"], FT_EPOCHS):
+        for _ in range(FT_STEPS):
+            t0 = time.perf_counter()
+            curve.append(float(tr.fit_batch(tokens, labels).asscalar()))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        ft_save(tr, prefix, epoch, rank, ft)
+        say("rank %d epoch %d: loss %s, saved in %.1f ms"
+            % (rank, epoch, curve[-FT_STEPS:], ft["save_ms"][-1]))
+    ft["launches"] = dict(tfa.launches)   # ... and ends here
+    tr.sync_gluon_params()
+    ft.update(curve=curve, step_ms=step_ms, host_lost=multihost.host_lost())
+    if rank == 0:
+        ft["digest"] = ft_digest(mesh_host(net))
+    return ft
+
+
+def ft_rank_main(outdir):
+    """One rank of phase 27 (``chip_smoke.py ft-rank DIR`` under the
+    launcher) on gpu(0). ``FT_MODE=train``: (b), rank 1 carrying
+    ``proc_exit:step=FT_KILL_STEP:raise`` in generation 0; ``FT_MODE=
+    wedge``: (c), both ranks join and place the model, then rank 1's
+    heartbeat writer stalls for good (``proc_hb:step=1:stall:count=inf``,
+    installed once both placed it) while both sleep. Readings to
+    DIR/rank<r>.gen<g>.json."""
+    import traceback
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    gen = int(os.environ.get("MXNET_LAUNCH_RESTART", "0") or 0)
+    mode = os.environ["FT_MODE"]
+    # the plan lands before the package import (the join visits fault
+    # sites, which latches the plan)
+    if mode == "train" and rank == 1 and gen == 0:
+        os.environ["MXNET_FAULT_PLAN"] = "proc_exit:step=%d:raise" \
+            % FT_KILL_STEP
+    log = open(os.path.join(outdir, "rank%d.gen%d.log" % (rank, gen)), "w")
+
+    def say(line):
+        log.write(line + "\n")
+        log.flush()
+        print(line, flush=True)
+    res = {"rank": rank, "gen": gen}
+    try:
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import fault, parallel as par
+        tfa = importlib.import_module(
+            "mxnet_tpu_torch.parallel.flash_attention")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ctx = mx.gpu(0)
+        if mode == "wedge":
+            mesh_net(mx, ctx)
+            torch.cuda.synchronize()
+            say("FT_WEDGE_PLACED rank %d" % rank)
+            par.distributed.barrier("ft/placed")
+            if rank == 1:
+                # the wedge from the next writer tick on: the process
+                # lives, its beat stops
+                os.environ["MXNET_FAULT_HANG_SECONDS"] = "600"
+                fault.set_plan("proc_hb:step=1:stall:count=inf")
+            time.sleep(120)       # rank 0's monitor ends the job first
+            say("FT_WEDGE_SLEPT_THROUGH rank %d" % rank)
+        else:
+            res.update(ft_rank_train(mx, par, tfa, ctx, rank, outdir, say))
+        say("rank %d generation %d done" % (rank, gen))
+    except Exception:                            # noqa: BLE001
+        res["error"] = traceback.format_exc()
+        say(res["error"])
+    with open(os.path.join(outdir, "rank%d.gen%d.json" % (rank, gen)),
+              "w") as f:
+        json.dump(res, f)
+    log.close()
+    return 1 if "error" in res else 0
+
+
+def ft_start(outdir, mode, flags=(), **env_extra):
+    """Starts ``python -m mxnet_tpu_torch.tools.launch -n 2 [flags]
+    chip_smoke.py ft-rank DIR``, its output to DIR/launch.out; returns
+    (process, start time)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DMLC_", "MXNET_"))}
+    env.update(PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""),
+               FT_MODE=mode)
+    env.update({k: str(v) for k, v in env_extra.items()})
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(MESH_RANKS)] + list(flags) + [
+        sys.executable, os.path.abspath(__file__), "ft-rank", outdir]
+    with open(os.path.join(outdir, "launch.out"), "w") as sink:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=sink,
+                                stderr=subprocess.STDOUT)
+    return proc, time.perf_counter()
+
+
+def ft_wait(outdir, started):
+    """(exit code, output, seconds) of an :func:`ft_start` launch; a launch
+    past FT_LAUNCH_TIMEOUT is killed (code "timeout")."""
+    proc, t0 = started
+    try:
+        rc = proc.wait(timeout=max(FT_LAUNCH_TIMEOUT - (time.perf_counter()
+                                                        - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    secs = time.perf_counter() - t0
+    with open(os.path.join(outdir, "launch.out")) as f:
+        return rc, f.read(), secs
+
+
+def ft_ranks(outdir, gen, rc, text, what):
+    """Generation ``gen``'s rank readings; fails the phase, with the
+    launch's last lines, if it or a rank failed."""
+    ranks = []
+    for r in range(MESH_RANKS):
+        path = os.path.join(outdir, "rank%d.gen%d.json" % (r, gen))
+        ranks.append(json.load(open(path)) if os.path.exists(path)
+                     else {"error": "rank %d wrote no result" % r})
+    if rc != 0 or any("error" in r for r in ranks):
+        for r in range(MESH_RANKS):
+            print("  rank %d: %s" % (r, ranks[r].get("error", "")))
+        print("  the launch's output:\n%s" % text[-4000:])
+        fail("%s: the launched ranks failed (launcher exit %s)" % (what, rc))
+    return ranks
+
+
+def phase_fault_tolerance(card, mesh24):
+    """Phase 27: the twenty-third slice, multi-host fault tolerance (the
+    module docstring): (a) is phase 24 (a)'s run (``mesh24["ft"]``), (b)
+    and (c) run here, side by side. Returns (b)'s flash launch counts on
+    rank 0 in its second generation."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    L = GPT2_SMALL["n_layers"]
+    a = mesh24["ft"]
+    root = tempfile.mkdtemp(prefix="ft_")
+    try:
+        bdir, cdir = os.path.join(root, "b"), os.path.join(root, "c")
+        os.makedirs(bdir)
+        os.makedirs(cdir)
+        events = os.path.join(bdir, "events.jsonl")
+        b_run = ft_start(
+            bdir, "train", ["--supervise", "--resume-prefix",
+                            os.path.join(bdir, "ck"), "--events-file",
+                            events], MXNET_HB_TIMEOUT_MS=FT_HB_TIMEOUT_MS,
+            MXNET_LAUNCH_BACKOFF=FT_BACKOFF_S, MXNET_LAUNCH_GRACE=FT_GRACE_S)
+        c_run = ft_start(cdir, "wedge", MXNET_HB_DIR=os.path.join(cdir, "hb"),
+                         MXNET_HB_TIMEOUT_MS=FT_WEDGE_TIMEOUT_MS,
+                         MXNET_LAUNCH_GRACE=2)
+        rc_c, text_c, c_s = ft_wait(cdir, c_run)
+        rc, text_b, b_s = ft_wait(bdir, b_run)
+        b = ft_ranks(bdir, 1, rc, text_b, "(b) supervised")
+        with open(events) as f:
+            recs = [json.loads(line) for line in f]
+        last = ckpt.latest_manifest_epoch(os.path.join(bdir, "ck"))
+        manifest = ckpt.load_manifest(os.path.join(bdir, "ck"), last)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    false_losses = text_b.count("HostLostError")
+    kinds = [r["kind"] for r in recs]
+    by = {k: [r for r in recs if r["kind"] == k] for k in set(kinds)}
+    print("  (a) phase 24 (a)'s run (%.1f s of launch): 2 ranks, {dp: 2}, "
+          "ZeRO-1 and FSDP, Adam lr %g, %d epochs of %d steps on the global "
+          "batch %d x %d, a checkpoint each epoch, the heartbeat armed "
+          "(timeout %d ms): %.1f ms a step (median); save %s ms, %s MB "
+          "a rank (%s)"
+          % (mesh24["ft_s"], MESH_ADAM["learning_rate"], FT_EPOCHS, FT_STEPS,
+             MESH_BATCH, GPT2_SMALL["max_len"], FT_HB_TIMEOUT_MS,
+             statistics.median(a[0]["step_ms"]),
+             [[round(v, 1) for v in r["save_ms"]] for r in a],
+             [[round(v / 1e6, 1) for v in r["save_bytes"]] for r in a], card))
+    want = ["launch", "worker_failed", "teardown", "restart", "launch",
+            "success"]
+    if kinds != want:
+        fail("(b) the supervisor's events are %s, want %s" % (kinds, want))
+    failed, relaunch = by["worker_failed"][0], by["launch"][1]
+    print("  (b) supervised (%.1f s of launch, beside (c)): rank %d exited %s "
+          "at its %dth step boundary in generation 0, %.3f s after the "
+          "launch; teardown %.3f s, backoff %.1f s; detection to relaunch "
+          "%.3f s (the resume scan validates the manifests); resumed from "
+          "epoch %s; load %.1f ms; %.1f ms a step after the restart "
+          "(median; (a)'s %.1f); save %s ms, %s MB a rank; last manifest "
+          "epoch %s, processes %s; launches %s (%s)"
+          % (b_s, failed["rank"], failed["code"], FT_KILL_STEP,
+             failed["detect_s"], by["teardown"][0]["teardown_s"],
+             by["restart"][0]["backoff_s"], relaunch["t"] - failed["t"],
+             relaunch["resume_epoch"], b[0]["load_ms"] or float("nan"),
+             statistics.median(b[0]["step_ms"]),
+             statistics.median(a[0]["step_ms"]),
+             [[round(v, 1) for v in r["save_ms"]] for r in b],
+             [[round(v / 1e6, 1) for v in r["save_bytes"]] for r in b],
+             last, manifest.get("processes"), b[0]["launches"], card))
+    same = a[0]["digest"] == b[0]["digest"]
+    print("  (b) final weights against (a): %s (%d parameters by SHA-256); "
+          "the resumed losses %s, (a)'s %s; false host losses in (a) and "
+          "(b): %d (bound 0)"
+          % ("bit for bit" if same else "DIFFERENT", len(a[0]["digest"]),
+             b[0]["curve"], a[0]["curve"][FT_STEPS:], false_losses))
+    stale = re.search(r"rank 1 heartbeat stale for ([0-9.]+)s", text_c)
+    placed = text_c.count("FT_WEDGE_PLACED")
+    print("  (c) wedged host: both ranks placed the model (%d), then rank "
+          "1's heartbeat writer stalled for good; launcher exit %s (want "
+          "%d) in %.1f s; stall to detection %s s against "
+          "MXNET_HB_TIMEOUT_MS %d (two strikes of the 200 ms sweep); "
+          "HostLostError in the output: %s"
+          % (placed, rc_c, 43, c_s, stale.group(1) if stale else "?",
+             FT_WEDGE_TIMEOUT_MS, "HostLostError" in text_c))
+    if (failed["rank"], failed["code"]) != (1, 1) \
+            or relaunch["resume_epoch"] != 0 or b[0]["begin"] != 1:
+        fail("(b) the restart did not resume from epoch 0: %s" % recs)
+    if not same:
+        fail("(b) the resumed run's final weights differ from (a)'s")
+    if last != FT_EPOCHS - 1 or manifest.get("processes") != MESH_RANKS:
+        fail("(b) the last manifest: epoch %s, processes %s"
+             % (last, manifest.get("processes")))
+    if b[0]["curve"] != a[0]["curve"][FT_STEPS:]:
+        fail("(b) the resumed losses differ from (a)'s")
+    if false_losses or any(r["host_lost"] for r in a + b):
+        fail("(a)/(b): %d false host losses" % false_losses)
+    for r, rec in enumerate(b):
+        for kname in TRAIN_KERNELS:
+            if rec["launches"][kname] != L * (MESH_STEPS - FT_STEPS):
+                fail("(b) rank %d: %s launched %d times in %d steps, want %d "
+                     "a step" % (r, kname, rec["launches"][kname],
+                                 MESH_STEPS - FT_STEPS, L))
+    if rc_c != 43 or "HostLostError" not in text_c or not stale \
+            or placed != MESH_RANKS or "FT_WEDGE_SLEPT_THROUGH" in text_c:
+        fail("(c) the wedged host was not detected: exit %s\n%s"
+             % (rc_c, text_c[-3000:]))
+    print("  fault tolerance phase %.1f s" % (time.perf_counter() - t_phase))
+    return dict(launches=b[0]["launches"])
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -11393,6 +11783,9 @@ def main():
     print("serve (deploy artifacts through torch.export, the "
           "InferenceServer on CUDA graphs, the compile watch):")
     serve_launches = phase_serve(card, tfa, resnet_readings)
+    print("fault tolerance (the heartbeat, the supervised restart, the 2-D "
+          "checkpoint in phase 25):")
+    ft = phase_fault_tolerance(card, mesh)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -11438,7 +11831,14 @@ def main():
                    mesh["kern"]["dp"][kname], mesh["kern"]["dp"][kname]["err"])
         for kname in TRAIN_KERNELS] + [
         kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "serving (InferenceServer)",
-                   train_shape, serve_launches, train_fwd, train_fwd["err"])]
+                   train_shape, serve_launches, train_fwd, train_fwd["err"])
+    ] + [
+        kernel_row(kname, FWD_SRC if kname == "flash_fwd" else BWD_SRC[kname],
+                   FWD_TPU if kname == "flash_fwd" else BWD_TPU[kname],
+                   "fault tolerance (b) (rank 0)", MESH_DP_SHAPE,
+                   ft["launches"], mesh["kern"]["dp"][kname],
+                   mesh["kern"]["dp"][kname]["err"])
+        for kname in TRAIN_KERNELS]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))
@@ -11457,6 +11857,8 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["mesh4-rank"]:
         sys.exit(mesh4_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["ft-rank"]:
+        sys.exit(ft_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["export-convnet"]:
         sys.exit(export_convnet_main(sys.argv[2]))
     sys.exit(main())

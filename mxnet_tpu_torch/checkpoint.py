@@ -18,9 +18,12 @@ holding a :class:`~mxnet_tpu_torch.parallel.mesh.ShardedTensor` (the
 rank-mesh trainer's sharded parameters and ZeRO-1 state) is saved by
 every rank of the mesh, as the JAX package's multi-process save is: each
 rank writes the shard file of its own pieces (rank 0's also holds every
-whole entry), all meet at a barrier, and rank 0 checksums every shard and
-writes the manifest last. :class:`CheckpointManager` runs saves for a training loop:
-``save`` snapshots every parameter as a device-side clone on the
+whole entry) and checksums it, all meet at ``multihost.barrier``
+(bounded: a rank that died during the save fails it, and the old
+manifest stays the resume point), and rank 0 writes the manifest last,
+vouching for each shard by its writer's checksum.
+:class:`CheckpointManager` runs saves for a training loop: ``save``
+snapshots every parameter as a device-side clone on the
 training stream (the fused step's graph writes the live weights in
 place at its next replay, so the writer must never read them), then a
 writer thread behind a bounded queue (``MXNET_CHECKPOINT_INFLIGHT``:
@@ -254,10 +257,9 @@ def _split_pieces(flat, me):
 
 
 def _save_ranks(prefix, epoch, flat, states_bytes, symbol, meta):
-    """The every-rank save of a roster with sharded entries (see the
-    module docstring); returns the telemetry stats."""
-    import torch.distributed as dist
-    from .parallel import distributed
+    """The every-rank save (see the module docstring); returns the
+    telemetry stats."""
+    from .parallel import distributed, multihost
     me = distributed.rank()
     t0 = time.perf_counter()
     mine, layout, n_shards = _split_pieces(flat, me)
@@ -267,6 +269,7 @@ def _save_ranks(prefix, epoch, flat, states_bytes, symbol, meta):
     if dirname:
         os.makedirs(dirname, exist_ok=True)
     payload = _npz_bytes(mine)
+    digest = _sha256(payload)      # each rank its own, at once
     t_ser = time.perf_counter()
     states_entry = None
     if me == 0:
@@ -280,21 +283,32 @@ def _save_ranks(prefix, epoch, flat, states_bytes, symbol, meta):
                             "bytes": len(states_bytes)}
     atomic_write_file(_shard_file(prefix, epoch, me, n_shards), payload)
     t_write = time.perf_counter()
-    distributed.barrier("ckpt/%s" % _tag(prefix, epoch))
-    ok = [True]
+    # every rank's shard is durable before the manifest is written; a
+    # rank that died fails this bounded barrier on the survivors and the
+    # save fails cleanly, the old manifest staying good
+    multihost.barrier("ckpt/%s" % _tag(prefix, epoch))
+    # the manifest vouches for every shard by its writer's checksum of
+    # the bytes it fsynced (rank 0 checks each file is there, whole)
+    written = multihost.exchange_bytes(
+        "ckpt-sha", json.dumps([digest, len(payload)]).encode())
+    # rank 0 writes the manifest before it answers: the barrier's
+    # progress-scale bound, not a heartbeat-sized one
+    wait_ms = max(10 * envs.get_int("MXNET_HB_TIMEOUT_MS"), 60000)
     if me == 0:
         try:
             shards = []
             for shard in range(n_shards):
                 fname = _shard_file(prefix, epoch, shard, n_shards)
-                if shard == me:
-                    data = payload
-                else:
-                    with open(fname, "rb") as f:
-                        data = f.read()
+                sha, size = json.loads(written[shard]) \
+                    if shard < len(written) else (None, None)
+                if sha is None or os.path.getsize(fname) != size:
+                    raise MXNetError(
+                        "checkpoint %s: shard %d (%s) missing or not whole "
+                        "after the all-shards barrier"
+                        % (_tag(prefix, epoch), shard, fname))
                 shards.append({"file": os.path.basename(fname),
-                               "sha256": _sha256(data),
-                               "bytes": len(data), "shard": shard})
+                               "sha256": sha, "bytes": size,
+                               "shard": shard})
             manifest = {"format": MANIFEST_FORMAT, "epoch": int(epoch),
                         "time": time.time(), "shards": shards,
                         "params": layout, "processes": n_shards}
@@ -305,11 +319,11 @@ def _save_ranks(prefix, epoch, flat, states_bytes, symbol, meta):
             atomic_write_file(manifest_path(prefix, epoch),
                               json.dumps(manifest, sort_keys=True).encode())
         except Exception:
-            ok = [False]
-            dist.broadcast_object_list(ok, src=0)
+            multihost.exchange_bytes("ckpt-ok", b"0", timeout_ms=wait_ms)
             raise
-    dist.broadcast_object_list(ok, src=0)
-    if not ok[0]:
+    # rank 0's verdict on the manifest, through the bounded exchange
+    if multihost.exchange_bytes("ckpt-ok", b"1",
+                                timeout_ms=wait_ms)[0] != b"1":
         raise MXNetError("checkpoint %s: rank 0 failed to write the "
                          "manifest" % _tag(prefix, epoch))
     t_end = time.perf_counter()
@@ -329,19 +343,22 @@ def _npz_bytes(arrays):
 
 
 def save_arrays(prefix, epoch, flat, states_bytes=None, symbol=None,
-                meta=None):
+                meta=None, every_rank=False):
     """Write one checkpoint of a :func:`snapshot_params` roster: the
     optimizer states, then the shard, then the manifest (with ``meta``
     recorded verbatim), each durably. The device-to-host copy happens
     here, on the calling thread. Returns the stats the telemetry record
     carries; raises on a failure (a planned ``ckpt_write``/
     ``ckpt_fsync`` fault included). A roster with a sharded entry on a
-    mesh of several ranks is saved by every rank (:func:`_save_ranks`)."""
+    mesh of several ranks, or any roster with ``every_rank`` (every rank
+    of the group calls: a mesh trainer's save), is saved by every rank
+    (:func:`_save_ranks`: rank 0 writes the whole entries and the
+    manifest, which records the ``processes``)."""
     from .parallel import distributed
     from .parallel.mesh import ShardedTensor
-    if distributed.num_workers() > 1 and any(
+    if distributed.num_workers() > 1 and (every_rank or any(
             isinstance(v, ShardedTensor) and not v.is_fully_replicated
-            for v in flat.values()):
+            for v in flat.values())):
         return _save_ranks(prefix, epoch, flat, states_bytes, symbol, meta)
     t0 = time.perf_counter()
     arrays, layout = {}, {}

@@ -234,15 +234,32 @@ declare("MXNET_TPU_WORLD", "int", None,
         "Multi-process world size.", _G)
 declare("MXNET_TPU_RANK", "int", None,
         "This process's rank in the multi-process world.", _G)
-declare("MXNET_LAUNCH_RESTART", "int", 0,
-        "Restart generation, set BY the supervisor in every worker's "
-        "env (0 = first launch).", _G)
+declare("MXNET_LAUNCH_MAX_RESTARTS", "int", 3,
+        "Supervised-launcher restart budget: whole-job relaunches "
+        "after a worker death before giving up.", _G)
+declare("MXNET_LAUNCH_BACKOFF", "float", 1.0,
+        "First supervised-restart backoff, seconds (doubles per "
+        "consecutive restart).", _G)
 declare("MXNET_LAUNCH_GRACE", "float", 5.0,
         "Seconds between SIGTERM and SIGKILL when the launcher tears "
         "down surviving workers.", _G)
+declare("MXNET_LAUNCH_ALLOW_SHRINK", "bool", False,
+        "Supervised restart after a host loss may relaunch with N-1 "
+        "workers (degraded) instead of a same-size replacement.", _G)
+declare("MXNET_LAUNCH_RESTART", "int", 0,
+        "Restart generation, set BY the supervisor in every worker's "
+        "env (0 = first launch).", _G)
+declare("MXNET_LAUNCH_RESUME_EPOCH", "int", None,
+        "Last good manifest epoch, set BY the supervisor on restart "
+        "so workers resume instead of starting fresh.", _G)
 declare("MXNET_HB_DIR", "path", "",
         "Heartbeat directory of the launcher contract; workers "
         "touch per-rank files, the monitor detects stale peers.", _G)
+declare("MXNET_HB_INTERVAL_MS", "int", 200,
+        "Milliseconds between heartbeat-file touches.", _G)
+declare("MXNET_HB_TIMEOUT_MS", "int", 2000,
+        "Peer-heartbeat staleness that counts as a lost host "
+        "(HostLostError + nonzero exit).", _G)
 
 _G = "telemetry"
 declare("MXNET_TELEMETRY", "bool", False,

@@ -40,7 +40,14 @@ Sites of the port:
 - ``push`` / ``pull`` — once per attempt of a kvstore push's reduce and
   of a pull (``kvstore.py``), so a planned raise exercises the retry;
 - ``init`` — once per attempt of the process-group join;
-- ``proc_join`` — once per join, before its retried attempts.
+- ``proc_join`` — once per join, before its retried attempts;
+- ``proc_hb`` — once per heartbeat-writer tick
+  (``parallel/multihost.py``): ``stall``/``hang`` wedge the beat so the
+  PEERS detect a stale file, ``raise`` kills the beat outright;
+- ``proc_exit`` — once per training step on the training thread
+  (``multihost.step_boundary``): ``proc_exit:step=N:raise`` is the
+  deterministic "host dies at exactly step N" the supervised launcher's
+  restart-the-world path is tested against.
 
 Actions: ``raise`` → :class:`InjectedFault`; ``hang`` → sleep
 ``MXNET_FAULT_HANG_SECONDS`` then :class:`InjectedHang`; ``stall`` →
@@ -89,7 +96,8 @@ _ACTIONS = ("raise", "hang", "stall", "nan", "inf")
 _SITES = ("push", "pull", "init", "grad", "ckpt_write", "ckpt_fsync",
           "serve_admit", "serve_dispatch", "serve_decode",
           "serve_route", "kv_evict",
-          "kv_share", "kv_cow", "replica_lost", "proc_join", "flightrec")
+          "kv_share", "kv_cow", "replica_lost", "proc_hb", "proc_join",
+          "proc_exit", "flightrec")
 # corruption needs a value to corrupt: only the grad site carries one
 _VALUE_SITES = ("grad",)
 _GUARD_POLICIES = ("skip_step", "scale_backoff")
@@ -487,13 +495,13 @@ def join_process_group():
     ``MXNET_KVSTORE_TIMEOUT``; the backend by
     ``parallel.distributed.backend_for``. Transient coordinator races
     are retried under the kvstore deadline (site ``init``). A no-op
-    without a contract or inside a group already. The heartbeat of the
-    supervised launcher (``MXNET_HB_DIR``) is not ported: it raises."""
+    without a contract or inside a group already. The join starts the
+    launcher contract's heartbeat (``MXNET_HB_DIR``, set by
+    ``tools/launch.py --supervise``; ``parallel.multihost``)."""
     n = int(os.environ.get("DMLC_NUM_WORKER", "1") or 1)
     if n <= 1 or "DMLC_WORKER_ID" not in os.environ:
         return
     from .parallel import distributed
-    distributed._no_heartbeat()
     if distributed.is_initialized():
         return
     uri = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")

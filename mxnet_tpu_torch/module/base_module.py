@@ -289,6 +289,7 @@ class BaseModule:
                 eval_metric = _metric.create(eval_metric)
             fit_data, owned_pipeline = self._wrap_train_data(train_data)
 
+            from ..parallel import multihost
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
                 eval_metric.reset()
@@ -299,6 +300,9 @@ class BaseModule:
                     next_data_batch = next(data_iter)
                 while not end_of_batch:
                     data_batch = next_data_batch
+                    # the proc_exit fault site and the surfacing of a
+                    # peer loss (no-op single-process without a plan)
+                    multihost.step_boundary()
                     telemetry.step_begin()
                     if monitor is not None:
                         monitor.tic()

@@ -15,10 +15,9 @@ module here, where the JAX package exports its function), the GPipe
 schedule over ``pp`` (:mod:`~mxnet_tpu_torch.parallel.pipeline`),
 top-k routed experts over ``ep`` (:mod:`~mxnet_tpu_torch.parallel.
 moe`), the process group itself (:mod:`~mxnet_tpu_torch.parallel.
-distributed`).
-
-The multi-host heartbeat waits for ROADMAP queue A item 12, order step
-6: :class:`HostLostError` raises ``NotImplementedError``.
+distributed`) and its fault tolerance: the heartbeat, the bounded
+exchange and the step boundaries (:mod:`~mxnet_tpu_torch.parallel.
+multihost`; :class:`HostLostError`).
 """
 from .mesh import (create_mesh, auto_mesh, make_mesh, mesh_axes,
                    local_mesh, PartitionSpec, NamedSharding, ShardedTensor,
@@ -43,15 +42,4 @@ from .moe import moe_ffn, topk_route, load_balance_loss
 from . import flash_attention   # the module, as the port's callers use it
 from . import distributed
 from . import multihost
-
-_NEXT = "ROADMAP queue A item 12, order step 6"
-
-
-class HostLostError(RuntimeError):
-    """Not ported yet: the multi-host heartbeat's peer-loss error
-    (``multihost.py``); constructing one raises."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "parallel.HostLostError (the multi-host heartbeat, "
-            "multihost.py) is not ported yet (%s)" % _NEXT)
+from .multihost import HostLostError

@@ -48,7 +48,11 @@ gradients add up to the gradient of the global mean.
   work, as the JAX trainer's numbers are the global ones.
 - Checkpoints go through ``checkpoint.py``'s manifest, every rank
   writing its pieces: elastic across mesh sizes, and across the
-  packages (a JAX 8-device save loads on 2 ranks, and back).
+  packages (a JAX 8-device save loads on 2 ranks, and back). The 2-D
+  pieces and their optimizer state are spanning arrays there, each
+  piece under its global index (``opt:2d:<name>.slotS``).
+- :meth:`DistributedTrainer.fit_batch` calls ``multihost.step_boundary``
+  once a step: the ``proc_exit`` fault site and a detected host loss.
 """
 from __future__ import annotations
 
@@ -314,9 +318,11 @@ class _Shard2D:
                 if pl.sharded else v
                 for pl, sh, v in zip(self.plans, self.shardings, pieces)]
 
-    def ensure(self, pieces):
+    def ensure(self, pieces=None):
         """The flat state tuple, zeros beside ``pieces`` on first use."""
         if self._states is None:
+            self._piece_shapes = [tuple(v.shape) for v in pieces]
+            self._device = pieces[0].device if pieces else None
             self._states = tuple(
                 torch.zeros(v.numel(), dtype=dt, device=v.device)
                 for v in pieces for dt in self.slot_dtypes)
@@ -328,14 +334,52 @@ class _Shard2D:
     def state_bytes_per_device(self):
         return sum(t.numel() * t.element_size() for t in self._states or ())
 
-    def checkpoint_roster(self, *args):
-        """Refuses: the pieces' state has no manifest layout yet."""
-        raise NotImplementedError(
-            "DistributedTrainer: a checkpoint of the 2-D (dp, tp) "
-            "parameter shards is not ported yet (ROADMAP queue A item 12, "
-            "order step 6); checkpoint with param_shard off or tp 1")
+    def _key(self, pos, slot):
+        return "opt:2d:%s.slot%d" % (self.plans[pos].name, slot)
 
-    load_host_flats = checkpoint_roster
+    def checkpoint_roster(self):
+        """``{'opt:2d:<name>.slotS': ...}`` for the manifest writer: each
+        sharded parameter's state slot as a spanning array of the
+        parameter's padded shape whose pieces are the ranks' (the
+        manifest records each piece's global index), a replicated one's
+        whole."""
+        out = {}
+        if self._states is None:
+            return out
+        k = self.n_slots
+        for pos, (pl, sh) in enumerate(zip(self.plans, self.shardings)):
+            for slot in range(k):
+                st = self._states[pos * k + slot].view(
+                    self._piece_shapes[pos])
+                out[self._key(pos, slot)] = ShardedTensor(
+                    st, pl.padded_shape, sh) if pl.sharded else st
+        return out
+
+    def load_host_flats(self, flat):
+        """Restore from a checkpoint's ``opt:2d:`` host arrays, saved on
+        any mesh: each cut to the parameter's logical shape, re-padded and
+        re-cut for this rank's piece. Checks every entry before it changes
+        anything."""
+        k, new = self.n_slots, []
+        for pos, (pl, sh) in enumerate(zip(self.plans, self.shardings)):
+            for slot in range(k):
+                key = self._key(pos, slot)
+                if key not in flat:
+                    raise MXNetError("2-D sharded optimizer state: the "
+                                     "checkpoint is missing %s" % key)
+                host = _np.asarray(flat[key])
+                if host.ndim != len(pl.shape) or any(
+                        h < d for h, d in zip(host.shape, pl.shape)):
+                    raise MXNetError(
+                        "2-D sharded optimizer state: %s has shape %s, the "
+                        "parameter %s" % (key, host.shape, pl.shape))
+                t = torch.from_numpy(_np.ascontiguousarray(
+                    host[tuple(slice(0, d) for d in pl.shape)])).to(
+                        self.slot_dtypes[slot])
+                if pl.sharded:
+                    t = sh.shard(pl.pad(t))
+                new.append(t.reshape(-1).to(self._device).clone())
+        self._states = tuple(new)
 
     def __call__(self, grads, pieces, states, scalars):
         """``(new_pieces, new_states)`` from this rank's gradient
@@ -610,6 +654,10 @@ class DistributedTrainer:
         from ..fused_step import pack_step_scalars
         from ..ndarray import NDArray
         from . import grad_sync
+        from . import multihost
+        # the proc_exit fault site ("this host dies at exactly step N")
+        # and the typed surfacing of a peer loss the heartbeat detected
+        multihost.step_boundary()
         data_v = _local_piece(data, self._mesh, True, "the data")
         label_v = _local_piece(label, self._mesh, True, "the label")
         if self._step_fn is None:
@@ -703,8 +751,11 @@ class DistributedTrainer:
         if manager is not None:
             manager.save(epoch, arg, aux, extra=extra)
             return
+        # every rank calls: the rank-mesh save even when nothing is
+        # sharded (rank 0 writes the whole entries and the manifest)
         ckpt.save_arrays(prefix, epoch,
-                         ckpt.snapshot_params(arg, aux, extra=extra))
+                         ckpt.snapshot_params(arg, aux, extra=extra),
+                         every_rank=True)
 
     def load_checkpoint(self, prefix, epoch, validate=True):
         """Elastic resume from a manifest checkpoint (any mesh size, either
@@ -712,9 +763,11 @@ class DistributedTrainer:
         optimizer state re-padded for the current axis. Before the first
         fit_batch the payload waits for the build."""
         from .. import checkpoint as ckpt
+        from ..context import cpu
+        # on the host: the restore places each value where it lives
         flat = {k: v._data for k, v in
                 ckpt.load_arrays(prefix, epoch, validate=validate,
-                                 ctx=None).items()}
+                                 ctx=cpu()).items()}
         if self._step_fn is None:
             self._pending_restore = flat
         else:

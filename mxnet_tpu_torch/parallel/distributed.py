@@ -1,8 +1,14 @@
 """Multi-process group management on ``torch.distributed`` (counterpart
 of ``mxnet_tpu/parallel/distributed.py``).
 
-Rank and world size come from the process group; the barrier is the
-group's. Launch contract, in precedence order:
+Rank and world size come from the process group. :func:`join` builds
+the group's c10d store itself (a ``TCPStore`` for ``tcp://``, a
+``FileStore`` for ``file://``), hands it to ``init_process_group`` and
+keeps the handle (:func:`store`): ``parallel.multihost``'s bounded
+barrier and exchange ride it, and a join under ``MXNET_HB_DIR`` starts
+the launcher contract's heartbeat. :func:`barrier` is the store's
+bounded barrier under gloo and the group's device barrier under NCCL.
+Launch contract, in precedence order:
 
 - ``MXNET_TPU_COORDINATOR`` / ``MXNET_TPU_WORLD`` / ``MXNET_TPU_RANK``,
   the explicit triple :func:`init` reads. Setting only PART of it raises
@@ -28,19 +34,21 @@ nothing latches until ``init_process_group`` succeeded.
 from __future__ import annotations
 
 import datetime
+from urllib.parse import urlparse
 
 import torch
 
 from .. import envs
 from ..base import MXNetError
 
-__all__ = ["init", "join", "backend_for", "backend", "rank", "num_workers",
-           "barrier", "is_initialized", "finalize", "local_devices",
-           "global_devices"]
+__all__ = ["init", "join", "backend_for", "backend", "store", "rank",
+           "num_workers", "barrier", "is_initialized", "finalize",
+           "local_devices", "global_devices"]
 
 _CONTRACT = ("MXNET_TPU_COORDINATOR", "MXNET_TPU_WORLD", "MXNET_TPU_RANK")
 _LOOPBACK = ("localhost", "::1", "0.0.0.0")
 _backend = [None]
+_store = [None]
 
 
 def _contract_from_env():
@@ -91,33 +99,47 @@ def backend_for(init_method, world_size):
     return "cpu:gloo,cuda:nccl"
 
 
-def _no_heartbeat():
-    if envs.get_path("MXNET_HB_DIR"):
-        raise NotImplementedError(
-            "MXNET_HB_DIR: the heartbeat of the supervised launcher "
-            "belongs to parallel/multihost.py, not ported yet (ROADMAP "
-            "queue A item 12, order step 6)")
+def _make_store(init_method, world_size, rank_, timeout):
+    """The c10d store of a rendezvous at ``init_method``: a ``FileStore``
+    for ``file://PATH``, a ``TCPStore`` (served by rank 0) for
+    ``tcp://HOST:PORT``, as ``init_process_group`` would build them."""
+    import torch.distributed as dist
+    url = urlparse(init_method)
+    if url.scheme == "file":
+        return dist.FileStore(url.path, int(world_size))
+    if url.scheme != "tcp" or url.port is None:
+        raise MXNetError("distributed.join: want tcp://HOST:PORT or "
+                         "file://PATH, got %r" % init_method)
+    return dist.TCPStore(url.hostname, url.port, int(world_size),
+                         int(rank_) == 0, timeout=timeout)
 
 
 def join(init_method, world_size, rank_):
-    """``torch.distributed.init_process_group`` at ``init_method`` with
-    the rule's backend and ``MXNET_KVSTORE_TIMEOUT`` as the group's
-    timeout (one attempt; callers retry)."""
+    """``torch.distributed.init_process_group`` over the store of
+    ``init_method`` (kept: :func:`store`), with the rule's backend and
+    ``MXNET_KVSTORE_TIMEOUT`` as the group's timeout (one attempt;
+    callers retry); then the heartbeat when ``MXNET_HB_DIR`` asks for
+    one."""
     import torch.distributed as dist
-    _no_heartbeat()
     name = backend_for(init_method, world_size)
-    dist.init_process_group(
-        backend=name, init_method=init_method, world_size=int(world_size),
-        rank=int(rank_), timeout=datetime.timedelta(
-            seconds=envs.get_float("MXNET_KVSTORE_TIMEOUT")))
+    timeout = datetime.timedelta(
+        seconds=envs.get_float("MXNET_KVSTORE_TIMEOUT"))
+    store_ = _make_store(init_method, world_size, rank_, timeout)
+    dist.init_process_group(backend=name, store=store_,
+                            world_size=int(world_size), rank=int(rank_),
+                            timeout=timeout)
     _backend[0] = name
+    _store[0] = store_
+    from . import multihost
+    multihost.maybe_start_heartbeat(int(rank_), int(world_size))
 
 
 def init(coordinator=None, num_processes=None, process_id=None):
     """Join the process group (the DMLC_PS_ROOT_URI role).
 
     Explicit arguments win; otherwise the MXNET_TPU_* triple is read and
-    validated. Visits the ``proc_join`` fault site. Without a contract
+    validated. Visits the ``proc_join`` fault site and starts the
+    launcher contract's heartbeat (``MXNET_HB_DIR``). Without a contract
     anywhere this is a no-op (a single-process run)."""
     if is_initialized():
         return
@@ -142,7 +164,6 @@ def init(coordinator=None, num_processes=None, process_id=None):
                 "triple" % (coordinator, ", ".join(missing)))
     if not coordinator:
         return
-    _no_heartbeat()
     from .. import fault
     fault.inject("proc_join")
     join(_init_method(coordinator), num_processes, process_id)
@@ -156,6 +177,12 @@ def is_initialized():
 def backend():
     """The backend string of the joined group (None outside one)."""
     return _backend[0] if is_initialized() else None
+
+
+def store():
+    """The c10d store :func:`join` built the group over (None outside a
+    group joined that way)."""
+    return _store[0] if is_initialized() else None
 
 
 def rank():
@@ -190,14 +217,24 @@ def global_devices():
 
 
 def barrier(name="mxnet_tpu_barrier"):
-    """Global barrier over the process group (a no-op on one worker)."""
+    """Global barrier (a no-op on one worker). NCCL groups sync the
+    devices; gloo groups ride the store's bounded barrier
+    (``multihost.barrier``), so a peer that died surfaces as an error
+    naming ``name`` instead of a wait until the group's timeout."""
     if num_workers() > 1:
-        import torch.distributed as dist
-        dist.barrier()
+        from . import multihost
+        if multihost.supports_global_spmd():
+            import torch.distributed as dist
+            dist.barrier()
+        else:
+            multihost.barrier(name)
 
 
 def finalize():
+    from . import multihost
+    multihost.stop_heartbeat()
     if is_initialized():
         import torch.distributed as dist
         dist.destroy_process_group()
     _backend[0] = None
+    _store[0] = None

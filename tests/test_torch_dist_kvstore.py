@@ -235,8 +235,8 @@ def test_launch_cli_validation(monkeypatch):
     for launcher in ("ssh", "mpi", "sge", "yarn"):
         with pytest.raises(NotImplementedError, match="local launcher"):
             launch.main(["-n", "2", "--launcher", launcher, "echo", "hi"])
-    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
-        launch.main(["-n", "2", "--supervise", "echo", "hi"])
+    assert launch.main(["-n", "2", "--supervise", "--max-restarts", "0",
+                        sys.executable, "-c", "print('ok')"]) == 0
     assert launch.main(["-n", "1", "-s", "2", sys.executable, "-c",
                         "print('ok')"]) == 0
     # the first failing worker's exit code propagates verbatim

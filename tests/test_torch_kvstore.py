@@ -413,18 +413,36 @@ def test_dist_async_warns_once(caplog, mx, kvs):
     assert "degrades to synchronous" in hits[0].getMessage()
 
 
-def test_join_without_a_contract_is_a_no_op_and_heartbeat_raises(
+def test_join_without_a_contract_is_a_no_op_and_heartbeat_starts(
         monkeypatch, tmp_path):
+    import sys
+    import torch.distributed as dist
+    from mxnet_tpu_torch.parallel import distributed, multihost
     monkeypatch.delenv("DMLC_WORKER_ID", raising=False)
     tfault.join_process_group()
-    from mxnet_tpu_torch.parallel import distributed
     assert not distributed.is_initialized()
+    # under the contract with MXNET_HB_DIR the join starts the heartbeat
+    # once the group is up (the rendezvous itself stubbed: one process)
     monkeypatch.setenv("DMLC_NUM_WORKER", "2")
     monkeypatch.setenv("DMLC_WORKER_ID", "0")
     monkeypatch.setenv("MXNET_HB_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
+    joined = []
+    monkeypatch.setattr(distributed, "_make_store",
+                        lambda *a: joined.append(a) or "store")
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **kw: joined.append(kw))
+    monkeypatch.setattr(sys, "excepthook", sys.excepthook)
+    try:
         tfault.join_process_group()
-    assert not distributed.is_initialized()
+        assert joined[1]["store"] == "store"
+        assert joined[1]["world_size"] == 2 and joined[1]["rank"] == 0
+        hb = multihost.heartbeat()
+        assert hb is not None and (hb.rank, hb.world) == (0, 2)
+        assert (tmp_path / "hb-0").exists()
+    finally:
+        multihost.stop_heartbeat()
+        distributed._backend[0] = distributed._store[0] = None
+    assert (tmp_path / "hb-0.done").exists()
 
 
 # ---------------------------------------------------------------------------

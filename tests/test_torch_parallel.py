@@ -115,11 +115,12 @@ def test_world_of_one_runs_the_single_device_path():
         tpar.create_mesh({"dp": 2})
 
 
-@pytest.mark.parametrize("name", ["HostLostError"])
-def test_next_slice_names_raise(name):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A item 12, order step 6"):
-        getattr(tpar, name)()
+def test_host_lost_error_is_the_multihost_one():
+    from mxnet_tpu_torch.parallel import multihost
+    assert tpar.HostLostError is multihost.HostLostError
+    assert issubclass(tpar.HostLostError, tmx.base.MXNetError)
+    assert issubclass(jpar.HostLostError, jmx.base.MXNetError)
+    assert str(tpar.HostLostError("rank 1 lost")) == "rank 1 lost"
 
 
 # ---------------------------------------------------------------------------

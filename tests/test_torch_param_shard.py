@@ -484,6 +484,13 @@ def test_tp_trajectory_is_the_dp_runs(ranks, ranks_tp, jax_tp, shard):
                                        rtol=1e-4, atol=1e-6)
 
 
-def test_tp_checkpoint_names_its_queue_item(ranks_tp):
+def test_tp_checkpoint_saves_the_2d_pieces(ranks_tp):
+    import json
     for r in ranks_tp:
-        assert "ROADMAP queue A item 12" in r["tp/1/ckpt"]
+        assert r["tp/1/ckpt"] == ""
+    with open(ranks_tp[0]["tp/ckpt_prefix"] + "-0000.ckpt.json") as f:
+        manifest = json.load(f)
+    assert manifest["processes"] == 4
+    pieces = {k: len(v["pieces"]) for k, v in manifest["params"].items()}
+    assert {k for k, n in pieces.items() if n == 4} >= {
+        "arg:tpnet_dense0_weight", "opt:2d:tpnet_dense0_weight.slot0"}

@@ -1064,6 +1064,7 @@ def check_tp_trainer(R, mx, par):
             try:
                 tr.save_checkpoint(os.path.join(R.cfg["tmp"], "tp"), 0)
                 R.put(key + "/ckpt", "")
+                R.put("tp/ckpt_prefix", os.path.join(R.cfg["tmp"], "tp"))
             except NotImplementedError as exc:
                 R.put(key + "/ckpt", str(exc))
         tr.sync_gluon_params()
@@ -1081,6 +1082,95 @@ def check_tp_reference(R, mx, par):
         R.put("tp_ref/p%d" % i, p.data().asnumpy())
 
 
+
+MH_SEED = 11                    # the store exchange's stacks
+
+
+def mh_stacks(rank):
+    """Rank ``rank``'s per-leaf stacks for cross_host_sum: three rows a
+    leaf, so the fold's order shows in the bits."""
+    rs = np.random.RandomState(MH_SEED + rank)
+    return [rs.randn(3, 4, 5).astype(np.float32),
+            rs.randn(3, 7).astype(np.float32)]
+
+
+def check_store_exchange(R, mx, par):
+    """``multihost``'s store leg over the ranks: the bounded barrier, the
+    exchange in rank order, the rank-major fold, a slow rank whose beat
+    is fresh (waited for), then a rank that never posts (rank 0 alone
+    calls: it must raise naming rank 1 within the bound)."""
+    import time
+    from mxnet_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    multihost.barrier("mh/b")
+    multihost.barrier("mh/b")
+    R.put("mh/barrier_s", time.perf_counter() - t0)
+    got = multihost.exchange_arrays(
+        "mh/x", [np.arange(4) * R.rank, np.full((2,), R.rank, np.int64)])
+    R.put("mh/x", [[a.tolist() for a in r] for r in got])
+    R.put("mh/x_dtypes", [[str(a.dtype) for a in r] for r in got])
+    for i, v in enumerate(multihost.cross_host_sum("mh/s",
+                                                   mh_stacks(R.rank))):
+        R.put("mh/sum%d" % i, v)
+    # slow but beating: rank 1 posts 2.5 s late against a 1 s bound
+    hb_dir = os.path.join(R.cfg["tmp"], "hb")
+    os.environ["MXNET_HB_DIR"] = hb_dir
+    hb = multihost.Heartbeat(R.rank, R.world, hb_dir=hb_dir,
+                             exit_on_loss=False).start()
+    try:
+        if R.rank == 1:
+            time.sleep(2.5)
+        t0 = time.perf_counter()
+        out = multihost.exchange_bytes("mh/slow", b"r%d" % R.rank,
+                                       timeout_ms=1000)
+        R.put("mh/slow", [o.decode() for o in out])
+        R.put("mh/slow_s", time.perf_counter() - t0)
+    finally:
+        hb.stop()
+        del os.environ["MXNET_HB_DIR"]
+    multihost.barrier("mh/b")
+    if R.rank == 0:
+        t0 = time.perf_counter()
+        try:
+            multihost.exchange_bytes("mh/silent", b"x", timeout_ms=1500)
+            R.put("mh/silent", "no error")
+        except multihost.HostLostError as exc:
+            R.put("mh/silent", str(exc))
+        R.put("mh/silent_s", time.perf_counter() - t0)
+
+
+def check_tp_checkpoint(R, mx, par):
+    """The {dp: 2, tp: 2} FSDP trainer's checkpoint: saved after three
+    steps (its whole parameters and the 2-D optimizer state gathered, for
+    the reader's comparison), loaded by a fresh trainer; one more step
+    from there against the running trainer's."""
+    mesh = par.create_mesh({"dp": 2, "tp": 2})
+    net, tr, losses = tp_run(mx, par, mesh, True)
+    prefix = os.path.join(R.cfg["tmp"], "tpck")
+    tr.save_checkpoint(prefix, 0)
+    R.put("tpck/roster", list(tr._roster))
+    for n, v in zip(tr._roster, tr._whole_params()):
+        R.put("tpck/arg/" + n, _np(v))
+    for k, v in tr._shard2d.checkpoint_roster().items():
+        R.put("tpck/" + k, _np(v.full() if hasattr(v, "full") else v))
+    x, y = dist_batches(4, width=TP_WIDTH)[3]
+    R.put("tpck/loss", float(tr.fit_batch(mx.nd.array(x),
+                                          mx.nd.array(y)).asnumpy()))
+    fresh = par.DistributedTrainer(
+        tp_net(mx),
+        mx.gluon.loss.SoftmaxCrossEntropyLoss(), mesh, optimizer="adam",
+        optimizer_params={"learning_rate": 0.01}, param_shard=True)
+    fresh.load_checkpoint(prefix, 0)
+    R.put("tpck/fresh_loss", float(fresh.fit_batch(
+        mx.nd.array(x), mx.nd.array(y)).asnumpy()))
+    for i, (a, b) in enumerate(zip(tr._whole_params(),
+                                   fresh._whole_params())):
+        R.put("tpck/after/%d" % i, _np(a))
+        R.put("tpck/fresh_after/%d" % i, _np(b))
+    R.put("tpck/states_equal", all(
+        bool((a == b).all()) for a, b in zip(tr._state_vals,
+                                              fresh._state_vals)))
+
 SUITES = {
     "parallel": (check_mesh, check_collectives, check_attention,
                  check_attention_op, check_dp_step),
@@ -1090,6 +1180,8 @@ SUITES = {
                      check_moe_mesh, check_autograd_collectives),
     "sp_trainer": (check_sp_trainer, check_sp_dp_step),
     "tp_trainer": (check_tp_trainer,),
+    "multihost": (check_store_exchange,),
+    "tp_ckpt": (check_tp_checkpoint,),
     "data_parallel": (check_bitexact, check_zero1, check_placed_once,
                       check_unknown_optimizer, check_checkpoint,
                       check_cross_load, check_seed_export, check_telemetry,
