@@ -532,7 +532,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    card with buckets SERVE_BUCKETS, loaded (every program on cuda:0) and
    served by ``InferenceServer(max_queue=64, batch_window_ms=2.0)``:
    ``warmup()`` captures the three bucket graphs (``compile_watch``:
-   three sites, one compile each); 8 client threads x 32 requests (seed 1):
+   three sites, one compile each); 8 client threads x 16 requests (seed 1):
    no compile and no recapture during traffic, replays = batches, each
    answer within SERVE_TOL of the hybridized net on its sample alone and
    bit-identical to the Predictor's program at its bucket; export s,
@@ -540,15 +540,15 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ms a batch at bucket 32 by replay beside phase 13's CachedOp replay;
    a shed drill and a deadline drill (``MXNET_FAULT_PLAN`` hang at
    ``serve_dispatch``). (b) examples/serve_artifact.py's convnet exported
-   in a CPU-only subprocess (``chip_smoke.py export-convnet PATH``) and
+   in a CPU-only subprocess (``chip_smoke.py export-cpu DIR``) and
    on the card, both served on cuda:0: no program names the CPU, answers
    within PORTABLE_TOL. (c) phase 10's LM (163.0M parameters, not
-   hybridized) as an in-process callable, ladder [1, 2, 4, 8] x seq
-   [256, 1024]: 8 captures, flash_fwd 12 launches a replay (counters
-   zeroed before the traffic, read after), per-position max logit and
-   argmax against the model alone; hybridized, its CachedOp captures
-   nothing inside a bucket graph; its export raises naming
-   ``_contrib_flash_attention``. (d) phase 14's ``Module.fit`` under
+   hybridized) as an in-process callable, ladder LM_SERVE_LADDER x seq
+   LM_SERVE_SEQ: a capture each, flash_fwd 12 launches a replay
+   (counters zeroed before the traffic, read after), per-position max
+   logit and argmax against the model alone; hybridized, its CachedOp
+   captures nothing inside a bucket graph. (d) phase 14's
+   ``Module.fit`` under
    ``MXNET_COMPILE_WATCH=1`` for WATCH_STEPS steps: one
    ``fused_step:module`` compile, a step's flops within WATCH_FLOPS_REL of
    the hand count, the utilization record's MFU = flops / (step s x the
@@ -576,12 +576,49 @@ no result, anywhere else. Phases (any failure exits non-zero):
    to detection from the monitor's message. (d) runs inside phase 25
    (b): the ``{dp: 2, tp: 2}`` FSDP state saved, loaded by a fresh
    trainer, one more step of each bit for bit.
+28. deploy, the rest (after 27) — the twenty-fourth slice, fp32 with TF32
+   off: the attention kernels as ``torch.library`` ops
+   (``mxnet_tpu_torch::flash_fwd`` and its backward pair,
+   ``::flash_decode``, ``::flash_decode_q8``) in artifacts, and format-3
+   int8 artifacts. (a) phase 10's LM (seed 0) with (max logit, argmax)
+   heads exported on the card with buckets LM_ART_BUCKETS at T
+   LM_ART_T, loaded with ``load_compiled`` and served by the
+   ``InferenceServer``: 2 captures in warmup, none in traffic; 32
+   requests of 100-1024 tokens (seed 2) padded at the end, each
+   position's (max logit, argmax) against the model alone at
+   LM_SERVE_TOL; the meta names ``flash_fwd``, every program calls it
+   and none of the plain attention's ops; flash_fwd 12 launches a
+   replay (zeroed before the traffic, read after), the plain attention
+   never called; ms a B8 T1024 batch by the artifact's replay beside
+   phase 26 (c)'s in-process callable and the hybridized net's
+   CachedOp; export s a bucket and the artifact's bytes. (b) FC ->
+   flash attention -> FC (ATT_SHAPE's widths) exported in phase 26 (b)'s
+   CPU-only subprocess and on the card, both served on cuda:0: flash_fwd launched by the CPU export's
+   programs, answers within PORTABLE_TOL of the card export's. (c)
+   ``_contrib_decode_attention`` at B8 T576 H12 D64 (lengths an input)
+   exported and run through the Predictor at random lengths and at
+   576, 1, ..., 1: flash_decode launched once a call, held to the plain
+   version at DEC_ART_TOL. (d) phase 26 (a)'s ResNet-50 v1 and weights
+   through ``contrib.quantization.quantize_model`` (naive, 4 batches of
+   32 synthetic images, seed 3) and ``export_compiled(quantize=True)``
+   with buckets Q8_BUCKETS: the 54 calibrated ranges equal
+   quantize_model's, ``max_abs_delta`` recomputed op by op within
+   Q8_DELTA_TOL; 8 clients x 16 requests (seed 5), each answer held to
+   the quantized Symbol op by op on the batch the server formed
+   (Q8_TOL) and to the Predictor's program at its bucket bit for bit;
+   requests/s and the bucket-32 replay beside phase 26 (a)'s fp32;
+   device ms by kernel class (int8 GEMM, im2col copies) and by op class
+   (quantized products, quantize, requantize, dequantize). (e) host µs
+   a ``flash_attention`` call through the op beside ``_fwd_cuda`` at B1
+   T64, and with ``_build.library`` made to fail an op call on cuda:0
+   raises ``MXNetError``.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
 packing, mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches,
-serving (InferenceServer), or fault tolerance (b), rank 0's launches in
-its second generation;
+serving (InferenceServer), fault tolerance (b), rank 0's launches in
+its second generation, LM artifact (InferenceServer), CPU-exported
+artifact, or decode artifact;
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -10793,7 +10830,7 @@ def phase_mesh_axes(card, tfa, mesh24):
 # ---------------------------------------------------------------------------
 
 # (a) ResNet-50 v1 as phase 13 builds it at the reference's size, exported
-# with one program a bucket and served: 8 clients x 32 requests from
+# with one program a bucket and served: 8 clients x 16 requests from
 # seed 1; each answer against the hybridized net on its sample alone
 # (the example's tolerance) and bit for bit against the Predictor's
 # program at the bucket it ran in; the drills' queue bound and burst
@@ -10801,7 +10838,7 @@ SERVE_BUCKETS = [1, 8, 32]          # (cut from six: phase 27's time)
 SERVE_IMAGE = 224
 SERVE_CLASSES = 1000
 SERVE_CLIENTS = 8
-SERVE_PER_CLIENT = 32
+SERVE_PER_CLIENT = 16               # (cut from 32: phase 28's time)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 SHED_QUEUE = 4
 SHED_BURST = 64
@@ -10811,13 +10848,15 @@ DEADLINE_HANG_S = "0.2"
 CONVNET_BUCKETS = [1, 2, 4, 8]
 CONVNET_REQUESTS = 32
 PORTABLE_TOL = dict(rtol=1e-5, atol=1e-6)
-# (c) phase 10's LM as an in-process callable: 32 requests of 100-1024
+# (c) phase 10's LM as an in-process callable: 16 requests of 100-256
 # tokens from seed 2; per position (max logit, argmax) against the model
-# alone on the request
-LM_SERVE_LADDER = [1, 2, 4, 8]
-LM_SERVE_SEQ = [256, 1024]
-LM_SERVE_REQUESTS = 32
-LM_SERVE_LENGTHS = (100, 1024)
+# alone on the request (cut from ladder [1, 2, 4, 8] x seq [256, 1024]
+# and 32 requests of 100-1024 tokens: phase 28 (a) serves the LM at T
+# 1024 from an artifact)
+LM_SERVE_LADDER = [1, 8]
+LM_SERVE_SEQ = [256]
+LM_SERVE_REQUESTS = 16
+LM_SERVE_LENGTHS = (100, 256)
 LM_SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 # (d) phase 14's Module.fit under MXNET_COMPILE_WATCH=1
 WATCH_STEPS = 5
@@ -10849,16 +10888,21 @@ def convnet_export(mx, path, ctx):
     return path
 
 
-def export_convnet_main(path):
-    """``chip_smoke.py export-convnet PATH``: (b)'s CPU export, run in a
-    process that sees no CUDA device."""
+def export_cpu_main(outdir):
+    """``chip_smoke.py export-cpu DIR``: the CPU exports, run in a process
+    that sees no CUDA device: (b)'s convnet (``DIR/convnet-cpu.mxp``) and
+    phase 28 (b)'s attention graph (``DIR/att-cpu.mxp``), one process
+    start for both."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mxnet_tpu_torch as mx
     if torch.cuda.is_available():
-        print("export-convnet: a CUDA device is visible")
+        print("export-cpu: a CUDA device is visible")
         return 1
-    convnet_export(mx, path, mx.cpu())
-    print("export-convnet: %s, %d bytes" % (path, os.path.getsize(path)))
+    for name, export in (("convnet-cpu.mxp", convnet_export),
+                         ("att-cpu.mxp", attention_export)):
+        path = os.path.join(outdir, name)
+        export(mx, path, mx.cpu())
+        print("export-cpu: %s, %d bytes" % (path, os.path.getsize(path)))
     return 0
 
 
@@ -10887,8 +10931,9 @@ def timing_calls(module, names):
 
 
 def serve_traffic(srv, samples, clients):
-    """``clients`` threads each submit their share of ``samples`` (with
-    backpressure: ``block=True``), then wait for them. Returns the
+    """``clients`` threads each submit their share of ``samples`` (each
+    one array, or a tuple of one array per input; with backpressure:
+    ``block=True``), then wait for them. Returns the
     futures in sample order and the traffic's wall seconds."""
     futs = [None] * len(samples)
     errors = []
@@ -10898,7 +10943,9 @@ def serve_traffic(srv, samples, clients):
         try:
             mine = range(c * per, (c + 1) * per)
             for i in mine:
-                futs[i] = srv.submit(samples[i], block=True)
+                sample = samples[i] if isinstance(samples[i], tuple) \
+                    else (samples[i],)
+                futs[i] = srv.submit(*sample, block=True)
             for i in mine:
                 futs[i].result(timeout=300)
         except Exception as exc:            # noqa: BLE001
@@ -11108,8 +11155,8 @@ def serve_resnet(mx, card, bench_ms):
 def serve_portable(mx, card):
     """(b): the convnet exported in a CPU-only process serves on cuda:0,
     equal to a card export's answers; nothing of its programs stays on
-    the CPU."""
-    import shutil
+    the CPU. Returns the directory of the CPU exports, which holds phase
+    28 (b)'s attention artifact."""
     import tempfile
     from mxnet_tpu_torch import serving
     tmp = tempfile.mkdtemp(prefix="mxt-port-")
@@ -11118,7 +11165,7 @@ def serve_portable(mx, card):
                MXNET_DEFAULT_CONTEXT="cpu")
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "export-convnet", cpu_path], env=env,
+                          "export-cpu", tmp], env=env,
                          capture_output=True, text=True, timeout=600)
     sub_s = time.perf_counter() - t0
     if res.returncode != 0:
@@ -11139,7 +11186,8 @@ def serve_portable(mx, card):
         outs[tag] = np.stack([f.result() for f in futs])
     err = float(np.max(np.abs(outs["cpu"] - outs["card"])))
     print("  (b) serve_artifact.py's convnet exported in a CPU-only process "
-          "(%.1f s with its start), loaded on cuda:0: program devices %s "
+          "(%.1f s with its start and phase 28 (b)'s export), loaded on "
+          "cuda:0: program devices %s "
           "(card export: %s); %d requests served from each, max abs diff "
           "%.3g (rtol %g, atol %g)"
           % (sub_s, sorted(devs["cpu"]), sorted(devs["card"]),
@@ -11150,7 +11198,9 @@ def serve_portable(mx, card):
     if not np.allclose(outs["cpu"], outs["card"], **PORTABLE_TOL):
         fail("serve: the CPU export's answers differ from the card's by %g"
              % err)
-    shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("convnet-cpu.mxp", "convnet-card.mxp"):
+        os.remove(os.path.join(tmp, name))
+    return tmp
 
 
 def lm_serving_net(mx):
@@ -11197,7 +11247,6 @@ def serve_lm(mx, card, tfa):
     """(c): the LM as an in-process callable on the server's bucket
     graphs; the flash kernel inside them."""
     from mxnet_tpu_torch import compile_watch, serving
-    from mxnet_tpu_torch.base import MXNetError
     net, lm, cfg = lm_serving_net(mx)
     n_params = sum(p.data().size for p in net.collect_params().values())
     compile_watch.enable()
@@ -11209,8 +11258,9 @@ def serve_lm(mx, card, tfa):
     warm_s = time.perf_counter() - t0
     warm = compile_watch.site_stats("serving:lm")
     graphs = program_graphs(srv)
-    if n != 8 or len(warm) != 8 or any(s["count"] != 1
-                                       for s in warm.values()):
+    n_prog = len(LM_SERVE_LADDER) * len(LM_SERVE_SEQ)
+    if n != n_prog or len(warm) != n_prog or any(s["count"] != 1
+                                                 for s in warm.values()):
         fail("serve: the LM's warmup readied %d programs, sites %s"
              % (n, warm))
     held = {k: g._entries[next(iter(g._entries))].launches
@@ -11286,17 +11336,6 @@ def serve_lm(mx, card, tfa):
           "CachedOp captured %d graphs (its plan ran inside the bucket's), "
           "reply within %.3g of the unhybridized one" % (cop["captures"],
                                                          herr))
-    try:
-        mx.deploy.export_compiled(net, "/dev/null",
-                                  input_shapes={"data0": (1, 256),
-                                                "data1": (256,)})
-        fail("serve: export_compiled took the LM with flash attention")
-    except MXNetError as exc:
-        if "_contrib_flash_attention" not in str(exc):
-            fail("serve: the LM's export refusal does not name the op: %s"
-                 % exc)
-        print("  (c) deploy.export_compiled of the LM on the card raises: "
-              "%s" % str(exc)[:110])
     compile_watch.disable()
     del srv, net, lm
     gc.collect()
@@ -11389,14 +11428,16 @@ def phase_serve(card, tfa, resnet_readings):
     """The twenty-second slice's main path: deploy artifacts through
     torch.export and the continuous-batching InferenceServer on CUDA
     graphs, (a)-(d) as the module docstring sets out; fp32, TF32 off.
-    Returns (c)'s launches."""
+    Returns (a)'s readings, (c)'s launches and the forward kernel's
+    record at (c)'s top bucket."""
     import mxnet_tpu_torch as mx
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tfa.reset_launches()
-    serve_resnet(mx, card, resnet_readings["bench"]["hybridized"]["ms"])
-    serve_portable(mx, card)
+    resnet = serve_resnet(mx, card,
+                          resnet_readings["bench"]["hybridized"]["ms"])
+    cpu_dir = serve_portable(mx, card)
     if any(tfa.launches.values()):
         fail("serve: the convnet paths launched attention kernels: %s"
              % tfa.launches)
@@ -11406,10 +11447,14 @@ def phase_serve(card, tfa, resnet_readings):
     if any(tfa.launches.values()):
         fail("serve: the Module path launched attention kernels: %s"
              % tfa.launches)
+    lm_fwd = fwd_case(tfa, LM_SERVE_LADDER[-1], LM_SERVE_SEQ[-1],
+                      LM_SERVE_SEQ[-1], GPT2_SMALL["n_heads"],
+                      GPT2_SMALL["head_dim"], True, False, seed=26)
     print("  attention kernel launches: none in (a), (b) and (d) (zeroed, "
           "read 0); (c) %s; serve phase %.1f s"
           % (launches, time.perf_counter() - t_phase))
-    return launches
+    return dict(launches=launches, resnet=resnet, lm_fwd=lm_fwd,
+                cpu_dir=cpu_dir)
 
 
 # ---------------------------------------------------------------------------
@@ -11702,6 +11747,669 @@ def phase_fault_tolerance(card, mesh24):
     return dict(launches=b[0]["launches"])
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the deploy path, the rest
+# ---------------------------------------------------------------------------
+
+# (a) phase 10's LM exported (buckets LM_ART_BUCKETS at T LM_ART_T) and
+# served from the artifact: LM_ART_REQUESTS requests of LM_ART_LENGTHS
+# tokens (seed 2), padded at the end
+LM_ART_BUCKETS = [1, 8]
+LM_ART_T = 1024
+LM_ART_REQUESTS = 32
+LM_ART_LENGTHS = (100, 1024)
+LM_ART_SHAPE = "B8 T1024 H12 D64 causal"
+# (b) FC -> causal flash attention -> FC, serve_artifact-sized
+ATT_T, ATT_IN, ATT_HEADS, ATT_DIM = 64, 32, 4, 16
+ATT_BUCKETS = [1, 2, 4, 8]
+ATT_REQUESTS = 32
+ATT_SHAPE = "B8 T%d H%d D%d causal" % (ATT_T, ATT_HEADS, ATT_DIM)
+# (c) the decode op at the server's window
+DEC_ART = (8, 576, 12, 64)
+DEC_ART_TOL = dict(rtol=1e-5, atol=1e-5)
+# (d) phase 26 (a)'s ResNet-50 v1 as a format-3 int8 artifact
+Q8_BUCKETS = [1, 32]
+Q8_CALIB = (4, 32)                  # batches x images, seed 3
+Q8_CLIENTS = 8
+Q8_PER_CLIENT = 16
+Q8_TOL = dict(rtol=1e-4, atol=1e-5)
+Q8_DELTA_TOL = dict(rtol=1e-4, atol=1e-6)
+Q8_CLASSES = (("int8 GEMM", ("gemm", "cutlass", "xmma", "imma", "sm90_")),
+              ("im2col and padding copies", ("copy", "pad", "cat_")),
+              ("reductions (quantize ranges)", ("reduce",)))
+Q8_CUSTOM_OPS = ["mxnet_tpu_torch::" + n for n in (
+    "dequantize", "quantize_v2", "quantized_conv",
+    "quantized_fully_connected", "requantize")]
+Q8_OPS = (("int8 GEMM ops (im2col + _int_mm + bias)",
+           ("_contrib_quantized_conv", "_contrib_quantized_fully_connected")),
+          ("quantize", ("_contrib_quantize_v2",)),
+          ("requantize", ("_contrib_requantize",)),
+          ("dequantize", ("_contrib_dequantize",)))
+# (e) host cost of a flash_attention call through the op
+OP_HOST_REPS = 2000
+# the plain attention's ops (the LM artifact's max-logit head is an amax)
+PLAIN_ATTENTION_OPS = {"aten::exp", "aten::logsumexp", "aten::bmm",
+                       "aten::einsum", "aten::_softmax"}
+
+
+def graph_targets(pred):
+    """The op names each of a Predictor's programs calls."""
+    return [{n.target.name() for n in ep.graph.nodes
+             if n.op == "call_function"
+             and isinstance(n.target, torch._ops.OpOverload)}
+            for _b, ep in pred._programs]
+
+
+@contextlib.contextmanager
+def counting_plain(tfa):
+    """``{"calls": n}``: calls of the plain attention versions (the ops'
+    CPU route and ``impl="plain"``) inside the block."""
+    seen = {"calls": 0}
+    orig = {n: getattr(tfa, n) for n in ("_torch_fwd_lse", "_torch_reference",
+                                         "_torch_decode")}
+
+    def wrap(fn):
+        def call(*a, **kw):
+            seen["calls"] += 1
+            return fn(*a, **kw)
+        return call
+    for n, fn in orig.items():
+        setattr(tfa, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in orig.items():
+            setattr(tfa, n, fn)
+
+
+def lm_artifact(mx, net, path):
+    """(a)'s export: the LM's graph with (max logit, argmax) heads per
+    position over inputs ``tokens`` and ``positions`` (B, T), one
+    program a bucket. Returns (export s, s a bucket by stage)."""
+    logits = net(mx.sym.var("tokens"), mx.sym.var("positions"))
+    sym = mx.sym.Group([mx.sym.max(logits, axis=-1),
+                        mx.sym.argmax(logits, axis=-1)])
+    params = {p.name: p.data() for p in net.collect_params().values()}
+    t0 = time.perf_counter()
+    with timing_calls(torch.export, ("export", "save")) as spent:
+        mx.deploy.export_compiled(
+            sym, path, params=params,
+            input_shapes={"tokens": (1, LM_ART_T),
+                          "positions": (1, LM_ART_T)},
+            batch_sizes=LM_ART_BUCKETS)
+    return time.perf_counter() - t0, spent
+
+
+def serve_lm_artifact(mx, card, tfa):
+    """(a): phase 10's LM exported on the card, loaded, served by the
+    InferenceServer from its bucket graphs."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import compile_watch, serving
+    net, lm, cfg = lm_serving_net(mx)
+    tmp = tempfile.mkdtemp(prefix="mxt-lm-")
+    path = os.path.join(tmp, "lm.mxp")
+    export_s, spent = lm_artifact(mx, net, path)
+    t0 = time.perf_counter()
+    pred = mx.deploy.load_compiled(path)
+    load_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    held_ops = graph_targets(pred)
+    if pred.meta["custom_ops"] != ["mxnet_tpu_torch::flash_fwd"] \
+            or any("mxnet_tpu_torch::flash_fwd" not in t
+                   or t & PLAIN_ATTENTION_OPS for t in held_ops) \
+            or pred.program_devices() != {"cuda:0"}:
+        fail("deploy: the LM artifact: custom_ops %s, programs' ops %s, "
+             "devices %s" % (pred.meta["custom_ops"], held_ops,
+                             pred.program_devices()))
+    print("  (a) phase 10's LM (GPT-2-small width, seed 0) exported on the "
+          "card with (max logit, argmax) heads, buckets %s at T %d: %.2f s; "
+          "s a bucket: torch.export.export %s, torch.export.save %s; "
+          "artifact %d bytes (programs %s, weights once %d); loaded on %s in "
+          "%.2f s; meta custom_ops %s; each program calls flash_fwd and none "
+          "of %s (%s)"
+          % (LM_ART_BUCKETS, LM_ART_T, export_s,
+             [round(t, 2) for t in spent["export"]],
+             [round(t, 2) for t in spent["save"]], size,
+             [p["length"] for p in pred.meta["programs"]],
+             pred.meta["weights"]["length"], pred.device, load_s,
+             pred.meta["custom_ops"], sorted(PLAIN_ATTENTION_OPS), card))
+    compile_watch.enable()
+    srv = serving.InferenceServer(pred, max_queue=64, batch_window_ms=2.0,
+                                  name="lm-artifact")
+    rs = np.random.RandomState(2)
+    lengths = rs.randint(LM_ART_LENGTHS[0], LM_ART_LENGTHS[1] + 1,
+                         LM_ART_REQUESTS)
+    tokens = [rs.randint(0, cfg["vocab"], L).astype(np.float32)
+              for L in lengths]
+    positions = np.arange(LM_ART_T, dtype=np.float32)
+    samples = [(np.pad(t, (0, LM_ART_T - len(t))), positions)
+               for t in tokens]
+    with counting_plain(tfa) as plain:
+        t0 = time.perf_counter()
+        n = srv.warmup()
+        warm_s = time.perf_counter() - t0
+        warm = compile_watch.site_stats("serving:lm-artifact")
+        graphs = program_graphs(srv)
+        held = {k: g._entries[next(iter(g._entries))].launches
+                for k, g in graphs.items()}
+        replays0 = sum(g.replays for g in graphs.values())
+        tfa.reset_launches()                  # the main path starts here
+        futs, wall = serve_traffic(srv, samples, 4)
+        launches = dict(tfa.launches)         # ... and ends here
+    st = srv.stats()
+    srv.stop()
+    after = compile_watch.site_stats("serving:lm-artifact")
+    traffic_replays = sum(g.replays for g in graphs.values()) - replays0
+    per_replay = sorted({v.get("flash_fwd", 0) for v in held.values()})
+    layers = GPT2_SMALL["n_layers"]
+    if n != len(LM_ART_BUCKETS) or len(warm) != n \
+            or any(s["count"] != 1 for s in warm.values()) or after != warm \
+            or per_replay != [layers] \
+            or launches["flash_fwd"] != layers * traffic_replays \
+            or any(v for k, v in launches.items() if k != "flash_fwd") \
+            or plain["calls"] or traffic_replays != st["batches"] \
+            or st["completed"] != LM_ART_REQUESTS:
+        fail("deploy: the LM artifact's serving: %d programs, sites %s -> "
+             "%s, held %s, launches %s over %d replays, plain calls %d, "
+             "stats %s" % (n, warm, after, held, launches, traffic_replays,
+                           plain["calls"], st))
+    worst, ties = 0.0, 0
+    for L, toks, f in zip(lengths, tokens, futs):
+        got_max, got_arg = f.result()
+        want_max, want_arg, margin = lm_alone(net, mx, toks)
+        err = float(np.max(np.abs(got_max[:L] - want_max)))
+        worst = max(worst, err)
+        if not np.allclose(got_max[:L], want_max, **LM_SERVE_TOL):
+            fail("deploy: the LM artifact's reply of %d tokens differs from "
+                 "the model alone by %g" % (L, err))
+        off = got_arg[:L] != want_arg
+        ties += int(off.sum())
+        if (off & (margin > TIE_MARGIN)).any():
+            fail("deploy: the LM artifact's argmax differs off a tie")
+    print("  (a) served: warmup captured %d bucket graphs in %.2f s (capture "
+          "ms %s), none in traffic; %d requests of %d-%d tokens (padded at "
+          "the end to %d) in %.3f s: %.2f requests/s, latency ms p50 %.1f "
+          "p99 %.1f, batches %s; flash_fwd launches %d = %d a replay x %d "
+          "replays, no other kernel, the plain attention called %d times; max"
+          " logit max abs err %.3g vs the model alone (rtol %g, atol %g), "
+          "argmax equal but %d tied positions (%s)"
+          % (n, warm_s, {k: round(v["total_s"] * 1e3, 1)
+                         for k, v in warm.items()}, LM_ART_REQUESTS,
+             LM_ART_LENGTHS[0], LM_ART_LENGTHS[1], LM_ART_T, wall,
+             LM_ART_REQUESTS / wall, st["latency_ms"]["p50"],
+             st["latency_ms"]["p99"], st["buckets"], launches["flash_fwd"],
+             layers, traffic_replays, plain["calls"], worst,
+             LM_SERVE_TOL["rtol"], LM_SERVE_TOL["atol"], ties, card))
+    # one B8 T1024 batch three ways: the artifact's bucket graph, phase 26
+    # (c)'s in-process callable on a server graph, the hybridized net's
+    # CachedOp graph (its logits)
+    dev = torch.device("cuda", 0)
+    tok8 = torch.from_numpy(np.stack([s[0] for s in samples[:8]])).to(dev)
+    pos8 = torch.from_numpy(np.tile(positions, (8, 1))).to(dev)
+    fn = srv._programs[("cuda:0", LM_ART_BUCKETS[-1])]
+    with torch.inference_mode():
+        art_ms = wall_ms(lambda: fn(tok8, pos8), iters=10)
+    with serving.InferenceServer(lm, ladder=[8], seq_ladder=[LM_ART_T],
+                                 name="lm-callable") as csrv:
+        csrv.warmup(np.zeros(LM_ART_T, np.float32))
+        cfn = csrv._programs[("cuda:0", (8, LM_ART_T))]
+        with torch.inference_mode():
+            callable_ms = wall_ms(lambda: cfn(tok8), iters=10)
+    net.hybridize()
+    NDArray = mx.nd.NDArray
+    with torch.inference_mode():
+        cached_ms = wall_ms(lambda: net(NDArray(tok8), NDArray(pos8)),
+                            iters=10)
+    print("  (a) ms a B8 T%d batch: artifact bucket-graph replay %.3f; phase "
+          "26 (c)'s in-process callable on a server graph %.3f; the "
+          "hybridized net's CachedOp replay (its logits) %.3f (%s)"
+          % (LM_ART_T, art_ms, callable_ms, cached_ms, card))
+    compile_watch.disable()
+    del srv, pred, net, lm, fn, tok8, pos8
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return dict(launches=launches, export_s=export_s, bytes=size,
+                replay_ms=art_ms, callable_ms=callable_ms,
+                cached_ms=cached_ms)
+
+
+def attention_export(mx, path, ctx):
+    """(b)'s graph and weights (seed 0) on ``ctx``: FC -> q, k, v ->
+    causal ``_contrib_flash_attention`` -> FC, exported with one program
+    a bucket of ATT_BUCKETS."""
+    units = ATT_HEADS * ATT_DIM
+    d = mx.sym.var("data")
+    heads = [mx.sym.reshape(mx.sym.FullyConnected(
+        d, num_hidden=units, flatten=False, name=n),
+        shape=(0, 0, ATT_HEADS, ATT_DIM)) for n in "qkv"]
+    att = mx.sym._contrib_flash_attention(*heads, causal=True)
+    out = mx.sym.FullyConnected(mx.sym.reshape(att, shape=(0, 0, units)),
+                                num_hidden=10, flatten=False, name="o")
+    rs = np.random.RandomState(0)
+    params = {}
+    for n in "qkv":
+        params[n + "_weight"] = mx.nd.array(
+            rs.randn(units, ATT_IN) * ATT_IN ** -0.5, ctx=ctx)
+        params[n + "_bias"] = mx.nd.zeros((units,), ctx=ctx)
+    params["o_weight"] = mx.nd.array(rs.randn(10, units) * units ** -0.5,
+                                     ctx=ctx)
+    params["o_bias"] = mx.nd.zeros((10,), ctx=ctx)
+    mx.deploy.export_compiled(out, path, params=params,
+                              input_shapes={"data": (1, ATT_T, ATT_IN)},
+                              batch_sizes=ATT_BUCKETS)
+    return path
+
+
+def serve_attention_portable(mx, card, tfa, tmp):
+    """(b): the attention graph exported in phase 26 (b)'s CPU-only
+    process (into ``tmp``) launches the kernel once served on the card,
+    equal to a card export."""
+    import shutil
+    from mxnet_tpu_torch import serving
+    cpu_path = os.path.join(tmp, "att-cpu.mxp")
+    card_path = attention_export(mx, os.path.join(tmp, "att-card.mxp"),
+                                 mx.gpu(0))
+    rs = np.random.RandomState(1)
+    xs = rs.randn(ATT_REQUESTS, ATT_T, ATT_IN).astype(np.float32)
+    outs, devs, launches, ops = {}, {}, {}, {}
+    for tag, path in (("cpu", cpu_path), ("card", card_path)):
+        pred = mx.deploy.load_compiled(path)
+        devs[tag] = pred.program_devices()
+        ops[tag] = (pred.meta["custom_ops"],
+                    all("mxnet_tpu_torch::flash_fwd" in t
+                        and not t & PLAIN_ATTENTION_OPS
+                        for t in graph_targets(pred)))
+        with serving.InferenceServer(pred, max_queue=64,
+                                     batch_window_ms=2.0,
+                                     name="attention-" + tag) as srv:
+            srv.warmup()
+            tfa.reset_launches()
+            futs, _ = serve_traffic(srv, xs, 4)
+            launches[tag] = dict(tfa.launches)
+        outs[tag] = np.stack([f.result() for f in futs])
+    err = float(np.max(np.abs(outs["cpu"] - outs["card"])))
+    print("  (b) FC -> flash attention -> FC (%s) exported in phase 26 (b)'s "
+          "CPU-only process and on the card, each served on cuda:0: program "
+          "devices %s / %s; custom_ops and op nodes (no plain attention) %s "
+          "/ %s; flash_fwd launches in traffic %d / %d; %d requests, max abs "
+          "diff %.3g (rtol %g, atol %g)"
+          % (ATT_SHAPE, sorted(devs["cpu"]), sorted(devs["card"]),
+             ops["cpu"], ops["card"], launches["cpu"]["flash_fwd"],
+             launches["card"]["flash_fwd"], ATT_REQUESTS, err,
+             PORTABLE_TOL["rtol"], PORTABLE_TOL["atol"]))
+    if devs["cpu"] != {"cuda:0"} or devs["card"] != {"cuda:0"}:
+        fail("deploy: a loaded attention program names another device: %s"
+             % devs)
+    want_ops = (["mxnet_tpu_torch::flash_fwd"], True)
+    if ops["cpu"] != want_ops or ops["card"] != want_ops:
+        fail("deploy: the attention artifacts' ops: %s" % ops)
+    if launches["cpu"]["flash_fwd"] <= 0 or any(
+            v for lc in launches.values() for k, v in lc.items()
+            if k != "flash_fwd"):
+        fail("deploy: the CPU-exported attention artifact launched %s"
+             % launches)
+    if not np.allclose(outs["cpu"], outs["card"], **PORTABLE_TOL):
+        fail("deploy: the CPU export's answers differ from the card's by %g"
+             % err)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches["cpu"]
+
+
+def decode_artifact(mx, card, tfa):
+    """(c): ``_contrib_decode_attention`` at the server's window, exported
+    (the graph has no parameters: traced on the CPU) and run on the card
+    through the Predictor, held to the plain version."""
+    import shutil
+    import tempfile
+    B, T, H, D = DEC_ART
+    sym = mx.sym._contrib_decode_attention(
+        mx.sym.var("q"), mx.sym.var("k"), mx.sym.var("v"),
+        mx.sym.var("lengths"))
+    tmp = tempfile.mkdtemp(prefix="mxt-dec-")
+    path = os.path.join(tmp, "decode.mxp")
+    mx.deploy.export_compiled(sym, path, params={}, input_shapes={
+        "q": (B, 1, H, D), "k": (B, T, H, D), "v": (B, T, H, D),
+        "lengths": (B,)})
+    pred = mx.deploy.load_compiled(path)
+    rs = np.random.RandomState(28)
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    k, v = (rs.randn(B, T, H, D).astype(np.float32) for _ in range(2))
+    cases = [rs.randint(1, T + 1, B), np.array([T] + [1] * (B - 1))]
+    tfa.reset_launches()
+    got = [pred(q, k, v, lens.astype(np.float32)) for lens in cases]
+    launches = dict(tfa.launches)
+    dev = torch.device("cuda", 0)
+    errs = []
+    for lens, g in zip(cases, got):
+        want = tfa.flash_decode(
+            *(torch.from_numpy(x).to(dev) for x in (q, k, v)),
+            torch.from_numpy(lens.astype(np.int32)).to(dev),
+            impl="plain").cpu().numpy()
+        errs.append(float(np.max(np.abs(g - want))))
+        if not np.allclose(g, want, **DEC_ART_TOL):
+            fail("deploy: the decode artifact differs from the plain "
+                 "version by %g" % errs[-1])
+    ops = graph_targets(pred)
+    print("  (c) _contrib_decode_attention (B%d T%d H%d D%d, lengths an "
+          "input) exported and run on %s: custom_ops %s, flash_decode in the "
+          "program %s; random lengths and 576, 1, ..., 1: max abs err vs the "
+          "plain version %s (rtol %g, atol %g); launches %s (%s)"
+          % (B, T, H, D, pred.device, pred.meta["custom_ops"],
+             all("mxnet_tpu_torch::flash_decode" in t for t in ops),
+             ["%.3g" % e for e in errs], DEC_ART_TOL["rtol"],
+             DEC_ART_TOL["atol"], launches, card))
+    if pred.meta["custom_ops"] != ["mxnet_tpu_torch::flash_decode"] \
+            or launches["flash_decode"] != len(cases) \
+            or any(v for n, v in launches.items() if n != "flash_decode"):
+        fail("deploy: the decode artifact: custom_ops %s, launches %s"
+             % (pred.meta["custom_ops"], launches))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+class CalibBatches:
+    """Calibration batches (``.data`` lists of NDArrays on the card), as
+    an iterator over DataBatch-like objects with ``reset``."""
+
+    def __init__(self, mx, arrays):
+        self._batches = [type("Batch", (), {"data": [
+            mx.nd.array(a, ctx=mx.gpu(0))]})() for a in arrays]
+
+    def __iter__(self):
+        return iter(self._batches)
+
+    def reset(self):
+        pass
+
+
+def op_by_op(sym, args, aux):
+    """``sym``'s predict forward op by op (no graph) on (N, ...) tensors
+    on the card, its parameters read in place."""
+    from mxnet_tpu_torch.cached_op import build_graph_callable
+    fn, arg_names, aux_names, _n_rng, _n_out = build_graph_callable(sym)
+
+    def forward(x):
+        vals = [x if n == "data" else args[n]._data for n in arg_names]
+        vals += [aux[n]._data for n in aux_names]
+        with torch.inference_mode():
+            return fn({"__train__": False}, *vals)[0]
+    return forward
+
+
+@contextlib.contextmanager
+def annotated_ops(ops, names):
+    """Each op of ``names`` runs inside a ``record_function`` named
+    ``mxop:<name>`` (the profiler attributes its kernels to it)."""
+    from torch.profiler import record_function
+    orig = {n: ops.get_op(n).forward for n in names}
+
+    def wrap(n, fn):
+        def forward(*a, **kw):
+            with record_function("mxop:" + n):
+                return fn(*a, **kw)
+        return forward
+    for n, fn in orig.items():
+        ops.get_op(n).forward = wrap(n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            ops.get_op(n).forward = fn
+
+
+def op_class_ms(mx, forward, x, steps=3):
+    """Device busy ms a call by registered-op class (Q8_OPS, the rest
+    "other ops"), from the profiler over ``steps`` op-by-op calls: the
+    kernels under each op's host-side ``mxop:`` range (its GPU-side
+    range spans the idle time between them too, so it is not read)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = sorted({n for _c, ns in Q8_OPS for n in ns})
+    forward(x)
+    torch.cuda.synchronize()
+    with annotated_ops(mx.ops, names):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                forward(x)
+            torch.cuda.synchronize()
+    by_op, total = {}, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        total += e.self_device_time_total / 1e3 / steps
+        if e.name.startswith("mxop:"):
+            by_op[e.name[5:]] = by_op.get(e.name[5:], 0.0) \
+                + e.device_time_total / 1e3 / steps
+    out = {c: sum(by_op.get(n, 0.0) for n in ns) for c, ns in Q8_OPS}
+    out["other ops"] = total - sum(out.values())
+    return out
+
+
+def serve_resnet_int8(mx, card, fp32):
+    """(d): phase 26 (a)'s ResNet-50 v1 and weights quantized (naive
+    calibration), exported as a format-3 artifact and served."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import compile_watch, serving
+    from mxnet_tpu_torch.contrib import quantization as q8
+    net = resnet_net(mx, 50, 1, SERVE_IMAGE, SERVE_CLASSES)
+    sym = net(mx.sym.var("data"))
+    params = {p.name: p.data() for p in net.collect_params().values()}
+    args = {n: params[n] for n in sym.list_arguments() if n in params}
+    aux = {n: params[n] for n in sym.list_auxiliary_states()}
+    rs = np.random.RandomState(3)
+    calib = CalibBatches(mx, [
+        rs.randn(Q8_CALIB[1], 3, SERVE_IMAGE, SERVE_IMAGE).astype(
+            np.float32) for _ in range(Q8_CALIB[0])])
+    t0 = time.perf_counter()
+    qsym, qargs, qaux = q8.quantize_model(
+        sym, args, aux, calib_mode="naive", calib_data=calib,
+        num_calib_batches=Q8_CALIB[0])
+    quant_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="mxt-q8-")
+    path = os.path.join(tmp, "resnet50-int8.mxp")
+    t0 = time.perf_counter()
+    with timing_calls(torch.export, ("export", "save")) as spent:
+        mx.deploy.export_compiled(
+            sym, path, params=args, aux_params=aux,
+            input_shapes={"data": (1, 3, SERVE_IMAGE, SERVE_IMAGE)},
+            batch_sizes=Q8_BUCKETS, quantize=True, calib_data=calib,
+            num_calib_batches=Q8_CALIB[0])
+    export_s = time.perf_counter() - t0
+    pred = mx.deploy.load_compiled(path)
+    meta = pred.meta
+    qb = pred.quantization
+    # the ranges on quantize_model's requantize nodes are the meta's
+    req = {n.name[:-len("_requantize")]: (float(n.attrs["min_calib_range"]),
+                                          float(n.attrs["max_calib_range"]))
+           for n in qsym._topo_nodes() if not n.is_variable()
+           and n.op.name == "_contrib_requantize"}
+    ranges_equal = req == {n: tuple(r) for n, r in qb["ranges"].items()}
+    # the recorded delta, recomputed op by op over the calibration batches
+    fwd32, fwd8 = op_by_op(sym, args, aux), op_by_op(qsym, qargs, qaux)
+    delta = 0.0
+    for b in calib:
+        x = b.data[0]._data
+        delta = max(delta, float((fwd8(x) - fwd32(x)).abs().max()))
+    print("  (d) ResNet-50 v1 (phase 26 (a)'s net and weights) quantized, "
+          "naive calibration on %d x %d synthetic images (seed 3): "
+          "quantize_model %.2f s; format-3 export with buckets %s %.2f s (s a "
+          "bucket: torch.export.export %s, torch.export.save %s), %d bytes; "
+          "%d calibrated ranges, equal to quantize_model's: %s; "
+          "max_abs_delta %.6g recorded, %.6g recomputed op by op; "
+          "custom_ops %s (%s)"
+          % (Q8_CALIB[0], Q8_CALIB[1], quant_s, Q8_BUCKETS, export_s,
+             [round(t, 2) for t in spent["export"]],
+             [round(t, 2) for t in spent["save"]], os.path.getsize(path),
+             len(qb["ranges"]), ranges_equal, qb["max_abs_delta"], delta,
+             [n.split("::")[1] for n in meta["custom_ops"]], card))
+    if meta["format"] != 3 or not ranges_equal or len(req) != 54 \
+            or not np.isclose(delta, qb["max_abs_delta"], **Q8_DELTA_TOL) \
+            or meta["custom_ops"] != Q8_CUSTOM_OPS \
+            or pred.program_devices() != {"cuda:0"}:
+        fail("deploy: the int8 artifact: format %s, %d ranges equal %s, "
+             "delta %g vs %g, custom_ops %s, devices %s"
+             % (meta["format"], len(req), ranges_equal, delta,
+                qb["max_abs_delta"], meta["custom_ops"],
+                pred.program_devices()))
+    compile_watch.enable()
+    srv = serving.InferenceServer(pred, max_queue=64, batch_window_ms=2.0,
+                                  name="resnet-int8")
+    n = srv.warmup()
+    warm = compile_watch.site_stats("serving:resnet-int8")
+    graphs = program_graphs(srv)
+    rs = np.random.RandomState(5)
+    xs = rs.randn(Q8_CLIENTS * Q8_PER_CLIENT, 3, SERVE_IMAGE,
+                  SERVE_IMAGE).astype(np.float32)
+    futs, wall = serve_traffic(srv, xs, Q8_CLIENTS)
+    st = srv.stats()
+    srv.stop()
+    after = compile_watch.site_stats("serving:resnet-int8")
+    recaptures = sum(g.recaptures for g in graphs.values())
+    if n != len(Q8_BUCKETS) or after != warm or recaptures \
+            or st["completed"] != len(xs) or st["shed"] or st["timeouts"]:
+        fail("deploy: the int8 server: %d programs, sites %s -> %s, "
+             "recaptures %d, stats %s" % (n, warm, after, recaptures, st))
+    # each answer against its batch as the server formed it: the int8
+    # graph quantizes its input over the whole batch
+    batches = {}
+    for i, f in enumerate(futs):
+        batches.setdefault(f.batch, []).append((f.row, i))
+    worst, exact = 0.0, 0
+    dev = torch.device("cuda", 0)
+    for rows in batches.values():
+        rows.sort()
+        idx = [i for _r, i in rows]
+        b = futs[idx[0]].bucket
+        batch = np.zeros((b,) + xs.shape[1:], np.float32)
+        batch[:len(idx)] = xs[idx]
+        xb = torch.from_numpy(batch).to(dev)
+        want = fwd8(xb).cpu().numpy()
+        with torch.inference_mode():
+            prog = pred.program(b)(xb).cpu().numpy()
+        for row, i in enumerate(idx):
+            got = futs[i].result()
+            worst = max(worst, float(np.max(np.abs(got - want[row]))))
+            if not np.allclose(got, want[row], **Q8_TOL):
+                fail("deploy: int8 request %d differs from the quantized "
+                     "Symbol op by op by %g"
+                     % (i, float(np.max(np.abs(got - want[row])))))
+            if not np.array_equal(got, prog[row]):
+                fail("deploy: int8 request %d differs from the Predictor's "
+                     "bucket-%d program" % (i, b))
+            exact += 1
+    x32 = torch.from_numpy(xs[:Q8_BUCKETS[-1]]).to(dev)
+    fn = srv._programs[("cuda:0", Q8_BUCKETS[-1])]
+    with torch.inference_mode():
+        replay_ms = wall_ms(lambda: fn(x32))
+        _w, busy, by_class, top, _bare = profile_steps(
+            lambda: fn(x32), 5, classes=Q8_CLASSES)
+    ops_ms = op_class_ms(mx, fwd8, x32)
+    print("  (d) served: warmup captured %d bucket graphs, none in traffic; "
+          "%d clients x %d requests in %.3f s: %.1f requests/s (phase 26 "
+          "(a) fp32: %.1f), latency ms p50 %.2f p99 %.2f, batches %s; each "
+          "answer vs the quantized Symbol op by op on its batch: max abs err "
+          "%.3g (rtol %g, atol %g), %d of %d bit-identical to the Predictor's"
+          " program at its bucket; ms a batch at bucket %d by replay %.3f "
+          "(%.1f images/s) vs phase 26 (a)'s fp32 artifact %.3f (%s)"
+          % (n, Q8_CLIENTS, Q8_PER_CLIENT, wall, len(xs) / wall, fp32["rps"],
+             st["latency_ms"]["p50"], st["latency_ms"]["p99"], st["buckets"],
+             worst, Q8_TOL["rtol"], Q8_TOL["atol"], exact, len(xs),
+             Q8_BUCKETS[-1], replay_ms, Q8_BUCKETS[-1] * 1e3 / replay_ms,
+             fp32["replay_ms"], card))
+    print("  (d) bucket-32 replay, device busy ms %.3f by kernel class %s; "
+          "top kernels %s; op by op, device ms by op class %s (%s)"
+          % (busy, {k: round(v, 3) for k, v in by_class.items()},
+             [(round(us / 5e3, 3), name[:60], cnt // 5)
+              for us, name, cnt in top[:5]],
+             {k: round(v, 3) for k, v in ops_ms.items()}, card))
+    compile_watch.disable()
+    del srv, pred, net, fn, x32, fwd8, fwd32, calib
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return dict(replay_ms=replay_ms, rps=len(xs) / wall, by_class=by_class,
+                ops_ms=ops_ms)
+
+
+def op_route(card, tfa):
+    """(e): the host cost of ``flash_attention`` through the op beside
+    the direct ctypes wrapper, and an op call on the card raising when
+    the kernel's library does not load."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel import _build
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(64)
+    q, k, v = (torch.randn(1, 64, 12, 64, generator=g).to(dev)
+               for _ in range(3))
+    scale = 64 ** -0.5
+
+    def through_op():
+        for _ in range(OP_HOST_REPS):
+            tfa.flash_attention(q, k, v, causal=True)
+
+    def direct():
+        for _ in range(OP_HOST_REPS):
+            tfa._fwd_cuda(q, k, v, None, scale, True)
+    through_op()
+    direct()
+    op_us = [host_us(through_op, OP_HOST_REPS) for _ in range(2)]
+    ctypes_us = [host_us(direct, OP_HOST_REPS) for _ in range(2)]
+    orig = _build.library
+
+    def broken(name):
+        raise MXNetError("library %s made to fail" % name)
+    _build.library = broken
+    try:
+        tfa.flash_attention(q, k, v, causal=True)
+        raised = None
+    except MXNetError as exc:
+        raised = str(exc)
+    finally:
+        _build.library = orig
+    print("  (e) host us a call at B1 T64 H12 D64 causal: flash_attention "
+          "through op mxnet_tpu_torch::flash_fwd %s, the ctypes wrapper "
+          "_fwd_cuda %s (the dispatcher's cost: %.1f us); with "
+          "_build.library made to fail, an op call on cuda:0 raised "
+          "MXNetError: %s (%s)"
+          % (["%.1f" % u for u in op_us], ["%.1f" % u for u in ctypes_us],
+             min(op_us) - min(ctypes_us), raised, card))
+    if raised is None or "made to fail" not in raised:
+        fail("deploy: an op call with the kernel library failing did not "
+             "raise MXNetError")
+    return dict(op_us=min(op_us), ctypes_us=min(ctypes_us))
+
+
+def phase_deploy_rest(card, tfa, serve):
+    """The twenty-fourth slice's main path: artifacts that hold attention
+    (the kernels as torch.library ops) and int8 format-3 artifacts, (a)-(e)
+    as the module docstring sets out; fp32, TF32 off."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm = serve_lm_artifact(mx, card, tfa)
+    att_launches = serve_attention_portable(mx, card, tfa,
+                                            serve["cpu_dir"])
+    dec_launches = decode_artifact(mx, card, tfa)
+    tfa.reset_launches()
+    q8 = serve_resnet_int8(mx, card, serve["resnet"])
+    if any(tfa.launches.values()):
+        fail("deploy: the int8 ResNet launched attention kernels: %s"
+             % tfa.launches)
+    route = op_route(card, tfa)
+    att_fwd = fwd_case(tfa, 8, ATT_T, ATT_T, ATT_HEADS, ATT_DIM, True,
+                       False, seed=28)
+    print("  attention kernel launches: (a) %s, (b) %s, (c) %s, none in (d); "
+          "phase 28 %.1f s" % (lm["launches"], att_launches, dec_launches,
+                               time.perf_counter() - t_phase))
+    return dict(lm=lm, att_launches=att_launches, att_fwd=att_fwd,
+                dec_launches=dec_launches, q8=q8, route=route)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -11782,10 +12490,13 @@ def main():
     axes = phase_mesh_axes(card, tfa, mesh)
     print("serve (deploy artifacts through torch.export, the "
           "InferenceServer on CUDA graphs, the compile watch):")
-    serve_launches = phase_serve(card, tfa, resnet_readings)
+    serve = phase_serve(card, tfa, resnet_readings)
     print("fault tolerance (the heartbeat, the supervised restart, the 2-D "
           "checkpoint in phase 25):")
     ft = phase_fault_tolerance(card, mesh)
+    print("deploy, the rest (the attention kernels as torch.library ops in "
+          "artifacts, format-3 int8 artifacts):")
+    rest = phase_deploy_rest(card, tfa, serve)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -11831,14 +12542,26 @@ def main():
                    mesh["kern"]["dp"][kname], mesh["kern"]["dp"][kname]["err"])
         for kname in TRAIN_KERNELS] + [
         kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "serving (InferenceServer)",
-                   train_shape, serve_launches, train_fwd, train_fwd["err"])
+                   "B%d T%d H12 D64 causal" % (LM_SERVE_LADDER[-1],
+                                               LM_SERVE_SEQ[-1]),
+                   serve["launches"], serve["lm_fwd"],
+                   serve["lm_fwd"]["err"])
     ] + [
         kernel_row(kname, FWD_SRC if kname == "flash_fwd" else BWD_SRC[kname],
                    FWD_TPU if kname == "flash_fwd" else BWD_TPU[kname],
                    "fault tolerance (b) (rank 0)", MESH_DP_SHAPE,
                    ft["launches"], mesh["kern"]["dp"][kname],
                    mesh["kern"]["dp"][kname]["err"])
-        for kname in TRAIN_KERNELS]
+        for kname in TRAIN_KERNELS] + [
+        kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "LM artifact "
+                   "(InferenceServer)", LM_ART_SHAPE, rest["lm"]["launches"],
+                   train_fwd, train_fwd["err"]),
+        kernel_row("flash_fwd", FWD_SRC, FWD_TPU, "CPU-exported artifact",
+                   ATT_SHAPE, rest["att_launches"], rest["att_fwd"],
+                   rest["att_fwd"]["err"]),
+        kernel_row("flash_decode", DEC_SRC, DEC_TPU, "decode artifact",
+                   "B8 T576 H12 D64", rest["dec_launches"], dec, dec["err"]),
+    ]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))
@@ -11859,6 +12582,6 @@ if __name__ == "__main__":
         sys.exit(mesh4_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["ft-rank"]:
         sys.exit(ft_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["export-convnet"]:
-        sys.exit(export_convnet_main(sys.argv[2]))
+    if sys.argv[1:2] == ["export-cpu"]:
+        sys.exit(export_cpu_main(sys.argv[2]))
     sys.exit(main())

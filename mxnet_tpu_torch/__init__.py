@@ -71,6 +71,10 @@ What is ported:
   launcher (``python -m mxnet_tpu_torch.tools.launch -n N ...``) and
   ``tools.bandwidth``. A worker the launcher spawns joins its process
   group when it imports the package.
+- the deploy path: ``deploy`` (``torch.export`` artifacts, with the
+  attention kernels as ``torch.library`` ops in them, and format-3 int8
+  artifacts), ``contrib.quantization`` and the quantized ops,
+  ``serving.InferenceServer`` and ``compile_watch``.
 
 Typical use mirrors MXNet::
 
@@ -151,6 +155,7 @@ from . import rnn
 from . import bucketing
 from . import serving
 from . import deploy
+from . import contrib
 from . import parallel
 from . import kvstore as kvstore_module
 from .kvstore import KVStore
@@ -175,5 +180,6 @@ __all__ = ["MXNetError", "fault", "InjectedFault", "Context", "cpu", "gpu",
            "load_checkpoint", "checkpoint", "log", "profiler", "tracing",
            "telemetry", "livemetrics", "flightrec", "amp", "fused_step",
            "module", "mod", "Module", "rnn", "bucketing", "serving",
-           "parallel", "CollectiveTimeoutError", "kvstore_module", "kv",
+           "contrib", "parallel", "CollectiveTimeoutError",
+           "kvstore_module", "kv",
            "KVStore", "kvstore_server", "kvstore_create"]

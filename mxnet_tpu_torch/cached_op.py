@@ -43,8 +43,8 @@ hybridized block) runs op by op there: its ops are captured by the outer
 graph, and a capture of its own would nest inside the outer one.
 
 The JAX CachedOp's graph token for the persistent compile cache has no
-counterpart here until ``compile_cache.py`` is ported (ROADMAP queue A
-step 7).
+counterpart here: ``compile_cache.py`` is the one module of the deploy
+path not ported (ROADMAP queue A step 7).
 """
 from __future__ import annotations
 

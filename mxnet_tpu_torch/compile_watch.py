@@ -66,8 +66,9 @@ module-global ``None`` check, and the telemetry step hook is the same
 check — with the watch off the JSONL sink is byte-identical to a run
 without this module. Enable with ``MXNET_COMPILE_WATCH=1`` (picked up at
 wrapper creation and at ``telemetry.start()``) or :func:`enable`. Not
-ported: the persistent compile cache (``compile_cache.py``, ROADMAP
-queue A step 7): a CUDA graph cannot be written to disk.
+ported: the persistent compile cache (``compile_cache.py``), the one
+module of the deploy path still waiting (ROADMAP queue A step 7): a
+CUDA graph cannot be written to disk.
 """
 from __future__ import annotations
 

@@ -1,0 +1,7 @@
+"""Contrib namespace (counterpart of ``mxnet_tpu/contrib``; reference:
+python/mxnet/contrib/). Ported: :mod:`.quantization`, the int8 flow
+behind ``deploy.export_compiled(quantize=True)``. The JAX package's
+other contrib modules (``text``, ``svrg_optimization``, ``onnx``,
+``io``, ``autograd``, ``tensorboard``) wait for ROADMAP queue A's order
+step 8."""
+from . import quantization  # noqa: F401

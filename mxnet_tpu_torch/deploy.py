@@ -41,14 +41,32 @@ package's for the same model; ``framework`` is ``mxnet_tpu_torch``,
   batch of ``b`` rows on the smallest bucket ``>= b`` (zero-pad rows
   in, slice rows back out — exact, a row's result never depends on its
   batch-mates); ``serving.InferenceServer`` serves the same ladder.
-
-Not exported: a graph holding an op whose card path is a hand-written
-kernel (the flash attention ops). Traced on the CPU it would bake the
-plain version into the artifact, which would then run plain on the
-card; traced on the card, the kernel's ctypes launch cannot be traced.
-:func:`export_compiled` raises naming the op (ROADMAP queue A step 7:
-the kernels as ``torch.library.custom_op``s). Format-3 (int8) artifacts
-wait for the quantized ops (``quantize=True`` raises, queue A item 13).
+- **Attention.** A graph holding ``_contrib_flash_attention`` or
+  ``_contrib_decode_attention`` traces into op nodes of the
+  ``mxnet_tpu_torch`` namespace (``flash_fwd``, ``flash_decode``: the
+  hand-written kernels as ``torch.library`` ops, see
+  ``parallel.flash_attention``), on the CPU or on the card alike. The
+  meta's ``custom_ops`` names the ops the programs hold. Such an
+  artifact needs more than torch to load: the port importable, which
+  registers the ops, and its kernel sources, which build at the first
+  launch on the card. :func:`load_compiled` imports the ops before
+  ``torch.export.load`` and refuses, with an :class:`MXNetError` naming
+  them, ops it does not know. A program exported on the CPU and moved to
+  the card launches the kernels there.
+- **Format 3 (int8).** ``export_compiled(quantize=True,
+  calib_data=...)`` calibrates per-node ranges (naive min/max),
+  rewrites eligible FullyConnected/Convolution nodes through
+  ``contrib.quantization.quantize_symbol`` into quantize -> quantized op
+  -> requantize -> dequantize chains over ``ops.quantization`` (int8 x
+  int8 -> int32, cuBLASLt's int8 GEMM on the card), replays the
+  calibration batches through both graphs, and exports the int8 graph.
+  The quantized ops are ``torch.library`` ops too (one node each, see
+  ``ops.quantization``), so an int8 artifact names them in
+  ``custom_ops`` and loads where the port is importable.
+  The meta's ``quantization`` block records the JAX package's keys:
+  the ranges, the exclusions, the measured ``max_abs_delta`` and the
+  tolerance, ``max_output_delta``, over which export raises.
+  :attr:`Predictor.quantization` returns the block.
 """
 from __future__ import annotations
 
@@ -63,12 +81,9 @@ import torch
 from .base import MXNetError
 
 __all__ = ["export_compiled", "load_compiled", "Predictor",
-           "check_cast_dtype", "HAND_KERNEL_OPS"]
+           "check_cast_dtype"]
 
 _MAGIC = b"MXTPUDEPLOY1"
-
-# ops whose card path is a hand-written kernel: not exportable
-HAND_KERNEL_OPS = ("_contrib_flash_attention", "_contrib_decode_attention")
 
 
 def _dtype_name(dtype):
@@ -138,9 +153,90 @@ def _out_meta(ep):
              "dtype": _dtype_name(v.dtype)} for v in vals]
 
 
-def _hand_kernel_ops(symbol):
-    return sorted({n.op.name for n in symbol._topo_nodes()
-                   if n.op is not None and n.op.name in HAND_KERNEL_OPS})
+def _custom_ops(ep):
+    """The ``mxnet_tpu_torch`` ops an exported program's graph calls."""
+    return {n.target.name() for n in ep.graph.nodes
+            if n.op == "call_function"
+            and isinstance(n.target, torch._ops.OpOverload)
+            and n.target.namespace == "mxnet_tpu_torch"}
+
+
+def _batch_arrays(batch):
+    """Numpy data arrays of one calibration batch (DataBatch-style
+    ``.data`` list, or a bare array)."""
+    datas = batch.data if hasattr(batch, "data") else [batch]
+    return [_np.asarray(d.asnumpy() if hasattr(d, "asnumpy") else d)
+            for d in datas]
+
+
+def _max_output_delta(fp32_fn, q_fn, calib_data, num_calib_batches,
+                      n_inputs, device):
+    """Replay calibration batches through both graphs; the largest
+    absolute elementwise output difference is the artifact's recorded
+    quantization accuracy delta."""
+    delta, batches = 0.0, 0
+    for batch in calib_data:
+        xs = [torch.from_numpy(_np.ascontiguousarray(x)).to(device)
+              for x in _batch_arrays(batch)[:n_inputs]]
+        with torch.no_grad():
+            ref, got = fp32_fn(*xs), q_fn(*xs)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        for r, g in zip(ref, got):
+            d = torch.max(torch.abs(g.to(torch.float32)
+                                    - r.to(torch.float32)))
+            delta = max(delta, float(d))
+        batches += 1
+        if num_calib_batches and batches >= num_calib_batches:
+            break
+    if hasattr(calib_data, "reset"):
+        calib_data.reset()
+    return delta, batches
+
+
+def _quantized(symbol, arg_params, aux, data_names, device, calib_data,
+               num_calib_batches, excluded_sym_names, max_output_delta):
+    """Format 3's int8 graph and its meta block (the JAX package's
+    keys): naive calibration, the rewrite, the accuracy delta over the
+    calibration batches, checked against ``max_output_delta``."""
+    from .contrib import quantization as _quant
+    if calib_data is None:
+        raise MXNetError(
+            "export_compiled: quantize=True requires calib_data "
+            "(a re-iterable batch source) for range calibration "
+            "and the accuracy-delta oracle")
+    ranges = _quant.calibrate_ranges(
+        symbol, arg_params, aux, calib_data,
+        num_calib_batches=num_calib_batches, data_name=data_names[0])
+    qsym = _quant.quantize_symbol(
+        symbol, excluded_symbols=set(excluded_sym_names),
+        calib_ranges=ranges)
+    q_names = [n for n in qsym.list_arguments() if n not in arg_params]
+    if q_names != data_names:
+        raise MXNetError(
+            "export_compiled: quantized graph changed the data "
+            "inputs %s -> %s" % (data_names, q_names))
+    delta, batches = _max_output_delta(
+        _Forward(symbol, arg_params, aux, data_names, device),
+        _Forward(qsym, arg_params, aux, data_names, device), calib_data,
+        num_calib_batches, len(data_names), device)
+    if max_output_delta is not None and delta > max_output_delta:
+        raise MXNetError(
+            "export_compiled: int8 quantization moved an output "
+            "element by %.6g — beyond the max_output_delta %.6g "
+            "tolerance; widen the tolerance, exclude the worst "
+            "layers (excluded_sym_names), or calibrate on more "
+            "representative data" % (delta, max_output_delta))
+    return qsym, {
+        "dtype": "int8",
+        "calib_mode": "naive",
+        "calib_batches": batches,
+        "ranges": {n: [float(lo), float(hi)]
+                   for n, (lo, hi) in sorted(ranges.items())},
+        "excluded": sorted(excluded_sym_names),
+        "max_abs_delta": delta,
+        "tolerance": max_output_delta,
+    }
 
 
 def export_compiled(model, path, input_shapes, params=None,
@@ -158,17 +254,22 @@ def export_compiled(model, path, input_shapes, params=None,
     bucket in turn (the serving bucket ladder). Without it, one
     program with exactly ``input_shapes`` is exported.
 
-    ``quantize=True`` (the JAX package's format-3 int8 artifact) raises:
-    it needs ``contrib.quantization`` and the quantized ops (ROADMAP
-    queue A item 13); the calibration arguments are accepted for the
-    JAX package's signature."""
+    A graph holding the attention ops exports their ``torch.library``
+    op nodes (the meta's ``custom_ops``), traced on the CPU or the card;
+    so does an int8 graph its quantized ops.
+
+    ``quantize=True`` writes a **format-3 int8 artifact**: the graph is
+    calibrated on ``calib_data`` (required; naive min/max over
+    ``num_calib_batches``), rewritten through
+    ``contrib.quantization.quantize_symbol`` (``excluded_sym_names``
+    opts nodes out), and the exported programs ARE the quantized graph.
+    The meta's ``quantization`` block records the ranges and the
+    measured ``max_abs_delta`` between the fp32 and int8 outputs over
+    the calibration batches; with ``max_output_delta`` set, export
+    raises :class:`MXNetError` instead of shipping an artifact whose
+    quantization error exceeds the tolerance."""
     from . import symbol as sym_mod
 
-    if quantize:
-        raise MXNetError(
-            "export_compiled: quantize=True (format-3 int8 artifacts) "
-            "needs contrib.quantization and the quantized ops, not "
-            "ported yet (ROADMAP queue A item 13)")
     if isinstance(model, sym_mod.Symbol):
         symbol = model
         arg_params = dict(params or {})
@@ -187,15 +288,6 @@ def export_compiled(model, path, input_shapes, params=None,
                 arg_params[name] = p.data()
             elif name in aux_names:
                 aux[name] = p.data()
-    bad = _hand_kernel_ops(symbol)
-    if bad:
-        raise MXNetError(
-            "export_compiled: the graph holds %s, whose card path is a "
-            "hand-written CUDA kernel that torch.export cannot trace "
-            "(exported on the CPU it would bake the plain version into "
-            "the artifact); artifacts with attention wait for the "
-            "kernels as torch.library custom ops (ROADMAP queue A "
-            "step 7)" % ", ".join(bad))
     data_names = [n for n in symbol.list_arguments()
                   if n not in arg_params]
     missing = [n for n in data_names if n not in input_shapes]
@@ -203,6 +295,11 @@ def export_compiled(model, path, input_shapes, params=None,
         raise MXNetError(
             "export_compiled: provide input_shapes for %s" % missing)
     device = _param_device(arg_params, aux)
+    quant_meta = None
+    if quantize:
+        symbol, quant_meta = _quantized(
+            symbol, arg_params, aux, data_names, device, calib_data,
+            num_calib_batches, excluded_sym_names, max_output_delta)
     forward = _Forward(symbol, arg_params, aux, data_names, device)
     if batch_sizes is not None:
         buckets = sorted({int(b) for b in batch_sizes})
@@ -213,7 +310,7 @@ def export_compiled(model, path, input_shapes, params=None,
     else:
         buckets = [None]
     tdtype = getattr(torch, str(dtype))
-    programs, blobs, weights = [], [], None
+    programs, blobs, weights, custom_ops = [], [], None, set()
     for b in buckets:
         shapes = []
         for n in data_names:
@@ -244,11 +341,12 @@ def export_compiled(model, path, input_shapes, params=None,
         torch.export.save(ep, buf)
         programs.append((int(b), _out_meta(ep)))
         blobs.append(buf.getvalue())
+        custom_ops |= _custom_ops(ep)
     wbuf = io.BytesIO()
     torch.save(weights, wbuf)
     wblob = wbuf.getvalue()
     meta = {
-        "format": 2,
+        "format": 3 if quant_meta else 2,
         "inputs": [{"name": n, "shape": list(input_shapes[n]),
                     "dtype": str(dtype)} for n in data_names],
         "outputs": programs[0][1],
@@ -258,7 +356,10 @@ def export_compiled(model, path, input_shapes, params=None,
         "runtime": "torch.export",
         "torch": torch.__version__,
         "weights": {"length": len(wblob)},
+        "custom_ops": sorted(custom_ops),
     }
+    if quant_meta:
+        meta["quantization"] = quant_meta
     meta_bytes = json.dumps(meta).encode()
     # tmp + os.replace: a preempted export leaves any previous artifact
     # intact, never a truncated one a serving replica could load
@@ -323,6 +424,13 @@ class Predictor:
         """Recorded output shapes/dtypes (None on format-1 artifacts
         that predate the field)."""
         return self.meta.get("outputs")
+
+    @property
+    def quantization(self):
+        """The format-3 quantization block — calibration ranges,
+        measured ``max_abs_delta``, exclusions — or None on an fp32
+        artifact."""
+        return self.meta.get("quantization")
 
     def program_devices(self):
         """Every device the loaded programs name (state, constants and
@@ -456,11 +564,29 @@ def _load_program(blob, weights, device):
     return move_to_device_pass(ep, device)
 
 
+def _check_custom_ops(path, meta):
+    """Register the port's ops (importing their modules builds nothing)
+    and refuse an artifact naming ops this loader does not know."""
+    from .ops import quantization
+    from .parallel import flash_attention
+    unknown = sorted(set(meta.get("custom_ops") or ())
+                     - set(flash_attention.OPS) - set(quantization.OPS))
+    if unknown:
+        raise MXNetError(
+            "%s holds ops this mxnet_tpu_torch does not register: %s — "
+            "load it with the mxnet_tpu_torch that exported it"
+            % (path, ", ".join(unknown)))
+
+
 def load_compiled(path, device=None):
-    """Load an ``export_compiled`` artifact (format 1 or 2) onto
-    ``device`` (default: the current context's device, ``cuda:0``).
+    """Load an ``export_compiled`` artifact (format 1, 2 or 3 — a
+    format-3 file reads as format 2 whose programs run the int8 graph)
+    onto ``device`` (default: the current context's device, ``cuda:0``).
     Needs torch alone — not the framework's model code or parameter
-    files. A JAX-package artifact (StableHLO) is refused."""
+    files — except for an artifact whose meta names ``custom_ops``
+    (attention, int8): that needs this package, whose ops are registered
+    here before the programs load, and for attention its kernel sources
+    on the card. A JAX-package artifact (StableHLO) is refused."""
     from .context import resolve_device
     device = resolve_device(device)
     with open(path, "rb") as f:
@@ -476,6 +602,7 @@ def load_compiled(path, device=None):
                 "programs (jax.export), which torch cannot run — export "
                 "the model with mxnet_tpu_torch.deploy.export_compiled"
                 % path)
+        _check_custom_ops(path, meta)
         if meta.get("format", 1) >= 2 and meta.get("programs"):
             blobs = []
             for p in meta["programs"]:

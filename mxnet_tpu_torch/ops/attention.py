@@ -23,6 +23,14 @@ accepted and unused).
 
 ``block_q``/``block_k`` are the TPU kernel's blocks: accepted, unused
 (the CUDA kernels pick their own tiles).
+
+Both ops reach the ``mxnet_tpu_torch`` torch.library ops of
+:mod:`~mxnet_tpu_torch.parallel.flash_attention` (``flash_fwd``,
+``flash_decode``), so shape inference runs their bodies on ``meta``
+tensors like any other op's (the ops' fake implementations give the
+shapes), and ``deploy.export_compiled`` traces them into artifacts as
+op nodes. On ``meta`` tensors ``ring``/``ulysses`` take the local op:
+the sequence-sharded result has the same shape.
 """
 from __future__ import annotations
 
@@ -43,7 +51,8 @@ def _attention(attrs, query, key, value, segment_ids=None):
     impl = str(attrs.get("impl", "auto"))
     axis = str(attrs.get("mesh_axis", "sp"))
     mesh = current_mesh()
-    has_sp = mesh is not None and mesh_axes(mesh).get(axis, 1) > 1
+    has_sp = mesh is not None and mesh_axes(mesh).get(axis, 1) > 1 \
+        and query.device.type != "meta"
     if impl == "auto":
         impl = "ring" if has_sp else "flash"
     if segment_ids is not None and impl in ("ring", "ulysses"):
@@ -76,13 +85,7 @@ def _decode_attention(attrs, query, key_cache, value_cache, lengths):
                         impl="plain" if impl == "dense" else None)
 
 
-def _like_query(attrs, query, *rest):
-    """Output shape rule: the kernels cannot run on ``meta`` tensors."""
-    return [(tuple(query.shape), query.dtype)]
-
-
 register("_contrib_decode_attention", _decode_attention,
-         output_shapes=_like_query,
          arg_names=("query", "key_cache", "value_cache", "lengths"),
          defaults={"scale": 0.0, "impl": "auto", "block_k": 128},
          attr_docs={"scale": "score scale; 0 = 1/sqrt(head_dim)",
@@ -97,7 +100,7 @@ register("_contrib_decode_attention", _decode_attention,
                      "carry exact-zero weight.")
 
 
-register("_contrib_flash_attention", _attention, output_shapes=_like_query,
+register("_contrib_flash_attention", _attention,
          arg_names=("query", "key", "value"),
          defaults={"causal": False, "scale": 0.0, "impl": "auto",
                    "mesh_axis": "sp", "block_q": 512, "block_k": 512},

@@ -249,14 +249,21 @@ def _batch_norm_outputs(attrs):
     return 3 if attrs.get("output_mean_var", False) else 1
 
 
+def _cast(x, dtype):
+    """``x.to(dtype)``, skipped where ``x`` has it already: an eager call
+    returns ``x`` either way, but ``torch.export`` records every ``to``
+    as two nodes, which a predict program's export pays for."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def _bn_affine(data, g, beta, mean, inv, bshape):
     """``out = data * a + b`` with the per-channel ``a = inv * g`` and
     ``b = beta - mean * inv * g`` formed in fp32, then cast to the
     data's dtype: the JAX package's per-channel FMA, one pass over the
     data (``addcmul``)."""
-    g32 = g.to(torch.float32)
-    a = (inv * g32).to(data.dtype)
-    b = (beta.to(torch.float32) - mean * inv * g32).to(data.dtype)
+    g32 = _cast(g, torch.float32)
+    a = _cast(inv * g32, data.dtype)
+    b = _cast(_cast(beta, torch.float32) - mean * inv * g32, data.dtype)
     if data.dtype in _LOW:
         # the product rounds to the data's dtype before the add, as
         # JAX's two bfloat16 ops do
@@ -368,12 +375,12 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
         new_var = (momentum * moving_var.detach().to(torch.float32)
                    + (1 - momentum) * var).to(moving_var.dtype)
     else:
-        mean = moving_mean.to(torch.float32)
-        var = moving_var.to(torch.float32)
+        mean = _cast(moving_mean, torch.float32)
+        var = _cast(moving_var, torch.float32)
         new_mean, new_var = moving_mean, moving_var
         out = _bn_affine(data, g, beta, mean, torch.rsqrt(var + eps), bshape)
-    mean = mean.detach().to(gamma.dtype)
-    var = var.detach().to(gamma.dtype)
+    mean = _cast(mean.detach(), gamma.dtype)
+    var = _cast(var.detach(), gamma.dtype)
     outs = (out, mean, var) if attrs.get("output_mean_var", False) \
         else (out,)
     return outs + (new_mean, new_var)

@@ -5,61 +5,82 @@ Two public functions keep the JAX package's signatures and its
 ``(B, T, H, D)`` layout:
 
 - :func:`flash_attention` — attention for prefill and training (causal,
-  optionally segment-blocked for packed batches); on a CUDA tensor it
-  runs :class:`_Flash`, a ``torch.autograd.Function`` (the counterpart
-  of the JAX ``custom_vjp``) whose forward launches ``csrc/flash_fwd.cu``
-  (the TPU ``_fwd_kernel``) and whose backward launches
-  ``csrc/flash_bwd_dkdv.cu`` and ``csrc/flash_bwd_dq.cu``
-  (``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel``), recomputing the
-  probabilities from the forward's row LSE;
+  optionally segment-blocked for packed batches), differentiable;
 - :func:`flash_decode` — one query row per sequence against a gathered
-  KV cache with per-row valid lengths; on a CUDA tensor it launches
-  ``csrc/flash_decode.cu``, the counterpart of ``_decode_kernel``, or,
-  for an int8 cache with per-position scales, ``csrc/flash_decode_q8.cu``,
-  the counterpart of ``_decode_kernel_q8``, which dequantizes K and V
-  while it stages them.
+  KV cache with per-row valid lengths, for a float cache or an int8
+  cache with per-position scales.
 
-On a CPU tensor each runs its plain PyTorch version
-(:func:`_torch_reference` / :func:`_torch_decode` /
-:func:`_torch_decode_q8`), which mirrors the
-JAX package's ``_jnp_reference`` / ``_jnp_decode`` exactly: masked
-scores are ``-1e30`` (an exact-zero softmax weight), the denominator is
-floored at ``1e-30``, segment id 0 attends to nothing, and int8 K/V with
-scales are dequantized up front. ``impl="plain"`` takes the plain
-version on any device; it exists for the tests and ``chip_smoke.py``,
-which hold each kernel against it on the card. On a CUDA tensor the
-wrappers launch the kernel or raise: there is no fallback.
+**The ops.** Each kernel is a ``torch.library`` custom op in the
+``mxnet_tpu_torch`` namespace (:data:`OPS`), and both functions call
+them on every device, so an eager call, a CUDA-graph capture and a
+``torch.export`` trace all see the same node:
+
+===================  ===========================  =====================
+op                   ``cuda`` implementation      TPU kernel
+===================  ===========================  =====================
+``flash_fwd``        ``csrc/flash_fwd.cu``        ``_fwd_kernel``
+``flash_bwd_dkdv``   ``csrc/flash_bwd_dkdv.cu``   ``_bwd_dkdv_kernel``
+``flash_bwd_dq``     ``csrc/flash_bwd_dq.cu``     ``_bwd_dq_kernel``
+``flash_decode``     ``csrc/flash_decode.cu``     ``_decode_kernel``
+``flash_decode_q8``  ``csrc/flash_decode_q8.cu``  ``_decode_kernel_q8``
+===================  ===========================  =====================
+
+The ``cuda`` implementation launches the kernel through its ctypes
+wrapper (:func:`_fwd_cuda`, :func:`_bwd_cuda`, :func:`_decode_cuda`,
+:func:`_decode_q8_cuda`) or raises :class:`MXNetError`: there is no
+fallback. The ``cpu`` implementation is the plain PyTorch version
+(:func:`_torch_fwd_lse`, :func:`_torch_bwd_dkdv`, :func:`_torch_bwd_dq`,
+:func:`_torch_decode`, :func:`_torch_decode_q8`), which mirrors the JAX
+package's ``_jnp_reference`` / ``_jnp_decode`` exactly: masked scores
+are ``-1e30`` (an exact-zero softmax weight), the denominator is
+floored at ``1e-30``, segment id 0 attends to nothing, and int8 K/V
+with scales are dequantized up front. Each op's fake implementation
+gives its shapes (O like q, the LSE ``(B, H, Tq)`` float32), which is
+how shape inference runs on ``meta`` tensors and how ``torch.export``
+traces them. ``flash_fwd`` carries its autograd (the counterpart of the
+JAX ``custom_vjp``): the backward takes ``D = rowsum(dO * O)`` in
+float32 and calls ``flash_bwd_dkdv``, which recomputes the
+probabilities from the forward's row LSE, then ``flash_bwd_dq``. A
+masked (q, k) pair gets an exact-zero probability in the backward, so a
+row that attends to nothing (segment id 0) contributes no gradient; the
+JAX kernels give such rows weights that depend on the tiling, so the two
+agree where a masked loss puts a zero cotangent on those rows.
+``impl="plain"`` skips the ops: the plain forward under torch autograd
+on any device, which the tests and ``chip_smoke.py`` hold each kernel
+against on the card.
+
+**Artifacts.** A program exported through ``torch.export`` (the deploy
+path) holds the op nodes, whether it was traced on the CPU or on the
+card, and dispatches them on the device it runs on: an artifact
+exported on the CPU launches the kernels once it is moved to the card.
+Loading such a program needs this module imported (which registers the
+ops) and its kernel sources to build from, which
+``deploy.load_compiled`` sees to.
 
 bfloat16 (or float16) q/k/v/dO keep the JAX kernels' contract: float32
-inside, outputs and gradients in the input dtype, the LSE and ``D =
-rowsum(dO * O)`` in float32 (``D`` from the rounded output). The
-wrappers upcast to float32, launch the same kernels (counted as
-usual) and cast the results back; the plain versions upcast the same
-way. Kernels that load bfloat16 natively are ROADMAP queue B work.
+inside, outputs and gradients in the input dtype, the LSE and ``D`` in
+float32, ``D`` from the output rounded to the input dtype. The casts
+stay outside the ops: the wrappers upcast to float32, call the ops and
+cast the results back; ``flash_fwd``'s ``out_dtype`` tells its backward
+what the output was rounded to. Kernels that load bfloat16 natively are
+ROADMAP queue B work.
 
-Each backward kernel has its plain version too (:func:`_torch_bwd_dkdv`,
-:func:`_torch_bwd_dq`): the same LSE-recompute arithmetic in PyTorch.
-``_Flash`` runs with them when it is applied with ``kernel=False``,
-which is how the CPU tests reach the LSE-recompute backward. A masked
-(q, k) pair gets an exact-zero probability in the backward, so a row
-that attends to nothing (segment id 0) contributes no gradient; the
-JAX kernels give such rows weights that depend on the tiling, so the
-two agree where a masked loss puts a zero cotangent on those rows.
-
-Each wrapper counts its kernel launches in :data:`launches`. A CUDA
+Each kernel wrapper counts its launches in :data:`launches`. A CUDA
 graph capture enqueues kernels and runs none: inside
 :func:`recording_launches` the calling thread's counts go to the block's
 own dict instead, and a graph replay adds them back with
 :func:`add_launches`. Inside :func:`counting_work` each launch also adds
 its flops and bytes (the formulas of ``PERF.md`` §6's bound column) to
-the block's dict: the compile watch costs a program once that way, the
-kernels being invisible to torch's flop counter.
+the block's dict, and each plain route the flops of its dense products:
+the compile watch costs a program once that way, the ops being opaque
+to torch's flop counter.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
+from typing import Optional
 
 import torch
 
@@ -67,7 +88,7 @@ from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_decode", "launches",
            "reset_launches", "recording_launches", "add_launches",
-           "counting_work"]
+           "counting_work", "OPS"]
 
 _NEG = -1e30
 
@@ -146,8 +167,10 @@ def add_launches(counts, times=1):
         launches[name] += n * times
 
 
-def _torch_reference(q, k, v, scale, causal, segment_ids=None):
-    """The plain prefill attention: ``_jnp_reference`` in torch."""
+def _masked_scores(q, k, scale, causal, segment_ids):
+    """``scale * Q K^T`` ``(B, H, Tq, Tk)`` with masked pairs at
+    ``-1e30``: the causal triangle, then (packed batches) a position
+    attends only inside its own segment, padding (id 0) to nothing."""
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         Tq, Tk = q.shape[1], k.shape[1]
@@ -155,15 +178,23 @@ def _torch_reference(q, k, v, scale, causal, segment_ids=None):
                                      device=q.device))
         s = torch.where(mask[None, None], s, _NEG)
     if segment_ids is not None:
-        # a position attends only inside its own segment; padding (id
-        # 0) attends to nothing
         seg = torch.as_tensor(segment_ids, device=q.device)
         allowed = (seg[:, :, None] == seg[:, None, :]) \
             & (seg[:, :, None] > 0)
         s = torch.where(allowed[:, None], s, _NEG)
-    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True)).to(q.dtype)
+    return s
+
+
+def _softmax_pv(s, v, dtype):
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True)).to(dtype)
     p = p / torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _torch_reference(q, k, v, scale, causal, segment_ids=None):
+    """The plain prefill attention: ``_jnp_reference`` in torch."""
+    return _softmax_pv(_masked_scores(q, k, scale, causal, segment_ids), v,
+                       q.dtype)
 
 
 def _live_pairs(Tq, Tk, causal, seg, device):
@@ -183,14 +214,12 @@ def _live_pairs(Tq, Tk, causal, seg, device):
 
 
 def _torch_fwd_lse(q, k, v, seg, scale, causal):
-    """The plain forward of :class:`_Flash`: ``(o, lse (B, H, Tq))``, with
-    ``o`` from :func:`_torch_reference` and the row LSE over the masked
-    scores (``-1e30`` masking, as the kernel's)."""
-    o = _torch_reference(q, k, v, scale, causal, segment_ids=seg)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    s = torch.where(_live_pairs(q.shape[1], k.shape[1], causal, seg,
-                                q.device), s, _NEG)
-    return o, torch.logsumexp(s, dim=-1).to(torch.float32)
+    """The plain version of ``flash_fwd.cu``: ``(o, lse (B, H, Tq))``,
+    ``o`` as :func:`_torch_reference` computes it and the row LSE over
+    the same masked scores (``-1e30`` masking, as the kernel's)."""
+    s = _masked_scores(q, k, scale, causal, seg)
+    return _softmax_pv(s, v, q.dtype), \
+        torch.logsumexp(s, dim=-1).to(torch.float32)
 
 
 def _torch_bwd_p(q, k, lse, seg, scale, causal):
@@ -248,17 +277,15 @@ def _torch_decode_q8(q, k, v, k_scale, v_scale, lengths, scale):
     return _torch_decode(q, k.to(q.dtype), v.to(q.dtype), lengths, scale)
 
 
-def _use_kernel(x, impl):
-    """True for the kernel route, False for the plain version."""
+def _use_op(impl):
+    """True for the op route (:data:`OPS`: the kernel on a CUDA tensor,
+    the plain version on a CPU tensor), False for the plain version
+    under torch autograd."""
     if impl == "plain":
         return False
     if impl is not None:
         raise ValueError("impl must be None or 'plain', got %r" % (impl,))
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise MXNetError("no attention kernel for device %s" % x.device)
+    return True
 
 
 def _check_cuda(name, dev, **tensors):
@@ -368,48 +395,6 @@ def _bwd_cuda(name, q, k, v, do, lse, dcap, seg, scale, causal):
     return out
 
 
-class _Flash(torch.autograd.Function):
-    """Differentiable flash attention, the counterpart of the JAX
-    ``custom_vjp`` ``_flash``: the forward keeps the row LSE, the
-    backward computes ``D = rowsum(dO * O)`` and recomputes the
-    probabilities from it in the dK/dV kernel, then the dQ kernel.
-    ``kernel=False`` runs the same steps through the plain versions.
-    ``segment_ids`` gets no gradient."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, seg, scale, causal, kernel):
-        seg = _seg_plane(seg, q.shape[0], q.shape[1], q.device)
-        f32 = (_f32(q), _f32(k), _f32(v))
-        if kernel:
-            o, lse = _fwd_cuda(*f32, seg, scale, causal)
-        else:
-            o, lse = _torch_fwd_lse(*f32, seg, scale, causal)
-        o = o.to(q.dtype)
-        ctx.save_for_backward(q.contiguous(), k.contiguous(),
-                              v.contiguous(), o, lse, seg)
-        ctx.scale, ctx.causal, ctx.kernel = scale, causal, kernel
-        return o
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        q, k, v, o, lse, seg = ctx.saved_tensors
-        # D = rowsum(dO * O) in float32, laid out (B, H, Tq) like the LSE
-        do32 = _f32(do).contiguous()
-        dcap = torch.sum(do32 * _f32(o), dim=-1).permute(0, 2, 1) \
-            .contiguous()
-        args = (_f32(q), _f32(k), _f32(v), do32, lse, dcap, seg,
-                ctx.scale, ctx.causal)
-        if ctx.kernel:
-            dk, dv = _bwd_cuda("flash_bwd_dkdv", *args)
-            dq = _bwd_cuda("flash_bwd_dq", *args)
-        else:
-            dk, dv = _torch_bwd_dkdv(*args)
-            dq = _torch_bwd_dq(*args)
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
-
-
 def _f32(x):
     """``x`` in float32: what a kernel computes in for a low-precision
     input, as the JAX kernels cast their bfloat16 tiles on load."""
@@ -500,6 +485,186 @@ def _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths, scale):
     return o
 
 
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops: one node in eager calls, CUDA-graph
+# captures and torch.export traces alike
+# ---------------------------------------------------------------------------
+
+_NS = "mxnet_tpu_torch"
+_Tensor = torch.Tensor
+_OptTensor = Optional[torch.Tensor]
+
+
+def _dense_work(B, H, Tq, Tk, D, products):
+    """The flops of ``products`` dense ``(Tq x D) . (D x Tk)``-sized
+    products over ``B x H``: what a plain version computes."""
+    return lambda: 2.0 * products * B * H * Tq * Tk * D
+
+
+@torch.library.custom_op(_NS + "::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd(q: _Tensor, k: _Tensor, v: _Tensor, segment_ids: _OptTensor,
+               scale: float, causal: bool,
+               out_dtype: Optional[torch.dtype]) -> tuple[_Tensor, _Tensor]:
+    """``(o, lse)``: float32 ``(B, Tq, H, D)`` and ``(B, H, Tq)``.
+    ``out_dtype`` is the dtype the caller casts ``o`` to (None: float32);
+    only the backward reads it."""
+    B, Tq, H, D = q.shape
+    o, lse = _torch_fwd_lse(q, k, v, segment_ids, scale, causal)
+    o, lse = o.contiguous(), lse.contiguous()
+    _work(_dense_work(B, H, Tq, k.shape[1], D, 2), q, k, v, segment_ids, o,
+          lse)
+    return o, lse
+
+
+@_flash_fwd.register_kernel("cuda")
+def _flash_fwd_kernel(q, k, v, segment_ids, scale, causal, out_dtype):
+    return _fwd_cuda(q, k, v, segment_ids, scale, causal)
+
+
+@_flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, segment_ids, scale, causal, out_dtype):
+    B, Tq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Tq), dtype=torch.float32)
+
+
+def _bwd_work(products, q, k, *tensors):
+    B, Tq, H, D = q.shape
+    _work(_dense_work(B, H, Tq, k.shape[1], D, products), q, k, *tensors)
+
+
+@torch.library.custom_op(_NS + "::flash_bwd_dkdv", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_dkdv(q: _Tensor, k: _Tensor, v: _Tensor, do: _Tensor,
+                    lse: _Tensor, dcap: _Tensor, segment_ids: _OptTensor,
+                    scale: float, causal: bool) -> tuple[_Tensor, _Tensor]:
+    """``(dk, dv)``, both ``(B, Tk, H, D)``, from ``lse`` and ``dcap =
+    rowsum(dO * O)`` laid out ``(B, H, Tq)``."""
+    dk, dv = _torch_bwd_dkdv(q, k, v, do, lse, dcap, segment_ids, scale,
+                             causal)
+    dk, dv = dk.contiguous(), dv.contiguous()
+    _bwd_work(4, q, k, v, do, lse, dcap, segment_ids, dk, dv)
+    return dk, dv
+
+
+@_flash_bwd_dkdv.register_kernel("cuda")
+def _flash_bwd_dkdv_kernel(q, k, v, do, lse, dcap, segment_ids, scale,
+                           causal):
+    return _bwd_cuda("flash_bwd_dkdv", q, k, v, do, lse, dcap, segment_ids,
+                     scale, causal)
+
+
+@_flash_bwd_dkdv.register_fake
+def _flash_bwd_dkdv_fake(q, k, v, do, lse, dcap, segment_ids, scale,
+                         causal):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@torch.library.custom_op(_NS + "::flash_bwd_dq", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_dq(q: _Tensor, k: _Tensor, v: _Tensor, do: _Tensor,
+                  lse: _Tensor, dcap: _Tensor, segment_ids: _OptTensor,
+                  scale: float, causal: bool) -> _Tensor:
+    """``dq (B, Tq, H, D)``, from the same inputs as ``flash_bwd_dkdv``."""
+    dq = _torch_bwd_dq(q, k, v, do, lse, dcap, segment_ids, scale,
+                       causal).contiguous()
+    _bwd_work(3, q, k, v, do, lse, dcap, segment_ids, dq)
+    return dq
+
+
+@_flash_bwd_dq.register_kernel("cuda")
+def _flash_bwd_dq_kernel(q, k, v, do, lse, dcap, segment_ids, scale, causal):
+    return _bwd_cuda("flash_bwd_dq", q, k, v, do, lse, dcap, segment_ids,
+                     scale, causal)
+
+
+@_flash_bwd_dq.register_fake
+def _flash_bwd_dq_fake(q, k, v, do, lse, dcap, segment_ids, scale, causal):
+    return q.new_empty(q.shape)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, segment_ids, scale, causal, out_dtype = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], segment_ids)
+    ctx.scale, ctx.causal, ctx.out_dtype = scale, causal, out_dtype
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    """The counterpart of the JAX ``custom_vjp``'s backward: ``D =
+    rowsum(dO * O)`` in float32 from ``O`` as the caller received it
+    (rounded to ``out_dtype``), then the dK/dV op, which recomputes the
+    probabilities from the row LSE, then the dQ op. The LSE output and
+    ``segment_ids`` get no gradient."""
+    q, k, v, o, lse, seg = ctx.saved_tensors
+    if ctx.out_dtype is not None:
+        o = o.to(ctx.out_dtype).to(torch.float32)
+    do = do.contiguous()
+    dcap = torch.sum(do * o, dim=-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, dcap, seg, ctx.scale, ctx.causal)
+    dk, dv = _flash_bwd_dkdv(*args)
+    dq = _flash_bwd_dq(*args)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_fwd.register_autograd(_flash_fwd_backward,
+                             setup_context=_flash_fwd_setup)
+
+
+@torch.library.custom_op(_NS + "::flash_decode", mutates_args=(),
+                         device_types="cpu")
+def _flash_decode(q: _Tensor, k: _Tensor, v: _Tensor, lengths: _Tensor,
+                  scale: float) -> _Tensor:
+    """``(B, 1, H, D)`` float32 from float32 ``q``/``k``/``v`` and int32
+    ``lengths (B,)``."""
+    o = _torch_decode(q, k, v, lengths, scale).contiguous()
+    B, _, H, D = q.shape
+    _work(_dense_work(B, H, 1, k.shape[1], D, 2), q, k, v, lengths, o)
+    return o
+
+
+@_flash_decode.register_kernel("cuda")
+def _flash_decode_kernel(q, k, v, lengths, scale):
+    return _decode_cuda(q, k, v, lengths, scale)
+
+
+@_flash_decode.register_fake
+def _flash_decode_fake(q, k, v, lengths, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op(_NS + "::flash_decode_q8", mutates_args=(),
+                         device_types="cpu")
+def _flash_decode_q8(q: _Tensor, k: _Tensor, v: _Tensor, k_scale: _Tensor,
+                     v_scale: _Tensor, lengths: _Tensor,
+                     scale: float) -> _Tensor:
+    """The same on an int8 ``k``/``v`` with float32 per-position scales
+    ``(B, T)``."""
+    o = _torch_decode_q8(q, k, v, k_scale, v_scale, lengths,
+                         scale).contiguous()
+    B, _, H, D = q.shape
+    _work(_dense_work(B, H, 1, k.shape[1], D, 2), q, k, v, k_scale,
+          v_scale, lengths, o)
+    return o
+
+
+@_flash_decode_q8.register_kernel("cuda")
+def _flash_decode_q8_kernel(q, k, v, k_scale, v_scale, lengths, scale):
+    return _decode_q8_cuda(q, k, v, k_scale, v_scale, lengths, scale)
+
+
+@_flash_decode_q8.register_fake
+def _flash_decode_q8_fake(q, k, v, k_scale, v_scale, lengths, scale):
+    return q.new_empty(q.shape)
+
+
+# op name -> the op: what an exported program names, and what
+# deploy.load_compiled checks an artifact's ``custom_ops`` against
+OPS = {_NS + "::" + name: op for name, op in (
+    ("flash_fwd", _flash_fwd), ("flash_bwd_dkdv", _flash_bwd_dkdv),
+    ("flash_bwd_dq", _flash_bwd_dq), ("flash_decode", _flash_decode),
+    ("flash_decode_q8", _flash_decode_q8))}
+
+
 def flash_decode(q, k, v, lengths, scale=None, k_scale=None,
                  v_scale=None, impl=None):
     """One autoregressive decode step of attention: a single cached-KV
@@ -530,33 +695,29 @@ def flash_decode(q, k, v, lengths, scale=None, k_scale=None,
         raise ValueError(
             "flash_decode: quantized caches need BOTH k_scale and "
             "v_scale (B, T)")
-    kernel = _use_kernel(q, impl)
+    if not _use_op(impl):
+        if quant:
+            return _torch_decode_q8(_f32(q), k, v, k_scale, v_scale,
+                                    lengths, scale).to(q.dtype)
+        return _torch_decode(_f32(q), _f32(k), _f32(v), lengths,
+                             scale).to(q.dtype)
+    lens = _decode_lengths(lengths, q.shape[0], q.device)
     if quant:
-        if kernel:
-            o = _decode_q8_cuda(_f32(q), k, v, k_scale, v_scale, lengths,
-                                scale)
-        else:
-            o = _torch_decode_q8(_f32(q), k, v, k_scale, v_scale, lengths,
-                                 scale)
-        return o.to(q.dtype)
-    if q.dtype == torch.float32:
-        if kernel:
-            return _decode_cuda(q, k, v, lengths, scale)
-        return _torch_decode(q, k.to(q.dtype), v.to(q.dtype), lengths,
-                             scale)
-    # a low-precision query: float32 inside, the output in q's dtype
-    q32, k32, v32 = _f32(q), _f32(k), _f32(v)
-    o = _decode_cuda(q32, k32, v32, lengths, scale) if kernel \
-        else _torch_decode(q32, k32, v32, lengths, scale)
+        o = _flash_decode_q8(_f32(q), k, v,
+                             torch.as_tensor(k_scale, device=q.device),
+                             torch.as_tensor(v_scale, device=q.device), lens,
+                             float(scale))
+    else:
+        o = _flash_decode(_f32(q), _f32(k), _f32(v), lens, float(scale))
     return o.to(q.dtype)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
                     impl=None):
     """Attention over ``(B, T, H, D)`` tensors, for ANY sequence length,
-    differentiable on every device: on a CUDA tensor through the kernels
-    of :class:`_Flash`, on a CPU tensor through torch autograd of the
-    plain version.
+    differentiable on every device through op ``flash_fwd`` and its
+    backward ops: the kernels on a CUDA tensor, their plain versions on
+    a CPU tensor.
 
     ``segment_ids`` (``(B, T)`` int, 1-based per sample, 0 = pad) turns
     on segment-blocked attention for PACKED batches: a position attends
@@ -570,11 +731,11 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
             "flash_attention: segment_ids requires self-attention "
             "(q and k sequence lengths %d vs %d differ)"
             % (q.shape[1], k.shape[1]))
-    if _use_kernel(q, impl):
-        return _Flash.apply(q, k, v, segment_ids, scale, causal, True)
-    if q.dtype != torch.float32:
-        # low precision: the kernels' contract through the plain
-        # versions (float32 inside, D from the rounded output)
-        return _Flash.apply(q, k, v, segment_ids, scale, causal, False)
-    return _torch_reference(q, k, v, scale, causal,
-                            segment_ids=segment_ids)
+    if not _use_op(impl):
+        return _torch_reference(_f32(q), _f32(k), _f32(v), scale, causal,
+                                segment_ids=segment_ids).to(q.dtype)
+    seg = _seg_plane(segment_ids, q.shape[0], q.shape[1], q.device)
+    o, _lse = _flash_fwd(_f32(q), _f32(k), _f32(v), seg, float(scale),
+                         bool(causal),
+                         None if q.dtype == torch.float32 else q.dtype)
+    return o.to(q.dtype)

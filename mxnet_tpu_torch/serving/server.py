@@ -134,7 +134,7 @@ class _Request:
     lifecycle spans — None whenever tracing is off."""
 
     __slots__ = ("args", "t_submit", "deadline", "request_id",
-                 "priority", "bucket", "_tr",
+                 "priority", "bucket", "batch", "row", "_tr",
                  "_event", "_value", "_error", "_t_done")
 
     def __init__(self, args, t_submit, deadline, request_id=None,
@@ -145,6 +145,12 @@ class _Request:
         self.request_id = request_id
         self.priority = priority
         self.bucket = None        # the ladder bucket it was served in
+        # the server's batch (its sequence number, from 1) and the row
+        # in it: an answer that depends on its batch-mates (an int8
+        # artifact quantizes its input over the whole batch) is
+        # reproduced from the same batch
+        self.batch = None
+        self.row = None
         self._tr = None
         self._event = threading.Event()
         self._value = None
@@ -807,6 +813,7 @@ class InferenceServer:
                 n = len(batch)
                 self._stats["completed"] += n
                 self._stats["batches"] += 1
+                seq = self._stats["batches"]
                 self._stats["occupancy_sum"] += n / float(bucket)
                 self._replica_service_s[idx] += \
                     time.perf_counter() - t_get
@@ -824,8 +831,8 @@ class InferenceServer:
                 if emit:
                     self._batches_since_record = 0
             respond_ends = []
-            for r, value in zip(batch, values):
-                r.bucket = bucket
+            for row, (r, value) in enumerate(zip(batch, values)):
+                r.bucket, r.batch, r.row = bucket, seq, row
                 r._fulfill(value)
                 respond_ends.append(time.perf_counter())
             if t_put is not None:

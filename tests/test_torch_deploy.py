@@ -3,10 +3,14 @@ programs in the JAX package's single-file layout) against the JAX
 package's (tests/test_deploy.py's non-int8 cases): round trips from a
 hybridized block and from a Symbol, a blob run in a process that
 imports only torch, the meta (equal to JAX's for the same graph),
-call validation, the bucket ladder's pad-and-slice, format-1 files, and
-the port's own refusals (a JAX artifact, a graph with a hand-kernel op,
-``quantize=True``). The Predictor is held to JAX's on the same Symbol
-and numpy parameters at rtol 1e-5, atol 1e-6."""
+call validation, the bucket ladder's pad-and-slice, format-1 files, a
+JAX artifact refused; artifacts holding the attention ops (their
+programs hold the ``mxnet_tpu_torch`` op nodes, no plain attention,
+answers within 2e-5 of the JAX artifact's) and an artifact naming ops
+the loader does not know refused; and format-3 int8 artifacts, the
+counterparts of tests/test_deploy.py's four int8 tests, each held to
+the JAX artifact's meta and answers. The Predictor is held to JAX's on
+the same Symbol and numpy parameters at rtol 1e-5, atol 1e-6."""
 import io
 import json
 import os
@@ -248,24 +252,261 @@ def test_jax_artifact_refused(tmp_path):
         mx.deploy.load_compiled(jpath)
 
 
-def test_hand_kernel_graph_refused(tmp_path):
-    q = mx.sym.var("q")
-    att = mx.sym.contrib.flash_attention(q, q, q, causal=True) \
-        if hasattr(mx.sym.contrib, "flash_attention") \
-        else mx.sym._contrib_flash_attention(q, q, q, causal=True)
-    with pytest.raises(MXNetError, match="_contrib_flash_attention"):
-        mx.deploy.export_compiled(att, str(tmp_path / "a.mxp"),
-                                  input_shapes={"q": (1, 8, 2, 4)})
-    assert not os.path.exists(str(tmp_path / "a.mxp"))
+ATT_TOL = dict(rtol=2e-5, atol=2e-5)
+# the plain attention's ops: none may be traced into an artifact
+PLAIN_ATTENTION = {"aten::exp", "aten::amax", "aten::logsumexp",
+                   "aten::bmm", "aten::einsum", "aten::_softmax"}
 
 
-def test_quantize_raises_naming_item_13(tmp_path):
-    out, params, _w, _b = _fc(mx)
-    with pytest.raises(MXNetError, match="item 13"):
-        mx.deploy.export_compiled(out, str(tmp_path / "q.mxp"),
+def _attention_net(m, seed=0):
+    """FC -> q, k, v (B, T, 2, 8) -> causal flash attention -> FC, and
+    its numpy parameters."""
+    d = m.sym.var("data")
+    heads = []
+    for name in ("q", "k", "v"):
+        h = m.sym.FullyConnected(d, num_hidden=16, flatten=False,
+                                 name=name)
+        heads.append(m.sym.reshape(h, shape=(0, 0, 2, 8)))
+    att = m.sym._contrib_flash_attention(*heads, causal=True)
+    out = m.sym.FullyConnected(m.sym.reshape(att, shape=(0, 0, 16)),
+                               num_hidden=5, flatten=False, name="out")
+    rs = np.random.RandomState(seed)
+    shapes = {"q_weight": (16, 12), "k_weight": (16, 12),
+              "v_weight": (16, 12), "q_bias": (16,), "k_bias": (16,),
+              "v_bias": (16,), "out_weight": (5, 16), "out_bias": (5,)}
+    return out, {n: (rs.randn(*sh) * 0.4).astype(np.float32)
+                 for n, sh in shapes.items()}
+
+
+def _decode_net(m):
+    """``_contrib_decode_attention`` over data inputs, the lengths one of
+    them."""
+    return m.sym._contrib_decode_attention(
+        m.sym.var("q"), m.sym.var("k"), m.sym.var("v"),
+        m.sym.var("lengths")), {}
+
+
+def _targets(pred):
+    return [{n.target.name() for n in ep.graph.nodes
+             if n.op == "call_function"
+             and isinstance(n.target, torch._ops.OpOverload)}
+            for _b, ep in pred._programs]
+
+
+@pytest.mark.parametrize("which", ["prefill", "decode"])
+def test_attention_artifact_against_jax(tmp_path, which):
+    """A graph holding an attention op, exported by both packages with
+    buckets [1, 2]: both artifacts' answers agree within 2e-5; each of
+    the port's programs (traced on the CPU) holds the op node and none
+    of the plain attention's ops; the meta names the op."""
+    build = _attention_net if which == "prefill" else _decode_net
+    rs = np.random.RandomState(3)
+    if which == "prefill":
+        shapes = {"data": (1, 10, 12)}
+        xs = [rs.randn(b, 10, 12).astype(np.float32) for b in (1, 2)]
+        op = "mxnet_tpu_torch::flash_fwd"
+    else:
+        B, T, H, D = 1, 24, 2, 8
+        shapes = {"q": (B, 1, H, D), "k": (B, T, H, D), "v": (B, T, H, D),
+                  "lengths": (B,)}
+        xs = [(rs.randn(b, 1, H, D).astype(np.float32),
+               rs.randn(b, T, H, D).astype(np.float32),
+               rs.randn(b, T, H, D).astype(np.float32),
+               rs.randint(1, T + 1, b).astype(np.float32)) for b in (1, 2)]
+        op = "mxnet_tpu_torch::flash_decode"
+    preds = []
+    for m in (mx, jmx):
+        sym, params = build(m)
+        path = str(tmp_path / ("%s.mxp" % m.__name__))
+        m.deploy.export_compiled(
+            sym, path, params={n: m.nd.array(v) for n, v in params.items()},
+            input_shapes=shapes, batch_sizes=[1, 2])
+        preds.append(m.deploy.load_compiled(path))
+    pred, jpred = preds
+    assert pred.meta["custom_ops"] == [op]
+    for held in _targets(pred):
+        assert op in held and not held & PLAIN_ATTENTION, held
+    for x in xs:
+        args = x if isinstance(x, tuple) else (x,)
+        got, want = pred(*args), np.asarray(jpred(*args))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **ATT_TOL)
+    for key in ("format", "inputs", "outputs"):
+        assert pred.meta[key] == jpred.meta[key], key
+
+
+def test_attention_artifact_moves_with_its_op(tmp_path):
+    """Loaded on another device (``meta``, standing in for the card),
+    the program keeps the op node, and it dispatches there."""
+    sym, params = _attention_net(mx)
+    path = str(tmp_path / "att.mxp")
+    mx.deploy.export_compiled(
+        sym, path, params={n: mx.nd.array(v) for n, v in params.items()},
+        input_shapes={"data": (2, 10, 12)})
+    moved = mx.deploy.load_compiled(path, device="meta")
+    assert moved.program_devices() == {"meta"}
+    assert "mxnet_tpu_torch::flash_fwd" in _targets(moved)[0]
+    y = moved.program(2)(torch.zeros(2, 10, 12, device="meta"))
+    assert y.device.type == "meta" and tuple(y.shape) == (2, 10, 5)
+
+
+def test_artifact_naming_unknown_ops_is_refused(tmp_path):
+    sym, params = _attention_net(mx)
+    path = str(tmp_path / "att.mxp")
+    mx.deploy.export_compiled(
+        sym, path, params={n: mx.nd.array(v) for n, v in params.items()},
+        input_shapes={"data": (1, 10, 12)})
+    with open(path, "rb") as f:
+        magic = f.read(12)
+        (n,) = struct.unpack("<I", f.read(4))
+        meta = json.loads(f.read(n).decode())
+        rest = f.read()
+    meta["custom_ops"] += ["mxnet_tpu_torch::flash_next",
+                           "other_lib::fused_thing"]
+    mb = json.dumps(meta).encode()
+    bad = str(tmp_path / "bad.mxp")
+    with open(bad, "wb") as f:
+        f.write(magic + struct.pack("<I", len(mb)) + mb + rest)
+    with pytest.raises(MXNetError,
+                       match="mxnet_tpu_torch::flash_next, "
+                             "other_lib::fused_thing"):
+        mx.deploy.load_compiled(bad)
+
+
+# ---------------------------------------------------------------------------
+# format 3: int8 artifacts (tests/test_deploy.py's four int8 tests, each
+# held to the JAX artifact)
+# ---------------------------------------------------------------------------
+
+def _mlp_and_calib(m, seed=0, batch=4):
+    """tests/test_deploy.py's MLP, weights and calibration batches."""
+    rng = np.random.RandomState(seed)
+    data = m.sym.var("data")
+    fc1 = m.sym.FullyConnected(data, num_hidden=16, name="fc1")
+    act = m.sym.Activation(fc1, act_type="relu")
+    fc2 = m.sym.FullyConnected(act, num_hidden=4, name="fc2")
+    params = {"fc1_weight": m.nd.array(
+                  rng.randn(16, 8).astype(np.float32) * 0.3),
+              "fc1_bias": m.nd.zeros((16,)),
+              "fc2_weight": m.nd.array(
+                  rng.randn(4, 16).astype(np.float32) * 0.3),
+              "fc2_bias": m.nd.zeros((4,))}
+    xs = [m.nd.array(rng.randn(batch, 8).astype(np.float32))
+          for _ in range(3)]
+
+    class Batches:
+        def __iter__(self):
+            return iter([type("B", (), {"data": [x]})() for x in xs])
+
+        def reset(self):
+            pass
+
+    return fc2, params, xs, Batches()
+
+
+def _both_int8(tmp_path, **kw):
+    """The MLP exported with quantize=True by the port and by the JAX
+    package: (port predictor, JAX predictor, the numpy batches, the
+    port's fp32 answers)."""
+    preds = []
+    for m in (mx, jmx):
+        sym, params, xs, calib = _mlp_and_calib(m)
+        path = str(tmp_path / ("q_%s.mxp" % m.__name__))
+        m.deploy.export_compiled(sym, path, params=params,
+                                 input_shapes={"data": (4, 8)},
+                                 quantize=True, calib_data=calib, **kw)
+        preds.append(m.deploy.load_compiled(path))
+        if m is mx:
+            fp32 = [sym.bind(mx.cpu(), dict(params, data=x)).forward()[0]
+                    .asnumpy() for x in xs]
+            batches = [x.asnumpy() for x in xs]
+    return preds[0], preds[1], batches, fp32
+
+
+def _same_quantization(q, jq):
+    for key in ("dtype", "calib_mode", "calib_batches", "excluded",
+                "tolerance"):
+        assert q[key] == jq[key], key
+    assert sorted(q["ranges"]) == sorted(jq["ranges"])
+    for n, rng in jq["ranges"].items():
+        np.testing.assert_allclose(q["ranges"][n], rng, err_msg=n, **TOL)
+    np.testing.assert_allclose(q["max_abs_delta"], jq["max_abs_delta"],
+                               **TOL)
+
+
+def test_int8_export_format3_roundtrip(tmp_path):
+    pred, jpred, xs, fp32 = _both_int8(tmp_path)
+    assert pred.meta["format"] == jpred.meta["format"] == 3
+    q = pred.quantization
+    assert q["dtype"] == "int8" and q["calib_mode"] == "naive"
+    assert q["calib_batches"] == 3 and set(q["ranges"]) == {"fc1", "fc2"}
+    assert all(lo < hi for lo, hi in q["ranges"].values())
+    _same_quantization(q, jpred.quantization)
+    for key in ("inputs", "outputs"):
+        assert pred.meta[key] == jpred.meta[key], key
+    # the artifact predicts within the RECORDED delta of the fp32 graph,
+    # and as the JAX artifact does
+    got = pred(xs[0])
+    assert np.max(np.abs(got - fp32[0])) <= q["max_abs_delta"] + 1e-6
+    np.testing.assert_allclose(got, np.asarray(jpred(xs[0])), **TOL)
+    # one node a quantized op, and the meta names them
+    held = set().union(*_targets(pred))
+    assert pred.meta["custom_ops"] == sorted(
+        "mxnet_tpu_torch::" + n for n in ("quantize_v2",
+                                          "quantized_fully_connected",
+                                          "requantize", "dequantize"))
+    assert set(pred.meta["custom_ops"]) <= held
+    assert "aten::linear" not in held and "aten::_int_mm" not in held
+
+
+def test_int8_export_accuracy_oracle_gates(tmp_path):
+    sym, params, _xs, calib = _mlp_and_calib(mx)
+    path = str(tmp_path / "q.mxp")
+    with pytest.raises(MXNetError, match="max_output_delta"):
+        mx.deploy.export_compiled(sym, path, params=params,
+                                  input_shapes={"data": (4, 8)},
+                                  quantize=True, calib_data=calib,
+                                  max_output_delta=1e-9)
+    assert not os.path.exists(path)
+    pred, jpred, xs, _ = _both_int8(tmp_path, max_output_delta=10.0)
+    assert pred.quantization["tolerance"] == 10.0
+    assert pred.quantization["max_abs_delta"] <= 10.0
+    _same_quantization(pred.quantization, jpred.quantization)
+    np.testing.assert_allclose(pred(xs[1]), np.asarray(jpred(xs[1])), **TOL)
+
+
+def test_int8_export_requires_calib_and_excludes(tmp_path):
+    sym, params, _xs, _calib = _mlp_and_calib(mx)
+    with pytest.raises(MXNetError, match="calib_data"):
+        mx.deploy.export_compiled(sym, str(tmp_path / "q.mxp"),
                                   params=params,
-                                  input_shapes={"data": (4, 6)},
+                                  input_shapes={"data": (4, 8)},
                                   quantize=True)
+    # excluding every eligible node leaves ranges for none of them
+    pred, jpred, xs, fp32 = _both_int8(
+        tmp_path, excluded_sym_names=("fc1", "fc2"))
+    assert pred.quantization["excluded"] == ["fc1", "fc2"]
+    _same_quantization(pred.quantization, jpred.quantization)
+    # a fully excluded graph is the fp32 graph: the delta is (near) zero
+    assert pred.quantization["max_abs_delta"] <= 1e-5
+    np.testing.assert_allclose(pred(xs[0]), fp32[0], **TOL)
+    np.testing.assert_allclose(pred(xs[0]), np.asarray(jpred(xs[0])), **TOL)
+
+
+def test_int8_export_multi_signature_buckets(tmp_path):
+    """quantize=True composes with batch_sizes: every bucket program
+    runs the int8 graph, pad/slice dispatch is unchanged."""
+    pred, jpred, xs, fp32 = _both_int8(tmp_path, batch_sizes=[2, 4, 8])
+    assert pred.meta["format"] == 3
+    assert pred.batch_sizes == jpred.batch_sizes == [2, 4, 8]
+    assert [(p["batch"], p["outputs"]) for p in pred.meta["programs"]] \
+        == [(p["batch"], p["outputs"]) for p in jpred.meta["programs"]]
+    tol = pred.quantization["max_abs_delta"] + 1e-6
+    # batch 3 pads onto the 4-bucket; rows must match the exact call
+    got3 = pred(xs[0][:3])
+    assert np.max(np.abs(got3 - fp32[0][:3])) <= tol
+    for x in (xs[0][:1], xs[0][:3], np.concatenate([xs[0], xs[1]])):
+        np.testing.assert_allclose(pred(x), np.asarray(jpred(x)), **TOL)
 
 
 def test_top_level_names():

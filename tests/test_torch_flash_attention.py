@@ -14,12 +14,12 @@ left out of the comparison.
 The CUDA kernels themselves run only on a card: chip_smoke.py holds them
 to the plain version there, at the serving shapes."""
 import importlib
-import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mxnet_tpu_torch import MXNetError
 
@@ -141,35 +141,64 @@ def test_same_value_errors_as_jax():
         tfa.flash_attention(q, q, q, impl="fast")
 
 
+class _OpSpy(TorchDispatchMode):
+    """Records the ``mxnet_tpu_torch`` ops dispatched inside, with their
+    arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "mxnet_tpu_torch":
+            self.calls.append((func.name(), args))
+        return func(*args, **(kwargs or {}))
+
+
 def test_wrappers_route_by_device():
-    """A CPU tensor takes the plain version; a CUDA tensor the kernel
-    (never the plain version unless impl="plain"); any other device
-    raises. Launch counts move only on the kernel route."""
-    cpu = torch.zeros(1)
-    fake_cuda = types.SimpleNamespace(device=torch.device("cuda", 0))
-    assert tfa._use_kernel(cpu, None) is False
-    assert tfa._use_kernel(fake_cuda, None) is True
-    assert tfa._use_kernel(fake_cuda, "plain") is False
-    with pytest.raises(MXNetError, match="no attention kernel"):
-        tfa._use_kernel(torch.zeros(1, device="meta"), None)
+    """Outside ``impl="plain"`` both wrappers call the ``mxnet_tpu_torch``
+    ops on every device: a CPU tensor takes an op's plain implementation,
+    a ``meta`` tensor its fake one (shapes only), a CUDA tensor its
+    kernel (each op has an implementation for exactly those devices);
+    ``impl="plain"`` calls no op, and ``impl`` takes nothing else.
+    Launch counts move only on the kernel route."""
     tfa.reset_launches()
     q, k, v = (_t(x) for x in _qkv(1, 1, 8, 8, 2, 8))
-    tfa.flash_attention(q, k, v, causal=True)
-    tfa.flash_decode(q[:, :1], k, v, torch.full((1,), 8))
     s = torch.ones(1, 8)
-    tfa.flash_decode(q[:, :1], k.to(torch.int8), v.to(torch.int8),
-                     torch.full((1,), 8), k_scale=s, v_scale=s)
+    k8, v8 = k.to(torch.int8), v.to(torch.int8)
+    lens = torch.full((1,), 8)
+    for impl, want in ((None, ["flash_fwd", "flash_decode",
+                               "flash_decode_q8"]), ("plain", [])):
+        with _OpSpy() as spy:
+            tfa.flash_attention(q, k, v, causal=True, impl=impl)
+            tfa.flash_decode(q[:, :1], k, v, lens, impl=impl)
+            tfa.flash_decode(q[:, :1], k8, v8, lens, k_scale=s, v_scale=s,
+                             impl=impl)
+        assert [n for n, _ in spy.calls] \
+            == ["mxnet_tpu_torch::" + n for n in want]
+    with pytest.raises(ValueError, match="impl"):
+        tfa.flash_decode(q[:, :1], k, v, lens, impl="kernel")
+    m = torch.empty(2, 16, 3, 8, device="meta")
+    assert tfa.flash_attention(m, m, m, causal=True).shape == m.shape
+    assert tfa.flash_decode(m[:, :1], m, m, torch.ones(
+        2, dtype=torch.int32, device="meta")).shape == (2, 1, 3, 8)
+    for name in tfa.OPS:
+        for key, has in (("CPU", True), ("CUDA", True), ("Meta", True),
+                         ("XLA", False), ("MPS", False)):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(
+                name, key) is has, (name, key)
     assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0,
                             "flash_decode_q8": 0, "flash_bwd_dkdv": 0,
                             "flash_bwd_dq": 0}
 
 
 def test_q8_decode_routes_int8_cache_to_its_kernel(monkeypatch):
-    """On the kernel route a quantized call reaches ``_decode_q8_cuda``
-    with the int8 cache and its (B, T) scales as given: nothing is
-    dequantized in torch first, and the fp32 kernel is not called."""
+    """A quantized call reaches op ``flash_decode_q8`` with the int8
+    cache and its (B, T) scales as given, and the op's CUDA
+    implementation hands them on to ``_decode_q8_cuda`` the same way:
+    nothing is dequantized in torch first, and the fp32 kernel is not
+    called."""
     calls = []
-    monkeypatch.setattr(tfa, "_use_kernel", lambda x, impl: True)
     monkeypatch.setattr(tfa, "_decode_q8_cuda",
                         lambda *a: calls.append(a) or a[0])
     monkeypatch.setattr(tfa, "_decode_cuda", lambda *a: pytest.fail(
@@ -180,13 +209,17 @@ def test_q8_decode_routes_int8_cache_to_its_kernel(monkeypatch):
     v = torch.full((B, T, H, D), 2, dtype=torch.int8)
     ks, vs = torch.full((B, T), 0.5), torch.full((B, T), 0.25)
     lens = torch.tensor([3, 16], dtype=torch.int32)
-    tfa.flash_decode(q, k, v, lens, k_scale=ks, v_scale=vs)
-    (args,) = calls
-    assert args[0] is q and args[1] is k and args[2] is v
-    assert args[1].dtype == args[2].dtype == torch.int8
-    assert args[3] is ks and args[4] is vs
-    assert tuple(args[3].shape) == tuple(args[4].shape) == (B, T)
-    assert args[5] is lens and args[6] == pytest.approx(D ** -0.5)
+    with _OpSpy() as spy:
+        tfa.flash_decode(q, k, v, lens, k_scale=ks, v_scale=vs)
+    ((name, op_args),) = spy.calls
+    assert name == "mxnet_tpu_torch::flash_decode_q8"
+    tfa._flash_decode_q8_kernel(*op_args)
+    for args in (op_args, calls[0]):
+        assert args[0] is q and args[1] is k and args[2] is v
+        assert args[1].dtype == args[2].dtype == torch.int8
+        assert args[3] is ks and args[4] is vs
+        assert tuple(args[3].shape) == tuple(args[4].shape) == (B, T)
+        assert args[5] is lens and args[6] == pytest.approx(D ** -0.5)
 
 
 @pytest.mark.parametrize("case,exc,match", [

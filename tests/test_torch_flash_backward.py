@@ -4,11 +4,11 @@ JAX package's, on the CPU.
 The same numpy inputs and cotangents go through ``jax.vjp`` of the JAX
 ``flash_attention(force_pallas=True)`` (its backward kernels
 ``_bwd_dkdv_kernel``/``_bwd_dq_kernel`` in Pallas interpret mode) and
-``jax.grad`` of ``_jnp_reference``, and through the port's
-``_Flash`` autograd Function run with the plain versions of its backward
-kernels (the LSE-recompute arithmetic of ``flash_bwd_dkdv.cu`` and
-``flash_bwd_dq.cu``), and through torch autograd of the plain forward,
-which is what ``flash_attention`` runs on a CPU tensor. Tolerance
+``jax.grad`` of ``_jnp_reference``, and through the port's op
+``mxnet_tpu_torch::flash_fwd`` on a CPU tensor, whose autograd calls the
+backward ops' plain implementations (the LSE-recompute arithmetic of
+``flash_bwd_dkdv.cu`` and ``flash_bwd_dq.cu``), called directly and
+through ``flash_attention``, which reaches the same op. Tolerance
 rtol = atol = 2e-5 (interpret-mode Pallas, ROADMAP rule 5). Packed
 batches put a zero cotangent on the pad rows (segment id 0), as a masked
 loss does: the rows that attend to nothing have tile-dependent weights
@@ -89,8 +89,9 @@ def _torch_grads(q, k, v, g, seg, causal, via_function):
     leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     segt = None if seg is None else torch.from_numpy(seg)
     if via_function:
-        out = tfa._Flash.apply(*leaves, segt, q.shape[-1] ** -0.5, causal,
-                               False)
+        out, _lse = torch.ops.mxnet_tpu_torch.flash_fwd(
+            *leaves, None if segt is None else segt.to(torch.int32),
+            q.shape[-1] ** -0.5, causal, None)
     else:
         out = tfa.flash_attention(*leaves, causal=causal, segment_ids=segt)
     out.backward(torch.from_numpy(g))
@@ -99,8 +100,8 @@ def _torch_grads(q, k, v, g, seg, causal, via_function):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_lse_recompute_backward_matches_jax_pallas(name):
-    """The port's Function with the plain backward kernels against the
-    Pallas backward kernels in interpret mode, and against jax.grad of
+    """The port's op on the CPU, the plain backward kernels under its
+    autograd, against the Pallas backward kernels in interpret mode, and against jax.grad of
     the jnp reference."""
     case = CASES[name]
     q, k, v, g, seg = _inputs(case, seed=len(name))
@@ -114,8 +115,8 @@ def test_lse_recompute_backward_matches_jax_pallas(name):
 
 @pytest.mark.parametrize("name", ["causal", "cross_Tq_ne_Tk", "segments"])
 def test_flash_attention_cpu_gradient_matches_jax(name):
-    """On a CPU tensor flash_attention is differentiable through torch
-    autograd of the plain version."""
+    """On a CPU tensor flash_attention is differentiable through the
+    op's autograd and the backward ops' plain versions."""
     case = CASES[name]
     q, k, v, g, seg = _inputs(case, seed=len(name) + 1)
     got = _torch_grads(q, k, v, g, seg, case[5], via_function=False)
@@ -126,7 +127,7 @@ def test_flash_attention_cpu_gradient_matches_jax(name):
 
 def test_plain_kernel_versions_match_function_outputs():
     """The plain dK/dV and dQ versions, called the way the kernels are
-    (lse and D laid out (B, H, Tq)), give the Function's gradients; the
+    (lse and D laid out (B, H, Tq)), give the op's gradients; the
     forward's LSE is the log-sum-exp of the masked scores."""
     q, k, v, g, seg = _inputs(CASES["segments"], seed=3)
     qt, kt, vt, gt = (torch.from_numpy(x) for x in (q, k, v, g))
@@ -151,7 +152,8 @@ def test_segment_ids_get_no_gradient_and_launch_counts_stay():
     q, k, v, g, seg = _inputs(CASES["segments"], seed=4)
     leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     segt = torch.from_numpy(seg.astype(np.float32)).requires_grad_(True)
-    out = tfa._Flash.apply(*leaves, segt, 0.25, True, False)
+    out = tfa.flash_attention(*leaves, causal=True, scale=0.25,
+                              segment_ids=segt)
     out.backward(torch.from_numpy(g))
     assert segt.grad is None
     assert all(x.grad is not None for x in leaves)
@@ -305,7 +307,7 @@ def test_tf32_parts_hold_the_forward_to_fp32(passes):
 @pytest.mark.parametrize("name", ["causal", "full"])
 def test_bf16_gradients_match_jax_pallas(name):
     """bfloat16 q/k/v and cotangent: the port's backward (the plain
-    kernel versions through ``_Flash``, what a CPU tensor runs) takes D
+    kernel versions under op ``flash_fwd``, what a CPU tensor runs) takes D
     in float32 from the rounded bfloat16 output, computes in float32 and
     returns bfloat16 gradients, as ``jax.vjp`` of the Pallas kernels
     does on the same bfloat16 inputs. Each gradient is within 2e-5 of

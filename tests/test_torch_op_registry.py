@@ -36,18 +36,18 @@ STEP5 = {"_square_sum", "_contrib_getnnz", "_contrib_SparseEmbedding",
          "cast_storage", "_sparse_retain"}
 # and the first half of order step 6 (the rank mesh)
 STEP6 = {"_contrib_SyncBatchNorm"}
+# and the deploy path's int8 ops (order step 7's format-3 artifacts)
+QUANT = {"_contrib_quantize", "_contrib_quantize_v2", "_contrib_dequantize",
+         "_contrib_requantize", "_contrib_quantized_fully_connected",
+         "_contrib_quantized_conv", "_contrib_quantized_pooling",
+         "_contrib_quantized_flatten", "_contrib_quantized_concat"}
 
 UNPORTED = dict(
     **{n: _STEP8 for n in (
         "_contrib_edge_id", "_image_normalize", "_image_resize",
         "_image_to_tensor", "_image_totensor", "GridGenerator",
         "BilinearSampler", "SpatialTransformer", "Correlation", "_cond",
-        "_foreach", "_while_loop", "Custom",
-        "_contrib_dequantize", "_contrib_quantize", "_contrib_quantize_v2",
-        "_contrib_quantized_concat", "_contrib_quantized_conv",
-        "_contrib_quantized_flatten", "_contrib_quantized_fully_connected",
-        "_contrib_quantized_pooling", "_contrib_requantize",
-        "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "ROIAlign",
+        "_foreach", "_while_loop", "Custom", "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "ROIAlign",
         "ROIPooling", "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
         "_contrib_MultiBoxTarget", "_contrib_ROIAlign",
         "_contrib_bipartite_matching", "_contrib_box_iou",
@@ -79,10 +79,7 @@ NS_UNPORTED = dict(
 
 CONTRIB_UNPORTED = dict(
     **{n: _STEP8 for n in (
-        "edge_id", "dequantize", "quantize", "quantize_v2",
-        "quantized_concat", "quantized_conv", "quantized_flatten",
-        "quantized_fully_connected", "quantized_pooling", "requantize",
-        "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "ROIAlign",
+        "edge_id", "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "ROIAlign",
         "bipartite_matching", "box_iou", "box_nms",
         "box_non_maximum_suppression", "MultiProposal", "Proposal",
         "DeformableConvolution", "DeformablePSROIPooling", "PSROIPooling",
@@ -141,20 +138,22 @@ def test_every_jax_op_is_registered_alike_or_listed(name):
 
 
 def test_the_port_registers_328_of_382_names_and_nothing_of_its_own():
-    """328 names through order step 3; order step 5 added five and order
-    step 6 one (334), and 48 wait in ``UNPORTED``."""
+    """328 names through order step 3; order step 5 added five, order
+    step 6 one and the int8 deploy path nine (343), and 39 wait in
+    ``UNPORTED``."""
     jax_names, port_names = set(jops.list_ops()), set(tops.list_ops())
     assert port_names <= jax_names
-    assert len(jax_names) == 382 and len(port_names - STEP5 - STEP6) == 328
-    assert STEP5 | STEP6 <= port_names and len(port_names) == 334
-    assert jax_names - port_names == set(UNPORTED) and len(UNPORTED) == 48
+    assert len(jax_names) == 382 \
+        and len(port_names - STEP5 - STEP6 - QUANT) == 328
+    assert STEP5 | STEP6 | QUANT <= port_names and len(port_names) == 343
+    assert jax_names - port_names == set(UNPORTED) and len(UNPORTED) == 39
 
 
 def test_the_slice_registers_179_names_by_module():
     """The names this slice added, by the JAX module that registers
     them (the ``_v1`` names sit in the JAX package's extra.py; the port
     registers them in its nn.py, beside the ops they rename)."""
-    added = set(tops.list_ops()) - _EARLIER - STEP5 - STEP6
+    added = set(tops.list_ops()) - _EARLIER - STEP5 - STEP6 - QUANT
     counts = {}
     for name in added:
         mod = jops.get_op(name).forward.__module__.rsplit(".", 1)[-1]
@@ -427,7 +426,9 @@ def test_phase_21_sweeps_every_op_of_the_slice_and_each_case_runs():
     cs = _chip_smoke()
     swept = cs.ops_swept(tops)
     names = {n for ns in swept.values() for n in ns}
-    slice_names = set(tops.list_ops()) - _EARLIER
+    # the int8 ops are the deploy path's: phase 28 (d) holds them on the
+    # card and tests/test_torch_quantization.py against the JAX package
+    slice_names = set(tops.list_ops()) - _EARLIER - QUANT
     assert slice_names <= names, sorted(slice_names - names)
     assert STEP5 | STEP6 <= names
     rs = np.random.RandomState(0)

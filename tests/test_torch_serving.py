@@ -277,6 +277,98 @@ def test_first_batch_of_a_bucket_captures_on_the_worker(tmp_path,
     assert compile_watch.site_stats("serving")["serving:b2"]["count"] == 1
 
 
+def _attention_artifact(path):
+    """FC -> causal ``_contrib_flash_attention`` -> FC (B, 6, 12),
+    exported with buckets [1, 2, 4]: its programs hold op
+    ``mxnet_tpu_torch::flash_fwd``."""
+    d = mx.sym.var("data")
+    heads = [mx.sym.reshape(mx.sym.FullyConnected(
+        d, num_hidden=16, flatten=False, name=n), shape=(0, 0, 2, 8))
+        for n in "qkv"]
+    att = mx.sym._contrib_flash_attention(*heads, causal=True)
+    out = mx.sym.FullyConnected(mx.sym.reshape(att, shape=(0, 0, 16)),
+                                num_hidden=5, flatten=False, name="o")
+    rs = np.random.RandomState(4)
+    params = {n: mx.nd.array(rs.randn(*sh).astype(np.float32) * 0.4)
+              for n, sh in [("q_weight", (16, 12)), ("k_weight", (16, 12)),
+                            ("v_weight", (16, 12)), ("q_bias", (16,)),
+                            ("k_bias", (16,)), ("v_bias", (16,)),
+                            ("o_weight", (5, 16)), ("o_bias", (5,))]}
+    mx.deploy.export_compiled(out, path, params=params,
+                              input_shapes={"data": (1, 6, 12)},
+                              batch_sizes=[1, 2, 4])
+    return mx.deploy.load_compiled(path), (6, 12)
+
+
+def _int8_artifact(path):
+    """The MLP exported as a format-3 int8 artifact, buckets [1, 2, 4]."""
+    d = mx.sym.var("data")
+    h = mx.sym.Activation(mx.sym.FullyConnected(d, name="fc1",
+                                                num_hidden=16),
+                          act_type="relu")
+    out = mx.sym.FullyConnected(h, name="fc2", num_hidden=5)
+    rs = np.random.RandomState(7)
+    params = {"fc1_weight": mx.nd.array(rs.randn(16, 12) * 0.1),
+              "fc1_bias": mx.nd.zeros((16,)),
+              "fc2_weight": mx.nd.array(rs.randn(5, 16) * 0.1),
+              "fc2_bias": mx.nd.zeros((5,))}
+    calib = [mx.nd.array(rs.randn(4, 12).astype(np.float32))
+             for _ in range(2)]
+    mx.deploy.export_compiled(out, path, params=params,
+                              input_shapes={"data": (1, 12)},
+                              batch_sizes=[1, 2, 4], quantize=True,
+                              calib_data=calib)
+    return mx.deploy.load_compiled(path), (12,)
+
+
+@pytest.mark.parametrize("kind", ["attention", "int8"])
+def test_graph_path_serves_attention_and_int8_artifacts(tmp_path,
+                                                        monkeypatch, kind):
+    """Both new artifact kinds on the card's path: one graph a bucket,
+    captured in warmup(), none in traffic; each answer equal to the
+    Predictor's program on the batch it was served in (an int8 answer
+    depends on its batch-mates: the input is quantized over the whole
+    batch), found from the request's ``batch`` and ``row``."""
+    import mxnet_tpu_torch.cached_op as co
+    monkeypatch.setattr(co, "_Graphs", _StandinGraphs)
+    make = _attention_artifact if kind == "attention" else _int8_artifact
+    pred, shape = make(str(tmp_path / "m.mxp"))
+    assert (pred.meta["format"], pred.meta["custom_ops"][0]) == (
+        (2, "mxnet_tpu_torch::flash_fwd") if kind == "attention"
+        else (3, "mxnet_tpu_torch::dequantize"))
+    compile_watch.enable()
+    srv = InferenceServer(pred, max_queue=64, batch_window_ms=1.0)
+    rs = np.random.RandomState(5)
+    xs = [rs.randn(*shape).astype(np.float32) for _ in range(19)]
+    try:
+        assert srv.warmup() == 3
+        warm = compile_watch.site_stats("serving")
+        futs = [srv.submit(x) for x in xs]
+        got = [f.result(timeout=30) for f in futs]
+        st = srv.stats()
+    finally:
+        srv.stop()
+    assert compile_watch.site_stats("serving") == warm
+    graphs = [srv._programs[("cpu", b)].graphs.stats() for b in (1, 2, 4)]
+    assert [g["captures"] for g in graphs] == [1, 1, 1]
+    assert sum(g["replays"] for g in graphs) == 3 + st["batches"]
+    batches = {}
+    for i, f in enumerate(futs):
+        batches.setdefault(f.batch, []).append((f.row, i))
+    assert len(batches) == st["batches"]
+    for rows in batches.values():
+        rows.sort()
+        idx = [i for _row, i in rows]
+        assert [r for r, _ in rows] == list(range(len(idx)))
+        b = futs[idx[0]].bucket
+        batch = np.zeros((b,) + shape, np.float32)
+        batch[:len(idx)] = np.stack([xs[i] for i in idx])
+        with torch.inference_mode():
+            want = pred.program(b)(torch.from_numpy(batch)).numpy()
+        for row, i in enumerate(idx):
+            np.testing.assert_array_equal(got[i], want[row])
+
+
 # ---------------------------------------------------------------------------
 # backpressure, shedding, deadlines (deterministic via fault plan)
 # ---------------------------------------------------------------------------

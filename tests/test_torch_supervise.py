@@ -169,7 +169,9 @@ if rank == 0:
     res = {k: v.data().asnumpy() for k, v in net.collect_params().items()}
     res["losses"] = np.array(losses)
     np.savez(out, **res)
-print("TRAIN_WORKER_DONE", rank, begin, flush=True)
+# one write: the two ranks share the launcher's stdout
+sys.stdout.write("TRAIN_WORKER_DONE %d %d\n" % (rank, begin))
+sys.stdout.flush()
 '''
 
 
