@@ -369,8 +369,11 @@ no result, anywhere else. Phases (any failure exits non-zero):
    before, must read 0.
 21. ops (after 20) — the seventeenth slice, the operator breadth, fp32
    with TF32 off: (a) every registered op whose body lives in the
-   port's elemwise, reduce, matrix, indexing, init_ops, nn, linalg or
-   extra module and does not draw (the list taken from the registry;
+   port's elemwise, reduce, matrix, indexing, init_ops, nn, linalg,
+   extra, deformable or control_flow module and does not draw (the
+   list taken from the registry; ``_foreach``, ``_while_loop`` and
+   ``_cond`` over subgraphs built with ``mx.sym.contrib``, the cond
+   both ways;
    an op without a case in ``ops_cases`` fails the phase) runs on
    gpu(0) and on cpu() from the same numpy inputs (the reference's
    ``check_consistency``): outputs and input gradients within OPS_TOL
@@ -612,6 +615,38 @@ no result, anywhere else. Phases (any failure exits non-zero):
    a ``flash_attention`` call through the op beside ``_fwd_cuda`` at B1
    T64, and with ``_build.library`` made to fail an op call on cuda:0
    raises ``MXNetError``.
+29. control flow (after 28) — the twenty-fifth slice, fp32 with TF32
+   off, BASELINE config 3 at phase 19's constants with its time loop
+   ONE ``_foreach`` node (``mx.sym.contrib.foreach``, the cells called
+   once in the body, so phase 19's parameter names): (a) 41 batches of
+   phase 19's corpus (up to CF_PER_BUCKET a bucket, all six buckets)
+   through BucketingModule on the fused step against phase 19's
+   unrolled twin from the same Xavier weights: each batch's loss
+   within CF_LOSS_REL, one capture a bucket, none again, no fused-step
+   fallback; each bucket's capture s and ms a step beside the twin's.
+   (b) greedy generation from (a)'s weights as ONE ``_while_loop``
+   node bound in predict mode: batch 32, the first 10 tokens of 32
+   corpus sentences as prompts, ``n_steps`` an input of 40 of
+   CF_MAX_ITER (the masked tail runs), each step's token ``cond(i <
+   10, prompt[:, i], the last argmax)``; its first call eager under
+   ``set_sync_debug_mode("error")``, then one capture and
+   CF_REPLAYS replays; the tokens equal a host loop's of nd calls, the
+   tail rows zero; replay ms against the host loop's. (c) (a)'s LM at
+   bucket 30 through ``Module.fit`` for 20 batches with a ``Custom``
+   softmax loss written in NDArray calls against a SoftmaxOutput twin
+   on the fused step: losses and weights within CF_CUSTOM_REL, one
+   ``fused_step_fallbacks`` a step, the user's ``in_data`` on gpu(0); a
+   hybridized block holding ``F.Custom``: 0 captures, its calls
+   counted as ``eager_host``. (d) the LM as a Gluon block
+   (``F.contrib.foreach``) recorded eagerly on one batch: ``get_symbol``
+   of its logits bound with the block's parameters within
+   CF_SYMBOL_TOL; the gates through a user ``autograd.Function`` (the
+   stable sigmoid) give the built-in sigmoid's gradients within
+   CF_FUNCTION_TOL. (e) ``Monitor(monitor_all=True)`` on (a)'s module
+   for one step sees the ``_foreach`` node's outputs, the step one
+   counted fallback; ``print_summary``'s total for the foreach LM
+   equals the unrolled LM's. The attention, decode and rtc launch
+   counts read 0 over the phase.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
@@ -3941,7 +3976,7 @@ def resnet_inference(mx, card):
     if not all(ok for _, ok in errs):
         fail("resnet: entry() logits differ from the imperative run")
     if st != dict(captures=1, replays=len(ys), recaptures=0, signatures=1,
-                  eager_rng=0):
+                  eager_rng=0, eager_host=0):
         fail("resnet: expected 1 capture and %d replays, got %s"
              % (len(ys), st))
     if not (distinct and kept):
@@ -4358,7 +4393,7 @@ def module_predict(mx, mod, x, y, card):
           "max abs err %.3g (expected 0)"
           % (score, len(x), st, max(errs)))
     if st != dict(captures=1, replays=2 * n_batches, recaptures=0,
-                  signatures=1, eager_rng=0, grouped=0):
+                  signatures=1, eager_rng=0, eager_host=0, grouped=0):
         fail("module: predict graphs %s, want 1 capture and %d replays"
              % (st, 2 * n_batches))
     if max(errs) != 0.0:
@@ -4525,7 +4560,7 @@ def zoo_case(mx, name, image, card):
         fail("zoo: %s graph logits differ from the imperative run by %g"
              % (name, err))
     if st != dict(captures=1, replays=calls, recaptures=0, signatures=1,
-                  eager_rng=0):
+                  eager_rng=0, eager_host=0):
         fail("zoo: %s graphs %s, want 1 capture and %d replays"
              % (name, st, calls))
     if (n_drop > 0) != (name in ZOO_DROPOUT):
@@ -7509,7 +7544,7 @@ def phase_gan(card):
 # ---------------------------------------------------------------------------
 
 OPS_MODULES = ("elemwise", "reduce", "matrix", "indexing", "init_ops", "nn",
-               "linalg", "extra", "deformable")
+               "linalg", "extra", "deformable", "control_flow")
 OPS_ACT = (8, 1024, 768)            # the LM's activations: elementwise, reduce
 OPS_SPD = (64, 128)                 # 64 SPD matrices of 128 x 128: linalg
 OPS_TOL = 1e-5                      # max |gpu - cpu| / max |cpu|, fwd and grad
@@ -7848,19 +7883,59 @@ def ops_cases(rs, act, spd, heads, vocab, seq, width):
         cases[v1 + "_v1"] = cases[v1]
     # no mesh in this phase: the synchronized op is BatchNorm's body
     cases["_contrib_SyncBatchNorm"] = cases["BatchNorm"]
+    cases.update(control_flow_cases(rs, act))
     return cases
+
+
+def control_flow_cases(rs, act):
+    """Phase 21 (a)'s cases of ``_foreach``, ``_while_loop`` and ``_cond``
+    at the activations ``act``: each node's attributes (its subgraphs as
+    their ``__subgraph__:`` JSON, which the op parses) from a graph built
+    with ``mx.sym.contrib``. foreach runs a tanh recurrence over dim 0
+    with a free weight; while_loop 3 live and 2 masked steps of one;
+    cond both ways, the untaken branch a ``sqrt`` at 0."""
+    import mxnet_tpu_torch as mx
+    sym = mx.sym
+    f32 = np.float32
+    X = _r(rs, act)
+    S = _r(rs, act[1:])
+    W = _r(rs, act[-1:])
+    w_ = sym.var("w")
+
+    def step(x, st):
+        h = sym.tanh(x * w_ + st)
+        return h, h
+    out, _ = sym.contrib.foreach(step, sym.var("d"), sym.var("s"))
+    fe = out.list_attr()
+    out, _ = sym.contrib.while_loop(
+        lambda i, v: i < 3,
+        lambda i, v: (v * w_, [i + 1, sym.tanh(v * w_ + 1)]),
+        [sym.var("i"), sym.var("v")], max_iterations=5)
+    wl = out.list_attr()
+    a = sym.var("a")
+    cd = sym.contrib.cond(sym.sum(a) > 0, lambda: a * w_,
+                          lambda: sym.sqrt(sym.relu(-a) * 0.0)).list_attr()
+    pos = np.abs(S) + 0.1
+    return {
+        "_foreach": [([X, S, W], fe, {})],
+        "_while_loop": [([np.zeros((1,), f32), S, W], wl, {})],
+        "_cond": [([pos, pos, W, pos], cd, {}),
+                  ([-pos, -pos, W, -pos], cd, {})],
+    }
 
 
 def ops_swept(ops):
     """The distinct registered ops of phase 21 (a), from the port's
     registry: every op whose body lives in one of OPS_MODULES and does
-    not draw (the samplers and Dropout are phase 20's), and the names
+    not draw (the samplers, Dropout and LeakyReLU are phase 20's; a
+    control-flow op draws only where its subgraphs do), and the names
     (canonical and aliases) that reach each."""
     names = {}
     for name in ops.list_ops():
         op = ops.get_op(name)
-        if op.needs_rng or op.forward.__module__.rsplit(".", 1)[-1] \
-                not in OPS_MODULES:
+        module = op.forward.__module__.rsplit(".", 1)[-1]
+        if module not in OPS_MODULES \
+                or (op.needs_rng and module != "control_flow"):
             continue
         names.setdefault(op.name, []).append(name)
     return names
@@ -12410,6 +12485,619 @@ def phase_deploy_rest(card, tfa, serve):
                 dec_launches=dec_launches, q8=q8, route=route)
 
 
+# ---------------------------------------------------------------------------
+# phase 29: control flow and user code inside graphs
+# ---------------------------------------------------------------------------
+
+# BASELINE config 3 at phase 19's constants, its time loop ONE _foreach
+# node. (a) up to CF_PER_BUCKET batches of each bucket, round robin (at
+# least CF_MIN_BATCHES), against phase 19's unrolled twin from the same
+# weights, each batch's loss within CF_LOSS_REL
+CF_PER_BUCKET = 8
+CF_MIN_BATCHES = 40
+CF_LOSS_REL = 1e-4
+CF_STEP_ITERS = 5
+# (b) greedy generation: CF_STEPS live steps of CF_MAX_ITER (the masked
+# tail runs), the first CF_PROMPT tokens the prompt's
+CF_PROMPT = 10
+CF_STEPS = 40
+CF_MAX_ITER = 50
+CF_REPLAYS = 3
+# (c) the Custom softmax loss at one bucket for CF_CUSTOM_BATCHES steps
+CF_CUSTOM_BUCKET = 30
+CF_CUSTOM_BATCHES = 20
+CF_CUSTOM_REL = 1e-4
+CF_HEAD_CALLS = 3
+# (d) get_symbol's logits, and a user Function's gradients against the
+# built-in sigmoid's (normwise: max |a - b| / max |b|)
+CF_SYMBOL_TOL = 1e-5
+CF_FUNCTION_TOL = 1e-6
+
+
+def cf_cells(mx):
+    cell = mx.rnn.SequentialRNNCell()
+    for i in range(LM_LAYERS):
+        cell.add(mx.rnn.LSTMCell(num_hidden=LM_HIDDEN,
+                                 prefix="lstm_l%d_" % i))
+    return cell
+
+
+def cf_sym_gen(mx, custom=False):
+    """Phase 19's LM with its time loop as ONE foreach node: the cells are
+    called once in the body, so the parameters are phase 19's by name;
+    ``custom``: (c)'s Custom softmax loss in SoftmaxOutput's place."""
+    def sym_gen(seq_len):
+        label = mx.sym.Reshape(mx.sym.var("softmax_label"), shape=(-1,))
+        embed = mx.sym.Embedding(data=mx.sym.var("data"), input_dim=LM_VOCAB,
+                                 output_dim=LM_EMBED, name="embed")
+        cell = cf_cells(mx)
+        steps = mx.sym.SwapAxis(embed, dim1=0, dim2=1)          # (T, B, E)
+        first = mx.sym.Reshape(mx.sym.slice_axis(steps, axis=0, begin=0,
+                                                 end=1), shape=(-3, -1))
+        outs, _ = mx.sym.contrib.foreach(
+            lambda x, states: cell(x, states), steps,
+            cell.begin_state(x=first), name="lstm_foreach")
+        outs = mx.sym.SwapAxis(outs, dim1=0, dim2=1)            # (B, T, H)
+        pred = mx.sym.FullyConnected(
+            mx.sym.Reshape(outs, shape=(-1, LM_HIDDEN)),
+            num_hidden=LM_VOCAB, name="pred")
+        if custom:
+            out = mx.sym.Custom(pred, label, op_type="cf_softmax",
+                                name="softmax")
+        else:
+            out = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax",
+                                       use_ignore=True, ignore_label=0)
+        return out, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def cf_register_softmax(mx, seen):
+    """(c)'s Custom op ``cf_softmax``: the softmax over the vocabulary in
+    NDArray calls; its backward ``y - onehot(label)`` with label 0
+    ignored, as SoftmaxOutput(use_ignore, ignore_label=0) computes it.
+    Each forward notes its ``in_data``'s context in ``seen``."""
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            seen.append(in_data[0].context)
+            x = in_data[0]
+            e = mx.nd.exp(x - mx.nd.max(x, axis=1, keepdims=True))
+            self.assign(out_data[0], req[0],
+                        e / mx.nd.sum(e, axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y, label = out_data[0], in_data[1]
+            keep = mx.nd.expand_dims(label != 0, axis=1)
+            self.assign(in_grad[0], req[0],
+                        (y - mx.nd.one_hot(label, y.shape[1])) * keep)
+            self.assign(in_grad[1], req[1],
+                        mx.nd.zeros(label.shape, ctx=label.context))
+
+    @mx.operator.register("cf_softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def cf_loss(out, label):
+    """Mean cross-entropy over the positions that are not padding, kept
+    on the card."""
+    lab = label._data.reshape(-1).long()
+    keep = lab != 0
+    picked = out._data.gather(1, lab[:, None]).squeeze(1)
+    return -(torch.log(picked.clamp_min(1e-30)) * keep).sum() / keep.sum()
+
+
+def cf_batches(it):
+    """Up to CF_PER_BUCKET batches of each bucket, round robin."""
+    it.reset()
+    by = {}
+    for b in it:
+        if len(by.setdefault(b.bucket_key, [])) < CF_PER_BUCKET:
+            by[b.bucket_key].append(b)
+    out = []
+    for k in range(CF_PER_BUCKET):
+        out += [by[key][k] for key in sorted(by) if k < len(by[key])]
+    return out, {key: len(v) for key, v in sorted(by.items())}
+
+
+def cf_train(mx, sym_gen, it, arg_params, batches, clock):
+    """A BucketingModule over ``sym_gen`` from ``arg_params`` stepped
+    over ``batches`` on the fused step: the module, each batch's loss
+    (host), and the capture ms of each bucket's first step."""
+    from mxnet_tpu_torch import fused_step
+    mod = lm_module(mx, sym_gen, it, arg_params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=LM_SGD)
+    losses, caps = [], {}
+    fused_step.set_graph_factory(clock.factory)
+    try:
+        for b in batches:
+            n = len(clock.ms)
+            lm_step(mod, b)
+            losses.append(cf_loss(mod.get_outputs()[0], b.label[0]))
+            if len(clock.ms) > n:
+                caps.setdefault(b.bucket_key, []).extend(clock.ms[n:])
+    finally:
+        fused_step.set_graph_factory(None)
+    return mod, torch.stack(losses).cpu().numpy(), caps
+
+
+def cf_foreach_training(mx, card, sents):
+    """(a): the foreach LM through BucketingModule on the fused step
+    against phase 19's unrolled twin, from the same weights over the
+    same batches."""
+    from mxnet_tpu_torch import profiler
+    it = lm_iter(mx, sents)
+    batches, per_bucket = cf_batches(it)
+    if len(per_bucket) != len(LM_BUCKETS) or len(batches) < CF_MIN_BATCHES:
+        fail("control flow (a): batches by bucket %s" % per_bucket)
+    twin_mod = lm_module(mx, lm_sym_gen(mx), it)
+    init = {k: v.asnumpy() for k, v in twin_mod.get_params()[0].items()}
+    del twin_mod
+    fb0 = profiler.counters().get("fused_step_fallbacks", 0)
+    t0 = time.perf_counter()
+    mod, losses, caps = cf_train(mx, cf_sym_gen(mx), it, init, batches,
+                                 CaptureClock())
+    fe_s = time.perf_counter() - t0
+    fallbacks = profiler.counters().get("fused_step_fallbacks", 0) - fb0
+    stats = {k: v["fused"] for k, v in mod.stats().items()}
+    t0 = time.perf_counter()
+    twin, t_losses, t_caps = cf_train(mx, lm_sym_gen(mx), it, init, batches,
+                                      CaptureClock())
+    twin_s = time.perf_counter() - t0
+    rel = np.abs(losses - t_losses) / np.abs(t_losses)
+    one = [batches[i] for i in range(len(LM_BUCKETS))]
+    fe_ms = lm_step_times(mod, one, card, "(a) foreach", CF_STEP_ITERS)
+    un_ms = lm_step_times(twin, one, card, "(a) unrolled", CF_STEP_ITERS)
+    print("  (a) %d batches %s, foreach LM (one _foreach node a bucket) vs "
+          "phase 19's unrolled twin from the same weights: loss first %.4f "
+          "last %.4f, max relative difference %.3g (tolerance %g); "
+          "fused-step fallbacks %d; %.1f s vs %.1f s (%s)"
+          % (len(batches), per_bucket, losses[0], losses[-1], rel.max(),
+             CF_LOSS_REL, fallbacks, fe_s, twin_s, card))
+    for key in sorted(caps):
+        print("    bucket %d: capture (warm-up + capture) %.2f s vs %.2f s "
+              "unrolled; ms a step %.3f vs %.3f"
+              % (key, caps[key][0] / 1e3, t_caps[key][0] / 1e3, fe_ms[key],
+                 un_ms[key]))
+    print("  (a) fused-step graphs by bucket: %s"
+          % {k: (v["captures"], v["recaptures"]) for k, v in stats.items()})
+    if not np.all(np.isfinite(losses)) or rel.max() > CF_LOSS_REL:
+        fail("control flow (a): losses differ from the unrolled twin's: "
+             "%s vs %s" % (losses[:6], t_losses[:6]))
+    if fallbacks:
+        fail("control flow (a): %d fused-step fallbacks" % fallbacks)
+    if len(stats) != len(LM_BUCKETS) or any(
+            v["captures"] != 1 or v["recaptures"] for v in stats.values()):
+        fail("control flow (a): captures by bucket %s" % stats)
+    return dict(mod=mod, it=it, init=init, batches=batches, losses=losses,
+                capture_s={k: v[0] / 1e3 for k, v in caps.items()},
+                twin_capture_s={k: v[0] / 1e3 for k, v in t_caps.items()},
+                ms=fe_ms, twin_ms=un_ms, rel=float(rel.max()))
+
+
+def cf_gen_sym(mx):
+    """(b): greedy generation as ONE _while_loop node: ``n_steps`` live
+    steps of CF_MAX_ITER; each step's token is ``cond(i < CF_PROMPT,
+    prompt[:, i], the last step's argmax)``, fed through (a)'s
+    embedding, cells and output layer (parameters by (a)'s names)."""
+    cell = cf_cells(mx)
+    prompt = mx.sym.var("prompt")
+    embed_w = mx.sym.var("embed_weight")
+    pred_w, pred_b = mx.sym.var("pred_weight"), mx.sym.var("pred_bias")
+
+    def body(i, prev, *states):
+        tok = mx.sym.contrib.cond(
+            i < CF_PROMPT,
+            lambda: mx.sym.Reshape(mx.sym.take(prompt, i, axis=1),
+                                   shape=(-1,)),
+            lambda: prev)
+        emb = mx.sym.Embedding(tok, weight=embed_w, input_dim=LM_VOCAB,
+                               output_dim=LM_EMBED, name="embed")
+        out, new_states = cell(emb, list(states))
+        logits = mx.sym.FullyConnected(out, weight=pred_w, bias=pred_b,
+                                       num_hidden=LM_VOCAB, name="pred")
+        return tok, [i + 1, mx.sym.argmax(logits, axis=1)] + new_states
+    loop_vars = [mx.sym.var("i0"), mx.sym.var("tok0")] + [
+        mx.sym.var("state%d" % k) for k in range(2 * LM_LAYERS)]
+    toks, _ = mx.sym.contrib.while_loop(
+        lambda i, *rest: i < mx.sym.var("n_steps"), body, loop_vars,
+        max_iterations=CF_MAX_ITER, name="generate")
+    return toks
+
+
+def cf_host_loop(mx, params, prompt, n_steps):
+    """The generation step op by op with nd calls, the host choosing
+    each token's source (LSTMCell's arithmetic, operation for
+    operation)."""
+    nd, H = mx.nd, LM_HIDDEN
+    B = prompt.shape[0]
+    ctx = prompt.context
+    states = [nd.zeros((B, H), ctx=ctx) for _ in range(2 * LM_LAYERS)]
+    prev, toks = None, []
+    for i in range(n_steps):
+        tok = prompt[:, i] if i < CF_PROMPT else prev
+        x = nd.Embedding(tok, params["embed_weight"], input_dim=LM_VOCAB,
+                         output_dim=LM_EMBED)
+        new = []
+        for layer in range(LM_LAYERS):
+            p = "lstm_l%d_" % layer
+            h, c = states[2 * layer], states[2 * layer + 1]
+            gates = nd.FullyConnected(x, params[p + "i2h_weight"],
+                                      params[p + "i2h_bias"],
+                                      num_hidden=4 * H) \
+                + nd.FullyConnected(h, params[p + "h2h_weight"],
+                                    params[p + "h2h_bias"], num_hidden=4 * H)
+            g = nd.SliceChannel(gates, num_outputs=4, axis=1)
+            c = nd.sigmoid(g[1] + 1.0) * c + nd.sigmoid(g[0]) * nd.tanh(g[2])
+            x = nd.sigmoid(g[3]) * nd.tanh(c)
+            new += [x, c]
+        states = new
+        prev = nd.argmax(nd.FullyConnected(x, params["pred_weight"],
+                                           params["pred_bias"],
+                                           num_hidden=LM_VOCAB), axis=1)
+        toks.append(tok)
+    return nd.stack(*toks)
+
+
+def cf_generation(mx, card, ctx, trained, sents):
+    """(b): (a)'s trained weights, the generation graph bound in predict
+    mode: its first call eager (op by op) under the sync-debug mode
+    ``error``, then one CUDA graph captured once and replayed; the token
+    stream against the host loop."""
+    params = {k: v.as_in_context(ctx)
+              for k, v in trained.get_params()[0].items()}
+    prompt = np.array([s[:CF_PROMPT] for s in sents
+                       if len(s) >= CF_PROMPT][:LM_BATCH], np.float32)
+    args = dict(params)
+    args.update(prompt=mx.nd.array(prompt, ctx=ctx),
+                n_steps=mx.nd.array([CF_STEPS], ctx=ctx),
+                i0=mx.nd.zeros((1,), ctx=ctx),
+                tok0=mx.nd.zeros((LM_BATCH,), ctx=ctx))
+    args.update(("state%d" % k, mx.nd.zeros((LM_BATCH, LM_HIDDEN), ctx=ctx))
+                for k in range(2 * LM_LAYERS))
+    sym = cf_gen_sym(mx)
+    ex = sym.bind(ctx, {n: args[n] for n in sym.list_arguments()},
+                  grad_req="null")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = ex.forward(is_train=True)[0]._data.clone()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    outs = [ex.forward()[0].asnumpy() for _ in range(CF_REPLAYS)]
+    st = ex.stats()
+    host = cf_host_loop(mx, params, args["prompt"], CF_STEPS).asnumpy()
+    replay_ms = call_ms(lambda: ex.forward(), iters=10, warm=2)
+    host_ms = call_ms(lambda: cf_host_loop(mx, params, args["prompt"],
+                                           CF_STEPS), iters=3, warm=1)
+    toks = outs[0]
+    print("  (b) greedy generation, batch %d, prompt %d tokens, while_loop "
+          "of %d steps (%d live: n_steps an input) with a cond in its body: "
+          "eager first call under sync-debug 'error' without a host wait; "
+          "graph stats %s; tokens equal the host loop's: %s, the masked "
+          "rows %d-%d zero: %s; replay %.3f ms vs the host loop %.3f ms "
+          "(%s)"
+          % (LM_BATCH, CF_PROMPT, CF_MAX_ITER, CF_STEPS, st,
+             np.array_equal(toks[:CF_STEPS], host), CF_STEPS,
+             CF_MAX_ITER - 1, not toks[CF_STEPS:].any(), replay_ms,
+             host_ms, card))
+    print("  (b) stream 0: %s" % toks[:CF_STEPS, 0].astype(int).tolist())
+    if st["captures"] != 1 or st["replays"] < 2 or st["recaptures"] \
+            or st["eager_rng"] or st["eager_host"]:
+        fail("control flow (b): graph stats %s" % st)
+    if not (np.array_equal(toks[:CF_STEPS], host)
+            and np.array_equal(eager.cpu().numpy(), toks)
+            and all(np.array_equal(o, toks) for o in outs)
+            and not toks[CF_STEPS:].any()):
+        fail("control flow (b): the tokens differ from the host loop's")
+    if not np.array_equal(toks[:CF_PROMPT], prompt.T):
+        fail("control flow (b): the prompt was not fed")
+    return dict(replay_ms=replay_ms, host_ms=host_ms, stats=st)
+
+
+def _normwise(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def cf_custom(mx, card, ctx, a):
+    """(c): (a)'s LM at one bucket through Module.fit with the Custom
+    softmax loss, each step a counted fallback from the fused step,
+    against a SoftmaxOutput twin on it; and a hybridized Gluon block
+    holding F.Custom, run op by op."""
+    from mxnet_tpu_torch import profiler
+    seen = []
+    cf_register_softmax(mx, seen)
+    a["it"].reset()
+    rows = [b for b in a["it"] if b.bucket_key == CF_CUSTOM_BUCKET]
+    rows = rows[:CF_CUSTOM_BATCHES]
+    x = np.concatenate([b.data[0].asnumpy() for b in rows])
+    y = np.concatenate([b.label[0].asnumpy() for b in rows])
+    runs = {}
+    for custom in (True, False):
+        it = mx.io.NDArrayIter(x, y, batch_size=LM_BATCH, shuffle=False,
+                               label_name="softmax_label")
+        sym = cf_sym_gen(mx, custom)(CF_CUSTOM_BUCKET)[0]
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params={k: mx.nd.array(v)
+                                    for k, v in a["init"].items()})
+        losses = []
+
+        def ce(label, pred, losses=losses):
+            lab = label.ravel().astype(int)
+            keep = lab != 0
+            losses.append(float(-np.log(np.maximum(
+                pred[np.arange(len(lab)), lab][keep], 1e-30)).mean()))
+            return losses[-1]
+        fb0 = profiler.counters().get("fused_step_fallbacks", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=LM_SGD,
+                eval_metric=mx.metric.CustomMetric(ce))
+        torch.cuda.synchronize()
+        runs[custom] = dict(
+            losses=np.array(losses), s=time.perf_counter() - t0,
+            fallbacks=profiler.counters().get("fused_step_fallbacks", 0)
+            - fb0, args={k: v.asnumpy()
+                         for k, v in mod.get_params()[0].items()})
+    c, s = runs[True], runs[False]
+    loss_rel = float((np.abs(c["losses"] - s["losses"])
+                      / np.abs(s["losses"])).max())
+    w_rel = max(_normwise(c["args"][k], s["args"][k]) for k in s["args"])
+    devices = sorted({str(d) for d in seen})
+
+    class Head(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="cfhead_")
+            with self.name_scope():
+                self.dense = mx.gluon.nn.Dense(LM_VOCAB, in_units=LM_HIDDEN)
+
+        def hybrid_forward(self, F, h, label):
+            return F.Custom(self.dense(h), label, op_type="cf_softmax")
+    head = Head()
+    head.initialize(mx.init.Xavier(), ctx=ctx)
+    head.hybridize()
+    rs = np.random.RandomState(29)
+    h = mx.nd.array(rs.randn(LM_BATCH, LM_HIDDEN).astype(np.float32),
+                    ctx=ctx)
+    lab = mx.nd.array(rs.randint(0, LM_VOCAB, LM_BATCH).astype(np.float32),
+                      ctx=ctx)
+    outs = [head(h, lab) for _ in range(CF_HEAD_CALLS)]
+    want = torch.softmax(head.dense(h)._data, dim=1)
+    head_err = _normwise(outs[-1].asnumpy(), want.cpu().numpy())
+    hst = head._cached_op.stats()
+    print("  (c) bucket %d, %d batches through Module.fit: Custom softmax "
+          "loss (NDArray calls on the worker thread) vs SoftmaxOutput on the "
+          "fused step: losses max relative difference %.3g, weights %.3g "
+          "(tolerance %g); fused-step fallbacks %d vs %d; in_data on %s; "
+          "%.2f s vs %.2f s (%.1f vs %.1f ms a step); hybridized block with "
+          "F.Custom: stats %s, error %.3g (%s)"
+          % (CF_CUSTOM_BUCKET, len(rows), loss_rel, w_rel, CF_CUSTOM_REL,
+             c["fallbacks"], s["fallbacks"], devices, c["s"], s["s"],
+             c["s"] * 1e3 / len(rows), s["s"] * 1e3 / len(rows), hst,
+             head_err, card))
+    if len(rows) != CF_CUSTOM_BATCHES or loss_rel > CF_CUSTOM_REL \
+            or w_rel > CF_CUSTOM_REL:
+        fail("control flow (c): the Custom loss differs from SoftmaxOutput")
+    if c["fallbacks"] != len(rows) or s["fallbacks"]:
+        fail("control flow (c): fallbacks %d and %d"
+             % (c["fallbacks"], s["fallbacks"]))
+    if devices != [str(ctx)]:
+        fail("control flow (c): the user's in_data sat on %s" % devices)
+    if hst["captures"] or hst["eager_host"] != CF_HEAD_CALLS \
+            or head_err > CF_SYMBOL_TOL:
+        fail("control flow (c): the hybridized Custom block: %s, error %g"
+             % (hst, head_err))
+    return dict(loss_rel=loss_rel, w_rel=w_rel,
+                custom_ms=c["s"] * 1e3 / len(rows),
+                softmax_ms=s["s"] * 1e3 / len(rows))
+
+
+def cf_gluon_lm(mx):
+    """(a)'s LM as a Gluon block, its parameters by (a)'s names and its
+    time loop ``F.contrib.foreach``; ``gate`` replaces the gates'
+    sigmoid (a user Function's, for (d))."""
+    H, E, V = LM_HIDDEN, LM_EMBED, LM_VOCAB
+
+    class LM(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="")
+            self.gate = None
+            shapes = {"embed_weight": (V, E), "pred_weight": (V, H),
+                      "pred_bias": (V,)}
+            for layer in range(LM_LAYERS):
+                p = "lstm_l%d_" % layer
+                shapes.update({p + "i2h_weight": (4 * H, E if layer == 0
+                                                  else H),
+                               p + "i2h_bias": (4 * H,),
+                               p + "h2h_weight": (4 * H, H),
+                               p + "h2h_bias": (4 * H,)})
+            for name, shape in shapes.items():
+                setattr(self, name, self.params.get(name, shape=shape))
+
+        def hybrid_forward(self, F, data, **p):
+            sig = self.gate or F.sigmoid
+            embed = F.Embedding(data, p["embed_weight"], input_dim=V,
+                                output_dim=E)
+            steps = F.SwapAxis(embed, dim1=0, dim2=1)
+            first = F.Reshape(F.slice_axis(steps, axis=0, begin=0, end=1),
+                              shape=(-3, -1))
+            zero = F.tile(F.slice_axis(first, axis=1, begin=0, end=1) * 0.0,
+                          reps=(1, H))
+
+            def step(x, states):
+                new = []
+                for layer in range(LM_LAYERS):
+                    q = "lstm_l%d_" % layer
+                    h, c = states[2 * layer], states[2 * layer + 1]
+                    gates = F.FullyConnected(x, p[q + "i2h_weight"],
+                                             p[q + "i2h_bias"],
+                                             num_hidden=4 * H) \
+                        + F.FullyConnected(h, p[q + "h2h_weight"],
+                                           p[q + "h2h_bias"],
+                                           num_hidden=4 * H)
+                    g = F.SliceChannel(gates, num_outputs=4, axis=1)
+                    c = sig(g[1] + 1.0) * c + sig(g[0]) * F.tanh(g[2])
+                    x = sig(g[3]) * F.tanh(c)
+                    new += [x, c]
+                return x, new
+            outs, _ = F.contrib.foreach(step, steps, [zero] * (2 * LM_LAYERS))
+            outs = F.SwapAxis(outs, dim1=0, dim2=1)
+            return F.FullyConnected(F.Reshape(outs, shape=(-1, H)),
+                                    p["pred_weight"], p["pred_bias"],
+                                    num_hidden=V)
+    return LM()
+
+
+def cf_stable_sigmoid(mx):
+    """The stable sigmoid of MXNet's ``autograd.Function`` docs, its
+    output kept on the instance for the backward."""
+    class Sigmoid(mx.autograd.Function):
+        def forward(self, x):
+            e = mx.nd.exp(-mx.nd.abs(x))
+            y = mx.nd.where(x >= 0, 1 / (1 + e), e / (1 + e))
+            self.y = y
+            return y
+
+        def backward(self, dy):
+            return dy * self.y * (1 - self.y)
+    return lambda x: Sigmoid()(x)
+
+
+def cf_symbol_and_function(mx, card, ctx, a):
+    """(d): (a)'s LM recorded eagerly on the card as a Gluon block on
+    one batch of the first bucket: ``get_symbol`` of its logits bound
+    with the block's parameters gives the same logits; the gates through
+    a user Function give the built-in sigmoid's gradients."""
+    net = cf_gluon_lm(mx)
+    net.initialize(ctx=ctx)
+    trained = a["mod"].get_params()[0]
+    for name, p in net.collect_params().items():
+        p.set_data(trained[name].as_in_context(ctx))
+    batch = a["batches"][0]
+    data = batch.data[0].as_in_context(ctx)
+    label = batch.label[0].as_in_context(ctx)
+    grads, logits = {}, {}
+    for kind in ("builtin", "function"):
+        net.gate = None if kind == "builtin" else cf_stable_sigmoid(mx)
+        with mx.autograd.record():
+            out = net(data)
+            loss = mx.nd.softmax_cross_entropy(out, label.reshape((-1,)))
+        loss.backward()
+        logits[kind] = out
+        grads[kind] = {n: p.grad().asnumpy()
+                       for n, p in net.collect_params().items()}
+    sym = mx.autograd.get_symbol(logits["builtin"])
+    params = net.collect_params()
+    free = [n for n in sym.list_arguments() if n not in params]
+    args = {n: params[n].data() for n in sym.list_arguments() if n in params}
+    args.update({n: data for n in free})
+    got = sym.bind(ctx, args, grad_req="null").forward()[0].asnumpy()
+    sym_err = _normwise(got, logits["builtin"].asnumpy())
+    fn_err = max(_normwise(grads["function"][n], grads["builtin"][n])
+                 for n in grads["builtin"])
+    n_ops = len([n for n in json.loads(sym.tojson())["nodes"]
+                 if n["op"] != "null"])
+    print("  (d) bucket %d batch recorded eagerly (Gluon block, "
+          "F.contrib.foreach): get_symbol -> %d ops, arguments %d (%s the "
+          "data), bound with the block's parameters: logits error %.3g "
+          "(tolerance %g); the gates through a user autograd.Function "
+          "(stable sigmoid): gradients error %.3g against the built-in "
+          "sigmoid's (tolerance %g) (%s)"
+          % (batch.bucket_key, n_ops, len(sym.list_arguments()), free,
+             sym_err, CF_SYMBOL_TOL, fn_err, CF_FUNCTION_TOL, card))
+    if len(free) != 1 or sym_err > CF_SYMBOL_TOL:
+        fail("control flow (d): get_symbol's logits: free %s, error %g"
+             % (free, sym_err))
+    if fn_err > CF_FUNCTION_TOL:
+        fail("control flow (d): the Function's gradients differ: %g"
+             % fn_err)
+    return dict(sym_err=sym_err, fn_err=fn_err, n_ops=n_ops)
+
+
+def cf_monitor_summary(mx, card, a):
+    """(e): a Monitor on (a)'s module for one batch (the step falls back
+    to the eager one, counted) sees the _foreach node's outputs; the
+    foreach LM's print_summary total against the unrolled LM's."""
+    from mxnet_tpu_torch import profiler
+    mod = a["mod"]
+    mon = mx.monitor.Monitor(1, pattern=".*", monitor_all=True)
+    mod.install_monitor(mon)
+    fb0 = profiler.counters().get("fused_step_fallbacks", 0)
+    mon.tic()
+    lm_step(mod, a["batches"][0])
+    stats = mon.toc()
+    fallbacks = profiler.counters().get("fused_step_fallbacks", 0) - fb0
+    loop = [(n, v) for _, n, v in stats if n.startswith("lstm_foreach")]
+    shape = {"data": (LM_BATCH, LM_BUCKETS[0]),
+             "softmax_label": (LM_BATCH, LM_BUCKETS[0])}
+    sym = cf_sym_gen(mx)(LM_BUCKETS[0])[0]
+    arrays = sum(int(np.prod(s)) for n, s in zip(
+        sym.list_arguments(), sym.infer_shape(**shape)[0]) if n not in shape)
+    totals = {}
+    for what, gen in (("foreach", cf_sym_gen(mx)), ("unrolled",
+                                                    lm_sym_gen(mx))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            totals[what] = mx.viz.print_summary(gen(LM_BUCKETS[0])[0],
+                                                shape=shape)
+        totals[what + "_lines"] = buf.getvalue().count("\n")
+    print("  (e) Monitor(monitor_all) for one step: %d stats, the foreach "
+          "node's %s; fused-step fallbacks %d; print_summary totals: "
+          "foreach %d (%d lines), unrolled %d (%d lines) (the JAX "
+          "package's rule: a parameter counts where a layer bears its "
+          "prefix, so the cells' are not; the arrays hold %d)"
+          % (len(stats), [(n, v.strip()[:12]) for n, v in loop], fallbacks,
+             totals["foreach"], totals["foreach_lines"], totals["unrolled"],
+             totals["unrolled_lines"], arrays))
+    if not loop or fallbacks != 1:
+        fail("control flow (e): monitor stats %s, fallbacks %d"
+             % ([n for _, n, _ in stats], fallbacks))
+    if totals["foreach"] != totals["unrolled"]:
+        fail("control flow (e): print_summary totals %s" % totals)
+    return totals
+
+
+def phase_control_flow(card, tfa, ctx=None):
+    """The twenty-fifth slice's main path: BASELINE config 3's LM with
+    its time loop a foreach, trained on the fused step, generating by a
+    while_loop with a cond inside one CUDA graph, a Custom loss, get_symbol
+    and a user Function, Monitor and print_summary; (a)-(e) as the module
+    docstring sets out; fp32, TF32 off."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    t_phase = time.perf_counter()
+    ctx = ctx or mx.gpu(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tfa.reset_launches()
+    rtc.reset_launches()
+    sents = lm_corpus()
+    a = cf_foreach_training(mx, card, sents)
+    b = cf_generation(mx, card, ctx, a["mod"], sents)
+    c = cf_custom(mx, card, ctx, a)
+    d = cf_symbol_and_function(mx, card, ctx, a)
+    e = cf_monitor_summary(mx, card, a)
+    launched = dict(tfa.launches, rtc=rtc.launches["rtc"])
+    print("  attention, decode and rtc launches over the phase: %s; phase 29 "
+          "%.1f s" % (launched, time.perf_counter() - t_phase))
+    if any(launched.values()):
+        fail("control flow: kernels launched on a path that has none: %s"
+             % launched)
+    return dict(a={k: v for k, v in a.items()
+                   if k in ("capture_s", "twin_capture_s", "ms", "twin_ms",
+                            "rel")}, b=b, c=c, d=d, e=e)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -12497,6 +13185,9 @@ def main():
     print("deploy, the rest (the attention kernels as torch.library ops in "
           "artifacts, format-3 int8 artifacts):")
     rest = phase_deploy_rest(card, tfa, serve)
+    print("control flow (foreach, while_loop and cond inside graphs, Custom "
+          "ops, get_symbol and autograd.Function, Monitor and viz):")
+    phase_control_flow(card, tfa)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

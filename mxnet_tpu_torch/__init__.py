@@ -74,7 +74,13 @@ What is ported:
 - the deploy path: ``deploy`` (``torch.export`` artifacts, with the
   attention kernels as ``torch.library`` ops in them, and format-3 int8
   artifacts), ``contrib.quantization`` and the quantized ops,
-  ``serving.InferenceServer`` and ``compile_watch``.
+  ``serving.InferenceServer`` and ``compile_watch``;
+- control flow and user code inside graphs: ``mx.sym.contrib.foreach``/
+  ``while_loop``/``cond`` (one ``_foreach``/``_while_loop``/``_cond``
+  node, captured whole in its program's CUDA graph), ``mx.operator``
+  (``Custom`` ops in Python), ``autograd.Function`` and
+  ``autograd.get_symbol``, ``contrib.autograd``, ``mx.monitor`` and
+  ``mx.viz``.
 
 Typical use mirrors MXNet::
 
@@ -114,6 +120,7 @@ from .name import NameManager
 from .attribute import AttrScope
 from . import base
 from . import ops
+from . import operator      # registers the `Custom` op before the stubs
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
@@ -160,6 +167,9 @@ from . import parallel
 from . import kvstore as kvstore_module
 from .kvstore import KVStore
 from . import kvstore_server
+from . import monitor
+from . import visualization
+from . import visualization as viz
 
 
 def kvstore_create(name="local"):
@@ -182,4 +192,5 @@ __all__ = ["MXNetError", "fault", "InjectedFault", "Context", "cpu", "gpu",
            "module", "mod", "Module", "rnn", "bucketing", "serving",
            "contrib", "parallel", "CollectiveTimeoutError",
            "kvstore_module", "kv",
-           "KVStore", "kvstore_server", "kvstore_create"]
+           "KVStore", "kvstore_server", "kvstore_create", "operator",
+           "monitor", "visualization", "viz"]

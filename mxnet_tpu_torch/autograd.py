@@ -14,6 +14,10 @@ a head gradient of ones, as in MXNet.
 The JAX package replays its tape as one compiled program; torch keeps
 the graph it recorded, so ``train_mode`` of :func:`backward` only
 exists for API parity: the forward already ran in the recorded mode.
+:func:`get_symbol` reads the notes that ``invoke_nd`` leaves on the
+outputs of the ops it runs under ``record()`` (the JAX package walks its
+tape). :class:`Function` is a user's differentiable function over
+NDArrays, bridged to a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad"]
+           "backward", "grad", "get_symbol", "Function"]
 
 _state = threading.local()
 
@@ -214,3 +218,68 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                          "the computation of heads")
     out = [NDArray(g) for g in grads]
     return out[0] if single else out
+
+
+def get_symbol(x):
+    """The Symbol of the ops recorded into ``x`` (reference:
+    autograd.py:304). Its variables are the arrays no recorded op made:
+    a Gluon parameter's data by the parameter's name, any other array as
+    ``var<i>``."""
+    from .symbol.symbol import _symbol_from_tape
+    return _symbol_from_tape(x)
+
+
+class Function:
+    """A differentiable function written by the user (reference:
+    autograd.py:365): ``forward(*inputs)`` and ``backward(*output_grads)``
+    over NDArrays, ``backward`` returning one gradient per input. The
+    JAX package's surface: ``forward`` runs when called, outside the
+    recording; under ``record()`` its outputs carry a gradient that calls
+    ``backward``."""
+
+    def __init__(self):
+        self._used = False
+
+    def forward(self, *inputs):
+        raise NotImplementedError()
+
+    def backward(self, *output_grads):
+        raise NotImplementedError()
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        with pause(train_mode=is_training()):
+            outs = self.forward(*inputs)
+        single = not isinstance(outs, (list, tuple))
+        out_list = [outs] if single else list(outs)
+        if is_recording() and any(i._data.requires_grad for i in inputs):
+            tensors = _FunctionBridge.apply(
+                self, len(inputs), *[i._data for i in inputs],
+                *[o._data.detach() for o in out_list])
+            out_list = [NDArray(t) for t in tensors]
+        return out_list[0] if single else out_list
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """The outputs ``forward`` computed, as the outputs of a torch
+    function whose backward is the user's."""
+
+    @staticmethod
+    def forward(ctx, func, n_in, *tensors):
+        ctx.func = func
+        ctx.float_in = [t.is_floating_point() for t in tensors[:n_in]]
+        return tuple(t.clone() for t in tensors[n_in:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            igrads = ctx.func.backward(*[NDArray(g) for g in grads])
+        if not isinstance(igrads, (list, tuple)):
+            igrads = [igrads]
+        if len(igrads) != len(ctx.float_in):
+            raise MXNetError("Function.backward returned %d gradients for "
+                             "%d inputs" % (len(igrads), len(ctx.float_in)))
+        return (None, None) + tuple(
+            g._data if f else None
+            for g, f in zip(igrads, ctx.float_in)) + (None,) * len(grads)

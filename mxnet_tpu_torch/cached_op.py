@@ -30,7 +30,13 @@ Predict mode keeps its graph whatever ops the plan holds, unless one of
 them draws random numbers in predict mode (``OpDef.draws_in``: Dropout
 draws nothing there unless ``mode="always"``). Such a plan runs op by op
 on the card too, and :meth:`CachedOp.stats` counts each such call
-(``eager_rng``): a graph would replay one frozen mask.
+(``eager_rng``): a graph would replay one frozen mask. A plan holding an
+op that runs user Python (``Custom``, or a loop whose body holds one:
+``OpDef.runs_host_code``) never takes a graph either, in either mode: it
+runs op by op, each call on the card counted as ``eager_host``, since
+the user's code may read a device value on the host. A control-flow
+node (``_foreach``, ``_while_loop``, ``_cond``) is captured whole with
+the rest of the plan.
 
 Each graph holder reports to :mod:`~mxnet_tpu_torch.compile_watch`
 under its site (``op:_cachedopN.<head>`` here): a capture on the card,
@@ -231,6 +237,7 @@ class _Graphs:
         self.replays = 0
         self.recaptures = 0
         self.eager_rng = 0
+        self.eager_host = 0
         # the compile watch's site (compile_watch.Site); None reports
         # nothing
         self.site = None
@@ -240,6 +247,12 @@ class _Graphs:
         because the plan draws in predict mode."""
         with self._lock:
             self.eager_rng += 1
+
+    def note_eager_host(self):
+        """Count one call the graphs could have served that ran op by op
+        because the plan runs user Python (a ``Custom`` op)."""
+        with self._lock:
+            self.eager_host += 1
 
     def serves(self, tensors):
         return bool(tensors) and all(t.device.type == self.device_type
@@ -354,7 +367,8 @@ class _Graphs:
             return {"captures": self.captures, "replays": self.replays,
                     "recaptures": self.recaptures,
                     "signatures": len(self._entries),
-                    "eager_rng": self.eager_rng}
+                    "eager_rng": self.eager_rng,
+                    "eager_host": self.eager_host}
 
 
 class CachedOp:
@@ -376,9 +390,10 @@ class CachedOp:
         self._fn = fn
         self._n_out = n_out
         self._data_indices = tuple(data_indices)
-        self._predict_draws = any(
-            n.op.draws_in(_ops.normalize_attrs(n.op, n.attrs), False)
-            for n in sym._topo_nodes() if n.op is not None)
+        nodes = [(n.op, _ops.normalize_attrs(n.op, n.attrs))
+                 for n in sym._topo_nodes() if n.op is not None]
+        self._predict_draws = any(op.draws_in(a, False) for op, a in nodes)
+        self._host_code = any(op.runs_host_code(a) for op, a in nodes)
         # name the op after the graph's head, so a trace tells which
         # hybridized block ran
         outs = sym.list_outputs()
@@ -405,12 +420,14 @@ class CachedOp:
                 % (self.num_inputs, len(self.arg_names),
                    len(self.aux_names), len(inputs)))
         tensors = [x._data for x in inputs]
+        serves = self.graphs.serves(tensors)
+        if serves and self._host_code:
+            self.graphs.note_eager_host()
         if autograd.is_recording() or autograd.is_training():
             return invoke_nd(self._op, list(inputs), {})
-        serves = self.graphs.serves(tensors)
-        if serves and self._predict_draws:
+        if serves and self._predict_draws and not self._host_code:
             self.graphs.note_eager_rng()
-        if not serves or self._predict_draws:
+        if not serves or self._predict_draws or self._host_code:
             return self.graphs.eager(
                 lambda _t: invoke_nd(self._op, list(inputs), {}), tensors,
                 self._data_indices)
@@ -434,5 +451,6 @@ class CachedOp:
         per call by graph, the capturing call too), recaptures (a
         signature captured again over replaced tensors), the live
         signatures, and the predict calls on the graphs' device that ran
-        op by op because the plan draws (``eager_rng``)."""
+        op by op because the plan draws (``eager_rng``) or, in either
+        mode, because it runs user Python (``eager_host``)."""
         return self.graphs.stats()

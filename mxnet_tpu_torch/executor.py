@@ -15,7 +15,10 @@ each with its normalized attributes and the slots its inputs come from
   that draws random numbers in predict mode (Dropout with
   ``mode="always"``; a train-mode Dropout draws nothing there) runs op
   by op on either device, each such run counted as ``eager_rng`` in
-  ``stats()``;
+  ``stats()``; so does a graph with an op that runs user Python
+  (``Custom``, or a loop whose body holds one), counted as
+  ``eager_host``. A ``_foreach``/``_while_loop``/``_cond`` node is one
+  op of the plan, captured whole in the graph;
 - **train** (``forward(is_train=True)``, ``forward_backward``): op by op
   under torch autograd over the arguments that carry a gradient.
   ``backward`` takes ``torch.autograd.grad`` of the stored forward, as
@@ -189,6 +192,8 @@ class Executor:
         self._needs_rng = any(op.needs_rng for op, *_ in self._plan)
         self._predict_draws = any(op.draws_in(nattrs, False)
                                   for op, nattrs, *_ in self._plan)
+        self._host_code = any(op.runs_host_code(nattrs)
+                              for op, nattrs, *_ in self._plan)
         self._grad_positions = [i for i, n in enumerate(self.arg_names)
                                 if self._grad_req.get(n, "null") != "null"]
         self._plan_bias_defer()
@@ -354,9 +359,11 @@ class Executor:
             with torch.no_grad():
                 return run(feed[:n_args], feed[n_args:])[0]
         serves = self.graphs.serves(tensors)
-        if serves and not self._predict_draws:
+        if serves and self._host_code:
+            self.graphs.note_eager_host()
+        elif serves and not self._predict_draws:
             return tuple(self.graphs.run(body, tensors, data))
-        if serves:
+        elif serves:
             self.graphs.note_eager_rng()
         return tuple(self.graphs.eager(body, tensors, data))
 

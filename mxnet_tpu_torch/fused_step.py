@@ -50,8 +50,11 @@ Fallback matrix (the eager loop, each case counted in
 ``profiler.counters()['fused_step_fallbacks']``): ``MXNET_FUSED_STEP=0``
 (not counted: the gate is off), an optimizer without a
 ``fused_step_fn``, and on the Module path a monitor,
-``inputs_need_grad``, ``grad_req='add'`` or a placed (grouped)
-executor. Multi-precision low-dtype weights are not a fallback: SGD,
+``inputs_need_grad``, ``grad_req='add'``, a placed (grouped)
+executor, or a graph holding an op that runs user Python (``Custom``,
+also inside a loop body: ``OpDef.runs_host_code``; its code may read a
+device value on the host). A ``_foreach``/``_while_loop``/``_cond`` node
+is captured in the step's graph like any op. Multi-precision low-dtype weights are not a fallback: SGD,
 Adam, AdaGrad and RMSProp have multi-precision step functions. Not
 ported: the JAX package's in-program gradient-sync mode (``sync_mesh``,
 ROADMAP queue A item 12).

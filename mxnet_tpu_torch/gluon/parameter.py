@@ -181,6 +181,8 @@ class Parameter:
         self._attach_grad_buffer()
 
     def _attach_grad_buffer(self):
+        # autograd.get_symbol names the array's variable after this
+        self._data._param_name = self.name
         if self._grad_req == "null":
             self._grad = None
             autograd.mark_variables([self._data], [None], "null")
@@ -281,6 +283,7 @@ class Parameter:
             return
         with autograd.pause():
             self._data = self._data.astype(dtype)
+            self._data._param_name = self.name
             if self._grad is not None:
                 self._grad = self._grad.astype(dtype)
             autograd.mark_variables([self._data], [self._grad],

@@ -22,7 +22,9 @@ per-parameter ``Updater`` loop) runs with ``MXNET_FUSED_STEP=0`` and
 for JAX's fallback matrix, each case counted in
 ``profiler.counters()['fused_step_fallbacks']``: an optimizer without a
 fused update (counted once), a monitor, ``inputs_need_grad``,
-``grad_req='add'`` and a placed executor (counted per step).
+``grad_req='add'``, a placed executor and a graph that runs user Python
+(a ``Custom`` op, whose code may read a device value on the host, which
+a CUDA graph cannot hold) (counted per step).
 
 Checkpoints go through ``checkpoint.save_arrays`` (checksummed shards
 plus a manifest; shard 0 is the single-file ``.params`` both packages
@@ -397,6 +399,10 @@ class Module(BaseModule):
             self._exec._gather_inputs(feed)
             self._pending_forward = True
         else:
+            if is_train and self.for_training:
+                # a monitor tapping every op: this step runs eagerly, a
+                # counted fallback as a deferred monitored step is
+                self._fused_eligible(count=True)
             self._exec.forward(is_train=is_train, **feed)
             self._pending_forward = False
 
@@ -437,6 +443,8 @@ class Module(BaseModule):
             reason = "monitor"
         elif any(ex._grad_req.get(n) == "add" for n in ex.arg_names):
             reason = "grad_req_add"
+        elif ex._host_code:
+            reason = "custom"
         if reason is None:
             return True
         if count:

@@ -39,7 +39,7 @@ def foreach(body, data, init_states):
     """Run ``body`` over dim 0 of ``data``; ``body(data_item, states) ->
     (outputs, new_states)``. Returns the outputs stacked on a new dim 0
     and the final states."""
-    from . import stack as _stack
+    from . import stack as _stack, split as _split
     data_list, data_single = _as_list(data)
     states, states_single = _as_list(init_states)
     if not data_list:
@@ -47,9 +47,13 @@ def foreach(body, data, init_states):
     length = data_list[0].shape[0]
     if any(d.shape[0] != length for d in data_list[1:]):
         raise MXNetError("foreach data inputs disagree on dim 0")
+    # the steps' slices by one op, so a recorded loop's Symbol
+    # (autograd.get_symbol) reaches the data through it
+    slices = [_as_list(_split(d, num_outputs=length, axis=0,
+                              squeeze_axis=True))[0] for d in data_list]
     collected, outs_single = None, True
     for i in range(length):
-        eles = [d[i] for d in data_list]
+        eles = [s[i] for s in slices]
         outs, states = body(eles[0] if data_single else eles,
                             states[0] if states_single else list(states))
         outs, outs_single = _as_list(outs)

@@ -75,6 +75,9 @@ class NDArray:
     """Multi-dimensional array on a device."""
 
     __array_priority__ = 1000.0
+    # (note, output index) of the recorded op that made this array
+    # (``invoke_nd`` under ``autograd.record()``; ``autograd.get_symbol``)
+    _tape = None
 
     def __init__(self, data):
         self._data = data          # torch.Tensor
@@ -560,7 +563,9 @@ def _as_nd(x, ctx=None):
 
 def invoke_nd(op_name, inputs, attrs, out=None, ctx=None):
     """Run a registered op on NDArrays (the ``Imperative::Invoke``
-    role): gradients are recorded only inside ``autograd.record()``; an
+    role): gradients are recorded only inside ``autograd.record()``,
+    where each output also gets a note of the op for
+    ``autograd.get_symbol``; an
     op with a ``__train__`` attribute runs in the autograd train mode;
     the new values of its mutable inputs (BatchNorm's moving statistics)
     are written back into those NDArrays in place, with no grad. An op
@@ -591,6 +596,14 @@ def invoke_nd(op_name, inputs, attrs, out=None, ctx=None):
             if val is not inputs[idx]._data:
                 inputs[idx]._data.copy_(val)
     out_nds = [NDArray(o) for o in outputs]
+    if autograd.is_recording():
+        # what autograd.get_symbol reads: the op, its attributes and where
+        # its inputs came from; it goes away with the outputs
+        from ..symbol.symbol import _TapeNote
+        note = _TapeNote(op, {k: v for k, v in attrs.items()
+                              if k != "__train__"}, inputs)
+        for i, nd in enumerate(out_nds):
+            nd._tape = (note, i)
     if out is not None:
         for o, nd in zip(out if isinstance(out, (list, tuple)) else [out],
                          out_nds):

@@ -44,6 +44,10 @@ class OpDef:
       ``needs_rng`` draws for these attributes in that mode (Dropout
       draws only in training or with ``mode="always"``); an op without
       it draws whenever it runs;
+    - ``host_code``: ``attrs -> bool`` (or a bool), whether a run calls
+      user Python that may read device values on the host (``Custom``,
+      or a control-flow op whose subgraph holds one): a program holder
+      runs a plan holding such an op op by op, never as a CUDA graph;
     - ``mutable_inputs``: indices of the inputs the op updates
       (FMutateInputs; a Symbol lists their variables as auxiliary
       states);
@@ -57,7 +61,7 @@ class OpDef:
                  num_outputs=1, arg_names_fn=None, description="",
                  attr_docs=None, attr_ranges=None, needs_rng=False,
                  mutable_inputs=(), output_shapes=None, key_var_num_args=None,
-                 draws=None):
+                 draws=None, host_code=False):
         self.name = name
         self.forward = forward
         self.arg_names = list(arg_names)
@@ -67,6 +71,7 @@ class OpDef:
         self.key_var_num_args = key_var_num_args
         self.needs_rng = bool(needs_rng)
         self._draws = draws
+        self._host_code = host_code
         self.mutable_inputs = tuple(mutable_inputs)
         self.output_shapes = output_shapes
         self.description = description or (forward.__doc__ or "")
@@ -116,6 +121,12 @@ class OpDef:
             return False
         return True if self._draws is None else \
             bool(self._draws(attrs, is_train))
+
+    def runs_host_code(self, attrs):
+        """Whether a run with these (normalized) attributes calls user
+        Python (see ``host_code``)."""
+        hc = self._host_code
+        return bool(hc(attrs)) if callable(hc) else bool(hc)
 
     def resolve_arg_names(self, attrs, num_inputs=None):
         if self.key_var_num_args:
@@ -170,6 +181,9 @@ def _parse_attr_value(v):
         return _BOOL_STR[v]
     if v == "None":
         return None
+    if v.startswith("__subgraph__:"):
+        from .control_flow import Subgraph
+        return Subgraph.from_json_attr(v)
     try:
         return ast.literal_eval(v)
     except (ValueError, SyntaxError):

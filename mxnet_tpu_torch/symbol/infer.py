@@ -9,7 +9,9 @@ initialization depends on. Only the parameter-bearing ops need a hook.
 
 Hook signature: ``hook(attrs, in_shapes) -> {input_index: shape}``,
 where ``in_shapes`` holds a tuple for each known input and None for
-each unknown one.
+each unknown one. The control-flow ops' hooks run their subgraphs' own
+inference, so a parameter used in a loop body gets its shape from the
+data, where the JAX package asks for it explicitly.
 """
 from __future__ import annotations
 
@@ -104,3 +106,66 @@ def _rnn(attrs, in_shapes):
                            attrs.get("num_layers", 1),
                            attrs.get("bidirectional", False), data[2],
                            attrs["state_size"]),)}
+
+
+# -- control flow: a free input's shape from the subgraph that reads it ----
+
+def _from_subgraph(sub, pools, offset, in_shapes):
+    """``{node input index: shape}`` of the free inputs of ``sub`` whose
+    shape its own inference resolves from the known data and state
+    shapes (the reference infers through the subgraph; a Gluon parameter
+    used in a loop body is such a free input)."""
+    known = {}
+    for name, (kind, i) in zip(sub.arg_names, sub.layout):
+        shape = pools[kind][i]
+        if shape is not None:
+            known[name] = tuple(shape)
+    arg_shapes = sub.sym.infer_shape_partial(**known)[0]
+    out = {}
+    for (kind, i), shape in zip(sub.layout, arg_shapes):
+        if kind == "free" and shape is not None \
+                and in_shapes[offset + i] is None:
+            out[offset + i] = tuple(shape)
+    return out
+
+
+@hook("_foreach")
+def _foreach(attrs, in_shapes):
+    n_data, n_state = attrs["num_data"], attrs["num_states"]
+    data = [None if s is None else tuple(s[1:]) for s in in_shapes[:n_data]]
+    pools = {"data": data,
+             "state": in_shapes[n_data:n_data + n_state],
+             "free": in_shapes[n_data + n_state:]}
+    return _from_subgraph(attrs["subgraph"], pools, n_data + n_state,
+                          in_shapes)
+
+
+@hook("_while_loop")
+def _while_loop(attrs, in_shapes):
+    n_state, n_cf = attrs["num_states"], attrs["num_free_cond"]
+    states = in_shapes[:n_state]
+    out = _from_subgraph(attrs["cond_subgraph"], {
+        "state": states, "free": in_shapes[n_state:n_state + n_cf]},
+        n_state, in_shapes)
+    out.update(_from_subgraph(attrs["body_subgraph"], {
+        "state": states, "free": in_shapes[n_state + n_cf:]},
+        n_state + n_cf, in_shapes))
+    return out
+
+
+@hook("_cond")
+def _cond(attrs, in_shapes):
+    n_state = attrs["num_states"]
+    states = in_shapes[:n_state]
+    out = {}
+    offset = n_state
+    for key, count in (("cond_subgraph", attrs["num_free_cond"]),
+                       ("then_subgraph", attrs["num_free_then"]),
+                       ("else_subgraph", None)):
+        free = in_shapes[offset:] if count is None \
+            else in_shapes[offset:offset + count]
+        out.update(_from_subgraph(attrs[key], {"state": states,
+                                               "free": free},
+                                  offset, in_shapes))
+        offset += 0 if count is None else count
+    return out

@@ -348,7 +348,10 @@ class Symbol:
             jn = {"op": "null" if n.is_variable() else n.op.name,
                   "name": n.name,
                   "inputs": [[nid[id(s)], idx, 0] for (s, idx) in n.inputs]}
-            attrs = {k: str(v) for k, v in n.attrs.items()}
+            # a control-flow subgraph writes itself as "__subgraph__:"
+            # + its JSON, the JAX package's form
+            attrs = {k: (v.to_json_attr() if hasattr(v, "to_json_attr")
+                         else str(v)) for k, v in n.attrs.items()}
             attrs.update(n._extra_attrs)
             if attrs:
                 jn["attrs"] = attrs
@@ -599,6 +602,57 @@ def load_json(json_str):
                                  if k not in op_attrs}
         nodes.append(node)
     return Symbol([(nodes[h[0]], h[1]) for h in data["heads"]])
+
+
+def _symbol_from_tape(x):
+    """The Symbol of the ops recorded into ``x`` (``autograd.get_symbol``;
+    the JAX package walks its tape, the port the notes ``invoke_nd``
+    leaves on outputs made under ``record()``). An array with no note is
+    a variable, named after its Gluon parameter where it is one's data
+    (so the Symbol binds with the block's parameters), else ``var<i>``
+    in the order the walk meets it."""
+    memo = {}
+    counter = [0]
+
+    def leaf(arr):
+        key = ("leaf", id(arr))
+        if key not in memo:
+            name = getattr(arr, "_param_name", None)
+            if name is None:
+                name = "var%d" % counter[0]
+                counter[0] += 1
+            memo[key] = _Node(None, name, {}, [])
+        return memo[key]
+
+    def conv(entry):
+        note, index = entry
+        if not isinstance(note, _TapeNote):
+            return (leaf(note), 0)
+        if id(note) not in memo:
+            inputs = [conv(e) for e in note.inputs]
+            memo[id(note)] = _Node(
+                note.op, "%s%d" % (note.op.name.lower().strip("_"),
+                                   counter[0]),
+                dict(note.attrs), inputs)
+            counter[0] += 1
+        return (memo[id(note)], index)
+
+    entry = getattr(x, "_tape", None)
+    return Symbol([conv(entry if entry is not None else (x, 0))])
+
+
+class _TapeNote:
+    """One recorded op invocation: the op, its attributes and, per
+    input, ``(note, output index)`` of the op that made it or ``(input
+    array, 0)`` for an array no recorded op made. Its outputs hold it as
+    ``NDArray._tape``; it holds no tensor of its own."""
+
+    __slots__ = ("op", "attrs", "inputs")
+
+    def __init__(self, op, attrs, inputs):
+        self.op = op
+        self.attrs = attrs
+        self.inputs = [getattr(i, "_tape", None) or (i, 0) for i in inputs]
 
 
 def zeros(shape, dtype="float32", name=None, **kwargs):

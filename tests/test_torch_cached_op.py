@@ -149,7 +149,7 @@ def test_graph_holder_captures_replays_and_recaptures():
     y1 = call(x1)
     assert op.stats() == dict(captures=1, replays=1, recaptures=0,
                               signatures=1,
-                              eager_rng=0)
+                              eager_rng=0, eager_host=0)
     first = y1.asnumpy()
     np.testing.assert_allclose(first, want(x1), **TOL)
     y2 = call(x2)                      # another data tensor: staged, replay
@@ -170,13 +170,13 @@ def test_graph_holder_captures_replays_and_recaptures():
     assert not np.allclose(y.asnumpy(), first)
     assert op.stats() == dict(captures=2, replays=4, recaptures=1,
                               signatures=1,
-                              eager_rng=0)
+                              eager_rng=0, eager_host=0)
     # a new signature is a capture of its own, not a recapture
     x3 = tmx.nd.array(np.random.RandomState(5).randn(3, 3, 6, 6))
     np.testing.assert_allclose(call(x3).asnumpy(), want(x3), **TOL)
     assert op.stats() == dict(captures=3, replays=5, recaptures=1,
                               signatures=2,
-                              eager_rng=0)
+                              eager_rng=0, eager_host=0)
     # recording or train mode: op by op, the moving statistics move
     before = aux_nd[0].asnumpy()
     with tmx.autograd.train_mode():
@@ -196,7 +196,7 @@ def test_capture_failure_raises_without_fallback():
         op(*[tmx.nd.array(a) for a in args + aux])
     assert op.stats() == dict(captures=0, replays=0, recaptures=0,
                               signatures=0,
-                              eager_rng=0)
+                              eager_rng=0, eager_host=0)
 
 
 def test_graphs_serve_only_cuda_tensors_by_default():
@@ -238,7 +238,7 @@ def test_hybridized_block_replays_and_clears_its_graph():
     np.testing.assert_allclose(net(tmx.nd.array(x)).asnumpy(), want, **TOL)
     assert op.stats() == dict(captures=1, replays=2, recaptures=0,
                               signatures=1,
-                              eager_rng=0)
+                              eager_rng=0, eager_host=0)
     net.hybridize()
     assert net._cached_op is None
     net(tmx.nd.array(x))
@@ -294,7 +294,7 @@ def test_predict_graph_keeps_dropout_plans():
         np.testing.assert_allclose(net(tmx.nd.array(x)).asnumpy(), want,
                                    **TOL)
     assert op.stats() == dict(captures=1, replays=3, recaptures=0,
-                              signatures=1, eager_rng=0)
+                              signatures=1, eager_rng=0, eager_host=0)
     with tmx.autograd.record():
         drawn = net(tmx.nd.array(x)).asnumpy()
     assert not np.allclose(drawn, want)
@@ -316,7 +316,7 @@ def test_plan_that_draws_in_predict_runs_op_by_op_counted():
     outs = [net(tmx.nd.array(x)).asnumpy() for _ in range(2)]
     assert not np.array_equal(outs[0], outs[1])          # two draws
     assert op.stats() == dict(captures=0, replays=0, recaptures=0,
-                              signatures=0, eager_rng=2)
+                              signatures=0, eager_rng=2, eager_host=0)
     sym = tmx.sym.Dropout(tmx.sym.FullyConnected(
         tmx.sym.var("data"), num_hidden=4, name="fc"), p=0.5, mode="always")
     ex = sym.simple_bind(tmx.cpu(), data=(3, 5), grad_req="null")

@@ -37,19 +37,22 @@ def _port_on_cpu(monkeypatch):
 @pytest.fixture(scope="module")
 def resnet18(tmp_path_factory):
     """The port's hybridized resnet18_v1 (10 classes), its output on a
-    (2, 3, 32, 32) batch, and its artifact."""
-    os.environ["MXNET_DEFAULT_CONTEXT"] = "cpu"
+    (2, 3, 32, 32) batch, and its artifact. The CPU default is set for
+    the fixture alone: a test file run after this one on the same worker
+    sees the environment it started with."""
     from mxnet_tpu_torch.gluon.model_zoo import vision
-    mx.random.seed(0)
-    net = vision.resnet18_v1(classes=10)
-    net.initialize(mx.init.Xavier())
-    net.hybridize()
-    x = mx.nd.array(np.random.RandomState(0).uniform(
-        0, 1, (2, 3, 32, 32)).astype(np.float32))
-    y = net(x).asnumpy()
-    path = str(tmp_path_factory.mktemp("deploy") / "model.mxp")
-    mx.deploy.export_compiled(net, path,
-                              input_shapes={"data0": (2, 3, 32, 32)})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MXNET_DEFAULT_CONTEXT", "cpu")
+        mx.random.seed(0)
+        net = vision.resnet18_v1(classes=10)
+        net.initialize(mx.init.Xavier())
+        net.hybridize()
+        x = mx.nd.array(np.random.RandomState(0).uniform(
+            0, 1, (2, 3, 32, 32)).astype(np.float32))
+        y = net(x).asnumpy()
+        path = str(tmp_path_factory.mktemp("deploy") / "model.mxp")
+        mx.deploy.export_compiled(net, path,
+                                  input_shapes={"data0": (2, 3, 32, 32)})
     return net, x.asnumpy(), y, path
 
 

@@ -362,7 +362,7 @@ def test_predict_graph_replays_over_in_place_writes():
     ex.copy_params_from({"conv_weight": w * 2})
     ex.forward(data=x)
     assert ex.stats() == dict(captures=1, replays=4, recaptures=0,
-                              signatures=1, eager_rng=0, grouped=0)
+                              signatures=1, eager_rng=0, eager_host=0, grouped=0)
     w._set_data(w._data * 0.5)
     ex.forward(data=x)
     assert ex.graphs.stats()["recaptures"] == 1

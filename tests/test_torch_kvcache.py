@@ -227,6 +227,7 @@ def test_pool_dtypes(monkeypatch):
 
 
 def test_pool_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="device='cpu'"):
         tkv.KVCachePool(2, 2, 8, page_size=4, n_pages=8)

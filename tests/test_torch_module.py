@@ -184,7 +184,7 @@ def test_score_after_fit_replays_one_graph():
     np.testing.assert_array_equal(got, want)
     assert mod._exec.stats() == dict(captures=1, replays=16,
                                      recaptures=0, signatures=1,
-                                     eager_rng=0, grouped=0)
+                                     eager_rng=0, eager_host=0, grouped=0)
 
 
 def test_predict_and_input_grads_match_jax():

@@ -135,7 +135,7 @@ def test_grouped_executor_runs_op_by_op():
     np.testing.assert_allclose(ex.outputs[0].asnumpy(),
                                ref.outputs[0].asnumpy(), **TOL)
     assert ex.stats() == dict(captures=0, replays=0, recaptures=0,
-                              signatures=0, eager_rng=0, grouped=2)
+                              signatures=0, eager_rng=0, eager_host=0, grouped=2)
     assert ref.stats()["replays"] == 2
 
 
@@ -195,4 +195,4 @@ def test_grouped_dropout_draws_from_its_segment_device():
     np.testing.assert_allclose(ex.forward()[0].asnumpy(),
                                ref.forward()[0].asnumpy(), **TOL)
     assert ex.stats() == dict(captures=0, replays=0, recaptures=0,
-                              signatures=0, eager_rng=0, grouped=1)
+                              signatures=0, eager_rng=0, eager_host=0, grouped=1)

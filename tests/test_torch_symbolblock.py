@@ -124,7 +124,7 @@ def test_imported_block_replays_its_graph(tmp_path):
         np.testing.assert_allclose(block(tmx.nd.array(x)).asnumpy(), want,
                                    **LOGIT_TOL)
     assert op.stats() == dict(captures=1, replays=3, recaptures=0,
-                              signatures=1, eager_rng=0)
+                              signatures=1, eager_rng=0, eager_host=0)
 
 
 def _standin():

@@ -28,10 +28,9 @@ def _port_on_cpu(monkeypatch):
 # public names of mxnet_tpu/__init__.py the port does not carry yet, with
 # the ROADMAP queue A item (or the reason) that brings them
 UNPORTED = {
-    "operator": "item 8 (Custom ops)", "engine": "item 8",
+    "engine": "item 8",
     "util": "item 8", "runtime": "item 8", "registry": "item 8",
-    "libinfo": "item 8", "monitor": "item 8", "visualization": "item 8",
-    "viz": "item 8", "storage": "item 8",
+    "libinfo": "item 8", "storage": "item 8",
     "image": "item 8", "test_utils": "item 8",
     "tpu": "TPU devices: the port runs on CUDA devices",
     "num_tpus": "TPU devices: the port runs on CUDA devices",
