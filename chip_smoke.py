@@ -7,7 +7,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
 
 1. device — CUDA present, capability >= (9, 0); prints the card's
    ``nvidia-smi`` name and power limit;
-2. build — the five attention kernels from
+2. build — the five attention kernels and the NMS sweep from
    ``mxnet_tpu_torch/parallel/csrc`` (one nvcc per source, started
    together), with the ptxas register and spill lines of every kernel
    instance (the decode libraries: one kernel a width), and the count
@@ -586,7 +586,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    int8 artifacts. (a) phase 10's LM (seed 0) with (max logit, argmax)
    heads exported on the card with buckets LM_ART_BUCKETS at T
    LM_ART_T, loaded with ``load_compiled`` and served by the
-   ``InferenceServer``: 2 captures in warmup, none in traffic; 32
+   ``InferenceServer``: a capture a bucket in warmup, none in traffic; 32
    requests of 100-1024 tokens (seed 2) padded at the end, each
    position's (max logit, argmax) against the model alone at
    LM_SERVE_TOL; the meta names ``flash_fwd``, every program calls it
@@ -647,13 +647,46 @@ no result, anywhere else. Phases (any failure exits non-zero):
    counted fallback; ``print_summary``'s total for the foreach LM
    equals the unrolled LM's. The attention, decode and rtc launch
    counts read 0 over the phase.
+30. vision (after 29) — the twenty-sixth slice, fp32 with TF32 off,
+   through ``parallel/csrc/nms_sweep.cu`` (greedy NMS: a bit mask of the
+   overlaps, then one block a sample sweeping it). (a) the SSD300 head
+   of MXNet v1.5's example/ssd ``get_config('vgg16_reduced', 300)``: its
+   six maps' MultiBoxPrior anchors (8732), 21 classes, batch 32,
+   ``cls_prob`` a softmax of seeded logits, 1-42 boxes an image (seed 0,
+   -1 padded): MultiBoxTarget, MultiBoxDetection (nms_threshold 0.45,
+   threshold 0.01, nms_topk 400, which is not read) and box_nms over its
+   output, nms_sweep counted (zeroed before, read after: 2); each call's
+   keep mask bit-equal to ``nms_keep_plain`` over all 32 samples on the
+   card (the plain version 8 samples a call), the head at B2 within
+   rtol = atol = 1e-5 of its plain path (every NMS through
+   ``nms_keep_plain``); the head and the sweep at B32 by CUDA-graph
+   replay, the sweep's two launches by the profiler. (b) Faster R-CNN
+   (VGG16, example/rcnn's test defaults: 600x1000, stride 16, 38x63
+   features, scales (8, 16, 32), ratios (0.5, 1, 2), pre 6000, post
+   300, threshold 0.7, min size 16): Proposal at B1 and MultiProposal
+   at B2 bit-equal to their plain path (2 launches), then ROIPooling and
+   ROIAlign (7x7, 1/16, sample_ratio 2) of (1, 512, 38, 63) over the 300
+   proposals, forward and backward, with their peak memory (no (R, PH,
+   PW, C, H, W) tensor) and the card against the host on 32 RoIs. (c)
+   Deformable R-FCN's res5: DeformableConvolution 3x3 512->512, pad 2,
+   dilate 2, 4 deformable groups, no bias, on (1, 512, 38, 63);
+   PSROIPooling and DeformablePSROIPooling (21 x 7x7 over 1029
+   channels, 4 samples a part, trans_std 0.1) over the 300 RoIs; forward
+   and backward, card against host within VISION_REL. (d) ``mx.image``:
+   ImageDetIter with CreateDetAugmenter (rand_crop 0.5, rand_pad 0.5,
+   rand_mirror, mean/std) over a .rec of 256 synthetic 300x300 JPEGs
+   (seed 0), batch 32, images/s, the last batch into (a)'s
+   MultiBoxTarget. (e) a hybridized block holding dgl ops on gpu(0):
+   run op by op (``eager_host``), no capture. The new device ops' card
+   against host cases are phase 21 (a)'s. The attention, decode and rtc
+   launch counts read 0 over the phase.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
 packing, mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches,
 serving (InferenceServer), fault tolerance (b), rank 0's launches in
 its second generation, LM artifact (InferenceServer), CPU-exported
-artifact, or decode artifact;
+artifact, decode artifact, ssd detection or rpn proposal;
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -667,6 +700,7 @@ import json
 import logging
 import math
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -1046,8 +1080,8 @@ def phase_build():
             for ln in f:
                 # ptxas names each kernel instance, then its resources
                 entry = re.search(r"Compiling entry function .*?((?:fwd|dkdv|"
-                                  r"dq|decode_q8|decode)_kernel)(?:I((?:Li"
-                                  r"\d+E)+)E)?", ln)
+                                  r"dq|decode_q8|decode|mask|sweep)_kernel)"
+                                  r"(?:I((?:L[ib]\d+E)+)E)?", ln)
                 if entry:
                     print("  %s: %s<%s>" % (name, entry.group(1), ", ".join(
                         re.findall(r"\d+", entry.group(2) or ""))))
@@ -7544,7 +7578,7 @@ def phase_gan(card):
 # ---------------------------------------------------------------------------
 
 OPS_MODULES = ("elemwise", "reduce", "matrix", "indexing", "init_ops", "nn",
-               "linalg", "extra", "deformable", "control_flow")
+               "linalg", "extra", "detection", "deformable", "control_flow")
 OPS_ACT = (8, 1024, 768)            # the LM's activations: elementwise, reduce
 OPS_SPD = (64, 128)                 # 64 SPD matrices of 128 x 128: linalg
 OPS_TOL = 1e-5                      # max |gpu - cpu| / max |cpu|, fwd and grad
@@ -7884,6 +7918,7 @@ def ops_cases(rs, act, spd, heads, vocab, seq, width):
     # no mesh in this phase: the synchronized op is BatchNorm's body
     cases["_contrib_SyncBatchNorm"] = cases["BatchNorm"]
     cases.update(control_flow_cases(rs, act))
+    cases.update(vision_cases(rs, act))
     return cases
 
 
@@ -8054,6 +8089,127 @@ def sweep_one(ops, name, case, gen, dev, cpu):
     for g, c in zip(g_grads, c_grads):
         bwd = max(bwd, _rel_err(g, c.to(dev)))
     return fwd, bwd, synced
+
+
+def _vision_boxes(rs, n, extent, lo, hi):
+    """(n, 4) corner boxes inside [0, extent]^2 with sides in [lo, hi)."""
+    ctr = rs.uniform(0, extent, (n, 2))
+    wh = rs.uniform(lo, hi, (n, 2))
+    return np.concatenate([ctr - wh / 2, ctr + wh / 2], 1).astype(np.float32)
+
+
+def vision_cases(rs, act):
+    """Phase 21 (a)'s cases of the spatial, image, detection and
+    deformable ops (order step 8's breadth), sized from the activations
+    ``act``: ``act[1]`` boxes or anchors, images of side about
+    sqrt(act[1]). The box decoders' offsets are 0 (exp(0) and the anchor
+    centres are exact on both devices), so the NMS keep masks, which
+    chip_smoke.py phase 30 (a) holds bit for bit, see one box set."""
+    f32 = np.float32
+    bsz, n = act[0], act[1]
+    S = max(4, int(round(math.sqrt(n))))
+    C = max(2, act[-1] // 48)
+    R = max(4, n // 16)
+
+    def c(arrays, attrs=None, **opts):
+        return ([np.asarray(a) for a in arrays], dict(attrs or {}), opts)
+    img = _r(rs, (2, C, S, S))
+    theta = (np.tile(np.array([[0.9, 0.1, 0.05, -0.1, 1.1, 0.0]], f32),
+                     (2, 1)) + _r(rs, (2, 6)) * 0.05).astype(f32)
+    grid = _r(rs, (2, 2, S, S), -1.1, 1.1)
+    hwc = _r(rs, (S, S + 2, 3), 0, 255)
+    u8 = rs.randint(0, 256, (S, S + 2, 3)).astype(np.uint8)
+    rois = np.concatenate([rs.randint(0, 2, (R, 1)).astype(f32),
+                           _vision_boxes(rs, R, 2 * S, 2, S)], 1)
+    anchors = _vision_boxes(rs, n, 1.0, 0.05, 0.4)[None]
+    label = np.full((bsz, 6, 5), -1, f32)
+    for b in range(bsz):
+        k = 1 + b % 5
+        label[b, :k, 0] = rs.randint(0, 3, k)
+        label[b, :k, 1:] = _vision_boxes(rs, k, 1.0, 0.1, 0.5)
+    logits = _r(rs, (bsz, 4, n)) * 2
+    prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(f32)
+    rec = np.concatenate([rs.randint(0, 3, (bsz, n, 1)).astype(f32),
+                          _r(rs, (bsz, n, 1), 0, 1),
+                          _vision_boxes(rs, bsz * n, 1.0, 0.05, 0.4)
+                          .reshape(bsz, n, 4)], 2)
+    A_, Hf, Wf = 9, S, S + 3
+    rpn_cls = _r(rs, (2, 2 * A_, Hf, Wf), 0, 1)
+    rpn_box = np.zeros((2, 4 * A_, Hf, Wf), f32)
+    im_info = np.array([[Hf * 16, Wf * 16, 1.0], [Hf * 12, Wf * 16, 1.0]], f32)
+    rpn = {"rpn_pre_nms_top_n": A_ * Hf * Wf // 2,
+           "rpn_post_nms_top_n": max(8, n // 8), "threshold": 0.7,
+           "rpn_min_size": 4, "scales": (2.0, 4.0, 8.0),
+           "ratios": (0.5, 1.0, 2.0)}
+    ps_data = _r(rs, (2, 27, S, S))
+    trans = _r(rs, (R, 2, 3, 3)) * 0.5
+    ps = {"spatial_scale": 0.5, "output_dim": 3, "pooled_size": 3}
+    dps = dict(ps, group_size=3, sample_per_part=2, trans_std=0.1)
+    return {
+        "GridGenerator": [c([theta], {"target_shape": (S, S + 1)}),
+                          c([_r(rs, (2, 2, S, S))],
+                            {"transform_type": "warp"})],
+        "BilinearSampler": [c([img, grid])],
+        "SpatialTransformer": [c([img, theta], {"target_shape": (S, S)})],
+        "Correlation": [c([img, _r(rs, img.shape)],
+                          {"max_displacement": 2, "kernel_size": 3,
+                           "stride2": 2}),
+                        c([img, _r(rs, img.shape)],
+                          {"max_displacement": 1, "is_multiply": False})],
+        "_image_to_tensor": [c([u8], grad=False), c([hwc[None] / 255.0])],
+        "_image_normalize": [c([_r(rs, (2, 3, S, S))],
+                               {"mean": (0.4, 0.5, 0.6),
+                                "std": (0.2, 0.3, 0.25)})],
+        "_image_resize": [c([hwc], {"size": (S // 2 + 1, S // 2)}),
+                          c([hwc[None]], {"size": (S + 5, S + 3)}),
+                          c([u8], {"size": (S // 2 + 1, S + 3)}, grad=False)],
+        "_contrib_edge_id": [c([img[0, 0], rs.randint(0, S, n).astype(f32),
+                                rs.randint(0, S, n).astype(f32)])],
+        "_contrib_MultiBoxPrior": [c([img], {"sizes": (0.2, 0.3),
+                                             "ratios": (1.0, 2.0, 0.5),
+                                             "clip": True})],
+        "_contrib_MultiBoxTarget": [c([anchors, label, prob])],
+        "_contrib_MultiBoxDetection": [
+            c([prob, np.zeros((bsz, 4 * n), f32), anchors],
+              {"nms_threshold": 0.45}),
+            c([prob, np.zeros((bsz, 4 * n), f32), anchors],
+              {"force_suppress": True, "nms_topk": 20})],
+        "_contrib_box_iou": [c([anchors[0], rec[0, :n // 2, 2:]]),
+                             c([anchors[0], rec[0, :n // 2, 2:]],
+                               {"format": "center"})],
+        "_contrib_box_nms": [c([rec], {"overlap_thresh": 0.5}),
+                             c([rec], {"id_index": 0, "valid_thresh": 0.2,
+                                       "topk": 10}),
+                             c([rec], {"id_index": 0,
+                                       "force_suppress": True}),
+                             c([rec], {"in_format": "center"})],
+        "_contrib_bipartite_matching": [c([_r(rs, (bsz, 6, n // 4))],
+                                          {"threshold": 0.1}, grad=False,
+                                          exact=True)],
+        "_contrib_ROIAlign": [c([img, rois], {"pooled_size": (3, 3),
+                                              "spatial_scale": 0.5,
+                                              "sample_ratio": 2})],
+        "ROIPooling": [c([img, rois], {"pooled_size": (3, 3),
+                                       "spatial_scale": 0.5})],
+        "_contrib_DeformableConvolution": [
+            c([img[:1], _r(rs, (1, 36, S, S)),
+               _r(rs, (C, C, 3, 3)) * 0.3],
+              {"kernel": (3, 3), "pad": (2, 2), "dilate": (2, 2),
+               "num_filter": C, "num_deformable_group": 2,
+               "no_bias": True})],
+        "_contrib_PSROIPooling": [c([ps_data, rois], ps)],
+        "_contrib_DeformablePSROIPooling": [
+            c([ps_data, rois, trans], dps),
+            c([ps_data, rois], dict(dps, no_trans=True))],
+        "_contrib_Proposal": [c([rpn_cls[:1], rpn_box[:1], im_info[:1]],
+                                rpn)],
+        "_contrib_MultiProposal": [c([rpn_cls, rpn_box, im_info],
+                                     dict(rpn, output_score=True))],
+        "_contrib_count_sketch": [c([_r(rs, act[:2]),
+                                     rs.randint(0, 64, act[1]).astype(f32),
+                                     rs.choice([-1.0, 1.0], act[1])
+                                     .astype(f32)], {"out_dim": 64})],
+    }
 
 
 def ops_sweep(card, dev=None):
@@ -9851,12 +10007,13 @@ MESH_BATCH = 8                      # the global batch of (a): 4 a rank
 # of FT_STEPS steps on the global batch, a manifest checkpoint after each
 # epoch, the heartbeat armed at FT_HB_TIMEOUT_MS (a full-width step keeps
 # the host busy ~2 s in the gloo exchange) (cut from 10 steps without
-# checkpoints: phase 27's time)
-FT_EPOCHS = 3
+# checkpoints: phase 27's time; from 3 epochs to 2: phase 30's)
+FT_EPOCHS = 2
 FT_STEPS = 2
 FT_HB_TIMEOUT_MS = 10000
 MESH_STEPS = FT_EPOCHS * FT_STEPS
-MESH_IDENT_STEPS = 2                # steps of the on/off identity runs
+MESH_IDENT_STEPS = 1                # steps of the on/off identity runs
+                                    # (cut from 2: the slower hosts' time)
 MESH_ADAM = dict(learning_rate=1e-3)
 MESH_SEED = 0
 MESH_SP_BATCH = 2
@@ -10524,7 +10681,7 @@ def phase_mesh(card, tfa):
 # ---------------------------------------------------------------------------
 
 MESH4_RANKS = 4
-MESH4_STEPS = 3                     # (cut from 5: phase 27's time)
+MESH4_STEPS = 2                     # (cut from 5: phase 27's time; 3: 30's)
 MESH4_LAUNCH_TIMEOUT = 600
 DRY_RANKS = 8
 DRY_WIDTH = dict(D=768, H=12, F=3072, E=4, T=1024)
@@ -10909,7 +11066,8 @@ def phase_mesh_axes(card, tfa, mesh24):
 # seed 1; each answer against the hybridized net on its sample alone
 # (the example's tolerance) and bit for bit against the Predictor's
 # program at the bucket it ran in; the drills' queue bound and burst
-SERVE_BUCKETS = [1, 8, 32]          # (cut from six: phase 27's time)
+SERVE_BUCKETS = [1, 32]             # (cut from six: phase 27's time; from
+                                    # [1, 8, 32]: the slower hosts' time)
 SERVE_IMAGE = 224
 SERVE_CLASSES = 1000
 SERVE_CLIENTS = 8
@@ -11741,6 +11899,11 @@ def phase_fault_tolerance(card, mesh24):
         rc_c, text_c, c_s = ft_wait(cdir, c_run)
         rc, text_b, b_s = ft_wait(bdir, b_run)
         b = ft_ranks(bdir, 1, rc, text_b, "(b) supervised")
+        gen0 = []
+        for r in range(MESH_RANKS):
+            path = os.path.join(bdir, "rank%d.gen0.json" % r)
+            gen0.append(json.load(open(path)).get("error", "")
+                        if os.path.exists(path) else "")
         with open(events) as f:
             recs = [json.loads(line) for line in f]
         last = ckpt.latest_manifest_epoch(os.path.join(bdir, "ck"))
@@ -11796,9 +11959,21 @@ def phase_fault_tolerance(card, mesh24):
           "HostLostError in the output: %s"
           % (placed, rc_c, 43, c_s, stale.group(1) if stale else "?",
              FT_WEDGE_TIMEOUT_MS, "HostLostError" in text_c))
-    if (failed["rank"], failed["code"]) != (1, 1) \
+    # rank 1's planned death at its step boundary ends rank 0's step too
+    # (its collective fails, or its monitor reads the dying marker), and
+    # the supervisor names the lowest rank found dead at its 0.1 s poll:
+    # either rank may be the one recorded; the planned fault must be rank
+    # 1's, and no other failure rank 0's
+    planned = "InjectedFault" in gen0[1]
+    others = [r for r in range(MESH_RANKS)
+              if r != 1 and "InjectedFault" in gen0[r]]
+    print("  (b) generation 0: rank 1 died of the planned fault: %s; the "
+          "supervisor recorded rank %d first" % (planned, failed["rank"]))
+    if not planned or others or failed["code"] != 1 \
+            or failed["rank"] not in range(MESH_RANKS) \
             or relaunch["resume_epoch"] != 0 or b[0]["begin"] != 1:
-        fail("(b) the restart did not resume from epoch 0: %s" % recs)
+        fail("(b) the restart did not resume from epoch 0 after rank 1's "
+             "planned fault: %s" % recs)
     if not same:
         fail("(b) the resumed run's final weights differ from (a)'s")
     if last != FT_EPOCHS - 1 or manifest.get("processes") != MESH_RANKS:
@@ -11829,7 +12004,7 @@ def phase_fault_tolerance(card, mesh24):
 # (a) phase 10's LM exported (buckets LM_ART_BUCKETS at T LM_ART_T) and
 # served from the artifact: LM_ART_REQUESTS requests of LM_ART_LENGTHS
 # tokens (seed 2), padded at the end
-LM_ART_BUCKETS = [1, 8]
+LM_ART_BUCKETS = [8]                # (cut from [1, 8]: phase 30's time)
 LM_ART_T = 1024
 LM_ART_REQUESTS = 32
 LM_ART_LENGTHS = (100, 1024)
@@ -11843,7 +12018,7 @@ ATT_SHAPE = "B8 T%d H%d D%d causal" % (ATT_T, ATT_HEADS, ATT_DIM)
 DEC_ART = (8, 576, 12, 64)
 DEC_ART_TOL = dict(rtol=1e-5, atol=1e-5)
 # (d) phase 26 (a)'s ResNet-50 v1 as a format-3 int8 artifact
-Q8_BUCKETS = [1, 32]
+Q8_BUCKETS = [32]                   # (cut from [1, 32]: phase 30's time)
 Q8_CALIB = (4, 32)                  # batches x images, seed 3
 Q8_CLIENTS = 8
 Q8_PER_CLIENT = 16
@@ -13098,6 +13273,520 @@ def phase_control_flow(card, tfa, ctx=None):
                             "rel")}, b=b, c=c, d=d, e=e)
 
 
+# ---------------------------------------------------------------------------
+# phase 30: vision breadth (the SSD and Faster R-CNN heads, deformable
+# R-FCN, mx.image, the dgl host ops)
+# ---------------------------------------------------------------------------
+
+NMS_SRC = "mxnet_tpu_torch/parallel/csrc/nms_sweep.cu"
+NMS_TPU = ("no TPU kernel; replaces lax.scan at mxnet_tpu/ops/detection.py:171"
+           " and mxnet_tpu/ops/deformable.py:363")
+# MXNet v1.5 example/ssd/symbol/symbol_factory.py get_config('vgg16_reduced',
+# 300): six maps, their anchor sizes, ratios and steps (8732 anchors)
+SSD_MAPS = (38, 19, 10, 5, 3, 1)
+SSD_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+             (.88, .961))
+SSD_RATIOS = ((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+              (1, 2, .5, 3, 1. / 3), (1, 2, .5), (1, 2, .5))
+SSD_STEPS = tuple(x / 300.0 for x in (8, 16, 32, 64, 100, 300))
+SSD_ANCHORS = 8732
+SSD_CLASSES = 21                    # VOC's 20 and the background
+SSD_BATCH = 32
+SSD_CHECK = 2                       # the head's batch held to its plain path
+NMS_CHUNK = 8                       # samples a plain NMS call holds a kernel
+                                    # mask to (its IoU: 2.4 GB at n = 8732)
+SSD_MAX_OBJECTS = 42
+SSD_DETECT = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+# MXNet example/rcnn's test defaults: VGG16, 600 x 1000, stride 16
+RCNN_IMAGE = (600, 1000)
+RCNN_FEAT = (512, 38, 63)
+RCNN_RPN = dict(feature_stride=16, scales=(8.0, 16.0, 32.0),
+                ratios=(0.5, 1.0, 2.0), rpn_pre_nms_top_n=6000,
+                rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16)
+RCNN_POOL = dict(pooled_size=(7, 7), spatial_scale=1.0 / 16)
+# Deformable ConvNets' R-FCN, ResNet-101 res5 and its position-sensitive
+# heads over 21 classes
+RFCN_CONV = dict(kernel=(3, 3), pad=(2, 2), dilate=(2, 2), num_filter=512,
+                 num_deformable_group=4, no_bias=True)
+RFCN_PS = dict(spatial_scale=1.0 / 16, output_dim=21, pooled_size=7,
+               group_size=7)
+RFCN_DPS = dict(RFCN_PS, part_size=7, sample_per_part=4, trans_std=0.1)
+VISION_IMAGES = 256
+VISION_HW = 300
+VISION_TOL = dict(rtol=1e-5, atol=1e-5)
+VISION_REL = 1e-5                   # card against host, normwise
+
+
+def ssd_anchors(mx, ctx):
+    """The 8732 SSD300 anchors from MultiBoxPrior over the six maps."""
+    parts = [mx.nd.contrib.MultiBoxPrior(
+        mx.nd.zeros((1, 1, s, s), ctx=ctx), sizes=sizes, ratios=ratios,
+        steps=(step, step)) for s, sizes, ratios, step
+        in zip(SSD_MAPS, SSD_SIZES, SSD_RATIOS, SSD_STEPS)]
+    return mx.nd.concat(*parts, dim=1)
+
+
+def ssd_labels(rs, batch):
+    """1-42 boxes an image, classes 0-19, padded with -1 rows."""
+    label = np.full((batch, SSD_MAX_OBJECTS, 5), -1, np.float32)
+    for b in range(batch):
+        k = rs.randint(1, SSD_MAX_OBJECTS + 1)
+        lo = rs.uniform(0, 0.8, (k, 2))
+        label[b, :k, 0] = rs.randint(0, SSD_CLASSES - 1, k)
+        label[b, :k, 1:3] = lo
+        label[b, :k, 3:5] = lo + rs.uniform(0.05, 0.2, (k, 2))
+    return label
+
+
+@contextlib.contextmanager
+def nms_calls(det, plain=False):
+    """Records each ``nms_keep`` call's arguments; with ``plain`` every
+    call runs ``nms_keep_plain`` (the plain path on the card)."""
+    calls, orig = [], det.nms_keep
+
+    def spy(boxes, thresh, cls=None, plus_one=False):
+        calls.append((boxes.detach().clone(), thresh,
+                      None if cls is None else cls.detach().clone(),
+                      plus_one))
+        return (det.nms_keep_plain if plain else orig)(boxes, thresh, cls,
+                                                       plus_one)
+    det.nms_keep = spy
+    try:
+        yield calls
+    finally:
+        det.nms_keep = orig
+
+
+def nms_bound(keep, cls):
+    """(bound ms, bound_by, mask MB) of one sweep from this run's data:
+    the IoUs of the pairs i < j the class gate lets through (about 14
+    fp32 operations each) at the fp32 peak, against the bytes of the
+    boxes and ids read once and the keep mask written once; and, apart,
+    the kernel's own traffic in its bit mask (the words of the upper
+    tiles written, each kept row's words from its own on read)."""
+    B, n = keep.shape
+    if cls is None:
+        pairs = B * n * (n - 1) // 2
+    else:
+        counts = torch.stack([torch.bincount(c.long() - int(c.min()))
+                              for c in cls.cpu()])
+        pairs = int((counts * (counts - 1) // 2).sum())
+    flops = 14.0 * pairs
+    nbytes = B * n * (16 + (4 if cls is not None else 0) + 1)
+    nw = (n + 63) // 64
+    tail = nw - torch.arange(n) // 64
+    words = B * int(tail.sum()) + int((tail[None, :] * keep.cpu()).sum())
+    t_flops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_flops, t_bytes) * 1e3,
+            "operations" if t_flops >= t_bytes else "bytes", 8 * words / 1e6)
+
+
+def nms_hold(det, what, calls):
+    """Each recorded call's kernel keep mask against ``nms_keep_plain``'s
+    on the same card inputs, bit for bit, over every sample of the call
+    (the plain version NMS_CHUNK samples at a time); returns the plain
+    version's ms for each call, its chunks' CUDA-event times summed."""
+    plain_ms = []
+    for boxes, thresh, cls, plus_one in calls:
+        got = det.nms_keep(boxes, thresh, cls, plus_one)
+        ms = 0.0
+        for lo in range(0, boxes.shape[0], NMS_CHUNK):
+            sl = slice(lo, lo + NMS_CHUNK)
+            c = None if cls is None else cls[sl]
+            out = []
+            ms += events_ms(lambda: out.append(det.nms_keep_plain(
+                boxes[sl], thresh, c, plus_one)))
+            if not torch.equal(got[sl], out[0]):
+                fail("%s: the nms_sweep keep mask differs from "
+                     "nms_keep_plain in samples %d-%d of %s (%d of %d "
+                     "entries)" % (what, lo, lo + out[0].shape[0] - 1,
+                                   tuple(boxes.shape),
+                                   int((got[sl] != out[0]).sum()),
+                                   out[0].numel()))
+        plain_ms.append(ms)
+    return plain_ms
+
+
+def nms_record(det, what, boxes, thresh, cls, plus_one, plain_ms, launches,
+               card):
+    """For one path's kernel row, at the shape the path gave the kernel:
+    its device ms (both launches, by CUDA-graph replay) and the two
+    launches' apart (the profiler, by kernel name), the plain version's
+    ms (``plain_ms``, from :func:`nms_hold`), the bound and the
+    launches."""
+    def call():
+        det.nms_keep(boxes, thresh, cls, plus_one)
+    ms = device_ms(call, iters=3, reps=3)
+    by_pass = profile_steps(call, 3, (("mask", ("mask_kernel",)),
+                                      ("sweep", ("sweep_kernel",))))[2]
+    # (the profiler has attributed no device time to either pass late in
+    # the whole script, though it does in phase 30 alone: not measured)
+    split = ("the mask pass %.4f + the sweep %.4f, profiler"
+             % (by_pass["mask"], by_pass["sweep"])
+             if "mask" in by_pass and "sweep" in by_pass
+             else "the split not measured: the profiler saw %s"
+             % (sorted(by_pass) or "neither pass"))
+    keep = det.nms_keep(boxes, thresh, cls, plus_one)
+    bound, by, mask_mb = nms_bound(keep, cls)
+    print("  %s nms_sweep at %s (%s IoU%s): kernel %.4f ms (device, both "
+          "launches; %s) | plain %.4f ms (its calls of %d samples, summed) "
+          "| bound %.4f ms (%s; the kernel's bit-mask traffic %.1f MB) | %d "
+          "kept | launches on the path %d (%s)"
+          % (what, tuple(boxes.shape[:2]), "+1" if plus_one else "corner",
+             ", class-gated" if cls is not None else "", ms, split, plain_ms,
+             NMS_CHUNK, bound, by, mask_mb, int(keep.sum()), launches, card))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, err=0.0, launches=launches)
+
+
+def vision_ssd(mx, det, card, ctx):
+    """(a): the SSD300 head at batch 32 on the card."""
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(0)
+    anchors = ssd_anchors(mx, ctx)
+    if anchors.shape != (1, SSD_ANCHORS, 4):
+        fail("(a): MultiBoxPrior gave %s anchors, want %d"
+             % (anchors.shape, SSD_ANCHORS))
+    logits = rs.standard_normal((SSD_BATCH, SSD_CLASSES, SSD_ANCHORS)) \
+        .astype(np.float32)
+    cls_prob = mx.nd.softmax(mx.nd.array(logits, ctx=ctx), axis=1)
+    loc = mx.nd.array((rs.standard_normal((SSD_BATCH, 4 * SSD_ANCHORS))
+                       * 0.2).astype(np.float32), ctx=ctx)
+    label = mx.nd.array(ssd_labels(rs, SSD_BATCH), ctx=ctx)
+
+    def head(cp, lp, lab):
+        tgt = mx.nd.contrib.MultiBoxTarget(anchors, lab, cp)
+        dets = mx.nd.contrib.MultiBoxDetection(cp, lp, anchors, **SSD_DETECT)
+        kept = mx.nd.contrib.box_nms(dets, overlap_thresh=0.45,
+                                     valid_thresh=0.01, id_index=0)
+        return list(tgt) + [dets, kept]
+    torch.cuda.synchronize()
+    det.reset_launches()
+    with nms_calls(det) as calls:
+        outs = head(cls_prob, loc, label)
+        torch.cuda.synchronize()
+    launched = det.launches["nms_sweep"]
+    if launched != 2 or len(calls) != 2:
+        fail("(a): the head launched nms_sweep %d times (%d calls), want 2"
+             % (launched, len(calls)))
+    for o in outs:
+        if not bool(torch.isfinite(o._data).all()):
+            fail("(a): a head output is not finite")
+    dets = outs[3]._data
+    n_kept = int((dets[..., 0] >= 0).sum())
+    n_final = int((outs[4]._data[..., 1] >= 0).sum())
+    if not (outs[0].shape == (SSD_BATCH, 4 * SSD_ANCHORS)
+            and dets.shape == (SSD_BATCH, SSD_ANCHORS, 6) and n_kept > 0):
+        fail("(a): head shapes %s, %d detections"
+             % ([o.shape for o in outs], n_kept))
+    plain_ms = nms_hold(det, "(a)", calls)
+    # the head at batch 2 through the plain path on the card
+    sl = [x[:SSD_CHECK] for x in (cls_prob, loc, label)]
+    got = head(*sl)
+    with nms_calls(det, plain=True):
+        want = head(*sl)
+    err = 0.0
+    for g, w in zip(got, want):
+        e, ok = close(g._data, w._data, VISION_TOL)
+        err = max(err, e)
+        if not ok:
+            fail("(a): the head at B%d differs from its plain path by %.3g"
+                 % (SSD_CHECK, e))
+    boxes, thresh, cls, _ = calls[0]
+    rec = nms_record(det, "(a) ssd", boxes, thresh, cls, False, plain_ms[0],
+                     launched, card)
+    # B32: the whole head by CUDA-graph replay
+    tensors = [cls_prob._data, loc._data, label._data]
+    invoke = [(mx.ops.get_op(n), a) for n, a in (
+        ("_contrib_MultiBoxTarget", {}),
+        ("_contrib_MultiBoxDetection", SSD_DETECT),
+        ("_contrib_box_nms", dict(overlap_thresh=0.45, valid_thresh=0.01,
+                                  id_index=0)))]
+
+    def head_t():
+        cp, lp, lab = tensors
+        a = anchors._data
+        mx.ops.invoke(invoke[0][0], [a, lab, cp], invoke[0][1])
+        d = mx.ops.invoke(invoke[1][0], [cp, lp, a], invoke[1][1])[0][0]
+        mx.ops.invoke(invoke[2][0], [d], invoke[2][1])
+    head_ms = device_ms(head_t, iters=2, reps=3)
+    print("  (a) SSD300 head (vgg16_reduced 300: maps %s, %d anchors, %d "
+          "classes), batch %d, 1-%d boxes an image: MultiBoxTarget, "
+          "MultiBoxDetection (nms_threshold 0.45, threshold 0.01, nms_topk "
+          "400: not read, as in the JAX package), box_nms; %d detections "
+          "kept, %d after box_nms; nms_sweep launched %d times; %d keep "
+          "masks bit-equal to nms_keep_plain over all %d samples; the head "
+          "at B%d equal to its plain path within rtol = atol = 1e-5 (max abs "
+          "err %.3g)"
+          % (SSD_MAPS, SSD_ANCHORS, SSD_CLASSES, SSD_BATCH, SSD_MAX_OBJECTS,
+             n_kept, n_final, launched, len(plain_ms), SSD_BATCH, SSD_CHECK,
+             err))
+    print("  (a) B%d by CUDA-graph replay: the head %.3f ms a batch, "
+          "nms_sweep %.3f ms a call of it; %.1f s (%s)"
+          % (SSD_BATCH, head_ms, rec["ms"], time.perf_counter() - t0, card))
+    rec["head_ms"] = head_ms
+    return rec, anchors, cls_prob
+
+
+def card_vs_host(what, fn, arrays, grad=True):
+    """Normwise relative errors (forward, gradient) of ``fn(*nd
+    arrays)`` on gpu(0) against cpu() from the same numpy arrays, the
+    gradient of the float inputs under a sum of the outputs."""
+    import mxnet_tpu_torch as mx
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        xs = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
+        diff = [x for x in xs if grad and x.dtype == np.float32]
+        for x in diff:
+            x.attach_grad()
+        with mx.autograd.record():
+            out = fn(*xs)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            loss = sum((o * o).sum() for o in outs)
+        if diff:
+            loss.backward()
+        res.append(([o._data.detach().cpu() for o in outs],
+                    [x.grad._data.cpu() for x in diff]))
+    (g_o, g_g), (c_o, c_g) = res
+    fwd = max(_rel_err(g, c) for g, c in zip(g_o, c_o))
+    bwd = max([_rel_err(g, c) for g, c in zip(g_g, c_g)] or [0.0])
+    if not (fwd <= VISION_REL and bwd <= VISION_REL):
+        fail("%s: card and host differ: forward %.3g, gradient %.3g"
+             % (what, fwd, bwd))
+    return fwd, bwd, g_o
+
+
+def vision_rcnn(mx, det, card, ctx):
+    """(b): Faster R-CNN's proposals, ROIPooling and ROIAlign."""
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(1)
+    C, Hf, Wf = RCNN_FEAT
+    A = len(RCNN_RPN["scales"]) * len(RCNN_RPN["ratios"])
+    cls = rs.uniform(0, 1, (2, 2 * A, Hf, Wf)).astype(np.float32)
+    box = (rs.standard_normal((2, 4 * A, Hf, Wf)) * 0.1).astype(np.float32)
+    info = np.array([RCNN_IMAGE + (1.0,)] * 2, np.float32)
+    nd_in = [mx.nd.array(a, ctx=ctx) for a in (cls, box, info)]
+
+    def rpn(c, b, i):
+        return [mx.nd.contrib.Proposal(c[:1], b[:1], i[:1], **RCNN_RPN),
+                mx.nd.contrib.MultiProposal(c, b, i, output_score=True,
+                                            **RCNN_RPN)]
+    torch.cuda.synchronize()
+    det.reset_launches()
+    with nms_calls(det) as calls:
+        props = rpn(*nd_in)
+        torch.cuda.synchronize()
+    launched = det.launches["nms_sweep"]
+    if launched != 2:
+        fail("(b): the proposals launched nms_sweep %d times, want 2"
+             % launched)
+    with nms_calls(det, plain=True):
+        plain = rpn(*nd_in)
+    same = torch.equal(props[0]._data, plain[0]._data) and all(
+        torch.equal(g._data, w._data) for g, w in zip(props[1], plain[1]))
+    if not same:
+        fail("(b): the proposals differ from their plain path")
+    plain_ms = nms_hold(det, "(b)", calls)
+    rois = props[0]
+    if rois.shape != (RCNN_RPN["rpn_post_nms_top_n"], 5):
+        fail("(b): Proposal gave %s" % (rois.shape,))
+    boxes, thresh, _, _ = calls[0]
+    rec = nms_record(det, "(b) rpn", boxes, thresh, None, True, plain_ms[0],
+                     launched, card)
+    # ROIPooling / ROIAlign over the 300 proposals, forward and backward
+    feat = rs.standard_normal((1, C, Hf, Wf)).astype(np.float32)
+    r_np = rois.asnumpy()
+    six = rois.shape[0] * 7 * 7 * C * Hf * Wf * 4
+    peaks = {}
+    for name, attrs in (("ROIPooling", RCNN_POOL),
+                        ("ROIAlign", dict(RCNN_POOL, sample_ratio=2))):
+        x = mx.nd.array(feat, ctx=ctx)
+        x.attach_grad()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with mx.autograd.record():
+            out = getattr(mx.nd, name)(x, rois, **attrs)
+        out.backward()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        if not (bool(torch.isfinite(x.grad._data).all())
+                and out.shape == (rois.shape[0], C, 7, 7)):
+            fail("(b) %s: shape %s or a gradient not finite"
+                 % (name, out.shape))
+        ms = stream_ms(lambda: getattr(mx.nd, name)(x, rois, **attrs), 3)
+        fwd, bwd, _ = card_vs_host(
+            "(b) " + name, lambda d, r: getattr(mx.nd, name)(d, r, **attrs),
+            [feat, r_np[:32]])
+        print("  (b) %s 7x7 of (1, %d, %d, %d) over %d RoIs: forward %.3f ms;"
+              " peak memory forward and backward %.1f MB (an (R, PH, PW, C, "
+              "H, W) tensor would be %.1f GB); card vs host on 32 RoIs: "
+              "forward %.3g, gradient %.3g" % (
+                  name, C, Hf, Wf, rois.shape[0], ms, peaks[name] / 2**20,
+                  six / 2**30, fwd, bwd))
+        if peaks[name] >= six / 8:
+            fail("(b) %s: peak %d bytes, near the (R, PH, PW, C, H, W) "
+                 "tensor's %d" % (name, peaks[name], six))
+    print("  (b) Faster R-CNN (VGG16, example/rcnn's test defaults: %dx%d, "
+          "stride 16, scales %s, ratios %s, pre %d, post %d, threshold "
+          "%g, min size %d): Proposal at B1 and MultiProposal at B2 equal "
+          "their plain path bit for bit, %d keep masks bit-equal; %.1f s"
+          % (RCNN_IMAGE + (RCNN_RPN["scales"], RCNN_RPN["ratios"],
+                           RCNN_RPN["rpn_pre_nms_top_n"],
+                           RCNN_RPN["rpn_post_nms_top_n"],
+                           RCNN_RPN["threshold"], RCNN_RPN["rpn_min_size"],
+                           len(plain_ms), time.perf_counter() - t0)))
+    rec["peaks"] = peaks
+    return rec, r_np
+
+
+def vision_rfcn(mx, card, rois):
+    """(c): the deformable R-FCN head, forward and backward, card against
+    host."""
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(2)
+    C, Hf, Wf = RCNN_FEAT
+    data = rs.standard_normal((1, C, Hf, Wf)).astype(np.float32)
+    offset = (rs.standard_normal((1, 72, Hf, Wf)) * 0.5).astype(np.float32)
+    weight = (rs.standard_normal((C, C, 3, 3)) / 48).astype(np.float32)
+    ps = rs.standard_normal((1, 21 * 49, Hf, Wf)).astype(np.float32)
+    trans = (rs.standard_normal((rois.shape[0], 2, 7, 7)) * 0.5).astype(
+        np.float32)
+    rows = []
+    for what, fn, arrays in (
+            ("DeformableConvolution 3x3 512->512 pad 2 dilate 2, 4 groups",
+             lambda d, o, w: mx.nd.contrib.DeformableConvolution(
+                 d, o, w, **RFCN_CONV), [data, offset, weight]),
+            ("PSROIPooling 21 x 7x7 over %d RoIs" % rois.shape[0],
+             lambda d, r: mx.nd.contrib.PSROIPooling(d, r, **RFCN_PS),
+             [ps, rois]),
+            ("DeformablePSROIPooling, 4 samples a part, trans_std 0.1",
+             lambda d, r, t: mx.nd.contrib.DeformablePSROIPooling(
+                 d, r, t, **RFCN_DPS), [ps, rois, trans])):
+        fwd, bwd, outs = card_vs_host("(c) " + what, fn, arrays)
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail("(c) %s: not finite" % what)
+        xs = [mx.nd.array(a, ctx=mx.gpu(0)) for a in arrays]
+        ms = stream_ms(lambda: fn(*xs), 3)
+        rows.append((what, tuple(outs[0].shape), ms, fwd, bwd))
+    for what, shape, ms, fwd, bwd in rows:
+        print("  (c) %s -> %s: forward %.3f ms; card vs host forward %.3g, "
+              "gradient %.3g (%s)" % (what, shape, ms, fwd, bwd, card))
+    print("  (c) deformable R-FCN head: %.1f s" % (time.perf_counter() - t0))
+
+
+def vision_image(mx, card, anchors, cls_prob, tmp):
+    """(d): ImageDetIter over a .rec of 256 synthetic 300x300 JPEGs with
+    CreateDetAugmenter's crops, pads and mirrors, its batches into (a)'s
+    MultiBoxTarget."""
+    import cv2
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(0)
+    prefix = os.path.join(tmp, "vision")
+    rec = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                        "w")
+    yy, xx = np.mgrid[0:VISION_HW, 0:VISION_HW]
+    for i in range(VISION_IMAGES):
+        img = np.stack([(xx + i) % 256, (yy * 2 + i) % 256,
+                        rs.randint(0, 256, (VISION_HW, VISION_HW)) // 64
+                        * 64], -1).astype(np.uint8)
+        k = rs.randint(1, 7)
+        objs = np.zeros((k, 5), np.float32)
+        lo = rs.uniform(0, 0.7, (k, 2))
+        objs[:, 0] = rs.randint(0, SSD_CLASSES - 1, k)
+        objs[:, 1:3], objs[:, 3:5] = lo, lo + rs.uniform(0.1, 0.3, (k, 2))
+        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        rec.write_idx(i, mx.recordio.pack(mx.recordio.IRHeader(
+            0, np.concatenate([[2, 5], objs.reshape(-1)]), i, 0),
+            buf.tobytes()))
+    rec.close()
+    write_s = time.perf_counter() - t0
+    random.seed(0)
+    it = mx.image.ImageDetIter(
+        batch_size=SSD_BATCH, data_shape=(3, VISION_HW, VISION_HW),
+        path_imgrec=prefix + ".rec", shuffle=True, rand_crop=0.5,
+        rand_pad=0.5, rand_mirror=True, mean=True, std=True)
+    t1 = time.perf_counter()
+    batches = list(it)
+    read_s = time.perf_counter() - t1
+    if len(batches) != VISION_IMAGES // SSD_BATCH:
+        fail("(d): %d batches" % len(batches))
+    b = batches[-1]
+    tgt = mx.nd.contrib.MultiBoxTarget(anchors, b.label[0], cls_prob)
+    ok = (b.data[0].shape == (SSD_BATCH, 3, VISION_HW, VISION_HW)
+          and b.data[0].context == mx.gpu(0)
+          and bool(torch.isfinite(b.data[0]._data).all())
+          and all(bool(torch.isfinite(t._data).all()) for t in tgt)
+          and float(tgt[1].sum().asscalar()) > 0)
+    if not ok:
+        fail("(d): a batch or its MultiBoxTarget is wrong")
+    print("  (d) mx.image: ImageDetIter (CreateDetAugmenter rand_crop 0.5, "
+          "rand_pad 0.5, rand_mirror, mean/std) over a .rec of %d synthetic "
+          "%dx%d JPEGs (written in %.1f s): %d batches of %s, label shape "
+          "%s (-1 padded), %.1f images/s; the last batch's labels through "
+          "(a)'s MultiBoxTarget: %d anchors matched (%s)"
+          % (VISION_IMAGES, VISION_HW, VISION_HW, write_s, len(batches),
+             b.data[0].shape, b.label[0].shape, VISION_IMAGES / read_s,
+             int(tgt[1].sum().asscalar()) // 4, card))
+    return VISION_IMAGES / read_s
+
+
+def vision_host_ops(mx, card):
+    """(e): a hybridized block holding dgl ops on gpu(0): each predict
+    call op by op, counted as eager_host, no capture, results on the
+    card."""
+    class Sample(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, indptr, indices, eids, seeds):
+            adj = F.contrib.dgl_adjacency(indptr, indices, eids)
+            sub = F.contrib.dgl_csr_neighbor_uniform_sample(
+                indptr, indices, eids, seeds, num_args=4, num_hops=2,
+                num_neighbor=2, max_num_vertices=16)
+            return adj[2] * 2.0, sub[0]
+    n = 64
+    rows = [sorted({(v + d) % n for d in (1, 3, 7)}) for v in range(n)]
+    indptr = np.cumsum([0] + [len(r) for r in rows]).astype(np.int64)
+    indices = np.array([u for r in rows for u in r], np.int64)
+    args = [mx.nd.array(a, ctx=mx.gpu(0), dtype=np.int64) for a in (
+        indptr, indices, np.arange(indices.shape[0]), np.array([0, 5]))]
+    blk = Sample()
+    blk.hybridize()
+    for _ in range(3):
+        w, verts = blk(*args)
+    st = blk._cached_op.stats()
+    on_card = w.context == mx.gpu(0) and verts.context == mx.gpu(0)
+    print("  (e) dgl host ops in a hybridized block on gpu(0): 3 calls, "
+          "stats %s, results on %s, %d vertices sampled (%s)"
+          % (st, w.context, int(verts.asnumpy()[-1]), card))
+    if not (st["eager_host"] == 3 and st["captures"] == 0 and on_card):
+        fail("(e): the dgl ops were not run op by op on the host: %s" % st)
+
+
+def phase_vision(card, tfa):
+    """Phase 30 (see the module docstring)."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import detection as det
+    t_phase = time.perf_counter()
+    ctx = mx.gpu(0)
+    tfa.reset_launches()
+    rtc.reset_launches()
+    ssd, anchors, cls_prob = vision_ssd(mx, det, card, ctx)
+    rpn, rois = vision_rcnn(mx, det, card, ctx)
+    vision_rfcn(mx, card, rois)
+    with tempfile.TemporaryDirectory() as tmp:
+        vision_image(mx, card, anchors, cls_prob, tmp)
+    vision_host_ops(mx, card)
+    launched = dict(tfa.launches, rtc=rtc.launches["rtc"])
+    print("  attention, decode and rtc launches over the phase: %s; phase 30 "
+          "%.1f s" % (launched, time.perf_counter() - t_phase))
+    if any(launched.values()):
+        fail("vision: kernels launched on a path that has none: %s"
+             % launched)
+    return dict(ssd=ssd, rpn=rpn)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -13188,6 +13877,9 @@ def main():
     print("control flow (foreach, while_loop and cond inside graphs, Custom "
           "ops, get_symbol and autograd.Function, Monitor and viz):")
     phase_control_flow(card, tfa)
+    print("vision (the SSD300 and Faster R-CNN heads through nms_sweep, "
+          "deformable R-FCN, mx.image, the dgl host ops):")
+    vision = phase_vision(card, tfa)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -13252,7 +13944,15 @@ def main():
                    rest["att_fwd"]["err"]),
         kernel_row("flash_decode", DEC_SRC, DEC_TPU, "decode artifact",
                    "B8 T576 H12 D64", rest["dec_launches"], dec, dec["err"]),
-    ]
+    ] + [
+        kernel_row("nms_sweep", NMS_SRC, NMS_TPU, path, shape,
+                   {"nms_sweep": vision[key]["launches"]}, vision[key],
+                   vision[key]["err"])
+        for path, shape, key in (
+            ("ssd detection", "B%d n%d corner IoU, class-gated"
+             % (SSD_BATCH, SSD_ANCHORS), "ssd"),
+            ("rpn proposal", "B1 n%d +1 IoU"
+             % RCNN_RPN["rpn_pre_nms_top_n"], "rpn"))]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))

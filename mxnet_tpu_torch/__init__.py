@@ -140,6 +140,7 @@ from . import executor
 from .executor import Executor
 from . import io
 from . import recordio
+from . import image
 from . import metric
 from . import lr_scheduler
 from . import callback

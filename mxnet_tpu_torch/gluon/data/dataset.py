@@ -1,7 +1,9 @@
 """Gluon datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``;
 parity: python/mxnet/gluon/data/dataset.py): ``Dataset`` with its lazy
 ``transform``/``filter``/``take``, ``SimpleDataset``, ``ArrayDataset``
-and ``RecordFileDataset`` over a ``.rec``/``.idx`` pair."""
+and ``RecordFileDataset`` over a ``.rec``/``.idx`` pair, and
+``_DownloadedDataset``, the base of the vision datasets that read a
+dataset's files under a root."""
 from __future__ import annotations
 
 import os
@@ -10,7 +12,8 @@ import threading
 from ... import ndarray as nd
 from ... import recordio
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset",
+           "_DownloadedDataset"]
 
 
 class Dataset:
@@ -110,3 +113,28 @@ class RecordFileDataset(Dataset):
 
     def __len__(self):
         return len(self._record.keys)
+
+
+class _DownloadedDataset(Dataset):
+    """A dataset whose ``_get_data`` fills ``_data`` and ``_label`` from
+    files under ``root`` (made if missing; nothing is downloaded)."""
+
+    def __init__(self, root, transform):
+        super().__init__()
+        self._transform = transform
+        self._data = None
+        self._label = None
+        self._root = os.path.expanduser(root)
+        os.makedirs(self._root, exist_ok=True)
+        self._get_data()
+
+    def __getitem__(self, idx):
+        if self._transform is not None:
+            return self._transform(self._data[idx], self._label[idx])
+        return self._data[idx], self._label[idx]
+
+    def __len__(self):
+        return len(self._label)
+
+    def _get_data(self):
+        raise NotImplementedError

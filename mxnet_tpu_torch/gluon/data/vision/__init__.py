@@ -1,5 +1,5 @@
 """Vision data namespace (counterpart of ``mxnet_tpu/gluon/data/vision``):
-the transforms. The datasets (MNIST, CIFAR, ImageFolderDataset,
-ImageRecordDataset) decode through ``image.imread``/``imdecode`` and wait
-for ``image/`` (ROADMAP queue A item 13)."""
+the datasets (read from local files only) and the transforms."""
+from .datasets import (MNIST, FashionMNIST, CIFAR10, CIFAR100,
+                       ImageFolderDataset, ImageRecordDataset)
 from . import transforms

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .... import ndarray as nd
+from ....ops.extra import resize_hwc
 from ...block import Block, HybridBlock
 from ...nn.basic_layers import Sequential, HybridSequential
 
@@ -116,14 +117,13 @@ class Resize(Block):
                 new_w = new_h = self._size
         else:
             new_w, new_h = self._size
-        img = x._data.to(torch.float32).permute(2, 0, 1)[None]
         if self._interpolation == 1:
-            out = F.interpolate(img, size=(new_h, new_w), mode="bilinear",
-                                align_corners=False, antialias=True)
+            out = resize_hwc(x._data, new_h, new_w)
         else:
+            img = x._data.to(torch.float32).permute(2, 0, 1)[None]
             out = F.interpolate(img, size=(new_h, new_w),
-                                mode="nearest-exact")
-        return nd.NDArray(out[0].permute(1, 2, 0).to(x._data.dtype))
+                                mode="nearest-exact")[0].permute(1, 2, 0)
+        return nd.NDArray(out.to(x._data.dtype))
 
 
 class CenterCrop(Block):

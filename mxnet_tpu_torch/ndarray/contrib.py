@@ -7,14 +7,18 @@ each step's ops recorded as any others, so gradients flow.
 
 ``while_loop`` zero-fills the rows of its stacked outputs beyond the
 steps it ran (the JAX package's choice; the reference leaves them
-undefined). The DGL graph-sampling helpers come with ROADMAP queue A's
-order step 8.
+undefined). The DGL graph-sampling functions (``dgl_*``) take and give
+``CSRNDArray`` graphs over the lowered ``_contrib_dgl_*`` host ops, in
+the reference's output grouping.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
 
-__all__ = ["foreach", "while_loop", "cond", "install_contrib_ops"]
+__all__ = ["foreach", "while_loop", "cond", "install_contrib_ops",
+           "dgl_csr_neighbor_uniform_sample",
+           "dgl_csr_neighbor_non_uniform_sample", "dgl_subgraph",
+           "dgl_adjacency", "dgl_graph_compact"]
 
 
 def install_contrib_ops(namespace, make_stub):
@@ -113,6 +117,114 @@ def cond(pred, then_func, else_func):
     """``then_func()`` if the scalar NDArray ``pred`` is nonzero, else
     ``else_func()`` (the branches close over outer NDArrays)."""
     return then_func() if bool(pred.asnumpy().reshape(())) else else_func()
+
+
+# -- DGL graph sampling (the CSR API over the lowered ops) -----------------
+
+def _csr_pieces(csr):
+    return [csr.indptr, csr.indices, csr.data]
+
+
+def _mk_csr(indptr, cols, eids, shape, ctx):
+    from .sparse import CSRNDArray
+    return CSRNDArray(eids, cols, indptr, shape, ctx=ctx)
+
+
+def _invoke(name, arrays, attrs):
+    from .. import ops as _ops
+    from .ndarray import invoke_nd
+    outs = invoke_nd(_ops.get_op(name), list(arrays), attrs)
+    return outs if isinstance(outs, (list, tuple)) else [outs]
+
+
+def _dgl_sample(csr, seeds, uniform, probability=None, num_hops=1,
+                num_neighbor=2, max_num_vertices=100):
+    """The two neighbour samplers: every seed array's vertices, then (non
+    uniform) their probabilities, then the sub-CSRs, then the layers
+    (dgl_graph.cc:758/852)."""
+    seeds = list(seeds) if isinstance(seeds, (list, tuple)) else [seeds]
+    n = len(seeds)
+    raw = _csr_pieces(csr) + seeds
+    if not uniform:
+        raw = [probability] + raw
+    outs = _invoke("_contrib_dgl_csr_neighbor_%s_sample"
+                   % ("uniform" if uniform else "non_uniform"), raw,
+                   {"num_args": len(raw), "num_hops": num_hops,
+                    "num_neighbor": num_neighbor,
+                    "max_num_vertices": max_num_vertices})
+    per = 5 if uniform else 6
+    verts, probs, csrs, layers = [], [], [], []
+    for i in range(n):
+        it = iter(outs[per * i:per * (i + 1)])
+        verts.append(next(it))
+        if not uniform:
+            probs.append(next(it))
+        layer = next(it)
+        indptr, cols, eids = next(it), next(it), next(it)
+        csrs.append(_mk_csr(indptr, cols, eids,
+                            (int(max_num_vertices), csr.shape[1]),
+                            csr.context))
+        layers.append(layer)
+    out = verts + probs + csrs + layers
+    return out if len(out) > 1 else out[0]
+
+
+def dgl_csr_neighbor_uniform_sample(csr, seeds, num_hops=1, num_neighbor=2,
+                                    max_num_vertices=100):
+    return _dgl_sample(csr, seeds, True, num_hops=num_hops,
+                       num_neighbor=num_neighbor,
+                       max_num_vertices=max_num_vertices)
+
+
+def dgl_csr_neighbor_non_uniform_sample(csr, probability, seeds,
+                                        num_hops=1, num_neighbor=2,
+                                        max_num_vertices=100):
+    return _dgl_sample(csr, seeds, False, probability=probability,
+                       num_hops=num_hops, num_neighbor=num_neighbor,
+                       max_num_vertices=max_num_vertices)
+
+
+def _csr_groups(outs, sizes, ctx, mapping):
+    """The op's flat triples as CSRNDArrays: one a graph, then (with
+    ``mapping``) one more a graph."""
+    k = len(sizes)
+    res = [_mk_csr(outs[3 * g], outs[3 * g + 1], outs[3 * g + 2],
+                   (sizes[g], sizes[g]), ctx) for g in range(k)]
+    if mapping:
+        res += [_mk_csr(outs[3 * (k + g)], outs[3 * (k + g) + 1],
+                        outs[3 * (k + g) + 2], (sizes[g], sizes[g]), ctx)
+                for g in range(k)]
+    return res if len(res) > 1 else res[0]
+
+
+def dgl_subgraph(csr, *vids, return_mapping=False):
+    outs = _invoke("_contrib_dgl_subgraph", _csr_pieces(csr) + list(vids),
+                   {"num_args": 3 + len(vids),
+                    "return_mapping": return_mapping})
+    return _csr_groups(outs, [int(v.shape[0]) for v in vids], csr.context,
+                       return_mapping)
+
+
+def dgl_adjacency(csr):
+    outs = _invoke("_contrib_dgl_adjacency", _csr_pieces(csr), {})
+    return _mk_csr(outs[0], outs[1], outs[2], csr.shape, csr.context)
+
+
+def dgl_graph_compact(*args, return_mapping=False, graph_sizes=()):
+    """``dgl_graph_compact(csr1, ..., csrN, vids1, ..., vidsN)``: each
+    sampled sub-CSR renumbered through its vertex-id array."""
+    if len(args) % 2:
+        raise ValueError("dgl_graph_compact takes N csr graphs followed "
+                         "by N vertex-id arrays")
+    n_g = len(args) // 2
+    csrs, vids = args[:n_g], args[n_g:]
+    raw = [p for c in csrs for p in _csr_pieces(c)] + list(vids)
+    outs = _invoke("_contrib_dgl_graph_compact", raw,
+                   {"num_args": len(raw), "return_mapping": return_mapping,
+                    "graph_sizes": tuple(graph_sizes)})
+    sizes = [int(graph_sizes[g]) if g < len(graph_sizes) else c.shape[0]
+             for g, c in enumerate(csrs)]
+    return _csr_groups(outs, sizes, csrs[0].context, return_mapping)
 
 
 def _install():

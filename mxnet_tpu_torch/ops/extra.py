@@ -1,6 +1,9 @@
-"""Breadth operators (counterpart of ``mxnet_tpu/ops/extra.py``, without
-its image and spatial-sampling ops, which come with a later step of
-ROADMAP queue A): ``_contrib_SyncBatchNorm``, the dense bodies of the sparse ops
+"""Breadth operators (counterpart of ``mxnet_tpu/ops/extra.py``): the
+spatial sampling ops (``GridGenerator``, ``BilinearSampler``,
+``SpatialTransformer``, one bilinear core), ``Correlation``, the image
+ops (``_image_to_tensor``/``_image_totensor``, ``_image_normalize``,
+``_image_resize``), ``_contrib_edge_id``, ``_contrib_SyncBatchNorm``,
+the dense bodies of the sparse ops
 (``_square_sum``, ``_contrib_getnnz``, ``_contrib_SparseEmbedding``; the
 sparse arrays themselves live in ``ndarray/sparse.py``), ``Crop``, the
 FFT pair, the 2-D resize and adaptive pooling, ``_histogram``, the index (un)ravelling,
@@ -12,7 +15,8 @@ JAX bodies), ``_contrib_quadratic``, ``_contrib_gradientmultiplier``,
 
 The resizes are ``jax.image.resize``'s: half-pixel centres with an
 antialiasing triangle kernel when shrinking, which is torch's
-``interpolate(mode="bilinear", antialias=True)``.
+``interpolate(mode="bilinear", antialias=True)``; like it, they return
+float32 for an integer image.
 """
 from __future__ import annotations
 
@@ -377,3 +381,198 @@ register("_contrib_SyncBatchNorm", _sync_batch_norm,
                    "use_global_stats": False, "output_mean_var": False,
                    "ndev": 1, "key": "", "__train__": False},
          mutable_inputs=(3, 4))
+
+
+# (the values as float hex strings, dtype, device) -> the tensor
+# filled() made for them
+_FILLED = {}
+
+
+def filled(values, device, dtype=torch.float32):
+    """A 1-D tensor of the Python numbers ``values`` on ``device``, made
+    once per values, dtype and device and kept, so a later call launches
+    nothing. It is made from one fill an entry: a host-to-device copy of
+    a host array (or an entry set by indexing) makes the host wait for a
+    CUDA device. One made while a CUDA graph is being captured is not
+    kept: it holds its values only once the graph replays."""
+    key = (tuple(float(v).hex() for v in values), dtype,
+           torch.device(device))
+    out = _FILLED.get(key)
+    if out is None:
+        out = torch.stack([torch.full((), float(v), dtype=dtype,
+                                      device=device) for v in values])
+        if not (out.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _FILLED[key] = out
+    return out
+
+
+def true_div(x, d):
+    """``x / d`` for a Python number ``d``, correctly rounded on every
+    device: torch's CUDA kernel multiplies by ``1 / d`` for a number
+    divisor, which moves a floor or ceil that lands on an integer."""
+    return x / torch.full_like(x, d)
+
+
+# ---------------------------------------------------------------------------
+# spatial sampling (grid_generator.cc, bilinear_sampler.cc,
+# spatial_transformer.cc): one bilinear core
+# ---------------------------------------------------------------------------
+
+def _sample_bilinear(data, grid_x, grid_y):
+    """``data`` (B, C, H, W) sampled at ``grid_x``/``grid_y`` (B, Ho, Wo),
+    normalized to [-1, 1]; a corner outside the image adds zero."""
+    B, C, H, W = data.shape
+    x = (grid_x + 1.0) * (W - 1) / 2.0
+    y = (grid_y + 1.0) * (H - 1) / 2.0
+    x0, y0 = torch.floor(x), torch.floor(y)
+    flat = data.reshape(B, C, H * W)
+    out = 0.0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            w = (1 - torch.abs(x - xi)) * (1 - torch.abs(y - yi))
+            inside = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+            idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
+            idx = idx.reshape(B, 1, -1).expand(B, C, idx[0].numel())
+            got = torch.gather(flat, 2, idx).reshape(
+                (B, C) + tuple(grid_x.shape[1:]))
+            out = out + got * (w * inside)[:, None]
+    return out
+
+
+def _affine_grid(theta, H, W):
+    """``theta`` (B, 6) → the sampling grid's x and y, each (B, H, W)."""
+    ys = torch.linspace(-1.0, 1.0, H, dtype=theta.dtype,
+                        device=theta.device)
+    xs = torch.linspace(-1.0, 1.0, W, dtype=theta.dtype,
+                        device=theta.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], 0).reshape(3, -1)
+    out = torch.einsum("bij,jk->bik", theta.reshape(-1, 2, 3), base)
+    return out[:, 0].reshape(-1, H, W), out[:, 1].reshape(-1, H, W)
+
+
+def _grid_generator(attrs, data):
+    """affine: ``data`` (B, 6) and ``target_shape``; warp: ``data`` (B, 2,
+    H, W), a flow in pixels added to the identity grid."""
+    if attrs.get("transform_type", "affine") == "affine":
+        H, W = [int(s) for s in attrs["target_shape"]]
+        gx, gy = _affine_grid(data, H, W)
+        return torch.stack([gx, gy], 1)
+    B, _, H, W = data.shape
+    gy, gx = torch.meshgrid(
+        torch.arange(H, dtype=data.dtype, device=data.device),
+        torch.arange(W, dtype=data.dtype, device=data.device),
+        indexing="ij")
+    nx = 2.0 * (gx + data[:, 0]) / max(W - 1, 1) - 1.0
+    ny = 2.0 * (gy + data[:, 1]) / max(H - 1, 1) - 1.0
+    return torch.stack([nx, ny], 1)
+
+
+register("GridGenerator", _grid_generator, arg_names=_D,
+         defaults={"transform_type": "affine", "target_shape": (0, 0)})
+
+register("BilinearSampler", lambda attrs, data, grid: _sample_bilinear(
+    data, grid[:, 0], grid[:, 1]),
+    arg_names=("data", "grid"), defaults={"cudnn_off": None})
+
+
+def _spatial_transformer(attrs, data, loc):
+    H, W = [int(s) for s in attrs["target_shape"]]
+    return _sample_bilinear(data, *_affine_grid(loc, H, W))
+
+
+register("SpatialTransformer", _spatial_transformer,
+         arg_names=("data", "loc"),
+         defaults={"target_shape": (0, 0), "transform_type": "affine",
+                   "sampler_type": "bilinear", "cudnn_off": None})
+
+
+def _correlation(attrs, data1, data2):
+    """correlation.cc: the mean over channels and a k x k window of the
+    patch product (or absolute difference) at each displacement of the
+    neighbourhood (stride2 apart); stride1 subsamples the output."""
+    max_disp = int(attrs.get("max_displacement", 1))
+    stride1 = int(attrs.get("stride1", 1))
+    stride2 = int(attrs.get("stride2", 1))
+    ksize = int(attrs.get("kernel_size", 1))
+    multiply = bool(attrs.get("is_multiply", True))
+    kr = (ksize - 1) // 2
+    pad = max_disp + kr
+    B, C, H, W = data1.shape
+    p1 = F.pad(data1, (kr, kr, kr, kr))
+    p2 = F.pad(data2, (pad, pad, pad, pad))
+    offsets = range(-max_disp, max_disp + 1, stride2)
+    norm = C * ksize * ksize
+    maps = []
+    for dy in offsets:
+        for dx in offsets:
+            acc = 0.0
+            for ky in range(ksize):
+                for kx in range(ksize):
+                    a = p1[:, :, ky:ky + H, kx:kx + W]
+                    oy, ox = pad + dy - kr + ky, pad + dx - kr + kx
+                    b = p2[:, :, oy:oy + H, ox:ox + W]
+                    term = a * b if multiply else torch.abs(a - b)
+                    acc = acc + torch.sum(term, 1)
+            maps.append(acc / norm)
+    return torch.stack(maps, 1)[:, :, ::stride1, ::stride1]
+
+
+register("Correlation", _correlation, arg_names=("data1", "data2"),
+         defaults={"kernel_size": 1, "max_displacement": 1, "stride1": 1,
+                   "stride2": 1, "pad_size": 0, "is_multiply": True})
+
+
+# ---------------------------------------------------------------------------
+# image ops (src/operator/image/)
+# ---------------------------------------------------------------------------
+
+def _image_to_tensor(attrs, data):
+    """HWC (or NHWC) [0, 255] → CHW (NCHW) float32 [0, 1]."""
+    x = data.to(torch.float32) / 255.0
+    return x.permute(2, 0, 1) if x.dim() == 3 else x.permute(0, 3, 1, 2)
+
+
+register("_image_to_tensor", _image_to_tensor, arg_names=_D,
+         aliases=("_image_totensor",))
+
+
+def _image_normalize(attrs, data):
+    """(x - mean) / std over the channel axis of CHW or NCHW."""
+    shape = [1] * data.dim()
+    shape[data.dim() - 3] = -1
+    mean = filled(attrs.get("mean", (0.0,)), data.device).reshape(shape)
+    std = filled(attrs.get("std", (1.0,)), data.device).reshape(shape)
+    return (data - mean) / std
+
+
+register("_image_normalize", _image_normalize, arg_names=_D,
+         defaults={"mean": (0.0,), "std": (1.0,)})
+
+
+def resize_hwc(data, h, w):
+    """``jax.image.resize(data, (..., h, w, C), "bilinear")`` of an HWC
+    or NHWC image: antialiased when shrinking, float32 for an integer
+    image (JAX promotes it and does not cast back)."""
+    x = data if data.is_floating_point() else data.to(torch.float32)
+    batched = x.dim() == 4
+    img = x.permute(0, 3, 1, 2) if batched else x.permute(2, 0, 1)[None]
+    out = _resize(img, h, w)
+    return out.permute(0, 2, 3, 1) if batched else out[0].permute(1, 2, 0)
+
+
+def _image_resize(attrs, data):
+    size = attrs.get("size", 0)
+    if isinstance(size, int):
+        size = (size, size)
+    return resize_hwc(data, int(size[1]), int(size[0]))
+
+
+register("_image_resize", _image_resize, arg_names=_D,
+         defaults={"size": 0, "keep_ratio": False, "interp": 1})
+
+
+# the dense body of the CSR edge-id lookup: data[u, v]
+register("_contrib_edge_id", lambda attrs, data, u, v: data[
+    u.long(), v.long()], arg_names=("data", "u", "v"))

@@ -39,7 +39,7 @@ _OUT = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
            "flash_decode_q8": "flash_decode_q8.cu",
            "flash_bwd_dkdv": "flash_bwd_dkdv.cu",
-           "flash_bwd_dq": "flash_bwd_dq.cu"}
+           "flash_bwd_dq": "flash_bwd_dq.cu", "nms_sweep": "nms_sweep.cu"}
 # headers under csrc/ that every source includes
 HEADERS = ("flash_common.cuh",)
 
@@ -151,6 +151,9 @@ def _declare(lib, name):
     elif name == "flash_bwd_dkdv":
         fn = lib.mxt_flash_bwd_dkdv
         fn.argtypes = [p] * 9 + [i, i, i, i, i, f, i, p]
+    elif name == "nms_sweep":
+        fn = lib.mxt_nms_sweep
+        fn.argtypes = [p] * 4 + [i, i, f, i, p]
     else:
         fn = lib.mxt_flash_bwd_dq
         fn.argtypes = [p] * 8 + [i, i, i, i, i, f, i, p]

@@ -60,6 +60,12 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+// the round-to-nearest intrinsics: one IEEE operation each (x86-64's
+// baseline has no FMA to contract them into)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 // a read through the read-only cache: a plain read here
 template <class T>
 T __ldg(const T* p) { return *p; }

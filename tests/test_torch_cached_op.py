@@ -313,10 +313,13 @@ def test_plan_that_draws_in_predict_runs_op_by_op_counted():
     op = net._cached_op
     assert op._predict_draws
     op.graphs = tco._Graphs("cpu", capture=_standin())
-    outs = [net(tmx.nd.array(x)).asnumpy() for _ in range(2)]
-    assert not np.array_equal(outs[0], outs[1])          # two draws
+    # fresh draws each call: the mask has 6 entries, so two calls alone
+    # agree for ~4% of the generator's states (which the files a worker
+    # ran before this one set); six calls all agreeing is ~1e-7
+    outs = [net(tmx.nd.array(x)).asnumpy() for _ in range(6)]
+    assert len({o.tobytes() for o in outs}) > 1
     assert op.stats() == dict(captures=0, replays=0, recaptures=0,
-                              signatures=0, eager_rng=2, eager_host=0)
+                              signatures=0, eager_rng=6, eager_host=0)
     sym = tmx.sym.Dropout(tmx.sym.FullyConnected(
         tmx.sym.var("data"), num_hidden=4, name="fc"), p=0.5, mode="always")
     ex = sym.simple_bind(tmx.cpu(), data=(3, 5), grad_req="null")

@@ -27,7 +27,15 @@ length 0 must get o = 0; garbage and NaN past each length (K and V, and
 the int8 kernel's scales) must leave the output bit-identical, two calls
 must be bit-identical, and the int8 kernel must equal the fp32 kernel on
 the dequantized cache bit for bit. The host's choice of splits is
-checked at small and large B * H."""
+checked at small and large B * H.
+
+``nms_sweep.cu`` (the greedy NMS keep mask: a bit-mask pass, then one
+block a sample sweeping it): at n = 1, 63, 64, 65 and 300, in both IoU
+conventions, with and without a class gate, over boxes with exact
+duplicates and pairs at the threshold, its keep mask equal bit for bit
+to the port's ``nms_keep_plain`` and to the JAX package's ``_nms_mask``
+(corner IoU, scores with ties through the stable sort) and
+``_greedy_nms_keep`` (+1 IoU); two calls bit-identical."""
 import ctypes
 import importlib
 import os
@@ -355,3 +363,128 @@ def test_decode_host_splits(decode_libs, shape, want):
     both kernels."""
     for fn in decode_libs.values():
         assert fn.splits(*shape) == want
+
+
+# --- the NMS sweep -----------------------------------------------------------
+
+jdet = importlib.import_module("mxnet_tpu.ops.detection")
+jdef = importlib.import_module("mxnet_tpu.ops.deformable")
+tdet = importlib.import_module("mxnet_tpu_torch.ops.detection")
+
+
+@pytest.fixture(scope="module")
+def nms_lib(tmp_path_factory):
+    """``nms_sweep.cu`` built by g++ under emu.h, declared as the port
+    declares the card's."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to build the kernel emulation")
+    out = str(tmp_path_factory.mktemp("nms_sweep_emu"))
+    with open(os.path.join(_build._CSRC, _build.SOURCES["nms_sweep"])) as f:
+        src = f.read()
+    src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
+    src = src.replace("extern __shared__ float4 smem4[];",
+                      "float4* smem4 = emu_smem;")
+    src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(",
+                 lambda m: "emu_launch(%s, %s, " % (
+                     m.group(1), ",".join(m.group(2).split(",")[:3])),
+                 src, flags=re.S)
+    cpp = os.path.join(out, "nms_sweep.cpp")
+    with open(cpp, "w") as f:
+        f.write(src)
+    lib = os.path.join(out, "libnms_sweep_emu.so")
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-shared",
+         "-fPIC", "-pthread", "-w", "-I", EMU, "-o", lib, cpp],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return _build._declare(ctypes.CDLL(lib), "nms_sweep")
+
+
+def _sweep(fn, boxes, thresh, cls=None, plus_one=False):
+    """The emulated kernel's keep mask (B, n) over sorted ``boxes``."""
+    B, n = boxes.shape[:2]
+    boxes = np.ascontiguousarray(boxes, np.float32)
+    cls = None if cls is None else np.ascontiguousarray(cls, np.float32)
+    nw = (n + 63) // 64
+    mask = np.zeros((B, n, nw), np.uint64)
+    keep = np.full((B, n), 7, np.uint8)     # not a bool: must be written
+    rc = fn(boxes.ctypes.data, None if cls is None else cls.ctypes.data,
+            mask.ctypes.data, keep.ctypes.data, B, n, thresh, int(plus_one),
+            None)
+    assert rc == 0
+    assert set(np.unique(keep)) <= {0, 1}
+    return keep.astype(bool)
+
+
+def _nms_boxes(B, n, seed, plus_one):
+    """Clustered boxes (many overlaps), with exact duplicates and pairs
+    whose IoU is exactly 0.5 (corner) in each sample."""
+    rs = np.random.RandomState(seed)
+    span, size = (100.0, 30.0) if plus_one else (1.0, 0.3)
+    ctr = rs.uniform(0, span, (B, n, 2)).astype(np.float32)
+    wh = rs.uniform(0.05 * size, size, (B, n, 2)).astype(np.float32)
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    if plus_one:
+        boxes = np.round(boxes)
+        boxes[..., 2:] = np.maximum(boxes[..., 2:], boxes[..., :2])
+    if n >= 4:
+        boxes[:, n // 2] = boxes[:, 1]                       # a duplicate
+        boxes[:, 2] = [0.0, 0.0, 4.0, 1.0]
+        boxes[:, 3] = [0.0, 0.0, 2.0, 1.0]                   # IoU 0.5
+    return boxes.astype(np.float32)
+
+
+@pytest.mark.parametrize("classes", [False, True])
+@pytest.mark.parametrize("plus_one", [False, True])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 300])
+def test_nms_sweep_source_matches_plain_and_jax(nms_lib, n, plus_one,
+                                                classes):
+    B = 2
+    boxes = _nms_boxes(B, n, seed=n + 7 * plus_one, plus_one=plus_one)
+    cls = np.random.RandomState(n).randint(0, 3, (B, n)).astype(
+        np.float32) if classes else None
+    for thresh in (0.5, 0.3):
+        got = _sweep(nms_lib, boxes, thresh, cls, plus_one)
+        np.testing.assert_array_equal(
+            _sweep(nms_lib, boxes, thresh, cls, plus_one), got)
+        plain = tdet.nms_keep_plain(
+            torch.from_numpy(boxes), thresh,
+            None if cls is None else torch.from_numpy(cls), plus_one)
+        np.testing.assert_array_equal(got, plain.numpy())
+        for b in range(B):
+            if plus_one and not classes:
+                want = jdef._greedy_nms_keep(jnp.asarray(boxes[b]), thresh)
+            elif plus_one:
+                continue              # the JAX package gates no +1 NMS
+            else:
+                want = jdet._nms_mask(
+                    jnp.asarray(boxes[b]), -jnp.arange(n, dtype=jnp.float32),
+                    thresh, None if cls is None else jnp.asarray(cls[b]))
+            np.testing.assert_array_equal(got[b], np.asarray(want))
+    if n >= 4:                  # a kept box's duplicate in its class goes
+        same = True if cls is None else cls[:, 1] == cls[:, n // 2]
+        assert not (got[:, 1] & got[:, n // 2] & same).any()
+
+
+@pytest.mark.parametrize("n", [65, 300])
+def test_nms_sweep_with_tied_scores_matches_jax(nms_lib, n):
+    """Scores with ties: the port's stable sort, the emulated sweep and
+    the mask put back in input order, against the JAX package's
+    ``_nms_mask`` on the unsorted boxes."""
+    boxes = _nms_boxes(1, n, seed=3 * n, plus_one=False)[0]
+    rs = np.random.RandomState(n)
+    scores = rs.randint(0, 8, n).astype(np.float32)        # many ties
+    cls = rs.randint(0, 2, n).astype(np.float32)
+    order = torch.argsort(-torch.from_numpy(scores), stable=True).numpy()
+    keep_sorted = _sweep(nms_lib, boxes[order][None], 0.45,
+                         cls[order][None])[0]
+    got = np.empty(n, bool)
+    got[order] = keep_sorted
+    want = jdet._nms_mask(jnp.asarray(boxes), jnp.asarray(scores), 0.45,
+                          jnp.asarray(cls))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    port = tdet._nms_mask(torch.from_numpy(boxes)[None],
+                          torch.from_numpy(scores)[None], 0.45,
+                          torch.from_numpy(cls)[None])
+    np.testing.assert_array_equal(port[0].numpy(), got)

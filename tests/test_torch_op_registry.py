@@ -29,7 +29,6 @@ import mxnet_tpu_torch.ops as tops
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-6)
 
-_STEP8 = "order step 8 (item 13, breadth)"
 
 # the names order step 5 (sparse storage) registered
 STEP5 = {"_square_sum", "_contrib_getnnz", "_contrib_SparseEmbedding",
@@ -44,23 +43,30 @@ QUANT = {"_contrib_quantize", "_contrib_quantize_v2", "_contrib_dequantize",
          "_contrib_quantized_conv", "_contrib_quantized_pooling",
          "_contrib_quantized_flatten", "_contrib_quantized_concat"}
 
-UNPORTED = dict(
-    **{n: _STEP8 for n in (
-        "_contrib_edge_id", "_image_normalize", "_image_resize",
-        "_image_to_tensor", "_image_totensor", "GridGenerator",
-        "BilinearSampler", "SpatialTransformer", "Correlation",
-        "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "ROIAlign",
-        "ROIPooling", "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-        "_contrib_MultiBoxTarget", "_contrib_ROIAlign",
-        "_contrib_bipartite_matching", "_contrib_box_iou",
-        "_contrib_box_nms", "_contrib_box_non_maximum_suppression",
-        "MultiProposal", "Proposal", "_contrib_DeformableConvolution",
-        "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
-        "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
-        "_contrib_dgl_adjacency",
-        "_contrib_dgl_csr_neighbor_non_uniform_sample",
-        "_contrib_dgl_csr_neighbor_uniform_sample",
-        "_contrib_dgl_graph_compact", "_contrib_dgl_subgraph")})
+# order step 8's breadth, parts 1-3: the spatial, image, detection,
+# deformable and dgl names
+STEP8 = {
+    "_contrib_edge_id", "_image_normalize", "_image_resize",
+    "_image_to_tensor", "_image_totensor", "GridGenerator",
+    "BilinearSampler", "SpatialTransformer", "Correlation",
+    "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "ROIAlign",
+    "ROIPooling", "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
+    "_contrib_MultiBoxTarget", "_contrib_ROIAlign",
+    "_contrib_bipartite_matching", "_contrib_box_iou",
+    "_contrib_box_nms", "_contrib_box_non_maximum_suppression",
+    "MultiProposal", "Proposal", "_contrib_DeformableConvolution",
+    "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
+    "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
+    "_contrib_dgl_adjacency",
+    "_contrib_dgl_csr_neighbor_non_uniform_sample",
+    "_contrib_dgl_csr_neighbor_uniform_sample",
+    "_contrib_dgl_graph_compact", "_contrib_dgl_subgraph"}
+# the dgl ops run on the host (OpDef host_code): phase 30 (e) holds them
+# on the card's path and tests/test_torch_dgl.py against the JAX package
+DGL = {n for n in STEP8 if n.startswith("_contrib_dgl_")}
+
+# every JAX op name is registered now
+UNPORTED = {}
 
 # registered in both with a documented difference
 DIFFERS = {}
@@ -71,23 +77,10 @@ SLICE = {
     "init_ops": 6, "nn": 16, "linalg": 32, "extra": 22,
 }
 
-# public names of mx.nd / mx.sym that wait for a later step
-NS_UNPORTED = dict(
-    {n: _STEP8 for n in (
-        "GridGenerator", "BilinearSampler", "SpatialTransformer",
-        "Correlation", "MultiBoxDetection", "MultiBoxPrior",
-        "MultiBoxTarget", "MultiProposal", "Proposal", "ROIAlign",
-        "ROIPooling")})
+# public names of mx.nd / mx.sym that wait for a later step: none now
+NS_UNPORTED = {}
 
-CONTRIB_UNPORTED = dict(
-    **{n: _STEP8 for n in (
-        "edge_id", "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "ROIAlign",
-        "bipartite_matching", "box_iou", "box_nms",
-        "box_non_maximum_suppression", "MultiProposal", "Proposal",
-        "DeformableConvolution", "DeformablePSROIPooling", "PSROIPooling",
-        "count_sketch", "dgl_adjacency", "dgl_csr_neighbor_non_uniform_sample",
-        "dgl_csr_neighbor_uniform_sample", "dgl_graph_compact",
-        "dgl_subgraph")})
+CONTRIB_UNPORTED = {}
 
 
 @pytest.fixture(autouse=True)
@@ -143,15 +136,12 @@ def test_every_jax_op_is_registered_alike_or_listed(name):
 
 def test_the_port_registers_328_of_382_names_and_nothing_of_its_own():
     """328 names through order step 3; order step 5 added five, order
-    step 6 one, the int8 deploy path nine and order step 8's execution
-    part four (347), and 35 wait in ``UNPORTED``."""
+    step 6 one, the int8 deploy path nine, order step 8's execution
+    part four (347) and its breadth the last 35: all 382."""
     jax_names, port_names = set(jops.list_ops()), set(tops.list_ops())
-    assert port_names <= jax_names
-    assert len(jax_names) == 382 \
-        and len(port_names - STEP5 - STEP6 - QUANT - CONTROL) == 328
-    assert STEP5 | STEP6 | QUANT | CONTROL <= port_names \
-        and len(port_names) == 347
-    assert jax_names - port_names == set(UNPORTED) and len(UNPORTED) == 35
+    assert port_names == jax_names and len(jax_names) == 382
+    assert len(port_names - STEP5 - STEP6 - QUANT - CONTROL - STEP8) == 328
+    assert len(STEP8) == 35 and not UNPORTED
 
 
 def test_the_slice_registers_179_names_by_module():
@@ -159,7 +149,7 @@ def test_the_slice_registers_179_names_by_module():
     them (the ``_v1`` names sit in the JAX package's extra.py; the port
     registers them in its nn.py, beside the ops they rename)."""
     added = set(tops.list_ops()) - _EARLIER - STEP5 - STEP6 - QUANT \
-        - CONTROL
+        - CONTROL - STEP8
     counts = {}
     for name in added:
         mod = jops.get_op(name).forward.__module__.rsplit(".", 1)[-1]
@@ -461,8 +451,10 @@ def test_phase_21_sweeps_every_op_of_the_slice_and_each_case_runs():
     # the int8 ops are the deploy path's: phase 28 (d) holds them on the
     # card and tests/test_torch_quantization.py against the JAX package;
     # Custom runs user Python: phase 29 (c) holds it on the card and
-    # tests/test_torch_custom_op.py against the JAX package
-    slice_names = set(tops.list_ops()) - _EARLIER - QUANT - {"Custom"}
+    # tests/test_torch_custom_op.py against the JAX package; the dgl ops
+    # are host ops (DGL)
+    slice_names = set(tops.list_ops()) - _EARLIER - QUANT - {"Custom"} \
+        - DGL
     assert slice_names <= names, sorted(slice_names - names)
     assert STEP5 | STEP6 <= names
     rs = np.random.RandomState(0)

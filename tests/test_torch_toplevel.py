@@ -31,7 +31,7 @@ UNPORTED = {
     "engine": "item 8",
     "util": "item 8", "runtime": "item 8", "registry": "item 8",
     "libinfo": "item 8", "storage": "item 8",
-    "image": "item 8", "test_utils": "item 8",
+    "test_utils": "item 8",
     "tpu": "TPU devices: the port runs on CUDA devices",
     "num_tpus": "TPU devices: the port runs on CUDA devices",
 }
