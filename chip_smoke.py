@@ -485,7 +485,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    initial weights equal the twin's, step 1 within MESH_STEP1_FLIP of
    the twin (the loss before and after within LOSS_ATOL), the loss
    falling and equal on both ranks, overlap off and FSDP off
-   bit-identical to it after 2 steps, one SGD step's exchanged gradient
+   bit-identical to it after MESH_IDENT_STEPS steps, one SGD step's exchanged gradient
    within phase 10's gradient tolerances of the twin's, parameter and
    Adam-state bytes a rank about half the twin's, 12 launches of each
    flash kernel a step (counts zeroed just before the steps and read
@@ -535,7 +535,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    card with buckets SERVE_BUCKETS, loaded (every program on cuda:0) and
    served by ``InferenceServer(max_queue=64, batch_window_ms=2.0)``:
    ``warmup()`` captures the three bucket graphs (``compile_watch``:
-   three sites, one compile each); 8 client threads x 16 requests (seed 1):
+   three sites, one compile each); 8 client threads x 8 requests (seed 1):
    no compile and no recapture during traffic, replays = batches, each
    answer within SERVE_TOL of the hybridized net on its sample alone and
    bit-identical to the Predictor's program at its bucket; export s,
@@ -564,7 +564,8 @@ no result, anywhere else. Phases (any failure exits non-zero):
    FT_HB_TIMEOUT_MS. (b) the same two ranks (``chip_smoke.py ft-rank
    DIR``, gloo, both on gpu(0)) under ``python -m mxnet_tpu_torch.tools.
    launch --supervise --resume-prefix --events-file``, rank 1 carrying
-   ``proc_exit:step=FT_KILL_STEP:raise`` in generation 0 (mid epoch 1):
+   ``proc_exit:step=FT_KILL_STEP:raise`` in generation 0 (at epoch 1's
+   first step, after epoch 0's manifest):
    the events launch, worker_failed, teardown, restart, launch, success;
    the restart resumes from epoch 0's manifest, its final weights equal
    (a)'s bit for bit (SHA-256 a parameter) and its losses (a)'s last
@@ -680,6 +681,54 @@ no result, anywhere else. Phases (any failure exits non-zero):
    run op by op (``eager_host``), no capture. The new device ops' card
    against host cases are phase 21 (a)'s. The attention, decode and rtc
    launch counts read 0 over the phase.
+31. breadth (after 30) — the twenty-seventh slice, the rest of the
+   breadth, fp32 with TF32 off; no TPU kernel lies on it. (a) Shi et
+   al. 2015's best Moving MNIST ConvLSTM ("Convolutional LSTM Network",
+   NeurIPS) at full width, ``gluon.contrib.rnn.Conv2DLSTMCell``s in
+   ``HybridSequentialRNNCell``s: 64x64 frames as 16 channels of 4x4
+   patches at 16x16, an encoder of three cells (128, 64, 64 hidden, 5x5
+   i2h and h2h) over 10 frames, a forecaster of the same widths
+   unrolled 10 steps from its states, a 1x1 convolution over the
+   forecaster's concatenated states to 16 channels, per-pixel sigmoid
+   cross-entropy, RMSProp lr 1e-3 (the paper's), batch 16 of synthetic
+   bouncing squares (seed 0; no Moving MNIST download); hybridized,
+   CLSTM_STEPS steps of ``autograd.record`` -> ``backward`` ->
+   ``Trainer.step``: step 1's loss equal to an un-hybridized twin's
+   (same weights) within CLSTM_TOL, the fused update 1 capture and 0
+   recaptures, the loss falling; ms a step and peak memory. (b) MXNet
+   v1.5 example/rnn/large_word_lm's LSTM-2048-512:
+   ``VariationalDropoutCell(LSTMPCell(2048, 512))``, embedding 512,
+   bptt 20, batch 128, dropout 0.1 on inputs, states and outputs,
+   hybridized, one fwd + bwd twice (cut: the head is a full softmax
+   over 10,000 ids, where the example samples over 793,471 ids, which
+   the JAX package does not do): three ``Dropout`` nodes in the traced
+   graph (one a mask), the output mask shared by all 20 steps of a call
+   and scaled by 1/(1-p), a fresh mask at the second call; in predict
+   mode one CUDA graph, masks all ones. (c) ``contrib.
+   svrg_optimization.SVRGModule`` on gpu(0) over
+   tests/test_aux_subsystems.py's least-squares problem, fed by
+   ``contrib.io.DataLoaderIter``, the fused step on: after a snapshot,
+   two corrected steps equal w - lr (g - g_snap + g_full) computed by
+   hand on the card within SVRG_TOL, each counted in
+   ``fused_step_fallbacks``; ``fit`` for 3 epochs halves the mse.
+   (d) the helpers: ``test_utils.check_consistency`` of (a)'s first
+   cell over ``[cpu(), gpu(0)]`` (forward and every argument gradient),
+   ``runtime.Features()`` (CUDA and CUDNN on, TPU, XLA and PALLAS off),
+   ``storage.memory_stats(0)["bytes_in_use"]`` growing by a 256 MiB
+   allocation, (a)'s block in predict mode inside
+   ``engine.naive_engine()`` with no capture (then one outside it), and
+   ``libinfo.find_lib_path()`` listing phase 2's kernel libraries. The
+   counts of the kernel table's rows 1-7 (attention, decode, rtc,
+   nms_sweep), zeroed before, read 0 over the phase.
+
+Cuts for phase 31's time (in depth: every check kept): phase 24 (b)'s
+timed Ulysses/ring iterations MESH_SP_ITERS 3 -> 1; phases 24 (a) and
+27 FT_STEPS 2 -> 1 an epoch (MESH_STEPS 4 -> 2 Adam steps; phase 27 (b)'s
+kill at its step boundary 4 -> 2, epoch 1's first step, and its resumed
+steps 2 -> 1); phase 26 (a)'s requests SERVE_PER_CLIENT 16 -> 8 a
+client, (b)'s CONVNET_BUCKETS [1, 2, 4, 8] -> [1, 8] and
+CONVNET_REQUESTS 32 -> 16, (c)'s LM_SERVE_REQUESTS 16 -> 8, (d)'s
+WATCH_STEPS 5 -> 3.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
@@ -10007,9 +10056,10 @@ MESH_BATCH = 8                      # the global batch of (a): 4 a rank
 # of FT_STEPS steps on the global batch, a manifest checkpoint after each
 # epoch, the heartbeat armed at FT_HB_TIMEOUT_MS (a full-width step keeps
 # the host busy ~2 s in the gloo exchange) (cut from 10 steps without
-# checkpoints: phase 27's time; from 3 epochs to 2: phase 30's)
+# checkpoints: phase 27's time; from 3 epochs to 2: phase 30's; from 2
+# steps an epoch to 1: phase 31's)
 FT_EPOCHS = 2
-FT_STEPS = 2
+FT_STEPS = 1
 FT_HB_TIMEOUT_MS = 10000
 MESH_STEPS = FT_EPOCHS * FT_STEPS
 MESH_IDENT_STEPS = 1                # steps of the on/off identity runs
@@ -10017,7 +10067,7 @@ MESH_IDENT_STEPS = 1                # steps of the on/off identity runs
 MESH_ADAM = dict(learning_rate=1e-3)
 MESH_SEED = 0
 MESH_SP_BATCH = 2
-MESH_SP_ITERS = 3
+MESH_SP_ITERS = 1                   # (cut from 3: phase 31's time)
 # (a)'s step 1 against the twin. Adam's first step is about lr * sign(g)
 # whatever g's scale, so it cannot show a wrongly weighted gradient: a
 # one-step SGD run (lr MESH_SGD_LR, no momentum, no wd) moves each weight
@@ -11062,7 +11112,7 @@ def phase_mesh_axes(card, tfa, mesh24):
 # ---------------------------------------------------------------------------
 
 # (a) ResNet-50 v1 as phase 13 builds it at the reference's size, exported
-# with one program a bucket and served: 8 clients x 16 requests from
+# with one program a bucket and served: 8 clients x 8 requests from
 # seed 1; each answer against the hybridized net on its sample alone
 # (the example's tolerance) and bit for bit against the Predictor's
 # program at the bucket it ran in; the drills' queue bound and burst
@@ -11071,28 +11121,30 @@ SERVE_BUCKETS = [1, 32]             # (cut from six: phase 27's time; from
 SERVE_IMAGE = 224
 SERVE_CLASSES = 1000
 SERVE_CLIENTS = 8
-SERVE_PER_CLIENT = 16               # (cut from 32: phase 28's time)
+SERVE_PER_CLIENT = 8                # (cut from 32: phase 28's time;
+                                    # from 16: phase 31's)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 SHED_QUEUE = 4
 SHED_BURST = 64
 DEADLINE_HANG_S = "0.2"
 # (b) examples/serve_artifact.py's convnet exported on the CPU (a CPU-only
 # subprocess) and on the card, both served on the card
-CONVNET_BUCKETS = [1, 2, 4, 8]
-CONVNET_REQUESTS = 32
+CONVNET_BUCKETS = [1, 8]            # (cut from [1, 2, 4, 8]: phase 31's
+                                    # time)
+CONVNET_REQUESTS = 16               # (cut from 32: phase 31's time)
 PORTABLE_TOL = dict(rtol=1e-5, atol=1e-6)
-# (c) phase 10's LM as an in-process callable: 16 requests of 100-256
+# (c) phase 10's LM as an in-process callable: 8 requests of 100-256
 # tokens from seed 2; per position (max logit, argmax) against the model
 # alone on the request (cut from ladder [1, 2, 4, 8] x seq [256, 1024]
 # and 32 requests of 100-1024 tokens: phase 28 (a) serves the LM at T
 # 1024 from an artifact)
 LM_SERVE_LADDER = [1, 8]
 LM_SERVE_SEQ = [256]
-LM_SERVE_REQUESTS = 16
+LM_SERVE_REQUESTS = 8               # (cut from 16: phase 31's time)
 LM_SERVE_LENGTHS = (100, 256)
 LM_SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 # (d) phase 14's Module.fit under MXNET_COMPILE_WATCH=1
-WATCH_STEPS = 5
+WATCH_STEPS = 3                     # (cut from 5: phase 31's time)
 WATCH_FLOPS_REL = 0.01
 WATCH_MFU_REL = 1e-3
 
@@ -11695,10 +11747,11 @@ def phase_serve(card, tfa, resnet_readings):
 # ---------------------------------------------------------------------------
 
 # (b) replays phase 24 (a)'s schedule under the supervisor, rank 1 dying
-# at its FT_KILL_STEP-th step boundary in generation 0 (mid epoch 1), so
-# epoch 0's manifest is the resume point; (c)'s heartbeat bound is the
-# JAX wedge test's, and (c) runs beside (b) (its ranks mostly sleep)
-FT_KILL_STEP = 4
+# at its FT_KILL_STEP-th step boundary in generation 0 (epoch 1's first
+# step; mid epoch 1, its 4th, before FT_STEPS fell to 1), so epoch 0's
+# manifest is the resume point; (c)'s heartbeat bound is the JAX wedge
+# test's, and (c) runs beside (b) (its ranks mostly sleep)
+FT_KILL_STEP = FT_STEPS + 1
 FT_WEDGE_TIMEOUT_MS = 1500
 FT_BACKOFF_S = 0.5
 FT_GRACE_S = 5
@@ -11929,7 +11982,7 @@ def phase_fault_tolerance(card, mesh24):
         fail("(b) the supervisor's events are %s, want %s" % (kinds, want))
     failed, relaunch = by["worker_failed"][0], by["launch"][1]
     print("  (b) supervised (%.1f s of launch, beside (c)): rank %d exited %s "
-          "at its %dth step boundary in generation 0, %.3f s after the "
+          "at step boundary %d in generation 0, %.3f s after the "
           "launch; teardown %.3f s, backoff %.1f s; detection to relaunch "
           "%.3f s (the resume scan validates the manifests); resumed from "
           "epoch %s; load %.1f ms; %.1f ms a step after the restart "
@@ -13787,6 +13840,467 @@ def phase_vision(card, tfa):
     return dict(ssd=ssd, rpn=rpn)
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the rest of the breadth (gluon.contrib.rnn, contrib, helpers)
+# ---------------------------------------------------------------------------
+
+# (a) Shi et al. 2015, "Convolutional LSTM Network" (NeurIPS), its best
+# Moving MNIST model: 64x64 frames cut into 4x4 patches (16 channels of
+# 16x16), an encoder of three ConvLSTM cells (128, 64, 64 hidden, 5x5
+# i2h and h2h) reading 10 frames, a forecaster of the same widths
+# unrolled 10 steps from the encoder's states (its input blank), a 1x1
+# convolution over the forecaster's concatenated states to 16 channels,
+# per-pixel sigmoid cross-entropy; RMSProp lr 1e-3, decay 0.9 (the
+# paper's); batch 16 of synthetic bouncing squares from seed 0 in place
+# of Moving MNIST (nothing is downloaded)
+CLSTM_FRAME = 64
+CLSTM_PATCH = 4
+CLSTM_HIDDEN = (128, 64, 64)
+CLSTM_KERNEL = 5
+CLSTM_IN = 10
+CLSTM_OUT = 10
+CLSTM_BATCH = 16
+CLSTM_STEPS = 12
+CLSTM_RMSPROP = dict(learning_rate=1e-3, gamma1=0.9)
+CLSTM_TOL = dict(rtol=1e-5, atol=1e-5)
+# (b) MXNet v1.5 example/rnn/large_word_lm's LSTM-2048-512: embedding 512,
+# an LSTMPCell(2048, 512) under a VariationalDropoutCell (0.1 on inputs,
+# states and outputs), bptt 20, batch 128; the head cut to a full softmax
+# over 10,000 ids (the example's sampled softmax over 793,471 ids is not
+# in the JAX package)
+LWLM_VOCAB = 10000
+LWLM_EMBED = 512
+LWLM_HIDDEN = 2048
+LWLM_BPTT = 20
+LWLM_BATCH = 128
+LWLM_DROP = 0.1
+# (c) tests/test_aux_subsystems.py's least-squares SVRG problem
+SVRG_N, SVRG_D, SVRG_BATCH, SVRG_LR = 64, 5, 16, 0.05
+SVRG_TOL = dict(rtol=1e-5, atol=1e-6)
+# (d) check_consistency of (a)'s first cell over [cpu(), gpu(0)], batch 4
+CONSIST_BATCH = 4
+STORAGE_PROBE_BYTES = 256 * 2 ** 20
+
+
+def bouncing_squares(n, frames, size, seed):
+    """``(n, frames, size, size)`` float32 in {0, 1}: two squares a
+    sequence (6-12 px) moving 1-4 px a frame, bouncing off the walls."""
+    rs = np.random.RandomState(seed)
+    out = np.zeros((n, frames, size, size), np.float32)
+    for i in range(n):
+        for _ in range(2):
+            side = rs.randint(6, 13)
+            pos = rs.uniform(0, size - side, 2)
+            vel = rs.uniform(1, 4, 2) * rs.choice([-1, 1], 2)
+            for t in range(frames):
+                y, x = pos.astype(int)
+                out[i, t, y:y + side, x:x + side] = 1.0
+                pos = pos + vel
+                for d in range(2):
+                    if pos[d] < 0 or pos[d] > size - side:
+                        vel[d] = -vel[d]
+                        pos[d] = min(max(pos[d], 0), size - side)
+    return out
+
+
+def patched(frames, patch):
+    """``(n, T, H, W)`` -> ``(n, T, patch * patch, H / patch, W / patch)``
+    (the paper's 4x4 patches as channels)."""
+    n, t, h, w = frames.shape
+    x = frames.reshape(n, t, h // patch, patch, w // patch, patch)
+    return np.ascontiguousarray(x.transpose(0, 1, 3, 5, 2, 4).reshape(
+        n, t, patch * patch, h // patch, w // patch))
+
+
+def convlstm_net(mx):
+    """(a)'s encoder-forecaster as one HybridBlock: ``net(x, blank,
+    *states)`` with ``x`` (B, CLSTM_IN, C, S, S), ``blank`` the
+    forecaster's (B, C, S, S) zero input and the encoder's six begin
+    states; returns the forecast logits (B, CLSTM_OUT, C, S, S)."""
+    crnn = mx.gluon.contrib.rnn
+    chans = CLSTM_PATCH * CLSTM_PATCH
+    size = CLSTM_FRAME // CLSTM_PATCH
+
+    class ConvLSTMForecaster(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.encoder = mx.gluon.rnn.HybridSequentialRNNCell()
+                self.forecaster = mx.gluon.rnn.HybridSequentialRNNCell()
+                for seq in (self.encoder, self.forecaster):
+                    c_in = chans
+                    for hid in CLSTM_HIDDEN:
+                        seq.add(crnn.Conv2DLSTMCell(
+                            (c_in, size, size), hid, CLSTM_KERNEL,
+                            CLSTM_KERNEL, i2h_pad=CLSTM_KERNEL // 2))
+                        c_in = hid
+                self.head = mx.gluon.nn.Conv2D(
+                    chans, 1, in_channels=sum(CLSTM_HIDDEN))
+
+        def hybrid_forward(self, F, x, blank, *states):
+            _, states = self.encoder.unroll(
+                CLSTM_IN, x, begin_state=list(states), layout="NTC",
+                merge_outputs=True)
+            self.forecaster.reset()
+            preds = []
+            for _ in range(CLSTM_OUT):
+                _, states = self.forecaster(blank, states)
+                preds.append(self.head(F.concat(*states[0::2], dim=1)))
+            return F.stack(*preds, axis=1)
+    return ConvLSTMForecaster()
+
+
+def convlstm_train(mx, card, ctx):
+    """(a): the first step's loss hybridized against an un-hybridized
+    twin with the same weights, then CLSTM_STEPS Trainer steps on the
+    fused update (1 capture, 0 recaptures), the loss falling."""
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    frames = patched(bouncing_squares(CLSTM_BATCH, CLSTM_IN + CLSTM_OUT,
+                                      CLSTM_FRAME, 0), CLSTM_PATCH)
+    x = mx.nd.array(frames[:, :CLSTM_IN], ctx=ctx)
+    y = mx.nd.array(frames[:, CLSTM_IN:], ctx=ctx)
+    blank = mx.nd.zeros((CLSTM_BATCH,) + frames.shape[2:], ctx=ctx)
+    net = convlstm_net(mx)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    states = net.encoder.begin_state(batch_size=CLSTM_BATCH, ctx=ctx)
+    twin = convlstm_net(mx)
+    twin.initialize(ctx=ctx)
+    params_from_numpy(twin, {k: p.data().asnumpy() for k, p in
+                             net._collect_params_with_prefix().items()},
+                      ctx=ctx)
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    loss_fn = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+
+    def loss_of(block):
+        return loss_fn(block(x, blank, *states), y).mean()
+    with mx.autograd.record():
+        eager = loss_of(twin)
+    eager.backward()
+    eager_loss = float(eager.asscalar())
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "rmsprop",
+                               dict(CLSTM_RMSPROP))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    curve, ms = [], []
+    for _ in range(CLSTM_STEPS):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_of(net)
+        loss.backward()
+        trainer.step(1)
+        curve.append(float(loss.asscalar()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fst = trainer._fused_updater.stats()
+    print("  (a) Shi et al.'s ConvLSTM encoder-forecaster (%s hidden, %dx%d "
+          "kernels, %d -> %d frames of %dx%d as %d %dx%d patches), batch %d, "
+          "%.2fM parameters, RMSProp %s, hybridized: step-1 loss %.7f, the "
+          "un-hybridized twin's %.7f; losses %s; %.1f ms a step (median of "
+          "steps 2-%d), peak %.2f GiB; the fused update's graphs %s (%s)"
+          % (CLSTM_HIDDEN, CLSTM_KERNEL, CLSTM_KERNEL, CLSTM_IN, CLSTM_OUT,
+             CLSTM_FRAME, CLSTM_FRAME, CLSTM_PATCH ** 2,
+             CLSTM_FRAME // CLSTM_PATCH, CLSTM_FRAME // CLSTM_PATCH,
+             CLSTM_BATCH, n_params / 1e6, CLSTM_RMSPROP, curve[0],
+             eager_loss, [round(v, 5) for v in curve],
+             statistics.median(ms[1:]), CLSTM_STEPS, peak, fst, card))
+    if not np.isclose(curve[0], eager_loss, **CLSTM_TOL):
+        fail("(a) the hybridized step-1 loss %.8f differs from the "
+             "un-hybridized twin's %.8f" % (curve[0], eager_loss))
+    if fst["captures"] != 1 or fst["recaptures"] != 0:
+        fail("(a) the fused update's graphs %s, want 1 capture and no "
+             "recapture" % fst)
+    if not all(np.isfinite(curve)) or curve[-1] >= curve[0]:
+        fail("(a) the loss did not fall: %s" % curve)
+    return dict(net=net, x=x, blank=blank, states=states, curve=curve,
+                ms=statistics.median(ms[1:]), peak_gib=peak)
+
+
+def large_word_lm(mx, card, ctx):
+    """(b): VariationalDropoutCell(LSTMPCell(2048, 512)) at the example's
+    width, hybridized: one fwd + bwd; each mask one ``Dropout`` node of
+    the traced graph, the output mask the same at every step of a call,
+    scaled by 1/(1-p), a fresh mask at the next call; in predict mode the
+    block's one CUDA graph with all-ones masks."""
+    crnn = mx.gluon.contrib.rnn
+
+    class LM(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.embed = mx.gluon.nn.Embedding(LWLM_VOCAB, LWLM_EMBED)
+                self.cell = crnn.VariationalDropoutCell(
+                    crnn.LSTMPCell(LWLM_HIDDEN, LWLM_EMBED,
+                                   input_size=LWLM_EMBED),
+                    drop_inputs=LWLM_DROP, drop_states=LWLM_DROP,
+                    drop_outputs=LWLM_DROP)
+                self.out = mx.gluon.nn.Dense(LWLM_VOCAB, flatten=False,
+                                             in_units=LWLM_EMBED)
+
+        def hybrid_forward(self, F, tokens, r0, c0):
+            outs, _ = self.cell.unroll(LWLM_BPTT, self.embed(tokens),
+                                       begin_state=[r0, c0], layout="NTC",
+                                       merge_outputs=True)
+            return self.out(outs), outs, self.cell.drop_outputs_mask
+    net = LM()
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    rs = np.random.RandomState(3)
+    tokens = mx.nd.array(rs.randint(0, LWLM_VOCAB, (LWLM_BATCH, LWLM_BPTT)),
+                         ctx=ctx)
+    labels = mx.nd.array(rs.randint(0, LWLM_VOCAB, (LWLM_BATCH, LWLM_BPTT)),
+                         ctx=ctx)
+    r0, c0 = net.cell.begin_state(batch_size=LWLM_BATCH, ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            logits, outs, mask = net(tokens, r0, c0)
+            loss = loss_fn(logits, labels).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                         loss=float(loss.asscalar()),
+                         zero=(outs._data == 0).cpu().numpy(),
+                         mask=mask._data.cpu().numpy()))
+    graph = net._cached_graph[1]
+    dropouts = sum(1 for n in graph._topo_nodes()
+                   if n.op is not None and n.op.name == "Dropout")
+    shared = all(np.array_equal(r["zero"][:, t], r["mask"] == 0)
+                 for r in runs for t in range(LWLM_BPTT))
+    scale = [float(np.unique(r["mask"][r["mask"] != 0]).max()) for r in runs]
+    fresh = not np.array_equal(runs[0]["mask"], runs[1]["mask"])
+    drop_share = [float((r["mask"] == 0).mean()) for r in runs]
+    cst0 = net._cached_op.stats()
+    pred = [net(tokens, r0, c0)[2]._data.cpu().numpy() for _ in range(2)]
+    cst = net._cached_op.stats()
+    grads_ok = all(np.isfinite(p.grad().asnumpy()).all()
+                   for p in net.collect_params().values())
+    print("  (b) large_word_lm's LSTM-2048-512 (embedding %d, bptt %d, batch "
+          "%d, vocab cut to %d, full softmax), VariationalDropoutCell %.1f on "
+          "inputs, states and outputs, hybridized: fwd + bwd %.1f / %.1f ms, "
+          "losses %.5f / %.5f; %d Dropout nodes in the traced graph; the "
+          "output mask shared by all %d steps: %s; kept scale %s (want "
+          "%.6f); dropped shares %s; the second call's mask fresh: %s; "
+          "predict mode %s -> %s (masks all ones: %s) (%s)"
+          % (LWLM_EMBED, LWLM_BPTT, LWLM_BATCH, LWLM_VOCAB, LWLM_DROP,
+             runs[0]["ms"], runs[1]["ms"], runs[0]["loss"], runs[1]["loss"],
+             dropouts, LWLM_BPTT, shared, scale, 1 / (1 - LWLM_DROP),
+             [round(s, 4) for s in drop_share], fresh, cst0, cst,
+             all((p == 1).all() for p in pred), card))
+    if dropouts != 3 or not shared or not fresh or not grads_ok:
+        fail("(b) the variational masks: %d Dropout nodes (want 3), shared "
+             "%s, fresh %s, finite gradients %s"
+             % (dropouts, shared, fresh, grads_ok))
+    if any(abs(s - 1 / (1 - LWLM_DROP)) > 1e-6 for s in scale) or \
+            any(abs(d - LWLM_DROP) > 0.02 for d in drop_share):
+        fail("(b) the masks' scale %s or dropped share %s" % (scale,
+                                                               drop_share))
+    if cst["captures"] - cst0["captures"] != 1 or cst["recaptures"] or \
+            not all((p == 1).all() for p in pred):
+        fail("(b) predict mode: graphs %s -> %s, masks all ones %s"
+             % (cst0, cst, [bool((p == 1).all()) for p in pred]))
+    return dict(ms=runs[1]["ms"])
+
+
+def svrg_on_card(mx, card, ctx):
+    """(c): SVRGModule on gpu(0) fed by contrib.io.DataLoaderIter: two
+    steps after a snapshot against w - lr (g - g_snap + g_full) by hand
+    on the card (the fused step is on, so a dropped correction shows),
+    then ``fit`` with the mse falling."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.contrib.svrg_optimization import SVRGModule
+    from mxnet_tpu_torch.fused_step import fused_step_enabled
+    rng = np.random.RandomState(0)
+    w_true = rng.randn(SVRG_D, 1).astype(np.float32)
+    X = rng.randn(SVRG_N, SVRG_D).astype(np.float32)
+    y = (X @ w_true).ravel()
+    w0 = np.random.RandomState(7).normal(0, 0.1, (1, SVRG_D)) \
+        .astype(np.float32)
+    data = mx.sym.var("data")
+    out = mx.sym.LinearRegressionOutput(
+        mx.sym.FullyConnected(data, num_hidden=1, no_bias=True, name="fc"),
+        mx.sym.var("lin_label"), name="lin")
+
+    def feed():
+        ds = mx.gluon.data.ArrayDataset(mx.nd.array(X, ctx=ctx),
+                                        mx.nd.array(y, ctx=ctx))
+        return mx.contrib.io.DataLoaderIter(
+            mx.gluon.data.DataLoader(ds, batch_size=SVRG_BATCH),
+            label_name="lin_label")
+
+    def module():
+        mod = SVRGModule(out, data_names=("data",),
+                         label_names=("lin_label",), context=ctx,
+                         update_freq=1)
+        it = feed()
+        mod.bind(it.provide_data, it.provide_label, for_training=True)
+        mod.init_params(arg_params={"fc_weight": mx.nd.array(w0, ctx=ctx)})
+        return mod, it
+    mod, it = module()
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": SVRG_LR})
+    mod.update_full_grads(it)
+    batches = list(it)
+    it.reset()
+    falls0 = profiler.counters().get("fused_step_fallbacks", 0)
+    got = []
+    for b in batches[:2]:
+        mod.forward_backward(b)
+        mod.update()
+        got.append(mod.get_params()[0]["fc_weight"]._data.clone())
+    falls = profiler.counters().get("fused_step_fallbacks", 0) - falls0
+    # by hand on the card: the gradient of LinearRegressionOutput summed
+    # over a batch, the optimizer's rescale 1/batch
+    dev = ctx.torch_device()
+    Xd, yd = torch.tensor(X, device=dev), torch.tensor(y, device=dev)
+
+    def grad(w, lo, hi):
+        xb = Xd[lo:hi]
+        return ((xb @ w.t()).squeeze(1) - yd[lo:hi]) @ xb / SVRG_BATCH
+
+    w_snap = torch.tensor(w0, device=dev)
+    g_full = sum(grad(w_snap, i, i + SVRG_BATCH)
+                 for i in range(0, SVRG_N, SVRG_BATCH)) / (SVRG_N // SVRG_BATCH)
+    w, want = w_snap.clone(), []
+    for i in range(2):
+        lo = i * SVRG_BATCH
+        w = w - SVRG_LR * (grad(w, lo, lo + SVRG_BATCH)
+                           - grad(w_snap, lo, lo + SVRG_BATCH) + g_full)
+        want.append(w.clone())
+    err = max(float((g - h).abs().max()) for g, h in zip(got, want))
+    plain = w_snap - SVRG_LR * grad(w_snap, 0, SVRG_BATCH)
+    # fit, fed by the DataLoaderIter, from the same start
+    fmod, fit_it = module()
+    mse0 = fmod.score(fit_it, "mse")[0][1]
+    fmod.fit(fit_it, num_epoch=3, optimizer="sgd", eval_metric="mse",
+             optimizer_params={"learning_rate": SVRG_LR})
+    mse1 = fmod.score(fit_it, "mse")[0][1]
+    print("  (c) SVRGModule on %s fed by DataLoaderIter (N %d, D %d, batch "
+          "%d, SGD lr %g, fused step %s): two corrected steps against w - "
+          "lr (g - g_snap + g_full) by hand on the card, max |diff| %.3g "
+          "(the uncorrected first step differs by %.3g); eager steps "
+          "counted in fused_step_fallbacks %d; fit 3 epochs: mse %.5f -> "
+          "%.5f (%s)"
+          % (ctx, SVRG_N, SVRG_D, SVRG_BATCH, SVRG_LR, fused_step_enabled(),
+             err, float((got[0] - plain).abs().max()), falls, mse0, mse1,
+             card))
+    for g, h in zip(got, want):
+        if not torch.allclose(g, h, **SVRG_TOL):
+            fail("(c) the SVRG step %s differs from the hand-computed %s"
+                 % (g.tolist(), h.tolist()))
+    if falls != 2 or not mse1 < 0.5 * mse0:
+        fail("(c) fallbacks %d (want 2), mse %.5f -> %.5f"
+             % (falls, mse0, mse1))
+
+
+def helpers_on_card(mx, card, ctx, clstm):
+    """(d): check_consistency of (a)'s first cell over [cpu(), gpu(0)];
+    runtime.Features; storage.memory_stats across a 256 MiB allocation;
+    (a)'s block in predict mode inside engine.naive_engine() (no
+    capture) and outside it (one); libinfo's built kernels."""
+    from mxnet_tpu_torch import libinfo, runtime, storage, test_utils
+    from mxnet_tpu_torch.parallel import _build
+    chans, size = CLSTM_PATCH ** 2, CLSTM_FRAME // CLSTM_PATCH
+    hid = CLSTM_HIDDEN[0]
+    cell = mx.gluon.contrib.rnn.Conv2DLSTMCell(
+        (chans, size, size), hid, CLSTM_KERNEL, CLSTM_KERNEL,
+        i2h_pad=CLSTM_KERNEL // 2, prefix="c1_")
+    out, (h, c) = cell(mx.sym.var("data"), [mx.sym.var("h"),
+                                            mx.sym.var("c")])
+    sym = mx.sym.Group([out, c])
+    rs = np.random.RandomState(5)
+    k2 = CLSTM_KERNEL * CLSTM_KERNEL
+    params = {"data": rs.randn(CONSIST_BATCH, chans, size, size),
+              "h": rs.randn(CONSIST_BATCH, hid, size, size),
+              "c": rs.randn(CONSIST_BATCH, hid, size, size),
+              "c1_i2h_weight": rs.randn(4 * hid, chans, CLSTM_KERNEL,
+                                        CLSTM_KERNEL) / np.sqrt(chans * k2),
+              "c1_h2h_weight": rs.randn(4 * hid, hid, CLSTM_KERNEL,
+                                        CLSTM_KERNEL) / np.sqrt(hid * k2),
+              "c1_i2h_bias": rs.randn(4 * hid) * 0.1,
+              "c1_h2h_bias": rs.randn(4 * hid) * 0.1}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    t0 = time.perf_counter()
+    outs = test_utils.check_consistency(sym, ctx_list=[mx.cpu(), ctx],
+                                        arg_params=params)
+    consist_s = time.perf_counter() - t0
+    feats = runtime.Features()
+    on = {k: feats.is_enabled(k) for k in ("CUDA", "CUDNN", "NCCL", "TPU",
+                                           "XLA", "PALLAS")}
+    before = storage.memory_stats(0)["bytes_in_use"]
+    probe = torch.empty(STORAGE_PROBE_BYTES, dtype=torch.uint8,
+                        device=ctx.torch_device())
+    grown = storage.memory_stats(0)["bytes_in_use"] - before
+    del probe
+    stats = storage.memory_stats(0)
+    net = clstm["net"]
+    args = [clstm["x"], clstm["blank"]] + list(clstm["states"])
+    st0 = net._cached_op.stats()
+    with mx.engine.naive_engine():
+        naive = net(*args)._data.clone()
+    st1 = net._cached_op.stats()
+    graph = net(*args)._data.clone()
+    st2 = net._cached_op.stats()
+    naive_err = float((naive - graph).abs().max())
+    built = [_build._lib_path(name)[1] for name in _build.SOURCES]
+    libs = libinfo.find_lib_path()
+    print("  (d) check_consistency of (a)'s first cell (%s, batch %d) over "
+          "[cpu(), %s], forward and every argument gradient: passed in %.1f "
+          "s (outputs %s); Features %s; bytes_in_use +%d over a %d-byte "
+          "allocation, stats %s; (a)'s block in predict mode inside "
+          "naive_engine(): graphs %s -> %s, then outside %s (max |diff| "
+          "%.3g); find_lib_path: %d libraries, the %d kernels' among them: "
+          "%s (%s)"
+          % (type(cell).__name__, CONSIST_BATCH, ctx, consist_s,
+             [o.shape for o in outs], on, grown, STORAGE_PROBE_BYTES,
+             stats, st0, st1, st2, naive_err, len(libs), len(built),
+             all(b in libs for b in built), card))
+    if not (on["CUDA"] and on["CUDNN"]) or on["TPU"] or on["XLA"] \
+            or on["PALLAS"]:
+        fail("(d) runtime.Features: %s" % on)
+    if grown < STORAGE_PROBE_BYTES or set(stats) != {
+            "bytes_in_use", "peak_bytes_in_use", "bytes_limit",
+            "num_allocs"}:
+        fail("(d) storage: +%d bytes over a %d-byte allocation, keys %s"
+             % (grown, STORAGE_PROBE_BYTES, sorted(stats)))
+    if st1["captures"] != st0["captures"] or st1["replays"] != \
+            st0["replays"] or st2["captures"] != st0["captures"] + 1 \
+            or naive_err > 1e-5:
+        fail("(d) naive_engine: graphs %s -> %s -> %s, |diff| %g"
+             % (st0, st1, st2, naive_err))
+    if not all(b in libs for b in built):
+        fail("(d) find_lib_path %s lacks the built kernels %s"
+             % (libs, built))
+
+
+def phase_breadth(card, tfa):
+    """Phase 31 (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import detection as det
+    t_phase = time.perf_counter()
+    ctx = mx.gpu(0)
+    tfa.reset_launches()
+    rtc.reset_launches()
+    det.reset_launches()
+    clstm = convlstm_train(mx, card, ctx)
+    lwlm = large_word_lm(mx, card, ctx)
+    svrg_on_card(mx, card, ctx)
+    helpers_on_card(mx, card, ctx, clstm)
+    launched = dict(tfa.launches, rtc=rtc.launches["rtc"], **det.launches)
+    print("  launches of the kernel table's rows 1-7 over the phase: %s; "
+          "phase 31 %.1f s" % (launched, time.perf_counter() - t_phase))
+    if any(launched.values()):
+        fail("breadth: kernels launched on a path that has none: %s"
+             % launched)
+    return dict(clstm_ms=clstm["ms"], lwlm_ms=lwlm["ms"])
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -13880,6 +14394,10 @@ def main():
     print("vision (the SSD300 and Faster R-CNN heads through nms_sweep, "
           "deformable R-FCN, mx.image, the dgl host ops):")
     vision = phase_vision(card, tfa)
+    print("the rest of the breadth (gluon.contrib.rnn: Shi et al.'s ConvLSTM "
+          "and the LSTM-2048-512 with variational dropout; SVRG fed by "
+          "contrib.io; the helpers):")
+    phase_breadth(card, tfa)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,

@@ -80,7 +80,14 @@ What is ported:
   node, captured whole in its program's CUDA graph), ``mx.operator``
   (``Custom`` ops in Python), ``autograd.Function`` and
   ``autograd.get_symbol``, ``contrib.autograd``, ``mx.monitor`` and
-  ``mx.viz``.
+  ``mx.viz``;
+- the rest of the breadth: ``gluon.contrib.rnn`` (the convolutional
+  RNN/LSTM/GRU cells, ``VariationalDropoutCell``, ``LSTMPCell``),
+  ``contrib``'s ``io``, ``svrg_optimization``, ``tensorboard``, ``text``
+  and ``onnx``, the helpers ``engine``, ``storage``, ``runtime``,
+  ``libinfo``, ``registry``, ``util`` and ``test_utils``, and the tools
+  ``parse_log``, ``flakiness_checker`` and ``lint`` (``python -m
+  mxnet_tpu_torch.tools.lint``).
 
 Typical use mirrors MXNet::
 
@@ -171,6 +178,13 @@ from . import kvstore_server
 from . import monitor
 from . import visualization
 from . import visualization as viz
+from . import engine
+from . import util
+from . import runtime
+from . import registry
+from . import libinfo
+from . import storage
+from . import test_utils
 
 
 def kvstore_create(name="local"):
@@ -194,4 +208,5 @@ __all__ = ["MXNetError", "fault", "InjectedFault", "Context", "cpu", "gpu",
            "contrib", "parallel", "CollectiveTimeoutError",
            "kvstore_module", "kv",
            "KVStore", "kvstore_server", "kvstore_create", "operator",
-           "monitor", "visualization", "viz"]
+           "monitor", "visualization", "viz", "engine", "util", "runtime",
+           "registry", "libinfo", "storage", "test_utils"]

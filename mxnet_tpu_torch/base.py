@@ -1,16 +1,80 @@
-"""Base error type and registry (counterpart of ``mxnet_tpu/base.py``)."""
+"""Base errors, registry and small helpers (counterpart of
+``mxnet_tpu/base.py``)."""
 from __future__ import annotations
 
+import os
 import threading
 
-__all__ = ["MXNetError", "Registry", "numeric_types", "integer_types"]
+__all__ = ["MXNetError", "NotImplementedForSymbol", "get_env", "Registry",
+           "string_types", "numeric_types", "integer_types",
+           "classproperty", "atomic_write_bytes"]
 
+string_types = (str,)
 numeric_types = (float, int)
 integer_types = (int,)
 
 
+def atomic_write_bytes(fname, payload):
+    """Write then rename: a preempted save leaves the old file intact,
+    never a truncated new one (symbol JSON, ONNX files)."""
+    tmp = fname + ".tmp"
+    with open(tmp, "wb") as sink:
+        sink.write(payload)
+    os.replace(tmp, fname)
+
+
 class MXNetError(RuntimeError):
     """Error raised by the framework (parity with mxnet.base.MXNetError)."""
+
+
+class NotImplementedForSymbol(MXNetError):
+    """A function that exists for NDArray and not for Symbol."""
+
+    def __init__(self, function, alias, *args):
+        super().__init__()
+        self.function = function.__name__
+        self.alias = alias
+        self.args = [str(type(a)) for a in args]
+
+    def __str__(self):
+        msg = 'Function {}'.format(self.function)
+        if self.alias:
+            msg += ' (namely operator "{}")'.format(self.alias)
+        if self.args:
+            msg += ' with arguments ({})'.format(', '.join(self.args))
+        msg += ' is not supported for Symbol and only available in NDArray.'
+        return msg
+
+
+_TRUE = ("1", "true", "True", "TRUE", "yes", "on")
+
+
+def get_env(name, default=None, dtype=None):
+    """``dmlc::GetEnv``: a typed environment lookup of any variable. The
+    framework's own ``MXNET_*`` knobs read through :mod:`.envs`."""
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    if dtype is None and default is not None:
+        dtype = type(default)
+    if dtype is bool:
+        return val in _TRUE
+    if dtype is not None:
+        try:
+            return dtype(val)
+        except ValueError:
+            return default
+    return val
+
+
+class classproperty:
+    """A read-only property of the class."""
+
+    def __init__(self, fget):
+        self.fget = fget
+
+    def __get__(self, obj, owner):
+        return self.fget(owner)
 
 
 class Registry:

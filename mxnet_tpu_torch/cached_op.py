@@ -270,11 +270,15 @@ class _Graphs:
         """``body(feed)`` by graph replay; ``feed`` is ``tensors`` with
         each data input replaced by its static buffer. Returns copies of
         the outputs. Inside another program's body (:func:`in_program`)
-        the body runs directly, its ops captured by the outer graph."""
-        from . import compile_watch
+        the body runs directly, its ops captured by the outer graph;
+        inside ``engine.naive_engine()`` it runs op by op (no capture,
+        no replay)."""
+        from . import compile_watch, engine
         from .parallel import flash_attention as fa
         if in_program():
             return list(body(list(tensors)))
+        if engine.is_naive():
+            return list(self.eager(body, tensors, data_indices))
         sig, bound = self._key(tensors, data_indices)
         entry = self._entries.get(sig)
         if entry is None or entry.bound != bound:

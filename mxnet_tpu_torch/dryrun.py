@@ -34,6 +34,8 @@ import time
 
 import numpy as np
 
+from .base import atomic_write_bytes
+
 __all__ = ["mesh_sizes", "jax_dims", "init_host", "shard_host", "SPECS",
            "dryrun_step", "dryrun_multichip", "launch_runs"]
 
@@ -261,8 +263,8 @@ def _rank_main(outdir, device, runs_json):
     except Exception:                              # noqa: BLE001
         res["error"] = traceback.format_exc()
         print(res["error"], file=sys.stderr, flush=True)
-    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
-        json.dump(res, f)
+    atomic_write_bytes(os.path.join(outdir, "rank%d.json" % rank),
+                       json.dumps(res).encode())
     return 1 if "error" in res else 0
 
 
@@ -274,8 +276,7 @@ def launch_runs(n, runs, device, outdir, timeout=900):
     the ranks' errors."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     runs_json = os.path.join(outdir, "runs.json")
-    with open(runs_json, "w") as f:
-        json.dump(runs, f)
+    atomic_write_bytes(runs_json, json.dumps(runs).encode())
     env = {k: v for k, v in os.environ.items() if not k.startswith("DMLC_")}
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     if str(device).startswith("cpu"):

@@ -22,8 +22,9 @@ from typing import Dict, Optional
 
 from .base import MXNetError
 
-__all__ = ["EnvVar", "declare", "registry", "get_bool", "get_int",
-           "get_float", "get_str", "get_path", "get_raw", "snapshot"]
+__all__ = ["EnvVar", "declare", "declared", "registry", "get_bool",
+           "get_int", "get_float", "get_str", "get_path", "get_raw",
+           "snapshot", "render_reference"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -59,6 +60,11 @@ def declare(name, kind, default, doc, group="misc"):
     var = EnvVar(name, kind, default, doc, group)
     _REGISTRY[name] = var
     return var
+
+
+def declared(name):
+    """True when ``name`` is a declared variable."""
+    return name in _REGISTRY
 
 
 def registry():
@@ -142,6 +148,14 @@ declare("MXNET_FUSED_STEP", "bool", True,
 declare("MXNET_UPDATE_ON_KVSTORE", "bool", None,
         "Run optimizer updates on the kvstore instead of the worker "
         "(default depends on the kvstore type).", _G)
+declare("MXNET_ENGINE_TYPE", "str", "ThreadedEnginePerDevice",
+        "Reported execution-engine type (reference-parity knob; "
+        "informational: torch's streams order the work).", _G)
+declare("MXNET_INT64_TENSOR_SIZE", "bool", False,
+        "Enable int64 tensor indexing (large-tensor support).", _G)
+declare("MXNET_TEST_DEFAULT_CTX", "str", None,
+        "Device context the test utilities bind to, e.g. 'cpu' or "
+        "'gpu:0'.", _G)
 
 _G = "compile"
 declare("MXNET_COMPILE_WATCH", "bool", False,
@@ -448,3 +462,27 @@ def snapshot():
     the process environment."""
     return {name: os.environ[name] for name in _REGISTRY
             if name in os.environ}
+
+
+def render_reference():
+    """The MXNET_* environment-variable reference as markdown, derived
+    from the registry (``python -m mxnet_tpu_torch.tools.lint --envs``)."""
+    lines = ["# MXNET_* environment variables",
+             "",
+             "Generated from `mxnet_tpu_torch/envs.py` by "
+             "`python -m mxnet_tpu_torch.tools.lint --envs` — do not "
+             "edit by hand.", ""]
+    groups = {}
+    for var in _REGISTRY.values():
+        groups.setdefault(var.group, []).append(var)
+    for group, entries in groups.items():
+        lines.append("## %s" % group)
+        lines.append("")
+        lines.append("| variable | type | default | description |")
+        lines.append("|---|---|---|---|")
+        for v in entries:
+            default = "" if v.default is None else repr(v.default)
+            lines.append("| `%s` | %s | `%s` | %s |"
+                         % (v.name, v.kind, default, v.doc))
+        lines.append("")
+    return "\n".join(lines)

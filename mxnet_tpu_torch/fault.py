@@ -93,7 +93,8 @@ __all__ = ["FaultPlan", "InjectedFault", "InjectedHang",
            "note_resume"]
 
 _ACTIONS = ("raise", "hang", "stall", "nan", "inf")
-_SITES = ("push", "pull", "init", "grad", "ckpt_write", "ckpt_fsync",
+_SITES = ("push", "pull", "wait", "init", "grad", "ckpt_write",
+          "ckpt_fsync",
           "serve_admit", "serve_dispatch", "serve_decode",
           "serve_route", "kv_evict",
           "kv_share", "kv_cow", "replica_lost", "proc_hb", "proc_join",

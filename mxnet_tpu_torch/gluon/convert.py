@@ -10,7 +10,8 @@ the block tree; the JAX package's blocks give the same ones, so
 BatchNorm's running statistics, PReLU's ``alpha``, InstanceNorm's
 ``gamma``/``beta`` and a transposed convolution's ``(in, out, kh, kw)``
 weight too) loads into the port's copy of it.
-The recurrent layers and cells of ``gluon.rnn`` load the same way: a
+The recurrent layers and cells of ``gluon.rnn`` and ``gluon.contrib.rnn``
+load the same way: a
 layer's per-layer, per-direction weights (``lstm.l0_i2h_weight`` ...)
 bind its deferred input width from the given array.
 """

@@ -25,7 +25,10 @@ from .. import initializer
 from .. import ndarray as nd
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
-           "ParameterDict"]
+           "ParameterDict", "tensor_types"]
+
+# the reference's name; as in the JAX package nothing sets it
+tensor_types = None
 
 
 class DeferredInitializationError(MXNetError):

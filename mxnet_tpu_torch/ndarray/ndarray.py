@@ -32,7 +32,7 @@ from .. import ops as _ops
 
 __all__ = ["NDArray", "invoke_nd", "array", "zeros", "ones", "full",
            "empty", "arange", "linspace", "eye", "moveaxis", "concatenate",
-           "save", "load", "waitall", "add", "subtract", "multiply",
+           "save", "load", "waitall", "imperative_mixed_precision", "add", "subtract", "multiply",
            "divide", "modulo", "power", "maximum", "minimum", "hypot",
            "equal", "not_equal", "greater", "greater_equal", "lesser",
            "lesser_equal", "logical_and", "logical_or", "logical_xor",
@@ -702,6 +702,11 @@ def waitall():
     """Wait for the work queued on every CUDA device."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def imperative_mixed_precision(enable=True):
+    """A no-op kept for the reference's AMP hook; mixed precision is
+    :mod:`mxnet_tpu_torch.amp`'s dtype policy."""
 
 
 def _ufunc(lhs, rhs, op, scalar_op, rscalar_op=None):

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from .registry import register, get_op  # noqa: F401  (the reference's name)
 
 _D = ("data",)
 

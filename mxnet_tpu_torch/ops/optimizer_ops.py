@@ -22,11 +22,18 @@ import torch
 
 from .registry import register
 
-__all__ = ["scalar_for", "sgd_rule", "sgd_mom_rule", "mp_sgd_rule",
+__all__ = ["scalar_for", "stable_sqrt", "sgd_rule", "sgd_mom_rule", "mp_sgd_rule",
            "mp_sgd_mom_rule", "adam_rule", "adagrad_rule", "rmsprop_rule",
            "rmspropalex_rule"]
 
 _LOW = (torch.float16, torch.bfloat16)
+
+
+def stable_sqrt(x):
+    """sqrt whose downstream division stays exact IEEE. The JAX package
+    puts an optimization barrier here against XLA's div-of-sqrt fusion;
+    torch runs the sqrt and the divide as separate exact kernels."""
+    return torch.sqrt(x)
 
 
 def scalar_for(value, like):

@@ -20,7 +20,7 @@ import ast
 from ..base import MXNetError, Registry
 
 __all__ = ["OpDef", "register", "get_op", "find_op", "list_ops", "invoke",
-           "normalize_attrs"]
+           "normalize_attrs", "attr_key"]
 
 _OP_REGISTRY = Registry("operator")
 
@@ -201,6 +201,19 @@ def normalize_attrs(op, attrs):
     if op.attr_ranges:
         op.validate_attrs(out)
     return out
+
+
+def _hashable(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(_hashable(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    return v
+
+
+def attr_key(attrs):
+    """A hashable, order-free key of an attribute dict."""
+    return tuple(sorted((k, _hashable(v)) for k, v in attrs.items()))
 
 
 def invoke(op, inputs, attrs, rng=None):

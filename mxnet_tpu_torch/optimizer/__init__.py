@@ -4,7 +4,9 @@ from .optimizer import (Optimizer, SGD, Signum, FTML, DCASGD, NAG, SGLD,
                         Nadam, LBSGD, Test, Updater, get_updater, register,
                         create)
 
+opt_registry_create = create
+
 __all__ = ["Optimizer", "SGD", "Signum", "FTML", "DCASGD", "NAG", "SGLD",
            "Adam", "AdaGrad", "AdaDelta", "RMSProp", "Ftrl", "Adamax",
            "Nadam", "LBSGD", "Test", "Updater", "get_updater", "register",
-           "create"]
+           "create", "opt_registry_create"]

@@ -77,7 +77,7 @@ from collections import deque
 from . import tracing
 from . import envs
 
-__all__ = ["enabled", "start", "stop", "reset", "maybe_start",
+__all__ = ["PHASES", "enabled", "start", "stop", "reset", "maybe_start",
            "step_begin", "step_end", "step_tick", "span", "note",
            "recent_rate", "sample_memory", "flush", "report",
            "quick_stats", "percentile", "external_record",
@@ -85,6 +85,10 @@ __all__ = ["enabled", "start", "stop", "reset", "maybe_start",
            "router_event", "prefix_cache_event",
            "bucketing_event", "alert_event", "usage_event", "comm",
            "comm_span", "comm_links", "h2d", "memory_breakdown"]
+
+# the phases a training step record splits its time into
+PHASES = ("data_wait", "compute", "optimizer", "sync", "checkpoint",
+          "eval")
 
 _lock = threading.Lock()
 _run = None          # the active _Run

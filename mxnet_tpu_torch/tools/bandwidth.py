@@ -67,9 +67,11 @@ def measure(shapes, kv_type="local", num_workers=2, num_batches=5,
             o.wait_to_read()
         dt = time.time() - t0
         gbps = 2 * total_bytes * num_workers / dt / 1e9
-        results.append({"batch": b, "error": errors,
-                        "time_s": round(dt, 4),
-                        "bandwidth_gbps": round(gbps, 6)})
+        # unrounded: a small payload over a slow batch is a few kB/s,
+        # which six decimals of GB/s would read as 0; main() rounds
+        # where it logs
+        results.append({"batch": b, "error": errors, "time_s": dt,
+                        "bandwidth_gbps": gbps})
     return results
 
 

@@ -1,7 +1,7 @@
 """The port's top-level names against the JAX package's, and two faults
 found there: the names ``mxnet_tpu/__init__.py`` exports must resolve on
-``mxnet_tpu_torch`` (those of modules not ported yet are listed below,
-each with its ROADMAP item), importing the package must build no CUDA
+``mxnet_tpu_torch`` (the two the port does not carry are listed below,
+each with its reason), importing the package must build no CUDA
 kernel, and ``Pooling`` on 2-D data with no kernel must return what the
 JAX package returns."""
 import ast
@@ -25,13 +25,9 @@ def _port_on_cpu(monkeypatch):
     monkeypatch.setenv("MXNET_DEFAULT_CONTEXT", "cpu")
 
 
-# public names of mxnet_tpu/__init__.py the port does not carry yet, with
-# the ROADMAP queue A item (or the reason) that brings them
+# public names of mxnet_tpu/__init__.py the port does not carry, with the
+# reason
 UNPORTED = {
-    "engine": "item 8",
-    "util": "item 8", "runtime": "item 8", "registry": "item 8",
-    "libinfo": "item 8", "storage": "item 8",
-    "test_utils": "item 8",
     "tpu": "TPU devices: the port runs on CUDA devices",
     "num_tpus": "TPU devices: the port runs on CUDA devices",
 }
