@@ -721,6 +721,39 @@ no result, anywhere else. Phases (any failure exits non-zero):
    counts of the kernel table's rows 1-7 (attention, decode, rtc,
    nms_sweep), zeroed before, read 0 over the phase.
 
+32. contexts on distinct devices in one process: the in-process ``dp``
+   mesh over ``[gpu(0), cpu(0)]`` (cuda:0 and the host, the two torch
+   devices this machine has; N CUDA devices take the same code path),
+   fp32, TF32 off. (a) BASELINE config 5 at its published width,
+   ``resnet18_v1(classes=10)`` on 3x32x32 as phase 22 builds it (Xavier,
+   hybridized, SGD momentum 0.9, lr 0.05; the compared steps start
+   after 10 steps on gpu(0), past the moving means' zero start, see
+   DM_WARM), batch 32 through
+   ``split_and_load`` (16 a shard), 4 steps against a twin on
+   ``[gpu(0)]`` from the same weights and data: losses within rtol
+   5e-4, atol 5e-5, final weights within rtol 5e-3, atol 1e-4 (the JAX
+   oracle's, tests/test_data_parallel.py); ms a step, each shard's share
+   (its 16 images' forward and backward alone on its device), and the
+   gather counter per op (``ops.mesh_stats()``), empty for ResNet-18.
+   (b) the same net as a Symbol with a ``SoftmaxOutput`` head:
+   ``Module(context=[gpu(0), cpu(0)]).fit`` over 4 batches against the
+   one-context twin (per-batch cross-entropy and final weights, the
+   same tolerances), a bind at batch 33 raises ``MXNetError``, and
+   ``get_outputs()[0]`` is one global (32, 10) array. (c) (a) again
+   under ``MXNET_GRAD_OVERLAP=1``: the bucketed reduce-scatter and
+   ZeRO-1 sharded update over the two devices equals (a)'s plain run at
+   the same tolerances, each device holding its slice of the momentum;
+   then, under the non-finite guard, an inf planted in the CPU shard's
+   head gradient skips that step on both devices (weights unchanged,
+   ``skipped_steps`` 1) and the next step trains. (d)
+   ``gluon.contrib.nn.MeshMultiHeadAttention`` (units 256, 4 heads,
+   causal) over the mesh at B4 T256 H4 D64, forward and backward,
+   against the one-device run (rtol = atol = 1e-5 forward, 1e-4 the
+   gradients); the flash_fwd/flash_bwd_dkdv/flash_bwd_dq launch counts
+   over the mesh run equal those of a gpu(0) run over the CUDA shard's
+   B2 alone (the CPU shard runs the plain versions), and the kernels at
+   that shape against their plain versions, timed.
+
 Cuts for phase 31's time (in depth: every check kept): phase 24 (b)'s
 timed Ulysses/ring iterations MESH_SP_ITERS 3 -> 1; phases 24 (a) and
 27 FT_STEPS 2 -> 1 an epoch (MESH_STEPS 4 -> 2 Adam steps; phase 27 (b)'s
@@ -735,7 +768,8 @@ path (``path``: server, observability, training, int8 decode, rtc,
 packing, mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches,
 serving (InferenceServer), fault tolerance (b), rank 0's launches in
 its second generation, LM artifact (InferenceServer), CPU-exported
-artifact, decode artifact, ssd detection or rpn proposal;
+artifact, decode artifact, ssd detection or rpn proposal, in-process
+mesh [gpu(0), cpu(0)];
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -14301,6 +14335,329 @@ def phase_breadth(card, tfa):
     return dict(clstm_ms=clstm["ms"], lwlm_ms=lwlm["ms"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: contexts on distinct devices in one process
+# ---------------------------------------------------------------------------
+
+DM_BATCH = 32                       # 16 images a shard
+DM_STEPS = 4
+# the compared steps start from Xavier weights trained DM_WARM steps on
+# gpu(0): with the moving means still at 0, BatchNorm's one-pass variance
+# (shifted by the moving mean, the JAX package's numerics) cancels on
+# channels whose mean dwarfs their spread, and two summation orders of
+# one device part by ~1e-3 in the loss within 4 steps
+DM_WARM = 10
+DM_SGD = dict(learning_rate=0.05, momentum=0.9)
+DM_LOSS_TOL = dict(rtol=5e-4, atol=5e-5)
+DM_W_TOL = dict(rtol=5e-3, atol=1e-4)
+DM_ATT = dict(B=4, T=256, H=4, D=64)
+DM_ATT_SHAPE = "B2 T256 H4 D64 causal (the CUDA shard of B4)"
+DM_ATT_TOL = dict(rtol=1e-5, atol=1e-5)
+DM_ATT_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def dm_contexts(mx):
+    return [mx.gpu(0), mx.cpu(0)]
+
+
+def dm_resnet(mx, ctx_list, init=None):
+    """resnet18_v1(classes=10) initialized over ``ctx_list`` (Xavier),
+    its parameters set to ``init`` (collect_params order) when given,
+    hybridized; (net, parameter list)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.resnet18_v1(classes=10)
+    net.initialize(mx.init.Xavier(), ctx=ctx_list)
+    net(mx.nd.zeros((1, 3, 32, 32), ctx=ctx_list[0]))
+    params = list(net.collect_params().values())
+    if init is not None:
+        for p, v in zip(params, init):
+            p.set_data(mx.nd.array(v, ctx=ctx_list[0]))
+    net.hybridize()
+    return net, params
+
+
+def dm_gluon(mx, ctx_list, init, x, y, head=None):
+    """DM_STEPS Trainer steps of the hybridized ResNet-18 over
+    ``ctx_list``, each batch through split_and_load; ``head(step)``: a
+    head gradient (numpy) for that step, or None. Returns the losses,
+    the host weights after every step, the ms of each step and the
+    trainer."""
+    from mxnet_tpu_torch import autograd, gluon
+    net, params = dm_resnet(mx, ctx_list, init)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(DM_SGD))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, weights, ms = [], [], []
+    for s in range(DM_STEPS):
+        xs = gluon.utils.split_and_load(x[s], ctx_list)
+        ys = gluon.utils.split_and_load(y[s], ctx_list)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            ls = [loss_fn(net(a), b) for a, b in zip(xs, ys)]
+        hg = head(s) if head is not None else None
+        for loss in ls:
+            loss.backward(None if hg is None
+                          else mx.nd.array(hg, ctx=ctx_list[0]))
+        trainer.step(DM_BATCH)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.mean([l.asnumpy().mean() for l in ls])))
+        weights.append([p.data().asnumpy().copy() for p in params
+                        if p.grad_req != "null"])
+    return losses, weights, ms, trainer
+
+
+def dm_warm(mx, x, y):
+    """Xavier weights (seed 32) trained DM_WARM Trainer steps on gpu(0):
+    every parameter and moving statistic, collect_params order."""
+    from mxnet_tpu_torch import autograd, gluon
+    mx.random.seed(32)
+    net, params = dm_resnet(mx, [mx.gpu(0)])
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(DM_SGD))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for s in range(DM_WARM):
+        a, b = mx.nd.array(x[s], ctx=mx.gpu(0)), mx.nd.array(y[s],
+                                                               ctx=mx.gpu(0))
+        with autograd.record():
+            loss = loss_fn(net(a), b)
+        loss.backward()
+        trainer.step(DM_BATCH)
+    return [p.data().asnumpy() for p in params]
+
+
+def dm_shard_ms(mx, init, x, y, ctx):
+    """One shard's share: ms of the forward and backward of its
+    DM_BATCH // 2 images alone on its device (median of 3, after one
+    warm-up)."""
+    from mxnet_tpu_torch import autograd, gluon
+    net, _ = dm_resnet(mx, [ctx], init)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    xs = mx.nd.array(x[0][:DM_BATCH // 2], ctx=ctx)
+    ys = mx.nd.array(y[0][:DM_BATCH // 2], ctx=ctx)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(xs), ys)
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def dm_close(what, got, want, tol):
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.allclose(got, want, **tol):
+        fail("%s: max |diff| %.3g (tolerance %s)"
+             % (what, float(np.max(np.abs(got - want))), tol))
+
+
+def dm_weights_close(what, got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        dm_close("%s, parameter %d" % (what, i), a, b, DM_W_TOL)
+
+
+def dm_module(mx, init, x, y):
+    """(b): Module.fit over the mesh against the one-context twin, both
+    from ``init`` (collect_params order)."""
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    block = vision.resnet18_v1(classes=10)
+    sym = mx.sym.SoftmaxOutput(block(mx.sym.var("data")), name="softmax")
+    init_args = ({}, {})
+    for p, v in zip(block.collect_params().values(), init):
+        init_args[p.grad_req == "null"][p.name] = mx.nd.array(v)
+    data = np.concatenate(x[:DM_STEPS])
+    label = np.concatenate(y[:DM_STEPS])
+    runs = {}
+    for name, ctx in (("mesh", dm_contexts(mx)), ("twin", mx.gpu(0))):
+        it = mx.io.NDArrayIter(data, label, batch_size=DM_BATCH,
+                               label_name="softmax_label")
+        mod = mx.mod.Module(sym, context=ctx)
+        ce = []
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=dict(DM_SGD),
+                arg_params=init_args[0], aux_params=init_args[1],
+                eval_metric=metric.create("ce"),
+                batch_end_callback=lambda p, ce=ce: ce.append(
+                    p.eval_metric.get()[1]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        arg, _ = mod.get_params()
+        runs[name] = (mod, ce, {k: v.asnumpy() for k, v in arg.items()},
+                      secs)
+    mod, ce, arg, secs = runs["mesh"]
+    twin, ce1, arg1, secs1 = runs["twin"]
+    dm_close("(b) per-batch cross-entropy, mesh vs twin", ce, ce1,
+             DM_LOSS_TOL)
+    for k in arg1:
+        dm_close("(b) %s, mesh vs twin" % k, arg[k], arg1[k], DM_W_TOL)
+    if mod._exec.mesh is None:
+        fail("(b) the Module did not bind over the mesh")
+    batch = mx.io.DataBatch(data=[mx.nd.array(x[0])],
+                            label=[mx.nd.array(y[0])])
+    mod.forward(batch, is_train=False)
+    out = mod.get_outputs()[0]
+    twin.forward(batch, is_train=False)
+    if not isinstance(out, mx.nd.MeshNDArray) \
+            or out.shape != (DM_BATCH, 10) \
+            or not np.isfinite(out.asnumpy()).all():
+        fail("(b) get_outputs()[0] is %s of shape %s, not one global "
+             "(32, 10) array" % (type(out).__name__, out.shape))
+    dm_close("(b) predict outputs, mesh vs twin", out.asnumpy(),
+             twin.get_outputs()[0].asnumpy(), DM_W_TOL)
+    odd = mx.mod.Module(sym, context=dm_contexts(mx))
+    try:
+        odd.bind(data_shapes=[("data", (DM_BATCH + 1, 3, 32, 32))],
+                 label_shapes=[("softmax_label", (DM_BATCH + 1,))])
+    except mx.base.MXNetError as e:
+        odd_msg = str(e)
+    else:
+        fail("(b) a bind at batch %d over two devices did not raise"
+             % (DM_BATCH + 1))
+    print("  (b) Module.fit over the mesh, %d batches: %.2f s (twin on "
+          "gpu(0): %.2f s), cross-entropy %s vs twin %s; outputs one "
+          "global %s; batch 33 raised: %s"
+          % (DM_STEPS, secs, secs1, ["%.5f" % v for v in ce],
+             ["%.5f" % v for v in ce1], out.shape, odd_msg[:60]))
+    return dict(fit_s=secs, twin_fit_s=secs1)
+
+
+def dm_attention(mx, tfa):
+    """(d): MeshMultiHeadAttention over the mesh, forward and backward,
+    against the one-device run; the kernels' launch counts from the
+    mesh run against a gpu(0) run over the CUDA shard's half."""
+    from mxnet_tpu_torch import autograd
+    B, T, H, D = (DM_ATT[k] for k in "BTHD")
+    x = np.random.RandomState(32).randn(B, T, H * D).astype(np.float32)
+    weights, runs = None, {}
+    for name, ctx_list, rows in (("twin", [mx.gpu(0)], B),
+                                 ("shard", [mx.gpu(0)], B // 2),
+                                 ("mesh", dm_contexts(mx), B)):
+        net = mx.gluon.contrib.nn.MeshMultiHeadAttention(H * D, H,
+                                                         causal=True)
+        net.initialize(mx.init.Xavier(), ctx=ctx_list)
+        net(mx.nd.array(x[:1], ctx=ctx_list[0]))
+        params = net._collect_params_with_prefix()
+        if weights is None:
+            weights = {k: p.data().asnumpy() for k, p in params.items()}
+        for k, p in params.items():
+            p.set_data(mx.nd.array(weights[k], ctx=ctx_list[0]))
+        xs = mx.gluon.utils.split_and_load(x[:rows], ctx_list)[0]
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        t0 = time.perf_counter()
+        with autograd.record():
+            y = net(xs)
+        y.backward()
+        torch.cuda.synchronize()
+        runs[name] = (y.asnumpy(), {k: p.grad().asnumpy()
+                                    for k, p in params.items()},
+                      dict(tfa.launches), (time.perf_counter() - t0) * 1e3)
+    out, grads, launches, ms = runs["mesh"]
+    dm_close("(d) attention forward, mesh vs one device", out,
+             runs["twin"][0], DM_ATT_TOL)
+    for k in grads:
+        dm_close("(d) %s gradient, mesh vs one device" % k, grads[k],
+                 runs["twin"][1][k], DM_ATT_GRAD_TOL)
+    want = runs["shard"][2]
+    if launches != want or not all(launches[k] for k in TRAIN_KERNELS):
+        fail("(d) kernel launches over the mesh %s, the CUDA shard's "
+             "alone %s" % (launches, want))
+    print("  (d) MeshMultiHeadAttention B%d T%d H%d D%d causal over the "
+          "mesh: fwd + bwd %.1f ms (one device %.1f ms); launches %s, the "
+          "CUDA shard's B%d alone: %s; the CPU shard ran the plain versions"
+          % (B, T, H, D, ms, runs["twin"][3], launches, B // 2, want))
+    return launches
+
+
+def phase_device_mesh(card, tfa):
+    """Phase 32 (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fault, ops
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctxs = dm_contexts(mx)
+    xs, ys = kv_cifar((DM_WARM + DM_STEPS) * DM_BATCH, seed=32)
+    x = xs.reshape(-1, DM_BATCH, 3, 32, 32)
+    y = ys.reshape(-1, DM_BATCH)
+    init = dm_warm(mx, x, y)
+    x, y = x[DM_WARM:], y[DM_WARM:]
+    # (a)
+    ops.reset_mesh_stats()
+    mesh_l, mesh_w, mesh_ms, _ = dm_gluon(mx, ctxs, init, x, y)
+    gathers = ops.mesh_stats()["gathers"]
+    twin_l, twin_w, twin_ms, _ = dm_gluon(mx, [mx.gpu(0)], init, x, y)
+    dm_close("(a) losses, mesh vs twin", mesh_l, twin_l, DM_LOSS_TOL)
+    dm_weights_close("(a) final weights, mesh vs twin", mesh_w[-1],
+                     twin_w[-1])
+    if gathers:
+        fail("(a) ops gathered on ResNet-18's path: %s" % gathers)
+    cuda_share = dm_shard_ms(mx, init, x, y, mx.gpu(0))
+    cpu_share = dm_shard_ms(mx, init, x, y, mx.cpu(0))
+    print("  (a) ResNet-18 (config 5) batch %d over [gpu(0), cpu(0)] (%s): "
+          "%.1f ms a step (steps 2-%d: %s), twin on gpu(0) %.1f ms; the "
+          "shards' shares, each 16 images' fwd + bwd alone: cuda:0 %.1f "
+          "ms, cpu %.1f ms; losses %s (twin %s); gathers %s"
+          % (DM_BATCH, card, statistics.median(mesh_ms[1:]), DM_STEPS,
+             ["%.1f" % v for v in mesh_ms[1:]],
+             statistics.median(twin_ms[1:]), cuda_share, cpu_share,
+             ["%.5f" % v for v in mesh_l], ["%.5f" % v for v in twin_l],
+             gathers))
+    # (b)
+    module = dm_module(mx, init, x, y)
+    # (c)
+    with env_set("MXNET_GRAD_OVERLAP", "1"):
+        sync_l, sync_w, sync_ms, sync_tr = dm_gluon(mx, ctxs, init, x, y)
+        fused = sync_tr._fused_updater
+        if fused is None or fused._sync_mesh is None:
+            fail("(c) the Trainer's update did not take the in-program "
+                 "sync over the mesh")
+        devices = sorted({str(s.device) for f in fused._sync_state.ensure()
+                          for s in f.shards})
+        dm_close("(c) losses, sync vs (a)", sync_l, mesh_l, DM_LOSS_TOL)
+        dm_weights_close("(c) final weights, sync vs (a)", sync_w[-1],
+                         mesh_w[-1])
+
+        def head(step):
+            g = np.ones((DM_BATCH,), np.float32)
+            if step == 1:
+                g[-1] = np.inf          # a row of the CPU shard
+            return g
+        with guard_on():
+            _, bad_w, _, _ = dm_gluon(mx, ctxs, init, x, y, head)
+            skipped = fault.stats()["skipped_steps"]
+        if skipped != 1:
+            fail("(c) the guard counted %d skipped steps, not 1" % skipped)
+        if any(not np.array_equal(a, b) for a, b in zip(bad_w[1],
+                                                         bad_w[0])):
+            fail("(c) a weight moved in the poisoned step")
+        if all(np.array_equal(a, b) for a, b in zip(bad_w[2], bad_w[1])):
+            fail("(c) the step after the poisoned one did not train")
+    print("  (c) MXNET_GRAD_OVERLAP=1: %d buckets, ZeRO-1 momentum slices "
+          "on %s, %.1f ms a step; losses %s; the poisoned step (an inf in "
+          "the CPU shard's head gradient) skipped on both devices, "
+          "skipped_steps %d"
+          % (len(fused._sync_plan.buckets), devices,
+             statistics.median(sync_ms[1:]), ["%.5f" % v for v in sync_l],
+             skipped))
+    # (d)
+    launches = dm_attention(mx, tfa)
+    print("  the kernels at the CUDA shard's shape (%s):" % DM_ATT_SHAPE)
+    B, T, H, D = DM_ATT["B"] // 2, DM_ATT["T"], DM_ATT["H"], DM_ATT["D"]
+    kern = dict(bwd_case(tfa, B, T, T, H, D, True, False, seed=32),
+                flash_fwd=fwd_case(tfa, B, T, T, H, D, True, False,
+                                   seed=32))
+    secs = time.perf_counter() - t_phase
+    print("  phase 32 %.1f s" % secs)
+    return dict(launches=launches, kern=kern, seconds=secs,
+                step_ms=statistics.median(mesh_ms[1:]),
+                cuda_share_ms=cuda_share, cpu_share_ms=cpu_share, **module)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -14398,6 +14755,10 @@ def main():
           "and the LSTM-2048-512 with variational dropout; SVRG fed by "
           "contrib.io; the helpers):")
     phase_breadth(card, tfa)
+    print("contexts on distinct devices in one process (the in-process dp "
+          "mesh over [gpu(0), cpu(0)]: Gluon, Module, the in-program sync, "
+          "attention on a shard):")
+    dmesh = phase_device_mesh(card, tfa)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -14470,7 +14831,13 @@ def main():
             ("ssd detection", "B%d n%d corner IoU, class-gated"
              % (SSD_BATCH, SSD_ANCHORS), "ssd"),
             ("rpn proposal", "B1 n%d +1 IoU"
-             % RCNN_RPN["rpn_pre_nms_top_n"], "rpn"))]
+             % RCNN_RPN["rpn_pre_nms_top_n"], "rpn"))] + [
+        kernel_row(kname, FWD_SRC if kname == "flash_fwd" else BWD_SRC[kname],
+                   FWD_TPU if kname == "flash_fwd" else BWD_TPU[kname],
+                   "in-process mesh [gpu(0), cpu(0)]", DM_ATT_SHAPE,
+                   dmesh["launches"], dmesh["kern"][kname],
+                   dmesh["kern"][kname]["err"])
+        for kname in TRAIN_KERNELS]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))

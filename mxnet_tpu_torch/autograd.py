@@ -18,6 +18,10 @@ exists for API parity: the forward already ran in the recorded mode.
 outputs of the ops it runs under ``record()`` (the JAX package walks its
 tape). :class:`Function` is a user's differentiable function over
 NDArrays, bridged to a ``torch.autograd.Function``.
+
+A variable split over the in-process mesh (a ``MeshNDArray``) is one
+leaf a shard; its gradient is the shards' joined on the mesh's first
+device, in its one (whole) gradient buffer.
 """
 from __future__ import annotations
 
@@ -107,11 +111,47 @@ def mark_variables(variables, gradients, grad_reqs="write"):
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for var, g, req in zip(variables, gradients, grad_reqs):
-        var._data = var._data.detach().requires_grad_(req != "null")
-        var._data._mx_owner = weakref.ref(var)
+        if _leaf_parts(var) is not None:
+            var._mt = var._mt.map(
+                lambda t: t.detach().requires_grad_(req != "null"))
+        else:
+            var._data = var._data.detach().requires_grad_(req != "null")
+        for leaf in _leaves(var):
+            leaf._mx_owner = weakref.ref(var)
         var.grad = g if req != "null" else None
         var._grad_req = req
         var._fresh_grad = False
+
+
+def _leaf_parts(var):
+    """A split mesh variable's shards, else None."""
+    from .parallel.mesh import is_split
+    mt = getattr(var, "_mt", None)
+    return mt.shards if is_split(mt) else None
+
+
+def _leaves(var):
+    """The torch leaves of a variable: its tensor, or a split mesh
+    variable's shards."""
+    parts = _leaf_parts(var)
+    return [var._data] if parts is None else parts
+
+
+def _joined(variables, grads):
+    """One gradient a variable from :func:`_leaves`' order: a split
+    variable's shards' gradients joined (None when a shard's is)."""
+    from .parallel.collectives import device_gather
+    grads, out = list(grads), []
+    for var in variables:
+        n = len(_leaves(var))
+        part, grads = grads[:n], grads[n:]
+        if _leaf_parts(var) is None:
+            out.append(part[0])
+        elif any(g is None for g in part):
+            out.append(None)
+        else:
+            out.append(device_gather(part, var._mt.device, var._mt.axis))
+    return out
 
 
 def _variables(roots):
@@ -138,21 +178,41 @@ def _variables(roots):
     for leaf in found:
         ref = getattr(leaf, "_mx_owner", None)
         owner = ref() if ref is not None else None
-        if owner is not None and owner._data is leaf \
-                and owner.grad is not None:
+        if owner is not None and owner.grad is not None \
+                and any(leaf is t for t in _leaves(owner)) \
+                and all(owner is not o for o in out):
             out.append(owner)
     return out
 
 
 def _head_grads(heads, head_grads):
+    """One head gradient a root of :func:`_roots`: ones by default; a
+    given one is split as its mesh head is."""
+    from .ndarray.ndarray import raw_value
+    from .parallel.mesh import is_split
     if head_grads is None:
         head_grads = [None] * len(heads)
-    return [torch.ones_like(h._data) if g is None else g._data
-            for h, g in zip(heads, head_grads)]
+    out = []
+    for h, g in zip(heads, head_grads):
+        v = raw_value(h)
+        if not is_split(v):
+            out.append(torch.ones_like(h._data) if g is None else g._data)
+        elif g is None:
+            out.extend(torch.ones_like(s) for s in v.shards)
+        else:
+            out.extend(v.mesh.split(g._data, v.axis).shards)
+    return out
 
 
 def _roots(heads):
-    roots = [h._data for h in heads]
+    """The heads' tensors: a mesh head's shards, each its own root (the
+    backward of every shard runs on its device)."""
+    from .ndarray.ndarray import raw_value
+    from .parallel.mesh import is_split
+    roots = []
+    for h in heads:
+        v = raw_value(h)
+        roots.extend(v.shards if is_split(v) else [h._data])
     if not any(r.requires_grad for r in roots):
         raise MXNetError("cannot call backward: no ops were recorded "
                          "(use autograd.record())")
@@ -167,10 +227,11 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     variables = _variables(roots)
     if not variables:
         return
-    grads = torch.autograd.grad(roots, [v._data for v in variables],
+    grads = torch.autograd.grad(roots, [t for v in variables
+                                        for t in _leaves(v)],
                                 _head_grads(heads, head_grads),
                                 retain_graph=retain_graph, allow_unused=True)
-    for var, g in zip(variables, grads):
+    for var, g in zip(variables, _joined(variables, grads)):
         if g is None:
             continue
         _store_grad(var, g)
@@ -209,10 +270,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         head_grads = [head_grads]
     heads = list(heads)
     with torch.set_grad_enabled(create_graph and is_recording()):
-        grads = torch.autograd.grad(
-            _roots(heads), [v._data for v in variables],
+        grads = _joined(variables, torch.autograd.grad(
+            _roots(heads), [t for v in variables for t in _leaves(v)],
             _head_grads(heads, head_grads), retain_graph=retain_graph,
-            create_graph=create_graph, allow_unused=True)
+            create_graph=create_graph, allow_unused=True))
     if any(g is None for g in grads):
         raise MXNetError("one of the variables does not participate in "
                          "the computation of heads")

@@ -43,6 +43,12 @@ under its site (``op:_cachedopN.<head>`` here): a capture on the card,
 or the first call of a signature on the CPU, is one recorded compile
 while the watch is on.
 
+Over a batch split on the in-process mesh (a ``MeshNDArray`` input:
+``split_and_load`` over contexts on distinct devices) the plan runs node
+by node in lockstep over the shards, each node by its op's mesh rule
+(``ops.registry.call``), in both modes and never as a CUDA graph;
+``ops.mesh_stats()`` counts each such call under ``lockstep``.
+
 A plan that runs inside another program's body (an
 ``InferenceServer`` bucket over an in-process callable holding a
 hybridized block) runs op by op there: its ops are captured by the outer
@@ -138,8 +144,7 @@ def build_graph_callable(symbol):
                      for (kind, ref, i) in bindings]
             a = dict(nattrs, __train__=is_train) \
                 if "__train__" in op.defaults else nattrs
-            out = op.forward(a, *ivals, rng=rng) if op.needs_rng \
-                else op.forward(a, *ivals)
+            out = _ops.call(op, a, ivals, rng)
             if not isinstance(out, (tuple, list)):
                 out = (out,)
             k = op.resolve_num_outputs(a)
@@ -409,7 +414,7 @@ class CachedOp:
             defaults={"__train__": False}, num_outputs=n_out,
             needs_rng=bool(n_rng),
             mutable_inputs=range(len(arg_names), self.num_inputs),
-            description="CachedOp(%s)" % outs)
+            description="CachedOp(%s)" % outs, mesh="native")
         self.graphs = _Graphs()
         from .compile_watch import Site
         self.graphs.site = Site("op:%s" % self._op.name,
@@ -423,6 +428,10 @@ class CachedOp:
                 "CachedOp expects %d inputs (%d args + %d aux), got %d"
                 % (self.num_inputs, len(self.arg_names),
                    len(self.aux_names), len(inputs)))
+        from .parallel.mesh import is_split
+        from .ndarray.ndarray import raw_value
+        if any(is_split(raw_value(x)) for x in inputs):
+            return invoke_nd(self._op, list(inputs), {})
         tensors = [x._data for x in inputs]
         serves = self.graphs.serves(tensors)
         if serves and self._host_code:

@@ -48,12 +48,22 @@ leaves placement off.
 
 A bind over a context list whose contexts resolve to one torch device
 (``[cpu(0), cpu(1)]`` on the host, ``[gpu(0), gpu(0)]`` on the card) is
-one executor over the whole batch, as the JAX package's mesh program
-computes; contexts on distinct devices raise (the mesh, ROADMAP queue A
-item 12, order step 6). The predict program reports to the compile
-watch under ``executor:fwd:eval`` (``bucketing:<shape>`` for a bucket of
-a shape ladder); the train programs, op by op, have no site. Not ported:
-the compile-cache token (ROADMAP queue A step 7).
+one executor over the whole batch. Over contexts on distinct devices
+(``[gpu(0), cpu(0)]``) it is the JAX package's in-program data
+parallelism over their in-process ``dp`` mesh: the batch arguments
+(``batch_args``: a Module's data and labels) are ``MeshNDArray`` s split
+on dim 0 (one whose dim 0 does not divide stays whole, replicated, as in
+the JAX package; ``Module`` raises for it), the parameters and auxiliary states stay one array on
+the first device, replicated to each shard by the ops' mesh rules
+(``ops.registry.call``), and the outputs are global arrays. Both modes
+run the plan node by node in lockstep over the shards (never a CUDA
+graph), each run counted under ``lockstep`` in ``ops.mesh_stats()``;
+the gradients of the parameters are the whole batch's (autograd adds the
+shards'). ``group2ctx`` over such a list raises. The predict program
+reports to the compile watch under ``executor:fwd:eval``
+(``bucketing:<shape>`` for a bucket of a shape ladder); the train
+programs, op by op, have no site. Not ported: the compile-cache token
+(ROADMAP queue A step 7).
 """
 from __future__ import annotations
 
@@ -62,17 +72,31 @@ import torch
 from .base import MXNetError
 from .context import Context
 from . import ops as _ops
+from .parallel.mesh import MeshTensor, is_split
 
 __all__ = ["Executor"]
 
 
-def _single_context(ctx):
-    """The one context of a bind: a list's contexts must resolve to one
-    torch device (``parallel.mesh.one_device``)."""
+def _bind_context(ctx):
+    """``(first context, mesh)`` of a bind: the mesh is the list's
+    in-process ``DeviceMesh`` when its contexts resolve to distinct torch
+    devices, else None."""
     if isinstance(ctx, (list, tuple)):
-        from .parallel.mesh import one_device
-        return one_device(ctx, "bind")
-    return ctx if isinstance(ctx, Context) else Context(ctx)
+        from .context import as_context
+        from .parallel.mesh import context_mesh
+        ctxs = [as_context(c) for c in ctx]
+        return ctxs[0], context_mesh(ctxs)
+    return (ctx if isinstance(ctx, Context) else Context(ctx)), None
+
+
+def _parts(value):
+    """A value's tensors: a split ``MeshTensor``'s shards, else itself."""
+    return value.shards if is_split(value) else [value]
+
+
+def _ones_like(v):
+    return v.map(torch.ones_like) if isinstance(v, MeshTensor) \
+        else torch.ones_like(v)
 
 
 class Executor:
@@ -84,7 +108,7 @@ class Executor:
         self._symbol = symbol
         self._group2ctx = group2ctx
         self._ctx_arg = ctx
-        self._ctx = _single_context(ctx)
+        self._ctx, self._mesh = _bind_context(ctx)
         self._batch_args = set(batch_args or ())
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -129,6 +153,16 @@ class Executor:
             raise MXNetError("bind: expected %d aux states, got %d"
                              % (len(self.aux_names), len(self.aux_arrays)))
 
+        if self._mesh is not None:
+            if group2ctx:
+                raise MXNetError(
+                    "bind: group2ctx over contexts on distinct devices "
+                    "(%s) places segments and splits the batch at once; "
+                    "give one or the other" % (self._mesh,))
+            self.arg_arrays = [self._mesh_batch(a) if n in
+                               self._batch_args else a
+                               for n, a in zip(self.arg_names,
+                                               self.arg_arrays)]
         self.arg_dict = dict(zip(self.arg_names, self.arg_arrays))
         self.grad_dict = dict(zip(self.arg_names, self.grad_arrays))
         self.aux_dict = dict(zip(self.aux_names, self.aux_arrays))
@@ -150,6 +184,22 @@ class Executor:
             placement.place(self._plan, self._op_devices, self.arg_arrays,
                             self.grad_arrays, self.aux_arrays)
             self._bias_defer = {}
+
+    def _mesh_batch(self, arr):
+        """A batch argument as a ``MeshNDArray`` split on dim 0 over the
+        mesh; one that does not split stays as it is (replicated)."""
+        from .ndarray.ndarray import MeshNDArray
+        if isinstance(arr, MeshNDArray) or not arr.shape \
+                or arr.shape[0] % self._mesh.size:
+            return arr
+        return MeshNDArray(self._mesh.split(
+            arr._data.detach().to(self._mesh.devices[0]), 0), self._ctx)
+
+    @property
+    def mesh(self):
+        """The in-process ``dp`` mesh of a bind over contexts on distinct
+        devices; None otherwise."""
+        return self._mesh
 
     # -- graph plan ------------------------------------------------------
     def _build_plan(self):
@@ -275,8 +325,8 @@ class Executor:
                 if devices is not None:
                     # the cross-group transfer: a no-op inside a segment
                     vals = [v.to(devices[pi]) for v in vals]
-                out = op.forward(attrs, *vals, rng=rngs[pi]) \
-                    if op.needs_rng else op.forward(attrs, *vals)
+                out = _ops.call(op, attrs, vals,
+                                rngs[pi] if op.needs_rng else None)
                 if not isinstance(out, (tuple, list)):
                     out = (out,)
                 n_out = op.resolve_num_outputs(attrs)
@@ -302,10 +352,15 @@ class Executor:
         """Write the given inputs into the bound arrays, in place (a new
         tensor only where the shape changes: a new signature)."""
         from .ndarray import NDArray
+        from .ndarray.ndarray import MeshNDArray
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown argument %s" % k)
             dst = self.arg_dict[k]
+            if isinstance(dst, MeshNDArray):
+                src = v if isinstance(v, NDArray) else torch.as_tensor(v)
+                dst.assign(src)
+                continue
             src = v._data if isinstance(v, NDArray) else torch.as_tensor(v)
             # a floating NDArray of another float dtype (a bfloat16 batch
             # for bfloat16 weights): the bound array adopts its dtype
@@ -320,16 +375,21 @@ class Executor:
                                      copy=True))
 
     def _values(self):
-        return ([a._data for a in self.arg_arrays],
+        from .ndarray.ndarray import raw_value
+        return ([raw_value(a) for a in self.arg_arrays],
                 [a._data for a in self.aux_arrays])
 
     def _store_outputs(self, outs):
-        from .ndarray import NDArray
+        from .ndarray.ndarray import MeshNDArray, wrap_value
         for i, o in enumerate(outs):
-            if self.outputs[i] is None:
-                self.outputs[i] = NDArray(o)
+            cur = self.outputs[i]
+            if cur is None or isinstance(cur, MeshNDArray) \
+                    != isinstance(o, MeshTensor):
+                self.outputs[i] = wrap_value(o, self._ctx)
+            elif isinstance(cur, MeshNDArray):
+                cur._mt = o
             else:
-                self.outputs[i]._data = o
+                cur._data = o
 
     def _store_aux(self, old, new_aux):
         """The moving statistics an op updated, copied into their arrays."""
@@ -345,6 +405,10 @@ class Executor:
         args, aux = self._values()
         run = self._make_graph_fn(False)
         tensors = args + aux
+        if self._mesh is not None:
+            _ops.registry.note_lockstep("executor:fwd:eval")
+            with torch.no_grad():
+                return run(args, aux)[0]
         if self._op_devices is not None:
             self._grouped_runs += 1
             with torch.no_grad():
@@ -389,8 +453,15 @@ class Executor:
         args = list(args)
         leaves = []
         for p in self._grad_positions:
-            args[p] = args[p].detach().requires_grad_(True)
+            args[p] = args[p].detach()
+            if isinstance(args[p], MeshTensor):
+                for shard in args[p].shards:
+                    shard.requires_grad_(True)
+            else:
+                args[p].requires_grad_(True)
             leaves.append(args[p])
+        if self._mesh is not None:
+            _ops.registry.note_lockstep("executor:fwd:train")
         with torch.enable_grad():
             outs, new_aux = self._make_graph_fn(is_train)(args, aux)
         if is_train:
@@ -400,11 +471,29 @@ class Executor:
     @staticmethod
     def _tape_grads(leaves, outs, ogs):
         """``torch.autograd.grad`` of the outputs that carry a graph, with
-        head gradients ``ogs``; None for a leaf they do not reach."""
+        head gradients ``ogs``; None for a leaf they do not reach. A
+        split output or leaf (the mesh) goes shard by shard: a leaf's
+        gradient is then a ``MeshTensor``."""
         live = [(o, g) for o, g in zip(outs, ogs) if o.requires_grad]
-        return torch.autograd.grad(
-            [o for o, _ in live], leaves, grad_outputs=[g for _, g in live],
-            allow_unused=True) if live else [None] * len(leaves)
+        if not live:
+            return [None] * len(leaves)
+        roots, heads = [], []
+        for o, g in live:
+            if is_split(o) and not is_split(g):
+                g = o.mesh.split(g, o.axis)
+            roots += _parts(o)
+            heads += _parts(g)
+        parts = [_parts(leaf) for leaf in leaves]
+        grads = iter(torch.autograd.grad(
+            roots, [t for p in parts for t in p], grad_outputs=heads,
+            allow_unused=True))
+        out = []
+        for leaf, p in zip(leaves, parts):
+            g = [next(grads) for _ in p]
+            out.append(g[0] if not is_split(leaf)
+                       else None if any(x is None for x in g)
+                       else MeshTensor(g, leaf.mesh, leaf.axis))
+        return out
 
     def _train(self, is_train):
         """One training forward; returns the outputs, keeping the tape
@@ -463,12 +552,12 @@ class Executor:
         self._gather_inputs(kwargs)
         self._tape = None
         if self._monitor_callback is not None and self._monitor_all:
-            from .ndarray import NDArray
             args, aux = self._values()
+            from .ndarray.ndarray import wrap_value
             run = self._make_graph_fn(
                 bool(is_train), allow_rewrites=False,
                 tap=lambda name, v: self._monitor_callback(
-                    name, NDArray(v.detach())))
+                    name, wrap_value(v.detach(), self._ctx)))
             with torch.no_grad():
                 outs, new_aux = run(args, aux)
             if is_train:
@@ -511,7 +600,7 @@ class Executor:
         leaves, outs = self._tape
         self._tape = None
         if out_grads is None:
-            ogs = [torch.ones_like(o) for o in outs]
+            ogs = [_ones_like(o) for o in outs]
         else:
             if isinstance(out_grads, NDArray):
                 out_grads = [out_grads]
@@ -520,6 +609,8 @@ class Executor:
         with torch.no_grad():
             for p, g in zip(self._grad_positions, grads):
                 tgt = self.grad_arrays[p]._data
+                if isinstance(g, MeshTensor):
+                    g = g.full()
                 if self._grad_req[self.arg_names[p]] == "add":
                     if g is not None:
                         tgt.add_(g)

@@ -55,9 +55,19 @@ executor, or a graph holding an op that runs user Python (``Custom``,
 also inside a loop body: ``OpDef.runs_host_code``; its code may read a
 device value on the host). A ``_foreach``/``_while_loop``/``_cond`` node
 is captured in the step's graph like any op. Multi-precision low-dtype weights are not a fallback: SGD,
-Adam, AdaGrad and RMSProp have multi-precision step functions. Not
-ported: the JAX package's in-program gradient-sync mode (``sync_mesh``,
-ROADMAP queue A item 12).
+Adam, AdaGrad and RMSProp have multi-precision step functions.
+
+**In-program sync** (``FusedUpdater(sync_mesh=)``, the Gluon Trainer
+over the in-process mesh with ``MXNET_GRAD_OVERLAP=1``): the update runs
+through ``parallel.grad_sync.make_bucketed_apply`` over the
+``DeviceMesh``: bucketed reduce-scatter of the gradients, each device's
+slice updated against ZeRO-1 flat-sharded state that lives on it
+(``ShardedOptState``), the updated parameters all-gathered, with the
+guard's skip and the fault splice per parameter as above. It spans
+devices, so it runs eagerly, never as a CUDA graph, each step counted
+in ``fused_step_sync_dispatches``. The JAX package's FSDP residency
+(``fused_step:fsdp``) has no counterpart here: the port's rank-mesh
+``DistributedTrainer`` holds it.
 """
 from __future__ import annotations
 
@@ -440,7 +450,19 @@ class FusedStepExecutor(_FusedCore):
 class FusedUpdater(_FusedCore):
     """Gluon-Trainer-path fused update: autograd already produced the
     gradients, so the graph is the all-parameter update, one replay
-    instead of a few kernels per parameter."""
+    instead of a few kernels per parameter. With ``sync_mesh`` (an
+    in-process ``DeviceMesh``) the update is the bucketed, ZeRO-1
+    sharded in-program sync (module docstring)."""
+
+    def __init__(self, optimizer, updater, sync_mesh=None, sync_axis="dp"):
+        super().__init__(optimizer, updater)
+        self._sync_mesh = sync_mesh
+        self._sync_axis = sync_axis
+        self._sync_plan = None
+        self._sync_state = None
+        self._sync_sig = None
+        self._sync_failed_sig = None
+        self._sync_weights = None
 
     def update(self, items):
         """``items``: ordered ``[(index, weight_nd, grad_nd)]``. Returns
@@ -452,6 +474,9 @@ class FusedUpdater(_FusedCore):
         if fns is None:
             _count("fused_step_fallbacks")
             return False
+        if self._sync_mesh is not None \
+                and self._update_sync(items, indices, weights_nd, fns):
+            return True
         handles, counts = self._states_for(indices, weights_nd)
         if handles is None:
             _count("fused_step_fallbacks")
@@ -485,4 +510,107 @@ class FusedUpdater(_FusedCore):
                     counter="fused_step_compile_ms")
         res = self._run(key, body, tensors, weights + states, site=site)
         self._post_step(indices, res[0] if guard else None)
+        return True
+
+    # -- the in-program sync ---------------------------------------------
+    def _sync_setup(self, indices, weights_nd):
+        """The bucket plan and sharded state of this roster, rebuilt when
+        it changes and seeded from the shared Updater's per-parameter
+        states (consumed, so the replicated copies do not defeat the 1/N
+        layout); None when the optimizer's state layout has no sharded
+        path."""
+        from .parallel import grad_sync
+        sig = tuple((tuple(w.shape), str(w.dtype), i)
+                    for i, w in zip(indices, weights_nd))
+        if sig == self._sync_sig and self._sync_state is not None:
+            self._sync_weights = list(weights_nd)
+            return self._sync_plan, self._sync_state
+        if sig == self._sync_failed_sig:
+            return None
+        if self._sync_state is not None:
+            self.export_states_to_updater()
+        plan = grad_sync.GradSyncPlan(
+            [w.shape for w in weights_nd],
+            [w._data.dtype for w in weights_nd],
+            axis_size=self._sync_mesh.size)
+        state = grad_sync.ShardedOptState(plan, self._sync_mesh,
+                                          self._sync_axis)
+        if not state.probe(self._opt, indices, weights_nd):
+            self._sync_failed_sig = sig
+            return None
+        seed = {}
+        for pos, i in enumerate(indices):
+            st = self._updater.states.pop(i, None)
+            self._updater.states_synced.pop(i, None)
+            flat = _flat_state_handles(st)
+            if flat:
+                seed[pos] = [h.asnumpy() for h in flat]
+        if seed:
+            state.seed_per_param(seed)
+        else:
+            state.ensure()
+        self._sync_plan, self._sync_state = plan, state
+        self._sync_sig = sig
+        self._sync_weights = list(weights_nd)
+        return plan, state
+
+    def invalidate_sync(self):
+        """The next update rebuilds and re-seeds the sharded state (the
+        Updater's states were just replaced)."""
+        self._sync_sig = None
+        self._sync_state = None
+        self._sync_failed_sig = None
+
+    def export_states_to_updater(self):
+        """The flat-sharded state put back into the shared Updater's
+        per-parameter layout (what ``Trainer.save_states`` pickles), so a
+        ``.states`` file is interchangeable with every non-sync run."""
+        if self._sync_state is None or self._sync_weights is None:
+            return
+        from .ndarray.ndarray import tensor_from_numpy
+        indices = [i for (_, _, i) in self._sync_sig]
+        shapes = {pos: tuple(w.shape)
+                  for pos, w in enumerate(self._sync_weights)}
+        per_param = self._sync_state.export_per_param(shapes)
+        for pos, i in enumerate(indices):
+            w = self._sync_weights[pos]
+            template = self._opt.create_state_multi_precision(i, w)
+            flat = _flat_state_handles(template)
+            vals = per_param.get(pos)
+            if flat is None or vals is None:
+                continue
+            for h, v in zip(flat, vals):
+                h._set_data(tensor_from_numpy(v).to(h._data.device))
+            self._updater.states[i] = template
+            self._updater.states_synced[i] = True
+        # the Updater holds the live state now; a later sync step
+        # re-seeds from it
+        self.invalidate_sync()
+
+    def _update_sync(self, items, indices, weights_nd, fns):
+        """One step of the bucketed reduce-scatter and sharded update;
+        False (nothing modified) when the roster has no sharded path."""
+        from .parallel import grad_sync
+        built = self._sync_setup(indices, weights_nd)
+        if built is None:
+            return False
+        plan, sync_state = built
+        states = sync_state.ensure()
+        guard = self._guard_active()
+        dev0 = self._sync_mesh.devices[0]
+        scal, pois, inject = self._blocks(indices, dev0)
+        apply = grad_sync.make_bucketed_apply(
+            fns, sync_state.n_slots, plan, self._sync_mesh,
+            self._sync_axis, guard=guard, inject=inject)
+        weights = [w._data for w in weights_nd]
+        grads = [g._data for _, _, g in items]
+        with torch.no_grad():
+            new_ws, new_sts, mask = apply(grads, weights, states, scal,
+                                          pois)
+            _write_back(weights, new_ws)
+        sync_state.store(new_sts)
+        _count("fused_step_sync_dispatches")
+        grad_sync.account_in_program_sync(plan,
+                                          seconds=apply.sync_seconds)
+        self._post_step(indices, mask)
         return True

@@ -5,11 +5,14 @@ A Parameter is a three-state machine: UNBOUND (no array, no pending
 init), DEFERRED (a recipe waiting for the first forward to fix its
 shape), LIVE (an NDArray bound, with its gradient buffer when
 ``grad_req`` is not ``'null'``). A shape of 0 in a dimension means
-unknown. A Parameter owns ONE NDArray on one device. Over a context list whose
-contexts resolve to one torch device it keeps that one array
-(``list_data``/``list_grad`` return one element, ``list_ctx`` the
-list); contexts on distinct devices raise (the mesh, ROADMAP queue A
-item 12, order step 6).
+unknown. A Parameter owns ONE NDArray, its master, on the first device
+of its context list (``list_data``/``list_grad`` return one element,
+``list_ctx`` the list). Over a list whose contexts resolve to distinct
+torch devices it is replicated over their in-process ``dp`` mesh
+(:attr:`Parameter.mesh`), as the JAX package replicates it: an op over a
+batch split on that mesh reads a differentiable copy of the master on
+each shard's device, so the backward adds every shard's gradient into
+the master's (``ops.registry.call``).
 """
 from __future__ import annotations
 
@@ -61,10 +64,7 @@ def _as_ctx_list(ctx):
         return [current_context()]
     if isinstance(ctx, Context):
         return [ctx]
-    ctx = list(ctx)
-    from ..parallel.mesh import one_device
-    one_device(ctx, "Parameter")
-    return ctx
+    return list(ctx)
 
 
 class Parameter:
@@ -247,6 +247,14 @@ class Parameter:
 
     def list_grad(self):
         return [self.grad()]
+
+    @property
+    def mesh(self):
+        """The in-process ``dp`` mesh the parameter is replicated over
+        (``parallel.mesh.DeviceMesh``); None when its contexts resolve to
+        one torch device."""
+        from ..parallel.mesh import context_mesh
+        return context_mesh(self._ctx_list)
 
     def list_ctx(self):
         if self._data is not None:

@@ -19,6 +19,19 @@ loop, counted in ``profiler.counters()['fused_step_fallbacks']``.
 ``multi_precision=True`` keeps fp32 masters for bfloat16/float16
 weights (``amp.DtypePolicy(...).apply(net)``).
 
+**In-program sync over the in-process mesh** (parameters initialized
+over contexts on distinct devices, and ``MXNET_GRAD_OVERLAP=1``): the
+fused update runs through ``parallel.grad_sync``'s bucketed form over
+the parameters' ``DeviceMesh`` (:meth:`Trainer._sync_mesh`), as the JAX
+Trainer's does: each bucket's gradients are reduce-scattered over the
+devices, each device updates its slice against ZeRO-1 flat-sharded
+optimizer state that lives there, and the updated parameters are
+all-gathered, with the non-finite guard and the planned fault splice.
+Without the gate the plain fused update runs once over the gradients
+(autograd already added the shards' contributions). ``save_states``
+puts the sharded state back into the per-parameter layout first, so a
+``.states`` file is the plain run's.
+
 **Sparse gradients.** A parameter whose ``grad_stype`` is
 ``'row_sparse'`` (``nn.Embedding(sparse_grad=True)``) reaches the
 optimizer as a RowSparseNDArray view of its dense gradient over the rows
@@ -209,18 +222,50 @@ class Trainer:
             # a fused update ticks the meter itself
             metering.training_step()
 
+    def _sync_mesh(self):
+        """The mesh the in-program bucketed sync runs over: the
+        parameters' in-process ``DeviceMesh`` when they all share one
+        and ``MXNET_GRAD_OVERLAP=1``; None otherwise (plain fused
+        update)."""
+        from ..parallel import grad_sync
+        if not grad_sync.overlap_enabled():
+            return None
+        mesh = None
+        for p in self._params:
+            if p._data is None:
+                continue
+            m = p.mesh
+            if m is None or (mesh is not None and m is not mesh):
+                return None
+            mesh = m
+        return mesh
+
     def _get_fused(self):
         """The FusedUpdater over this Trainer's optimizer and Updater;
-        None with ``MXNET_FUSED_STEP=0``."""
+        None with ``MXNET_FUSED_STEP=0``. Over the in-process mesh with
+        ``MXNET_GRAD_OVERLAP=1`` it carries the sync mesh
+        (:meth:`_sync_mesh`)."""
         from ..fused_step import FusedUpdater, fused_step_enabled
         if not fused_step_enabled():
+            if self._fused_updater is not None:
+                # the gate can be flipped off mid-run: the live moments
+                # may sit in the updater's ZeRO-sharded flats
+                self._fused_updater.export_states_to_updater()
+                self._fused_updater.invalidate_sync()
             return None
+        mesh = self._sync_mesh()
         fused = self._fused_updater
-        if fused is None or fused._opt is not self._optimizer \
-                or fused._updater is not self._updaters[0]:
-            fused = self._fused_updater = FusedUpdater(self._optimizer,
-                                                       self._updaters[0])
-        return fused
+        if fused is not None and fused._opt is self._optimizer \
+                and fused._updater is self._updaters[0] \
+                and fused._sync_mesh is mesh:
+            return fused
+        if fused is not None:
+            # no ZeRO-sharded state stranded in a discarded updater
+            fused.export_states_to_updater()
+        self._fused_updater = FusedUpdater(self._optimizer,
+                                           self._updaters[0],
+                                           sync_mesh=mesh)
+        return self._fused_updater
 
     @staticmethod
     def _to_row_sparse(param, grad):
@@ -315,6 +360,8 @@ class Trainer:
                 "updater"
             payload = updater.get_states(dump_optimizer=True)
         else:
+            if self._fused_updater is not None:
+                self._fused_updater.export_states_to_updater()
             payload = self._updaters[0].get_states(dump_optimizer=True)
         if background:
             ckpt.write_bytes_async(fname, payload)

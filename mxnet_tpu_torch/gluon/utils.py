@@ -1,7 +1,6 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
-``split_data``, ``split_and_load`` (one device: contexts on distinct
-devices wait for the mesh, ROADMAP queue A item 12, order step 6),
-``clip_global_norm``,
+``split_data``, ``split_and_load`` (over contexts on distinct devices,
+one array split over their in-process mesh), ``clip_global_norm``,
 ``check_sha1``, ``download`` (a cached file only: it makes no network
 call) and ``shape_is_known``."""
 from __future__ import annotations
@@ -41,16 +40,38 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """The whole batch on the one device of ``ctx_list``, as a
-    one-element list (reference: utils.py:88; the JAX package returns
-    one array over its mesh too). Contexts that resolve to one torch
-    device are one; contexts on distinct devices raise (the mesh,
-    ROADMAP queue A item 12, order step 6)."""
-    from ..parallel.mesh import one_device
-    ctx = one_device(ctx_list, "split_and_load")
+    """The batch as a one-element list (reference: utils.py:88; the JAX
+    package's form). Contexts that resolve to one torch device are one:
+    the whole batch on it. Over contexts on distinct devices the element
+    is ONE array split along ``batch_axis`` over their in-process ``dp``
+    mesh (a ``MeshNDArray``), so ``[net(x) for x in split_and_load(...)]``
+    runs the global batch shard by shard against parameters replicated
+    over the same mesh. A batch that does not divide over the devices
+    raises ``ValueError``, or with ``even_split=False`` is replicated
+    (every op then runs it whole, once)."""
+    from ..context import as_context
+    from ..ndarray.ndarray import MeshNDArray
+    from ..parallel.mesh import dp_mesh, distinct_devices
+    ctx_list = [as_context(c) for c in ctx_list]
     if not isinstance(data, NDArray):
-        data = nd.array(data, ctx=ctx)
-    return [data.as_in_context(ctx)]
+        data = nd.array(data, ctx=ctx_list[0])
+    devices = distinct_devices(ctx_list)
+    if len(devices) < 2:
+        return [data.as_in_context(ctx_list[0])]
+    mesh = dp_mesh(devices)
+    size = data.shape[batch_axis]
+    whole = data._data.to(devices[0])
+    if size % mesh.size == 0:
+        value = mesh.split(whole, batch_axis)
+    elif even_split:
+        raise ValueError(
+            "data with shape %s cannot be evenly split onto %d devices "
+            "along axis %d. Use a batch size that's a multiple of %d or "
+            "set even_split=False." % (str(data.shape), mesh.size,
+                                       batch_axis, mesh.size))
+    else:
+        value = mesh.replicate(whole)
+    return [MeshNDArray(value, ctx_list[0])]
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):

@@ -45,8 +45,15 @@ and the worker's updater applies them. Either exchange is the
 telemetry ``sync`` phase. A step with a kvstore runs the eager path
 (JAX's fallback matrix), and ``dist_sync`` rescales the gradients by
 ``1 / (batch x workers)``. A context list that resolves to one torch
-device binds one executor over the whole batch; contexts on distinct
-devices raise (the mesh, ROADMAP queue A item 12, order step 6).
+device binds one executor over the whole batch. Contexts on distinct
+devices (``[gpu(0), cpu(0)]``) bind ONE executor over their in-process
+``dp`` mesh, as the JAX package binds one program: the batch is split on
+dim 0 (a batch that does not divide over the devices raises
+``MXNetError`` at ``bind`` and ``reshape``), the gradients are the whole
+batch's, and ``get_outputs()`` are global arrays. Such a step runs the
+eager path (the kvstore's, a ``local`` store by default over several
+contexts, as in the JAX package), a fused-step fallback counted as
+``mesh`` when there is no store.
 """
 from __future__ import annotations
 
@@ -239,6 +246,18 @@ class Module(BaseModule):
         self._params_dirty = False
 
     # -- bind --------------------------------------------------------------
+    def _check_mesh_batch(self, batch, what="bind"):
+        """Raise where ``batch`` does not split over the context list's
+        distinct devices (the in-process mesh shards it evenly)."""
+        from ..parallel.mesh import context_mesh
+        mesh = context_mesh(self._context)
+        if mesh is not None and batch % mesh.size:
+            raise MXNetError(
+                "%s: batch size %d not divisible by %d devices (the dp "
+                "mesh shards the batch evenly; the reference's uneven "
+                "work_load_list split is not supported)"
+                % (what, batch, mesh.size))
+
     def _grad_req_for(self, name, for_training, inputs_need_grad,
                       grad_req):
         """The write/add/null request for one argument."""
@@ -269,6 +288,7 @@ class Module(BaseModule):
         self.inputs_need_grad = inputs_need_grad
         self._data_shapes, self._label_shapes = _parse_data_desc(
             self._data_names, self._label_names, data_shapes, label_shapes)
+        self._check_mesh_batch(self._data_shapes[0].shape[0])
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(
             **self._feed_shapes())
         arg_names = self._symbol.list_arguments()
@@ -439,6 +459,8 @@ class Module(BaseModule):
             reason = "inputs_need_grad"
         elif ex.grouped:
             reason = "placement"
+        elif ex.mesh is not None:
+            reason = "mesh"
         elif ex._monitor_callback is not None:
             reason = "monitor"
         elif any(ex._grad_req.get(n) == "add" for n in ex.arg_names):
@@ -602,6 +624,7 @@ class Module(BaseModule):
         assert self.binded
         self._data_shapes, self._label_shapes = _parse_data_desc(
             self._data_names, self._label_names, data_shapes, label_shapes)
+        self._check_mesh_batch(self._data_shapes[0].shape[0], "reshape")
         self._exec = self._exec.reshape(**self._feed_shapes())
         self._fused = None
         self._pending_step = False

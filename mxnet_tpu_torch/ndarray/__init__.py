@@ -5,9 +5,9 @@ the sampling functions (``nd.random``), ``nd.contrib`` (the
 ``_contrib_*`` ops by their short names, ``foreach``, ``while_loop`` and
 ``cond``) and ``nd.sparse`` (csr and row_sparse arrays, with the
 sparse-aware ``nd.dot`` and ``nd.cast_storage``)."""
-from .ndarray import (NDArray, invoke_nd, array, zeros, ones, full, empty,
-                      arange, linspace, eye, moveaxis, concatenate, save,
-                      load, waitall, add, subtract, multiply, divide, modulo,
+from .ndarray import (NDArray, MeshNDArray, invoke_nd, array, zeros, ones,
+                      full, empty, arange, linspace, eye, moveaxis,
+                      concatenate, save, load, waitall, add, subtract, multiply, divide, modulo,
                       power, maximum, minimum, hypot, equal, not_equal,
                       greater, greater_equal, lesser, lesser_equal,
                       logical_and, logical_or, logical_xor, true_divide)

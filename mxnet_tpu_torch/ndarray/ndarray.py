@@ -8,6 +8,15 @@ recording switched on only inside ``autograd.record()``: outside it no
 graph is built, even over parameters that require gradients (at GPT-2
 width a graph kept alive by the parameters would cost gigabytes).
 
+A :class:`MeshNDArray` is one array over the in-process ``dp`` mesh
+(``gluon.utils.split_and_load`` and a bound executor's batch over a
+context list on distinct devices): its value is a ``MeshTensor``, one
+shard a device. It reads as the whole array: ``shape`` is the global
+one, ``asnumpy()`` joins the shards on the host, ``as_in_context`` to
+one context gathers, and an op over it runs by the op's mesh rule
+(``ops.registry.call``). Code that reads its ``_data`` gets the whole
+value, gathered on the mesh's first device.
+
 ``attach_grad`` turns the handle's tensor into a torch leaf that
 requires grad; ``autograd.backward`` then writes (``grad_req='write'``)
 or adds (``'add'``) the leaf's gradient into the handle's ``grad``
@@ -30,7 +39,7 @@ from ..base import MXNetError, integer_types, numeric_types
 from ..context import Context, as_context, context_of, current_context
 from .. import ops as _ops
 
-__all__ = ["NDArray", "invoke_nd", "array", "zeros", "ones", "full",
+__all__ = ["NDArray", "MeshNDArray", "invoke_nd", "array", "zeros", "ones", "full",
            "empty", "arange", "linspace", "eye", "moveaxis", "concatenate",
            "save", "load", "waitall", "imperative_mixed_precision", "add", "subtract", "multiply",
            "divide", "modulo", "power", "maximum", "minimum", "hypot",
@@ -545,6 +554,137 @@ class NDArray:
         self._fresh_grad = False
 
 
+class MeshNDArray(NDArray):
+    """One array over the in-process mesh (module docstring): its value
+    is ``_mt``, a ``parallel.mesh.MeshTensor``; ``ctx`` is the first
+    context of its list."""
+
+    def __init__(self, value, ctx=None):
+        self._mt = value
+        self._ctx = ctx if ctx is not None \
+            else context_of(value.mesh.devices[0])
+        self.grad = None
+        self._grad_req = "null"
+        self._fresh_grad = False
+
+    @property
+    def _data(self):
+        return self._mt.full()
+
+    @_data.setter
+    def _data(self, value):
+        self._mt = _layout_like(value, self._mt)
+
+    @property
+    def shape(self):
+        return self._mt.shape
+
+    @property
+    def size(self):
+        return self._mt.numel()
+
+    @property
+    def ndim(self):
+        return self._mt.dim()
+
+    @property
+    def dtype(self):
+        return numpy_dtype(self._mt.dtype)
+
+    @property
+    def context(self):
+        return self._ctx
+
+    ctx = context
+
+    def asnumpy(self):
+        return self._mt.host().numpy()
+
+    def as_in_context(self, context):
+        """The whole array, gathered on ``context``'s device."""
+        return NDArray(self._mt.full().detach().to(context.torch_device(),
+                                                   copy=True))
+
+    as_in_ctx = as_in_context
+
+    def copyto(self, other):
+        if isinstance(other, MeshNDArray):
+            other.assign(self._mt.full())
+            return other
+        return super().copyto(other)
+
+    def detach(self):
+        return MeshNDArray(self._mt.detach(), self._ctx)
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return invoke_nd("transpose", [self], {"axes": tuple(axes)})
+
+    def assign(self, value):
+        """Write the whole ``value`` (a tensor or NDArray of the global
+        shape) into the shards in place; a value of another shape or
+        dtype is laid out anew (it must split over the mesh)."""
+        if isinstance(value, NDArray):
+            value = raw_value(value)
+            if type(value) is not torch.Tensor:
+                value = value.full()
+        mt = self._mt
+        if tuple(value.shape) != mt.shape or value.dtype != mt.dtype \
+                or mt.axis is None:
+            self._mt = _layout_like(value.detach(), mt)
+            return
+        with torch.no_grad():
+            for shard, piece in zip(mt.shards, torch.split(
+                    value, mt.shards[0].shape[mt.axis], mt.axis)):
+                shard.copy_(piece)
+
+    def __setitem__(self, key, value):
+        if isinstance(key, slice) and key == slice(None):
+            if isinstance(value, numeric_types):
+                with torch.no_grad():
+                    for shard in self._mt.shards:
+                        shard.fill_(value)
+                return
+            if not isinstance(value, NDArray):
+                value = torch.as_tensor(np.asarray(value))
+            self.assign(value)
+            return
+        whole = self._mt.full().detach().clone()
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, numeric_types):
+            value = torch.as_tensor(np.asarray(value), device=whole.device)
+        whole[_clean_index(key)] = value
+        self._mt = _layout_like(whole, self._mt)
+
+
+def _layout_like(value, mt):
+    """``value`` (a whole tensor) laid out as ``mt``: split along its
+    axis, or replicated."""
+    from ..base import MXNetError
+    if mt.axis is None:
+        return mt.mesh.replicate(value)
+    if value.dim() <= mt.axis or value.shape[mt.axis] % mt.mesh.size:
+        raise MXNetError("shape %s does not split over the %d devices of "
+                         "the mesh along axis %d" % (tuple(value.shape),
+                                                     mt.mesh.size, mt.axis))
+    return mt.mesh.split(value, mt.axis)
+
+
+def raw_value(nd):
+    """What an op reads of ``nd``: its tensor, or a mesh array's
+    ``MeshTensor``."""
+    return nd._mt if type(nd) is MeshNDArray else nd._data
+
+
+def wrap_value(value, ctx=None):
+    """An NDArray over a tensor, a MeshNDArray over a ``MeshTensor``."""
+    if isinstance(value, torch.Tensor):
+        return NDArray(value)
+    return MeshNDArray(value, ctx)
+
+
 _RSCALAR = {"_minus_scalar": "_rminus_scalar", "_div_scalar": "_rdiv_scalar",
             "_mod_scalar": "_rmod_scalar", "_power_scalar": "_rpower_scalar"}
 
@@ -581,21 +721,23 @@ def invoke_nd(op_name, inputs, attrs, out=None, ctx=None):
     if not inputs and ctx is not None and "ctx" in op.defaults:
         attrs["ctx"] = ctx
     rng = None
+    values = [raw_value(i) for i in inputs]
     if op.needs_rng:
         if inputs:
-            dev = inputs[0]._data.device
+            dev = values[0].device
         else:
             dev = as_context(ctx or attrs.get("ctx")
                              or current_context()).torch_device()
         rng = _random.generator(dev)
     with torch.set_grad_enabled(autograd.is_recording()):
-        outputs, aux_updates = _ops.invoke(op, [i._data for i in inputs],
-                                           attrs, rng=rng)
+        outputs, aux_updates = _ops.invoke(op, values, attrs, rng=rng)
     with torch.no_grad():
         for idx, val in aux_updates:
-            if val is not inputs[idx]._data:
+            if val is not values[idx]:
                 inputs[idx]._data.copy_(val)
-    out_nds = [NDArray(o) for o in outputs]
+    mesh_ctx = next((i._ctx for i in inputs if type(i) is MeshNDArray),
+                    None)
+    out_nds = [wrap_value(o, mesh_ctx) for o in outputs]
     if autograd.is_recording():
         # what autograd.get_symbol reads: the op, its attributes and where
         # its inputs came from; it goes away with the outputs

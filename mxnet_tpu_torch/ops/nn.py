@@ -336,6 +336,99 @@ class _BNTrain(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _BNTrainMesh(torch.autograd.Function):
+    """:class:`_BNTrain` over the shards of the in-process mesh: each
+    shard's per-channel sums and sums of squares, taken on its device,
+    are added on the master's device into the GLOBAL batch's moments,
+    which go back to every shard for its affine; the backward's two
+    per-channel sums are added the same way. The outputs are the
+    shards' results, then the batch mean and variance (on the master's
+    device); the gamma and beta gradients are the whole batch's."""
+
+    @staticmethod
+    def forward(ctx, g, beta, c, red, bshape, eps, *shards):
+        from ..parallel.collectives import device_sum
+        dev0 = g.device
+        count = sum(math.prod(x.shape[i] for i in red) for x in shards)
+        sums = []
+        for x in shards:
+            xc = x.to(torch.float32) - c.to(x.device)
+            sums.append(torch.cat([xc.sum(dim=red),
+                                   xc.square().sum(dim=red)]))
+        tot = device_sum(sums, dev0)
+        n_ch = tot.numel() // 2
+        mean_c, meansq_c = tot[:n_ch] / count, tot[n_ch:] / count
+        var = torch.clamp_min(meansq_c - mean_c.square(), 0.0)
+        mean = mean_c + c.reshape(mean_c.shape)
+        inv = torch.rsqrt(var + eps)
+        outs = [_bn_affine(x, g.to(x.device), beta.to(x.device),
+                           mean.to(x.device), inv.to(x.device), bshape)
+                for x in shards]
+        ctx.save_for_backward(g, mean, inv, *shards)
+        ctx.red, ctx.bshape, ctx.count = red, bshape, count
+        ctx.mark_non_differentiable(mean, var)
+        return (*outs, mean, var)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from ..parallel.collectives import device_sum
+        g, mean, inv, *shards = ctx.saved_tensors
+        red, bshape, m = ctx.red, ctx.bshape, ctx.count
+        dev0 = g.device
+        parts, sum_dy, sum_dy_xhat = [], [], []
+        for x, dy in zip(shards, grads):
+            inv_k, mean_k = inv.to(x.device), mean.to(x.device)
+            a = (inv_k * g.to(x.device, torch.float32)).to(x.dtype)
+            xhat = x * inv_k.reshape(bshape).to(x.dtype) \
+                + (-mean_k * inv_k).to(x.dtype).reshape(bshape)
+            parts.append((a, xhat))
+            sum_dy.append(dy.sum(dim=red, dtype=torch.float32))
+            sum_dy_xhat.append((dy * xhat).sum(dim=red,
+                                               dtype=torch.float32))
+        tot_dy = device_sum(sum_dy, dev0)
+        tot_dy_xhat = device_sum(sum_dy_xhat, dev0)
+        dxs = []
+        for x, dy, (a, xhat) in zip(shards, grads, parts):
+            c1 = (tot_dy / m).to(x.device, x.dtype).reshape(bshape)
+            c2 = (tot_dy_xhat / m).to(x.device, x.dtype).reshape(bshape)
+            dxs.append(a.reshape(bshape) * (dy - c1 - xhat * c2))
+        return (tot_dy_xhat.to(g.dtype), tot_dy.to(g.dtype), None, None,
+                None, None, *dxs)
+
+
+def _batch_norm_mesh(attrs, vals, rng, mesh):
+    """Training BatchNorm over a batch split on the in-process mesh: the
+    global batch's moments (:class:`_BNTrainMesh`), as one device
+    computes them on the whole. Eval, or a batch split along the channel
+    axis, goes by the op's mesh rule."""
+    from ..parallel.mesh import MeshTensor, is_split
+    data, gamma, beta, moving_mean, moving_var = vals
+    axis = int(attrs.get("axis", 1)) % data.dim()
+    if not (_is_train(attrs) and not attrs.get("use_global_stats", False)) \
+            or not is_split(data) or data.axis == axis \
+            or any(is_split(v) for v in vals[1:]):
+        return NotImplemented
+    eps = float(attrs.get("eps", 1e-3))
+    momentum = float(attrs.get("momentum", 0.9))
+    red = tuple(i for i in range(data.dim()) if i != axis)
+    bshape = tuple(data.shape[axis] if i == axis else 1
+                   for i in range(data.dim()))
+    g = torch.ones_like(gamma) if attrs.get("fix_gamma", True) else gamma
+    c = moving_mean.detach().to(torch.float32, copy=True).reshape(bshape)
+    res = _BNTrainMesh.apply(g, beta, c, red, bshape, eps, *data.shards)
+    out = MeshTensor(res[:-2], mesh, data.axis)
+    mean, var = res[-2], res[-1]
+    new_mean = (momentum * moving_mean.detach().to(torch.float32)
+                + (1 - momentum) * mean).to(moving_mean.dtype)
+    new_var = (momentum * moving_var.detach().to(torch.float32)
+               + (1 - momentum) * var).to(moving_var.dtype)
+    mean = _cast(mean.detach(), gamma.dtype)
+    var = _cast(var.detach(), gamma.dtype)
+    outs = (out, mean, var) if attrs.get("output_mean_var", False) \
+        else (out,)
+    return outs + (new_mean, new_var)
+
+
 def _global_batch():
     """``(mesh, axis)`` when the active mesh shards the batch over more
     than one rank (its ``dp``/``data`` axis), else None."""
@@ -392,6 +485,7 @@ register("BatchNorm", _batch_norm,
                    "use_global_stats": False, "output_mean_var": False,
                    "axis": 1, "cudnn_off": False, "__train__": False},
          num_outputs=_batch_norm_outputs, mutable_inputs=(3, 4),
+         mesh_impl=_batch_norm_mesh,
          attr_docs={"eps": "added to variance for numeric stability",
                     "momentum": "running-stat decay factor",
                     "fix_gamma": "freeze gamma at 1",
@@ -557,7 +651,34 @@ def _dropout(attrs, data, rng=None):
     return data * mask / keep
 
 
+def _dropout_mesh(attrs, vals, rng, mesh):
+    """Dropout drawing over a batch split on the in-process mesh: the
+    whole mask is drawn on the mesh's first device, as one device draws
+    it, and each shard takes its part."""
+    from ..parallel.mesh import MeshTensor
+    data = vals[0]
+    if not _dropout_draws(attrs, _is_train(attrs)):
+        return NotImplemented
+    keep = 1.0 - float(attrs.get("p", 0.5))
+    shape = list(data.shape)
+    for a in tuple(attrs.get("axes", ()) or ()):
+        shape[a] = 1
+    dev0 = mesh.devices[0]
+    if rng is None:
+        from .. import random as _random
+        rng = _random.generator(dev0)
+    mask = (torch.rand(shape, generator=rng, device=dev0)
+            < keep).to(data.dtype)
+    if shape[data.axis] == 1:
+        masks = [mask] * mesh.size
+    else:
+        masks = mesh.split(mask, data.axis).shards
+    return MeshTensor([x * m.to(x.device) / keep
+                       for x, m in zip(data.shards, masks)], mesh, data.axis)
+
+
 register("Dropout", _dropout, arg_names=_D, needs_rng=True,
+         mesh_impl=_dropout_mesh,
          draws=_dropout_draws,
          defaults={"p": 0.5, "mode": "training", "axes": (),
                    "cudnn_off": False, "__train__": False},

@@ -22,7 +22,7 @@ multihost`; :class:`HostLostError`).
 from .mesh import (create_mesh, auto_mesh, make_mesh, mesh_axes,
                    local_mesh, PartitionSpec, NamedSharding, ShardedTensor,
                    replicated, shard_batch, use_mesh, current_mesh,
-                   set_current_mesh)
+                   set_current_mesh, DeviceMesh, MeshTensor)
 from .collectives import (all_reduce, all_gather, reduce_scatter, broadcast,
                           ppermute, barrier, psum_eager, all_to_all,
                           bucket_reduce_scatter, bucket_all_gather,

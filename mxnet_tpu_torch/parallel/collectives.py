@@ -45,6 +45,14 @@ each a pair of collectives (Megatron-LM's operators, Shoeybi et al.,
 
 ``axis`` may be a tuple of axes: the collective runs over each in turn
 (the group of their product, in a fixed order).
+
+**Inside one process** (the ``dp`` mesh over a context list,
+``mesh.DeviceMesh``): :func:`device_scatter`, :func:`device_gather`,
+:func:`device_sum` and :func:`device_reduce_scatter` take and return one
+tensor a mesh position. They are plain torch copies and adds, so torch
+autograd differentiates through them (a copy's gradient is a copy back,
+a sum's a broadcast). Sums are taken in mesh position order on the
+target device, whatever the layout.
 """
 from __future__ import annotations
 
@@ -54,7 +62,8 @@ __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "ppermute", "barrier", "psum_eager", "all_to_all",
            "bucket_reduce_scatter", "bucket_all_gather", "copy_to_axis",
            "reduce_from_axis", "psum", "gather_from_axis", "ppermute_grad",
-           "all_to_all_grad"]
+           "all_to_all_grad", "device_scatter", "device_gather",
+           "device_sum", "device_reduce_scatter"]
 
 
 def _account_links(name, mesh, axis, value=None, nbytes=None):
@@ -480,3 +489,44 @@ def ppermute_grad(x, mesh, axis, perm):
 def all_to_all_grad(x, mesh, axis, split_axis, concat_axis):
     """:func:`all_to_all` under autograd."""
     return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+# ---------------------------------------------------------------------------
+# inside one process: one tensor a mesh position
+# ---------------------------------------------------------------------------
+
+def device_scatter(x, devices, dim=0):
+    """``x`` cut into ``len(devices)`` equal pieces along ``dim``, piece
+    ``k`` on ``devices[k]`` (a view where it already lives there)."""
+    n = len(devices)
+    if x.shape[dim] % n:
+        raise ValueError("dim %d of size %d does not split over %d devices"
+                         % (dim, x.shape[dim], n))
+    return [piece.to(dev) for piece, dev in
+            zip(torch.split(x, x.shape[dim] // n, dim), devices)]
+
+
+def device_gather(pieces, device, dim=0):
+    """The pieces joined along ``dim`` on ``device``."""
+    if len(pieces) == 1:
+        return pieces[0].to(device)
+    return torch.cat([p.to(device) for p in pieces], dim)
+
+
+def device_sum(parts, device):
+    """The sum of ``parts`` on ``device``, added in position order."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out
+
+
+def device_reduce_scatter(parts, devices):
+    """The sum of the flat contributions ``parts`` (each a length that
+    divides over the devices; they may live anywhere), slice ``k`` of it
+    on ``devices[k]``, each slice added in position order there."""
+    n = len(devices)
+    per = parts[0].numel() // n
+    return [device_sum([p.reshape(-1)[k * per:(k + 1) * per]
+                        for p in parts], dev)
+            for k, dev in enumerate(devices)]

@@ -24,6 +24,18 @@ al., VLDB 2020).
   monolithic plan and a bucketed one give the same bits. The JAX
   package schedules these exchanges inside its compiled step, against
   the backward; the port runs them after the backward, bucket by bucket.
+- **Over the in-process mesh** (a ``DeviceMesh``: the Gluon Trainer's
+  fused update over contexts on distinct devices with
+  ``MXNET_GRAD_OVERLAP=1``): :func:`make_bucketed_apply` takes each
+  bucket's gradient contributions (autograd has already added the
+  shards' into each parameter's one gradient, so there is one), reduce-
+  scatters them over the devices (``collectives.device_reduce_scatter``:
+  slice ``k`` on device ``k``), runs the update rule on each device's
+  slice against its slice of the ZeRO-1 state, and all-gathers the
+  updated parameters onto the first device. It carries the JAX form's
+  non-finite guard (a parameter whose gradient is not finite keeps its
+  weight and state on every slice) and fault splice (a planned poison
+  replaces the gradient before the test).
 
 Default off. Sharded optimizer state round-trips through
 ``checkpoint.py``'s per-shard manifest (each rank writes its slice), and
@@ -148,7 +160,8 @@ def _slice_of(bucket, lo, hi, fill, pad_value):
 
 
 def make_bucketed_apply(step_fns, n_slots, plan, mesh, axis="dp",
-                        shard_state=True, gather_params=True):
+                        shard_state=True, gather_params=True, guard=False,
+                        inject=False):
     """The bucketed, sharded form of ``fused_step.make_apply``:
     ``apply(grads, weights, states, scalars) -> (new_weights,
     new_states)`` over tensors. ``grads`` are this rank's
@@ -166,8 +179,18 @@ def make_bucketed_apply(step_fns, n_slots, plan, mesh, axis="dp",
     With ``gather_params=False`` (FSDP) the updated parameters stay this
     rank's slices: ``new_weights`` holds one flat vector a bucket, the
     layout of :func:`bucket_slices`. ``apply.sync_seconds`` holds the last call's exchange time per bucket.
-    The JAX form's non-finite guard and fault splice serve the Gluon
-    Trainer's mesh sync, which waits for the next part of ROADMAP step 6."""
+
+    Over a ``DeviceMesh`` (inside one process) the form is the JAX
+    package's whole contract, ``apply(grads, weights, states, scalars,
+    poisons) -> (new_weights, new_states, finite_mask)``: ``states`` are
+    ``MeshTensor`` s (one slice a device), ``guard`` keeps the old
+    weight and state of a parameter whose gradient is not finite (mask
+    None without it), ``inject`` splices ``poisons`` into the gradients
+    first (:func:`_device_bucketed_apply`)."""
+    from .mesh import DeviceMesh
+    if isinstance(mesh, DeviceMesh):
+        return _device_bucketed_apply(step_fns, n_slots, plan, mesh, guard,
+                                      inject)
     from .collectives import _scatter_sum, all_gather
     n = len(step_fns)
     group, ranks = mesh.group(axis)
@@ -230,6 +253,84 @@ def make_bucketed_apply(step_fns, n_slots, plan, mesh, axis="dp",
                 new_ws[i] = full_w[off:off + size].view(weights[i].shape)
         apply.sync_seconds = sync_s
         return new_ws, new_sts
+    apply.sync_seconds = []
+    return apply
+
+
+def _device_bucketed_apply(step_fns, n_slots, plan, mesh, guard, inject):
+    """:func:`make_bucketed_apply` over the devices of one process."""
+    from .collectives import device_gather, device_reduce_scatter
+    from .mesh import MeshTensor
+    n = len(step_fns)
+    devices = mesh.devices
+
+    def apply(grads, weights, states, scalars, poisons=None):
+        new_ws = [None] * n
+        new_sts = [None] * len(states)
+        oks = [None] * n
+        sync_s = []
+        si = 0
+        for bucket in plan.buckets:
+            dt = grads[bucket.indices[0]].dtype
+            fn = step_fns[bucket.indices[0]]
+            sdt = getattr(fn, "scalar_dtype", None) or dt
+            pad = bucket.padded_size - bucket.total
+            segs_g, segs_w, segs_lr, segs_wd, segs_ok = [], [], [], [], []
+            for i, size in zip(bucket.indices, bucket.sizes):
+                g = grads[i].reshape(-1)
+                if inject:
+                    g = torch.where(torch.isfinite(poisons[i]), g,
+                                    poisons[i].to(g.dtype))
+                if guard:
+                    oks[i] = torch.isfinite(g).all()
+                    segs_ok.append(oks[i].expand(size))
+                segs_g.append(g)
+                segs_w.append(weights[i].reshape(-1))
+                segs_lr.append(scalars[i].to(sdt).expand(size))
+                segs_wd.append(scalars[n + i].to(sdt).expand(size))
+            if pad:
+                for segs, fill in ((segs_g, 0), (segs_w, 0), (segs_lr, 0),
+                                   (segs_wd, 0), (segs_ok, True)):
+                    if segs:
+                        segs.append(torch.full((pad,), fill,
+                                               dtype=segs[0].dtype,
+                                               device=segs[0].device))
+            t0 = time.perf_counter()
+            g_sl = device_reduce_scatter([torch.cat(segs_g)], devices)
+            dt_rs = time.perf_counter() - t0
+            # the weights, per-element scalars and guard flags are
+            # replicated: their slices are copies, not sums
+            w_sl, lr_sl, wd_sl = (device_reduce_scatter([torch.cat(segs)],
+                                                        devices)
+                                  for segs in (segs_w, segs_lr, segs_wd))
+            ok_sl = device_reduce_scatter([torch.cat(segs_ok)], devices) \
+                if guard else None
+            rescale = scalars[2 * n].to(sdt)
+            nws, nsts = [], []
+            for k, dev in enumerate(devices):
+                st = tuple(states[si + j].shards[k] for j in range(n_slots))
+                nw, nst = fn(g_sl[k], w_sl[k], st, lr_sl[k], wd_sl[k],
+                             rescale.to(dev))
+                if guard:
+                    nw = torch.where(ok_sl[k], nw, w_sl[k])
+                    nst = tuple(torch.where(ok_sl[k], a, b)
+                                for a, b in zip(nst, st))
+                nws.append(nw)
+                nsts.append(nst)
+            for j in range(n_slots):
+                new_sts[si + j] = MeshTensor([nst[j] for nst in nsts], mesh,
+                                             0)
+            si += n_slots
+            t0 = time.perf_counter()
+            # the all-gather of UPDATED parameters only
+            full_w = device_gather(nws, devices[0])
+            sync_s.append(dt_rs + time.perf_counter() - t0)
+            for i, off, size in zip(bucket.indices, bucket.offsets,
+                                    bucket.sizes):
+                new_ws[i] = full_w[off:off + size].view(weights[i].shape)
+        apply.sync_seconds = sync_s
+        mask = torch.stack(oks) if guard else None
+        return new_ws, new_sts, mask
     apply.sync_seconds = []
     return apply
 
@@ -314,10 +415,19 @@ class ShardedOptState:
             else 0
         return idx * per, (idx + 1) * per
 
+    def _on_devices(self):
+        from .mesh import DeviceMesh
+        return isinstance(self.mesh, DeviceMesh)
+
     def ensure(self):
-        """The flat state tuple of a step, zeros on first use. Call
-        :meth:`probe` first."""
+        """The flat state tuple of a step, zeros on first use (over a
+        ``DeviceMesh``: one ``MeshTensor`` a vector, a slice on each
+        device). Call :meth:`probe` first."""
         assert self.n_slots is not None, "probe() before ensure()"
+        if self._flats is None and self._on_devices():
+            self._flats = [tuple(self.mesh.split(
+                torch.zeros(bucket.padded_size, dtype=dt), 0)
+                for dt in self._slot_dtypes) for bucket in self.plan.buckets]
         if self._flats is None:
             self._flats = [tuple(
                 torch.zeros(hi - lo, dtype=dt, device=self.device)
@@ -346,6 +456,8 @@ class ShardedOptState:
 
     def _whole(self, arr):
         from .collectives import all_gather
+        if self._on_devices():
+            return arr.host()
         if not self.sharded or self.plan.axis_size == 1:
             return arr
         return all_gather(arr, self.mesh, self.axis, account=False)
@@ -367,6 +479,11 @@ class ShardedOptState:
 
     def _seed(self, full_of):
         from ..ndarray.ndarray import tensor_from_numpy
+        if self._on_devices():
+            self._flats = [tuple(self.mesh.split(tensor_from_numpy(
+                full_of(b, bucket, k)), 0) for k in range(self.n_slots))
+                for b, bucket in enumerate(self.plan.buckets)]
+            return
         flats = []
         for b, bucket in enumerate(self.plan.buckets):
             lo, hi = self._span(bucket)

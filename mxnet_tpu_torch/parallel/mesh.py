@@ -29,10 +29,22 @@ axes each dim is split over, a sharding binds it to a mesh, and a
 sharded tensor is one rank's piece of a global array with the global
 shape beside it.
 
-:func:`distinct_devices` / :func:`one_device` keep the contexts-to-
-devices rule of a single process: contexts that resolve to one torch
-device act as one; contexts on distinct devices inside one process wait
-for ROADMAP queue A item 12, order step 6.
+**Inside one process.** :class:`DeviceMesh` is the JAX package's mesh
+over a context list whose contexts resolve to distinct torch devices
+(``[gpu(0), cpu(0)]`` on the card, ``[gpu(0), gpu(1)]`` on a host with
+two): one ``dp`` axis over those devices, in the list's order.
+:func:`dp_mesh` gives it for a tuple of ``torch.device`` s
+(:func:`distinct_devices` of the contexts; contexts that resolve to one
+device act as one and make no mesh). A :class:`MeshTensor` is one
+logical array over it: split along one axis, one shard a device in mesh
+order, or replicated (then it holds one tensor, on the first device).
+A shard is known by its POSITION in the mesh, never by its tensor's
+``device`` (on the host, ``cpu:1`` tensors report ``cpu``). The
+ops run on it shard by shard where that is what one device computes
+on the whole (``ops.registry``'s mesh rules), so the gradient of a
+shard's loss reaches a parameter through the copy each shard takes of
+it, and torch autograd adds the shards' contributions into the one
+master gradient: the in-process all-reduce.
 """
 from __future__ import annotations
 
@@ -40,11 +52,13 @@ from collections import OrderedDict
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 __all__ = ["Mesh", "create_mesh", "auto_mesh", "make_mesh", "mesh_axes",
            "local_mesh", "PartitionSpec", "NamedSharding", "ShardedTensor",
            "replicated", "shard_batch", "dp_mesh", "distinct_devices",
-           "one_device", "use_mesh", "current_mesh", "set_current_mesh",
+           "DeviceMesh", "MeshTensor", "is_split", "context_mesh",
+           "use_mesh", "current_mesh", "set_current_mesh",
            "axis_hosts", "link_split", "data_axis", "sequence_offset"]
 
 _LAUNCH = "python -m mxnet_tpu_torch.tools.launch -n %d"
@@ -174,13 +188,18 @@ def data_axis(mesh):
 
 
 def dp_mesh(devices):
-    """The shared 1-axis ``dp`` mesh over an ordered rank tuple, cached
-    so every caller of one rank list agrees on one Mesh."""
+    """The shared 1-axis ``dp`` mesh over an ordered device tuple, cached
+    so every caller of one list agrees on one mesh: a
+    :class:`DeviceMesh` over ``torch.device`` s (inside one process), a
+    rank :class:`Mesh` over rank ids."""
     key = tuple(devices)
     mesh = _DP_MESH_CACHE.get(key)
     if mesh is None:
-        mesh = _DP_MESH_CACHE[key] = create_mesh({"dp": len(key)},
-                                                 devices=list(key))
+        if key and all(isinstance(d, torch.device) for d in key):
+            mesh = DeviceMesh(key)
+        else:
+            mesh = create_mesh({"dp": len(key)}, devices=list(key))
+        _DP_MESH_CACHE[key] = mesh
     return mesh
 
 
@@ -196,24 +215,109 @@ def distinct_devices(ctx_list):
     return devices
 
 
-def one_device(ctx_list, what):
-    """The first of ``ctx_list`` when every context resolves to one torch
-    device; contexts on distinct devices raise, naming the step that
-    brings them."""
-    from ..context import as_context
-    ctx_list = [as_context(c) for c in ctx_list]
-    if len(set(ctx_list)) == 1:
-        return ctx_list[0]
+def context_mesh(ctx_list):
+    """The :class:`DeviceMesh` of a context list, None when its contexts
+    resolve to one torch device."""
+    if ctx_list is None or len(ctx_list) < 2:
+        return None
     devices = distinct_devices(ctx_list)
-    if len(devices) > 1:
-        raise NotImplementedError(
-            "%s over contexts %s on %d distinct devices (%s) is a "
-            "data-parallel mesh inside one process, not ported yet (ROADMAP "
-            "queue A item 12, order step 6); a mesh of ranks is "
-            "parallel.create_mesh under %s"
-            % (what, ", ".join(map(str, ctx_list)), len(devices),
-               ", ".join(map(str, devices)), _LAUNCH % len(devices)))
-    return ctx_list[0]
+    return dp_mesh(devices) if len(devices) > 1 else None
+
+
+class DeviceMesh:
+    """The ``dp`` axis over distinct torch devices of one process (the
+    JAX package's mesh over a context list). ``devices`` holds them in
+    mesh order; the first holds a parameter's master and every
+    replicated or gathered value."""
+
+    def __init__(self, devices):
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.size = len(self.devices)
+
+    def __repr__(self):
+        return "DeviceMesh(dp=%s)" % ", ".join(map(str, self.devices))
+
+    def split(self, tensor, axis):
+        """``tensor`` (any device) split along ``axis`` over the mesh;
+        differentiable."""
+        from .collectives import device_scatter
+        axis = int(axis) % tensor.dim()
+        return MeshTensor(device_scatter(tensor, self.devices, axis), self,
+                          axis)
+
+    def replicate(self, tensor):
+        """``tensor`` as one replicated value (held on the first
+        device)."""
+        return MeshTensor([tensor.to(self.devices[0])], self, None)
+
+
+class MeshTensor:
+    """One logical array over a :class:`DeviceMesh`: ``shards[k]`` on
+    ``mesh.devices[k]`` split along ``axis``, or (``axis`` None) one
+    replicated value held on the first device. Its shape is the global
+    one."""
+
+    __slots__ = ("shards", "mesh", "axis")
+
+    def __init__(self, shards, mesh, axis):
+        self.shards = list(shards)
+        self.mesh = mesh
+        self.axis = axis
+
+    def __repr__(self):
+        return "MeshTensor(shape=%s, axis=%s, %r)" % (self.shape, self.axis,
+                                                       self.mesh)
+
+    @property
+    def shape(self):
+        shape = list(self.shards[0].shape)
+        if self.axis is not None:
+            shape[self.axis] = sum(s.shape[self.axis] for s in self.shards)
+        return tuple(shape)
+
+    def dim(self):
+        return self.shards[0].dim()
+
+    def numel(self):
+        return sum(s.numel() for s in self.shards)
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def device(self):
+        """The first device: where the value gathers."""
+        return self.mesh.devices[0]
+
+    @property
+    def requires_grad(self):
+        return any(s.requires_grad for s in self.shards)
+
+    def full(self):
+        """The whole value on the first device (differentiable)."""
+        if self.axis is None:
+            return self.shards[0]
+        from .collectives import device_gather
+        return device_gather(self.shards, self.device, self.axis)
+
+    def map(self, fn):
+        """``fn`` of each shard, laid out as this one."""
+        return MeshTensor([fn(s) for s in self.shards], self.mesh, self.axis)
+
+    def detach(self):
+        return self.map(lambda s: s.detach())
+
+    def host(self):
+        """The whole value as one host tensor (no copy through the first
+        device)."""
+        parts = [s.detach().to("cpu") for s in self.shards]
+        return parts[0] if self.axis is None else torch.cat(parts, self.axis)
+
+
+def is_split(value):
+    """Whether ``value`` is a :class:`MeshTensor` split over its mesh."""
+    return type(value) is MeshTensor and value.axis is not None
 
 
 class PartitionSpec(tuple):

@@ -310,12 +310,12 @@ class Symbol:
         """Bind to zero arrays of the shapes inferred from ``kwargs``
         (argument shapes), with a gradient array for each argument whose
         ``grad_req`` is not ``null``."""
-        from ..executor import Executor, _single_context
+        from ..executor import Executor, _bind_context
         from ..ndarray import zeros
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         arg_names = self.list_arguments()
         type_dict = type_dict or {}
-        dev = _single_context(ctx)
+        dev = _bind_context(ctx)[0]
         args = [zeros(s, ctx=dev, dtype=type_dict.get(n, "float32"))
                 for n, s in zip(arg_names, arg_shapes)]
         if isinstance(grad_req, str):

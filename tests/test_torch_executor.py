@@ -395,8 +395,27 @@ def test_multi_device_bind_and_group2ctx_raise(monkeypatch):
     monkeypatch.setattr(tmx.Context, "torch_device", lambda self: (
         torch.device("cpu", self.device_id) if self.device_type == "cpu"
         else cpu_device(self)))
-    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
-        sym.simple_bind([tmx.cpu(0), tmx.cpu(1)], data=(2, 5), label=(2,))
+    # contexts on distinct devices (this test's first form raised for
+    # them) bind over the in-process mesh: the batch arguments split, the
+    # outputs global and the one-device bind's; simple_bind names no
+    # batch argument, so nothing splits (the JAX form replicates all)
+    from mxnet_tpu_torch.executor import Executor
+    assert sym.simple_bind([tmx.cpu(0), tmx.cpu(1)], data=(2, 5),
+                           label=(2,)).mesh.size == 2
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 5).astype(np.float32)
+    for name, arr in one.arg_dict.items():
+        arr[:] = rng.randn(*arr.shape).astype(np.float32)
+    apart = Executor(sym, [tmx.cpu(0), tmx.cpu(1)],
+                     {n: a.copy() for n, a in one.arg_dict.items()},
+                     aux_states=[], batch_args=("data", "label"))
+    assert apart.mesh is not None and apart.mesh.size == 2
+    assert isinstance(apart.arg_dict["data"], tmx.nd.MeshNDArray)
+    got = apart.forward(data=tmx.nd.array(x))[0]
+    assert isinstance(got, tmx.nd.MeshNDArray) and got.shape == (2, 4)
+    np.testing.assert_allclose(got.asnumpy(),
+                               one.forward(data=tmx.nd.array(x))[0]
+                               .asnumpy(), rtol=1e-6, atol=1e-7)
     monkeypatch.undo()
     # placement (queue A item 8) is ported: a group2ctx naming no group
     # of the graph leaves it off (tests/test_torch_placement.py)

@@ -685,14 +685,19 @@ def test_trainer_stale_gradient_and_grad_req_add(monkeypatch):
     assert trainers[1]._kvstore.num_workers == 1
     np.testing.assert_array_equal(nets[1].weight.data().asnumpy(),
                                   nets[0].weight.data().asnumpy())
-    # contexts on distinct torch devices are a mesh: step 6
+    # contexts on distinct torch devices are the in-process mesh: the
+    # parameter is one master, replicated over it
     cpu_device = tmx.Context.torch_device
     monkeypatch.setattr(tmx.Context, "torch_device", lambda self: (
         torch.device("cpu", self.device_id) if self.device_type == "cpu"
         else cpu_device(self)))
-    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
-        tmx.gluon.nn.Dense(2, in_units=3).initialize(
-            ctx=[tmx.cpu(0), tmx.cpu(1)])
+    apart = tmx.gluon.nn.Dense(2, in_units=3)
+    apart.initialize(ctx=[tmx.cpu(0), tmx.cpu(1)])
+    mesh = apart.weight.mesh
+    assert mesh is not None and mesh.devices == (torch.device("cpu", 0),
+                                                 torch.device("cpu", 1))
+    assert len(apart.weight.list_data()) == 1
+    assert apart.weight.list_ctx() == [tmx.cpu(0), tmx.cpu(1)]
 
 
 def test_l2_loss_matches_jax():

@@ -604,12 +604,17 @@ def test_split_and_load_over_one_context(monkeypatch):
     dense.initialize(ctx=[tmx.cpu(0), tmx.cpu(1)])
     assert len(dense.weight.list_data()) == len(dense.weight.list_grad()) == 1
     assert dense.weight.list_ctx() == [tmx.cpu(0), tmx.cpu(1)]
+    # on distinct devices (this test's first form raised for them): one
+    # array split over the in-process mesh, as the JAX mesh array
     real = tmx.Context.torch_device
     monkeypatch.setattr(tmx.Context, "torch_device", lambda self: (
         torch.device("cpu", self.device_id) if self.device_type == "cpu"
         else real(self)))
-    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
-        tmx.gluon.utils.split_and_load(x, [tmx.cpu(0), tmx.cpu(1)])
+    apart = tmx.gluon.utils.split_and_load(x, [tmx.cpu(0), tmx.cpu(1)])
+    assert len(apart) == 1 and isinstance(apart[0], tmx.nd.MeshNDArray)
+    assert apart[0].shape == (4, 3) and apart[0].context == tmx.cpu(0)
+    assert [tuple(s.shape) for s in apart[0]._mt.shards] == [(2, 3), (2, 3)]
+    np.testing.assert_array_equal(apart[0].asnumpy(), want[0].asnumpy())
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 1e3])

@@ -336,8 +336,10 @@ def test_unported_paths_raise_naming_their_items(tmp_path, monkeypatch):
     """The item-10 paths run (checkpoint_prefix, resume, optimizer
     states), and so do item 12's kvstore paths: two contexts on one
     device make a ``local`` store, ``dist_sync`` outside a launched
-    world is one worker. Contexts on distinct devices still raise,
-    naming item 12's order step 6."""
+    world is one worker. Contexts on distinct devices (this test's
+    first form raised for them) bind one executor over their in-process
+    mesh: the batch split, the step's weights those of the one-device
+    bind."""
     x, y = _synthetic_mnist(n=64)
     it = tmx.io.NDArrayIter(x, y, batch_size=32)
     mod = tmx.mod.Module(_mlp_sym(tmx), context=tmx.cpu())
@@ -379,9 +381,24 @@ def test_unported_paths_raise_naming_their_items(tmp_path, monkeypatch):
         torch.device("cpu", self.device_id)
         if self.device_type == "cpu" else cpu_device(self)))
     apart = tmx.mod.Module(_mlp_sym(tmx), context=[tmx.cpu(0), tmx.cpu(1)])
-    with pytest.raises(NotImplementedError, match="item 12, order step 6"):
-        apart.bind(data_shapes=it.provide_data,
-                   label_shapes=it.provide_label)
+    apart.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    assert apart._exec.mesh is not None and apart._exec.mesh.size == 2
+    assert isinstance(apart._exec.arg_dict["data"], tmx.nd.MeshNDArray)
+    monkeypatch.undo()
+    one = tmx.mod.Module(_mlp_sym(tmx), context=tmx.cpu())
+    one.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    one.init_params()
+    arg, aux = one.get_params()
+    for m in (apart, one):
+        m.init_params(arg_params=arg, aux_params=aux, force_init=True)
+        m.init_optimizer(kvstore=None, optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        m.forward(batch, is_train=True)
+        m.backward()
+        m.update()
+    np.testing.assert_allclose(apart.get_params()[0]["fc1_weight"].asnumpy(),
+                               one.get_params()[0]["fc1_weight"].asnumpy(),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_module_reshape_and_output_shapes():
