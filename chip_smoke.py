@@ -359,7 +359,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    ``Trainer("adam", beta1=0.5)`` at lr 2e-4, both nets hybridized, the
    latent drawn by ``mx.nd.random.normal`` on gpu(0) each step: the
    first step bit-identical to the same nets run op by op under
-   deterministic cuDNN, D's first loss near 2 ln 2; then 300 steps on
+   deterministic cuDNN, D's first loss near 2 ln 2; then 150 steps on
    2048 synthetic images (``gan_images``, seed 0) under the non-finite
    guard: no step skipped, every loss finite, the tutorial's binary
    accuracy of D above chance, G's samples in [-1, 1], no graph
@@ -396,7 +396,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    top-2 gap below LOGIT_ATOL); one fused ``Module`` step against one
    eager from the same weights (as phase 14 holds a step); then
    ``Module.fit`` over an ``NDArrayIter`` of synthetic tokens, batch 8
-   x 1024, Adam lr 1e-3, 10 steps on the fused step: 1 capture, 0
+   x 1024, Adam lr 1e-3, 5 steps on the fused step: 1 capture, 0
    recaptures, the loss falling; ms a step, tokens/s, busy by class
    (``batch_dot`` products, FC products, the rest, from the eager
    step's profile), the idle share and peak memory. The attention,
@@ -421,7 +421,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    hybridized, ``Trainer("sgd", lr 0.05, momentum 0.9, wd 1e-4,
    kvstore="dist_sync")``, 64 images a rank a step of
    ``kv_cifar`` (examples/train_gluon_cnn.py's synthetic_cifar, seed 0),
-   20 steps, both ranks seeded alike, once per key and once with
+   12 steps, both ranks seeded alike, once per key and once with
    ``MXNET_GRAD_OVERLAP=1``: every parameter bit-identical across the
    ranks and across the two exchanges, rank 0's arrays bit-identical to
    the two-replica twin run here (``kv_twin``), the update graph 1
@@ -442,7 +442,7 @@ no result, anywhere else. Phases (any failure exits non-zero):
    defaults: 2,000,000 features, factor 16, batch 1000) on a synthetic
    libsvm file of Criteo's shape (``fm_rows``: 39 features a row, 13
    numeric and 26 categorical fields, each field's ids from its own range
-   drawn Zipf-skewed; 100,000 rows from seed 0), fp32 with TF32 off: (a)
+   drawn Zipf-skewed; 50,000 rows from seed 0), fp32 with TF32 off: (a)
    the sparse primitives at the FM's shapes on gpu(0) against the host
    (FM_TOL): csr (1000 x 2M, 39 stored a row) ``dot`` a (2M, 16) matrix,
    transposed against (1000, 16) and against a vector, ``cast_storage``
@@ -754,6 +754,32 @@ no result, anywhere else. Phases (any failure exits non-zero):
    B2 alone (the CPU shard runs the plain versions), and the kernels at
    that shape against their plain versions, timed.
 
+33. the persistent compile cache (``mxnet_tpu_torch.compile_cache``):
+   every nvcc build of the phase goes through ``$CUDA_HOME/bin/nvcc``,
+   a wrapper that logs each call and runs the real nvcc. (a) cold start:
+   a child process on a fresh ``MXNET_COMPILE_CACHE_DIR`` builds
+   ``flash_decode`` and ``nms_sweep`` through ``_build.build_all`` (two
+   nvcc builds, started together) and compiles phase 8's module
+   (``RTC_KERNELS``) by NVRTC for its ``axpy``, launched and held to
+   ``y + a*x``; after ``flush()``: misses 3, stores 3, 3 entries on
+   disk. (b) warm start: a second child on that directory with the
+   compile watch and a telemetry run on. A hybridized block over
+   ``_contrib_decode_attention`` at the server's shape (B8 T576 H12
+   D64, lengths from seed 33) is the path (launch counts zeroed just
+   before, read just after CC_CALLS calls): its one capture loads
+   ``flash_decode`` from disk, its ``compile`` record is tagged
+   ``"hit"`` and ``site_stats()`` counts ``cache_hits``; its output is
+   held to the plain version (rtol = atol = 1e-5); then ``nms_sweep``
+   loads and its keep mask equals ``nms_keep_plain``'s, and the axpy
+   loads (``from_cache``; NVRTC's compile entry point called 0 times)
+   and matches. Hits 3, misses 0, no nvcc build. The decode kernel is
+   then timed at that shape as in phase 3 (the row "compile cache, warm
+   start"). (c) faults, in this process: ``nms_sweep``'s entry cut in
+   half reads as one counted miss and error, is rebuilt (one nvcc
+   build) and its launch's keep mask still equals the plain version's,
+   under an ``MXNET_COMPILE_CACHE_MB`` one byte under the three
+   entries, which evicts (``stats()["evictions"] > 0``).
+
 Cuts for phase 31's time (in depth: every check kept): phase 24 (b)'s
 timed Ulysses/ring iterations MESH_SP_ITERS 3 -> 1; phases 24 (a) and
 27 FT_STEPS 2 -> 1 an epoch (MESH_STEPS 4 -> 2 Adam steps; phase 27 (b)'s
@@ -761,7 +787,11 @@ kill at its step boundary 4 -> 2, epoch 1's first step, and its resumed
 steps 2 -> 1); phase 26 (a)'s requests SERVE_PER_CLIENT 16 -> 8 a
 client, (b)'s CONVNET_BUCKETS [1, 2, 4, 8] -> [1, 8] and
 CONVNET_REQUESTS 32 -> 16, (c)'s LM_SERVE_REQUESTS 16 -> 8, (d)'s
-WATCH_STEPS 5 -> 3.
+WATCH_STEPS 5 -> 3. Cuts for phase 33's time (the same way): phase
+19 (d)'s Gluon LM LM_GLUON_STEPS 96 -> 64; phase 20 (c)'s
+GAN_STEPS 300 -> 150 and GAN_TIMED 20 -> 10; phase 21 (b)'s
+SYM_LM_STEPS 10 -> 5; phase 22 (c)'s KV_STEPS 20 -> 12; phase 23's
+FM_ROWS 100,000 -> 50,000.
 
 It prints a ``{"kernels": [...]}`` line, one entry per kernel and main
 path (``path``: server, observability, training, int8 decode, rtc,
@@ -769,7 +799,7 @@ packing, mesh dp / mesh sp ulysses / mesh dp x tp, rank 0's launches,
 serving (InferenceServer), fault tolerance (b), rank 0's launches in
 its second generation, LM artifact (InferenceServer), CPU-exported
 artifact, decode artifact, ssd detection or rpn proposal, in-process
-mesh [gpu(0), cpu(0)];
+mesh [gpu(0), cpu(0)], compile cache, warm start;
 ``launches`` from that path's run, times at the shape it gives the
 kernel), and, last,
 ``{"ok": true, "device": {...}}``.
@@ -6193,7 +6223,7 @@ LM_EMBED_STEP_REL = 1e-5
 # the Module's rate (a gradient summed over a sentence) times the mean
 # sentence length
 LM_GLUON_LR = 0.2
-LM_GLUON_STEPS = 96
+LM_GLUON_STEPS = 64                 # (cut from 96: phase 33's time)
 # (e): packed attention at the training shape's heads
 PACK_LADDER = [256]
 PACK_BATCH = 8
@@ -6899,8 +6929,8 @@ GAN_NZ, GAN_NGF, GAN_NDF, GAN_NC = 100, 64, 64, 3
 GAN_IMAGE = 64
 GAN_BATCH = 64
 GAN_IMAGES = 2048
-GAN_STEPS = 300
-GAN_TIMED = 20
+GAN_STEPS = 150                     # (cut from 300: phase 33's time)
+GAN_TIMED = 10                      # (cut from 20: phase 33's time)
 GAN_SPIN_CYCLES = 1 << 24           # ~8 ms: longer than a Trainer.step's host work
 GAN_SEED = 0
 GAN_ADAM = dict(learning_rate=2e-4, beta1=0.5)
@@ -7516,7 +7546,7 @@ def phase_gan(card):
     widths. Cuts: the tutorial's LFW / CIFAR-10 images are not in the
     repository, so the data are GAN_IMAGES synthetic coloured blobs
     made on the card from seed GAN_SEED (``gan_images``); and the depth
-    is GAN_STEPS steps (about 9 epochs of those images), not 25 epochs.
+    is GAN_STEPS steps (about 5 epochs of those images), not 25 epochs.
     No kernel of the table is on this path: the attention, decode and
     rtc launch counts, zeroed before, must read 0 after."""
     import mxnet_tpu_torch as mx
@@ -7686,7 +7716,7 @@ OPS_WIDE = {
 }
 OPS_SYNC_OK = ("_linalg_syevd",)    # torch.linalg.eigh reads its info flag
 SYM_LM_BATCH = 8
-SYM_LM_STEPS = 10
+SYM_LM_STEPS = 5                    # (cut from 10: phase 33's time)
 SYM_LM_T = 512                      # the forward and greedy checks' window
 SYM_LM_PROMPT = 496                 # the greedy check's prompt in that window
 SYM_LM_NEW = 16
@@ -8726,8 +8756,8 @@ def phase_ops(card):
 # reference's example/distributed_training trains it; cut in steps only
 KV_RANKS = 2
 KV_BATCH = 64
-KV_STEPS = 20
-KV_TIMED = 4                        # the medians read steps 5-20
+KV_STEPS = 12                       # (cut from 20: phase 33's time)
+KV_TIMED = 4                        # the medians read steps 5-12
 KV_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
 KV_SEED = 0
 # BASELINE config 1's MLP (examples/train_mnist_module.py) through
@@ -9206,7 +9236,7 @@ def phase_kv(card):
     launch -n 2``, both on gpu(0) (the one card: the process group is
     gloo's, which stages CUDA tensors through the host), run (b) the
     dense dist_sync assertions, (c) BASELINE config 5 (resnet18_v1 at 10
-    classes, 3x32x32, 64 images a rank, 20 steps, once per key and once
+    classes, 3x32x32, 64 images a rank, 12 steps, once per key and once
     bucketed), (d) config 1's MLP through ``Module.fit`` and (e) a
     dist_sync push + pull round over ResNet-18's shapes; this process
     holds them to (c)'s two-replica twin, (d)'s one-process fit at the
@@ -9363,7 +9393,8 @@ def phase_kv(card):
 # features a row, 13 numeric and 26 categorical fields, each field's ids
 # from its own range of the 2M, drawn skewed (Zipf) so hot ids repeat;
 # a synthetic libsvm file from seed 0, as Criteo is not in the
-# repository; cut in rows (100,000 = 100 batches) and epochs (2) only
+# repository; cut in rows (50,000 = 50 batches; 100,000 before phase
+# 33's time) and epochs (2) only
 FM_FEATURES = 2000000
 FM_FACTOR = 16
 FM_BATCH = 1000
@@ -9371,7 +9402,7 @@ FM_NUMERIC = 13
 FM_CATEGORICAL = 26
 FM_NUMERIC_IDS = 1024               # a numeric field's value buckets
 FM_ZIPF = 1.2
-FM_ROWS = 100000
+FM_ROWS = 50000
 FM_EPOCHS = 2
 FM_ADAM = dict(learning_rate=0.02)
 FM_SEED = 0
@@ -14658,6 +14689,287 @@ def phase_device_mesh(card, tfa):
                 cuda_share_ms=cuda_share, cpu_share_ms=cpu_share, **module)
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the persistent compile cache
+# ---------------------------------------------------------------------------
+
+CC_KERNELS = ("flash_decode", "nms_sweep")  # built cold, loaded warm
+CC_DEC = (8, 576, 12, 64)                   # the server's decode window
+CC_SEED = 33
+CC_CALLS = 3                                # the warm path's block calls
+CC_AXPY_N = 1 << 20
+CC_NMS = (2, 2048)                          # boxes of the nms_sweep check
+CC_NMS_THRESH = 0.5
+CC_TIMEOUT = 300
+CC_NVCC = """#!/bin/sh
+echo "$*" >> "%s"
+exec "%s" "$@"
+"""
+
+
+def cc_axpy(mx):
+    """Phase 8's module through mx.rtc: its axpy once over CC_AXPY_N
+    floats on gpu(0), against ``y + a*x``; returns (error, module)."""
+    g = torch.Generator(device="cpu").manual_seed(CC_SEED)
+    dev = torch.device("cuda", 0)
+    x = mx.nd.NDArray(torch.randn(CC_AXPY_N, generator=g).to(dev))
+    y = mx.nd.NDArray(torch.randn(CC_AXPY_N, generator=g).to(dev))
+    want = torch.add(y._data, x._data, alpha=0.5)
+    mod = mx.rtc.CudaModule(RTC_KERNELS)
+    k = mod.get_kernel("axpy", "float alpha, const float *x, float *y")
+    k.launch((0.5, x, y), mx.gpu(0), (CC_AXPY_N // 256, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    err, ok = close(y._data, want, RTC_TOL)
+    if not ok:
+        fail("the axpy disagrees with y + a*x (max abs error %g)" % err)
+    return err, mod
+
+
+def cc_nms(det):
+    """One ``nms_keep`` launch on random corner boxes in score order,
+    its keep mask against ``nms_keep_plain``'s; returns the kept count."""
+    g = torch.Generator(device="cpu").manual_seed(CC_SEED)
+    B, n = CC_NMS
+    lo = torch.rand(B, n, 2, generator=g) * 0.9
+    boxes = torch.cat([lo, lo + 0.02 + torch.rand(B, n, 2, generator=g)
+                       * 0.1], dim=-1).cuda()
+    keep = det.nms_keep(boxes, CC_NMS_THRESH)
+    if not torch.equal(keep, det.nms_keep_plain(boxes, CC_NMS_THRESH)):
+        fail("nms_sweep's keep mask differs from nms_keep_plain's")
+    return int(keep.sum())
+
+
+def cc_dump(outdir, role, res):
+    path = os.path.join(outdir, role + ".json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(path + ".tmp", path)
+
+
+def cc_cold_main(outdir):
+    """Phase 33 (a), a child on an empty cache directory."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile_cache
+    from mxnet_tpu_torch.parallel import _build
+    t0 = time.perf_counter()
+    _build.build_all(list(CC_KERNELS))
+    build_s = time.perf_counter() - t0
+    err, mod = cc_axpy(mx)
+    compile_cache.flush()
+    cc_dump(outdir, "cc-cold", dict(
+        build_s=build_s, rtc_s=mod.compile_seconds,
+        from_cache=mod.from_cache, axpy_err=err,
+        stats=compile_cache.stats()))
+    return 0
+
+
+def cc_warm_main(outdir):
+    """Phase 33 (b), a child on the directory (a) filled."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile_cache, compile_watch, rtc, telemetry
+    from mxnet_tpu_torch.ops import detection as det
+    from mxnet_tpu_torch.parallel import flash_attention as tfa
+    compiles = []
+    nvrtc = rtc._compile
+
+    def counting(*args):
+        compiles.append(args[3])
+        return nvrtc(*args)
+    rtc._compile = counting
+
+    class Decode(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, q, k, v, lens):
+            return F.contrib.decode_attention(q, k, v, lens)
+
+    B, T, H, D = CC_DEC
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(CC_SEED)
+    q = torch.randn(B, 1, H, D, generator=g).to(dev)
+    k, v = (torch.randn(B, T, H, D, generator=g).to(dev) for _ in range(2))
+    lens_np = np.random.RandomState(CC_SEED).randint(1, T + 1, size=B)
+    lens_np[0], lens_np[-1] = 1, T
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    net = Decode()
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    args = [mx.nd.NDArray(t) for t in (q, k, v, lens)]
+    compile_watch.enable()
+    sink = os.path.join(outdir, "cc-warm.jsonl")
+    telemetry.start(filename=sink)
+    tfa.reset_launches()                  # the warm path starts here
+    t0 = time.perf_counter()
+    for _ in range(CC_CALLS):
+        out = net(*args)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(tfa.launches)         # ... and ends here
+    telemetry.stop()
+    err, ok = close(out._data, tfa.flash_decode(q, k, v, lens, impl="plain"))
+    if not ok:
+        fail("the warm block's decode attention disagrees with the plain "
+             "version (max abs error %g)" % err)
+    with open(sink) as f:
+        tags = [(r["program"], r.get("cache")) for r in map(json.loads, f)
+                if r.get("type") == "compile"]
+    sites = compile_watch.site_stats("op:")
+    kept = cc_nms(det)
+    axpy_err, mod = cc_axpy(mx)
+    stats = compile_cache.stats()
+    rec = decode_case(tfa, B, T, H, D, seed=CC_SEED, lens_np=lens_np)
+    cc_dump(outdir, "cc-warm", dict(
+        path_s=path_s, launches=launches, err=err, tags=tags, sites=sites,
+        kept=kept, axpy_err=axpy_err, rtc_s=mod.compile_seconds,
+        from_cache=mod.from_cache, nvrtc_compiles=len(compiles),
+        stats=stats, rec=rec))
+    return 0
+
+
+def phase_compile_cache(card):
+    """Phase 33 (see the module docstring); returns the warm start's
+    kernel record, launches and error."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import compile_cache
+    from mxnet_tpu_torch.ops import detection as det
+    from mxnet_tpu_torch.parallel import _build
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="ccache_")
+    cache = os.path.join(root, "cache")
+    log = os.path.join(root, "nvcc.log")
+    home = os.path.join(root, "cuda")
+    os.makedirs(os.path.join(home, "bin"))
+    wrapper = os.path.join(home, "bin", "nvcc")
+    with open(wrapper, "w") as f:
+        f.write(CC_NVCC % (log, _build._nvcc()))
+    os.chmod(wrapper, 0o755)
+    env = dict(os.environ, MXNET_COMPILE_CACHE_DIR=cache, CUDA_HOME=home)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+
+    def nvcc_builds():
+        if not os.path.exists(log):
+            return 0
+        with open(log) as f:
+            return sum(" -o " in ln for ln in f)
+
+    def child(role):
+        before = nvcc_builds()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               role, root], cwd=here, env=env,
+                              capture_output=True, text=True,
+                              timeout=CC_TIMEOUT)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print("    " + line)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:])
+            fail("(%s) the child exited %d" % (role, proc.returncode))
+        with open(os.path.join(root, role + ".json")) as f:
+            return json.load(f), secs, nvcc_builds() - before
+
+    def entries():
+        return sorted(n for n in os.listdir(cache) if n.endswith(".mxc"))
+
+    try:
+        # (a) cold start
+        cold, cold_s, cold_builds = child("cc-cold")
+        st = cold["stats"]
+        print("  (a) cold start: a child process on an empty cache, %.1f s: "
+              "nvcc builds of %s %.1f s (%d nvcc builds), NVRTC compile and "
+              "load of phase 8's module %.3f s (from the cache: %s), axpy max"
+              " abs error %g; after flush(): misses %d, stores %d, %d entries"
+              " (%d bytes) on disk (%s)"
+              % (cold_s, " and ".join(CC_KERNELS), cold["build_s"],
+                 cold_builds, cold["rtc_s"], cold["from_cache"],
+                 cold["axpy_err"], st["misses"], st["stores"], st["entries"],
+                 st["size_bytes"], card))
+        if (st["misses"], st["stores"], st["hits"]) != (3, 3, 0) \
+                or len(entries()) != 3 or cold_builds != 2 \
+                or cold["from_cache"]:
+            fail("(a) a cold start must miss, build and store 3 entries: %s,"
+                 " %d nvcc builds" % (st, cold_builds))
+        # (b) warm start
+        warm, warm_s, warm_builds = child("cc-warm")
+        st = warm["stats"]
+        block = [t for t in warm["tags"] if t[0].startswith("op:")]
+        hits = sum(s.get("cache_hits", 0) for s in warm["sites"].values())
+        print("  (b) warm start: a child process on that cache, %.1f s: "
+              "hits %d, misses %d, errors %d, %d bytes read in %.4f s; nvcc "
+              "builds %d, NVRTC compiles %d (phase 8's module loaded in "
+              "%.4f s, from the cache: %s); the hybridized decode block's "
+              "%d calls %.3f s (its capture loads flash_decode), compile "
+              "records %s, cache_hits by site %s, launches %s; block vs "
+              "plain max abs error %g, nms_sweep kept %d (equal to the plain"
+              " version), axpy max abs error %g"
+              % (warm_s, st["hits"], st["misses"], st["errors"],
+                 st["bytes_read"], st["hit_s"], warm_builds,
+                 warm["nvrtc_compiles"], warm["rtc_s"], warm["from_cache"],
+                 CC_CALLS, warm["path_s"], warm["tags"],
+                 {n: s.get("cache_hits", 0)
+                  for n, s in warm["sites"].items()},
+                 warm["launches"], warm["err"], warm["kept"],
+                 warm["axpy_err"]))
+        if (st["hits"], st["misses"]) != (3, 0) or warm_builds \
+                or warm["nvrtc_compiles"] or not warm["from_cache"]:
+            fail("(b) a warm start built something: %s, %d nvcc builds, %d "
+                 "NVRTC compiles" % (st, warm_builds,
+                                     warm["nvrtc_compiles"]))
+        if [t[1] for t in block] != ["hit"] or hits < 1:
+            fail("(b) the block's capture is not one compile record tagged "
+                 "'hit': %s, cache_hits %d" % (block, hits))
+        if warm["launches"]["flash_decode"] < 1:
+            fail("(b) the warm path launched no flash_decode")
+        # (c) faults, in this process
+        key = compile_cache.entry_key("nvcc:nms_sweep", tuple(_build._FLAGS),
+                                      _build._digest("nms_sweep")[1])
+        path = os.path.join(cache, key + ".mxc")
+        if not os.path.exists(path):
+            fail("(c) nms_sweep's entry is not at its key %s" % key)
+        total = sum(os.path.getsize(os.path.join(cache, n))
+                    for n in entries())
+        with open(path, "rb") as f:
+            blob = f.read()
+        with open(path, "wb") as f:
+            f.write(blob[:len(blob) // 2])
+        before = nvcc_builds()
+        with env_set("CUDA_HOME", home), env_set(
+                "MXNET_COMPILE_CACHE_MB", repr((total - 1) / float(1 << 20))):
+            try:
+                compile_cache.enable(cache)
+                _build._libs.pop("nms_sweep", None)
+                t0 = time.perf_counter()
+                kept = cc_nms(det)
+                rebuild_s = time.perf_counter() - t0
+                compile_cache.flush()
+                st = compile_cache.stats()
+            finally:
+                compile_cache.disable()
+        builds = nvcc_builds() - before
+        print("  (c) nms_sweep's entry truncated to %d of %d bytes, cap %d "
+              "bytes (one under the three entries): misses %d, errors %d, "
+              "hits %d, nvcc builds %d (rebuilt and launched in %.1f s, kept "
+              "%d, equal to the plain version), stores %d, evictions %d, %d "
+              "entries (%d bytes) left"
+              % (len(blob) // 2, len(blob), total - 1, st["misses"],
+                 st["errors"], st["hits"], builds, rebuild_s, kept,
+                 st["stores"], st["evictions"], st["entries"],
+                 st["size_bytes"]))
+        if (st["misses"], st["errors"], st["hits"], builds) != (1, 1, 0, 1) \
+                or st["stores"] != 1 or not st["evictions"] > 0 \
+                or st["size_bytes"] > st["max_bytes"]:
+            fail("(c) the truncated entry is not one counted miss rebuilt, "
+                 "or the cap did not evict: %s, %d nvcc builds"
+                 % (st, builds))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("  cold start %.1f s, warm start %.1f s; phase 33 %.1f s"
+          % (cold_s, warm_s, time.perf_counter() - t_phase))
+    return dict(rec=warm["rec"], launches=warm["launches"],
+                err=max(warm["err"], warm["rec"]["err"]),
+                cold_s=cold_s, warm_s=warm_s)
+
+
 def kernel_row(name, source, replaces, path, shape, launches, rec, err):
     """One entry of the ``{"kernels": [...]}`` line; the decode kernels'
     also carry their cold-L2 time of one call and the host's splits."""
@@ -14759,6 +15071,9 @@ def main():
           "mesh over [gpu(0), cpu(0)]: Gluon, Module, the in-program sync, "
           "attention on a shard):")
     dmesh = phase_device_mesh(card, tfa)
+    print("the persistent compile cache (nvcc libraries and NVRTC cubins "
+          "kept across a restart: a cold child, a warm child, faults):")
+    ccache = phase_compile_cache(card)
     # one row per kernel and main path: launches from that path's run,
     # times at the shape that path gives the kernel
     train_shape = "B%d T%d H12 D64 causal" % (TRAIN_BATCH,
@@ -14837,7 +15152,10 @@ def main():
                    "in-process mesh [gpu(0), cpu(0)]", DM_ATT_SHAPE,
                    dmesh["launches"], dmesh["kern"][kname],
                    dmesh["kern"][kname]["err"])
-        for kname in TRAIN_KERNELS]
+        for kname in TRAIN_KERNELS] + [
+        kernel_row("flash_decode", DEC_SRC, DEC_TPU,
+                   "compile cache, warm start", "B%d T%d H%d D%d" % CC_DEC,
+                   ccache["launches"], ccache["rec"], ccache["err"])]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print("card:", card)
     print(json.dumps({"kernels": kernels}))
@@ -14860,4 +15178,8 @@ if __name__ == "__main__":
         sys.exit(ft_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["export-cpu"]:
         sys.exit(export_cpu_main(sys.argv[2]))
+    if sys.argv[1:2] == ["cc-cold"]:
+        sys.exit(cc_cold_main(sys.argv[2]))
+    if sys.argv[1:2] == ["cc-warm"]:
+        sys.exit(cc_warm_main(sys.argv[2]))
     sys.exit(main())

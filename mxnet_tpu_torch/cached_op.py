@@ -54,9 +54,13 @@ A plan that runs inside another program's body (an
 hybridized block) runs op by op there: its ops are captured by the outer
 graph, and a capture of its own would nest inside the outer one.
 
-The JAX CachedOp's graph token for the persistent compile cache has no
-counterpart here: ``compile_cache.py`` is the one module of the deploy
-path not ported (ROADMAP queue A step 7).
+The JAX CachedOp hands the persistent compile cache a graph token
+(``compile_cache.graph_token`` of its symbol's JSON) because the cache
+keeps its XLA program. No program of the port is persisted: a CUDA graph
+cannot be written to disk, so a restart captures each signature again.
+What the cache keeps is the device code a capture's warm-up call builds
+(:mod:`~mxnet_tpu_torch.compile_cache`), so a restart builds and
+compiles nothing again, and CachedOp takes no token.
 """
 from __future__ import annotations
 

@@ -65,10 +65,19 @@ Off by default, always cheap when off: a watched call is one
 module-global ``None`` check, and the telemetry step hook is the same
 check — with the watch off the JSONL sink is byte-identical to a run
 without this module. Enable with ``MXNET_COMPILE_WATCH=1`` (picked up at
-wrapper creation and at ``telemetry.start()``) or :func:`enable`. Not
-ported: the persistent compile cache (``compile_cache.py``), the one
-module of the deploy path still waiting (ROADMAP queue A step 7): a
-CUDA graph cannot be written to disk.
+wrapper creation and at ``telemetry.start()``) or :func:`enable`.
+
+The persistent compile cache (:mod:`~mxnet_tpu_torch.compile_cache`)
+keeps the device code a capture builds (nvcc libraries, NVRTC cubins),
+not the CUDA graph, which cannot be written to disk: a restart captures
+again and builds nothing again. While the cache is on, each ``compile``
+record carries ``"cache"``: ``"hit"`` when every device-code lookup its
+capture made (the warm-up call and the capture, on the capturing
+thread) came from disk, ``"miss"`` when anything was built fresh,
+``"none"`` when nothing was looked up; ``site_stats()`` and ``stats()``
+count the ``"hit"`` captures as ``cache_hits``, and the summary's
+``compile`` block gains ``cache`` (:func:`compile_cache.stats`). With
+the cache off no record carries the key.
 """
 from __future__ import annotations
 
@@ -81,7 +90,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-from . import envs
+from . import compile_cache, envs
 
 __all__ = ["enabled", "enable", "disable", "reset", "maybe_enable",
            "jit", "stats", "site_stats", "recent_mfu", "peak_table",
@@ -215,6 +224,8 @@ class _Watch:
         self.t0 = time.time()
         self.compile_count = 0
         self.compile_total_s = 0.0
+        self.cache_hits = 0     # captures whose device code all came
+                                # from the persistent compile cache
         self.programs = {}      # (site, statics) -> per-program dict
         self.storms = []
         self.dispatches = 0
@@ -411,16 +422,30 @@ def count_cost(call):
 def counted(call):
     """``(wrapped, cost)``: ``wrapped()`` is ``call()``, and its FIRST
     call (a capture's eager warm-up, or a CPU program's first call) runs
-    under :func:`count_cost` and fills ``cost`` (``flops``, ``bytes``)."""
+    under :func:`count_cost` and fills ``cost`` (``flops``, ``bytes``).
+    ``cost`` also holds this thread's compile-cache lookups before the
+    first call and after the last (``cache_from``, ``cache_to``)."""
     cost = {}
 
     def wrapped():
         if cost:
-            return call()
-        out, flops, nbytes = count_cost(call)
-        cost.update(flops=flops, bytes=nbytes)
+            out = call()
+        else:
+            before = compile_cache.thread_outcomes()
+            out, flops, nbytes = count_cost(call)
+            cost.update(flops=flops, bytes=nbytes, cache_from=before)
+        cost["cache_to"] = compile_cache.thread_outcomes()
         return out
     return wrapped, cost
+
+
+def _cache_tag(cost):
+    """The compile-cache outcome of one capture's lookups: ``"miss"``
+    when any was built fresh, ``"hit"`` when all came from disk,
+    ``"none"`` when it made none."""
+    h0, m0 = cost.get("cache_from", (0, 0))
+    h1, m1 = cost.get("cache_to", (h0, m0))
+    return "miss" if m1 > m0 else "hit" if h1 > h0 else "none"
 
 
 # ---------------------------------------------------------------------------
@@ -456,8 +481,9 @@ def note_compile(site, tensors, dur, cost, replaced=()):
     factor = dtype_peak_factor(cdtype) if cdtype else 1.0
     flops = cost.get("flops", 0.0)
     nbytes = cost.get("bytes", 0.0)
+    cache = _cache_tag(cost) if compile_cache.enabled() else None
     event = _record_compile(w, site.name, site.statics, dur, desc, flops,
-                            nbytes, list(replaced))
+                            nbytes, list(replaced), cache)
     if cdtype is not None:
         event["compute_dtype"] = cdtype
     if site.counter:
@@ -556,10 +582,11 @@ def _step_clock(w):
 
 
 def _record_compile(w, site, statics, dur, desc, flops, nbytes,
-                    replaced):
+                    replaced, cache=None):
     """Fold one compile into the program's stats (under the lock) and
-    return the JSONL-ready event dict. The storm warning fires outside
-    the lock."""
+    return the JSONL-ready event dict, tagged with its compile-cache
+    outcome ``cache`` unless None. The storm warning fires outside the
+    lock."""
     storm = None
     clock = _step_clock(w)
     with _lock:
@@ -570,6 +597,9 @@ def _record_compile(w, site, statics, dur, desc, flops, nbytes,
         p = w.program(site, statics)
         p["count"] += 1
         p["total_s"] += dur
+        if cache == "hit":
+            w.cache_hits += 1
+            p["cache_hits"] = p.get("cache_hits", 0) + 1
         if replaced:
             cause = "replaced " + "; ".join(replaced[:3])
             changed = list(replaced)
@@ -610,6 +640,8 @@ def _record_compile(w, site, statics, dur, desc, flops, nbytes,
         event["flops"] = flops
     if nbytes:
         event["bytes"] = nbytes
+    if cache is not None:
+        event["cache"] = cache
     return event
 
 
@@ -745,6 +777,9 @@ def stats():
             agg["specializations"] += 1
             for k, v in p["causes"].items():
                 agg["causes"][k] = agg["causes"].get(k, 0) + v
+            if p.get("cache_hits"):
+                agg["cache_hits"] = agg.get("cache_hits", 0) \
+                    + p["cache_hits"]
             if p["churn"]:
                 churn = agg.setdefault("churn", {})
                 for k, v in p["churn"].items():
@@ -754,6 +789,7 @@ def stats():
         out = {
             "compiles": w.compile_count,
             "compile_total_s": round(w.compile_total_s, 6),
+            "cache_hits": w.cache_hits,
             "programs": programs,
             "storms": [dict(s) for s in w.storms],
             "dispatches": w.dispatches,
@@ -793,6 +829,12 @@ def site_stats(prefix=None):
             agg = out.setdefault(site, {"count": 0, "total_s": 0.0})
             agg["count"] += p["count"]
             agg["total_s"] = round(agg["total_s"] + p["total_s"], 6)
+            if p.get("cache_hits"):
+                # captures whose device code came from the persistent
+                # compile cache; present only when hits happened, so a
+                # cacheless run's output keeps its shape
+                agg["cache_hits"] = agg.get("cache_hits", 0) \
+                    + p["cache_hits"]
     return out
 
 
@@ -810,6 +852,9 @@ def summary_blocks():
     }
     if s["storms"]:
         compile_block["storms"] = s["storms"]
+    cache = compile_cache.stats()
+    if cache is not None:
+        compile_block["cache"] = cache
     util_block = {
         "device_kind": s["device_kind"],
         "n_devices": s["n_devices"],

@@ -173,6 +173,14 @@ declare("MXNET_DEVICE_PEAK_FLOPS", "float", 0.0,
 declare("MXNET_DEVICE_PEAK_BW", "float", 0.0,
         "Per-device peak memory bandwidth bytes/s for BW-utilization "
         "math (0 = built-in table).", _G)
+declare("MXNET_COMPILE_CACHE_DIR", "path", "",
+        "Directory for the persistent on-disk store of compiled device "
+        "code (nvcc libraries, NVRTC cubins); empty disables it.", _G)
+declare("MXNET_COMPILE_CACHE_MB", "float", 512.0,
+        "LRU byte cap for the on-disk compile cache, in MB.", _G)
+declare("MXNET_COMPILE_CACHE_QUEUE", "int", 64,
+        "Bounded depth of the compile-cache background store queue "
+        "(overflow drops the store, entry stays cold).", _G)
 
 _G = "serving"
 declare("MXNET_SERVING_MAX_OUTSTANDING", "int", 2,

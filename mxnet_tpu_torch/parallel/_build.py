@@ -15,21 +15,33 @@ a kernel (or in :func:`build_all`, which starts one ``nvcc`` per source
 at once); a failed build raises :class:`~mxnet_tpu_torch.MXNetError`
 with the compiler's output. Nothing here runs at import time.
 
+With the persistent compile cache on (``MXNET_COMPILE_CACHE_DIR``,
+:mod:`~mxnet_tpu_torch.compile_cache`), the libraries live there
+instead, keyed by the kernel's name, ``nvcc``'s flags, the SHA-256 of
+the source and headers, and the toolchain and card (site
+``nvcc:<name>``): a hit writes the library and its report into a
+directory of this process (``ctypes`` loads from a path) and runs no
+``nvcc``; a miss builds into that directory and queues the library and
+its report for the cache.
+
 ``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
 as ``/usr/local/cuda/bin/nvcc``.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
+from .. import compile_cache
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "library", "log_path"]
+__all__ = ["SOURCES", "build_all", "library", "log_path", "nvcc_version"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -48,6 +60,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs = {}
+_cached = {}       # kernel name -> library path from the compile cache
+_proc_dir = []     # this process's directory of cached libraries
+_version = []      # nvcc's release line, read once
 
 
 def _nvcc():
@@ -66,14 +81,43 @@ def _nvcc():
         "built from source at first use")
 
 
-def _lib_path(name):
+def nvcc_version():
+    """nvcc's ``--version`` release line (part of the compile cache's
+    version tag), read once per process."""
+    if not _version:
+        text = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                              text=True, timeout=60).stdout
+        lines = [ln.strip() for ln in text.splitlines() if ln.strip()]
+        _version.append(next((ln for ln in lines if "release" in ln),
+                             lines[-1] if lines else ""))
+    return _version[0]
+
+
+def _digest(name):
+    """The SHA-256 of kernel ``name``'s source and the shared headers."""
     src = os.path.join(_CSRC, SOURCES[name])
     digest = hashlib.sha256()
     for path in [src] + [os.path.join(_CSRC, h) for h in HEADERS]:
         with open(path, "rb") as f:
             digest.update(f.read())
-    return src, os.path.join(_OUT, "lib%s-%s.so" % (name,
-                                                     digest.hexdigest()[:16]))
+    return src, digest.hexdigest()
+
+
+def _lib_path(name):
+    src, digest = _digest(name)
+    base = "lib%s-%s.so" % (name, digest[:16])
+    if name in _cached or compile_cache.maybe_enable():
+        return src, os.path.join(_cache_out(), base)
+    return src, os.path.join(_OUT, base)
+
+
+def _cache_out():
+    """This process's directory for libraries of the compile cache,
+    removed at exit."""
+    if not _proc_dir:
+        _proc_dir.append(tempfile.mkdtemp(prefix="mxnet-nvcc-"))
+        atexit.register(shutil.rmtree, _proc_dir[0], True)
+    return _proc_dir[0]
 
 
 def log_path(name):
@@ -81,13 +125,38 @@ def log_path(name):
     return _lib_path(name)[1] + ".log"
 
 
+def _from_cache(name, out):
+    """Write kernel ``name``'s library and report from the compile cache
+    to ``out``; returns its cache key, and whether it was there."""
+    key = compile_cache.entry_key("nvcc:" + name, tuple(_FLAGS),
+                                  _digest(name)[1])
+    payload = compile_cache.lookup(key)
+    if payload is None:
+        return key, False
+    log, lib = compile_cache.unpack_parts(payload)
+    for path, data in ((out + ".log", log), (out, lib)):
+        tmp = "%s.tmp%d" % (path, os.getpid())
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    _cached[name] = out
+    return key, True
+
+
 def _start(name):
     """Start nvcc for ``name`` unless its library is current; returns
-    (process or None, tmp path, final path)."""
+    (process or None, tmp path, final path, cache key or None)."""
     src, out = _lib_path(name)
-    if os.path.exists(out):
-        return None, None, out
-    os.makedirs(_OUT, exist_ok=True)
+    key = None
+    if compile_cache.enabled():
+        if name in _cached:
+            return None, None, out, None
+        key, hit = _from_cache(name, out)
+        if hit:
+            return None, None, out, None
+    elif os.path.exists(out):
+        return None, None, out, None
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = "%s.tmp%d" % (out, os.getpid())
     log = open(out + ".log.tmp%d" % os.getpid(), "w")
     try:
@@ -95,10 +164,10 @@ def _start(name):
                                 stdout=log, stderr=subprocess.STDOUT)
     finally:
         log.close()
-    return proc, tmp, out
+    return proc, tmp, out, key
 
 
-def _finish(name, proc, tmp, out):
+def _finish(name, proc, tmp, out, key):
     if proc is None:
         return
     rc = proc.wait()
@@ -113,13 +182,19 @@ def _finish(name, proc, tmp, out):
                          % (SOURCES[name], rc, text))
     os.replace(log_tmp, out + ".log")
     os.replace(tmp, out)
+    if key is not None:
+        with open(out, "rb") as f:
+            compile_cache.store(key, compile_cache.pack_parts(
+                text.encode(), f.read()))
+        _cached[name] = out
 
 
-def build_all():
-    """Build every kernel that is not current, one ``nvcc`` per source,
-    all started together. Returns the library paths by kernel name."""
+def build_all(names=None):
+    """Build every kernel (or those of ``names``) that is not current,
+    one ``nvcc`` per source, all started together. Returns the library
+    paths by kernel name."""
     with _lock:
-        started = {n: _start(n) for n in SOURCES}
+        started = {n: _start(n) for n in (names or SOURCES)}
         errors = []
         for n, job in started.items():
             try:

@@ -31,7 +31,10 @@ no counterpart here.
   (``libnvrtc`` through ctypes) turns the source into a cubin for the
   card's architecture (``sm_90a`` on an H100), cached on disk under
   ``mxnet_tpu_torch/_build/rtc/`` by the SHA-256 of the source, the
-  options and the exports. The cubin is loaded with the driver API
+  options and the exports, or, with ``MXNET_COMPILE_CACHE_DIR`` set, in
+  the persistent compile cache (:mod:`~mxnet_tpu_torch.compile_cache`,
+  site ``nvrtc``; its key adds the architecture, NVRTC's version and
+  the card). The cubin is loaded with the driver API
   (``cuModuleLoadData``) into the device's primary context. A compile or
   load error raises :class:`~mxnet_tpu_torch.MXNetError` with the
   compiler's log.
@@ -75,11 +78,13 @@ import time
 
 import torch
 
+from . import compile_cache
 from .base import MXNetError
 from .context import current_context
 from .ndarray import NDArray
 
-__all__ = ["CudaModule", "CudaKernel", "launches", "reset_launches"]
+__all__ = ["CudaModule", "CudaKernel", "launches", "reset_launches",
+           "nvrtc_version"]
 
 # reference rtc.py _DTYPE_CPP_TO_NP, plus numpy-style spellings (the JAX
 # package's _DTYPE_TO_NP), as torch dtypes
@@ -209,7 +214,8 @@ def _nvrtc():
     lib.nvrtcGetCUBINSize.argtypes = [p, ctypes.POINTER(sz)]
     lib.nvrtcGetCUBIN.argtypes = [p, ctypes.c_char_p]
     lib.nvrtcDestroyProgram.argtypes = [ctypes.POINTER(p)]
-    for fn in ("nvrtcCreateProgram", "nvrtcCompileProgram",
+    lib.nvrtcVersion.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    for fn in ("nvrtcVersion", "nvrtcCreateProgram", "nvrtcCompileProgram",
                "nvrtcAddNameExpression", "nvrtcGetLoweredName",
                "nvrtcGetProgramLogSize", "nvrtcGetProgramLog",
                "nvrtcGetCUBINSize", "nvrtcGetCUBIN", "nvrtcDestroyProgram"):
@@ -218,6 +224,16 @@ def _nvrtc():
     lib.nvrtcGetErrorString.restype = ctypes.c_char_p
     _libs["nvrtc"] = lib
     return lib
+
+
+def nvrtc_version():
+    """NVRTC's ``nvrtcVersion`` as ``"major.minor"`` (part of the compile
+    cache's version tag)."""
+    lib = _nvrtc()
+    major, minor = ctypes.c_int(), ctypes.c_int()
+    _nvrtc_check(lib, lib.nvrtcVersion(ctypes.byref(major),
+                                       ctypes.byref(minor)), "nvrtcVersion")
+    return "%d.%d" % (major.value, minor.value)
 
 
 def _cuda():
@@ -437,6 +453,38 @@ class CudaModule:
     def _load(self, index):
         t0 = time.perf_counter()
         arch = _arch(index)
+        if compile_cache.maybe_enable():
+            cubin = self._through_cache(arch)
+        else:
+            cubin = self._through_build_dir(arch)
+        module = ctypes.c_void_p()
+        with _pushed(index):
+            _cu_check(_cuda().cuModuleLoadData(ctypes.byref(module), cubin),
+                      "cuModuleLoadData")
+        self.compile_seconds = time.perf_counter() - t0
+        return module, {}
+
+    def _through_cache(self, arch):
+        """The cubin for ``arch`` from the compile cache, or compiled and
+        queued for it."""
+        options = self._options_for(arch)
+        key = compile_cache.entry_key("nvrtc", (options, self._exports),
+                                      self._key, arch)
+        payload = compile_cache.lookup(key)
+        self.from_cache = payload is not None
+        if self.from_cache:
+            lowered, cubin = compile_cache.unpack_parts(payload)
+            self._lowered = json.loads(lowered.decode())
+            return cubin
+        cubin, self._lowered = _compile(self._source, options, self._exprs,
+                                        "mx_rtc_%s.cu" % self._key[:16])
+        compile_cache.store(key, compile_cache.pack_parts(
+            json.dumps(self._lowered).encode(), cubin))
+        return cubin
+
+    def _through_build_dir(self, arch):
+        """The cubin for ``arch`` from ``_build/rtc/``, or compiled and
+        written there."""
         path = os.path.join(_OUT, "%s-%s" % (self._key[:16], arch))
         if os.path.exists(path + ".cubin") and os.path.exists(
                 path + ".json"):
@@ -458,12 +506,7 @@ class CudaModule:
                     f.write(data)
                 os.replace(tmp, path + ext)
             self.from_cache = False
-        module = ctypes.c_void_p()
-        with _pushed(index):
-            _cu_check(_cuda().cuModuleLoadData(ctypes.byref(module), cubin),
-                      "cuModuleLoadData")
-        self.compile_seconds = time.perf_counter() - t0
-        return module, {}
+        return cubin
 
 
 class CudaKernel:

@@ -98,8 +98,8 @@ from collections import deque
 import numpy as _np
 import torch
 
-from .. import envs, fault, livemetrics, metering, profiler, telemetry, \
-    tracing
+from .. import compile_cache, envs, fault, livemetrics, metering, \
+    profiler, telemetry, tracing
 from ..base import MXNetError
 from ..bucketing.ladder import BucketLadder
 # one capture at a time in the process (CachedOp's graphs too):
@@ -975,9 +975,11 @@ class DecodeServer:
         prefill rung, the decode step, and the copy-on-write copy when
         the prefix cache is on. On a CUDA device each is captured as a
         CUDA graph for the serving weights (its eager first call builds
-        the kernels); on the CPU each runs once. Warmup writes only the
-        dump page (``n_valid=0``, all-zero tables). The scheduler is
-        paused meanwhile. Returns the number of programs."""
+        the kernels, or loads them from the persistent compile cache,
+        which is flushed before this returns); on the CPU each runs
+        once. Warmup writes only the dump page (``n_valid=0``, all-zero
+        tables). The scheduler is paused meanwhile. Returns the number
+        of programs."""
         with self._cond:
             if self._closed:
                 raise ServerClosedError("DecodeServer is stopped")
@@ -992,16 +994,17 @@ class DecodeServer:
                             self._capture_cow()
                             n += 1
                     self._programs.warmed = True
-                    return n
-                n = 0
-                for rung in self._seq_ladder.buckets:
-                    self._run_prefill(ver, *self._prefill_args(rung))
+                else:
+                    n = 0
+                    for rung in self._seq_ladder.buckets:
+                        self._run_prefill(ver, *self._prefill_args(rung))
+                        n += 1
+                    self._run_step(ver, *self._step_args())
                     n += 1
-                self._run_step(ver, *self._step_args())
-                n += 1
-                if self._prefix_on:
-                    self._run_cow(0, 0)   # dump page onto itself
-                    n += 1
+                    if self._prefix_on:
+                        self._run_cow(0, 0)   # dump page onto itself
+                        n += 1
+            compile_cache.flush()
             return n
         finally:
             with self._cond:

@@ -442,8 +442,10 @@ class InferenceServer:
         callable models need one ``example`` sample array per input.
         Returns the number of (bucket, device) programs readied (a
         repeated device counts once per replica, as in the JAX
-        package). No persistent compile cache is ported: a CUDA graph
-        cannot be written to disk."""
+        package). A CUDA graph cannot be written to disk, so a restart
+        captures again; the device code the captures built is flushed
+        to the persistent compile cache before this returns, when it
+        is on."""
         if example:
             samples = [a.asnumpy() if hasattr(a, "asnumpy")
                        else _np.asarray(a) for a in example]
@@ -482,6 +484,8 @@ class InferenceServer:
                                   for s in warm]
                         _host(self._programs[(str(dev), key)](*inputs))
                     n += 1
+        from .. import compile_cache
+        compile_cache.flush()
         return n
 
     # -- admission ---------------------------------------------------------

@@ -144,7 +144,7 @@ _LOCKISH = re.compile(r"lock|_mu\b|mutex|cond", re.IGNORECASE)
 # stack + its writers); elsewhere ad-hoc counters are local state
 _COUNTER_MODULES = (
     "mxnet_tpu_torch/profiler.py", "mxnet_tpu_torch/telemetry.py",
-    "mxnet_tpu_torch/compile_watch.py",
+    "mxnet_tpu_torch/compile_watch.py", "mxnet_tpu_torch/compile_cache.py",
     "mxnet_tpu_torch/livemetrics.py", "mxnet_tpu_torch/tracing.py",
     "mxnet_tpu_torch/checkpoint.py", "mxnet_tpu_torch/serving/",
     "mxnet_tpu_torch/bucketing/record.py",
@@ -213,6 +213,7 @@ _PIPELINE_MODULES = (
     "mxnet_tpu_torch/io/", "mxnet_tpu_torch/serving/", "mxnet_tpu_torch/checkpoint.py",
     "mxnet_tpu_torch/bucketing/",
     "mxnet_tpu_torch/kvstore_server.py", "mxnet_tpu_torch/livemetrics.py",
+    "mxnet_tpu_torch/compile_cache.py",
 )
 
 

@@ -20,9 +20,12 @@ the multi-host fault path end to end, against the JAX package
   0's monitor exits 43 (``HOST_LOST_EXIT``) and the launcher with it,
   well inside the sleep the job would otherwise spend.
 
-The JAX worker's ``WARM_CACHE`` assertion needs ``compile_cache.py``
-(ROADMAP order step 7, red in the reference): the ported worker leaves
-it out."""
+The JAX worker's ``WARM_CACHE`` assertion (a restarted generation
+compiles nothing fresh) is left out of the ported worker: the port's
+compile cache keeps device code (nvcc libraries, NVRTC cubins), and a
+CPU worker builds none, so there is nothing for it to warm.
+``chip_smoke.py`` phase 33 is its card counterpart: a warm child process
+runs no nvcc and no NVRTC compile."""
 import json
 import os
 import subprocess
