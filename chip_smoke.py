@@ -649,8 +649,11 @@ no result, anywhere else. Phases (any failure exits non-zero):
    equals the unrolled LM's. The attention, decode and rtc launch
    counts read 0 over the phase.
 30. vision (after 29) — the twenty-sixth slice, fp32 with TF32 off,
-   through ``parallel/csrc/nms_sweep.cu`` (greedy NMS: a bit mask of the
-   overlaps, then one block a sample sweeping it). (a) the SSD300 head
+   through ``parallel/csrc/nms_sweep.cu`` (greedy NMS, redesigned in the
+   thirtieth: one chain a class from a stable sort of the class ids, a
+   short chain's bit mask and sweep in one block's shared memory, a long
+   chain's mask across the card and its sweep 64 boxes a step). (a) the
+   SSD300 head
    of MXNet v1.5's example/ssd ``get_config('vgg16_reduced', 300)``: its
    six maps' MultiBoxPrior anchors (8732), 21 classes, batch 32,
    ``cls_prob`` a softmax of seeded logits, 1-42 boxes an image (seed 0,
@@ -660,8 +663,12 @@ no result, anywhere else. Phases (any failure exits non-zero):
    keep mask bit-equal to ``nms_keep_plain`` over all 32 samples on the
    card (the plain version 8 samples a call), the head at B2 within
    rtol = atol = 1e-5 of its plain path (every NMS through
-   ``nms_keep_plain``); the head and the sweep at B32 by CUDA-graph
-   replay, the sweep's two launches by the profiler. (b) Faster R-CNN
+   ``nms_keep_plain``); the head and the NMS call at B32 by CUDA-graph
+   replay, the call's parts (the class order and the kernel's four
+   passes, each launched alone) by CUDA events around replays. (a')
+   MultiBoxDetection with force_suppress=True at B32 (one chain of 8732
+   a sample, the long-chain worst case), nms_sweep counted 1, its keep
+   mask held on NMS_CHUNK samples, timed the same way. (b) Faster R-CNN
    (VGG16, example/rcnn's test defaults: 600x1000, stride 16, 38x63
    features, scales (8, 16, 32), ratios (0.5, 1, 2), pre 6000, post
    300, threshold 0.7, min size 16): Proposal at B1 and MultiProposal
@@ -1193,7 +1200,8 @@ def phase_build():
             for ln in f:
                 # ptxas names each kernel instance, then its resources
                 entry = re.search(r"Compiling entry function .*?((?:fwd|dkdv|"
-                                  r"dq|decode_q8|decode|mask|sweep)_kernel)"
+                                  r"dq|decode_q8|decode|list|short|long_mask|"
+                                  r"long_sweep)_kernel)"
                                   r"(?:I((?:L[ib]\d+E)+)E)?", ln)
                 if entry:
                     print("  %s: %s<%s>" % (name, entry.group(1), ", ".join(
@@ -13476,39 +13484,74 @@ def nms_calls(det, plain=False):
 
 
 def nms_bound(keep, cls):
-    """(bound ms, bound_by, mask MB) of one sweep from this run's data:
-    the IoUs of the pairs i < j the class gate lets through (about 14
-    fp32 operations each) at the fp32 peak, against the bytes of the
-    boxes and ids read once and the keep mask written once; and, apart,
-    the kernel's own traffic in its bit mask (the words of the upper
-    tiles written, each kept row's words from its own on read)."""
+    """(bound ms, bound_by) of one call from this run's data: the IoUs of
+    the pairs i < j the class gate lets through (about 14 fp32 operations
+    each) at the fp32 peak, against the bytes of the boxes and ids read
+    once and the keep mask written once."""
     B, n = keep.shape
-    if cls is None:
-        pairs = B * n * (n - 1) // 2
-    else:
-        counts = torch.stack([torch.bincount(c.long() - int(c.min()))
-                              for c in cls.cpu()])
-        pairs = int((counts * (counts - 1) // 2).sum())
+    pairs = sum(L * (L - 1) // 2 for L in nms_chains(cls, B, n))
     flops = 14.0 * pairs
     nbytes = B * n * (16 + (4 if cls is not None else 0) + 1)
-    nw = (n + 63) // 64
-    tail = nw - torch.arange(n) // 64
-    words = B * int(tail.sum()) + int((tail[None, :] * keep.cpu()).sum())
     t_flops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return (max(t_flops, t_bytes) * 1e3,
-            "operations" if t_flops >= t_bytes else "bytes", 8 * words / 1e6)
+            "operations" if t_flops >= t_bytes else "bytes")
 
 
-def nms_hold(det, what, calls):
+def nms_chains(cls, B, n):
+    """The chain lengths of a call: a sample's boxes of one class id (a
+    NaN id alone), or each sample whole without a gate."""
+    if cls is None:
+        return [n] * B
+    out = []
+    for c in cls.cpu():
+        c = c + 0.0
+        nan = int(torch.isnan(c).sum())
+        out += torch.unique(c[~torch.isnan(c)], return_counts=True)[1] \
+            .tolist() + [1] * nan
+    return out
+
+
+def nms_passes_ms(det, boxes, thresh, cls, plus_one):
+    """Device ms of each part of one call, each launched alone into a
+    CUDA graph over a workspace the whole call filled first (CUDA events
+    around the replays): the class order (the stable sort), then the
+    kernel's passes: the lists, the short chains, the long chains' mask
+    and their sweep (0 where no chain is long: n <= the short limit)."""
+    from mxnet_tpu_torch.parallel import _build
+    fn = _build.library("nms_sweep")
+    B, n = boxes.shape[:2]
+    order = det._nms_order(cls)
+    work = torch.empty(fn.workspace(B, n), dtype=torch.uint8,
+                       device=boxes.device)
+    keep = torch.empty((B, n), dtype=torch.bool, device=boxes.device)
+
+    def run(passes):
+        det._nms_launch(fn, boxes, thresh, cls, order, plus_one, work, keep,
+                        passes, torch.cuda.current_stream().cuda_stream)
+    run(det.NMS_ALL_PASSES)
+    torch.cuda.synchronize()
+    out = dict(order=device_ms(lambda: det._nms_order(cls), iters=5, reps=3)
+               if cls is not None else 0.0)
+    for name, bit in (("lists", 1), ("short", 2), ("long_mask", 4),
+                      ("long_sweep", 8)):
+        out[name] = (device_ms(lambda b=bit: run(b), iters=5, reps=3)
+                     if bit < 4 or n > det.NMS_SHORT_CHAIN else 0.0)
+    run(det.NMS_ALL_PASSES)
+    return out
+
+
+def nms_hold(det, what, calls, samples=None):
     """Each recorded call's kernel keep mask against ``nms_keep_plain``'s
     on the same card inputs, bit for bit, over every sample of the call
-    (the plain version NMS_CHUNK samples at a time); returns the plain
-    version's ms for each call, its chunks' CUDA-event times summed."""
+    (or its first ``samples``; the plain version NMS_CHUNK samples at a
+    time); returns the plain version's ms for each call, its chunks'
+    CUDA-event times summed."""
     plain_ms = []
     for boxes, thresh, cls, plus_one in calls:
         got = det.nms_keep(boxes, thresh, cls, plus_one)
         ms = 0.0
-        for lo in range(0, boxes.shape[0], NMS_CHUNK):
+        for lo in range(0, min(boxes.shape[0], samples or boxes.shape[0]),
+                        NMS_CHUNK):
             sl = slice(lo, lo + NMS_CHUNK)
             c = None if cls is None else cls[sl]
             out = []
@@ -13528,38 +13571,37 @@ def nms_hold(det, what, calls):
 def nms_record(det, what, boxes, thresh, cls, plus_one, plain_ms, launches,
                card):
     """For one path's kernel row, at the shape the path gave the kernel:
-    its device ms (both launches, by CUDA-graph replay) and the two
-    launches' apart (the profiler, by kernel name), the plain version's
-    ms (``plain_ms``, from :func:`nms_hold`), the bound and the
-    launches."""
+    the device ms of the whole ``nms_keep`` call (the class order and the
+    kernel's passes, by CUDA-graph replay), each part apart
+    (:func:`nms_passes_ms`), the plain version's ms (``plain_ms``, from
+    :func:`nms_hold`), the bound, the chains and the launches."""
     def call():
         det.nms_keep(boxes, thresh, cls, plus_one)
     ms = device_ms(call, iters=3, reps=3)
-    by_pass = profile_steps(call, 3, (("mask", ("mask_kernel",)),
-                                      ("sweep", ("sweep_kernel",))))[2]
-    # (the profiler has attributed no device time to either pass late in
-    # the whole script, though it does in phase 30 alone: not measured)
-    split = ("the mask pass %.4f + the sweep %.4f, profiler"
-             % (by_pass["mask"], by_pass["sweep"])
-             if "mask" in by_pass and "sweep" in by_pass
-             else "the split not measured: the profiler saw %s"
-             % (sorted(by_pass) or "neither pass"))
+    parts = nms_passes_ms(det, boxes, thresh, cls, plus_one)
     keep = det.nms_keep(boxes, thresh, cls, plus_one)
-    bound, by, mask_mb = nms_bound(keep, cls)
-    print("  %s nms_sweep at %s (%s IoU%s): kernel %.4f ms (device, both "
-          "launches; %s) | plain %.4f ms (its calls of %d samples, summed) "
-          "| bound %.4f ms (%s; the kernel's bit-mask traffic %.1f MB) | %d "
-          "kept | launches on the path %d (%s)"
+    bound, by = nms_bound(keep, cls)
+    chains = nms_chains(cls, *keep.shape)
+    long = [L for L in chains if L > det.NMS_SHORT_CHAIN]
+    print("  %s nms_sweep at %s (%s IoU%s): the call %.4f ms (device, by "
+          "replay; apart: order %.4f, lists %.4f, short chains %.4f, long "
+          "mask %.4f, long sweep %.4f) | plain %.4f ms (its calls of %d "
+          "samples, summed) | bound %.4f ms (%s) | %d chains (longest %d; %d "
+          "over %d boxes) | %d kept | launches on the path %d (%s)"
           % (what, tuple(boxes.shape[:2]), "+1" if plus_one else "corner",
-             ", class-gated" if cls is not None else "", ms, split, plain_ms,
-             NMS_CHUNK, bound, by, mask_mb, int(keep.sum()), launches, card))
+             ", class-gated" if cls is not None else "", ms, parts["order"],
+             parts["lists"], parts["short"], parts["long_mask"],
+             parts["long_sweep"], plain_ms, NMS_CHUNK, bound, by,
+             len(chains), max(chains), len(long), det.NMS_SHORT_CHAIN,
+             int(keep.sum()), launches, card))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=None, err=0.0, launches=launches)
+                library_ms=None, err=0.0, launches=launches,
+                parts_ms=parts)
 
 
-def vision_ssd(mx, det, card, ctx):
-    """(a): the SSD300 head at batch 32 on the card."""
-    t0 = time.perf_counter()
+def ssd_inputs(mx, ctx):
+    """(a)'s anchors, class probabilities, box offsets and labels at
+    batch SSD_BATCH (seed 0)."""
     rs = np.random.RandomState(0)
     anchors = ssd_anchors(mx, ctx)
     if anchors.shape != (1, SSD_ANCHORS, 4):
@@ -13571,6 +13613,36 @@ def vision_ssd(mx, det, card, ctx):
     loc = mx.nd.array((rs.standard_normal((SSD_BATCH, 4 * SSD_ANCHORS))
                        * 0.2).astype(np.float32), ctx=ctx)
     label = mx.nd.array(ssd_labels(rs, SSD_BATCH), ctx=ctx)
+    return anchors, cls_prob, loc, label
+
+
+def vision_force(mx, det, card, anchors, cls_prob, loc):
+    """(a'): MultiBoxDetection with force_suppress=True at B32 (one chain
+    of 8732 boxes a sample), nms_sweep counted (1), its keep mask held on
+    its first NMS_CHUNK samples (the row's plain ms is theirs), the call
+    timed."""
+    torch.cuda.synchronize()
+    det.reset_launches()
+    with nms_calls(det) as calls:
+        dets = mx.nd.contrib.MultiBoxDetection(
+            cls_prob, loc, anchors, force_suppress=True, **SSD_DETECT)
+        torch.cuda.synchronize()
+    launched = det.launches["nms_sweep"]
+    if launched != 1 or len(calls) != 1 or calls[0][2] is not None:
+        fail("(a') force_suppress launched nms_sweep %d times (%d calls), "
+             "want 1 ungated" % (launched, len(calls)))
+    if not bool(torch.isfinite(dets._data).all()):
+        fail("(a') a detection is not finite")
+    plain_ms = nms_hold(det, "(a')", calls, samples=NMS_CHUNK)
+    boxes, thresh, _, _ = calls[0]
+    return nms_record(det, "(a') ssd force_suppress", boxes, thresh, None,
+                      False, plain_ms[0], launched, card)
+
+
+def vision_ssd(mx, det, card, ctx):
+    """(a): the SSD300 head at batch 32 on the card."""
+    t0 = time.perf_counter()
+    anchors, cls_prob, loc, label = ssd_inputs(mx, ctx)
 
     def head(cp, lp, lab):
         tgt = mx.nd.contrib.MultiBoxTarget(anchors, lab, cp)
@@ -13643,6 +13715,7 @@ def vision_ssd(mx, det, card, ctx):
           "nms_sweep %.3f ms a call of it; %.1f s (%s)"
           % (SSD_BATCH, head_ms, rec["ms"], time.perf_counter() - t0, card))
     rec["head_ms"] = head_ms
+    rec["force"] = vision_force(mx, det, card, anchors, cls_prob, loc)
     return rec, anchors, cls_prob
 
 
@@ -13674,16 +13747,23 @@ def card_vs_host(what, fn, arrays, grad=True):
     return fwd, bwd, g_o
 
 
-def vision_rcnn(mx, det, card, ctx):
-    """(b): Faster R-CNN's proposals, ROIPooling and ROIAlign."""
-    t0 = time.perf_counter()
+def rcnn_inputs(mx, ctx):
+    """(b)'s RPN scores, deltas and image info at B2 (seed 1); returns the
+    generator, drawn on after them, and the three arrays."""
     rs = np.random.RandomState(1)
-    C, Hf, Wf = RCNN_FEAT
+    _, Hf, Wf = RCNN_FEAT
     A = len(RCNN_RPN["scales"]) * len(RCNN_RPN["ratios"])
     cls = rs.uniform(0, 1, (2, 2 * A, Hf, Wf)).astype(np.float32)
     box = (rs.standard_normal((2, 4 * A, Hf, Wf)) * 0.1).astype(np.float32)
     info = np.array([RCNN_IMAGE + (1.0,)] * 2, np.float32)
-    nd_in = [mx.nd.array(a, ctx=ctx) for a in (cls, box, info)]
+    return rs, [mx.nd.array(a, ctx=ctx) for a in (cls, box, info)]
+
+
+def vision_rcnn(mx, det, card, ctx):
+    """(b): Faster R-CNN's proposals, ROIPooling and ROIAlign."""
+    t0 = time.perf_counter()
+    rs, nd_in = rcnn_inputs(mx, ctx)
+    C, Hf, Wf = RCNN_FEAT
 
     def rpn(c, b, i):
         return [mx.nd.contrib.Proposal(c[:1], b[:1], i[:1], **RCNN_RPN),
@@ -14978,7 +15058,7 @@ def kernel_row(name, source, replaces, path, shape, launches, rec, err):
                max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
                library_ms=rec["library_ms"], ok=True)
-    row.update((key, rec[key]) for key in ("cold_ms", "splits")
+    row.update((key, rec[key]) for key in ("cold_ms", "splits", "parts_ms")
                if key in rec)
     return row
 
@@ -15147,6 +15227,12 @@ def main():
              % (SSD_BATCH, SSD_ANCHORS), "ssd"),
             ("rpn proposal", "B1 n%d +1 IoU"
              % RCNN_RPN["rpn_pre_nms_top_n"], "rpn"))] + [
+        kernel_row("nms_sweep", NMS_SRC, NMS_TPU,
+                   "ssd detection, force_suppress",
+                   "B%d n%d corner IoU, one chain a sample"
+                   % (SSD_BATCH, SSD_ANCHORS),
+                   {"nms_sweep": vision["ssd"]["force"]["launches"]},
+                   vision["ssd"]["force"], vision["ssd"]["force"]["err"])] + [
         kernel_row(kname, FWD_SRC if kname == "flash_fwd" else BWD_SRC[kname],
                    FWD_TPU if kname == "flash_fwd" else BWD_TPU[kname],
                    "in-process mesh [gpu(0), cpu(0)]", DM_ATT_SHAPE,

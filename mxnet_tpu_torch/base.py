@@ -7,7 +7,7 @@ import threading
 
 __all__ = ["MXNetError", "NotImplementedForSymbol", "get_env", "Registry",
            "string_types", "numeric_types", "integer_types",
-           "classproperty", "atomic_write_bytes"]
+           "classproperty", "atomic_write_bytes", "build_param_doc"]
 
 string_types = (str,)
 numeric_types = (float, int)
@@ -124,3 +124,24 @@ class Registry:
 
     def keys(self):
         return list(self._entries.keys())
+
+    def items(self):
+        return list(self._entries.items())
+
+
+def build_param_doc(arg_names, arg_types, arg_descs, remove_dup=True):
+    """The numpydoc ``Parameters`` block of an operator's arguments
+    (mxnet.base.build_param_doc): ``name : type`` and its description
+    indented below, a repeated name once unless ``remove_dup`` is
+    False."""
+    param_keys = set()
+    param_str = []
+    for key, type_info, desc in zip(arg_names, arg_types, arg_descs):
+        if key in param_keys and remove_dup:
+            continue
+        param_keys.add(key)
+        ret = "%s : %s" % (key, type_info)
+        if len(desc) != 0:
+            ret += "\n    " + desc
+        param_str.append(ret)
+    return "Parameters\n----------\n%s\n" % "\n".join(param_str)

@@ -227,6 +227,8 @@ class _Watch:
         self.cache_hits = 0     # captures whose device code all came
                                 # from the persistent compile cache
         self.programs = {}      # (site, statics) -> per-program dict
+        self.site_last = {}     # site -> (flops, bytes) of its latest
+                                # dispatch
         self.storms = []
         self.dispatches = 0
         self.step_flops = 0.0
@@ -494,7 +496,8 @@ def note_compile(site, tensors, dur, cost, replaced=()):
 
 
 def accrue(site, entry):
-    """Accrue one call of a compiled program into the current step."""
+    """Accrue one call of a compiled program at ``site`` (a
+    :class:`Site` or its name) into the current step."""
     w = _watch
     if w is None or entry is None:
         return
@@ -504,6 +507,25 @@ def accrue(site, entry):
         w.step_flops += entry["flops"]
         w.step_flops_norm += entry["flops_norm"]
         w.step_bytes += entry["bytes"]
+        if site is not None:
+            w.site_last[getattr(site, "name", site)] = (entry["flops"],
+                                                        entry["bytes"])
+
+
+def last_dispatch(site):
+    """The cost of the latest watched dispatch at ``site``,
+    ``{"flops", "bytes"}`` as the watch recorded it for the program
+    (its counted FLOPs and bytes), or None when the watch is off or
+    the site has not dispatched: the metering layer's cost of a
+    program run."""
+    w = _watch
+    if w is None:
+        return None
+    with _lock:
+        c = w.site_last.get(site)
+    if c is None:
+        return None
+    return {"flops": c[0], "bytes": c[1]}
 
 
 class WatchedFunction:

@@ -19,7 +19,7 @@ import threading
 import torch
 
 from . import envs
-from .base import MXNetError
+from .base import MXNetError, classproperty
 
 __all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
            "num_gpus", "gpu_memory_info", "as_context", "context_of",
@@ -86,6 +86,19 @@ class Context:
             raise MXNetError("context %s: only %d CUDA device(s) visible"
                              % (self, torch.cuda.device_count()))
         return torch.device("cuda", self.device_id)
+
+    @classproperty
+    def default_ctx(cls):
+        """This thread's current context (:func:`current_context`)."""
+        return current_context()
+
+    def empty_cache(self):
+        """Release the torch caching allocator's unused blocks on this
+        context's CUDA device; nothing on a host context."""
+        if self.device_type in ("cpu", "cpu_pinned"):
+            return
+        with torch.cuda.device(self.torch_device()):
+            torch.cuda.empty_cache()
 
 
 def cpu(device_id=0):

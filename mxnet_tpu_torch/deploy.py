@@ -540,6 +540,8 @@ class Predictor:
             outs = [o[:batch] for o in outs]
         return outs[0] if single else tuple(outs)
 
+    predict = __call__
+
 
 def _load_program(blob, weights, device):
     """One bucket's exported program: its weights filled in from the

@@ -536,6 +536,24 @@ class Executor:
         return gens
 
     @property
+    def cw_cache_token(self):
+        """The bound graph's content fingerprint for the persistent
+        compile cache (``compile_cache.graph_token`` of its JSON): two
+        symbols of one shape signature differ there. None while no cache
+        is on (not latched: one may come on later) or when the graph
+        does not serialize."""
+        if not hasattr(self, "_cw_token"):
+            from . import compile_cache
+            if not compile_cache.enabled():
+                return None
+            try:
+                self._cw_token = compile_cache.graph_token(
+                    self._symbol.tojson())
+            except Exception:       # a graph that will not serialize
+                self._cw_token = None
+        return self._cw_token
+
+    @property
     def grouped(self):
         """True for a placed executor (``group2ctx`` names a group)."""
         return self._op_ctxs is not None

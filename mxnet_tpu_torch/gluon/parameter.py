@@ -285,6 +285,25 @@ class Parameter:
         if self._grad is not None:
             self._grad[:] = 0
 
+    def reset_ctx(self, ctx):
+        """Move the value and its gradient to ``ctx`` (a context or a
+        list of them, the first holding the arrays, as in ``initialize``)
+        with their values unchanged; a deferred parameter will be
+        initialized there, one never initialized is left as it is."""
+        ctx_list = _as_ctx_list(ctx)
+        if self._data is None:
+            if self._pending is not None:
+                self._pending = self._pending._replace(ctx_list=ctx_list)
+            return
+        with autograd.pause():
+            self._data = self._data.as_in_context(ctx_list[0])
+            self._data._param_name = self.name
+            if self._grad is not None:
+                self._grad = self._grad.as_in_context(ctx_list[0])
+            autograd.mark_variables([self._data], [self._grad],
+                                    [self._grad_req])
+        self._ctx_list = ctx_list
+
     def cast(self, dtype):
         """New arrays of ``dtype`` for the value and its gradient (a
         hybridized block's graph then recaptures over them)."""
@@ -441,12 +460,19 @@ class ParameterDict:
                    force_reinit=False):
         if init is None:
             init = initializer.Uniform()
+        if verbose and hasattr(init, "set_verbosity"):
+            init.set_verbosity(verbose=verbose)
         for param in self.values():
             param.initialize(None, ctx, init, force_reinit=force_reinit)
 
     def zero_grad(self):
         for param in self.values():
             param.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """Every parameter's :meth:`Parameter.reset_ctx`."""
+        for param in self.values():
+            param.reset_ctx(ctx)
 
     def setattr(self, name, value):
         for param in self.values():

@@ -65,6 +65,13 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+        self._verbose, self._print_func = False, None
+
+    def set_verbosity(self, verbose=False, print_func=None):
+        """Keep the verbosity settings (the reference prints each
+        parameter's statistics with them); returns the initializer."""
+        self._verbose, self._print_func = verbose, print_func
+        return self
 
     def dumps(self):
         """Serialized ``[name, kwargs]`` form (a Symbol variable's

@@ -9,10 +9,12 @@ Greedy NMS is the keep mask of the suppression chain: box i (in score
 order) is kept iff no kept box before it overlaps it above the
 threshold. The JAX package walks it with ``lax.scan`` over an (n, n)
 IoU matrix; here :func:`nms_keep` launches ``parallel/csrc/
-nms_sweep.cu`` on a CUDA tensor (a bit mask of the overlaps, 64 boxes a
-word, then one block a sample sweeping it) and runs
-:func:`nms_keep_plain` on a CPU tensor. Its IoU takes the JAX package's
-operations in their order, so the keep masks are equal bit for bit.
+nms_sweep.cu`` on a CUDA tensor (one chain a class, from a stable sort of
+the class ids; a short chain's bit mask and sweep in one block's shared
+memory, a long chain's mask across the card and its sweep 64 boxes a
+step) and runs :func:`nms_keep_plain` on a CPU tensor. Its IoU takes the
+JAX package's operations in their order, so the keep masks are equal bit
+for bit.
 ``nms_topk`` (MultiBoxDetection) and ``topk`` (box_nms) are accepted and
 not read, as in the JAX package: NMS runs over every box.
 
@@ -104,6 +106,68 @@ def nms_keep_plain(boxes, thresh, cls=None, plus_one=False):
     return keep
 
 
+def _nms_order(cls):
+    """Each sample's positions in class order, (B, n) int64, or None
+    without a class gate: a stable sort of the ids (-0 folded onto +0),
+    so a class's boxes lie together in score order and the kernel's
+    chains are the runs of one id."""
+    if cls is None:
+        return None
+    return torch.argsort(cls + 0.0, dim=-1, stable=True)
+
+
+# the kernel's passes as bits (nms_sweep.cu's `passes`): all of them
+NMS_ALL_PASSES = 15
+# the longest chain the kernel sweeps in one block's shared memory
+# (kShortMax in nms_sweep.cu); longer ones take the card-wide mask
+NMS_SHORT_CHAIN = 512
+
+
+def _nms_launch(fn, boxes, thresh, cls, order, plus_one, work, keep,
+                passes=NMS_ALL_PASSES, stream=None):
+    """Run ``nms_sweep.cu``'s entry ``fn`` over ``boxes`` (B, n, 4) fp32
+    in score order into ``keep`` (B, n) bool, with ``cls`` and ``order``
+    (:func:`_nms_order`) or neither, in ``work`` (``fn.workspace(B, n)``
+    bytes); ``passes`` picks the kernel's passes (all: the call)."""
+    B, n = boxes.shape[:2]
+    rc = fn(boxes.data_ptr(), None if cls is None else cls.data_ptr(),
+            None if order is None else order.data_ptr(), work.data_ptr(),
+            keep.data_ptr(), B, n, float(thresh), int(bool(plus_one)),
+            passes, stream)
+    if rc != 0:
+        raise MXNetError("nms_sweep: kernel launch failed with cudaError %d"
+                         % rc)
+    return keep
+
+
+# (device index, stream) -> the kernel's workspace, grown to the largest
+# call made there; the oldest goes past _WORKSPACES_KEPT (each is used on
+# the stream it was allocated on only, so freeing one is safe)
+_workspaces = {}
+_WORKSPACES_KEPT = 4
+
+
+def _nms_workspace(fn, device, B, n):
+    """``fn.workspace(B, n)`` bytes on ``device``: kept per device and
+    stream (grown, never shrunk); under a CUDA graph capture taken anew
+    from the graph's pool."""
+    size = int(fn.workspace(B, n))
+    if size < 0:
+        raise MXNetError("nms_keep: %d boxes a sample over %d samples is "
+                         "beyond the kernel's range" % (n, B))
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(size, dtype=torch.uint8, device=device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    work = _workspaces.get(key)
+    if work is None or work.numel() < size:
+        _workspaces.pop(key, None)    # the allocator may reuse it now
+        while len(_workspaces) >= _WORKSPACES_KEPT:
+            _workspaces.pop(next(iter(_workspaces)))
+        work = _workspaces[key] = torch.empty(size, dtype=torch.uint8,
+                                              device=device)
+    return work
+
+
 def _nms_cuda(boxes, thresh, cls, plus_one):
     from ..parallel import _build
     if boxes.dtype != torch.float32:
@@ -113,20 +177,16 @@ def _nms_cuda(boxes, thresh, cls, plus_one):
     boxes = boxes.contiguous()
     if cls is not None:
         cls = cls.to(device=boxes.device, dtype=torch.float32).contiguous()
-    nw = (n + 63) // 64
     keep = torch.empty((B, n), dtype=torch.bool, device=boxes.device)
     if keep.numel() == 0:
         return keep
-    mask = torch.empty((B, n, nw), dtype=torch.int64, device=boxes.device)
     fn = _build.library("nms_sweep")
     with torch.cuda.device(boxes.device):
-        rc = fn(boxes.data_ptr(), None if cls is None else cls.data_ptr(),
-                mask.data_ptr(), keep.data_ptr(), B, n, float(thresh),
-                int(bool(plus_one)),
-                torch.cuda.current_stream(boxes.device).cuda_stream)
-    if rc != 0:
-        raise MXNetError("nms_sweep: kernel launch failed with cudaError %d"
-                         % rc)
+        order = _nms_order(cls)
+        work = _nms_workspace(fn, boxes.device, B, n)
+        _nms_launch(fn, boxes, thresh, cls, order, plus_one, work, keep,
+                    stream=torch.cuda.current_stream(boxes.device)
+                    .cuda_stream)
     launches["nms_sweep"] += 1
     return keep
 

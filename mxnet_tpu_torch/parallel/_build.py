@@ -210,7 +210,8 @@ def _declare(lib, name):
     """The ctypes signature of kernel ``name``'s C entry point; a decode
     kernel's also carries, as ``.splits``, the host's choice of splits
     of the cache for its shapes ``(B, H, T, D)``, which the entry point
-    takes when it is given 0 splits."""
+    takes when it is given 0 splits; ``nms_sweep``'s, as ``.workspace``,
+    the bytes of device memory it takes at ``(B, n)``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_fwd":
         fn = lib.mxt_flash_fwd
@@ -228,7 +229,10 @@ def _declare(lib, name):
         fn.argtypes = [p] * 9 + [i, i, i, i, i, f, i, p]
     elif name == "nms_sweep":
         fn = lib.mxt_nms_sweep
-        fn.argtypes = [p] * 4 + [i, i, f, i, p]
+        fn.argtypes = [p] * 5 + [i, i, f, i, i, p]
+        fn.workspace = lib.mxt_nms_workspace
+        fn.workspace.argtypes = [i, i]
+        fn.workspace.restype = ctypes.c_longlong
     else:
         fn = lib.mxt_flash_bwd_dq
         fn.argtypes = [p] * 8 + [i, i, i, i, i, f, i, p]

@@ -1723,6 +1723,12 @@ class DecodeServer:
         }
         return out
 
+    def latency_snapshot(self):
+        """Recent inter-token intervals (ms), oldest first: the /metrics
+        decode histogram's source."""
+        with self._cond:
+            return list(self._intervals)
+
     def _emit_record(self):
         st = self.stats()
         telemetry.decode_event(st)

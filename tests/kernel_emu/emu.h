@@ -5,11 +5,13 @@
 // alone is a cluster of one), __syncthreads is a block-wide std::barrier, a
 // cluster barrier a cluster-wide one, and a warp's shuffles and
 // mma.sync.m16n8k8 (TF32 inputs, fp32 sums) exchange their lanes' values
-// through a warp-wide one. Shared memory starts as NaNs, so a read of a slot
-// nothing wrote shows. The test rewrites the sources' inline PTX (cp.async,
-// mma.sync, the cluster barrier and the mapping of a peer block's shared
-// memory), their dynamic shared memory and their <<<...>>> and cluster
-// launches into calls of what is here.
+// through a warp-wide one, as do its votes (__ballot_sync, __reduce_or_sync)
+// and __syncwarp. Atomics are the compiler's, memsets on a stream happen at
+// once. Shared memory starts as NaNs, so a read of a slot nothing wrote
+// shows. The test rewrites the sources' inline PTX (cp.async, mma.sync, the
+// cluster barrier and the mapping of a peer block's shared memory), their
+// dynamic shared memory and their <<<...>>> and cluster launches into calls
+// of what is here.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -24,6 +26,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __restrict__
 using std::max;
@@ -46,6 +49,11 @@ enum {
 };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t bytes,
+                                   cudaStream_t) {
+  std::memset(p, v, bytes);
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 // an H100's 132 SMs, for the kernels' host-side choices
@@ -66,6 +74,17 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+// one rounding of a * b + c (glibc's fmaf is exact without the instruction)
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 // a read through the read-only cache: a plain read here
 template <class T>
 T __ldg(const T* p) { return *p; }
@@ -123,6 +142,32 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   W.f[slot][lane] = v;
   W.bar.arrive_and_wait();
   return W.f[slot][lane ^ mask];
+}
+
+// OR of v over the warp's lanes
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  EmuWarp& W = emu_warp();
+  const int lane = threadIdx.x & 31, slot = emu_exchanges++ & 1;
+  W.m[slot][lane][0] = v;
+  W.bar.arrive_and_wait();
+  unsigned out = 0u;
+  for (int l = 0; l < 32; ++l) out |= W.m[slot][l][0];
+  return out;
+}
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp().bar.arrive_and_wait();
+}
+
+// bit l set where lane l's `pred` is true
+inline unsigned __ballot_sync(unsigned, int pred) {
+  EmuWarp& W = emu_warp();
+  const int lane = threadIdx.x & 31, slot = emu_exchanges++ & 1;
+  W.m[slot][lane][0] = pred ? 1u : 0u;
+  W.bar.arrive_and_wait();
+  unsigned bits = 0u;
+  for (int l = 0; l < 32; ++l) bits |= W.m[slot][l][0] << l;
+  return bits;
 }
 
 // d += a b for the warp's m16n8k8 fragments (a: rows g, g+8 x columns t,

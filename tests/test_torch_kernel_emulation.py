@@ -374,8 +374,8 @@ tdet = importlib.import_module("mxnet_tpu_torch.ops.detection")
 
 @pytest.fixture(scope="module")
 def nms_lib(tmp_path_factory):
-    """``nms_sweep.cu`` built by g++ under emu.h, declared as the port
-    declares the card's."""
+    """``nms_sweep.cu`` built by g++ under emu.h (its cp.async copies done
+    at once), declared as the port declares the card's."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the kernel emulation")
@@ -385,6 +385,11 @@ def nms_lib(tmp_path_factory):
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     src = src.replace("extern __shared__ float4 smem4[];",
                       "float4* smem4 = emu_smem;")
+    for signature, body in (
+            ("void cp_async_words(", "  std::memcpy(dst, src, 8 * kCopyWords);"),
+            ("void cp_async_commit(", ""),
+            ("void cp_async_wait_stages(", "")):
+        src = _replace_body(src, signature, body)
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(",
                  lambda m: "emu_launch(%s, %s, " % (
                      m.group(1), ",".join(m.group(2).split(",")[:3])),
@@ -401,20 +406,31 @@ def nms_lib(tmp_path_factory):
     return _build._declare(ctypes.CDLL(lib), "nms_sweep")
 
 
+def test_nms_short_chain_limit_is_the_kernels():
+    """``NMS_SHORT_CHAIN`` (what chip_smoke.py reports chains against) is
+    the source's kShortMax."""
+    with open(os.path.join(_build._CSRC, _build.SOURCES["nms_sweep"])) as f:
+        limit = re.search(r"constexpr int kShortMax = (\d+);", f.read())
+    assert int(limit.group(1)) == tdet.NMS_SHORT_CHAIN
+
+
 def _sweep(fn, boxes, thresh, cls=None, plus_one=False):
-    """The emulated kernel's keep mask (B, n) over sorted ``boxes``."""
+    """The emulated kernel's keep mask (B, n) over sorted ``boxes``,
+    through the port's own glue (``_nms_order``, ``_nms_launch``) in a
+    workspace of garbage and into a keep mask of 7s (each entry must be
+    written)."""
     B, n = boxes.shape[:2]
-    boxes = np.ascontiguousarray(boxes, np.float32)
-    cls = None if cls is None else np.ascontiguousarray(cls, np.float32)
-    nw = (n + 63) // 64
-    mask = np.zeros((B, n, nw), np.uint64)
-    keep = np.full((B, n), 7, np.uint8)     # not a bool: must be written
-    rc = fn(boxes.ctypes.data, None if cls is None else cls.ctypes.data,
-            mask.ctypes.data, keep.ctypes.data, B, n, thresh, int(plus_one),
-            None)
-    assert rc == 0
-    assert set(np.unique(keep)) <= {0, 1}
-    return keep.astype(bool)
+    boxes = torch.from_numpy(np.ascontiguousarray(boxes, np.float32))
+    cls = None if cls is None else torch.from_numpy(
+        np.ascontiguousarray(cls, np.float32))
+    size = fn.workspace(B, n)
+    assert size > 0
+    work = torch.full((size,), 0xAB, dtype=torch.uint8)
+    keep = torch.full((B, n), 7, dtype=torch.uint8)
+    tdet._nms_launch(fn, boxes, thresh, cls, tdet._nms_order(cls),
+                     plus_one, work, keep.view(torch.bool))
+    assert set(np.unique(keep.numpy())) <= {0, 1}
+    return keep.numpy().astype(bool)
 
 
 def _nms_boxes(B, n, seed, plus_one):
@@ -488,3 +504,137 @@ def test_nms_sweep_with_tied_scores_matches_jax(nms_lib, n):
                           torch.from_numpy(scores)[None], 0.45,
                           torch.from_numpy(cls)[None])
     np.testing.assert_array_equal(port[0].numpy(), got)
+
+
+# the class gates of the chain cases: none, one id for every box, 2 or 20
+# ids drawn at random (interleaved in score order), 20 ids with a group of
+# -1 (60% of the boxes: a long chain at n = 1000 beside short ones), and
+# odd ids (0.0 beside -0.0, NaN, -1)
+NMS_GATES = ("none", "one", "two", "twenty", "neg1", "odd")
+
+
+def _nms_ids(gate, B, n, seed):
+    rs = np.random.RandomState(seed)
+    if gate == "none":
+        return None
+    if gate == "one":
+        return np.full((B, n), 4.0, np.float32)
+    if gate in ("two", "twenty"):
+        return rs.randint(0, 2 if gate == "two" else 20, (B, n)).astype(
+            np.float32)
+    if gate == "neg1":
+        ids = rs.randint(0, 20, (B, n)).astype(np.float32)
+        ids[:, rs.rand(n) < 0.6] = -1.0
+        return ids
+    return rs.choice(np.array([0.0, -0.0, 1.0, np.nan, -1.0], np.float32),
+                     (B, n))
+
+
+def _nms_case_boxes(B, n, seed, plus_one):
+    """``_nms_boxes`` with, for the +1 IoU, a pair at exactly 0.5 too."""
+    boxes = _nms_boxes(B, n, seed, plus_one)
+    if plus_one and n >= 6:
+        boxes[:, 4] = [0.0, 0.0, 3.0, 0.0]
+        boxes[:, 5] = [0.0, 0.0, 1.0, 0.0]          # +1 IoU 2 / 4
+    return boxes
+
+
+def _apart(boxes, ids):
+    """Integer +1 boxes with each class moved 4096 a class along x (exact:
+    the coordinates stay integers under 2^24), so no two classes meet and
+    the ungated +1 chain of the JAX package is the gated one; a NaN id is a
+    class of its own, -0 is 0."""
+    key = ids + np.float32(0.0)
+    uniq = {v: i for i, v in enumerate(np.unique(key[~np.isnan(key)]))}
+    slot = np.array([uniq[v] if not np.isnan(v) else len(uniq) + k
+                     for k, v in enumerate(key)], np.float32)
+    out = boxes.copy()
+    out[:, 0] += 4096 * slot
+    out[:, 2] += 4096 * slot
+    return out
+
+
+def _nms_jax(boxes, thresh, ids, plus_one):
+    """The JAX package's keep mask of one sample's sorted boxes: ``_nms_mask``
+    (corner IoU, its own gate) or ``_greedy_nms_keep`` (+1 IoU, the gate by
+    ``_apart``)."""
+    n = boxes.shape[0]
+    if plus_one:
+        b = boxes if ids is None else _apart(boxes, ids)
+        return np.asarray(jdef._greedy_nms_keep(jnp.asarray(b), thresh))
+    return np.asarray(jdet._nms_mask(
+        jnp.asarray(boxes), -jnp.arange(n, dtype=jnp.float32), thresh,
+        None if ids is None else jnp.asarray(ids)))
+
+
+# (n, gate): every gate at the short sizes; the long chains at n = 1000
+NMS_CHAIN_CASES = [(n, gate) for n in (63, 64, 65, 127, 128, 129, 300)
+                   for gate in NMS_GATES] + [
+    (1000, gate) for gate in ("none", "one", "twenty", "neg1")]
+
+
+@pytest.mark.parametrize("plus_one", [False, True])
+@pytest.mark.parametrize("n,gate", NMS_CHAIN_CASES)
+def test_nms_sweep_chains_match_plain_and_jax(nms_lib, n, gate, plus_one):
+    """Each gate's chains (short ones in a block's shared memory, long ones
+    through the card-wide mask at n = 1000), through the port's class order
+    and the kernel's scatter back, bit-equal to ``nms_keep_plain`` and to
+    the JAX package at thresh 0.5 (the pairs at exactly 0.5 stay) and 0
+    (any overlap suppresses); two calls bit-identical."""
+    B = 2
+    boxes = _nms_case_boxes(B, n, seed=n + 11 * plus_one, plus_one=plus_one)
+    ids = _nms_ids(gate, B, n, seed=n + NMS_GATES.index(gate))
+    for thresh in (0.5, 0.0):
+        got = _sweep(nms_lib, boxes, thresh, ids, plus_one)
+        if thresh == 0.5:
+            np.testing.assert_array_equal(
+                _sweep(nms_lib, boxes, thresh, ids, plus_one), got)
+        plain = tdet.nms_keep_plain(
+            torch.from_numpy(boxes), thresh,
+            None if ids is None else torch.from_numpy(ids), plus_one)
+        np.testing.assert_array_equal(got, plain.numpy())
+        for b in range(B):
+            np.testing.assert_array_equal(
+                got[b], _nms_jax(boxes[b], thresh,
+                                 None if ids is None else ids[b], plus_one))
+    if gate == "none":      # a kept box's duplicate goes; 2 and 3 meet at 0.5
+        assert not (got[:, 1] & got[:, n // 2]).any()
+
+
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_nms_sweep_long_chain_in_column_slices(nms_lib, plus_one):
+    """One chain of 4200 boxes: its last two mask words' columns (4160 and
+    4200 rows) are longer than a sweep stage's 4096 rows, so each comes in
+    two pieces; bit-equal to ``nms_keep_plain`` and to the JAX package."""
+    n = 4200
+    boxes = _nms_case_boxes(1, n, seed=42 + plus_one, plus_one=plus_one)
+    got = _sweep(nms_lib, boxes, 0.5, None, plus_one)
+    plain = tdet.nms_keep_plain(torch.from_numpy(boxes), 0.5, None, plus_one)
+    np.testing.assert_array_equal(got, plain.numpy())
+    np.testing.assert_array_equal(got[0], _nms_jax(boxes[0], 0.5, None,
+                                                   plus_one))
+
+
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_nms_sweep_quotients_next_to_the_threshold(nms_lib, plus_one):
+    """A pair whose IoU q lies near 0.5 (corner) or 0.75 (+1), at
+    thresholds q, the float below and the float above, for 16 widths a few
+    ulps apart: where the kernel's division-free tests hand over to the IEEE
+    division. Bit-equal to ``nms_keep_plain`` and to the JAX package."""
+    width = np.float32(0.5)
+    for _ in range(8):
+        width = np.nextafter(width, np.float32(1))
+        top = np.float32(0.0 if plus_one else 1.0)
+        boxes = np.array([[[0.0, 0.0, 1.0, top], [0.0, 0.0, width, top]]],
+                         np.float32)
+        t = torch.from_numpy(boxes)
+        iou = (tdet._iou_plus_one if plus_one else tdet._iou_corner)(t, t)
+        q = np.float32(iou[0, 0, 1])
+        for thresh in (np.nextafter(q, np.float32(0)), q,
+                       np.nextafter(q, np.float32(1))):
+            got = _sweep(nms_lib, boxes, float(thresh), None, plus_one)
+            plain = tdet.nms_keep_plain(t, float(thresh), None, plus_one)
+            np.testing.assert_array_equal(got, plain.numpy())
+            np.testing.assert_array_equal(
+                got[0], _nms_jax(boxes[0], float(thresh), None, plus_one))
+            assert got[0, 1] == (thresh >= q)
